@@ -1,0 +1,409 @@
+"""Chip smoke test of the PyTorch/CUDA port: builds the hand-written CUDA
+kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
+PyTorch version on the card, drives the serving path (``serve()`` and
+streaming sessions) at the Braille network's full width through the
+kernels, and times them.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and the
+CUDA toolkit's ``nvcc``.  Exits non-zero, printing no result, when CUDA is
+unavailable, when run outside a checkout, or when any phase fails.  The
+last line of standard output is one JSON object with the device; the line
+before it lists every kernel with its launches on the main path, its error
+against the plain version, its time, the plain version's time and its
+bound on this card.
+
+Phases:
+  (a) build the kernel library (one nvcc) and print the build seconds;
+  (b) kernel == plain version on the card: bitwise in quantized mode, and in
+      float mode within FLOAT_TOL, at the Braille shape (T=256, one full
+      serving tile, a ragged tile, B=1) and the chip-maximum 256/256/16
+      shape, with live holes, carried state and infer_window="all";
+  (c) BatchedEngine(CONFIG_QUANT, device="cuda").serve() on a few hundred
+      Braille requests, bitwise equal to the same requests through the
+      plain version (an engine on device="cpu"); run_tile drives rsnn_infer;
+  (d) a few hundred streaming sessions fed in ragged and word-sized chunks
+      (with pool evictions), results bitwise equal to (c);
+  (e) each kernel's launch count over (c) + (d) is > 0;
+  (f) each kernel timed with CUDA events at the main path's shape, beside
+      its plain version and its bound.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# Float-mode tolerance, kernel vs plain version: the weights are taken on
+# the Q(8,4) SRAM grid, so every product and partial sum is exact in f32
+# and only the (identically ordered) leak roundings remain; 1e-4 relative
+# absorbs any difference in the order of the accumulator sums.
+FLOAT_TOL = 1e-4
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SEED = 11
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def setup():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false — the port runs on the card")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        fail(f"no repro_torch package under {src}: run from a checkout")
+    sys.path.insert(0, str(src))
+    # The quantized plain version relies on full-f32 matmuls.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# (a) build
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.library()
+    secs = time.perf_counter() - t0
+    regs = [ln.strip() for ln in str(build.build_log.get("ptxas", "")).splitlines()
+            if "registers" in ln or "spill" in ln]
+    log(f"(a) ok: kernels built and loaded in {secs:.1f} s: {' | '.join(regs)}")
+
+
+# ---------------------------------------------------------------------------
+# (b) kernel vs plain version
+# ---------------------------------------------------------------------------
+
+
+def _inputs(gen, T, B, n_in, density, dev):
+    raster = (torch.rand((T, B, n_in), generator=gen) < density).float()
+    label_tick = torch.randint(0, T // 2, (B,), generator=gen)
+    end_tick = torch.randint(T // 2, T, (B,), generator=gen)
+    t = torch.arange(T)[:, None]
+    valid = ((t >= label_tick) & (t <= end_tick)).float()
+    n_live = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    live = (t < n_live).float()
+    live[T // 4: T // 4 + 5, ::3] = 0.0           # holes mid-chunk
+    return raster.to(dev), valid.to(dev), live.to(dev)
+
+
+def _err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _compare(name, got, want, quantized, errs):
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{name}: kernel output shape {tuple(g.shape)} / non-finite")
+        e = _err(g, w)
+        errs.append(e)
+        if quantized:
+            if not torch.equal(g, w):
+                fail(f"{name}: kernel differs from plain version (max {e})")
+        elif not torch.allclose(g, w, rtol=FLOAT_TOL, atol=FLOAT_TOL):
+            fail(f"{name}: float kernel off by {e} (> {FLOAT_TOL})")
+
+
+def phase_kernels_vs_plain(dev):
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.core.rsnn import Presets, init_params
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.serve import batching
+
+    gen = torch.Generator().manual_seed(SEED)
+    braille_q = Presets.braille(quantized=True)
+    braille_f = Presets.braille(quantized=False)
+    chipmax_q = Presets.braille(quantized=True, n_in=256, n_hid=256, n_out=16)
+    chipmax_q = dataclasses.replace(
+        chipmax_q, neuron=dataclasses.replace(chipmax_q.neuron, reset="sub"))
+    chipmax_f = dataclasses.replace(chipmax_q, neuron=dataclasses.replace(
+        chipmax_q.neuron, quant=None))
+    tile = batching.max_batch_for(braille_q)
+    cases = [
+        ("braille quant full tile", braille_q, tile, "valid", 0.12),
+        ("braille quant B=1", braille_q, 1, "valid", 0.12),
+        ("braille quant ragged all-window", braille_q, 335, "all", 0.12),
+        ("braille float full tile", braille_f, tile, "valid", 0.12),
+        ("chip-max quant", chipmax_q, batching.max_batch_for(chipmax_q), "valid", 0.05),
+        ("chip-max quant B=1", chipmax_q, 1, "all", 0.05),
+        ("chip-max float", chipmax_f, 64, "valid", 0.05),
+    ]
+    errs = {"rsnn_infer": [], "rsnn_step_sessions": []}
+    T = 256
+    for name, cfg, B, window, density in cases:
+        cfg = dataclasses.replace(cfg, eprop=dataclasses.replace(
+            cfg.eprop, infer_window=window))
+        quantized = cfg.neuron.quant is not None
+        be = ExecutionBackend(cfg, device=dev)
+        params = init_params(gen, cfg, device=dev)
+        # weights on the SRAM grid in both modes (see FLOAT_TOL)
+        params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+                  if k != "alpha" else v for k, v in params.items()}
+        w_in, w_rec, w_out = be.datapath_weights(params)
+        raster, valid, live = _inputs(gen, T, B, cfg.n_in, density, dev)
+        kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+                  reset=cfg.neuron.reset, quant=be.quant, infer_window=window)
+        got = K.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw)
+        want = K.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw)
+        torch.cuda.synchronize()
+        _compare(f"{name} rsnn_infer", got, want, quantized, errs["rsnn_infer"])
+        spikes = float(want[1].sum())
+        # two chained chunks: the second starts from the first's carries
+        st = be.init_session_state(B)
+        carries = [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
+        half = T // 2
+        for lo, hi in ((0, half), (half, T)):
+            args = (raster[lo:hi].contiguous(), live[lo:hi].contiguous(),
+                    (valid[lo:hi] * live[lo:hi]).contiguous(), *carries,
+                    w_in, w_rec, w_out)
+            got = K.rsnn_step_sessions_cuda(*args, **kw)
+            want = K.rsnn_step_sessions_plain(*args, **kw)
+            torch.cuda.synchronize()
+            _compare(f"{name} rsnn_step_sessions [{lo}:{hi}]", got, want,
+                     quantized, errs["rsnn_step_sessions"])
+            carries = list(want)
+        log(f"(b) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
+            f"window={window}, spikes={spikes:.0f})")
+    return {k: max(v) for k, v in errs.items()}
+
+
+# ---------------------------------------------------------------------------
+# (c) serve(), (d) sessions, (e) launch counts
+# ---------------------------------------------------------------------------
+
+
+def _requests():
+    from repro_torch.data.braille import BrailleConfig, make_braille_dataset
+    from repro_torch.serve import batching
+
+    data = make_braille_dataset("AEU", BrailleConfig(num_ticks=256,
+                                                     samples_per_class=100))
+    reqs = [batching.trim_padding(row) for split in ("train", "val", "test")
+            for row in data[split]["events"]]
+    return reqs, data["train"]["event_density"]
+
+
+def phase_serve(dev, params, reqs):
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.serve import BatchedEngine
+
+    eng = BatchedEngine(CONFIG_QUANT, params, device=dev)
+    t0 = time.perf_counter()
+    res, stats = eng.serve(iter(reqs))
+    wall = time.perf_counter() - t0
+    # the same requests through the plain version
+    ref_eng = BatchedEngine(CONFIG_QUANT, {k: v.cpu() for k, v in params.items()},
+                            device="cpu")
+    ref, _ = ref_eng.serve(iter(reqs))
+    if len(res) != len(reqs) or len(ref) != len(reqs):
+        fail("serve() returned a result count unlike the request count")
+    for r, g in zip(res, ref):
+        if r.logits.shape != (CONFIG_QUANT.n_out,) or not np.isfinite(r.logits).all():
+            fail(f"request {r.rid}: bad logits {r.logits}")
+        if r.pred != g.pred or not np.array_equal(r.logits, g.logits):
+            fail(f"request {r.rid}: card {r.logits} != plain {g.logits}")
+    # the inference op through run_tile on the same requests
+    for ev in reqs:
+        eng.submit(ev)
+    tiles = list(eng.scheduler.drain())
+    got = [r for t in tiles for r in eng.run_tile(t)]
+    for r, g in zip(got, ref):
+        if r.pred != g.pred or not np.array_equal(r.logits, g.logits):
+            fail(f"run_tile request: card {r.logits} != plain {g.logits}")
+    acc = float(np.mean([r.pred == r.label for r in res]))
+    log(f"(c) ok: serve() {len(res)} requests in {stats.batches} tile(s), "
+        f"{wall * 1e3:.1f} ms wall, {stats.samples_per_sec:.0f} samples/s, "
+        f"bitwise equal to the plain version; run_tile {len(tiles)} tile(s) "
+        f"equal too; accuracy of the random-weight net {acc:.3f}")
+    return res, stats
+
+
+def phase_sessions(dev, params, reqs, served):
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.serve import BatchedEngine
+
+    eng = BatchedEngine(CONFIG_QUANT, params, device=dev, max_batch=128,
+                        max_sessions=128, tick_tile=32)
+    rng = np.random.default_rng(SEED)
+    handles = [eng.open_session() for _ in reqs]
+    feeds = []
+    for i, ev in enumerate(reqs):
+        if i % 2:
+            feeds.append([ev[j:j + 1] for j in range(len(ev))])
+        else:
+            cuts = np.sort(rng.integers(0, len(ev) + 1, size=12))
+            feeds.append([ev[a:b] for a, b in zip([0, *cuts], [*cuts, len(ev)])])
+    t0 = time.perf_counter()
+    for step in range(max(len(f) for f in feeds)):
+        for h, f in zip(handles, feeds):
+            if step < len(f):
+                h.feed(f[step])
+        if step % 24 == 0:
+            eng.pump()
+    snaps = [h.result() for h in handles]
+    wall = time.perf_counter() - t0
+    for s, r in zip(snaps, served):
+        if not s.final or s.pred != r.pred or not np.array_equal(s.logits, r.logits):
+            fail(f"session {s.sid}: {s.logits} != serve() {r.logits}")
+    ev = eng.pool.evictions
+    if ev == 0:
+        fail("the session pool never evicted: readmission went untested")
+    log(f"(d) ok: {len(snaps)} sessions fed ragged/word-sized chunks, "
+        f"{ev} evictions / {eng.pool.readmissions} readmissions, "
+        f"{wall:.1f} s wall, results bitwise equal to serve()")
+
+
+# ---------------------------------------------------------------------------
+# (f) timing
+# ---------------------------------------------------------------------------
+
+
+def _time(fn, iters=20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_timing(dev, params, B):
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT as cfg
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.kernels import traffic
+    from repro_torch.serve.batching import max_batch_for
+
+    T, N, H, O = 256, cfg.n_in, cfg.n_hid, cfg.n_out
+    be = ExecutionBackend(cfg, device=dev)
+    w_in, w_rec, w_out = be.datapath_weights(params)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    raster, valid, live = _inputs(gen, T, B, N, 0.12, dev)
+    st = be.init_session_state(B)
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, quant=be.quant)
+    # dense f32 multiply-adds, as the kernels compute them
+    flops = T * B * 2 * K.weight_elems(N, H, O)
+    rows = {}
+    for name, kern, plain, nbytes in (
+        ("rsnn_infer",
+         lambda: K.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw),
+         lambda: K.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw),
+         traffic.infer_fused_tiled_bytes(T, B, N, H, O)),
+        ("rsnn_step_sessions",
+         lambda: K.rsnn_step_sessions_cuda(
+             raster, live, valid, st["v"], st["z"], st["y"], st["acc_y"],
+             st["n_spk"], w_in, w_rec, w_out, **kw),
+         lambda: K.rsnn_step_sessions_plain(
+             raster, live, valid, st["v"], st["z"], st["y"], st["acc_y"],
+             st["n_spk"], w_in, w_rec, w_out, **kw),
+         traffic.stream_step_tiled_bytes(T, B, N, H, O)),
+    ):
+        t_plain_a = _time(plain, iters=3)
+        t_kern_a = _time(kern)
+        t_kern_b = _time(kern)
+        t_plain_b = _time(plain, iters=3)
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_f = flops / F32_FLOPS_PER_S * 1e3
+        rows[name] = dict(
+            ms=min(t_kern_a, t_kern_b), plain_ms=min(t_plain_a, t_plain_b),
+            bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
+            shape=f"T={T} B={B} {N}/{H}/{O}",
+        )
+        log(f"(f) {name} at T={T}, B={B}, {N}/{H}/{O}: kernel "
+            f"{t_kern_a:.4f} / {t_kern_b:.4f} ms, plain {t_plain_a:.3f} / "
+            f"{t_plain_b:.3f} ms, bound {max(t_b, t_f):.6f} ms "
+            f"(bytes {nbytes}, flops {flops})")
+    # One tile's time against its width: if the serial tick chain sets the
+    # pace, a single row and a full serving tile take about as long as B.
+    for b in (1, max_batch_for(cfg)):
+        r, v, _ = _inputs(gen, T, b, N, 0.12, dev)
+        ms = _time(lambda: K.rsnn_infer_cuda(r, v, w_in, w_rec, w_out, **kw))
+        log(f"(f) rsnn_infer at T={T}, B={b}, {N}/{H}/{O}: kernel {ms:.4f} ms")
+    return rows
+
+
+def main() -> None:
+    setup()
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.rsnn import init_params
+    from repro_torch.kernels import ops
+    from repro_torch.serve import batching
+
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    phase_build()
+    errs = phase_kernels_vs_plain(dev)
+
+    params = init_params(torch.Generator().manual_seed(SEED), CONFIG_QUANT,
+                         device=dev)
+    reqs, density = _requests()
+    log(f"requests: {len(reqs)} Braille samples, event density {density:.4f}")
+    ops.reset_launch_counts()
+    served, stats = phase_serve(dev, params, reqs)
+    phase_sessions(dev, params, reqs, served)
+    launches = dict(ops.launches)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was never launched on the main path")
+    log(f"(e) ok: launches on the main path {launches}")
+
+    b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
+    rows = phase_timing(dev, params, b_tile)
+    card = card_line()
+    source = "src/repro_torch/kernels/csrc/rsnn_serve.cu"
+    replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
+                "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963"}
+    kernels = []
+    for name in ops.KERNELS:
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"],
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,59 @@
+"""Kernel dispatch by tensor device, with a launch counter per kernel.
+
+Each public op takes its tensors where they lie: on a CUDA device it
+launches the hand-written kernel; on the CPU it runs the plain PyTorch
+version.  Any other device raises — there is no silent fallback, and a
+failed build or launch propagates.
+
+``launches`` (re-exported from :mod:`repro_torch.kernels.rsnn_step`, whose
+wrappers count each launch) holds plain integers: a run sets them to 0,
+drives the main path, and reads them back to show the path went through
+the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quant import QuantizedMode
+from repro_torch.kernels import rsnn_step as _rsnn
+from repro_torch.kernels.rsnn_step import KERNELS, launches, reset_launch_counts
+
+__all__ = ["KERNELS", "launches", "reset_launch_counts", "rsnn_infer",
+           "rsnn_step_sessions"]
+
+
+def _on_card(t: torch.Tensor, op: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: no kernel or plain version for device {t.device}")
+
+
+def rsnn_infer(raster, valid, w_in, w_rec, w_out, *, alpha: float,
+               kappa: float, v_th: float = 1.0, reset: str = "sub",
+               quant: Optional[QuantizedMode] = None,
+               infer_window: str = "valid"):
+    """Inference over one ``(T, B)`` tile → ``(acc_y (B, O), n_spk (B, 1))``."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset, quant=quant,
+              infer_window=infer_window)
+    if not _on_card(raster, "rsnn_infer"):
+        return _rsnn.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw)
+    return _rsnn.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw)
+
+
+def rsnn_step_sessions(raster, live, valid, v0, z0, y0, acc0, nspk0, w_in,
+                       w_rec, w_out, *, alpha: float, kappa: float,
+                       v_th: float = 1.0, reset: str = "sub",
+                       quant: Optional[QuantizedMode] = None,
+                       infer_window: str = "valid"):
+    """One session tick-tile, carries in and out → ``(v, z, y, acc_y, n_spk)``."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset, quant=quant,
+              infer_window=infer_window)
+    args = (raster, live, valid, v0, z0, y0, acc0, nspk0, w_in, w_rec, w_out)
+    if not _on_card(raster, "rsnn_step_sessions"):
+        return _rsnn.rsnn_step_sessions_plain(*args, **kw)
+    return _rsnn.rsnn_step_sessions_cuda(*args, **kw)

@@ -1,0 +1,339 @@
+"""Serving-side RSNN tick kernels for Hopper, their plain PyTorch versions,
+and the tile-sizing helpers they share (counterpart of
+:mod:`repro.kernels.rsnn_step`).
+
+Two kernels serve the whole-sample and streaming paths:
+
+* :func:`rsnn_infer_cuda` — ``rsnn_infer_kernel``: a ``(T, B)`` tile from
+  zero state, accumulating the valid-weighted readout ``acc_y (B, O)`` and
+  the valid-masked spike count ``n_spk (B, 1)`` on chip;
+* :func:`rsnn_step_sessions_cuda` — ``rsnn_step_sessions_kernel``: the
+  same tick loop from carried ``(v, z, y, acc_y, n_spk)`` rows, with the
+  ``live`` select, returning the final carries.
+
+Both live in ``csrc/rsnn_serve.cu`` and run the whole T-tick loop inside
+one launch, one block per tile of rows (see ``csrc/rsnn_tick.cuh``).  :func:`rsnn_infer_plain` and
+:func:`rsnn_step_sessions_plain` compute the same functions with eager
+PyTorch through :func:`tick_transition`; the CPU path runs them, and
+``chip_smoke.py`` holds the kernels against them on the card.
+:mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
+
+Tile sizing (one place, every caller derives from it): a block holds
+``rows`` batch rows with one thread per ``(row, hidden neuron)``, so a tile
+is bounded by the 1,024 threads of a block and by the 227 KB of shared
+memory a block may use on an H100; the weights are staged in shared memory
+when they fit beside the tile's state, and read from global memory / L2
+otherwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.quant import QuantizedMode
+
+# H100 (SXM) per-block limits and SM count (NVIDIA data sheet / Hopper
+# tuning guide): dynamic shared memory a block may opt into, threads a
+# block may launch, streaming multiprocessors on the card.
+SMEM_PER_BLOCK = 232448
+THREADS_PER_BLOCK = 1024
+H100_SMS = 132
+
+F32_BYTES = 4
+
+KERNELS = ("rsnn_infer", "rsnn_step_sessions")
+# Launches per kernel, counted by its wrapper right after the launch and
+# nowhere else: a run sets them to 0, drives the main path and reads them
+# back to show the path went through the kernels.
+launches: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def weight_elems(n_in: int, n_hid: int, n_out: int) -> int:
+    """Elements of the weight set (w_in + w_rec + w_out)."""
+    return n_in * n_hid + n_hid * n_hid + n_hid * n_out
+
+
+def weights_bytes(n_in: int, n_hid: int, n_out: int) -> int:
+    return F32_BYTES * weight_elems(n_in, n_hid, n_out)
+
+
+def tile_state_bytes(rows: int, n_in: int, n_hid: int, n_out: int) -> int:
+    """Shared-memory bytes of one tile's state: v, z and this tick's
+    spikes (H each), the tick's input block (N), y and acc_y (O each),
+    n_spk and the two masks (1 each) — per row."""
+    return F32_BYTES * rows * (3 * n_hid + n_in + 2 * n_out + 3)
+
+
+def weights_in_smem(rows: int, n_in: int, n_hid: int, n_out: int) -> bool:
+    """Whether the f32 weights fit in shared memory beside the tile state
+    (the Braille and cue nets do; the chip-maximal 256/256/16 net does not)."""
+    return (weights_bytes(n_in, n_hid, n_out)
+            + tile_state_bytes(rows, n_in, n_hid, n_out)) <= SMEM_PER_BLOCK
+
+
+def max_tile_rows(n_in: int, n_hid: int, n_out: int) -> int:
+    """Most batch rows one block can hold: one thread per (row, hidden
+    neuron) within a block's threads, state within its shared memory."""
+    rows = max(1, THREADS_PER_BLOCK // n_hid)
+    per_row = tile_state_bytes(1, n_in, n_hid, n_out)
+    return max(1, min(rows, SMEM_PER_BLOCK // per_row))
+
+
+def block_rows(B: int, n_in: int, n_hid: int, n_out: int,
+               sm_count: int = H100_SMS) -> int:
+    """Rows per block for one launch: few enough that the batch spreads
+    over every SM (the tick chain's latency, not its work, sets a block's
+    time), never more than a block holds.  Results do not depend on it:
+    every row's arithmetic is independent of its tile."""
+    return max(1, min(max_tile_rows(n_in, n_hid, n_out), cdiv(B, sm_count)))
+
+
+def max_batch_for_dims(n_in: int, n_hid: int, n_out: int) -> int:
+    """Serving admission per launch: the largest power of two that still
+    runs every row at once — one full block on each SM of the card."""
+    rows = H100_SMS * max_tile_rows(n_in, n_hid, n_out)
+    return 1 << (rows.bit_length() - 1)
+
+
+def session_state_bytes(n_hid: int, n_out: int) -> int:
+    """Device bytes one resident session's carry occupies: f32 rows of
+    ``v, z (H)``, ``y, acc_y (O)`` and ``n_spk (1)``."""
+    return F32_BYTES * (2 * n_hid + 2 * n_out + 1)
+
+
+# ---------------------------------------------------------------------------
+# plain tick datapath
+# ---------------------------------------------------------------------------
+
+
+def tick_transition(x_t, v, z, y, w_in, w_rec, w_out, *, alpha: float,
+                    kappa: float, v_th: float, reset_sub: bool,
+                    quant: Optional[QuantizedMode] = None):
+    """One LIF + LI tick → ``(v_new, z_new, y_new)``."""
+    return tick_from_input_current(
+        x_t @ w_in, v, z, y, w_rec, w_out, alpha=alpha, kappa=kappa,
+        v_th=v_th, reset_sub=reset_sub, quant=quant,
+    )
+
+
+def tick_from_input_current(in_cur, v, z, y, w_rec, w_out, *, alpha: float,
+                            kappa: float, v_th: float, reset_sub: bool,
+                            quant: Optional[QuantizedMode] = None):
+    """:func:`tick_transition` with ``x_t @ w_in`` given; keeps the JAX
+    operand order ``in_cur + z @ w_rec``."""
+    current = in_cur + z @ w_rec
+    if quant is None:
+        v_pre = alpha * v + current
+    else:
+        v_pre = quant.sat(quant.leak(v, quant.alpha_reg) + current)
+    z_new = (v_pre >= v_th).to(v_pre.dtype)
+    if reset_sub:
+        v_new = v_pre - z_new * v_th
+    else:
+        v_new = v_pre * (1.0 - z_new)
+    y_lin = z_new @ w_out
+    if quant is None:
+        y_new = kappa * y + y_lin
+    else:
+        y_new = quant.sat(quant.leak(y, quant.kappa_reg) + y_lin)
+    return v_new, z_new, y_new
+
+
+def _consts(alpha, kappa, v_th, reset, quant):
+    if quant is not None:
+        alpha, kappa, v_th = quant.alpha, quant.kappa, float(quant.threshold)
+    if reset not in ("sub", "zero"):
+        raise ValueError(f"unknown reset mode {reset!r}")
+    return dict(alpha=float(alpha), kappa=float(kappa), v_th=float(v_th),
+                reset_sub=reset == "sub", quant=quant)
+
+
+def _check_exact_matmul(raster: torch.Tensor, quant) -> None:
+    """The quantized plain version relies on full-f32 products on the card
+    (TF32 would round the >11-bit weight integers)."""
+    if (quant is not None and raster.is_cuda
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise ValueError(
+            "quantized plain version needs torch.backends.cuda.matmul."
+            "allow_tf32 = False (TF32 rounds the membrane-grid weights)"
+        )
+
+
+def rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, *, alpha: float,
+                     kappa: float, v_th: float = 1.0, reset: str = "sub",
+                     quant: Optional[QuantizedMode] = None,
+                     infer_window: str = "valid",
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`rsnn_infer_cuda` → ``(acc_y (B, O),
+    n_spk (B, 1))``."""
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    _check_exact_matmul(raster, quant)
+    T, B, _ = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    v = raster.new_zeros((B, H))
+    z = raster.new_zeros((B, H))
+    y = raster.new_zeros((B, O))
+    acc = raster.new_zeros((B, O))
+    nspk = raster.new_zeros((B, 1))
+    infer_all = infer_window == "all"
+    for t in range(T):
+        v, z, y = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out, **c)
+        vt = valid[t][:, None]
+        acc = acc + y * (1.0 if infer_all else vt)
+        nspk = nspk + (z * vt).sum(dim=1, keepdim=True)
+    return acc, nspk
+
+
+def rsnn_step_sessions_plain(raster, live, valid, v0, z0, y0, acc0, nspk0,
+                             w_in, w_rec, w_out, *, alpha: float,
+                             kappa: float, v_th: float = 1.0,
+                             reset: str = "sub",
+                             quant: Optional[QuantizedMode] = None,
+                             infer_window: str = "valid"):
+    """Plain version of :func:`rsnn_step_sessions_cuda` → final
+    ``(v, z, y, acc_y, n_spk)``."""
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    _check_exact_matmul(raster, quant)
+    v, z, y, acc, nspk = v0, z0, y0, acc0, nspk0
+    infer_all = infer_window == "all"
+    for t in range(raster.shape[0]):
+        v_new, z_new, y_new = tick_transition(
+            raster[t], v, z, y, w_in, w_rec, w_out, **c)
+        lt = live[t][:, None]
+        vt = valid[t][:, None]
+        keep = lt > 0
+        v = torch.where(keep, v_new, v)
+        z = torch.where(keep, z_new, z)
+        y = torch.where(keep, y_new, y)
+        acc = acc + y_new * (lt if infer_all else vt)
+        nspk = nspk + (z_new * vt).sum(dim=1, keepdim=True)
+    return v, z, y, acc, nspk
+
+
+# ---------------------------------------------------------------------------
+# kernel launchers (CUDA tensors only; ops.py dispatches)
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
+                 infer_window):
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    sm = torch.cuda.get_device_properties(raster.device).multi_processor_count
+    bt = block_rows(B, N, H, O, sm)
+    threads = min(THREADS_PER_BLOCK, cdiv(bt * H, 32) * 32)
+    q = quant
+    dims = [T, B, N, H, O, bt, threads, int(weights_in_smem(bt, N, H, O)),
+            int(infer_window == "all")]
+    scalars = [
+        ctypes.c_float(c["alpha"]), ctypes.c_float(c["kappa"]),
+        ctypes.c_float(c["v_th"]),
+        ctypes.c_float((q.alpha_reg & 0xFF) / 256.0 if q else 0.0),
+        ctypes.c_float((q.kappa_reg & 0xFF) / 256.0 if q else 0.0),
+        ctypes.c_float(float(q.v_min) if q else 0.0),
+        ctypes.c_float(float(q.v_max) if q else 0.0),
+        int(c["reset_sub"]), int(q is not None),
+        ctypes.c_void_p(torch.cuda.current_stream(raster.device).cuda_stream),
+    ]
+    return dims, scalars
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.rsnn_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, *, alpha: float,
+                    kappa: float, v_th: float = 1.0, reset: str = "sub",
+                    quant: Optional[QuantizedMode] = None,
+                    infer_window: str = "valid"):
+    """Launch ``rsnn_infer_kernel`` on the current stream of the tensors'
+    device → ``(acc_y (B, O), n_spk (B, 1))``.  Checks device, dtype, shape
+    and contiguity; raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    dev = raster.device
+    for name, t, shape in (("raster", raster, (T, B, N)), ("valid", valid, (T, B)),
+                           ("w_in", w_in, (N, H)), ("w_rec", w_rec, (H, H)),
+                           ("w_out", w_out, (H, O))):
+        _check(name, t, shape, dev)
+    acc = torch.empty((B, O), dtype=torch.float32, device=dev)
+    nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    if B == 0:
+        return acc, nspk
+    lib = build.library()
+    dims, scalars = _launch_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
+                                 v_th=v_th, reset=reset, quant=quant,
+                                 infer_window=infer_window)
+    ptrs = [t.data_ptr() for t in (raster, valid, w_in, w_rec, w_out, acc, nspk)]
+    with torch.cuda.device(dev):
+        rc = lib.rsnn_infer_launch(*ptrs, *dims, *scalars)
+    _raise_on(lib, rc, "rsnn_infer")
+    launches["rsnn_infer"] += 1
+    return acc, nspk
+
+
+def rsnn_step_sessions_cuda(raster, live, valid, v0, z0, y0, acc0, nspk0,
+                            w_in, w_rec, w_out, *, alpha: float, kappa: float,
+                            v_th: float = 1.0, reset: str = "sub",
+                            quant: Optional[QuantizedMode] = None,
+                            infer_window: str = "valid"):
+    """Launch ``rsnn_step_sessions_kernel`` on the current stream of the
+    tensors' device → final ``(v, z, y, acc_y, n_spk)``.  Same checks as
+    :func:`rsnn_infer_cuda`."""
+    from repro_torch.kernels import build
+
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    dev = raster.device
+    for name, t, shape in (
+        ("raster", raster, (T, B, N)), ("live", live, (T, B)),
+        ("valid", valid, (T, B)), ("v0", v0, (B, H)), ("z0", z0, (B, H)),
+        ("y0", y0, (B, O)), ("acc0", acc0, (B, O)), ("nspk0", nspk0, (B, 1)),
+        ("w_in", w_in, (N, H)), ("w_rec", w_rec, (H, H)),
+        ("w_out", w_out, (H, O)),
+    ):
+        _check(name, t, shape, dev)
+    outs = [torch.empty(s, dtype=torch.float32, device=dev)
+            for s in ((B, H), (B, H), (B, O), (B, O), (B, 1))]
+    if B == 0:
+        return tuple(outs)
+    lib = build.library()
+    dims, scalars = _launch_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
+                                 v_th=v_th, reset=reset, quant=quant,
+                                 infer_window=infer_window)
+    ptrs = [t.data_ptr() for t in (raster, live, valid, v0, z0, y0, acc0, nspk0,
+                                   w_in, w_rec, w_out, *outs)]
+    with torch.cuda.device(dev):
+        rc = lib.rsnn_step_sessions_launch(*ptrs, *dims, *scalars)
+    _raise_on(lib, rc, "rsnn_step_sessions")
+    launches["rsnn_step_sessions"] += 1
+    return tuple(outs)

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
+skips without a card.  The file imports neither JAX nor the JAX package,
+so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Quantized mode is held bitwise; float mode to ``atol = rtol = 1e-4`` (the
+kernel sums each row in its own fixed order, the plain version through
+``torch.matmul``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.aer import encode_sample
+from repro_torch.core.backend import ExecutionBackend
+from repro_torch.core.rsnn import Presets
+from repro_torch.kernels import ops, rsnn_step
+from repro_torch.serve import BatchedEngine
+
+FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's products
+    return torch.device("cuda", 0)
+
+
+def _params(rng, cfg, gain=2.5):
+    shapes = {"w_in": (cfg.n_in, cfg.n_hid), "w_rec": (cfg.n_hid, cfg.n_hid),
+              "w_out": (cfg.n_hid, cfg.n_out)}
+    p = {k: torch.from_numpy((gain * rng.normal(size=s) / np.sqrt(s[0]))
+                             .astype(np.float32)) for k, s in shapes.items()}
+    p["alpha"] = torch.tensor(cfg.neuron.alpha)
+    return p
+
+
+def _check(a, b, quantized):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if quantized:
+        np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_allclose(a, b, **FLOAT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+def test_kernels_match_plain_on_card(quantized, cuda_device):
+    """Each kernel against its plain version: a batch that leaves a ragged
+    last block, dead rows and holes in ``live``, carries from a first chunk."""
+    T, B = 32, 37
+    rng = np.random.default_rng(6)
+    cfg = Presets.braille(num_ticks=T, quantized=quantized)
+    be = ExecutionBackend(cfg, device=cuda_device)
+    w_in, w_rec, w_out = be.datapath_weights(_params(rng, cfg))
+    dev = cuda_device
+    raster = torch.from_numpy((rng.random((T, B, cfg.n_in)) < 0.3)
+                              .astype(np.float32)).to(dev)
+    valid = torch.from_numpy((rng.random((T, B)) < 0.7).astype(np.float32)).to(dev)
+    live = torch.from_numpy((rng.random((T, B)) < 0.8).astype(np.float32)).to(dev)
+    live[:, 5] = 0.0
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, quant=be.quant)
+    ops.reset_launch_counts()
+    got = rsnn_step.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw)
+    want = rsnn_step.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw)
+    for a, b in zip(got, want):
+        _check(a, b, quantized)
+    carries = list(be.init_session_state(B).values())
+    for lo, hi in ((0, T // 2), (T // 2, T)):
+        args = (raster[lo:hi].contiguous(), live[lo:hi].contiguous(),
+                (valid * live)[lo:hi].contiguous(), *carries, w_in, w_rec, w_out)
+        got = rsnn_step.rsnn_step_sessions_cuda(*args, **kw)
+        want = rsnn_step.rsnn_step_sessions_plain(*args, **kw)
+        for a, b in zip(got, want):
+            _check(a, b, quantized)
+        carries = list(want)
+    assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+def test_engine_on_card_matches_cpu_engine(quantized, cuda_device):
+    """``serve()`` and streaming sessions on the card go through both
+    kernels and equal the same engine on the CPU (bitwise when quantized).
+    On the card, sessions fed in 7-word chunks equal ``serve()`` bitwise in
+    both modes: each row's sums run in an order fixed by the row alone."""
+    T = 64
+    rng = np.random.default_rng(2)
+    cfg = Presets.braille(num_ticks=T, quantized=quantized)
+    params = _params(rng, cfg)
+    reqs = []
+    for i in range(9):
+        ticks = int(rng.integers(16, T + 1))
+        raster = (rng.random((ticks, cfg.n_in)) < 0.25).astype(np.float32)
+        reqs.append(encode_sample(raster, i % 3, label_tick=ticks // 4,
+                                  end_tick=ticks - 1))
+    ref, _ = BatchedEngine(cfg, params, device="cpu", max_batch=4).serve(iter(reqs))
+    ops.reset_launch_counts()
+    eng = BatchedEngine(cfg, params, device=cuda_device, max_batch=4,
+                        max_sessions=4, tick_tile=8)
+    res, _ = eng.serve(iter(reqs))
+    for r, g in zip(res, ref):
+        _check(torch.from_numpy(r.logits), torch.from_numpy(g.logits), quantized)
+    hs = [eng.open_session() for _ in reqs]
+    for h, ev in zip(hs, reqs):
+        for j in range(0, len(ev), 7):
+            h.feed(ev[j:j + 7])
+        eng.pump()
+    for h, r in zip(hs, res):
+        np.testing.assert_array_equal(h.result().logits, r.logits)
+    eng.warmup(T, batch=4)
+    assert eng.pool.evictions > 0
+    assert min(ops.launches.values()) > 0

@@ -1,0 +1,223 @@
+"""The port's serving kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's ops run the kernels' plain PyTorch versions; the JAX
+kernels run as the JAX package's own tests run them (``ExecutionBackend(cfg,
+"kernel")``, Pallas in interpret mode).  Inputs and weights are made with
+numpy from a seed and handed to both packages (weights through
+``params_from_jax``).  Quantized mode is held bitwise; float mode to
+``atol = rtol = 1e-4`` (CPU matmul reduction orders differ between XLA
+and PyTorch).  Kept at T <= 32 and B <= 8: interpret mode is slow.
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.backend import ExecutionBackend as JaxBackend
+from repro.core.rsnn import Presets as JaxPresets
+from repro_torch.convert import params_from_jax
+from repro_torch.core.backend import ExecutionBackend
+from repro_torch.core.rsnn import Presets
+from repro_torch.kernels import ops, rsnn_step
+
+FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+# JAX kernel VMEM budget that cuts a Braille-width batch into 3-row tiles,
+# so B = 8 ends in a ragged (2-row, zero-padded) last tile.
+RAGGED_VMEM = 8056 + 3 * 2404
+
+
+def _weights(rng, n_in, n_hid, n_out, gain):
+    return {
+        "w_in": gain * rng.normal(size=(n_in, n_hid)) / np.sqrt(n_in),
+        "w_rec": gain * rng.normal(size=(n_hid, n_hid)) / np.sqrt(n_hid),
+        "w_out": gain * rng.normal(size=(n_hid, n_out)) / np.sqrt(n_hid),
+    }
+
+
+def _tile(seed, T, B, quantized, label_delay=0, density=0.3, gain=2.5):
+    rng = np.random.default_rng(seed)
+    jcfg = JaxPresets.braille(num_ticks=T, quantized=quantized,
+                              label_delay=label_delay)
+    tcfg = Presets.braille(num_ticks=T, quantized=quantized,
+                           label_delay=label_delay)
+    w = {k: v.astype(np.float32)
+         for k, v in _weights(rng, tcfg.n_in, tcfg.n_hid, tcfg.n_out, gain).items()}
+    raster = (rng.random((T, B, tcfg.n_in)) < density).astype(np.float32)
+    label_tick = rng.integers(0, T // 2, size=B)
+    end_tick = rng.integers(T // 2, T, size=B)
+    t = np.arange(T)[:, None]
+    valid = ((t >= label_tick + label_delay) & (t <= end_tick)).astype(np.float32)
+    return jcfg, tcfg, w, raster, valid, rng
+
+
+def _check(a, b, quantized):
+    a, b = np.asarray(a), np.asarray(b)
+    if quantized:
+        np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_allclose(a, b, **FLOAT_TOL)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B,vmem", [(8, RAGGED_VMEM), (1, None)])
+def test_infer_plain_matches_jax_kernel(quantized, B, vmem):
+    jcfg, tcfg, w, raster, valid, _ = _tile(1, 32, B, quantized, label_delay=3)
+    jout = JaxBackend(jcfg, "kernel", vmem_budget=vmem).inference(
+        {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(raster),
+        jnp.asarray(valid))
+    be = ExecutionBackend(tcfg, device="cpu")
+    tout = be.inference(params_from_jax(w), torch.from_numpy(raster),
+                        torch.from_numpy(valid))
+    _check(jout["acc_y"], tout["acc_y"], quantized)
+    np.testing.assert_array_equal(np.asarray(jout["pred"]), tout["pred"].numpy())
+    np.testing.assert_allclose(float(jout["spike_rate"]),
+                               float(tout["spike_rate"]), rtol=1e-6)
+    if quantized:
+        assert float(tout["spike_rate"]) > 0   # the datapath really fires
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("infer_window", ["valid", "all"])
+def test_step_sessions_plain_matches_jax_kernel(quantized, infer_window):
+    """Carries in from a previous chunk, dead ``live`` rows and holes,
+    ragged last tile, ``label_delay > 0``."""
+    T, B = 24, 8
+    jcfg, tcfg, w, raster, valid, rng = _tile(2, T, B, quantized, label_delay=2)
+    eco = dict(infer_window=infer_window)
+    jcfg = dataclasses.replace(jcfg, eprop=dataclasses.replace(jcfg.eprop, **eco))
+    tcfg = dataclasses.replace(tcfg, eprop=dataclasses.replace(tcfg.eprop, **eco))
+    n_live = rng.integers(0, T + 1, size=B)
+    n_live[3] = 0                                     # a dead row
+    live = (np.arange(T)[:, None] < n_live).astype(np.float32)
+    live[5:9, 1] = 0.0                                # a hole mid-chunk
+    valid = valid * live
+    H, O = tcfg.n_hid, tcfg.n_out
+    if quantized:
+        state = {"v": rng.integers(-300, 900, size=(B, H)),
+                 "z": rng.integers(0, 2, size=(B, H)),
+                 "y": rng.integers(-500, 500, size=(B, O)),
+                 "acc_y": rng.integers(-4000, 4000, size=(B, O)),
+                 "n_spk": rng.integers(0, 50, size=(B, 1))}
+    else:
+        state = {"v": rng.normal(size=(B, H)), "z": rng.integers(0, 2, size=(B, H)),
+                 "y": rng.normal(size=(B, O)), "acc_y": rng.normal(size=(B, O)),
+                 "n_spk": rng.integers(0, 50, size=(B, 1))}
+    state = {k: v.astype(np.float32) for k, v in state.items()}
+
+    jout = JaxBackend(jcfg, "kernel", vmem_budget=RAGGED_VMEM).step_sessions(
+        {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(raster),
+        jnp.asarray(live), jnp.asarray(valid),
+        {k: jnp.asarray(v) for k, v in state.items()})
+    tout = ExecutionBackend(tcfg, device="cpu").step_sessions(
+        params_from_jax(w), torch.from_numpy(raster), torch.from_numpy(live),
+        torch.from_numpy(valid), {k: torch.from_numpy(v) for k, v in state.items()})
+    for k in ("v", "z", "y", "acc_y", "n_spk"):
+        _check(jout[k], tout[k], quantized)
+    # the dead row's carries are untouched exactly
+    for k in ("v", "z", "y"):
+        np.testing.assert_array_equal(tout[k][3].numpy(), state[k][3])
+
+
+def test_session_tile_equals_infer_from_zero_state():
+    """With zero carries and every tick live, the session kernel's plain
+    version reduces to the inference kernel's, bitwise."""
+    _, tcfg, w, raster, valid, _ = _tile(4, 16, 5, True)
+    be = ExecutionBackend(tcfg, device="cpu")
+    p = params_from_jax(w)
+    inf = be.inference(p, torch.from_numpy(raster), torch.from_numpy(valid))
+    ses = be.step_sessions(p, torch.from_numpy(raster), torch.ones(16, 5),
+                           torch.from_numpy(valid), be.init_session_state(5))
+    assert torch.equal(inf["acc_y"], ses["acc_y"])
+
+
+def test_ops_dispatch_by_device_and_count_only_kernel_launches():
+    _, tcfg, w, raster, valid, _ = _tile(5, 8, 2, True)
+    be = ExecutionBackend(tcfg, device="cpu")
+    ops.reset_launch_counts()
+    be.inference(params_from_jax(w), raster, valid)
+    be.step_sessions(params_from_jax(w), raster, valid, valid,
+                     be.init_session_state(2))
+    assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0}
+    with pytest.raises(ValueError):
+        ops.rsnn_infer(torch.zeros(2, 1, 3, device="meta"), None, None, None,
+                       None, alpha=0.5, kappa=0.5)
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    """A kernel wrapper takes CUDA tensors only — it never runs the plain
+    version for a tensor it was handed."""
+    x = torch.zeros(4, 2, 12)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        rsnn_step.rsnn_infer_cuda(
+            x, torch.zeros(4, 2), torch.zeros(12, 38), torch.zeros(38, 38),
+            torch.zeros(38, 3), alpha=0.5, kappa=0.5)
+
+
+@pytest.mark.parametrize("dims", [(12, 38, 3), (40, 100, 2), (256, 256, 16)])
+def test_tile_sizing_fits_the_block(dims):
+    n, h, o = dims
+    rows = rsnn_step.max_tile_rows(n, h, o)
+    assert rows >= 1 and rows * h <= rsnn_step.THREADS_PER_BLOCK
+    assert rsnn_step.tile_state_bytes(rows, n, h, o) <= rsnn_step.SMEM_PER_BLOCK
+    for B in (1, 7, 128, 2048, 5000):
+        bt = rsnn_step.block_rows(B, n, h, o)
+        assert 1 <= bt <= rows
+        assert rsnn_step.cdiv(B, bt) <= max(rsnn_step.H100_SMS,
+                                            rsnn_step.cdiv(B, rows))
+    adm = rsnn_step.max_batch_for_dims(n, h, o)
+    assert adm & (adm - 1) == 0
+    assert adm <= rsnn_step.H100_SMS * rows
+    # the Braille and cue weights stage in shared memory; 256/256/16 cannot
+    assert rsnn_step.weights_in_smem(rows, n, h, o) == (dims != (256, 256, 16))
+
+
+def test_tick_transition_matches_jax():
+    from repro.core.quant import QuantizedMode as JQ
+    from repro.kernels.rsnn_step import tick_transition as jtick
+    from repro_torch.core.quant import QuantizedMode
+    from repro_torch.kernels.rsnn_step import tick_transition
+
+    rng = np.random.default_rng(9)
+    q = QuantizedMode()
+    B, N, H, O = 4, 12, 38, 3
+    x = (rng.random((B, N)) < 0.4).astype(np.float32)
+    v = rng.integers(-2048, 2047, size=(B, H)).astype(np.float32)
+    z = rng.integers(0, 2, size=(B, H)).astype(np.float32)
+    y = rng.integers(-2048, 2047, size=(B, O)).astype(np.float32)
+    ws = [(rng.integers(-128, 128, size=s) * 63).astype(np.float32)
+          for s in ((N, H), (H, H), (H, O))]
+    kw = dict(alpha=q.alpha, kappa=q.kappa, v_th=1008.0, reset_sub=False)
+    jo = jtick(*(jnp.asarray(a) for a in (x, v, z, y, *ws)), quant=JQ(),
+               boxcar_width=0.5, **kw)
+    to = tick_transition(*(torch.from_numpy(a) for a in (x, v, z, y, *ws)),
+                         quant=q, **kw)
+    assert len(to) == 3
+    for a, b in zip(jo[:3], to):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_port_never_imports_jax_or_repro():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    bad = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)", re.M)
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(p) for p in files if bad.search(p.read_text())]
+    assert offenders == []
+
+
+def test_backend_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Presets.braille(num_ticks=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExecutionBackend(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExecutionBackend(cfg, device="cuda")
+    assert ExecutionBackend(cfg, device="cpu").device.type == "cpu"
