@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written CUDA
 kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
 PyTorch version on the card, drives the serving path (``serve()`` and
-streaming sessions) at the Braille network's full width through the
-kernels, and times them.
+streaming sessions) and the online-learning path (END_B and END_S e-prop
+training on Braille, then serving the learned weights) at the Braille
+network's full width through the kernels, and times them.
 
     python3 chip_smoke.py
 
@@ -25,9 +26,25 @@ Phases:
       plain version (an engine on device="cpu"); run_tile drives rsnn_infer;
   (d) a few hundred streaming sessions fed in ragged and word-sized chunks
       (with pool evictions), results bitwise equal to (c);
-  (e) each kernel's launch count over (c) + (d) is > 0;
-  (f) each kernel timed with CUDA events at the main path's shape, beside
-      its plain version and its bound.
+  (e) each serving kernel's launch count over (c) + (d) is > 0;
+  (f) each serving kernel timed with CUDA events at the main path's shape,
+      beside its plain version and its bound;
+  (g) the training kernels (rsnn_train, rsnn_forward, eprop_update) ==
+      their plain versions on the card at Braille T=128 (the END_B tile
+      B=70, B=1, B=2048, a ragged B, label_delay>0, random feedback,
+      quantized and float) and at 256/256/16: forward outputs, acc_y and n_spk bitwise
+      when quantized, dw within TRAIN_DW_TOL; two rsnn_train launches give
+      identical bits; forward_traces + eprop_update give train_tile's dw;
+  (h) the learning run: OnlineLearner (quantized Braille at the dataset's
+      T=128, the quantized bench optimizer) trains 12 epochs END_B and END_S
+      on the AEU surrogate for each of the fixed LEARN_SEEDS; the median
+      END_S test accuracy is at least the JAX reference's median over the
+      same seeds less END_S_MARGIN, and END_B's median within 0.10 of it;
+      BatchedEngine.from_learner serves the first seed's END_S weights on the
+      test split, bitwise equal to the learner backend's inference; the
+      split pipeline and the dynamics probe run on the learned weights; all
+      five kernels are launched on this path;
+  (i) the training kernels timed at the main path's shape (T=128, B=70).
 """
 
 from __future__ import annotations
@@ -47,6 +64,27 @@ import torch
 # and only the (identically ordered) leak roundings remain; 1e-4 relative
 # absorbs any difference in the order of the accumulator sums.
 FLOAT_TOL = 1e-4
+# Training kernels: max|Δdw| <= TRAIN_DW_TOL * max|dw| per matrix, kernel
+# vs plain version, in both modes — the readout error goes through expf and
+# the kernel sums the products in another order than torch.matmul.
+TRAIN_DW_TOL = 1e-4
+# Learning gates.  One 12-epoch run's test accuracy is a noisy draw of its
+# seed (initial weights and stochastic commits): the JAX reference's
+# quantized END_S spans 0.35-0.92 over seeds 1-40.  So the gates read the
+# median over LEARN_SEEDS, a fixed range never chosen by its outcome:
+# END_S's median is at least the JAX reference's median over the same
+# seeds less END_S_MARGIN, and END_B's median is within END_B_MAX_GAP of
+# END_S's (bench_braille.quant_smoke's gap between the commit modes, taken
+# for the margin too; chance is 1/3).  JAX_END_S_MEDIAN is the median of
+#   benchmarks/bench_braille.py:run("AEU", epochs=12, seed=s, eval_every=12,
+#       commit="sample", backend="scan", quantized=True)["test_acc"]
+# for s in LEARN_SEEDS, run on a CPU.
+LEARN_EPOCHS = 12
+LEARN_SEEDS = tuple(range(1, 17))
+JAX_END_S_MEDIAN = 0.7167
+END_S_MARGIN = 0.10
+END_S_MIN_MEDIAN = JAX_END_S_MEDIAN - END_S_MARGIN
+END_B_MAX_GAP = 0.10
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -353,7 +391,277 @@ def phase_timing(dev, params, B):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (g) training kernels vs plain, (h) learning run, (i) training timing
+# ---------------------------------------------------------------------------
+
+
+def _train_inputs(gen, T, B, cfg, density, dev, label_delay=0):
+    raster = (torch.rand((T, B, cfg.n_in), generator=gen) < density).float()
+    label_tick = torch.randint(0, T // 2, (B,), generator=gen)
+    end_tick = torch.randint(T // 2, T, (B,), generator=gen)
+    t = torch.arange(T)[:, None]
+    valid = ((t >= label_tick + label_delay) & (t <= end_tick)).float()
+    labels = torch.randint(0, cfg.n_out, (B,), generator=gen)
+    y_star = torch.nn.functional.one_hot(labels, cfg.n_out).float()
+    return raster.to(dev), y_star.to(dev), valid.to(dev)
+
+
+def _dw_err(name, got, want) -> float:
+    """max |Δdw| over the three matrices; fails beyond TRAIN_DW_TOL."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{name}: dw shape {tuple(g.shape)} / non-finite")
+        e = _err(g, w)
+        scale = float(w.abs().max())
+        if e > TRAIN_DW_TOL * max(scale, 1e-30):
+            fail(f"{name}: dw off by {e} (> {TRAIN_DW_TOL} x {scale})")
+        worst = max(worst, e)
+    return worst
+
+
+def _train_cfg(cfg, feedback, label_delay):
+    return dataclasses.replace(cfg, label_delay=label_delay, eprop=dataclasses.replace(
+        cfg.eprop, feedback=feedback))
+
+
+def phase_train_kernels_vs_plain(dev):
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.core.rsnn import Presets, init_params
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    T = 128
+    braille_q = Presets.braille(num_ticks=T, quantized=True)
+    braille_f = Presets.braille(num_ticks=T, quantized=False)
+    chipmax_q = Presets.braille(num_ticks=T, quantized=True, n_in=256, n_hid=256,
+                                n_out=16)
+    chipmax_q = dataclasses.replace(
+        chipmax_q, neuron=dataclasses.replace(chipmax_q.neuron, reset="sub"))
+    chipmax_f = dataclasses.replace(chipmax_q, neuron=dataclasses.replace(
+        chipmax_q.neuron, quant=None))
+    cases = [   # name, config, B, feedback, label_delay, input density
+        ("braille quant END_B tile", braille_q, 70, "symmetric", 0, 0.12),
+        ("braille quant B=1", braille_q, 1, "symmetric", 0, 0.12),
+        # 16 rows a block: more threads than rsnn_train's registers allow
+        ("braille quant B=2048", braille_q, 2048, "symmetric", 0, 0.12),
+        ("braille quant ragged, label_delay=5, random feedback", braille_q, 37,
+         "random", 5, 0.12),
+        ("braille float END_B tile, random feedback", braille_f, 70, "random", 0, 0.12),
+        ("braille float ragged, label_delay=5", braille_f, 37, "symmetric", 5, 0.12),
+        ("chip-max quant, random feedback", chipmax_q, 8, "random", 3, 0.05),
+        ("chip-max float", chipmax_f, 8, "symmetric", 0, 0.05),
+    ]
+    errs = {"rsnn_forward": [], "rsnn_train": [], "eprop_update": []}
+    for name, cfg, B, feedback, delay, density in cases:
+        cfg = _train_cfg(cfg, feedback, delay)
+        quantized = cfg.neuron.quant is not None
+        be = ExecutionBackend(cfg, device=dev)
+        params = init_params(gen, cfg, device=dev)
+        # weights on the SRAM grid in both modes (see FLOAT_TOL)
+        params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+                  if k in ("w_in", "w_rec", "w_out") else v for k, v in params.items()}
+        w_in, w_rec, w_out = be.datapath_weights(params)
+        b_fb = be._feedback(params)
+        raster, y_star, valid = _train_inputs(gen, T, B, cfg, density, dev, delay)
+        kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+                  reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+                  quant=be.quant)
+        got = K.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
+        want = K.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw)
+        torch.cuda.synchronize()
+        _compare(f"{name} rsnn_forward", [got[k] for k in K.FORWARD_KEYS],
+                 [want[k] for k in K.FORWARD_KEYS], quantized, errs["rsnn_forward"])
+        tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+        args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
+        got = E.rsnn_train_cuda(*args, **tkw)
+        again = E.rsnn_train_cuda(*args, **tkw)
+        want = E.rsnn_train_plain(*args, **tkw)
+        torch.cuda.synchronize()
+        errs["rsnn_train"].append(_dw_err(f"{name} rsnn_train", got[:3], want[:3]))
+        _compare(f"{name} rsnn_train acc_y/n_spk", got[3:], want[3:], quantized,
+                 errs["rsnn_train"])
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name}: two rsnn_train launches gave different bits")
+        tr = be.forward_traces(params, raster, y_star, valid)
+        trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
+        got_u = E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa)
+        want_u = E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa)
+        torch.cuda.synchronize()
+        errs["eprop_update"].append(_dw_err(f"{name} eprop_update", got_u, want_u))
+        # the split pipeline gives the fused train_tile's dw
+        _dw_err(f"{name} forward_traces + eprop_update vs train_tile", got_u, got[:3])
+        spikes = float(want[4].sum())
+        log(f"(g) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
+            f"spikes in window={spikes:.0f}, max|dw|="
+            f"{max(float(w.abs().max()) for w in want[:3]):.4g})")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_learning(dev):
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.core.rsnn import Presets
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.serve import BatchedEngine
+    from repro_torch.serve.batching import decode_events_host, trim_padding
+
+    data = make_braille_dataset("AEU")
+    T = data["train"]["num_ticks"]
+    n_train = data["train"]["events"].shape[0]
+    sizes = "/".join(str(data[s]["events"].shape[0]) for s in ("train", "val", "test"))
+    cfg = Presets.braille(n_classes=3, num_ticks=T, quantized=True)
+    # benchmarks/bench_braille.py:_opt_cfg(quantized=True): QUANT_OPT with a
+    # 1/(1 + t/tau) decay over 25 epochs of samples, lr 0.01 in both modes
+    opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * n_train)
+    pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
+    acc, learners = {}, {}
+    for seed in LEARN_SEEDS:
+        for mode, commit in (("END_B", "batch"), ("END_S", "sample")):
+            learner = OnlineLearner(
+                cfg, ControllerConfig(num_epochs=LEARN_EPOCHS,
+                                      eval_every=LEARN_EPOCHS, commit=commit),
+                opt, seed, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            log_ = learner.fit(pipe)
+            test = learner.eval_epoch(pipe, 0, "test")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            acc[seed, mode], learners[seed, mode] = test, learner
+            log(f"(h) seed {seed} {mode}: {LEARN_EPOCHS} epochs on Braille AEU "
+                f"({sizes} samples, T={T}), {learner.commits} train batches: test "
+                f"{test:.4f}, val {log_.val_acc[-1]:.4f}, last train epoch "
+                f"{log_.train_acc[-1]:.4f}, {wall:.2f} s wall")
+    median = {}
+    for mode in ("END_B", "END_S"):
+        accs = [acc[s, mode] for s in LEARN_SEEDS]
+        median[mode] = float(np.median(accs))
+        log(f"(h) {mode} test accuracy over seeds {LEARN_SEEDS[0]}-{LEARN_SEEDS[-1]}: "
+            f"median {median[mode]:.4f}, mean {float(np.mean(accs)):.4f}, "
+            f"min {min(accs):.4f}, max {max(accs):.4f}")
+    end_s, end_b = median["END_S"], median["END_B"]
+    if end_s < END_S_MIN_MEDIAN:
+        fail(f"median END_S test accuracy {end_s:.4f} < {END_S_MIN_MEDIAN:.4f} "
+             f"(the JAX reference's {JAX_END_S_MEDIAN:.4f} - {END_S_MARGIN})")
+    gap = abs(end_b - end_s)
+    if gap > END_B_MAX_GAP:
+        fail(f"median END_B test accuracy {end_b:.4f} is {gap:.4f} from END_S's")
+    learner = learners[LEARN_SEEDS[0], "END_S"]
+
+    # serve the learned (END_S) weights; each served answer equals the
+    # learner backend's inference of the same sample, bitwise
+    eng = BatchedEngine.from_learner(learner)
+    reqs = [trim_padding(r) for r in data["test"]["events"]]
+    res, stats = eng.serve(iter(reqs))
+    be = learner.backend
+    for r, ev in zip(res, reqs):
+        raster, valid, _ = decode_events_host([ev], cfg.n_in, r.bucket_ticks,
+                                              cfg.label_delay)
+        out = be.inference(learner.weights, torch.from_numpy(raster).to(dev),
+                           torch.from_numpy(valid).to(dev))
+        want = out["acc_y"][0].cpu().numpy()
+        if r.pred != int(out["pred"][0]) or not np.array_equal(r.logits, want):
+            fail(f"served request {r.rid}: {r.logits} != inference {want}")
+    served_acc = float(np.mean([r.pred == r.label for r in res]))
+    log(f"(h) ok: from_learner served the {len(res)} test samples in "
+        f"{stats.batches} tile(s), bitwise equal to the backend's inference; "
+        f"accuracy {served_acc:.4f}; END_B gap {gap:.4f}")
+
+    # the split pipeline and the bit-true dynamics probe on the learned weights
+    batch = next(iter(pipe.batches("train", 0)))
+    raster = batch["raster"].transpose(0, 1).contiguous()
+    valid = batch["valid"].transpose(0, 1).contiguous()
+    y_star = torch.nn.functional.one_hot(batch["label"], cfg.n_out).float()
+    dw, m = be.train_tile(learner.weights, raster, y_star, valid)
+    tr = be.forward_traces(learner.weights, raster, y_star, valid)
+    dw_split = be.eprop_update(learner.weights, tr)
+    _dw_err("learned END_B tile: split pipeline vs train_tile",
+            [dw_split[k] for k in dw], [dw[k] for k in dw])
+    if not torch.equal(tr["y_inf"].sum(dim=0), m["acc_y"]):
+        fail("forward_traces' readout differs from train_tile's acc_y")
+    dyn = be.dynamics(learner.weights, raster)
+    if not torch.equal((dyn["y"] * valid[..., None]).sum(dim=0),
+                       be.inference(learner.weights, raster, valid)["acc_y"]):
+        fail("the dynamics probe's readout differs from inference")
+    log("(h) ok: forward_traces + eprop_update give train_tile's dw on the "
+        "learned weights; forward_traces and dynamics readouts equal "
+        "train_tile's and inference's acc_y bitwise")
+    return acc
+
+
+def phase_train_timing(dev):
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.core.rsnn import init_params
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.kernels import traffic
+
+    T, B = 128, 70
+    cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
+    N, H, O = cfg.n_in, cfg.n_hid, cfg.n_out
+    be = ExecutionBackend(cfg, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    params = init_params(gen, cfg, device=dev)
+    params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+              if k != "alpha" else v for k, v in params.items()}
+    w_in, w_rec, w_out = be.datapath_weights(params)
+    b_fb = be._feedback(params)
+    raster, y_star, valid = _train_inputs(gen, T, B, cfg, 0.12, dev)
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant)
+    tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    targs = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
+    tr = be.forward_traces(params, raster, y_star, valid)
+    trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
+    E_ = K.weight_elems(N, H, O)
+    fwd_flops = T * B * 2 * E_                 # dense f32 multiply-adds
+    rev_flops = T * B * 2 * (E_ + H * O)       # learning signal + three products
+    rows = {}
+    for name, kern, plain, nbytes, flops in (
+        ("rsnn_train", lambda: E.rsnn_train_cuda(*targs, **tkw),
+         lambda: E.rsnn_train_plain(*targs, **tkw),
+         traffic.train_fused_tiled_bytes(T, B, N, H, O), fwd_flops + rev_flops),
+        ("rsnn_forward", lambda: K.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw),
+         lambda: K.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw),
+         traffic.forward_traces_bytes(T, B, N, H, O), fwd_flops),
+        ("eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
+         lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
+         traffic.eprop_update_bytes(T, B, N, H, O), rev_flops),
+    ):
+        t_plain_a = _time(plain, iters=3)
+        t_kern_a = _time(kern)
+        t_kern_b = _time(kern)
+        t_plain_b = _time(plain, iters=3)
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_f = flops / F32_FLOPS_PER_S * 1e3
+        rows[name] = dict(
+            ms=min(t_kern_a, t_kern_b), plain_ms=min(t_plain_a, t_plain_b),
+            bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
+            shape=f"T={T} B={B} {N}/{H}/{O}",
+        )
+        log(f"(i) {name} at T={T}, B={B}, {N}/{H}/{O}: kernel "
+            f"{t_kern_a:.4f} / {t_kern_b:.4f} ms, plain {t_plain_a:.3f} / "
+            f"{t_plain_b:.3f} ms, bound {max(t_b, t_f):.6f} ms "
+            f"(bytes {nbytes}, flops {flops})")
+    log(f"(i) rsnn_train's trace scratch round trip: "
+        f"{traffic.train_trace_scratch_bytes(T, B, N, H, O)} bytes (in L2)")
+    r1, y1, v1 = _train_inputs(gen, T, 1, cfg, 0.12, dev)
+    ms = [_time(lambda: E.rsnn_train_cuda(r1, y1, v1, w_in, w_rec, w_out, b_fb, **tkw))
+          for _ in range(5)]
+    log(f"(i) rsnn_train at T={T}, B=1 (one END_S commit), 5 x 20 launches: kernel "
+        f"{' / '.join(f'{t:.4f}' for t in ms)} ms")
+    return rows
+
+
 def main() -> None:
+    if len(sys.argv) != 1:
+        fail("usage: python3 chip_smoke.py")
     setup()
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.rsnn import init_params
@@ -372,26 +680,45 @@ def main() -> None:
                          device=dev)
     reqs, density = _requests()
     log(f"requests: {len(reqs)} Braille samples, event density {density:.4f}")
+    serving = ("rsnn_infer", "rsnn_step_sessions")
     ops.reset_launch_counts()
     served, stats = phase_serve(dev, params, reqs)
     phase_sessions(dev, params, reqs, served)
-    launches = dict(ops.launches)
+    launches = {k: ops.launches[k] for k in serving}
     for name, n in launches.items():
         if n <= 0:
-            fail(f"kernel {name} was never launched on the main path")
-    log(f"(e) ok: launches on the main path {launches}")
+            fail(f"kernel {name} was never launched on the serving path")
+    log(f"(e) ok: launches on the serving path {dict(ops.launches)}")
 
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
     rows = phase_timing(dev, params, b_tile)
+
+    errs.update(phase_train_kernels_vs_plain(dev))
+    ops.reset_launch_counts()
+    phase_learning(dev)
+    learn_launches = dict(ops.launches)
+    for name, n in learn_launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was never launched on the learning path")
+    log(f"(h) ok: launches on the learning path {learn_launches}")
+    launches.update({k: learn_launches[k] for k in ops.KERNELS if k not in serving})
+    rows.update(phase_train_timing(dev))
+
     card = card_line()
-    source = "src/repro_torch/kernels/csrc/rsnn_serve.cu"
+    sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
+               "rsnn_forward": "rsnn_train.cu", "rsnn_train": "rsnn_train.cu",
+               "eprop_update": "rsnn_train.cu"}
     replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
-                "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963"}
+                "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963",
+                "rsnn_forward": "src/repro/kernels/rsnn_step.py:399",
+                "rsnn_train": "src/repro/kernels/eprop_update.py:202",
+                "eprop_update": "src/repro/kernels/eprop_update.py:96"}
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of the ReckOn SoC reproduction.
 
-A second package beside the JAX reference ``repro``: the same serving path
-(AER codec, bit-true quantized datapath, execution backend, batched and
+A second package beside the JAX reference ``repro``: the same online
+learning and serving paths (AER codec, bit-true quantized datapath,
+e-prop with END_S / END_B commits, execution backend, batched and
 streaming serving engine) on an NVIDIA H100, with the tick loops of the
 Pallas TPU kernels rewritten as hand-written CUDA kernels
 (``kernels/csrc``).  It imports ``torch`` and NumPy, never JAX or ``repro``.

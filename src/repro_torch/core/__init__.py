@@ -1,2 +1,3 @@
 """Core model pieces: AER codec, fixed-point numerics, neurons, the RSNN
-config and the execution backend."""
+config, e-prop, the execution backend and the online-learning
+controller."""

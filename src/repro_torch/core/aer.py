@@ -121,6 +121,33 @@ def decode_sample(words, num_in: int, num_ticks: int) -> Sample:
     )
 
 
+def decode_batch(words, num_in: int, num_ticks: int) -> Sample:
+    """:func:`decode_sample` over a batch of fixed-size ``(S, L)`` event
+    buffers, on the words' device → a :class:`Sample` of ``(S, T, N)``
+    rasters and ``(S,)`` label fields."""
+    kind, addr, tick = unpack(words)
+    S = kind.shape[0]
+    is_spike = (kind == EVT_SPIKE) & (tick < num_ticks) & (addr < num_in)
+    raster = torch.zeros((S, num_ticks, num_in), dtype=torch.float32,
+                         device=kind.device)
+    rows = torch.arange(S, device=kind.device)[:, None].expand_as(kind)
+    raster[rows[is_spike], tick[is_spike], addr[is_spike]] = 1.0
+    zero = torch.zeros((), dtype=torch.int64, device=kind.device)
+
+    def masked_max(mask, x):
+        if x.shape[1] == 0:
+            return torch.zeros((S,), dtype=torch.int64, device=kind.device)
+        return torch.where(mask, x, zero).max(dim=1).values
+
+    is_label = kind == EVT_LABEL
+    return Sample(
+        raster=raster,
+        label=masked_max(is_label, addr),
+        label_tick=masked_max(is_label, tick),
+        end_tick=masked_max(kind == EVT_END, tick),
+    )
+
+
 def pad_events(buffers: list, length: Optional[int] = None) -> np.ndarray:
     """Right-pad a list of event buffers with 0x0 words into a dense matrix."""
     length = length or max(len(b) for b in buffers)
@@ -137,8 +164,11 @@ def pad_events(buffers: list, length: Optional[int] = None) -> np.ndarray:
 def supervision_mask(
     label_tick, end_tick, num_ticks: int, label_delay: int = 0
 ) -> torch.Tensor:
-    """Per-tick TARGET_VALID mask: ticks in ``[label_tick + delay, end_tick]``."""
+    """Per-tick TARGET_VALID mask: ticks in ``[label_tick + delay,
+    end_tick]``; ``(T,)`` for one sample, ``(S, T)`` for ``(S,)`` fields."""
     label_tick = torch.as_tensor(label_tick)
     end_tick = torch.as_tensor(end_tick)
     t = torch.arange(num_ticks, device=label_tick.device)
+    if label_tick.ndim:
+        label_tick, end_tick = label_tick[:, None], end_tick[:, None]
     return ((t >= label_tick + label_delay) & (t <= end_tick)).to(torch.float32)

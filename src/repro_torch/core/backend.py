@@ -1,5 +1,5 @@
-"""Execution backend for serving tiles (counterpart of
-:mod:`repro.core.backend`, serving ops only).
+"""Execution backend (counterpart of :mod:`repro.core.backend`,
+single-device ops).
 
 One :class:`ExecutionBackend` per network config owns the device, the
 datapath constants and the weights as the kernels consume them.  Its ops:
@@ -8,7 +8,15 @@ datapath constants and the weights as the kernels consume them.  Its ops:
   ``(T, B)`` tile (``rsnn_infer``);
 * :meth:`ExecutionBackend.step_sessions` — advance ``B`` resident
   sessions through one tick-tile, carries in and out
-  (``rsnn_step_sessions``).
+  (``rsnn_step_sessions``);
+* :meth:`ExecutionBackend.train_tile` — fused forward + e-prop update of
+  one training tile, ``dw`` summed over the batch: what an END_S (B=1) or
+  END_B (B=K) commit applies (``rsnn_train``);
+* :meth:`ExecutionBackend.forward_traces` / :meth:`~ExecutionBackend.
+  eprop_update` — the split pipeline, traces through device memory
+  (``rsnn_forward``, ``eprop_update``);
+* :meth:`ExecutionBackend.dynamics` — the full state trajectories, the
+  bit-true probe (``rsnn_forward``).
 
 The device decides the path: a backend on ``"cuda"`` launches the
 hand-written kernels, a backend on ``"cpu"`` runs their plain PyTorch
@@ -33,27 +41,12 @@ import torch
 from repro_torch.core import eprop
 from repro_torch.core.quant import QuantizedMode
 from repro_torch.core.rsnn import RSNNConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.rsnn_step import block_rows, max_tile_rows
 
 STATE_KEYS = ("v", "z", "y", "acc_y", "n_spk")
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """The device a backend runs on: ``None`` means ``"cuda"``.  Raises
-    when CUDA is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the port runs its kernels on the "
-                "card; pass device='cpu' to run the plain PyTorch versions"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+MAX_TICKS = 4096   # the AER bus's 12-bit tick counter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,13 +135,22 @@ class ExecutionBackend:
 
     # ------------------------------------------------------------- plumbing
 
-    def tile_rows(self, B: Optional[int] = None) -> int:
-        """Batch rows per kernel block: the most a block holds, or, for a
-        launch of ``B`` rows, the rows that spread it over every SM."""
+    def tile_rows(self, op: str = "inference", T: Optional[int] = None,
+                  B: Optional[int] = None) -> int:
+        """Batch rows per kernel block for ``op``: the most a block holds,
+        or, for a launch of ``B`` rows, the rows that spread it over every
+        SM.  The trace ops (``"train"``, ``"forward_traces"``,
+        ``"dynamics"``, ``"eprop_update"``) hold the ``xbar, pbar, zbar``
+        carries too.  ``"train"`` takes the launch's tick count as the TPU
+        sizing does, but on the card its trace set lives in device memory,
+        so the rows hold for any ``T`` up to the 12-bit tick counter."""
         c = self.cfg
+        traces = op in ("train", "forward_traces", "dynamics", "eprop_update")
+        if op == "train" and not (T is not None and 0 < T <= MAX_TICKS):
+            raise ValueError(f"train tile rows need 0 < T <= {MAX_TICKS}, got {T}")
         if B is None:
-            return max_tile_rows(c.n_in, c.n_hid, c.n_out)
-        return block_rows(B, c.n_in, c.n_hid, c.n_out)
+            return max_tile_rows(c.n_in, c.n_hid, c.n_out, traces)
+        return block_rows(B, c.n_in, c.n_hid, c.n_out, traces=traces)
 
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
@@ -213,6 +215,86 @@ class ExecutionBackend:
         out = ops.rsnn_step_sessions(raster, live, valid, *carries, w_in, w_rec,
                                      w_out, **self._kw())
         return dict(zip(STATE_KEYS, out))
+
+    # ------------------------------------------------------------- training
+
+    def _feedback(self, weights: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The feedback matrix in normalised weight units: the raw
+        ``w_out`` (symmetric) or the fixed random ``b_fb`` — never the
+        membrane-grid image."""
+        key = "b_fb" if self.cfg.eprop.feedback == "random" else "w_out"
+        return self._as_input(weights[key])
+
+    def _y_err(self, y: torch.Tensor) -> torch.Tensor:
+        """Readout values as the error path sees them: ``y / threshold``
+        in quantized mode, identity otherwise."""
+        if self.quant is None:
+            return y
+        return y * (1.0 / float(self.quant.threshold))
+
+    def _trace_kw(self):
+        ncfg = self._ncfg
+        return dict(alpha=self.alpha, kappa=ncfg.kappa, v_th=ncfg.v_th,
+                    reset=ncfg.reset, boxcar_width=ncfg.boxcar_width,
+                    quant=self.quant)
+
+    def train_tile(self, weights: Dict[str, torch.Tensor], raster, y_star,
+                   valid) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """One fused forward + e-prop update over a ``(T, B)`` training
+        tile → ``(dw, metrics)``: ``dw`` (positive-gradient sums, applied
+        as ``w -= lr * dw``) summed over the batch, ``dw["w_rec"]``
+        self-recurrence masked; ``metrics`` ``{"acc_y", "pred",
+        "spike_rate"}``."""
+        raster, y_star, valid = (self._as_input(x) for x in (raster, y_star, valid))
+        w_in, w_rec, w_out = self.datapath_weights(weights)
+        ecfg = self.cfg.eprop
+        dw_in, dw_rec, dw_out, acc_y, n_spk = ops.rsnn_train(
+            raster, y_star, valid, w_in, w_rec, w_out, self._feedback(weights),
+            error=ecfg.error, target_amplitude=ecfg.target_amplitude,
+            infer_window=ecfg.infer_window, **self._trace_kw())
+        dw = {"w_in": dw_in, "w_rec": dw_rec * self._mask, "w_out": dw_out}
+        return dw, {
+            "acc_y": acc_y,
+            "pred": torch.argmax(acc_y, dim=-1),
+            "spike_rate": eprop._spike_rate(n_spk, valid, self.cfg.n_hid),
+        }
+
+    def forward_traces(self, weights: Dict[str, torch.Tensor], raster, y_star,
+                       valid) -> Dict[str, torch.Tensor]:
+        """Forward one ``(T, B)`` tile through ``rsnn_forward``, emitting the
+        factored-update traces ``{"h", "xbar", "pbar", "zbar", "err",
+        "y_inf", "n_spk"}`` (``err`` masked by ``valid``, ``n_spk (T,)``)."""
+        raster, y_star, valid = (self._as_input(x) for x in (raster, y_star, valid))
+        w_in, w_rec, w_out = self.datapath_weights(weights)
+        out = ops.rsnn_forward(raster, w_in, w_rec, w_out, **self._trace_kw())
+        vt = valid[..., None]
+        err = eprop.readout_error(self._y_err(out["y"]), y_star, self.cfg.eprop) * vt
+        w_inf = vt if self.cfg.eprop.infer_window == "valid" else 1.0
+        return {
+            "h": out["h"], "xbar": out["xbar"], "pbar": out["pbar"],
+            "zbar": out["zbar"], "err": err.contiguous(),
+            "y_inf": out["y"] * w_inf,
+            "n_spk": (out["z"] * vt).sum(dim=(1, 2)),
+        }
+
+    def eprop_update(self, weights: Dict[str, torch.Tensor],
+                     traces: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Traces → batch-summed positive-gradient ``dw`` (``eprop_update``)."""
+        tr = [self._as_input(traces[k]) for k in ("h", "xbar", "pbar", "zbar", "err")]
+        dw_in, dw_rec, dw_out = ops.eprop_update(
+            *tr, self._feedback(weights), kappa=self._ncfg.kappa)
+        return {"w_in": dw_in, "w_rec": dw_rec * self._mask, "w_out": dw_out}
+
+    def dynamics(self, weights: Dict[str, torch.Tensor], raster
+                 ) -> Dict[str, torch.Tensor]:
+        """Full state trajectories of one ``(T, B)`` tile: post-reset
+        membrane ``v`` (T, B, H), spikes ``z``, readout ``y`` (T, B, O) —
+        integers on the membrane grid in quantized mode, where they match
+        the integer golden reference bit for bit."""
+        w_in, w_rec, w_out = self.datapath_weights(weights)
+        out = ops.rsnn_forward(self._as_input(raster), w_in, w_rec, w_out,
+                               **self._trace_kw())
+        return {k: out[k] for k in ("v", "z", "y")}
 
 
 BackendLike = Union[str, torch.device, ExecutionBackend, RuntimeConfig]

@@ -1,0 +1,285 @@
+"""The AER-decoder controller — the paper's FSM as eager PyTorch loops
+(counterpart of :mod:`repro.core.controller`).
+
+The FPGA FSM walks IDLE → READM → TICK → SPIKE/LABEL → END_S → (END_B) →
+END_E, driving samples through ReckOn and committing e-prop updates as it
+goes.  Every forward and update runs through one
+:class:`~repro_torch.core.backend.ExecutionBackend`, so on the card every
+commit is one ``rsnn_train`` launch and every evaluation one
+``rsnn_infer`` launch:
+
+* the READM/TICK/SPIKE scatter is :func:`repro_torch.core.aer.decode_batch`;
+* ``commit="sample"`` (END_S, the X-HEEP mode): a loop over the samples of
+  a batch, each a ``(T, 1)`` tile whose ``dw`` commits at once — sample
+  ``s+1`` sees sample ``s``'s update (:func:`make_train_batch_fn`);
+* ``commit="batch"`` (END_B, the ARM mode): the whole batch is one
+  ``(T, S)`` tile whose batch-summed ``dw`` commits once
+  (:func:`batch_commit_update`); the optimizer is told it stands for ``S``
+  samples, so lr decay and clipping keep per-sample semantics.
+
+With a quantized config and a quantized :class:`EpropSGD`
+(``configs/reckon_braille.QUANT_OPT``) the walk is chip-faithful: 8-bit
+SRAM weights, accumulate-then-round commits, integer membranes.
+
+Random bits (stochastic commits) come from a ``torch.Generator`` on the
+learner's device; they cannot match ``jax.random``.  Checkpointing, signal
+handling and publishing into a serving registry are not part of the port
+yet: :class:`OnlineLearner` raises when asked for a checkpoint policy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple, Union
+
+import torch
+
+from repro_torch.core import aer, eprop
+from repro_torch.core.backend import ExecutionBackend
+from repro_torch.core.rsnn import RSNNConfig, init_params, merge_trainable, trainable
+from repro_torch.device import DeviceLike
+from repro_torch.optim.eprop_opt import EpropSGD, EpropSGDConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ControllerConfig:
+    """Runtime registers of the expanded SPI parameter bank (§3.3) that
+    the learner reads; the batch depth and the label delay are the
+    pipeline's (:mod:`repro_torch.data.pipeline`)."""
+
+    num_epochs: int = 10
+    eval_every: int = 1               # validation cadence
+    commit: str = "sample"            # "sample" (END_S) | "batch" (END_B)
+
+    def __post_init__(self):
+        if self.commit not in ("sample", "batch"):
+            raise ValueError(f"unknown commit mode {self.commit!r}")
+
+
+# A decoded batch on a device: {"raster": (S, T, N) sample-major rasters,
+# "label": (S,) int64, "valid": (S, T)}.  Training and evaluation transpose
+# to the tick-major (T, B, N) layout the backend consumes.
+DeviceBatch = dict
+
+
+def decode_events_to_batch(words: torch.Tensor, n_in: int, num_ticks: int,
+                           label_delay: int = 0) -> DeviceBatch:
+    """AER buffer ``(S, L)`` words → dense training batch on the words'
+    device (the READM + TICK path)."""
+    s = aer.decode_batch(words, n_in, num_ticks)
+    valid = aer.supervision_mask(s.label_tick, s.end_tick, num_ticks, label_delay)
+    return DeviceBatch(raster=s.raster, label=s.label, valid=valid)
+
+
+def _one_hot(labels: torch.Tensor, n_out: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(labels, n_out).to(torch.float32)
+
+
+def make_train_batch_fn(cfg: RSNNConfig, opt: EpropSGD, backend: ExecutionBackend):
+    """The END_S loop: each sample of the batch is a ``(T, 1, N)`` tile
+    whose update commits before the next sample runs.
+
+    Returns ``fn(weights, opt_state, batch, generator) -> (weights,
+    opt_state, metrics)``; ``metrics`` holds the EPOCH_ACC counters as
+    device tensors (``correct``, ``count``, ``spike_rate``)."""
+
+    def train_batch(weights, opt_state, batch: DeviceBatch, generator=None):
+        raster, labels, valid = batch["raster"], batch["label"], batch["valid"]
+        y_star = _one_hot(labels, cfg.n_out)
+        correct, rates = [], []
+        for s in range(labels.shape[0]):
+            dw, m = backend.train_tile(weights, raster[s][:, None, :],
+                                       y_star[s: s + 1], valid[s][:, None])
+            weights, opt_state = opt.update(weights, dw, opt_state, generator)
+            correct.append(m["pred"][0] == labels[s])
+            rates.append(m["spike_rate"])
+        return weights, opt_state, {
+            "correct": torch.stack(correct).sum(),
+            "count": len(correct),
+            "spike_rate": torch.stack(rates).mean(),
+        }
+
+    return train_batch
+
+
+def batch_commit_update(cfg: RSNNConfig, opt: EpropSGD, backend: ExecutionBackend,
+                        weights, opt_state, batch: DeviceBatch, generator=None):
+    """The END_B commit core: the ``(S, T, N)`` batch as one tick-major
+    ``(T, S, N)`` tile through ``train_tile``, its batch-summed ``dw``
+    committed once with ``num_updates=S``.  Every sample sees the
+    batch-start weights.  Returns ``(weights, opt_state, dw, metrics)``."""
+    raster = batch["raster"].transpose(0, 1)
+    valid = batch["valid"].transpose(0, 1)
+    y_star = _one_hot(batch["label"], cfg.n_out)
+    dw, metrics = backend.train_tile(weights, raster, y_star, valid)
+    weights, opt_state = opt.update(weights, dw, opt_state, generator,
+                                    num_updates=float(batch["label"].shape[0]))
+    return weights, opt_state, dw, metrics
+
+
+def make_batch_commit_train_fn(cfg: RSNNConfig, opt: EpropSGD,
+                               backend: ExecutionBackend):
+    """The END_B training entry over :func:`batch_commit_update`, reporting
+    the EPOCH_ACC counters."""
+
+    def train_batch(weights, opt_state, batch: DeviceBatch, generator=None):
+        weights, opt_state, _, m = batch_commit_update(
+            cfg, opt, backend, weights, opt_state, batch, generator)
+        return weights, opt_state, {
+            "correct": (m["pred"] == batch["label"]).sum(),
+            "count": int(batch["label"].shape[0]),
+            "spike_rate": m["spike_rate"],
+        }
+
+    return train_batch
+
+
+def make_eval_batch_fn(cfg: RSNNConfig, backend: ExecutionBackend):
+    """Inference-only epoch (the TEST=1 path): one batched tile through
+    ``inference``, no updates."""
+
+    def eval_batch(weights, batch: DeviceBatch):
+        out = backend.inference(weights, batch["raster"].transpose(0, 1),
+                                batch["valid"].transpose(0, 1))
+        return {
+            "correct": (out["pred"] == batch["label"]).sum(),
+            "count": int(batch["label"].shape[0]),
+            "spike_rate": out["spike_rate"],
+        }
+
+    return eval_batch
+
+
+def make_batch_infer_fn(cfg: RSNNConfig):
+    """Batch inference oracle through the plain tick loop
+    (:func:`repro_torch.core.eprop.run_sample_inference`):
+    ``fn(weights, raster (T, B, N), valid (T, B)) -> {"acc_y", "pred"}``."""
+
+    def infer_batch(weights, raster: torch.Tensor, valid: torch.Tensor):
+        params = merge_trainable(
+            {"alpha": torch.tensor(cfg.neuron.alpha, device=raster.device)}, weights)
+        out = eprop.run_sample_inference(params, raster, valid, cfg.neuron, cfg.eprop)
+        return {"acc_y": out["acc_y"], "pred": out["pred"]}
+
+    return infer_batch
+
+
+def make_infer_fn(cfg: RSNNConfig):
+    """One-sample classify — the chip's one-at-a-time TEST walk:
+    ``fn(weights, raster (T, N), valid (T,)) -> {"acc_y" (O,), "pred" ()}``."""
+    batched = make_batch_infer_fn(cfg)
+
+    def infer_one(weights, raster: torch.Tensor, valid: torch.Tensor):
+        out = batched(weights, raster[:, None, :], valid[:, None])
+        return {"acc_y": out["acc_y"][0], "pred": out["pred"][0]}
+
+    return infer_one
+
+
+@dataclasses.dataclass
+class EpochLog:
+    """The ILA trace: per-epoch accuracy counters."""
+
+    train_acc: list
+    val_acc: list
+
+    def last(self) -> Tuple[float, float]:
+        return (
+            self.train_acc[-1] if self.train_acc else float("nan"),
+            self.val_acc[-1] if self.val_acc else float("nan"),
+        )
+
+
+class OnlineLearner:
+    """End-to-end controller: owns weights, optimizer state and the epoch
+    loop.
+
+    ``seed`` is an int or a CPU ``torch.Generator``: it draws the initial
+    weights (:func:`~repro_torch.core.rsnn.init_params`) and then the seed
+    of the device generator that feeds stochastic commits.  ``device``
+    defaults to the card (raises without one).  The learner's
+    :class:`ExecutionBackend` is shared with the serving engine that
+    :meth:`repro_torch.serve.BatchedEngine.from_learner` builds.
+    ``pipeline`` arguments follow :mod:`repro_torch.data.pipeline`
+    (``batches(split, epoch)``).  ``ctrl.commit`` picks END_S or END_B.
+    """
+
+    def __init__(
+        self,
+        cfg: RSNNConfig,
+        ctrl: ControllerConfig,
+        opt_cfg: EpropSGDConfig,
+        seed: Union[int, torch.Generator],
+        device: DeviceLike = None,
+        checkpoint=None,
+    ):
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpointing is not ported yet: OnlineLearner runs without "
+                "a checkpoint policy")
+        gen = (seed if isinstance(seed, torch.Generator)
+               else torch.Generator().manual_seed(int(seed)))
+        self.cfg, self.ctrl = cfg, ctrl
+        self.backend = ExecutionBackend(cfg, device=device,
+                                        alpha=float(cfg.neuron.alpha))
+        dev = self.backend.device
+        self.opt = EpropSGD(opt_cfg)
+        params = init_params(gen, cfg, device=dev)
+        self.weights = self.opt.quantize_init(trainable(params))
+        self.alpha = params["alpha"]
+        if cfg.eprop.feedback == "random":
+            # the random feedback rides with the weights (fixed, untrained)
+            self.weights["b_fb"] = params["b_fb"]
+        self.opt_state = self.opt.init(self.weights)
+        commit_seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+        self.generator = torch.Generator(device=dev).manual_seed(commit_seed)
+        make_fn = (make_batch_commit_train_fn if ctrl.commit == "batch"
+                   else make_train_batch_fn)
+        self._train_fn = make_fn(cfg, self.opt, self.backend)
+        self._eval_fn = make_eval_batch_fn(cfg, self.backend)
+        self.log = EpochLog(train_acc=[], val_acc=[])
+        self.commits = 0
+
+    def train_batch(self, batch: DeviceBatch) -> Dict[str, torch.Tensor]:
+        """Train on one device batch: one END_B commit, or one END_S loop
+        over its samples, per ``ctrl.commit``."""
+        self.weights, self.opt_state, m = self._train_fn(
+            self.weights, self.opt_state, batch, self.generator)
+        self.commits += 1
+        return m
+
+    def train_epoch(self, pipeline, epoch: int, start_batch: int = 0) -> float:
+        correct = total = 0
+        for batch in pipeline.batches("train", epoch, start_batch=start_batch):
+            m = self.train_batch(batch)
+            correct += int(m["correct"])
+            total += int(m["count"])
+        acc = correct / max(total, 1)
+        self.log.train_acc.append(acc)
+        return acc
+
+    def eval_epoch(self, pipeline, epoch: int, split: str = "val") -> float:
+        correct = total = 0
+        for batch in pipeline.batches(split, epoch):
+            m = self._eval_fn(self.weights, batch)
+            correct += int(m["correct"])
+            total += int(m["count"])
+        acc = correct / max(total, 1)
+        if split == "val":
+            self.log.val_acc.append(acc)
+        return acc
+
+    def inference_params(self) -> Dict[str, torch.Tensor]:
+        """Current weights + alpha — what a serving engine
+        (:meth:`repro_torch.serve.BatchedEngine.from_learner`) snapshots."""
+        return merge_trainable({"alpha": self.alpha}, self.weights)
+
+    def fit(self, pipeline, verbose: bool = False) -> EpochLog:
+        """Run the configured epochs, validating every ``eval_every``."""
+        for epoch in range(self.ctrl.num_epochs):
+            tr = self.train_epoch(pipeline, epoch)
+            va = (self.eval_epoch(pipeline, epoch)
+                  if (epoch + 1) % self.ctrl.eval_every == 0 else float("nan"))
+            if verbose:
+                print(f"epoch {epoch:4d}  train_acc={tr:.3f}  val_acc={va:.3f}")
+        return self.log

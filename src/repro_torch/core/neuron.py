@@ -4,7 +4,10 @@
 ``reset="sub"`` subtracts the threshold on a spike (cue accumulation);
 ``reset="zero"`` clears the membrane (the Braille experiments).  With
 ``cfg.quant`` set, both steps run ReckOn's fixed-point datapath on integer
-values carried in float32.
+values carried in float32.  :func:`spike` is the Heaviside with the
+surrogate gradient (a ``torch.autograd.Function``, the JAX
+``custom_vjp``), used only by the BPTT reference path
+(:func:`lif_step_surrogate`) that e-prop is checked against.
 """
 
 from __future__ import annotations
@@ -44,6 +47,42 @@ def pseudo_derivative(v_pre: torch.Tensor, cfg: NeuronConfig) -> torch.Tensor:
             1.0 - torch.abs(v_pre - v_th) / v_th, min=0.0
         ).to(v_pre.dtype)
     raise ValueError(f"unknown surrogate {cfg.surrogate!r}")
+
+
+class _Spike(torch.autograd.Function):
+    """Heaviside forward, ``g * pseudo_derivative(v_pre)`` backward."""
+
+    @staticmethod
+    def forward(ctx, v_pre, v_th, cfg):
+        ctx.save_for_backward(v_pre)
+        ctx.cfg = cfg
+        return (v_pre >= v_th).to(v_pre.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v_pre,) = ctx.saved_tensors
+        return g * pseudo_derivative(v_pre, ctx.cfg), None, None
+
+
+def spike(v_pre: torch.Tensor, v_th, cfg: NeuronConfig) -> torch.Tensor:
+    """Heaviside spike with surrogate gradient (for the BPTT reference path)."""
+    return _Spike.apply(v_pre, v_th, cfg)
+
+
+def lif_step_surrogate(
+    v: torch.Tensor, current: torch.Tensor, alpha, cfg: NeuronConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LIF step with the surrogate-gradient spike (differentiable, for
+    BPTT); the reset-to-zero path stops the gradient through ``z``."""
+    if cfg.quant is not None:
+        raise ValueError("the BPTT reference path is float-only")
+    v_pre = alpha * v + current
+    z = spike(v_pre, cfg.v_th, cfg)
+    if cfg.reset == "sub":
+        v_new = v_pre - z * cfg.v_th
+    else:
+        v_new = v_pre * (1.0 - z.detach())
+    return v_new, z, v_pre
 
 
 def lif_step(

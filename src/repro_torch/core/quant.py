@@ -1,10 +1,14 @@
 """Fixed-point numerics matching ReckOn's on-chip representation (PyTorch).
 
-Counterpart of :mod:`repro.core.quant`, keeping what serving needs: the
-signed fixed-point grid :class:`QuantSpec` and the bit-true datapath
-contract :class:`QuantizedMode` (12-bit saturating membrane grid,
-``floor(v * reg / 256)`` leaks, 8-bit ``Q(8, 4)`` weight SRAM landing on
-the membrane at ``threshold >> 4`` LSBs per weight LSB).
+Counterpart of :mod:`repro.core.quant`: the signed fixed-point grid
+:class:`QuantSpec` (nearest, stochastic and straight-through rounding),
+the bit-true datapath contract :class:`QuantizedMode` (12-bit saturating
+membrane grid, ``floor(v * reg / 256)`` leaks, 8-bit ``Q(8, 4)`` weight
+SRAM landing on the membrane at ``threshold >> 4`` LSBs per weight LSB),
+and :class:`QuantState`, the accumulate-then-round weight storage of the
+chip's e-prop commits.  Random bits come from an explicit
+``torch.Generator`` on the tensors' device (they cannot match
+``jax.random``; tests compare distributions).
 
 Every datapath quantity is an exact integer below 2**24 carried in
 float32, where add, multiply by ``reg / 256``, floor and clamp are exact.
@@ -15,6 +19,7 @@ codes match the JAX package and the NumPy golden reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -46,10 +51,33 @@ class QuantSpec:
         """Round-to-nearest-even onto the grid, saturating."""
         return self.clip(torch.round(x / self.lsb) * self.lsb)
 
+    def round_stochastic(self, x: torch.Tensor,
+                         generator: torch.Generator) -> torch.Tensor:
+        """Stochastic rounding onto the grid (unbiased), saturating: the
+        chip's mode for on-chip e-prop updates, so sub-LSB updates still
+        make expected progress.  ``generator`` lives on ``x``'s device."""
+        scaled = x / self.lsb
+        floor = torch.floor(scaled)
+        p_up = scaled - floor
+        up = torch.rand(x.shape, generator=generator, device=x.device,
+                        dtype=x.dtype) < p_up
+        return self.clip((floor + up.to(x.dtype)) * self.lsb)
+
+    def ste(self, x: torch.Tensor) -> torch.Tensor:
+        """Straight-through quantization: forward = grid value, gradient =
+        identity."""
+        return x + (self.round_nearest(x) - x).detach()
+
 
 # 12-bit signed membrane grid of the taped-out chip (threshold 0x03F0 fits).
 MEMBRANE_SPEC = QuantSpec(bits=12, frac=0)
 WEIGHT_SPEC = QuantSpec(bits=8, frac=4)
+
+# Deterministic END_B commit grid: the fixed-point accumulator each
+# per-sample e-prop contribution is snapped onto before a batch reduction,
+# so the committed dw does not depend on how the sample axis is split
+# (24 bits, 12 fractional: per-sample headroom of +-2**11 at 2**-12).
+DW_COMMIT_SPEC = QuantSpec(bits=24, frac=12)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,3 +172,34 @@ class QuantizedMode:
     def to_membrane(self, w: torch.Tensor) -> torch.Tensor:
         """Float weights → membrane-grid integers the datapath accumulates."""
         return self.weight_codes(w) * float(self.w_gain)
+
+
+class QuantState:
+    """Accumulate-then-round weight storage: ``{"q": grid weights, "acc":
+    float residuals}``, dictionaries keyed like the weights.  ``commit``
+    folds the residual into the grid weights and carries the rounding
+    residue forward, like the chip's read-modify-write of weight SRAM
+    words during e-prop."""
+
+    @staticmethod
+    def init(params: Dict[str, torch.Tensor], spec: QuantSpec = WEIGHT_SPEC):
+        return {"q": {k: spec.round_nearest(v) for k, v in params.items()},
+                "acc": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    @staticmethod
+    def accumulate(state, updates: Dict[str, torch.Tensor]):
+        return {"q": state["q"],
+                "acc": {k: a + updates[k] for k, a in state["acc"].items()}}
+
+    @staticmethod
+    def commit(state, spec: QuantSpec = WEIGHT_SPEC,
+               generator: Optional[torch.Generator] = None):
+        """Round ``q + acc`` onto ``spec`` (nearest, or stochastic from
+        ``generator``, drawn in sorted-key order) and keep the residue."""
+        q, acc = {}, {}
+        for k in sorted(state["q"]):
+            tot = state["q"][k] + state["acc"][k]
+            new = (spec.round_nearest(tot) if generator is None
+                   else spec.round_stochastic(tot, generator))
+            q[k], acc[k] = new, tot - new
+        return {"q": q, "acc": acc}

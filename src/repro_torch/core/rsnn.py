@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.eprop import EpropConfig
 from repro_torch.core.neuron import NeuronConfig
 from repro_torch.core.quant import QuantizedMode
+from repro_torch.device import DeviceLike, resolve_device
 
 MAX_IN = 256
 MAX_HID = 256
@@ -56,12 +57,14 @@ class RSNNConfig:
 
 
 def init_params(
-    generator: torch.Generator, cfg: RSNNConfig, device="cpu"
+    generator: torch.Generator, cfg: RSNNConfig, device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
     """Gaussian fan-in initialisation of the weight SRAM (Bellec et al.
-    2020), drawn from ``generator`` on the CPU and moved to ``device``.
-    ``alpha`` is a scalar tensor (the single "alphas LSBs" register)."""
+    2020), drawn from ``generator`` (a CPU generator) and moved to
+    ``device`` — the card unless the caller passes ``"cpu"``.  ``alpha`` is
+    a scalar tensor (the single "alphas LSBs" register)."""
     dt = getattr(torch, cfg.dtype)
+    device = resolve_device(device)
 
     def normal(shape, fan_in, gain=1.0):
         w = torch.randn(shape, generator=generator, dtype=dt)
@@ -78,8 +81,26 @@ def init_params(
     return params
 
 
+def trainable(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The subset of params e-prop updates (weights; not alpha / feedback)."""
+    return {k: params[k] for k in ("w_in", "w_rec", "w_out")}
+
+
+def merge_trainable(params: Dict[str, torch.Tensor],
+                    weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    out = dict(params)
+    out.update(weights)
+    return out
+
+
 def param_count(cfg: RSNNConfig) -> int:
     return cfg.n_in * cfg.n_hid + cfg.n_hid * cfg.n_hid + cfg.n_hid * cfg.n_out
+
+
+def sram_bytes(cfg: RSNNConfig, weight_bits: int = 8) -> int:
+    """Weight-SRAM footprint in bytes (the BRAM columns of the paper's
+    Tables 1/2)."""
+    return param_count(cfg) * weight_bits // 8
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,11 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
 from repro_torch.core import aer
+from repro_torch.data import pipeline
 
 # Braille dot matrices: dot numbering (col, row): 1=(0,0) 2=(0,1) 3=(0,2)
 #                                                 4=(1,0) 5=(1,1) 6=(1,2)
@@ -168,23 +169,6 @@ def make_braille_dataset(
         # measured per-channel event density — what the traffic gates and
         # the backend's dense/event dispatch consume (grounds the paper's
         # "~2-5% on Braille" figure instead of assuming it)
-        out[split]["event_density"] = event_density(out[split])
+        out[split]["event_density"] = pipeline.event_density(out[split])
     return out
 
-
-def event_density(events, n_in: Optional[int] = None,
-                  num_ticks: Optional[int] = None) -> float:
-    """Measured per-channel event density of AER word buffers: spike words
-    per ``(tick, channel)`` slot.  ``events`` is a padded ``(S, L)`` word
-    matrix with ``n_in`` / ``num_ticks``, or a split dict
-    ``{"events", "n_in", "num_ticks"}``.  Only spike words count."""
-    if isinstance(events, dict):
-        n_in = int(events["n_in"])
-        num_ticks = int(events["num_ticks"])
-        events = events["events"]
-    if not (n_in and num_ticks):
-        raise ValueError("need n_in and num_ticks (or a split dict)")
-    words = np.asarray(events, np.uint32)
-    n_samples = words.shape[0] if words.ndim > 1 else 1
-    n_spike = int((((words >> 24) & 0xFF) == aer.EVT_SPIKE).sum())
-    return n_spike / float(n_samples * num_ticks * n_in)

@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/rsnn_serve.cu`` (with the tick datapath of ``csrc/rsnn_tick.cuh``)
-compiles with ``nvcc`` for Hopper (``sm_90a``) into one shared library with
-a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds.  It builds on first use into ``build/kernels/`` at the
-root of the checkout (listed in ``.gitignore``); a library whose sources
-and flags are unchanged is reused.
+Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
+training kernels of ``rsnn_train.cu``, both on the tick datapath of
+``rsnn_tick.cuh``) compiles with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and links into one shared
+library with a plain C interface, loaded with ``ctypes`` — no PyTorch
+headers, so a build takes seconds.  It builds on first use into
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``);
+a library whose sources and flags are unchanged (the digest covers every
+source and header) is reused.
 
 Nothing here runs at import time, and a failed build raises: there is no
 fallback to the plain PyTorch versions.
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -25,12 +29,11 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCE = CSRC / "rsnn_serve.cu"
 # -fmad=false: products are rounded before they are added (see the note in
 # csrc/rsnn_tick.cuh); exact either way in quantized mode.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -53,25 +56,43 @@ def _nvcc() -> str:
     )
 
 
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [SOURCE]:
+    for path in sorted(CSRC.glob("*.cuh")) + _sources():
+        h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _nvcc_all(cmds) -> str:
+    """Run the nvcc commands side by side and return their output; raise
+    with it when one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = "\n".join(p.communicate()[0].strip() for p in procs)
+    bad = [p.returncode for p in procs if p.returncode]
+    if bad:
+        raise RuntimeError(f"kernel build failed: nvcc exited {bad[0]}\n{log}")
+    return log
+
+
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    build_log.update(seconds=time.perf_counter() - t0, ptxas=proc.stdout.strip())
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed: nvcc exited {proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [f"{tmp}/{src.stem}.o" for src in _sources()]
+        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                         for src, o in zip(_sources(), objs)])
+        _nvcc_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so",
+                    *objs]])
+        build_log.update(seconds=time.perf_counter() - t0, ptxas=log)
+        os.replace(f"{tmp}/lib.so", out)
 
 
 def _load(path: Path) -> ctypes.CDLL:
@@ -85,6 +106,22 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_step_sessions_launch.argtypes = [ptr] * 16 + dims + scalars
     lib.rsnn_infer_launch.restype = i32
     lib.rsnn_step_sessions_launch.restype = i32
+    # rsnn_forward: 4 inputs, 7 outputs; T, B, N, H, O, bt, threads,
+    # weights_smem; 7 datapath floats, reset_sub, quant, bw_vth, stream
+    lib.rsnn_forward_launch.argtypes = (
+        [ptr] * 11 + [i32] * 8 + [f32] * 7 + [i32, i32, f32, ptr])
+    # rsnn_train: 7 inputs, 5 traces, dw_part, dw, acc_y, n_spk; dims as
+    # above + infer_all; datapath scalars, then bw_vth, y_scale,
+    # target_amp, err_softmax, stream
+    lib.rsnn_train_launch.argtypes = (
+        [ptr] * 16 + [i32] * 9 + [f32] * 7 + [i32, i32]
+        + [f32, f32, f32, i32, ptr])
+    # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O, bt, threads;
+    # kappa, stream
+    lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 7 + [f32, ptr]
+    for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
+               lib.eprop_update_launch):
+        fn.restype = i32
     lib.rsnn_error_string.argtypes = [i32]
     lib.rsnn_error_string.restype = ctypes.c_char_p
     return lib
@@ -96,7 +133,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            out = BUILD_DIR / f"librsnn_serve-{_digest()}.so"
+            out = BUILD_DIR / f"librsnn_kernels-{_digest()}.so"
             if not out.exists():
                 _build(out)
             _lib = _load(out)

@@ -1,5 +1,6 @@
-// The two serving kernels, one library: both run the tick datapath of
-// rsnn_tick.cuh over the whole T-tick loop inside one launch.
+// The two serving kernels: both run the tick datapath of rsnn_tick.cuh
+// over the whole T-tick loop inside one launch.  They build into one
+// library with the training kernels of rsnn_train.cu.
 //
 // rsnn_infer_kernel — whole-sample inference over one (T, B) tile, behind
 // ExecutionBackend.inference.  Replaces src/repro/kernels/rsnn_step.py:
@@ -33,28 +34,12 @@
 // where L2 keeps them after the first tick.
 #include "rsnn_tick.cuh"
 
-__global__ void rsnn_infer_kernel(const float* raster, const float* valid,
-                                  const float* w_in, const float* w_rec,
-                                  const float* w_out, float* acc_y,
-                                  float* n_spk, int T, int B, int N, int H,
-                                  int O, int bt, int weights_smem,
-                                  int infer_all, TickParams p) {
-  rsnn_tile_loop<false>(raster, nullptr, valid, nullptr, nullptr, nullptr,
-                        nullptr, nullptr, w_in, w_rec, w_out, nullptr, nullptr,
-                        nullptr, acc_y, n_spk, T, B, N, H, O, bt, weights_smem,
-                        infer_all, p);
+__global__ void rsnn_infer_kernel(TileIO io, TileDims d, TickParams p) {
+  rsnn_tile_loop<RSNN_INFER>(io, d, p);
 }
 
-__global__ void rsnn_step_sessions_kernel(
-    const float* raster, const float* live, const float* valid,
-    const float* v0, const float* z0, const float* y0, const float* acc0,
-    const float* nspk0, const float* w_in, const float* w_rec,
-    const float* w_out, float* v, float* z, float* y, float* acc_y,
-    float* n_spk, int T, int B, int N, int H, int O, int bt, int weights_smem,
-    int infer_all, TickParams p) {
-  rsnn_tile_loop<true>(raster, live, valid, v0, z0, y0, acc0, nspk0, w_in,
-                       w_rec, w_out, v, z, y, acc_y, n_spk, T, B, N, H, O, bt,
-                       weights_smem, infer_all, p);
+__global__ void rsnn_step_sessions_kernel(TileIO io, TileDims d, TickParams p) {
+  rsnn_tile_loop<RSNN_SESSIONS>(io, d, p);
 }
 
 extern "C" int rsnn_infer_launch(
@@ -66,14 +51,17 @@ extern "C" int rsnn_infer_launch(
     void* stream) {
   TickParams p{alpha, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
                quant};
+  TileIO io{};
+  io.raster = raster; io.valid = valid;
+  io.w_in = w_in; io.w_rec = w_rec; io.w_out = w_out;
+  io.acc_out = acc_y; io.nspk_out = n_spk;
+  TileDims d{T, B, N, H, O, bt, weights_smem, infer_all};
   const size_t smem =
       rsnn_tile_smem_floats(bt, N, H, O, weights_smem) * sizeof(float);
-  int rc = rsnn_prepare_launch(rsnn_infer_kernel, smem);
+  int rc = rsnn_prepare_launch(rsnn_infer_kernel, smem, &threads);
   if (rc) return rc;
   const int blocks = (B + bt - 1) / bt;
-  rsnn_infer_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      raster, valid, w_in, w_rec, w_out, acc_y, n_spk, T, B, N, H, O, bt,
-      weights_smem, infer_all, p);
+  rsnn_infer_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(io, d, p);
   return (int)cudaGetLastError();
 }
 
@@ -88,14 +76,20 @@ extern "C" int rsnn_step_sessions_launch(
     int quant, void* stream) {
   TickParams p{alpha, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
                quant};
+  TileIO io{};
+  io.raster = raster; io.live = live; io.valid = valid;
+  io.v0 = v0; io.z0 = z0; io.y0 = y0; io.acc0 = acc0; io.nspk0 = nspk0;
+  io.w_in = w_in; io.w_rec = w_rec; io.w_out = w_out;
+  io.v_out = v; io.z_out = z; io.y_out = y; io.acc_out = acc_y;
+  io.nspk_out = n_spk;
+  TileDims d{T, B, N, H, O, bt, weights_smem, infer_all};
   const size_t smem =
       rsnn_tile_smem_floats(bt, N, H, O, weights_smem) * sizeof(float);
-  int rc = rsnn_prepare_launch(rsnn_step_sessions_kernel, smem);
+  int rc = rsnn_prepare_launch(rsnn_step_sessions_kernel, smem, &threads);
   if (rc) return rc;
   const int blocks = (B + bt - 1) / bt;
   rsnn_step_sessions_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      raster, live, valid, v0, z0, y0, acc0, nspk0, w_in, w_rec, w_out, v, z,
-      y, acc_y, n_spk, T, B, N, H, O, bt, weights_smem, infer_all, p);
+      io, d, p);
   return (int)cudaGetLastError();
 }
 

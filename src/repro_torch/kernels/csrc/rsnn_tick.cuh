@@ -1,12 +1,14 @@
-// One tick-tile of ReckOn's LIF + LI datapath, shared by the two serving
-// kernels (rsnn_serve.cu).
+// One tick-tile of ReckOn's LIF + LI datapath, shared by every kernel of
+// the library: the two serving kernels (rsnn_serve.cu) and the training
+// forward of rsnn_forward / rsnn_train (rsnn_train.cu).
 //
 // Replaces the TPU tick pipeline of src/repro/kernels/rsnn_step.py
 // (tick_transition / tick_from_input_current, run once per grid step of
-// _infer_kernel and _session_kernel).  On the TPU the grid (tile, tick)
-// walks ticks in order and carries state in VMEM scratch; here the whole
-// T-tick loop runs inside one launch: one block per tile of `bt` batch
-// rows, one thread per (row, hidden neuron), carries in shared memory.
+// _infer_kernel, _session_kernel, _kernel and eprop_update.py's
+// _train_kernel).  On the TPU the grid (tile, tick) walks ticks in order
+// and carries state in VMEM scratch; here the whole T-tick loop runs
+// inside one launch: one block per tile of `bt` batch rows, one thread per
+// (row, hidden neuron), carries in shared memory.
 //
 // Arithmetic contract (per tick, per row b, neuron h):
 //   cur   = sum_k x[b,k] w_in[k,h]  +  sum_k z[b,k] w_rec[k,h]
@@ -17,15 +19,21 @@
 //   z     = v_pre >= v_th;  v = v_pre - z*v_th | v_pre*(1-z)
 //   y     = kappa*y + sum_h z[b,h] w_out[h,o]       (float)
 //         | sat(floor(y * kappa_reg/256) + ...)     (quantized)
+// and, in the two trace modes, the e-prop quantities of the same tick:
+//   h     = |v_pre - v_th| < boxcar_width*v_th      (boxcar surrogate)
+//   xbar  = alpha*xbar + x;  pbar = alpha*pbar + z_prev;  zbar = kappa*zbar + z
+//   err   = softmax(y*s) - y* | y*s - amp*y*, times valid   (TRAIN only;
+//           s = 1/threshold in quantized mode)
 // Each output row's sums run in a fixed order that depends on nothing but
 // the row, so the result is the same for any tile width or batch: float
 // chunk invariance (whole sample vs word-by-word feeds) is bitwise.
 //
 // The library is compiled with -fmad=false: every product is rounded
 // before it is added, as the plain PyTorch version's separate multiply and
-// add are.  In quantized mode every operand is an integer below 2^24
-// carried in f32, so every step is exact either way.  No tensor core and
-// no TF32 path is used.
+// add are.  In quantized mode every datapath operand is an integer below
+// 2^24 carried in f32, so v, z, y, acc_y and n_spk are exact, and h and
+// the traces follow from them by the plain version's float operations.
+// No tensor core and no TF32 path is used.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -35,7 +43,55 @@ struct TickParams {
   float v_lo, v_hi;              // quantized membrane grid
   int reset_sub;                 // 1: subtract threshold, 0: reset to zero
   int quant;                     // 1: fixed-point datapath
+  // trace modes only
+  float bw_vth;                  // boxcar half-width times v_th
+  float y_scale;                 // readout scale the error sees
+  float target_amp;              // error == "direct": target amplitude
+  int err_softmax;               // 1: softmax error, 0: direct
 };
+
+// What a tile loop reads and writes.  SESSIONS reads carries and writes
+// them back; FORWARD writes seven (T, B, .) per-tick tensors and no
+// accumulator; TRAIN writes the five traces the reverse pass reads.
+enum RsnnMode { RSNN_INFER = 0, RSNN_SESSIONS = 1, RSNN_FORWARD = 2, RSNN_TRAIN = 3 };
+
+struct TileIO {
+  const float* raster;   // (T, B, N)
+  const float* live;     // (T, B)  SESSIONS
+  const float* valid;    // (T, B)  all but FORWARD
+  const float* v0;       // (B, H)  SESSIONS carries in ...
+  const float* z0;
+  const float* y0;       // (B, O)
+  const float* acc0;
+  const float* nspk0;    // (B, 1)
+  const float* y_star;   // (B, O)  TRAIN one-hot targets
+  const float* w_in;     // (N, H)
+  const float* w_rec;    // (H, H), self-recurrence masked
+  const float* w_out;    // (H, O)
+  float* v_out;          // SESSIONS carries out
+  float* z_out;
+  float* y_out;
+  float* acc_out;        // (B, O)  all but FORWARD
+  float* nspk_out;       // (B, 1)
+  float* tr_z;           // (T, B, H) FORWARD
+  float* tr_h;           // (T, B, H) FORWARD, TRAIN
+  float* tr_xbar;        // (T, B, N) FORWARD, TRAIN
+  float* tr_pbar;        // (T, B, H) FORWARD, TRAIN
+  float* tr_zbar;        // (T, B, H) FORWARD, TRAIN
+  float* tr_y;           // (T, B, O) FORWARD
+  float* tr_v;           // (T, B, H) FORWARD (post-reset membrane)
+  float* tr_err;         // (T, B, O) TRAIN
+};
+
+struct TileDims {
+  int T, B, N, H, O;
+  int bt;                // batch rows per block
+  int weights_smem;      // 1: stage the weights in shared memory
+  int infer_all;         // 1: acc_y over every (live) tick, 0: valid ticks
+};
+
+// The readout error of one row handles at most the chip's 16 outputs.
+#define RSNN_MAX_OUT 16
 
 __device__ __forceinline__ float rsnn_leak_in(float v, float cur,
                                               const TickParams& p) {
@@ -53,51 +109,86 @@ __device__ __forceinline__ float rsnn_leak_out(float y, float cur,
   return p.kappa * y + cur;
 }
 
-// Dynamic shared memory a tile needs, in floats.
-__host__ __device__ inline size_t rsnn_tile_smem_floats(int bt, int N, int H,
-                                                        int O,
-                                                        int weights_smem) {
-  size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
-  return w + 3 * (size_t)bt * H + (size_t)bt * N + 2 * (size_t)bt * O +
-         3 * (size_t)bt;
+// The input plus recurrent current of neuron h of one row, and the readout
+// current of output o: sequential sums in the contract's order.  The tile
+// loop calls each once with the weights in shared memory and once with
+// them in device memory, so that each copy's loads have a known address
+// space: shared loads, not generic ones, when the weights are staged.
+__device__ __forceinline__ float rsnn_current(const float* xr, const float* zr,
+                                              const float* w_in,
+                                              const float* w_rec, int N, int H,
+                                              int h) {
+  float in_cur = 0.f;
+  for (int k = 0; k < N; ++k) in_cur += xr[k] * w_in[k * H + h];
+  float rec = 0.f;
+  for (int k = 0; k < H; ++k) rec += zr[k] * w_rec[k * H + h];
+  return in_cur + rec;
 }
 
-// The T-tick loop of one tile.  SESSIONS selects carries-in/out and the
-// `live` select; otherwise the tile starts from zero state, every tick is
-// live, and only acc_y / n_spk are written.
-template <bool SESSIONS>
-__device__ void rsnn_tile_loop(
-    const float* __restrict__ raster,   // (T, B, N)
-    const float* __restrict__ live_g,   // (T, B)  sessions only
-    const float* __restrict__ valid_g,  // (T, B)
-    const float* __restrict__ v0, const float* __restrict__ z0,
-    const float* __restrict__ y0, const float* __restrict__ acc0,
-    const float* __restrict__ nspk0,
-    const float* __restrict__ w_in_g,   // (N, H)
-    const float* __restrict__ w_rec_g,  // (H, H), self-recurrence masked
-    const float* __restrict__ w_out_g,  // (H, O)
-    float* __restrict__ v_out, float* __restrict__ z_out,
-    float* __restrict__ y_out, float* __restrict__ acc_out,
-    float* __restrict__ nspk_out, int T, int B, int N, int H, int O, int bt,
-    int weights_smem, int infer_all, TickParams p) {
+__device__ __forceinline__ float rsnn_readout_current(const float* zr,
+                                                      const float* w_out,
+                                                      int H, int O, int o) {
+  float y_lin = 0.f;
+  for (int k = 0; k < H; ++k) y_lin += zr[k] * w_out[k * O + o];
+  return y_lin;
+}
+
+// Dynamic shared memory a tile needs, in floats; the trace modes add the
+// xbar (N) and pbar, zbar (H each) carries of every row.
+__host__ __device__ inline size_t rsnn_tile_smem_floats(int bt, int N, int H,
+                                                        int O,
+                                                        int weights_smem,
+                                                        int traces = 0) {
+  size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
+  size_t tr = traces ? (size_t)bt * ((size_t)N + 2 * (size_t)H) : 0;
+  return w + 3 * (size_t)bt * H + (size_t)bt * N + 2 * (size_t)bt * O +
+         3 * (size_t)bt + tr;
+}
+
+// The T-tick loop of one tile.  INFER and TRAIN start from zero state with
+// every tick live; SESSIONS starts from the carries and applies `live`.
+template <int MODE>
+__device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
+                               const TickParams p) {
+  constexpr bool SESSIONS = MODE == RSNN_SESSIONS;
+  constexpr bool TRACES = MODE == RSNN_FORWARD || MODE == RSNN_TRAIN;
+  constexpr bool ACCUM = MODE != RSNN_FORWARD;
   extern __shared__ float smem[];
+  const int T = d.T, B = d.B, N = d.N, H = d.H, O = d.O, bt = d.bt;
+  const int infer_all = d.infer_all;
   const int b0 = blockIdx.x * bt;
   const int rows = min(bt, B - b0);
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
+  // No two buffers of a launch alias: restrict-qualified locals let the
+  // compiler use read-only loads and keep values across the stores.
+  const float* __restrict__ raster = io.raster;
+  const float* __restrict__ live_g = io.live;
+  const float* __restrict__ valid_g = io.valid;
+  const float* __restrict__ y_star = io.y_star;
+  const float* __restrict__ w_in_g = io.w_in;
+  const float* __restrict__ w_rec_g = io.w_rec;
+  const float* __restrict__ w_out_g = io.w_out;
+  float* __restrict__ acc_out = io.acc_out;
+  float* __restrict__ nspk_out = io.nspk_out;
+  float* __restrict__ tr_z = io.tr_z;
+  float* __restrict__ tr_h = io.tr_h;
+  float* __restrict__ tr_xbar = io.tr_xbar;
+  float* __restrict__ tr_pbar = io.tr_pbar;
+  float* __restrict__ tr_zbar = io.tr_zbar;
+  float* __restrict__ tr_y = io.tr_y;
+  float* __restrict__ tr_v = io.tr_v;
+  float* __restrict__ tr_err = io.tr_err;
 
+  const bool wsmem = d.weights_smem;   // the weights fit in shared memory
   float* s = smem;
-  const float* w_in = w_in_g;
-  const float* w_rec = w_rec_g;
-  const float* w_out = w_out_g;
-  if (weights_smem) {
-    float* wi = s; s += N * H;
-    float* wr = s; s += H * H;
-    float* wo = s; s += H * O;
+  float* wi = s;   s += wsmem ? N * H : 0;
+  float* wr = s;   s += wsmem ? H * H : 0;
+  float* wo = s;   s += wsmem ? H * O : 0;
+  if (wsmem) {
     for (int i = tid; i < N * H; i += nth) wi[i] = w_in_g[i];
     for (int i = tid; i < H * H; i += nth) wr[i] = w_rec_g[i];
     for (int i = tid; i < H * O; i += nth) wo[i] = w_out_g[i];
-    w_in = wi; w_rec = wr; w_out = wo;
   }
   float* v = s;    s += bt * H;
   float* z = s;    s += bt * H;
@@ -107,30 +198,45 @@ __device__ void rsnn_tile_loop(
   float* acc = s;  s += bt * O;
   float* nspk = s; s += bt;
   float* lv = s;   s += bt;
-  float* vd = s;
+  float* vd = s;   s += bt;
+  float* xbar = s; s += TRACES ? bt * N : 0;
+  float* pbar = s; s += TRACES ? bt * H : 0;
+  float* zbar = s;
 
   for (int i = tid; i < bt * H; i += nth) {
     const bool in = i / H < rows;
     const size_t g = (size_t)b0 * H + i;
-    v[i] = (SESSIONS && in) ? v0[g] : 0.f;
-    z[i] = (SESSIONS && in) ? z0[g] : 0.f;
+    v[i] = (SESSIONS && in) ? io.v0[g] : 0.f;
+    z[i] = (SESSIONS && in) ? io.z0[g] : 0.f;
+    if (TRACES) { pbar[i] = 0.f; zbar[i] = 0.f; }
   }
   for (int i = tid; i < bt * O; i += nth) {
     const bool in = i / O < rows;
     const size_t g = (size_t)b0 * O + i;
-    y[i] = (SESSIONS && in) ? y0[g] : 0.f;
-    acc[i] = (SESSIONS && in) ? acc0[g] : 0.f;
+    y[i] = (SESSIONS && in) ? io.y0[g] : 0.f;
+    acc[i] = (SESSIONS && in) ? io.acc0[g] : 0.f;
   }
   for (int b = tid; b < bt; b += nth) {
-    nspk[b] = (SESSIONS && b < rows) ? nspk0[b0 + b] : 0.f;
+    nspk[b] = (SESSIONS && b < rows) ? io.nspk0[b0 + b] : 0.f;
+  }
+  if (TRACES) {
+    for (int i = tid; i < bt * N; i += nth) xbar[i] = 0.f;
   }
 
   for (int t = 0; t < T; ++t) {
-    const float* xt = raster + ((size_t)t * B + b0) * N;
-    for (int i = tid; i < bt * N; i += nth) x[i] = i < rows * N ? xt[i] : 0.f;
+    const size_t row0 = (size_t)t * B + b0;   // (t, b0) in a (T, B) layout
+    const float* xt = raster + row0 * N;
+    for (int i = tid; i < bt * N; i += nth) {
+      x[i] = i < rows * N ? xt[i] : 0.f;
+      if (TRACES) {
+        const float xb = p.alpha * xbar[i] + x[i];
+        xbar[i] = xb;
+        if (i < rows * N) tr_xbar[row0 * N + i] = xb;
+      }
+    }
     for (int b = tid; b < bt; b += nth) {
-      const size_t g = (size_t)t * B + b0 + b;
-      vd[b] = b < rows ? valid_g[g] : 0.f;
+      const size_t g = row0 + b;
+      vd[b] = (ACCUM && b < rows) ? valid_g[g] : 0.f;
       lv[b] = SESSIONS ? (b < rows ? live_g[g] : 0.f) : 1.f;
     }
     __syncthreads();
@@ -141,15 +247,27 @@ __device__ void rsnn_tile_loop(
       const int h = i - b * H;
       const float* xr = x + b * N;
       const float* zr = z + b * H;
-      float in_cur = 0.f;
-      for (int k = 0; k < N; ++k) in_cur += xr[k] * w_in[k * H + h];
-      float rec = 0.f;
-      for (int k = 0; k < H; ++k) rec += zr[k] * w_rec[k * H + h];
-      const float v_pre = rsnn_leak_in(v[i], in_cur + rec, p);
+      const float cur = wsmem ? rsnn_current(xr, zr, wi, wr, N, H, h)
+                              : rsnn_current(xr, zr, w_in_g, w_rec_g, N, H, h);
+      const float v_pre = rsnn_leak_in(v[i], cur, p);
       const float zz = v_pre >= p.v_th ? 1.f : 0.f;
       const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
       zn[i] = zz;
       if (lv[b] > 0.f) v[i] = v_new;   // live == 0 freezes by select
+      if (TRACES) {
+        const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
+        const float pb = p.alpha * pbar[i] + z[i];   // z before this tick
+        const float zb = p.kappa * zbar[i] + zz;
+        pbar[i] = pb;
+        zbar[i] = zb;
+        if (b < rows) {
+          const size_t r = row0 * H + i;
+          tr_h[r] = hb;
+          tr_pbar[r] = pb;
+          tr_zbar[r] = zb;
+          if (MODE == RSNN_FORWARD) { tr_z[r] = zz; tr_v[r] = v_new; }
+        }
+      }
     }
     __syncthreads();
 
@@ -158,17 +276,47 @@ __device__ void rsnn_tile_loop(
       const int b = i / O;
       const int o = i - b * O;
       const float* zr = zn + b * H;
-      float y_lin = 0.f;
-      for (int k = 0; k < H; ++k) y_lin += zr[k] * w_out[k * O + o];
+      const float y_lin = wsmem ? rsnn_readout_current(zr, wo, H, O, o)
+                                : rsnn_readout_current(zr, w_out_g, H, O, o);
       const float y_new = rsnn_leak_out(y[i], y_lin, p);
-      const float w = infer_all ? lv[b] : vd[b];
-      acc[i] += y_new * w;
+      if (ACCUM) {
+        const float w = infer_all ? lv[b] : vd[b];
+        acc[i] += y_new * w;
+      }
       if (lv[b] > 0.f) y[i] = y_new;
+      if (MODE == RSNN_FORWARD && b < rows) tr_y[row0 * O + i] = y_new;
     }
-    for (int b = tid; b < bt; b += nth) {
-      float cnt = 0.f;
-      for (int k = 0; k < H; ++k) cnt += zn[b * H + k] * vd[b];
-      nspk[b] += cnt;
+    if (MODE == RSNN_TRAIN) {
+      __syncthreads();
+      // readout error of the row: one thread per row
+      for (int b = tid; b < rows; b += nth) {
+        const float* yr = y + b * O;
+        const float* ys = y_star + (size_t)(b0 + b) * O;
+        float* er = tr_err + (row0 + b) * O;
+        float u[RSNN_MAX_OUT];
+        for (int o = 0; o < O; ++o) u[o] = yr[o] * p.y_scale;
+        float m = u[0];
+        for (int o = 1; o < O; ++o) m = fmaxf(m, u[o]);
+        if (p.err_softmax) {
+          float sum = 0.f;
+          for (int o = 0; o < O; ++o) {
+            u[o] = expf(u[o] - m);
+            sum += u[o];
+          }
+          for (int o = 0; o < O; ++o) er[o] = (u[o] / sum - ys[o]) * vd[b];
+        } else {
+          for (int o = 0; o < O; ++o) {
+            er[o] = (u[o] - p.target_amp * ys[o]) * vd[b];
+          }
+        }
+      }
+    }
+    if (ACCUM) {
+      for (int b = tid; b < bt; b += nth) {
+        float cnt = 0.f;
+        for (int k = 0; k < H; ++k) cnt += zn[b * H + k] * vd[b];
+        nspk[b] += cnt;
+      }
     }
     for (int i = tid; i < bt * H; i += nth) {
       if (lv[i / H] > 0.f) z[i] = zn[i];
@@ -176,25 +324,37 @@ __device__ void rsnn_tile_loop(
     __syncthreads();
   }
 
-  for (int i = tid; i < rows * O; i += nth) acc_out[(size_t)b0 * O + i] = acc[i];
-  for (int b = tid; b < rows; b += nth) nspk_out[b0 + b] = nspk[b];
+  if (ACCUM) {
+    for (int i = tid; i < rows * O; i += nth) acc_out[(size_t)b0 * O + i] = acc[i];
+    for (int b = tid; b < rows; b += nth) nspk_out[b0 + b] = nspk[b];
+  }
   if (SESSIONS) {
     for (int i = tid; i < rows * H; i += nth) {
-      v_out[(size_t)b0 * H + i] = v[i];
-      z_out[(size_t)b0 * H + i] = z[i];
+      io.v_out[(size_t)b0 * H + i] = v[i];
+      io.z_out[(size_t)b0 * H + i] = z[i];
     }
-    for (int i = tid; i < rows * O; i += nth) y_out[(size_t)b0 * O + i] = y[i];
+    for (int i = tid; i < rows * O; i += nth) io.y_out[(size_t)b0 * O + i] = y[i];
   }
 }
 
-// Launch helper shared by both entry points: raises the dynamic
-// shared-memory limit when the tile needs more than the 48 KB default.
+// Launch helper shared by every entry point: raises the dynamic
+// shared-memory limit when the tile needs more than the 48 KB default, and
+// lowers *threads to what the kernel's registers allow a block (the tile
+// loops stride over any thread count).  The kernels carry no launch bounds:
+// capping their registers to fit 1,024 threads made the tick sums slower.
 template <typename Kernel>
-inline int rsnn_prepare_launch(Kernel kernel, size_t smem_bytes) {
+inline int rsnn_prepare_launch(Kernel kernel, size_t smem_bytes,
+                               int* threads) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
+  }
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (*threads > a.maxThreadsPerBlock) {
+    *threads = a.maxThreadsPerBlock / 32 * 32;
   }
   return 0;
 }

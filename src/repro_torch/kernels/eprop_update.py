@@ -1,0 +1,222 @@
+"""Training-side kernels for Hopper — the fused train kernel and the split
+e-prop update — with their plain PyTorch versions (counterpart of
+:mod:`repro.kernels.eprop_update`).
+
+* :func:`rsnn_train_cuda` — ``rsnn_train_kernel``: the ``train_tile`` op.
+  Per block of rows, the forward ticks (the tick datapath plus the
+  ``xbar, pbar, zbar`` traces and the boxcar ``h``) evaluate the readout
+  error in-kernel — ``softmax(y·s) − y*`` or ``y·s − amp·y*``, masked by
+  ``valid``, ``s = 1/threshold`` in quantized mode — and write the trace
+  set to a device-memory scratch; the reverse phase of the same launch
+  reads it back.  Returns ``(dw_in, dw_rec, dw_out, acc_y (B, O),
+  n_spk (B, 1))``.
+* :func:`eprop_update_cuda` — ``eprop_update_kernel``: the reverse pass
+  alone over ``(T, B, ·)`` traces in device memory (the ``eprop_update``
+  op of the split pipeline).
+
+Both reverse passes are one device function (``csrc/rsnn_train.cu``):
+over ticks ``T-1..0``::
+
+  F[t]   = err[t] @ B_fbᵀ + κ·F[t+1]
+  dW_in  = Σ_t xbar[t]ᵀ (h[t]∘F[t])
+  dW_rec = Σ_t pbar[t]ᵀ (h[t]∘F[t])
+  dW_out = Σ_t zbar[t]ᵀ err[t]
+
+Each block writes the partial ``dw`` of its rows to its own slice of an
+``(nb, E)`` buffer, and a second small kernel adds the slices in block
+order — no atomics, so two launches give identical bits.  The caller masks
+``dw_rec``'s self-recurrence.  The weights are the ``to_membrane`` images
+in quantized mode; ``b_fb`` is in normalised weight units (the raw
+``w_out`` or the random ``B``).  ``err`` uses ``expf``, so ``dw`` matches
+the plain version to a tolerance, not bitwise; ``acc_y`` and ``n_spk`` are
+bitwise in quantized mode.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.quant import QuantizedMode
+from repro_torch.kernels.rsnn_step import (
+    _check_exact_matmul,
+    _consts,
+    cdiv,
+    check_arg,
+    datapath_scalars,
+    geometry,
+    launches,
+    raise_on,
+    stream_arg,
+    tick_transition,
+    weight_elems,
+)
+
+# Outputs one row's in-kernel readout error handles (RSNN_MAX_OUT in
+# csrc/rsnn_tick.cuh): the chip's 16 LI neurons.
+MAX_ERR_OUTPUTS = 16
+
+DwTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _readout_error(y_err, y_star, error: str, target_amplitude: float):
+    if error == "softmax":
+        return torch.softmax(y_err, dim=-1) - y_star
+    if error == "direct":
+        return y_err - target_amplitude * y_star
+    raise ValueError(f"unknown error mode {error!r}")
+
+
+def eprop_update_plain(h, xbar, pbar, zbar, err, b_fb, *, kappa: float
+                       ) -> DwTriple:
+    """Plain version of :func:`eprop_update_cuda` → ``(dw_in (N, H),
+    dw_rec (H, H), dw_out (H, O))``, summed over ticks and rows."""
+    T, B, H = h.shape
+    N, O = xbar.shape[2], err.shape[2]
+    f = h.new_zeros((B, H))
+    dw_in, dw_rec, dw_out = h.new_zeros((N, H)), h.new_zeros((H, H)), h.new_zeros((H, O))
+    for t in range(T - 1, -1, -1):
+        f = err[t] @ b_fb.T + kappa * f
+        g = h[t] * f
+        dw_in = dw_in + xbar[t].T @ g
+        dw_rec = dw_rec + pbar[t].T @ g
+        dw_out = dw_out + zbar[t].T @ err[t]
+    return dw_in, dw_rec, dw_out
+
+
+def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+                     alpha: float, kappa: float, v_th: float = 1.0,
+                     reset: str = "sub", boxcar_width: float = 0.5,
+                     quant: Optional[QuantizedMode] = None,
+                     error: str = "softmax", target_amplitude: float = 1.0,
+                     infer_window: str = "valid"):
+    """Plain version of :func:`rsnn_train_cuda` → ``(dw_in, dw_rec, dw_out,
+    acc_y (B, O), n_spk (B, 1))``."""
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    _check_exact_matmul(raster, quant)
+    y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    v, z = raster.new_zeros((B, H)), raster.new_zeros((B, H))
+    pbar, zbar = raster.new_zeros((B, H)), raster.new_zeros((B, H))
+    y, xbar = raster.new_zeros((B, O)), raster.new_zeros((B, N))
+    acc, nspk = raster.new_zeros((B, O)), raster.new_zeros((B, 1))
+    tr = {k: [] for k in ("h", "xbar", "pbar", "zbar", "err")}
+    for t in range(T):
+        v, z_new, y, h = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out,
+                                         boxcar_width=boxcar_width, **c)
+        xbar = c["alpha"] * xbar + raster[t]
+        pbar = c["alpha"] * pbar + z          # presyn trace: z BEFORE this tick
+        zbar = c["kappa"] * zbar + z_new
+        vt = valid[t][:, None]
+        err = _readout_error(y * y_scale, y_star, error, target_amplitude) * vt
+        for k, x in (("h", h), ("xbar", xbar), ("pbar", pbar), ("zbar", zbar),
+                     ("err", err)):
+            tr[k].append(x)
+        acc = acc + y * (1.0 if infer_window == "all" else vt)
+        nspk = nspk + (z_new * vt).sum(dim=1, keepdim=True)
+        z = z_new
+    dw = eprop_update_plain(*(torch.stack(tr[k]) for k in
+                              ("h", "xbar", "pbar", "zbar", "err")),
+                            b_fb, kappa=c["kappa"])
+    return (*dw, acc, nspk)
+
+
+def _dw_outputs(N: int, H: int, O: int, nb: int, dev):
+    """The ``(nb, E)`` partial buffer and the three ``dw`` views of one
+    ``(E,)`` result the reduce kernel writes."""
+    E = weight_elems(N, H, O)
+    part = torch.empty((nb, E), dtype=torch.float32, device=dev)
+    dw = torch.empty((E,), dtype=torch.float32, device=dev)
+    views = (dw[: N * H].view(N, H), dw[N * H: N * H + H * H].view(H, H),
+             dw[N * H + H * H:].view(H, O))
+    return part, dw, views
+
+
+def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+                    alpha: float, kappa: float, v_th: float = 1.0,
+                    reset: str = "sub", boxcar_width: float = 0.5,
+                    quant: Optional[QuantizedMode] = None,
+                    error: str = "softmax", target_amplitude: float = 1.0,
+                    infer_window: str = "valid"):
+    """Launch ``rsnn_train_kernel`` (and the block-order ``dw`` reduction)
+    on the current stream of the tensors' device → the outputs of
+    :func:`rsnn_train_plain`.  Checks device, dtype, shape and contiguity;
+    raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    if error not in ("softmax", "direct"):
+        raise ValueError(f"unknown error mode {error!r}")
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    if O > MAX_ERR_OUTPUTS:
+        raise ValueError(f"rsnn_train: {O} outputs > {MAX_ERR_OUTPUTS} "
+                         "(the chip's readout; RSNN_MAX_OUT in csrc)")
+    dev = raster.device
+    for name, t, shape in (
+        ("raster", raster, (T, B, N)), ("y_star", y_star, (B, O)),
+        ("valid", valid, (T, B)), ("w_in", w_in, (N, H)),
+        ("w_rec", w_rec, (H, H)), ("w_out", w_out, (H, O)),
+        ("b_fb", b_fb, (H, O)),
+    ):
+        check_arg(name, t, shape, dev)
+    acc = torch.empty((B, O), dtype=torch.float32, device=dev)
+    nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        zeros = (torch.zeros((N, H), device=dev), torch.zeros((H, H), device=dev),
+                 torch.zeros((H, O), device=dev))
+        return (*zeros, acc.zero_(), nspk.zero_())
+    lib = build.library()
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    bt, threads, wsmem = geometry(B, N, H, O, dev, traces=True)
+    nb = cdiv(B, bt)
+    traces = [torch.empty((T, B, w), dtype=torch.float32, device=dev)
+              for w in (H, N, H, H, O)]          # h, xbar, pbar, zbar, err
+    part, dw, views = _dw_outputs(N, H, O, nb, dev)
+    y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
+    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out,
+                                   b_fb, *traces, part, dw, acc, nspk)]
+    with torch.cuda.device(dev):
+        rc = lib.rsnn_train_launch(
+            *ptrs, T, B, N, H, O, bt, threads, wsmem,
+            int(infer_window == "all"), *datapath_scalars(c),
+            ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
+            ctypes.c_float(target_amplitude), int(error == "softmax"),
+            stream_arg(dev))
+    raise_on(lib, rc, "rsnn_train")
+    launches["rsnn_train"] += 1
+    return (*views, acc, nspk)
+
+
+def eprop_update_cuda(h, xbar, pbar, zbar, err, b_fb, *, kappa: float
+                      ) -> DwTriple:
+    """Launch ``eprop_update_kernel`` (and the block-order ``dw``
+    reduction) on the current stream of the tensors' device → the outputs
+    of :func:`eprop_update_plain`."""
+    from repro_torch.kernels import build
+
+    T, B, H = h.shape
+    N, O = xbar.shape[2], err.shape[2]
+    dev = h.device
+    for name, t, shape in (
+        ("h", h, (T, B, H)), ("xbar", xbar, (T, B, N)), ("pbar", pbar, (T, B, H)),
+        ("zbar", zbar, (T, B, H)), ("err", err, (T, B, O)), ("b_fb", b_fb, (H, O)),
+    ):
+        check_arg(name, t, shape, dev)
+    if B == 0 or T == 0:
+        return (torch.zeros((N, H), device=dev), torch.zeros((H, H), device=dev),
+                torch.zeros((H, O), device=dev))
+    lib = build.library()
+    bt, threads, _ = geometry(B, N, H, O, dev, traces=True)
+    nb = cdiv(B, bt)
+    g = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    part, dw, views = _dw_outputs(N, H, O, nb, dev)
+    ptrs = [t.data_ptr() for t in (h, xbar, pbar, zbar, err, b_fb, g, part, dw)]
+    with torch.cuda.device(dev):
+        rc = lib.eprop_update_launch(*ptrs, T, B, N, H, O, bt, threads,
+                                     ctypes.c_float(kappa), stream_arg(dev))
+    raise_on(lib, rc, "eprop_update")
+    launches["eprop_update"] += 1
+    return views

@@ -5,8 +5,9 @@ launches the hand-written kernel; on the CPU it runs the plain PyTorch
 version.  Any other device raises — there is no silent fallback, and a
 failed build or launch propagates.
 
-``launches`` (re-exported from :mod:`repro_torch.kernels.rsnn_step`, whose
-wrappers count each launch) holds plain integers: a run sets them to 0,
+``launches`` (re-exported from :mod:`repro_torch.kernels.rsnn_step`; the
+wrappers there and in :mod:`repro_torch.kernels.eprop_update` count each
+launch) holds plain integers for all five kernels: a run sets them to 0,
 drives the main path, and reads them back to show the path went through
 the kernels.
 """
@@ -18,11 +19,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import QuantizedMode
+from repro_torch.kernels import eprop_update as _train
 from repro_torch.kernels import rsnn_step as _rsnn
 from repro_torch.kernels.rsnn_step import KERNELS, launches, reset_launch_counts
 
-__all__ = ["KERNELS", "launches", "reset_launch_counts", "rsnn_infer",
-           "rsnn_step_sessions"]
+__all__ = ["KERNELS", "eprop_update", "launches", "reset_launch_counts",
+           "rsnn_forward", "rsnn_infer", "rsnn_step_sessions", "rsnn_train"]
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -57,3 +59,41 @@ def rsnn_step_sessions(raster, live, valid, v0, z0, y0, acc0, nspk0, w_in,
     if not _on_card(raster, "rsnn_step_sessions"):
         return _rsnn.rsnn_step_sessions_plain(*args, **kw)
     return _rsnn.rsnn_step_sessions_cuda(*args, **kw)
+
+
+def rsnn_forward(raster, w_in, w_rec, w_out, *, alpha: float, kappa: float,
+                 v_th: float = 1.0, reset: str = "sub", boxcar_width: float = 0.5,
+                 quant: Optional[QuantizedMode] = None):
+    """Trace-streaming forward over one ``(T, B)`` tile → ``{"z", "h",
+    "xbar", "pbar", "zbar", "y", "v"}``, each ``(T, B, ·)``."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
+              boxcar_width=boxcar_width, quant=quant)
+    if not _on_card(raster, "rsnn_forward"):
+        return _rsnn.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw)
+    return _rsnn.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
+
+
+def rsnn_train(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+               alpha: float, kappa: float, v_th: float = 1.0,
+               reset: str = "sub", boxcar_width: float = 0.5,
+               quant: Optional[QuantizedMode] = None, error: str = "softmax",
+               target_amplitude: float = 1.0, infer_window: str = "valid"):
+    """Fused forward + e-prop update over one ``(T, B)`` tile →
+    ``(dw_in, dw_rec, dw_out, acc_y (B, O), n_spk (B, 1))``, ``dw`` summed
+    over the batch, ``dw_rec`` not yet masked."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
+              boxcar_width=boxcar_width, quant=quant, error=error,
+              target_amplitude=target_amplitude, infer_window=infer_window)
+    args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
+    if not _on_card(raster, "rsnn_train"):
+        return _train.rsnn_train_plain(*args, **kw)
+    return _train.rsnn_train_cuda(*args, **kw)
+
+
+def eprop_update(h, xbar, pbar, zbar, err, b_fb, *, kappa: float):
+    """The split reverse pass over ``(T, B, ·)`` traces → ``(dw_in, dw_rec,
+    dw_out)``, ``dw_rec`` not yet masked."""
+    args = (h, xbar, pbar, zbar, err, b_fb)
+    if not _on_card(h, "eprop_update"):
+        return _train.eprop_update_plain(*args, kappa=kappa)
+    return _train.eprop_update_cuda(*args, kappa=kappa)

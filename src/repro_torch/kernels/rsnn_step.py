@@ -1,29 +1,36 @@
-"""Serving-side RSNN tick kernels for Hopper, their plain PyTorch versions,
-and the tile-sizing helpers they share (counterpart of
+"""Forward-side RSNN tick kernels for Hopper, their plain PyTorch
+versions, and the tile-sizing helpers every kernel shares (counterpart of
 :mod:`repro.kernels.rsnn_step`).
 
-Two kernels serve the whole-sample and streaming paths:
+Three kernels run the tick loop forward:
 
 * :func:`rsnn_infer_cuda` — ``rsnn_infer_kernel``: a ``(T, B)`` tile from
   zero state, accumulating the valid-weighted readout ``acc_y (B, O)`` and
   the valid-masked spike count ``n_spk (B, 1)`` on chip;
 * :func:`rsnn_step_sessions_cuda` — ``rsnn_step_sessions_kernel``: the
   same tick loop from carried ``(v, z, y, acc_y, n_spk)`` rows, with the
-  ``live`` select, returning the final carries.
+  ``live`` select, returning the final carries;
+* :func:`rsnn_forward_cuda` — ``rsnn_forward_kernel``: the
+  trace-streaming forward of the ``forward_traces`` and ``dynamics`` ops,
+  writing seven ``(T, B, ·)`` tensors ``z, h, xbar, pbar, zbar, y, v``.
 
-Both live in ``csrc/rsnn_serve.cu`` and run the whole T-tick loop inside
-one launch, one block per tile of rows (see ``csrc/rsnn_tick.cuh``).  :func:`rsnn_infer_plain` and
-:func:`rsnn_step_sessions_plain` compute the same functions with eager
-PyTorch through :func:`tick_transition`; the CPU path runs them, and
-``chip_smoke.py`` holds the kernels against them on the card.
-:mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
+The first two live in ``csrc/rsnn_serve.cu``, the third in
+``csrc/rsnn_train.cu``; all run the whole T-tick loop inside one launch,
+one block per tile of rows (see ``csrc/rsnn_tick.cuh``).  The ``*_plain``
+functions compute the same functions with eager PyTorch through
+:func:`tick_transition`; the CPU path runs them, and ``chip_smoke.py``
+holds the kernels against them on the card.  :mod:`repro_torch.kernels.ops`
+picks one or the other by tensor device.
 
 Tile sizing (one place, every caller derives from it): a block holds
 ``rows`` batch rows with one thread per ``(row, hidden neuron)``, so a tile
 is bounded by the 1,024 threads of a block and by the 227 KB of shared
 memory a block may use on an H100; the weights are staged in shared memory
 when they fit beside the tile's state, and read from global memory / L2
-otherwise.
+otherwise.  The trace kernels (``rsnn_forward``, ``rsnn_train``) keep the
+``xbar, pbar, zbar`` carries of each row in shared memory too; their
+per-tick traces go to device memory, so their tile rows do not depend on
+``T``.
 """
 
 from __future__ import annotations
@@ -44,7 +51,13 @@ H100_SMS = 132
 
 F32_BYTES = 4
 
-KERNELS = ("rsnn_infer", "rsnn_step_sessions")
+# Threads of a block of the train and update kernels: their reverse pass
+# spreads the dw elements (2,014 at Braille width) over the block however
+# few rows it holds.
+REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
+
+KERNELS = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
+           "eprop_update")
 # Launches per kernel, counted by its wrapper right after the launch and
 # nowhere else: a run sets them to 0, drives the main path and reads them
 # back to show the path went through the kernels.
@@ -70,35 +83,42 @@ def weights_bytes(n_in: int, n_hid: int, n_out: int) -> int:
     return F32_BYTES * weight_elems(n_in, n_hid, n_out)
 
 
-def tile_state_bytes(rows: int, n_in: int, n_hid: int, n_out: int) -> int:
+def tile_state_bytes(rows: int, n_in: int, n_hid: int, n_out: int,
+                     traces: bool = False) -> int:
     """Shared-memory bytes of one tile's state: v, z and this tick's
     spikes (H each), the tick's input block (N), y and acc_y (O each),
-    n_spk and the two masks (1 each) — per row."""
-    return F32_BYTES * rows * (3 * n_hid + n_in + 2 * n_out + 3)
+    n_spk and the two masks (1 each) — per row; the trace kernels add the
+    xbar (N), pbar and zbar (H each) carries."""
+    extra = n_in + 2 * n_hid if traces else 0
+    return F32_BYTES * rows * (3 * n_hid + n_in + 2 * n_out + 3 + extra)
 
 
-def weights_in_smem(rows: int, n_in: int, n_hid: int, n_out: int) -> bool:
+def weights_in_smem(rows: int, n_in: int, n_hid: int, n_out: int,
+                    traces: bool = False) -> bool:
     """Whether the f32 weights fit in shared memory beside the tile state
     (the Braille and cue nets do; the chip-maximal 256/256/16 net does not)."""
     return (weights_bytes(n_in, n_hid, n_out)
-            + tile_state_bytes(rows, n_in, n_hid, n_out)) <= SMEM_PER_BLOCK
+            + tile_state_bytes(rows, n_in, n_hid, n_out, traces)) <= SMEM_PER_BLOCK
 
 
-def max_tile_rows(n_in: int, n_hid: int, n_out: int) -> int:
+def max_tile_rows(n_in: int, n_hid: int, n_out: int,
+                  traces: bool = False) -> int:
     """Most batch rows one block can hold: one thread per (row, hidden
     neuron) within a block's threads, state within its shared memory."""
     rows = max(1, THREADS_PER_BLOCK // n_hid)
-    per_row = tile_state_bytes(1, n_in, n_hid, n_out)
+    per_row = tile_state_bytes(1, n_in, n_hid, n_out, traces)
     return max(1, min(rows, SMEM_PER_BLOCK // per_row))
 
 
 def block_rows(B: int, n_in: int, n_hid: int, n_out: int,
-               sm_count: int = H100_SMS) -> int:
+               sm_count: int = H100_SMS, traces: bool = False) -> int:
     """Rows per block for one launch: few enough that the batch spreads
     over every SM (the tick chain's latency, not its work, sets a block's
     time), never more than a block holds.  Results do not depend on it:
-    every row's arithmetic is independent of its tile."""
-    return max(1, min(max_tile_rows(n_in, n_hid, n_out), cdiv(B, sm_count)))
+    every row's arithmetic is independent of its tile (the summed dw of
+    the train kernels changes only in the order of its float sums)."""
+    return max(1, min(max_tile_rows(n_in, n_hid, n_out, traces),
+                      cdiv(B, sm_count)))
 
 
 def max_batch_for_dims(n_in: int, n_hid: int, n_out: int) -> int:
@@ -121,16 +141,20 @@ def session_state_bytes(n_hid: int, n_out: int) -> int:
 
 def tick_transition(x_t, v, z, y, w_in, w_rec, w_out, *, alpha: float,
                     kappa: float, v_th: float, reset_sub: bool,
+                    boxcar_width: float = 0.5,
                     quant: Optional[QuantizedMode] = None):
-    """One LIF + LI tick → ``(v_new, z_new, y_new)``."""
+    """One LIF + LI tick → ``(v_new, z_new, y_new, h)``, ``h`` the boxcar
+    pseudo-derivative at the pre-reset membrane."""
     return tick_from_input_current(
         x_t @ w_in, v, z, y, w_rec, w_out, alpha=alpha, kappa=kappa,
-        v_th=v_th, reset_sub=reset_sub, quant=quant,
+        v_th=v_th, reset_sub=reset_sub, boxcar_width=boxcar_width,
+        quant=quant,
     )
 
 
 def tick_from_input_current(in_cur, v, z, y, w_rec, w_out, *, alpha: float,
                             kappa: float, v_th: float, reset_sub: bool,
+                            boxcar_width: float = 0.5,
                             quant: Optional[QuantizedMode] = None):
     """:func:`tick_transition` with ``x_t @ w_in`` given; keeps the JAX
     operand order ``in_cur + z @ w_rec``."""
@@ -144,12 +168,13 @@ def tick_from_input_current(in_cur, v, z, y, w_rec, w_out, *, alpha: float,
         v_new = v_pre - z_new * v_th
     else:
         v_new = v_pre * (1.0 - z_new)
+    h = (torch.abs(v_pre - v_th) < boxcar_width * v_th).to(v_pre.dtype)
     y_lin = z_new @ w_out
     if quant is None:
         y_new = kappa * y + y_lin
     else:
         y_new = quant.sat(quant.leak(y, quant.kappa_reg) + y_lin)
-    return v_new, z_new, y_new
+    return v_new, z_new, y_new, h
 
 
 def _consts(alpha, kappa, v_th, reset, quant):
@@ -190,7 +215,7 @@ def rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, *, alpha: float,
     nspk = raster.new_zeros((B, 1))
     infer_all = infer_window == "all"
     for t in range(T):
-        v, z, y = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out, **c)
+        v, z, y, _ = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out, **c)
         vt = valid[t][:, None]
         acc = acc + y * (1.0 if infer_all else vt)
         nspk = nspk + (z * vt).sum(dim=1, keepdim=True)
@@ -210,7 +235,7 @@ def rsnn_step_sessions_plain(raster, live, valid, v0, z0, y0, acc0, nspk0,
     v, z, y, acc, nspk = v0, z0, y0, acc0, nspk0
     infer_all = infer_window == "all"
     for t in range(raster.shape[0]):
-        v_new, z_new, y_new = tick_transition(
+        v_new, z_new, y_new, _ = tick_transition(
             raster[t], v, z, y, w_in, w_rec, w_out, **c)
         lt = live[t][:, None]
         vt = valid[t][:, None]
@@ -228,7 +253,7 @@ def rsnn_step_sessions_plain(raster, live, valid, v0, z0, y0, acc0, nspk0,
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def check_arg(name: str, t: torch.Tensor, shape, device) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
@@ -239,18 +264,26 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
-                 infer_window):
-    T, B, N = raster.shape
-    H, O = w_rec.shape[0], w_out.shape[1]
-    c = _consts(alpha, kappa, v_th, reset, quant)
-    sm = torch.cuda.get_device_properties(raster.device).multi_processor_count
-    bt = block_rows(B, N, H, O, sm)
-    threads = min(THREADS_PER_BLOCK, cdiv(bt * H, 32) * 32)
-    q = quant
-    dims = [T, B, N, H, O, bt, threads, int(weights_in_smem(bt, N, H, O)),
-            int(infer_window == "all")]
-    scalars = [
+def geometry(B: int, N: int, H: int, O: int, device, traces: bool = False):
+    """``(rows per block, threads per block, weights in shared memory)``
+    of one launch over ``B`` rows on ``device``.  The trace kernels run
+    their reverse pass over the same block, so they take at least
+    :data:`REVERSE_MIN_THREADS` threads."""
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    bt = block_rows(B, N, H, O, sm, traces)
+    threads = cdiv(bt * H, 32) * 32
+    if traces:
+        threads = max(threads, REVERSE_MIN_THREADS)
+    return (bt, min(THREADS_PER_BLOCK, threads),
+            int(weights_in_smem(bt, N, H, O, traces)))
+
+
+def datapath_scalars(c) -> list:
+    """The C launchers' datapath arguments from :func:`_consts`: alpha,
+    kappa, v_th, the two quantized leak factors, the membrane grid, the
+    reset mode and the quantized flag."""
+    q = c["quant"]
+    return [
         ctypes.c_float(c["alpha"]), ctypes.c_float(c["kappa"]),
         ctypes.c_float(c["v_th"]),
         ctypes.c_float((q.alpha_reg & 0xFF) / 256.0 if q else 0.0),
@@ -258,12 +291,24 @@ def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
         ctypes.c_float(float(q.v_min) if q else 0.0),
         ctypes.c_float(float(q.v_max) if q else 0.0),
         int(c["reset_sub"]), int(q is not None),
-        ctypes.c_void_p(torch.cuda.current_stream(raster.device).cuda_stream),
     ]
-    return dims, scalars
 
 
-def _raise_on(lib, rc: int, name: str) -> None:
+def stream_arg(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
+                 infer_window):
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    bt, threads, wsmem = geometry(B, N, H, O, raster.device)
+    dims = [T, B, N, H, O, bt, threads, wsmem, int(infer_window == "all")]
+    return dims, datapath_scalars(c) + [stream_arg(raster.device)]
+
+
+def raise_on(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.rsnn_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
@@ -284,7 +329,7 @@ def rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, *, alpha: float,
     for name, t, shape in (("raster", raster, (T, B, N)), ("valid", valid, (T, B)),
                            ("w_in", w_in, (N, H)), ("w_rec", w_rec, (H, H)),
                            ("w_out", w_out, (H, O))):
-        _check(name, t, shape, dev)
+        check_arg(name, t, shape, dev)
     acc = torch.empty((B, O), dtype=torch.float32, device=dev)
     nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
     if B == 0:
@@ -296,7 +341,7 @@ def rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, *, alpha: float,
     ptrs = [t.data_ptr() for t in (raster, valid, w_in, w_rec, w_out, acc, nspk)]
     with torch.cuda.device(dev):
         rc = lib.rsnn_infer_launch(*ptrs, *dims, *scalars)
-    _raise_on(lib, rc, "rsnn_infer")
+    raise_on(lib, rc, "rsnn_infer")
     launches["rsnn_infer"] += 1
     return acc, nspk
 
@@ -321,7 +366,7 @@ def rsnn_step_sessions_cuda(raster, live, valid, v0, z0, y0, acc0, nspk0,
         ("w_in", w_in, (N, H)), ("w_rec", w_rec, (H, H)),
         ("w_out", w_out, (H, O)),
     ):
-        _check(name, t, shape, dev)
+        check_arg(name, t, shape, dev)
     outs = [torch.empty(s, dtype=torch.float32, device=dev)
             for s in ((B, H), (B, H), (B, O), (B, O), (B, 1))]
     if B == 0:
@@ -334,6 +379,78 @@ def rsnn_step_sessions_cuda(raster, live, valid, v0, z0, y0, acc0, nspk0,
                                    w_in, w_rec, w_out, *outs)]
     with torch.cuda.device(dev):
         rc = lib.rsnn_step_sessions_launch(*ptrs, *dims, *scalars)
-    _raise_on(lib, rc, "rsnn_step_sessions")
+    raise_on(lib, rc, "rsnn_step_sessions")
     launches["rsnn_step_sessions"] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# trace-streaming forward (forward_traces / dynamics ops)
+# ---------------------------------------------------------------------------
+
+FORWARD_KEYS = ("z", "h", "xbar", "pbar", "zbar", "y", "v")
+
+
+def rsnn_forward_plain(raster, w_in, w_rec, w_out, *, alpha: float,
+                       kappa: float, v_th: float = 1.0, reset: str = "sub",
+                       boxcar_width: float = 0.5,
+                       quant: Optional[QuantizedMode] = None,
+                       ) -> Dict[str, torch.Tensor]:
+    """Plain version of :func:`rsnn_forward_cuda` → ``{"z", "h", "xbar",
+    "pbar", "zbar", "y", "v"}``, each ``(T, B, ·)``; ``v`` is the
+    post-reset membrane."""
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    _check_exact_matmul(raster, quant)
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    v, z = raster.new_zeros((B, H)), raster.new_zeros((B, H))
+    pbar, zbar = raster.new_zeros((B, H)), raster.new_zeros((B, H))
+    y, xbar = raster.new_zeros((B, O)), raster.new_zeros((B, N))
+    outs = {k: [] for k in FORWARD_KEYS}
+    for t in range(T):
+        v_new, z_new, y, h = tick_transition(
+            raster[t], v, z, y, w_in, w_rec, w_out,
+            boxcar_width=boxcar_width, **c)
+        xbar = c["alpha"] * xbar + raster[t]
+        pbar = c["alpha"] * pbar + z          # presyn trace: z BEFORE this tick
+        zbar = c["kappa"] * zbar + z_new
+        for k, x in zip(FORWARD_KEYS, (z_new, h, xbar, pbar, zbar, y, v_new)):
+            outs[k].append(x)
+        v, z = v_new, z_new
+    return {k: torch.stack(x) for k, x in outs.items()}
+
+
+def rsnn_forward_cuda(raster, w_in, w_rec, w_out, *, alpha: float,
+                      kappa: float, v_th: float = 1.0, reset: str = "sub",
+                      boxcar_width: float = 0.5,
+                      quant: Optional[QuantizedMode] = None,
+                      ) -> Dict[str, torch.Tensor]:
+    """Launch ``rsnn_forward_kernel`` on the current stream of the tensors'
+    device → the seven ``(T, B, ·)`` tensors of
+    :func:`rsnn_forward_plain`.  Checks device, dtype, shape and
+    contiguity; raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    dev = raster.device
+    for name, t, shape in (("raster", raster, (T, B, N)), ("w_in", w_in, (N, H)),
+                           ("w_rec", w_rec, (H, H)), ("w_out", w_out, (H, O))):
+        check_arg(name, t, shape, dev)
+    width = {"xbar": N, "y": O}
+    outs = {k: torch.empty((T, B, width.get(k, H)), dtype=torch.float32,
+                           device=dev) for k in FORWARD_KEYS}
+    if B == 0 or T == 0:
+        return outs
+    lib = build.library()
+    c = _consts(alpha, kappa, v_th, reset, quant)
+    bt, threads, wsmem = geometry(B, N, H, O, dev, traces=True)
+    ptrs = [t.data_ptr() for t in (raster, w_in, w_rec, w_out)]
+    ptrs += [outs[k].data_ptr() for k in FORWARD_KEYS]
+    with torch.cuda.device(dev):
+        rc = lib.rsnn_forward_launch(
+            *ptrs, T, B, N, H, O, bt, threads, wsmem, *datapath_scalars(c),
+            ctypes.c_float(boxcar_width * c["v_th"]), stream_arg(dev))
+    raise_on(lib, rc, "rsnn_forward")
+    launches["rsnn_forward"] += 1
+    return outs

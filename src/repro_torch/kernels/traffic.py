@@ -1,10 +1,15 @@
-"""Device-memory bytes one serving launch moves (counterpart of the two
-serving formulas of :mod:`repro.kernels.traffic`).
+"""Device-memory bytes each kernel launch moves (counterpart of the
+serving and training formulas of :mod:`repro.kernels.traffic`).
 
 Counted as the kernels read and write them on the card: the raster and
 masks once, the weights once per launch (each block re-reads them, but
-from L2 after the first), the carries once in and once out, no per-tick
-tensor.  ``BatchedEngine`` sums these into ``hbm_bytes_streamed``.
+from L2 after the first), carries once in and once out.  The serving
+kernels write no per-tick tensor; ``rsnn_forward`` streams its seven;
+``rsnn_train`` writes its trace set to a device-memory scratch and reads
+it back (:func:`train_trace_scratch_bytes`, listed apart: at the END_B
+tile it stays in L2).  ``BatchedEngine`` sums the serving formulas into
+``hbm_bytes_streamed``; ``chip_smoke.py`` derives each kernel's bound from
+these.
 """
 
 from __future__ import annotations
@@ -28,3 +33,41 @@ def stream_step_tiled_bytes(T: int, B: int, n_in: int, n_hid: int,
     state = B * (2 * n_hid + 2 * n_out + 1)
     reads = 2 * T * B + T * B * n_in + state + weight_elems(n_in, n_hid, n_out)
     return F32_BYTES * (reads + state)
+
+
+def forward_traces_bytes(T: int, B: int, n_in: int, n_hid: int,
+                         n_out: int) -> int:
+    """``rsnn_forward``: raster + weights in, seven per-tick streams out
+    (``z, h, pbar, zbar, v`` of width H, ``xbar`` N, ``y`` O)."""
+    reads = T * B * n_in + weight_elems(n_in, n_hid, n_out)
+    writes = T * B * (5 * n_hid + n_in + n_out)
+    return F32_BYTES * (reads + writes)
+
+
+def eprop_update_bytes(T: int, B: int, n_in: int, n_hid: int,
+                       n_out: int) -> int:
+    """``eprop_update``: the five trace streams and ``b_fb`` in, the three
+    ``dw`` matrices out."""
+    reads = T * B * (3 * n_hid + n_in + n_out) + n_hid * n_out
+    writes = weight_elems(n_in, n_hid, n_out)
+    return F32_BYTES * (reads + writes)
+
+
+def train_fused_tiled_bytes(T: int, B: int, n_in: int, n_hid: int,
+                            n_out: int) -> int:
+    """``rsnn_train``: raster, valid, targets, weights and feedback in; the
+    three ``dw`` matrices, ``(B, O)`` logits and ``(B, 1)`` spike counts
+    out.  No row is padded on the card (a block masks its ragged edge)."""
+    reads = (T * B * n_in + T * B + B * n_out
+             + weight_elems(n_in, n_hid, n_out) + n_hid * n_out)
+    writes = weight_elems(n_in, n_hid, n_out) + B * n_out + B
+    return F32_BYTES * (reads + writes)
+
+
+def train_trace_scratch_bytes(T: int, B: int, n_in: int, n_hid: int,
+                              n_out: int) -> int:
+    """``rsnn_train``'s own trace traffic beyond
+    :func:`train_fused_tiled_bytes`: the ``h, xbar, pbar, zbar, err`` set
+    (66 KB a row at Braille T=128) written by the forward phase and read
+    back by the reverse phase."""
+    return 2 * F32_BYTES * T * B * (3 * n_hid + n_in + n_out)

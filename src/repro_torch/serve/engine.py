@@ -406,6 +406,15 @@ class BatchedEngine:
     def quantized(self) -> bool:
         return self._lane().backend.quant is not None
 
+    @classmethod
+    def from_learner(cls, learner, **kw) -> "BatchedEngine":
+        """Serve an :class:`~repro_torch.core.controller.OnlineLearner`'s
+        network through the learner's own execution backend, so
+        ``update_weights(learner.weights)`` mid-training swaps the image
+        and builds nothing new."""
+        kw.setdefault("backend", learner.backend)
+        return cls(learner.cfg, learner.inference_params(), **kw)
+
     def update_weights(self, weights: Dict[str, torch.Tensor],
                        model_id: Optional[str] = None) -> None:
         """Swap in new weights for one model (the SRAM load: snapped onto

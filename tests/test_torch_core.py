@@ -152,9 +152,9 @@ def test_configs_mirror_jax_presets():
 def test_init_params_seeded_by_generator():
     cfg = Presets.braille(eprop=dataclasses.replace(
         Presets.braille().eprop, feedback="random"))
-    a = init_params(torch.Generator().manual_seed(5), cfg)
-    b = init_params(torch.Generator().manual_seed(5), cfg)
-    c = init_params(torch.Generator().manual_seed(6), cfg)
+    a = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    b = init_params(torch.Generator().manual_seed(5), cfg, device="cpu")
+    c = init_params(torch.Generator().manual_seed(6), cfg, device="cpu")
     assert set(a) == {"w_in", "w_rec", "w_out", "alpha", "b_fb"}
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["w_in"], c["w_in"])
@@ -166,12 +166,12 @@ def test_params_from_jax_copies_every_key():
     rng = np.random.default_rng(0)
     p = {"w_in": rng.normal(size=(3, 4)), "w_rec": rng.normal(size=(4, 4)),
          "w_out": rng.normal(size=(4, 2)), "alpha": np.float32(0.9)}
-    t = params_from_jax(p)
+    t = params_from_jax(p, device="cpu")
     for k, v in p.items():
         assert t[k].dtype == torch.float32
         np.testing.assert_array_equal(t[k].numpy(), np.asarray(v, np.float32))
     with pytest.raises(ValueError):
-        params_from_jax({"w_bogus": np.zeros(2)})
+        params_from_jax({"w_bogus": np.zeros(2)}, device="cpu")
 
 
 @pytest.mark.parametrize("quantized", [True, False])
@@ -190,7 +190,7 @@ def test_plain_inference_loops_match_jax_scan(quantized):
     live = np.ones((T, B), np.float32)
     live[10:, 1] = 0.0
     jw = {k: jnp.asarray(v) for k, v in w.items()}
-    tw = params_from_jax(w)
+    tw = params_from_jax(w, device="cpu")
     chk = ((lambda a, b: np.testing.assert_array_equal(a, b)) if quantized else
            (lambda a, b: np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)))
 

@@ -8,20 +8,27 @@ so it also runs on a machine that has only PyTorch:
 
 Quantized mode is held bitwise; float mode to ``atol = rtol = 1e-4`` (the
 kernel sums each row in its own fixed order, the plain version through
-``torch.matmul``).
+``torch.matmul``).  The training kernels' ``dw`` goes through ``exp`` and
+sums in another order than the plain version's products, so it is held to
+``max |Δdw| <= DW_TOL * max |dw|`` per matrix in both modes; their
+``acc_y``, ``n_spk`` and (``rsnn_forward``) traces are bitwise when
+quantized.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.core.aer import encode_sample
 from repro_torch.core.backend import ExecutionBackend
 from repro_torch.core.rsnn import Presets
-from repro_torch.kernels import ops, rsnn_step
+from repro_torch.kernels import eprop_update, ops, rsnn_step
 from repro_torch.serve import BatchedEngine
 
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
+DW_TOL = 1e-4
 
 
 @pytest.fixture
@@ -82,7 +89,8 @@ def test_kernels_match_plain_on_card(quantized, cuda_device):
         for a, b in zip(got, want):
             _check(a, b, quantized)
         carries = list(want)
-    assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2}
+    assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2,
+                            "rsnn_forward": 0, "rsnn_train": 0, "eprop_update": 0}
 
 
 @pytest.mark.cuda
@@ -118,4 +126,82 @@ def test_engine_on_card_matches_cpu_engine(quantized, cuda_device):
         np.testing.assert_array_equal(h.result().logits, r.logits)
     eng.warmup(T, batch=4)
     assert eng.pool.evictions > 0
-    assert min(ops.launches.values()) > 0
+    assert ops.launches["rsnn_infer"] > 0 and ops.launches["rsnn_step_sessions"] > 0
+
+
+def _check_dw(got, want):
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= DW_TOL * scale
+
+
+def _train_case(rng, quantized, feedback, T, B, dev, label_delay=3):
+    cfg = Presets.braille(num_ticks=T, quantized=quantized, label_delay=label_delay)
+    cfg = dataclasses.replace(cfg, eprop=dataclasses.replace(cfg.eprop, feedback=feedback))
+    be = ExecutionBackend(cfg, device=dev)
+    params = {k: v.to(dev) for k, v in _params(rng, cfg).items()}
+    params["b_fb"] = torch.from_numpy(
+        (rng.normal(size=(cfg.n_hid, cfg.n_out)) / np.sqrt(cfg.n_hid))
+        .astype(np.float32)).to(dev)
+    raster = torch.from_numpy((rng.random((T, B, cfg.n_in)) < 0.3)
+                              .astype(np.float32)).to(dev)
+    t = np.arange(T)[:, None]
+    start = rng.integers(0, T // 2, size=B) + label_delay
+    valid = torch.from_numpy((t >= start).astype(np.float32)).to(dev)
+    y_star = torch.eye(cfg.n_out, device=dev)[torch.from_numpy(
+        rng.integers(0, cfg.n_out, size=B)).to(dev)]
+    return cfg, be, params, raster, valid, y_star
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("feedback", ["symmetric", "random"])
+def test_train_kernels_match_plain_on_card(quantized, feedback, cuda_device):
+    """``rsnn_forward``, ``rsnn_train`` and ``eprop_update`` against their
+    plain versions, over a batch that leaves a ragged last block."""
+    rng = np.random.default_rng(8)
+    cfg, be, params, raster, valid, y_star = _train_case(
+        rng, quantized, feedback, 32, 37, cuda_device)
+    w_in, w_rec, w_out = be.datapath_weights(params)
+    b_fb = be._feedback(params)
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant)
+    ops.reset_launch_counts()
+    got = rsnn_step.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
+    want = rsnn_step.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw)
+    for k in rsnn_step.FORWARD_KEYS:
+        _check(got[k], want[k], quantized)
+    tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
+    got = eprop_update.rsnn_train_cuda(*args, **tkw)
+    want = eprop_update.rsnn_train_plain(*args, **tkw)
+    _check_dw(got[:3], want[:3])
+    for a, b in zip(got[3:], want[3:]):
+        _check(a, b, quantized)
+    tr = be.forward_traces(params, raster, y_star, valid)
+    trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
+    got = eprop_update.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa)
+    want = eprop_update.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa)
+    _check_dw(got, want)
+    assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0,
+                            "rsnn_forward": 2, "rsnn_train": 1, "eprop_update": 1}
+
+
+@pytest.mark.cuda
+def test_train_kernel_dw_identical_across_launches(cuda_device):
+    """No atomics: two launches of ``rsnn_train`` (and of ``eprop_update``)
+    on the same inputs give the same bits, and the split pipeline's ``dw``
+    equals the fused one within the tolerance."""
+    rng = np.random.default_rng(9)
+    cfg, be, params, raster, valid, y_star = _train_case(
+        rng, True, "symmetric", 64, 70, cuda_device)
+    a, _ = be.train_tile(params, raster, y_star, valid)
+    b, _ = be.train_tile(params, raster, y_star, valid)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    tr = be.forward_traces(params, raster, y_star, valid)
+    c, d = be.eprop_update(params, tr), be.eprop_update(params, tr)
+    for k in c:
+        assert torch.equal(c[k], d[k]), k
+    _check_dw([c[k] for k in a], [a[k] for k in a])

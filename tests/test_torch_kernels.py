@@ -73,8 +73,8 @@ def test_infer_plain_matches_jax_kernel(quantized, B, vmem):
         {k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(raster),
         jnp.asarray(valid))
     be = ExecutionBackend(tcfg, device="cpu")
-    tout = be.inference(params_from_jax(w), torch.from_numpy(raster),
-                        torch.from_numpy(valid))
+    tout = be.inference(params_from_jax(w, device="cpu"),
+                        torch.from_numpy(raster), torch.from_numpy(valid))
     _check(jout["acc_y"], tout["acc_y"], quantized)
     np.testing.assert_array_equal(np.asarray(jout["pred"]), tout["pred"].numpy())
     np.testing.assert_allclose(float(jout["spike_rate"]),
@@ -116,8 +116,9 @@ def test_step_sessions_plain_matches_jax_kernel(quantized, infer_window):
         jnp.asarray(live), jnp.asarray(valid),
         {k: jnp.asarray(v) for k, v in state.items()})
     tout = ExecutionBackend(tcfg, device="cpu").step_sessions(
-        params_from_jax(w), torch.from_numpy(raster), torch.from_numpy(live),
-        torch.from_numpy(valid), {k: torch.from_numpy(v) for k, v in state.items()})
+        params_from_jax(w, device="cpu"), torch.from_numpy(raster),
+        torch.from_numpy(live), torch.from_numpy(valid),
+        {k: torch.from_numpy(v) for k, v in state.items()})
     for k in ("v", "z", "y", "acc_y", "n_spk"):
         _check(jout[k], tout[k], quantized)
     # the dead row's carries are untouched exactly
@@ -130,7 +131,7 @@ def test_session_tile_equals_infer_from_zero_state():
     version reduces to the inference kernel's, bitwise."""
     _, tcfg, w, raster, valid, _ = _tile(4, 16, 5, True)
     be = ExecutionBackend(tcfg, device="cpu")
-    p = params_from_jax(w)
+    p = params_from_jax(w, device="cpu")
     inf = be.inference(p, torch.from_numpy(raster), torch.from_numpy(valid))
     ses = be.step_sessions(p, torch.from_numpy(raster), torch.ones(16, 5),
                            torch.from_numpy(valid), be.init_session_state(5))
@@ -141,10 +142,11 @@ def test_ops_dispatch_by_device_and_count_only_kernel_launches():
     _, tcfg, w, raster, valid, _ = _tile(5, 8, 2, True)
     be = ExecutionBackend(tcfg, device="cpu")
     ops.reset_launch_counts()
-    be.inference(params_from_jax(w), raster, valid)
-    be.step_sessions(params_from_jax(w), raster, valid, valid,
+    be.inference(params_from_jax(w, device="cpu"), raster, valid)
+    be.step_sessions(params_from_jax(w, device="cpu"), raster, valid, valid,
                      be.init_session_state(2))
-    assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0}
+    assert set(ops.launches) == set(ops.KERNELS)
+    assert all(n == 0 for n in ops.launches.values())
     with pytest.raises(ValueError):
         ops.rsnn_infer(torch.zeros(2, 1, 3, device="meta"), None, None, None,
                        None, alpha=0.5, kappa=0.5)
@@ -197,9 +199,9 @@ def test_tick_transition_matches_jax():
     jo = jtick(*(jnp.asarray(a) for a in (x, v, z, y, *ws)), quant=JQ(),
                boxcar_width=0.5, **kw)
     to = tick_transition(*(torch.from_numpy(a) for a in (x, v, z, y, *ws)),
-                         quant=q, **kw)
-    assert len(to) == 3
-    for a, b in zip(jo[:3], to):
+                         quant=q, boxcar_width=0.5, **kw)
+    assert len(to) == len(jo) == 4      # (v, z, y, boxcar h)
+    for a, b in zip(jo, to):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
@@ -221,3 +223,58 @@ def test_backend_without_cuda_raises_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ExecutionBackend(cfg, device="cuda")
     assert ExecutionBackend(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["rsnn_forward", "rsnn_train", "eprop_update"])
+def test_training_wrappers_reject_cpu_tensors(name):
+    from repro_torch.kernels import eprop_update
+
+    T, B, N, H, O = 4, 2, 12, 38, 3
+    z = torch.zeros
+    calls = {
+        "rsnn_forward": lambda: rsnn_step.rsnn_forward_cuda(
+            z(T, B, N), z(N, H), z(H, H), z(H, O), alpha=0.5, kappa=0.5),
+        "rsnn_train": lambda: eprop_update.rsnn_train_cuda(
+            z(T, B, N), z(B, O), z(T, B), z(N, H), z(H, H), z(H, O), z(H, O),
+            alpha=0.5, kappa=0.5),
+        "eprop_update": lambda: eprop_update.eprop_update_cuda(
+            z(T, B, H), z(T, B, N), z(T, B, H), z(T, B, H), z(T, B, O), z(H, O),
+            kappa=0.5),
+    }
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        calls[name]()
+    assert ops.launches[name] == 0
+
+
+@pytest.mark.parametrize("dims", [(12, 38, 3), (40, 100, 2), (256, 256, 16)])
+def test_trace_tile_sizing_fits_the_block(dims):
+    """The trace kernels keep the xbar, pbar, zbar carries of every row in
+    shared memory too; their tiles still fit a block, and fewer rows fit
+    than in a serving tile."""
+    n, h, o = dims
+    rows = rsnn_step.max_tile_rows(n, h, o, traces=True)
+    assert 1 <= rows <= rsnn_step.max_tile_rows(n, h, o)
+    assert rows * h <= rsnn_step.THREADS_PER_BLOCK
+    assert rsnn_step.tile_state_bytes(rows, n, h, o, traces=True) <= rsnn_step.SMEM_PER_BLOCK
+    assert rsnn_step.block_rows(70, n, h, o, traces=True) == 1      # END_B tile
+    be = ExecutionBackend(Presets.braille(num_ticks=8), device="cpu")
+    assert be.tile_rows("train", T=128) == rsnn_step.max_tile_rows(12, 38, 3, traces=True)
+    with pytest.raises(ValueError, match="T <= 4096"):
+        be.tile_rows("train")
+
+
+def test_training_traffic_formulas_match_jax():
+    from repro.kernels import traffic as jt
+    from repro_torch.kernels import traffic
+
+    for shape in [(128, 70, 12, 38, 3), (256, 8, 256, 256, 16)]:
+        assert traffic.forward_traces_bytes(*shape) == jt.forward_traces_bytes(*shape)
+        assert traffic.eprop_update_bytes(*shape) == jt.eprop_update_bytes(*shape)
+        T, B, n, h, o = shape
+        # the card reads the raster and valid once (no phase-2 re-visit) and
+        # pads no rows
+        want = 4 * (T * B * n + T * B + B * o + rsnn_step.weight_elems(n, h, o) + h * o
+                    + rsnn_step.weight_elems(n, h, o) + B * o + B)
+        assert traffic.train_fused_tiled_bytes(*shape) == want
+        assert traffic.train_trace_scratch_bytes(*shape) == 2 * 4 * T * B * (3 * h + n + o)

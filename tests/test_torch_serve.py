@@ -55,7 +55,7 @@ def _setup(seed=0, n=5, T=32, quantized=False):
     jp = jax_init(jax.random.key(seed), jcfg)
     # a gain of 2.5 makes the quantized datapath fire at this width
     jp = {k: (v * 2.5 if k.startswith("w_") else v) for k, v in jp.items()}
-    tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     rng = np.random.default_rng(seed)
     reqs = [_request(rng, tcfg.n_in, int(rng.integers(12, T + 1)), label=i % 3)
             for i in range(n)]
