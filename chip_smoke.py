@@ -3,7 +3,9 @@ kernels from ``src/repro_torch/kernels/csrc``, holds each against its plain
 PyTorch version on the card, drives the serving path (``serve()`` and
 streaming sessions) and the online-learning path (END_B and END_S e-prop
 training on Braille, then serving the learned weights) at the Braille
-network's full width through the kernels, and times them.
+network's full width through the kernels, drives the dense LM's serving
+path (prefill, decode, greedy ``generate``) at llama3-8b's full width and
+depth through the flash-attention kernel, and times the kernels.
 
     python3 chip_smoke.py
 
@@ -44,7 +46,24 @@ Phases:
       test split, bitwise equal to the learner backend's inference; the
       split pipeline and the dynamics probe run on the learned weights; all
       five kernels are launched on this path;
-  (i) the training kernels timed at the main path's shape (T=128, B=70).
+  (i) the training kernels timed at the main path's shape (T=128, B=70);
+  (j) flash_attention == its plain version on the card: llama3-8b's
+      attention shape (B=4, S=2048, H=32, Hkv=8, D=128, bf16, causal), a
+      ragged causal length, a non-causal case on strided (B, H, S, D) views
+      with NaN past kv_len, and f32 at qwen3-1.7b's heads; within
+      FLASH_F32_TOL of max|o| (f32) or BF16_ROW_TOL of each row's max|o|
+      (bf16), two launches give identical bits, and the gate rejects two
+      planted faults (output x 0.9, a key tile lost from the later rows);
+  (k) the LM serving path at llama3-8b's full width and depth (32 layers,
+      random bf16 weights from a seed): generate() of 32 greedy tokens after
+      B=4 prompts of 2048 tokens, launching flash_attention once per layer of
+      the prefill; every logit finite; the teacher-forcing identity (decode
+      at position L on the cache of L tokens == the last logits of a prefill
+      of L+1) within LM_TF_TOL; prefill logits within LM_PLAIN_TOL of a
+      prefill whose attention runs the plain version; prefill and decode
+      tokens/s;
+  (l) flash_attention timed at the (j) llama shape beside its plain version,
+      one library call (scaled_dot_product_attention) and its bound.
 """
 
 from __future__ import annotations
@@ -85,9 +104,42 @@ JAX_END_S_MEDIAN = 0.7167
 END_S_MARGIN = 0.10
 END_S_MIN_MEDIAN = JAX_END_S_MEDIAN - END_S_MARGIN
 END_B_MAX_GAP = 0.10
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor f32.
+# flash_attention, kernel vs plain version (j).  f32: both sum each score
+# (D = 128 products) and each output (up to 2,048 terms, tile by tile) in
+# f32, in different orders and with different tile boundaries for the
+# running max, so they differ by a few f32 ulps of max|o|; 1e-5 of max|o|
+# leaves room for a 2,048-term sum.  bf16: per query row, within
+# kernels/flash_attention.py:BF16_ROW_TOL of the row's largest output (see
+# the justification there).  Each case also plants two faults (the output
+# scaled by 0.9, and one key tile lost from the later rows) and fails
+# unless the gate rejects both.
+FLASH_F32_TOL = 1e-5
+# The LM path (k): llama3-8b at full width and depth, B prompts of LM_PROMPT
+# tokens, LM_STEPS greedy tokens.
+LM_ARCH = "llama3-8b"
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_STEPS = 32
+# bf16 logits, max |Δ| over the (B, vocab) last-token logits, whose scale
+# is about 1 (ln_f's output has unit rms, lm_head is fan-in scaled; the
+# largest of the 4 x 128,256 lie in [4, 8), where a bf16 ulp is 2^-5).
+# Both comparisons run the same weights through paths that differ only in
+# where f32 sums round to bf16: the decode path's M=B matmuls and f32
+# softmax against the prefill's M=B·L matmuls and the flash kernel
+# (LM_TF_TOL), or the kernel against the plain version (LM_PLAIN_TOL).
+# Each of the 32 layers rounds its residual stream and sublayer outputs to
+# bf16, so a rounding that lands apart in one layer is carried to the
+# logits.  Measured on an H100 80GB HBM3 (700 W): 0.033 for both, one ulp
+# of the largest logits.  The tolerance is 4 such ulps, 0.125: room for
+# roundings to compound on other weights, far below what a wrong mask,
+# position or cache slot does (it moves logits by their own scale, ~1).
+LM_TF_TOL = 0.125
+LM_PLAIN_TOL = 0.125
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
+# dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 SEED = 11
 
 
@@ -659,6 +711,289 @@ def phase_train_timing(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (j) flash_attention vs plain, (k) the LM serving path, (l) flash timing
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(gen, B, Sq, Skv, H, Hkv, D, dtype, dev, strided=False):
+    """q (B, Sq, H, D), k, v (B, Skv, Hkv, D) from N(0, 0.3²); ``strided``
+    makes them (B, S, H, D) views of (B, H, S, D) tensors."""
+    def one(S, heads):
+        shape = (B, heads, S, D) if strided else (B, S, heads, D)
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.3).to(dtype)
+        return x.transpose(1, 2) if strided else x
+    return one(Sq, H), one(Skv, Hkv), one(Skv, Hkv)
+
+
+def _flash_gate(got, want):
+    """(error, tolerance) of the (j) gate: f32 max |Δ| over max |o|, bf16
+    the largest per-row error over the row's max |o|."""
+    from repro_torch.kernels import flash_attention as FA
+
+    if want.dtype == torch.float32:
+        if not torch.isfinite(got).all():
+            return float("inf"), FLASH_F32_TOL
+        return _err(got, want) / float(want.abs().max()), FLASH_F32_TOL
+    return FA.row_error(got, want), FA.BF16_ROW_TOL
+
+
+def phase_flash_vs_plain(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [   # name, B, Sq, Skv, H, Hkv, D, dtype, causal, kv_len, strided
+        ("llama3-8b prefill", 4, 2048, 2048, 32, 8, 128, bf16, True, None, False),
+        ("ragged causal", 2, 1000, 1000, 32, 8, 128, bf16, True, None, False),
+        ("non-causal, strided views, NaN past kv_len", 2, 300, 1024, 32, 8, 128,
+         bf16, False, 1000, True),
+        ("qwen3-1.7b heads, f32", 2, 1000, 1000, 16, 8, 128, f32, True, None, False),
+    ]
+    worst = 0.0
+    for name, B, Sq, Skv, H, Hkv, D, dtype, causal, kv_len, strided in cases:
+        q, k, v = _flash_inputs(gen, B, Sq, Skv, H, Hkv, D, dtype, dev, strided)
+        if kv_len is not None:
+            k[:, kv_len:] = float("nan")
+            v[:, kv_len:] = float("nan")
+        kw = dict(causal=causal, kv_len=kv_len)
+        got = FA.flash_attention_cuda(q, k, v, **kw)
+        again = FA.flash_attention_cuda(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"flash_attention {name}: shape {tuple(got.shape)} / non-finite")
+        e, tol = _flash_gate(got, want)
+        if e > tol:
+            fail(f"flash_attention {name}: kernel off by {e} (> {tol})")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {name}: two launches gave different bits")
+        # planted faults the gate must reject: a wrong output scale, and
+        # key tile 64-127 lost from the rows past Sq/2
+        lost = v.clone()
+        lost[:, 64:128] = 0
+        late = q.shape[1] // 2
+        tile_fault = got.clone()
+        tile_fault[:, late:] = FA.flash_attention_cuda(q, k, lost, **kw)[:, late:]
+        faults = {"output x 0.9": _flash_gate((got.float() * 0.9).to(dtype), want)[0],
+                  "key tile lost in late rows": _flash_gate(tile_fault, want)[0]}
+        for fault, fe in faults.items():
+            if not fe > tol:
+                fail(f"flash_attention {name}: the gate accepts a planted fault "
+                     f"({fault}: {fe} <= {tol})")
+        abs_e = _err(got, want)
+        worst = max(worst, abs_e)
+        log(f"(j) ok: flash_attention {name} (B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
+            f"Hkv={Hkv}, D={D}, {str(dtype)[6:]}, causal={causal}, kv_len={kv_len}): "
+            f"{'max |Δ| / max|o|' if dtype == f32 else 'worst row max |Δ| / max|o_row|'} "
+            f"{e:.4g} (tol {tol:.4g}; max |kernel - plain| {abs_e:.3g}, max|o| "
+            f"{float(want.float().abs().max()):.3g}), two launches bitwise equal; "
+            f"planted faults rejected: "
+            + ", ".join(f"{f} {fe:.4g}" for f, fe in faults.items()))
+    return worst
+
+
+def _logit_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _device_profile(fn):
+    """Run ``fn`` under ``torch.profiler`` → (device busy ms, kernels, the
+    busiest kernel names with their ms), or None when the trace holds no
+    device time.  Busy time is the sum of the kernels' own durations (one
+    stream, so they do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return sum(by_name.values()), len(kernels), top
+
+
+def phase_lm(dev):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models.model import build
+    from repro_torch.train import serve_step
+
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    B, L, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    cache_len = L + steps + 8
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"(k) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random weights "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s (peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: the f32 draws)")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :L]}
+    serve_step.generate(model, params, {"tokens": tokens[:1, :64]}, 2, 72)  # warm-up
+
+    # the main path: one generate() call, counted
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve_step.generate(model, params, prompt, steps, cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"generate launched flash_attention {launches['flash_attention']} "
+             f"times, not once per layer of the prefill ({cfg.n_layers})")
+    if out.shape != (B, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        fail(f"generate gave tokens of shape {tuple(out.shape)} outside the vocab")
+    log(f"(k) ok: generate() {B} x {L} prompt tokens + {steps} greedy tokens in "
+        f"{gen_s:.2f} s, peak device memory {gen_peak / 2**30:.2f} GiB; launches "
+        f"{launches}")
+
+    # prefill and decode timed apart; the same tokens as generate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        fail("prefill logits not finite")
+    decode = serve_step.make_decode_step(model, sample="greedy")
+    nxt = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+    toks = [nxt]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps - 1):
+        nxt, caches = decode(params, caches, nxt, L + i)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.equal(torch.cat(toks, dim=1), out):
+        fail("prefill + decode_step gave other tokens than generate()")
+    log(f"(k) ok: prefill {B} x {L} tokens in {prefill_s * 1e3:.1f} ms "
+        f"({B * L / prefill_s:.0f} tokens/s); {steps - 1} decode steps of {B} "
+        f"tokens in {decode_s * 1e3:.1f} ms ({B * (steps - 1) / decode_s:.1f} "
+        f"tokens/s, {decode_s / (steps - 1) * 1e3:.2f} ms a step)")
+
+    # where the time goes: device busy time against the wall times above
+    pre = _device_profile(lambda: model.prefill(params, prompt))
+    n_dec = 4
+    dec = _device_profile(lambda: [decode(params, caches, nxt, L + steps - 1 + i)
+                                   for i in range(n_dec)])
+    if pre is None or dec is None:
+        log("(k) torch.profiler saw no device time: busy share not measured")
+    else:
+        step_ms = decode_s / (steps - 1) * 1e3
+        log(f"(k) prefill device busy {pre[0]:.1f} ms of {prefill_s * 1e3:.1f} ms wall "
+            f"({pre[1]} kernels); busiest: "
+            + ", ".join(f"{n[:60]} {ms:.1f} ms" for n, ms in pre[2]))
+        log(f"(k) decode device busy {dec[0] / n_dec:.2f} ms a step of {step_ms:.2f} ms "
+            f"wall (idle share {1 - dec[0] / n_dec / step_ms:.2f}), "
+            f"{dec[1] / n_dec:.0f} kernels a step; busiest: "
+            + ", ".join(f"{n[:60]} {ms / n_dec:.2f} ms" for n, ms in dec[2]))
+
+    # teacher forcing: decode at L on the prefill cache of L tokens (its
+    # first L slots are the prefill's own) == the last logits of a prefill
+    # of L + 1 (a ragged length for the kernel)
+    del caches
+    _, caches = model.prefill(params, prompt, model.init_cache(B, L + 1, dev))
+    dec, _ = model.decode_step(params, caches, tokens[:, L:], L)
+    full, _ = model.prefill(params, {"tokens": tokens})
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        fail("teacher-forcing logits not finite")
+    tf_err = _logit_diff(dec[:, 0], full[:, -1])
+    agree = float((dec[:, 0].argmax(-1) == full[:, -1].argmax(-1)).float().mean())
+    log(f"(k) teacher forcing: max |decode(L) - prefill(L+1)[-1]| {tf_err:.4g} "
+        f"(tol {LM_TF_TOL}), logits std {float(full.float().std()):.4g}, "
+        f"top-1 agreement {agree:.2f}")
+    if tf_err > LM_TF_TOL:
+        fail(f"teacher-forcing logits differ by {tf_err} (> {LM_TF_TOL})")
+
+    # the same prefill with its attention through the plain version
+    kernel_attention = attention.blocked_attention
+    n_before = ops.launches["flash_attention"]
+    attention.blocked_attention = (
+        lambda q, k, v, *, causal=True: FA.flash_attention_plain(q, k, v, causal=causal))
+    try:
+        plain_logits, _ = model.prefill(params, prompt)
+    finally:
+        attention.blocked_attention = kernel_attention
+    torch.cuda.synchronize()
+    if ops.launches["flash_attention"] != n_before:
+        fail("the plain-attention prefill launched the kernel")
+    plain_err = _logit_diff(logits, plain_logits)
+    log(f"(k) prefill with plain attention: max |Δ logits| {plain_err:.4g} "
+        f"(tol {LM_PLAIN_TOL}), top-1 agreement "
+        f"{float((logits.argmax(-1) == plain_logits.argmax(-1)).float().mean()):.2f}")
+    if plain_err > LM_PLAIN_TOL:
+        fail(f"prefill logits differ from the plain-attention prefill by {plain_err}")
+    weights = cfg.param_count() * cfg.torch_dtype.itemsize
+    log(f"(k) ok: peak device memory over generate() and the checks "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the weights "
+        f"{weights / 2**30:.2f} GiB)")
+    return launches
+
+
+def phase_flash_timing(dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import traffic
+
+    B, S, H, Hkv, D = LM_BATCH, LM_PROMPT, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, k, v = _flash_inputs(gen, B, S, S, H, Hkv, D, torch.bfloat16, dev)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def kern():
+        return FA.flash_attention_cuda(q, k, v, causal=True)
+
+    def plain():
+        return FA.flash_attention_plain(q, k, v, causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+    lib_err = FA.row_error(library().transpose(1, 2), kern())
+    if lib_err > FA.BF16_ROW_TOL:
+        fail(f"scaled_dot_product_attention differs from the kernel by {lib_err} "
+             f"of a row's max |o| (> {FA.BF16_ROW_TOL})")
+    t_plain_a = _time(plain, iters=3)
+    t_kern_a = _time(kern)
+    t_lib_a = _time(library)
+    t_lib_b = _time(library)
+    t_kern_b = _time(kern)
+    t_plain_b = _time(plain, iters=3)
+    nbytes = traffic.flash_attention_bytes(B, S, S, H, Hkv, D, 2)
+    flops = traffic.flash_attention_flops(B, S, H, D, S, True)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    ms = min(t_kern_a, t_kern_b)
+    log(f"(l) flash_attention at B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, bf16, causal: "
+        f"kernel {t_kern_a:.4f} / {t_kern_b:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms, scaled_dot_product_attention "
+        f"{t_lib_a:.4f} / {t_lib_b:.4f} ms (worst row max |Δ| / max|o_row| to the "
+        f"kernel {lib_err:.4g}), "
+        f"bound {max(t_b, t_f):.4f} ms (bytes {nbytes}, flops {flops})")
+    return dict(ms=ms, plain_ms=min(t_plain_a, t_plain_b),
+                library_ms=min(t_lib_a, t_lib_b), bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations",
+                shape=f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal")
+
+
 def main() -> None:
     if len(sys.argv) != 1:
         fail("usage: python3 chip_smoke.py")
@@ -694,25 +1029,34 @@ def main() -> None:
     rows = phase_timing(dev, params, b_tile)
 
     errs.update(phase_train_kernels_vs_plain(dev))
+    learning = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
+                "eprop_update")
     ops.reset_launch_counts()
     phase_learning(dev)
     learn_launches = dict(ops.launches)
-    for name, n in learn_launches.items():
-        if n <= 0:
+    for name in learning:
+        if learn_launches[name] <= 0:
             fail(f"kernel {name} was never launched on the learning path")
     log(f"(h) ok: launches on the learning path {learn_launches}")
-    launches.update({k: learn_launches[k] for k in ops.KERNELS if k not in serving})
+    launches.update({k: learn_launches[k] for k in learning if k not in serving})
     rows.update(phase_train_timing(dev))
+
+    errs["flash_attention"] = phase_flash_vs_plain(dev)
+    lm_launches = phase_lm(dev)     # resets and reads the counts itself
+    launches["flash_attention"] = lm_launches["flash_attention"]
+    torch.cuda.empty_cache()
+    rows["flash_attention"] = phase_flash_timing(dev)
 
     card = card_line()
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
                "rsnn_forward": "rsnn_train.cu", "rsnn_train": "rsnn_train.cu",
-               "eprop_update": "rsnn_train.cu"}
+               "eprop_update": "rsnn_train.cu", "flash_attention": "flash_attention.cu"}
     replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
                 "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963",
                 "rsnn_forward": "src/repro/kernels/rsnn_step.py:399",
                 "rsnn_train": "src/repro/kernels/eprop_update.py:202",
-                "eprop_update": "src/repro/kernels/eprop_update.py:96"}
+                "eprop_update": "src/repro/kernels/eprop_update.py:96",
+                "flash_attention": "src/repro/kernels/flash_attention.py:30"}
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
@@ -722,7 +1066,7 @@ def main() -> None:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,16 +1,24 @@
 """Parameter conversion from the JAX package's layout to the port's.
 
-Both packages key weights alike (``w_in (N_in, H)``, ``w_rec (H, H)``,
-``w_out (H, O)``, scalar ``alpha``, optional ``b_fb (H, O)``), so the
-conversion is a float32 copy of each array onto ``device`` (``None``
-means ``"cuda"``, and raises without a card).  The JAX side hands its
+RSNN (:func:`params_from_jax`): both packages key weights alike
+(``w_in (N_in, H)``, ``w_rec (H, H)``, ``w_out (H, O)``, scalar ``alpha``,
+optional ``b_fb (H, O)``), so the conversion is a float32 copy of each
+array onto ``device`` (``None`` means ``"cuda"``, and raises without a
+card).  The JAX side hands its
 parameters over as NumPy arrays (``{k: np.asarray(v) for k, v in
 params.items()}``); this module imports nothing of it.
+
+LM (:func:`lm_params_from_jax`): the port keeps the JAX parameter tree's
+layout (nested dicts, the stacked layer axis), so the conversion is a tree
+map that checks every key, shape and dtype against the config's tree.  A
+bf16 JAX array arrives as an ``ml_dtypes.bfloat16`` NumPy array, which
+``torch.from_numpy`` refuses; it goes through float32 and back, which is
+exact.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -33,3 +41,37 @@ def params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = None
         k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
         for k, v in params.items()
     }
+
+
+def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None
+                       ) -> Dict[str, Any]:
+    """Map the JAX package's LM parameter tree (NumPy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``) onto the port's tree on
+    ``device`` (the card unless the caller passes ``"cpu"``).  Unknown or
+    missing keys, and leaves whose shape or dtype differ from ``cfg``'s
+    tree, raise ``ValueError``."""
+    from repro_torch.models.transformer import param_shapes
+
+    dev = resolve_device(device)
+
+    def conv(src, want, path):
+        if isinstance(want, dict):
+            if not isinstance(src, dict):
+                raise ValueError(f"{path}: expected a dict")
+            unknown, missing = set(src) - set(want), set(want) - set(src)
+            if unknown or missing:
+                raise ValueError(f"{path}: unknown keys {sorted(unknown)}, "
+                                 f"missing keys {sorted(missing)}")
+            return {k: conv(src[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(src, (list, tuple)) or len(src) != len(want):
+                raise ValueError(f"{path}: expected a list of {len(want)}")
+            return [conv(s, w, f"{path}/{i}") for i, (s, w) in enumerate(zip(src, want))]
+        arr = np.asarray(src)
+        if arr.shape != tuple(want.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, expected {tuple(want.shape)}")
+        if arr.dtype.name != cfg.dtype:
+            raise ValueError(f"{path}: dtype {arr.dtype.name}, expected {cfg.dtype}")
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype=want.dtype)
+
+    return conv(tree, param_shapes(cfg), "params")

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
 training kernels of ``rsnn_train.cu``, both on the tick datapath of
-``rsnn_tick.cuh``) compiles with ``nvcc`` for Hopper (``sm_90a``), one
-``nvcc`` per source, all started together, and links into one shared
-library with a plain C interface, loaded with ``ctypes`` — no PyTorch
+``rsnn_tick.cuh``, and the attention kernel of ``flash_attention.cu``)
+compiles with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source,
+all started together, and links into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  It builds on first use into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``);
 a library whose sources and flags are unchanged (the digest covers every
@@ -30,7 +31,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -fmad=false: products are rounded before they are added (see the note in
-# csrc/rsnn_tick.cuh); exact either way in quantized mode.
+# csrc/rsnn_tick.cuh); exact either way in quantized mode.  The attention
+# kernel asks for its multiply-adds with fmaf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,8 +121,12 @@ def _load(path: Path) -> ctypes.CDLL:
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O, bt, threads;
     # kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 7 + [f32, ptr]
+    # flash_attention: q, k, v, o; bf16, B, Sq, Skv, H, Hkv, D; the batch,
+    # sequence and head strides of q, k and v; kv_len, causal, scale, stream
+    lib.flash_attention_launch.argtypes = (
+        [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 9 + [i32, i32, f32, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
-               lib.eprop_update_launch):
+               lib.eprop_update_launch, lib.flash_attention_launch):
         fn.restype = i32
     lib.rsnn_error_string.argtypes = [i32]
     lib.rsnn_error_string.restype = ctypes.c_char_p

@@ -40,16 +40,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.quant import QuantizedMode
+from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
 from repro_torch.kernels.rsnn_step import (
     _check_exact_matmul,
     _consts,
-    cdiv,
     check_arg,
     datapath_scalars,
     geometry,
-    launches,
-    raise_on,
-    stream_arg,
     tick_transition,
     weight_elems,
 )

@@ -1,0 +1,172 @@
+"""Causal GQA online-softmax (flash) attention for Hopper, and its plain
+PyTorch version (counterpart of :mod:`repro.kernels.flash_attention`).
+
+Both compute, for q ``(B, Sq, H, D)`` and k, v ``(B, Skv, Hkv, D)`` with
+``H = Hkv·G`` (query head ``h`` reads KV head ``h // G``), the function of
+the Pallas kernel and of ``repro.models.attention.blocked_attention``:
+
+* scores ``q·k · D**-0.5`` with the products summed in f32; keys at
+  positions ``>= kv_len`` and, when ``causal``, keys after the query's own
+  position masked at ``-1e30``;
+* running max ``m``, running sum ``l`` and the output accumulator in f32,
+  tile by tile over the keys; ``p`` rounded to the value dtype before the
+  ``p·V`` product, as the JAX kernel does;
+* output in q's dtype, divided by ``max(l, 1e-30)``.
+
+Whole key tiles above the diagonal or past ``kv_len`` are skipped (their
+terms are exact zeros once a row has seen key 0, which every row has).
+Ragged lengths need no padding: the kernel masks its own edges.
+
+* :func:`flash_attention_cuda` launches ``flash_attention_kernel``
+  (``csrc/flash_attention.cu``) on the tensors' card.  It reads q, k and v
+  through their strides (only the last dimension must be contiguous), so
+  the model's ``(B, S, H, D)`` projections go in without a transpose copy.
+* :func:`flash_attention_plain` is the same tiled loop in eager PyTorch;
+  the CPU path runs it, and ``chip_smoke.py`` holds the kernel against it.
+  It needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32``
+  off, PyTorch's default) to be the kernel's reference on the card.
+
+:mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
+
+NEG_INF = -1e30
+# Key and query rows per tile of the plain version; the tile sizes change
+# only the order of the f32 sums.
+PLAIN_BLOCK = 128
+# Head widths the kernel is instantiated for (csrc/flash_attention.cu).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's grid puts batch·heads on its second axis.
+MAX_GRID_Y = 65535
+# How far two bf16 attention results may lie apart, per query row (the D
+# outputs of one batch, position and head): ``row_error <= BF16_ROW_TOL``.
+# The kernel and its plain version both round p to bf16 (2^-9 relative),
+# relative to running maxima that depend on their tile sizes, and each
+# rounds its output to bf16 once; that last rounding alone may land one
+# ulp apart on the row's largest element, 2^-7 of max |o_row|.  The limit
+# is 8 · 2^-8 = 2^-5 of max |o_row|: room above those roundings, and far
+# below a wrong scale (output x 0.9 is 0.1 of it) or one key tile lost
+# from a row (at inputs of scale 0.3 the scores are near-uniform and each
+# key moves the row by its own share, so 64 of n keys move it by about
+# 8/sqrt(n) of its largest output).  chip_smoke.py logs both readings.
+BF16_ROW_TOL = 8 * 2 ** -8
+# Rows whose largest output is below this are held to it instead (an
+# absolute floor, far below any output at the scales the checks use).
+ROW_FLOOR = 2 ** -16
+
+
+def _check_shapes(q, k, v, kv_len):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: expected q (B, Sq, H, D) and k, v (B, Skv, Hkv, D), "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hkv == 0 or H % Hkv:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+            f"(batch, head width, or H not a multiple of Hkv)")
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= Skv:
+        raise ValueError(f"flash_attention: kv_len {kv_len} outside [1, {Skv}]")
+    return kv_len
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """The kernel's function in eager PyTorch → ``(B, Sq, H, D)`` in q's
+    dtype; ``kv_len`` defaults to ``Skv``."""
+    kv_len = _check_shapes(q, k, v, kv_len)
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    k, v = k[:, :kv_len], v[:, :kv_len]          # keys past kv_len never count
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    bq = bk = PLAIN_BLOCK
+    for q0 in range(0, Sq, bq):
+        n = min(bq, Sq - q0)
+        qt = q[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        qpos = torch.arange(q0, q0 + n, device=q.device)
+        m = torch.full((B, n, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, n, Hkv, G, D), dtype=torch.float32, device=q.device)
+        n_kv = cdiv(kv_len, bk)
+        if causal:
+            n_kv = min(n_kv, (q0 + n - 1) // bk + 1)
+        for j in range(n_kv):
+            kt = k[:, j * bk:(j + 1) * bk]
+            vt = v[:, j * bk:(j + 1) * bk]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qt, kt.float()) * scale
+            if causal:
+                kpos = torch.arange(j * bk, j * bk + kt.shape[1], device=q.device)
+                valid = kpos[None, :] <= qpos[:, None]
+                s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), vt.float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + n] = o.reshape(B, n, H, D).to(q.dtype)
+    return out
+
+
+def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over query rows of ``max |got - want| / max |want|`` within
+    the row (its last dimension), ``inf`` when ``got`` is not finite."""
+    if not torch.isfinite(got).all():
+        return float("inf")
+    d = (got.float() - want.float()).abs().amax(dim=-1)
+    return float((d / want.float().abs().amax(dim=-1).clamp_min(ROW_FLOOR)).max())
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
+    """Launch ``flash_attention_kernel`` on the current stream of the
+    tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in q's dtype.
+    Checks device, dtype, shape and strides; raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    kv_len = _check_shapes(q, k, v, kv_len)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"{name}: expected one dtype of {DTYPES} for q, k and v, "
+                             f"got {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} not in {KERNEL_HEAD_DIMS}")
+    if B * H > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: B·H = {B * H} > {MAX_GRID_Y}")
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    if B == 0 or Sq == 0:
+        return o
+    lib = build.library()
+    strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
+    with torch.cuda.device(dev):
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, *strides,
+            kv_len, int(causal), ctypes.c_float(D ** -0.5), stream_arg(dev))
+    raise_on(lib, rc, "flash_attention")
+    launches["flash_attention"] += 1
+    return o

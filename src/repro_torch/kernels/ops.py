@@ -5,11 +5,12 @@ launches the hand-written kernel; on the CPU it runs the plain PyTorch
 version.  Any other device raises — there is no silent fallback, and a
 failed build or launch propagates.
 
-``launches`` (re-exported from :mod:`repro_torch.kernels.rsnn_step`; the
-wrappers there and in :mod:`repro_torch.kernels.eprop_update` count each
-launch) holds plain integers for all five kernels: a run sets them to 0,
-drives the main path, and reads them back to show the path went through
-the kernels.
+``launches`` (re-exported from :mod:`repro_torch.kernels.launch`; the
+wrappers in :mod:`repro_torch.kernels.rsnn_step`,
+:mod:`repro_torch.kernels.eprop_update` and
+:mod:`repro_torch.kernels.flash_attention` count each launch) holds plain
+integers for all six kernels: a run sets them to 0, drives the main path,
+and reads them back to show the path went through the kernels.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import torch
 
 from repro_torch.core.quant import QuantizedMode
 from repro_torch.kernels import eprop_update as _train
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rsnn_step as _rsnn
-from repro_torch.kernels.rsnn_step import KERNELS, launches, reset_launch_counts
+from repro_torch.kernels.launch import KERNELS, launches, reset_launch_counts
 
-__all__ = ["KERNELS", "eprop_update", "launches", "reset_launch_counts",
-           "rsnn_forward", "rsnn_infer", "rsnn_step_sessions", "rsnn_train"]
+__all__ = ["KERNELS", "eprop_update", "flash_attention", "launches",
+           "reset_launch_counts", "rsnn_forward", "rsnn_infer",
+           "rsnn_step_sessions", "rsnn_train"]
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -97,3 +100,12 @@ def eprop_update(h, xbar, pbar, zbar, err, b_fb, *, kappa: float):
     if not _on_card(h, "eprop_update"):
         return _train.eprop_update_plain(*args, kappa=kappa)
     return _train.eprop_update_cuda(*args, kappa=kappa)
+
+
+def flash_attention(q, k, v, *, causal: bool, kv_len: Optional[int] = None):
+    """Causal GQA online-softmax attention over q ``(B, Sq, H, D)`` and k, v
+    ``(B, Skv, Hkv, D)`` → ``(B, Sq, H, D)``; keys at positions
+    ``>= kv_len`` (default ``Skv``) are masked."""
+    if not _on_card(q, "flash_attention"):
+        return _flash.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    return _flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)

@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import QuantizedMode
+from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
 
 # H100 (SXM) per-block limits and SM count (NVIDIA data sheet / Hopper
 # tuning guide): dynamic shared memory a block may opt into, threads a
@@ -55,24 +56,6 @@ F32_BYTES = 4
 # spreads the dw elements (2,014 at Braille width) over the block however
 # few rows it holds.
 REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
-
-KERNELS = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
-           "eprop_update")
-# Launches per kernel, counted by its wrapper right after the launch and
-# nowhere else: a run sets them to 0, drives the main path and reads them
-# back to show the path went through the kernels.
-launches: Dict[str, int] = {k: 0 for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        launches[k] = 0
-
-
-def cdiv(a: int, b: int) -> int:
-    """Ceiling division."""
-    return -(-a // b)
-
 
 def weight_elems(n_in: int, n_hid: int, n_out: int) -> int:
     """Elements of the weight set (w_in + w_rec + w_out)."""
@@ -294,10 +277,6 @@ def datapath_scalars(c) -> list:
     ]
 
 
-def stream_arg(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
                  infer_window):
     T, B, N = raster.shape
@@ -306,12 +285,6 @@ def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
     bt, threads, wsmem = geometry(B, N, H, O, raster.device)
     dims = [T, B, N, H, O, bt, threads, wsmem, int(infer_window == "all")]
     return dims, datapath_scalars(c) + [stream_arg(raster.device)]
-
-
-def raise_on(lib, rc: int, name: str) -> None:
-    if rc != 0:
-        msg = lib.rsnn_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
 def rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, *, alpha: float,

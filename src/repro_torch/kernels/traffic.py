@@ -9,7 +9,8 @@ kernels write no per-tick tensor; ``rsnn_forward`` streams its seven;
 it back (:func:`train_trace_scratch_bytes`, listed apart: at the END_B
 tile it stays in L2).  ``BatchedEngine`` sums the serving formulas into
 ``hbm_bytes_streamed``; ``chip_smoke.py`` derives each kernel's bound from
-these.
+these.  The attention kernel's bytes and its exact-causal operation count
+close the module.
 """
 
 from __future__ import annotations
@@ -71,3 +72,30 @@ def train_trace_scratch_bytes(T: int, B: int, n_in: int, n_hid: int,
     (66 KB a row at Braille T=128) written by the forward phase and read
     back by the reverse phase."""
     return 2 * F32_BYTES * T * B * (3 * n_hid + n_in + n_out)
+
+
+def flash_attention_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+                          itemsize: int) -> int:
+    """``flash_attention``: q and the ``(B, Sq, H, D)`` output once, k and v
+    once each (the kernel re-reads a KV tile for every query tile and head
+    of its group, from L2)."""
+    return itemsize * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
+
+
+def attention_valid_keys(Sq: int, kv_len: int, causal: bool) -> int:
+    """Keys a query row attends, summed over the ``Sq`` rows: ``kv_len``
+    each, or with the causal mask (query ``i`` at position ``i``)
+    ``min(i + 1, kv_len)``."""
+    if not causal:
+        return Sq * kv_len
+    n = min(Sq, kv_len)
+    return n * (n + 1) // 2 + (Sq - n) * kv_len
+
+
+def flash_attention_flops(B: int, Sq: int, H: int, D: int, kv_len: int,
+                          causal: bool) -> int:
+    """Exact-causal operations of ``flash_attention``: a multiply and an add
+    for each of the ``q·k`` and ``p·V`` products of every valid key,
+    ``4·B·H·D·Σ_q(valid keys)``; the softmax's few per score are not
+    counted."""
+    return 4 * B * H * D * attention_valid_keys(Sq, kv_len, causal)

@@ -1,0 +1,152 @@
+"""GQA self-attention of the dense LM family (counterpart of the GQA part
+of :mod:`repro.models.attention`).
+
+Two execution modes per layer:
+
+* prefill — full-sequence attention (:func:`blocked_attention`), which on
+  the card is the hand-written flash kernel
+  (:func:`repro_torch.kernels.ops.flash_attention`), launched once per
+  layer; on the CPU its plain tiled version;
+* decode — one new token against the KV cache (:func:`decode_attention`),
+  plain PyTorch as in the JAX package, where it is plain JAX outside any
+  Pallas kernel.  The cache is updated in place (JAX returns an updated
+  copy): at full width a copy would move the whole cache every step.
+
+The JAX package's ``shard(...)`` annotations are dropped: outside a device
+mesh they are no-ops.  MLA and cross-attention come with their families.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, const_param, make_param, rms_norm
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True) -> torch.Tensor:
+    """Flash attention.  q: (B,Sq,H,D); k/v: (B,Skv,Hkv,D); GQA via H=Hkv·G.
+
+    Returns (B,Sq,H,D) in q.dtype, softmax statistics in f32.  Ragged
+    lengths need no padding, and key tiles above the diagonal are always
+    skipped (the JAX ``prune_causal`` walk; it changes no value).
+    """
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """One-token attention over a partly filled KV cache.
+
+    q: (B,1,H,D); caches: (B,Smax,Hkv,D); length: number of valid slots.
+    Slots past ``length`` are left out rather than masked: a masked score's
+    term is an exact zero, so the result is the same, and garbage in the
+    unfilled tail cannot leak.
+    """
+    B, _, H, D = q.shape
+    Hkv, Dv = v_cache.shape[2], v_cache.shape[3]
+    G = H // Hkv
+    scale = k_cache.shape[-1] ** -0.5
+    q_r = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", q_r, k_cache[:, :length].float()) * scale
+    p = torch.softmax(s, dim=-1)
+    v = v_cache[:, :length]
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def init_gqa(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = cfg.torch_dtype
+    if cfg.flat_attn_proj:
+        p = {
+            "wq": make_param(gen, (d, h * dh), dt, device),
+            "wk": make_param(gen, (d, hkv * dh), dt, device),
+            "wv": make_param(gen, (d, hkv * dh), dt, device),
+            "wo": make_param(gen, (h * dh, d), dt, device),
+        }
+        if cfg.attn_bias:
+            p["bq"] = const_param((h * dh,), dt, device, 0.0)
+            p["bk"] = const_param((hkv * dh,), dt, device, 0.0)
+            p["bv"] = const_param((hkv * dh,), dt, device, 0.0)
+    else:
+        p = {
+            "wq": make_param(gen, (d, h, dh), dt, device),
+            "wk": make_param(gen, (d, hkv, dh), dt, device),
+            "wv": make_param(gen, (d, hkv, dh), dt, device),
+            "wo": make_param(gen, (h, dh, d), dt, device),
+        }
+        if cfg.attn_bias:
+            p["bq"] = const_param((h, dh), dt, device, 0.0)
+            p["bk"] = const_param((hkv, dh), dt, device, 0.0)
+            p["bv"] = const_param((hkv, dh), dt, device, 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = const_param((dh,), dt, device, 1.0)
+        p["k_norm"] = const_param((dh,), dt, device, 1.0)
+    return p
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                n_heads: int, d_head: int) -> torch.Tensor:
+    """x (B,S,d) → (B,S,n_heads,d_head) through a flat (d, H·Dh) or a
+    per-head (d, H, Dh) projection: one matmul either way."""
+    y = x @ w.reshape(w.shape[0], -1)
+    if w.dim() == 2:   # flat projection: bias added before the head split
+        if b is not None:
+            y = y + b
+        return y.reshape(*x.shape[:-1], n_heads, d_head)
+    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = _proj_heads(x, p["wq"], p.get("bq"), h, dh)
+    k = _proj_heads(x, p["wk"], p.get("bk"), hkv, dh)
+    v = _proj_heads(x, p["wv"], p.get("bv"), hkv, dh)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(p: Dict, x: torch.Tensor, cfg, cache: Dict[str, torch.Tensor], *,
+                causal: bool = True, pos: Optional[int] = None) -> torch.Tensor:
+    """Self-attention over x (B, S, D), writing the keys and values into
+    ``cache`` (``{"k", "v"}`` of (B, Smax, Hkv, Dh)) in place.
+
+    Prefill (``pos`` None): attention over the S positions themselves
+    (:func:`blocked_attention`), and their keys and values go to slots
+    ``[0, S)``.  Decode (x is (B, 1, D), ``pos`` the write slot): the new
+    key and value go to slot ``pos``, and the token attends to slots
+    ``[0, pos]`` (:func:`decode_attention`).
+    """
+    B, S, _ = x.shape
+    if pos is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q, k, v = _qkv(p, x, cfg, positions)
+        out = blocked_attention(q, k, v, causal=causal)
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    else:
+        positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
+        q, k, v = _qkv(p, x, cfg, positions)
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        out = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    wo = p["wo"]
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def gqa_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+    """Shape-and-dtype stand-ins (``meta`` tensors) of one layer's cache."""
+    shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
+            for k in ("k", "v")}

@@ -1,0 +1,96 @@
+"""Shared transformer building blocks (counterpart of
+:mod:`repro.models.layers`).
+
+Parameters are plain dicts of tensors in the JAX package's layout, so a
+JAX parameter tree converts leaf for leaf (:func:`repro_torch.convert.
+lm_params_from_jax`).  Initialisation draws from a ``torch.Generator`` on
+the tensors' device with the JAX package's scales (fan-in ``shape[0]**-0.5``
+by default, 0.02 for the embedding); the two frameworks give different
+numbers from one seed, so parity tests pass weights across instead.  On the
+``meta`` device the helpers return shape-and-dtype stand-ins without
+drawing (the port's counterpart of the JAX package's abstract init).
+
+Numerics follow the JAX package's cast order exactly, since bf16 parity
+depends on it: parameters and activations in ``cfg.dtype``; the norm's
+statistics, SiLU and rope in f32, each rounded back to the activation
+dtype at the same point as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def make_param(gen: Optional[torch.Generator], shape: Tuple[int, ...], dtype,
+               device: torch.device, scale: Optional[float] = None) -> torch.Tensor:
+    """``N(0, 1) · scale`` drawn in f32 and cast to ``dtype``; fan-in
+    scaling on the first dimension unless ``scale`` is given."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    if scale is None:
+        scale = shape[0] ** -0.5
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            * scale).to(dtype)
+
+
+def const_param(shape: Tuple[int, ...], dtype, device: torch.device,
+                fill: float = 1.0) -> torch.Tensor:
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.full(shape, fill, dtype=dtype, device=device)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    # rounded to x's dtype before the gamma product, as in JAX
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
+
+
+def init_rms_norm(dim: int, dtype, device: torch.device) -> torch.Tensor:
+    return const_param((dim,), dtype, device, 1.0)
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, llama-style split-half layout, in f32.
+
+    x: (..., S, H, D); positions: integer, broadcastable to (..., S).
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    angles = positions[..., :, None].float() * freqs              # (..., S, D/2)
+    cos = torch.cos(angles)[..., :, None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> Dict[str, torch.Tensor]:
+    return {
+        "w_gate": make_param(gen, (d_model, d_ff), dtype, device),
+        "w_up": make_param(gen, (d_model, d_ff), dtype, device),
+        "w_down": make_param(gen, (d_ff, d_model), dtype, device),
+    }
+
+
+def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    # SiLU in f32, cast back before the up product, as in JAX
+    h = F.silu((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor:
+    return make_param(gen, (vocab, d_model), dtype, device, scale=0.02)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]

@@ -1,0 +1,84 @@
+"""Model facade of the dense LM family (counterpart of
+:mod:`repro.models.model`): ``build(config)`` → ``init`` / ``prefill`` /
+``decode_step`` / ``init_cache``.
+
+As in the JAX package the model holds no weights: ``init`` returns the
+parameter tree, and the serving methods take it.  So a JAX tree converted
+by :func:`repro_torch.convert.lm_params_from_jax` runs as it is.
+
+Serving:
+
+* ``prefill(params, batch[, caches])`` → (last-token logits ``(B, 1, V)``,
+  caches); on the card every attention layer launches the flash kernel
+  once.  The keys and values of the L prompt positions go to slots
+  ``[0, L)`` of ``caches`` (from ``init_cache``, of any length >= L), in
+  place; without ``caches`` it makes a cache of exactly L slots;
+* ``decode_step(params, caches, tokens, pos)`` → (logits, caches) — one
+  new token against the KV cache, written into ``caches`` in place.
+
+``init`` and ``init_cache`` run on ``device="cuda"`` unless the caller
+passes ``"cpu"``, and raise without a card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import embed_lookup, rms_norm
+
+
+class Model(torch.nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = tf.layer_plan(cfg)
+
+    def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
+        """Random weights drawn on ``device`` from a generator seeded with
+        ``seed``, at the JAX package's scales."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tf.init_model(gen, self.cfg, dev)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].t()
+        return x @ params["lm_head"]
+
+    @torch.no_grad()
+    def prefill(self, params, batch, caches: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        tokens = batch["tokens"]
+        if caches is None:
+            caches = self.init_cache(*tokens.shape, device=tokens.device)
+        x = embed_lookup(params["embed"], tokens)
+        x, caches = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches)
+        return self._logits(params, x[:, -1:, :]), caches
+
+    @torch.no_grad()
+    def decode_step(self, params, caches, tokens: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """tokens: (B, 1) integers; pos: the write slot in the cache."""
+        x = embed_lookup(params["embed"], tokens)
+        x, caches = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
+                                     pos=int(pos))
+        return self._logits(params, x), caches
+
+    def cache_specs(self, batch: int, max_len: int):
+        """The cache tree as ``meta`` tensors (shapes and dtypes)."""
+        return tf.stack_cache_specs(self.cfg, self.plan, batch, max_len)
+
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike = None):
+        """A zero cache of ``max_len`` slots on ``device``."""
+        dev = resolve_device(device)
+        return tf.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
+                           self.cache_specs(batch, max_len))
+
+
+def build(cfg) -> Model:
+    return Model(cfg)

@@ -12,7 +12,10 @@ kernel sums each row in its own fixed order, the plain version through
 sums in another order than the plain version's products, so it is held to
 ``max |Δdw| <= DW_TOL * max |dw|`` per matrix in both modes; their
 ``acc_y``, ``n_spk`` and (``rsnn_forward``) traces are bitwise when
-quantized.
+quantized.  The flash-attention kernel is held to its plain version at
+``FLASH_F32_TOL`` relative to ``max |o|`` in f32, and in bf16 per query row
+at ``BF16_ROW_TOL`` of the row's ``max |o|`` (``row_error`` and its
+justification are in ``repro_torch/kernels/flash_attention.py``).
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ from repro_torch.serve import BatchedEngine
 
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
 DW_TOL = 1e-4
+FLASH_F32_TOL = 1e-5
 
 
 @pytest.fixture
@@ -90,7 +94,8 @@ def test_kernels_match_plain_on_card(quantized, cuda_device):
             _check(a, b, quantized)
         carries = list(want)
     assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2,
-                            "rsnn_forward": 0, "rsnn_train": 0, "eprop_update": 0}
+                            "rsnn_forward": 0, "rsnn_train": 0, "eprop_update": 0,
+                            "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -185,7 +190,8 @@ def test_train_kernels_match_plain_on_card(quantized, feedback, cuda_device):
     want = eprop_update.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa)
     _check_dw(got, want)
     assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0,
-                            "rsnn_forward": 2, "rsnn_train": 1, "eprop_update": 1}
+                            "rsnn_forward": 2, "rsnn_train": 1, "eprop_update": 1,
+                            "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -205,3 +211,79 @@ def test_train_kernel_dw_identical_across_launches(cuda_device):
     for k in c:
         assert torch.equal(c[k], d[k]), k
     _check_dw([c[k] for k in a], [a[k] for k in a])
+
+
+def _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, dev, strided):
+    def one(S, heads):
+        x = rng.normal(size=(B, heads, S, D) if strided else (B, S, heads, D)) * 0.3
+        x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+        return x.transpose(1, 2) if strided else x
+    return one(Sq, H), one(Skv, Hkv), one(Skv, Hkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,kv_len,strided", [
+    (2, 128, 128, 8, 2, 64, True, None, False),       # GQA, whole tiles
+    (1, 200, 200, 4, 4, 128, True, None, False),      # MHA, ragged
+    (2, 70, 150, 4, 1, 16, False, 131, True),         # strided, kv_len < Skv
+    (1, 1, 65, 4, 2, 32, False, None, False),         # one query
+    (1, 130, 90, 4, 2, 64, True, None, True),         # more queries than keys
+])
+def test_flash_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, causal,
+                                            kv_len, strided, cuda_device):
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(Sq * 7 + Skv)
+    q, k, v = _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, cuda_device, strided)
+    if kv_len is not None:
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    assert ops.launches["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        assert err <= FLASH_F32_TOL, err
+    else:
+        err = FA.row_error(got, want)
+        assert err <= FA.BF16_ROW_TOL, err
+
+
+@pytest.mark.cuda
+def test_flash_kernel_identical_across_launches(cuda_device):
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(2)
+    q, k, v = _flash_case(rng, 2, 300, 300, 8, 2, 128, torch.bfloat16, cuda_device,
+                          False)
+    a = FA.flash_attention_cuda(q, k, v, causal=True)
+    b = FA.flash_attention_cuda(q, k, v, causal=True)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head width"):
+        FA.flash_attention_cuda(q[..., :8], k[..., :8], v[..., :8], causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen3-1.7b", "qwen1.5-32b", "yi-34b"])
+def test_reduced_dense_generate_on_card_matches_cpu(arch, cuda_device):
+    """A reduced dense model in f32 gives the same greedy tokens on the
+    card (through the flash kernel) as on the CPU (plain version)."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train.serve_step import generate
+
+    cfg = get_reduced(arch)
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)))
+    want = generate(model, params, {"tokens": toks}, 8, 56)
+    ops.reset_launch_counts()
+    got = generate(model, tree_map(lambda t: t.to(cuda_device), params),
+                   {"tokens": toks.to(cuda_device)}, 8, 56)
+    assert ops.launches["flash_attention"] == cfg.n_layers
+    assert torch.equal(got.cpu(), want)
