@@ -34,9 +34,12 @@ Phases:
   (g) the training kernels (rsnn_train, rsnn_forward, eprop_update) ==
       their plain versions on the card at Braille T=128 (the END_B tile
       B=70, B=1, B=2048, a ragged B, label_delay>0, random feedback,
-      quantized and float) and at 256/256/16: forward outputs, acc_y and n_spk bitwise
-      when quantized, dw within TRAIN_DW_TOL; two rsnn_train launches give
-      identical bits; forward_traces + eprop_update give train_tile's dw;
+      quantized and float), at Braille T=512 (rsnn_train's trace set in the
+      device scratch) and at 256/256/16: forward outputs, acc_y, n_spk and
+      rsnn_train's h, xbar, pbar, zbar traces bitwise when quantized, its
+      readout error within TRAIN_ERR_TOL, dw within TRAIN_DW_TOL; two
+      rsnn_train launches give identical bits; forward_traces +
+      eprop_update give train_tile's dw;
   (h) the learning run: OnlineLearner (quantized Braille at the dataset's
       T=128, the quantized bench optimizer) trains 12 epochs END_B and END_S
       on the AEU surrogate for each of the fixed LEARN_SEEDS; the median
@@ -46,7 +49,8 @@ Phases:
       test split, bitwise equal to the learner backend's inference; the
       split pipeline and the dynamics probe run on the learned weights; all
       five kernels are launched on this path;
-  (i) the training kernels timed at the main path's shape (T=128, B=70);
+  (i) the training kernels timed at the main path's shape (T=128, B=70),
+      and rsnn_train also at END_S's (T=128, B=1);
   (j) flash_attention == its plain version on the card: llama3-8b's
       attention shape (B=4, S=2048, H=32, Hkv=8, D=128, bf16, causal), a
       ragged causal length, a non-causal case on strided (B, H, S, D) views
@@ -87,6 +91,11 @@ FLOAT_TOL = 1e-4
 # vs plain version, in both modes — the readout error goes through expf and
 # the kernel sums the products in another order than torch.matmul.
 TRAIN_DW_TOL = 1e-4
+# rsnn_train's readout error trace, kernel vs plain version: expf against
+# torch.softmax, on the same y (bitwise when quantized): a few f32 ulps of
+# values below 1 (tests/test_torch_train.py holds the JAX reference to the
+# plain version at the same limit).  In float mode y is held to FLOAT_TOL.
+TRAIN_ERR_TOL = 1e-6
 # Learning gates.  One 12-epoch run's test accuracy is a noisy draw of its
 # seed (initial weights and stochastic commits): the JAX reference's
 # quantized END_S spans 0.35-0.92 over seeds 1-40.  So the gates read the
@@ -494,21 +503,23 @@ def phase_train_kernels_vs_plain(dev):
         chipmax_q, neuron=dataclasses.replace(chipmax_q.neuron, reset="sub"))
     chipmax_f = dataclasses.replace(chipmax_q, neuron=dataclasses.replace(
         chipmax_q.neuron, quant=None))
-    cases = [   # name, config, B, feedback, label_delay, input density
-        ("braille quant END_B tile", braille_q, 70, "symmetric", 0, 0.12),
-        ("braille quant B=1", braille_q, 1, "symmetric", 0, 0.12),
-        # 16 rows a block: more threads than rsnn_train's registers allow
-        ("braille quant B=2048", braille_q, 2048, "symmetric", 0, 0.12),
+    cases = [   # name, config, B, feedback, label_delay, input density, T
+        ("braille quant END_B tile", braille_q, 70, "symmetric", 0, 0.12, T),
+        ("braille quant B=1", braille_q, 1, "symmetric", 0, 0.12, T),
+        # 16 rows a block in rsnn_forward: more threads than its registers allow
+        ("braille quant B=2048", braille_q, 2048, "symmetric", 0, 0.12, T),
         ("braille quant ragged, label_delay=5, random feedback", braille_q, 37,
-         "random", 5, 0.12),
-        ("braille float END_B tile, random feedback", braille_f, 70, "random", 0, 0.12),
-        ("braille float ragged, label_delay=5", braille_f, 37, "symmetric", 5, 0.12),
-        ("chip-max quant, random feedback", chipmax_q, 8, "random", 3, 0.05),
-        ("chip-max float", chipmax_f, 8, "symmetric", 0, 0.05),
+         "random", 5, 0.12, T),
+        ("braille float END_B tile, random feedback", braille_f, 70, "random", 0, 0.12, T),
+        ("braille float ragged, label_delay=5", braille_f, 37, "symmetric", 5, 0.12, T),
+        # rsnn_train's trace set in the device scratch: too long for a block
+        ("braille quant END_B tile, T=512", braille_q, 70, "random", 3, 0.12, 512),
+        ("chip-max quant, random feedback", chipmax_q, 8, "random", 3, 0.05, T),
+        ("chip-max float", chipmax_f, 8, "symmetric", 0, 0.05, T),
     ]
     errs = {"rsnn_forward": [], "rsnn_train": [], "eprop_update": []}
-    for name, cfg, B, feedback, delay, density in cases:
-        cfg = _train_cfg(cfg, feedback, delay)
+    for name, cfg, B, feedback, delay, density, T in cases:
+        cfg = _train_cfg(dataclasses.replace(cfg, num_ticks=T), feedback, delay)
         quantized = cfg.neuron.quant is not None
         be = ExecutionBackend(cfg, device=dev)
         params = init_params(gen, cfg, device=dev)
@@ -528,14 +539,21 @@ def phase_train_kernels_vs_plain(dev):
                  [want[k] for k in K.FORWARD_KEYS], quantized, errs["rsnn_forward"])
         tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
         args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
-        got = E.rsnn_train_cuda(*args, **tkw)
+        got = E.rsnn_train_cuda(*args, **tkw, return_traces=True)
         again = E.rsnn_train_cuda(*args, **tkw)
-        want = E.rsnn_train_plain(*args, **tkw)
+        want = E.rsnn_train_plain(*args, **tkw, return_traces=True)
         torch.cuda.synchronize()
         errs["rsnn_train"].append(_dw_err(f"{name} rsnn_train", got[:3], want[:3]))
-        _compare(f"{name} rsnn_train acc_y/n_spk", got[3:], want[3:], quantized,
+        _compare(f"{name} rsnn_train acc_y/n_spk", got[3:5], want[3:5], quantized,
                  errs["rsnn_train"])
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        keys = ("h", "xbar", "pbar", "zbar")
+        _compare(f"{name} rsnn_train traces", [got[5][k] for k in keys],
+                 [want[5][k] for k in keys], quantized, errs["rsnn_train"])
+        err_e = _err(got[5]["err"], want[5]["err"])
+        if not torch.isfinite(got[5]["err"]).all() or err_e > (
+                TRAIN_ERR_TOL if quantized else FLOAT_TOL):
+            fail(f"{name}: rsnn_train's readout error off by {err_e}")
+        if not all(torch.equal(a, b) for a, b in zip(got[:5], again)):
             fail(f"{name}: two rsnn_train launches gave different bits")
         tr = be.forward_traces(params, raster, y_star, valid)
         trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
@@ -546,9 +564,12 @@ def phase_train_kernels_vs_plain(dev):
         # the split pipeline gives the fused train_tile's dw
         _dw_err(f"{name} forward_traces + eprop_update vs train_tile", got_u, got[:3])
         spikes = float(want[4].sum())
+        on_chip = K.train_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out).traces_smem
         log(f"(g) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
+            f"rsnn_train traces in {'shared' if on_chip else 'device'} memory, "
             f"spikes in window={spikes:.0f}, max|dw|="
-            f"{max(float(w.abs().max()) for w in want[:3]):.4g})")
+            f"{max(float(w.abs().max()) for w in want[:3]):.4g}, readout error "
+            f"{err_e:.3g})")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -570,7 +591,7 @@ def phase_learning(dev):
     # 1/(1 + t/tau) decay over 25 epochs of samples, lr 0.01 in both modes
     opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * n_train)
     pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
-    acc, learners = {}, {}
+    acc, learners, walls = {}, {}, {}
     for seed in LEARN_SEEDS:
         for mode, commit in (("END_B", "batch"), ("END_S", "sample")):
             learner = OnlineLearner(
@@ -584,6 +605,7 @@ def phase_learning(dev):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             acc[seed, mode], learners[seed, mode] = test, learner
+            walls[seed, mode] = wall
             log(f"(h) seed {seed} {mode}: {LEARN_EPOCHS} epochs on Braille AEU "
                 f"({sizes} samples, T={T}), {learner.commits} train batches: test "
                 f"{test:.4f}, val {log_.val_acc[-1]:.4f}, last train epoch "
@@ -592,9 +614,11 @@ def phase_learning(dev):
     for mode in ("END_B", "END_S"):
         accs = [acc[s, mode] for s in LEARN_SEEDS]
         median[mode] = float(np.median(accs))
+        ws = [walls[s, mode] for s in LEARN_SEEDS]
         log(f"(h) {mode} test accuracy over seeds {LEARN_SEEDS[0]}-{LEARN_SEEDS[-1]}: "
             f"median {median[mode]:.4f}, mean {float(np.mean(accs)):.4f}, "
-            f"min {min(accs):.4f}, max {max(accs):.4f}")
+            f"min {min(accs):.4f}, max {max(accs):.4f}; wall median "
+            f"{float(np.median(ws)):.2f} s, min {min(ws):.2f}, max {max(ws):.2f}")
     end_s, end_b = median["END_S"], median["END_B"]
     if end_s < END_S_MIN_MEDIAN:
         fail(f"median END_S test accuracy {end_s:.4f} < {END_S_MIN_MEDIAN:.4f} "
@@ -645,6 +669,50 @@ def phase_learning(dev):
     return acc
 
 
+def _device_ms(fn, iters=20):
+    """The card's time for one call of ``fn``: the summed durations of the
+    kernels it launched, from ``torch.profiler``, over ``iters`` calls;
+    None when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / 1e3 / iters if us else None
+
+
+def _timed_row(name, kern, plain, nbytes, flops, shape):
+    """Kernel time on the card from the profiler (a training kernel now
+    takes less than the host needs to enqueue a call, so CUDA events over
+    back-to-back calls would time the host), the per-call time by CUDA
+    events beside it, the plain version's, and the bound."""
+    t_plain_a = _time(plain, iters=3)
+    t_kern_a = _time(kern)
+    d_a, d_b = _device_ms(kern), _device_ms(kern)
+    t_kern_b = _time(kern)
+    t_plain_b = _time(plain, iters=3)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    if d_a is None or d_b is None:
+        log(f"(i) {name}: torch.profiler saw no device time; kernel ms by CUDA events")
+        ms, dev = min(t_kern_a, t_kern_b), "not measured"
+    else:
+        ms, dev = min(d_a, d_b), f"{d_a:.4f} / {d_b:.4f}"
+    log(f"(i) {name} at {shape}: kernel {dev} ms on the card (profiler), "
+        f"{t_kern_a:.4f} / {t_kern_b:.4f} ms a call (CUDA events, host enqueue "
+        f"included), plain {t_plain_a:.3f} / {t_plain_b:.3f} ms, bound "
+        f"{max(t_b, t_f):.6f} ms (bytes {nbytes}, flops {flops})")
+    return dict(ms=ms, call_ms=min(t_kern_a, t_kern_b),
+                plain_ms=min(t_plain_a, t_plain_b), bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations", shape=shape)
+
+
 def phase_train_timing(dev):
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.backend import ExecutionBackend
@@ -661,53 +729,49 @@ def phase_train_timing(dev):
     params = init_params(gen, cfg, device=dev)
     params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
               if k != "alpha" else v for k, v in params.items()}
-    w_in, w_rec, w_out = be.datapath_weights(params)
+    w = be.datapath_weights(params)
     b_fb = be._feedback(params)
-    raster, y_star, valid = _train_inputs(gen, T, B, cfg, 0.12, dev)
     kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
               reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
               quant=be.quant)
     tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
-    targs = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
-    tr = be.forward_traces(params, raster, y_star, valid)
-    trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
     E_ = K.weight_elems(N, H, O)
     fwd_flops = T * B * 2 * E_                 # dense f32 multiply-adds
     rev_flops = T * B * 2 * (E_ + H * O)       # learning signal + three products
     rows = {}
-    for name, kern, plain, nbytes, flops in (
-        ("rsnn_train", lambda: E.rsnn_train_cuda(*targs, **tkw),
-         lambda: E.rsnn_train_plain(*targs, **tkw),
-         traffic.train_fused_tiled_bytes(T, B, N, H, O), fwd_flops + rev_flops),
-        ("rsnn_forward", lambda: K.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw),
-         lambda: K.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw),
-         traffic.forward_traces_bytes(T, B, N, H, O), fwd_flops),
-        ("eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
-         lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
-         traffic.eprop_update_bytes(T, B, N, H, O), rev_flops),
-    ):
-        t_plain_a = _time(plain, iters=3)
-        t_kern_a = _time(kern)
-        t_kern_b = _time(kern)
-        t_plain_b = _time(plain, iters=3)
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_f = flops / F32_FLOPS_PER_S * 1e3
-        rows[name] = dict(
-            ms=min(t_kern_a, t_kern_b), plain_ms=min(t_plain_a, t_plain_b),
-            bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
-            shape=f"T={T} B={B} {N}/{H}/{O}",
-        )
-        log(f"(i) {name} at T={T}, B={B}, {N}/{H}/{O}: kernel "
-            f"{t_kern_a:.4f} / {t_kern_b:.4f} ms, plain {t_plain_a:.3f} / "
-            f"{t_plain_b:.3f} ms, bound {max(t_b, t_f):.6f} ms "
-            f"(bytes {nbytes}, flops {flops})")
-    log(f"(i) rsnn_train's trace scratch round trip: "
-        f"{traffic.train_trace_scratch_bytes(T, B, N, H, O)} bytes (in L2)")
-    r1, y1, v1 = _train_inputs(gen, T, 1, cfg, 0.12, dev)
-    ms = [_time(lambda: E.rsnn_train_cuda(r1, y1, v1, w_in, w_rec, w_out, b_fb, **tkw))
-          for _ in range(5)]
-    log(f"(i) rsnn_train at T={T}, B=1 (one END_S commit), 5 x 20 launches: kernel "
-        f"{' / '.join(f'{t:.4f}' for t in ms)} ms")
+    # rsnn_train at the END_B tile (B=70, the kernels line) and at END_S's
+    # one-row commit (B=1, 80,640 of its launches on the learning path)
+    for b, key in ((B, "rsnn_train"), (1, "rsnn_train END_S")):
+        ins = _train_inputs(gen, T, b, cfg, 0.12, dev)
+        targs = (*ins, *w, b_fb)
+        # its forward is event-driven: count this run's input events and
+        # spikes (the forward kernel's z)
+        z = K.rsnn_forward_cuda(ins[0], *w, **kw)["z"]
+        flops = traffic.train_event_flops(
+            T, b, N, H, O, int(ins[0].count_nonzero()), int(z.count_nonzero()),
+            int(z[:-1].count_nonzero()))
+        rows[key] = _timed_row(
+            "rsnn_train", lambda: E.rsnn_train_cuda(*targs, **tkw),
+            lambda: E.rsnn_train_plain(*targs, **tkw),
+            traffic.train_fused_tiled_bytes(T, b, N, H, O), flops,
+            f"T={T} B={b} {N}/{H}/{O}")
+        if b == B:
+            raster, y_star, valid = ins
+    tr = be.forward_traces(params, raster, y_star, valid)
+    trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
+    shape = f"T={T} B={B} {N}/{H}/{O}"
+    rows["rsnn_forward"] = _timed_row(
+        "rsnn_forward", lambda: K.rsnn_forward_cuda(raster, *w, **kw),
+        lambda: K.rsnn_forward_plain(raster, *w, **kw),
+        traffic.forward_traces_bytes(T, B, N, H, O), fwd_flops, shape)
+    rows["eprop_update"] = _timed_row(
+        "eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
+        lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
+        traffic.eprop_update_bytes(T, B, N, H, O), rev_flops, shape)
+    plan = K.train_plan(T, N, H, O)
+    log(f"(i) rsnn_train's plan at T={T}: {plan.threads} threads a row, trace set "
+        f"in {'shared' if plan.traces_smem else 'device'} memory, "
+        f"{plan.smem_bytes} bytes of shared memory a block")
     return rows
 
 
@@ -977,13 +1041,16 @@ def phase_flash_timing(dev):
     t_lib_b = _time(library)
     t_kern_b = _time(kern)
     t_plain_b = _time(plain, iters=3)
+    d_kern = _device_ms(kern, iters=10)
     nbytes = traffic.flash_attention_bytes(B, S, S, H, Hkv, D, 2)
     flops = traffic.flash_attention_flops(B, S, H, D, S, True)
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
     ms = min(t_kern_a, t_kern_b)
     log(f"(l) flash_attention at B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, bf16, causal: "
-        f"kernel {t_kern_a:.4f} / {t_kern_b:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"kernel {t_kern_a:.4f} / {t_kern_b:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+        f"{'not measured' if d_kern is None else f'{d_kern:.4f} ms'} on the card by "
+        f"torch.profiler), "
         f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms, scaled_dot_product_attention "
         f"{t_lib_a:.4f} / {t_lib_b:.4f} ms (worst row max |Δ| / max|o_row| to the "
         f"kernel {lib_err:.4g}), "
@@ -1068,6 +1135,8 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
         })
+        if name == "rsnn_train":
+            kernels[-1]["end_s"] = rows["rsnn_train END_S"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

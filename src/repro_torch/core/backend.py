@@ -139,15 +139,17 @@ class ExecutionBackend:
                   B: Optional[int] = None) -> int:
         """Batch rows per kernel block for ``op``: the most a block holds,
         or, for a launch of ``B`` rows, the rows that spread it over every
-        SM.  The trace ops (``"train"``, ``"forward_traces"``,
-        ``"dynamics"``, ``"eprop_update"``) hold the ``xbar, pbar, zbar``
-        carries too.  ``"train"`` takes the launch's tick count as the TPU
-        sizing does, but on the card its trace set lives in device memory,
-        so the rows hold for any ``T`` up to the 12-bit tick counter."""
+        SM.  The trace-streaming ops (``"forward_traces"``,
+        ``"dynamics"``) hold the ``xbar, pbar, zbar`` carries too.
+        ``"train"`` takes the launch's tick count as the TPU sizing does;
+        its kernel, like ``"eprop_update"``'s, runs one row a block, at any
+        ``T`` up to the 12-bit tick counter."""
         c = self.cfg
-        traces = op in ("train", "forward_traces", "dynamics", "eprop_update")
         if op == "train" and not (T is not None and 0 < T <= MAX_TICKS):
             raise ValueError(f"train tile rows need 0 < T <= {MAX_TICKS}, got {T}")
+        if op in ("train", "eprop_update"):
+            return 1
+        traces = op in ("forward_traces", "dynamics")
         if B is None:
             return max_tile_rows(c.n_in, c.n_hid, c.n_out, traces)
         return block_rows(B, c.n_in, c.n_hid, c.n_out, traces=traces)

@@ -3,10 +3,10 @@
 Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
 training kernels of ``rsnn_train.cu``, both on the tick datapath of
 ``rsnn_tick.cuh``, and the attention kernel of ``flash_attention.cu``)
-compiles with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source,
-all started together, and links into one shared library with a plain C
-interface, loaded with ``ctypes`` — no PyTorch
-headers, so a build takes seconds.  It builds on first use into
+compiles with ``nvcc`` for Hopper (``sm_90a``; the RSNN sources with
+``-fmad=false``), one ``nvcc`` per source, all started together, and links
+into one shared library with a plain C interface, loaded with ``ctypes`` —
+no PyTorch headers, so a build takes seconds.  It builds on first use into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``);
 a library whose sources and flags are unchanged (the digest covers every
 source and header) is reused.
@@ -30,13 +30,19 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-# -fmad=false: products are rounded before they are added (see the note in
-# csrc/rsnn_tick.cuh); exact either way in quantized mode.  The attention
-# kernel asks for its multiply-adds with fmaf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# -fmad=false for the RSNN sources: products are rounded before they are
+# added (see the note in csrc/rsnn_tick.cuh), bit for bit with the plain
+# version in quantized mode and with rsnn_tile_loop in both modes.  The
+# attention source is not on that path and builds with contraction on.
+EXACT_SOURCES = ("rsnn_serve.cu", "rsnn_train.cu")
+
+
+def _flags(src: Path):
+    return (*NVCC_FLAGS, "-fmad=false") if src.name in EXACT_SOURCES else NVCC_FLAGS
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -65,6 +71,7 @@ def _sources():
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cuh")) + _sources():
+        h.update(" ".join(_flags(path)).encode())
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -89,7 +96,7 @@ def _build(out: Path) -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [f"{tmp}/{src.stem}.o" for src in _sources()]
-        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+        log = _nvcc_all([[nvcc, *_flags(src), "-c", "-o", o, str(src)]
                          for src, o in zip(_sources(), objs)])
         _nvcc_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so",
                     *objs]])
@@ -112,19 +119,20 @@ def _load(path: Path) -> ctypes.CDLL:
     # weights_smem; 7 datapath floats, reset_sub, quant, bw_vth, stream
     lib.rsnn_forward_launch.argtypes = (
         [ptr] * 11 + [i32] * 8 + [f32] * 7 + [i32, i32, f32, ptr])
-    # rsnn_train: 7 inputs, 5 traces, dw_part, dw, acc_y, n_spk; dims as
-    # above + infer_all; datapath scalars, then bw_vth, y_scale,
-    # target_amp, err_softmax, stream
+    # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, acc_y, n_spk; T, B,
+    # N, H, O, threads, weights_smem, traces_smem, infer_all; smem bytes;
+    # datapath scalars, then bw_vth, y_scale, target_amp, err_softmax, stream
     lib.rsnn_train_launch.argtypes = (
-        [ptr] * 16 + [i32] * 9 + [f32] * 7 + [i32, i32]
+        [ptr] * 17 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
         + [f32, f32, f32, i32, ptr])
-    # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O, bt, threads;
-    # kappa, stream
-    lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 7 + [f32, ptr]
+    # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
+    lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
     # flash_attention: q, k, v, o; bf16, B, Sq, Skv, H, Hkv, D; the batch,
-    # sequence and head strides of q, k and v; kv_len, causal, scale, stream
+    # sequence and head strides of q, k and v; kv_len, causal, scale; the
+    # plan's q tiles and shared-memory bytes; stream
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 9 + [i32, i32, f32, ptr])
+        [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 9
+        + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
                lib.eprop_update_launch, lib.flash_attention_launch):
         fn.restype = i32

@@ -1,6 +1,7 @@
-// One tick-tile of ReckOn's LIF + LI datapath, shared by every kernel of
-// the library: the two serving kernels (rsnn_serve.cu) and the training
-// forward of rsnn_forward / rsnn_train (rsnn_train.cu).
+// ReckOn's LIF + LI tick datapath, shared by every kernel of the library:
+// the tile loop of the two serving kernels (rsnn_serve.cu) and of
+// rsnn_forward, and the warp-per-row event loop of rsnn_train
+// (rsnn_train.cu), further down.
 //
 // Replaces the TPU tick pipeline of src/repro/kernels/rsnn_step.py
 // (tick_transition / tick_from_input_current, run once per grid step of
@@ -22,8 +23,8 @@
 // and, in the two trace modes, the e-prop quantities of the same tick:
 //   h     = |v_pre - v_th| < boxcar_width*v_th      (boxcar surrogate)
 //   xbar  = alpha*xbar + x;  pbar = alpha*pbar + z_prev;  zbar = kappa*zbar + z
-//   err   = softmax(y*s) - y* | y*s - amp*y*, times valid   (TRAIN only;
-//           s = 1/threshold in quantized mode)
+//   err   = softmax(y*s) - y* | y*s - amp*y*, times valid   (rsnn_train
+//           only; s = 1/threshold in quantized mode)
 // Each output row's sums run in a fixed order that depends on nothing but
 // the row, so the result is the same for any tile width or batch: float
 // chunk invariance (whole sample vs word-by-word feeds) is bitwise.
@@ -52,8 +53,8 @@ struct TickParams {
 
 // What a tile loop reads and writes.  SESSIONS reads carries and writes
 // them back; FORWARD writes seven (T, B, .) per-tick tensors and no
-// accumulator; TRAIN writes the five traces the reverse pass reads.
-enum RsnnMode { RSNN_INFER = 0, RSNN_SESSIONS = 1, RSNN_FORWARD = 2, RSNN_TRAIN = 3 };
+// accumulator.
+enum RsnnMode { RSNN_INFER = 0, RSNN_SESSIONS = 1, RSNN_FORWARD = 2 };
 
 struct TileIO {
   const float* raster;   // (T, B, N)
@@ -64,7 +65,6 @@ struct TileIO {
   const float* y0;       // (B, O)
   const float* acc0;
   const float* nspk0;    // (B, 1)
-  const float* y_star;   // (B, O)  TRAIN one-hot targets
   const float* w_in;     // (N, H)
   const float* w_rec;    // (H, H), self-recurrence masked
   const float* w_out;    // (H, O)
@@ -74,13 +74,12 @@ struct TileIO {
   float* acc_out;        // (B, O)  all but FORWARD
   float* nspk_out;       // (B, 1)
   float* tr_z;           // (T, B, H) FORWARD
-  float* tr_h;           // (T, B, H) FORWARD, TRAIN
-  float* tr_xbar;        // (T, B, N) FORWARD, TRAIN
-  float* tr_pbar;        // (T, B, H) FORWARD, TRAIN
-  float* tr_zbar;        // (T, B, H) FORWARD, TRAIN
+  float* tr_h;           // (T, B, H) FORWARD
+  float* tr_xbar;        // (T, B, N) FORWARD
+  float* tr_pbar;        // (T, B, H) FORWARD
+  float* tr_zbar;        // (T, B, H) FORWARD
   float* tr_y;           // (T, B, O) FORWARD
   float* tr_v;           // (T, B, H) FORWARD (post-reset membrane)
-  float* tr_err;         // (T, B, O) TRAIN
 };
 
 struct TileDims {
@@ -145,13 +144,13 @@ __host__ __device__ inline size_t rsnn_tile_smem_floats(int bt, int N, int H,
          3 * (size_t)bt + tr;
 }
 
-// The T-tick loop of one tile.  INFER and TRAIN start from zero state with
+// The T-tick loop of one tile.  INFER and FORWARD start from zero state with
 // every tick live; SESSIONS starts from the carries and applies `live`.
 template <int MODE>
 __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
                                const TickParams p) {
   constexpr bool SESSIONS = MODE == RSNN_SESSIONS;
-  constexpr bool TRACES = MODE == RSNN_FORWARD || MODE == RSNN_TRAIN;
+  constexpr bool TRACES = MODE == RSNN_FORWARD;
   constexpr bool ACCUM = MODE != RSNN_FORWARD;
   extern __shared__ float smem[];
   const int T = d.T, B = d.B, N = d.N, H = d.H, O = d.O, bt = d.bt;
@@ -165,7 +164,6 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
   const float* __restrict__ raster = io.raster;
   const float* __restrict__ live_g = io.live;
   const float* __restrict__ valid_g = io.valid;
-  const float* __restrict__ y_star = io.y_star;
   const float* __restrict__ w_in_g = io.w_in;
   const float* __restrict__ w_rec_g = io.w_rec;
   const float* __restrict__ w_out_g = io.w_out;
@@ -178,7 +176,6 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
   float* __restrict__ tr_zbar = io.tr_zbar;
   float* __restrict__ tr_y = io.tr_y;
   float* __restrict__ tr_v = io.tr_v;
-  float* __restrict__ tr_err = io.tr_err;
 
   const bool wsmem = d.weights_smem;   // the weights fit in shared memory
   float* s = smem;
@@ -286,31 +283,6 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
       if (lv[b] > 0.f) y[i] = y_new;
       if (MODE == RSNN_FORWARD && b < rows) tr_y[row0 * O + i] = y_new;
     }
-    if (MODE == RSNN_TRAIN) {
-      __syncthreads();
-      // readout error of the row: one thread per row
-      for (int b = tid; b < rows; b += nth) {
-        const float* yr = y + b * O;
-        const float* ys = y_star + (size_t)(b0 + b) * O;
-        float* er = tr_err + (row0 + b) * O;
-        float u[RSNN_MAX_OUT];
-        for (int o = 0; o < O; ++o) u[o] = yr[o] * p.y_scale;
-        float m = u[0];
-        for (int o = 1; o < O; ++o) m = fmaxf(m, u[o]);
-        if (p.err_softmax) {
-          float sum = 0.f;
-          for (int o = 0; o < O; ++o) {
-            u[o] = expf(u[o] - m);
-            sum += u[o];
-          }
-          for (int o = 0; o < O; ++o) er[o] = (u[o] / sum - ys[o]) * vd[b];
-        } else {
-          for (int o = 0; o < O; ++o) {
-            er[o] = (u[o] - p.target_amp * ys[o]) * vd[b];
-          }
-        }
-      }
-    }
     if (ACCUM) {
       for (int b = tid; b < bt; b += nth) {
         float cnt = 0.f;
@@ -335,6 +307,178 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
     }
     for (int i = tid; i < rows * O; i += nth) io.y_out[(size_t)b0 * O + i] = y[i];
   }
+}
+
+// ---------------------------------------------------------------------------
+// The warp-per-row event loop (rsnn_train).  One warp carries one row's
+// LIF recurrence through all T ticks with warp-level synchronisation only:
+// lane l owns the hidden neurons h = l + 32j (j < J = ceil(H/32)).  The
+// currents are event-driven: a __ballot_sync of the row's nonzero inputs
+// or of last tick's spikes, then each lane adds x[k]*w[k,h] for the set
+// bits only, in ascending k.  A skipped term is an exact +-0 product, and a
+// sum that starts at +0 never changes when +-0 is added, so the loop gives
+// the bits of rsnn_tile_loop in both modes.  Only the recurrent sum and
+// the leak are serial: the input sums of every tick (rsnn_input_currents),
+// the xbar filter and the readout do not feed back into the recurrence and
+// run beside or after the loop over all ticks at once (rsnn_train.cu); the
+// loop adds the recurrent sum to the tick's input sum, as the contract
+// says.  rsnn_tile_loop stays the loop of the other kernels until they
+// move here.
+// ---------------------------------------------------------------------------
+
+// Words of a spike or input mask: the chip's 256 neurons over 32 lanes.
+#define RSNN_MAX_WORDS 8
+
+// One row's per-tick trace set, element (t, i) at base + t * stride + i;
+// a null h means "no such set".
+struct RowTraces {
+  float* h;              // (T, H) input current, then boxcar h, then G = h*F
+  float* xbar;           // (T, N)
+  float* pbar;           // (T, H)
+  float* zbar;           // (T, H)
+  float* err;            // (T, O)
+  size_t sH, sN, sO;     // tick strides
+};
+
+// acc[j] += s_k * W[(kbase + k) * H + lane + 32j] for j < J over the set
+// bits k of m, ascending; s_k is lane k's xv when SCALED, else 1 (a spike,
+// whose product with w is w).  Two bits at a time: their loads issue
+// together, their adds stay in order.
+template <int W, bool SCALED>
+__device__ __forceinline__ void rsnn_add_rows(float (&acc)[W], unsigned m,
+                                              int kbase, float xv,
+                                              const float* w_, int H, int J,
+                                              int lane) {
+  while (m) {
+    const int k0 = __ffs(m) - 1;
+    m &= m - 1;
+    const int k1 = m ? __ffs(m) - 1 : -1;
+    m &= m - 1;
+    const float s0 = SCALED ? __shfl_sync(0xffffffffu, xv, k0) : 1.f;
+    const float s1 = SCALED ? __shfl_sync(0xffffffffu, xv, k1 & 31) : 1.f;
+    const float* r0 = w_ + (size_t)(kbase + k0) * H + lane;
+    const float* r1 = w_ + (size_t)(kbase + (k1 < 0 ? k0 : k1)) * H + lane;
+    float a[W], b[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const bool in = j < J && lane + 32 * j < H;
+      a[j] = in ? r0[32 * j] : 0.f;
+      b[j] = in ? r1[32 * j] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] += SCALED ? s0 * a[j] : a[j];
+    if (k1 >= 0) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) acc[j] += SCALED ? s1 * b[j] : b[j];
+    }
+  }
+}
+
+__device__ __forceinline__ void rsnn_put(float* base, size_t stride, int t,
+                                         int i, float x) {
+  base[(size_t)t * stride + i] = x;
+}
+
+// The input current sum_k x(t, k) w_in[k, h] of every tick of one row, in
+// ascending k, into cur(t, h): one warp per tick at a time.
+template <int W>
+__device__ void rsnn_input_currents(const float* x, size_t sx,
+                                    const float* w_in, float* cur, size_t sc,
+                                    int T, int N, int H) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int NW = (N + 31) / 32, J = (H + 31) / 32;
+  for (int t = warp; t < T; t += blockDim.x >> 5) {
+    const float* xr = x + (size_t)t * sx;
+    float acc[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      if (w < NW) {
+        const int k = lane + 32 * w;
+        const float xv = k < N ? xr[k] : 0.f;
+        const unsigned m = __ballot_sync(0xffffffffu, xv != 0.f);
+        rsnn_add_rows<W, true>(acc, m, 32 * w, xv, w_in, H, J, lane);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int h = lane + 32 * j;
+      if (j < J && h < H) rsnn_put(cur, sc, t, h, acc[j]);
+    }
+  }
+}
+
+// The LIF recurrence of one row, run by one whole warp: the row's T ticks
+// from zero state.  Reads each tick's input current from tr.h and writes
+// the boxcar h over it, and the pbar, zbar traces (also to `copy` when
+// copy.h is not null); writes the spike masks (T, J) to `spikes` and the
+// valid-masked spike count to *nspk_out.  W >= ceil(H/32).
+template <int W>
+__device__ void rsnn_row_lif(const RowTraces tr, const RowTraces copy,
+                             const float* w_rec, const float* valid,
+                             unsigned* spikes, float* nspk_out, int T, int H,
+                             const TickParams p) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int J = (H + 31) / 32;
+  const bool cp = copy.h != nullptr;
+  float v[W], pbar[W], zbar[W], cn[W];
+  unsigned zmask[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const int h = lane + 32 * j;
+    v[j] = 0.f; pbar[j] = 0.f; zbar[j] = 0.f; zmask[j] = 0u;
+    cn[j] = (j < J && h < H) ? tr.h[h] : 0.f;   // input current, a tick ahead
+  }
+  float nspk = 0.f;
+  for (int t = 0; t < T; ++t) {
+    float in_cur[W], rec[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) { in_cur[j] = cn[j]; rec[j] = 0.f; }
+    if (t + 1 < T) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int h = lane + 32 * j;
+        cn[j] = (j < J && h < H) ? tr.h[(size_t)(t + 1) * tr.sH + h] : 0.f;
+      }
+    }
+    // the recurrent current over last tick's spikes
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < J) rsnn_add_rows<W, false>(rec, zmask[j], 32 * j, 0.f, w_rec, H, J, lane);
+    }
+    // LIF, traces, the new spike masks
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < J) {
+        const int h = lane + 32 * j;
+        const float v_pre = rsnn_leak_in(v[j], in_cur[j] + rec[j], p);
+        const float zz = v_pre >= p.v_th ? 1.f : 0.f;
+        v[j] = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
+        const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
+        const float z_prev = (zmask[j] >> lane) & 1u ? 1.f : 0.f;
+        pbar[j] = p.alpha * pbar[j] + z_prev;
+        zbar[j] = p.kappa * zbar[j] + zz;
+        zmask[j] = __ballot_sync(FULL, h < H && zz > 0.f);
+        cnt += __popc(zmask[j]);
+        spikes[t * J + j] = zmask[j];   // every lane writes the same word
+        if (h < H) {
+          rsnn_put(tr.h, tr.sH, t, h, hb);
+          rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
+          rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
+          if (cp) {
+            rsnn_put(copy.h, copy.sH, t, h, hb);
+            rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
+            rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
+          }
+        }
+      }
+    }
+    nspk += (float)cnt * valid[t];
+  }
+  if (lane == 0) *nspk_out = nspk;
 }
 
 // Launch helper shared by every entry point: raises the dynamic

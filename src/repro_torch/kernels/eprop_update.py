@@ -3,18 +3,22 @@ e-prop update — with their plain PyTorch versions (counterpart of
 :mod:`repro.kernels.eprop_update`).
 
 * :func:`rsnn_train_cuda` — ``rsnn_train_kernel``: the ``train_tile`` op.
-  Per block of rows, the forward ticks (the tick datapath plus the
-  ``xbar, pbar, zbar`` traces and the boxcar ``h``) evaluate the readout
-  error in-kernel — ``softmax(y·s) − y*`` or ``y·s − amp·y*``, masked by
-  ``valid``, ``s = 1/threshold`` in quantized mode — and write the trace
-  set to a device-memory scratch; the reverse phase of the same launch
-  reads it back.  Returns ``(dw_in, dw_rec, dw_out, acc_y (B, O),
-  n_spk (B, 1))``.
-* :func:`eprop_update_cuda` — ``eprop_update_kernel``: the reverse pass
-  alone over ``(T, B, ·)`` traces in device memory (the ``eprop_update``
-  op of the split pipeline).
+  One block per batch row: one warp runs the row's LIF recurrence on the
+  event-driven warp-per-row loop while the other warps run what does not
+  feed back into it (each tick's input current, the ``xbar`` filter, then
+  the readout over all ticks with the error evaluated in-kernel —
+  ``softmax(y·s) − y*`` or ``y·s − amp·y*``, masked by ``valid``,
+  ``s = 1/threshold`` in quantized mode); the row's trace set stays in
+  shared memory where it fits (:func:`~repro_torch.kernels.rsnn_step.
+  train_plan`), else in a device scratch; then the block runs the row's
+  reverse pass.  Returns ``(dw_in, dw_rec, dw_out, acc_y (B, O),
+  n_spk (B, 1))``, and the trace set when asked.
+* :func:`eprop_update_cuda` — the reverse pass alone over ``(T, B, ·)``
+  traces in device memory (the ``eprop_update`` op of the split
+  pipeline): one thread per (row, neuron) for F, then one per (row, dw
+  element).
 
-Both reverse passes are one device function (``csrc/rsnn_train.cu``):
+Both reverse passes run the same device functions (``csrc/rsnn_train.cu``):
 over ticks ``T-1..0``::
 
   F[t]   = err[t] @ B_fbᵀ + κ·F[t+1]
@@ -22,14 +26,14 @@ over ticks ``T-1..0``::
   dW_rec = Σ_t pbar[t]ᵀ (h[t]∘F[t])
   dW_out = Σ_t zbar[t]ᵀ err[t]
 
-Each block writes the partial ``dw`` of its rows to its own slice of an
-``(nb, E)`` buffer, and a second small kernel adds the slices in block
-order — no atomics, so two launches give identical bits.  The caller masks
-``dw_rec``'s self-recurrence.  The weights are the ``to_membrane`` images
-in quantized mode; ``b_fb`` is in normalised weight units (the raw
-``w_out`` or the random ``B``).  ``err`` uses ``expf``, so ``dw`` matches
-the plain version to a tolerance, not bitwise; ``acc_y`` and ``n_spk`` are
-bitwise in quantized mode.
+Each row's partial ``dw`` goes to its own slice of a ``(B, E)`` buffer,
+and a last small kernel adds the slices in row order — no atomics, so two
+launches give identical bits.  The caller masks ``dw_rec``'s
+self-recurrence.  The weights are the ``to_membrane`` images in quantized
+mode; ``b_fb`` is in normalised weight units (the raw ``w_out`` or the
+random ``B``).  ``err`` uses ``expf``, so ``dw`` matches the plain version
+to a tolerance, not bitwise; ``acc_y``, ``n_spk`` and the traces ``h,
+xbar, pbar, zbar`` are bitwise in quantized mode.
 """
 
 from __future__ import annotations
@@ -40,14 +44,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.quant import QuantizedMode
-from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
+from repro_torch.kernels.launch import launches, raise_on, stream_arg
 from repro_torch.kernels.rsnn_step import (
+    TRAIN_MAX_WIDTH,
     _check_exact_matmul,
     _consts,
     check_arg,
     datapath_scalars,
-    geometry,
     tick_transition,
+    train_plan,
     weight_elems,
 )
 
@@ -56,6 +61,8 @@ from repro_torch.kernels.rsnn_step import (
 MAX_ERR_OUTPUTS = 16
 
 DwTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# The per-tick trace set of rsnn_train, in the kernel's argument order.
+TRACE_KEYS = ("h", "xbar", "pbar", "zbar", "err")
 
 
 def _readout_error(y_err, y_star, error: str, target_amplitude: float):
@@ -88,9 +95,10 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                      reset: str = "sub", boxcar_width: float = 0.5,
                      quant: Optional[QuantizedMode] = None,
                      error: str = "softmax", target_amplitude: float = 1.0,
-                     infer_window: str = "valid"):
+                     infer_window: str = "valid", return_traces: bool = False):
     """Plain version of :func:`rsnn_train_cuda` → ``(dw_in, dw_rec, dw_out,
-    acc_y (B, O), n_spk (B, 1))``."""
+    acc_y (B, O), n_spk (B, 1))``, and with ``return_traces`` the trace set
+    ``{"h", "xbar", "pbar", "zbar", "err"}``, each ``(T, B, ·)``."""
     c = _consts(alpha, kappa, v_th, reset, quant)
     _check_exact_matmul(raster, quant)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
@@ -100,7 +108,7 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     pbar, zbar = raster.new_zeros((B, H)), raster.new_zeros((B, H))
     y, xbar = raster.new_zeros((B, O)), raster.new_zeros((B, N))
     acc, nspk = raster.new_zeros((B, O)), raster.new_zeros((B, 1))
-    tr = {k: [] for k in ("h", "xbar", "pbar", "zbar", "err")}
+    tr = {k: [] for k in TRACE_KEYS}
     for t in range(T):
         v, z_new, y, h = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out,
                                          boxcar_width=boxcar_width, **c)
@@ -115,14 +123,13 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
         acc = acc + y * (1.0 if infer_window == "all" else vt)
         nspk = nspk + (z_new * vt).sum(dim=1, keepdim=True)
         z = z_new
-    dw = eprop_update_plain(*(torch.stack(tr[k]) for k in
-                              ("h", "xbar", "pbar", "zbar", "err")),
-                            b_fb, kappa=c["kappa"])
-    return (*dw, acc, nspk)
+    traces = {k: torch.stack(x) for k, x in tr.items()}
+    dw = eprop_update_plain(*traces.values(), b_fb, kappa=c["kappa"])
+    return (*dw, acc, nspk, traces) if return_traces else (*dw, acc, nspk)
 
 
 def _dw_outputs(N: int, H: int, O: int, nb: int, dev):
-    """The ``(nb, E)`` partial buffer and the three ``dw`` views of one
+    """The ``(nb, E)`` partial buffer (one slice a row) and the three ``dw`` views of one
     ``(E,)`` result the reduce kernel writes."""
     E = weight_elems(N, H, O)
     part = torch.empty((nb, E), dtype=torch.float32, device=dev)
@@ -137,8 +144,8 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     reset: str = "sub", boxcar_width: float = 0.5,
                     quant: Optional[QuantizedMode] = None,
                     error: str = "softmax", target_amplitude: float = 1.0,
-                    infer_window: str = "valid"):
-    """Launch ``rsnn_train_kernel`` (and the block-order ``dw`` reduction)
+                    infer_window: str = "valid", return_traces: bool = False):
+    """Launch ``rsnn_train_kernel`` (and the row-order ``dw`` reduction)
     on the current stream of the tensors' device → the outputs of
     :func:`rsnn_train_plain`.  Checks device, dtype, shape and contiguity;
     raises on a refused launch."""
@@ -151,6 +158,9 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     if O > MAX_ERR_OUTPUTS:
         raise ValueError(f"rsnn_train: {O} outputs > {MAX_ERR_OUTPUTS} "
                          "(the chip's readout; RSNN_MAX_OUT in csrc)")
+    if max(N, H) > TRAIN_MAX_WIDTH:
+        raise ValueError(f"rsnn_train: {N} inputs / {H} neurons > {TRAIN_MAX_WIDTH} "
+                         "(the chip's; RSNN_MAX_WORDS in csrc)")
     dev = raster.device
     for name, t, shape in (
         ("raster", raster, (T, B, N)), ("y_star", y_star, (B, O)),
@@ -161,37 +171,49 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
         check_arg(name, t, shape, dev)
     acc = torch.empty((B, O), dtype=torch.float32, device=dev)
     nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    width = {"xbar": N, "err": O}
+
+    def traces():
+        return {k: torch.empty((T, B, width.get(k, H)), dtype=torch.float32,
+                               device=dev) for k in TRACE_KEYS}
+
     if B == 0 or T == 0:
         zeros = (torch.zeros((N, H), device=dev), torch.zeros((H, H), device=dev),
                  torch.zeros((H, O), device=dev))
-        return (*zeros, acc.zero_(), nspk.zero_())
+        out = (*zeros, acc.zero_(), nspk.zero_())
+        return (*out, traces()) if return_traces else out
     lib = build.library()
     c = _consts(alpha, kappa, v_th, reset, quant)
-    bt, threads, wsmem = geometry(B, N, H, O, dev, traces=True)
-    nb = cdiv(B, bt)
-    traces = [torch.empty((T, B, w), dtype=torch.float32, device=dev)
-              for w in (H, N, H, H, O)]          # h, xbar, pbar, zbar, err
-    part, dw, views = _dw_outputs(N, H, O, nb, dev)
+    plan = train_plan(T, N, H, O)
+    # the device path's scratch: the traces and G; on chip, only a copy of
+    # the traces when the caller asks for them
+    tr = traces() if return_traces or not plan.traces_smem else None
+    g = None if plan.traces_smem else torch.empty((T, B, H), dtype=torch.float32,
+                                                  device=dev)
+    part, dw, views = _dw_outputs(N, H, O, B, dev)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
-    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out,
-                                   b_fb, *traces, part, dw, acc, nspk)]
+    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out, b_fb)]
+    ptrs += [tr[k].data_ptr() if tr else None for k in TRACE_KEYS]
+    ptrs += [g.data_ptr() if g is not None else None]
+    ptrs += [t.data_ptr() for t in (part, dw, acc, nspk)]
     with torch.cuda.device(dev):
         rc = lib.rsnn_train_launch(
-            *ptrs, T, B, N, H, O, bt, threads, wsmem,
-            int(infer_window == "all"), *datapath_scalars(c),
+            *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
+            int(plan.traces_smem), int(infer_window == "all"),
+            ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
             ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
             ctypes.c_float(target_amplitude), int(error == "softmax"),
             stream_arg(dev))
     raise_on(lib, rc, "rsnn_train")
     launches["rsnn_train"] += 1
-    return (*views, acc, nspk)
+    return (*views, acc, nspk, tr) if return_traces else (*views, acc, nspk)
 
 
 def eprop_update_cuda(h, xbar, pbar, zbar, err, b_fb, *, kappa: float
                       ) -> DwTriple:
-    """Launch ``eprop_update_kernel`` (and the block-order ``dw``
-    reduction) on the current stream of the tensors' device → the outputs
-    of :func:`eprop_update_plain`."""
+    """Launch the reverse kernels (F per (row, neuron), ``dw`` per (row,
+    element), the row-order reduction) on the current stream of the
+    tensors' device → the outputs of :func:`eprop_update_plain`."""
     from repro_torch.kernels import build
 
     T, B, H = h.shape
@@ -205,15 +227,16 @@ def eprop_update_cuda(h, xbar, pbar, zbar, err, b_fb, *, kappa: float
     if B == 0 or T == 0:
         return (torch.zeros((N, H), device=dev), torch.zeros((H, H), device=dev),
                 torch.zeros((H, O), device=dev))
+    if O > MAX_ERR_OUTPUTS:
+        raise ValueError(f"eprop_update: {O} outputs > {MAX_ERR_OUTPUTS} "
+                         "(the chip's readout; RSNN_MAX_OUT in csrc)")
     lib = build.library()
-    bt, threads, _ = geometry(B, N, H, O, dev, traces=True)
-    nb = cdiv(B, bt)
     g = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    part, dw, views = _dw_outputs(N, H, O, nb, dev)
+    part, dw, views = _dw_outputs(N, H, O, B, dev)
     ptrs = [t.data_ptr() for t in (h, xbar, pbar, zbar, err, b_fb, g, part, dw)]
     with torch.cuda.device(dev):
-        rc = lib.eprop_update_launch(*ptrs, T, B, N, H, O, bt, threads,
-                                     ctypes.c_float(kappa), stream_arg(dev))
+        rc = lib.eprop_update_launch(*ptrs, T, B, N, H, O, ctypes.c_float(kappa),
+                                     stream_arg(dev))
     raise_on(lib, rc, "eprop_update")
     launches["eprop_update"] += 1
     return views

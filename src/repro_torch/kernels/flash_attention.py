@@ -17,14 +17,22 @@ Whole key tiles above the diagonal or past ``kv_len`` are skipped (their
 terms are exact zeros once a row has seen key 0, which every row has).
 Ragged lengths need no padding: the kernel masks its own edges.
 
-* :func:`flash_attention_cuda` launches ``flash_attention_kernel``
-  (``csrc/flash_attention.cu``) on the tensors' card.  It reads q, k and v
-  through their strides (only the last dimension must be contiguous), so
-  the model's ``(B, S, H, D)`` projections go in without a transpose copy.
+* :func:`flash_attention_cuda` launches the kernel of
+  ``csrc/flash_attention.cu`` on the tensors' card: in bf16 (every model
+  path) ``flash_attention_mma_kernel``, whose products run on the tensor
+  cores with k/v tiles copied asynchronously; in f32 the CUDA-core
+  ``flash_attention_f32_kernel``.  It reads q, k and v through their
+  strides (only the last dimension must be contiguous), so the model's
+  ``(B, S, H, D)`` projections go in without a transpose copy; the bf16
+  kernel copies 16-byte pieces, so there every address and stride must be
+  a multiple of 16 bytes, or the wrapper raises.
 * :func:`flash_attention_plain` is the same tiled loop in eager PyTorch;
   the CPU path runs it, and ``chip_smoke.py`` holds the kernel against it.
   It needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32``
   off, PyTorch's default) to be the kernel's reference on the card.
+* :func:`flash_plan` is the launch's geometry (grid, the order in which
+  blocks take their q tiles, shared memory), pure Python so that the CPU
+  tests reach it.
 
 :mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
 """
@@ -32,7 +40,8 @@ Ragged lengths need no padding: the kernel masks its own edges.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -47,6 +56,15 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # The kernel's grid puts batch·heads on its second axis.
 MAX_GRID_Y = 65535
+# The kernel's tiles (FA_BQ, FA_BK, FA_STAGES in csrc/flash_attention.cu):
+# 64 query rows a block (4 warps of 16 rows), 64 keys a tile, and in bf16
+# a ring of 2 k/v stages so that the next tile's copy overlaps this one's
+# products.  Staged bf16 rows are padded by 16 bytes, f32 rows by 4.
+BLOCK_Q = 64
+BLOCK_K = 64
+STAGES = 2
+# The bf16 kernel's cp.async copies move 16 bytes.
+COPY_BYTES = 16
 # How far two bf16 attention results may lie apart, per query row (the D
 # outputs of one batch, position and head): ``row_error <= BF16_ROW_TOL``.
 # The kernel and its plain version both round p to bf16 (2^-9 relative),
@@ -62,6 +80,51 @@ BF16_ROW_TOL = 8 * 2 ** -8
 # Rows whose largest output is below this are held to it instead (an
 # absolute floor, far below any output at the scales the checks use).
 ROW_FLOOR = 2 ** -16
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """One launch's geometry, as the launcher takes it: ``grid = (q tiles,
+    B·H)``; block ``x`` of a row takes q tile ``grid[0] - 1 - x``, so the
+    tiles with the most keys (the last, under the causal mask) start
+    first; ``smem_bytes`` of dynamic shared memory a block."""
+
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+    def tiles(self) -> List[Tuple[int, int]]:
+        """``(q tile, batch·head)`` of every block, in launch order."""
+        nx, ny = self.grid
+        return [(nx - 1 - x, y) for y in range(ny) for x in range(nx)]
+
+
+def flash_smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: bf16 the q tile and the
+    ``STAGES`` k and v tiles, rows of ``D + 8`` elements; f32 the q, k and
+    v tiles (rows of ``D + 1``), the 64 x 65 score tile and three row
+    vectors."""
+    if dtype == torch.bfloat16:
+        return (BLOCK_Q + 2 * STAGES * BLOCK_K) * (D + 8) * 2
+    return ((BLOCK_Q + 2 * BLOCK_K) * (D + 1) + BLOCK_Q * (BLOCK_K + 1)
+            + 3 * BLOCK_Q) * 4
+
+
+def flash_plan(B: int, Sq: int, H: int, D: int, dtype: torch.dtype) -> FlashPlan:
+    return FlashPlan(grid=(cdiv(Sq, BLOCK_Q), B * H),
+                     smem_bytes=flash_smem_bytes(D, dtype))
+
+
+def _check_copy_alignment(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel copies 16-byte pieces: its address, and each stride
+    that moves it (of a dimension longer than 1), must be multiples of 16
+    bytes."""
+    step = COPY_BYTES // t.element_size()
+    moving = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    if t.data_ptr() % COPY_BYTES or any(s % step for s in moving):
+        raise ValueError(
+            f"{name}: the bf16 kernel needs a {COPY_BYTES}-byte-aligned address and "
+            f"batch, sequence and head strides in multiples of {step} elements, "
+            f"got strides {tuple(t.stride())} at address {t.data_ptr():#x}")
 
 
 def _check_shapes(q, k, v, kv_len):
@@ -136,9 +199,10 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True,
                          kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch ``flash_attention_kernel`` on the current stream of the
-    tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in q's dtype.
-    Checks device, dtype, shape and strides; raises on a refused launch."""
+    """Launch the bf16 tensor-core kernel or the f32 kernel on the current
+    stream of the tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in
+    q's dtype.  Checks device, dtype, shape, strides and (bf16) alignment;
+    raises on a refused launch."""
     from repro_torch.kernels import build
 
     kv_len = _check_shapes(q, k, v, kv_len)
@@ -157,6 +221,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head width {D} not in {KERNEL_HEAD_DIMS}")
     if B * H > MAX_GRID_Y:
         raise ValueError(f"flash_attention: B·H = {B * H} > {MAX_GRID_Y}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_copy_alignment(name, t)
+    plan = flash_plan(B, Sq, H, D, q.dtype)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return o
@@ -166,7 +234,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, *strides,
-            kv_len, int(causal), ctypes.c_float(D ** -0.5), stream_arg(dev))
+            kv_len, int(causal), ctypes.c_float(D ** -0.5), plan.grid[0],
+            ctypes.c_longlong(plan.smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention")
     launches["flash_attention"] += 1
     return o

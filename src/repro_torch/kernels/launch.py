@@ -1,6 +1,7 @@
 """What every kernel wrapper of the port shares: the registry of kernels
-with their launch counters, and the launch plumbing (the current stream as
-a ctypes argument, the launcher's error code turned into an exception).
+with their launch counters, the card's per-block limits, and the launch
+plumbing (the current stream as a ctypes argument, the launcher's error
+code turned into an exception).
 
 ``launches`` is counted by each wrapper right after its launch and nowhere
 else (:mod:`repro_torch.kernels.ops` re-exports it): a run sets the counts
@@ -14,6 +15,13 @@ import ctypes
 from typing import Dict
 
 import torch
+
+# H100 (SXM) per-block limits and SM count (NVIDIA data sheet / Hopper
+# tuning guide): dynamic shared memory a block may opt into, threads a
+# block may launch, streaming multiprocessors on the card.
+SMEM_PER_BLOCK = 232448
+THREADS_PER_BLOCK = 1024
+H100_SMS = 132
 
 # Every kernel of the port: the five RSNN kernels and the LM's attention
 # kernel.

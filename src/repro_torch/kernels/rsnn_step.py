@@ -27,35 +27,42 @@ Tile sizing (one place, every caller derives from it): a block holds
 is bounded by the 1,024 threads of a block and by the 227 KB of shared
 memory a block may use on an H100; the weights are staged in shared memory
 when they fit beside the tile's state, and read from global memory / L2
-otherwise.  The trace kernels (``rsnn_forward``, ``rsnn_train``) keep the
-``xbar, pbar, zbar`` carries of each row in shared memory too; their
-per-tick traces go to device memory, so their tile rows do not depend on
-``T``.
+otherwise.  ``rsnn_forward`` keeps the ``xbar, pbar, zbar`` carries of
+each row in shared memory too; its per-tick traces go to device memory, so
+its tile rows do not depend on ``T``.  ``rsnn_train`` runs one row a block
+(:func:`train_plan`): the row's whole trace set stays in shared memory
+where it fits, and goes to a device scratch where it does not.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.quant import QuantizedMode
-from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
-
-# H100 (SXM) per-block limits and SM count (NVIDIA data sheet / Hopper
-# tuning guide): dynamic shared memory a block may opt into, threads a
-# block may launch, streaming multiprocessors on the card.
-SMEM_PER_BLOCK = 232448
-THREADS_PER_BLOCK = 1024
-H100_SMS = 132
+from repro_torch.kernels.launch import (
+    H100_SMS,
+    SMEM_PER_BLOCK,
+    THREADS_PER_BLOCK,
+    cdiv,
+    launches,
+    raise_on,
+    stream_arg,
+)
 
 F32_BYTES = 4
 
-# Threads of a block of the train and update kernels: their reverse pass
-# spreads the dw elements (2,014 at Braille width) over the block however
-# few rows it holds.
+# Threads of a block of the trace kernels: rsnn_forward's tile loop, and
+# rsnn_train's reverse pass, which spreads the dw elements (2,014 at
+# Braille width) over the block of its one row.
 REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
+# Widths rsnn_train's warp-per-row loop handles: 8 words of 32 lanes, the
+# chip's 256 inputs and 256 neurons (RSNN_MAX_WORDS in csrc/rsnn_tick.cuh).
+TRAIN_MAX_WIDTH = 256
+
 
 def weight_elems(n_in: int, n_hid: int, n_out: int) -> int:
     """Elements of the weight set (w_in + w_rec + w_out)."""
@@ -102,6 +109,44 @@ def block_rows(B: int, n_in: int, n_hid: int, n_out: int,
     the train kernels changes only in the order of its float sums)."""
     return max(1, min(max_tile_rows(n_in, n_hid, n_out, traces),
                       cdiv(B, sm_count)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """One ``rsnn_train`` launch: one block of ``threads`` per batch row;
+    the row's trace set in shared memory (``traces_smem``) or in a device
+    scratch, the f32 weights in shared memory where they fit;
+    ``smem_bytes`` of dynamic shared memory (the kernel refuses a launch
+    whose plan disagrees with its own layout)."""
+
+    threads: int
+    traces_smem: bool
+    weights_smem: bool
+    smem_bytes: int
+
+
+def train_trace_bytes(T: int, n_in: int, n_hid: int, n_out: int) -> int:
+    """One row's trace set: ``h, pbar, zbar`` (H), ``xbar`` (N) and ``err``
+    (O) at every tick — 66 KB at Braille T=128."""
+    return F32_BYTES * T * (3 * n_hid + n_in + n_out)
+
+
+def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
+    """Every block keeps the row's valid mask (T floats) and its spike
+    masks (one word per 32 neurons a tick) in shared memory.  The row's trace set goes there too, with the weights, when
+    both fit; otherwise it goes to a device scratch, and the weights stay
+    in shared memory if they fit beside the rest."""
+    base = F32_BYTES * T * (1 + cdiv(n_hid, 32))
+    weights = weights_bytes(n_in, n_hid, n_out)
+    traces = train_trace_bytes(T, n_in, n_hid, n_out)
+    if base > SMEM_PER_BLOCK:
+        raise ValueError(f"rsnn_train: T={T} ticks of masks exceed a block's "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory")
+    traces_smem = base + weights + traces <= SMEM_PER_BLOCK
+    weights_smem = base + weights <= SMEM_PER_BLOCK
+    used = base + (weights if weights_smem else 0) + (traces if traces_smem else 0)
+    return TrainPlan(threads=REVERSE_MIN_THREADS, traces_smem=traces_smem,
+                     weights_smem=weights_smem, smem_bytes=used)
 
 
 def max_batch_for_dims(n_in: int, n_hid: int, n_out: int) -> int:
@@ -249,9 +294,9 @@ def check_arg(name: str, t: torch.Tensor, shape, device) -> None:
 
 def geometry(B: int, N: int, H: int, O: int, device, traces: bool = False):
     """``(rows per block, threads per block, weights in shared memory)``
-    of one launch over ``B`` rows on ``device``.  The trace kernels run
-    their reverse pass over the same block, so they take at least
-    :data:`REVERSE_MIN_THREADS` threads."""
+    of one tile-loop launch over ``B`` rows on ``device``; the trace
+    kernel (``rsnn_forward``) takes at least :data:`REVERSE_MIN_THREADS`
+    threads."""
     sm = torch.cuda.get_device_properties(device).multi_processor_count
     bt = block_rows(B, N, H, O, sm, traces)
     threads = cdiv(bt * H, 32) * 32

@@ -1,15 +1,16 @@
 """Device-memory bytes each kernel launch moves (counterpart of the
-serving and training formulas of :mod:`repro.kernels.traffic`).
+serving and training formulas of :mod:`repro.kernels.traffic`), and the
+operations of the event-driven train kernel.
 
 Counted as the kernels read and write them on the card: the raster and
 masks once, the weights once per launch (each block re-reads them, but
 from L2 after the first), carries once in and once out.  The serving
 kernels write no per-tick tensor; ``rsnn_forward`` streams its seven;
-``rsnn_train`` writes its trace set to a device-memory scratch and reads
-it back (:func:`train_trace_scratch_bytes`, listed apart: at the END_B
-tile it stays in L2).  ``BatchedEngine`` sums the serving formulas into
-``hbm_bytes_streamed``; ``chip_smoke.py`` derives each kernel's bound from
-these.  The attention kernel's bytes and its exact-causal operation count
+``rsnn_train`` keeps its trace set in shared memory where it fits (its
+device scratch otherwise is not counted: it is the kernel's own round
+trip, not the function's input or output).  ``BatchedEngine`` sums
+the serving formulas into ``hbm_bytes_streamed``; ``chip_smoke.py``
+derives each kernel's bound from these.  The attention kernel's bytes and its exact-causal operation count
 close the module.
 """
 
@@ -65,13 +66,16 @@ def train_fused_tiled_bytes(T: int, B: int, n_in: int, n_hid: int,
     return F32_BYTES * (reads + writes)
 
 
-def train_trace_scratch_bytes(T: int, B: int, n_in: int, n_hid: int,
-                              n_out: int) -> int:
-    """``rsnn_train``'s own trace traffic beyond
-    :func:`train_fused_tiled_bytes`: the ``h, xbar, pbar, zbar, err`` set
-    (66 KB a row at Braille T=128) written by the forward phase and read
-    back by the reverse phase."""
-    return 2 * F32_BYTES * T * B * (3 * n_hid + n_in + n_out)
+def train_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+                      input_events: int, spikes: int, fed_back: int) -> int:
+    """Operations ``rsnn_train`` needs on given data: a multiply and an add
+    per hidden neuron for each nonzero input and for each spike fed back
+    from the tick before (``fed_back``: the spikes of all ticks but the
+    last), per output for each spike; then the dense reverse pass, the
+    learning signal (H·O) and the three ``dw`` products (E) a tick and row."""
+    forward = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
+    reverse = 2 * T * B * (weight_elems(n_in, n_hid, n_out) + n_hid * n_out)
+    return forward + reverse
 
 
 def flash_attention_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,

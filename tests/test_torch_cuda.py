@@ -11,8 +11,10 @@ kernel sums each row in its own fixed order, the plain version through
 ``torch.matmul``).  The training kernels' ``dw`` goes through ``exp`` and
 sums in another order than the plain version's products, so it is held to
 ``max |Δdw| <= DW_TOL * max |dw|`` per matrix in both modes; their
-``acc_y``, ``n_spk`` and (``rsnn_forward``) traces are bitwise when
-quantized.  The flash-attention kernel is held to its plain version at
+``acc_y``, ``n_spk`` and traces (``rsnn_forward``'s, and the ``h, xbar,
+pbar, zbar`` that ``rsnn_train`` returns on request) are bitwise when
+quantized; ``rsnn_train``'s readout error goes through ``expf`` and is held
+to ``ERR_TOL`` when quantized, ``FLOAT_TOL`` in float mode.  The flash-attention kernel is held to its plain version at
 ``FLASH_F32_TOL`` relative to ``max |o|`` in f32, and in bf16 per query row
 at ``BF16_ROW_TOL`` of the row's ``max |o|`` (``row_error`` and its
 justification are in ``repro_torch/kernels/flash_attention.py``).
@@ -32,6 +34,7 @@ from repro_torch.serve import BatchedEngine
 
 FLOAT_TOL = dict(atol=1e-4, rtol=1e-4)
 DW_TOL = 1e-4
+ERR_TOL = dict(atol=1e-6, rtol=0)
 FLASH_F32_TOL = 1e-5
 
 
@@ -140,15 +143,18 @@ def _check_dw(got, want):
         assert float((a - b).abs().max()) <= DW_TOL * scale
 
 
-def _train_case(rng, quantized, feedback, T, B, dev, label_delay=3):
-    cfg = Presets.braille(num_ticks=T, quantized=quantized, label_delay=label_delay)
+def _train_case(rng, quantized, feedback, T, B, dev, label_delay=3,
+                dims=(12, 38, 3), density=0.3):
+    n, h, o = dims
+    cfg = Presets.braille(num_ticks=T, quantized=quantized, label_delay=label_delay,
+                          n_in=n, n_hid=h, n_out=o)
     cfg = dataclasses.replace(cfg, eprop=dataclasses.replace(cfg.eprop, feedback=feedback))
     be = ExecutionBackend(cfg, device=dev)
     params = {k: v.to(dev) for k, v in _params(rng, cfg).items()}
     params["b_fb"] = torch.from_numpy(
         (rng.normal(size=(cfg.n_hid, cfg.n_out)) / np.sqrt(cfg.n_hid))
         .astype(np.float32)).to(dev)
-    raster = torch.from_numpy((rng.random((T, B, cfg.n_in)) < 0.3)
+    raster = torch.from_numpy((rng.random((T, B, cfg.n_in)) < density)
                               .astype(np.float32)).to(dev)
     t = np.arange(T)[:, None]
     start = rng.integers(0, T // 2, size=B) + label_delay
@@ -213,12 +219,115 @@ def test_train_kernel_dw_identical_across_launches(cuda_device):
     _check_dw([c[k] for k in a], [a[k] for k in a])
 
 
+# Braille's 12/38/3 and the chip maximum 256/256/16, whose trace set never
+# fits a block (the device-scratch path)
+TRAIN_SHAPES = [((12, 38, 3), 0.3), ((256, 256, 16), 0.05)]
+
+
+def _train_full(dims, density, T, B, quantized, dev, seed):
+    rng = np.random.default_rng(seed)
+    cfg, be, params, raster, valid, y_star = _train_case(
+        rng, quantized, "random", T, B, dev, dims=dims, density=density)
+    # weights on the SRAM grid in both modes: every product and current is
+    # exact in f32, so float mode's spikes cannot flip on a summation order
+    params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+              if k in ("w_in", "w_rec", "w_out") else v for k, v in params.items()}
+    w_in, w_rec, w_out = be.datapath_weights(params)
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant, error=cfg.eprop.error,
+              infer_window=cfg.eprop.infer_window)
+    args = (raster, y_star, valid, w_in, w_rec, w_out, be._feedback(params))
+    return cfg, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("B", [1, 70, 512])
+@pytest.mark.parametrize("dims,density", TRAIN_SHAPES)
+def test_train_kernel_matches_plain_at_chip_shapes(dims, density, B, T, quantized,
+                                                   cuda_device):
+    """``rsnn_train`` (the warp-per-row event loop, one block a row) against
+    its plain version at END_S's B=1, the END_B tile's B=70 and B=512:
+    ``acc_y``, ``n_spk`` and the traces bitwise when quantized, ``dw``
+    within ``DW_TOL``; two launches give the same bits."""
+    cfg, args, kw = _train_full(dims, density, T, B, quantized, cuda_device, seed=B + T)
+    plan = rsnn_step.train_plan(T, *dims)
+    assert plan.traces_smem == (dims == (12, 38, 3))
+    _check_train_kernel(args, kw, quantized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B", [1, 70])
+def test_train_kernel_device_trace_path_at_long_T(B, quantized, cuda_device):
+    """At T=512 a Braille row's trace set (264 KB) no longer fits a block:
+    the same kernel runs its phases on the device scratch."""
+    T, dims = 512, (12, 38, 3)
+    assert not rsnn_step.train_plan(T, *dims).traces_smem
+    cfg, args, kw = _train_full(dims, 0.3, T, B, quantized, cuda_device, seed=B)
+    _check_train_kernel(args, kw, quantized)
+
+
+def _check_train_kernel(args, kw, quantized):
+    ops.reset_launch_counts()
+    got = eprop_update.rsnn_train_cuda(*args, **kw, return_traces=True)
+    again = eprop_update.rsnn_train_cuda(*args, **kw)
+    want = eprop_update.rsnn_train_plain(*args, **kw, return_traces=True)
+    assert ops.launches["rsnn_train"] == 2
+    _check_dw(got[:3], want[:3])
+    for a, b in zip(got[3:5], want[3:5]):
+        _check(a, b, quantized)
+    for k in ("h", "xbar", "pbar", "zbar"):
+        _check(got[5][k], want[5][k], quantized)
+    np.testing.assert_allclose(got[5]["err"].cpu().numpy(), want[5]["err"].cpu().numpy(),
+                               **(ERR_TOL if quantized else FLOAT_TOL))
+    for a, b in zip(got[:5], again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("B", [1, 70, 512])
+@pytest.mark.parametrize("dims,density", TRAIN_SHAPES)
+def test_eprop_update_matches_plain_at_chip_shapes(dims, density, B, quantized,
+                                                   cuda_device):
+    """The split reverse pass over the plain version's traces, against its
+    plain version; two launches give the same bits."""
+    cfg, args, kw = _train_full(dims, density, 128, B, quantized, cuda_device, seed=B)
+    tr = eprop_update.rsnn_train_plain(*args, **kw, return_traces=True)[5]
+    trs = [tr[k].contiguous() for k in eprop_update.TRACE_KEYS]
+    b_fb = args[-1]
+    ops.reset_launch_counts()
+    got = eprop_update.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa)
+    again = eprop_update.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa)
+    assert ops.launches["eprop_update"] == 2
+    _check_dw(got, eprop_update.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 def _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, dev, strided):
     def one(S, heads):
         x = rng.normal(size=(B, heads, S, D) if strided else (B, S, heads, D)) * 0.3
         x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
         return x.transpose(1, 2) if strided else x
     return one(Sq, H), one(Skv, Hkv), one(Skv, Hkv)
+
+
+# the tensor-core kernel's cases at the model widths D = 64 and 128:
+# Sq not a multiple of the 64-row tile, GQA 4:1 and 1:1, non-causal with
+# NaN past kv_len, strided views
+TENSOR_CORE_CASES = [
+    case for D in (64, 128) for case in (
+        (2, 200, 200, 16, 4, D, True, None, False),
+        (2, 256, 256, 8, 8, D, True, None, False),
+        (1, 150, 300, 8, 2, D, False, 237, False),
+        (2, 130, 130, 8, 2, D, True, None, True),
+        (1, 100, 400, 4, 4, D, False, 333, True),
+    )
+]
 
 
 @pytest.mark.cuda
@@ -229,6 +338,7 @@ def _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, dev, strided):
     (2, 70, 150, 4, 1, 16, False, 131, True),         # strided, kv_len < Skv
     (1, 1, 65, 4, 2, 32, False, None, False),         # one query
     (1, 130, 90, 4, 2, 64, True, None, True),         # more queries than keys
+    *TENSOR_CORE_CASES,
 ])
 def test_flash_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, causal,
                                             kv_len, strided, cuda_device):
@@ -241,10 +351,12 @@ def test_flash_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, causal
         v[:, kv_len:] = float("nan")
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    again = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     want = FA.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
-    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention"] == 2
     assert got.dtype == dtype and got.shape == (B, Sq, H, D)
     assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
     if dtype == torch.float32:
         err = float((got - want).abs().max()) / float(want.abs().max())
         assert err <= FLASH_F32_TOL, err
@@ -265,6 +377,42 @@ def test_flash_kernel_identical_across_launches(cuda_device):
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="head width"):
         FA.flash_attention_cuda(q[..., :8], k[..., :8], v[..., :8], causal=True)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_gate_rejects_planted_faults(cuda_device):
+    """The bf16 gate (``row_error <= BF16_ROW_TOL``) rejects the output
+    scaled by 0.9 and the kernel's output with key tile 64-127 lost from
+    the later rows, as ``chip_smoke.py`` (j) checks at the llama shape."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(12)
+    q, k, v = _flash_case(rng, 2, 512, 512, 8, 2, 128, torch.bfloat16, cuda_device,
+                          False)
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    assert FA.row_error(got, want) <= FA.BF16_ROW_TOL
+    lost = v.clone()
+    lost[:, 64:128] = 0
+    fault = got.clone()
+    fault[:, 256:] = FA.flash_attention_cuda(q, k, lost, causal=True)[:, 256:]
+    assert FA.row_error(fault, want) > FA.BF16_ROW_TOL
+    assert FA.row_error((got.float() * 0.9).to(torch.bfloat16), want) > FA.BF16_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_flash_bf16_misaligned_stride_raises(cuda_device):
+    """A head stride of 68 elements moves the rows off the 16-byte grid
+    that the kernel's copies need: the wrapper raises, nothing launches."""
+    from repro_torch.kernels import flash_attention as FA
+
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 64, 4, 68, dtype=bf16, device=cuda_device)[..., :64]
+    k = torch.zeros(1, 64, 2, 64, dtype=bf16, device=cuda_device)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_cuda(q, k, k, causal=True)
+    assert ops.launches["flash_attention"] == 0
 
 
 @pytest.mark.cuda

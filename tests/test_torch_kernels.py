@@ -259,9 +259,50 @@ def test_trace_tile_sizing_fits_the_block(dims):
     assert rsnn_step.tile_state_bytes(rows, n, h, o, traces=True) <= rsnn_step.SMEM_PER_BLOCK
     assert rsnn_step.block_rows(70, n, h, o, traces=True) == 1      # END_B tile
     be = ExecutionBackend(Presets.braille(num_ticks=8), device="cpu")
-    assert be.tile_rows("train", T=128) == rsnn_step.max_tile_rows(12, 38, 3, traces=True)
+    assert be.tile_rows("train", T=128) == 1        # one row a block
     with pytest.raises(ValueError, match="T <= 4096"):
         be.tile_rows("train")
+
+
+@pytest.mark.parametrize("dims,T,on_chip", [
+    ((12, 38, 3), 128, True),          # Braille at the dataset's T: 66 KB a row
+    ((12, 38, 3), 256, True),
+    ((12, 38, 3), 512, False),         # long T: the device scratch
+    ((40, 100, 2), 100, True),
+    ((40, 100, 2), 150, False),
+    ((256, 256, 16), 128, False),      # the chip maximum: 532 KB a row
+    ((256, 256, 16), 4096, False),     # the 12-bit tick counter's longest
+])
+def test_train_plan_places_the_trace_set(dims, T, on_chip):
+    """rsnn_train keeps a row's trace set in shared memory, beside the
+    weights, where both fit, and in a device scratch otherwise; the valid
+    and spike masks always stay on chip, and a block never asks for more
+    than the card's 227 KB."""
+    n, h, o = dims
+    plan = rsnn_step.train_plan(T, n, h, o)
+    assert plan.traces_smem == on_chip
+    assert plan.weights_smem == (dims != (256, 256, 16))
+    assert plan.smem_bytes <= rsnn_step.SMEM_PER_BLOCK
+    words = (T * (1 + -(-h // 32))
+             + plan.weights_smem * rsnn_step.weight_elems(n, h, o)
+             + plan.traces_smem * T * (3 * h + n + o))
+    assert plan.smem_bytes == 4 * words
+    assert rsnn_step.train_trace_bytes(T, n, h, o) == 4 * T * (3 * h + n + o)
+    assert plan.threads >= 64 and plan.threads % 32 == 0   # a loop warp + the rest
+
+
+def test_train_event_flops_count_events_and_the_dense_reverse():
+    from repro_torch.kernels import traffic
+
+    T, B, n, h, o = 128, 70, 12, 38, 3
+    rev = 2 * T * B * (rsnn_step.weight_elems(n, h, o) + h * o)
+    assert traffic.train_event_flops(T, B, n, h, o, 0, 0, 0) == rev
+    assert traffic.train_event_flops(T, B, n, h, o, 10, 7, 5) == rev + 2 * h * 15 + 2 * o * 7
+
+
+def test_train_plan_rejects_masks_past_a_block():
+    with pytest.raises(ValueError, match="shared memory"):
+        rsnn_step.train_plan(8192, 256, 256, 16)
 
 
 def test_training_traffic_formulas_match_jax():
@@ -277,4 +318,3 @@ def test_training_traffic_formulas_match_jax():
         want = 4 * (T * B * n + T * B + B * o + rsnn_step.weight_elems(n, h, o) + h * o
                     + rsnn_step.weight_elems(n, h, o) + B * o + B)
         assert traffic.train_fused_tiled_bytes(*shape) == want
-        assert traffic.train_trace_scratch_bytes(*shape) == 2 * 4 * T * B * (3 * h + n + o)

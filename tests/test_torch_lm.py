@@ -40,8 +40,10 @@ from repro.models.model import build as jbuild
 from repro.train import serve_step as jserve
 from repro_torch.configs.base import ARCH_IDS, get_config, get_reduced
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.launch import SMEM_PER_BLOCK
 from repro_torch.kernels.traffic import attention_valid_keys, flash_attention_flops
 from repro_torch.models import attention, layers
 from repro_torch.models.model import build
@@ -198,6 +200,63 @@ def test_flash_traffic_counts():
     f = flash_attention_flops(4, 2048, 32, 128, 2048, True)
     assert f == 4 * 4 * 32 * 128 * 2048 * 2049 // 2
     assert 137e9 < f < 138e9
+
+
+@pytest.mark.parametrize("D", FA.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_plan_fits_a_block(D, dtype):
+    """Every head width's tiles fit the 227 KB a block may hold; in bf16
+    that is the q tile and a ring of at least two k/v stages, and at the
+    model's D = 128 two blocks still share an SM's 228 KB."""
+    smem = FA.flash_smem_bytes(D, dtype)
+    assert smem <= SMEM_PER_BLOCK
+    if dtype == torch.bfloat16:
+        assert FA.STAGES >= 2
+        stage = 2 * FA.BLOCK_K * (D + 8) * 2           # a k and a v tile
+        assert smem >= FA.STAGES * stage + FA.BLOCK_Q * D * 2
+        if D == 128:
+            assert 2 * smem <= 228 * 1024
+
+
+@pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (2, 130, 4), (4, 2048, 32)])
+def test_flash_tile_order_covers_each_tile_once(B, Sq, H):
+    """The grid gives every (q tile, batch·head) one block, and each
+    batch·head's first block takes its last q tile, the one with the most
+    keys under the causal mask."""
+    plan = FA.flash_plan(B, Sq, H, 128, torch.bfloat16)
+    nq = -(-Sq // FA.BLOCK_Q)
+    assert plan.grid == (nq, B * H)
+    tiles = plan.tiles()
+    assert len(tiles) == len(set(tiles)) == nq * B * H
+    assert set(tiles) == {(q, bh) for q in range(nq) for bh in range(B * H)}
+    assert all(tiles[bh * nq] == (nq - 1, bh) for bh in range(B * H))
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("contiguous", True),
+    ("head-major view", True),
+    ("size-1 batch, odd batch stride", True),
+    ("address off by one element", False),
+    ("head stride of 68 elements", False),
+])
+def test_flash_copy_alignment_check(case, ok):
+    """The bf16 kernel copies 16-byte pieces: a misaligned address or a
+    stride that moves it by other than a multiple of 8 elements raises."""
+    bf16 = torch.bfloat16
+    x = {
+        "contiguous": lambda: torch.zeros(2, 64, 4, 64, dtype=bf16),
+        "head-major view": lambda: torch.zeros(2, 4, 64, 64, dtype=bf16).transpose(1, 2),
+        "size-1 batch, odd batch stride": lambda: torch.zeros(1, 64, 4, 64, dtype=bf16)
+        .as_strided((1, 64, 4, 64), (3, 256, 64, 1)),
+        "address off by one element": lambda: torch.zeros(2 * 64 * 4 * 64 + 1, dtype=bf16)[1:]
+        .view(2, 64, 4, 64),
+        "head stride of 68 elements": lambda: torch.zeros(2, 64, 4, 68, dtype=bf16)[..., :64],
+    }[case]()
+    if ok:
+        FA._check_copy_alignment("q", x)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            FA._check_copy_alignment("q", x)
 
 
 # ---------------------------------------------------------------------------

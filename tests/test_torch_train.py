@@ -168,6 +168,36 @@ def test_split_pipeline_plain_matches_jax_kernel(seed, T, B, quantized, reset,
     _check_dw(fused, tdw)
 
 
+@pytest.mark.parametrize("seed,T,B,quantized,reset,feedback,delay,ragged", CASES)
+def test_train_plain_traces_match_jax_forward_traces(seed, T, B, quantized, reset,
+                                                     feedback, delay, ragged):
+    """The trace set ``rsnn_train`` returns on request (what the card tests
+    hold the kernel to) is the JAX package's ``forward_traces``: ``h`` held
+    bitwise in quantized mode, the filtered traces to ``TRACE_TOL``,
+    ``err`` to ``ERR_TOL``."""
+    from repro_torch.kernels import eprop_update as E
+
+    jcfg, tcfg, w, raster, valid, y_star = _case(
+        seed, T, B, quantized, reset, feedback, delay)
+    jtr = JaxBackend(jcfg, "kernel").forward_traces(
+        {k: jnp.asarray(v) for k, v in w.items()}, *_jax(raster, y_star, valid))
+    be = ExecutionBackend(tcfg, device="cpu")
+    tw = params_from_jax(w, device="cpu")
+    ecfg = tcfg.eprop
+    out = E.rsnn_train_plain(
+        *_torch(raster, y_star, valid), *be.datapath_weights(tw), be._feedback(tw),
+        error=ecfg.error, target_amplitude=ecfg.target_amplitude,
+        infer_window=ecfg.infer_window, return_traces=True, **be._trace_kw())
+    assert len(out) == 6
+    tr = out[5]
+    assert set(tr) == set(E.TRACE_KEYS)
+    _check(jtr["h"], tr["h"], quantized)
+    for k in ("xbar", "pbar", "zbar"):
+        np.testing.assert_allclose(np.asarray(jtr[k]), tr[k].numpy(),
+                                   **(TRACE_TOL if quantized else FLOAT_TOL))
+    np.testing.assert_allclose(np.asarray(jtr["err"]), tr["err"].numpy(), **ERR_TOL)
+
+
 @pytest.mark.parametrize("quantized,reset", [(True, "zero"), (True, "sub"),
                                              (False, "sub")])
 def test_dynamics_plain_matches_jax_kernel(quantized, reset):
