@@ -17,20 +17,29 @@ before it lists every kernel with its launches on the main path, its error
 against the plain version, its time, the plain version's time and its
 bound on this card.
 
-Phases:
+Phases, in this order but for (f), which runs after (h) with (i) (the
+timing phases use torch.profiler, and the learning run's wall is taken
+before any profiler session):
   (a) build the kernel library (one nvcc) and print the build seconds;
   (b) kernel == plain version on the card: bitwise in quantized mode, and in
       float mode within FLOAT_TOL, at the Braille shape (T=256, one full
-      serving tile, a ragged tile, B=1) and the chip-maximum 256/256/16
-      shape, with live holes, carried state and infer_window="all";
+      serving tile, a ragged tile, B=1; T=1100, longer than one chunk of the
+      serving plan, at B=1 and a full tile), the cue shape 40/100/2 and the
+      chip-maximum 256/256/16 shape, with live holes, infer_window="all",
+      and sessions in chained ragged tiles (one of a single tick) from the
+      carries of the tile before; two rsnn_infer launches, and
+      rsnn_step_sessions from zero carries with every tick live, give
+      rsnn_infer's bits;
   (c) BatchedEngine(CONFIG_QUANT, device="cuda").serve() on a few hundred
       Braille requests, bitwise equal to the same requests through the
       plain version (an engine on device="cpu"); run_tile drives rsnn_infer;
   (d) a few hundred streaming sessions fed in ragged and word-sized chunks
       (with pool evictions), results bitwise equal to (c);
   (e) each serving kernel's launch count over (c) + (d) is > 0;
-  (f) each serving kernel timed with CUDA events at the main path's shape,
-      beside its plain version and its bound;
+  (f) each serving kernel timed at T=256 over B=1, the main path's tile and
+      the 2,048-row admission: the card's time from torch.profiler beside
+      CUDA events a call, its plain version's time, and its bound from this
+      run's input events and spikes (traffic.serve_event_flops);
   (g) the training kernels (rsnn_train, rsnn_forward, eprop_update) ==
       their plain versions on the card at Braille T=128 (the END_B tile
       B=70, B=1, B=2048, a ragged B, label_delay>0, random feedback,
@@ -230,6 +239,13 @@ def _compare(name, got, want, quantized, errs):
             fail(f"{name}: float kernel off by {e} (> {FLOAT_TOL})")
 
 
+def _check_equal(name, got, want):
+    """Two kernel results that must agree bit for bit."""
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"{name}: differs (max {_err(g, w)})")
+
+
 def phase_kernels_vs_plain(dev):
     from repro_torch.core.backend import ExecutionBackend
     from repro_torch.core.rsnn import Presets, init_params
@@ -239,24 +255,30 @@ def phase_kernels_vs_plain(dev):
     gen = torch.Generator().manual_seed(SEED)
     braille_q = Presets.braille(quantized=True)
     braille_f = Presets.braille(quantized=False)
+    cue_q = Presets.cue_accumulation(quantized=True)
+    cue_f = Presets.cue_accumulation(quantized=False)
     chipmax_q = Presets.braille(quantized=True, n_in=256, n_hid=256, n_out=16)
     chipmax_q = dataclasses.replace(
         chipmax_q, neuron=dataclasses.replace(chipmax_q.neuron, reset="sub"))
     chipmax_f = dataclasses.replace(chipmax_q, neuron=dataclasses.replace(
         chipmax_q.neuron, quant=None))
     tile = batching.max_batch_for(braille_q)
-    cases = [
-        ("braille quant full tile", braille_q, tile, "valid", 0.12),
-        ("braille quant B=1", braille_q, 1, "valid", 0.12),
-        ("braille quant ragged all-window", braille_q, 335, "all", 0.12),
-        ("braille float full tile", braille_f, tile, "valid", 0.12),
-        ("chip-max quant", chipmax_q, batching.max_batch_for(chipmax_q), "valid", 0.05),
-        ("chip-max quant B=1", chipmax_q, 1, "all", 0.05),
-        ("chip-max float", chipmax_f, 64, "valid", 0.05),
+    cases = [   # name, config, B, infer window, input density, T
+        ("braille quant full tile", braille_q, tile, "valid", 0.12, 256),
+        ("braille quant B=1", braille_q, 1, "valid", 0.12, 256),
+        ("braille quant ragged all-window", braille_q, 335, "all", 0.12, 256),
+        ("braille float full tile", braille_f, tile, "valid", 0.12, 256),
+        # longer than one chunk of the serving plan
+        ("braille quant B=1, T=1100", braille_q, 1, "valid", 0.12, 1100),
+        ("braille quant full tile, T=1100", braille_q, tile, "valid", 0.12, 1100),
+        ("cue quant full tile", cue_q, batching.max_batch_for(cue_q), "valid", 0.1, 256),
+        ("cue float ragged all-window", cue_f, 77, "all", 0.1, 256),
+        ("chip-max quant", chipmax_q, batching.max_batch_for(chipmax_q), "valid", 0.05, 256),
+        ("chip-max quant B=1", chipmax_q, 1, "all", 0.05, 256),
+        ("chip-max float", chipmax_f, 64, "valid", 0.05, 256),
     ]
     errs = {"rsnn_infer": [], "rsnn_step_sessions": []}
-    T = 256
-    for name, cfg, B, window, density in cases:
+    for name, cfg, B, window, density, T in cases:
         cfg = dataclasses.replace(cfg, eprop=dataclasses.replace(
             cfg.eprop, infer_window=window))
         quantized = cfg.neuron.quant is not None
@@ -266,30 +288,45 @@ def phase_kernels_vs_plain(dev):
         params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
                   if k != "alpha" else v for k, v in params.items()}
         w_in, w_rec, w_out = be.datapath_weights(params)
+        w = (w_in, w_rec, w_out)
         raster, valid, live = _inputs(gen, T, B, cfg.n_in, density, dev)
         kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
                   reset=cfg.neuron.reset, quant=be.quant, infer_window=window)
-        got = K.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw)
-        want = K.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw)
+        got = K.rsnn_infer_cuda(raster, valid, *w, **kw)
+        again = K.rsnn_infer_cuda(raster, valid, *w, **kw)
+        want = K.rsnn_infer_plain(raster, valid, *w, **kw)
         torch.cuda.synchronize()
         _compare(f"{name} rsnn_infer", got, want, quantized, errs["rsnn_infer"])
+        _check_equal(f"{name}: two rsnn_infer launches", got, again)
         spikes = float(want[1].sum())
-        # two chained chunks: the second starts from the first's carries
         st = be.init_session_state(B)
-        carries = [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
-        half = T // 2
-        for lo, hi in ((0, half), (half, T)):
+        zero = [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
+        # a session tile from zero carries, every tick live, is rsnn_infer
+        ses = K.rsnn_step_sessions_cuda(raster, torch.ones_like(live), valid, *zero, *w,
+                                        **kw)
+        _check_equal(f"{name}: rsnn_step_sessions from zero carries vs rsnn_infer",
+                     ses[3:], got)
+        # chained ragged tiles, one of a single tick: each starts from the
+        # carries of the one before
+        carries = zero
+        for lo, hi in ((0, 1), (1, T // 2), (T // 2, T)):
             args = (raster[lo:hi].contiguous(), live[lo:hi].contiguous(),
-                    (valid[lo:hi] * live[lo:hi]).contiguous(), *carries,
-                    w_in, w_rec, w_out)
+                    (valid[lo:hi] * live[lo:hi]).contiguous(), *carries, *w)
             got = K.rsnn_step_sessions_cuda(*args, **kw)
             want = K.rsnn_step_sessions_plain(*args, **kw)
             torch.cuda.synchronize()
             _compare(f"{name} rsnn_step_sessions [{lo}:{hi}]", got, want,
                      quantized, errs["rsnn_step_sessions"])
             carries = list(want)
+        plan = K.serve_plan(T, B, cfg.n_in, cfg.n_hid, cfg.n_out)
+        chunks = -(-T // plan.Tc)
+        if T > 256 and chunks < 2:
+            fail(f"{name}: T={T} ran in one chunk of {plan.Tc} ticks")
         log(f"(b) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
-            f"window={window}, spikes={spikes:.0f})")
+            f"window={window}, spikes={spikes:.0f}; plan {plan.rows} rows a block, "
+            f"{chunks} chunk(s) of {plan.Tc} ticks, weights in "
+            f"{'shared' if plan.weights_smem else 'global'} memory); two launches "
+            f"and sessions from zero carries equal rsnn_infer bitwise")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -396,7 +433,30 @@ def _time(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_timing(dev, params, B):
+def _session_events(raster, live, w, kw, carries):
+    """(spikes, spikes fed back) of one session tile: every tick's spikes
+    before the live select, and the spikes of the carry z that enters each
+    tick — the plain version run one tick at a time, valid = 1 so that its
+    n_spk counts every spike."""
+    from repro_torch.kernels import rsnn_step as K
+
+    spikes = fed = 0
+    ones = torch.ones_like(live[:1])
+    v, z, y, acc, nspk = carries
+    for t in range(raster.shape[0]):
+        fed += int(z.count_nonzero())
+        v, z, y, acc, nspk = K.rsnn_step_sessions_plain(
+            raster[t:t + 1], live[t:t + 1], ones, v, z, y, acc, torch.zeros_like(nspk),
+            *w, **kw)
+        spikes += int(nspk.sum())
+    return spikes, fed
+
+
+def phase_timing(dev, params, b_tile):
+    """Both serving kernels at T=256 over B=1, the main path's tile and
+    the 2,048-row admission: the card's time from torch.profiler beside
+    CUDA events a call, the plain version's, and the bound from this run's
+    events (traffic.serve_event_flops; the dense count is logged beside)."""
     from repro_torch.configs.reckon_braille import CONFIG_QUANT as cfg
     from repro_torch.core.backend import ExecutionBackend
     from repro_torch.kernels import rsnn_step as K
@@ -405,50 +465,37 @@ def phase_timing(dev, params, B):
 
     T, N, H, O = 256, cfg.n_in, cfg.n_hid, cfg.n_out
     be = ExecutionBackend(cfg, device=dev)
-    w_in, w_rec, w_out = be.datapath_weights(params)
+    w = be.datapath_weights(params)
     gen = torch.Generator().manual_seed(SEED + 1)
-    raster, valid, live = _inputs(gen, T, B, N, 0.12, dev)
-    st = be.init_session_state(B)
     kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
               reset=cfg.neuron.reset, quant=be.quant)
-    # dense f32 multiply-adds, as the kernels compute them
-    flops = T * B * 2 * K.weight_elems(N, H, O)
     rows = {}
-    for name, kern, plain, nbytes in (
-        ("rsnn_infer",
-         lambda: K.rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, **kw),
-         lambda: K.rsnn_infer_plain(raster, valid, w_in, w_rec, w_out, **kw),
-         traffic.infer_fused_tiled_bytes(T, B, N, H, O)),
-        ("rsnn_step_sessions",
-         lambda: K.rsnn_step_sessions_cuda(
-             raster, live, valid, st["v"], st["z"], st["y"], st["acc_y"],
-             st["n_spk"], w_in, w_rec, w_out, **kw),
-         lambda: K.rsnn_step_sessions_plain(
-             raster, live, valid, st["v"], st["z"], st["y"], st["acc_y"],
-             st["n_spk"], w_in, w_rec, w_out, **kw),
-         traffic.stream_step_tiled_bytes(T, B, N, H, O)),
-    ):
-        t_plain_a = _time(plain, iters=3)
-        t_kern_a = _time(kern)
-        t_kern_b = _time(kern)
-        t_plain_b = _time(plain, iters=3)
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_f = flops / F32_FLOPS_PER_S * 1e3
-        rows[name] = dict(
-            ms=min(t_kern_a, t_kern_b), plain_ms=min(t_plain_a, t_plain_b),
-            bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
-            shape=f"T={T} B={B} {N}/{H}/{O}",
-        )
-        log(f"(f) {name} at T={T}, B={B}, {N}/{H}/{O}: kernel "
-            f"{t_kern_a:.4f} / {t_kern_b:.4f} ms, plain {t_plain_a:.3f} / "
-            f"{t_plain_b:.3f} ms, bound {max(t_b, t_f):.6f} ms "
-            f"(bytes {nbytes}, flops {flops})")
-    # One tile's time against its width: if the serial tick chain sets the
-    # pace, a single row and a full serving tile take about as long as B.
-    for b in (1, max_batch_for(cfg)):
-        r, v, _ = _inputs(gen, T, b, N, 0.12, dev)
-        ms = _time(lambda: K.rsnn_infer_cuda(r, v, w_in, w_rec, w_out, **kw))
-        log(f"(f) rsnn_infer at T={T}, B={b}, {N}/{H}/{O}: kernel {ms:.4f} ms")
+    for B in sorted({1, b_tile, max_batch_for(cfg)}):
+        raster, valid, live = _inputs(gen, T, B, N, 0.12, dev)
+        st = be.init_session_state(B)
+        c = [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
+        events = int(raster.count_nonzero())
+        dense = T * B * 2 * K.weight_elems(N, H, O)     # the tile loop's f32 multiply-adds
+        shape = f"T={T} B={B} {N}/{H}/{O}"
+        for name, kern, plain, nbytes, lv in (
+            ("rsnn_infer",
+             lambda: K.rsnn_infer_cuda(raster, valid, *w, **kw),
+             lambda: K.rsnn_infer_plain(raster, valid, *w, **kw),
+             traffic.infer_fused_tiled_bytes(T, B, N, H, O), torch.ones_like(live)),
+            ("rsnn_step_sessions",
+             lambda: K.rsnn_step_sessions_cuda(raster, live, valid, *c, *w, **kw),
+             lambda: K.rsnn_step_sessions_plain(raster, live, valid, *c, *w, **kw),
+             traffic.stream_step_tiled_bytes(T, B, N, H, O), live),
+        ):
+            spikes, fed = _session_events(raster, lv, w, kw, c)
+            flops = traffic.serve_event_flops(T, B, N, H, O, events, spikes, fed)
+            row = _timed_row("(f)", name, kern, plain, nbytes, flops, shape)
+            log(f"(f) {name} at {shape}: {events} input events, {spikes} spikes, {fed} "
+                f"fed back: {flops} operations (dense {dense}, "
+                f"{dense / F32_FLOPS_PER_S * 1e3:.6f} ms); plan "
+                f"{K.serve_plan(T, B, N, H, O)}")
+            if B == b_tile:
+                rows[name] = row
     return rows
 
 
@@ -670,9 +717,11 @@ def phase_learning(dev):
 
 
 def _device_ms(fn, iters=20):
-    """The card's time for one call of ``fn``: the summed durations of the
-    kernels it launched, from ``torch.profiler``, over ``iters`` calls;
-    None when the trace holds no device time."""
+    """The card's time for one call of ``fn`` from ``torch.profiler``: for
+    each kernel it launches, the median of that kernel's durations over
+    ``iters`` calls times its launches a call.  A trace may miss some
+    records, and a sum over them then reads low; the median of the rest
+    is not moved.  None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -682,16 +731,21 @@ def _device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    return sum(us) / 1e3 / iters if us else None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        return None
+    return sum(float(np.median(us)) * max(1, round(len(us) / iters))
+               for us in by_name.values()) / 1e3
 
 
-def _timed_row(name, kern, plain, nbytes, flops, shape):
-    """Kernel time on the card from the profiler (a training kernel now
-    takes less than the host needs to enqueue a call, so CUDA events over
-    back-to-back calls would time the host), the per-call time by CUDA
-    events beside it, the plain version's, and the bound."""
+def _timed_row(tag, name, kern, plain, nbytes, flops, shape):
+    """Kernel time on the card from the profiler (a kernel that takes less
+    than the host needs to enqueue a call would be timed by the host with
+    CUDA events over back-to-back calls), the per-call time by CUDA events
+    beside it, the plain version's, and the bound."""
     t_plain_a = _time(plain, iters=3)
     t_kern_a = _time(kern)
     d_a, d_b = _device_ms(kern), _device_ms(kern)
@@ -700,11 +754,11 @@ def _timed_row(name, kern, plain, nbytes, flops, shape):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS_PER_S * 1e3
     if d_a is None or d_b is None:
-        log(f"(i) {name}: torch.profiler saw no device time; kernel ms by CUDA events")
+        log(f"{tag} {name}: torch.profiler saw no device time; kernel ms by CUDA events")
         ms, dev = min(t_kern_a, t_kern_b), "not measured"
     else:
         ms, dev = min(d_a, d_b), f"{d_a:.4f} / {d_b:.4f}"
-    log(f"(i) {name} at {shape}: kernel {dev} ms on the card (profiler), "
+    log(f"{tag} {name} at {shape}: kernel {dev} ms on the card (profiler), "
         f"{t_kern_a:.4f} / {t_kern_b:.4f} ms a call (CUDA events, host enqueue "
         f"included), plain {t_plain_a:.3f} / {t_plain_b:.3f} ms, bound "
         f"{max(t_b, t_f):.6f} ms (bytes {nbytes}, flops {flops})")
@@ -751,7 +805,7 @@ def phase_train_timing(dev):
             T, b, N, H, O, int(ins[0].count_nonzero()), int(z.count_nonzero()),
             int(z[:-1].count_nonzero()))
         rows[key] = _timed_row(
-            "rsnn_train", lambda: E.rsnn_train_cuda(*targs, **tkw),
+            "(i)", "rsnn_train", lambda: E.rsnn_train_cuda(*targs, **tkw),
             lambda: E.rsnn_train_plain(*targs, **tkw),
             traffic.train_fused_tiled_bytes(T, b, N, H, O), flops,
             f"T={T} B={b} {N}/{H}/{O}")
@@ -761,11 +815,11 @@ def phase_train_timing(dev):
     trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
     shape = f"T={T} B={B} {N}/{H}/{O}"
     rows["rsnn_forward"] = _timed_row(
-        "rsnn_forward", lambda: K.rsnn_forward_cuda(raster, *w, **kw),
+        "(i)", "rsnn_forward", lambda: K.rsnn_forward_cuda(raster, *w, **kw),
         lambda: K.rsnn_forward_plain(raster, *w, **kw),
         traffic.forward_traces_bytes(T, B, N, H, O), fwd_flops, shape)
     rows["eprop_update"] = _timed_row(
-        "eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
+        "(i)", "eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
         lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
         traffic.eprop_update_bytes(T, B, N, H, O), rev_flops, shape)
     plan = K.train_plan(T, N, H, O)
@@ -1092,9 +1146,6 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the serving path")
     log(f"(e) ok: launches on the serving path {dict(ops.launches)}")
 
-    b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
-    rows = phase_timing(dev, params, b_tile)
-
     errs.update(phase_train_kernels_vs_plain(dev))
     learning = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
                 "eprop_update")
@@ -1106,6 +1157,10 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the learning path")
     log(f"(h) ok: launches on the learning path {learn_launches}")
     launches.update({k: learn_launches[k] for k in learning if k not in serving})
+    # the timing phases use torch.profiler: they run after the learning
+    # run, so that its wall is taken before any profiler session
+    b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
+    rows = phase_timing(dev, params, b_tile)
     rows.update(phase_train_timing(dev))
 
     errs["flash_attention"] = phase_flash_vs_plain(dev)

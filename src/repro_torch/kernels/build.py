@@ -36,8 +36,8 @@ NVCC_FLAGS = (
 )
 # -fmad=false for the RSNN sources: products are rounded before they are
 # added (see the note in csrc/rsnn_tick.cuh), bit for bit with the plain
-# version in quantized mode and with rsnn_tile_loop in both modes.  The
-# attention source is not on that path and builds with contraction on.
+# version in quantized mode.  The attention source is not on that path and
+# builds with contraction on.
 EXACT_SOURCES = ("rsnn_serve.cu", "rsnn_train.cu")
 
 
@@ -107,8 +107,9 @@ def _build(out: Path) -> None:
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # T, B, N, H, O, bt, threads, weights_smem, infer_all
-    dims = [i32] * 9
+    # T, B, N, H, O, rows, threads, Tc, weights_smem, infer_all; the
+    # plan's shared-memory bytes
+    dims = [i32] * 10 + [ctypes.c_longlong]
     # alpha, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub, quant, stream
     scalars = [f32] * 7 + [i32, i32, ptr]
     lib.rsnn_infer_launch.argtypes = [ptr] * 7 + dims + scalars

@@ -1,15 +1,16 @@
 // ReckOn's LIF + LI tick datapath, shared by every kernel of the library:
-// the tile loop of the two serving kernels (rsnn_serve.cu) and of
-// rsnn_forward, and the warp-per-row event loop of rsnn_train
-// (rsnn_train.cu), further down.
+// the warp-per-row event loop of rsnn_train (rsnn_train.cu) and of the two
+// serving kernels (rsnn_serve.cu), and the tile loop of rsnn_forward.
 //
 // Replaces the TPU tick pipeline of src/repro/kernels/rsnn_step.py
 // (tick_transition / tick_from_input_current, run once per grid step of
 // _infer_kernel, _session_kernel, _kernel and eprop_update.py's
 // _train_kernel).  On the TPU the grid (tile, tick) walks ticks in order
 // and carries state in VMEM scratch; here the whole T-tick loop runs
-// inside one launch: one block per tile of `bt` batch rows, one thread per
-// (row, hidden neuron), carries in shared memory.
+// inside one launch.  The event loop (further down) carries one row's
+// recurrence on one warp in registers; the tile loop runs one block per
+// tile of `bt` batch rows, one thread per (row, hidden neuron), carries in
+// shared memory.
 //
 // Arithmetic contract (per tick, per row b, neuron h):
 //   cur   = sum_k x[b,k] w_in[k,h]  +  sum_k z[b,k] w_rec[k,h]
@@ -51,42 +52,29 @@ struct TickParams {
   int err_softmax;               // 1: softmax error, 0: direct
 };
 
-// What a tile loop reads and writes.  SESSIONS reads carries and writes
-// them back; FORWARD writes seven (T, B, .) per-tick tensors and no
-// accumulator.
-enum RsnnMode { RSNN_INFER = 0, RSNN_SESSIONS = 1, RSNN_FORWARD = 2 };
+// The tile loop's one remaining mode: rsnn_forward, which writes seven
+// (T, B, .) per-tick tensors.  The serving kernels left it for the event
+// loop; rsnn_forward follows, and the tile loop goes with it.
+enum RsnnMode { RSNN_FORWARD = 0 };
 
 struct TileIO {
   const float* raster;   // (T, B, N)
-  const float* live;     // (T, B)  SESSIONS
-  const float* valid;    // (T, B)  all but FORWARD
-  const float* v0;       // (B, H)  SESSIONS carries in ...
-  const float* z0;
-  const float* y0;       // (B, O)
-  const float* acc0;
-  const float* nspk0;    // (B, 1)
   const float* w_in;     // (N, H)
   const float* w_rec;    // (H, H), self-recurrence masked
   const float* w_out;    // (H, O)
-  float* v_out;          // SESSIONS carries out
-  float* z_out;
-  float* y_out;
-  float* acc_out;        // (B, O)  all but FORWARD
-  float* nspk_out;       // (B, 1)
-  float* tr_z;           // (T, B, H) FORWARD
-  float* tr_h;           // (T, B, H) FORWARD
-  float* tr_xbar;        // (T, B, N) FORWARD
-  float* tr_pbar;        // (T, B, H) FORWARD
-  float* tr_zbar;        // (T, B, H) FORWARD
-  float* tr_y;           // (T, B, O) FORWARD
-  float* tr_v;           // (T, B, H) FORWARD (post-reset membrane)
+  float* tr_z;           // (T, B, H)
+  float* tr_h;           // (T, B, H)
+  float* tr_xbar;        // (T, B, N)
+  float* tr_pbar;        // (T, B, H)
+  float* tr_zbar;        // (T, B, H)
+  float* tr_y;           // (T, B, O)
+  float* tr_v;           // (T, B, H) post-reset membrane
 };
 
 struct TileDims {
   int T, B, N, H, O;
   int bt;                // batch rows per block
   int weights_smem;      // 1: stage the weights in shared memory
-  int infer_all;         // 1: acc_y over every (live) tick, 0: valid ticks
 };
 
 // The readout error of one row handles at most the chip's 16 outputs.
@@ -132,29 +120,27 @@ __device__ __forceinline__ float rsnn_readout_current(const float* zr,
   return y_lin;
 }
 
-// Dynamic shared memory a tile needs, in floats; the trace modes add the
-// xbar (N) and pbar, zbar (H each) carries of every row.
+// Dynamic shared memory an rsnn_forward tile needs, in floats: the
+// weights when staged; per row v, z and this tick's spikes (H each), the
+// input block (N), y (O), O + 3 slots of the serving tile's layout that
+// kernels/rsnn_step.py:tile_state_bytes still sizes the admission by, and
+// the xbar (N), pbar and zbar (H each) carries.
 __host__ __device__ inline size_t rsnn_tile_smem_floats(int bt, int N, int H,
                                                         int O,
-                                                        int weights_smem,
-                                                        int traces = 0) {
+                                                        int weights_smem) {
   size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
-  size_t tr = traces ? (size_t)bt * ((size_t)N + 2 * (size_t)H) : 0;
+  size_t tr = (size_t)bt * ((size_t)N + 2 * (size_t)H);
   return w + 3 * (size_t)bt * H + (size_t)bt * N + 2 * (size_t)bt * O +
          3 * (size_t)bt + tr;
 }
 
-// The T-tick loop of one tile.  INFER and FORWARD start from zero state with
-// every tick live; SESSIONS starts from the carries and applies `live`.
+// The T-tick loop of one tile, from zero state.
 template <int MODE>
 __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
                                const TickParams p) {
-  constexpr bool SESSIONS = MODE == RSNN_SESSIONS;
-  constexpr bool TRACES = MODE == RSNN_FORWARD;
-  constexpr bool ACCUM = MODE != RSNN_FORWARD;
+  static_assert(MODE == RSNN_FORWARD, "the tile loop runs rsnn_forward only");
   extern __shared__ float smem[];
   const int T = d.T, B = d.B, N = d.N, H = d.H, O = d.O, bt = d.bt;
-  const int infer_all = d.infer_all;
   const int b0 = blockIdx.x * bt;
   const int rows = min(bt, B - b0);
   const int tid = threadIdx.x;
@@ -162,13 +148,9 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
   // No two buffers of a launch alias: restrict-qualified locals let the
   // compiler use read-only loads and keep values across the stores.
   const float* __restrict__ raster = io.raster;
-  const float* __restrict__ live_g = io.live;
-  const float* __restrict__ valid_g = io.valid;
   const float* __restrict__ w_in_g = io.w_in;
   const float* __restrict__ w_rec_g = io.w_rec;
   const float* __restrict__ w_out_g = io.w_out;
-  float* __restrict__ acc_out = io.acc_out;
-  float* __restrict__ nspk_out = io.nspk_out;
   float* __restrict__ tr_z = io.tr_z;
   float* __restrict__ tr_h = io.tr_h;
   float* __restrict__ tr_xbar = io.tr_xbar;
@@ -189,52 +171,28 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
   }
   float* v = s;    s += bt * H;
   float* z = s;    s += bt * H;
-  float* zn = s;   s += bt * H;   // this tick's spikes before the live select
+  float* zn = s;   s += bt * H;   // this tick's spikes
   float* x = s;    s += bt * N;
   float* y = s;    s += bt * O;
-  float* acc = s;  s += bt * O;
-  float* nspk = s; s += bt;
-  float* lv = s;   s += bt;
-  float* vd = s;   s += bt;
-  float* xbar = s; s += TRACES ? bt * N : 0;
-  float* pbar = s; s += TRACES ? bt * H : 0;
+  s += bt * O + 3 * bt;           // unused slots (rsnn_tile_smem_floats)
+  float* xbar = s; s += bt * N;
+  float* pbar = s; s += bt * H;
   float* zbar = s;
 
   for (int i = tid; i < bt * H; i += nth) {
-    const bool in = i / H < rows;
-    const size_t g = (size_t)b0 * H + i;
-    v[i] = (SESSIONS && in) ? io.v0[g] : 0.f;
-    z[i] = (SESSIONS && in) ? io.z0[g] : 0.f;
-    if (TRACES) { pbar[i] = 0.f; zbar[i] = 0.f; }
+    v[i] = 0.f; z[i] = 0.f; pbar[i] = 0.f; zbar[i] = 0.f;
   }
-  for (int i = tid; i < bt * O; i += nth) {
-    const bool in = i / O < rows;
-    const size_t g = (size_t)b0 * O + i;
-    y[i] = (SESSIONS && in) ? io.y0[g] : 0.f;
-    acc[i] = (SESSIONS && in) ? io.acc0[g] : 0.f;
-  }
-  for (int b = tid; b < bt; b += nth) {
-    nspk[b] = (SESSIONS && b < rows) ? io.nspk0[b0 + b] : 0.f;
-  }
-  if (TRACES) {
-    for (int i = tid; i < bt * N; i += nth) xbar[i] = 0.f;
-  }
+  for (int i = tid; i < bt * O; i += nth) y[i] = 0.f;
+  for (int i = tid; i < bt * N; i += nth) xbar[i] = 0.f;
 
   for (int t = 0; t < T; ++t) {
     const size_t row0 = (size_t)t * B + b0;   // (t, b0) in a (T, B) layout
     const float* xt = raster + row0 * N;
     for (int i = tid; i < bt * N; i += nth) {
       x[i] = i < rows * N ? xt[i] : 0.f;
-      if (TRACES) {
-        const float xb = p.alpha * xbar[i] + x[i];
-        xbar[i] = xb;
-        if (i < rows * N) tr_xbar[row0 * N + i] = xb;
-      }
-    }
-    for (int b = tid; b < bt; b += nth) {
-      const size_t g = row0 + b;
-      vd[b] = (ACCUM && b < rows) ? valid_g[g] : 0.f;
-      lv[b] = SESSIONS ? (b < rows ? live_g[g] : 0.f) : 1.f;
+      const float xb = p.alpha * xbar[i] + x[i];
+      xbar[i] = xb;
+      if (i < rows * N) tr_xbar[row0 * N + i] = xb;
     }
     __syncthreads();
 
@@ -250,25 +208,24 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
       const float zz = v_pre >= p.v_th ? 1.f : 0.f;
       const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
       zn[i] = zz;
-      if (lv[b] > 0.f) v[i] = v_new;   // live == 0 freezes by select
-      if (TRACES) {
-        const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
-        const float pb = p.alpha * pbar[i] + z[i];   // z before this tick
-        const float zb = p.kappa * zbar[i] + zz;
-        pbar[i] = pb;
-        zbar[i] = zb;
-        if (b < rows) {
-          const size_t r = row0 * H + i;
-          tr_h[r] = hb;
-          tr_pbar[r] = pb;
-          tr_zbar[r] = zb;
-          if (MODE == RSNN_FORWARD) { tr_z[r] = zz; tr_v[r] = v_new; }
-        }
+      v[i] = v_new;
+      const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
+      const float pb = p.alpha * pbar[i] + z[i];   // z before this tick
+      const float zb = p.kappa * zbar[i] + zz;
+      pbar[i] = pb;
+      zbar[i] = zb;
+      if (b < rows) {
+        const size_t r = row0 * H + i;
+        tr_h[r] = hb;
+        tr_pbar[r] = pb;
+        tr_zbar[r] = zb;
+        tr_z[r] = zz;
+        tr_v[r] = v_new;
       }
     }
     __syncthreads();
 
-    // LI readout and accumulators: one thread per (row, output)
+    // LI readout: one thread per (row, output)
     for (int i = tid; i < bt * O; i += nth) {
       const int b = i / O;
       const int o = i - b * O;
@@ -276,54 +233,29 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
       const float y_lin = wsmem ? rsnn_readout_current(zr, wo, H, O, o)
                                 : rsnn_readout_current(zr, w_out_g, H, O, o);
       const float y_new = rsnn_leak_out(y[i], y_lin, p);
-      if (ACCUM) {
-        const float w = infer_all ? lv[b] : vd[b];
-        acc[i] += y_new * w;
-      }
-      if (lv[b] > 0.f) y[i] = y_new;
-      if (MODE == RSNN_FORWARD && b < rows) tr_y[row0 * O + i] = y_new;
+      y[i] = y_new;
+      if (b < rows) tr_y[row0 * O + i] = y_new;
     }
-    if (ACCUM) {
-      for (int b = tid; b < bt; b += nth) {
-        float cnt = 0.f;
-        for (int k = 0; k < H; ++k) cnt += zn[b * H + k] * vd[b];
-        nspk[b] += cnt;
-      }
-    }
-    for (int i = tid; i < bt * H; i += nth) {
-      if (lv[i / H] > 0.f) z[i] = zn[i];
-    }
+    for (int i = tid; i < bt * H; i += nth) z[i] = zn[i];
     __syncthreads();
-  }
-
-  if (ACCUM) {
-    for (int i = tid; i < rows * O; i += nth) acc_out[(size_t)b0 * O + i] = acc[i];
-    for (int b = tid; b < rows; b += nth) nspk_out[b0 + b] = nspk[b];
-  }
-  if (SESSIONS) {
-    for (int i = tid; i < rows * H; i += nth) {
-      io.v_out[(size_t)b0 * H + i] = v[i];
-      io.z_out[(size_t)b0 * H + i] = z[i];
-    }
-    for (int i = tid; i < rows * O; i += nth) io.y_out[(size_t)b0 * O + i] = y[i];
   }
 }
 
 // ---------------------------------------------------------------------------
-// The warp-per-row event loop (rsnn_train).  One warp carries one row's
-// LIF recurrence through all T ticks with warp-level synchronisation only:
-// lane l owns the hidden neurons h = l + 32j (j < J = ceil(H/32)).  The
-// currents are event-driven: a __ballot_sync of the row's nonzero inputs
-// or of last tick's spikes, then each lane adds x[k]*w[k,h] for the set
-// bits only, in ascending k.  A skipped term is an exact +-0 product, and a
-// sum that starts at +0 never changes when +-0 is added, so the loop gives
-// the bits of rsnn_tile_loop in both modes.  Only the recurrent sum and
-// the leak are serial: the input sums of every tick (rsnn_input_currents),
-// the xbar filter and the readout do not feed back into the recurrence and
-// run beside or after the loop over all ticks at once (rsnn_train.cu); the
-// loop adds the recurrent sum to the tick's input sum, as the contract
-// says.  rsnn_tile_loop stays the loop of the other kernels until they
-// move here.
+// The warp-per-row event loop (rsnn_train, rsnn_infer, rsnn_step_sessions).
+// One warp carries one row's LIF recurrence through the ticks with
+// warp-level synchronisation only: lane l owns the hidden neurons
+// h = l + 32j (j < J = ceil(H/32)), whose membranes stay in registers with
+// last tick's spike masks.  The currents are event-driven: a __ballot_sync
+// of the row's nonzero inputs or of last tick's spikes, then each lane adds
+// x[k]*w[k,h] for the set bits only, in ascending k.  A skipped term is an
+// exact +-0 product, and a sum that starts at +0 never changes when +-0 is
+// added, so the loop gives the bits of the dense sums of the contract (and
+// of rsnn_tile_loop) in both modes.  Only the recurrent sum and the leak
+// are serial: the input sums of every tick (rsnn_input_currents), the xbar
+// filter and the readout do not feed back into the recurrence and run
+// before, beside or after the loop over many ticks at once; the loop adds
+// the recurrent sum to the tick's input sum, as the contract says.
 // ---------------------------------------------------------------------------
 
 // Words of a spike or input mask: the chip's 256 neurons over 32 lanes.
@@ -340,36 +272,42 @@ struct RowTraces {
   size_t sH, sN, sO;     // tick strides
 };
 
+// What the event loop carries from one tick to the next for one row, in
+// the registers of its warp: lane l's membranes v[j] (h = l + 32j), last
+// tick's spike masks (word j: neurons 32j..32j+31, the same on every
+// lane), and the valid-masked spike count.
+template <int W>
+struct RowCarry {
+  float v[W];
+  unsigned z[W];
+  float nspk;
+};
+
+template <int W>
+__device__ __forceinline__ void rsnn_carry_zero(RowCarry<W>& c) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) { c.v[j] = 0.f; c.z[j] = 0u; }
+  c.nspk = 0.f;
+}
+
 // acc[j] += s_k * W[(kbase + k) * H + lane + 32j] for j < J over the set
 // bits k of m, ascending; s_k is lane k's xv when SCALED, else 1 (a spike,
-// whose product with w is w).  Two bits at a time: their loads issue
-// together, their adds stay in order.
+// whose product with w is w).  m is the same on every lane.
 template <int W, bool SCALED>
 __device__ __forceinline__ void rsnn_add_rows(float (&acc)[W], unsigned m,
                                               int kbase, float xv,
                                               const float* w_, int H, int J,
                                               int lane) {
+  const float* base = w_ + (size_t)kbase * H + lane;
   while (m) {
-    const int k0 = __ffs(m) - 1;
+    const int k = __ffs(m) - 1;
     m &= m - 1;
-    const int k1 = m ? __ffs(m) - 1 : -1;
-    m &= m - 1;
-    const float s0 = SCALED ? __shfl_sync(0xffffffffu, xv, k0) : 1.f;
-    const float s1 = SCALED ? __shfl_sync(0xffffffffu, xv, k1 & 31) : 1.f;
-    const float* r0 = w_ + (size_t)(kbase + k0) * H + lane;
-    const float* r1 = w_ + (size_t)(kbase + (k1 < 0 ? k0 : k1)) * H + lane;
-    float a[W], b[W];
+    const float s = SCALED ? __shfl_sync(0xffffffffu, xv, k) : 1.f;
+    const float* r = base + (size_t)k * H;
 #pragma unroll
     for (int j = 0; j < W; ++j) {
-      const bool in = j < J && lane + 32 * j < H;
-      a[j] = in ? r0[32 * j] : 0.f;
-      b[j] = in ? r1[32 * j] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] += SCALED ? s0 * a[j] : a[j];
-    if (k1 >= 0) {
-#pragma unroll
-      for (int j = 0; j < W; ++j) acc[j] += SCALED ? s1 * b[j] : b[j];
+      const float a = (j < J && lane + 32 * j < H) ? r[32 * j] : 0.f;
+      acc[j] += SCALED ? s * a : a;
     }
   }
 }
@@ -379,59 +317,142 @@ __device__ __forceinline__ void rsnn_put(float* base, size_t stride, int t,
   base[(size_t)t * stride + i] = x;
 }
 
-// The input current sum_k x(t, k) w_in[k, h] of every tick of one row, in
-// ascending k, into cur(t, h): one warp per tick at a time.
-template <int W>
-__device__ void rsnn_input_currents(const float* x, size_t sx,
-                                    const float* w_in, float* cur, size_t sc,
-                                    int T, int N, int H) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The input currents sum_k x[k] w_in[k, h] of U (row, tick) items, in
+// ascending k, into cur[u][h]; run by one whole warp.  Item u reads its
+// inputs at xr[u] and is skipped when on[u] is false.  The items' event
+// sums run side by side, a set bit of each a step, so that their loads and
+// adds overlap; each item's own adds stay in order.
+template <int W, int U>
+__device__ __forceinline__ void rsnn_input_current_items(const float* const (&xr)[U],
+                                                         const bool (&on)[U],
+                                                         const float* w_in,
+                                                         float* const (&cur)[U],
+                                                         int N, int H) {
+  const int lane = threadIdx.x & 31;
   const int NW = (N + 31) / 32, J = (H + 31) / 32;
-  for (int t = warp; t < T; t += blockDim.x >> 5) {
-    const float* xr = x + (size_t)t * sx;
-    float acc[W];
+  float acc[U][W];
 #pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] = 0.f;
+  for (int u = 0; u < U; ++u) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      if (w < NW) {
-        const int k = lane + 32 * w;
-        const float xv = k < N ? xr[k] : 0.f;
-        const unsigned m = __ballot_sync(0xffffffffu, xv != 0.f);
-        rsnn_add_rows<W, true>(acc, m, 32 * w, xv, w_in, H, J, lane);
+    for (int j = 0; j < W; ++j) acc[u][j] = 0.f;
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (w < NW) {
+      const int k = lane + 32 * w;
+      float xv[U];
+      unsigned m[U];
+      unsigned any = 0u;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        xv[u] = (on[u] && k < N) ? xr[u][k] : 0.f;
+        m[u] = __ballot_sync(0xffffffffu, xv[u] != 0.f);
+        any |= m[u];
+      }
+      const float* base = w_in + (size_t)(32 * w) * H + lane;
+      while (any) {
+        any = 0u;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (m[u]) {
+            const int kk = __ffs(m[u]) - 1;
+            m[u] &= m[u] - 1;
+            const float s = __shfl_sync(0xffffffffu, xv[u], kk);
+            const float* r = base + (size_t)kk * H;
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+              const float a = (j < J && lane + 32 * j < H) ? r[32 * j] : 0.f;
+              acc[u][j] += s * a;
+            }
+          }
+          any |= m[u];
+        }
       }
     }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
 #pragma unroll
     for (int j = 0; j < W; ++j) {
       const int h = lane + 32 * j;
-      if (j < J && h < H) rsnn_put(cur, sc, t, h, acc[j]);
+      if (on[u] && j < J && h < H) cur[u][h] = acc[u][j];
     }
   }
 }
 
-// The LIF recurrence of one row, run by one whole warp: the row's T ticks
-// from zero state.  Reads each tick's input current from tr.h and writes
-// the boxcar h over it, and the pbar, zbar traces (also to `copy` when
-// copy.h is not null); writes the spike masks (T, J) to `spikes` and the
-// valid-masked spike count to *nspk_out.  W >= ceil(H/32).
+// Items a warp interleaves: four at the narrow widths, two at the wide
+// ones (whose sums hold more registers).
 template <int W>
-__device__ void rsnn_row_lif(const RowTraces tr, const RowTraces copy,
-                             const float* w_rec, const float* valid,
-                             unsigned* spikes, float* nspk_out, int T, int H,
-                             const TickParams p) {
+struct RsnnItems { static constexpr int U = W <= 2 ? 4 : 2; };
+
+// The input currents of every tick of one row, x(t, k) at x[t * sx + k]
+// into cur(t, h) at cur[t * sc + h]: the block's warps share the ticks.
+template <int W>
+__device__ void rsnn_input_currents(const float* x, size_t sx,
+                                    const float* w_in, float* cur, size_t sc,
+                                    int T, int N, int H) {
+  constexpr int U = RsnnItems<W>::U;
+  const int nw = blockDim.x >> 5;
+  for (int t0 = (threadIdx.x >> 5) * U; t0 < T; t0 += nw * U) {
+    const float* xr[U];
+    float* cr[U];
+    bool on[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = min(t0 + u, T - 1);
+      on[u] = t0 + u < T;
+      xr[u] = x + (size_t)t * sx;
+      cr[u] = cur + (size_t)t * sc;
+    }
+    rsnn_input_current_items<W, U>(xr, on, w_in, cr, N, H);
+  }
+}
+
+// The readout current of one tick and output o: w_out[h, o] summed over the
+// set bits h of the tick's J spike-mask words, in ascending h.
+__device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
+                                                  const float* w_out, int O,
+                                                  int o) {
+  float y_lin = 0.f;
+  for (int j = 0; j < J; ++j) {
+    unsigned bits = m[j];
+    while (bits) {
+      const int k = __ffs(bits) - 1;
+      bits &= bits - 1;
+      y_lin += w_out[(32 * j + k) * O + o];
+    }
+  }
+  return y_lin;
+}
+
+// The LIF recurrence of one row through T ticks, run by one whole warp
+// from the carries c, which it leaves at the last tick's state.  Reads
+// each tick's input current from tr.h (stride tr.sH); writes each tick's
+// spike masks (T, J) to `spikes` (the spikes before the live select) and
+// adds popc(spikes) * valid[t] to c.nspk.  TRACES (rsnn_train): also
+// writes the boxcar h over tr.h and the pbar, zbar traces (and all three
+// to `copy` when copy.h is not null).  LIVE (rsnn_step_sessions): a tick
+// with live[t] == 0 keeps v and z by select.  W >= ceil(H/32).
+template <int W, bool TRACES, bool LIVE>
+__device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
+                                             const RowTraces tr,
+                                             const RowTraces copy,
+                                             const float* w_rec,
+                                             const float* valid,
+                                             const float* live,
+                                             unsigned* spikes, int T, int H,
+                                             const TickParams p) {
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int J = (H + 31) / 32;
-  const bool cp = copy.h != nullptr;
-  float v[W], pbar[W], zbar[W], cn[W];
-  unsigned zmask[W];
+  const bool cp = TRACES && copy.h != nullptr;
+  float pbar[W], zbar[W], cn[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     const int h = lane + 32 * j;
-    v[j] = 0.f; pbar[j] = 0.f; zbar[j] = 0.f; zmask[j] = 0u;
+    pbar[j] = 0.f; zbar[j] = 0.f;
     cn[j] = (j < J && h < H) ? tr.h[h] : 0.f;   // input current, a tick ahead
   }
-  float nspk = 0.f;
   for (int t = 0; t < T; ++t) {
     float in_cur[W], rec[W];
 #pragma unroll
@@ -446,46 +467,51 @@ __device__ void rsnn_row_lif(const RowTraces tr, const RowTraces copy,
     // the recurrent current over last tick's spikes
 #pragma unroll
     for (int j = 0; j < W; ++j) {
-      if (j < J) rsnn_add_rows<W, false>(rec, zmask[j], 32 * j, 0.f, w_rec, H, J, lane);
+      if (j < J) rsnn_add_rows<W, false>(rec, c.z[j], 32 * j, 0.f, w_rec, H, J, lane);
     }
     // LIF, traces, the new spike masks
+    const bool keep = !LIVE || live[t] > 0.f;
     int cnt = 0;
 #pragma unroll
     for (int j = 0; j < W; ++j) {
       if (j < J) {
         const int h = lane + 32 * j;
-        const float v_pre = rsnn_leak_in(v[j], in_cur[j] + rec[j], p);
+        const float v_pre = rsnn_leak_in(c.v[j], in_cur[j] + rec[j], p);
         const float zz = v_pre >= p.v_th ? 1.f : 0.f;
-        v[j] = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
-        const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
-        const float z_prev = (zmask[j] >> lane) & 1u ? 1.f : 0.f;
-        pbar[j] = p.alpha * pbar[j] + z_prev;
-        zbar[j] = p.kappa * zbar[j] + zz;
-        zmask[j] = __ballot_sync(FULL, h < H && zz > 0.f);
-        cnt += __popc(zmask[j]);
-        spikes[t * J + j] = zmask[j];   // every lane writes the same word
-        if (h < H) {
-          rsnn_put(tr.h, tr.sH, t, h, hb);
-          rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
-          rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
-          if (cp) {
-            rsnn_put(copy.h, copy.sH, t, h, hb);
-            rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
-            rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
+        const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
+        const unsigned m = __ballot_sync(FULL, h < H && zz > 0.f);
+        if (TRACES) {
+          const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
+          const float z_prev = (c.z[j] >> lane) & 1u ? 1.f : 0.f;
+          pbar[j] = p.alpha * pbar[j] + z_prev;
+          zbar[j] = p.kappa * zbar[j] + zz;
+          if (h < H) {
+            rsnn_put(tr.h, tr.sH, t, h, hb);
+            rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
+            rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
+            if (cp) {
+              rsnn_put(copy.h, copy.sH, t, h, hb);
+              rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
+              rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
+            }
           }
         }
+        if (keep) { c.v[j] = v_new; c.z[j] = m; }
+        cnt += __popc(m);
+        spikes[t * J + j] = m;   // every lane writes the same word
       }
     }
-    nspk += (float)cnt * valid[t];
+    c.nspk += (float)cnt * valid[t];
   }
-  if (lane == 0) *nspk_out = nspk;
 }
 
 // Launch helper shared by every entry point: raises the dynamic
-// shared-memory limit when the tile needs more than the 48 KB default, and
-// lowers *threads to what the kernel's registers allow a block (the tile
-// loops stride over any thread count).  The kernels carry no launch bounds:
-// capping their registers to fit 1,024 threads made the tick sums slower.
+// shared-memory limit when the block needs more than the 48 KB default,
+// and lowers *threads to what the kernel's registers allow a block (the
+// tile loop strides over any thread count; the serving launcher refuses a
+// lowered count, since each of its row warps carries a row).  Only the
+// serving kernels carry launch bounds (RsnnServeThreads): capping the tile
+// loop's registers to fit 1,024 threads made its tick sums slower.
 template <typename Kernel>
 inline int rsnn_prepare_launch(Kernel kernel, size_t smem_bytes,
                                int* threads) {

@@ -1,8 +1,9 @@
 // The three training kernels, built into one library with the serving
-// kernels of rsnn_serve.cu.  rsnn_forward runs the tick datapath of
-// rsnn_tick.cuh in a trace mode, rsnn_train the warp-per-row event loop
-// there; rsnn_train and eprop_update share the reverse device functions
-// below (rsnn_f_walk, rsnn_dw_elem).
+// kernels of rsnn_serve.cu.  rsnn_forward runs the tile loop of
+// rsnn_tick.cuh, rsnn_train the warp-per-row event loop there (with its
+// e-prop traces; the serving kernels run the same loop without them);
+// rsnn_train and eprop_update share the reverse device functions below
+// (rsnn_f_walk, rsnn_dw_elem).
 //
 // rsnn_forward_kernel — the trace-streaming forward behind the backend's
 // forward_traces and dynamics ops.  Replaces src/repro/kernels/rsnn_step.py:
@@ -181,16 +182,7 @@ __device__ void rsnn_row_readout(const TrainArgs& a, const TickParams& p,
   const int tid = threadIdx.x, nth = blockDim.x;
   for (int i = tid; i < T * O; i += nth) {
     const int t = i / O, o = i - (i / O) * O;
-    float y_lin = 0.f;
-    for (int j = 0; j < J; ++j) {
-      unsigned m = spikes[t * J + j];
-      while (m) {
-        const int k = __ffs(m) - 1;
-        m &= m - 1;
-        y_lin += w_out[(32 * j + k) * O + o];
-      }
-    }
-    rsnn_put(tr.err, tr.sO, t, o, y_lin);
+    rsnn_put(tr.err, tr.sO, t, o, rsnn_readout_sum(spikes + t * J, J, w_out, O, o));
   }
   __syncthreads();
   if (tid < O) {
@@ -299,7 +291,10 @@ __global__ void rsnn_train_kernel(TrainArgs a, TickParams p) {
   rsnn_input_currents<W>(x, sx, w_in, tr.h, tr.sH, T, N, H);
   __syncthreads();
   if (tid < 32) {
-    rsnn_row_lif<W>(tr, copy, w_rec, vs, spikes, a.n_spk + b, T, H, p);
+    RowCarry<W> c;
+    rsnn_carry_zero(c);
+    rsnn_row_lif<W, true, false>(c, tr, copy, w_rec, vs, nullptr, spikes, T, H, p);
+    if (tid == 0) a.n_spk[b] = c.nspk;
   } else {
     // xbar = alpha * xbar + x over the ticks, one thread per input
     for (int k = tid - 32; k < N; k += nth - 32) {
@@ -407,9 +402,9 @@ extern "C" int rsnn_forward_launch(
   io.w_in = w_in; io.w_rec = w_rec; io.w_out = w_out;
   io.tr_z = z; io.tr_h = h; io.tr_xbar = xbar; io.tr_pbar = pbar;
   io.tr_zbar = zbar; io.tr_y = y; io.tr_v = v;
-  TileDims d{T, B, N, H, O, bt, weights_smem, 0};
+  TileDims d{T, B, N, H, O, bt, weights_smem};
   const size_t smem =
-      rsnn_tile_smem_floats(bt, N, H, O, weights_smem, 1) * sizeof(float);
+      rsnn_tile_smem_floats(bt, N, H, O, weights_smem) * sizeof(float);
   int rc = rsnn_prepare_launch(rsnn_forward_kernel, smem, &threads);
   if (rc) return rc;
   const int blocks = (B + bt - 1) / bt;

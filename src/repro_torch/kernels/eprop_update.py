@@ -46,7 +46,7 @@ import torch
 from repro_torch.core.quant import QuantizedMode
 from repro_torch.kernels.launch import launches, raise_on, stream_arg
 from repro_torch.kernels.rsnn_step import (
-    TRAIN_MAX_WIDTH,
+    EVENT_LOOP_MAX_WIDTH,
     _check_exact_matmul,
     _consts,
     check_arg,
@@ -158,8 +158,8 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     if O > MAX_ERR_OUTPUTS:
         raise ValueError(f"rsnn_train: {O} outputs > {MAX_ERR_OUTPUTS} "
                          "(the chip's readout; RSNN_MAX_OUT in csrc)")
-    if max(N, H) > TRAIN_MAX_WIDTH:
-        raise ValueError(f"rsnn_train: {N} inputs / {H} neurons > {TRAIN_MAX_WIDTH} "
+    if max(N, H) > EVENT_LOOP_MAX_WIDTH:
+        raise ValueError(f"rsnn_train: {N} inputs / {H} neurons > {EVENT_LOOP_MAX_WIDTH} "
                          "(the chip's; RSNN_MAX_WORDS in csrc)")
     dev = raster.device
     for name, t, shape in (

@@ -14,24 +14,33 @@ Three kernels run the tick loop forward:
   trace-streaming forward of the ``forward_traces`` and ``dynamics`` ops,
   writing seven ``(T, B, ·)`` tensors ``z, h, xbar, pbar, zbar, y, v``.
 
-The first two live in ``csrc/rsnn_serve.cu``, the third in
-``csrc/rsnn_train.cu``; all run the whole T-tick loop inside one launch,
-one block per tile of rows (see ``csrc/rsnn_tick.cuh``).  The ``*_plain``
-functions compute the same functions with eager PyTorch through
-:func:`tick_transition`; the CPU path runs them, and ``chip_smoke.py``
-holds the kernels against them on the card.  :mod:`repro_torch.kernels.ops`
-picks one or the other by tensor device.
+The first two live in ``csrc/rsnn_serve.cu`` and run the warp-per-row
+event loop of ``csrc/rsnn_tick.cuh`` that ``rsnn_train`` runs too: one
+warp carries one batch row through all T ticks, and the input currents
+and the readout run outside the chain, a chunk of ticks at a time
+(:func:`serve_plan`).  The third lives in ``csrc/rsnn_train.cu`` and runs
+the tile loop, one block per tile of rows, one thread per ``(row, hidden
+neuron)``.  All run the whole T-tick loop inside one launch.  The
+``*_plain`` functions compute the same functions with eager PyTorch
+through :func:`tick_transition`; the CPU path runs them, and
+``chip_smoke.py`` holds the kernels against them on the card.
+:mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
 
-Tile sizing (one place, every caller derives from it): a block holds
-``rows`` batch rows with one thread per ``(row, hidden neuron)``, so a tile
-is bounded by the 1,024 threads of a block and by the 227 KB of shared
-memory a block may use on an H100; the weights are staged in shared memory
-when they fit beside the tile's state, and read from global memory / L2
-otherwise.  ``rsnn_forward`` keeps the ``xbar, pbar, zbar`` carries of
-each row in shared memory too; its per-tick traces go to device memory, so
-its tile rows do not depend on ``T``.  ``rsnn_train`` runs one row a block
-(:func:`train_plan`): the row's whole trace set stays in shared memory
-where it fits, and goes to a device scratch where it does not.
+Sizing (one place, every caller derives from it), bounded by the 1,024
+threads and the 227 KB of shared memory a block may use on an H100:
+
+* :func:`serve_plan` — the serving kernels: rows a block (a warp each),
+  threads, ticks a chunk, and whether the f32 weights stage in shared
+  memory beside the chunk;
+* :func:`train_plan` — ``rsnn_train``, one row a block: the row's whole
+  trace set stays in shared memory where it fits, and goes to a device
+  scratch where it does not;
+* :func:`max_tile_rows` / :func:`block_rows` — the tile loop's rows a
+  block (``rsnn_forward`` keeps the ``xbar, pbar, zbar`` carries of each
+  row in shared memory too; its per-tick traces go to device memory, so
+  its tile rows do not depend on ``T``); the serving admission
+  (:func:`max_batch_for_dims`) is still sized by the tile loop's serving
+  tile.
 """
 
 from __future__ import annotations
@@ -59,9 +68,18 @@ F32_BYTES = 4
 # rsnn_train's reverse pass, which spreads the dw elements (2,014 at
 # Braille width) over the block of its one row.
 REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
-# Widths rsnn_train's warp-per-row loop handles: 8 words of 32 lanes, the
-# chip's 256 inputs and 256 neurons (RSNN_MAX_WORDS in csrc/rsnn_tick.cuh).
-TRAIN_MAX_WIDTH = 256
+# Widths the warp-per-row event loop handles: 8 words of 32 lanes, the
+# chip's 256 inputs and 256 neurons (RSNN_MAX_WORDS in csrc/rsnn_tick.cuh),
+# and its 16 outputs (RSNN_MAX_OUT).
+EVENT_LOOP_MAX_WIDTH = 256
+EVENT_LOOP_MAX_OUT = 16
+# Rows a serving block carries, a warp each: at most the warps of the
+# smaller serving block (serve_threads).
+SERVE_MAX_ROWS = THREADS_PER_BLOCK // 2 // 32
+# The serving weights stage in shared memory only when at least this many
+# ticks of a chunk fit beside them, so that staging them never cuts the
+# chunks (and multiplies the block barriers) below that length.
+SERVE_MIN_CHUNK = 32
 
 
 def weight_elems(n_in: int, n_hid: int, n_out: int) -> int:
@@ -149,9 +167,63 @@ def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
                      weights_smem=weights_smem, smem_bytes=used)
 
 
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """One ``rsnn_infer`` / ``rsnn_step_sessions`` launch: ``rows`` batch
+    rows a block, each on its own warp of the block's ``threads``; the
+    ticks in chunks of ``Tc``; the f32 weights in shared memory when
+    ``weights_smem``; ``smem_bytes`` of dynamic shared memory (the kernel
+    refuses a launch whose plan disagrees with its own layout)."""
+
+    rows: int
+    threads: int
+    weights_smem: bool
+    Tc: int
+    smem_bytes: int
+
+
+def serve_tick_words(n_in: int, n_hid: int, n_out: int) -> int:
+    """Shared-memory words one row and tick of a serving chunk takes: the
+    input row (later the readout currents, ``max(N, O)``), the input
+    current (H), the spike masks (one word per 32 neurons), valid and
+    live."""
+    return max(n_in, n_out) + n_hid + cdiv(n_hid, 32) + 2
+
+
+def serve_threads(n_in: int, n_hid: int) -> int:
+    """Threads of a serving block, the kernels' launch bound
+    (``RsnnServeThreads`` in ``csrc/rsnn_serve.cu``): 1,024 where the
+    inputs and neurons fit two words of 32 lanes (Braille; those kernels
+    fit 64 registers a thread), else 512."""
+    return THREADS_PER_BLOCK if max(n_in, n_hid) <= 64 else THREADS_PER_BLOCK // 2
+
+
+def serve_plan(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+               sm_count: int = H100_SMS) -> ServePlan:
+    """Rows a block: few enough that the batch spreads over every SM (the
+    tick chain, not the width, sets a row's time), a warp each, at most
+    :data:`SERVE_MAX_ROWS`.  Then the longest chunk of ticks that fits
+    the block's shared memory, beside the weights where those fit with at
+    least :data:`SERVE_MIN_CHUNK` ticks (Braille and cue do, 256/256/16
+    does not).  Results do not depend on the plan: every row's sums run
+    in an order fixed by the row."""
+    rows = max(1, min(SERVE_MAX_ROWS, cdiv(B, sm_count)))
+    per_tick = F32_BYTES * rows * serve_tick_words(n_in, n_hid, n_out)
+    weights = weights_bytes(n_in, n_hid, n_out)
+    weights_smem = weights + per_tick * max(1, min(T, SERVE_MIN_CHUNK)) <= SMEM_PER_BLOCK
+    room = SMEM_PER_BLOCK - (weights if weights_smem else 0)
+    Tc = max(1, min(T, room // per_tick))
+    return ServePlan(rows=rows, threads=serve_threads(n_in, n_hid),
+                     weights_smem=weights_smem,
+                     Tc=Tc, smem_bytes=(weights if weights_smem else 0) + Tc * per_tick)
+
+
 def max_batch_for_dims(n_in: int, n_hid: int, n_out: int) -> int:
     """Serving admission per launch: the largest power of two that still
-    runs every row at once — one full block on each SM of the card."""
+    runs every row at once, sized by the tile loop's serving tile (one
+    thread per (row, neuron)) on each SM: 2,048 Braille, 1,024 cue, 512
+    at 256/256/16.  :func:`serve_plan` runs every admitted row in one
+    wave (``tests/test_torch_kernels.py`` holds it to that)."""
     rows = H100_SMS * max_tile_rows(n_in, n_hid, n_out)
     return 1 << (rows.bit_length() - 1)
 
@@ -292,18 +364,15 @@ def check_arg(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def geometry(B: int, N: int, H: int, O: int, device, traces: bool = False):
+def geometry(B: int, N: int, H: int, O: int, device):
     """``(rows per block, threads per block, weights in shared memory)``
-    of one tile-loop launch over ``B`` rows on ``device``; the trace
-    kernel (``rsnn_forward``) takes at least :data:`REVERSE_MIN_THREADS`
-    threads."""
+    of one ``rsnn_forward`` tile-loop launch over ``B`` rows on
+    ``device``; at least :data:`REVERSE_MIN_THREADS` threads."""
     sm = torch.cuda.get_device_properties(device).multi_processor_count
-    bt = block_rows(B, N, H, O, sm, traces)
-    threads = cdiv(bt * H, 32) * 32
-    if traces:
-        threads = max(threads, REVERSE_MIN_THREADS)
+    bt = block_rows(B, N, H, O, sm, traces=True)
+    threads = max(cdiv(bt * H, 32) * 32, REVERSE_MIN_THREADS)
     return (bt, min(THREADS_PER_BLOCK, threads),
-            int(weights_in_smem(bt, N, H, O, traces)))
+            int(weights_in_smem(bt, N, H, O, traces=True)))
 
 
 def datapath_scalars(c) -> list:
@@ -322,13 +391,23 @@ def datapath_scalars(c) -> list:
     ]
 
 
-def _launch_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
-                 infer_window):
+def _serve_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
+                infer_window):
+    """The serving launchers' dims (with :func:`serve_plan`'s geometry)
+    and datapath scalars; raises on widths the event loop does not take."""
     T, B, N = raster.shape
     H, O = w_rec.shape[0], w_out.shape[1]
+    if max(N, H) > EVENT_LOOP_MAX_WIDTH or O > EVENT_LOOP_MAX_OUT:
+        raise ValueError(
+            f"serving kernels: {N}/{H}/{O} exceeds the chip's "
+            f"{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_OUT} "
+            "(RSNN_MAX_WORDS, RSNN_MAX_OUT in csrc)")
     c = _consts(alpha, kappa, v_th, reset, quant)
-    bt, threads, wsmem = geometry(B, N, H, O, raster.device)
-    dims = [T, B, N, H, O, bt, threads, wsmem, int(infer_window == "all")]
+    sm = torch.cuda.get_device_properties(raster.device).multi_processor_count
+    plan = serve_plan(T, B, N, H, O, sm)
+    dims = [T, B, N, H, O, plan.rows, plan.threads, plan.Tc,
+            int(plan.weights_smem), int(infer_window == "all"),
+            ctypes.c_longlong(plan.smem_bytes)]
     return dims, datapath_scalars(c) + [stream_arg(raster.device)]
 
 
@@ -353,9 +432,9 @@ def rsnn_infer_cuda(raster, valid, w_in, w_rec, w_out, *, alpha: float,
     if B == 0:
         return acc, nspk
     lib = build.library()
-    dims, scalars = _launch_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
-                                 v_th=v_th, reset=reset, quant=quant,
-                                 infer_window=infer_window)
+    dims, scalars = _serve_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
+                                v_th=v_th, reset=reset, quant=quant,
+                                infer_window=infer_window)
     ptrs = [t.data_ptr() for t in (raster, valid, w_in, w_rec, w_out, acc, nspk)]
     with torch.cuda.device(dev):
         rc = lib.rsnn_infer_launch(*ptrs, *dims, *scalars)
@@ -390,9 +469,9 @@ def rsnn_step_sessions_cuda(raster, live, valid, v0, z0, y0, acc0, nspk0,
     if B == 0:
         return tuple(outs)
     lib = build.library()
-    dims, scalars = _launch_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
-                                 v_th=v_th, reset=reset, quant=quant,
-                                 infer_window=infer_window)
+    dims, scalars = _serve_args(raster, w_rec, w_out, alpha=alpha, kappa=kappa,
+                                v_th=v_th, reset=reset, quant=quant,
+                                infer_window=infer_window)
     ptrs = [t.data_ptr() for t in (raster, live, valid, v0, z0, y0, acc0, nspk0,
                                    w_in, w_rec, w_out, *outs)]
     with torch.cuda.device(dev):
@@ -462,7 +541,7 @@ def rsnn_forward_cuda(raster, w_in, w_rec, w_out, *, alpha: float,
         return outs
     lib = build.library()
     c = _consts(alpha, kappa, v_th, reset, quant)
-    bt, threads, wsmem = geometry(B, N, H, O, dev, traces=True)
+    bt, threads, wsmem = geometry(B, N, H, O, dev)
     ptrs = [t.data_ptr() for t in (raster, w_in, w_rec, w_out)]
     ptrs += [outs[k].data_ptr() for k in FORWARD_KEYS]
     with torch.cuda.device(dev):

@@ -1,6 +1,6 @@
 """Device-memory bytes each kernel launch moves (counterpart of the
 serving and training formulas of :mod:`repro.kernels.traffic`), and the
-operations of the event-driven train kernel.
+operations of the event-driven serving and train kernels.
 
 Counted as the kernels read and write them on the card: the raster and
 masks once, the weights once per launch (each block re-reads them, but
@@ -76,6 +76,20 @@ def train_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
     forward = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
     reverse = 2 * T * B * (weight_elems(n_in, n_hid, n_out) + n_hid * n_out)
     return forward + reverse
+
+
+def serve_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+                      input_events: int, spikes: int, fed_back: int) -> int:
+    """Operations ``rsnn_infer`` or ``rsnn_step_sessions`` needs on given
+    data, as the event-driven kernels do them: a multiply and an add per
+    hidden neuron for each nonzero input and for each spike fed back from
+    the tick before (``fed_back``: the spikes of the carry that enters each
+    tick), per output for each spike (``spikes``: every tick's, before the
+    ``live`` select); then every row and tick, the membrane and readout
+    leaks (a multiply and an add per neuron and per output) and the
+    accumulator's multiply-add per output."""
+    events = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
+    return events + T * B * (2 * n_hid + 4 * n_out)
 
 
 def flash_attention_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,

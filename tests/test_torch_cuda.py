@@ -137,6 +137,128 @@ def test_engine_on_card_matches_cpu_engine(quantized, cuda_device):
     assert ops.launches["rsnn_infer"] > 0 and ops.launches["rsnn_step_sessions"] > 0
 
 
+# The serving kernels' widths with an input density each: Braille, the cue
+# net, the chip maximum.  LONG_T runs more than one chunk at every width
+# and batch (asserted per case).
+SERVE_SHAPES = [((12, 38, 3), 0.12), ((40, 100, 2), 0.1), ((256, 256, 16), 0.05)]
+LONG_T = 1100
+
+
+def _serve_case(dims, density, B, T, quantized, dev, seed):
+    """A config at ``dims`` (subtractive reset), weights on the SRAM grid
+    (every product and input sum exact in f32 in both modes), a raster,
+    a 0/1 valid window and a 0/1 live mask with holes."""
+    n, h, o = dims
+    rng = np.random.default_rng(seed)
+    cfg = Presets.braille(num_ticks=max(T, 1), quantized=quantized, n_in=n, n_hid=h,
+                          n_out=o)
+    cfg = dataclasses.replace(cfg, neuron=dataclasses.replace(cfg.neuron, reset="sub"))
+    be = ExecutionBackend(cfg, device=dev)
+    params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16) if k != "alpha" else v
+              for k, v in _params(rng, cfg).items()}
+    w = be.datapath_weights(params)
+    raster = torch.from_numpy((rng.random((T, B, n)) < density).astype(np.float32)).to(dev)
+    t = np.arange(T)[:, None]
+    start = rng.integers(0, max(T // 2, 1), size=B)
+    valid = torch.from_numpy((t >= start).astype(np.float32)).to(dev)
+    live = torch.from_numpy((rng.random((T, B)) < 0.9).astype(np.float32)).to(dev)
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, quant=be.quant)
+    return be, w, raster, valid, live, kw
+
+
+def _carries(be, B):
+    st = be.init_session_state(B)
+    return [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("T", [1, 5, 256, LONG_T])
+@pytest.mark.parametrize("B", [1, 7, 512, "admission"])
+@pytest.mark.parametrize("dims,density", SERVE_SHAPES)
+def test_serving_kernels_match_plain_at_chip_shapes(dims, density, B, T, quantized,
+                                                    cuda_device):
+    """``rsnn_infer`` and ``rsnn_step_sessions`` (the warp-per-row event
+    loop, chunks of ``serve_plan``) against their plain versions: bitwise
+    when quantized, within ``FLOAT_TOL`` in float mode; the sessions in two
+    chained tiles with live holes, valid within live."""
+    B = rsnn_step.max_batch_for_dims(*dims) if B == "admission" else B
+    if T == LONG_T:
+        assert rsnn_step.serve_plan(T, B, *dims).Tc < T
+    be, w, raster, valid, live, kw = _serve_case(dims, density, B, T, quantized,
+                                                 cuda_device, seed=B + T)
+    for window in ("valid", "all"):
+        got = rsnn_step.rsnn_infer_cuda(raster, valid, *w, **kw, infer_window=window)
+        want = rsnn_step.rsnn_infer_plain(raster, valid, *w, **kw, infer_window=window)
+        for a, b in zip(got, want):
+            _check(a, b, quantized)
+    carries = _carries(be, B)
+    for lo, hi in ((0, T // 2), (T // 2, T)):
+        args = (raster[lo:hi].contiguous(), live[lo:hi].contiguous(),
+                (valid * live)[lo:hi].contiguous(), *carries, *w)
+        got = rsnn_step.rsnn_step_sessions_cuda(*args, **kw)
+        want = rsnn_step.rsnn_step_sessions_plain(*args, **kw)
+        for a, b in zip(got, want):
+            _check(a, b, quantized)
+        carries = list(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dims,density", SERVE_SHAPES)
+def test_session_tiles_chain_and_equal_inference(dims, density, quantized, cuda_device):
+    """On the card, in both modes: a session tile from zero carries with
+    every tick live gives ``rsnn_infer``'s bits; ragged chained tiles (one
+    of a single tick) give the bits of one whole tile; two launches give
+    the same bits."""
+    T, B = LONG_T, rsnn_step.max_batch_for_dims(*dims)
+    be, w, raster, valid, live, kw = _serve_case(dims, density, B, T, quantized,
+                                                 cuda_device, seed=3)
+    acc, nspk = rsnn_step.rsnn_infer_cuda(raster, valid, *w, **kw)
+    again = rsnn_step.rsnn_infer_cuda(raster, valid, *w, **kw)
+    assert torch.equal(acc, again[0]) and torch.equal(nspk, again[1])
+    ses = rsnn_step.rsnn_step_sessions_cuda(raster, torch.ones_like(valid), valid,
+                                            *_carries(be, B), *w, **kw)
+    assert torch.equal(ses[3], acc) and torch.equal(ses[4], nspk)
+    vl = (valid * live).contiguous()
+    whole = rsnn_step.rsnn_step_sessions_cuda(raster, live, vl, *_carries(be, B), *w, **kw)
+    carries = _carries(be, B)
+    for lo, hi in ((0, 1), (1, 300), (300, 301), (301, T)):
+        carries = rsnn_step.rsnn_step_sessions_cuda(
+            raster[lo:hi].contiguous(), live[lo:hi].contiguous(), vl[lo:hi].contiguous(),
+            *carries, *w, **kw)
+    for a, b in zip(carries, whole):
+        assert torch.equal(a, b)
+    twice = rsnn_step.rsnn_step_sessions_cuda(raster, live, vl, *_carries(be, B), *w, **kw)
+    for a, b in zip(twice, whole):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rsnn_infer", "rsnn_step_sessions"])
+def test_serving_launch_refuses_a_plan_it_does_not_lay_out(kernel, cuda_device,
+                                                          monkeypatch):
+    """The launcher checks the wrapper's plan against its own layout: a
+    plan whose shared-memory bytes, or rows a block, disagree is refused,
+    nothing runs and nothing is counted."""
+    be, w, raster, valid, live, kw = _serve_case((12, 38, 3), 0.12, 64, 32, True,
+                                                 cuda_device, seed=1)
+    plan = rsnn_step.serve_plan
+    calls = {
+        "rsnn_infer": lambda: rsnn_step.rsnn_infer_cuda(raster, valid, *w, **kw),
+        "rsnn_step_sessions": lambda: rsnn_step.rsnn_step_sessions_cuda(
+            raster, live, valid, *_carries(be, 64), *w, **kw),
+    }
+    for bad in (lambda p: dataclasses.replace(p, smem_bytes=p.smem_bytes + 4),
+                lambda p: dataclasses.replace(p, rows=p.threads // 32 + 1)):
+        monkeypatch.setattr(rsnn_step, "serve_plan", lambda *a, **k: bad(plan(*a, **k)))
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match=f"{kernel} launch failed"):
+            calls[kernel]()
+        assert ops.launches[kernel] == 0
+
+
 def _check_dw(got, want):
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-30)

@@ -180,6 +180,75 @@ def test_tile_sizing_fits_the_block(dims):
     assert rsnn_step.weights_in_smem(rows, n, h, o) == (dims != (256, 256, 16))
 
 
+SERVE_DIMS = [(12, 38, 3), (40, 100, 2), (256, 256, 16)]
+
+
+@pytest.mark.parametrize("T", [1, 7, 256, 4096])
+@pytest.mark.parametrize("dims", SERVE_DIMS)
+def test_serve_plan_fits_a_block_in_one_wave(dims, T):
+    """The serving kernels' plan: a warp a row and a thread per (row,
+    output) within the block, the chunk's layout within its shared memory,
+    and every admitted row in one wave of blocks."""
+    n, h, o = dims
+    adm = rsnn_step.max_batch_for_dims(n, h, o)
+    for B in (1, 7, 512, adm):
+        plan = rsnn_step.serve_plan(T, B, n, h, o)
+        assert plan.threads % 32 == 0 and plan.threads <= rsnn_step.THREADS_PER_BLOCK
+        assert 1 <= plan.rows and plan.rows * 32 <= plan.threads
+        assert plan.rows * o <= plan.threads
+        assert 1 <= plan.Tc <= T
+        words = (plan.weights_smem * rsnn_step.weight_elems(n, h, o)
+                 + plan.rows * plan.Tc * (max(n, o) + h + -(-h // 32) + 2))
+        assert plan.smem_bytes == 4 * words <= rsnn_step.SMEM_PER_BLOCK
+        assert rsnn_step.cdiv(B, plan.rows) <= rsnn_step.H100_SMS
+    # at the admission, the Braille and cue weights stage in shared memory;
+    # 256/256/16's cannot
+    assert rsnn_step.serve_plan(T, adm, n, h, o).weights_smem == (dims != (256, 256, 16))
+
+
+def test_serve_plan_chunks_long_tiles():
+    """A B=512 Braille tile at T=256 runs in one chunk; the 2,048-row
+    admission tile and the longest tick count run in several."""
+    assert rsnn_step.serve_plan(256, 512, 12, 38, 3).Tc == 256
+    assert rsnn_step.serve_plan(256, 2048, 12, 38, 3).Tc < 256
+    for dims in SERVE_DIMS:
+        assert rsnn_step.serve_plan(4096, 1, *dims).Tc < 4096
+
+
+def test_backend_tile_rows_report_the_serve_plan():
+    for n, h, o in SERVE_DIMS:
+        be = ExecutionBackend(Presets.braille(num_ticks=8, n_in=n, n_hid=h, n_out=o),
+                              device="cpu")
+        adm = rsnn_step.max_batch_for_dims(n, h, o)
+        for op in ("inference", "step_sessions"):
+            assert be.tile_rows(op) == rsnn_step.serve_plan(1, adm, n, h, o).rows
+            for B in (1, 70, 512, adm):
+                assert be.tile_rows(op, T=256, B=B) == rsnn_step.serve_plan(
+                    256, B, n, h, o).rows
+    with pytest.raises(ValueError, match="unknown op"):
+        be.tile_rows("serve")
+
+
+def test_serve_event_flops_count_events_and_the_leaks():
+    """A hand-built raster whose spikes are known: w_in drives neuron k
+    over threshold at every input event on input k, nothing else does
+    (no recurrence, no memory), so the spikes are the input events."""
+    from repro_torch.kernels import traffic
+
+    T, B, n, h, o = 4, 2, 2, 2, 3
+    raster = torch.zeros(T, B, n)
+    raster[0, 0, 0] = raster[0, 0, 1] = raster[2, 1, 1] = raster[3, 1, 0] = 1.0
+    fwd = rsnn_step.rsnn_forward_plain(raster, 2 * torch.eye(n), torch.zeros(h, h),
+                                       torch.ones(h, o), alpha=0.0, kappa=0.5)
+    z = fwd["z"]
+    assert torch.equal(z, raster)                # 4 spikes; 3 before the last tick
+    events, spikes, fed_back = (int(raster.count_nonzero()), int(z.count_nonzero()),
+                                int(z[:-1].count_nonzero()))
+    assert (events, spikes, fed_back) == (4, 4, 3)
+    want = 2 * h * (4 + 3) + 2 * o * 4 + T * B * (2 * h + 4 * o)
+    assert traffic.serve_event_flops(T, B, n, h, o, events, spikes, fed_back) == want
+
+
 def test_tick_transition_matches_jax():
     from repro.core.quant import QuantizedMode as JQ
     from repro.kernels.rsnn_step import tick_transition as jtick
