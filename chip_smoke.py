@@ -8,6 +8,7 @@ path (prefill, decode, greedy ``generate``) at llama3-8b's full width and
 depth through the flash-attention kernel, and times the kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's RSNN kernels
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and the
 CUDA toolkit's ``nvcc``.  Exits non-zero, printing no result, when CUDA is
@@ -44,10 +45,12 @@ before any profiler session):
       their plain versions on the card at Braille T=128 (the END_B tile
       B=70, B=1, B=2048, a ragged B, label_delay>0, random feedback,
       quantized and float), at Braille T=512 (rsnn_train's trace set in the
-      device scratch) and at 256/256/16: forward outputs, acc_y, n_spk and
+      device scratch; quantized and float) and at 256/256/16 (quantized and
+      float): rsnn_forward's seven streams, acc_y, n_spk and
       rsnn_train's h, xbar, pbar, zbar traces bitwise when quantized, its
       readout error within TRAIN_ERR_TOL, dw within TRAIN_DW_TOL; two
-      rsnn_train launches give identical bits; forward_traces +
+      launches of rsnn_forward, and of rsnn_train, give identical bits;
+      forward_traces +
       eprop_update give train_tile's dw;
   (h) the learning run: OnlineLearner (quantized Braille at the dataset's
       T=128, the quantized bench optimizer) trains 12 epochs END_B and END_S
@@ -59,7 +62,9 @@ before any profiler session):
       split pipeline and the dynamics probe run on the learned weights; all
       five kernels are launched on this path;
   (i) the training kernels timed at the main path's shape (T=128, B=70),
-      and rsnn_train also at END_S's (T=128, B=1);
+      rsnn_train also at END_S's (T=128, B=1) and rsnn_forward at B=1 and
+      B=2048, each bound by this run's events (traffic.train_event_flops,
+      traffic.forward_event_flops);
   (j) flash_attention == its plain version on the card: llama3-8b's
       attention shape (B=4, S=2048, H=32, Hkv=8, D=128, bf16, causal), a
       ragged causal length, a non-causal case on strided (B, H, S, D) views
@@ -169,10 +174,10 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def setup():
+def setup(root: Path):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false — the port runs on the card")
-    src = Path(__file__).resolve().parent / "src"
+    src = root / "src"
     if not (src / "repro_torch").is_dir():
         fail(f"no repro_torch package under {src}: run from a checkout")
     sys.path.insert(0, str(src))
@@ -553,14 +558,18 @@ def phase_train_kernels_vs_plain(dev):
     cases = [   # name, config, B, feedback, label_delay, input density, T
         ("braille quant END_B tile", braille_q, 70, "symmetric", 0, 0.12, T),
         ("braille quant B=1", braille_q, 1, "symmetric", 0, 0.12, T),
-        # 16 rows a block in rsnn_forward: more threads than its registers allow
+        # two rows a block in rsnn_forward; 2,048 one-row blocks of
+        # rsnn_train, several waves
         ("braille quant B=2048", braille_q, 2048, "symmetric", 0, 0.12, T),
         ("braille quant ragged, label_delay=5, random feedback", braille_q, 37,
          "random", 5, 0.12, T),
         ("braille float END_B tile, random feedback", braille_f, 70, "random", 0, 0.12, T),
+        ("braille float B=2048", braille_f, 2048, "symmetric", 0, 0.12, T),
         ("braille float ragged, label_delay=5", braille_f, 37, "symmetric", 5, 0.12, T),
-        # rsnn_train's trace set in the device scratch: too long for a block
+        # rsnn_train's trace set in the device scratch: too long for a block;
+        # rsnn_forward's row buffers still in shared memory
         ("braille quant END_B tile, T=512", braille_q, 70, "random", 3, 0.12, 512),
+        ("braille float T=512", braille_f, 37, "symmetric", 0, 0.12, 512),
         ("chip-max quant, random feedback", chipmax_q, 8, "random", 3, 0.05, T),
         ("chip-max float", chipmax_f, 8, "symmetric", 0, 0.05, T),
     ]
@@ -580,10 +589,13 @@ def phase_train_kernels_vs_plain(dev):
                   reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
                   quant=be.quant)
         got = K.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
+        again = K.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
         want = K.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw)
         torch.cuda.synchronize()
         _compare(f"{name} rsnn_forward", [got[k] for k in K.FORWARD_KEYS],
                  [want[k] for k in K.FORWARD_KEYS], quantized, errs["rsnn_forward"])
+        _check_equal(f"{name}: two rsnn_forward launches",
+                     [got[k] for k in K.FORWARD_KEYS], [again[k] for k in K.FORWARD_KEYS])
         tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
         args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
         got = E.rsnn_train_cuda(*args, **tkw, return_traces=True)
@@ -612,8 +624,10 @@ def phase_train_kernels_vs_plain(dev):
         _dw_err(f"{name} forward_traces + eprop_update vs train_tile", got_u, got[:3])
         spikes = float(want[4].sum())
         on_chip = K.train_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out).traces_smem
+        fplan = K.forward_plan(T, B, cfg.n_in, cfg.n_hid, cfg.n_out)
         log(f"(g) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
             f"rsnn_train traces in {'shared' if on_chip else 'device'} memory, "
+            f"rsnn_forward plan {fplan}, "
             f"spikes in window={spikes:.0f}, max|dw|="
             f"{max(float(w.abs().max()) for w in want[:3]):.4g}, readout error "
             f"{err_e:.3g})")
@@ -790,7 +804,6 @@ def phase_train_timing(dev):
               quant=be.quant)
     tkw = dict(kw, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
     E_ = K.weight_elems(N, H, O)
-    fwd_flops = T * B * 2 * E_                 # dense f32 multiply-adds
     rev_flops = T * B * 2 * (E_ + H * O)       # learning signal + three products
     rows = {}
     # rsnn_train at the END_B tile (B=70, the kernels line) and at END_S's
@@ -814,10 +827,24 @@ def phase_train_timing(dev):
     tr = be.forward_traces(params, raster, y_star, valid)
     trs = [tr[k] for k in ("h", "xbar", "pbar", "zbar", "err")]
     shape = f"T={T} B={B} {N}/{H}/{O}"
-    rows["rsnn_forward"] = _timed_row(
-        "(i)", "rsnn_forward", lambda: K.rsnn_forward_cuda(raster, *w, **kw),
-        lambda: K.rsnn_forward_plain(raster, *w, **kw),
-        traffic.forward_traces_bytes(T, B, N, H, O), fwd_flops, shape)
+    # rsnn_forward at the END_B tile (the kernels line), one row and 2,048
+    # rows (two rows a block); bound by this run's events
+    # (traffic.forward_event_flops; the dense count is logged beside)
+    for b in (B, 1, 2048):
+        r = raster if b == B else _train_inputs(gen, T, b, cfg, 0.12, dev)[0]
+        z = K.rsnn_forward_cuda(r, *w, **kw)["z"]
+        events, spikes, fed = (int(r.count_nonzero()), int(z.count_nonzero()),
+                               int(z[:-1].count_nonzero()))
+        flops = traffic.forward_event_flops(T, b, N, H, O, events, spikes, fed)
+        dense = T * b * 2 * E_                 # every weight, every tick
+        row = _timed_row(
+            "(i)", "rsnn_forward", lambda: K.rsnn_forward_cuda(r, *w, **kw),
+            lambda: K.rsnn_forward_plain(r, *w, **kw),
+            traffic.forward_traces_bytes(T, b, N, H, O), flops, f"T={T} B={b} {N}/{H}/{O}")
+        log(f"(i) rsnn_forward at B={b}: {events} input events, {spikes} spikes, {fed} "
+            f"fed back: {flops} operations (dense {dense}, "
+            f"{dense / F32_FLOPS_PER_S * 1e3:.6f} ms); plan {K.forward_plan(T, b, N, H, O)}")
+        rows["rsnn_forward" if b == B else f"rsnn_forward B={b}"] = row
     rows["eprop_update"] = _timed_row(
         "(i)", "eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
         lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
@@ -1115,10 +1142,67 @@ def phase_flash_timing(dev):
                 shape=f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal")
 
 
+def tree_times(root: Path, dev) -> None:
+    """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
+    (its ``src/repro_torch``, built from its own sources) at the shapes
+    (f) and (i) time them, through wrappers that every slice of the port
+    has, so that two trees compare on one card in one call.  Each time is
+    the lower of two ``torch.profiler`` readings (:func:`_device_ms`);
+    prints one JSON line."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.core.rsnn import init_params
+    from repro_torch.kernels import build
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    build.library()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    ms = {}
+
+    def best(name, fn):
+        d = [_device_ms(fn), _device_ms(fn)]
+        ms[name] = None if None in d else min(d)
+
+    for T in (128, 256):
+        cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
+        be = ExecutionBackend(cfg, device=dev)
+        params = init_params(gen, cfg, device=dev)
+        params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+                  if k != "alpha" else v for k, v in params.items()}
+        w = be.datapath_weights(params)
+        kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+                  reset=cfg.neuron.reset, quant=be.quant)
+        if T == 128:    # (i): the training kernels
+            tkw = dict(kw, boxcar_width=cfg.neuron.boxcar_width,
+                       error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+            for b in (1, 70, 2048):
+                r, y_star, valid = _train_inputs(gen, T, b, cfg, 0.12, dev)
+                best(f"rsnn_forward B={b}", lambda: K.rsnn_forward_cuda(
+                    r, *w, **kw, boxcar_width=cfg.neuron.boxcar_width))
+                if b != 2048:
+                    targs = (r, y_star, valid, *w, be._feedback(params))
+                    best(f"rsnn_train B={b}", lambda: E.rsnn_train_cuda(*targs, **tkw))
+            continue
+        for b in (1, 512, 2048):     # (f): the serving kernels
+            r, valid, live = _inputs(gen, T, b, cfg.n_in, 0.12, dev)
+            st = be.init_session_state(b)
+            c = [st[k] for k in ("v", "z", "y", "acc_y", "n_spk")]
+            best(f"rsnn_infer B={b}", lambda: K.rsnn_infer_cuda(r, valid, *w, **kw))
+            best(f"rsnn_step_sessions B={b}", lambda: K.rsnn_step_sessions_cuda(
+                r, live, valid, *c, *w, **kw))
+    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms}), flush=True)
+
+
 def main() -> None:
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+        root = Path(sys.argv[2]).resolve()
+        setup(root)
+        tree_times(root, torch.device("cuda", 0))
+        return
     if len(sys.argv) != 1:
-        fail("usage: python3 chip_smoke.py")
-    setup()
+        fail("usage: python3 chip_smoke.py [--time-tree CHECKOUT]")
+    setup(Path(__file__).resolve().parent)
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.rsnn import init_params
     from repro_torch.kernels import ops
@@ -1192,6 +1276,9 @@ def main() -> None:
         })
         if name == "rsnn_train":
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]
+        if name == "rsnn_forward":
+            kernels[-1]["other_batches"] = [rows["rsnn_forward B=1"],
+                                            rows["rsnn_forward B=2048"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,12 +43,7 @@ from repro_torch.core.quant import QuantizedMode
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.rsnn_step import (
-    block_rows,
-    max_batch_for_dims,
-    max_tile_rows,
-    serve_plan,
-)
+from repro_torch.kernels.rsnn_step import forward_plan, max_batch_for_dims, serve_plan
 
 STATE_KEYS = ("v", "z", "y", "acc_y", "n_spk")
 MAX_TICKS = 4096   # the AER bus's 12-bit tick counter
@@ -145,26 +140,23 @@ class ExecutionBackend:
         """Batch rows per kernel block for ``op``.  The serving ops
         (``"inference"``, ``"step_sessions"``) run one row a warp, as many
         a block as :func:`~repro_torch.kernels.rsnn_step.serve_plan` gives
-        a launch of ``B`` rows (default: the serving admission).  The
-        trace-streaming ops (``"forward_traces"``, ``"dynamics"``) run the
-        tile loop: the most a block holds, or, for a launch of ``B`` rows,
-        the rows that spread it over every SM.  ``"train"`` takes the
-        launch's tick count as the TPU sizing does; its kernel, like
-        ``"eprop_update"``'s, runs one row a block, at any ``T`` up to the
-        12-bit tick counter."""
+        a launch of ``B`` rows (default: the serving admission); the
+        trace-streaming ops (``"forward_traces"``, ``"dynamics"``) the rows
+        a block, a loop warp each, that
+        :func:`~repro_torch.kernels.rsnn_step.forward_plan` gives such a
+        launch.  ``"train"`` takes the launch's tick count as the TPU
+        sizing does; its kernel, like ``"eprop_update"``'s, runs one row a
+        block, at any ``T`` up to the 12-bit tick counter."""
         c = self.cfg
         if op == "train" and not (T is not None and 0 < T <= MAX_TICKS):
             raise ValueError(f"train tile rows need 0 < T <= {MAX_TICKS}, got {T}")
         if op in ("train", "eprop_update"):
             return 1
-        if op in ("inference", "step_sessions"):
-            b = max_batch_for_dims(c.n_in, c.n_hid, c.n_out) if B is None else B
-            return serve_plan(T or 1, b, c.n_in, c.n_hid, c.n_out).rows
-        if op not in ("forward_traces", "dynamics"):
+        if op not in ("inference", "step_sessions", "forward_traces", "dynamics"):
             raise ValueError(f"unknown op {op!r}")
-        if B is None:
-            return max_tile_rows(c.n_in, c.n_hid, c.n_out, traces=True)
-        return block_rows(B, c.n_in, c.n_hid, c.n_out, traces=True)
+        b = max_batch_for_dims(c.n_in, c.n_hid, c.n_out) if B is None else B
+        plan = serve_plan if op in ("inference", "step_sessions") else forward_plan
+        return plan(T or 1, b, c.n_in, c.n_hid, c.n_out).rows
 
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()

@@ -116,10 +116,12 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_step_sessions_launch.argtypes = [ptr] * 16 + dims + scalars
     lib.rsnn_infer_launch.restype = i32
     lib.rsnn_step_sessions_launch.restype = i32
-    # rsnn_forward: 4 inputs, 7 outputs; T, B, N, H, O, bt, threads,
-    # weights_smem; 7 datapath floats, reset_sub, quant, bw_vth, stream
+    # rsnn_forward: 4 inputs, 7 outputs; T, B, N, H, O, rows, threads, Tl,
+    # weights_smem, rows_smem; the plan's shared-memory bytes; 7 datapath
+    # floats, reset_sub, quant, bw_vth, stream
     lib.rsnn_forward_launch.argtypes = (
-        [ptr] * 11 + [i32] * 8 + [f32] * 7 + [i32, i32, f32, ptr])
+        [ptr] * 11 + [i32] * 10 + [ctypes.c_longlong] + [f32] * 7
+        + [i32, i32, f32, ptr])
     # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, acc_y, n_spk; T, B,
     # N, H, O, threads, weights_smem, traces_smem, infer_all; smem bytes;
     # datapath scalars, then bw_vth, y_scale, target_amp, err_softmax, stream

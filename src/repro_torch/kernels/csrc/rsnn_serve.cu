@@ -1,5 +1,6 @@
 // The two serving kernels, on the warp-per-row event loop of rsnn_tick.cuh
-// (rsnn_row_lif, the loop rsnn_train runs, without the e-prop traces).
+// (rsnn_row_lif, the loop rsnn_train and rsnn_forward run, without the
+// e-prop traces).
 // They build into one library with the training kernels of rsnn_train.cu.
 //
 // rsnn_infer_kernel — whole-sample inference over one (T, B) tile, behind
@@ -209,9 +210,9 @@ __device__ __forceinline__ void rsnn_serve_rows(const ServeArgs& a,
     if (row_warp) {
       const RowTraces tr{cur + (size_t)warp * Tc * H, nullptr, nullptr, nullptr,
                          nullptr, (size_t)H, 0, 0};
-      rsnn_row_lif<W, false, SESSIONS>(c, tr, RowTraces{}, w_rec, vd + warp * Tc,
-                                       lv + warp * Tc, zs + (size_t)warp * Tc * J,
-                                       tc, H, p);
+      rsnn_row_lif<W, ROW_COUNT, SESSIONS>(c, tr, RowTraces{}, w_rec,
+                                           vd + warp * Tc, lv + warp * Tc,
+                                           zs + (size_t)warp * Tc * J, tc, H, p);
     }
     __syncthreads();
     // (c) the readout currents of every (row, tick, output), then the LI

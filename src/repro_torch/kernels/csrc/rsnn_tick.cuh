@@ -1,16 +1,14 @@
 // ReckOn's LIF + LI tick datapath, shared by every kernel of the library:
-// the warp-per-row event loop of rsnn_train (rsnn_train.cu) and of the two
-// serving kernels (rsnn_serve.cu), and the tile loop of rsnn_forward.
+// the warp-per-row event loop of rsnn_forward and rsnn_train (rsnn_train.cu)
+// and of the two serving kernels (rsnn_serve.cu).
 //
 // Replaces the TPU tick pipeline of src/repro/kernels/rsnn_step.py
 // (tick_transition / tick_from_input_current, run once per grid step of
 // _infer_kernel, _session_kernel, _kernel and eprop_update.py's
 // _train_kernel).  On the TPU the grid (tile, tick) walks ticks in order
 // and carries state in VMEM scratch; here the whole T-tick loop runs
-// inside one launch.  The event loop (further down) carries one row's
-// recurrence on one warp in registers; the tile loop runs one block per
-// tile of `bt` batch rows, one thread per (row, hidden neuron), carries in
-// shared memory.
+// inside one launch, and one warp carries one row's recurrence in
+// registers (the event loop below).
 //
 // Arithmetic contract (per tick, per row b, neuron h):
 //   cur   = sum_k x[b,k] w_in[k,h]  +  sum_k z[b,k] w_rec[k,h]
@@ -27,7 +25,7 @@
 //   err   = softmax(y*s) - y* | y*s - amp*y*, times valid   (rsnn_train
 //           only; s = 1/threshold in quantized mode)
 // Each output row's sums run in a fixed order that depends on nothing but
-// the row, so the result is the same for any tile width or batch: float
+// the row, so the result is the same for any block layout or batch: float
 // chunk invariance (whole sample vs word-by-word feeds) is bitwise.
 //
 // The library is compiled with -fmad=false: every product is rounded
@@ -52,31 +50,6 @@ struct TickParams {
   int err_softmax;               // 1: softmax error, 0: direct
 };
 
-// The tile loop's one remaining mode: rsnn_forward, which writes seven
-// (T, B, .) per-tick tensors.  The serving kernels left it for the event
-// loop; rsnn_forward follows, and the tile loop goes with it.
-enum RsnnMode { RSNN_FORWARD = 0 };
-
-struct TileIO {
-  const float* raster;   // (T, B, N)
-  const float* w_in;     // (N, H)
-  const float* w_rec;    // (H, H), self-recurrence masked
-  const float* w_out;    // (H, O)
-  float* tr_z;           // (T, B, H)
-  float* tr_h;           // (T, B, H)
-  float* tr_xbar;        // (T, B, N)
-  float* tr_pbar;        // (T, B, H)
-  float* tr_zbar;        // (T, B, H)
-  float* tr_y;           // (T, B, O)
-  float* tr_v;           // (T, B, H) post-reset membrane
-};
-
-struct TileDims {
-  int T, B, N, H, O;
-  int bt;                // batch rows per block
-  int weights_smem;      // 1: stage the weights in shared memory
-};
-
 // The readout error of one row handles at most the chip's 16 outputs.
 #define RSNN_MAX_OUT 16
 
@@ -96,153 +69,9 @@ __device__ __forceinline__ float rsnn_leak_out(float y, float cur,
   return p.kappa * y + cur;
 }
 
-// The input plus recurrent current of neuron h of one row, and the readout
-// current of output o: sequential sums in the contract's order.  The tile
-// loop calls each once with the weights in shared memory and once with
-// them in device memory, so that each copy's loads have a known address
-// space: shared loads, not generic ones, when the weights are staged.
-__device__ __forceinline__ float rsnn_current(const float* xr, const float* zr,
-                                              const float* w_in,
-                                              const float* w_rec, int N, int H,
-                                              int h) {
-  float in_cur = 0.f;
-  for (int k = 0; k < N; ++k) in_cur += xr[k] * w_in[k * H + h];
-  float rec = 0.f;
-  for (int k = 0; k < H; ++k) rec += zr[k] * w_rec[k * H + h];
-  return in_cur + rec;
-}
-
-__device__ __forceinline__ float rsnn_readout_current(const float* zr,
-                                                      const float* w_out,
-                                                      int H, int O, int o) {
-  float y_lin = 0.f;
-  for (int k = 0; k < H; ++k) y_lin += zr[k] * w_out[k * O + o];
-  return y_lin;
-}
-
-// Dynamic shared memory an rsnn_forward tile needs, in floats: the
-// weights when staged; per row v, z and this tick's spikes (H each), the
-// input block (N), y (O), O + 3 slots of the serving tile's layout that
-// kernels/rsnn_step.py:tile_state_bytes still sizes the admission by, and
-// the xbar (N), pbar and zbar (H each) carries.
-__host__ __device__ inline size_t rsnn_tile_smem_floats(int bt, int N, int H,
-                                                        int O,
-                                                        int weights_smem) {
-  size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
-  size_t tr = (size_t)bt * ((size_t)N + 2 * (size_t)H);
-  return w + 3 * (size_t)bt * H + (size_t)bt * N + 2 * (size_t)bt * O +
-         3 * (size_t)bt + tr;
-}
-
-// The T-tick loop of one tile, from zero state.
-template <int MODE>
-__device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
-                               const TickParams p) {
-  static_assert(MODE == RSNN_FORWARD, "the tile loop runs rsnn_forward only");
-  extern __shared__ float smem[];
-  const int T = d.T, B = d.B, N = d.N, H = d.H, O = d.O, bt = d.bt;
-  const int b0 = blockIdx.x * bt;
-  const int rows = min(bt, B - b0);
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  // No two buffers of a launch alias: restrict-qualified locals let the
-  // compiler use read-only loads and keep values across the stores.
-  const float* __restrict__ raster = io.raster;
-  const float* __restrict__ w_in_g = io.w_in;
-  const float* __restrict__ w_rec_g = io.w_rec;
-  const float* __restrict__ w_out_g = io.w_out;
-  float* __restrict__ tr_z = io.tr_z;
-  float* __restrict__ tr_h = io.tr_h;
-  float* __restrict__ tr_xbar = io.tr_xbar;
-  float* __restrict__ tr_pbar = io.tr_pbar;
-  float* __restrict__ tr_zbar = io.tr_zbar;
-  float* __restrict__ tr_y = io.tr_y;
-  float* __restrict__ tr_v = io.tr_v;
-
-  const bool wsmem = d.weights_smem;   // the weights fit in shared memory
-  float* s = smem;
-  float* wi = s;   s += wsmem ? N * H : 0;
-  float* wr = s;   s += wsmem ? H * H : 0;
-  float* wo = s;   s += wsmem ? H * O : 0;
-  if (wsmem) {
-    for (int i = tid; i < N * H; i += nth) wi[i] = w_in_g[i];
-    for (int i = tid; i < H * H; i += nth) wr[i] = w_rec_g[i];
-    for (int i = tid; i < H * O; i += nth) wo[i] = w_out_g[i];
-  }
-  float* v = s;    s += bt * H;
-  float* z = s;    s += bt * H;
-  float* zn = s;   s += bt * H;   // this tick's spikes
-  float* x = s;    s += bt * N;
-  float* y = s;    s += bt * O;
-  s += bt * O + 3 * bt;           // unused slots (rsnn_tile_smem_floats)
-  float* xbar = s; s += bt * N;
-  float* pbar = s; s += bt * H;
-  float* zbar = s;
-
-  for (int i = tid; i < bt * H; i += nth) {
-    v[i] = 0.f; z[i] = 0.f; pbar[i] = 0.f; zbar[i] = 0.f;
-  }
-  for (int i = tid; i < bt * O; i += nth) y[i] = 0.f;
-  for (int i = tid; i < bt * N; i += nth) xbar[i] = 0.f;
-
-  for (int t = 0; t < T; ++t) {
-    const size_t row0 = (size_t)t * B + b0;   // (t, b0) in a (T, B) layout
-    const float* xt = raster + row0 * N;
-    for (int i = tid; i < bt * N; i += nth) {
-      x[i] = i < rows * N ? xt[i] : 0.f;
-      const float xb = p.alpha * xbar[i] + x[i];
-      xbar[i] = xb;
-      if (i < rows * N) tr_xbar[row0 * N + i] = xb;
-    }
-    __syncthreads();
-
-    // LIF: one thread per (row, hidden neuron)
-    for (int i = tid; i < bt * H; i += nth) {
-      const int b = i / H;
-      const int h = i - b * H;
-      const float* xr = x + b * N;
-      const float* zr = z + b * H;
-      const float cur = wsmem ? rsnn_current(xr, zr, wi, wr, N, H, h)
-                              : rsnn_current(xr, zr, w_in_g, w_rec_g, N, H, h);
-      const float v_pre = rsnn_leak_in(v[i], cur, p);
-      const float zz = v_pre >= p.v_th ? 1.f : 0.f;
-      const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
-      zn[i] = zz;
-      v[i] = v_new;
-      const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
-      const float pb = p.alpha * pbar[i] + z[i];   // z before this tick
-      const float zb = p.kappa * zbar[i] + zz;
-      pbar[i] = pb;
-      zbar[i] = zb;
-      if (b < rows) {
-        const size_t r = row0 * H + i;
-        tr_h[r] = hb;
-        tr_pbar[r] = pb;
-        tr_zbar[r] = zb;
-        tr_z[r] = zz;
-        tr_v[r] = v_new;
-      }
-    }
-    __syncthreads();
-
-    // LI readout: one thread per (row, output)
-    for (int i = tid; i < bt * O; i += nth) {
-      const int b = i / O;
-      const int o = i - b * O;
-      const float* zr = zn + b * H;
-      const float y_lin = wsmem ? rsnn_readout_current(zr, wo, H, O, o)
-                                : rsnn_readout_current(zr, w_out_g, H, O, o);
-      const float y_new = rsnn_leak_out(y[i], y_lin, p);
-      y[i] = y_new;
-      if (b < rows) tr_y[row0 * O + i] = y_new;
-    }
-    for (int i = tid; i < bt * H; i += nth) z[i] = zn[i];
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The warp-per-row event loop (rsnn_train, rsnn_infer, rsnn_step_sessions).
+// The warp-per-row event loop (rsnn_forward, rsnn_train, rsnn_infer,
+// rsnn_step_sessions).
 // One warp carries one row's LIF recurrence through the ticks with
 // warp-level synchronisation only: lane l owns the hidden neurons
 // h = l + 32j (j < J = ceil(H/32)), whose membranes stay in registers with
@@ -250,12 +79,12 @@ __device__ void rsnn_tile_loop(const TileIO& io, const TileDims& d,
 // of the row's nonzero inputs or of last tick's spikes, then each lane adds
 // x[k]*w[k,h] for the set bits only, in ascending k.  A skipped term is an
 // exact +-0 product, and a sum that starts at +0 never changes when +-0 is
-// added, so the loop gives the bits of the dense sums of the contract (and
-// of rsnn_tile_loop) in both modes.  Only the recurrent sum and the leak
-// are serial: the input sums of every tick (rsnn_input_currents), the xbar
-// filter and the readout do not feed back into the recurrence and run
-// before, beside or after the loop over many ticks at once; the loop adds
-// the recurrent sum to the tick's input sum, as the contract says.
+// added, so the loop gives the bits of the dense sums of the contract in
+// both modes.  Only the recurrent sum and the leak are serial: the input
+// sums of every tick (rsnn_input_currents), the xbar filter and the readout
+// do not feed back into the recurrence and run before, beside or after the
+// loop over many ticks at once; the loop adds the recurrent sum to the
+// tick's input sum, as the contract says.
 // ---------------------------------------------------------------------------
 
 // Words of a spike or input mask: the chip's 256 neurons over 32 lanes.
@@ -270,6 +99,17 @@ struct RowTraces {
   float* zbar;           // (T, H)
   float* err;            // (T, O)
   size_t sH, sN, sO;     // tick strides
+  float* v;              // (T, H) post-reset membrane (rsnn_forward only)
+};
+
+// What rsnn_row_lif writes each tick besides the spike masks, a template
+// argument, so that each kernel compiles only its own stores.
+enum RowOut {
+  ROW_COUNT = 0,     // the valid-masked spike count (the serving kernels)
+  ROW_TRACES = 1,    // and the traces h, pbar, zbar over tr, and to copy
+                     // when copy.h is not null (rsnn_train)
+  ROW_STREAMS = 2,   // h, pbar, zbar and v to copy only; no count, no
+                     // valid read; tr.h holds the input currents (rsnn_forward)
 };
 
 // What the event loop carries from one tick to the next for one row, in
@@ -428,12 +268,14 @@ __device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
 // The LIF recurrence of one row through T ticks, run by one whole warp
 // from the carries c, which it leaves at the last tick's state.  Reads
 // each tick's input current from tr.h (stride tr.sH); writes each tick's
-// spike masks (T, J) to `spikes` (the spikes before the live select) and
-// adds popc(spikes) * valid[t] to c.nspk.  TRACES (rsnn_train): also
-// writes the boxcar h over tr.h and the pbar, zbar traces (and all three
-// to `copy` when copy.h is not null).  LIVE (rsnn_step_sessions): a tick
-// with live[t] == 0 keeps v and z by select.  W >= ceil(H/32).
-template <int W, bool TRACES, bool LIVE>
+// spike masks (T, J) to `spikes` (the spikes before the live select).
+// OUT (a RowOut): ROW_COUNT and ROW_TRACES add popc(spikes) * valid[t] to
+// c.nspk; ROW_TRACES (rsnn_train) also writes the boxcar h over tr.h and
+// the pbar, zbar traces (and all three to `copy` when copy.h is not null);
+// ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the post-reset v to
+// `copy` only.  LIVE (rsnn_step_sessions): a tick with live[t] == 0 keeps
+// v and z by select.  W >= ceil(H/32).
+template <int W, int OUT, bool LIVE>
 __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
                                              const RowTraces tr,
                                              const RowTraces copy,
@@ -445,7 +287,8 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int J = (H + 31) / 32;
-  const bool cp = TRACES && copy.h != nullptr;
+  constexpr bool TRACES = OUT != ROW_COUNT;
+  const bool cp = OUT == ROW_STREAMS || (TRACES && copy.h != nullptr);
   float pbar[W], zbar[W], cn[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
@@ -486,14 +329,17 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
           pbar[j] = p.alpha * pbar[j] + z_prev;
           zbar[j] = p.kappa * zbar[j] + zz;
           if (h < H) {
-            rsnn_put(tr.h, tr.sH, t, h, hb);
-            rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
-            rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
+            if (OUT == ROW_TRACES) {
+              rsnn_put(tr.h, tr.sH, t, h, hb);
+              rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
+              rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
+            }
             if (cp) {
               rsnn_put(copy.h, copy.sH, t, h, hb);
               rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
               rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
             }
+            if (OUT == ROW_STREAMS) rsnn_put(copy.v, copy.sH, t, h, v_new);
           }
         }
         if (keep) { c.v[j] = v_new; c.z[j] = m; }
@@ -501,17 +347,18 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
         spikes[t * J + j] = m;   // every lane writes the same word
       }
     }
-    c.nspk += (float)cnt * valid[t];
+    if (OUT != ROW_STREAMS) c.nspk += (float)cnt * valid[t];
   }
 }
 
 // Launch helper shared by every entry point: raises the dynamic
 // shared-memory limit when the block needs more than the 48 KB default,
-// and lowers *threads to what the kernel's registers allow a block (the
-// tile loop strides over any thread count; the serving launcher refuses a
-// lowered count, since each of its row warps carries a row).  Only the
-// serving kernels carry launch bounds (RsnnServeThreads): capping the tile
-// loop's registers to fit 1,024 threads made its tick sums slower.
+// and lowers *threads to what the kernel's registers allow a block
+// (rsnn_train's block strides over any count of at least two warps; the
+// serving and forward launchers refuse a lowered count, since their plan
+// names the threads).  Only the serving kernels carry launch bounds
+// (RsnnServeThreads), for their 1,024-thread blocks: a bound of 1,024 cut
+// rsnn_forward's registers and slowed its chain.
 template <typename Kernel>
 inline int rsnn_prepare_launch(Kernel kernel, size_t smem_bytes,
                                int* threads) {

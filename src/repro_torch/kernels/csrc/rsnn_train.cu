@@ -1,14 +1,27 @@
 // The three training kernels, built into one library with the serving
-// kernels of rsnn_serve.cu.  rsnn_forward runs the tile loop of
-// rsnn_tick.cuh, rsnn_train the warp-per-row event loop there (with its
-// e-prop traces; the serving kernels run the same loop without them);
-// rsnn_train and eprop_update share the reverse device functions below
-// (rsnn_f_walk, rsnn_dw_elem).
+// kernels of rsnn_serve.cu.  rsnn_forward and rsnn_train run the
+// warp-per-row event loop of rsnn_tick.cuh (the serving kernels run the
+// same loop) and share their forward phases (phases 1-3 of rsnn_train
+// below: rsnn_input_currents, rsnn_row_lif, rsnn_xbar_walk,
+// rsnn_readout_currents, rsnn_leak_out); rsnn_train and eprop_update share
+// the reverse device functions (rsnn_f_walk, rsnn_dw_elem).
 //
 // rsnn_forward_kernel — the trace-streaming forward behind the backend's
 // forward_traces and dynamics ops.  Replaces src/repro/kernels/rsnn_step.py:
 // _kernel and :_forward_dma_kernel (wrapper rsnn_forward).  Writes seven
-// (T, B, .) tensors: z, h, xbar, pbar, zbar, y and the post-reset v.
+// (T, B, .) tensors: z, h, xbar, pbar, zbar, y and the post-reset v.  It is
+// rsnn_train's phases 1-3 without the readout error, for up to 16 rows a
+// block (kernels/rsnn_step.py:forward_plan: one row a block until a batch
+// outgrows the 1,056 one-row blocks the SMs hold at once, then packed as
+// the serving kernels pack theirs): the input currents of every row; then one
+// loop warp a row writes h, pbar, zbar and v straight to the device streams
+// (ROW_STREAMS) while the other warps run the xbar filters; then z is
+// expanded from the spike masks and the readout runs a chunk of ticks at a
+// time, the readout currents of every (row, tick, output), then the LI
+// leak, one thread per (row, output).  The rows' raster and input currents
+// stay in shared memory where they fit; where they do not, the filters
+// read the raster in place and the input currents are parked in the h
+// stream, which the loop then overwrites.
 //
 // rsnn_train_kernel — the fused train op behind ExecutionBackend.train_tile,
 // every END_S and END_B commit.  Replaces src/repro/kernels/eprop_update.py:
@@ -55,12 +68,14 @@
 //
 // Bound on the H100: the LIF loop is a serial chain, some hundreds of
 // cycles a tick; its event-driven sums do 2*H multiply-adds per input
-// event and per spike of the last tick, and the readout 2*O per spike; the
-// reverse pass does 2*T*B*(E + H*O) multiply-adds (E = N*H + H*H + H*O)
-// out of shared memory.  The feedback b_fb is in normalised weight units
-// (the raw w_out or the random B), the error is taken on y * y_scale
-// (1/threshold in quantized mode), and the boxcar h is used whatever the
-// config's surrogate, as on the TPU.
+// event and per spike of the last tick, and the readout 2*O per spike
+// (kernels/traffic.py:forward_event_flops); the reverse pass does
+// 2*T*B*(E + H*O) multiply-adds (E = N*H + H*H + H*O) out of shared memory.
+// rsnn_forward's seven streams make it bytes-bound on paper
+// (traffic.forward_traces_bytes), but the chain sets its pace too.  The
+// feedback b_fb is in normalised weight units (the raw w_out or the random
+// B), the error is taken on y * y_scale (1/threshold in quantized mode), and
+// the boxcar h is used whatever the config's surrogate, as on the TPU.
 #include "rsnn_tick.cuh"
 
 // F over the ticks for neuron h of one row: l = sum_o err(t, o) b_fb[h, o]
@@ -168,9 +183,42 @@ __host__ __device__ inline size_t rsnn_train_smem_floats(int T, int N, int H,
   return (size_t)T * (1 + (H + 31) / 32) + w + tr;
 }
 
-// The readout of one row over all its ticks, after the LIF loop: every
-// (tick, output) sums w_out over the tick's spikes in ascending h (into
-// the err slots), one thread per output runs the LI leak through the
+// The forward phases that rsnn_forward and rsnn_train share, besides
+// rsnn_tick.cuh's input sums (rsnn_input_currents), LIF loop (rsnn_row_lif)
+// and leaks (rsnn_leak_out).
+
+// The xbar filter of input k of one row, xbar = alpha*xbar + x over the
+// ticks: x(t, k) at x[t * sx + k], xbar(t, k) to out[t * so + k] (out may
+// be x: in place) and, when cp, to copy[t * sc + k].
+__device__ __forceinline__ void rsnn_xbar_walk(const float* x, size_t sx,
+                                               float* out, size_t so,
+                                               float* copy, size_t sc, bool cp,
+                                               int k, int T, float alpha) {
+  float xb = 0.f;
+  for (int t = 0; t < T; ++t) {
+    xb = alpha * xb + x[(size_t)t * sx + k];
+    rsnn_put(out, so, t, k, xb);
+    if (cp) rsnn_put(copy, sc, t, k, xb);
+  }
+}
+
+// The readout currents of one row over T ticks, after the LIF loop: every
+// (tick, output) sums w_out over the tick's spikes in ascending h
+// (rsnn_readout_sum) into y(t, o) at y[t * sy + o]; the block's threads
+// share the items.
+__device__ __forceinline__ void rsnn_readout_currents(const unsigned* spikes,
+                                                      int J, const float* w_out,
+                                                      int T, int O, float* y,
+                                                      size_t sy) {
+  for (int i = threadIdx.x; i < T * O; i += blockDim.x) {
+    const int t = i / O, o = i - (i / O) * O;
+    rsnn_put(y, sy, t, o, rsnn_readout_sum(spikes + t * J, J, w_out, O, o));
+  }
+}
+
+// rsnn_train's readout of one row over all its ticks, after the LIF loop:
+// the readout currents of every (tick, output) into the err slots
+// (rsnn_readout_currents), one thread per output runs the LI leak through the
 // ticks and adds acc_y, then every tick turns its y into the readout
 // error in place — the contract's operations in its order, the ticks side
 // by side wherever they do not depend on each other.
@@ -180,10 +228,7 @@ __device__ void rsnn_row_readout(const TrainArgs& a, const TickParams& p,
                                  const float* w_out, int b) {
   const int T = a.T, O = a.O, J = (a.H + 31) / 32;
   const int tid = threadIdx.x, nth = blockDim.x;
-  for (int i = tid; i < T * O; i += nth) {
-    const int t = i / O, o = i - (i / O) * O;
-    rsnn_put(tr.err, tr.sO, t, o, rsnn_readout_sum(spikes + t * J, J, w_out, O, o));
-  }
+  rsnn_readout_currents(spikes, J, w_out, T, O, tr.err, tr.sO);
   __syncthreads();
   if (tid < O) {
     float y = 0.f, acc = 0.f;
@@ -293,17 +338,13 @@ __global__ void rsnn_train_kernel(TrainArgs a, TickParams p) {
   if (tid < 32) {
     RowCarry<W> c;
     rsnn_carry_zero(c);
-    rsnn_row_lif<W, true, false>(c, tr, copy, w_rec, vs, nullptr, spikes, T, H, p);
+    rsnn_row_lif<W, ROW_TRACES, false>(c, tr, copy, w_rec, vs, nullptr, spikes, T, H, p);
     if (tid == 0) a.n_spk[b] = c.nspk;
   } else {
     // xbar = alpha * xbar + x over the ticks, one thread per input
     for (int k = tid - 32; k < N; k += nth - 32) {
-      float xb = 0.f;
-      for (int t = 0; t < T; ++t) {
-        xb = p.alpha * xb + x[(size_t)t * sx + k];
-        rsnn_put(tr.xbar, tr.sN, t, k, xb);
-        if (copy.h) rsnn_put(copy.xbar, copy.sN, t, k, xb);
-      }
+      rsnn_xbar_walk(x, sx, tr.xbar, tr.sN, copy.xbar, copy.sN, copy.h != nullptr,
+                     k, T, p.alpha);
     }
   }
   __syncthreads();
@@ -366,10 +407,6 @@ static int rsnn_dw_rows(const float* xbar, const float* pbar,
   return (int)cudaGetLastError();
 }
 
-__global__ void rsnn_forward_kernel(TileIO io, TileDims d, TickParams p) {
-  rsnn_tile_loop<RSNN_FORWARD>(io, d, p);
-}
-
 // dw[e] = sum over rows k = 0, 1, ... of part[k, e], in row order.
 __global__ void rsnn_dw_reduce_kernel(const float* __restrict__ part, int nb,
                                       int e_all, float* __restrict__ dw) {
@@ -388,28 +425,193 @@ static int rsnn_reduce_dw(const float* part, int nb, int e_all, float* dw,
   return (int)cudaGetLastError();
 }
 
+struct ForwardArgs {
+  const float* raster;   // (T, B, N)
+  const float* w_in;     // (N, H)
+  const float* w_rec;    // (H, H), self-recurrence masked
+  const float* w_out;    // (H, O)
+  float* z;              // (T, B, H)
+  float* h;              // (T, B, H)
+  float* xbar;           // (T, B, N)
+  float* pbar;           // (T, B, H)
+  float* zbar;           // (T, B, H)
+  float* y;              // (T, B, O)
+  float* v;              // (T, B, H) post-reset membrane
+  int T, B, N, H, O;
+  int rows;              // batch rows a block, one loop warp each
+  int Tl;                // ticks a chunk of the readout
+  int weights_smem;      // 1: stage the weights in shared memory
+  int rows_smem;         // 1: the rows' raster and input currents in shared
+                         //    memory (only when Tl == T)
+};
+
+// Dynamic shared memory of one rsnn_forward block, in 4-byte words
+// (kernels/rsnn_step.py:forward_plan): the weights when staged; every row's
+// spike masks (T * ceil(H/32)) and a chunk of Tl ticks of its readout
+// currents (Tl * O); then every row's raster (T*N) and input currents (T*H)
+// when they fit.
+__host__ __device__ inline size_t rsnn_forward_smem_words(int rows, int T,
+                                                          int Tl, int N, int H,
+                                                          int O,
+                                                          int weights_smem,
+                                                          int rows_smem) {
+  size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
+  size_t r = (size_t)T * ((H + 31) / 32) + (size_t)Tl * O +
+             (rows_smem ? (size_t)T * ((size_t)N + H) : 0);
+  return w + (size_t)rows * r;
+}
+
+template <int W>
+__global__ void rsnn_forward_kernel(ForwardArgs a, TickParams p) {
+  extern __shared__ float smem[];
+  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
+  const int R = a.rows, Tl = a.Tl;
+  const int b0 = blockIdx.x * R;
+  const int nr = min(R, B - b0);
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5;
+  float* s = smem;
+  const float* w_in = a.w_in;
+  const float* w_rec = a.w_rec;
+  const float* w_out = a.w_out;
+  if (a.weights_smem) {
+    float* wi = s;  s += N * H;
+    float* wr = s;  s += H * H;
+    float* wo = s;  s += H * O;
+    for (int i = tid; i < N * H; i += nth) wi[i] = a.w_in[i];
+    for (int i = tid; i < H * H; i += nth) wr[i] = a.w_rec[i];
+    for (int i = tid; i < H * O; i += nth) wo[i] = a.w_out[i];
+    w_in = wi; w_rec = wr; w_out = wo;
+  }
+  unsigned* spikes = reinterpret_cast<unsigned*>(s);  s += (size_t)R * T * J;
+  float* lin = s;  s += (size_t)R * Tl * O;   // readout currents (r, t, o)
+  // row r's inputs x(t, k) at x + r * xr + t * sx + k, its input currents
+  // c(t, h) at cur + r * cr + t * sc + h: in shared memory, or the raster
+  // and the h stream (which the loop then overwrites with the boxcar h)
+  const size_t sH = (size_t)B * H, sN = (size_t)B * N, sO = (size_t)B * O;
+  const float* x;
+  float* cur;
+  size_t xr, cr, sx, sc;
+  if (a.rows_smem) {
+    float* xs = s;  s += (size_t)R * T * N;
+    // row r's raster at xs + r * T * N: each tick's rows are one run
+    for (int i = tid; i < T * nr * N; i += nth) {
+      const int t = i / (nr * N), rk = i - t * nr * N;
+      const int r = rk / N;
+      xs[((size_t)r * T + t) * N + rk - r * N] = a.raster[((size_t)t * B + b0) * N + rk];
+    }
+    x = xs; xr = (size_t)T * N; sx = N;
+    cur = s; cr = (size_t)T * H; sc = H;
+  } else {
+    x = a.raster + (size_t)b0 * N; xr = N; sx = sN;
+    cur = a.h + (size_t)b0 * H; cr = H; sc = sH;
+  }
+  __syncthreads();
+  for (int r = 0; r < nr; ++r) {
+    rsnn_input_currents<W>(x + r * xr, sx, w_in, cur + r * cr, sc, T, N, H);
+  }
+  __syncthreads();
+  if (warp < nr) {
+    // warp r carries row b0 + r, writing its h, pbar, zbar and v streams
+    const int b = b0 + warp;
+    const RowTraces in{cur + warp * cr, nullptr, nullptr, nullptr, nullptr, sc, 0, 0};
+    const RowTraces dev{a.h + (size_t)b * H, nullptr, a.pbar + (size_t)b * H,
+                        a.zbar + (size_t)b * H, nullptr, sH, sN, sO,
+                        a.v + (size_t)b * H};
+    RowCarry<W> c;
+    rsnn_carry_zero(c);
+    rsnn_row_lif<W, ROW_STREAMS, false>(c, in, dev, w_rec, nullptr, nullptr,
+                                        spikes + (size_t)warp * T * J, T, H, p);
+  } else if (warp >= R) {
+    // the other warps: the xbar filter, one thread per (row, input)
+    for (int i = tid - 32 * R; i < nr * N; i += nth - 32 * R) {
+      const int r = i / N, k = i - r * N;
+      rsnn_xbar_walk(x + r * xr, sx, a.xbar + (size_t)(b0 + r) * N, sN, nullptr, 0,
+                     false, k, T, p.alpha);
+    }
+  }
+  __syncthreads();
+  // z(t, h) from the spike masks
+  const int TH = T * H;
+  for (int i = tid; i < nr * TH; i += nth) {
+    const int r = i / TH, th = i - r * TH;
+    const int t = th / H, hh = th - t * H;
+    a.z[(size_t)t * sH + (size_t)(b0 + r) * H + hh] =
+        (spikes[((size_t)r * T + t) * J + (hh >> 5)] >> (hh & 31)) & 1u ? 1.f : 0.f;
+  }
+  // the readout a chunk of Tl ticks at a time: the readout currents of the
+  // chunk's (row, tick, output), then the LI leak, one thread per (row,
+  // output) carrying y across the chunks
+  const bool ro = tid < nr * O;
+  const int rr = ro ? tid / O : 0, oo = tid - rr * O;
+  float* y = a.y + (size_t)(b0 + rr) * O + oo;
+  float yv = 0.f;
+  for (int t0 = 0; t0 < T; t0 += Tl) {
+    const int tl = min(Tl, T - t0);
+    for (int r = 0; r < nr; ++r) {
+      rsnn_readout_currents(spikes + ((size_t)r * T + t0) * J, J, w_out, tl, O,
+                            lin + (size_t)r * Tl * O, O);
+    }
+    __syncthreads();
+    if (ro) {
+      for (int t = 0; t < tl; ++t) {
+        yv = rsnn_leak_out(yv, lin[((size_t)rr * Tl + t) * O + oo], p);
+        y[(size_t)(t0 + t) * sO] = yv;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int W>
+static int rsnn_forward_launch_w(const ForwardArgs& a, const TickParams& p,
+                                 int threads, size_t smem, cudaStream_t stream) {
+  int fit = threads;
+  int rc = rsnn_prepare_launch(rsnn_forward_kernel<W>, smem, &fit);
+  if (rc) return rc;
+  if (fit != threads) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = (a.B + a.rows - 1) / a.rows;
+  rsnn_forward_kernel<W><<<blocks, threads, smem, stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// The plan (rows, threads, Tl, weights_smem, rows_smem, smem_bytes) is the
+// wrapper's (kernels/rsnn_step.py:forward_plan); the launch is refused
+// unless it is a layout of this kernel: a loop warp per row and at least
+// one more warp, a readout chunk of 1..T ticks, the rows' buffers on chip
+// only with the whole readout, the shared-memory bytes of those choices.
 extern "C" int rsnn_forward_launch(
     const float* raster, const float* w_in, const float* w_rec,
     const float* w_out, float* z, float* h, float* xbar, float* pbar,
     float* zbar, float* y, float* v, int T, int B, int N, int H, int O,
-    int bt, int threads, int weights_smem, float alpha, float kappa,
-    float v_th, float alpha_c, float kappa_c, float v_lo, float v_hi,
-    int reset_sub, int quant, float bw_vth, void* stream) {
+    int rows, int threads, int Tl, int weights_smem, int rows_smem,
+    long long smem_bytes, float alpha, float kappa, float v_th, float alpha_c,
+    float kappa_c, float v_lo, float v_hi, int reset_sub, int quant,
+    float bw_vth, void* stream) {
+  if (T < 1 || B < 1 || O > RSNN_MAX_OUT || N > 32 * RSNN_MAX_WORDS ||
+      H > 32 * RSNN_MAX_WORDS || rows < 1 || threads % 32 ||
+      threads < 32 * (rows + 1) || Tl < 1 || Tl > T || (rows_smem && Tl != T) ||
+      (size_t)smem_bytes != rsnn_forward_smem_words(rows, T, Tl, N, H, O,
+                                                    weights_smem, rows_smem) *
+                                sizeof(float)) {
+    return (int)cudaErrorInvalidValue;
+  }
   TickParams p{alpha, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
                quant, bw_vth, 1.f, 0.f, 0};
-  TileIO io{};
-  io.raster = raster;
-  io.w_in = w_in; io.w_rec = w_rec; io.w_out = w_out;
-  io.tr_z = z; io.tr_h = h; io.tr_xbar = xbar; io.tr_pbar = pbar;
-  io.tr_zbar = zbar; io.tr_y = y; io.tr_v = v;
-  TileDims d{T, B, N, H, O, bt, weights_smem};
-  const size_t smem =
-      rsnn_tile_smem_floats(bt, N, H, O, weights_smem) * sizeof(float);
-  int rc = rsnn_prepare_launch(rsnn_forward_kernel, smem, &threads);
-  if (rc) return rc;
-  const int blocks = (B + bt - 1) / bt;
-  rsnn_forward_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(io, d, p);
-  return (int)cudaGetLastError();
+  const ForwardArgs a{raster, w_in, w_rec, w_out, z, h, xbar, pbar, zbar, y, v,
+                      T, B, N, H, O, rows, Tl, weights_smem, rows_smem};
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)smem_bytes;
+  switch ((max(N, H) + 31) / 32) {
+    case 1: return rsnn_forward_launch_w<1>(a, p, threads, smem, st);
+    case 2: return rsnn_forward_launch_w<2>(a, p, threads, smem, st);
+    case 3: return rsnn_forward_launch_w<3>(a, p, threads, smem, st);
+    case 4: return rsnn_forward_launch_w<4>(a, p, threads, smem, st);
+    case 5: return rsnn_forward_launch_w<5>(a, p, threads, smem, st);
+    case 6: return rsnn_forward_launch_w<6>(a, p, threads, smem, st);
+    case 7: return rsnn_forward_launch_w<7>(a, p, threads, smem, st);
+    case 8: return rsnn_forward_launch_w<8>(a, p, threads, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int W, bool SMEM_TRACES>

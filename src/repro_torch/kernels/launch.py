@@ -18,9 +18,11 @@ import torch
 
 # H100 (SXM) per-block limits and SM count (NVIDIA data sheet / Hopper
 # tuning guide): dynamic shared memory a block may opt into, threads a
-# block may launch, streaming multiprocessors on the card.
+# block may launch, threads an SM holds at once, streaming multiprocessors
+# on the card.
 SMEM_PER_BLOCK = 232448
 THREADS_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
 H100_SMS = 132
 
 # Every kernel of the port: the five RSNN kernels and the LM's attention

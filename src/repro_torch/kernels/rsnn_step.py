@@ -1,5 +1,5 @@
 """Forward-side RSNN tick kernels for Hopper, their plain PyTorch
-versions, and the tile-sizing helpers every kernel shares (counterpart of
+versions, and the sizing helpers every RSNN kernel shares (counterpart of
 :mod:`repro.kernels.rsnn_step`).
 
 Three kernels run the tick loop forward:
@@ -14,13 +14,14 @@ Three kernels run the tick loop forward:
   trace-streaming forward of the ``forward_traces`` and ``dynamics`` ops,
   writing seven ``(T, B, ·)`` tensors ``z, h, xbar, pbar, zbar, y, v``.
 
-The first two live in ``csrc/rsnn_serve.cu`` and run the warp-per-row
-event loop of ``csrc/rsnn_tick.cuh`` that ``rsnn_train`` runs too: one
-warp carries one batch row through all T ticks, and the input currents
-and the readout run outside the chain, a chunk of ticks at a time
-(:func:`serve_plan`).  The third lives in ``csrc/rsnn_train.cu`` and runs
-the tile loop, one block per tile of rows, one thread per ``(row, hidden
-neuron)``.  All run the whole T-tick loop inside one launch.  The
+All three, and ``rsnn_train``, run the warp-per-row event loop of
+``csrc/rsnn_tick.cuh``: one warp carries one batch row through all T
+ticks inside one launch, and the input currents and the readout run
+outside the chain.  The first two live in ``csrc/rsnn_serve.cu`` and walk
+the ticks a chunk at a time, up to 16 rows a block (:func:`serve_plan`);
+the third lives in ``csrc/rsnn_train.cu`` beside ``rsnn_train``, whose
+forward phases it shares, a warp a row and one row a block until a batch
+outgrows what the card holds at once (:func:`forward_plan`).  The
 ``*_plain`` functions compute the same functions with eager PyTorch
 through :func:`tick_transition`; the CPU path runs them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -35,12 +36,11 @@ threads and the 227 KB of shared memory a block may use on an H100:
 * :func:`train_plan` — ``rsnn_train``, one row a block: the row's whole
   trace set stays in shared memory where it fits, and goes to a device
   scratch where it does not;
-* :func:`max_tile_rows` / :func:`block_rows` — the tile loop's rows a
-  block (``rsnn_forward`` keeps the ``xbar, pbar, zbar`` carries of each
-  row in shared memory too; its per-tick traces go to device memory, so
-  its tile rows do not depend on ``T``); the serving admission
-  (:func:`max_batch_for_dims`) is still sized by the tile loop's serving
-  tile.
+* :func:`forward_plan` — ``rsnn_forward``: rows a block (a loop warp
+  each), the readout's chunks, and what of the weights and the rows'
+  raster and input currents fits in shared memory;
+* :func:`max_batch_for_dims` — the serving admission, the rows the
+  serving kernels run at once on the card.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from repro_torch.kernels.launch import (
     H100_SMS,
     SMEM_PER_BLOCK,
     THREADS_PER_BLOCK,
+    THREADS_PER_SM,
     cdiv,
     launches,
     raise_on,
@@ -64,10 +65,14 @@ from repro_torch.kernels.launch import (
 
 F32_BYTES = 4
 
-# Threads of a block of the trace kernels: rsnn_forward's tile loop, and
-# rsnn_train's reverse pass, which spreads the dw elements (2,014 at
-# Braille width) over the block of its one row.
+# Threads of an rsnn_train block: the block of its one row runs the
+# forward phases and then spreads the reverse pass's dw elements (2,014 at
+# Braille width) over its threads.
 REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
+# Warps of an rsnn_forward block besides its loop warps (one a row): they
+# run the xbar filters beside the loops, and share the input sums, the
+# readout and the spike streams with them (a one-row block has 256 threads).
+FORWARD_HELPER_WARPS = THREADS_PER_BLOCK // 4 // 32 - 1
 # Widths the warp-per-row event loop handles: 8 words of 32 lanes, the
 # chip's 256 inputs and 256 neurons (RSNN_MAX_WORDS in csrc/rsnn_tick.cuh),
 # and its 16 outputs (RSNN_MAX_OUT).
@@ -91,44 +96,6 @@ def weights_bytes(n_in: int, n_hid: int, n_out: int) -> int:
     return F32_BYTES * weight_elems(n_in, n_hid, n_out)
 
 
-def tile_state_bytes(rows: int, n_in: int, n_hid: int, n_out: int,
-                     traces: bool = False) -> int:
-    """Shared-memory bytes of one tile's state: v, z and this tick's
-    spikes (H each), the tick's input block (N), y and acc_y (O each),
-    n_spk and the two masks (1 each) — per row; the trace kernels add the
-    xbar (N), pbar and zbar (H each) carries."""
-    extra = n_in + 2 * n_hid if traces else 0
-    return F32_BYTES * rows * (3 * n_hid + n_in + 2 * n_out + 3 + extra)
-
-
-def weights_in_smem(rows: int, n_in: int, n_hid: int, n_out: int,
-                    traces: bool = False) -> bool:
-    """Whether the f32 weights fit in shared memory beside the tile state
-    (the Braille and cue nets do; the chip-maximal 256/256/16 net does not)."""
-    return (weights_bytes(n_in, n_hid, n_out)
-            + tile_state_bytes(rows, n_in, n_hid, n_out, traces)) <= SMEM_PER_BLOCK
-
-
-def max_tile_rows(n_in: int, n_hid: int, n_out: int,
-                  traces: bool = False) -> int:
-    """Most batch rows one block can hold: one thread per (row, hidden
-    neuron) within a block's threads, state within its shared memory."""
-    rows = max(1, THREADS_PER_BLOCK // n_hid)
-    per_row = tile_state_bytes(1, n_in, n_hid, n_out, traces)
-    return max(1, min(rows, SMEM_PER_BLOCK // per_row))
-
-
-def block_rows(B: int, n_in: int, n_hid: int, n_out: int,
-               sm_count: int = H100_SMS, traces: bool = False) -> int:
-    """Rows per block for one launch: few enough that the batch spreads
-    over every SM (the tick chain's latency, not its work, sets a block's
-    time), never more than a block holds.  Results do not depend on it:
-    every row's arithmetic is independent of its tile (the summed dw of
-    the train kernels changes only in the order of its float sums)."""
-    return max(1, min(max_tile_rows(n_in, n_hid, n_out, traces),
-                      cdiv(B, sm_count)))
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainPlan:
     """One ``rsnn_train`` launch: one block of ``threads`` per batch row;
@@ -149,12 +116,18 @@ def train_trace_bytes(T: int, n_in: int, n_hid: int, n_out: int) -> int:
     return F32_BYTES * T * (3 * n_hid + n_in + n_out)
 
 
+def spike_mask_bytes(T: int, n_hid: int) -> int:
+    """One row's spike masks: one word per 32 neurons a tick."""
+    return F32_BYTES * T * cdiv(n_hid, 32)
+
+
 def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
     """Every block keeps the row's valid mask (T floats) and its spike
-    masks (one word per 32 neurons a tick) in shared memory.  The row's trace set goes there too, with the weights, when
-    both fit; otherwise it goes to a device scratch, and the weights stay
-    in shared memory if they fit beside the rest."""
-    base = F32_BYTES * T * (1 + cdiv(n_hid, 32))
+    masks (one word per 32 neurons a tick) in shared memory.  The row's
+    trace set goes there too, with the weights, when both fit; otherwise
+    it goes to a device scratch, and the weights stay in shared memory if
+    they fit beside the rest."""
+    base = F32_BYTES * T + spike_mask_bytes(T, n_hid)
     weights = weights_bytes(n_in, n_hid, n_out)
     traces = train_trace_bytes(T, n_in, n_hid, n_out)
     if base > SMEM_PER_BLOCK:
@@ -165,6 +138,67 @@ def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
     used = base + (weights if weights_smem else 0) + (traces if traces_smem else 0)
     return TrainPlan(threads=REVERSE_MIN_THREADS, traces_smem=traces_smem,
                      weights_smem=weights_smem, smem_bytes=used)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """One ``rsnn_forward`` launch: ``rows`` batch rows a block, each on
+    its own loop warp, and ``threads`` (the loop warps and
+    :data:`FORWARD_HELPER_WARPS` more); the readout in chunks of ``Tl``
+    ticks; the f32 weights in shared memory when ``weights_smem``; the
+    rows' raster and input currents in shared memory when ``rows_smem``,
+    else read from and parked in the device streams; ``smem_bytes`` of
+    dynamic shared memory (the kernel refuses a launch whose plan
+    disagrees with its own layout)."""
+
+    rows: int
+    threads: int
+    Tl: int
+    weights_smem: bool
+    rows_smem: bool
+    smem_bytes: int
+
+
+def forward_row_bytes(T: int, n_in: int, n_hid: int) -> int:
+    """One row's raster (N) and input currents (H) at every tick — 25 KB
+    at Braille T=128."""
+    return F32_BYTES * T * (n_in + n_hid)
+
+
+def forward_plan(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+                 sm_count: int = H100_SMS) -> ForwardPlan:
+    """Rows a block: one (a 256-thread block) while the SMs hold every row
+    at once that way, eight blocks an SM by threads (1,056 rows); past
+    that, the fewest that keep every row on the card at once, so that a
+    large batch runs in one wave of blocks with its fixed costs (the
+    staged weights, the serial leak walks) shared; at most
+    :data:`SERVE_MAX_ROWS` and what the block's threads
+    (:func:`serve_threads`, less the helper warps) and its shared memory
+    hold.  Each row keeps its spike masks and a chunk of its
+    readout currents in shared memory (raises when one row's masks and one
+    tick do not fit); then the weights where they fit beside them (the
+    Braille and cue nets; 256/256/16 is read from L2); then the longest
+    readout chunk, up to T; then, with the whole readout, the rows' raster
+    and input currents where they fit.  Results do not depend on the plan:
+    every sum runs in an order fixed by the row."""
+    per_row = spike_mask_bytes(T, n_hid) + F32_BYTES * n_out
+    if per_row > SMEM_PER_BLOCK:
+        raise ValueError(f"rsnn_forward: T={T} ticks of spike masks exceed a "
+                         f"block's {SMEM_PER_BLOCK} bytes of shared memory")
+    cap = min(SERVE_MAX_ROWS, serve_threads(n_in, n_hid) // 32 - FORWARD_HELPER_WARPS)
+    one_row_blocks = THREADS_PER_SM // (32 * (1 + FORWARD_HELPER_WARPS))
+    rows = max(1, min(cap, cdiv(B, sm_count * one_row_blocks), SMEM_PER_BLOCK // per_row))
+    used = rows * spike_mask_bytes(T, n_hid)
+    weights = weights_bytes(n_in, n_hid, n_out)
+    weights_smem = used + weights + rows * F32_BYTES * n_out <= SMEM_PER_BLOCK
+    used += weights if weights_smem else 0
+    Tl = min(T, (SMEM_PER_BLOCK - used) // (rows * F32_BYTES * n_out))
+    used += rows * F32_BYTES * Tl * n_out
+    bufs = rows * forward_row_bytes(T, n_in, n_hid)
+    rows_smem = Tl == T and used + bufs <= SMEM_PER_BLOCK
+    return ForwardPlan(rows=rows, threads=32 * (rows + FORWARD_HELPER_WARPS), Tl=Tl,
+                       weights_smem=weights_smem, rows_smem=rows_smem,
+                       smem_bytes=used + (bufs if rows_smem else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,13 +252,22 @@ def serve_plan(T: int, B: int, n_in: int, n_hid: int, n_out: int,
                      Tc=Tc, smem_bytes=(weights if weights_smem else 0) + Tc * per_tick)
 
 
+def serve_rows_per_sm(n_hid: int) -> int:
+    """Row warps an SM runs at once when serving: as many as keep its
+    per-tick LIF updates within one block's worth of threads — a row's
+    warp updates 32 lanes × ``ceil(H/32)`` neuron slots a tick — and at
+    most :data:`SERVE_MAX_ROWS` (one block's row warps): 16 Braille, 8 cue,
+    4 at 256/256/16."""
+    return max(1, min(SERVE_MAX_ROWS, THREADS_PER_BLOCK // (32 * cdiv(n_hid, 32))))
+
+
 def max_batch_for_dims(n_in: int, n_hid: int, n_out: int) -> int:
-    """Serving admission per launch: the largest power of two that still
-    runs every row at once, sized by the tile loop's serving tile (one
-    thread per (row, neuron)) on each SM: 2,048 Braille, 1,024 cue, 512
-    at 256/256/16.  :func:`serve_plan` runs every admitted row in one
-    wave (``tests/test_torch_kernels.py`` holds it to that)."""
-    rows = H100_SMS * max_tile_rows(n_in, n_hid, n_out)
+    """Serving admission per launch: the largest power of two of rows that
+    the card runs at once, :func:`serve_rows_per_sm` on each SM — 2,048
+    Braille, 1,024 cue, 512 at 256/256/16.  :func:`serve_plan` runs every
+    admitted row in one wave of blocks (``tests/test_torch_kernels.py``
+    holds it to that)."""
+    rows = H100_SMS * serve_rows_per_sm(n_hid)
     return 1 << (rows.bit_length() - 1)
 
 
@@ -364,17 +407,6 @@ def check_arg(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def geometry(B: int, N: int, H: int, O: int, device):
-    """``(rows per block, threads per block, weights in shared memory)``
-    of one ``rsnn_forward`` tile-loop launch over ``B`` rows on
-    ``device``; at least :data:`REVERSE_MIN_THREADS` threads."""
-    sm = torch.cuda.get_device_properties(device).multi_processor_count
-    bt = block_rows(B, N, H, O, sm, traces=True)
-    threads = max(cdiv(bt * H, 32) * 32, REVERSE_MIN_THREADS)
-    return (bt, min(THREADS_PER_BLOCK, threads),
-            int(weights_in_smem(bt, N, H, O, traces=True)))
-
-
 def datapath_scalars(c) -> list:
     """The C launchers' datapath arguments from :func:`_consts`: alpha,
     kappa, v_th, the two quantized leak factors, the membrane grid, the
@@ -391,17 +423,22 @@ def datapath_scalars(c) -> list:
     ]
 
 
+def _check_event_widths(name: str, N: int, H: int, O: int) -> None:
+    """Raises on widths the event loop does not take."""
+    if max(N, H) > EVENT_LOOP_MAX_WIDTH or O > EVENT_LOOP_MAX_OUT:
+        raise ValueError(
+            f"{name}: {N}/{H}/{O} exceeds the chip's "
+            f"{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_OUT} "
+            "(RSNN_MAX_WORDS, RSNN_MAX_OUT in csrc)")
+
+
 def _serve_args(raster, w_rec, w_out, *, alpha, kappa, v_th, reset, quant,
                 infer_window):
     """The serving launchers' dims (with :func:`serve_plan`'s geometry)
     and datapath scalars; raises on widths the event loop does not take."""
     T, B, N = raster.shape
     H, O = w_rec.shape[0], w_out.shape[1]
-    if max(N, H) > EVENT_LOOP_MAX_WIDTH or O > EVENT_LOOP_MAX_OUT:
-        raise ValueError(
-            f"serving kernels: {N}/{H}/{O} exceeds the chip's "
-            f"{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_WIDTH}/{EVENT_LOOP_MAX_OUT} "
-            "(RSNN_MAX_WORDS, RSNN_MAX_OUT in csrc)")
+    _check_event_widths("serving kernels", N, H, O)
     c = _consts(alpha, kappa, v_th, reset, quant)
     sm = torch.cuda.get_device_properties(raster.device).multi_processor_count
     plan = serve_plan(T, B, N, H, O, sm)
@@ -539,14 +576,18 @@ def rsnn_forward_cuda(raster, w_in, w_rec, w_out, *, alpha: float,
                            device=dev) for k in FORWARD_KEYS}
     if B == 0 or T == 0:
         return outs
+    _check_event_widths("rsnn_forward", N, H, O)
     lib = build.library()
     c = _consts(alpha, kappa, v_th, reset, quant)
-    bt, threads, wsmem = geometry(B, N, H, O, dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = forward_plan(T, B, N, H, O, sm)
     ptrs = [t.data_ptr() for t in (raster, w_in, w_rec, w_out)]
     ptrs += [outs[k].data_ptr() for k in FORWARD_KEYS]
     with torch.cuda.device(dev):
         rc = lib.rsnn_forward_launch(
-            *ptrs, T, B, N, H, O, bt, threads, wsmem, *datapath_scalars(c),
+            *ptrs, T, B, N, H, O, plan.rows, plan.threads, plan.Tl,
+            int(plan.weights_smem), int(plan.rows_smem),
+            ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
             ctypes.c_float(boxcar_width * c["v_th"]), stream_arg(dev))
     raise_on(lib, rc, "rsnn_forward")
     launches["rsnn_forward"] += 1

@@ -1,6 +1,6 @@
 """Device-memory bytes each kernel launch moves (counterpart of the
 serving and training formulas of :mod:`repro.kernels.traffic`), and the
-operations of the event-driven serving and train kernels.
+operations of the event-driven RSNN kernels.
 
 Counted as the kernels read and write them on the card: the raster and
 masks once, the weights once per launch (each block re-reads them, but
@@ -66,16 +66,28 @@ def train_fused_tiled_bytes(T: int, B: int, n_in: int, n_hid: int,
     return F32_BYTES * (reads + writes)
 
 
+def forward_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+                        input_events: int, spikes: int, fed_back: int) -> int:
+    """Operations ``rsnn_forward`` needs on given data, as the event-driven
+    kernel does them: a multiply and an add per hidden neuron for each
+    nonzero input and for each spike fed back from the tick before
+    (``fed_back``: the spikes of all ticks but the last), per output for
+    each spike; then every row and tick, a multiply and an add per neuron
+    for the membrane leak and the ``pbar`` and ``zbar`` filters, per input
+    for the ``xbar`` filter and per output for the readout leak."""
+    events = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
+    return events + T * B * 2 * (3 * n_hid + n_in + n_out)
+
+
 def train_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
                       input_events: int, spikes: int, fed_back: int) -> int:
-    """Operations ``rsnn_train`` needs on given data: a multiply and an add
-    per hidden neuron for each nonzero input and for each spike fed back
-    from the tick before (``fed_back``: the spikes of all ticks but the
-    last), per output for each spike; then the dense reverse pass, the
-    learning signal (H·O) and the three ``dw`` products (E) a tick and row."""
-    forward = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
+    """Operations ``rsnn_train`` needs on given data: its forward
+    (:func:`forward_event_flops`), then the dense reverse pass, the
+    learning signal (H·O) and the three ``dw`` products (E) a tick and
+    row."""
     reverse = 2 * T * B * (weight_elems(n_in, n_hid, n_out) + n_hid * n_out)
-    return forward + reverse
+    return forward_event_flops(T, B, n_in, n_hid, n_out, input_events, spikes,
+                               fed_back) + reverse
 
 
 def serve_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,

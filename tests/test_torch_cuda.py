@@ -11,8 +11,8 @@ kernel sums each row in its own fixed order, the plain version through
 ``torch.matmul``).  The training kernels' ``dw`` goes through ``exp`` and
 sums in another order than the plain version's products, so it is held to
 ``max |Δdw| <= DW_TOL * max |dw|`` per matrix in both modes; their
-``acc_y``, ``n_spk`` and traces (``rsnn_forward``'s, and the ``h, xbar,
-pbar, zbar`` that ``rsnn_train`` returns on request) are bitwise when
+``acc_y``, ``n_spk`` and traces (``rsnn_forward``'s seven streams, and the
+``h, xbar, pbar, zbar`` that ``rsnn_train`` returns on request) are bitwise when
 quantized; ``rsnn_train``'s readout error goes through ``expf`` and is held
 to ``ERR_TOL`` when quantized, ``FLOAT_TOL`` in float mode.  The flash-attention kernel is held to its plain version at
 ``FLASH_F32_TOL`` relative to ``max |o|`` in f32, and in bf16 per query row
@@ -390,6 +390,74 @@ def test_train_kernel_device_trace_path_at_long_T(B, quantized, cuda_device):
     assert not rsnn_step.train_plan(T, *dims).traces_smem
     cfg, args, kw = _train_full(dims, 0.3, T, B, quantized, cuda_device, seed=B)
     _check_train_kernel(args, kw, quantized)
+
+
+# rsnn_forward's shapes: END_S's one row, a ragged END_B-sized batch, 2,048
+# rows (two a block; a ragged last block at 2,001), T=512 (row buffers
+# still in shared memory), T=4,096 (row buffers in the device streams;
+# three rows a block and the readout in chunks at 2,200 rows), the cue width
+# and the chip maximum (weights read from L2; the readout in chunks at
+# T=4,096)
+FORWARD_CASES = [
+    ((12, 38, 3), 0.3, 128, 1),
+    ((12, 38, 3), 0.3, 128, 37),
+    ((12, 38, 3), 0.3, 128, 2048),
+    ((12, 38, 3), 0.3, 128, 2001),
+    ((12, 38, 3), 0.3, 512, 37),
+    ((12, 38, 3), 0.3, 4096, 3),
+    ((12, 38, 3), 0.3, 4096, 2200),
+    ((40, 100, 2), 0.1, 256, 37),
+    ((40, 100, 2), 0.1, 128, 3000),
+    ((256, 256, 16), 0.05, 128, 8),
+    ((256, 256, 16), 0.05, 128, 1500),
+    ((256, 256, 16), 0.05, 4096, 2),
+]
+
+
+def _forward_args(dims, density, T, B, quantized, dev, seed):
+    cfg, args, kw = _train_full(dims, density, T, B, quantized, dev, seed=seed)
+    fkw = {k: kw[k] for k in ("alpha", "kappa", "v_th", "reset", "boxcar_width", "quant")}
+    return args[0], args[3:6], fkw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dims,density,T,B", FORWARD_CASES)
+def test_forward_kernel_matches_plain_at_chip_shapes(dims, density, T, B, quantized,
+                                                     cuda_device):
+    """``rsnn_forward`` (the warp-per-row event loop, a loop warp a row,
+    up to 16 rows a block) against its plain version: the seven streams
+    bitwise when quantized, within ``FLOAT_TOL`` in float mode; two
+    launches give the same bits."""
+    raster, w, kw = _forward_args(dims, density, T, B, quantized, cuda_device, seed=B + T)
+    ops.reset_launch_counts()
+    got = rsnn_step.rsnn_forward_cuda(raster, *w, **kw)
+    again = rsnn_step.rsnn_forward_cuda(raster, *w, **kw)
+    assert ops.launches["rsnn_forward"] == 2
+    want = rsnn_step.rsnn_forward_plain(raster, *w, **kw)
+    for k in rsnn_step.FORWARD_KEYS:
+        _check(got[k], want[k], quantized)
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+def test_forward_launch_refuses_a_plan_it_does_not_lay_out(cuda_device, monkeypatch):
+    """The launcher checks ``forward_plan`` against its own layout: a plan
+    whose shared-memory bytes, rows a block, readout chunk, buffer
+    placement or threads disagree is refused, nothing runs and nothing is
+    counted."""
+    raster, w, kw = _forward_args((12, 38, 3), 0.3, 32, 8, True, cuda_device, seed=1)
+    plan = rsnn_step.forward_plan
+    for bad in (lambda p: dataclasses.replace(p, smem_bytes=p.smem_bytes + 4),
+                lambda p: dataclasses.replace(p, rows=2),
+                lambda p: dataclasses.replace(p, Tl=p.Tl - 1),
+                lambda p: dataclasses.replace(p, rows_smem=not p.rows_smem),
+                lambda p: dataclasses.replace(p, threads=32 * p.rows)):
+        monkeypatch.setattr(rsnn_step, "forward_plan", lambda *a, **k: bad(plan(*a, **k)))
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="rsnn_forward launch failed"):
+            rsnn_step.rsnn_forward_cuda(raster, *w, **kw)
+        assert ops.launches["rsnn_forward"] == 0
 
 
 def _check_train_kernel(args, kw, quantized):

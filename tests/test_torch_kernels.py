@@ -162,22 +162,50 @@ def test_kernel_wrapper_rejects_cpu_tensors():
             torch.zeros(38, 3), alpha=0.5, kappa=0.5)
 
 
+ADMISSION = {(12, 38, 3): 2048, (40, 100, 2): 1024, (256, 256, 16): 512}
+
+
+@pytest.mark.parametrize("T", [1, 128, 512, 4096])
 @pytest.mark.parametrize("dims", [(12, 38, 3), (40, 100, 2), (256, 256, 16)])
-def test_tile_sizing_fits_the_block(dims):
+def test_tile_sizing_fits_the_block(dims, T):
+    """``rsnn_forward``'s plan at every batch: a loop warp a row and the
+    helper warps within the serving launch bound, one row a block while
+    the SMs hold every row that way, else every row held at once unless a
+    block's threads or shared memory cap the rows, the layout within a
+    block's shared memory, and every placement taken where it fits: the
+    weights, the longest readout chunk, then the rows' raster and input
+    currents."""
     n, h, o = dims
-    rows = rsnn_step.max_tile_rows(n, h, o)
-    assert rows >= 1 and rows * h <= rsnn_step.THREADS_PER_BLOCK
-    assert rsnn_step.tile_state_bytes(rows, n, h, o) <= rsnn_step.SMEM_PER_BLOCK
-    for B in (1, 7, 128, 2048, 5000):
-        bt = rsnn_step.block_rows(B, n, h, o)
-        assert 1 <= bt <= rows
-        assert rsnn_step.cdiv(B, bt) <= max(rsnn_step.H100_SMS,
-                                            rsnn_step.cdiv(B, rows))
-    adm = rsnn_step.max_batch_for_dims(n, h, o)
-    assert adm & (adm - 1) == 0
-    assert adm <= rsnn_step.H100_SMS * rows
-    # the Braille and cue weights stage in shared memory; 256/256/16 cannot
-    assert rsnn_step.weights_in_smem(rows, n, h, o) == (dims != (256, 256, 16))
+    J, E = -(-h // 32), rsnn_step.weight_elems(n, h, o)
+    smem = rsnn_step.SMEM_PER_BLOCK
+    cap = min(rsnn_step.SERVE_MAX_ROWS,
+              rsnn_step.serve_threads(n, h) // 32 - rsnn_step.FORWARD_HELPER_WARPS)
+    for B in (1, 7, 70, 1056, 1057, 2048, 5000, ADMISSION[dims]):
+        plan = rsnn_step.forward_plan(T, B, n, h, o)
+        R = plan.rows
+        assert 1 <= R <= cap
+        assert plan.threads == 32 * (R + rsnn_step.FORWARD_HELPER_WARPS)
+        assert plan.threads <= rsnn_step.serve_threads(n, h)
+        held = rsnn_step.H100_SMS * rsnn_step.THREADS_PER_SM // 256   # one-row blocks
+        assert (R == 1) == (B <= held) or R == cap or 4 * (R + 1) * (T * J + o) > smem
+        if R < cap and 4 * (R + 1) * (T * J + o) <= smem:
+            assert rsnn_step.cdiv(B, R) <= held
+        assert 1 <= plan.Tl <= T and (plan.Tl == T or not plan.rows_smem)
+        words = (plan.weights_smem * E
+                 + R * (T * J + plan.Tl * o + plan.rows_smem * T * (n + h)))
+        assert plan.smem_bytes == 4 * words <= smem
+        if not plan.weights_smem:
+            assert 4 * (R * (T * J + o) + E) > smem
+        if plan.Tl < T:
+            assert plan.smem_bytes + 4 * R * o > smem
+        if plan.Tl == T and not plan.rows_smem:
+            assert plan.smem_bytes + R * rsnn_step.forward_row_bytes(T, n, h) > smem
+    assert rsnn_step.forward_row_bytes(T, n, h) == 4 * T * (n + h)
+    # the main path's END_B tile: one row a block, the Braille row on chip
+    one = rsnn_step.forward_plan(T, 70, n, h, o)
+    assert one.rows == 1 and one.weights_smem == (dims != (256, 256, 16))
+    if dims == (12, 38, 3):
+        assert one.rows_smem == (T <= 512)
 
 
 SERVE_DIMS = [(12, 38, 3), (40, 100, 2), (256, 256, 16)]
@@ -249,6 +277,26 @@ def test_serve_event_flops_count_events_and_the_leaks():
     assert traffic.serve_event_flops(T, B, n, h, o, events, spikes, fed_back) == want
 
 
+def test_forward_event_flops_count_events_leaks_and_filters():
+    """The hand-built raster of the serving count's test: its spikes are
+    its input events.  The forward adds, every row and tick, the membrane
+    leak and the pbar, zbar filters (H each), the xbar filter (N) and the
+    readout leak (O), a multiply and an add each."""
+    from repro_torch.kernels import traffic
+
+    T, B, n, h, o = 4, 2, 2, 2, 3
+    raster = torch.zeros(T, B, n)
+    raster[0, 0, 0] = raster[0, 0, 1] = raster[2, 1, 1] = raster[3, 1, 0] = 1.0
+    z = rsnn_step.rsnn_forward_plain(raster, 2 * torch.eye(n), torch.zeros(h, h),
+                                     torch.ones(h, o), alpha=0.0, kappa=0.5)["z"]
+    assert torch.equal(z, raster)
+    events, spikes, fed_back = (int(raster.count_nonzero()), int(z.count_nonzero()),
+                                int(z[:-1].count_nonzero()))
+    assert (events, spikes, fed_back) == (4, 4, 3)
+    want = 2 * h * (4 + 3) + 2 * o * 4 + T * B * (2 * h + 2 * h + 2 * h + 2 * n + 2 * o)
+    assert traffic.forward_event_flops(T, B, n, h, o, events, spikes, fed_back) == want
+
+
 def test_tick_transition_matches_jax():
     from repro.core.quant import QuantizedMode as JQ
     from repro.kernels.rsnn_step import tick_transition as jtick
@@ -318,16 +366,27 @@ def test_training_wrappers_reject_cpu_tensors(name):
 
 @pytest.mark.parametrize("dims", [(12, 38, 3), (40, 100, 2), (256, 256, 16)])
 def test_trace_tile_sizing_fits_the_block(dims):
-    """The trace kernels keep the xbar, pbar, zbar carries of every row in
-    shared memory too; their tiles still fit a block, and fewer rows fit
-    than in a serving tile."""
+    """The serving admission is the rows the serving kernels run at once
+    (a warp a row, the SMs' neuron slots), unchanged from the tile loop's
+    sizing; a forward whose spike masks alone exceed a block raises; the
+    trace ops report ``forward_plan``'s rows a block (one at the END_B
+    tile, two at 2,048 rows)."""
     n, h, o = dims
-    rows = rsnn_step.max_tile_rows(n, h, o, traces=True)
-    assert 1 <= rows <= rsnn_step.max_tile_rows(n, h, o)
-    assert rows * h <= rsnn_step.THREADS_PER_BLOCK
-    assert rsnn_step.tile_state_bytes(rows, n, h, o, traces=True) <= rsnn_step.SMEM_PER_BLOCK
-    assert rsnn_step.block_rows(70, n, h, o, traces=True) == 1      # END_B tile
-    be = ExecutionBackend(Presets.braille(num_ticks=8), device="cpu")
+    J = -(-h // 32)
+    assert rsnn_step.max_batch_for_dims(n, h, o) == ADMISSION[dims]
+    assert rsnn_step.serve_rows_per_sm(h) * 32 * J <= rsnn_step.THREADS_PER_BLOCK
+    t_max = (rsnn_step.SMEM_PER_BLOCK - 4 * o) // (4 * J)
+    assert rsnn_step.forward_plan(t_max, 1, n, h, o).smem_bytes <= rsnn_step.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="spike masks exceed"):
+        rsnn_step.forward_plan(t_max + 1, 1, n, h, o)
+    be = ExecutionBackend(Presets.braille(num_ticks=8, n_in=n, n_hid=h, n_out=o),
+                          device="cpu")
+    for op in ("forward_traces", "dynamics"):
+        assert be.tile_rows(op) == rsnn_step.forward_plan(1, ADMISSION[dims], n, h, o).rows
+        for T, B in ((128, 1), (128, 70), (128, 2048), (4096, 2048)):
+            assert be.tile_rows(op, T=T, B=B) == rsnn_step.forward_plan(T, B, n, h, o).rows
+        assert be.tile_rows(op, T=128, B=70) == 1
+    assert be.tile_rows("forward_traces", T=128, B=2048) == 2
     assert be.tile_rows("train", T=128) == 1        # one row a block
     with pytest.raises(ValueError, match="T <= 4096"):
         be.tile_rows("train")
@@ -361,12 +420,19 @@ def test_train_plan_places_the_trace_set(dims, T, on_chip):
 
 
 def test_train_event_flops_count_events_and_the_dense_reverse():
+    """``rsnn_train``'s count is its forward's (the event sums, the leaks
+    and the three filters every row and tick) plus the dense reverse."""
     from repro_torch.kernels import traffic
 
     T, B, n, h, o = 128, 70, 12, 38, 3
     rev = 2 * T * B * (rsnn_step.weight_elems(n, h, o) + h * o)
-    assert traffic.train_event_flops(T, B, n, h, o, 0, 0, 0) == rev
-    assert traffic.train_event_flops(T, B, n, h, o, 10, 7, 5) == rev + 2 * h * 15 + 2 * o * 7
+    fwd = T * B * 2 * (3 * h + n + o)
+    assert traffic.train_event_flops(T, B, n, h, o, 0, 0, 0) == rev + fwd
+    assert traffic.train_event_flops(T, B, n, h, o, 10, 7, 5) == (
+        rev + fwd + 2 * h * 15 + 2 * o * 7)
+    for ev in ((0, 0, 0), (10, 7, 5)):
+        assert traffic.train_event_flops(T, B, n, h, o, *ev) == (
+            traffic.forward_event_flops(T, B, n, h, o, *ev) + rev)
 
 
 def test_train_plan_rejects_masks_past_a_block():
