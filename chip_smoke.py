@@ -9,6 +9,7 @@ depth through the flash-attention kernel, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's RSNN kernels
+    python3 chip_smoke.py --learn-walls CHECKOUT # another tree's learning walls
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and the
 CUDA toolkit's ``nvcc``.  Exits non-zero, printing no result, when CUDA is
@@ -81,7 +82,20 @@ before any profiler session):
       prefill whose attention runs the plain version; prefill and decode
       tokens/s;
   (l) flash_attention timed at the (j) llama shape beside its plain version,
-      one library call (scaled_dot_product_attention) and its bound.
+      one library call (scaled_dot_product_attention) and its bound;
+  (m) learning while serving, hardened (runs after (h), before (f)): an
+      END_B OnlineLearner (CONFIG_QUANT, QUANT_OPT) publishes every commit
+      into a ModelRegistry while a hardened BatchedEngine on that registry
+      answers an EventStream's requests between commits
+      (interleave_train_serve), through run_tile (rsnn_infer) and one
+      session per request fed in two halves (rsnn_step_sessions); every
+      answer OK and bitwise equal to an engine on the CPU given the same
+      images, no lane restart; then an injected whole-sample and streaming
+      launch fault each recover bitwise through one lane restart on the
+      card with the kernel launched after it, a NaN planted in one
+      session's readout quarantines it alone, and a scripted overload /
+      deadline run drops the same rids as on the CPU.  The kernels line's
+      launches of rsnn_train, rsnn_infer and rsnn_step_sessions are (m)'s.
 """
 
 from __future__ import annotations
@@ -164,6 +178,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TENSOR_FLOPS_PER_S = 989e12
 SEED = 11
+# Learning while serving (m): one END_B epoch on Braille AEU (6 commits of
+# 70 samples), LWS_SERVE_PER_BATCH requests answered after each commit from
+# an EventStream over LWS_REPEAT shuffled passes of the test split (60
+# samples each), the rest after the epoch.
+LWS_REPEAT = 5
+LWS_SERVE_PER_BATCH = 16
 
 
 def log(msg: str) -> None:
@@ -1142,6 +1162,287 @@ def phase_flash_timing(dev):
                 shape=f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal")
 
 
+# ---------------------------------------------------------------------------
+# (m) learning while serving, hardened
+# ---------------------------------------------------------------------------
+
+
+def _halves(ev):
+    mid = len(ev) // 2
+    return ev[:mid], ev[mid:]
+
+
+def _host_image(weights):
+    return {k: v.detach().cpu() for k, v in weights.items()}
+
+
+def _hardened_engine(image, dev, **kw):
+    """A one-model hardened engine on ``dev`` serving ``image`` (a host
+    copy of a published image)."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.serve import BatchedEngine, GuardConfig
+
+    return BatchedEngine(CONFIG_QUANT, {k: v.to(dev) for k, v in image.items()},
+                         device=dev, guard=GuardConfig(), **kw)
+
+
+def _same_answers(what, got, want):
+    """Equal request (or session) ids, statuses, preds and logits, bitwise."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} answers against {len(want)}")
+    for g, w in zip(got, want):
+        gid = g.rid if hasattr(g, "rid") else g.sid
+        wid = w.rid if hasattr(w, "rid") else w.sid
+        if (gid, g.status, g.pred) != (wid, w.status, w.pred) or not np.array_equal(
+                g.logits, w.logits):
+            fail(f"{what}: {gid} {g.status} {g.pred} {g.logits} != "
+                 f"{wid} {w.status} {w.pred} {w.logits}")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _flaky_hook(fail_on, kind, seen):
+    """A fault_hook failing the scripted launches of one kind; ``seen``
+    records each failure with the kernel launch counts at that moment."""
+    from repro_torch.kernels import ops
+
+    count = [0]
+
+    def hook(model_id, k):
+        if k != kind:
+            return
+        count[0] += 1
+        if count[0] in fail_on:
+            seen.append(dict(ops.launches))
+            raise RuntimeError(f"injected {k} launch fault #{count[0]}")
+
+    return hook
+
+
+def _sessions(eng, reqs):
+    """One session per request, fed in two halves with a pump after each
+    (so every session runs at least two tiles, the second from carries)."""
+    from repro_torch.serve import ServeStatus
+
+    hs = [eng.open_session() for _ in reqs]
+    for part in (0, 1):
+        for h, ev in zip(hs, reqs):
+            if h.status is ServeStatus.OK:    # a quarantined stream takes no feed
+                h.feed(_halves(ev)[part])
+        eng.pump()
+    return [h.result() for h in hs]
+
+
+def phase_learn_while_serve(dev):
+    """The paper's second experiment on the port: an END_B OnlineLearner
+    publishes every commit into a ModelRegistry while a hardened engine on
+    the same registry answers an EventStream's requests between commits
+    (interleave_train_serve), through run_tile and through one session per
+    request fed in two chunks.  Every answer is held bitwise against an
+    engine on the CPU (the plain versions) that gets the same published
+    image, copied to the host, at the same points.  Then the hardening on
+    the card: a whole-sample and a streaming launch fault recover bitwise
+    through one lane restart each (the rebuilt backend on the card, the
+    kernel launched after it), one poisoned session is quarantined alone,
+    and a scripted overload / deadline run drops the same rids as on the
+    CPU."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT, QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import EventStream, interleave_train_serve, make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchedEngine, GuardConfig, ModelRegistry, ServeStatus
+
+    data = make_braille_dataset("AEU")
+    sizes = "/".join(str(data[s]["events"].shape[0]) for s in ("train", "val", "test"))
+    reg = ModelRegistry()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    learner = OnlineLearner(CONFIG_QUANT, ControllerConfig(commit="batch"), QUANT_OPT,
+                            SEED, registry=reg, model_id="live", device=dev)
+    eng = BatchedEngine(registry=reg, device=dev, guard=GuardConfig())
+    ref_reg = ModelRegistry()
+    ref_reg.register("live", CONFIG_QUANT, _host_image(reg.get("live").weights),
+                     device="cpu")
+    ref = BatchedEngine(registry=ref_reg, device="cpu", guard=GuardConfig())
+    stream = EventStream(data, "test", repeat=LWS_REPEAT, shuffle=True, seed=SEED,
+                         guard=GuardConfig(n_in=CONFIG_QUANT.n_in))
+    feed = interleave_train_serve(make_pipeline("arm", data, 70, device=dev), stream,
+                                  serve_per_batch=LWS_SERVE_PER_BATCH)
+    tiles, sess, burst = [[], []], [[], []], []
+    plain_s = [0.0]     # host seconds spent on the CPU reference's side
+
+    def both(fn):
+        """``fn(engine, side)`` on the card's engine, then (timed apart) on
+        the CPU reference."""
+        fn(eng, 0)
+        t = time.perf_counter()
+        fn(ref, 1)
+        plain_s[0] += time.perf_counter() - t
+
+    def drain(e, i):
+        for tile in e.scheduler.drain():
+            tiles[i].extend(e.run_tile(tile))
+
+    def answer_burst():
+        """Answer the requests since the last commit on both engines: the
+        whole-sample tiles through run_tile, then the sessions."""
+        both(drain)
+        if burst:
+            both(lambda e, i: sess[i].extend(_sessions(e, burst)))
+        burst.clear()
+
+    def submit(e, i, item):
+        e.submit(item)
+        for tile in e.scheduler.ready_tiles():
+            tiles[i].extend(e.run_tile(tile))
+
+    for kind, item in feed:
+        if kind == "train":
+            answer_burst()
+            learner.train_batch(item)     # one rsnn_train launch, then publish
+            t = time.perf_counter()
+            ref_reg.update_weights("live", _host_image(reg.get("live").weights))
+            plain_s[0] += time.perf_counter() - t
+            continue
+        burst.append(item)
+        both(lambda e, i: submit(e, i, item))
+    answer_burst()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launches[k] for k in ("rsnn_train", "rsnn_infer",
+                                             "rsnn_step_sessions")}
+    if dev.type == "cuda":
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"(m): kernel {name} was never launched while learning and serving")
+    dead = eng.take_dead_results() + ref.take_dead_results()
+    answers = tiles[0] + sess[0]
+    ok = sum(a.status is ServeStatus.OK for a in answers) / max(len(answers), 1)
+    stats = eng.stream_stats(wall)
+    if (len(tiles[0]) != len(stream) or len(sess[0]) != len(stream) or dead
+            or ok != 1.0 or stats.lane_restarts):
+        fail(f"(m): {len(tiles[0])} tile answers and {len(sess[0])} session answers "
+             f"for {len(stream)} requests, {len(dead)} dropped, OK share {ok}, "
+             f"{stats.lane_restarts} lane restarts, in a run without faults")
+    _same_answers("(m) run_tile", tiles[0], tiles[1])
+    _same_answers("(m) sessions", sess[0], sess[1])
+    for t, s in zip(sorted(tiles[0], key=lambda r: r.rid), sess[0]):
+        if not np.array_equal(t.logits, s.logits):
+            fail(f"(m): a session fed in halves {s.logits} != run_tile {t.logits}")
+    acc = float(np.mean([r.pred == r.label for r in tiles[0]]))
+    log(f"(m) ok: learning while serving on Braille AEU ({sizes} samples): "
+        f"{learner.commits} END_B commits, {reg.get('live').swaps} publishes, {len(stream)} "
+        f"requests ({LWS_SERVE_PER_BATCH} after each commit, the rest after the "
+        f"epoch) answered by run_tile and by sessions fed in two chunks, "
+        f"{wall:.3f} s wall, of which {plain_s[0]:.3f} s the CPU reference's side "
+        f"and {wall - plain_s[0]:.3f} s the learner and engine on {dev}; OK share "
+        f"{ok:.1f}; every answer bitwise equal to the plain version with the same "
+        f"published image, and sessions equal run_tile; accuracy {acc:.4f}; "
+        f"launches {launches}")
+
+    image = _host_image(reg.get("live").weights)
+    reqs = [r for r in EventStream(data, "test")]
+    phase_faults(dev, image, reqs)
+    return launches, wall - plain_s[0]
+
+
+def phase_faults(dev, image, reqs):
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeStatus
+
+    clean, _ = _hardened_engine(image, dev).serve(iter(reqs))
+    clean_sess = _sessions(_hardened_engine(image, dev, tick_tile=32), reqs)
+    for kind, fail_on in (("tile", {1}), ("stream", {2})):
+        seen = []
+        eng = _hardened_engine(image, dev, tick_tile=32,
+                               fault_hook=_flaky_hook(fail_on, kind, seen))
+        old = eng.engine
+        if kind == "tile":
+            got, _ = eng.serve(iter(reqs))
+            want, kernel = clean, "rsnn_step_sessions"
+        else:
+            got, want, kernel = _sessions(eng, reqs), clean_sess, "rsnn_step_sessions"
+        _sync(dev)
+        restarts = eng.stream_stats(1.0).lane_restarts
+        rebuilt = eng.engine
+        if restarts != 1 or len(seen) != 1 or rebuilt is old:
+            fail(f"(m) {kind} fault: {restarts} lane restarts, {len(seen)} faults")
+        if rebuilt.device != old.device or rebuilt.device.type != dev.type:
+            fail(f"(m) {kind} fault: the lane restarted on {rebuilt.device}")
+        if dev.type == "cuda" and ops.launches[kernel] <= seen[0][kernel]:
+            fail(f"(m) {kind} fault: {kernel} was not launched after the restart")
+        if any(a.status is not ServeStatus.OK for a in got):
+            fail(f"(m) {kind} fault: not every answer is OK after the restart")
+        _same_answers(f"(m) {kind} fault vs an undisturbed run", got, want)
+        log(f"(m) ok: injected {kind} launch fault #{min(fail_on)}: one lane restart "
+            f"on {rebuilt.device}, {kernel} launched after it "
+            f"({seen[0][kernel]} -> {ops.launches[kernel]}), {len(got)} answers "
+            f"bitwise equal to an undisturbed run")
+
+    # one poisoned session: NaN planted in its harvested readout
+    eng = _hardened_engine(image, dev, tick_tile=32)
+    victim = 1
+    orig = eng._launch_chunks
+
+    def poisoned(lane, sessions, chunks, num_ticks):
+        out = orig(lane, sessions, chunks, num_ticks)
+        for i, s in enumerate(sessions):
+            if s.sid == victim:
+                acc = out["acc_y"].clone()
+                acc[i] = float("nan")
+                out = dict(out, acc_y=acc)
+        return out
+
+    eng._launch_chunks = poisoned
+    got = _sessions(eng, reqs)
+    bad = [s.sid for s in got if s.status is not ServeStatus.OK]
+    if bad != [victim] or got[victim].status is not ServeStatus.FAULT:
+        fail(f"(m) poisoned session: sessions {bad} dropped, expected [{victim}]")
+    if eng.stream_stats(1.0).quarantined != 1:
+        fail("(m) poisoned session: quarantine count is not 1")
+    _same_answers("(m) tile-mates of the poisoned session",
+                  [s for s in got if s.sid != victim],
+                  [s for s in clean_sess if s.sid != victim])
+    log(f"(m) ok: a NaN in session {victim}'s harvested readout quarantined it "
+        f"alone; its {len(got) - 1} tile-mates bitwise unchanged")
+
+    # overload and deadlines on a scripted clock, card against the CPU
+    def scripted(where):
+        now = [0.0]
+        e = _hardened_engine(image, where, max_batch=16, max_pending=24,
+                             admission="shed", default_deadline_s=5.0,
+                             clock=lambda: now[0])
+        out = []
+        for i, ev in enumerate(reqs):
+            # every third request on the default 5 s deadline, the clock 4 s
+            # on every 10 requests, full tiles launched every 30
+            e.submit(ev, deadline_s=None if i % 3 == 0 else 50.0)
+            if i % 10 == 9:
+                now[0] += 4.0
+            if i % 30 == 29:
+                for tile in e.scheduler.ready_tiles():
+                    out.extend(e.run_tile(tile))
+        out.extend(e.take_dead_results())
+        for tile in e.scheduler.drain():
+            out.extend(e.run_tile(tile))
+        res, stats = e.serve(iter(reqs[:20]), deadline_s=1.0)
+        return sorted(out, key=lambda r: r.rid) + res, stats
+
+    got, gstats = scripted(dev)
+    want, _ = scripted(torch.device("cpu"))
+    _same_answers("(m) scripted overload and deadlines", got, want)
+    by = {s: sum(1 for r in got if r.status is s) for s in ServeStatus}
+    if not (by[ServeStatus.REJECTED] and by[ServeStatus.EXPIRED] and by[ServeStatus.OK]):
+        fail(f"(m) scripted overload: statuses {by} lack a drop kind")
+    log(f"(m) ok: scripted overload (max_pending 24, shed) and deadlines: "
+        f"{by[ServeStatus.OK]} OK, {by[ServeStatus.REJECTED]} REJECTED, "
+        f"{by[ServeStatus.EXPIRED]} EXPIRED, the same rids and answers as on the CPU")
+
+
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
@@ -1194,14 +1495,49 @@ def tree_times(root: Path, dev) -> None:
     print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms}), flush=True)
 
 
+def learn_walls(root: Path, dev) -> None:
+    """``--learn-walls ROOT``: the walls of (h)'s first seed, one 12-epoch
+    END_S run and one END_B run, through the learner of the checkout at
+    ``ROOT``, in a process that runs nothing else, so that two trees'
+    learning loops compare on one card in one call.  Prints one JSON
+    line."""
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.core.rsnn import Presets
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import build
+
+    build.library()
+    data = make_braille_dataset("AEU")
+    T = data["train"]["num_ticks"]
+    cfg = Presets.braille(n_classes=3, num_ticks=T, quantized=True)
+    opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * data["train"]["events"].shape[0])
+    pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
+    walls = {}
+    for mode, commit in (("END_S", "sample"), ("END_B", "batch")):
+        learner = OnlineLearner(cfg, ControllerConfig(
+            num_epochs=LEARN_EPOCHS, eval_every=LEARN_EPOCHS, commit=commit),
+            opt, LEARN_SEEDS[0], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.fit(pipe)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+    print(json.dumps({"tree": str(root), "card": card_line(), "wall_s": walls}),
+          flush=True)
+
+
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--time-tree", "--learn-walls"):
         root = Path(sys.argv[2]).resolve()
         setup(root)
-        tree_times(root, torch.device("cuda", 0))
+        run = tree_times if sys.argv[1] == "--time-tree" else learn_walls
+        run(root, torch.device("cuda", 0))
         return
     if len(sys.argv) != 1:
-        fail("usage: python3 chip_smoke.py [--time-tree CHECKOUT]")
+        fail("usage: python3 chip_smoke.py [--time-tree CHECKOUT | "
+             "--learn-walls CHECKOUT]")
     setup(Path(__file__).resolve().parent)
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.rsnn import init_params
@@ -1241,6 +1577,11 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the learning path")
     log(f"(h) ok: launches on the learning path {learn_launches}")
     launches.update({k: learn_launches[k] for k in learning if k not in serving})
+    by_path = {k: {"serve": launches.get(k, 0) if k in serving else 0,
+                   "learning": learn_launches[k]} for k in ops.KERNELS}
+    lws_launches, _ = phase_learn_while_serve(dev)   # resets the counts itself
+    for k in lws_launches:
+        by_path[k]["learn_while_serve"] = launches[k] = lws_launches[k]
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
@@ -1250,6 +1591,7 @@ def main() -> None:
     errs["flash_attention"] = phase_flash_vs_plain(dev)
     lm_launches = phase_lm(dev)     # resets and reads the counts itself
     launches["flash_attention"] = lm_launches["flash_attention"]
+    by_path["flash_attention"]["lm"] = lm_launches["flash_attention"]
     torch.cuda.empty_cache()
     rows["flash_attention"] = phase_flash_timing(dev)
 
@@ -1273,6 +1615,7 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
+            "launches_by_path": by_path[name],
         })
         if name == "rsnn_train":
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]

@@ -346,6 +346,17 @@ class BackendPool:
         return self._by_key.setdefault(bucket_key(backend.cfg, backend.runtime),
                                        backend)
 
+    def discard(self, backend: ExecutionBackend) -> bool:
+        """Drop a pooled backend so the next :meth:`get` for its bucket
+        builds a fresh one (the lane-restart primitive).  The bucket keys
+        on the device, so the fresh backend runs where the old one did.
+        Returns whether the backend was pooled."""
+        key = bucket_key(backend.cfg, backend.runtime)
+        if self._by_key.get(key) is backend:
+            del self._by_key[key]
+            return True
+        return False
+
 
 def as_backend(
     cfg: RSNNConfig,

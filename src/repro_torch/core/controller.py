@@ -21,16 +21,22 @@ With a quantized config and a quantized :class:`EpropSGD`
 (``configs/reckon_braille.QUANT_OPT``) the walk is chip-faithful: 8-bit
 SRAM weights, accumulate-then-round commits, integer membranes.
 
+A learner given a :class:`~repro_torch.serve.registry.ModelRegistry`
+registers its model there on its own backend and publishes its weights
+after every ``publish_every``-th commit, so an engine routed at that model
+serves each new image from its next launched tile: the paper's
+learning-while-serving loop.
+
 Random bits (stochastic commits) come from a ``torch.Generator`` on the
-learner's device; they cannot match ``jax.random``.  Checkpointing, signal
-handling and publishing into a serving registry are not part of the port
-yet: :class:`OnlineLearner` raises when asked for a checkpoint policy.
+learner's device; they cannot match ``jax.random``.  Checkpointing and
+signal handling are not part of the port yet: :class:`OnlineLearner`
+raises when asked for a checkpoint policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -202,6 +208,15 @@ class OnlineLearner:
     :meth:`repro_torch.serve.BatchedEngine.from_learner` builds.
     ``pipeline`` arguments follow :mod:`repro_torch.data.pipeline`
     (``batches(split, epoch)``).  ``ctrl.commit`` picks END_S or END_B.
+
+    ``registry`` (a :class:`~repro_torch.serve.registry.ModelRegistry`)
+    attaches the learner to serving: its model is registered under
+    ``model_id`` on the learner's own backend (adopted into the registry's
+    pool, so an engine routed there shares it), and :meth:`publish` runs
+    after every ``publish_every``-th commit.  Updates are functional (every
+    commit makes new tensors) and the registry loads each image into
+    tensors of its own, so a tile launched before a publish keeps the image
+    it read.
     """
 
     def __init__(
@@ -211,6 +226,9 @@ class OnlineLearner:
         opt_cfg: EpropSGDConfig,
         seed: Union[int, torch.Generator],
         device: DeviceLike = None,
+        registry=None,
+        model_id: Optional[str] = None,
+        publish_every: int = 1,
         checkpoint=None,
     ):
         if checkpoint is not None:
@@ -239,13 +257,33 @@ class OnlineLearner:
         self._eval_fn = make_eval_batch_fn(cfg, self.backend)
         self.log = EpochLog(train_acc=[], val_acc=[])
         self.commits = 0
+        self.registry = registry
+        self.model_id = model_id if model_id is not None else "default"
+        self.publish_every = max(1, int(publish_every))
+        if registry is not None:
+            if self.model_id in registry:
+                registry.update_weights(self.model_id, self.inference_params())
+            else:
+                registry.register(self.model_id, cfg, self.inference_params(),
+                                  backend=self.backend)
+
+    def publish(self) -> None:
+        """Load the live weights into the attached registry (the SPI weight
+        reload, mid-serve)."""
+        if self.registry is None:
+            raise ValueError(
+                "learner has no registry attached: construct with registry=")
+        self.registry.update_weights(self.model_id, self.inference_params())
 
     def train_batch(self, batch: DeviceBatch) -> Dict[str, torch.Tensor]:
         """Train on one device batch: one END_B commit, or one END_S loop
-        over its samples, per ``ctrl.commit``."""
+        over its samples, per ``ctrl.commit``; publishes after every
+        ``publish_every``-th commit when a registry is attached."""
         self.weights, self.opt_state, m = self._train_fn(
             self.weights, self.opt_state, batch, self.generator)
         self.commits += 1
+        if self.registry is not None and self.commits % self.publish_every == 0:
+            self.publish()
         return m
 
     def train_epoch(self, pipeline, epoch: int, start_batch: int = 0) -> float:

@@ -174,6 +174,31 @@ class QuantizedMode:
         return self.weight_codes(w) * float(self.w_gain)
 
 
+@dataclasses.dataclass(frozen=True)
+class ReckonRegs:
+    """Decoded SPI parameter-bank values."""
+
+    threshold: float
+    alpha: float
+    kappa: float
+
+
+def from_reckon_regs(
+    threshold: int = 0x03F0, alpha_lsb: int = 0x0FE, kappa: int = 0x37,
+    membrane_scale: Optional[float] = None,
+) -> ReckonRegs:
+    """Interpret the raw SPI registers reported in the paper.  The
+    threshold is a membrane-grid integer, mapped to float units by
+    ``membrane_scale`` (default: normalised so the threshold is 1.0);
+    the leakage registers are 8-bit fractions ``reg / 256``."""
+    scale = membrane_scale if membrane_scale is not None else 1.0 / float(threshold)
+    return ReckonRegs(
+        threshold=float(threshold) * scale,
+        alpha=float(alpha_lsb & 0xFF) / 256.0,
+        kappa=float(kappa & 0xFF) / 256.0,
+    )
+
+
 class QuantState:
     """Accumulate-then-round weight storage: ``{"q": grid weights, "acc":
     float residuals}``, dictionaries keyed like the weights.  ``commit``

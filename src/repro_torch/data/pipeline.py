@@ -15,6 +15,11 @@ mode-agnostic.  Batch order is a pure function of ``(seed, epoch)``, and
 ``batches(split, epoch, start_batch=k)`` skips the first ``k`` batches
 without offloading them.  Pipelines run on ``device="cuda"`` unless the
 caller passes ``"cpu"``.
+
+The serving side: :class:`EventStream` replays a split as ragged
+per-sample AER buffers (the requests a deployed SoC receives), and
+:func:`interleave_train_serve` interleaves a training pipeline's batches
+with those requests, the paper's learning-while-serving feed.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch
 from repro_torch.core import aer
 from repro_torch.core.controller import DeviceBatch, decode_events_to_batch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serve.batching import trim_padding
+from repro_torch.serve.guard import GuardError, validate_events
 
 
 def event_density(events, n_in: Optional[int] = None,
@@ -132,6 +139,110 @@ class BatchedOffloadPipeline(_Base):
                 inflight.append(self._offload(events[chunks[ptr]], d))
                 ptr += 1
             yield batch
+
+
+class EventStream:
+    """A dataset split replayed as trimmed uint32 AER buffers, one request
+    at a time, on the host.
+
+    ``repeat`` loops the split; ``shuffle`` permutes each pass with
+    ``np.random.default_rng([seed, pass])``, so the order is a pure
+    function of ``(seed, pass)``.  The cursor ``(pass, offset)`` is the
+    next request: :meth:`state` snapshots it, :meth:`seek` restores it, and
+    iteration advances it in place (one consumer; a drained stream yields
+    nothing until :meth:`reset`).
+
+    ``guard`` (a :class:`~repro_torch.serve.guard.GuardConfig`) validates
+    every buffer before it is yielded.  ``on_invalid="raise"`` propagates
+    the :class:`~repro_torch.serve.guard.GuardError` with the cursor past
+    the bad sample; ``"skip"`` drops it and counts it in :attr:`invalid`.
+    """
+
+    def __init__(self, dataset: Dict[str, Dict[str, np.ndarray]],
+                 split: str = "test", *, repeat: int = 1,
+                 shuffle: bool = False, seed: int = 0, guard=None,
+                 on_invalid: str = "raise"):
+        if split not in dataset:
+            raise KeyError(f"split {split!r} not in dataset (have {list(dataset)})")
+        if on_invalid not in ("raise", "skip"):
+            raise ValueError(
+                f"on_invalid must be 'raise' or 'skip', got {on_invalid!r}")
+        self.meta = dataset[split]
+        self.events = np.asarray(self.meta["events"], np.uint32)
+        self.repeat = repeat
+        self.shuffle = shuffle
+        self.seed = seed
+        self.guard = guard
+        self.on_invalid = on_invalid
+        self.invalid = 0     # buffers the guard rejected
+        self.pass_idx = 0    # cursor: current pass through the split
+        self.offset = 0      # cursor: next index into that pass's order
+
+    def __len__(self) -> int:
+        return self.events.shape[0] * self.repeat
+
+    def state(self) -> Dict[str, int]:
+        return {"pass": int(self.pass_idx), "offset": int(self.offset),
+                "seed": int(self.seed)}
+
+    def seek(self, state: Dict[str, int]) -> None:
+        """Restore a :meth:`state` snapshot (taken under the same seed)."""
+        if int(state.get("seed", self.seed)) != int(self.seed):
+            raise ValueError(
+                f"EventStream cursor was recorded under seed {state['seed']}, "
+                f"this stream uses {self.seed}")
+        self.pass_idx = int(state["pass"])
+        self.offset = int(state["offset"])
+
+    def reset(self) -> None:
+        self.pass_idx = 0
+        self.offset = 0
+
+    def _order(self, pass_idx: int) -> np.ndarray:
+        n = self.events.shape[0]
+        if self.shuffle:
+            return np.random.default_rng([self.seed, pass_idx]).permutation(n)
+        return np.arange(n)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        n = self.events.shape[0]
+        while self.pass_idx < self.repeat:
+            order = self._order(self.pass_idx)
+            while self.offset < n:
+                i = int(order[self.offset])
+                self.offset += 1
+                buf = trim_padding(self.events[i])
+                if self.guard is not None:
+                    try:
+                        buf = validate_events(buf, self.guard,
+                                              what=f"stream sample {i}")
+                    except GuardError:
+                        self.invalid += 1
+                        if self.on_invalid == "raise":
+                            raise
+                        continue
+                yield buf
+            self.pass_idx += 1
+            self.offset = 0
+
+
+def interleave_train_serve(pipeline, stream, epoch: int = 0,
+                           split: str = "train",
+                           serve_per_batch: int = 8) -> Iterator[tuple]:
+    """Learning-while-serving feed: ``("train", device_batch)`` items from
+    a training pipeline, each followed by up to ``serve_per_batch``
+    ``("serve", events)`` requests from an :class:`EventStream`; leftover
+    requests drain after the epoch."""
+    requests = iter(stream)
+    for batch in pipeline.batches(split, epoch):
+        yield ("train", batch)
+        for _ in range(serve_per_batch):
+            try:
+                yield ("serve", next(requests))
+            except StopIteration:
+                break
+    for ev in requests:
+        yield ("serve", ev)
 
 
 def make_pipeline(mode: str, dataset, samples_per_batch: Optional[int] = None,

@@ -46,7 +46,32 @@ def stream_arg(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# CUDA runtime error codes (``cudaError_t``) after which the context is
+# unusable for the rest of the process: an uncorrectable ECC error, an
+# illegal address, a launch timeout, a device assert, the hardware
+# exceptions (stack, instruction, alignment, address space, PC), an
+# unspecified launch failure, an unknown error.  Every other code a
+# launcher returns (an invalid value or configuration, too few resources)
+# leaves the context usable.
+STICKY_CUDA_ERRORS = frozenset({214, 700, 702, 710, 714, 715, 716, 717, 718,
+                                719, 999})
+
+
+class KernelLaunchError(RuntimeError):
+    """A launcher's non-zero return code.  ``sticky`` says whether the
+    code poisons the CUDA context (no launch in this process can succeed
+    after it)."""
+
+    def __init__(self, name: str, code: int, msg: str):
+        super().__init__(f"{name} launch failed: CUDA error {code} ({msg})")
+        self.kernel = name
+        self.code = int(code)
+
+    @property
+    def sticky(self) -> bool:
+        return self.code in STICKY_CUDA_ERRORS
+
+
 def raise_on(lib, rc: int, name: str) -> None:
     if rc != 0:
-        msg = lib.rsnn_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise KernelLaunchError(name, rc, lib.rsnn_error_string(rc).decode())

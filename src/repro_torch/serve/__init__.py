@@ -11,7 +11,9 @@ from repro_torch.serve.engine import (
 from repro_torch.serve.guard import (
     GuardConfig,
     GuardError,
+    LaneFaultError,
     MalformedEventError,
+    OverloadError,
     QuotaExceededError,
     ServeError,
     ServeStatus,
@@ -23,8 +25,8 @@ from repro_torch.serve.session import SessionPool, SessionSnapshot
 
 __all__ = [
     "BatchTile", "BatchedEngine", "BucketingScheduler", "DEFAULT_MODEL",
-    "GuardConfig", "GuardError", "MalformedEventError", "ModelRegistry",
-    "ModelSpec", "QuotaExceededError", "ServeError", "ServeResult",
+    "GuardConfig", "GuardError", "LaneFaultError", "MalformedEventError",
+    "ModelRegistry", "ModelSpec", "OverloadError", "QuotaExceededError", "ServeError", "ServeResult",
     "ServeStats", "ServeStatus", "SessionHandle", "SessionPool",
     "SessionSnapshot", "StreamContractError", "StreamPacker", "StreamStats",
     "max_batch_for", "max_sessions_for",

@@ -25,9 +25,18 @@ end-of-stream drain.  In quantized mode logits are the chip's membrane-grid
 readout accumulators (argmax unchanged) and ``update_weights`` snaps the
 image onto the 8-bit SRAM grid.
 
-Not ported yet (a later slice): the JAX engine's bounded admission and
-shedding, deadlines, per-sample quarantine, fault injection and lane
-restarts.  Guard-rejected buffers still surface as REJECTED results.
+Dropped work is a typed result, never a hole: a buffer the guard refuses,
+a submit a full bounded queue refuses or sheds (REJECTED), a request or
+session whose deadline passes before its tile is packed (EXPIRED), and a
+row that fails the numeric health check at harvest (FAULT, one session
+quarantined, its tile-mates untouched).  A launch fault restarts the lane
+(a fresh backend on the same device, sessions re-seated from bit-exact
+host copies) and relaunches the work.  Only two kinds of fault are
+recovered: an exception raised by ``fault_hook`` and a launcher error code
+that leaves the CUDA context usable
+(:class:`~repro_torch.kernels.launch.KernelLaunchError` with ``sticky``
+false).  Anything else, a sticky CUDA error above all, reaches the caller:
+no in-process restart can recover a poisoned context.
 """
 
 from __future__ import annotations
@@ -42,18 +51,22 @@ import torch
 from repro_torch.core.backend import BackendLike, ExecutionBackend, RuntimeConfig
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.kernels import traffic
+from repro_torch.kernels.launch import KernelLaunchError
 from repro_torch.serve import batching
 from repro_torch.serve.guard import (
     GuardConfig,
     GuardError,
+    OverloadError,
     QuotaExceededError,
     ServeStatus,
+    bad_rows,
     validate_events,
 )
 from repro_torch.serve.registry import DEFAULT_MODEL, ModelRegistry, ModelSpec
 from repro_torch.serve.scheduler import (
     BatchTile,
     BucketingScheduler,
+    ServeRequest,
     StreamPacker,
 )
 from repro_torch.serve.session import (
@@ -67,7 +80,8 @@ from repro_torch.serve.session import (
 @dataclasses.dataclass
 class ServeResult:
     """Per-request classification + accounting (``pred == -1`` and zero
-    logits when ``status`` is not OK)."""
+    logits when ``status`` is not OK; ``latency_s`` is then admission →
+    drop decision)."""
 
     rid: int
     pred: int
@@ -91,14 +105,23 @@ class ServeStats:
     mean_batch: float
     rebuilds: int                 # datapath-weight derivations (see backend)
     hbm_bytes_streamed: int = 0   # device-memory bytes the kernels moved
+    # How many of `requests` ended non-OK (shed is the subset of rejected
+    # that admission="shed" evicted) and the lane restarts of the window.
     rejected: int = 0
+    expired: int = 0
+    quarantined: int = 0
+    shed: int = 0
+    lane_restarts: int = 0
     per_model: Optional[Dict[str, "ServeStats"]] = None
 
     @classmethod
     def collect(cls, results: List[ServeResult], wall_s: float, batches: int,
-                rebuilds: int, hbm_bytes: int = 0) -> "ServeStats":
+                rebuilds: int, hbm_bytes: int = 0, shed: int = 0,
+                lane_restarts: int = 0) -> "ServeStats":
+        # throughput and latency over the served (OK) results only
         ok = [r for r in results if r.status is ServeStatus.OK]
         lat = np.array([r.latency_s for r in ok]) if ok else np.zeros(1)
+        by = {s: sum(1 for r in results if r.status is s) for s in ServeStatus}
         return cls(
             requests=len(results), batches=batches, wall_s=wall_s,
             samples_per_sec=len(ok) / wall_s if wall_s > 0 else float("inf"),
@@ -106,7 +129,9 @@ class ServeStats:
             p99_latency_s=float(np.percentile(lat, 99)),
             mean_batch=(len(ok) / batches) if batches else 0.0,
             rebuilds=rebuilds, hbm_bytes_streamed=hbm_bytes,
-            rejected=sum(1 for r in results if r.status is ServeStatus.REJECTED),
+            rejected=by[ServeStatus.REJECTED], expired=by[ServeStatus.EXPIRED],
+            quarantined=by[ServeStatus.FAULT], shed=shed,
+            lane_restarts=lane_restarts,
         )
 
 
@@ -159,7 +184,7 @@ class StreamStats:
     events: int
     ticks: int
     wall_s: float
-    events_per_sec: float
+    events_per_sec: float         # over wall_s - admission_wait_s
     ticks_per_sec: float
     p50_tile_latency_s: float     # launch → harvest per tick-tile
     p99_tile_latency_s: float
@@ -168,7 +193,15 @@ class StreamStats:
     readmissions: int
     rebuilds: int
     hbm_bytes_streamed: int = 0
-    rejected: int = 0
+    rejected: int = 0             # feeds refused by the guard
+    expired: int = 0              # sessions dropped at pack time (deadline)
+    shed: int = 0                 # requests evicted by admission="shed"
+    quarantined: int = 0          # sessions and requests FAULTed
+    lane_restarts: int = 0        # backend rebuilds after launch faults
+    saturation_storms: int = 0    # quantized rows off the 12-bit grid
+    # Caller time blocked on a full bounded ready-queue (the engine pumps
+    # inline to make room): excluded from the throughputs above.
+    admission_wait_s: float = 0.0
     per_model: Optional[Dict[str, "StreamStats"]] = None
 
 
@@ -181,7 +214,8 @@ class _ModelLane:
         self.max_batch = engine._max_batch or batching.max_batch_for(cfg)
         self.scheduler = BucketingScheduler(
             self.max_batch, engine.tick_granularity, clock=engine._clock,
-            rid_alloc=engine._alloc_rid,
+            rid_alloc=engine._alloc_rid, max_pending=engine._max_pending,
+            admission=engine._admission,
         )
         capacity = max(engine._max_sessions or batching.max_sessions_for(cfg),
                        self.max_batch)
@@ -189,12 +223,16 @@ class _ModelLane:
                                 idle_timeout=engine._idle_timeout,
                                 clock=engine._clock)
         self.packer = StreamPacker(self.max_batch, tick_tile=engine._tick_tile,
-                                   tick_granularity=engine.tick_granularity)
+                                   tick_granularity=engine.tick_granularity,
+                                   max_pending=engine._max_pending_sessions)
         self.guard: Optional[GuardConfig] = (
             engine._guard.for_model(cfg.n_in) if engine._guard is not None else None
         )
         self.zero_states: Dict[int, Dict[str, torch.Tensor]] = {}
         self.tile_lat: List[float] = []
+        # REJECTED / EXPIRED results dropped outside a serve() window,
+        # drained by BatchedEngine.take_dead_results()
+        self.dead: List[ServeResult] = []
         self.reset_counters()
 
     @property
@@ -223,6 +261,12 @@ class _ModelLane:
         self.ticks = 0
         self.lanes = 0
         self.rejected = 0
+        self.expired = 0
+        self.shed = 0
+        self.quarantined = 0
+        self.lane_restarts = 0
+        self.saturation_storms = 0
+        self.admission_wait_s = 0.0
 
     def zero_state(self, b_pad: int) -> Dict[str, torch.Tensor]:
         """Cached zero carries per tile width (read-only kernel inputs)."""
@@ -259,10 +303,18 @@ class SessionHandle:
     def closed(self) -> bool:
         return self._sess.closed
 
+    @property
+    def status(self) -> ServeStatus:
+        """OK while the stream is healthy; FAULT once quarantined, EXPIRED
+        once its deadline dropped it (both terminal)."""
+        return self._sess.status
+
     def feed(self, events: np.ndarray) -> int:
         """Append one AER word buffer; returns spike events admitted.  Raises
         a :class:`~repro_torch.serve.guard.GuardError` subclass for a
-        malformed, over-quota or out-of-order buffer (session untouched)."""
+        malformed, over-quota or out-of-order buffer, or a closed session
+        (session untouched).  A full bounded ready-queue is drained inline
+        first."""
         return self._engine._feed(self._sess, events)
 
     def poll(self) -> Optional[SessionSnapshot]:
@@ -293,6 +345,19 @@ class BatchedEngine:
     streaming tile length (else each tile drains what its sessions have
     pending); ``guard`` is a :class:`GuardConfig`, ``None`` (default
     policy) or ``False`` (no validation).
+
+    Hardening (the JAX engine's error model): ``max_pending`` bounds each
+    lane's whole-sample queue, full under ``admission="reject"`` (submit
+    raises :class:`~repro_torch.serve.guard.OverloadError`) or ``"shed"``
+    (the oldest queued request becomes a REJECTED result);
+    ``default_deadline_s`` / ``session_deadline_s`` stamp relative
+    deadlines checked at pack time (EXPIRED); ``max_pending_sessions``
+    bounds each lane's streaming ready-queue (a feed that overflows it
+    pumps inline, counted as admission wait); ``max_tile_retries`` is the
+    launch-fault budget before the work is FAULTed; ``fault_hook(model_id,
+    kind)`` (``kind`` is ``"tile"`` or ``"stream"``) runs at the top of
+    every launch, before any state changes, and an exception it raises is
+    handled as a launch fault.
     """
 
     def __init__(
@@ -313,6 +378,13 @@ class BatchedEngine:
         tick_tile: Optional[int] = None,
         runtime: Optional[RuntimeConfig] = None,
         guard: Union[GuardConfig, None, bool] = None,
+        max_pending: Optional[int] = None,
+        admission: str = "reject",
+        default_deadline_s: Optional[float] = None,
+        max_pending_sessions: Optional[int] = None,
+        session_deadline_s: Optional[float] = None,
+        max_tile_retries: int = 3,
+        fault_hook: Optional[Callable[[str, str], None]] = None,
     ):
         self.tick_granularity = tick_granularity
         self.max_inflight_tiles = max(1, int(max_inflight_tiles))
@@ -327,6 +399,14 @@ class BatchedEngine:
             self._guard = GuardConfig()
         else:
             self._guard = guard
+        self._max_pending = max_pending
+        self._admission = admission
+        self._default_deadline_s = default_deadline_s
+        self._max_pending_sessions = max_pending_sessions
+        self._session_deadline_s = session_deadline_s
+        self._max_tile_retries = max(0, int(max_tile_retries))
+        self._fault_hook = fault_hook
+        self._hook_fault: Optional[BaseException] = None
         self._next_rid = 0
         if registry is None:
             if cfg is None or params is None:
@@ -430,6 +510,7 @@ class BatchedEngine:
 
     def _launch_tile(self, lane: _ModelLane, tile: BatchTile) -> _PendingTile:
         """Decode, pad and launch one tile through the ``inference`` op."""
+        self._inject_fault(lane, "tile")
         cfg = lane.cfg
         events = [r.events for r in tile.requests]
         raster, valid, labels = batching.decode_events_host(
@@ -447,6 +528,7 @@ class BatchedEngine:
         """One whole-sample tile through ``step_sessions`` as a single
         stateless chunk: zero carries in, every request live for the whole
         bucket (``decode_events_host`` semantics), carries out unobserved."""
+        self._inject_fault(lane, "tile")
         cfg = lane.cfg
         T = tile.num_ticks
         bufs = [req.events for req in tile.requests]
@@ -468,16 +550,26 @@ class BatchedEngine:
                             done=_record_done(lane.backend.device))
 
     def _finalize(self, pending: _PendingTile) -> List[ServeResult]:
-        """Materialise one launched tile's results (synchronises on it)."""
+        """Materialise one launched tile's results (synchronises on it).
+        The health check reads the tile's one host copy: a row with a
+        non-finite value (or, quantized, off the 12-bit grid) becomes a
+        FAULT result and its tile-mates are delivered unchanged."""
         lane = pending.lane
         acc_y = host_copy(pending.acc_y)[: pending.b_live]
         t_done = self._clock()
+        bad, sat = bad_rows(acc_y, quant=lane.backend.quant,
+                            ticks=pending.tile.num_ticks)
+        lane.saturation_storms += int(sat.sum())
+        lane.quarantined += int(bad.sum())
+        zeros = np.zeros((lane.cfg.n_out,), np.float32)
         return [
             ServeResult(
-                rid=req.rid, pred=int(np.argmax(acc_y[i])), logits=acc_y[i],
+                rid=req.rid, pred=-1 if bad[i] else int(np.argmax(acc_y[i])),
+                logits=zeros if bad[i] else acc_y[i],
                 label=int(pending.labels[i]), latency_s=t_done - req.t_submit,
                 bucket_ticks=pending.tile.num_ticks, batch_size=pending.b_live,
                 model_id=lane.model_id,
+                status=ServeStatus.FAULT if bad[i] else ServeStatus.OK,
             )
             for i, req in enumerate(pending.tile.requests)
         ]
@@ -494,58 +586,197 @@ class BatchedEngine:
                                what=f"model {lane.model_id!r} buffer")
 
     def submit(self, events: np.ndarray, meta: Optional[dict] = None,
-               model_id: Optional[str] = None) -> int:
+               model_id: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> int:
         """Admit one AER sample (after the lane's guard); returns its
-        engine-unique request id."""
+        engine-unique request id.  A full bounded queue raises
+        :class:`~repro_torch.serve.guard.OverloadError` under
+        ``admission="reject"`` or sheds the oldest queued request under
+        ``"shed"`` (a REJECTED result from :meth:`take_dead_results`).
+        ``deadline_s`` is relative (default ``default_deadline_s``)."""
         lane = self._lane(model_id)
-        return lane.scheduler.submit(self._validate_for(lane, events), meta)
+        events = self._validate_for(lane, events)
+        rid = lane.scheduler.submit(events, meta,
+                                    deadline=self._deadline(deadline_s))
+        self._collect_dropped(lane)
+        return rid
 
-    def _rejected(self, lane: _ModelLane) -> ServeResult:
-        lane.rejected += 1
+    # ------------------------------------------------------- error model
+
+    def _deadline(self, deadline_s: Optional[float]) -> Optional[float]:
+        rel = deadline_s if deadline_s is not None else self._default_deadline_s
+        return None if rel is None else self._clock() + rel
+
+    def _dead_result(self, lane: _ModelLane, req: ServeRequest,
+                     status: ServeStatus) -> ServeResult:
+        """The typed tombstone of one dropped request."""
         return ServeResult(
-            rid=self._alloc_rid(), pred=-1,
+            rid=req.rid, pred=-1,
             logits=np.zeros((lane.cfg.n_out,), np.float32), label=0,
-            latency_s=0.0, bucket_ticks=0, batch_size=0,
-            model_id=lane.model_id, status=ServeStatus.REJECTED,
+            latency_s=self._clock() - req.t_submit, bucket_ticks=req.bucket,
+            batch_size=0, model_id=lane.model_id, status=status,
         )
+
+    def _collect_dropped(self, lane: _ModelLane) -> None:
+        """Turn the lane's shed and deadline-expired requests into dead
+        results (REJECTED / EXPIRED), before tiles are packed."""
+        for req in lane.scheduler.shed:
+            lane.shed += 1
+            lane.rejected += 1
+            lane.dead.append(self._dead_result(lane, req, ServeStatus.REJECTED))
+        lane.scheduler.shed.clear()
+        for req in lane.scheduler.take_expired():
+            lane.expired += 1
+            lane.dead.append(self._dead_result(lane, req, ServeStatus.EXPIRED))
+
+    def take_dead_results(self, model_id: Optional[str] = None
+                          ) -> List[ServeResult]:
+        """Drain the dropped-work results of one model (or every lane):
+        the ``submit`` / ``run_tile`` caller's view of the error model
+        (``serve()`` drains them into its results itself)."""
+        lanes = ([self._lane(model_id)] if model_id is not None
+                 else list(self._lanes.values()))
+        out: List[ServeResult] = []
+        for lane in lanes:
+            self._collect_dropped(lane)
+            out.extend(lane.dead)
+            lane.dead.clear()
+        return out
+
+    # -------------------------------------------------- lane supervision
+
+    def _inject_fault(self, lane: _ModelLane, kind: str) -> None:
+        if self._fault_hook is not None:
+            try:
+                self._fault_hook(lane.model_id, kind)
+            except Exception as exc:
+                self._hook_fault = exc
+                raise
+
+    def _recoverable(self, exc: BaseException) -> bool:
+        """A launch fault a lane restart can contain: one the fault hook
+        raised, or a launcher error that leaves the CUDA context usable."""
+        hook_fault, self._hook_fault = self._hook_fault, None
+        if isinstance(exc, KernelLaunchError):
+            return not exc.sticky
+        return exc is hook_fault
+
+    def _restart_lane(self, lane: _ModelLane) -> None:
+        """Restart a lane after a recoverable launch fault: harvest every
+        launched tile, offload each resident session to a bit-exact host
+        copy, swap the lane's backend for a fresh one on the same device
+        (:meth:`ModelRegistry.rebuild_backend`) and give the lane a new
+        pool; sessions re-seat from their copies on their next tile.  A
+        recoverable fault launched nothing, so every row is readable here,
+        and the closing synchronisation raises if the context is gone."""
+        self._harvest_stream(block=True)
+        for sess in list(lane.pool._resident.values()):
+            lane.pool.evict(sess)
+        old_pool = lane.pool
+        lane.spec = self.registry.rebuild_backend(lane.model_id)
+        lane.pool = SessionPool(lane.backend, old_pool.capacity,
+                                idle_timeout=old_pool.idle_timeout,
+                                clock=self._clock)
+        lane.pool.evictions = old_pool.evictions
+        lane.pool.readmissions = old_pool.readmissions
+        lane.zero_states.clear()
+        lane.lane_restarts += 1
+        if lane.backend.device.type == "cuda":
+            torch.cuda.synchronize(lane.backend.device)
+
+    def _drop_session(self, lane: _ModelLane, sess: _Session,
+                      status: ServeStatus) -> None:
+        """Close one session with a terminal dead snapshot."""
+        sess.status = status
+        sess.closed = True
+        sess.snapshot = SessionSnapshot(
+            sid=sess.sid, pred=-1,
+            logits=np.zeros((lane.cfg.n_out,), np.float32),
+            label=sess.label, ticks=sess.cursor, events=sess.n_events,
+            final=True, status=status,
+        )
+        lane.pool.release(sess)
+
+    def _quarantine(self, lane: _ModelLane, sess: _Session) -> None:
+        """FAULT one session whose state is not trustworthy; the rest of
+        its tile and lane keep serving."""
+        if sess.status is ServeStatus.FAULT:
+            return
+        self._drop_session(lane, sess, ServeStatus.FAULT)
+        lane.quarantined += 1
+
+    def _expire_session(self, lane: _ModelLane, sess: _Session) -> None:
+        """EXPIRED drop at pack time: the deadline passed before launch."""
+        self._drop_session(lane, sess, ServeStatus.EXPIRED)
+        lane.expired += 1
 
     def serve(
         self,
         stream: Iterable[Union[np.ndarray, Tuple[np.ndarray, str]]],
         flush: bool = True,
         model_id: Optional[str] = None,
+        deadline_s: Optional[float] = None,
     ) -> Tuple[List[ServeResult], ServeStats]:
         """Run a stream of AER sample buffers (or ``(events, model_id)``
         pairs); results in admission (rid) order plus stats.
 
         Tiles launch as soon as a bucket fills and are harvested as their
         device work completes; the one mandatory synchronisation is the
-        end-of-stream drain.  A buffer the guard rejects becomes a REJECTED
-        result and its neighbours serve unaffected.
+        end-of-stream drain.  No item aborts the stream: a buffer the guard
+        or a full queue refuses, a shed or expired request and a tile whose
+        launch-fault budget ran out each surface as a non-OK result, and
+        the neighbours serve unaffected.  ``deadline_s`` stamps each item's
+        relative deadline (default ``default_deadline_s``).
         """
         t0 = self._clock()
         bytes0 = {mid: l.bytes_streamed for mid, l in self._lanes.items()}
+        restarts0 = {mid: l.lane_restarts for mid, l in self._lanes.items()}
+        shed0 = {mid: l.shed for mid, l in self._lanes.items()}
         results: List[ServeResult] = []
         pending: List[_PendingTile] = []
         batches_by: Dict[str, int] = {}
         touched: Dict[str, _ModelLane] = {}
 
         def launch(lane: _ModelLane, tile: BatchTile) -> None:
-            pending.append(self._launch_session_tile(lane, tile))
-            batches_by[lane.model_id] = batches_by.get(lane.model_id, 0) + 1
+            """Launch within the fault budget: a recoverable fault restarts
+            the lane and retries; an exhausted budget FAULTs the tile."""
+            for _ in range(self._max_tile_retries + 1):
+                try:
+                    pending.append(self._launch_session_tile(lane, tile))
+                except Exception as exc:
+                    if not self._recoverable(exc):
+                        raise
+                    self._restart_lane(lane)
+                    continue
+                batches_by[lane.model_id] = batches_by.get(lane.model_id, 0) + 1
+                return
+            lane.quarantined += len(tile.requests)
+            results.extend(self._dead_result(lane, req, ServeStatus.FAULT)
+                           for req in tile.requests)
 
         def harvest(block: bool) -> None:
             while pending and (block or pending[0].ready()):
                 results.extend(self._finalize(pending.pop(0)))
+
+        def reap(lane: _ModelLane) -> None:
+            self._collect_dropped(lane)
+            results.extend(lane.dead)
+            lane.dead.clear()
 
         for item in stream:
             events, mid = item if isinstance(item, tuple) else (item, model_id)
             lane = self._lane(mid)
             touched[lane.model_id] = lane
             try:
-                lane.scheduler.submit(self._validate_for(lane, events))
-            except GuardError:
-                results.append(self._rejected(lane))
+                lane.scheduler.submit(self._validate_for(lane, events),
+                                      deadline=self._deadline(deadline_s))
+            except (GuardError, OverloadError):
+                lane.rejected += 1
+                results.append(self._dead_result(lane, ServeRequest(
+                    rid=self._alloc_rid(), events=np.zeros(0, np.uint32),
+                    native_ticks=0, bucket=0, t_submit=self._clock()),
+                    ServeStatus.REJECTED))
+            reap(lane)
             for tile in lane.scheduler.ready_tiles():
                 launch(lane, tile)
             harvest(block=False)
@@ -553,6 +784,7 @@ class BatchedEngine:
                 results.extend(self._finalize(pending.pop(0)))
         if flush:
             for lane in touched.values():
+                reap(lane)
                 for tile in lane.scheduler.drain():
                     launch(lane, tile)
         harvest(block=True)
@@ -562,16 +794,25 @@ class BatchedEngine:
         def lane_bytes(lane: _ModelLane) -> int:
             return lane.bytes_streamed - bytes0.get(lane.model_id, 0)
 
+        def lane_restarts(lane: _ModelLane) -> int:
+            return lane.lane_restarts - restarts0.get(lane.model_id, 0)
+
+        def lane_shed(lane: _ModelLane) -> int:
+            return lane.shed - shed0.get(lane.model_id, 0)
+
         stats = ServeStats.collect(
             results, wall, sum(batches_by.values()), self._rebuilds(),
             hbm_bytes=sum(lane_bytes(l) for l in self._lanes.values()),
+            shed=sum(lane_shed(l) for l in touched.values()),
+            lane_restarts=sum(lane_restarts(l) for l in touched.values()),
         )
         if len(touched) > 1:
             stats.per_model = {
                 mid: ServeStats.collect(
                     [r for r in results if r.model_id == mid], wall,
                     batches_by.get(mid, 0), lane.backend.rebuilds,
-                    hbm_bytes=lane_bytes(lane),
+                    hbm_bytes=lane_bytes(lane), shed=lane_shed(lane),
+                    lane_restarts=lane_restarts(lane),
                 )
                 for mid, lane in touched.items()
             }
@@ -580,13 +821,19 @@ class BatchedEngine:
     # ---------------------------------------------------- session streaming
 
     def open_session(self, meta: Optional[dict] = None,
-                     model_id: Optional[str] = None) -> SessionHandle:
+                     model_id: Optional[str] = None,
+                     deadline_s: Optional[float] = None) -> SessionHandle:
         """Open one AER event stream with persistent recurrent state; feed
-        it in any increments — chunking never changes the result."""
+        it in any increments — chunking never changes the result.  A
+        session whose ``deadline_s`` (relative; default
+        ``session_deadline_s``) passes before its pending ticks are packed
+        is dropped with a terminal EXPIRED snapshot."""
         lane = self._lane(model_id)
         sess = _Session(self._next_sid, self._clock(), meta,
                         model_id=lane.model_id)
         sess.gate_label = lane.cfg.eprop.infer_window == "valid"
+        rel = deadline_s if deadline_s is not None else self._session_deadline_s
+        sess.deadline = None if rel is None else self._clock() + rel
         self._next_sid += 1
         self._sessions[sess.sid] = sess
         return SessionHandle(self, sess)
@@ -610,12 +857,22 @@ class BatchedEngine:
                 raise
         n = sess.feed(events)
         if sess.processable() > 0:
-            lane.packer.enqueue(sess)
+            t0 = self._clock()
+            stalled = False
+            while not lane.packer.enqueue(sess):
+                # a full bounded ready-queue: launch a tile inline to make
+                # room (admission wait, not device time)
+                stalled = True
+                if not self._pump_lane_once(lane):
+                    break
+            if stalled:
+                lane.admission_wait_s += self._clock() - t0
         return n
 
     def _launch_chunks(self, lane: _ModelLane, sessions, chunks, num_ticks):
         """Seat sessions in the pool, decode their chunks into one tick-tile,
         gather carries → ``step_sessions`` → scatter carries."""
+        self._inject_fault(lane, "stream")
         cfg = lane.cfg
         b_pad = batching.padded_batch_size(len(sessions), lane.max_batch)
         raster, live, valid = batching.decode_session_chunks(
@@ -637,13 +894,31 @@ class BatchedEngine:
 
     def _pump_lane_once(self, lane: _ModelLane) -> bool:
         """Pack and launch one tick-tile from one lane; False when none of
-        its sessions has processable ticks."""
+        its sessions has processable ticks.  Sessions past their deadline
+        are dropped here, before the launch; a recoverable launch fault
+        rewinds the chunks and restarts the lane."""
         nxt = lane.packer.next_tile()
         if nxt is None:
             return False
         sessions, num_ticks = nxt
+        now = self._clock()
+        live = []
+        for s in sessions:
+            if s.deadline is not None and now > s.deadline:
+                self._expire_session(lane, s)
+            else:
+                live.append(s)
+        if not live:
+            return True   # dropped work is progress
+        sessions = live
         chunks = [s.take_chunk(num_ticks) for s in sessions]
-        out = self._launch_chunks(lane, sessions, chunks, num_ticks)
+        try:
+            out = self._launch_chunks(lane, sessions, chunks, num_ticks)
+        except Exception as exc:
+            if not self._recoverable(exc):
+                raise
+            self._on_stream_launch_fault(lane, sessions, chunks)
+            return True
         self._stream_pending.append(_PendingStreamTile(
             acc_y=out["acc_y"],
             lanes=[(s, s.cursor, s.n_events) for s in sessions],
@@ -657,6 +932,23 @@ class BatchedEngine:
         while len(self._stream_pending) > self.max_inflight_tiles:
             self._harvest_one()
         return True
+
+    def _on_stream_launch_fault(self, lane: _ModelLane, sessions, chunks) -> None:
+        """Contain one failed streaming launch: rewind every chunk
+        (bit-exact: the pool was never scattered into), restart the lane,
+        re-queue the sessions within their retry budget and quarantine the
+        rest."""
+        for s, ref in zip(sessions, chunks):
+            s.restore_chunk(ref)
+            s.retries += 1
+        survivors = [s for s in sessions if s.retries <= self._max_tile_retries]
+        for s in sessions:
+            if s.retries > self._max_tile_retries:
+                self._quarantine(lane, s)
+        self._restart_lane(lane)
+        for s in survivors:
+            if s.processable() > 0:
+                lane.packer.enqueue(s)
 
     def _pump_once(self) -> bool:
         """Launch at most one tick-tile per lane (fair share across models)."""
@@ -679,10 +971,25 @@ class BatchedEngine:
         return n
 
     def _harvest_one(self) -> None:
+        """Harvest the oldest streaming tile: one host copy (it synchronises
+        on this tile), the health check on that copy, then the snapshots.
+        A bad row quarantines its session; its tile-mates' rows are
+        independent carries and are delivered unchanged."""
         p = self._stream_pending.pop(0)
-        acc = host_copy(p.acc_y)   # synchronises on this tile
-        p.lane.tile_lat.append(self._clock() - p.t_launch)
+        lane = p.lane
+        acc = host_copy(p.acc_y)
+        lane.tile_lat.append(self._clock() - p.t_launch)
+        n = len(p.lanes)
+        bad, sat = bad_rows(acc[:n], quant=lane.backend.quant,
+                            ticks=np.array([t for _, t, _ in p.lanes], np.int64))
+        lane.saturation_storms += int(sat.sum())
         for i, (sess, ticks, events) in enumerate(p.lanes):
+            if sess.status is not ServeStatus.OK:
+                continue   # terminal snapshot already written
+            if bad[i]:
+                self._quarantine(lane, sess)
+                continue
+            sess.retries = 0
             sess.snapshot = SessionSnapshot(
                 sid=sess.sid, pred=int(np.argmax(acc[i])), logits=acc[i],
                 label=sess.label, ticks=ticks, events=events)
@@ -703,12 +1010,22 @@ class BatchedEngine:
 
     def _finish_session(self, sess: _Session) -> SessionSnapshot:
         lane = self._lanes[sess.model_id]
+        if sess.status is not ServeStatus.OK:
+            # dropped mid-stream: hand over the terminal snapshot
+            self._sessions.pop(sess.sid, None)
+            return sess.snapshot
         sess.closed = True   # extends the horizon to the last fed tick
         if sess.processable() > 0:
-            lane.packer.enqueue(sess)
-        while sess.processable() > 0 and self._pump_once():
+            while not lane.packer.enqueue(sess):
+                if not self._pump_lane_once(lane):
+                    break
+        while (sess.status is ServeStatus.OK and sess.processable() > 0
+               and self._pump_once()):
             pass
         self._harvest_stream(block=True)
+        if sess.status is not ServeStatus.OK:
+            self._sessions.pop(sess.sid, None)
+            return sess.snapshot
         acc = self._session_acc(sess)
         snap = SessionSnapshot(
             sid=sess.sid, pred=int(np.argmax(acc)), logits=acc,
@@ -730,7 +1047,7 @@ class BatchedEngine:
 
     def _lane_stream_stats(self, lane: _ModelLane, wall_s: float) -> StreamStats:
         lat = np.array(lane.tile_lat) if lane.tile_lat else np.zeros(1)
-        busy = max(wall_s, 1e-9)
+        busy = max(wall_s - lane.admission_wait_s, 1e-9)
         return StreamStats(
             sessions=sum(1 for s in self._sessions.values()
                          if s.model_id == lane.model_id),
@@ -743,6 +1060,10 @@ class BatchedEngine:
             evictions=lane.pool.evictions, readmissions=lane.pool.readmissions,
             rebuilds=lane.backend.rebuilds,
             hbm_bytes_streamed=lane.bytes_streamed, rejected=lane.rejected,
+            expired=lane.expired, shed=lane.shed, quarantined=lane.quarantined,
+            lane_restarts=lane.lane_restarts,
+            saturation_storms=lane.saturation_storms,
+            admission_wait_s=lane.admission_wait_s,
         )
 
     def stream_stats(self, wall_s: float,
@@ -756,7 +1077,8 @@ class BatchedEngine:
         lat = [t for l in lanes for t in l.tile_lat]
         arr = np.array(lat) if lat else np.zeros(1)
         tiles = sum(l.tiles for l in lanes)
-        busy = max(wall_s, 1e-9)
+        wait = sum(l.admission_wait_s for l in lanes)
+        busy = max(wall_s - wait, 1e-9)
         return StreamStats(
             sessions=len(self._sessions), tiles=tiles,
             events=sum(l.events for l in lanes),
@@ -771,6 +1093,12 @@ class BatchedEngine:
             rebuilds=self._rebuilds(),
             hbm_bytes_streamed=sum(l.bytes_streamed for l in lanes),
             rejected=sum(l.rejected for l in lanes),
+            expired=sum(l.expired for l in lanes),
+            shed=sum(l.shed for l in lanes),
+            quarantined=sum(l.quarantined for l in lanes),
+            lane_restarts=sum(l.lane_restarts for l in lanes),
+            saturation_storms=sum(l.saturation_storms for l in lanes),
+            admission_wait_s=wait,
             per_model=per if len(lanes) > 1 else None,
         )
 

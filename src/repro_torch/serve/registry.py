@@ -7,7 +7,9 @@ its backend) and weight-SRAM image, keyed by ``model_id``.
 configs fall in one execution bucket share one pooled backend.  A
 mis-shaped image fails at the registry boundary with the per-matrix shape
 diff.  In quantized mode an image is snapped onto the 8-bit SRAM grid
-when it is loaded (the SPI weight reload).
+when it is loaded (the SPI weight reload).  A loaded image owns its
+tensors: an in-place write to the caller's weights after a load (a
+learner's next commit) never reaches an image already published.
 """
 
 from __future__ import annotations
@@ -125,6 +127,22 @@ class ModelRegistry:
         del self._specs[model_id]
         return spec
 
+    def rebuild_backend(self, model_id: str) -> ModelSpec:
+        """Replace a model's backend with a fresh one (the registry half of
+        a lane restart): the old backend leaves the pool, the pool builds a
+        new one for the same bucket (the same device: the bucket keys on
+        it), and every spec that shared the old backend is re-pointed and
+        its image re-loaded through the new one."""
+        spec = self.get(model_id)
+        old = spec.backend
+        self.pool.discard(old)
+        fresh = self.pool.get(old.cfg, old.runtime)
+        for other in self._specs.values():
+            if other.backend is old:
+                other.backend = fresh
+                other.weights = self._snap(fresh, other.weights)
+        return spec
+
     def update_weights(self, model_id: str,
                        weights: Dict[str, torch.Tensor]) -> ModelSpec:
         """Hot-swap a model's image (partial images keep the missing
@@ -160,11 +178,13 @@ class ModelRegistry:
 
     @staticmethod
     def _snap(backend: ExecutionBackend, image: Dict) -> Dict[str, torch.Tensor]:
-        """The image as the spec holds it: on the backend's device, and on
-        the 8-bit SRAM grid in quantized mode (feedback passes through)."""
+        """The image as the spec holds it: on the backend's device, in
+        tensors of its own, and on the 8-bit SRAM grid in quantized mode
+        (feedback passes through)."""
         q = backend.quant
         out = {}
         for k, v in image.items():
             t = torch.as_tensor(v, dtype=torch.float32, device=backend.device)
-            out[k] = t if q is None or k == "b_fb" else q.weight_spec.round_nearest(t)
+            out[k] = (t.clone() if q is None or k == "b_fb"
+                      else q.weight_spec.round_nearest(t))
         return out

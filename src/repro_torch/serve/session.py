@@ -58,7 +58,8 @@ class _Session:
         "sid", "slot", "meta", "sp_tick", "sp_addr", "sp_ptr", "cursor",
         "max_fed_tick", "label", "label_tick", "label_seen", "end_seen",
         "end_tick", "closed", "n_events", "t_open", "t_last", "snapshot",
-        "offloaded", "queued", "gate_label", "model_id",
+        "offloaded", "queued", "gate_label", "model_id", "status",
+        "deadline", "retries",
     )
 
     def __init__(self, sid: int, now: float, meta: Optional[dict] = None,
@@ -84,6 +85,9 @@ class _Session:
         self.snapshot: Optional[SessionSnapshot] = None
         self.offloaded: Optional[Dict[str, np.ndarray]] = None
         self.queued = False
+        self.status = ServeStatus.OK   # FAULT / EXPIRED once dropped (terminal)
+        self.deadline: Optional[float] = None  # absolute; None = no deadline
+        self.retries = 0           # launch-fault rewinds since the last success
         # With infer_window == "valid" a tick fed before the label word
         # cannot know its valid bit yet: the stream is held back until the
         # label (or END / close) arrives.
@@ -151,6 +155,15 @@ class _Session:
         self.sp_ptr = hi
         self.cursor = base + n
         return ref
+
+    def restore_chunk(self, ref: "SessionChunkRef") -> None:
+        """Undo a :meth:`take_chunk` whose launch failed: re-prepend the
+        chunk's spikes and rewind the cursor.  Anything fed after the take
+        carries ticks ``>= ref.base + n_live``, so the order holds."""
+        self.sp_tick = np.concatenate([ref.sp_tick, self.sp_tick[self.sp_ptr:]])
+        self.sp_addr = np.concatenate([ref.sp_addr, self.sp_addr[self.sp_ptr:]])
+        self.sp_ptr = 0
+        self.cursor = ref.base
 
 
 @dataclasses.dataclass

@@ -625,3 +625,162 @@ def test_reduced_dense_generate_on_card_matches_cpu(arch, cuda_device):
                    {"tokens": toks.to(cuda_device)}, 8, 56)
     assert ops.launches["flash_attention"] == cfg.n_layers
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the hardened engine on the card: launch faults, sticky errors, publishing
+# mid-serve, the NaN quarantine
+# ---------------------------------------------------------------------------
+
+
+def _hardening_case(seed=3, n=12, T=64):
+    rng = np.random.default_rng(seed)
+    cfg = Presets.braille(num_ticks=T, quantized=True)
+    params = _params(rng, cfg)
+    reqs = []
+    for i in range(n):
+        ticks = int(rng.integers(16, T + 1))
+        raster = (rng.random((ticks, cfg.n_in)) < 0.25).astype(np.float32)
+        reqs.append(encode_sample(raster, i % 3, label_tick=ticks // 4,
+                                  end_tick=ticks - 1))
+    return cfg, params, reqs
+
+
+def _fail_hook(kind, at, exc, seen):
+    count = [0]
+
+    def hook(model_id, k):
+        if k == kind:
+            count[0] += 1
+            if count[0] == at:
+                seen.append(dict(ops.launches))
+                raise exc
+
+    return hook
+
+
+def _in_halves(eng, reqs):
+    hs = [eng.open_session() for _ in reqs]
+    for part in (0, 1):
+        for h, ev in zip(hs, reqs):
+            if h.status.value == "ok":
+                mid = len(ev) // 2
+                h.feed(ev[:mid] if part == 0 else ev[mid:])
+        eng.pump()
+    return [h.result() for h in hs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tile", "stream"])
+def test_injected_launch_fault_recovers_bitwise_on_kernel(kind, cuda_device):
+    """A launch fault restarts the lane on the card (never the CPU, never
+    the plain version): the rebuilt backend is on the same device, the
+    kernel's launch counter rises after the restart, and the answers equal
+    an undisturbed card run bitwise."""
+    cfg, params, reqs = _hardening_case()
+
+    def run(hook):
+        eng = BatchedEngine(cfg, params, device=cuda_device, max_batch=4,
+                            tick_tile=16, fault_hook=hook)
+        if kind == "tile":
+            res, _ = eng.serve(iter(reqs))
+        else:
+            res = _in_halves(eng, reqs)
+        torch.cuda.synchronize()
+        return eng, res
+
+    _, clean = run(None)
+    seen = []
+    eng, got = run(_fail_hook(kind, 1 if kind == "tile" else 2,
+                              RuntimeError("injected"), seen))
+    assert eng.stream_stats(1.0).lane_restarts == 1 and len(seen) == 1
+    assert eng.engine.device == cuda_device
+    assert ops.launches["rsnn_step_sessions"] > seen[0]["rsnn_step_sessions"]
+    for g, w in zip(got, clean):
+        assert g.status.value == "ok"
+        np.testing.assert_array_equal(g.logits, w.logits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tile", "stream"])
+def test_sticky_launch_error_reaches_caller_on_card(kind, cuda_device):
+    """A stand-in for a sticky CUDA error (an illegal address, code 700)
+    raised at a launch is re-raised to the caller: no lane restart, no
+    quarantine, no FAULT results in its place."""
+    from repro_torch.kernels.launch import KernelLaunchError
+
+    cfg, params, reqs = _hardening_case(n=6)
+    sticky = KernelLaunchError("rsnn_step_sessions", 700,
+                               "an illegal memory access was encountered")
+    eng = BatchedEngine(cfg, params, device=cuda_device, max_batch=4, tick_tile=16,
+                        fault_hook=_fail_hook(kind, 1, sticky, []))
+    with pytest.raises(KernelLaunchError, match="CUDA error 700"):
+        if kind == "tile":
+            eng.serve(iter(reqs))
+        else:
+            _in_halves(eng, reqs)
+    stats = eng.stream_stats(1.0)
+    assert stats.lane_restarts == 0 and stats.quarantined == 0
+
+
+@pytest.mark.cuda
+def test_publish_mid_serve_keeps_launched_tiles_image(cuda_device):
+    """Tiles launched before a publish read the image they were launched
+    with, even while still in flight; tiles launched after it read the new
+    one.  Both equal an engine on the CPU given the same images."""
+    from repro_torch.serve import ModelRegistry
+
+    cfg, params, reqs = _hardening_case(n=8)
+    new = {k: (v * -1.5 if k.startswith("w_") else v) for k, v in params.items()}
+    reg = ModelRegistry()
+    reg.register("live", cfg, params, device=cuda_device)
+    # one bucket (T <= 64): every tile is four consecutive requests
+    kw = dict(max_batch=4, tick_granularity=64)
+    eng = BatchedEngine(registry=reg, device=cuda_device, max_inflight_tiles=64, **kw)
+
+    def stream():
+        for i, ev in enumerate(reqs):
+            yield ev
+            if i == 3:             # the first tile has just launched
+                reg.update_weights("live", {k: v.to(cuda_device) for k, v in new.items()})
+
+    res, _ = eng.serve(stream())
+    old_ref, _ = BatchedEngine(cfg, params, device="cpu", **kw).serve(iter(reqs[:4]))
+    new_ref, _ = BatchedEngine(cfg, new, device="cpu", **kw).serve(iter(reqs[4:]))
+    assert reg.get("live").swaps == 1
+    for r, g in zip(res, old_ref + new_ref):
+        np.testing.assert_array_equal(r.logits, g.logits)
+    assert not all(np.array_equal(a.logits, b.logits) for a, b in zip(old_ref, new_ref))
+
+
+@pytest.mark.cuda
+def test_nan_quarantine_leaves_tile_mates_unchanged_on_card(cuda_device):
+    """A NaN planted in one session's harvested readout quarantines that
+    session only; its tile-mates come out bitwise unchanged."""
+    cfg, params, reqs = _hardening_case(n=6)
+
+    def run(victim):
+        eng = BatchedEngine(cfg, params, device=cuda_device, max_batch=8, tick_tile=16)
+        if victim is not None:
+            orig = eng._launch_chunks
+
+            def poisoned(lane, sessions, chunks, num_ticks):
+                out = orig(lane, sessions, chunks, num_ticks)
+                for i, s in enumerate(sessions):
+                    if s.sid == victim:
+                        acc = out["acc_y"].clone()
+                        acc[i] = float("nan")
+                        out = dict(out, acc_y=acc)
+                return out
+
+            eng._launch_chunks = poisoned
+        return eng, _in_halves(eng, reqs)
+
+    _, clean = run(None)
+    eng, got = run(2)
+    assert [s.sid for s in got if s.status.value != "ok"] == [2]
+    assert got[2].status.value == "fault" and got[2].pred == -1
+    assert eng.stream_stats(1.0).quarantined == 1
+    for i, (g, w) in enumerate(zip(got, clean)):
+        if i != 2:
+            np.testing.assert_array_equal(g.logits, w.logits)
