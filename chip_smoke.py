@@ -5,7 +5,8 @@ streaming sessions) and the online-learning path (END_B and END_S e-prop
 training on Braille, then serving the learned weights) at the Braille
 network's full width through the kernels, drives the dense LM's serving
 path (prefill, decode, greedy ``generate``) at llama3-8b's full width and
-depth through the flash-attention kernel, and times the kernels.
+depth through the flash-attention kernel, kills and resumes a
+checkpointed learner on the card, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's RSNN kernels
@@ -95,13 +96,31 @@ before any profiler session):
       card with the kernel launched after it, a NaN planted in one
       session's readout quarantines it alone, and a scripted overload /
       deadline run drops the same rids as on the CPU.  The kernels line's
-      launches of rsnn_train, rsnn_infer and rsnn_step_sessions are (m)'s.
+      launches of rsnn_train, rsnn_infer and rsnn_step_sessions are (m)'s;
+  (n) kill and resume (after (m), before (f)): at the Braille shape (12/38/3
+      quantized, stochastic commits, T=128, the AEU split's 420 training
+      samples, END_B at 70 a batch for 2 epochs: 12 commits, a checkpoint at
+      each), an in-process golden OnlineLearner run on the card, then three
+      chaos workers (python -m repro_torch.train.chaos, one process each,
+      loading the library (a) built): SIGKILL at a seeded commit in
+      [2, 10], SIGKILL at step 3's rename (the torn .tmp must be swept),
+      SIGTERM at commit 4 (STOPPED_RC, then a clean restart); then a Trainer
+      over make_eprop_commit_step (round-nearest commits) stopped by SIGTERM
+      and resumed in-process.  Every run ends bitwise on its golden run,
+      both golden runs move every weight leaf from its initial bits (so the
+      drills cannot pass on weights that never changed), the Trainer logs
+      every step, every worker reports the card and rsnn_train launches;
+      prints each
+      spawn's seconds, each worker's recovery_s, a blocking save's and
+      save_async's enqueue seconds and (n)'s total.  (n)'s in-process and
+      worker rsnn_train launches are in the kernels line's launches_by_path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -184,6 +203,20 @@ SEED = 11
 # samples each), the rest after the epoch.
 LWS_REPEAT = 5
 LWS_SERVE_PER_BATCH = 16
+# Kill and resume (n): the Braille drill at the paper's shape, 12/38/3
+# quantized with stochastic commits, T=128, the dataset's default AEU split
+# (420 training samples), END_B at 70 a batch for 2 epochs (12 commits),
+# a checkpoint at every commit.  The SIGKILL commit is drawn from
+# FT_KILL_RANGE by a generator seeded with SEED.
+FT_EPOCHS = 2
+FT_SPB = 70
+FT_TICKS = 128
+FT_SAMPLES_PER_CLASS = 200
+FT_KILL_RANGE = (2, 11)
+FT_MID_SAVE_STEP = 3
+FT_SIGTERM_AT = 4
+FT_TRAINER_STOP = 5
+FT_SPAWN_TIMEOUT_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -1443,6 +1476,179 @@ def phase_faults(dev, image, reqs):
         f"{by[ServeStatus.EXPIRED]} EXPIRED, the same rids and answers as on the CPU")
 
 
+
+def _bitwise(what, got, want):
+    """Fail unless two weight dicts hold the same keys and bits."""
+    if sorted(got) != sorted(want):
+        fail(f"{what}: weights {sorted(got)} != {sorted(want)}")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            diff = int(np.sum(got[k] != want[k]))
+            fail(f"{what}: {k} differs from the uninterrupted run in {diff} entries")
+
+
+def _moved(what, got, start):
+    """Fail unless every leaf of ``got`` left its initial bits ``start``
+    (a commit path that changed nothing would pass every bitwise drill);
+    returns the changed entries by leaf."""
+    changed = {k: int(np.sum(got[k] != start[k])) for k in sorted(start)}
+    if sorted(got) != sorted(start) or not all(changed.values()):
+        fail(f"{what}: the run left weights where they started ({changed} entries "
+             "changed by leaf)")
+    return changed
+
+
+def phase_fault_tolerance(dev):
+    """(n) kill and resume at the Braille shape: an in-process golden run,
+    three subprocess drills on the card (SIGKILL at a seeded commit,
+    SIGKILL at a checkpoint's rename, SIGTERM), and a Trainer over
+    make_eprop_commit_step interrupted and resumed in-process; every run
+    ends bitwise on its golden run.  Returns the in-process rsnn_train
+    launches and the workers' sum."""
+    import shutil
+    import signal
+
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.rsnn import init_params, trainable
+    from repro_torch.distributed.checkpoint import CheckpointPolicy, ReplayCursor
+    from repro_torch.kernels import ops
+    from repro_torch.optim.eprop_opt import EpropSGD
+    from repro_torch.train import chaos
+    from repro_torch.train.eprop_step import epoch_batches, make_eprop_commit_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    root = Path(__file__).resolve().parent / "build" / "fault_tolerance"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shape = dict(epochs=FT_EPOCHS, spb=FT_SPB, samples_per_class=FT_SAMPLES_PER_CLASS,
+                 num_ticks=FT_TICKS)
+    wargs = ["--epochs", FT_EPOCHS, "--spb", FT_SPB, "--samples-per-class",
+             FT_SAMPLES_PER_CLASS, "--ticks", FT_TICKS, "--device", dev.type]
+    learner, pipe = chaos.build_learner(None, device=dev, **shape)
+    w_start = {k: v.cpu().numpy() for k, v in learner.weights.items()}   # never fit
+    n_train = pipe.dataset["train"]["events"].shape[0]
+    commits = FT_EPOCHS * -(-n_train // FT_SPB)
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    gold = chaos.golden_run(device=dev, **shape)
+    golden_s = time.perf_counter() - t0
+    gold_launches = ops.launches["rsnn_train"]
+    if dev.type == "cuda" and gold_launches != commits:
+        fail(f"(n): the golden run launched rsnn_train {gold_launches} times, "
+             f"not once for each of its {commits} commits")
+    moved = _moved("(n) golden learner", gold, w_start)
+    log(f"(n) golden: {commits} END_B commits over {n_train} training samples, "
+        f"{FT_SPB} a batch (T={FT_TICKS}, "
+        f"quantized, stochastic commits) in {golden_s:.3f} s, in-process on {dev}; "
+        f"weight codes changed from the initial image {moved}")
+
+    kill_at = int(np.random.default_rng(SEED).integers(*FT_KILL_RANGE))
+    drills = [(f"SIGKILL at commit {kill_at}", ["--kill-at-commit", kill_at]),
+              (f"SIGKILL at step {FT_MID_SAVE_STEP}'s rename",
+               ["--kill-mid-save-step", FT_MID_SAVE_STEP]),
+              (f"SIGTERM at commit {FT_SIGTERM_AT}", ["--sigterm-at-commit", FT_SIGTERM_AT])]
+    worker_launches = 0
+    for i, (name, kill) in enumerate(drills):
+        ck, out = root / f"ck{i}", root / f"out{i}"
+        res = chaos.run_chaos(str(ck), str(out), kill, wargs, timeout=FT_SPAWN_TIMEOUT_S)
+        _bitwise(f"(n) {name}", chaos.load_result_weights(str(out)), gold)
+        for sp in res["spawns"]:
+            st = sp["status"]
+            if st is None or st["device"] != dev.type or st["built"]:
+                fail(f"(n) {name}: a worker reported {st} (rc {sp['rc']}): each must run "
+                     f"on {dev.type} and load the library (a) built")
+            if dev.type == "cuda" and st["rsnn_train"] <= 0:
+                fail(f"(n) {name}: a worker launched rsnn_train {st['rsnn_train']} times")
+            worker_launches += st["rsnn_train"]
+        first_rc = res["spawns"][0]["rc"]
+        if i < 2 and first_rc != -signal.SIGKILL:
+            fail(f"(n) {name}: the doomed worker exited {first_rc}, not by SIGKILL")
+        if i == 1 and (list(ck.glob("*.tmp")) or res["resumed_from"] is None
+                       or res["resumed_from"] >= FT_MID_SAVE_STEP):
+            fail(f"(n) {name}: resumed from {res['resumed_from']}, torn saves "
+                 f"{[p.name for p in ck.glob('*.tmp')]}")
+        if i == 2 and (first_rc != chaos.STOPPED_RC or res["resumed_from"] != FT_SIGTERM_AT):
+            fail(f"(n) {name}: first worker rc {first_rc}, resumed from {res['resumed_from']}")
+        if res["resumed_from"] is None or res["commits"] != commits:
+            fail(f"(n) {name}: resumed from {res['resumed_from']}, {res['commits']} commits")
+        log(f"(n) ok: {name}: {res['restarts']} restart(s), resumed from commit "
+            f"{res['resumed_from']}, bitwise equal to the golden run; spawns "
+            f"{[round(sp['seconds'], 3) for sp in res['spawns']]} s (rc "
+            f"{[sp['rc'] for sp in res['spawns']]}), recovery_s by worker "
+            f"{[round(sp['status']['recovery_s'], 3) for sp in res['spawns']]}, the last "
+            f"worker's wall_s {res['wall_s']:.3f}; rsnn_train launches by worker "
+            f"{[sp['status']['rsnn_train'] for sp in res['spawns']]}")
+
+    # the Trainer over make_eprop_commit_step, round-nearest commits:
+    # golden, then stopped by SIGTERM at step FT_TRAINER_STOP and resumed
+    opt = EpropSGD(dataclasses.replace(QUANT_OPT, stochastic_round=False))
+    w0 = opt.quantize_init(trainable(init_params(torch.Generator().manual_seed(SEED),
+                                                 learner.cfg, device=dev)))
+    steps = commits
+
+    def trainer(directory, stop_at=None):
+        fn = make_eprop_commit_step(learner.cfg, opt, learner.backend)
+        calls = [0]
+
+        def step(params, opt_state, batch):
+            out = fn(params, opt_state, batch)
+            calls[0] += 1
+            if calls[0] == stop_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        cur = ReplayCursor()
+        return Trainer(step, dict(w0), opt.init(w0), epoch_batches(pipe, cursor=cur),
+                       TrainerConfig(total_steps=steps, log_every=1),
+                       checkpoint=CheckpointPolicy(directory=directory, every=1, keep=0),
+                       cursor=cur)
+
+    gold_tr = trainer(root / "trainer_gold")
+    gold_tr.run()
+    a = trainer(root / "trainer", stop_at=FT_TRAINER_STOP)
+    a.install_signal_handlers()
+    try:
+        out_a = a.run()
+    finally:
+        a.restore_signal_handlers()
+    b = trainer(root / "trainer")
+    if not (out_a["stopped_by_signal"] and b.restore() and b.step == FT_TRAINER_STOP):
+        fail(f"(n) Trainer: stopped {out_a}, restored at step {b.step}")
+    out_b = b.run()
+    host = {k: v.cpu().numpy() for k, v in b.params.items()}
+    _bitwise("(n) Trainer resumed after SIGTERM", host,
+             {k: v.cpu().numpy() for k, v in gold_tr.params.items()})
+    moved = _moved("(n) golden Trainer", {k: v.cpu().numpy() for k, v in gold_tr.params.items()},
+                   {k: v.cpu().numpy() for k, v in w0.items()})
+    hist = [h.metrics for h in gold_tr.metrics.history]
+    losses = [m["loss"] for m in hist]
+    if (out_b["step"] != steps or out_b["rejected_steps"] or len(hist) != steps
+            or not np.all(np.isfinite(losses))):
+        fail(f"(n) Trainer: {out_b}, {len(hist)} logged steps, losses {losses}")
+    log(f"(n) ok: Trainer over make_eprop_commit_step (round-nearest commits): stopped "
+        f"by SIGTERM at step {FT_TRAINER_STOP}, resumed from its checkpoint, "
+        f"{steps} steps bitwise equal to the uninterrupted run; weight codes changed "
+        f"{moved}; loss by step {[round(x, 1) for x in losses]}, accuracy by step "
+        f"{[round(m['accuracy'], 3) for m in hist]}")
+
+    # what a checkpoint of the learner costs on the commit path
+    timed, _ = chaos.build_learner(str(root / "timed"), device=dev, **shape)
+    _sync(dev)
+    t0 = time.perf_counter()
+    timed.save_checkpoint(blocking=True)
+    blocking_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed.save_checkpoint(blocking=False)
+    enqueue_s = time.perf_counter() - t0
+    timed.ckpt.wait()
+    launches = ops.launches["rsnn_train"]
+    log(f"(n) ok: a blocking save of the learner's state {blocking_s:.5f} s, "
+        f"save_async's enqueue {enqueue_s:.5f} s; rsnn_train launches in-process "
+        f"{launches}, in the workers {worker_launches}; (n) took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return launches, worker_launches
+
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
@@ -1582,6 +1788,9 @@ def main() -> None:
     lws_launches, _ = phase_learn_while_serve(dev)   # resets the counts itself
     for k in lws_launches:
         by_path[k]["learn_while_serve"] = launches[k] = lws_launches[k]
+    ft_launches, ft_worker_launches = phase_fault_tolerance(dev)   # resets them too
+    by_path["rsnn_train"]["fault_tolerance"] = ft_launches
+    by_path["rsnn_train"]["fault_tolerance_workers"] = ft_worker_launches
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))

@@ -8,6 +8,11 @@ card).  The JAX side hands its
 parameters over as NumPy arrays (``{k: np.asarray(v) for k, v in
 params.items()}``); this module imports nothing of it.
 
+Optimizer state (:func:`opt_state_from_jax`): the JAX package's
+``EpropSGD`` state ``{"count": int32 (), "acc": {...}, "mu": {...}}`` (each
+present only when its mode is on) maps key for key onto the port's, so a
+run of either package can start from the other's state.
+
 LM (:func:`lm_params_from_jax`): the port keeps the JAX parameter tree's
 layout (nested dicts, the stacked layer axis), so the conversion is a tree
 map that checks every key, shape and dtype against the config's tree.  A
@@ -41,6 +46,25 @@ def params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = None
         k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
         for k, v in params.items()
     }
+
+
+def opt_state_from_jax(state: Dict[str, Any], device: DeviceLike = None
+                       ) -> Dict[str, Any]:
+    """Map the JAX package's ``EpropSGD`` state (NumPy leaves) onto the
+    port's on ``device`` (the card unless the caller passes ``"cpu"``): the
+    sample counter stays an exact int32, the residuals ``acc`` and the
+    momentum ``mu`` are float32 copies keyed like the weights.  Unknown
+    keys raise."""
+    unknown = set(state) - {"count", "acc", "mu"}
+    if unknown:
+        raise ValueError(f"unknown optimizer state keys {sorted(unknown)}")
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {
+        "count": torch.from_numpy(np.array(state["count"], dtype=np.int32)).to(dev)}
+    for key in ("acc", "mu"):
+        if key in state:
+            out[key] = params_from_jax(state[key], device=dev)
+    return out
 
 
 def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None

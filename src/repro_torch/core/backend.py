@@ -116,6 +116,12 @@ class ExecutionBackend:
         self._dp: Optional[Tuple[torch.Tensor, ...]] = None
         self._dp_src: Tuple = ()
 
+    @property
+    def num_devices(self) -> int:
+        """Devices the backend runs on (one: the port has no mesh yet);
+        a learner records it in its checkpoint manifests."""
+        return 1
+
     # -------------------------------------------------------- compatibility
 
     def check_compatible(self, rt: RuntimeConfig) -> None:

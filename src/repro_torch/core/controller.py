@@ -28,15 +28,23 @@ serves each new image from its next launched tile: the paper's
 learning-while-serving loop.
 
 Random bits (stochastic commits) come from a ``torch.Generator`` on the
-learner's device; they cannot match ``jax.random``.  Checkpointing and
-signal handling are not part of the port yet: :class:`OnlineLearner`
-raises when asked for a checkpoint policy.
+learner's device; they cannot match ``jax.random``.
+
+A learner given a :class:`~repro_torch.distributed.checkpoint.
+CheckpointPolicy` cuts a durable checkpoint every ``policy.every``-th
+commit (the weights, the optimizer state, the generator's state and the
+replay cursor) and ``fit(resume=True)`` continues from the newest one,
+bitwise equal to a run that was never interrupted.  The generator's state
+is the device's own (a 16-byte Philox seed and offset on the card, the
+5,056-byte mt19937 state on the CPU), so a learner checkpoint restores
+only onto a learner on the same device type.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import signal
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -44,6 +52,12 @@ from repro_torch.core import aer, eprop
 from repro_torch.core.backend import ExecutionBackend
 from repro_torch.core.rsnn import RSNNConfig, init_params, merge_trainable, trainable
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.checkpoint import (
+    CheckpointManager,
+    CheckpointPolicy,
+    ReplayCursor,
+    place_like,
+)
 from repro_torch.optim.eprop_opt import EpropSGD, EpropSGDConfig
 
 
@@ -217,6 +231,15 @@ class OnlineLearner:
     commit makes new tensors) and the registry loads each image into
     tensors of its own, so a tile launched before a publish keeps the image
     it read.
+
+    ``checkpoint`` (a :class:`~repro_torch.distributed.checkpoint.
+    CheckpointPolicy`) arms durability: every ``policy.every``-th commit
+    saves the weights, the ``EpropSGD`` residuals and sample count, the
+    generator's state and the :class:`ReplayCursor` (asynchronously by
+    default), with the backend's register contract, the commit mode and
+    the generator's device type in the manifest.  ``fit(resume=True)``
+    restores the newest complete checkpoint and replays the batches the
+    interrupted run would have consumed.
     """
 
     def __init__(
@@ -229,12 +252,8 @@ class OnlineLearner:
         registry=None,
         model_id: Optional[str] = None,
         publish_every: int = 1,
-        checkpoint=None,
+        checkpoint: Optional[CheckpointPolicy] = None,
     ):
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported yet: OnlineLearner runs without "
-                "a checkpoint policy")
         gen = (seed if isinstance(seed, torch.Generator)
                else torch.Generator().manual_seed(int(seed)))
         self.cfg, self.ctrl = cfg, ctrl
@@ -260,6 +279,14 @@ class OnlineLearner:
         self.registry = registry
         self.model_id = model_id if model_id is not None else "default"
         self.publish_every = max(1, int(publish_every))
+        # ---- durability
+        self.policy = checkpoint
+        self.ckpt: Optional[CheckpointManager] = (
+            checkpoint.manager() if checkpoint is not None else None)
+        self.cursor = ReplayCursor()
+        self._stop = False            # set by the SIGTERM/SIGINT handler
+        self._on_commit: Optional[Callable] = None
+        self._old_handlers: Dict[int, object] = {}
         if registry is not None:
             if self.model_id in registry:
                 registry.update_weights(self.model_id, self.inference_params())
@@ -278,20 +305,35 @@ class OnlineLearner:
     def train_batch(self, batch: DeviceBatch) -> Dict[str, torch.Tensor]:
         """Train on one device batch: one END_B commit, or one END_S loop
         over its samples, per ``ctrl.commit``; publishes after every
-        ``publish_every``-th commit when a registry is attached."""
+        ``publish_every``-th commit when a registry is attached, and cuts a
+        checkpoint every ``policy.every``-th when a policy is armed."""
         self.weights, self.opt_state, m = self._train_fn(
             self.weights, self.opt_state, batch, self.generator)
         self.commits += 1
         if self.registry is not None and self.commits % self.publish_every == 0:
             self.publish()
+        if self.policy is not None and self.commits % self.policy.every == 0:
+            self.save_checkpoint()
+        if self._on_commit is not None:
+            self._on_commit(self, self.commits)
         return m
 
     def train_epoch(self, pipeline, epoch: int, start_batch: int = 0) -> float:
+        """One training epoch; ``start_batch`` resumes mid-epoch.  The
+        cursor moves to ``(epoch, i + 1)`` *before* batch ``i`` trains, so
+        a checkpoint cut at its commit names the first batch a resumed run
+        must consume.  Stops after the batch in flight on a signal."""
         correct = total = 0
-        for batch in pipeline.batches("train", epoch, start_batch=start_batch):
+        batches = pipeline.batches("train", epoch, start_batch=start_batch)
+        for i, batch in enumerate(batches, start=start_batch):
+            self.cursor.epoch, self.cursor.batch = epoch, i + 1
             m = self.train_batch(batch)
             correct += int(m["correct"])
             total += int(m["count"])
+            if self._stop:
+                break
+        else:
+            self.cursor.epoch, self.cursor.batch = epoch + 1, 0
         acc = correct / max(total, 1)
         self.log.train_acc.append(acc)
         return acc
@@ -312,12 +354,136 @@ class OnlineLearner:
         (:meth:`repro_torch.serve.BatchedEngine.from_learner`) snapshots."""
         return merge_trainable({"alpha": self.alpha}, self.weights)
 
-    def fit(self, pipeline, verbose: bool = False) -> EpochLog:
-        """Run the configured epochs, validating every ``eval_every``."""
-        for epoch in range(self.ctrl.num_epochs):
-            tr = self.train_epoch(pipeline, epoch)
+    # --------------------------------------------------------- durability
+
+    def _ckpt_state(self) -> Dict[str, object]:
+        """The restorable state: the SRAM weight image, the optimizer's
+        residuals and sample count, and the generator's state (a CPU
+        ``uint8`` tensor whatever the generator's device)."""
+        return {"weights": self.weights, "opt_state": self.opt_state,
+                "generator": self.generator.get_state()}
+
+    def _quant_contract(self) -> Optional[Dict]:
+        q = self.backend.quant
+        return None if q is None else q.contract()
+
+    def _need_ckpt(self) -> CheckpointManager:
+        if self.ckpt is None:
+            raise ValueError(
+                "learner has no checkpoint policy: construct with checkpoint=")
+        return self.ckpt
+
+    def save_checkpoint(self, blocking: Optional[bool] = None) -> None:
+        """Cut a checkpoint at the current commit count; ``blocking=None``
+        follows ``policy.async_save``.  The manifest holds what a restore
+        checks or replays: the commit count, the cursor, the commit mode,
+        the register contract, the device count and the generator's
+        device type."""
+        ckpt = self._need_ckpt()
+        blocking = not self.policy.async_save if blocking is None else blocking
+        extra = {
+            "kind": "online_learner",
+            "commits": int(self.commits),
+            "cursor": self.cursor.as_manifest(),
+            "commit_mode": self.ctrl.commit,
+            "quant": self._quant_contract(),
+            "mesh_devices": int(self.backend.num_devices),
+            "model": self.model_id,
+            "generator_device": self.generator.device.type,
+        }
+        save = ckpt.save if blocking else ckpt.save_async
+        save(self.commits, self._ckpt_state(), extra)
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> bool:
+        """Restore the newest complete checkpoint (or ``step``), checked
+        against this learner.
+
+        Returns ``False`` when the directory holds no complete checkpoint.
+        Raises :class:`ValueError` when the checkpoint was cut under
+        another register contract or commit mode, or by a learner whose
+        generator is on another device type: its ``['generator']`` leaf
+        cannot seed this learner's generator, and reseeding would give a
+        run that is not the uninterrupted one.  A checkpoint of the JAX
+        package's learner has a ``['key']`` leaf in place of
+        ``['generator']`` and is refused the same way.  An
+        attached registry is re-published at once, so live serving lanes
+        serve the restored image from their next tile.
+        """
+        ckpt = self._need_ckpt()
+        if step is None:
+            step = ckpt.latest_step()
+        if step is None:
+            return False
+        manifest = ckpt.manifest(step)
+        want = self._quant_contract()
+        got = manifest.get("quant")
+        if got != want:
+            raise ValueError(
+                "checkpoint was cut under a different quantized register "
+                f"contract:\n  checkpoint: {got}\n  this learner: {want}")
+        if manifest.get("commit_mode") != self.ctrl.commit:
+            raise ValueError(
+                f"checkpoint was cut in commit={manifest.get('commit_mode')!r} "
+                f"mode, this learner runs commit={self.ctrl.commit!r}")
+        dev_type, saved = self.generator.device.type, manifest.get("generator_device")
+        if saved != dev_type:
+            held = ("no ['generator'] leaf" if saved is None else
+                    f"a {saved} generator's state in its ['generator'] leaf")
+            raise ValueError(
+                f"checkpoint holds {held}; this learner's generator is on "
+                f"{dev_type}, and reseeding it would not resume the run")
+        state = self._ckpt_state()
+        host, manifest = ckpt.restore(step, state)
+        placed = place_like(state, host)
+        self.weights, self.opt_state = placed["weights"], placed["opt_state"]
+        self.generator.set_state(placed["generator"])
+        self.commits = int(manifest["commits"])
+        self.cursor = ReplayCursor.from_manifest(manifest["cursor"])
+        if self.registry is not None:
+            self.publish()
+        return True
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT: finish the batch in flight, cut a final blocking
+        checkpoint and return from :meth:`fit` (:attr:`stopped_by_signal`)."""
+        for s in (signal.SIGTERM, signal.SIGINT):
+            self._old_handlers[s] = signal.signal(s, self._on_term)
+
+    def _on_term(self, signum, frame) -> None:
+        self._stop = True
+
+    def restore_signal_handlers(self) -> None:
+        for s, h in self._old_handlers.items():
+            signal.signal(s, h)
+        self._old_handlers = {}
+
+    @property
+    def stopped_by_signal(self) -> bool:
+        return self._stop
+
+    def fit(self, pipeline, verbose: bool = False, resume: bool = False,
+            on_commit: Optional[Callable] = None) -> EpochLog:
+        """Run the configured epochs, validating every ``eval_every``.
+        ``resume=True`` restores the newest checkpoint first and replays
+        from its cursor; ``on_commit(learner, commits)`` runs after every
+        commit, its checkpoint already cut.  With a policy, ends with a
+        blocking save."""
+        if on_commit is not None:
+            self._on_commit = on_commit
+        if resume and self.ckpt is not None:
+            self.restore_checkpoint()
+        start_batch = self.cursor.batch
+        for epoch in range(self.cursor.epoch, self.ctrl.num_epochs):
+            tr = self.train_epoch(pipeline, epoch, start_batch=start_batch)
+            start_batch = 0
+            if self._stop:
+                break
             va = (self.eval_epoch(pipeline, epoch)
                   if (epoch + 1) % self.ctrl.eval_every == 0 else float("nan"))
             if verbose:
                 print(f"epoch {epoch:4d}  train_acc={tr:.3f}  val_acc={va:.3f}")
+        if self.ckpt is not None:
+            self.ckpt.wait()
+            self.save_checkpoint(blocking=True)
         return self.log
+

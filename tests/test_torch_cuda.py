@@ -784,3 +784,53 @@ def test_nan_quarantine_leaves_tile_mates_unchanged_on_card(cuda_device):
     for i, (g, w) in enumerate(zip(got, clean)):
         if i != 2:
             np.testing.assert_array_equal(g.logits, w.logits)
+
+
+@pytest.mark.cuda
+def test_chaos_sigkill_resumes_bitwise_on_card(cuda_device, tmp_path):
+    """A chaos worker on the card (the worker's default device), SIGKILLed
+    at commit 2 once a checkpoint is on disk and restarted, ends bitwise on
+    an uninterrupted run on the card, with rsnn_train launched in every
+    worker; a learner restored from those checkpoints re-publishes into a
+    registry, and an engine lane on the card serves the restored image
+    bitwise as an engine on the CPU does."""
+    import signal
+
+    from repro_torch.data.braille import BrailleConfig, make_braille_dataset
+    from repro_torch.data.pipeline import EventStream
+    from repro_torch.serve import ModelRegistry
+    from repro_torch.train import chaos
+
+    kw = dict(epochs=2, samples_per_class=8, num_ticks=32, spb=12)
+    gold = chaos.golden_run(device=cuda_device, **kw)
+    out = str(tmp_path / "result")
+    res = chaos.run_chaos(str(tmp_path / "ck"), out, ["--kill-at-commit", 2],
+                          ["--epochs", 2, "--samples-per-class", 8, "--ticks", 32,
+                           "--spb", 12])
+    got = chaos.load_result_weights(out)
+    assert sorted(got) == sorted(gold)
+    for k in gold:
+        np.testing.assert_array_equal(got[k], gold[k])
+    assert res["spawns"][0]["rc"] == -signal.SIGKILL and res["resumed_from"] is not None
+    for sp in res["spawns"]:
+        assert sp["status"]["device"] == "cuda" and sp["status"]["rsnn_train"] > 0
+
+    reg = ModelRegistry()
+    b, _ = chaos.build_learner(str(tmp_path / "ck"), device=cuda_device, registry=reg,
+                               seed=17, **kw)
+    eng = BatchedEngine(registry=reg, model_id=b.model_id, device=cuda_device,
+                        max_batch=4, tick_granularity=32)
+    assert b.restore_checkpoint()
+    for k in gold:
+        np.testing.assert_array_equal(b.weights[k].cpu().numpy(), gold[k])
+    data = make_braille_dataset("AEU", BrailleConfig(samples_per_class=8, num_ticks=32))
+    reqs = list(EventStream(data, "test"))
+    ops.reset_launch_counts()
+    res_card, _ = eng.serve(iter(reqs))
+    assert ops.launches["rsnn_step_sessions"] > 0      # serve()'s whole-sample tiles
+    host = {k: v.cpu() for k, v in b.inference_params().items()}
+    res_cpu, _ = BatchedEngine(b.cfg, host, device="cpu", max_batch=4,
+                               tick_granularity=32).serve(iter(reqs))
+    for r, w in zip(res_card, res_cpu):
+        assert r.pred == w.pred
+        np.testing.assert_array_equal(r.logits, w.logits)

@@ -483,13 +483,10 @@ def test_pipelines_give_jax_batches(mode, label_delay):
         assert tp.stats.transfers > 0
 
 
-def test_learner_rejects_checkpoint_policy_and_needs_card(monkeypatch):
+def test_learner_needs_the_card(monkeypatch):
     from repro_torch.core.controller import ControllerConfig, OnlineLearner
 
     cfg = Presets.braille(num_ticks=8)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        OnlineLearner(cfg, ControllerConfig(), EpropSGDConfig(), 0, device="cpu",
-                      checkpoint=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         OnlineLearner(cfg, ControllerConfig(), EpropSGDConfig(), 0)
