@@ -113,7 +113,27 @@ before any profiler session):
       prints each
       spawn's seconds, each worker's recovery_s, a blocking save's and
       save_async's enqueue seconds and (n)'s total.  (n)'s in-process and
-      worker rsnn_train launches are in the kernels line's launches_by_path.
+      worker rsnn_train launches are in the kernels line's launches_by_path;
+  (o) data-parallel END_B learning and serving and the integer commit grid
+      (after (n), before (f)): rsnn_train(..., commit_grid=DW_COMMIT_SPEC)
+      at Braille T=128 (B=70, B=1, a ragged B=11, quantized and float) and at
+      256/256/16 (the device-scratch dw path, B=8): the int32 codes of
+      rsnn_dw_codes_reduce_kernel equal its plain version (the rows'
+      partials snapped and summed) bitwise, the partials, acc_y and n_spk
+      equal the float launch's, and the codes agree with the plain B=1 loop
+      within TRAIN_DW_TOL of max|dw| plus B lsb; the codes of one launch
+      equal the int32 sums of its 8-way and 4-way padded shard launches and
+      of B one-row launches, bitwise; then on a one-rank NCCL world the
+      backend's sharded launches (pad, slice, collectives) of _train (float
+      and commit grid), _inference and _step_sessions, each bitwise equal
+      to its unsharded launch (their launches are the kernels line's
+      launches_by_path "data_parallel"); the codes reduce's profiler time
+      beside the float reduce's, one END_B commit's wall with and without
+      the grid, the NCCL all_reduce of the three dw; then the deterministic
+      chaos drill on the card (--deterministic --mesh-devices 1, SIGKILL at
+      a seeded commit), bitwise on its golden run, with every rsnn_train
+      launch of the golden run and of every worker reduced onto the grid
+      (the workers report commit_grid and their grid launches).
 """
 
 from __future__ import annotations
@@ -1621,7 +1641,9 @@ def phase_fault_tolerance(dev):
              {k: v.cpu().numpy() for k, v in gold_tr.params.items()})
     moved = _moved("(n) golden Trainer", {k: v.cpu().numpy() for k, v in gold_tr.params.items()},
                    {k: v.cpu().numpy() for k, v in w0.items()})
-    hist = [h.metrics for h in gold_tr.metrics.history]
+    # every step's log entry (the straggler watchdog's extra entries come
+    # from the host's wall clock)
+    hist = [h.metrics for h in gold_tr.metrics.history if "straggler" not in h.metrics]
     losses = [m["loss"] for m in hist]
     if (out_b["step"] != steps or out_b["rejected_steps"] or len(hist) != steps
             or not np.all(np.isfinite(losses))):
@@ -1648,6 +1670,290 @@ def phase_fault_tolerance(dev):
         f"{launches}, in the workers {worker_launches}; (n) took "
         f"{time.perf_counter() - t_start:.1f} s")
     return launches, worker_launches
+
+# ---------------------------------------------------------------------------
+# (o) data-parallel END_B learning and serving, the integer commit grid
+# ---------------------------------------------------------------------------
+
+
+def _kernel_ms(fn, prefix, iters=20):
+    """Median device time of the kernel whose name starts with ``prefix``
+    over ``iters`` calls of ``fn``, from torch.profiler; None when the trace
+    holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and e.name.startswith(prefix)]
+    return float(np.median(us)) / 1e3 if us else None
+
+
+def _leaves(result):
+    """The tensors of an op's result (a dict, or a tuple of dicts)."""
+    dicts = result if isinstance(result, tuple) else (result,)
+    return [t for d in dicts for t in d.values()]
+
+
+def _codes_flat(out):
+    return torch.cat([c.reshape(-1) for c in out[:3]])
+
+
+def _shard_codes(E, args, kw, grid, shards):
+    """The int32 sum of the codes of ``shards`` launches over a padded
+    split of the batch (zero rows: zero raster, y* and valid)."""
+    raster, y_star, valid, *w = args
+    B = raster.shape[1]
+    per = -(-B // shards)
+    pad = per * shards - B
+    raster = torch.cat([raster, raster.new_zeros((raster.shape[0], pad, raster.shape[2]))], 1)
+    y_star = torch.cat([y_star, y_star.new_zeros((pad, y_star.shape[1]))], 0)
+    valid = torch.cat([valid, valid.new_zeros((valid.shape[0], pad))], 1)
+    total = None
+    for i in range(shards):
+        sl = slice(i * per, (i + 1) * per)
+        c = _codes_flat(E.rsnn_train_cuda(
+            raster[:, sl].contiguous(), y_star[sl].contiguous(), valid[:, sl].contiguous(),
+            *w, **kw, commit_grid=grid))
+        total = c if total is None else total + c
+    return total
+
+
+def phase_data_parallel(dev):
+    """(o) the data-parallel slice: rsnn_train's codes reduction against
+    its plain version and the partition invariance of the codes, the
+    sharded backend methods on a one-rank NCCL world against the unsharded
+    backend, and the deterministic chaos drill on the card.  Returns the
+    launches of the sharded methods by kernel and the commit grid's
+    numbers for the kernels line."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT, QUANT_OPT
+    from repro_torch.core.backend import ExecutionBackend, RuntimeConfig
+    from repro_torch.core.controller import batch_commit_update
+    from repro_torch.core.quant import DW_COMMIT_SPEC as GRID
+    from repro_torch.core.rsnn import Presets, init_params, trainable
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.optim.eprop_opt import EpropSGD
+    from repro_torch.train import chaos
+
+    t_start = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    T = 128
+    braille_q = Presets.braille(num_ticks=T, quantized=True)
+    braille_f = Presets.braille(num_ticks=T, quantized=False)
+    chipmax_q = Presets.braille(num_ticks=T, quantized=True, n_in=256, n_hid=256, n_out=16)
+    chipmax_q = dataclasses.replace(
+        chipmax_q, neuron=dataclasses.replace(chipmax_q.neuron, reset="sub"))
+    chipmax_f = dataclasses.replace(chipmax_q, neuron=dataclasses.replace(
+        chipmax_q.neuron, quant=None))
+    cases = [("braille quant END_B tile", braille_q, 70), ("braille quant B=1", braille_q, 1),
+             ("braille quant ragged", braille_q, 11), ("braille float END_B tile", braille_f, 70),
+             ("braille float B=1", braille_f, 1), ("braille float ragged", braille_f, 11),
+             ("chip-max quant (device scratch)", chipmax_q, 8),
+             ("chip-max float (device scratch)", chipmax_f, 8)]
+    for name, cfg, B in cases:
+        be = ExecutionBackend(cfg, device=dev)
+        params = init_params(gen, cfg, device=dev)
+        params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+                  if k in ("w_in", "w_rec", "w_out") else v for k, v in params.items()}
+        args = (*_train_inputs(gen, T, B, cfg, 0.12 if cfg.n_in == 12 else 0.05, dev),
+                *be.datapath_weights(params), be._feedback(params))
+        kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+                  reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+                  quant=be.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+        got = E.rsnn_train_cuda(*args, **kw, commit_grid=GRID, return_partials=True)
+        flt = E.rsnn_train_cuda(*args, **kw, return_partials=True)
+        torch.cuda.synchronize()
+        codes, part = _codes_flat(got), got[5]
+        if codes.dtype != torch.int32 or not torch.equal(
+                codes, E.dw_codes_reduce_plain(part, GRID)):
+            fail(f"(o) {name}: rsnn_dw_codes_reduce_kernel differs from its plain version "
+                 "over the same per-row partials")
+        if not torch.equal(part, flt[5]) or not all(torch.equal(a, b) for a, b in
+                                                     zip(got[3:5], flt[3:5])):
+            fail(f"(o) {name}: the grid launch's partials, acc_y or n_spk differ from the "
+                 "float launch's")
+        # end to end against the plain B=1 loop: the float dw tolerance,
+        # plus one lsb a row for a code that rounds the other way
+        plain = E.rsnn_train_plain(*args, **kw, commit_grid=GRID)
+        torch.cuda.synchronize()
+        worst_codes = 0
+        for g_, p_, f_ in zip(got[:3], plain[:3], flt[:3]):
+            err = _err(g_.double() * GRID.lsb, p_.double() * GRID.lsb)
+            lim = TRAIN_DW_TOL * float(f_.abs().max()) + B * GRID.lsb
+            if err > lim:
+                fail(f"(o) {name}: grid commit off the plain B=1 loop by {err} (> {lim})")
+            worst_codes = max(worst_codes, int((g_ - p_).abs().max()))
+        _compare(f"(o) {name} acc_y/n_spk", got[3:5], plain[3:5], cfg.neuron.quant is not None,
+                 [])
+        # partition invariance: one launch == 8-way and 4-way padded shards
+        # == one launch a row
+        one_a_row = _shard_codes(E, args, kw, GRID, B)
+        for shards in (8, 4):
+            if not torch.equal(_shard_codes(E, args, kw, GRID, shards), codes):
+                fail(f"(o) {name}: the codes of {shards} shard launches differ from one launch")
+        if not torch.equal(one_a_row, codes):
+            fail(f"(o) {name}: the codes of {B} one-row launches differ from one launch")
+        log(f"(o) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}): codes == "
+            f"plain reduce of the partials bitwise; vs the plain B=1 loop max |Δcode| "
+            f"{worst_codes}; one launch == 8 and 4 padded shards == {B} one-row launches, "
+            f"bitwise; max |code| {int(codes.abs().max())}")
+
+    # the sharded methods themselves on a one-rank NCCL world, against the
+    # unsharded backend, bitwise
+    rdv = Path(tempfile.mkdtemp(prefix="world-", dir=Path(__file__).resolve().parent / "build"))
+    meshlib.join_world(0, 1, f"file://{rdv / 'rendezvous'}", device="cuda")
+    if dist.get_backend() != "nccl":
+        fail(f"(o): the one-rank world runs {dist.get_backend()}, not nccl")
+    mesh = meshlib.make_data_mesh(device="cuda")
+    cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
+    params = init_params(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    one = ExecutionBackend(cfg, device=dev)
+    one_grid = ExecutionBackend(cfg, device=dev, runtime=RuntimeConfig(commit_grid=GRID))
+    sh = ExecutionBackend(cfg, device=dev, runtime=RuntimeConfig(mesh=mesh))
+    sh_grid = ExecutionBackend(cfg, device=dev, runtime=RuntimeConfig(mesh=mesh, commit_grid=GRID))
+    if sh.num_devices != 1 or sh._group is None:
+        fail(f"(o): a one-rank mesh gave num_devices {sh.num_devices}, group {sh._group}")
+    raster, y_star, valid = _train_inputs(gen, T, 70, cfg, 0.12, dev)
+    s_raster, s_valid, s_live = _inputs(gen, 256, 512, cfg.n_in, 0.12, dev)
+    carries = [c for c in one.init_session_state(512).values()]
+    # each op's sharded launch (pad, slice, collectives) against its
+    # unsharded one; training on the float sum and on the commit grid
+    calls = [("_train", sh, one, (raster, y_star, valid)),
+             ("_train (commit grid)", sh_grid, one_grid, (raster, y_star, valid)),
+             ("_inference", sh, one, (s_raster, s_valid)),
+             ("_step_sessions", sh, one, (s_raster, s_live, s_valid, carries))]
+    ops.reset_launch_counts()
+    results = [getattr(b, m.split()[0])(params, *a, sharded=True) for m, b, _, a in calls]
+    torch.cuda.synchronize()
+    dp_launches = {k: ops.launches[k] for k in ("rsnn_train", "rsnn_infer",
+                                                "rsnn_step_sessions")}
+    dp_grid = ops.grid_launches["rsnn_train"]
+    for (m, _, ref_be, a), got in zip(calls, results):
+        want = getattr(ref_be, m.split()[0])(params, *a, sharded=False)
+        if not all(torch.equal(x, y) for x, y in zip(_leaves(got), _leaves(want))):
+            fail(f"(o) {m} sharded on a one-rank NCCL world differs from the unsharded launch")
+    if min(dp_launches.values()) <= 0 or dp_launches["rsnn_train"] != 2 or dp_grid != 1:
+        fail(f"(o): the sharded methods launched {dp_launches}, {dp_grid} on the grid")
+    log(f"(o) ok: _train (float and commit grid), _inference and _step_sessions sharded on "
+        f"a one-rank nccl world (T={T} B=70 training, T=256 B=512 serving) bitwise equal "
+        f"to their unsharded launches; launches {dp_launches}, {dp_grid} on the grid")
+
+    # times: the codes reduce beside the float reduce, one END_B commit with
+    # and without the grid, the NCCL all_reduce of the three dw
+    w = one.datapath_weights(params)
+    targs = (raster, y_star, valid, *w, one._feedback(params))
+    tkw = dict(alpha=one.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+               reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+               quant=one.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    E_ = K.weight_elems(cfg.n_in, cfg.n_hid, cfg.n_out)
+    red = {"codes": [], "float": []}
+    for _ in range(2):
+        red["codes"].append(_kernel_ms(lambda: E.rsnn_train_cuda(
+            *targs, **tkw, commit_grid=GRID), "rsnn_dw_codes_reduce_kernel"))
+        red["float"].append(_kernel_ms(lambda: E.rsnn_train_cuda(*targs, **tkw),
+                                       "rsnn_dw_reduce_kernel"))
+    codes_ms = None if None in red["codes"] else min(red["codes"])
+    float_ms = None if None in red["float"] else min(red["float"])
+    part = E.rsnn_train_cuda(*targs, **tkw, return_partials=True)[5]
+    plain_ms = _time(lambda: E.dw_codes_reduce_plain(part, GRID))
+    red_bytes = 70 * E_ * 4 + E_ * 4
+    bound_ms = red_bytes / HBM_BYTES_PER_S * 1e3
+    opt = EpropSGD(QUANT_OPT)
+    batch = {"raster": raster.transpose(0, 1).contiguous(), "valid": valid.transpose(0, 1)
+             .contiguous(), "label": y_star.argmax(dim=1)}
+    walls = {}
+    w0 = opt.quantize_init(trainable(params))
+    for tag, be in (("float", one), ("grid", one_grid), ("float", one), ("grid", one_grid)):
+        st = opt.init(w0)
+        cgen = torch.Generator(device=dev).manual_seed(SEED)
+        batch_commit_update(cfg, opt, be, w0, st, batch, cgen)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            batch_commit_update(cfg, opt, be, w0, st, batch, cgen)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        walls.setdefault(tag, []).append(float(np.median(ts)))
+    dw_flat = torch.zeros(E_, dtype=torch.float32, device=dev)
+    group = mesh.get_group("data")
+    ar_call_ms = _time(lambda: dist.all_reduce(dw_flat, group=group), iters=100)
+    ar_dev_ms = _device_ms(lambda: dist.all_reduce(dw_flat, group=group))
+    meshlib.leave_world()
+    shutil.rmtree(rdv, ignore_errors=True)
+    log(f"(o) rsnn_dw_codes_reduce_kernel {red['codes']} ms (profiler median, two "
+        f"readings) beside rsnn_dw_reduce_kernel {red['float']} ms at T={T} B=70 "
+        f"{cfg.n_in}/{cfg.n_hid}/{cfg.n_out} (E={E_}); plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.6f} ms ({red_bytes} bytes); one END_B commit's wall (median of 20, "
+        f"host clock) float {walls['float']} ms, grid {walls['grid']} ms; NCCL all_reduce "
+        f"of the three dw ({E_ * 4} bytes, one rank) {ar_call_ms:.4f} ms a call (CUDA "
+        f"events), {ar_dev_ms} ms on the card (profiler)")
+
+    # the deterministic chaos drill on the card, one process
+    root = Path(__file__).resolve().parent / "build" / "data_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    shape = dict(epochs=FT_EPOCHS, spb=FT_SPB, samples_per_class=FT_SAMPLES_PER_CLASS,
+                 num_ticks=FT_TICKS)
+    wargs = ["--epochs", FT_EPOCHS, "--spb", FT_SPB, "--samples-per-class",
+             FT_SAMPLES_PER_CLASS, "--ticks", FT_TICKS, "--device", dev.type,
+             "--deterministic"]
+    start, _ = chaos.build_learner(None, device=dev, deterministic=True, **shape)
+    w_start = {k: v.cpu().numpy() for k, v in start.weights.items()}
+    ops.reset_launch_counts()
+    gold = chaos.golden_run(device=dev, deterministic=True, **shape)
+    gold_grid = (ops.launches["rsnn_train"], ops.grid_launches["rsnn_train"])
+    if gold_grid[0] <= 0 or gold_grid[1] != gold_grid[0]:
+        fail(f"(o) deterministic golden learner: {gold_grid[1]} of its {gold_grid[0]} "
+             "rsnn_train launches reduced onto the commit grid")
+    moved = _moved("(o) deterministic golden learner", gold, w_start)
+    kill_at = int(np.random.default_rng(SEED + 1).integers(*FT_KILL_RANGE))
+    res = chaos.run_chaos(str(root / "ck"), str(root / "out"), ["--kill-at-commit", kill_at],
+                          wargs, mesh_devices=1, timeout=FT_SPAWN_TIMEOUT_S)
+    _bitwise(f"(o) deterministic drill, SIGKILL at commit {kill_at}",
+             chaos.load_result_weights(str(root / "out")), gold)
+    first = res["spawns"][0]
+    if first["rc"] != -signal.SIGKILL or res["resumed_from"] is None:
+        fail(f"(o) deterministic drill: first worker rc {first['rc']}, resumed from "
+             f"{res['resumed_from']}")
+    worker_launches = 0
+    for sp in res["spawns"]:
+        st = sp["status"]
+        if (st is None or st["device"] != "cuda" or st["rsnn_train"] <= 0
+                or st["commit_grid"] is not True or st["rsnn_train_grid"] != st["rsnn_train"]):
+            fail(f"(o) deterministic drill: a worker reported {st} (every rsnn_train launch "
+                 "must reduce onto the commit grid)")
+        worker_launches += st["rsnn_train"]
+    log(f"(o) ok: deterministic drill on the card (--deterministic --mesh-devices 1, "
+        f"SIGKILL at commit {kill_at}): resumed from commit {res['resumed_from']}, bitwise "
+        f"equal to the golden run (weight codes changed {moved}); every rsnn_train launch "
+        f"of the golden run ({gold_grid[0]}) and of each worker reduced onto the commit "
+        f"grid; spawns "
+        f"{[round(sp['seconds'], 3) for sp in res['spawns']]} s; (o) took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    grid_row = {"codes_reduce_ms": codes_ms, "float_reduce_ms": float_ms,
+                "codes_reduce_plain_ms": plain_ms, "codes_reduce_bound_ms": bound_ms,
+                "codes_reduce_bound_by": "bytes",
+                "commit_wall_ms": {k: min(v) for k, v in walls.items()},
+                "nccl_all_reduce_call_ms": ar_call_ms, "nccl_all_reduce_device_ms": ar_dev_ms,
+                "shape": f"T={T} B=70 {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}",
+                "drill_worker_launches": worker_launches}
+    return dp_launches, grid_row
+
 
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
@@ -1791,6 +2097,9 @@ def main() -> None:
     ft_launches, ft_worker_launches = phase_fault_tolerance(dev)   # resets them too
     by_path["rsnn_train"]["fault_tolerance"] = ft_launches
     by_path["rsnn_train"]["fault_tolerance_workers"] = ft_worker_launches
+    dp_launches, grid_row = phase_data_parallel(dev)     # resets them too
+    for k, n in dp_launches.items():
+        by_path[k]["data_parallel"] = n
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
@@ -1828,6 +2137,7 @@ def main() -> None:
         })
         if name == "rsnn_train":
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]
+            kernels[-1]["commit_grid"] = grid_row
         if name == "rsnn_forward":
             kernels[-1]["other_batches"] = [rows["rsnn_forward B=1"],
                                             rows["rsnn_forward B=2048"]]

@@ -1,5 +1,4 @@
-"""Execution backend (counterpart of :mod:`repro.core.backend`,
-single-device ops).
+"""Execution backend (counterpart of :mod:`repro.core.backend`).
 
 One :class:`ExecutionBackend` per network config owns the device, the
 datapath constants and the weights as the kernels consume them.  Its ops:
@@ -29,6 +28,28 @@ weights (snapped onto the membrane grid in quantized mode, self-recurrence
 masked) once per weight image and counts each derivation in
 :attr:`ExecutionBackend.rebuilds`; launching a new tile shape rebuilds
 nothing (PyTorch runs eagerly and the kernels take any shape).
+
+**Data parallelism** (``RuntimeConfig(mesh=...)``, a ``("data",)``
+:class:`~torch.distributed.device_mesh.DeviceMesh` from
+:func:`repro_torch.launch.mesh.make_data_mesh`).  The SPMD contract of the
+reference's global arrays: every rank of the mesh calls an op with the
+same global, replicated inputs; the backend pads the sample axis to a
+multiple of the rank count (zero rows, inert), each rank runs the kernel
+on its own slice, and every rank gets the same global outputs back —
+``train_tile`` sums the three ``dw`` over the ranks (``all_reduce``),
+per-sample outputs and session carries are gathered (``all_gather``), and
+the spike rate sums the ranks' integer spike and valid counts, so it is
+bitwise the unsharded rate.  So the learner, the engine and the pipelines
+run unchanged on every rank.  A one-rank mesh runs unsharded, as in the
+reference.  A rank's collectives run on its device: NCCL on the card,
+gloo on the CPU; a mesh of another device type than the backend's raises.
+
+**The integer commit grid** (``RuntimeConfig(commit_grid=DW_COMMIT_SPEC)``):
+``train_tile`` sums each sample's ``dw`` as int32 codes on the grid
+(``rsnn_train(..., commit_grid=)``: ``rsnn_dw_codes_reduce_kernel`` on the
+card), ``all_reduce``-s the codes across ranks and converts to float
+once, so an END_B commit is bitwise the same on 1, 4 or 8 ranks — what the
+elastic 8 -> 4 restart relies on.
 """
 
 from __future__ import annotations
@@ -37,13 +58,16 @@ import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import eprop
-from repro_torch.core.quant import QuantizedMode
+from repro_torch.core.quant import QuantizedMode, QuantSpec
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.launch import cdiv
 from repro_torch.kernels.rsnn_step import forward_plan, max_batch_for_dims, serve_plan
+from repro_torch.launch.mesh import DATA_AXIS
 
 STATE_KEYS = ("v", "z", "y", "acc_y", "n_spk")
 MAX_TICKS = 4096   # the AER bus's 12-bit tick counter
@@ -58,6 +82,14 @@ class RuntimeConfig:
     device: Optional[str] = None
     alpha: Optional[float] = None
     quant: Optional[QuantizedMode] = None
+    # Data parallelism: a ("data",) DeviceMesh of the current world (see
+    # the module docstring); the sample axis is sharded over it.
+    mesh: object = None
+    # Deterministic END_B: sum each sample's dw as int32 codes on this grid
+    # (core.quant.DW_COMMIT_SPEC), so a commit does not depend on how the
+    # sample axis is split.  None keeps the float sum: bitwise on a fixed
+    # mesh, to float tolerance across mesh sizes.
+    commit_grid: Optional[QuantSpec] = None
     # Which registered model a request acts for — identity only, never part
     # of the execution bucket.
     model_id: Optional[str] = None
@@ -72,13 +104,19 @@ def _merge_runtime(runtime: Optional[RuntimeConfig], **loose) -> RuntimeConfig:
     return dataclasses.replace(rt, **fill) if fill else rt
 
 
+def _same_mesh(a, b) -> bool:
+    return a is b or (a is not None and b is not None and a == b)
+
+
 class ExecutionBackend:
-    """Serving ops for one :class:`RSNNConfig` on one device.
+    """The ops for one :class:`RSNNConfig` on one device, or on one rank of
+    a data mesh.
 
     ``device`` defaults to ``"cuda"`` (raises without a card); ``quant``
     overlays a fixed-point mode on a float config (defaults to
     ``cfg.neuron.quant``); ``alpha`` defaults to the config's and is pinned
-    to ``alpha_reg / 256`` in quantized mode.
+    to ``alpha_reg / 256`` in quantized mode; ``runtime`` may carry a
+    ``mesh`` and a ``commit_grid`` (module docstring).
     """
 
     def __init__(
@@ -104,23 +142,45 @@ class ExecutionBackend:
                     f"({self.quant.alpha}), caller passed {rt.alpha}"
                 )
             self.alpha = self.quant.alpha
+        self.mesh, self.commit_grid = rt.mesh, rt.commit_grid
+        # the data axis's process group (also on a one-rank mesh, which the
+        # public ops run unsharded)
+        self._group = self._data_group() if self.mesh is not None else None
+        # ranks the sample axis is sharded over; a learner records it in
+        # its checkpoint manifests
+        self.num_devices = self.mesh.size() if self.mesh is not None else 1
+        self._sharded = self.num_devices > 1
         self.runtime = RuntimeConfig(device=str(self.device), alpha=self.alpha,
-                                     quant=self.quant)
+                                     quant=self.quant, mesh=self.mesh,
+                                     commit_grid=self.commit_grid)
         H = cfg.n_hid
         if cfg.eprop.mask_self_recurrence:
             self._mask = 1.0 - torch.eye(H, dtype=torch.float32, device=self.device)
         else:
             self._mask = torch.ones((H, H), dtype=torch.float32, device=self.device)
+        self._mask_codes = self._mask.to(torch.int32)
         self.rebuilds = 0
         self._dp_key: Optional[Tuple] = None
         self._dp: Optional[Tuple[torch.Tensor, ...]] = None
         self._dp_src: Tuple = ()
 
-    @property
-    def num_devices(self) -> int:
-        """Devices the backend runs on (one: the port has no mesh yet);
-        a learner records it in its checkpoint manifests."""
-        return 1
+    def _data_group(self):
+        """The process group of the mesh's ``"data"`` axis, which the sample
+        axis is sharded over."""
+        mesh = self.mesh
+        if tuple(mesh.mesh_dim_names or ()) != (DATA_AXIS,):
+            raise ValueError(
+                f"the RSNN backend shards over a one-axis ({DATA_AXIS!r},) mesh, got "
+                f"axes {mesh.mesh_dim_names}: the LM's (data, model) meshes wait for "
+                "its sharding (ROADMAP A8)")
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh cannot carry a backend on {self.device}: "
+                "the collectives run on the backend's device (NCCL on the card, "
+                "gloo on the CPU)")
+        if mesh.get_coordinate() is None:
+            raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+        return mesh.get_group(DATA_AXIS)
 
     # -------------------------------------------------------- compatibility
 
@@ -138,6 +198,23 @@ class ExecutionBackend:
              "shared backend uses a different alpha than the caller's params")
         need(rt.quant is None or self.quant == rt.quant,
              "shared backend runs a different quantized mode than the caller's")
+        need(rt.mesh is None or _same_mesh(self.mesh, rt.mesh),
+             "shared backend was built over a different mesh than the caller's")
+        need(rt.commit_grid is None or self.commit_grid == rt.commit_grid,
+             "shared backend accumulates END_B on a different commit grid "
+             f"({self.commit_grid}) than the caller's ({rt.commit_grid})")
+
+    def resize(self, mesh) -> "ExecutionBackend":
+        """This backend rebuilt over another (or no) data mesh, everything
+        else the same: the elastic-restore primitive
+        (:func:`repro_torch.distributed.elastic.survive_data_failure`).
+        With a ``commit_grid`` the resized backend's END_B commits are
+        bitwise the original's; without one they agree to the float sum's
+        order.  Returns ``self`` when the mesh is unchanged."""
+        if _same_mesh(mesh, self.mesh):
+            return self
+        return ExecutionBackend(self.cfg, device=None,
+                                runtime=dataclasses.replace(self.runtime, mesh=mesh))
 
     # ------------------------------------------------------------- plumbing
 
@@ -193,18 +270,77 @@ class ExecutionBackend:
 
     # ------------------------------------------------------------------ ops
 
+    @staticmethod
+    def _metrics(acc_y: torch.Tensor, spike_rate: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"acc_y": acc_y, "pred": torch.argmax(acc_y, dim=-1),
+                "spike_rate": spike_rate}
+
+    # ------------------------------------------------- data-parallel helpers
+
+    def _shards(self) -> Tuple[int, int]:
+        """(ranks of the data axis, this rank's index on it)."""
+        return dist.get_world_size(self._group), dist.get_rank(self._group)
+
+    def _pad_to_shards(self, arrs, batch_axis):
+        """This rank's slice of each array's sample axis (axis
+        ``batch_axis[i]`` of ``arrs[i]``), the axis zero-padded up to a
+        multiple of the rank count first: padding rows carry zero input and
+        zero ``valid``, so they add nothing.  Returns the slices and the
+        global ``B``."""
+        n, r = self._shards()
+        B = arrs[0].shape[batch_axis[0]]
+        per = cdiv(B, n)
+        out = []
+        for x, ax in zip(arrs, batch_axis):
+            if per * n != B:
+                pad = list(x.shape)
+                pad[ax] = per * n - B
+                x = torch.cat([x, x.new_zeros(pad)], dim=ax)
+            out.append(x.narrow(ax, r * per, per).contiguous())
+        return out, B
+
+    def _all_gather_rows(self, x: torch.Tensor, B: int) -> torch.Tensor:
+        """The ranks' ``(B / n, ...)`` row blocks, in rank order, cut to the
+        global ``B`` rows."""
+        n, _ = self._shards()
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group)
+        return torch.cat(parts)[:B]
+
+    def _all_reduce(self, parts):
+        """Each tensor of ``parts`` summed over the ranks, in one
+        ``all_reduce`` of them side by side."""
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self._group)
+        return [t.view_as(p) for t, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+    def _psum_spike_rate(self, n_spk: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The global valid-weighted spike rate from the shards: the ranks'
+        spike and valid counts summed, then divided once.  The counts are
+        integers (exact in f32), so this is bitwise the unsharded rate
+        (:func:`repro_torch.core.eprop._spike_rate`); the reference sums
+        each shard's rate weighted by its valid count instead."""
+        spikes, n_valid = self._all_reduce([n_spk.sum(), valid.sum()])
+        return spikes / (torch.clamp(n_valid, min=1.0) * self.cfg.n_hid)
+
+    def _inference(self, weights, raster, valid, sharded: bool):
+        """:meth:`inference`'s launch; ``sharded``: each rank classifies its
+        slice of the sample axis and ``acc_y`` is gathered."""
+        if sharded:
+            (raster, valid), B = self._pad_to_shards((raster, valid), (1, 1))
+        acc_y, n_spk = ops.rsnn_infer(raster, valid, *self.datapath_weights(weights),
+                                      **self._kw())
+        if not sharded:
+            return self._metrics(acc_y, eprop._spike_rate(n_spk, valid, self.cfg.n_hid))
+        return self._metrics(self._all_gather_rows(acc_y, B),
+                             self._psum_spike_rate(n_spk, valid))
+
     def inference(self, weights: Dict[str, torch.Tensor], raster, valid
                   ) -> Dict[str, torch.Tensor]:
         """Classify one ``(T, B)`` tile → ``{"acc_y", "pred", "spike_rate"}``."""
         raster, valid = self._as_input(raster), self._as_input(valid)
-        w_in, w_rec, w_out = self.datapath_weights(weights)
-        acc_y, n_spk = ops.rsnn_infer(raster, valid, w_in, w_rec, w_out,
-                                      **self._kw())
-        return {
-            "acc_y": acc_y,
-            "pred": torch.argmax(acc_y, dim=-1),
-            "spike_rate": eprop._spike_rate(n_spk, valid, self.cfg.n_hid),
-        }
+        return self._inference(weights, raster, valid, self._sharded)
 
     def init_session_state(self, n: int) -> Dict[str, torch.Tensor]:
         """Zero carry rows for ``n`` sessions (exact on the quantized grid)."""
@@ -223,10 +359,24 @@ class ExecutionBackend:
         the readout accumulation."""
         raster, live, valid = (self._as_input(x) for x in (raster, live, valid))
         carries = [self._as_input(state[k]) for k in STATE_KEYS]
-        w_in, w_rec, w_out = self.datapath_weights(weights)
-        out = ops.rsnn_step_sessions(raster, live, valid, *carries, w_in, w_rec,
-                                     w_out, **self._kw())
-        return dict(zip(STATE_KEYS, out))
+        return self._step_sessions(weights, raster, live, valid, carries, self._sharded)
+
+    def _step_sessions(self, weights, raster, live, valid, carries, sharded: bool):
+        """:meth:`step_sessions`'s launch; ``sharded``: each rank advances
+        its slice of the session rows and the carries out are gathered (one
+        ``all_gather`` of the five side by side), so the engine's pool
+        scatters global rows.  The reference needs no collective here:
+        ``shard_map`` reassembles its global array."""
+        if sharded:
+            (raster, live, valid, *carries), B = self._pad_to_shards(
+                (raster, live, valid, *carries), (1, 1, 1) + (0,) * len(STATE_KEYS))
+        out = ops.rsnn_step_sessions(raster, live, valid, *carries,
+                                     *self.datapath_weights(weights), **self._kw())
+        if not sharded:
+            return dict(zip(STATE_KEYS, out))
+        widths = [x.shape[1] for x in out]
+        rows = self._all_gather_rows(torch.cat(out, dim=1), B)
+        return dict(zip(STATE_KEYS, (t.contiguous() for t in rows.split(widths, dim=1))))
 
     # ------------------------------------------------------------- training
 
@@ -254,22 +404,48 @@ class ExecutionBackend:
                    valid) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """One fused forward + e-prop update over a ``(T, B)`` training
         tile → ``(dw, metrics)``: ``dw`` (positive-gradient sums, applied
-        as ``w -= lr * dw``) summed over the batch, ``dw["w_rec"]``
+        as ``w -= lr * dw``) summed over the batch (and over the ranks of a
+        mesh; on the commit grid when one is set), ``dw["w_rec"]``
         self-recurrence masked; ``metrics`` ``{"acc_y", "pred",
         "spike_rate"}``."""
         raster, y_star, valid = (self._as_input(x) for x in (raster, y_star, valid))
-        w_in, w_rec, w_out = self.datapath_weights(weights)
+        return self._train(weights, raster, y_star, valid, self._sharded)
+
+    def _train(self, weights, raster, y_star, valid, sharded: bool):
+        """:meth:`train_tile`'s launch.  ``sharded``: each rank trains its
+        slice of the sample axis, the three ``dw`` are summed over the
+        ranks (one ``all_reduce`` of the three side by side) and ``acc_y``
+        is gathered.  With a ``commit_grid`` the launch returns each
+        sample's ``dw`` snapped to int32 codes and summed over its rows
+        (``rsnn_train(..., commit_grid=)``: the reference's
+        ``_dw_to_codes`` over a ``lax.map`` of B=1 tiles); the ranks sum
+        the codes (int32: order-free, so 1-, 4- and 8-rank layouts sum the
+        same codes), which convert to float once.  Padding rows carry zero
+        input and zero ``valid``, so they add nothing."""
+        if sharded:
+            (raster, y_star, valid), B = self._pad_to_shards((raster, y_star, valid),
+                                                             (1, 0, 1))
         ecfg = self.cfg.eprop
-        dw_in, dw_rec, dw_out, acc_y, n_spk = ops.rsnn_train(
-            raster, y_star, valid, w_in, w_rec, w_out, self._feedback(weights),
-            error=ecfg.error, target_amplitude=ecfg.target_amplitude,
-            infer_window=ecfg.infer_window, **self._trace_kw())
-        dw = {"w_in": dw_in, "w_rec": dw_rec * self._mask, "w_out": dw_out}
-        return dw, {
-            "acc_y": acc_y,
-            "pred": torch.argmax(acc_y, dim=-1),
-            "spike_rate": eprop._spike_rate(n_spk, valid, self.cfg.n_hid),
-        }
+        *dw, acc_y, n_spk = ops.rsnn_train(
+            raster, y_star, valid, *self.datapath_weights(weights),
+            self._feedback(weights), error=ecfg.error,
+            target_amplitude=ecfg.target_amplitude, infer_window=ecfg.infer_window,
+            commit_grid=self.commit_grid, **self._trace_kw())
+        if sharded:
+            dw = self._all_reduce(dw)
+            metrics = self._metrics(self._all_gather_rows(acc_y, B),
+                                    self._psum_spike_rate(n_spk, valid))
+        else:
+            metrics = self._metrics(acc_y, eprop._spike_rate(n_spk, valid, self.cfg.n_hid))
+        dw_in, dw_rec, dw_out = dw
+        if self.commit_grid is None:
+            return {"w_in": dw_in, "w_rec": dw_rec * self._mask, "w_out": dw_out}, metrics
+        # self-recurrence codes zeroed before the conversion (the reference
+        # masks each sample's dw before its snap, and a zero snaps to 0)
+        lsb = self.commit_grid.lsb
+        return {k: c.to(torch.float32) * lsb for k, c in
+                (("w_in", dw_in), ("w_rec", dw_rec * self._mask_codes),
+                 ("w_out", dw_out))}, metrics
 
     def forward_traces(self, weights: Dict[str, torch.Tensor], raster, y_star,
                        valid) -> Dict[str, torch.Tensor]:
@@ -314,13 +490,16 @@ BackendLike = Union[str, torch.device, ExecutionBackend, RuntimeConfig]
 
 def bucket_key(cfg: RSNNConfig, rt: RuntimeConfig) -> Tuple:
     """The execution bucket of a ``(cfg, runtime)`` request: equal keys can
-    share one backend.  ``rt.model_id`` is excluded."""
+    share one backend.  The mesh (by value) and the commit grid are part
+    of it, so a lane restart rebuilds on the same mesh;
+    ``rt.model_id`` is excluded."""
     quant = rt.quant if rt.quant is not None else cfg.neuron.quant
     if quant is not None:
         alpha = quant.alpha
     else:
         alpha = float(cfg.neuron.alpha if rt.alpha is None else rt.alpha)
-    return (cfg, str(resolve_device(rt.device)), alpha, quant)
+    return (cfg, str(resolve_device(rt.device)), alpha, quant, rt.mesh,
+            rt.commit_grid)
 
 
 class BackendPool:

@@ -38,6 +38,15 @@ bitwise equal to a run that was never interrupted.  The generator's state
 is the device's own (a 16-byte Philox seed and offset on the card, the
 5,056-byte mt19937 state on the CPU), so a learner checkpoint restores
 only onto a learner on the same device type.
+
+A learner given ``runtime=RuntimeConfig(mesh=..., commit_grid=...)`` learns
+data-parallel: every rank of the mesh builds the same learner from the
+same seed (so the weights and the commits' generator start alike on every
+rank), feeds it the same global batches, and the backend shards each
+batch's samples over the ranks and sums their ``dw``; every rank then
+commits the same ``dw`` with the same random bits, so the weights stay
+replicated.  Rank 0 of the data axis alone writes checkpoints; every rank
+restores them, onto any rank count (the weights are whole host arrays).
 """
 
 from __future__ import annotations
@@ -47,9 +56,10 @@ import signal
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import aer, eprop
-from repro_torch.core.backend import ExecutionBackend
+from repro_torch.core.backend import ExecutionBackend, RuntimeConfig
 from repro_torch.core.rsnn import RSNNConfig, init_params, merge_trainable, trainable
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.checkpoint import (
@@ -240,6 +250,11 @@ class OnlineLearner:
     the generator's device type in the manifest.  ``fit(resume=True)``
     restores the newest complete checkpoint and replays the batches the
     interrupted run would have consumed.
+
+    ``runtime`` (a :class:`~repro_torch.core.backend.RuntimeConfig`)
+    carries a data ``mesh`` and a ``commit_grid`` to the backend (module
+    docstring); with a mesh only rank 0 of its data axis writes
+    checkpoints.
     """
 
     def __init__(
@@ -253,12 +268,13 @@ class OnlineLearner:
         model_id: Optional[str] = None,
         publish_every: int = 1,
         checkpoint: Optional[CheckpointPolicy] = None,
+        runtime: Optional[RuntimeConfig] = None,
     ):
         gen = (seed if isinstance(seed, torch.Generator)
                else torch.Generator().manual_seed(int(seed)))
         self.cfg, self.ctrl = cfg, ctrl
         self.backend = ExecutionBackend(cfg, device=device,
-                                        alpha=float(cfg.neuron.alpha))
+                                        alpha=float(cfg.neuron.alpha), runtime=runtime)
         dev = self.backend.device
         self.opt = EpropSGD(opt_cfg)
         params = init_params(gen, cfg, device=dev)
@@ -284,6 +300,10 @@ class OnlineLearner:
         self.ckpt: Optional[CheckpointManager] = (
             checkpoint.manager() if checkpoint is not None else None)
         self.cursor = ReplayCursor()
+        # rank 0 of the data axis writes the checkpoints (every rank holds
+        # the same state)
+        group = self.backend._group
+        self.writes_checkpoints = group is None or dist.get_rank(group) == 0
         self._stop = False            # set by the SIGTERM/SIGINT handler
         self._on_commit: Optional[Callable] = None
         self._old_handlers: Dict[int, object] = {}
@@ -378,8 +398,11 @@ class OnlineLearner:
         follows ``policy.async_save``.  The manifest holds what a restore
         checks or replays: the commit count, the cursor, the commit mode,
         the register contract, the device count and the generator's
-        device type."""
+        device type.  On a rank other than the data axis's rank 0 it writes
+        nothing."""
         ckpt = self._need_ckpt()
+        if not self.writes_checkpoints:
+            return
         blocking = not self.policy.async_save if blocking is None else blocking
         extra = {
             "kind": "online_learner",

@@ -122,12 +122,13 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_forward_launch.argtypes = (
         [ptr] * 11 + [i32] * 10 + [ctypes.c_longlong] + [f32] * 7
         + [i32, i32, f32, ptr])
-    # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, acc_y, n_spk; T, B,
-    # N, H, O, threads, weights_smem, traces_smem, infer_all; smem bytes;
-    # datapath scalars, then bw_vth, y_scale, target_amp, err_softmax, stream
+    # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, dw_codes, acc_y,
+    # n_spk; T, B, N, H, O, threads, weights_smem, traces_smem, infer_all;
+    # smem bytes; datapath scalars, then bw_vth, y_scale, target_amp,
+    # err_softmax, the commit grid's lsb and bits, stream
     lib.rsnn_train_launch.argtypes = (
-        [ptr] * 17 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
-        + [f32, f32, f32, i32, ptr])
+        [ptr] * 18 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
+        + [f32, f32, f32, i32, f32, i32, ptr])
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
     # flash_attention: q, k, v, o; bf16, B, Sq, Skv, H, Hkv, D; the batch,

@@ -53,6 +53,16 @@
 //
 // rsnn_dw_reduce_kernel — the cross-row dw sum of the last two.
 //
+// rsnn_dw_codes_reduce_kernel — rsnn_train's cross-row sum on the integer
+// commit grid (the deterministic END_B path): each row's partial dw is
+// snapped to an int32 code and the codes are summed.  Replaces the
+// lax.map of B=1 tiles and the int32 code sum of
+// src/repro/core/backend.py:_train_det_codes / :_train_det_impl.  Each row's
+// partial is that sample's B=1 dw (one block a row; train_plan does not
+// depend on B), and integer addition is associative, so the codes of any
+// split of the rows sum to the codes of the whole batch: a commit does not
+// depend on how many ranks share its batch.
+//
 // Design.  On the TPU the trace set of a batch tile stays in VMEM.  One
 // row's set takes T*(3H+N+O)*4 bytes: 66 KB at Braille T=128, so it fits
 // the 227 KB a block may hold beside the weights, the valid mask and the
@@ -425,6 +435,41 @@ static int rsnn_reduce_dw(const float* part, int nb, int e_all, float* dw,
   return (int)cudaGetLastError();
 }
 
+// codes[e] = sum over rows k = 0, 1, ... of
+// clamp(rint(part[k, e] / lsb), -2^(bits-1), 2^(bits-1) - 1), in int32.
+// rintf rounds half to even, as jnp.round and torch.round do; lsb is a power
+// of two, so part / lsb is exact and equals part * (1 / lsb), the product
+// the kernel takes (an IEEE division is a subroutine call that kept the
+// loop from running its loads ahead: 0.0244 ms against the float reduce's
+// 0.0031 at B=70 on an H100, PERF.md); the clamp runs in float, before the
+// cast.  The sum wraps at 2^31 as the reference's int32 sum does (at 24
+// bits, 256 rows of full-scale codes).  Bound: B*E floats read, E ints
+// written, one thread per element: bytes-bound, like the float reduce.
+__global__ void rsnn_dw_codes_reduce_kernel(const float* __restrict__ part,
+                                            int nb, int e_all, float inv_lsb,
+                                            float lo, float hi,
+                                            int* __restrict__ codes) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= e_all) return;
+  unsigned s = 0u;
+  for (int k = 0; k < nb; ++k) {
+    const float q = rintf(part[(size_t)k * e_all + e] * inv_lsb);
+    s += (unsigned)(int)fminf(fmaxf(q, lo), hi);
+  }
+  codes[e] = (int)s;
+}
+
+// lsb must be a power of two (the wrapper checks): 1 / lsb is then exact.
+static int rsnn_reduce_codes(const float* part, int nb, int e_all, float lsb,
+                             int bits, int* codes, cudaStream_t stream) {
+  const int threads = RSNN_FLAT_THREADS;
+  const float top = (float)(1 << (bits - 1));   // bits <= 24: exact
+  rsnn_dw_codes_reduce_kernel<<<(e_all + threads - 1) / threads, threads, 0,
+                                stream>>>(part, nb, e_all, 1.f / lsb, -top,
+                                          top - 1.f, codes);
+  return (int)cudaGetLastError();
+}
+
 struct ForwardArgs {
   const float* raster;   // (T, B, N)
   const float* w_in;     // (N, H)
@@ -641,22 +686,26 @@ static int rsnn_train_launch_s(const TrainArgs& a, const TickParams& p,
 
 // smem_bytes: the dynamic shared memory of the wrapper's plan
 // (kernels/rsnn_step.py:train_plan); the launch is refused unless it is
-// this kernel's layout for the same choices.
+// this kernel's layout for the same choices.  commit_lsb 0 sums the rows'
+// dw in float into dw; commit_lsb > 0 sums their codes on the grid of
+// commit_bits bits and step commit_lsb into dw_codes instead.
 extern "C" int rsnn_train_launch(
     const float* raster, const float* y_star, const float* valid,
     const float* w_in, const float* w_rec, const float* w_out,
     const float* b_fb, float* tr_h, float* tr_xbar, float* tr_pbar,
     float* tr_zbar, float* tr_err, float* g, float* dw_part, float* dw,
-    float* acc_y, float* n_spk, int T, int B, int N, int H, int O,
-    int threads, int weights_smem, int traces_smem, int infer_all,
+    int* dw_codes, float* acc_y, float* n_spk, int T, int B, int N, int H,
+    int O, int threads, int weights_smem, int traces_smem, int infer_all,
     long long smem_bytes, float alpha, float kappa, float v_th,
     float alpha_c, float kappa_c, float v_lo, float v_hi, int reset_sub,
     int quant, float bw_vth, float y_scale, float target_amp, int err_softmax,
-    void* stream) {
+    float commit_lsb, int commit_bits, void* stream) {
+  const bool grid = commit_lsb > 0.f;
   if (O > RSNN_MAX_OUT || N > 32 * RSNN_MAX_WORDS || H > 32 * RSNN_MAX_WORDS ||
       (!traces_smem && !tr_h) || (traces_smem && !weights_smem) || threads < 64 ||
       (size_t)smem_bytes != rsnn_train_smem_floats(T, N, H, O, weights_smem,
-                                                   traces_smem) * sizeof(float)) {
+                                                   traces_smem) * sizeof(float) ||
+      (grid ? (!dw_codes || commit_bits < 2 || commit_bits > 24) : !dw)) {
     return (int)cudaErrorInvalidValue;
   }
   TickParams p{alpha, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
@@ -673,7 +722,10 @@ extern "C" int rsnn_train_launch(
                       O, st);
     if (rc) return rc;
   }
-  return rsnn_reduce_dw(dw_part, B, N * H + H * H + H * O, dw, st);
+  const int e_all = N * H + H * H + H * O;
+  return grid ? rsnn_reduce_codes(dw_part, B, e_all, commit_lsb, commit_bits,
+                                  dw_codes, st)
+              : rsnn_reduce_dw(dw_part, B, e_all, dw, st);
 }
 
 extern "C" int eprop_update_launch(

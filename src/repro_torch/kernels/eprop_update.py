@@ -29,22 +29,37 @@ over ticks ``T-1..0``::
 Each row's partial ``dw`` goes to its own slice of a ``(B, E)`` buffer,
 and a last small kernel adds the slices in row order — no atomics, so two
 launches give identical bits.  The caller masks ``dw_rec``'s
-self-recurrence.  The weights are the ``to_membrane`` images in quantized
-mode; ``b_fb`` is in normalised weight units (the raw ``w_out`` or the
-random ``B``).  ``err`` uses ``expf``, so ``dw`` matches the plain version
-to a tolerance, not bitwise; ``acc_y``, ``n_spk`` and the traces ``h,
-xbar, pbar, zbar`` are bitwise in quantized mode.
+self-recurrence.
+
+With ``commit_grid`` (a :class:`~repro_torch.core.quant.QuantSpec`, the
+deterministic END_B path: :data:`~repro_torch.core.quant.DW_COMMIT_SPEC`)
+``rsnn_train`` ends in ``rsnn_dw_codes_reduce_kernel`` instead: each row's
+partial is snapped to ``clamp(round(x / lsb), -2^(bits-1), 2^(bits-1)-1)``
+and the int32 codes are summed (:func:`dw_codes`).  A row's partial is
+that sample's ``B=1`` ``dw`` (one block a row, a plan that does not
+depend on ``B``), and integer sums do not depend on their order, so the
+codes of a batch equal the summed codes of any split of it: a commit is
+bitwise the same on 1, 4 or 8 ranks.  The sums wrap at ``2^31`` as the
+reference's int32 sums do: at 24 bits, 256 rows of full-scale codes (the
+Braille END_B batch is 70).
+
+The weights are the ``to_membrane`` images in quantized mode; ``b_fb`` is
+in normalised weight units (the raw ``w_out`` or the random ``B``).
+``err`` uses ``expf``, so ``dw`` matches the plain version to a
+tolerance, not bitwise; ``acc_y``, ``n_spk`` and the traces ``h, xbar,
+pbar, zbar`` are bitwise in quantized mode.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.quant import QuantizedMode
-from repro_torch.kernels.launch import launches, raise_on, stream_arg
+from repro_torch.core.quant import QuantizedMode, QuantSpec
+from repro_torch.kernels.launch import grid_launches, launches, raise_on, stream_arg
 from repro_torch.kernels.rsnn_step import (
     EVENT_LOOP_MAX_WIDTH,
     _check_exact_matmul,
@@ -90,15 +105,67 @@ def eprop_update_plain(h, xbar, pbar, zbar, err, b_fb, *, kappa: float
     return dw_in, dw_rec, dw_out
 
 
+def dw_codes(dw: torch.Tensor, grid: QuantSpec) -> torch.Tensor:
+    """``dw`` snapped onto the commit grid as int32 codes:
+    ``clamp(round(x / lsb), -2^(bits-1), 2^(bits-1) - 1)`` (round half to
+    even; the clamp before the cast)."""
+    top = 2.0 ** (grid.bits - 1)
+    return torch.clamp(torch.round(dw / grid.lsb), -top, top - 1).to(torch.int32)
+
+
+def dw_codes_reduce_plain(part: torch.Tensor, grid: QuantSpec) -> torch.Tensor:
+    """Plain version of ``rsnn_dw_codes_reduce_kernel``: the rows of a
+    ``(B, E)`` partial buffer snapped (:func:`dw_codes`) and summed in int32
+    → ``(E,)``."""
+    return dw_codes(part, grid).sum(dim=0, dtype=torch.int32)
+
+
+def _check_grid(grid: QuantSpec) -> None:
+    if not 2 <= grid.bits <= 24:
+        raise ValueError(f"commit grid of {grid.bits} bits: the codes' bound must "
+                         "be exact in f32 (2 <= bits <= 24)")
+    if math.frexp(grid.lsb)[0] != 0.5:
+        raise ValueError(f"commit grid step {grid.lsb} is not a power of two: "
+                         "x / lsb must be exact")
+
+
+def _train_codes_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, grid, kw):
+    """The commit-grid path of :func:`rsnn_train_plain`: one ``B=1`` pass a
+    row (each row's arithmetic is the same whatever batch it came in, as in
+    the reference's ``lax.map``), its ``dw`` snapped to codes, the codes
+    summed in int32."""
+    _check_grid(grid)
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    codes = [raster.new_zeros(s, dtype=torch.int32) for s in ((N, H), (H, H), (H, O))]
+    acc, nspk = raster.new_zeros((B, O)), raster.new_zeros((B, 1))
+    for b in range(B):
+        out = rsnn_train_plain(raster[:, b: b + 1], y_star[b: b + 1],
+                               valid[:, b: b + 1], w_in, w_rec, w_out, b_fb, **kw)
+        codes = [c + dw_codes(d, grid) for c, d in zip(codes, out[:3])]
+        acc[b], nspk[b] = out[3][0], out[4][0]
+    return (*codes, acc, nspk)
+
+
 def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                      alpha: float, kappa: float, v_th: float = 1.0,
                      reset: str = "sub", boxcar_width: float = 0.5,
                      quant: Optional[QuantizedMode] = None,
                      error: str = "softmax", target_amplitude: float = 1.0,
-                     infer_window: str = "valid", return_traces: bool = False):
+                     infer_window: str = "valid", return_traces: bool = False,
+                     commit_grid: Optional[QuantSpec] = None):
     """Plain version of :func:`rsnn_train_cuda` → ``(dw_in, dw_rec, dw_out,
     acc_y (B, O), n_spk (B, 1))``, and with ``return_traces`` the trace set
-    ``{"h", "xbar", "pbar", "zbar", "err"}``, each ``(T, B, ·)``."""
+    ``{"h", "xbar", "pbar", "zbar", "err"}``, each ``(T, B, ·)``.  With
+    ``commit_grid`` the three ``dw`` are the rows' summed int32 codes."""
+    if commit_grid is not None:
+        if return_traces:
+            raise ValueError("rsnn_train: the commit-grid path returns no traces")
+        kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
+                  boxcar_width=boxcar_width, quant=quant, error=error,
+                  target_amplitude=target_amplitude, infer_window=infer_window)
+        return _train_codes_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb,
+                                  commit_grid, kw)
     c = _consts(alpha, kappa, v_th, reset, quant)
     _check_exact_matmul(raster, quant)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
@@ -128,12 +195,13 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     return (*dw, acc, nspk, traces) if return_traces else (*dw, acc, nspk)
 
 
-def _dw_outputs(N: int, H: int, O: int, nb: int, dev):
-    """The ``(nb, E)`` partial buffer (one slice a row) and the three ``dw`` views of one
-    ``(E,)`` result the reduce kernel writes."""
+def _dw_outputs(N: int, H: int, O: int, nb: int, dev, dtype=torch.float32):
+    """The ``(nb, E)`` partial buffer (one slice a row) and the three ``dw``
+    views of one ``(E,)`` result the reduce kernel writes (int32 codes on
+    the commit grid)."""
     E = weight_elems(N, H, O)
     part = torch.empty((nb, E), dtype=torch.float32, device=dev)
-    dw = torch.empty((E,), dtype=torch.float32, device=dev)
+    dw = torch.empty((E,), dtype=dtype, device=dev)
     views = (dw[: N * H].view(N, H), dw[N * H: N * H + H * H].view(H, H),
              dw[N * H + H * H:].view(H, O))
     return part, dw, views
@@ -144,15 +212,23 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     reset: str = "sub", boxcar_width: float = 0.5,
                     quant: Optional[QuantizedMode] = None,
                     error: str = "softmax", target_amplitude: float = 1.0,
-                    infer_window: str = "valid", return_traces: bool = False):
-    """Launch ``rsnn_train_kernel`` (and the row-order ``dw`` reduction)
-    on the current stream of the tensors' device → the outputs of
-    :func:`rsnn_train_plain`.  Checks device, dtype, shape and contiguity;
-    raises on a refused launch."""
+                    infer_window: str = "valid", return_traces: bool = False,
+                    commit_grid: Optional[QuantSpec] = None,
+                    return_partials: bool = False):
+    """Launch ``rsnn_train_kernel`` (and the row-order ``dw`` reduction, or
+    with ``commit_grid`` ``rsnn_dw_codes_reduce_kernel``) on the current
+    stream of the tensors' device → the outputs of :func:`rsnn_train_plain`;
+    ``return_partials`` appends the ``(B, E)`` per-row ``dw`` buffer the
+    reduction read.  Checks device, dtype, shape and contiguity; raises on a
+    refused launch."""
     from repro_torch.kernels import build
 
     if error not in ("softmax", "direct"):
         raise ValueError(f"unknown error mode {error!r}")
+    if commit_grid is not None:
+        _check_grid(commit_grid)
+        if return_traces:
+            raise ValueError("rsnn_train: the commit-grid path returns no traces")
     T, B, N = raster.shape
     H, O = w_rec.shape[0], w_out.shape[1]
     if O > MAX_ERR_OUTPUTS:
@@ -177,10 +253,13 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
         return {k: torch.empty((T, B, width.get(k, H)), dtype=torch.float32,
                                device=dev) for k in TRACE_KEYS}
 
+    out_dtype = torch.float32 if commit_grid is None else torch.int32
     if B == 0 or T == 0:
-        zeros = (torch.zeros((N, H), device=dev), torch.zeros((H, H), device=dev),
-                 torch.zeros((H, O), device=dev))
+        zeros = tuple(torch.zeros(s, dtype=out_dtype, device=dev)
+                      for s in ((N, H), (H, H), (H, O)))
         out = (*zeros, acc.zero_(), nspk.zero_())
+        if return_partials:
+            out = (*out, torch.zeros((B, weight_elems(N, H, O)), device=dev))
         return (*out, traces()) if return_traces else out
     lib = build.library()
     c = _consts(alpha, kappa, v_th, reset, quant)
@@ -190,12 +269,14 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     tr = traces() if return_traces or not plan.traces_smem else None
     g = None if plan.traces_smem else torch.empty((T, B, H), dtype=torch.float32,
                                                   device=dev)
-    part, dw, views = _dw_outputs(N, H, O, B, dev)
+    part, dw, views = _dw_outputs(N, H, O, B, dev, out_dtype)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
     ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out, b_fb)]
     ptrs += [tr[k].data_ptr() if tr else None for k in TRACE_KEYS]
-    ptrs += [g.data_ptr() if g is not None else None]
-    ptrs += [t.data_ptr() for t in (part, dw, acc, nspk)]
+    ptrs += [g.data_ptr() if g is not None else None, part.data_ptr()]
+    ptrs += [dw.data_ptr(), None] if commit_grid is None else [None, dw.data_ptr()]
+    ptrs += [acc.data_ptr(), nspk.data_ptr()]
+    lsb, bits = (0.0, 0) if commit_grid is None else (commit_grid.lsb, commit_grid.bits)
     with torch.cuda.device(dev):
         rc = lib.rsnn_train_launch(
             *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
@@ -203,10 +284,15 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
             ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
             ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
             ctypes.c_float(target_amplitude), int(error == "softmax"),
-            stream_arg(dev))
+            ctypes.c_float(lsb), int(bits), stream_arg(dev))
     raise_on(lib, rc, "rsnn_train")
     launches["rsnn_train"] += 1
-    return (*views, acc, nspk, tr) if return_traces else (*views, acc, nspk)
+    if commit_grid is not None:
+        grid_launches["rsnn_train"] += 1
+    out = (*views, acc, nspk)
+    if return_partials:
+        out = (*out, part)
+    return (*out, tr) if return_traces else out
 
 
 def eprop_update_cuda(h, xbar, pbar, zbar, err, b_fb, *, kappa: float

@@ -30,11 +30,16 @@ H100_SMS = 132
 KERNELS = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
            "eprop_update", "flash_attention")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
+# rsnn_train's launches that reduced onto the integer commit grid
+# (rsnn_dw_codes_reduce_kernel, in the same launch): a share of
+# launches["rsnn_train"], counted beside it.
+grid_launches: Dict[str, int] = {"rsnn_train": 0}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
+    grid_launches["rsnn_train"] = 0
 
 
 def cdiv(a: int, b: int) -> int:

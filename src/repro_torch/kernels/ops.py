@@ -11,6 +11,8 @@ wrappers in :mod:`repro_torch.kernels.rsnn_step`,
 :mod:`repro_torch.kernels.flash_attention` count each launch) holds plain
 integers for all six kernels: a run sets them to 0, drives the main path,
 and reads them back to show the path went through the kernels.
+``grid_launches["rsnn_train"]`` counts the share of ``rsnn_train``'s
+launches that reduced onto the integer commit grid.
 """
 
 from __future__ import annotations
@@ -19,13 +21,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant import QuantizedMode
+from repro_torch.core.quant import QuantizedMode, QuantSpec
 from repro_torch.kernels import eprop_update as _train
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rsnn_step as _rsnn
-from repro_torch.kernels.launch import KERNELS, launches, reset_launch_counts
+from repro_torch.kernels.launch import KERNELS, grid_launches, launches, reset_launch_counts
 
-__all__ = ["KERNELS", "eprop_update", "flash_attention", "launches",
+__all__ = ["KERNELS", "eprop_update", "flash_attention", "grid_launches", "launches",
            "reset_launch_counts", "rsnn_forward", "rsnn_infer",
            "rsnn_step_sessions", "rsnn_train"]
 
@@ -80,13 +82,17 @@ def rsnn_train(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                alpha: float, kappa: float, v_th: float = 1.0,
                reset: str = "sub", boxcar_width: float = 0.5,
                quant: Optional[QuantizedMode] = None, error: str = "softmax",
-               target_amplitude: float = 1.0, infer_window: str = "valid"):
+               target_amplitude: float = 1.0, infer_window: str = "valid",
+               commit_grid: Optional[QuantSpec] = None):
     """Fused forward + e-prop update over one ``(T, B)`` tile →
     ``(dw_in, dw_rec, dw_out, acc_y (B, O), n_spk (B, 1))``, ``dw`` summed
-    over the batch, ``dw_rec`` not yet masked."""
+    over the batch, ``dw_rec`` not yet masked.  With ``commit_grid`` the
+    three ``dw`` are the rows' int32 codes on that grid, summed (the
+    deterministic END_B path: equal for any split of the rows)."""
     kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
               boxcar_width=boxcar_width, quant=quant, error=error,
-              target_amplitude=target_amplitude, infer_window=infer_window)
+              target_amplitude=target_amplitude, infer_window=infer_window,
+              commit_grid=commit_grid)
     args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
     if not _on_card(raster, "rsnn_train"):
         return _train.rsnn_train_plain(*args, **kw)

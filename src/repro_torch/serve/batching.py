@@ -27,11 +27,12 @@ def round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-def max_batch_for(cfg: RSNNConfig) -> int:
+def max_batch_for(cfg: RSNNConfig, num_devices: int = 1) -> int:
     """Serving admission size per launch: the largest power of two whose
-    rows all run at once — one full kernel block on each SM
-    (:func:`repro_torch.kernels.rsnn_step.max_batch_for_dims`)."""
-    return max_batch_for_dims(cfg.n_in, cfg.n_hid, cfg.n_out)
+    rows all run at once on one card — one full kernel block on each SM
+    (:func:`repro_torch.kernels.rsnn_step.max_batch_for_dims`) — times the
+    data-parallel rank count (one full launch a rank)."""
+    return max_batch_for_dims(cfg.n_in, cfg.n_hid, cfg.n_out) * max(1, int(num_devices))
 
 
 def max_sessions_for(

@@ -76,6 +76,12 @@ from repro_torch.serve.session import (
     host_copy,
 )
 
+# Engine options whose decisions each rank would take alone: deadlines and
+# idle offload read the rank's own clock, the fault hook its own faults.
+# A lane over a data mesh refuses them (BatchedEngine).
+PER_RANK_OPTIONS = ("default_deadline_s", "session_deadline_s", "idle_timeout",
+                    "fault_hook")
+
 
 @dataclasses.dataclass
 class ServeResult:
@@ -211,7 +217,10 @@ class _ModelLane:
     def __init__(self, engine: "BatchedEngine", spec: ModelSpec):
         self.spec = spec
         cfg = spec.cfg
-        self.max_batch = engine._max_batch or batching.max_batch_for(cfg)
+        if spec.backend.num_devices > 1:
+            engine._refuse_per_rank_options(spec.model_id)
+        self.max_batch = engine._max_batch or batching.max_batch_for(
+            cfg, num_devices=spec.backend.num_devices)
         self.scheduler = BucketingScheduler(
             self.max_batch, engine.tick_granularity, clock=engine._clock,
             rid_alloc=engine._alloc_rid, max_pending=engine._max_pending,
@@ -276,8 +285,12 @@ class _ModelLane:
         return st
 
     def account_tile_bytes(self, num_ticks: int, b_pad: int, fn) -> None:
+        """One launch's bytes, per rank of a data mesh: each rank moves its
+        own ``ceil(b_pad / ranks)`` rows and its own copy of the weights."""
         c = self.cfg
-        self.bytes_streamed += fn(num_ticks, b_pad, c.n_in, c.n_hid, c.n_out)
+        ndev = self.backend.num_devices
+        self.bytes_streamed += ndev * fn(num_ticks, -(-b_pad // ndev), c.n_in,
+                                         c.n_hid, c.n_out)
 
     def to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         dev = self.backend.device
@@ -338,8 +351,15 @@ class BatchedEngine:
     ``cfg``/``params`` register one model under ``model_id`` (or pass a
     ``registry``).  ``device`` (default ``"cuda"``) or an existing
     :class:`~repro_torch.core.backend.ExecutionBackend` as ``backend``
-    decides where tiles run.  ``max_batch`` is the admission size per tile
-    (default :func:`repro_torch.serve.batching.max_batch_for`);
+    decides where tiles run; ``runtime=RuntimeConfig(mesh=...)`` serves
+    over a data mesh (every rank runs the same engine on the same requests
+    in the same order, and each tile's rows are split over the ranks, so
+    every rank must pack the same tiles: a lane over a mesh refuses the
+    options whose decisions read one rank's clock or faults —
+    :data:`PER_RANK_OPTIONS` and a per-call ``deadline_s`` — and raises
+    every launch fault instead of restarting on one rank).  ``max_batch``
+    is the admission size per tile (default
+    :func:`repro_torch.serve.batching.max_batch_for`, times the ranks);
     ``max_sessions`` the resident-session capacity per model;
     ``idle_timeout`` offloads idle sessions; ``tick_tile`` fixes the
     streaming tile length (else each tile drains what its sessions have
@@ -596,15 +616,34 @@ class BatchedEngine:
         ``deadline_s`` is relative (default ``default_deadline_s``)."""
         lane = self._lane(model_id)
         events = self._validate_for(lane, events)
-        rid = lane.scheduler.submit(events, meta,
-                                    deadline=self._deadline(deadline_s))
+        rid = lane.scheduler.submit(
+            events, meta, deadline=self._deadline(lane, deadline_s, self._default_deadline_s))
         self._collect_dropped(lane)
         return rid
 
     # ------------------------------------------------------- error model
 
-    def _deadline(self, deadline_s: Optional[float]) -> Optional[float]:
-        rel = deadline_s if deadline_s is not None else self._default_deadline_s
+    def _refuse_per_rank_options(self, model_id: str) -> None:
+        """Over a data mesh every rank must launch the same tiles with the
+        same rows (the backend's SPMD contract): refuse the options whose
+        decisions each rank would take alone, on its own clock (deadlines,
+        idle offload) or its own faults (the fault hook)."""
+        set_ = [name for name in PER_RANK_OPTIONS
+                if getattr(self, f"_{name}") is not None]
+        if set_:
+            raise ValueError(
+                f"model {model_id!r} runs on a data mesh: {', '.join(set_)} would let "
+                "each rank pack different tiles and split the ranks' collectives")
+
+    def _deadline(self, lane: _ModelLane, deadline_s: Optional[float],
+                  default_s: Optional[float]) -> Optional[float]:
+        """The absolute deadline of a call's relative ``deadline_s`` (else
+        ``default_s``); refused on a data mesh, where it would read each
+        rank's own clock."""
+        if deadline_s is not None and lane.backend.num_devices > 1:
+            raise ValueError(f"model {lane.model_id!r} runs on a data mesh: a deadline "
+                             "reads each rank's own clock")
+        rel = deadline_s if deadline_s is not None else default_s
         return None if rel is None else self._clock() + rel
 
     def _dead_result(self, lane: _ModelLane, req: ServeRequest,
@@ -653,10 +692,14 @@ class BatchedEngine:
                 self._hook_fault = exc
                 raise
 
-    def _recoverable(self, exc: BaseException) -> bool:
+    def _recoverable(self, lane: _ModelLane, exc: BaseException) -> bool:
         """A launch fault a lane restart can contain: one the fault hook
-        raised, or a launcher error that leaves the CUDA context usable."""
+        raised, or a launcher error that leaves the CUDA context usable.
+        Never on a data mesh: the fault is one rank's, and a restart there
+        alone would split the ranks' collectives."""
         hook_fault, self._hook_fault = self._hook_fault, None
+        if lane.backend.num_devices > 1:
+            return False
         if isinstance(exc, KernelLaunchError):
             return not exc.sticky
         return exc is hook_fault
@@ -744,7 +787,7 @@ class BatchedEngine:
                 try:
                     pending.append(self._launch_session_tile(lane, tile))
                 except Exception as exc:
-                    if not self._recoverable(exc):
+                    if not self._recoverable(lane, exc):
                         raise
                     self._restart_lane(lane)
                     continue
@@ -768,8 +811,8 @@ class BatchedEngine:
             lane = self._lane(mid)
             touched[lane.model_id] = lane
             try:
-                lane.scheduler.submit(self._validate_for(lane, events),
-                                      deadline=self._deadline(deadline_s))
+                lane.scheduler.submit(self._validate_for(lane, events), deadline=self._deadline(
+                    lane, deadline_s, self._default_deadline_s))
             except (GuardError, OverloadError):
                 lane.rejected += 1
                 results.append(self._dead_result(lane, ServeRequest(
@@ -832,8 +875,7 @@ class BatchedEngine:
         sess = _Session(self._next_sid, self._clock(), meta,
                         model_id=lane.model_id)
         sess.gate_label = lane.cfg.eprop.infer_window == "valid"
-        rel = deadline_s if deadline_s is not None else self._session_deadline_s
-        sess.deadline = None if rel is None else self._clock() + rel
+        sess.deadline = self._deadline(lane, deadline_s, self._session_deadline_s)
         self._next_sid += 1
         self._sessions[sess.sid] = sess
         return SessionHandle(self, sess)
@@ -915,7 +957,7 @@ class BatchedEngine:
         try:
             out = self._launch_chunks(lane, sessions, chunks, num_ticks)
         except Exception as exc:
-            if not self._recoverable(exc):
+            if not self._recoverable(lane, exc):
                 raise
             self._on_stream_launch_fault(lane, sessions, chunks)
             return True

@@ -834,3 +834,105 @@ def test_chaos_sigkill_resumes_bitwise_on_card(cuda_device, tmp_path):
     for r, w in zip(res_card, res_cpu):
         assert r.pred == w.pred
         np.testing.assert_array_equal(r.logits, w.logits)
+
+
+# ------------------------------------------------ the integer commit grid
+
+def _grid_codes(out):
+    return torch.cat([c.reshape(-1) for c in out[:3]])
+
+
+def _shard_sum(args, kw, shards):
+    """The int32 sum of the codes of ``shards`` launches over a padded
+    split of the rows (zero raster, y* and valid in the padding)."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC
+
+    raster, y_star, valid, *w = args
+    B = raster.shape[1]
+    per = -(-B // shards)
+    pad = per * shards - B
+    raster = torch.cat([raster, raster.new_zeros((raster.shape[0], pad, raster.shape[2]))], 1)
+    y_star = torch.cat([y_star, y_star.new_zeros((pad, y_star.shape[1]))])
+    valid = torch.cat([valid, valid.new_zeros((valid.shape[0], pad))], 1)
+    total = 0
+    for i in range(shards):
+        sl = slice(i * per, (i + 1) * per)
+        total = total + _grid_codes(eprop_update.rsnn_train_cuda(
+            raster[:, sl].contiguous(), y_star[sl].contiguous(), valid[:, sl].contiguous(),
+            *w, **kw, commit_grid=DW_COMMIT_SPEC))
+    return total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dims,density,B", [((12, 38, 3), 0.3, 1), ((12, 38, 3), 0.3, 11),
+                                            ((12, 38, 3), 0.3, 70),
+                                            ((256, 256, 16), 0.05, 8)])
+def test_commit_grid_codes_match_plain_and_any_split(dims, density, B, quantized,
+                                                     cuda_device):
+    """``rsnn_dw_codes_reduce_kernel``: the codes equal its plain version over
+    the same per-row partials bitwise, and the plain B=1 loop within the dw
+    tolerance plus B lsb; the codes of one launch equal the int32 sums of
+    8-way, 4-way and one-row launches over the same rows, bitwise."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+
+    cfg, be, params, raster, valid, y_star = _train_case(
+        np.random.default_rng(17), quantized, "symmetric", 64, B, cuda_device,
+        dims=dims, density=density)
+    args = (raster, y_star, valid, *be.datapath_weights(params), be._feedback(params))
+    kw = dict(alpha=be.alpha, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    ops.reset_launch_counts()
+    got = eprop_update.rsnn_train_cuda(*args, **kw, commit_grid=G, return_partials=True)
+    assert ops.launches["rsnn_train"] == 1 and got[0].dtype == torch.int32
+    codes = _grid_codes(got)
+    assert torch.equal(codes, eprop_update.dw_codes_reduce_plain(got[5], G))
+    flt = eprop_update.rsnn_train_cuda(*args, **kw, return_partials=True)
+    assert torch.equal(got[5], flt[5])
+    want = eprop_update.rsnn_train_plain(*args, **kw, commit_grid=G)
+    for g, p, f in zip(got[:3], want[:3], flt[:3]):
+        err = float((g.double() - p.double()).abs().max()) * G.lsb
+        assert err <= DW_TOL * float(f.abs().max()) + B * G.lsb
+    for shards in (8, 4, B):
+        assert torch.equal(_shard_sum(args, kw, shards), codes), shards
+
+
+@pytest.mark.cuda
+def test_sharded_methods_on_a_one_rank_nccl_world(cuda_device, tmp_path):
+    """A one-rank NCCL world on the card: the backend's sharded launches
+    (the public ops run a one-rank mesh unsharded) equal the unsharded
+    launches bitwise, the collectives running on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.backend import RuntimeConfig
+    from repro_torch.core.quant import DW_COMMIT_SPEC
+    from repro_torch.launch import mesh as meshlib
+
+    meshlib.join_world(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = meshlib.make_data_mesh(device="cuda")
+        cfg, one, params, raster, valid, y_star = _train_case(
+            np.random.default_rng(18), True, "symmetric", 64, 37, cuda_device)
+        grid = RuntimeConfig(commit_grid=DW_COMMIT_SPEC)
+        one_grid = ExecutionBackend(cfg, device=cuda_device, runtime=grid)
+        sh = ExecutionBackend(cfg, device=cuda_device, runtime=RuntimeConfig(mesh=mesh))
+        sh_grid = ExecutionBackend(cfg, device=cuda_device, runtime=RuntimeConfig(
+            mesh=mesh, commit_grid=DW_COMMIT_SPEC))
+        assert sh.num_devices == 1 and sh._group is not None
+        carries = list(one.init_session_state(37).values())
+        cases = [("_train", sh, one, (raster, y_star, valid)),
+                 ("_train", sh_grid, one_grid, (raster, y_star, valid)),
+                 ("_inference", sh, one, (raster, valid)),
+                 ("_step_sessions", sh, one, (raster, valid, valid, carries))]
+        for name, shard_be, ref_be, a in cases:
+            got = getattr(shard_be, name)(params, *a, sharded=True)
+            want = getattr(ref_be, name)(params, *a, sharded=False)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                for k in w:
+                    assert torch.equal(g[k], w[k]), (name, k)
+    finally:
+        meshlib.leave_world()
