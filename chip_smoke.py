@@ -5,8 +5,10 @@ streaming sessions) and the online-learning path (END_B and END_S e-prop
 training on Braille, then serving the learned weights) at the Braille
 network's full width through the kernels, drives the dense LM's serving
 path (prefill, decode, greedy ``generate``) at llama3-8b's full width and
-depth through the flash-attention kernel, kills and resumes a
-checkpointed learner on the card, and times the kernels.
+depth through the flash-attention kernel, trains the dense LM
+(qwen3-1.7b at full width and depth) through the forward and backward
+flash-attention kernels, kills and resumes a checkpointed learner on the
+card, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's RSNN kernels
@@ -133,7 +135,35 @@ before any profiler session):
       chaos drill on the card (--deterministic --mesh-devices 1, SIGKILL at
       a seeded commit), bitwise on its golden run, with every rsnn_train
       launch of the golden run and of every worker reduced onto the grid
-      (the workers report commit_grid and their grid launches).
+      (the workers report commit_grid and their grid launches);
+  (p) flash_attention_bwd == its plain version on the card (after (l)):
+      qwen3-1.7b's training attention (B=4, S=2048, H=16, Hkv=8, D=128,
+      bf16, causal), llama3-8b's heads (H=32), a ragged causal length, a
+      non-causal case on strided views with a non-contiguous dO, and f32
+      at D=128; the forward's lse against the plain forward's within
+      BWD_LSE_TOL, the forward with lse bitwise the forward without, dq,
+      dk, dv within FLASH_F32_TOL of each tensor's max |.| (f32) or
+      BWD_BF16_ROW_TOL per row (bf16), two launches bitwise equal, and the
+      gate rejects dk x 0.9 and q tile 1 dropped from dk and dv;
+  (q) LM training at qwen3-1.7b's full width and depth (28 layers, bf16,
+      remat="full", random weights from seed 0): TRAIN_STEPS steps of the
+      step launch/train.py builds on B=4 x S=2048 tokens of
+      TokenStream(seed=0), no checkpoints; every loss and grad norm
+      finite, step 0's loss within TRAIN_LOSS0_TOL of ln(vocab), the last
+      below the first, flash_attention launched twice and
+      flash_attention_bwd once per layer a step; step wall, tokens/s, peak
+      memory, one profiled step; then one step's gradients at the arch's
+      widths and TRAIN_GRAD_LAYERS layers through the kernels against the
+      same step through their plain versions, per leaf within LM_GRAD_TOL;
+      launch/train.py --reduced on the card, 6 steps against a run stopped
+      by SIGTERM after 4 and resumed to 6 (bitwise), and a bf16 reduced
+      run through the Trainer
+      saved and restored (bitwise).  (q)'s launches are the kernels line's
+      launches_by_path "lm_train";
+  (r) flash_attention_bwd timed at qwen3-1.7b's and llama3-8b's shapes
+      (torch.profiler device time, CUDA events beside) beside its plain
+      version, SDPA's backward and its bound (the five products at the
+      bf16 tensor-core peak); the forward with and without lse.
 """
 
 from __future__ import annotations
@@ -141,6 +171,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -211,6 +243,43 @@ LM_STEPS = 32
 # position or cache slot does (it moves logits by their own scale, ~1).
 LM_TF_TOL = 0.125
 LM_PLAIN_TOL = 0.125
+# flash_attention_bwd vs its plain version (p): dq, dk, dv within
+# FLASH_F32_TOL of each tensor's max |.| in f32, and in bf16 per row within
+# kernels/flash_attention.py:BWD_BF16_ROW_TOL of the row's scale
+# (grad_row_error, justified there); each case plants dk x 0.9 and q tile
+# 1 dropped from dk and dv, and fails unless the gate rejects both.  The
+# forward's lse, kernel vs plain: both take m + log(l) in f32 from scores
+# summed in another order (a few f32 ulps of values below 16); 1e-4
+# absolute.
+BWD_LSE_TOL = 1e-4
+BWD_CASES = [   # name, B, S, H, Hkv, D, dtype, causal, strided
+    ("qwen3-1.7b training", 4, 2048, 16, 8, 128, torch.bfloat16, True, False),
+    ("llama3-8b heads", 4, 2048, 32, 8, 128, torch.bfloat16, True, False),
+    ("ragged causal", 2, 1000, 16, 8, 128, torch.bfloat16, True, False),
+    ("non-causal, strided views, non-contiguous dO", 2, 700, 16, 8, 128,
+     torch.bfloat16, False, True),
+    ("qwen3-1.7b heads, f32", 2, 1000, 16, 8, 128, torch.float32, True, False),
+]
+# LM training (q): qwen3-1.7b at full width and depth in bf16 with
+# remat="full", B=4 x S=2,048 tokens from TokenStream(seed=0), the step
+# launch/train.py builds (AdamW lr 3e-4, 10 warm-up steps), TRAIN_STEPS
+# steps without checkpoints (one is about 17 GB at this size).  Step 0's
+# loss is within TRAIN_LOSS0_TOL of ln(vocab): the random weights' logits
+# have a scale near 0.2.  The gradients of one step at the arch's widths
+# and TRAIN_GRAD_LAYERS layers, through the kernels and through their
+# plain versions, agree per leaf within LM_GRAD_TOL of the leaf's max |g|:
+# the two differ only in where attention's f32 sums round to bf16; the
+# plain version at two tile sizes differs by at most 0.0075 of a leaf's
+# max |g| (reduced qwen3, bf16, S=512: tests/_torch_lm_bf16_spread.py on
+# a CPU), and 2^-5 leaves four times that.
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_LOSS0_TOL = 0.5
+TRAIN_GRAD_LAYERS = 2
+LM_GRAD_TOL = 2 ** -5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1216,6 +1285,346 @@ def phase_flash_timing(dev):
 
 
 # ---------------------------------------------------------------------------
+# (p) flash_attention_bwd vs plain, (q) LM training, (r) backward timing
+# ---------------------------------------------------------------------------
+
+
+def _bwd_gate(got, want):
+    """(error, tolerance) of the (p) gate over (dq, dk, dv): f32 the largest
+    max |Δ| over the tensor's max |.| (a tensor zero in theory against the
+    largest of the three), bf16 the largest ``grad_row_error``."""
+    from repro_torch.kernels import flash_attention as FA
+
+    if want[0].dtype == torch.float32:
+        scale = max(float(w.abs().max()) for w in want)
+        errs = []
+        for g, w in zip(got, want):
+            if not torch.isfinite(g).all():
+                return float("inf"), FLASH_F32_TOL
+            ref = float(w.abs().max())
+            errs.append(_err(g, w) / (ref if ref >= 1e-4 * scale else scale))
+        return max(errs), FLASH_F32_TOL
+    return max(FA.grad_row_error(g, w) for g, w in zip(got, want)), FA.BWD_BF16_ROW_TOL
+
+
+def phase_flash_bwd_vs_plain(dev):
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f32 = torch.float32
+    worst = 0.0
+    for name, B, S, H, Hkv, D, dtype, causal, strided in BWD_CASES:
+        q, k, v = _flash_inputs(gen, B, S, S, H, Hkv, D, dtype, dev, strided)
+        do = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        if not strided:
+            do = do.contiguous()
+        o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        same_o = torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
+        _, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        if not same_o:
+            fail(f"flash_attention {name}: the forward with lse gave other bits")
+        lse_err = _err(lse, plain_lse)
+        if not lse_err <= BWD_LSE_TOL:
+            fail(f"flash_attention {name}: lse off by {lse_err} (> {BWD_LSE_TOL})")
+        if any(g.shape != w.shape for g, w in zip(got, want)):
+            fail(f"flash_attention_bwd {name}: shapes {[tuple(g.shape) for g in got]}")
+        e, tol = _bwd_gate(got, want)
+        if not e <= tol:
+            fail(f"flash_attention_bwd {name}: kernel off by {e} (> {tol})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {name}: two launches gave different bits")
+        # planted faults the gate must reject: dk scaled by 0.9, and q tile 1
+        # (rows 64-127) dropped from dk and dv
+        cut = do.clone()
+        cut[:, 64:128] = 0
+        _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut, causal=causal)
+        faults = {"dk x 0.9": _bwd_gate((got[0], (got[1].float() * 0.9).to(dtype), got[2]),
+                                        want)[0],
+                  "q tile 1 dropped from dk, dv": _bwd_gate((got[0], dk_cut, dv_cut),
+                                                            want)[0]}
+        for fault, fe in faults.items():
+            if not fe > tol:
+                fail(f"flash_attention_bwd {name}: the gate accepts a planted fault "
+                     f"({fault}: {fe} <= {tol})")
+        abs_e = max(_err(g, w) for g, w in zip(got, want))
+        worst = max(worst, abs_e)
+        log(f"(p) ok: flash_attention_bwd {name} (B={B}, S={S}, H={H}, Hkv={Hkv}, D={D}, "
+            f"{str(dtype)[6:]}, causal={causal}): "
+            f"{'max |Δ| / max|g|' if dtype == f32 else 'worst row max |Δ| / row scale'} "
+            f"{e:.4g} (tol {tol:.4g}; max |kernel - plain| {abs_e:.3g}); lse max |Δ| "
+            f"{lse_err:.3g} (tol {BWD_LSE_TOL}); forward with lse bitwise the forward "
+            f"without; two launches bitwise equal; planted faults rejected: "
+            + ", ".join(f"{f} {fe:.4g}" for f, fe in faults.items()))
+    return worst
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def _tree_bitwise(what, ours, theirs):
+    from repro_torch.models.transformer import tree_leaves
+
+    a, b = tree_leaves(ours), tree_leaves(theirs)
+    if len(a) != len(b) or not all(_same_bits(x, y) for x, y in zip(a, b)):
+        fail(f"{what}: not bitwise equal")
+
+
+def phase_lm_train(dev):
+    import math
+
+    from repro_torch.configs.base import get_config, get_reduced
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    torch.cuda.synchronize()
+    log(f"(q) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, remat={cfg.remat} ({cfg.remat_policy}): "
+        f"{cfg.param_count() / 1e9:.3f} B random weights and AdamW state on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: TRAIN_STEPS steps of launch/train.py's step, counted
+    params, state = run.init_state()
+    losses, gnorms, walls, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(n):
+        batch = next(run.stream)
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: ops.launches[k] - before[k]
+                         for k in ("flash_attention", "flash_attention_bwd")})
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"(q) losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}, step walls (s) {[round(w, 3) for w in walls]}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("(q) a loss or grad norm is not finite")
+    ln_v = math.log(cfg.vocab)
+    if not abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL:
+        fail(f"(q) step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of "
+             f"ln({cfg.vocab}) = {ln_v:.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"(q) the loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    if any(s != want for s in per_step):
+        fail(f"(q) launches a step {per_step}, expected {want} (remat runs the forward "
+             f"twice a layer)")
+    step_s = float(np.median(walls[1:]))
+    log(f"(q) ok: {n} steps of B={B} x S={S} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V = {ln_v:.4f}); step wall {step_s:.3f} s (median of "
+        f"steps 1-{n - 1}; step 0 {walls[0]:.3f} s), {B * S / step_s:.0f} tokens/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    # where a step's time goes: one more step under the profiler, after the
+    # counted window
+    batch = next(run.stream)
+    prof = _device_profile(lambda: run.step_fn(params, state, batch))
+    if prof is None:
+        log("(q) torch.profiler saw no device time: busy share not measured")
+    else:
+        log(f"(q) one step: device busy {prof[0]:.1f} ms of {step_s * 1e3:.1f} ms wall "
+            f"(idle share {1 - prof[0] / (step_s * 1e3):.2f}), {prof[1]} kernels; busiest: "
+            + ", ".join(f"{nm[:60]} {ms:.1f} ms" for nm, ms in prof[2]))
+    # where the peak memory is: the backward and the AdamW update apart
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads, _ = grads_of(run.model, params, batch)
+    torch.cuda.synchronize()
+    peak_bwd = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run.opt.update(params, grads, state)
+    torch.cuda.synchronize()
+    peak_upd = torch.cuda.max_memory_allocated()
+    log(f"(q) device memory: {resident / 2**30:.2f} GiB held between steps (weights, "
+        f"AdamW moments), peak {peak_bwd / 2**30:.2f} GiB in the backward, "
+        f"{peak_upd / 2**30:.2f} GiB in AdamW.update (functional: new moments beside "
+        f"the old)")
+    del run, params, state, metrics, batch, grads
+    torch.cuda.empty_cache()
+
+    # one step's gradients at the arch's widths and TRAIN_GRAD_LAYERS layers,
+    # through the kernels and through their plain versions
+    small = cfg.replace(n_layers=TRAIN_GRAD_LAYERS)
+    model = build(small)
+    p2 = model.init(SEED, device=dev)
+    batch = next(TokenStream(TokenStreamConfig(vocab=cfg.vocab, batch=B, seq_len=S,
+                                               seed=SEED), device=dev))
+    ops.reset_launch_counts()
+    kern, _ = grads_of(model, p2, batch)
+    n_kern = dict(ops.launches)
+    real = FA.flash_attention_cuda, FA.flash_attention_bwd_cuda
+    FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = (
+        FA.flash_attention_plain, FA.flash_attention_bwd_plain)
+    try:
+        plain, _ = grads_of(model, p2, batch)
+    finally:
+        FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = real
+    torch.cuda.synchronize()
+    if ops.launches != n_kern or n_kern["flash_attention_bwd"] != TRAIN_GRAD_LAYERS:
+        fail(f"(q) the kernel step launched {n_kern}, the plain step {dict(ops.launches)}")
+    errs = [_err(a, b) / float(b.float().abs().max())
+            for a, b in zip(tree_leaves(kern), tree_leaves(plain))]
+    if not max(errs) <= LM_GRAD_TOL:
+        fail(f"(q) gradients through the kernels differ from the plain versions' by "
+             f"{max(errs)} of a leaf's max |g| (> {LM_GRAD_TOL})")
+    log(f"(q) ok: one step at {cfg.name}'s widths, {TRAIN_GRAD_LAYERS} layers, B={B}, "
+        f"S={S}: gradients through the kernels vs their plain versions, per leaf max "
+        f"|Δg| / max|g| worst {max(errs):.4g} (tol {LM_GRAD_TOL}), median "
+        f"{float(np.median(errs)):.4g}")
+    del model, p2, kern, plain, batch
+    torch.cuda.empty_cache()
+
+    # launch/train.py on the card with --reduced and checkpoints: 6 steps,
+    # and 4 steps resumed to 6, bitwise
+    root = Path(__file__).resolve().parent / "build" / "chip_lm_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "6", "--device", dev.type,
+            "--ckpt-every", "2"]
+    whole = launch_train.run(argv + ["--ckpt-dir", str(root / "whole")])
+    fetch = TokenStream.__next__
+
+    def sigterm_at_batch_3(stream):   # a preemption: step 4 ends, then a save
+        if stream.position == 3:
+            signal.raise_signal(signal.SIGTERM)
+        return fetch(stream)
+
+    TokenStream.__next__ = sigterm_at_batch_3
+    try:
+        cut = launch_train.run(argv + ["--ckpt-dir", str(root / "cut")])
+    finally:
+        TokenStream.__next__ = fetch
+    resumed = launch_train.run(argv + ["--ckpt-dir", str(root / "cut"), "--resume"])
+    if (cut.summary["step"], resumed.summary["step"], whole.summary["step"]) != (4, 6, 6):
+        fail(f"(q) CLI runs ended at {cut.summary}, {resumed.summary}, {whole.summary}")
+    if cut.losses + resumed.losses != whole.losses:
+        fail(f"(q) resumed losses {cut.losses + resumed.losses} != {whole.losses}")
+    _tree_bitwise("(q) the resumed CLI run's params", resumed.trainer.params,
+                  whole.trainer.params)
+    _tree_bitwise("(q) the resumed CLI run's AdamW state", resumed.trainer.opt_state,
+                  whole.trainer.opt_state)
+    log(f"(q) ok: launch/train.py --reduced on the card: 6 steps, loss "
+        f"{whole.losses[0]:.4f} -> {whole.losses[-1]:.4f}; stopped by SIGTERM at 4 and "
+        f"resumed to 6, params and AdamW state bitwise the uninterrupted run's")
+
+    # a bf16 copy of the reduced config through the Trainer: save, restore
+    bf = get_reduced(TRAIN_ARCH).replace(dtype="bfloat16")
+    tcfg = TrainerConfig(total_steps=3, ckpt_every=2, ckpt_dir=str(root / "bf16"))
+    r1 = launch_train.build_run(bf, steps=3, batch=4, seq=128, device=dev)
+    t1 = Trainer(r1.step_fn, *r1.init_state(), r1.stream, tcfg)
+    t1.run()
+    r2 = launch_train.build_run(bf, steps=3, batch=4, seq=128, device=dev)
+    t2 = Trainer(r2.step_fn, *r2.init_state(), r2.stream, tcfg)
+    if not t2.restore() or t2.step != 3:
+        fail("(q) the bf16 Trainer checkpoint did not restore at step 3")
+    if tree_leaves(t2.params)[0].dtype != torch.bfloat16:
+        fail("(q) the bf16 checkpoint restored another dtype")
+    _tree_bitwise("(q) bf16 params restored", t2.params, t1.params)
+    _tree_bitwise("(q) AdamW state restored", t2.opt_state, t1.opt_state)
+    shutil.rmtree(root, ignore_errors=True)
+    log("(q) ok: a bf16 reduced run through the Trainer saved and restored bitwise "
+        "(params and AdamW state)")
+    return launches, dict(step_s=step_s, tokens_per_s=B * S / step_s, peak_gib=peak / 2**30,
+                          losses=losses)
+
+
+def phase_flash_bwd_timing(dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import traffic
+
+    rows = []
+    fwd_lse = None
+    for name, (B, S, H, Hkv, D) in (("qwen3-1.7b", (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)),
+                                    ("llama3-8b", (LM_BATCH, LM_PROMPT, 32, 8, 128))):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        q, k, v = _flash_inputs(gen, B, S, S, H, Hkv, D, torch.bfloat16, dev)
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+
+        def kern():
+            return FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+
+        def plain():
+            return FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
+        doh = do.transpose(1, 2).contiguous()
+
+        def library():
+            return torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+
+        # logged, not gated: SDPA is a yardstick of time, and (p) holds the
+        # kernel to its plain version
+        lib_err = max(FA.grad_row_error(g, w.transpose(1, 2))
+                      for g, w in zip(kern(), library()))
+        t_plain_a = _time(plain, iters=2)
+        t_kern_a = _time(kern)
+        t_lib_a = _time(library)
+        d_a, d_b = _device_ms(kern, iters=10), _device_ms(kern, iters=10)
+        t_lib_b = _time(library)
+        t_kern_b = _time(kern)
+        t_plain_b = _time(plain, iters=2)
+        flops = traffic.flash_attention_bwd_flops(B, S, H, D, S, True)
+        nbytes = traffic.flash_attention_bwd_bytes(B, S, S, H, Hkv, D, 2)
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_f = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+        if d_a is None or d_b is None:
+            ms, dev_ms = min(t_kern_a, t_kern_b), "not measured"
+        else:
+            ms, dev_ms = min(d_a, d_b), f"{d_a:.4f} / {d_b:.4f}"
+        shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal"
+        log(f"(r) flash_attention_bwd at {name}'s {shape}: kernel {dev_ms} ms on the card "
+            f"(profiler; the delta pre-pass, dK/dV and dQ), {t_kern_a:.4f} / "
+            f"{t_kern_b:.4f} ms a call (CUDA events), {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms; SDPA backward {t_lib_a:.4f} / "
+            f"{t_lib_b:.4f} ms (worst row error to the kernel {lib_err:.4g}); bound "
+            f"{max(t_b, t_f):.4f} ms (flops {flops}, bytes {nbytes})")
+        rows.append(dict(ms=ms, call_ms=min(t_kern_a, t_kern_b),
+                         plain_ms=min(t_plain_a, t_plain_b),
+                         library_ms=min(t_lib_a, t_lib_b), bound_ms=max(t_b, t_f),
+                         bound_by="bytes" if t_b >= t_f else "operations", shape=shape))
+        if fwd_lse is None:   # the forward at the training shape, with and without lse
+            with_lse = lambda: FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+            without = lambda: FA.flash_attention_cuda(q, k, v, causal=True)
+            a, b = _time(without), _time(with_lse)
+            c, d = _time(with_lse), _time(without)
+            fwd_lse = dict(shape=shape, ms_with_lse=min(b, c), ms_without=min(a, d))
+            log(f"(r) flash_attention at {shape}: {a:.4f} / {d:.4f} ms without lse, "
+                f"{b:.4f} / {c:.4f} ms with lse (CUDA events)")
+        del qh, kh, vh, oh
+    row = rows[0]
+    row["other_shapes"] = rows[1:]
+    return row, fwd_lse
+
+
+# ---------------------------------------------------------------------------
 # (m) learning while serving, hardened
 # ---------------------------------------------------------------------------
 
@@ -1958,15 +2367,17 @@ def phase_data_parallel(dev):
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
-    (f) and (i) time them, through wrappers that every slice of the port
-    has, so that two trees compare on one card in one call.  Each time is
-    the lower of two ``torch.profiler`` readings (:func:`_device_ms`);
-    prints one JSON line."""
+    (f) and (i) time them, and its flash_attention forward at (l)'s
+    shape, through wrappers that every slice of the port has, so that two
+    trees compare on one card in one call.  Each time is the lower of two
+    ``torch.profiler`` readings (:func:`_device_ms`); prints one JSON
+    line."""
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.backend import ExecutionBackend
     from repro_torch.core.rsnn import init_params
     from repro_torch.kernels import build
     from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rsnn_step as K
 
     build.library()
@@ -1976,6 +2387,11 @@ def tree_times(root: Path, dev) -> None:
     def best(name, fn):
         d = [_device_ms(fn), _device_ms(fn)]
         ms[name] = None if None in d else min(d)
+
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, k, v = _flash_inputs(fgen, LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 128,
+                            torch.bfloat16, dev)
+    best("flash_attention llama3-8b", lambda: FA.flash_attention_cuda(q, k, v, causal=True))
 
     for T in (128, 256):
         cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
@@ -2113,16 +2529,29 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows["flash_attention"] = phase_flash_timing(dev)
 
+    errs["flash_attention_bwd"] = phase_flash_bwd_vs_plain(dev)
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_lm_train(dev)     # resets and reads the counts itself
+    for k in ("flash_attention", "flash_attention_bwd"):
+        by_path[k]["lm_train"] = train_launches[k]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    rows["flash_attention_bwd"], fwd_lse = phase_flash_bwd_timing(dev)
+    rows["flash_attention"]["with_lse"] = fwd_lse
+
     card = card_line()
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
                "rsnn_forward": "rsnn_train.cu", "rsnn_train": "rsnn_train.cu",
-               "eprop_update": "rsnn_train.cu", "flash_attention": "flash_attention.cu"}
+               "eprop_update": "rsnn_train.cu", "flash_attention": "flash_attention.cu",
+               "flash_attention_bwd": "flash_attention.cu"}
     replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
                 "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963",
                 "rsnn_forward": "src/repro/kernels/rsnn_step.py:399",
                 "rsnn_train": "src/repro/kernels/eprop_update.py:202",
                 "eprop_update": "src/repro/kernels/eprop_update.py:96",
-                "flash_attention": "src/repro/kernels/flash_attention.py:30"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:30",
+                "flash_attention_bwd":
+                    "src/repro/models/attention.py:49 (jax.grad of blocked_attention)"}
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
@@ -2141,6 +2570,10 @@ def main() -> None:
         if name == "rsnn_forward":
             kernels[-1]["other_batches"] = [rows["rsnn_forward B=1"],
                                             rows["rsnn_forward B=2048"]]
+        if name == "flash_attention":
+            kernels[-1]["with_lse"] = r["with_lse"]
+        if name == "flash_attention_bwd":
+            kernels[-1]["other_shapes"] = r["other_shapes"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,11 +19,13 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of :class:`repro.configs.base.ModelConfig` that the dense
-    family reads, with the same names and defaults.  The other families'
-    fields (MoE, MLA, state space, hybrid schedule, cross-attention,
-    encoder) and the JAX package's execution knobs (attention tile sizes,
-    remat, scan-over-layers, unrolling) come with the families and the
-    training that use them."""
+    family reads, with the same names and defaults, and the training's
+    rematerialisation knobs (``remat``; ``remat_policy`` "full" or "dots").
+    The other families' fields (MoE, MLA, state space, hybrid schedule,
+    cross-attention, encoder) and the JAX package's other execution knobs
+    (attention tile sizes, scan-over-layers, unrolling: the card's kernels
+    size their own tiles and the port runs a loop) come with the families
+    that use them."""
     name: str
     family: str                     # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
@@ -40,6 +42,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"      # "full" | "dots" (save the 2-D matmuls)
 
     @property
     def torch_dtype(self) -> torch.dtype:

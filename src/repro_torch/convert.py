@@ -18,7 +18,9 @@ layout (nested dicts, the stacked layer axis), so the conversion is a tree
 map that checks every key, shape and dtype against the config's tree.  A
 bf16 JAX array arrives as an ``ml_dtypes.bfloat16`` NumPy array, which
 ``torch.from_numpy`` refuses; it goes through float32 and back, which is
-exact.
+exact.  The LM's AdamW state (:func:`adamw_state_from_jax`) maps leaf for
+leaf the same way, its moments checked as f32 trees of the parameters'
+shapes.
 """
 
 from __future__ import annotations
@@ -67,16 +69,13 @@ def opt_state_from_jax(state: Dict[str, Any], device: DeviceLike = None
     return out
 
 
-def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None
-                       ) -> Dict[str, Any]:
-    """Map the JAX package's LM parameter tree (NumPy leaves, e.g.
-    ``jax.tree.map(np.asarray, params)``) onto the port's tree on
-    ``device`` (the card unless the caller passes ``"cpu"``).  Unknown or
-    missing keys, and leaves whose shape or dtype differ from ``cfg``'s
-    tree, raise ``ValueError``."""
+def _lm_tree_from_jax(tree: Any, cfg, dev: torch.device, dtype: str,
+                      what: str) -> Dict[str, Any]:
+    """A JAX tree of NumPy leaves shaped like ``cfg``'s parameter tree, as
+    tensors of ``dtype`` on ``dev``; every key, shape and dtype checked."""
     from repro_torch.models.transformer import param_shapes
 
-    dev = resolve_device(device)
+    want_dtype = getattr(torch, dtype)
 
     def conv(src, want, path):
         if isinstance(want, dict):
@@ -94,8 +93,34 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None
         arr = np.asarray(src)
         if arr.shape != tuple(want.shape):
             raise ValueError(f"{path}: shape {arr.shape}, expected {tuple(want.shape)}")
-        if arr.dtype.name != cfg.dtype:
-            raise ValueError(f"{path}: dtype {arr.dtype.name}, expected {cfg.dtype}")
-        return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype=want.dtype)
+        if arr.dtype.name != dtype:
+            raise ValueError(f"{path}: dtype {arr.dtype.name}, expected {dtype}")
+        return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype=want_dtype)
 
-    return conv(tree, param_shapes(cfg), "params")
+    return conv(tree, param_shapes(cfg), what)
+
+
+def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None
+                       ) -> Dict[str, Any]:
+    """Map the JAX package's LM parameter tree (NumPy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``) onto the port's tree on
+    ``device`` (the card unless the caller passes ``"cpu"``).  Unknown or
+    missing keys, and leaves whose shape or dtype differ from ``cfg``'s
+    tree, raise ``ValueError``."""
+    return _lm_tree_from_jax(tree, cfg, resolve_device(device), cfg.dtype, "params")
+
+
+def adamw_state_from_jax(state: Dict[str, Any], cfg, device: DeviceLike = None
+                         ) -> Dict[str, Any]:
+    """Map the JAX package's AdamW state ``{"mu", "nu", "step"}`` (NumPy
+    leaves) onto the port's on ``device`` (the card unless the caller
+    passes ``"cpu"``): ``mu`` and ``nu`` f32 trees checked as
+    :func:`lm_params_from_jax` checks the parameters, ``step`` an exact
+    int32 scalar.  Unknown or missing keys raise."""
+    if set(state) != {"mu", "nu", "step"}:
+        raise ValueError(f"AdamW state keys {sorted(state)}, expected "
+                         f"['mu', 'nu', 'step']")
+    dev = resolve_device(device)
+    return {"mu": _lm_tree_from_jax(state["mu"], cfg, dev, "float32", "mu"),
+            "nu": _lm_tree_from_jax(state["nu"], cfg, dev, "float32", "nu"),
+            "step": torch.from_numpy(np.array(state["step"], dtype=np.int32)).to(dev)}

@@ -34,6 +34,10 @@ npz entries, the same as the JAX manager writes.
 Bit-exactness: leaves are stored as raw NumPy arrays (``np.savez``), so
 every dtype round-trips bit for bit, including the integer-valued float32
 carriers of the quantized SRAM image and the ``EpropSGD`` residuals.
+NumPy has no bfloat16: a bf16 leaf is stored as the raw 2-byte ``|V2``
+records the JAX manager writes for an ``ml_dtypes.bfloat16`` array (its
+bits viewed through int16), and a ``|V2`` entry restores into a bf16
+template leaf by the same view back.
 ``restore`` checks every leaf's shape *and* dtype against the caller's
 template and fails with a per-leaf diff.
 """
@@ -122,9 +126,17 @@ def _map(tree: Any, fn, path: str = "") -> Any:
     return fn(path, tree)
 
 
+# How NumPy stores a bf16 leaf: raw 2-byte records.
+BF16_RECORD = np.dtype("V2")
+
+
 def _to_host(leaf: Any) -> np.ndarray:
-    """A leaf as a NumPy array that shares no memory with it."""
+    """A leaf as a NumPy array that shares no memory with it (a bf16
+    tensor as its bits in ``|V2`` records)."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            bits = leaf.detach().cpu().view(torch.int16).numpy().copy()
+            return bits.view(BF16_RECORD)
         return leaf.detach().cpu().numpy().copy()
     if isinstance(leaf, (np.ndarray, np.generic, bool, int, float)):
         return np.array(leaf)
@@ -144,7 +156,11 @@ def place_like(template: Any, host: Any) -> Any:
 
     def place(key, leaf):
         if isinstance(leaf, torch.Tensor):
-            return torch.from_numpy(arrays[key]).to(leaf.device)
+            arr = arrays[key]
+            if leaf.dtype == torch.bfloat16 and arr.dtype == BF16_RECORD:
+                return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+                    leaf.device)
+            return torch.from_numpy(arr).to(leaf.device)
         return arrays[key]
 
     return _map(template, place)
@@ -153,6 +169,8 @@ def place_like(template: Any, host: Any) -> Any:
 def _spec(leaf: Any) -> Tuple[Tuple[int, ...], np.dtype]:
     """A leaf's shape and NumPy dtype, without copying a tensor."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return tuple(leaf.shape), BF16_RECORD
         return tuple(leaf.shape), torch.empty((), dtype=leaf.dtype).numpy().dtype
     arr = np.asarray(leaf)
     return arr.shape, arr.dtype

@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
 training kernels of ``rsnn_train.cu``, both on the tick datapath of
-``rsnn_tick.cuh``, and the attention kernel of ``flash_attention.cu``)
+``rsnn_tick.cuh``, and the attention kernels of ``flash_attention.cu``,
+forward and backward)
 compiles with ``nvcc`` for Hopper (``sm_90a``; the RSNN sources with
 ``-fmad=false``), one ``nvcc`` per source, all started together, and links
 into one shared library with a plain C interface, loaded with ``ctypes`` —
@@ -131,14 +132,23 @@ def _load(path: Path) -> ctypes.CDLL:
         + [f32, f32, f32, i32, f32, i32, ptr])
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
-    # flash_attention: q, k, v, o; bf16, B, Sq, Skv, H, Hkv, D; the batch,
-    # sequence and head strides of q, k and v; kv_len, causal, scale; the
-    # plan's q tiles and shared-memory bytes; stream
+    # flash_attention: q, k, v, o, lse (null: none written); bf16, B, Sq,
+    # Skv, H, Hkv, D; the batch, sequence and head strides of q, k and v;
+    # kv_len, causal, scale; the plan's q tiles and shared-memory bytes;
+    # stream
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 7 + [ctypes.c_longlong] * 9
+        [ptr] * 5 + [i32] * 7 + [ctypes.c_longlong] * 9
         + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
+    # flash_attention_bwd: q, k, v, o, dO, lse, delta, dq, dk, dv; bf16, B,
+    # Sq, Skv, H, Hkv, D; the strides of q, k and v; causal, scale; the
+    # plan's delta blocks, KV tiles and q tiles, the dK/dV and dQ
+    # shared-memory bytes; stream
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [ctypes.c_longlong] * 9
+        + [i32, f32, i32, i32, i32, ctypes.c_longlong, ctypes.c_longlong, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
-               lib.eprop_update_launch, lib.flash_attention_launch):
+               lib.eprop_update_launch, lib.flash_attention_launch,
+               lib.flash_attention_bwd_launch):
         fn.restype = i32
     lib.rsnn_error_string.argtypes = [i32]
     lib.rsnn_error_string.restype = ctypes.c_char_p

@@ -15,7 +15,18 @@ the Pallas kernel and of ``repro.models.attention.blocked_attention``:
 
 Whole key tiles above the diagonal or past ``kv_len`` are skipped (their
 terms are exact zeros once a row has seen key 0, which every row has).
-Ragged lengths need no padding: the kernel masks its own edges.
+Ragged lengths need no padding: the kernel masks its own edges.  On
+request both forwards also return each row's log-sum-exp ``lse = m +
+log(l)`` in f32, ``(B, H, Sq)``, the statistic the backward needs.
+
+The backward (``FlashAttentionFn``, the gradient JAX takes of
+``repro.models.attention.blocked_attention`` with ``jax.grad``; the Pallas
+kernel has none) recomputes the probabilities tile by tile from the saved
+``lse``: ``P = exp(S - lse)``, ``dV = Pᵀ·dO``, ``dP = dO·Vᵀ``, ``dS = P ∘
+(dP - δ)`` with ``δ = rowsum(dO ∘ O)``, ``dQ = scale·dS·K``, ``dK =
+scale·dSᵀ·Q``; dK and dV summed over the G query heads of each KV head.
+Like the forward it rounds ``P`` (and ``dS``) to the input dtype before
+their products.
 
 * :func:`flash_attention_cuda` launches the kernel of
   ``csrc/flash_attention.cu`` on the tensors' card: in bf16 (every model
@@ -30,9 +41,14 @@ Ragged lengths need no padding: the kernel masks its own edges.
   the CPU path runs it, and ``chip_smoke.py`` holds the kernel against it.
   It needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32``
   off, PyTorch's default) to be the kernel's reference on the card.
-* :func:`flash_plan` is the launch's geometry (grid, the order in which
-  blocks take their q tiles, shared memory), pure Python so that the CPU
-  tests reach it.
+* :func:`flash_attention_bwd_cuda` launches the backward of the same
+  source (a ``δ`` pre-pass, a dK/dV kernel with a block a KV tile and KV
+  head, a dQ kernel with a block a q tile and head: no atomics, so two
+  launches give the same bits), :func:`flash_attention_bwd_plain` is its
+  eager version.
+* :func:`flash_plan` and :func:`flash_bwd_plan` are the launches'
+  geometry (grid, the order in which blocks take their q tiles, shared
+  memory), pure Python so that the CPU tests reach them.
 
 :mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
 """
@@ -80,6 +96,22 @@ BF16_ROW_TOL = 8 * 2 ** -8
 # Rows whose largest output is below this are held to it instead (an
 # absolute floor, far below any output at the scales the checks use).
 ROW_FLOOR = 2 ** -16
+# How far two bf16 gradients (dq, dk or dv) may lie apart, per row:
+# ``grad_row_error <= BWD_BF16_ROW_TOL``.  Each output is rounded to bf16
+# once (one ulp at the row's largest element, 2^-7 of it), and P and dS
+# are rounded to bf16 as product operands (2^-9 each, summed over many
+# keys or queries).  A row whose gradient cancels (a query that sees a
+# few keys, a key seen by a few queries) keeps absolute errors of the
+# typical row's size: dS = P (dP - delta) takes delta = rowsum(dO o O)
+# from the bf16 output O, an error of 2^-9 of |dO||O| whatever the size
+# of dS.  So a row is measured against the larger of its own largest
+# element and the median over rows of that, and the limit is 2^-5 as in
+# the forward: room above those roundings (the plain version against
+# JAX's jax.vjp of blocked_attention in bf16: worst row 0.0176 at S <=
+# 1000, tests/_torch_lm_bf16_spread.py on a CPU), far below dk x 0.9 (0.1
+# of every large row) or a q tile dropped from dk and dv (0.56 and more
+# in chip_smoke.py (p)).
+BWD_BF16_ROW_TOL = 8 * 2 ** -8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +177,11 @@ def _check_shapes(q, k, v, kv_len):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True,
-                          kv_len: Optional[int] = None) -> torch.Tensor:
+                          causal: bool = True, kv_len: Optional[int] = None,
+                          return_lse: bool = False):
     """The kernel's function in eager PyTorch → ``(B, Sq, H, D)`` in q's
-    dtype; ``kv_len`` defaults to ``Skv``."""
+    dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``);
+    ``kv_len`` defaults to ``Skv``."""
     kv_len = _check_shapes(q, k, v, kv_len)
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
@@ -156,6 +189,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = D ** -0.5
     k, v = k[:, :kv_len], v[:, :kv_len]          # keys past kv_len never count
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     bq = bk = PLAIN_BLOCK
     for q0 in range(0, Sq, bq):
         n = min(bq, Sq - q0)
@@ -184,6 +218,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n] = o.reshape(B, n, H, D).to(q.dtype)
+        lse[:, q0:q0 + n] = (m + torch.log(l)).reshape(B, n, H)
+    if return_lse:
+        return out, lse.permute(0, 2, 1).contiguous()
     return out
 
 
@@ -196,18 +233,19 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((d / want.float().abs().amax(dim=-1).clamp_min(ROW_FLOOR)).max())
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True,
-                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the bf16 tensor-core kernel or the f32 kernel on the current
-    stream of the tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in
-    q's dtype.  Checks device, dtype, shape, strides and (bf16) alignment;
-    raises on a refused launch."""
-    from repro_torch.kernels import build
+def grad_row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest over rows (the last dimension) of ``max |got - want|`` over
+    the larger of the row's ``max |want|``, the median over rows of that,
+    and ``ROW_FLOOR``; ``inf`` when ``got`` is not finite."""
+    if not torch.isfinite(got).all():
+        return float("inf")
+    d = (got.float() - want.float()).abs().amax(dim=-1)
+    m = want.float().abs().amax(dim=-1)
+    return float((d / m.clamp_min(max(float(m.median()), ROW_FLOOR))).max())
 
-    kv_len = _check_shapes(q, k, v, kv_len)
+
+def _check_card_inputs(op: str, q, k, v):
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != dev:
@@ -218,24 +256,226 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {D} not in {KERNEL_HEAD_DIMS}")
+        raise ValueError(f"{op}: head width {D} not in {KERNEL_HEAD_DIMS}")
     if B * H > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B·H = {B * H} > {MAX_GRID_Y}")
+        raise ValueError(f"{op}: B·H = {B * H} > {MAX_GRID_Y}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_copy_alignment(name, t)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, kv_len: Optional[int] = None,
+                         return_lse: bool = False):
+    """Launch the bf16 tensor-core kernel or the f32 kernel on the current
+    stream of the tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in
+    q's dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``,
+    written by the same launch; without it the kernel writes none and its
+    output has the same bits).  Checks device, dtype, shape, strides and
+    (bf16) alignment; raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    kv_len = _check_shapes(q, k, v, kv_len)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    _check_card_inputs("flash_attention", q, k, v)
     plan = flash_plan(B, Sq, H, D, q.dtype)
     o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B == 0 or Sq == 0:
-        return o
+        return (o, lse) if return_lse else o
     lib = build.library()
     strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, *strides,
             kv_len, int(causal), ctypes.c_float(D ** -0.5), plan.grid[0],
             ctypes.c_longlong(plan.smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention")
     launches["flash_attention"] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """The backward's three launches, as the launcher takes them: the ``δ``
+    pre-pass (``delta_grid`` blocks of ``BWD_DELTA_ROWS`` warps, a warp a
+    ``(b, position, head)`` row); the dK/dV kernel, ``dkdv_grid = (KV
+    tiles, B·Hkv)``, block ``x`` taking KV tile ``x`` (under the causal mask
+    the first tiles see the most queries); the dQ kernel, ``dq_grid = (q
+    tiles, B·H)`` in the forward's order; and each kernel's dynamic shared
+    memory a block."""
+
+    delta_grid: int
+    dkdv_grid: Tuple[int, int]
+    dq_grid: Tuple[int, int]
+    dkdv_smem_bytes: int
+    dq_smem_bytes: int
+
+
+# Rows of the δ pre-pass a 128-thread block: a warp each.
+BWD_DELTA_ROWS = 4
+
+
+def flash_bwd_smem_bytes(D: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(dK/dV, dQ) dynamic shared memory of one block.  bf16: dK/dV holds
+    its k and v tiles and ``STAGES`` q and dO tiles (rows of ``D + 8``) with
+    their ``lse`` and ``δ``; dQ its q and dO tiles and ``STAGES`` k and v
+    tiles.  f32: four tiles of rows ``D + 1``, the 64 x 65 tiles of ``P``
+    and ``dS`` (dK/dV) or ``dS`` (dQ), and the 64 ``lse`` and ``δ``."""
+    if dtype == torch.bfloat16:
+        tiles = (2 + 2 * STAGES) * BLOCK_K * (D + 8) * 2
+        return tiles + STAGES * 2 * BLOCK_Q * 4, tiles
+    four = 4 * BLOCK_K * (D + 1)
+    score = BLOCK_Q * (BLOCK_K + 1)
+    return ((four + 2 * score + 2 * BLOCK_Q) * 4,
+            (four + score + 2 * BLOCK_Q) * 4)
+
+
+def flash_bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+                   dtype: torch.dtype) -> FlashBwdPlan:
+    dkdv, dq = flash_bwd_smem_bytes(D, dtype)
+    return FlashBwdPlan(delta_grid=cdiv(B * Sq * H, BWD_DELTA_ROWS),
+                        dkdv_grid=(cdiv(Skv, BLOCK_K), B * Hkv),
+                        dq_grid=(cdiv(Sq, BLOCK_Q), B * H),
+                        dkdv_smem_bytes=dkdv, dq_smem_bytes=dq)
+
+
+def _check_bwd_shapes(q, k, v, o, lse, do):
+    _check_shapes(q, k, v, None)
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dO "
+                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be f32 {(B, H, Sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
+    """The backward in eager PyTorch, tile by tile as the kernel recomputes
+    it → ``(dq, dk, dv)`` in q's dtype and the shapes of q, k and v.  ``P``
+    and ``dS`` are rounded to the input dtype before their products (as the
+    bf16 kernel's tensor-core operands are); sums in f32."""
+    _check_bwd_shapes(q, k, v, o, lse, do)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    dt = q.dtype
+    dev = q.device
+    rnd = (lambda t: t.to(dt).float()) if dt != torch.float32 else (lambda t: t)
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(B, Sq, Hkv, G)
+    lse_r = lse.permute(0, 2, 1).reshape(B, Sq, Hkv, G)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Skv, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    bq = bk = PLAIN_BLOCK
+    for q0 in range(0, Sq, bq):
+        n = min(bq, Sq - q0)
+        qt = q[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        dot = do[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        lt, dl = lse_r[:, q0:q0 + n, ..., None], delta[:, q0:q0 + n, ..., None]
+        qpos = torch.arange(q0, q0 + n, device=dev)
+        n_kv = cdiv(Skv, bk)
+        if causal:
+            n_kv = min(n_kv, (q0 + n - 1) // bk + 1)
+        for j in range(n_kv):
+            ks = slice(j * bk, min((j + 1) * bk, Skv))
+            kt, vt = k[:, ks].float(), v[:, ks].float()
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qt, kt) * scale
+            p = torch.exp(s - lt)
+            if causal:
+                kpos = torch.arange(ks.start, ks.stop, device=dev)
+                valid = kpos[None, :] <= qpos[:, None]
+                p = torch.where(valid[None, :, None, None, :], p, 0.0)
+            dv[:, ks] += torch.einsum("bqhgk,bqhgd->bkhd", rnd(p), dot)
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", dot, vt)
+            ds = rnd(p * (dp - dl))
+            dq[:, q0:q0 + n] += torch.einsum("bqhgk,bkhd->bqhgd", ds, kt)
+            dk[:, ks] += torch.einsum("bqhgk,bqhgd->bkhd", ds, qt)
+    return ((dq * scale).reshape(B, Sq, H, D).to(dt), (dk * scale).to(dt),
+            dv.to(dt))
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
+    """Launch the backward on the current stream of the tensors' card →
+    contiguous ``(dq, dk, dv)`` in q's dtype: the ``δ`` pre-pass, then the
+    dK/dV and the dQ kernels.  ``o`` and ``lse`` are the forward's
+    (contiguous); a ``dO`` that is not contiguous or, in bf16, not 16-byte
+    aligned is copied first.  Raises on a refused launch."""
+    from repro_torch.kernels import build
+
+    _check_bwd_shapes(q, k, v, o, lse, do)
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    _check_card_inputs("flash_attention_bwd", q, k, v)
+    if not do.is_contiguous() or do.data_ptr() % COPY_BYTES:
+        do = do.clone(memory_format=torch.contiguous_format)
+    for name, t in (("o", o), ("dO", do), ("lse", lse)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous on {dev}")
+        if name != "lse" and t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} must be {q.dtype}, got {t.dtype}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("o", o), ("dO", do)):
+            _check_copy_alignment(name, t)
+    if B * Hkv > MAX_GRID_Y:
+        raise ValueError(f"flash_attention_bwd: B·Hkv = {B * Hkv} > {MAX_GRID_Y}")
+    plan = flash_bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lib = build.library()
+    strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
+    with torch.cuda.device(dev):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D,
+            *strides, int(causal), ctypes.c_float(D ** -0.5), plan.delta_grid,
+            plan.dkdv_grid[0], plan.dq_grid[0],
+            ctypes.c_longlong(plan.dkdv_smem_bytes),
+            ctypes.c_longlong(plan.dq_smem_bytes), stream_arg(dev))
+    raise_on(lib, rc, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable causal GQA attention over q ``(B, Sq, H, D)`` and k, v
+    ``(B, Skv, Hkv, D)``: on the card the forward kernel (with ``lse``) and
+    the backward kernel, on the CPU their plain versions
+    (:func:`repro_torch.kernels.ops.flash_attention` has checked the
+    device).  It saves q, k,
+    v, the output and ``lse``; under ``torch.utils.checkpoint`` the forward
+    runs again before the backward, and only that run's tensors are
+    kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        o, lse = fwd(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None

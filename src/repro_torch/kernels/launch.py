@@ -26,9 +26,9 @@ THREADS_PER_SM = 2048
 H100_SMS = 132
 
 # Every kernel of the port: the five RSNN kernels and the LM's attention
-# kernel.
+# kernel, forward and backward.
 KERNELS = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
-           "eprop_update", "flash_attention")
+           "eprop_update", "flash_attention", "flash_attention_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 # rsnn_train's launches that reduced onto the integer commit grid
 # (rsnn_dw_codes_reduce_kernel, in the same launch): a share of

@@ -9,8 +9,10 @@ failed build or launch propagates.
 wrappers in :mod:`repro_torch.kernels.rsnn_step`,
 :mod:`repro_torch.kernels.eprop_update` and
 :mod:`repro_torch.kernels.flash_attention` count each launch) holds plain
-integers for all six kernels: a run sets them to 0, drives the main path,
-and reads them back to show the path went through the kernels.
+integers for all seven kernels (the six of the JAX package's Pallas
+kernels, and the attention backward, counted once a backward call): a
+run sets them to 0, drives the main path, and reads them back to show the
+path went through the kernels.
 ``grid_launches["rsnn_train"]`` counts the share of ``rsnn_train``'s
 launches that reduced onto the integer commit grid.
 """
@@ -111,7 +113,15 @@ def eprop_update(h, xbar, pbar, zbar, err, b_fb, *, kappa: float):
 def flash_attention(q, k, v, *, causal: bool, kv_len: Optional[int] = None):
     """Causal GQA online-softmax attention over q ``(B, Sq, H, D)`` and k, v
     ``(B, Skv, Hkv, D)`` → ``(B, Sq, H, D)``; keys at positions
-    ``>= kv_len`` (default ``Skv``) are masked."""
-    if not _on_card(q, "flash_attention"):
+    ``>= kv_len`` (default ``Skv``) are masked.  With grad on and an input
+    that requires it, the call goes through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (its
+    backward a kernel too; no ``kv_len`` there)."""
+    on_card = _on_card(q, "flash_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if kv_len is not None and kv_len != k.shape[1]:
+            raise ValueError("flash_attention: the differentiable path takes no kv_len")
+        return _flash.FlashAttentionFn.apply(q, k, v, causal)
+    if not on_card:
         return _flash.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
     return _flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)

@@ -129,3 +129,21 @@ def flash_attention_flops(B: int, Sq: int, H: int, D: int, kv_len: int,
     ``4·B·H·D·Σ_q(valid keys)``; the softmax's few per score are not
     counted."""
     return 4 * B * H * D * attention_valid_keys(Sq, kv_len, causal)
+
+
+def flash_attention_bwd_flops(B: int, Sq: int, H: int, D: int, kv_len: int,
+                              causal: bool) -> int:
+    """Exact-causal operations of ``flash_attention_bwd``: its five products
+    (the scores recomputed, then dV, dP, dQ and dK), a multiply and an add
+    each for every valid key, ``10·B·H·D·Σ_q(valid keys)``; the
+    elementwise work on P and dS and the δ pre-pass are not counted."""
+    return 10 * B * H * D * attention_valid_keys(Sq, kv_len, causal)
+
+
+def flash_attention_bwd_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
+                              itemsize: int) -> int:
+    """``flash_attention_bwd``: q, o, dO read and dq written once (each
+    ``(B, Sq, H, D)``), k, v read and dk, dv written once (each ``(B, Skv,
+    Hkv, D)``), and the f32 ``lse`` ``(B, H, Sq)`` read once; the kernel's
+    own δ scratch is not counted."""
+    return itemsize * (4 * B * Sq * H * D + 4 * B * Skv * Hkv * D) + 4 * B * H * Sq

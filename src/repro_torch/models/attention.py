@@ -1,8 +1,12 @@
 """GQA self-attention of the dense LM family (counterpart of the GQA part
 of :mod:`repro.models.attention`).
 
-Two execution modes per layer:
+Three execution modes per layer:
 
+* train — full-sequence attention over positions ``0..S-1`` with no
+  cache; :func:`blocked_attention` is differentiable (on the card the
+  forward and backward flash kernels through
+  :class:`repro_torch.kernels.flash_attention.FlashAttentionFn`);
 * prefill — full-sequence attention (:func:`blocked_attention`), which on
   the card is the hand-written flash kernel
   (:func:`repro_torch.kernels.ops.flash_attention`), launched once per
@@ -32,7 +36,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns (B,Sq,H,D) in q.dtype, softmax statistics in f32.  Ragged
     lengths need no padding, and key tiles above the diagonal are always
-    skipped (the JAX ``prune_causal`` walk; it changes no value).
+    skipped (the JAX ``prune_causal`` walk; it changes no value).  With
+    grad on it is differentiable, its backward a kernel on the card.
     """
     return ops.flash_attention(q, k, v, causal=causal)
 
@@ -117,13 +122,15 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def gqa_forward(p: Dict, x: torch.Tensor, cfg, cache: Dict[str, torch.Tensor], *,
+def gqa_forward(p: Dict, x: torch.Tensor, cfg,
+                cache: Optional[Dict[str, torch.Tensor]] = None, *,
                 causal: bool = True, pos: Optional[int] = None) -> torch.Tensor:
     """Self-attention over x (B, S, D), writing the keys and values into
     ``cache`` (``{"k", "v"}`` of (B, Smax, Hkv, Dh)) in place.
 
-    Prefill (``pos`` None): attention over the S positions themselves
-    (:func:`blocked_attention`), and their keys and values go to slots
+    Train (``cache`` None): attention over the S positions themselves, no
+    cache.  Prefill (``pos`` None): the same attention
+    (:func:`blocked_attention`), and the keys and values go to slots
     ``[0, S)``.  Decode (x is (B, 1, D), ``pos`` the write slot): the new
     key and value go to slot ``pos``, and the token attends to slots
     ``[0, pos]`` (:func:`decode_attention`).
@@ -133,8 +140,9 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg, cache: Dict[str, torch.Tensor], *
         positions = torch.arange(S, device=x.device)[None, :]
         q, k, v = _qkv(p, x, cfg, positions)
         out = blocked_attention(q, k, v, causal=causal)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        if cache is not None:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
     else:
         positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
         q, k, v = _qkv(p, x, cfg, positions)

@@ -93,4 +93,39 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``, through ``F.embedding``: its backward sums each
+    row's gradients in a fixed order (the CPU's and the card's), where
+    indexing's ``index_put_`` accumulates across threads in any order."""
+    return F.embedding(tokens, table)
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token negative log-likelihood in f32 (``logsumexp`` of the f32
+    logits less the target's logit) and whether the argmax hit the
+    target."""
+    logits32 = logits.float()
+    gold = logits32.gather(-1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits32, dim=-1) - gold, logits32.argmax(dim=-1) == targets
+
+
+def token_mean(nll: torch.Tensor, hit: torch.Tensor, mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The masked token means of :func:`token_nll`'s outputs → ``(loss,
+    {"loss", "accuracy", "tokens"})``, sums over ``max(sum(mask), 1)``
+    tokens."""
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = (hit * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-mean cross entropy in f32 → ``(loss, {"loss", "accuracy",
+    "tokens"})``, the JAX package's arithmetic: ``logsumexp`` of the f32
+    logits less the target's logit, masked sums over ``max(sum(mask), 1)``
+    tokens."""
+    return token_mean(*token_nll(logits, targets), mask)

@@ -9,8 +9,16 @@ each layer of the loop reads its slice of the stack (a view, no copy).
 Caches follow the same layout, and every layer writes its slice of them
 in place.  The JAX package's unrolled ``prefix`` (the first dense layers
 of the MoE archs, or every layer without scan-over-layers) comes with the
-families that need it; the dense family's prefix is empty.  There is no
-``remat``: that is training, which comes with a later slice.
+families that need it; the dense family's prefix is empty.
+
+Training (no caches) unbinds the stacked leaves once and, with
+``cfg.remat``, runs each period under ``torch.utils.checkpoint`` as the
+JAX package's ``_remat`` wraps its scan body: ``remat_policy="full"``
+keeps only the period's input and recomputes the rest in the backward,
+``"dots"`` also keeps the outputs of the 2-D matmuls (the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).  The
+gradients are the same either way: the recompute runs the same
+arithmetic.
 
 Layer kinds are ``(mixer, ffn)`` pairs; the port runs ``("attn", "dense")``
 (the dense family).  MoE, MLA, Mamba, cross-attention and the encoder
@@ -20,9 +28,15 @@ raise ``NotImplementedError`` (ROADMAP A8).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
@@ -51,13 +65,14 @@ def layer_plan(cfg) -> Plan:
     return Plan((DENSE,), cfg.n_layers)
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` on every tensor leaf of a tree of dicts and lists."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` on every tensor leaf of a tree of dicts and lists, with the
+    leaves at the same place in the ``rest`` trees as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -129,26 +144,78 @@ def count_params(cfg) -> int:
 
 
 def block_forward(kind: Kind, p: Dict[str, Any], x: torch.Tensor, cfg, *,
-                  cache: Dict, pos: Optional[int] = None) -> torch.Tensor:
+                  cache: Optional[Dict] = None, pos: Optional[int] = None) -> torch.Tensor:
     """One layer; its attention writes ``cache`` in place (prefill when
-    ``pos`` is None, else decode at slot ``pos``)."""
+    ``pos`` is None, else decode at slot ``pos``); without a cache, train
+    mode."""
     if kind != DENSE:
         raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_forward(p["mixer"], h, cfg, cache["mixer"], causal=True, pos=pos)
+    mixer_cache = None if cache is None else cache["mixer"]
+    x = x + attn.gqa_forward(p["mixer"], h, cfg, mixer_cache, causal=True, pos=pos)
     return x + mlp_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
+# The 2-D matmuls, whose outputs the "dots" policy keeps (what the x @ W
+# projections and the logits reach as aten ops); attention's batched
+# products are recomputed, as dots_with_no_batch_dims_saveable does.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+REMAT_POLICIES = ("full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat`` and
+    ``cfg.remat_policy`` say; a policy other than "full" or "dots"
+    raises."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} not in {REMAT_POLICIES}")
+    if not cfg.remat:
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` layer slices of a stacked tree, one ``unbind`` a leaf: its
+    backward stacks the layers' gradients once, where ``t[r]`` would add
+    ``n`` zero-padded full-size ones."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p, r=r: p[r], parts) for r in range(n)]
+
+
 def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan,
-                  caches: Dict[str, Any], *, pos: Optional[int] = None):
+                  caches: Optional[Dict[str, Any]] = None, *,
+                  pos: Optional[int] = None):
     """Run a stack over ``caches`` (stacked like the parameters).  Returns
     (x, caches).
 
-    Modes: prefill (``pos`` None: each layer writes the keys and values of
-    positions ``[0, S)`` into its slice of the caches) and decode (``pos``
-    the write slot of the one new token).  Either way the caches are
-    written in place, and the same caches come back.
+    Modes: train (``caches`` None: no cache, each period under
+    :func:`_remat`; returns (x, None)), prefill (``pos`` None: each layer
+    writes the keys and values of positions ``[0, S)`` into its slice of
+    the caches) and decode (``pos`` the write slot of the one new token).
+    Either way the caches are written in place, and the same caches come
+    back.
     """
+    if caches is None:
+        if pos is not None:
+            raise ValueError("stack_forward: decode needs the caches")
+
+        def period(x, layer_p):
+            for j, kind in enumerate(plan.period):
+                x = block_forward(kind, layer_p[str(j)], x, cfg)
+            return x
+
+        body = _remat(period, cfg)
+        for layer_p in _unstack(stack_params["scan"], plan.repeats):
+            x = body(x, layer_p)
+        return x, None
     for r in range(plan.repeats):
         layer_p = tree_map(lambda t: t[r], stack_params["scan"])
         layer_c = tree_map(lambda t: t[r], caches["scan"])

@@ -17,7 +17,13 @@ quantized; ``rsnn_train``'s readout error goes through ``expf`` and is held
 to ``ERR_TOL`` when quantized, ``FLOAT_TOL`` in float mode.  The flash-attention kernel is held to its plain version at
 ``FLASH_F32_TOL`` relative to ``max |o|`` in f32, and in bf16 per query row
 at ``BF16_ROW_TOL`` of the row's ``max |o|`` (``row_error`` and its
-justification are in ``repro_torch/kernels/flash_attention.py``).
+justification are in ``repro_torch/kernels/flash_attention.py``); its
+backward at ``FLASH_F32_TOL`` of each gradient's max|.| in f32 (a gradient
+that is zero in theory against the largest of the three) and in bf16
+per row at ``BWD_BF16_ROW_TOL`` (``grad_row_error``, the same module).  A
+bf16 LM train step through the kernels is held to the same step through
+the plain versions per gradient leaf at ``LM_GRAD_TOL`` of the leaf's
+max|g|.
 """
 
 import numpy as np
@@ -98,7 +104,7 @@ def test_kernels_match_plain_on_card(quantized, cuda_device):
         carries = list(want)
     assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2,
                             "rsnn_forward": 0, "rsnn_train": 0, "eprop_update": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -319,7 +325,7 @@ def test_train_kernels_match_plain_on_card(quantized, feedback, cuda_device):
     _check_dw(got, want)
     assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0,
                             "rsnn_forward": 2, "rsnn_train": 1, "eprop_update": 1,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -936,3 +942,145 @@ def test_sharded_methods_on_a_one_rank_nccl_world(cuda_device, tmp_path):
                     assert torch.equal(g[k], w[k]), (name, k)
     finally:
         meshlib.leave_world()
+
+
+# The backward's cases: GQA 4:1 and 1:1, ragged and single-row lengths,
+# more queries than keys, non-causal, strided q, k, v with a
+# non-contiguous dO
+BWD_CASES = [
+    (2, 200, 200, 16, 4, 128, True, False),
+    (2, 256, 256, 8, 8, 64, True, False),
+    (1, 130, 130, 8, 2, 128, False, True),
+    (1, 1, 1, 4, 2, 32, True, False),
+    (1, 70, 150, 4, 1, 16, False, False),
+    (1, 150, 90, 4, 2, 64, True, True),
+]
+# Per gradient leaf, a bf16 train step through the kernels against the
+# same step through the plain versions: max |Δg| <= LM_GRAD_TOL * max |g|.
+# The two differ only in where attention's f32 sums round to bf16 (tile
+# sizes, exp2 against exp): the plain version at two tile sizes differs
+# by at most 0.0075 of a leaf's max |g| (reduced qwen3 in bf16, 2 layers,
+# S=512: tests/_torch_lm_bf16_spread.py on a CPU); 2^-5 leaves room for
+# that four times over.
+LM_GRAD_TOL = 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,strided", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, causal,
+                                                strided, cuda_device):
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(Sq * 5 + Skv)
+    q, k, v = _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, cuda_device, strided)
+    do = torch.from_numpy(rng.normal(size=(B, H, Sq, D)).astype(np.float32)).to(
+        cuda_device, dtype).transpose(1, 2)
+    if not strided:
+        do = do.contiguous()
+    ops.reset_launch_counts()
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
+    _, plse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    assert ops.launches["flash_attention_bwd"] == 2
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.isfinite(g).all(), name
+        assert torch.equal(g, a), name
+        if dtype == torch.float32:
+            # a gradient zero in theory (dq and dk with one key: noise of
+            # 1e-8 of the others) is held against the largest of the three
+            ref = float(w.abs().max())
+            err = float((g - w).abs().max()) / (ref if ref >= 1e-4 * scale else scale)
+            assert err <= FLASH_F32_TOL, (name, err)
+        else:
+            assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_gate_rejects_planted_faults(cuda_device):
+    """dk x 0.9, and dk, dv without q tile 1's contributions."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(13)
+    q, k, v = _flash_case(rng, 2, 512, 512, 8, 2, 128, torch.bfloat16, cuda_device,
+                          False)
+    do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    gate = lambda gs: max(FA.grad_row_error(g, w) for g, w in zip(gs, want))
+    assert gate(got) <= FA.BWD_BF16_ROW_TOL
+    assert gate((got[0], (got[1].float() * 0.9).to(torch.bfloat16), got[2])) > \
+        FA.BWD_BF16_ROW_TOL
+    cut = do.clone()
+    cut[:, 64:128] = 0
+    _, dk, dv = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut, causal=True)
+    assert gate((got[0], dk, dv)) > FA.BWD_BF16_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_runs_the_kernels(cuda_device, monkeypatch):
+    """One bf16 train step of the reduced qwen3 (D=16) on the card: under
+    remat="full" the forward kernel runs twice a layer and the backward
+    once; the gradients agree with the same step through the plain
+    versions within LM_GRAD_TOL of each leaf's max |g|."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import build_run
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_reduced("qwen3-1.7b").replace(dtype="bfloat16")
+    run = build_run(cfg, steps=2, batch=4, seq=200, device=cuda_device)
+    batch = next(run.stream)
+    ops.reset_launch_counts()
+    params, state = run.init_state()
+    params, state, metrics = run.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 2 * cfg.n_layers
+    assert ops.launches["flash_attention_bwd"] == cfg.n_layers
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    start, _ = run.init_state()
+    kern, _ = grads_of(run.model, start, batch)
+    monkeypatch.setattr(FA, "flash_attention_cuda", FA.flash_attention_plain)
+    monkeypatch.setattr(FA, "flash_attention_bwd_cuda", FA.flash_attention_bwd_plain)
+    ops.reset_launch_counts()
+    plain, _ = grads_of(run.model, start, batch)
+    assert ops.launches["flash_attention"] == ops.launches["flash_attention_bwd"] == 0
+    for a, b in zip(tree_leaves(kern), tree_leaves(plain)):
+        err = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        assert err <= LM_GRAD_TOL, err
+
+
+@pytest.mark.cuda
+def test_remat_modes_on_card_give_identical_gradients(cuda_device):
+    """remat off, "full" and "dots" (selective checkpointing around the
+    kernels) give the same gradient bits on the card; the forward kernel
+    runs once a layer without remat and twice with it (attention is
+    recomputed under "dots" too), the backward once."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch.train import build_run
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_reduced("qwen3-1.7b").replace(dtype="bfloat16")
+    run = build_run(cfg, steps=1, batch=2, seq=130, device=cuda_device)
+    batch = next(run.stream)
+    params, _ = run.init_state()
+    grads = {}
+    for remat, policy, fwd in [(False, "full", 1), (True, "full", 2), (True, "dots", 2)]:
+        ops.reset_launch_counts()
+        g, _ = grads_of(build(cfg.replace(remat=remat, remat_policy=policy)),
+                        params, batch)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention"] == fwd * cfg.n_layers, (remat, policy)
+        assert ops.launches["flash_attention_bwd"] == cfg.n_layers
+        grads[remat, policy] = tree_leaves(g)
+    for key, g in grads.items():
+        assert all(torch.equal(a, b) for a, b in zip(grads[False, "full"], g)), key

@@ -1,0 +1,597 @@
+"""The port's dense-LM training path against the JAX package.
+
+The JAX functions are called directly, outside any mesh (the JAX CLI,
+``repro.launch.train``, fails under ``make_debug_mesh(1, 1)`` on this JAX
+version: a reference-side failure).  Inputs are NumPy arrays from a seed;
+weights and optimizer state go across through ``lm_params_from_jax`` and
+``adamw_state_from_jax``.  On the CPU the port's attention runs the flash
+kernels' plain versions, forward and backward
+(``FlashAttentionFn``); the JAX side differentiates
+``blocked_attention`` with ``jax.vjp`` / ``jax.grad``.
+
+Tolerances, stated once:
+* ``cross_entropy`` in f32: ``1e-6`` (the same f32 ``logsumexp``; in bf16
+  both take the logits to f32 first);
+* attention in f32: ``1e-5`` of each tensor's max|.| (f32 sums of at
+  most 300 terms in another order, and the backward recomputes P from
+  ``lse`` where JAX differentiates the online softmax); a gradient that
+  is zero in theory (JAX gives exact zeros for dq and dk with one key)
+  against the largest of the three;
+* attention in bf16: per row, ``BWD_BF16_ROW_TOL`` of the row's scale
+  (``kernels/flash_attention.py:grad_row_error``, justified there);
+* the reduced models in f32: loss and metrics ``1e-5``, every gradient
+  leaf ``1e-4`` of its max|g| (matmul sums in another order through four
+  layers); ``make_train_step`` ``1e-4`` of each leaf's max|.| for params,
+  ``mu``, ``nu`` and the metrics after each of 3 steps;
+* AdamW alone: ``1e-6`` relative (``pow``, ``sqrt`` and ``cos`` may
+  differ in the last f32 bit between XLA and PyTorch);
+* the token stream, checkpoints, ``remat`` modes and a resumed CLI run:
+  bitwise.
+"""
+
+import signal
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.data.tokens import TokenStream as JTokenStream
+from repro.data.tokens import TokenStreamConfig as JTokenStreamConfig
+from repro.distributed.checkpoint import CheckpointManager as JCheckpointManager
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models.model import build as jbuild
+from repro.optim import adamw as jadamw
+from repro.train.train_step import make_train_step as jmake_train_step
+from repro_torch.configs.base import PORTED_ARCHS, get_reduced
+from repro_torch.convert import adamw_state_from_jax, lm_params_from_jax
+from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+from repro_torch.distributed.checkpoint import CheckpointManager, place_like
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
+from repro_torch.kernels.traffic import (
+    attention_valid_keys,
+    flash_attention_bwd_bytes,
+    flash_attention_bwd_flops,
+)
+from repro_torch.launch import train as launch_train
+from repro_torch.models import layers
+from repro_torch.models.model import build
+from repro_torch.models.transformer import tree_leaves
+from repro_torch.optim import adamw
+from repro_torch.train.train_step import abstract_opt_state, make_train_step
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _flat(tree, path=""):
+    """``{path: leaf}`` of a tree of dicts and lists (either package's)."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree) for k, v in _flat(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close_leafwise(ours, theirs, tol, what=""):
+    """Every leaf of ``ours`` within ``tol`` of the matching JAX leaf's
+    max|.|, compared by key path."""
+    a, b = _flat(ours), _flat(theirs)
+    assert set(a) == set(b), what
+    for key, want in b.items():
+        want = np.asarray(want, np.float32)
+        got = a[key].detach().float().numpy()
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(got - want).max()) <= tol * scale, f"{what}{key}"
+
+
+# ---------------------------------------------------------------------------
+# cross entropy
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_matches_jax(dtype, masked):
+    rng = np.random.default_rng(3)
+    logits = (rng.normal(size=(3, 7, 50)) * 3).astype(np.float32)
+    targets = rng.integers(0, 50, size=(3, 7)).astype(np.int32)
+    targets[0, :3] = logits[0, :3].argmax(-1)          # some right answers
+    mask = (rng.random((3, 7)) < 0.6).astype(np.float32) if masked else None
+    jl = jnp.asarray(logits).astype(dtype)
+    want_loss, want = jlayers.cross_entropy(
+        jl, jnp.asarray(targets), None if mask is None else jnp.asarray(mask))
+    tl = _t(logits).to(getattr(torch, dtype))
+    loss, got = layers.cross_entropy(tl, _t(targets).long(),
+                                     None if mask is None else _t(mask))
+    assert set(got) == set(want) == {"loss", "accuracy", "tokens"}
+    assert got["loss"] is loss and loss.dtype == torch.float32
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6, atol=1e-6)
+    assert float(want["accuracy"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# attention: forward with lse, backward, the autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(S, dtype=np.float32, seed=0, B=2, H=4, Hkv=2, D=32):
+    rng = np.random.default_rng(seed + S)
+    shapes = [((B, S, H, D), 0.3), ((B, S, Hkv, D), 0.3), ((B, S, Hkv, D), 0.3),
+              ((B, S, H, D), 1.0)]
+    return [(rng.normal(size=s) * sc).astype(np.float32).astype(dtype) for s, sc in shapes]
+
+
+def _jax_vjp(q, k, v, do, causal):
+    f = lambda q, k, v: jattn.blocked_attention(q, k, v, causal=causal)
+    o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return o, vjp(jnp.asarray(do))
+
+
+def _port_grads(q, k, v, do, causal, dtype=torch.float32):
+    tq, tk, tv = (_t(a).to(dtype).requires_grad_() for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, causal=causal)
+    return o, torch.autograd.grad(o, (tq, tk, tv), _t(do).to(dtype))
+
+
+@pytest.mark.parametrize("S", [1, 64, 130])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fn_matches_jax_vjp_f32(S, causal):
+    q, k, v, do = _attn_inputs(S)
+    want_o, want = _jax_vjp(q, k, v, do, causal)
+    o, got = _port_grads(q, k, v, do, causal)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o), rtol=0,
+                               atol=1e-5 * float(np.abs(want_o).max()))
+    scale = max(float(np.abs(w).max()) for w in want)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        limit = 1e-5 * (float(np.abs(w).max()) or scale)   # zero in theory: the largest
+        assert float(np.abs(g.numpy() - w).max()) <= limit, name
+
+
+def _drop_q_tile(q, k, v, o, lse, do, causal, grads):
+    """dk and dv without the contributions of q tile 1 (rows 64-127)."""
+    cut = do.clone()
+    cut[:, FA.BLOCK_Q:2 * FA.BLOCK_Q] = 0
+    _, dk, dv = FA.flash_attention_bwd_plain(q, k, v, o, lse, cut, causal=causal)
+    return grads[0], dk, dv
+
+
+@pytest.mark.parametrize("S,causal", [(64, True), (130, True), (130, False), (300, True)])
+def test_flash_fn_bf16_within_the_row_gate_and_gate_rejects_faults(S, causal):
+    bf = ml_dtypes.bfloat16
+    q, k, v, do = _attn_inputs(S, dtype=bf)
+    _, want = _jax_vjp(q, k, v, do, causal)
+    _, got = _port_grads(q, k, v, do, causal, torch.bfloat16)
+    want = [_t(w) for w in want]
+    gate = lambda gs: max(FA.grad_row_error(g, w) for g, w in zip(gs, want))
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert gate(got) <= FA.BWD_BF16_ROW_TOL
+    assert gate((got[0], (got[1].float() * 0.9).to(torch.bfloat16), got[2])) > \
+        FA.BWD_BF16_ROW_TOL
+    if S > 2 * FA.BLOCK_Q:
+        tq, tk, tv, tdo = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+        o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+        assert gate(_drop_q_tile(tq, tk, tv, o, lse, tdo, causal, got)) > \
+            FA.BWD_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, None), (False, 90)])
+def test_plain_lse_is_logsumexp_of_masked_scores(causal, kv_len):
+    q, k, v, _ = _attn_inputs(130)
+    tq, tk, tv = (_t(a) for a in (q, k, v))
+    o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, kv_len=kv_len,
+                                      return_lse=True)
+    assert torch.equal(o, FA.flash_attention_plain(tq, tk, tv, causal=causal,
+                                                   kv_len=kv_len))
+    B, S, H, D = tq.shape
+    kk = tk.repeat_interleave(H // tk.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, kk) * D ** -0.5
+    valid = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        valid = valid.tril()
+    if kv_len is not None:
+        valid[:, kv_len:] = False
+    want = torch.logsumexp(s.masked_fill(~valid, float("-inf")), dim=-1)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+def test_flash_attention_differentiates_only_with_grad():
+    q, k, v, do = (_t(a) for a in _attn_inputs(70))
+    ops.reset_launch_counts()
+    plain = ops.flash_attention(q, k, v, causal=True)
+    q.requires_grad_()
+    o = ops.flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is not None and torch.equal(o.detach(), plain)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, causal=True).grad_fn is None
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, causal=True, kv_len=40)
+    assert ops.launches["flash_attention_bwd"] == 0    # the CPU launches nothing
+    B, S, H, D = q.shape
+    plan = FA.flash_bwd_plan(B, S, S, H, k.shape[2], D, torch.bfloat16)
+    assert plan.dkdv_grid == (2, B * k.shape[2]) and plan.dq_grid == (2, B * H)
+    assert plan.delta_grid * FA.BWD_DELTA_ROWS >= B * S * H
+
+
+@pytest.mark.parametrize("D", FA.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_plan_fits_a_block(D, dtype):
+    from repro_torch.kernels.launch import SMEM_PER_BLOCK
+
+    dkdv, dq = FA.flash_bwd_smem_bytes(D, dtype)
+    assert dkdv <= SMEM_PER_BLOCK and dq <= SMEM_PER_BLOCK
+    if dtype == torch.bfloat16 and D == 128:
+        assert 2 * dkdv <= 228 * 1024       # two blocks share an SM
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(5, 5, True), (7, 3, True), (3, 7, False),
+                                           (130, 130, True)])
+def test_flash_bwd_traffic_counts(Sq, Skv, causal):
+    """Five products of 2·D operations per unmasked (query, key) pair, and
+    q, k, v, o, dO, lse read, dq, dk, dv written once each."""
+    B, H, Hkv, D = 2, 4, 2, 16
+    pairs = sum(1 for i in range(Sq) for j in range(Skv) if not causal or j <= i)
+    assert attention_valid_keys(Sq, Skv, causal) == pairs
+    assert flash_attention_bwd_flops(B, Sq, H, D, Skv, causal) == 10 * B * H * D * pairs
+    assert flash_attention_bwd_bytes(B, Sq, Skv, H, Hkv, D, 2) == (
+        2 * 4 * B * Sq * H * D + 2 * 4 * B * Skv * Hkv * D + 4 * B * H * Sq)
+    # qwen3-1.7b's training shape: 171.8 GFLOP
+    f = flash_attention_bwd_flops(4, 2048, 16, 128, 2048, True)
+    assert 171.7e9 < f < 171.9e9
+
+
+# ---------------------------------------------------------------------------
+# the reduced archs: train_loss and its gradients
+# ---------------------------------------------------------------------------
+
+
+def _batch(cfg, B, S, seed):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, size=(B, S + 1))
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+@pytest.fixture(scope="module", params=PORTED_ARCHS)
+def grads_pair(request):
+    """One reduced arch: JAX's loss, metrics and gradients on one batch, and
+    the port's model with the same params."""
+    arch = request.param
+    jmodel = jbuild(jbase.get_reduced(arch))
+    jparams = jmodel.init(jax.random.key(0))
+    cfg = get_reduced(arch)
+    toks, tgts = _batch(cfg, 2, 24, 4)
+    jb = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)}
+    (jloss, jm), jg = jax.jit(jax.value_and_grad(jmodel.train_loss, has_aux=True))(
+        jparams, jb)
+    params = lm_params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    batch = {"tokens": _t(toks).long(), "targets": _t(tgts).long()}
+    return cfg, build(cfg), params, batch, float(jloss), _np_tree(jm), _np_tree(jg)
+
+
+def _port_loss_and_grads(model, params, batch):
+    live = {k: v for k, v in _flat(params).items()}
+    for t in live.values():
+        t.requires_grad_()
+    loss, metrics = model.train_loss(params, batch)
+    grads = torch.autograd.grad(loss, list(live.values()))
+    for t in live.values():
+        t.requires_grad_(False)
+    return loss, metrics, dict(zip(live, grads))
+
+
+@pytest.mark.parametrize("chunk", [None, 10])
+def test_reduced_train_loss_and_grads_match_jax(grads_pair, chunk, monkeypatch):
+    """``chunk`` 10 takes the 48 tokens' logits and loss in five checkpointed
+    chunks (the last ragged), as the full-size vocabulary's 8,192 tokens
+    go in chunks of ``LOSS_CHUNK``."""
+    from repro_torch.models import model as model_mod
+
+    if chunk is not None:
+        monkeypatch.setattr(model_mod, "LOSS_CHUNK", chunk)
+    cfg, model, params, batch, jloss, jm, jg = grads_pair
+    loss, metrics, grads = _port_loss_and_grads(model, params, batch)
+    np.testing.assert_allclose(float(loss.detach()), jloss, rtol=1e-5, atol=1e-5)
+    assert set(metrics) == set(jm) == {"loss", "accuracy", "tokens", "aux_loss"}
+    for k in jm:
+        np.testing.assert_allclose(float(metrics[k]), float(jm[k]), rtol=1e-5, atol=1e-5)
+    for key, want in _flat(jg).items():
+        scale = float(np.abs(want).max())
+        assert float(np.abs(grads[key].numpy() - want).max()) <= 1e-4 * scale, key
+
+
+def test_remat_modes_give_identical_gradients():
+    """remat off, "full" and "dots" run the same arithmetic: the same bits.
+    "dots" keeps the 2-D matmuls' outputs, so its backward runs fewer of
+    them than "full"; another policy raises."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func is torch.ops.aten.mm.default
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_reduced("qwen3-1.7b")
+    params = build(cfg).init(2, device="cpu")
+    toks, tgts = _batch(cfg, 2, 40, 5)
+    batch = {"tokens": _t(toks).long(), "targets": _t(tgts).long()}
+    grads, mms = {}, {}
+    for remat, policy in [(False, "full"), (True, "full"), (True, "dots")]:
+        model = build(cfg.replace(remat=remat, remat_policy=policy))
+        live = list(_flat(params).values())
+        for t in live:
+            t.requires_grad_()
+        loss, _ = model.train_loss(params, batch)
+        count = CountMM()
+        with count:
+            grads[remat, policy] = torch.autograd.grad(loss, live)
+        for t in live:
+            t.requires_grad_(False)
+        mms[remat, policy] = count.n
+    base = grads[False, "full"]
+    for key, g in grads.items():
+        assert all(torch.equal(a, b) for a, b in zip(base, g)), key
+    assert mms[True, "dots"] == mms[False, "full"] < mms[True, "full"]
+    with pytest.raises(ValueError, match="remat_policy"):
+        build(cfg.replace(remat_policy="offload")).train_loss(params, batch)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("clip", [None, 0.05])
+def test_adamw_matches_jax_over_12_steps(clip):
+    cfg = dict(lr=1e-2, warmup_steps=3, decay_steps=10, clip=clip)
+    jopt, opt = jadamw.AdamW(jadamw.AdamWConfig(**cfg)), adamw.AdamW(adamw.AdamWConfig(**cfg))
+    rng = np.random.default_rng(8)
+    p0 = {"w": rng.normal(size=(3, 4)).astype(np.float32),
+          "layers": {"b": rng.normal(size=(5,)).astype(np.float32)}}
+    jp, jst = jax.tree.map(jnp.asarray, p0), None
+    jst = jopt.init(jp)
+    tp = jax.tree.map(_t, p0)
+    st = opt.init(tp)
+    assert st["step"].dtype == torch.int32
+    for i in range(12):
+        g = jax.tree.map(lambda a: (rng.normal(size=a.shape) * 0.1).astype(np.float32), p0)
+        jp, jst, jm = jopt.update(jp, jax.tree.map(jnp.asarray, g), jst)
+        tp, st, m = opt.update(tp, jax.tree.map(_t, g), st)
+        np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]), rtol=1e-6)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(
+            float(adamw.schedule(opt.cfg, torch.tensor(i, dtype=torch.int32))),
+            float(jadamw.schedule(jopt.cfg, jnp.int32(i))), rtol=1e-6, atol=1e-12)
+        assert int(st["step"]) == int(jst["step"]) == i + 1
+        for ours, theirs in ((tp, jp), (st["mu"], jst["mu"]), (st["nu"], jst["nu"])):
+            _close_leafwise(ours, theirs, 1e-6, f"step {i} ")
+
+
+def test_adamw_schedule_and_descent():
+    cfg = adamw.AdamWConfig(lr=5e-2, warmup_steps=5, decay_steps=200, weight_decay=0.0,
+                            clip=None)
+    assert float(adamw.schedule(cfg, torch.tensor(0, dtype=torch.int32))) == 0.0
+    assert abs(float(adamw.schedule(cfg, torch.tensor(5, dtype=torch.int32))) - 5e-2) < 1e-9
+    opt = adamw.AdamW(cfg)
+    params = {"w": torch.tensor([3.0, -2.0])}
+    state = opt.init(params)
+    for _ in range(150):
+        grads = {"w": 2 * params["w"]}
+        params, state, m = opt.update(params, grads, state)
+    assert float(params["w"].abs().max()) < 0.5
+    assert np.isfinite(float(m["grad_norm"]))
+
+
+def test_adamw_clip():
+    opt = adamw.AdamW(adamw.AdamWConfig(clip=1.0, warmup_steps=0, decay_steps=10))
+    params = {"w": torch.zeros(3)}
+    state = opt.init(params)
+    new, _, m = opt.update(params, {"w": torch.full((3,), 1e6)}, state)
+    assert float(m["grad_norm"]) > 1e5   # reported pre-clip
+    assert torch.equal(params["w"], torch.zeros(3))   # the inputs are left as they were
+    assert new["w"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# make_train_step against JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b"])
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_make_train_step_matches_jax(arch, n_micro):
+    jcfg, cfg = jbase.get_reduced(arch), get_reduced(arch)
+    jmodel = jbuild(jcfg)
+    jopt = jadamw.AdamW(jadamw.AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=3))
+    opt = adamw.AdamW(adamw.AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=3))
+    jparams = jmodel.init(jax.random.key(1))
+    jstate = jopt.init(jparams)
+    params = lm_params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    state = adamw_state_from_jax(_np_tree(jstate), cfg, device="cpu")
+    jstep = jax.jit(jmake_train_step(jmodel, jopt, n_micro=n_micro))
+    step = make_train_step(build(cfg), opt, n_micro=n_micro)
+    scfg = dict(vocab=cfg.vocab, batch=4, seq_len=16, seed=3)
+    jstream = JTokenStream(JTokenStreamConfig(**scfg))
+    stream = TokenStream(TokenStreamConfig(**scfg), device="cpu")
+    for i in range(3):
+        jparams, jstate, jm = jstep(jparams, jstate, next(jstream))
+        params, state, m = step(params, state, next(stream))
+        assert set(m) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, atol=1e-6,
+                                       err_msg=f"step {i} {k}")
+        for ours, theirs, what in ((params, jparams, "params"), (state["mu"], jstate["mu"], "mu"),
+                                   (state["nu"], jstate["nu"], "nu")):
+            _close_leafwise(ours, _np_tree(theirs), 1e-4, f"step {i} {what}")
+    assert int(state["step"]) == 3
+
+
+def test_abstract_opt_state_is_meta_and_shaped():
+    cfg = get_reduced("llama3-8b")
+    params = build(cfg).init(0, device="cpu")
+    spec = abstract_opt_state(params)
+    real = adamw.AdamW(adamw.AdamWConfig()).init(params)
+    for a, b in zip(tree_leaves(spec["mu"]), tree_leaves(real["mu"])):
+        assert a.device.type == "meta" and a.shape == b.shape and a.dtype == torch.float32
+    assert spec["step"].dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# token stream
+# ---------------------------------------------------------------------------
+
+
+def test_token_stream_is_the_jax_stream_bitwise():
+    scfg = dict(vocab=151936, batch=2, seq_len=33, seed=4)
+    jstream = JTokenStream(JTokenStreamConfig(**scfg))
+    stream = TokenStream(TokenStreamConfig(**scfg), device="cpu")
+    jb = [next(jstream) for _ in range(8)]
+    b = [next(stream) for _ in range(8)]
+    for pos in (0, 1, 7):
+        for key in ("tokens", "targets"):
+            assert b[pos][key].dtype == torch.int64
+            np.testing.assert_array_equal(b[pos][key].numpy(), np.asarray(jb[pos][key]))
+    resumed = TokenStream(TokenStreamConfig(**scfg), position=5, device="cpu")
+    assert torch.equal(next(resumed)["tokens"], b[5]["tokens"])
+    assert resumed.position == 6
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        TokenStream(TokenStreamConfig(vocab=10, batch=1, seq_len=4, family="vlm"),
+                    device="cpu")
+
+
+def test_training_entry_points_need_the_card_unless_cpu_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TokenStream(TokenStreamConfig(vocab=10, batch=1, seq_len=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: bf16 leaves
+# ---------------------------------------------------------------------------
+
+
+def _bf16_tree(seed):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(4, 6, generator=g).to(torch.bfloat16)
+    w[0, :3] = torch.tensor([float("inf"), -0.0, float("nan")])
+    return {"w": w, "n": torch.arange(5, dtype=torch.int32),
+            "f": torch.randn(3, generator=g), "layers": [torch.randn(2, 2, generator=g)
+                                                         .to(torch.bfloat16)]}
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bfloat16:
+        return b.dtype == torch.bfloat16 and torch.equal(a.view(torch.int16),
+                                                         b.view(torch.int16))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_bf16_tree_round_trips_bitwise(tmp_path):
+    tree = _bf16_tree(1)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, tree)
+    host, manifest = mgr.restore(3, tree)
+    back = place_like(tree, host)
+    assert manifest["leaves"] == ["['f']", "['layers'][0]", "['n']", "['w']"]
+    assert all(_same_bits(a, b) for a, b in zip(tree_leaves(tree), tree_leaves(back)))
+    with np.load(tmp_path / "step_000000003" / "arrays.npz") as z:
+        assert z["['w']"].dtype == np.dtype("V2") and z["['n']"].dtype == np.int32
+    wrong = dict(tree, w=tree["w"].float())
+    with pytest.raises(ValueError, match="template"):
+        mgr.restore(3, wrong)
+
+
+def test_jax_written_bf16_checkpoint_restores_with_the_same_bytes(tmp_path):
+    rng = np.random.default_rng(2)
+    jtree = {"w": rng.normal(size=(3, 5)).astype(ml_dtypes.bfloat16),
+             "step": np.int32(7), "f": rng.normal(size=(4,)).astype(np.float32)}
+    JCheckpointManager(tmp_path).save(11, jtree)
+    template = {"w": torch.zeros(3, 5, dtype=torch.bfloat16),
+                "step": torch.zeros((), dtype=torch.int32), "f": torch.zeros(4)}
+    host, _ = CheckpointManager(tmp_path).restore(11, template)
+    back = place_like(template, host)
+    assert back["w"].dtype == torch.bfloat16
+    assert back["w"].view(torch.int16).numpy().tobytes() == jtree["w"].tobytes()
+    assert int(back["step"]) == 7 and back["f"].numpy().tobytes() == jtree["f"].tobytes()
+
+
+def test_trainer_saves_and_restores_a_bf16_lm_bitwise(tmp_path):
+    """The LM step through the Trainer in bf16: metrics as tensors, the
+    final blocking save, restore onto a fresh Trainer bitwise (params and
+    AdamW state), data_step back at the stream's position."""
+    cfg = get_reduced("qwen3-1.7b").replace(dtype="bfloat16")
+    run = launch_train.build_run(cfg, steps=3, batch=2, seq=16, device="cpu")
+    tcfg = TrainerConfig(total_steps=3, ckpt_every=2, ckpt_dir=str(tmp_path))
+    trainer = Trainer(run.step_fn, *run.init_state(), run.stream, tcfg)
+    assert trainer.run()["step"] == 3
+    assert tree_leaves(trainer.params)[0].dtype == torch.bfloat16
+    assert CheckpointManager(tmp_path).manifest(3)["data_step"] == 3
+    fresh = launch_train.build_run(cfg, steps=3, batch=2, seq=16, device="cpu")
+    other = Trainer(fresh.step_fn, *fresh.init_state(), fresh.stream, tcfg)
+    assert other.restore() and other.step == 3
+    for ours, theirs in ((trainer.params, other.params), (trainer.opt_state, other.opt_state)):
+        assert all(_same_bits(a, b) for a, b in zip(tree_leaves(ours), tree_leaves(theirs)))
+    assert run.stream.position == 3
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+
+def _cli(tmp, *extra):
+    return ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu", "--steps", "6",
+            "--batch", "4", "--seq", "32", "--ckpt-dir", str(tmp), *extra]
+
+
+def _sigterm_while_fetching(monkeypatch, position):
+    """Raise SIGTERM while the stream hands out batch ``position``: the
+    Trainer's handler lets that step finish, then checkpoints and stops."""
+    fetch = TokenStream.__next__
+
+    def next_batch(self):
+        if self.position == position:
+            signal.raise_signal(signal.SIGTERM)
+        return fetch(self)
+
+    monkeypatch.setattr(TokenStream, "__next__", next_batch)
+
+
+def test_cli_trains_and_a_resumed_run_ends_bitwise(tmp_path, monkeypatch):
+    whole = launch_train.run(_cli(tmp_path / "whole"))
+    assert whole.summary["step"] == 6 and len(whole.losses) == 6
+    assert all(np.isfinite(whole.losses)) and whole.losses[-1] < whole.losses[0]
+    handler = signal.getsignal(signal.SIGTERM)
+    _sigterm_while_fetching(monkeypatch, 3)
+    cut = launch_train.run(_cli(tmp_path / "cut"))
+    assert cut.summary["step"] == 4 and cut.summary["stopped_by_signal"]
+    assert signal.getsignal(signal.SIGTERM) == handler   # the run's handlers are gone
+    resumed = launch_train.run(_cli(tmp_path / "cut", "--resume"))
+    assert resumed.summary["step"] == 6
+    assert cut.losses + resumed.losses == whole.losses
+    for ours, theirs in ((whole.trainer.params, resumed.trainer.params),
+                         (whole.trainer.opt_state, resumed.trainer.opt_state)):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ours), tree_leaves(theirs)))
+    assert launch_train.main(_cli(tmp_path / "again", "--steps", "1")) == 0
+
+
+def test_cli_mesh_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP A8 item 5"):
+        launch_train.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
+                           "--mesh", "2x2"])
