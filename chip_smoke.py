@@ -11,7 +11,7 @@ flash-attention kernels, kills and resumes a checkpointed learner on the
 card, and times the kernels.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's RSNN kernels
+    python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
     python3 chip_smoke.py --learn-walls CHECKOUT # another tree's learning walls
 
 Needs one NVIDIA GPU (Hopper: the kernels build for ``sm_90a``) and the
@@ -161,9 +161,11 @@ before any profiler session):
       saved and restored (bitwise).  (q)'s launches are the kernels line's
       launches_by_path "lm_train";
   (r) flash_attention_bwd timed at qwen3-1.7b's and llama3-8b's shapes
-      (torch.profiler device time, CUDA events beside) beside its plain
+      (torch.profiler device time, CUDA events beside; the pre-pass and
+      the wgmma kernel apart; TFLOP/s of the five products) beside its plain
       version, SDPA's backward and its bound (the five products at the
-      bf16 tensor-core peak); the forward with and without lse.
+      bf16 tensor-core peak); the registers and spills ptxas reports for
+      its bf16 kernels; the forward with and without lse.
 """
 
 from __future__ import annotations
@@ -872,12 +874,12 @@ def phase_learning(dev):
     return acc
 
 
-def _device_ms(fn, iters=20):
-    """The card's time for one call of ``fn`` from ``torch.profiler``: for
-    each kernel it launches, the median of that kernel's durations over
-    ``iters`` calls times its launches a call.  A trace may miss some
-    records, and a sum over them then reads low; the median of the rest
-    is not moved.  None when the trace holds no device time."""
+def _device_ms_by_kernel(fn, iters=20):
+    """The card's time for one call of ``fn`` from ``torch.profiler``, per
+    kernel it launches (by name): the median of that kernel's durations
+    over ``iters`` calls times its launches a call, in ms.  A trace may
+    miss some records, and a sum over them then reads low; the median of
+    the rest is not moved.  Empty when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -891,10 +893,16 @@ def _device_ms(fn, iters=20):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not by_name:
-        return None
-    return sum(float(np.median(us)) * max(1, round(len(us) / iters))
-               for us in by_name.values()) / 1e3
+    return {name: float(np.median(us)) * max(1, round(len(us) / iters)) / 1e3
+            for name, us in by_name.items()}
+
+
+def _device_ms(fn, iters=20):
+    """The card's time for one call of ``fn`` (the sum over its kernels of
+    :func:`_device_ms_by_kernel`); None when the trace holds no device
+    time."""
+    by_kernel = _device_ms_by_kernel(fn, iters)
+    return sum(by_kernel.values()) if by_kernel else None
 
 
 def _timed_row(tag, name, kern, plain, nbytes, flops, shape):
@@ -1587,7 +1595,9 @@ def phase_flash_bwd_timing(dev):
         t_plain_a = _time(plain, iters=2)
         t_kern_a = _time(kern)
         t_lib_a = _time(library)
-        d_a, d_b = _device_ms(kern, iters=10), _device_ms(kern, iters=10)
+        k_a, k_b = _device_ms_by_kernel(kern, iters=10), _device_ms_by_kernel(kern, iters=10)
+        d_a = sum(k_a.values()) if k_a else None
+        d_b = sum(k_b.values()) if k_b else None
         t_lib_b = _time(library)
         t_kern_b = _time(kern)
         t_plain_b = _time(plain, iters=2)
@@ -1596,12 +1606,14 @@ def phase_flash_bwd_timing(dev):
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_f = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
         if d_a is None or d_b is None:
-            ms, dev_ms = min(t_kern_a, t_kern_b), "not measured"
+            ms, dev_ms, split = min(t_kern_a, t_kern_b), "not measured", {}
         else:
             ms, dev_ms = min(d_a, d_b), f"{d_a:.4f} / {d_b:.4f}"
+            split = {_kernel_label(n): round(min(k_a[n], k_b.get(n, k_a[n])), 4)
+                     for n in k_a}
         shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal"
         log(f"(r) flash_attention_bwd at {name}'s {shape}: kernel {dev_ms} ms on the card "
-            f"(profiler; the delta pre-pass, dK/dV and dQ), {t_kern_a:.4f} / "
+            f"(profiler; the delta pre-pass, then dK/dV and dQ: {split}), {t_kern_a:.4f} / "
             f"{t_kern_b:.4f} ms a call (CUDA events), {flops / ms / 1e9:.1f} TFLOP/s; "
             f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms; SDPA backward {t_lib_a:.4f} / "
             f"{t_lib_b:.4f} ms (worst row error to the kernel {lib_err:.4g}); bound "
@@ -1609,7 +1621,8 @@ def phase_flash_bwd_timing(dev):
         rows.append(dict(ms=ms, call_ms=min(t_kern_a, t_kern_b),
                          plain_ms=min(t_plain_a, t_plain_b),
                          library_ms=min(t_lib_a, t_lib_b), bound_ms=max(t_b, t_f),
-                         bound_by="bytes" if t_b >= t_f else "operations", shape=shape))
+                         bound_by="bytes" if t_b >= t_f else "operations", shape=shape,
+                         tflop_s=flops / ms / 1e9, kernels_ms=split))
         if fwd_lse is None:   # the forward at the training shape, with and without lse
             with_lse = lambda: FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
             without = lambda: FA.flash_attention_cuda(q, k, v, causal=True)
@@ -1621,7 +1634,27 @@ def phase_flash_bwd_timing(dev):
         del qh, kh, vh, oh
     row = rows[0]
     row["other_shapes"] = rows[1:]
+    row["ptxas"] = _bwd_ptxas()
+    log(f"(r) flash_attention_bwd's bf16 kernels (ptxas -v): {row['ptxas']}")
     return row, fwd_lse
+
+
+def _kernel_label(name: str) -> str:
+    """A kernel's name without its namespace and parameter list."""
+    return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+def _bwd_ptxas():
+    """Registers and spill bytes of the backward's bf16 kernels at D=128
+    (the pre-pass; the dK/dV and dQ walks, with one and with two heads a dQ
+    block), from the build's ptxas report."""
+    from repro_torch.kernels import build
+
+    report = build.ptxas_report(build.ptxas_log())
+    names = {"flash_bwd_delta_bf16_kernelILi128E": "delta",
+             "flash_bwd_kernelILi128ELi128ELi1E": "dkdv + dq (1 head)",
+             "flash_bwd_kernelILi128ELi128ELi2E": "dkdv + dq (2 heads)"}
+    return {label: report[k] for k in report for key, label in names.items() if key in k}
 
 
 # ---------------------------------------------------------------------------
@@ -2367,10 +2400,13 @@ def phase_data_parallel(dev):
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
-    (f) and (i) time them, and its flash_attention forward at (l)'s
-    shape, through wrappers that every slice of the port has, so that two
-    trees compare on one card in one call.  Each time is the lower of two
-    ``torch.profiler`` readings (:func:`_device_ms`); prints one JSON
+    (f) and (i) time them, its flash_attention forward at (l)'s shape and
+    its flash_attention_bwd at (r)'s two shapes (null for a tree without
+    that wrapper), through wrappers that every slice of the port has, so
+    that two trees compare on one card in one call.  Each time is the
+    lower of two ``torch.profiler`` readings (:func:`_device_ms`).  Beside
+    the times, a digest of each kernel's SASS (:func:`_sass_digests`), so
+    that two trees' kernels compare function by function.  Prints one JSON
     line."""
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.backend import ExecutionBackend
@@ -2392,6 +2428,18 @@ def tree_times(root: Path, dev) -> None:
     q, k, v = _flash_inputs(fgen, LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 128,
                             torch.bfloat16, dev)
     best("flash_attention llama3-8b", lambda: FA.flash_attention_cuda(q, k, v, causal=True))
+    del q, k, v
+    for name, (B, S, H, Hkv, D) in (("qwen3-1.7b", (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)),
+                                    ("llama3-8b", (LM_BATCH, LM_PROMPT, 32, 8, 128))):
+        if not hasattr(FA, "flash_attention_bwd_cuda"):
+            ms[f"flash_attention_bwd {name}"] = None
+            continue
+        q, k, v = _flash_inputs(fgen, B, S, S, H, Hkv, D, torch.bfloat16, dev)
+        do = torch.randn((B, S, H, D), generator=fgen, device=dev).to(torch.bfloat16)
+        o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        best(f"flash_attention_bwd {name}",
+             lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))
+        del q, k, v, do, o, lse
 
     for T in (128, 256):
         cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
@@ -2420,7 +2468,51 @@ def tree_times(root: Path, dev) -> None:
             best(f"rsnn_infer B={b}", lambda: K.rsnn_infer_cuda(r, valid, *w, **kw))
             best(f"rsnn_step_sessions B={b}", lambda: K.rsnn_step_sessions_cuda(
                 r, live, valid, *c, *w, **kw))
-    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms}), flush=True)
+    digests, ops = _sass_digests(build)
+    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms, "sass": digests,
+                      "sass_ops": ops}), flush=True)
+
+
+# Tensor-core and copy instructions whose counts --time-tree reports per
+# kernel: wgmma, mma.sync, TMA tensor loads, bulk copies.
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
+
+
+def _sass_digests(build):
+    """A digest of each kernel's SASS instructions in the library that
+    ``build`` (a tree's kernels.build module) loaded, by kernel name with
+    the anonymous namespace's per-file hashes taken out, and the counts of
+    ``SASS_OPS`` in each kernel that has any; empty when no ``cuobjdump``
+    is found."""
+    import hashlib
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted(build.BUILD_DIR.glob("librsnn_kernels-*.so"), key=lambda p: p.stat().st_mtime)
+    if not libs or not Path(tool).exists():
+        return {}, {}
+    sass = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    code, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N__\1",
+                          m.group(1))
+            code[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?;)", line)
+        if name and m:
+            code[name].append(m.group(1))
+    digests = {n: hashlib.sha1("\n".join(ins).encode()).hexdigest()[:16]
+               for n, ins in code.items()}
+    def opcode(ins):   # the instruction's name, past a predicate such as @P0
+        words = ins.split()
+        return words[words[0].startswith("@")].split(".")[0]
+
+    ops = {n: {op: sum(opcode(i) == op for i in ins) for op in SASS_OPS}
+           for n, ins in code.items()}
+    return digests, {n: c for n, c in ops.items() if any(c.values())}
 
 
 def learn_walls(root: Path, dev) -> None:
@@ -2543,7 +2635,7 @@ def main() -> None:
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
                "rsnn_forward": "rsnn_train.cu", "rsnn_train": "rsnn_train.cu",
                "eprop_update": "rsnn_train.cu", "flash_attention": "flash_attention.cu",
-               "flash_attention_bwd": "flash_attention.cu"}
+               "flash_attention_bwd": "flash_attention_bwd.cu"}
     replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
                 "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963",
                 "rsnn_forward": "src/repro/kernels/rsnn_step.py:399",

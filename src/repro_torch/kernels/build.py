@@ -2,12 +2,14 @@
 
 Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
 training kernels of ``rsnn_train.cu``, both on the tick datapath of
-``rsnn_tick.cuh``, and the attention kernels of ``flash_attention.cu``,
-forward and backward)
+``rsnn_tick.cuh``, the attention forward of ``flash_attention.cu`` and its
+backward of ``flash_attention_bwd.cu``, both on ``flash_common.cuh``)
 compiles with ``nvcc`` for Hopper (``sm_90a``; the RSNN sources with
 ``-fmad=false``), one ``nvcc`` per source, all started together, and links
 into one shared library with a plain C interface, loaded with ``ctypes`` —
-no PyTorch headers, so a build takes seconds.  It builds on first use into
+no PyTorch headers, so a build takes seconds, and no ``-lcuda``: the
+backward reaches the driver's ``cuTensorMapEncodeTiled`` through the
+runtime's ``cudaGetDriverEntryPoint``.  It builds on first use into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``);
 a library whose sources and flags are unchanged (the digest covers every
 source and header) is reused.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,7 +51,8 @@ def _flags(src: Path):
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # {"seconds": build wall time, "ptxas": compiler resource report}; empty
-# when a cached library was loaded.
+# when a cached library was loaded (its report is saved beside it:
+# ptxas_log).
 build_log: Dict[str, object] = {}
 
 
@@ -102,6 +106,7 @@ def _build(out: Path) -> None:
         _nvcc_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so",
                     *objs]])
         build_log.update(seconds=time.perf_counter() - t0, ptxas=log)
+        out.with_suffix(".ptxas.txt").write_text(log)
         os.replace(f"{tmp}/lib.so", out)
 
 
@@ -139,13 +144,14 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = (
         [ptr] * 5 + [i32] * 7 + [ctypes.c_longlong] * 9
         + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
-    # flash_attention_bwd: q, k, v, o, dO, lse, delta, dq, dk, dv; bf16, B,
-    # Sq, Skv, H, Hkv, D; the strides of q, k and v; causal, scale; the
-    # plan's delta blocks, KV tiles and q tiles, the dK/dV and dQ
-    # shared-memory bytes; stream
+    # flash_attention_bwd: q, k, v, o, dO, lse, lse2, delta, dq, dk, dv;
+    # bf16, B, Sq, Skv, H, Hkv, D; the strides of q, k and v; causal,
+    # scale; the plan's padded rows, delta blocks, KV tiles, q blocks,
+    # heads a dQ block, threads, the dK/dV and dQ shared-memory bytes;
+    # stream
     lib.flash_attention_bwd_launch.argtypes = (
-        [ptr] * 10 + [i32] * 7 + [ctypes.c_longlong] * 9
-        + [i32, f32, i32, i32, i32, ctypes.c_longlong, ctypes.c_longlong, ptr])
+        [ptr] * 11 + [i32] * 7 + [ctypes.c_longlong] * 9
+        + [i32, f32] + [i32] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
                lib.eprop_update_launch, lib.flash_attention_launch,
                lib.flash_attention_bwd_launch):
@@ -155,14 +161,51 @@ def _load(path: Path) -> ctypes.CDLL:
     return lib
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"librsnn_kernels-{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use.  Raises
     ``RuntimeError`` with the compiler's output when the build fails."""
     global _lib
     with _lock:
         if _lib is None:
-            out = BUILD_DIR / f"librsnn_kernels-{_digest()}.so"
+            out = _library_path()
             if not out.exists():
                 _build(out)
             _lib = _load(out)
         return _lib
+
+
+def ptxas_log() -> str:
+    """ptxas's resource report for the library of these sources: this
+    process's build's, or the one saved beside a cached library; empty
+    when neither exists."""
+    if "ptxas" in build_log:
+        return str(build_log["ptxas"])
+    saved = _library_path().with_suffix(".ptxas.txt")
+    return saved.read_text() if saved.exists() else ""
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (its mangled name) of a ``-Xptxas -v`` log: the
+    ``registers`` it uses and its ``spill_stores`` and ``spill_loads``
+    bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(registers=0, spill_stores=0, spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out

@@ -41,11 +41,13 @@ their products.
   the CPU path runs it, and ``chip_smoke.py`` holds the kernel against it.
   It needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32``
   off, PyTorch's default) to be the kernel's reference on the card.
-* :func:`flash_attention_bwd_cuda` launches the backward of the same
-  source (a ``δ`` pre-pass, a dK/dV kernel with a block a KV tile and KV
-  head, a dQ kernel with a block a q tile and head: no atomics, so two
-  launches give the same bits), :func:`flash_attention_bwd_plain` is its
-  eager version.
+* :func:`flash_attention_bwd_cuda` launches the backward of
+  ``csrc/flash_attention_bwd.cu`` (a ``δ`` pre-pass, then dK/dV blocks, a
+  block a KV tile and KV head, and dQ blocks, a block a q block and one or
+  two heads; in bf16 one launch of a warp-specialised ``wgmma`` kernel fed
+  by TMA through an ``mbarrier`` ring: no atomics, so two launches give
+  the same bits), :func:`flash_attention_bwd_plain` is its eager
+  version.
 * :func:`flash_plan` and :func:`flash_bwd_plan` are the launches'
   geometry (grid, the order in which blocks take their q tiles, shared
   memory), pure Python so that the CPU tests reach them.
@@ -305,36 +307,106 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+# The bf16 backward's geometry (csrc/flash_attention_bwd.cu): blocks of a
+# producer warpgroup and two consumer warpgroups of 64 rows each, so 128
+# keys a dK/dV block (walking q tiles of 64 queries) and 128 queries a dQ
+# block (walking KV tiles of 64 keys, for two heads of a KV head's group
+# at once when G is even: the k and v tiles are read once for both); TMA
+# rings of 3 stages.  The f32 kernels take 64-row tiles and 128 threads.
+# The pre-pass writes lse·log2(e) and δ for positions padded to a multiple
+# of BWD_BLOCK.
+BWD_THREADS = 384
+BWD_BLOCK = 128
+BWD_QT = 64
+BWD_KT = 64
+BWD_DKDV_STAGES = 3
+BWD_DQ_STAGES = 3
+# Heads of the δ pre-pass a 128-thread block: in f32 a warp each, in bf16
+# D / 8 threads each (16 bytes of o and of dO a thread).
+BWD_DELTA_ROWS = 4
+# The bf16 kernels align their shared memory to the 128-byte swizzle's
+# 1,024-byte period themselves, and ask for that much more.
+SWIZZLE_PERIOD = 1024
+# TMA reads 16-byte aligned rows through strides in multiples of 16 bytes,
+# each below 2^40 bytes.
+TMA_ALIGN = 16
+TMA_MAX_STRIDE = 2 ** 40
+
+
 @dataclasses.dataclass(frozen=True)
 class FlashBwdPlan:
-    """The backward's three launches, as the launcher takes them: the ``δ``
-    pre-pass (``delta_grid`` blocks of ``BWD_DELTA_ROWS`` warps, a warp a
-    ``(b, position, head)`` row); the dK/dV kernel, ``dkdv_grid = (KV
-    tiles, B·Hkv)``, block ``x`` taking KV tile ``x`` (under the causal mask
-    the first tiles see the most queries); the dQ kernel, ``dq_grid = (q
-    tiles, B·H)`` in the forward's order; and each kernel's dynamic shared
-    memory a block."""
+    """The backward's launches, as the launcher takes them.
 
-    delta_grid: int
+    * the ``δ`` pre-pass: ``delta_grid = (B·Sq, heads / delta_rows)``
+      blocks of ``delta_rows`` heads of one ``(b, position)`` row of o and
+      dO, writing the ``(B, H, sq_pad)`` layout (``lse·log2(e)`` and
+      ``δ``; +inf and 0 past ``Sq``);
+    * dK/dV: ``dkdv_grid = (B·Hkv, KV tiles)`` of ``key_tile`` keys, the
+      tile index on the slow axis so that every block of KV tile 0 (under
+      the causal mask the tiles with the most queries) starts first; each
+      walks the q tiles of ``q_tile`` queries of its KV head's G heads
+      (:meth:`dkdv_walk`);
+    * dQ: ``dq_grid = (B·H / dq_heads, q blocks)`` of ``q_block`` queries
+      of ``dq_heads`` heads of one KV head, the last block (the most keys)
+      first, each walking KV tiles of ``kv_tile`` keys (:meth:`dq_walk`);
+    * ``threads`` a dK/dV or dQ block and their dynamic shared memory.
+
+    In bf16 the dK/dV blocks and then the dQ blocks are one launch of
+    ``dkdv_grid`` then ``dq_grid`` blocks, each the larger of the two
+    shared-memory sizes.  A block fills an SM (384 threads at 168
+    registers, 163-225 KB of shared memory at D=128): at qwen3-1.7b's
+    training shape (B=4, S=2,048, H=16, Hkv=8) dK/dV is 32 x 16 = 512
+    blocks and dQ (two heads a block) 32 x 16 = 512 blocks, 7.8 waves of
+    the 132 SMs together."""
+
+    delta_grid: Tuple[int, int]
+    delta_rows: int
     dkdv_grid: Tuple[int, int]
     dq_grid: Tuple[int, int]
+    threads: int
     dkdv_smem_bytes: int
     dq_smem_bytes: int
+    sq_pad: int
+    dq_heads: int
+    key_tile: int
+    q_tile: int
+    q_block: int
+    kv_tile: int
+
+    def dkdv_walk(self, x: int, Sq: int, causal: bool) -> List[int]:
+        """First query of every q tile that KV tile ``x`` visits for one
+        query head, in order: from the tile holding query ``x·key_tile``
+        on when causal (earlier queries see none of its keys)."""
+        first = x * self.key_tile // self.q_tile if causal else 0
+        return [t * self.q_tile for t in range(first, cdiv(Sq, self.q_tile))]
+
+    def dq_walk(self, y: int, Sq: int, Skv: int, causal: bool) -> List[int]:
+        """First key of every KV tile that q block ``y`` visits, in
+        order: up to the tile holding its last query's key when causal."""
+        q0 = y * self.q_block
+        n = cdiv(Skv, self.kv_tile)
+        if causal:
+            n = min(n, (min(q0 + self.q_block, Sq) - 1) // self.kv_tile + 1)
+        return [t * self.kv_tile for t in range(n)]
 
 
-# Rows of the δ pre-pass a 128-thread block: a warp each.
-BWD_DELTA_ROWS = 4
-
-
-def flash_bwd_smem_bytes(D: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(dK/dV, dQ) dynamic shared memory of one block.  bf16: dK/dV holds
-    its k and v tiles and ``STAGES`` q and dO tiles (rows of ``D + 8``) with
-    their ``lse`` and ``δ``; dQ its q and dO tiles and ``STAGES`` k and v
-    tiles.  f32: four tiles of rows ``D + 1``, the 64 x 65 tiles of ``P``
-    and ``dS`` (dK/dV) or ``dS`` (dQ), and the 64 ``lse`` and ``δ``."""
+def flash_bwd_smem_bytes(D: int, dtype: torch.dtype,
+                         dq_heads: int = 1) -> Tuple[int, int]:
+    """(dK/dV, dQ) dynamic shared memory of one block.  bf16
+    (``DkdvSmem``, ``DqSmem``): dK/dV its 128-key k and v tiles and
+    ``BWD_DKDV_STAGES`` q and dO tiles of 64 rows with their ``lse·log2(e)``
+    and ``δ``; dQ the 128-query q and dO tiles of its ``dq_heads`` heads
+    and ``BWD_DQ_STAGES`` k and v tiles of ``BWD_KT`` rows; each the
+    swizzle's period more and 8 bytes a barrier.  f32: four tiles of rows
+    ``D + 1``, the 64 x 65 tiles of ``P`` and ``dS`` (dK/dV) or ``dS``
+    (dQ), and the 64 ``lse`` and ``δ``."""
     if dtype == torch.bfloat16:
-        tiles = (2 + 2 * STAGES) * BLOCK_K * (D + 8) * 2
-        return tiles + STAGES * 2 * BLOCK_Q * 4, tiles
+        row = D * 2
+        dkdv = (2 * BWD_BLOCK * row + BWD_DKDV_STAGES * (2 * BWD_QT * row + 2 * BWD_QT * 4)
+                + 8 * (1 + 2 * BWD_DKDV_STAGES))
+        dq = ((2 * dq_heads * BWD_BLOCK + 2 * BWD_DQ_STAGES * BWD_KT) * row
+              + 8 * (1 + 2 * BWD_DQ_STAGES))
+        return SWIZZLE_PERIOD + dkdv, SWIZZLE_PERIOD + dq
     four = 4 * BLOCK_K * (D + 1)
     score = BLOCK_Q * (BLOCK_K + 1)
     return ((four + 2 * score + 2 * BLOCK_Q) * 4,
@@ -343,11 +415,50 @@ def flash_bwd_smem_bytes(D: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 def flash_bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
                    dtype: torch.dtype) -> FlashBwdPlan:
-    dkdv, dq = flash_bwd_smem_bytes(D, dtype)
-    return FlashBwdPlan(delta_grid=cdiv(B * Sq * H, BWD_DELTA_ROWS),
-                        dkdv_grid=(cdiv(Skv, BLOCK_K), B * Hkv),
-                        dq_grid=(cdiv(Sq, BLOCK_Q), B * H),
-                        dkdv_smem_bytes=dkdv, dq_smem_bytes=dq)
+    dq_heads = 2 if dtype == torch.bfloat16 and (H // Hkv) % 2 == 0 else 1
+    dkdv, dq = flash_bwd_smem_bytes(D, dtype, dq_heads)
+    sq_pad = cdiv(Sq, BWD_BLOCK) * BWD_BLOCK
+    if dtype == torch.bfloat16:
+        threads, key_tile, q_tile, q_block, kv_tile = (BWD_THREADS, BWD_BLOCK, BWD_QT,
+                                                       BWD_BLOCK, BWD_KT)
+        delta_rows = 128 // (D // 8)
+    else:
+        threads, key_tile, q_tile, q_block, kv_tile = 128, BLOCK_K, BLOCK_Q, BLOCK_Q, BLOCK_K
+        delta_rows = BWD_DELTA_ROWS
+    return FlashBwdPlan(delta_grid=(B * Sq, cdiv(H, delta_rows)), delta_rows=delta_rows,
+                        dkdv_grid=(B * Hkv, cdiv(Skv, key_tile)),
+                        dq_grid=(B * H // dq_heads, cdiv(Sq, q_block)), threads=threads,
+                        dkdv_smem_bytes=dkdv, dq_smem_bytes=dq, sq_pad=sq_pad,
+                        dq_heads=dq_heads,
+                        key_tile=key_tile, q_tile=q_tile, q_block=q_block,
+                        kv_tile=kv_tile)
+
+
+def tma_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
+    """The batch, sequence and head strides (elements) through which the
+    bf16 backward's tensor maps read a ``(B, S, heads, D)`` tensor; a
+    dimension of length 1 is never stepped, and gets its contiguous
+    stride.  Raises unless the address and every stride that moves are
+    multiples of 16 bytes and below 2^40 bytes."""
+    es = t.element_size()
+    out = []
+    for i in range(3):
+        if t.shape[i] > 1:
+            out.append(t.stride(i))
+        else:
+            n = 1
+            for size in t.shape[i + 1:]:
+                n *= size
+            out.append(n)
+    bad = [s for s, n in zip(out, t.shape[:3])
+           if n > 1 and (s * es % TMA_ALIGN or s * es >= TMA_MAX_STRIDE or s <= 0)]
+    if t.data_ptr() % TMA_ALIGN or bad:
+        raise ValueError(
+            f"{name}: the bf16 backward's tensor maps need a {TMA_ALIGN}-byte-aligned "
+            f"address and batch, sequence and head strides in multiples of "
+            f"{TMA_ALIGN} bytes below 2^40, got strides {tuple(t.stride())} of "
+            f"{es}-byte elements at address {t.data_ptr():#x}")
+    return out[0], out[1], out[2]
 
 
 def _check_bwd_shapes(q, k, v, o, lse, do):
@@ -410,9 +521,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
     """Launch the backward on the current stream of the tensors' card →
     contiguous ``(dq, dk, dv)`` in q's dtype: the ``δ`` pre-pass, then the
-    dK/dV and the dQ kernels.  ``o`` and ``lse`` are the forward's
-    (contiguous); a ``dO`` that is not contiguous or, in bf16, not 16-byte
-    aligned is copied first.  Raises on a refused launch."""
+    dK/dV and the dQ walks (one launch in bf16).  ``o`` and ``lse`` are the forward's
+    (contiguous); a ``dO`` that is not contiguous or not 16-byte aligned is
+    copied first.  In bf16, q, k and v are read through their strides by
+    TMA, which raises (:func:`tma_strides`) unless they are 16-byte
+    multiples.  Raises on a refused launch."""
     from repro_torch.kernels import build
 
     _check_bwd_shapes(q, k, v, o, lse, do)
@@ -428,26 +541,32 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
         if name != "lse" and t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {name} must be {q.dtype}, got {t.dtype}")
     if q.dtype == torch.bfloat16:
+        strides = [s for name, t in (("q", q), ("k", k), ("v", v))
+                   for s in tma_strides(name, t)]
         for name, t in (("o", o), ("dO", do)):
             _check_copy_alignment(name, t)
-    if B * Hkv > MAX_GRID_Y:
-        raise ValueError(f"flash_attention_bwd: B·Hkv = {B * Hkv} > {MAX_GRID_Y}")
+    else:
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     plan = flash_bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
+    if max(plan.dkdv_grid[1], plan.dq_grid[1], plan.delta_grid[1]) > MAX_GRID_Y:
+        raise ValueError(f"flash_attention_bwd: {max(Sq, Skv)} positions or {H} heads "
+                         f"need more than {MAX_GRID_Y} tiles")
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lse2 = torch.empty((B, H, plan.sq_pad), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse2)
     lib = build.library()
-    strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D,
-            *strides, int(causal), ctypes.c_float(D ** -0.5), plan.delta_grid,
-            plan.dkdv_grid[0], plan.dq_grid[0],
+            lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv,
+            H, Hkv, D, *[ctypes.c_longlong(s) for s in strides], int(causal),
+            ctypes.c_float(D ** -0.5), plan.sq_pad, plan.delta_grid[1],
+            plan.dkdv_grid[1], plan.dq_grid[1], plan.dq_heads, plan.threads,
             ctypes.c_longlong(plan.dkdv_smem_bytes),
             ctypes.c_longlong(plan.dq_smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention_bwd")

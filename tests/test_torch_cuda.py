@@ -944,9 +944,11 @@ def test_sharded_methods_on_a_one_rank_nccl_world(cuda_device, tmp_path):
         meshlib.leave_world()
 
 
-# The backward's cases: GQA 4:1 and 1:1, ragged and single-row lengths,
-# more queries than keys, non-causal, strided q, k, v with a
-# non-contiguous dO
+# The backward's cases: GQA 4:1, 8:1, 3:1 and 1:1 (an odd G runs the dQ
+# kernel with one head a block, an even G with two), ragged and
+# single-row lengths (330 is no multiple of the 128-key dK/dV tile or the
+# 64-key dQ tile), more queries than keys, non-causal, strided q, k, v
+# with a non-contiguous dO
 BWD_CASES = [
     (2, 200, 200, 16, 4, 128, True, False),
     (2, 256, 256, 8, 8, 64, True, False),
@@ -954,6 +956,8 @@ BWD_CASES = [
     (1, 1, 1, 4, 2, 32, True, False),
     (1, 70, 150, 4, 1, 16, False, False),
     (1, 150, 90, 4, 2, 64, True, True),
+    (2, 1000, 1000, 32, 4, 128, True, False),
+    (1, 330, 330, 6, 2, 128, True, False),
 ]
 # Per gradient leaf, a bf16 train step through the kernels against the
 # same step through the plain versions: max |Δg| <= LM_GRAD_TOL * max |g|.
@@ -999,6 +1003,21 @@ def test_flash_bwd_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, ca
             assert err <= FLASH_F32_TOL, (name, err)
         else:
             assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL, name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_do_not_spill(cuda_device):
+    """ptxas spills nothing in the bf16 backward's wgmma kernel at D=128
+    (its dK/dV and dQ blocks, the dQ blocks with one and with two heads a
+    block): the accumulators live in registers."""
+    from repro_torch.kernels import build
+
+    build.library()
+    report = build.ptxas_report(build.ptxas_log())
+    kernels = {k: v for k, v in report.items() if "flash_bwd_kernelILi128E" in k}
+    assert len(kernels) == 2, sorted(report)
+    for name, r in kernels.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, (name, r)
 
 
 @pytest.mark.cuda

@@ -222,9 +222,14 @@ def test_flash_attention_differentiates_only_with_grad():
         ops.flash_attention(q, k, v, causal=True, kv_len=40)
     assert ops.launches["flash_attention_bwd"] == 0    # the CPU launches nothing
     B, S, H, D = q.shape
-    plan = FA.flash_bwd_plan(B, S, S, H, k.shape[2], D, torch.bfloat16)
-    assert plan.dkdv_grid == (2, B * k.shape[2]) and plan.dq_grid == (2, B * H)
-    assert plan.delta_grid * FA.BWD_DELTA_ROWS >= B * S * H
+    Hkv = k.shape[2]
+    plan = FA.flash_bwd_plan(B, S, S, H, Hkv, D, torch.bfloat16)
+    # one dK/dV block of 128 keys a KV head, one dQ block of 128 queries for
+    # each pair of query heads of a KV head (G = 2)
+    assert plan.dkdv_grid == (B * Hkv, 1) and plan.dq_grid == (B * H // 2, 1)
+    assert plan.dq_heads == 2 and plan.threads == FA.BWD_THREADS
+    assert plan.delta_grid == (B * S, -(-H // plan.delta_rows))
+    assert plan.sq_pad % 128 == 0 and plan.sq_pad >= S
 
 
 @pytest.mark.parametrize("D", FA.KERNEL_HEAD_DIMS)
@@ -232,10 +237,137 @@ def test_flash_attention_differentiates_only_with_grad():
 def test_flash_bwd_plan_fits_a_block(D, dtype):
     from repro_torch.kernels.launch import SMEM_PER_BLOCK
 
-    dkdv, dq = FA.flash_bwd_smem_bytes(D, dtype)
-    assert dkdv <= SMEM_PER_BLOCK and dq <= SMEM_PER_BLOCK
+    for dq_heads in (1, 2):
+        dkdv, dq = FA.flash_bwd_smem_bytes(D, dtype, dq_heads)
+        assert dkdv <= SMEM_PER_BLOCK and dq <= SMEM_PER_BLOCK
     if dtype == torch.bfloat16 and D == 128:
-        assert 2 * dkdv <= 228 * 1024       # two blocks share an SM
+        # a bf16 block fills an SM: its 384 threads take the register file
+        # (168 registers each) and more than half of the shared memory
+        assert 2 * dkdv > 228 * 1024 and 2 * dq > 228 * 1024
+
+
+def _pair_visits(plan, Sq, Skv, causal):
+    """How often the dK/dV walk and the dQ walk of ``plan`` visit each
+    (query, key) pair, and the (q tile, KV tile) pairs each visits."""
+    dkdv = np.zeros((Sq, Skv), np.int64)
+    dq = np.zeros((Sq, Skv), np.int64)
+    tiles = {"dkdv": [], "dq": []}
+    for x in range(plan.dkdv_grid[1]):
+        k0 = x * plan.key_tile
+        for q0 in plan.dkdv_walk(x, Sq, causal):
+            dkdv[q0:q0 + plan.q_tile, k0:k0 + plan.key_tile] += 1
+            tiles["dkdv"].append((q0, plan.q_tile, k0, plan.key_tile))
+    for y in range(plan.dq_grid[1]):
+        q0 = y * plan.q_block
+        for k0 in plan.dq_walk(y, Sq, Skv, causal):
+            dq[q0:q0 + plan.q_block, k0:k0 + plan.kv_tile] += 1
+            tiles["dq"].append((q0, plan.q_block, k0, plan.kv_tile))
+    return dkdv, dq, tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Skv,causal", [(1, 1, True), (70, 150, False), (70, 150, True),
+                                           (150, 90, True), (200, 200, True),
+                                           (330, 130, False), (1000, 1000, True),
+                                           (1000, 1000, False)])
+def test_flash_bwd_plan_covers_every_causal_pair(Sq, Skv, causal, dtype):
+    """The dK/dV walk (KV tiles over q tiles) and the dQ walk (q blocks
+    over KV tiles) each visit every unmasked (query, key) pair exactly
+    once, and no (q tile, KV tile) without an unmasked pair."""
+    plan = FA.flash_bwd_plan(2, Sq, Skv, 8, 2, 64, dtype)
+    unmasked = np.ones((Sq, Skv), bool)
+    if causal:
+        unmasked = np.tril(unmasked)
+    dkdv, dq, tiles = _pair_visits(plan, Sq, Skv, causal)
+    for name, visits in (("dkdv", dkdv), ("dq", dq)):
+        assert (visits[unmasked] == 1).all(), name
+        for q0, nq, k0, nk in tiles[name]:
+            assert unmasked[q0:q0 + nq, k0:k0 + nk].any(), (name, q0, k0)
+
+
+# The views the card cases hand the backward (tests/test_torch_cuda.py
+# BWD_CASES and chip_smoke.py BWD_CASES): B, Sq, Skv, H, Hkv, D, strided
+# (q, k and v (B, S, heads, D) views of (B, heads, S, D) tensors)
+CARD_BWD_VIEWS = [
+    (2, 200, 200, 16, 4, 128, False), (2, 256, 256, 8, 8, 64, False),
+    (1, 130, 130, 8, 2, 128, True), (1, 1, 1, 4, 2, 32, False),
+    (1, 70, 150, 4, 1, 16, False), (1, 150, 90, 4, 2, 64, True),
+    (2, 1000, 1000, 32, 4, 128, False), (1, 330, 330, 6, 2, 64, False),
+    (4, 2048, 2048, 16, 8, 128, False), (4, 2048, 2048, 32, 8, 128, False),
+    (2, 1000, 1000, 16, 8, 128, False), (2, 700, 700, 16, 8, 128, True),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,strided", CARD_BWD_VIEWS)
+def test_flash_bwd_tma_checks_accept_the_card_views(B, Sq, Skv, H, Hkv, D, strided):
+    """The bf16 backward's tensor maps take every q, k and v view the card
+    cases use (CPU tensors, no launch): their strides as they are."""
+    def one(S, heads):
+        if strided:
+            return torch.empty(B, heads, S, D, dtype=torch.bfloat16).transpose(1, 2)
+        return torch.empty(B, S, heads, D, dtype=torch.bfloat16)
+    for name, t in (("q", one(Sq, H)), ("k", one(Skv, Hkv)), ("v", one(Skv, Hkv))):
+        got = FA.tma_strides(name, t)
+        assert all(g == s for g, s, n in zip(got, t.stride(), t.shape) if n > 1), name
+        assert all(g * 2 % 16 == 0 for g in got), name
+
+
+@pytest.mark.parametrize("case", ["head stride of 68 elements", "sequence stride of 3 heads",
+                                  "address off by one element", "batch stride of 2^40 bytes",
+                                  "odd stride of a length-1 dimension"])
+def test_flash_bwd_tma_checks_refuse_misaligned_strides(case):
+    """A stride that is not a multiple of 16 bytes (or too long for a
+    tensor map), or an address off the 16-byte grid, raises before any
+    launch; a length-1 dimension is never stepped, so its stride is free."""
+    bf16 = torch.bfloat16
+    x = {
+        "head stride of 68 elements": lambda: torch.empty(2, 64, 4, 68, dtype=bf16)[..., :64],
+        "sequence stride of 3 heads": lambda: torch.empty(2, 64, 3, 20, dtype=bf16)[..., :16],
+        "address off by one element": lambda: torch.empty(2 * 64 * 4 * 64 + 1, dtype=bf16)[1:]
+        .view(2, 64, 4, 64),
+        "batch stride of 2^40 bytes": lambda: torch.empty(2, 64, 4, 64, dtype=bf16,
+                                                          device="meta")
+        .as_strided((2, 64, 4, 64), (2 ** 39, 256, 64, 1)),
+        "odd stride of a length-1 dimension": lambda: torch.empty(1, 64, 4, 64, dtype=bf16)
+        .as_strided((1, 64, 4, 64), (3, 256, 64, 1)),
+    }[case]()
+    if case.startswith("odd stride"):
+        assert FA.tma_strides("q", x) == (64 * 4 * 64, 256, 64)
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.tma_strides("q", x)
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """``build.ptxas_report`` turns an ``-Xptxas -v`` log into registers and
+    spill bytes per kernel (the card's no-spill check reads it)."""
+    from repro_torch.kernels import build
+
+    log = """ptxas info    : Compiling entry function '_Z3fooILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi128EEvv
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers"""
+    assert build.ptxas_report(log) == {
+        "_Z3fooILi128EEvv": dict(registers=255, spill_stores=8, spill_loads=12),
+        "_Z3barv": dict(registers=168, spill_stores=0, spill_loads=0)}
+
+
+def test_ptxas_log_reads_the_saved_report(tmp_path, monkeypatch):
+    """A cached library's report comes from the file saved beside it, and
+    ``build_log`` stays empty (the chaos workers report ``built`` from it)."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_log", {})
+    assert build.ptxas_log() == ""
+    build._library_path().with_suffix(".ptxas.txt").write_text("saved report")
+    assert build.ptxas_log() == "saved report" and not build.build_log
+    monkeypatch.setattr(build, "build_log", {"ptxas": "this build"})
+    assert build.ptxas_log() == "this build"
 
 
 @pytest.mark.parametrize("Sq,Skv,causal", [(5, 5, True), (7, 3, True), (3, 7, False),
