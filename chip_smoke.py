@@ -7,8 +7,10 @@ network's full width through the kernels, drives the dense LM's serving
 path (prefill, decode, greedy ``generate``) at llama3-8b's full width and
 depth through the flash-attention kernel, trains the dense LM
 (qwen3-1.7b at full width and depth) through the forward and backward
-flash-attention kernels, kills and resumes a checkpointed learner on the
-card, and times the kernels.
+flash-attention kernels, serves and trains the MoE family (deepseek-v2's
+MLA through both kernels at q/k width 192 and v width 128, phi3.5-moe's
+GQA), kills and resumes a checkpointed learner on the card, and times
+the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -165,7 +167,39 @@ before any profiler session):
       the wgmma kernel apart; TFLOP/s of the five products) beside its plain
       version, SDPA's backward and its bound (the five products at the
       bf16 tensor-core peak); the registers and spills ptxas reports for
-      its bf16 kernels; the forward with and without lse.
+      its bf16 kernels; the forward with and without lse;
+  (s) after (r): the forward (with and without lse) and the backward at
+      MLA's (q/k, v) widths (192, 128) against their plain versions at
+      deepseek-v2-lite's prefill and training shape (B=4, S=2048, H=16,
+      bf16, causal), a ragged length and a non-causal case on strided
+      views with a non-contiguous dO: per row within BF16_ROW_TOL and
+      BWD_BF16_ROW_TOL, the backward bitwise across two launches, the
+      four planted faults rejected, an f32 call at the pair refused; at
+      the end of the run, both timed (torch.profiler per kernel) beside
+      SDPA's forward and backward at the same shape (its kernels named),
+      with their bounds and ptxas's registers and spills;
+  (t) MoE and MLA serving: deepseek-v2-lite-16b at full width and depth
+      (27 layers, random bf16 weights from seed 11), generate() of 32
+      greedy tokens after 4 prompts of 2048 tokens: 27 flash_attention
+      launches, none in decode, two prefills bitwise alike; prefill and
+      decode tokens/s, peak memory, idle shares; at a capacity where
+      nothing drops, the teacher-forcing identity and a plain-attention
+      prefill within MOE_TOL, each with the routing of the run compared
+      with replayed, each run's own routing and its flips reported, and
+      two planted faults (a wrong cache slot, the kernel's output x 0.9 in
+      every layer) rejected; then phi3.5-moe at full width and 4 layers
+      (GQA at D=128), 8 greedy tokens, the same gates at the dense
+      family's LM_TF_TOL and LM_PLAIN_TOL;
+  (u) MoE and MLA training: deepseek-v2-lite-16b at full width with 3
+      layers (the dense prefix and two MoE layers), bf16, remat="full",
+      B=4 x S=2048 tokens of TokenStream(seed=0), AdamW lr 3e-4, 8 steps:
+      losses, aux losses and grad norms finite, step 0's loss within
+      TRAIN_LOSS0_TOL of ln V + sigma^2 / 2 with sigma, the initial logits'
+      std, within TRAIN_SIGMA_TOL of 1, the last below the first, aux
+      positive, 6 forward and 3 backward flash launches a step; step
+      wall, tokens/s, peak memory, idle share; one step's gradients of a
+      2-layer slice through the kernels within LM_GRAD_TOL of the plain
+      versions' under the same routing, with the plain run's own flips.
 """
 
 from __future__ import annotations
@@ -280,8 +314,61 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 8
 TRAIN_LR = 3e-4
 TRAIN_LOSS0_TOL = 0.5
+# (u)'s untied lm_head is drawn at d_model^-0.5 and ln_f's output has unit
+# rms, so the initial logits' std is 1 (measured 0.9997); a scale fault in
+# the logits would move ln V + sigma^2 / 2 with them, so sigma itself is
+# held within this of 1.
+TRAIN_SIGMA_TOL = 0.05
 TRAIN_GRAD_LAYERS = 2
 LM_GRAD_TOL = 2 ** -5
+# MLA's attention widths in deepseek-v2 (q and k 128 + 64 rope wide, v 128
+# wide, 16 heads, as many KV heads) and (s)'s cases of the pair: the
+# prefill and training shape (B=4, S=2,048), a ragged causal length, a
+# non-causal case on strided views with a non-contiguous dO.
+MLA_DK, MLA_DV, MLA_HEADS = 192, 128, 16
+MLA_CASES = [   # name, B, Sq, Skv, H, causal, strided
+    ("deepseek-v2-lite training", 4, 2048, 2048, MLA_HEADS, True, False),
+    ("ragged causal", 2, 1000, 1000, MLA_HEADS, True, False),
+    ("non-causal, strided views, non-contiguous dO", 2, 700, 700, MLA_HEADS, False, True),
+]
+# MoE and MLA serving (t): deepseek-v2-lite-16b at full width and depth, B
+# prompts of MOE_PROMPT tokens, MOE_STEPS greedy tokens; phi3.5-moe at full
+# width and MOE_PHI_LAYERS layers (41.9 B parameters do not fit 80 GB),
+# MOE_PHI_STEPS greedy tokens.  The served runs keep the configs' capacity
+# factor (1.25); the two logit identities run where nothing drops, with
+# the routing of the run compared with replayed.  Each run's own routing
+# is measured and reported, not gated: with their own routings the two
+# runs of deepseek differed in 58 of 104 and 116,440 of 212,992 (token,
+# MoE layer) top-6 sets, their logits by 2.48 and 3.0 (std 1.0).  A token
+# whose router probabilities nearly tie picks another expert when a
+# rounding lands apart, and such flips compound through the layers until
+# the logits decorrelate.  Under the replayed routing the two identities
+# measured 0.203 and 0.178 for deepseek and 0.109 and 0.070 for
+# phi3.5-moe (NVIDIA H100 80GB HBM3, 700.00 W).  phi3.5-moe fits the
+# dense family's LM_TF_TOL and LM_PLAIN_TOL (0.125, from 0.033 at
+# llama3-8b) and is held to them.  deepseek is not: its routed experts'
+# w_gate and w_up are drawn at n_experts^-0.5 (1/8 at 64 experts;
+# make_param's fan-in is their first axis, the experts, in both packages)
+# where a dense FFN's are at d_model^-0.5 (1/45), so each of its 26 MoE
+# layers amplifies a rounding that lands apart.  Its tolerance, MOE_TOL, is
+# 0.375 for both identities, 1.8 times the larger measured spread.  Every
+# run plants two faults under the same replayed routing and fails unless
+# each moves the logits by more than the arch's tolerance: decode at slot
+# L - 1 (measured 0.5625 deepseek, 3.93 phi3.5-moe) and the kernel's
+# output x 0.9 in every layer (1.95 deepseek, 0.142 phi3.5-moe).
+MOE_TOL = 0.375
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_BATCH = 4
+MOE_PROMPT = 2048
+MOE_STEPS = 32
+MOE_PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_PHI_LAYERS = 4
+MOE_PHI_STEPS = 8
+# MoE and MLA training (u): deepseek-v2-lite-16b at full width with the
+# dense prefix layer and two MoE layers (1.67 B parameters), the (q)
+# settings otherwise.
+MOE_TRAIN_LAYERS = 3
+MOE_TRAIN_STEPS = 8
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1639,6 +1726,539 @@ def phase_flash_bwd_timing(dev):
     return row, fwd_lse
 
 
+# ---------------------------------------------------------------------------
+# (s) the kernels at MLA's (192, 128), (t) MoE and MLA serving, (u) MoE and
+# MLA training
+# ---------------------------------------------------------------------------
+
+
+def _mla_inputs(gen, B, S, H, dev, strided=False):
+    """q, k (B, S, H, 192) and v (B, S, H, 128) in bf16 from N(0, 0.3²);
+    ``strided`` makes them views of head-major tensors."""
+    def one(D):
+        shape = (B, H, S, D) if strided else (B, S, H, D)
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        return x.transpose(1, 2) if strided else x
+    return one(MLA_DK), one(MLA_DK), one(MLA_DV)
+
+
+def phase_mla_flash_vs_plain(dev):
+    """(s): the forward (with and without lse) and the backward at (192, 128)
+    against their plain versions, each planted fault rejected, an f32 call
+    refused.  Returns the worst max |kernel - plain| of the forward and of
+    the backward."""
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    worst_f = worst_b = 0.0
+    for name, B, Sq, Skv, H, causal, strided in MLA_CASES:
+        q, k, v = _mla_inputs(gen, B, max(Sq, Skv), H, dev, strided)
+        q, k, v = q[:, :Sq], k[:, :Skv], v[:, :Skv]
+        do = torch.randn((B, H, Sq, MLA_DV), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+        if not strided:
+            do = do.contiguous()
+        o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        same_o = torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
+        want_o, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal,
+                                                     return_lse=True)
+        torch.cuda.synchronize()
+        if o.shape != (B, Sq, H, MLA_DV) or not same_o:
+            fail(f"(s) flash_attention {name}: shape {tuple(o.shape)}, or the forward "
+                 f"with lse gave other bits than without")
+        fe = FA.row_error(o, want_o)
+        lse_err = _err(lse, plain_lse)
+        if not (fe <= FA.BF16_ROW_TOL and lse_err <= BWD_LSE_TOL):
+            fail(f"(s) flash_attention {name}: row error {fe} (> {FA.BF16_ROW_TOL}) or "
+                 f"lse off by {lse_err} (> {BWD_LSE_TOL})")
+        lost = v.clone()
+        lost[:, 64:128] = 0
+        late = Sq // 2
+        tile_fault = o.clone()
+        tile_fault[:, late:] = FA.flash_attention_cuda(q, k, lost, causal=causal)[:, late:]
+        f_faults = {"output x 0.9": FA.row_error((o.float() * 0.9).to(torch.bfloat16),
+                                                 want_o),
+                    "key tile lost in late rows": FA.row_error(tile_fault, want_o)}
+        worst_f = max(worst_f, _err(o, want_o))
+        msg = (f"(s) ok: flash_attention {name} (B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
+               f"(DK, DV)=({MLA_DK}, {MLA_DV}), bf16, causal={causal}): worst row error "
+               f"{fe:.4g} (tol {FA.BF16_ROW_TOL:.4g}), lse max |Δ| {lse_err:.3g}; with lse "
+               f"bitwise without")
+        if Sq == Skv:
+            got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+            again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            if any(g.shape != w.shape for g, w in zip(got, want)):
+                fail(f"(s) flash_attention_bwd {name}: shapes "
+                     f"{[tuple(g.shape) for g in got]}")
+            be, tol = _bwd_gate(got, want)
+            if not be <= tol:
+                fail(f"(s) flash_attention_bwd {name}: kernel off by {be} (> {tol})")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"(s) flash_attention_bwd {name}: two launches gave different bits")
+            cut = do.clone()
+            cut[:, 64:128] = 0
+            _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut,
+                                                            causal=causal)
+            f_faults["dk x 0.9"] = _bwd_gate(
+                (got[0], (got[1].float() * 0.9).to(torch.bfloat16), got[2]), want)[0]
+            f_faults["q tile 1 dropped from dk, dv"] = _bwd_gate((got[0], dk_cut, dv_cut),
+                                                                 want)[0]
+            worst_b = max(worst_b, max(_err(g, w) for g, w in zip(got, want)))
+            msg += (f"; backward worst row error {be:.4g} (tol {tol:.4g}), two launches "
+                    f"bitwise equal")
+        for fault, e in f_faults.items():
+            tol = FA.BWD_BF16_ROW_TOL if fault.startswith(("dk", "q tile")) else \
+                FA.BF16_ROW_TOL
+            if not e > tol:
+                fail(f"(s) {name}: the gate accepts a planted fault ({fault}: {e} <= {tol})")
+        log(msg + "; planted faults rejected: "
+            + ", ".join(f"{f} {e:.4g}" for f, e in f_faults.items()))
+    q, k, v = _mla_inputs(gen, 1, 128, 2, dev)
+    try:
+        FA.flash_attention_cuda(q.float(), k.float(), v.float(), causal=True)
+    except ValueError as e:
+        if f"({MLA_DK}, {MLA_DV})" not in str(e):
+            fail(f"(s) the f32 call at the pair raised without naming it: {e}")
+        log(f"(s) ok: an f32 call at ({MLA_DK}, {MLA_DV}) raises: {e}")
+    else:
+        fail(f"(s) an f32 call at ({MLA_DK}, {MLA_DV}) did not raise")
+    return worst_f, worst_b
+
+
+def phase_mla_flash_timing(dev):
+    """(s) timing: the forward (with and without lse) and the backward at
+    deepseek's training shape, per kernel from torch.profiler, beside their
+    plain versions, SDPA's forward and backward at the same shape (the
+    backend SDPA chose named by its kernels) and their bounds; ptxas's
+    registers and spills of the pair's kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import traffic
+
+    B, S, H = TRAIN_BATCH, TRAIN_SEQ, MLA_HEADS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k, v = _mla_inputs(gen, B, S, H, dev)
+    do = torch.randn((B, S, H, MLA_DV), generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.transpose(1, 2).contiguous()
+    calls = {
+        "forward": lambda: FA.flash_attention_cuda(q, k, v, causal=True),
+        "forward with lse": lambda: FA.flash_attention_cuda(q, k, v, causal=True,
+                                                            return_lse=True),
+        "backward": lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True),
+        "SDPA forward": lambda: F.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), is_causal=True),
+        "SDPA backward": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                     retain_graph=True),
+        "plain forward": lambda: FA.flash_attention_plain(q, k, v, causal=True),
+        "plain backward": lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                               causal=True),
+    }
+    lib_err = FA.row_error(calls["SDPA forward"]().transpose(1, 2), o)
+    ms, split = {}, {}
+    for label in ("forward", "forward with lse", "backward", "SDPA forward",
+                  "SDPA backward"):
+        a, b = _device_ms_by_kernel(calls[label], 10), _device_ms_by_kernel(calls[label], 10)
+        if a and b:
+            ms[label] = min(sum(a.values()), sum(b.values()))
+            split[label] = {_kernel_label(n)[:60]: round(min(a[n], b.get(n, a[n])), 4)
+                            for n in a}
+        else:
+            ms[label] = _time(calls[label])
+            split[label] = "not measured (profiler saw no device time; CUDA events)"
+    for label in ("plain forward", "plain backward"):
+        ms[label] = _time(calls[label], iters=2)
+    f_flops = traffic.flash_attention_flops(B, S, H, MLA_DK, S, True, MLA_DV)
+    b_flops = traffic.flash_attention_bwd_flops(B, S, H, MLA_DK, S, True, MLA_DV)
+    f_bytes = traffic.flash_attention_bytes(B, S, S, H, H, MLA_DK, 2, MLA_DV)
+    b_bytes = traffic.flash_attention_bwd_bytes(B, S, S, H, H, MLA_DK, 2, MLA_DV)
+    bound = lambda nb, fl: (max(nb / HBM_BYTES_PER_S, fl / BF16_TENSOR_FLOPS_PER_S) * 1e3,
+                            "bytes" if nb / HBM_BYTES_PER_S >= fl / BF16_TENSOR_FLOPS_PER_S
+                            else "operations")
+    (f_bound, f_by), (b_bound, b_by) = bound(f_bytes, f_flops), bound(b_bytes, b_flops)
+    report = build.ptxas_report(build.ptxas_log())
+    regs = {_kernel_label(k)[-60:]: v for k, v in report.items()
+            if f"ILi{MLA_DK}ELi{MLA_DV}E" in k}
+    shape = (f"B={B} S={S} H={H} Hkv={H} (DK, DV)=({MLA_DK}, {MLA_DV}) bf16 causal")
+    log(f"(s) at deepseek-v2-lite's training shape {shape}: forward {ms['forward']:.4f} ms "
+        f"({f_flops / ms['forward'] / 1e9:.1f} TFLOP/s), with lse "
+        f"{ms['forward with lse']:.4f} ms, SDPA forward {ms['SDPA forward']:.4f} ms "
+        f"(kernels {split['SDPA forward']}; worst row error to ours {lib_err:.4g}), plain "
+        f"{ms['plain forward']:.3f} ms, bound {f_bound:.4f} ms ({f_by}); backward "
+        f"{ms['backward']:.4f} ms ({b_flops / ms['backward'] / 1e9:.1f} TFLOP/s; "
+        f"{split['backward']}), SDPA backward {ms['SDPA backward']:.4f} ms (kernels "
+        f"{split['SDPA backward']}), plain {ms['plain backward']:.3f} ms, bound "
+        f"{b_bound:.4f} ms ({b_by}); ptxas {regs}")
+    del qh, kh, vh, oh
+    fwd = dict(ms=ms["forward"], ms_with_lse=ms["forward with lse"],
+               plain_ms=ms["plain forward"], library_ms=ms["SDPA forward"],
+               bound_ms=f_bound, bound_by=f_by, shape=shape, kernels_ms=split["forward"],
+               library_kernels=split["SDPA forward"])
+    bwd = dict(ms=ms["backward"], plain_ms=ms["plain backward"],
+               library_ms=ms["SDPA backward"], bound_ms=b_bound, bound_by=b_by,
+               shape=shape, kernels_ms=split["backward"],
+               library_kernels=split["SDPA backward"], ptxas=regs)
+    return fwd, bwd
+
+
+def _route_sets(log_calls, rows=None):
+    """Each routing call's top-k sets (sorted), the rows ``rows`` of each
+    call when given."""
+    return [(c if rows is None else c[rows]).sort(-1).values for c in log_calls]
+
+
+def _flips(a, b) -> int:
+    """(token, MoE layer) top-k sets that differ between two runs' calls."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def _no_drop(cfg):
+    """``cfg`` with the capacity factor raised until no token drops: an
+    expert's capacity is then at least the tokens of the call, each of
+    which picks it at most once."""
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=(m.n_experts + 1) / m.top_k))
+
+
+def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
+    """One MoE arch served on the card: ``generate`` (counted: the prefill
+    launches the forward kernel once a layer, decode none), prefill and
+    decode timed apart with the device's busy share, two prefills bitwise
+    alike, then the teacher-forcing identity and a plain-attention prefill
+    at a capacity where nothing drops, each with the routing flips between
+    its two runs, within ``tf_tol`` and ``plain_tol``, and two planted
+    faults each outside them.  Returns the counted launches and a
+    summary."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models.model import build
+    from repro_torch.models.moe import pinned_routing
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train import serve_step
+
+    B, L = MOE_BATCH, MOE_PROMPT
+    cache_len = L + steps + 8
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"({tag}) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {'MLA ' + str(cfg.mla) if cfg.mla else 'GQA'}, "
+        f"{cfg.moe}, vocab {cfg.vocab}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random "
+        f"weights ({cfg.active_param_count() / 1e9:.3f} B active) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :L]}
+    serve_step.generate(model, params, {"tokens": tokens[:1, :64]}, 2, 72)  # warm-up
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve_step.generate(model, params, prompt, steps, cache_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    if launches["flash_attention"] != cfg.n_layers or launches["flash_attention_bwd"]:
+        fail(f"({tag}) generate launched {launches}: the forward kernel not once a layer "
+             f"of the prefill ({cfg.n_layers}), or decode launched a kernel")
+    if out.shape != (B, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        fail(f"({tag}) generate gave tokens of shape {tuple(out.shape)} outside the vocab")
+    log(f"({tag}) ok: generate() {B} x {L} prompt tokens + {steps} greedy tokens in "
+        f"{gen_s:.2f} s, peak device memory {gen_peak / 2**30:.2f} GiB; launches "
+        f"{launches} (decode launched none)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    again, caches2 = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
+    if not (_same_bits(logits, again) and all(
+            _same_bits(a, b) for a, b in zip(tree_leaves(caches), tree_leaves(caches2)))):
+        fail(f"({tag}) two prefills (MoE dispatch and combine, the kernels) gave other bits")
+    del caches2, again
+    decode = serve_step.make_decode_step(model, sample="greedy")
+    nxt = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+    toks = [nxt]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps - 1):
+        nxt, caches = decode(params, caches, nxt, L + i)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.equal(torch.cat(toks, dim=1), out):
+        fail(f"({tag}) prefill + decode_step gave other tokens than generate()")
+    step_ms = decode_s / (steps - 1) * 1e3
+    summary = dict(prefill_tokens_per_s=B * L / prefill_s, prefill_ms=prefill_s * 1e3,
+                   decode_tokens_per_s=B * (steps - 1) / decode_s, decode_step_ms=step_ms,
+                   peak_gib=gen_peak / 2**30)
+    log(f"({tag}) ok: prefill {B} x {L} tokens in {prefill_s * 1e3:.1f} ms "
+        f"({B * L / prefill_s:.0f} tokens/s), two prefills bitwise alike; {steps - 1} decode "
+        f"steps of {B} tokens in {decode_s * 1e3:.1f} ms ({B * (steps - 1) / decode_s:.1f} "
+        f"tokens/s, {step_ms:.2f} ms a step)")
+    pre = _device_profile(lambda: model.prefill(params, prompt))
+    n_dec = 4
+    dec = _device_profile(lambda: [decode(params, caches, nxt, L + steps - 1 + i)
+                                   for i in range(n_dec)])
+    if pre is None or dec is None:
+        log(f"({tag}) torch.profiler saw no device time: busy share not measured")
+    else:
+        summary.update(prefill_idle_share=1 - pre[0] / (prefill_s * 1e3),
+                       decode_idle_share=1 - dec[0] / n_dec / step_ms)
+        log(f"({tag}) prefill device busy {pre[0]:.1f} ms of {prefill_s * 1e3:.1f} ms wall "
+            f"(idle share {summary['prefill_idle_share']:.2f}, {pre[1]} kernels); busiest: "
+            + ", ".join(f"{n[:60]} {ms:.1f} ms" for n, ms in pre[2]))
+        log(f"({tag}) decode device busy {dec[0] / n_dec:.2f} ms a step of {step_ms:.2f} ms "
+            f"wall (idle share {summary['decode_idle_share']:.2f}), {dec[1] / n_dec:.0f} "
+            f"kernels a step; busiest: "
+            + ", ".join(f"{n[:60]} {ms / n_dec:.2f} ms" for n, ms in dec[2]))
+    del caches
+
+    # the identities, at a capacity where nothing drops (drops depend on how
+    # many tokens a call routes), each run first with its own routing, which
+    # is reported, then gated with the routing of the run it is compared
+    # with replayed (pinned_routing): a token whose router probabilities
+    # nearly tie picks another expert when a rounding lands apart, and with
+    # random weights such flips compound through the layers until the
+    # logits decorrelate, so a comparison of two routings measures the
+    # flips and not the kernels or the cache
+    nd = build(_no_drop(cfg))
+    n_moe = sum(kind[1] == "moe" for kind in nd.plan.prefix) + nd.plan.repeats
+    rows = torch.arange(B * (L + 1), device=dev).reshape(B, L + 1)
+
+    def decode_on_prompt_cache(pos, replay=None):
+        with pinned_routing() as pin:
+            if replay is not None:
+                pin.replay(replay)
+            _, c = nd.prefill(params, prompt, nd.init_cache(B, L + 1, dev))
+            out, _ = nd.decode_step(params, c, tokens[:, L:], pos)
+        return out, pin
+
+    with pinned_routing() as full_pin:
+        full, _ = nd.prefill(params, {"tokens": tokens})
+    own_dec, own_pin = decode_on_prompt_cache(L)
+    tf_flips = _flips(_route_sets(full_pin.log, rows[:, L]),
+                      _route_sets(own_pin.log[n_moe:]))
+    mapped = ([c[rows[:, :L].reshape(-1)] for c in full_pin.log]
+              + [c[rows[:, L]] for c in full_pin.log])
+    dlog, tf_pin = decode_on_prompt_cache(L, mapped)
+    if not (torch.isfinite(dlog).all() and torch.isfinite(full).all()):
+        fail(f"({tag}) teacher-forcing logits not finite")
+    tf_err, tf_own = _logit_diff(dlog[:, 0], full[:, -1]), _logit_diff(own_dec[:, 0],
+                                                                       full[:, -1])
+    kernel_attention = attention.blocked_attention
+    n_before = ops.launches["flash_attention"]
+    with pinned_routing() as k_pin:
+        k_logits, _ = nd.prefill(params, prompt)
+    attention.blocked_attention = (
+        lambda q, k, v, *, causal=True: FA.flash_attention_plain(q, k, v, causal=causal))
+    try:
+        with pinned_routing() as own_p:
+            own_plain, _ = nd.prefill(params, prompt)
+        with pinned_routing() as p_pin:
+            p_pin.replay(k_pin.log)
+            p_logits, _ = nd.prefill(params, prompt)
+    finally:
+        attention.blocked_attention = kernel_attention
+    torch.cuda.synchronize()
+    if ops.launches["flash_attention"] != n_before + cfg.n_layers:
+        fail(f"({tag}) the plain-attention prefill launched the kernel")
+    plain_flips = _flips(_route_sets(k_pin.log), _route_sets(own_p.log))
+    plain_err, plain_own = _logit_diff(k_logits, p_logits), _logit_diff(k_logits, own_plain)
+    summary.update(tf_err=tf_err, tf_flips=tf_flips, tf_err_own_routing=tf_own,
+                   plain_err=plain_err, plain_flips=plain_flips,
+                   plain_err_own_routing=plain_own, moe_layers=n_moe)
+    log(f"({tag}) teacher forcing (capacity factor {nd.cfg.moe.capacity_factor}: nothing "
+        f"drops): each with its own routing, max |decode(L) - prefill(L+1)[-1]| "
+        f"{tf_own:.4g}, {tf_flips} of {B * n_moe} (token, MoE layer) top-{cfg.moe.top_k} "
+        f"sets differ; the prefill's routing replayed: {tf_err:.4g} (tol {tf_tol}). "
+        f"Kernel prefill vs plain-attention prefill: each with its own routing, max "
+        f"|Δ logits| {plain_own:.4g}, {plain_flips} of {B * L * n_moe} sets differ; the "
+        f"kernel run's routing replayed: {plain_err:.4g} (tol {plain_tol}); logits "
+        f"std {float(full.float().std()):.4g}")
+    if tf_err > tf_tol:
+        fail(f"({tag}) teacher-forcing logits differ by {tf_err} (> {tf_tol})")
+    if plain_err > plain_tol:
+        fail(f"({tag}) prefill logits differ from the plain-attention prefill by "
+             f"{plain_err} (> {plain_tol})")
+    # planted faults the two gates must reject, under the same replayed
+    # routing: a wrong cache slot (decode at slot L - 1, over the prompt's
+    # last entry) and the kernel's output x 0.9 in every layer
+    wrong_slot, _ = decode_on_prompt_cache(L - 1, mapped)
+    attention.blocked_attention = (
+        lambda q, k, v, *, causal=True: kernel_attention(q, k, v, causal=causal) * 0.9)
+    try:
+        with pinned_routing() as f_pin:
+            f_pin.replay(k_pin.log)
+            scaled, _ = nd.prefill(params, prompt)
+    finally:
+        attention.blocked_attention = kernel_attention
+    faults = {"wrong cache slot": (_logit_diff(wrong_slot[:, 0], full[:, -1]), tf_tol),
+              "kernel output x 0.9": (_logit_diff(scaled, k_logits), plain_tol)}
+    for f, (e, tol) in faults.items():
+        if not e > tol:
+            fail(f"({tag}) the gate accepts a planted fault ({f}: {e} <= {tol})")
+    log(f"({tag}) ok: planted faults rejected: "
+        + ", ".join(f"{f} {e:.4g} (tol {tol})" for f, (e, tol) in faults.items())
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, nd, model
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_moe_serve(dev):
+    """(t): deepseek-v2-lite-16b at full width and depth, then phi3.5-moe at
+    full width and MOE_PHI_LAYERS layers."""
+    from repro_torch.configs.base import get_config
+
+    ds_launches, ds = _moe_serve_case(dev, get_config(MOE_ARCH), MOE_STEPS, "t",
+                                      MOE_TOL, MOE_TOL)
+    phi_cfg = get_config(MOE_PHI_ARCH).replace(n_layers=MOE_PHI_LAYERS)
+    _, phi = _moe_serve_case(dev, phi_cfg, MOE_PHI_STEPS, "t phi", LM_TF_TOL, LM_PLAIN_TOL)
+    return ds_launches, dict(deepseek=ds, phi=phi)
+
+
+def phase_moe_train(dev):
+    """(u): deepseek-v2-lite-16b at full width with MOE_TRAIN_LAYERS layers
+    (the dense prefix layer and two MoE layers) trained MOE_TRAIN_STEPS
+    steps; then one step's gradients of a two-layer slice through the
+    kernels against their plain versions under the same routing."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.models.moe import pinned_routing
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    params, state = run.init_state()
+    with torch.no_grad():   # the initial weights' logits of the first batch's rows
+        first_logits, _ = run.model.prefill(
+            params, {"tokens": next(TokenStream(run.stream.cfg, device=dev))["tokens"]})
+    torch.cuda.synchronize()
+    log(f"(u) {cfg.name} at {cfg.n_layers} layers (plan {run.model.plan}), {cfg.dtype}, "
+        f"remat={cfg.remat} ({cfg.remat_policy}): {cfg.param_count() / 1e9:.3f} B random "
+        f"weights and AdamW state on the card")
+    losses, auxes, gnorms, walls, per_step = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(n):
+        batch = next(run.stream)
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux_loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: ops.launches[k] - before[k]
+                         for k in ("flash_attention", "flash_attention_bwd")})
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"(u) losses (without aux) {[round(x, 4) for x in losses]}, aux losses "
+        f"{[round(x, 5) for x in auxes]}, grad norms {[round(x, 4) for x in gnorms]}, "
+        f"step walls (s) {[round(w, 3) for w in walls]}")
+    if not all(math.isfinite(x) for x in losses + auxes + gnorms):
+        fail("(u) a loss, aux loss or grad norm is not finite")
+    # the random weights' logits have a scale near 1 here (an untied,
+    # fan-in scaled lm_head), so step 0's loss sits near ln V + sigma^2 / 2
+    # (log-sum-exp of V Gaussian logits), not ln V
+    ln_v = math.log(cfg.vocab)
+    sigma = float(first_logits.float().std())
+    want0 = ln_v + sigma ** 2 / 2
+    if cfg.tie_embeddings or not abs(sigma - 1.0) <= TRAIN_SIGMA_TOL:
+        fail(f"(u) the initial logits' std {sigma} is not within {TRAIN_SIGMA_TOL} of the "
+             f"1 that an untied, fan-in scaled lm_head gives (tied: {cfg.tie_embeddings})")
+    if not abs(losses[0] - want0) <= TRAIN_LOSS0_TOL:
+        fail(f"(u) step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of "
+             f"ln({cfg.vocab}) + sigma^2 / 2 = {want0:.4f} (sigma {sigma:.4f}, the std of "
+             f"the initial weights' logits)")
+    if not losses[-1] < losses[0]:
+        fail(f"(u) the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if not all(a > 0 for a in auxes):
+        fail(f"(u) an aux loss is not positive: {auxes}")
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    if any(s != want for s in per_step):
+        fail(f"(u) launches a step {per_step}, expected {want}")
+    step_s = float(np.median(walls[1:]))
+    summary = dict(step_s=step_s, tokens_per_s=B * S / step_s, peak_gib=peak / 2**30,
+                   losses=losses, aux=auxes)
+    log(f"(u) ok: {n} steps of B={B} x S={S} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V + sigma^2 / 2 = {want0:.4f}, sigma {sigma:.4f}), aux {auxes[0]:.5f} -> {auxes[-1]:.5f}; step "
+        f"wall {step_s:.3f} s (median of steps 1-{n - 1}), {B * S / step_s:.0f} tokens/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    batch = next(run.stream)
+    prof = _device_profile(lambda: run.step_fn(params, state, batch))
+    if prof is None:
+        log("(u) torch.profiler saw no device time: busy share not measured")
+    else:
+        summary["idle_share"] = 1 - prof[0] / (step_s * 1e3)
+        log(f"(u) one step: device busy {prof[0]:.1f} ms of {step_s * 1e3:.1f} ms wall "
+            f"(idle share {summary['idle_share']:.2f}), {prof[1]} kernels; busiest: "
+            + ", ".join(f"{nm[:60]} {ms:.1f} ms" for nm, ms in prof[2]))
+    del run, params, state, metrics, batch
+    torch.cuda.empty_cache()
+
+    small = cfg.replace(n_layers=TRAIN_GRAD_LAYERS)
+    model = build(small)
+    p2 = model.init(SEED, device=dev)
+    batch = next(TokenStream(TokenStreamConfig(vocab=cfg.vocab, batch=B, seq_len=S,
+                                               seed=SEED), device=dev))
+    with pinned_routing() as pin:
+        ops.reset_launch_counts()
+        kern, _ = grads_of(model, p2, batch)
+        n_kern = dict(ops.launches)
+        real = FA.flash_attention_cuda, FA.flash_attention_bwd_cuda
+        FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = (
+            FA.flash_attention_plain, FA.flash_attention_bwd_plain)
+        pin.replay()
+        try:
+            plain, _ = grads_of(model, p2, batch)
+        finally:
+            FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = real
+    torch.cuda.synchronize()
+    if ops.launches != n_kern or n_kern["flash_attention_bwd"] != TRAIN_GRAD_LAYERS:
+        fail(f"(u) the kernel step launched {n_kern}, the plain step {dict(ops.launches)}")
+    errs = [_err(a, b) / float(b.float().abs().max())
+            for a, b in zip(tree_leaves(kern), tree_leaves(plain))]
+    if not max(errs) <= LM_GRAD_TOL:
+        fail(f"(u) gradients through the kernels differ from the plain versions' by "
+             f"{max(errs)} of a leaf's max |g| (> {LM_GRAD_TOL})")
+    summary["grad_err"], summary["grad_flips"] = max(errs), pin.flips
+    log(f"(u) ok: one step at {cfg.name}'s widths, {TRAIN_GRAD_LAYERS} layers (the dense "
+        f"prefix and one MoE layer), B={B}, S={S}: gradients through the kernels vs their "
+        f"plain versions under the same routing, per leaf max |Δg| / max|g| worst "
+        f"{max(errs):.4g} (tol {LM_GRAD_TOL}), median {float(np.median(errs)):.4g}; the "
+        f"plain run's own routing differed for {pin.flips} (token, call) top-"
+        f"{cfg.moe.top_k} sets of {len(pin.log)} calls x {B * S} tokens")
+    del model, p2, kern, plain, batch
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def _kernel_label(name: str) -> str:
     """A kernel's name without its namespace and parameter list."""
     return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
@@ -2630,6 +3250,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows["flash_attention_bwd"], fwd_lse = phase_flash_bwd_timing(dev)
     rows["flash_attention"]["with_lse"] = fwd_lse
+    torch.cuda.empty_cache()
+
+    mla_f_err, mla_b_err = phase_mla_flash_vs_plain(dev)
+    errs["flash_attention"] = max(errs["flash_attention"], mla_f_err)
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], mla_b_err)
+    torch.cuda.empty_cache()
+    moe_launches, _ = phase_moe_serve(dev)       # resets and reads the counts itself
+    by_path["flash_attention"]["moe_serve"] = moe_launches["flash_attention"]
+    moe_train_launches, _ = phase_moe_train(dev)     # resets them too
+    for k in ("flash_attention", "flash_attention_bwd"):
+        by_path[k]["moe_train"] = moe_train_launches[k]
+    rows["flash_attention"]["mla"], rows["flash_attention_bwd"]["mla"] = (
+        phase_mla_flash_timing(dev))
 
     card = card_line()
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
@@ -2666,6 +3299,8 @@ def main() -> None:
             kernels[-1]["with_lse"] = r["with_lse"]
         if name == "flash_attention_bwd":
             kernels[-1]["other_shapes"] = r["other_shapes"]
+        if name in ("flash_attention", "flash_attention_bwd"):
+            kernels[-1]["mla"] = r["mla"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

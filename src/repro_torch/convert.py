@@ -14,8 +14,10 @@ present only when its mode is on) maps key for key onto the port's, so a
 run of either package can start from the other's state.
 
 LM (:func:`lm_params_from_jax`): the port keeps the JAX parameter tree's
-layout (nested dicts, the stacked layer axis), so the conversion is a tree
-map that checks every key, shape and dtype against the config's tree.  A
+layout (nested dicts, the prefix list, the stacked layer axis), so the
+conversion is a tree map that checks every key, shape and dtype against
+the config's tree, each leaf against its own dtype there (a MoE router is
+f32 in every model dtype, as the JAX package draws it).  A
 bf16 JAX array arrives as an ``ml_dtypes.bfloat16`` NumPy array, which
 ``torch.from_numpy`` refuses; it goes through float32 and back, which is
 exact.  The LM's AdamW state (:func:`adamw_state_from_jax`) maps leaf for
@@ -25,7 +27,7 @@ shapes.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,13 +71,12 @@ def opt_state_from_jax(state: Dict[str, Any], device: DeviceLike = None
     return out
 
 
-def _lm_tree_from_jax(tree: Any, cfg, dev: torch.device, dtype: str,
+def _lm_tree_from_jax(tree: Any, cfg, dev: torch.device, dtype: Optional[str],
                       what: str) -> Dict[str, Any]:
     """A JAX tree of NumPy leaves shaped like ``cfg``'s parameter tree, as
-    tensors of ``dtype`` on ``dev``; every key, shape and dtype checked."""
+    tensors on ``dev``, each of ``dtype`` or (``None``) of its own leaf's
+    dtype in ``cfg``'s tree; every key, shape and dtype checked."""
     from repro_torch.models.transformer import param_shapes
-
-    want_dtype = getattr(torch, dtype)
 
     def conv(src, want, path):
         if isinstance(want, dict):
@@ -93,8 +94,10 @@ def _lm_tree_from_jax(tree: Any, cfg, dev: torch.device, dtype: str,
         arr = np.asarray(src)
         if arr.shape != tuple(want.shape):
             raise ValueError(f"{path}: shape {arr.shape}, expected {tuple(want.shape)}")
-        if arr.dtype.name != dtype:
-            raise ValueError(f"{path}: dtype {arr.dtype.name}, expected {dtype}")
+        want_dtype = want.dtype if dtype is None else getattr(torch, dtype)
+        name = str(want_dtype).removeprefix("torch.")
+        if arr.dtype.name != name:
+            raise ValueError(f"{path}: dtype {arr.dtype.name}, expected {name}")
         return torch.from_numpy(arr.astype(np.float32)).to(dev, dtype=want_dtype)
 
     return conv(tree, param_shapes(cfg), what)
@@ -107,7 +110,7 @@ def lm_params_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None
     ``device`` (the card unless the caller passes ``"cpu"``).  Unknown or
     missing keys, and leaves whose shape or dtype differ from ``cfg``'s
     tree, raise ``ValueError``."""
-    return _lm_tree_from_jax(tree, cfg, resolve_device(device), cfg.dtype, "params")
+    return _lm_tree_from_jax(tree, cfg, resolve_device(device), None, "params")
 
 
 def adamw_state_from_jax(state: Dict[str, Any], cfg, device: DeviceLike = None

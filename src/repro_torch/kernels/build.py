@@ -138,19 +138,19 @@ def _load(path: Path) -> ctypes.CDLL:
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
     # flash_attention: q, k, v, o, lse (null: none written); bf16, B, Sq,
-    # Skv, H, Hkv, D; the batch, sequence and head strides of q, k and v;
-    # kv_len, causal, scale; the plan's q tiles and shared-memory bytes;
-    # stream
+    # Skv, H, Hkv, the q/k width D and the v width DV; the batch, sequence
+    # and head strides of q, k and v; kv_len, causal, scale; the plan's q
+    # tiles and shared-memory bytes; stream
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 5 + [i32] * 7 + [ctypes.c_longlong] * 9
+        [ptr] * 5 + [i32] * 8 + [ctypes.c_longlong] * 9
         + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
     # flash_attention_bwd: q, k, v, o, dO, lse, lse2, delta, dq, dk, dv;
-    # bf16, B, Sq, Skv, H, Hkv, D; the strides of q, k and v; causal,
+    # bf16, B, Sq, Skv, H, Hkv, D, DV; the strides of q, k and v; causal,
     # scale; the plan's padded rows, delta blocks, KV tiles, q blocks,
     # heads a dQ block, threads, the dK/dV and dQ shared-memory bytes;
     # stream
     lib.flash_attention_bwd_launch.argtypes = (
-        [ptr] * 11 + [i32] * 7 + [ctypes.c_longlong] * 9
+        [ptr] * 11 + [i32] * 8 + [ctypes.c_longlong] * 9
         + [i32, f32] + [i32] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
                lib.eprop_update_launch, lib.flash_attention_launch,

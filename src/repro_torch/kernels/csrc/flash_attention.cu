@@ -1,6 +1,7 @@
-// flash_attention — causal GQA online-softmax attention over q (B, Sq, H, D)
-// and k, v (B, Skv, Hkv, D), behind the prefill of every attention layer of
-// the dense LM (models/attention.py:blocked_attention) and, in its variant
+// flash_attention — causal GQA online-softmax attention over q (B, Sq, H, DK),
+// k (B, Skv, Hkv, DK) and v (B, Skv, Hkv, DV), behind the prefill of every
+// attention layer of the LMs (models/attention.py:blocked_attention; DK = DV
+// in GQA, DK = 192 and DV = 128 in deepseek-v2's MLA) and, in its variant
 // that also writes each row's log-sum-exp, behind the forward of training;
 // flash_attention_bwd.cu holds the training's backward.  Replaces
 // src/repro/kernels/flash_attention.py:_kernel (wrapper flash_attention);
@@ -17,32 +18,35 @@
 // Masked keys and values load as zeros, so NaN in an unfilled cache tail
 // cannot reach the sums.
 //
-// Bound on the H100: 4*B*H*D*sum_q(valid keys) operations on bf16 tensor
-// cores (989 TFLOP/s) against q, k, v read once and o written once (3.35
-// TB/s) — set by operations at prefill lengths.
+// Bound on the H100: 2*B*H*(DK + DV)*sum_q(valid keys) operations on bf16
+// tensor cores (989 TFLOP/s) against q, k, v read once and o written once
+// (3.35 TB/s) — set by operations at prefill lengths.
 //
 // bf16 (every model path): flash_attention_mma_kernel runs both products
 // on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulators):
 //   * one block of 4 warps per (q tile of 64 rows, batch*head); each warp
 //     owns 16 query rows; tiles with the most keys run first;
-//   * the q tile is copied once to shared memory and held in registers as
-//     A fragments (ldmatrix); each 64-key tile of k and v arrives with
+//   * the q tile is copied once to shared memory and, up to DK = 128, held
+//     in registers as A fragments (ldmatrix); a wider q (MLA's 192, whose
+//     48 fragment registers would spill beside the 64 of a 128-wide
+//     accumulator) is read from shared memory again at each k step of
+//     every key tile, shared-memory traffic only; each 64-key tile of k and v arrives with
 //     cp.async into a ring of FA_STAGES shared-memory stages, so tile t+1
 //     is in flight while tile t's products run;
-//   * S = Q K^T with K as the B operand (ldmatrix of K's rows); the online
+//   * S = Q K^T over DK with K as the B operand (ldmatrix of K's rows); the online
 //     softmax runs on S's accumulator fragments in registers (a row lives
 //     in one quad of lanes: two shuffles per reduction), with exp2f and
 //     scale*log2(e) folded in; p is rounded to bf16 while its accumulator
-//     fragment becomes the A fragment of O += P V, with V the B operand
-//     through ldmatrix.trans;
+//     fragment becomes the A fragment of O += P V (DV wide), with V the B
+//     operand through ldmatrix.trans;
 //   * staged rows are padded by 16 bytes, so every ldmatrix phase touches
 //     eight distinct 16-byte bank groups.
 // q, k and v are read through their batch / sequence / head strides (the
 // head dimension is contiguous); cp.async moves 16-byte pieces, so the
 // wrapper raises unless every pointer and stride is 16-byte aligned.
 //
-// f32 (no model path): tensor-core f32 would be TF32, which cannot meet
-// the f32 limit of 1e-5 * max|o|, so flash_attention_f32_kernel keeps the
+// f32 (no model path; DK = DV only): tensor-core f32 would be TF32, which
+// cannot meet the f32 limit of 1e-5 * max|o|, so flash_attention_f32_kernel keeps the
 // first CUDA-core loop: f32 FMAs, each thread 8 rows x 4 score columns and
 // 8 rows x D/16 output columns in registers, tiles staged with plain loads.
 //
@@ -89,9 +93,11 @@ __host__ __device__ constexpr int mma_pitch() {
   return D + 8;
 }
 
-template <int D>
+// the q tile and FA_STAGES k tiles at DK's pitch, FA_STAGES v tiles at DV's
+template <int DK, int DV>
 constexpr size_t mma_smem_bytes() {
-  return (size_t)(FA_BQ + 2 * FA_STAGES * FA_BK) * mma_pitch<D>() * 2;
+  return ((size_t)(FA_BQ + FA_STAGES * FA_BK) * mma_pitch<DK>() +
+          (size_t)FA_STAGES * FA_BK * mma_pitch<DV>()) * 2;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -155,12 +161,29 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
   }
 }
 
-template <int D, bool LSE>
+// S += Q K^T for k step kk: the warp's 16 rows (A fragment qa) against
+// the 64 keys of a staged k tile of pitch LD, 8 n-tiles of 8 keys.
+template <int LD>
+__device__ __forceinline__ void qk_step(float (&s)[8][4], const uint32_t (&qa)[4],
+                                        const __nv_bfloat16* kt, int kk, int lane) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t bk[4];
+    ldsm_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                    ((lane >> 3) & 1) * 8);
+    mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+    mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+  }
+}
+
+template <int DK, int DV, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS)
     flash_attention_mma_kernel(FlashArgs a) {
-  constexpr int LD = mma_pitch<D>();
-  constexpr int DK = D / 16;  // k-steps of S = Q K^T
-  constexpr int DN = D / 8;   // n-tiles of the output
+  constexpr int LD = mma_pitch<DK>();   // q and k tiles
+  constexpr int LDV = mma_pitch<DV>();  // v tiles
+  constexpr int KS = DK / 16;  // k-steps of S = Q K^T
+  constexpr int DN = DV / 8;   // n-tiles of the output
+  constexpr bool Q_REGS = DK <= 128;  // q's A fragments held in registers
   extern __shared__ __align__(16) unsigned char fa_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
   __nv_bfloat16* ks = qs + FA_BQ * LD;              // FA_STAGES tiles
@@ -181,16 +204,16 @@ __global__ void __launch_bounds__(FA_THREADS)
       static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
   const int n_kv = fa_key_tiles(a, q0, nq);
 
-  load_tile_async<D>(qs, qg, a.q_ss, q0, a.Sq, tid);
-  load_tile_async<D>(ks, kg, a.k_ss, 0, a.kv_len, tid);
-  load_tile_async<D>(vs, vg, a.v_ss, 0, a.kv_len, tid);
+  load_tile_async<DK>(qs, qg, a.q_ss, q0, a.Sq, tid);
+  load_tile_async<DK>(ks, kg, a.k_ss, 0, a.kv_len, tid);
+  load_tile_async<DV>(vs, vg, a.v_ss, 0, a.kv_len, tid);
   cp_async_commit();
 
   // This lane's rows of the C fragments: g and g + 8 of the warp's 16.
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = q0 + warp * 16 + g;  // query position of fragment row 0
   const float sl2 = a.scale * FA_LOG2E;
-  uint32_t qf[DK][4];
+  uint32_t qf[Q_REGS ? KS : 1][4];
   float acc[DN][4];
 #pragma unroll
   for (int j = 0; j < DN; ++j)
@@ -203,22 +226,24 @@ __global__ void __launch_bounds__(FA_THREADS)
     const int k0 = t * FA_BK;
     if (t + 1 < n_kv) {
       const int st = (t + 1) % FA_STAGES;
-      load_tile_async<D>(ks + st * FA_BK * LD, kg, a.k_ss, k0 + FA_BK,
-                         a.kv_len, tid);
-      load_tile_async<D>(vs + st * FA_BK * LD, vg, a.v_ss, k0 + FA_BK,
-                         a.kv_len, tid);
+      load_tile_async<DK>(ks + st * FA_BK * LD, kg, a.k_ss, k0 + FA_BK,
+                          a.kv_len, tid);
+      load_tile_async<DV>(vs + st * FA_BK * LDV, vg, a.v_ss, k0 + FA_BK,
+                          a.kv_len, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: tile t has landed
     __syncthreads();
-    if (t == 0) {
+    if constexpr (Q_REGS) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk)
-        ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                            kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                              kk * 16 + (lane >> 4) * 8);
+      }
     }
     const __nv_bfloat16* kt = ks + (t % FA_STAGES) * FA_BK * LD;
-    const __nv_bfloat16* vt = vs + (t % FA_STAGES) * FA_BK * LD;
+    const __nv_bfloat16* vt = vs + (t % FA_STAGES) * FA_BK * LDV;
 
     // S = Q K^T: 8 n-tiles of 8 keys
     float s[8][4];
@@ -227,14 +252,14 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        ldsm_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (Q_REGS) {
+        qk_step<LD>(s, qf[kk], kt, kk, lane);
+      } else {
+        uint32_t qa[4];
+        ldsm_x4(qa, qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
+                        (lane >> 4) * 8);
+        qk_step<LD>(s, qa, kt, kk, lane);
       }
     }
 
@@ -289,7 +314,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int dp = 0; dp < DN / 2; ++dp) {
         uint32_t bv[4];
-        ldsm_x4_trans(bv, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+        ldsm_x4_trans(bv, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                               dp * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
         mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
@@ -308,7 +333,7 @@ __global__ void __launch_bounds__(FA_THREADS)
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
     const int q = row0 + r * 8;
     if (q < a.Sq) {
-      __nv_bfloat16* orow = og + ((long long)(b * a.Sq + q) * a.H + h) * D;
+      __nv_bfloat16* orow = og + ((long long)(b * a.Sq + q) * a.H + h) * DV;
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + t4 * 2) =
@@ -496,29 +521,34 @@ int launch_kernel(Kernel kernel, size_t need, size_t smem, int grid_x,
   return (int)cudaGetLastError();
 }
 
-template <int D, bool LSE>
+// The f32 kernel takes one width for q, k and v: a pair of two widths
+// launches only in bf16.
+template <int DK, int DV, bool LSE>
 int launch_dl(const FlashArgs& a, int bf16, size_t smem, int grid_x,
               cudaStream_t stream) {
-  return bf16 ? launch_kernel(flash_attention_mma_kernel<D, LSE>, mma_smem_bytes<D>(),
-                              smem, grid_x, a, stream)
-              : launch_kernel(flash_attention_f32_kernel<D, LSE>, f32_smem_bytes<D>(),
-                              smem, grid_x, a, stream);
+  if (bf16)
+    return launch_kernel(flash_attention_mma_kernel<DK, DV, LSE>, mma_smem_bytes<DK, DV>(),
+                         smem, grid_x, a, stream);
+  if constexpr (DK == DV)
+    return launch_kernel(flash_attention_f32_kernel<DK, LSE>, f32_smem_bytes<DK>(), smem,
+                         grid_x, a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The lse output is a compile-time variant: without it the kernels are the
 // serving prefill's, instruction for instruction.
-template <int D>
+template <int DK, int DV>
 int launch_d(const FlashArgs& a, int bf16, size_t smem, int grid_x,
              cudaStream_t stream) {
-  return a.lse != nullptr ? launch_dl<D, true>(a, bf16, smem, grid_x, stream)
-                          : launch_dl<D, false>(a, bf16, smem, grid_x, stream);
+  return a.lse != nullptr ? launch_dl<DK, DV, true>(a, bf16, smem, grid_x, stream)
+                          : launch_dl<DK, DV, false>(a, bf16, smem, grid_x, stream);
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse, int bf16,
-    int B, int Sq, int Skv, int H, int Hkv, int D, long long q_sb,
+    int B, int Sq, int Skv, int H, int Hkv, int D, int DV, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int kv_len,
     int causal, float scale, int grid_x, long long smem, void* stream) {
@@ -527,11 +557,14 @@ extern "C" int flash_attention_launch(
               v_sh, scale};
   cudaStream_t st = (cudaStream_t)stream;
   const size_t sm = (size_t)smem;
+  // the (q/k, v) width pairs of kernels/flash_attention.py:KERNEL_HEAD_DIMS
+  if (D == 192 && DV == 128) return launch_d<192, 128>(a, bf16, sm, grid_x, st);
+  if (D != DV) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_d<16>(a, bf16, sm, grid_x, st);
-    case 32: return launch_d<32>(a, bf16, sm, grid_x, st);
-    case 64: return launch_d<64>(a, bf16, sm, grid_x, st);
-    case 128: return launch_d<128>(a, bf16, sm, grid_x, st);
+    case 16: return launch_d<16, 16>(a, bf16, sm, grid_x, st);
+    case 32: return launch_d<32, 32>(a, bf16, sm, grid_x, st);
+    case 64: return launch_d<64, 64>(a, bf16, sm, grid_x, st);
+    case 128: return launch_d<128, 128>(a, bf16, sm, grid_x, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

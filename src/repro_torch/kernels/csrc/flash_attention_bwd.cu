@@ -1,7 +1,8 @@
 // flash_attention_bwd — the gradient of causal GQA attention, dQ, dK and dV
-// from q (B, Sq, H, D), k, v (B, Skv, Hkv, D), the forward's output o and
-// row log-sum-exp lse, and dO: the backward of the dense LM's training
-// (kernels/flash_attention.py:FlashAttentionFn).  It is the gradient JAX
+// from q (B, Sq, H, DK), k (B, Skv, Hkv, DK), v (B, Skv, Hkv, DV), the
+// forward's output o and row log-sum-exp lse (o and dO DV wide), and dO:
+// the backward of the LMs' training (DK = DV in GQA, DK = 192 and DV = 128
+// in deepseek-v2's MLA; kernels/flash_attention.py:FlashAttentionFn).  It is the gradient JAX
 // takes of src/repro/models/attention.py:49 blocked_attention with
 // jax.grad; the Pallas kernel (src/repro/kernels/flash_attention.py) has
 // no backward.  It builds into one library with the forward and the RSNN
@@ -15,8 +16,8 @@
 // as the tensor cores' A operands (the forward rounds p before p.V the
 // same way); every sum is f32.
 //
-// Bound on the H100: the five products (S again, dV, dP, dQ, dK), 10 *
-// B*H*D*sum_q(valid keys) operations on bf16 tensor cores (989 TFLOP/s),
+// Bound on the H100: the five products (S again, dV, dP, dQ, dK), 2 * B*H *
+// (3 DK + 2 DV) * sum_q(valid keys) operations on bf16 tensor cores (989 TFLOP/s),
 // against q, k, v, o, dO, lse read once and dq, dk, dv written once (3.35
 // TB/s): set by operations at training lengths.
 //
@@ -45,13 +46,16 @@
 //     - dK/dV blocks, a block a (batch * KV head, 128 keys), every block of
 //       the first KV tile first (under the causal mask it sees the most
 //       queries); each consumer owns 64 keys and keeps their dK and dV (64
-//       x D f32 each) in registers while the block walks the q tiles of 64
-//       queries of its G heads (from the diagonal on when causal), each
+//       x DK and 64 x DV f32) in registers while the block walks the q tiles
+//       of 64 queries (32 at DK = 192: dK is then 96 registers a thread,
+//       and halving the S^T and dP^T tiles keeps the consumer within its
+//       240) of its G heads (from the diagonal on when causal), each
 //       with its lse and delta: S^T = K Q^T, dP^T = V dO^T, then dV +=
 //       P^T dO, dK += dS^T Q;
 //     - then dQ blocks, a block a (batch, 128 queries, HB heads of one KV
-//       head: two when G is even, so that a k / v tile is read once for
-//       both), the last queries first; each consumer owns 64 queries and
+//       head: two when G is even and DK <= 128, so that a k / v tile is
+//       read once for both; at DK = 192 two heads' tiles would not fit),
+//       the last queries first; each consumer owns 64 queries and
 //       keeps their dQ for the HB heads in registers while the block walks
 //       the KV tiles of 64 keys: S = Q K^T, dP = dO V^T, then dQ += dS K.
 //     Neither walk reads what the other writes, so the dQ blocks fill the
@@ -171,9 +175,7 @@ constexpr int BWD_THREADS = BWD_WG * (1 + BWD_CONSUMERS);
 constexpr int BWD_ROWS = 64;        // a consumer's keys (dK/dV) or queries (dQ)
 constexpr int BWD_BLOCK = BWD_ROWS * BWD_CONSUMERS;  // keys of a dK/dV block,
                                                      // queries of a dQ block
-constexpr int BWD_QT = 64;          // queries of a dK/dV q tile
 constexpr int BWD_KT = 64;          // keys of a dQ KV tile
-constexpr int BWD_BOX = 64;         // rows of a TMA box
 constexpr int BWD_DKDV_STAGES = 3;  // q / dO tiles in flight
 constexpr int BWD_DQ_STAGES = 3;    // k / v tiles in flight
 constexpr int BWD_PRODUCER_REGS = 24;
@@ -305,6 +307,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (m64 x n32, f32) = (acc ? d : 0) + A B, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (m64 x n16, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
 // shared memory MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
@@ -380,6 +396,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "r"(acc));
 }
 
+// d (m64 x n192, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
+// shared memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(acc));
+}
+
 
 // 2^x on the special-function unit (ftz; 2^-inf = 0): a few ulp, far
 // inside the bf16 rounding of P that follows.
@@ -400,21 +447,36 @@ __device__ __forceinline__ void a_frag(uint32_t (&af)[4], const float (&s)[R], i
 }
 
 // The bf16 kernels take the q / k head width DK and the v head width DV
-// as separate parameters (only DK == DV is instantiated): S and dQ, dK
-// run over DK, dP and dV over DV.
+// as separate parameters (the equal pairs and MLA's (192, 128) are
+// instantiated): S and dQ, dK run over DK, dP and dV over DV.
+
+// Queries of a dK/dV q tile, which is also the rows of every TMA box of
+// the pair (kernels/flash_attention.py:bwd_q_tile).
+template <int DK, int DV>
+__host__ __device__ constexpr int bwd_qt() {
+  return DK <= 128 ? 64 : 32;
+}
+
+// Heads of a dQ block at most (two when G is even).
+template <int DK, int DV>
+__host__ __device__ constexpr int bwd_max_hb() {
+  return DK <= 128 ? 2 : 1;
+}
+
 //
 // Shared memory of a dK/dV block, byte offsets from a 1024-byte aligned
 // base (the 128-byte swizzle's period): the k and v tiles, the ring's q
 // and dO tiles, their lse2 and delta rows, the barriers.
 template <int DK, int DV>
 struct DkdvSmem {
+  static constexpr int ROWS = bwd_qt<DK, DV>();  // queries of a q tile
   static constexpr uint32_t KT = BWD_BLOCK * DK * 2, VT = BWD_BLOCK * DV * 2;
-  static constexpr uint32_t QT = BWD_QT * DK * 2, OT = BWD_QT * DV * 2;
+  static constexpr uint32_t QT = ROWS * DK * 2, OT = ROWS * DV * 2;
   static constexpr uint32_t K = 0, V = KT, Q = KT + VT;
   static constexpr uint32_t DO = Q + BWD_DKDV_STAGES * QT;
   static constexpr uint32_t LSE = DO + BWD_DKDV_STAGES * OT;
-  static constexpr uint32_t DLT = LSE + BWD_DKDV_STAGES * BWD_QT * 4;
-  static constexpr uint32_t BAR = DLT + BWD_DKDV_STAGES * BWD_QT * 4;
+  static constexpr uint32_t DLT = LSE + BWD_DKDV_STAGES * ROWS * 4;
+  static constexpr uint32_t BAR = DLT + BWD_DKDV_STAGES * ROWS * 4;
   static constexpr uint32_t BYTES = 1024 + BAR + 8 * (1 + 2 * BWD_DKDV_STAGES);
 };
 
@@ -431,15 +493,15 @@ struct DqSmem {
 };
 
 // `rows` rows from r0 of a (D, heads, S, B) tensor map, as column blocks
-// of E elements and boxes of BWD_BOX rows, into a tile of `rows` rows.
-template <int D>
+// of E elements and boxes of BOX rows, into a tile of `rows` rows.
+template <int D, int BOX>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int rows, int head, int r0,
                                          int b) {
   using T = SwTile<D>;
 #pragma unroll
   for (int cb = 0; cb < T::CB; ++cb)
-    for (int r = 0; r < rows; r += BWD_BOX)
+    for (int r = 0; r < rows; r += BOX)
       tma_load(dst + (cb * rows + r) * T::ROW, map, bar, cb * T::E, head, r0 + r, b);
 }
 
@@ -453,6 +515,7 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tm_q, const CUtens
   using TK = SwTile<DK>;
   using TV = SwTile<DV>;
   constexpr int ST = BWD_DKDV_STAGES;
+  constexpr int QT = L::ROWS;  // queries of a q tile, rows of a TMA box
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   const uint32_t raw = smem_addr(bwd_smem);
   const uint32_t sb = (raw + 1023) & ~1023u;
@@ -464,8 +527,8 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tm_q, const CUtens
   const int b = x / a.Hkv, hk = x % a.Hkv;
   const int k0 = y * BWD_BLOCK;
   const int G = a.H / a.Hkv;
-  const int qt0 = a.causal ? k0 / BWD_QT : 0;  // q tiles before see no key here
-  const int per_head = max((a.Sq + BWD_QT - 1) / BWD_QT - qt0, 0);
+  const int qt0 = a.causal ? k0 / QT : 0;  // q tiles before see no key here
+  const int per_head = max((a.Sq + QT - 1) / QT - qt0, 0);
   const int n_it = G * per_head;  // iteration it: head hk G + it / per_head,
                                   // q tile qt0 + it % per_head
   const int wg = threadIdx.x / BWD_WG;
@@ -484,20 +547,20 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tm_q, const CUtens
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BWD_PRODUCER_REGS));
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, L::KT + L::VT);
-      tma_tile<DK>(sb + L::K, tm_k, kv_full, BWD_BLOCK, hk, k0, b);
-      tma_tile<DV>(sb + L::V, tm_v, kv_full, BWD_BLOCK, hk, k0, b);
+      tma_tile<DK, QT>(sb + L::K, tm_k, kv_full, BWD_BLOCK, hk, k0, b);
+      tma_tile<DV, QT>(sb + L::V, tm_v, kv_full, BWD_BLOCK, hk, k0, b);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % ST;
         const uint32_t full = full0 + 8 * s;
         mbar_wait(empty0 + 8 * s, ((it / ST) & 1) ^ 1);
         const int h = hk * G + it / per_head;
-        const int q0 = (qt0 + it % per_head) * BWD_QT;
-        mbar_expect_tx(full, L::QT + L::OT + 2 * BWD_QT * 4);
-        tma_tile<DK>(sb + L::Q + s * L::QT, tm_q, full, BWD_QT, h, q0, b);
-        tma_tile<DV>(sb + L::DO + s * L::OT, tm_do, full, BWD_QT, h, q0, b);
+        const int q0 = (qt0 + it % per_head) * QT;
+        mbar_expect_tx(full, L::QT + L::OT + 2 * QT * 4);
+        tma_tile<DK, QT>(sb + L::Q + s * L::QT, tm_q, full, QT, h, q0, b);
+        tma_tile<DV, QT>(sb + L::DO + s * L::OT, tm_do, full, QT, h, q0, b);
         const long long row = ((long long)b * a.H + h) * a.sq_pad + q0;
-        bulk_load(sb + L::LSE + s * BWD_QT * 4, a.lse2 + row, BWD_QT * 4, full);
-        bulk_load(sb + L::DLT + s * BWD_QT * 4, a.delta + row, BWD_QT * 4, full);
+        bulk_load(sb + L::LSE + s * QT * 4, a.lse2 + row, QT * 4, full);
+        bulk_load(sb + L::DLT + s * QT * 4, a.delta + row, QT * 4, full);
       }
     }
     return;
@@ -519,30 +582,30 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tm_q, const CUtens
 
   for (int it = 0; it < n_it; ++it) {
     const int s = it % ST;
-    const int q0 = (qt0 + it % per_head) * BWD_QT;
+    const int q0 = (qt0 + it % per_head) * QT;
     mbar_wait(full0 + 8 * s, (it / ST) & 1);
     const uint32_t qs = sb + L::Q + s * L::QT, dos = sb + L::DO + s * L::OT;
-    float st[32], dp[32];  // S^T and dP^T: 64 keys x 64 queries
+    float st[QT / 2], dp[QT / 2];  // S^T and dP^T: 64 keys x QT queries
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DK / 16; ++kk)
       wgmma_ss(st, TK::kmajor(sb + L::K, BWD_BLOCK, cw * BWD_ROWS, kk),
-               TK::kmajor(qs, BWD_QT, 0, kk), kk);
+               TK::kmajor(qs, QT, 0, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < DV / 16; ++kk)
       wgmma_ss(dp, TV::kmajor(sb + L::V, BWD_BLOCK, cw * BWD_ROWS, kk),
-               TV::kmajor(dos, BWD_QT, 0, kk), kk);
+               TV::kmajor(dos, QT, 0, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();
     reg_fence(st);
     // P^T = exp2(S^T scale log2(e) - lse2): rows keys, columns queries;
     // lse2 is +inf for queries past Sq
-    const float* lt = lse_s + s * BWD_QT;
-    const float* dl = dlt_s + s * BWD_QT;
+    const float* lt = lse_s + s * QT;
+    const float* dl = dlt_s + s * QT;
     const bool edge = a.causal && key_lo + BWD_ROWS - 1 > q0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = j * 8 + t4 * 2 + (i & 1);
@@ -552,23 +615,23 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tm_q, const CUtens
     wgmma_wait<0>();
     reg_fence(dp);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         dp[4 * j + i] = st[4 * j + i] * (dp[4 * j + i] - dl[j * 8 + t4 * 2 + (i & 1)]);
-    // dV += P^T dO, dK += dS^T Q (k over the tile's 64 queries)
+    // dV += P^T dO, dK += dS^T Q (k over the tile's QT queries)
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BWD_QT / 16; ++kk) {
+    for (int kk = 0; kk < QT / 16; ++kk) {
       uint32_t af[4];
       a_frag(af, st, kk);
-      wgmma_rs(dv, af, TV::mnmajor(dos, BWD_QT, kk), 1);
+      wgmma_rs(dv, af, TV::mnmajor(dos, QT, kk), 1);
     }
 #pragma unroll
-    for (int kk = 0; kk < BWD_QT / 16; ++kk) {
+    for (int kk = 0; kk < QT / 16; ++kk) {
       uint32_t af[4];
       a_frag(af, dp, kk);
-      wgmma_rs(dk, af, TK::mnmajor(qs, BWD_QT, kk), 1);
+      wgmma_rs(dk, af, TK::mnmajor(qs, QT, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -608,6 +671,7 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tm_q, const CUtensor
   using TK = SwTile<DK>;
   using TV = SwTile<DV>;
   constexpr int ST = BWD_DQ_STAGES;
+  constexpr int BOX = bwd_qt<DK, DV>();  // rows of a TMA box
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   const uint32_t raw = smem_addr(bwd_smem);
   const uint32_t sb = (raw + 1023) & ~1023u;
@@ -638,16 +702,16 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tm_q, const CUtensor
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, HB * (L::QT + L::OT));
       for (int j = 0; j < HB; ++j) {
-        tma_tile<DK>(sb + L::Q + j * L::QT, tm_q, q_full, BWD_BLOCK, h0 + j, q0, b);
-        tma_tile<DV>(sb + L::DO + j * L::OT, tm_do, q_full, BWD_BLOCK, h0 + j, q0, b);
+        tma_tile<DK, BOX>(sb + L::Q + j * L::QT, tm_q, q_full, BWD_BLOCK, h0 + j, q0, b);
+        tma_tile<DV, BOX>(sb + L::DO + j * L::OT, tm_do, q_full, BWD_BLOCK, h0 + j, q0, b);
       }
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % ST;
         const uint32_t full = full0 + 8 * s;
         mbar_wait(empty0 + 8 * s, ((t / ST) & 1) ^ 1);
         mbar_expect_tx(full, L::KT + L::VT);
-        tma_tile<DK>(sb + L::K + s * L::KT, tm_k, full, BWD_KT, hk, t * BWD_KT, b);
-        tma_tile<DV>(sb + L::V + s * L::VT, tm_v, full, BWD_KT, hk, t * BWD_KT, b);
+        tma_tile<DK, BOX>(sb + L::K + s * L::KT, tm_k, full, BWD_KT, hk, t * BWD_KT, b);
+        tma_tile<DV, BOX>(sb + L::V + s * L::VT, tm_v, full, BWD_KT, hk, t * BWD_KT, b);
       }
     }
     return;
@@ -1015,9 +1079,9 @@ EncodeTiled encode_tiled() {
 }
 
 // A (B, S, heads, D) bf16 tensor (element strides ss, sh, sb) as a map of
-// dims (D, heads, S, B): boxes of BWD_BOX rows of one head, min(D, 64)
+// dims (D, heads, S, B): boxes of BOX rows of one head, min(D, 64)
 // elements wide, in SwTile<D>'s swizzle; rows past S read as zeros.
-template <int D>
+template <int D, int BOX>
 int tensor_map(CUtensorMap* m, const void* base, int S, int heads, int B,
                long long ss, long long sh, long long sb) {
   const EncodeTiled fn = encode_tiled();
@@ -1027,7 +1091,7 @@ int tensor_map(CUtensorMap* m, const void* base, int S, int heads, int B,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::E, 1, (cuuint32_t)BWD_BOX, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)T::E, 1, (cuuint32_t)BOX, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = T::ROW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : T::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -1057,19 +1121,31 @@ struct BwdPlan {
   size_t dkdv_smem, dq_smem;
 };
 
+// f32 (DK == DV only): the pre-pass and two CUDA-core kernels.
 template <int D>
+int launch_bwd_f32(const FlashBwdArgs& a, const BwdPlan& p, dim3 g_delta, dim3 g_dkdv,
+                   dim3 g_dq, cudaStream_t st) {
+  if (p.dkdv_smem != bwd_dkdv_f32_smem_bytes<D>() || p.dq_smem != bwd_dq_f32_smem_bytes<D>())
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_delta_f32_kernel<<<g_delta, FA_THREADS, 0, st>>>(a, D);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  rc = launch_bwd_kernel(flash_bwd_dkdv_f32_kernel<D>, g_dkdv, FA_THREADS, p.dkdv_smem, st,
+                         a);
+  if (rc) return rc;
+  return launch_bwd_kernel(flash_bwd_dq_f32_kernel<D>, g_dq, FA_THREADS, p.dq_smem, st, a);
+}
+
+template <int DK, int DV>
 int launch_bwd_d(const FlashBwdArgs& a, int bf16, const BwdPlan& p,
                  cudaStream_t st) {
+  constexpr int QT = bwd_qt<DK, DV>();
   const int key_tile = bf16 ? BWD_BLOCK : FA_BK, q_tile = bf16 ? BWD_BLOCK : FA_BQ;
   // bf16: a dQ block takes two heads of a KV head's group when G is even
-  const int hb = bf16 && a.H / a.Hkv % 2 == 0 ? 2 : 1;
-  const size_t need_dkdv = bf16 ? DkdvSmem<D, D>::BYTES : bwd_dkdv_f32_smem_bytes<D>();
-  const size_t need_dq = !bf16   ? bwd_dq_f32_smem_bytes<D>()
-                         : hb == 2 ? DqSmem<D, D, 2>::BYTES
-                                   : DqSmem<D, D, 1>::BYTES;
-  const int delta_rows = bf16 ? delta_bf16_rows<D>() : FA_DELTA_ROWS;
-  if (p.dkdv_smem != need_dkdv || p.dq_smem != need_dq ||
-      p.threads != (bf16 ? BWD_THREADS : FA_THREADS) ||
+  // and the pair's tiles fit
+  const int hb = bf16 && a.H / a.Hkv % 2 == 0 ? bwd_max_hb<DK, DV>() : 1;
+  const int delta_rows = bf16 ? delta_bf16_rows<DV>() : FA_DELTA_ROWS;
+  if (p.threads != (bf16 ? BWD_THREADS : FA_THREADS) ||
       a.sq_pad != (a.Sq + BWD_BLOCK - 1) / BWD_BLOCK * BWD_BLOCK ||
       p.delta_grid != (a.H + delta_rows - 1) / delta_rows ||
       p.dkdv_tiles != (a.Skv + key_tile - 1) / key_tile ||
@@ -1079,32 +1155,33 @@ int launch_bwd_d(const FlashBwdArgs& a, int bf16, const BwdPlan& p,
   const dim3 g_delta(a.B * a.Sq, p.delta_grid);
   const dim3 g_dkdv(a.B * a.Hkv, p.dkdv_tiles), g_dq(a.B * a.H / hb, p.dq_tiles);
   if (!bf16) {
-    flash_bwd_delta_f32_kernel<<<g_delta, FA_THREADS, 0, st>>>(a, D);
-    int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    rc = launch_bwd_kernel(flash_bwd_dkdv_f32_kernel<D>, g_dkdv, FA_THREADS,
-                           p.dkdv_smem, st, a);
-    if (rc) return rc;
-    return launch_bwd_kernel(flash_bwd_dq_f32_kernel<D>, g_dq, FA_THREADS, p.dq_smem,
-                             st, a);
+    if constexpr (DK == DV) return launch_bwd_f32<DK>(a, p, g_delta, g_dkdv, g_dq, st);
+    return (int)cudaErrorInvalidValue;
   }
+  const size_t need_dq = hb == 2 ? DqSmem<DK, DV, 2>::BYTES : DqSmem<DK, DV, 1>::BYTES;
+  if (p.dkdv_smem != DkdvSmem<DK, DV>::BYTES || p.dq_smem != need_dq)
+    return (int)cudaErrorInvalidValue;
   alignas(64) CUtensorMap tq, tk, tv, tdo;
-  const long long do_ss = (long long)a.H * D;
-  int rc = tensor_map<D>(&tq, a.q, a.Sq, a.H, a.B, a.q_ss, a.q_sh, a.q_sb);
-  if (!rc) rc = tensor_map<D>(&tk, a.k, a.Skv, a.Hkv, a.B, a.k_ss, a.k_sh, a.k_sb);
-  if (!rc) rc = tensor_map<D>(&tv, a.v, a.Skv, a.Hkv, a.B, a.v_ss, a.v_sh, a.v_sb);
-  if (!rc) rc = tensor_map<D>(&tdo, a.dout, a.Sq, a.H, a.B, do_ss, D, do_ss * a.Sq);
+  const long long do_ss = (long long)a.H * DV;
+  int rc = tensor_map<DK, QT>(&tq, a.q, a.Sq, a.H, a.B, a.q_ss, a.q_sh, a.q_sb);
+  if (!rc) rc = tensor_map<DK, QT>(&tk, a.k, a.Skv, a.Hkv, a.B, a.k_ss, a.k_sh, a.k_sb);
+  if (!rc) rc = tensor_map<DV, QT>(&tv, a.v, a.Skv, a.Hkv, a.B, a.v_ss, a.v_sh, a.v_sb);
+  if (!rc)
+    rc = tensor_map<DV, QT>(&tdo, a.dout, a.Sq, a.H, a.B, do_ss, DV, do_ss * a.Sq);
   if (rc) return rc;
-  flash_bwd_delta_bf16_kernel<D><<<g_delta, FA_THREADS, 0, st>>>(a);
+  flash_bwd_delta_bf16_kernel<DV><<<g_delta, FA_THREADS, 0, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int dkdv_blocks = g_dkdv.x * g_dkdv.y;
   const dim3 grid(dkdv_blocks + g_dq.x * g_dq.y);
   const size_t smem = p.dkdv_smem > p.dq_smem ? p.dkdv_smem : p.dq_smem;
-  return hb == 2 ? launch_bwd_kernel(flash_bwd_kernel<D, D, 2>, grid, BWD_THREADS, smem,
-                                     st, tq, tk, tv, tdo, a, dkdv_blocks, p.dq_tiles)
-                 : launch_bwd_kernel(flash_bwd_kernel<D, D, 1>, grid, BWD_THREADS, smem,
-                                     st, tq, tk, tv, tdo, a, dkdv_blocks, p.dq_tiles);
+  if constexpr (bwd_max_hb<DK, DV>() == 2) {
+    if (hb == 2)
+      return launch_bwd_kernel(flash_bwd_kernel<DK, DV, 2>, grid, BWD_THREADS, smem, st, tq,
+                               tk, tv, tdo, a, dkdv_blocks, p.dq_tiles);
+  }
+  return launch_bwd_kernel(flash_bwd_kernel<DK, DV, 1>, grid, BWD_THREADS, smem, st, tq, tk,
+                           tv, tdo, a, dkdv_blocks, p.dq_tiles);
 }
 
 }  // namespace
@@ -1112,7 +1189,7 @@ int launch_bwd_d(const FlashBwdArgs& a, int bf16, const BwdPlan& p,
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* lse2, float* delta, void* dq,
-    void* dk, void* dv, int bf16, int B, int Sq, int Skv, int H, int Hkv, int D,
+    void* dk, void* dv, int bf16, int B, int Sq, int Skv, int H, int Hkv, int D, int DV,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int causal, float scale, int sq_pad, int delta_grid,
@@ -1124,11 +1201,14 @@ extern "C" int flash_attention_bwd_launch(
   const BwdPlan p{delta_grid, dkdv_tiles, dq_tiles, dq_heads, threads,
                   (size_t)dkdv_smem, (size_t)dq_smem};
   cudaStream_t st = (cudaStream_t)stream;
+  // the (q/k, v) width pairs of kernels/flash_attention.py:KERNEL_HEAD_DIMS
+  if (D == 192 && DV == 128) return launch_bwd_d<192, 128>(a, bf16, p, st);
+  if (D != DV) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_bwd_d<16>(a, bf16, p, st);
-    case 32: return launch_bwd_d<32>(a, bf16, p, st);
-    case 64: return launch_bwd_d<64>(a, bf16, p, st);
-    case 128: return launch_bwd_d<128>(a, bf16, p, st);
+    case 16: return launch_bwd_d<16, 16>(a, bf16, p, st);
+    case 32: return launch_bwd_d<32, 32>(a, bf16, p, st);
+    case 64: return launch_bwd_d<64, 64>(a, bf16, p, st);
+    case 128: return launch_bwd_d<128, 128>(a, bf16, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

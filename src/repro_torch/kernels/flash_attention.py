@@ -1,17 +1,22 @@
 """Causal GQA online-softmax (flash) attention for Hopper, and its plain
 PyTorch version (counterpart of :mod:`repro.kernels.flash_attention`).
 
-Both compute, for q ``(B, Sq, H, D)`` and k, v ``(B, Skv, Hkv, D)`` with
-``H = Hkv·G`` (query head ``h`` reads KV head ``h // G``), the function of
-the Pallas kernel and of ``repro.models.attention.blocked_attention``:
+Both compute, for q ``(B, Sq, H, DK)``, k ``(B, Skv, Hkv, DK)`` and v
+``(B, Skv, Hkv, DV)`` with ``H = Hkv·G`` (query head ``h`` reads KV head
+``h // G``), the function of ``repro.models.attention.blocked_attention``
+(and of the Pallas kernel, whose q, k and v share one width):
 
-* scores ``q·k · D**-0.5`` with the products summed in f32; keys at
+* scores ``q·k · DK**-0.5`` with the products summed in f32; keys at
   positions ``>= kv_len`` and, when ``causal``, keys after the query's own
   position masked at ``-1e30``;
 * running max ``m``, running sum ``l`` and the output accumulator in f32,
   tile by tile over the keys; ``p`` rounded to the value dtype before the
   ``p·V`` product, as the JAX kernel does;
-* output in q's dtype, divided by ``max(l, 1e-30)``.
+* output ``(B, Sq, H, DV)`` in q's dtype, divided by ``max(l, 1e-30)``.
+
+The q/k width and the v width differ in MLA (deepseek-v2: 192 = 128 +
+64 rope, and 128); the kernels are instantiated for the pairs of
+:data:`KERNEL_HEAD_DIMS`.
 
 Whole key tiles above the diagonal or past ``kv_len`` are skipped (their
 terms are exact zeros once a row has seen key 0, which every row has).
@@ -69,8 +74,10 @@ NEG_INF = -1e30
 # Key and query rows per tile of the plain version; the tile sizes change
 # only the order of the f32 sums.
 PLAIN_BLOCK = 128
-# Head widths the kernel is instantiated for (csrc/flash_attention.cu).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# (q/k width, v width) pairs the kernels are instantiated for
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu): the dense
+# models' equal widths and MLA's (192, 128), the latter in bf16 only.
+KERNEL_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 DTYPES = (torch.float32, torch.bfloat16)
 # The kernel's grid puts batch·heads on its second axis.
 MAX_GRID_Y = 65535
@@ -132,20 +139,23 @@ class FlashPlan:
         return [(nx - 1 - x, y) for y in range(ny) for x in range(nx)]
 
 
-def flash_smem_bytes(D: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: bf16 the q tile and the
-    ``STAGES`` k and v tiles, rows of ``D + 8`` elements; f32 the q, k and
-    v tiles (rows of ``D + 1``), the 64 x 65 score tile and three row
-    vectors."""
+def flash_smem_bytes(D: int, dtype: torch.dtype, DV: Optional[int] = None) -> int:
+    """Dynamic shared memory of one block at q/k width ``D`` and v width
+    ``DV`` (default ``D``): bf16 the q tile and the ``STAGES`` k tiles,
+    rows of ``D + 8`` elements, and the ``STAGES`` v tiles, rows of ``DV +
+    8``; f32 (``DV == D`` only) the q, k and v tiles (rows of ``D + 1``),
+    the 64 x 65 score tile and three row vectors."""
+    DV = D if DV is None else DV
     if dtype == torch.bfloat16:
-        return (BLOCK_Q + 2 * STAGES * BLOCK_K) * (D + 8) * 2
+        return ((BLOCK_Q + STAGES * BLOCK_K) * (D + 8) + STAGES * BLOCK_K * (DV + 8)) * 2
     return ((BLOCK_Q + 2 * BLOCK_K) * (D + 1) + BLOCK_Q * (BLOCK_K + 1)
             + 3 * BLOCK_Q) * 4
 
 
-def flash_plan(B: int, Sq: int, H: int, D: int, dtype: torch.dtype) -> FlashPlan:
+def flash_plan(B: int, Sq: int, H: int, D: int, dtype: torch.dtype,
+               DV: Optional[int] = None) -> FlashPlan:
     return FlashPlan(grid=(cdiv(Sq, BLOCK_Q), B * H),
-                     smem_bytes=flash_smem_bytes(D, dtype))
+                     smem_bytes=flash_smem_bytes(D, dtype, DV))
 
 
 def _check_copy_alignment(name: str, t: torch.Tensor) -> None:
@@ -162,10 +172,11 @@ def _check_copy_alignment(name: str, t: torch.Tensor) -> None:
 
 
 def _check_shapes(q, k, v, kv_len):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
-            f"flash_attention: expected q (B, Sq, H, D) and k, v (B, Skv, Hkv, D), "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+            f"flash_attention: expected q (B, Sq, H, DK), k (B, Skv, Hkv, DK) and v "
+            f"(B, Skv, Hkv, DV), got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
     B, Sq, H, D = q.shape
     _, Skv, Hkv, Dk = k.shape
     if k.shape[0] != B or Dk != D or Hkv == 0 or H % Hkv:
@@ -181,16 +192,16 @@ def _check_shapes(q, k, v, kv_len):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, kv_len: Optional[int] = None,
                           return_lse: bool = False):
-    """The kernel's function in eager PyTorch → ``(B, Sq, H, D)`` in q's
+    """The kernel's function in eager PyTorch → ``(B, Sq, H, DV)`` in q's
     dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``);
     ``kv_len`` defaults to ``Skv``."""
     kv_len = _check_shapes(q, k, v, kv_len)
     B, Sq, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, DV = k.shape[2], v.shape[3]
     G = H // Hkv
     scale = D ** -0.5
     k, v = k[:, :kv_len], v[:, :kv_len]          # keys past kv_len never count
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     bq = bk = PLAIN_BLOCK
     for q0 in range(0, Sq, bq):
@@ -199,7 +210,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qpos = torch.arange(q0, q0 + n, device=q.device)
         m = torch.full((B, n, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((B, n, Hkv, G, D), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, n, Hkv, G, DV), dtype=torch.float32, device=q.device)
         n_kv = cdiv(kv_len, bk)
         if causal:
             n_kv = min(n_kv, (q0 + n - 1) // bk + 1)
@@ -219,7 +230,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), vt.float())
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
-        out[:, q0:q0 + n] = o.reshape(B, n, H, D).to(q.dtype)
+        out[:, q0:q0 + n] = o.reshape(B, n, H, DV).to(q.dtype)
         lse[:, q0:q0 + n] = (m + torch.log(l)).reshape(B, n, H)
     if return_lse:
         return out, lse.permute(0, 2, 1).contiguous()
@@ -248,6 +259,7 @@ def grad_row_error(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def _check_card_inputs(op: str, q, k, v):
     B, Sq, H, D = q.shape
+    pair = (D, v.shape[3])
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != dev:
@@ -257,8 +269,11 @@ def _check_card_inputs(op: str, q, k, v):
                              f"got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{op}: head width {D} not in {KERNEL_HEAD_DIMS}")
+    if pair not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{op}: (q/k, v) head widths {pair} not in {KERNEL_HEAD_DIMS}")
+    if q.dtype == torch.float32 and pair[0] != pair[1]:
+        raise ValueError(f"{op}: the f32 kernels take one head width for q, k and v; "
+                         f"(q/k, v) widths {pair} run in bf16 only")
     if B * H > MAX_GRID_Y:
         raise ValueError(f"{op}: B·H = {B * H} > {MAX_GRID_Y}")
     if q.dtype == torch.bfloat16:
@@ -270,7 +285,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, kv_len: Optional[int] = None,
                          return_lse: bool = False):
     """Launch the bf16 tensor-core kernel or the f32 kernel on the current
-    stream of the tensors' card → a contiguous ``(B, Sq, H, D)`` tensor in
+    stream of the tensors' card → a contiguous ``(B, Sq, H, DV)`` tensor in
     q's dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``,
     written by the same launch; without it the kernel writes none and its
     output has the same bits).  Checks device, dtype, shape, strides and
@@ -279,11 +294,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     kv_len = _check_shapes(q, k, v, kv_len)
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     _check_card_inputs("flash_attention", q, k, v)
-    plan = flash_plan(B, Sq, H, D, q.dtype)
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    plan = flash_plan(B, Sq, H, D, q.dtype, DV)
+    o = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
     if B == 0 or Sq == 0:
@@ -294,7 +309,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None,
-            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, *strides,
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, DV, *strides,
             kv_len, int(causal), ctypes.c_float(D ** -0.5), plan.grid[0],
             ctypes.c_longlong(plan.smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention")
@@ -321,6 +336,12 @@ BWD_QT = 64
 BWD_KT = 64
 BWD_DKDV_STAGES = 3
 BWD_DQ_STAGES = 3
+# MLA's pair (192, 128): a dK/dV consumer keeps 64 keys' dK (96 f32
+# registers a thread) and dV (64) across its walk; q tiles of 32 queries
+# halve its S^T and dP^T tiles (16 registers each), so that it stays within
+# the consumers' 240 registers.  Its dQ blocks take one head: two heads'
+# q, dO and dQ tiles would need 286,720 bytes of shared memory.
+BWD_QT_WIDE = 32
 # Heads of the δ pre-pass a 128-thread block: in f32 a warp each, in bf16
 # D / 8 threads each (16 bytes of o and of dO a thread).
 BWD_DELTA_ROWS = 4
@@ -390,21 +411,30 @@ class FlashBwdPlan:
         return [t * self.kv_tile for t in range(n)]
 
 
-def flash_bwd_smem_bytes(D: int, dtype: torch.dtype,
-                         dq_heads: int = 1) -> Tuple[int, int]:
-    """(dK/dV, dQ) dynamic shared memory of one block.  bf16
-    (``DkdvSmem``, ``DqSmem``): dK/dV its 128-key k and v tiles and
-    ``BWD_DKDV_STAGES`` q and dO tiles of 64 rows with their ``lse·log2(e)``
-    and ``δ``; dQ the 128-query q and dO tiles of its ``dq_heads`` heads
-    and ``BWD_DQ_STAGES`` k and v tiles of ``BWD_KT`` rows; each the
-    swizzle's period more and 8 bytes a barrier.  f32: four tiles of rows
-    ``D + 1``, the 64 x 65 tiles of ``P`` and ``dS`` (dK/dV) or ``dS``
-    (dQ), and the 64 ``lse`` and ``δ``."""
+def bwd_q_tile(D: int) -> int:
+    """Queries of a bf16 dK/dV block's q tile at q/k width ``D``:
+    ``BWD_QT``, or ``BWD_QT_WIDE`` above 128."""
+    return BWD_QT if D <= 128 else BWD_QT_WIDE
+
+
+def flash_bwd_smem_bytes(D: int, dtype: torch.dtype, dq_heads: int = 1,
+                         DV: Optional[int] = None) -> Tuple[int, int]:
+    """(dK/dV, dQ) dynamic shared memory of one block at q/k width ``D`` and
+    v width ``DV`` (default ``D``).  bf16 (``DkdvSmem``, ``DqSmem``): dK/dV
+    its 128-key k and v tiles and ``BWD_DKDV_STAGES`` q and dO tiles of
+    :func:`bwd_q_tile` rows with their ``lse·log2(e)`` and ``δ``; dQ the
+    128-query q and dO tiles of its ``dq_heads`` heads and
+    ``BWD_DQ_STAGES`` k and v tiles of ``BWD_KT`` rows; each the swizzle's
+    period more and 8 bytes a barrier.  f32 (``DV == D`` only): four tiles
+    of rows ``D + 1``, the 64 x 65 tiles of ``P`` and ``dS`` (dK/dV) or
+    ``dS`` (dQ), and the 64 ``lse`` and ``δ``."""
+    DV = D if DV is None else DV
     if dtype == torch.bfloat16:
-        row = D * 2
-        dkdv = (2 * BWD_BLOCK * row + BWD_DKDV_STAGES * (2 * BWD_QT * row + 2 * BWD_QT * 4)
+        row = (D + DV) * 2    # a q or k row and a dO or v row
+        qt = bwd_q_tile(D)
+        dkdv = (BWD_BLOCK * row + BWD_DKDV_STAGES * (qt * row + 2 * qt * 4)
                 + 8 * (1 + 2 * BWD_DKDV_STAGES))
-        dq = ((2 * dq_heads * BWD_BLOCK + 2 * BWD_DQ_STAGES * BWD_KT) * row
+        dq = ((dq_heads * BWD_BLOCK + BWD_DQ_STAGES * BWD_KT) * row
               + 8 * (1 + 2 * BWD_DQ_STAGES))
         return SWIZZLE_PERIOD + dkdv, SWIZZLE_PERIOD + dq
     four = 4 * BLOCK_K * (D + 1)
@@ -414,14 +444,16 @@ def flash_bwd_smem_bytes(D: int, dtype: torch.dtype,
 
 
 def flash_bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
-                   dtype: torch.dtype) -> FlashBwdPlan:
-    dq_heads = 2 if dtype == torch.bfloat16 and (H // Hkv) % 2 == 0 else 1
-    dkdv, dq = flash_bwd_smem_bytes(D, dtype, dq_heads)
+                   dtype: torch.dtype, DV: Optional[int] = None) -> FlashBwdPlan:
+    DV = D if DV is None else DV
+    dq_heads = (2 if dtype == torch.bfloat16 and (H // Hkv) % 2 == 0 and D <= 128
+                else 1)
+    dkdv, dq = flash_bwd_smem_bytes(D, dtype, dq_heads, DV)
     sq_pad = cdiv(Sq, BWD_BLOCK) * BWD_BLOCK
     if dtype == torch.bfloat16:
-        threads, key_tile, q_tile, q_block, kv_tile = (BWD_THREADS, BWD_BLOCK, BWD_QT,
-                                                       BWD_BLOCK, BWD_KT)
-        delta_rows = 128 // (D // 8)
+        threads, key_tile, q_tile, q_block, kv_tile = (BWD_THREADS, BWD_BLOCK,
+                                                       bwd_q_tile(D), BWD_BLOCK, BWD_KT)
+        delta_rows = 128 // (DV // 8)
     else:
         threads, key_tile, q_tile, q_block, kv_tile = 128, BLOCK_K, BLOCK_Q, BLOCK_Q, BLOCK_K
         delta_rows = BWD_DELTA_ROWS
@@ -464,9 +496,10 @@ def tma_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
 def _check_bwd_shapes(q, k, v, o, lse, do):
     _check_shapes(q, k, v, None)
     B, Sq, H, _ = q.shape
-    if o.shape != q.shape or do.shape != q.shape:
+    want = (B, Sq, H, v.shape[3])
+    if o.shape != want or do.shape != want:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dO "
-                         f"{tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+                         f"{tuple(do.shape)} must be {want}")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be f32 {(B, H, Sq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
@@ -474,12 +507,13 @@ def _check_bwd_shapes(q, k, v, o, lse, do):
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
     """The backward in eager PyTorch, tile by tile as the kernel recomputes
-    it → ``(dq, dk, dv)`` in q's dtype and the shapes of q, k and v.  ``P``
+    it → ``(dq, dk, dv)`` in q's dtype and the shapes of q, k and v (dq
+    and dk at the q/k width, dv at the v width).  ``P``
     and ``dS`` are rounded to the input dtype before their products (as the
     bf16 kernel's tensor-core operands are); sums in f32."""
     _check_bwd_shapes(q, k, v, o, lse, do)
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
     scale = D ** -0.5
     dt = q.dtype
@@ -489,12 +523,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
     lse_r = lse.permute(0, 2, 1).reshape(B, Sq, Hkv, G)
     dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
     dk = torch.zeros((B, Skv, Hkv, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((B, Skv, Hkv, DV), dtype=torch.float32, device=dev)
     bq = bk = PLAIN_BLOCK
     for q0 in range(0, Sq, bq):
         n = min(bq, Sq - q0)
         qt = q[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
-        dot = do[:, q0:q0 + n].float().reshape(B, n, Hkv, G, D)
+        dot = do[:, q0:q0 + n].float().reshape(B, n, Hkv, G, DV)
         lt, dl = lse_r[:, q0:q0 + n, ..., None], delta[:, q0:q0 + n, ..., None]
         qpos = torch.arange(q0, q0 + n, device=dev)
         n_kv = cdiv(Skv, bk)
@@ -530,7 +564,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
 
     _check_bwd_shapes(q, k, v, o, lse, do)
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     _check_card_inputs("flash_attention_bwd", q, k, v)
     if not do.is_contiguous() or do.data_ptr() % COPY_BYTES:
@@ -547,13 +581,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
             _check_copy_alignment(name, t)
     else:
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    plan = flash_bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype)
+    plan = flash_bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype, DV)
     if max(plan.dkdv_grid[1], plan.dq_grid[1], plan.delta_grid[1]) > MAX_GRID_Y:
         raise ValueError(f"flash_attention_bwd: {max(Sq, Skv)} positions or {H} heads "
                          f"need more than {MAX_GRID_Y} tiles")
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=dev)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, Skv, Hkv, DV), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     lse2 = torch.empty((B, H, plan.sq_pad), dtype=torch.float32, device=dev)
@@ -564,7 +598,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv,
-            H, Hkv, D, *[ctypes.c_longlong(s) for s in strides], int(causal),
+            H, Hkv, D, DV, *[ctypes.c_longlong(s) for s in strides], int(causal),
             ctypes.c_float(D ** -0.5), plan.sq_pad, plan.delta_grid[1],
             plan.dkdv_grid[1], plan.dq_grid[1], plan.dq_heads, plan.threads,
             ctypes.c_longlong(plan.dkdv_smem_bytes),
@@ -575,8 +609,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable causal GQA attention over q ``(B, Sq, H, D)`` and k, v
-    ``(B, Skv, Hkv, D)``: on the card the forward kernel (with ``lse``) and
+    """Differentiable causal GQA attention over q ``(B, Sq, H, DK)``, k
+    ``(B, Skv, Hkv, DK)`` and v ``(B, Skv, Hkv, DV)`` (dq and dk come back
+    DK wide, dv DV wide): on the card the forward kernel (with ``lse``) and
     the backward kernel, on the CPU their plain versions
     (:func:`repro_torch.kernels.ops.flash_attention` has checked the
     device).  It saves q, k,

@@ -16,6 +16,8 @@ close the module.
 
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.kernels.rsnn_step import F32_BYTES, weight_elems
 
 
@@ -105,11 +107,13 @@ def serve_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
 
 
 def flash_attention_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
-                          itemsize: int) -> int:
-    """``flash_attention``: q and the ``(B, Sq, H, D)`` output once, k and v
-    once each (the kernel re-reads a KV tile for every query tile and head
-    of its group, from L2)."""
-    return itemsize * (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D)
+                          itemsize: int, DV: Optional[int] = None) -> int:
+    """``flash_attention`` at q/k width ``D`` and v width ``DV`` (default
+    ``D``): q and the ``(B, Sq, H, DV)`` output once, k and v once each (the
+    kernel re-reads a KV tile for every query tile and head of its group,
+    from L2)."""
+    DV = D if DV is None else DV
+    return itemsize * (B * Sq * H * (D + DV) + B * Skv * Hkv * (D + DV))
 
 
 def attention_valid_keys(Sq: int, kv_len: int, causal: bool) -> int:
@@ -123,27 +127,36 @@ def attention_valid_keys(Sq: int, kv_len: int, causal: bool) -> int:
 
 
 def flash_attention_flops(B: int, Sq: int, H: int, D: int, kv_len: int,
-                          causal: bool) -> int:
-    """Exact-causal operations of ``flash_attention``: a multiply and an add
-    for each of the ``q·k`` and ``p·V`` products of every valid key,
-    ``4·B·H·D·Σ_q(valid keys)``; the softmax's few per score are not
-    counted."""
-    return 4 * B * H * D * attention_valid_keys(Sq, kv_len, causal)
+                          causal: bool, DV: Optional[int] = None) -> int:
+    """Exact-causal operations of ``flash_attention`` at q/k width ``D`` and
+    v width ``DV`` (default ``D``): a multiply and an add for each of the
+    ``q·k`` (``D`` wide) and ``p·V`` (``DV`` wide) products of every valid
+    key, ``2·B·H·(D + DV)·Σ_q(valid keys)``; the softmax's few per score
+    are not counted."""
+    DV = D if DV is None else DV
+    return 2 * B * H * (D + DV) * attention_valid_keys(Sq, kv_len, causal)
 
 
 def flash_attention_bwd_flops(B: int, Sq: int, H: int, D: int, kv_len: int,
-                              causal: bool) -> int:
-    """Exact-causal operations of ``flash_attention_bwd``: its five products
-    (the scores recomputed, then dV, dP, dQ and dK), a multiply and an add
-    each for every valid key, ``10·B·H·D·Σ_q(valid keys)``; the
-    elementwise work on P and dS and the δ pre-pass are not counted."""
-    return 10 * B * H * D * attention_valid_keys(Sq, kv_len, causal)
+                              causal: bool, DV: Optional[int] = None) -> int:
+    """Exact-causal operations of ``flash_attention_bwd`` at q/k width ``D``
+    and v width ``DV`` (default ``D``): its five products, the scores
+    recomputed, dQ and dK over ``D`` and dP and dV over ``DV``, a multiply
+    and an add each for every valid key, ``2·B·H·(3·D + 2·DV)·Σ_q(valid
+    keys)``; the elementwise work on P and dS and the δ pre-pass are not
+    counted."""
+    DV = D if DV is None else DV
+    return 2 * B * H * (3 * D + 2 * DV) * attention_valid_keys(Sq, kv_len, causal)
 
 
 def flash_attention_bwd_bytes(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
-                              itemsize: int) -> int:
-    """``flash_attention_bwd``: q, o, dO read and dq written once (each
-    ``(B, Sq, H, D)``), k, v read and dk, dv written once (each ``(B, Skv,
-    Hkv, D)``), and the f32 ``lse`` ``(B, H, Sq)`` read once; the kernel's
-    own δ scratch is not counted."""
-    return itemsize * (4 * B * Sq * H * D + 4 * B * Skv * Hkv * D) + 4 * B * H * Sq
+                              itemsize: int, DV: Optional[int] = None) -> int:
+    """``flash_attention_bwd`` at q/k width ``D`` and v width ``DV``
+    (default ``D``): q read and dq written once (``(B, Sq, H, D)``), o and
+    dO read once (``DV`` wide), k read and dk written once (``(B, Skv,
+    Hkv, D)``), v read and dv written once (``DV`` wide), and the f32
+    ``lse`` ``(B, H, Sq)`` read once; the kernel's own δ scratch is not
+    counted."""
+    DV = D if DV is None else DV
+    return (itemsize * (2 * B * Sq * H * (D + DV) + 2 * B * Skv * Hkv * (D + DV))
+            + 4 * B * H * Sq)

@@ -1,5 +1,5 @@
-"""GQA self-attention of the dense LM family (counterpart of the GQA part
-of :mod:`repro.models.attention`).
+"""GQA and MLA self-attention of the dense and ``moe`` LM families
+(counterpart of the GQA and MLA parts of :mod:`repro.models.attention`).
 
 Three execution modes per layer:
 
@@ -16,8 +16,16 @@ Three execution modes per layer:
   Pallas kernel.  The cache is updated in place (JAX returns an updated
   copy): at full width a copy would move the whole cache every step.
 
+MLA (DeepSeek-V2) caches the compressed ``c_kv`` and the rope key
+``k_pe``.  Its train and prefill modes decompress them to per-head keys
+and values and run :func:`blocked_attention` with q and k ``qk_nope_dim +
+qk_rope_dim`` wide and v ``v_head_dim`` wide (192 and 128 in deepseek-v2:
+the flash kernels' (192, 128) pair on the card); its decode attends in the
+``kv_lora_rank`` latent space with plain einsums (the absorbed form), as
+the JAX package does outside any Pallas kernel.
+
 The JAX package's ``shard(...)`` annotations are dropped: outside a device
-mesh they are no-ops.  MLA and cross-attention come with their families.
+mesh they are no-ops.  Cross-attention comes with its family.
 """
 
 from __future__ import annotations
@@ -32,9 +40,10 @@ from repro_torch.models.layers import apply_rope, const_param, make_param, rms_n
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True) -> torch.Tensor:
-    """Flash attention.  q: (B,Sq,H,D); k/v: (B,Skv,Hkv,D); GQA via H=Hkv·G.
+    """Flash attention.  q: (B,Sq,H,D); k: (B,Skv,Hkv,D); v: (B,Skv,Hkv,Dv);
+    GQA via H=Hkv·G.
 
-    Returns (B,Sq,H,D) in q.dtype, softmax statistics in f32.  Ragged
+    Returns (B,Sq,H,Dv) in q.dtype, softmax statistics in f32.  Ragged
     lengths need no padding, and key tiles above the diagonal are always
     skipped (the JAX ``prune_causal`` walk; it changes no value).  With
     grad on it is differentiable, its backward a kernel on the card.
@@ -158,3 +167,104 @@ def gqa_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
     shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
             for k in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    d, h, dt = cfg.d_model, cfg.n_heads, cfg.torch_dtype
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": make_param(gen, (d, h, qd), dt, device),
+        "w_dkv": make_param(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dt, device),
+        "kv_norm": const_param((m.kv_lora_rank,), dt, device, 1.0),
+        "w_uk": make_param(gen, (m.kv_lora_rank, h, m.qk_nope_dim), dt, device),
+        "w_uv": make_param(gen, (m.kv_lora_rank, h, m.v_head_dim), dt, device),
+        "wo": make_param(gen, (h, m.v_head_dim, d), dt, device),
+    }
+
+
+def _mla_compress(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """``w_dkv`` → (``c_kv`` after its RMS norm, ``k_pe`` after rope)."""
+    m = cfg.mla
+    ckv_pe = x @ p["w_dkv"]
+    c_kv, k_pe = ckv_pe[..., :m.kv_lora_rank], ckv_pe[..., m.kv_lora_rank:]
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def _mla_q(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    m = cfg.mla
+    q = _proj_heads(x, p["wq"], None, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_pe = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _per_head(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsr,rhk->bshk", c, w)`` as one matmul."""
+    return (c @ w.reshape(w.shape[0], -1)).reshape(*c.shape[:-1], *w.shape[1:])
+
+
+def mla_forward(p: Dict, x: torch.Tensor, cfg,
+                cache: Optional[Dict[str, torch.Tensor]] = None, *,
+                pos: Optional[int] = None) -> torch.Tensor:
+    """MLA over x (B, S, D), writing ``c_kv`` and ``k_pe`` into ``cache``
+    (``{"c_kv" (B, Smax, r), "k_pe" (B, Smax, rope)}``) in place.
+
+    Train (``cache`` None) and prefill (``pos`` None): keys and values
+    decompressed per head, q and k built by concatenation (contiguous),
+    and :func:`blocked_attention` at q/k width ``nope + rope`` and v width
+    ``v_head_dim``; the prefill writes slots ``[0, S)``.  Decode (x is
+    (B, 1, D), ``pos`` the write slot): the absorbed form — q through
+    ``w_uk`` into the latent space, scores against the cached ``c_kv`` and
+    ``k_pe`` of slots ``[0, pos]`` in f32 (slots past ``pos`` left out, as
+    in :func:`decode_attention`), the output back through ``w_uv``.
+    """
+    m = cfg.mla
+    B, S, _ = x.shape
+    if pos is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+        q_nope, q_pe = _mla_q(p, x, cfg, positions)
+        c_kv, k_pe = _mla_compress(p, x, cfg, positions)
+        k_nope = _per_head(c_kv, p["w_uk"])
+        v = _per_head(c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_dim)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        out = blocked_attention(q, k, v, causal=True)
+        if cache is not None:
+            cache["c_kv"][:, :S] = c_kv
+            cache["k_pe"][:, :S] = k_pe
+    else:
+        positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
+        q_nope, q_pe = _mla_q(p, x, cfg, positions)
+        c_kv_new, k_pe_new = _mla_compress(p, x, cfg, positions)
+        cache["c_kv"][:, pos] = c_kv_new[:, 0]
+        cache["k_pe"][:, pos] = k_pe_new[:, 0]
+        c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+        q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])      # absorb W_uk
+        s = (torch.einsum("bshr,bkr->bshk", q_c.float(), c_kv.float())
+             + torch.einsum("bshk,bmk->bshm", q_pe.float(), k_pe.float())) * scale
+        pattn = torch.softmax(s, dim=-1)
+        o_c = torch.einsum("bshk,bkr->bshr", pattn.to(c_kv.dtype), c_kv)
+        out = torch.einsum("bshr,rhk->bshk", o_c, p["w_uv"])         # absorb W_uv
+    wo = p["wo"]
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def mla_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+    """Shape-and-dtype stand-ins (``meta`` tensors) of one MLA layer's
+    cache: the compressed ``c_kv`` and the rope key ``k_pe``."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.empty((batch, max_len, m.kv_lora_rank), dtype=cfg.torch_dtype,
+                            device="meta"),
+        "k_pe": torch.empty((batch, max_len, m.qk_rope_dim), dtype=cfg.torch_dtype,
+                            device="meta"),
+    }

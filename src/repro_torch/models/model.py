@@ -1,4 +1,4 @@
-"""Model facade of the dense LM family (counterpart of
+"""Model facade of the dense and ``moe`` LM families (counterpart of
 :mod:`repro.models.model`): ``build(config)`` → ``init`` / ``train_loss`` /
 ``prefill`` / ``decode_step`` / ``init_cache``.
 
@@ -10,7 +10,8 @@ Training: ``train_loss(params, batch)`` → (loss + aux, metrics with
 ``aux_loss``), ``batch`` holding ``tokens`` and ``targets`` (B, S).  The
 stack runs in train mode (no caches, ``cfg.remat``); on the card every
 layer's attention goes through the forward and backward flash kernels.
-The dense family's aux loss is 0.  The logits and their per-token f32
+The aux loss is the MoE layers' load-balance and z-losses summed over the
+stack (0 in the dense family).  The logits and their per-token f32
 loss are taken :data:`LOSS_CHUNK` tokens at a time under
 ``torch.utils.checkpoint``, and recomputed so in the backward: at
 qwen3-1.7b's vocabulary (151,936 words) and 8,192 tokens one f32 copy of
@@ -22,9 +23,10 @@ Serving:
 
 * ``prefill(params, batch[, caches])`` → (last-token logits ``(B, 1, V)``,
   caches); on the card every attention layer launches the flash kernel
-  once.  The keys and values of the L prompt positions go to slots
-  ``[0, L)`` of ``caches`` (from ``init_cache``, of any length >= L), in
-  place; without ``caches`` it makes a cache of exactly L slots;
+  once.  The caches (keys and values, or MLA's ``c_kv`` and ``k_pe``) of
+  the L prompt positions go to slots ``[0, L)`` of ``caches`` (from
+  ``init_cache``, of any length >= L), in place; without ``caches`` it
+  makes a cache of exactly L slots;
 * ``decode_step(params, caches, tokens, pos)`` → (logits, caches) — one
   new token against the KV cache, written into ``caches`` in place.
 
@@ -69,7 +71,7 @@ class Model(torch.nn.Module):
 
     def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = embed_lookup(params["embed"], batch["tokens"])
-        x, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan)
+        x, _, aux = tf.stack_forward(params["layers"], x, self.cfg, self.plan)
         x, targets = x.reshape(-1, x.shape[-1]), batch["targets"].reshape(-1)
         chunk = lambda xc, tc: token_nll(self._logits(params, xc), tc)
         parts = [checkpoint(chunk, x[i:i + LOSS_CHUNK], targets[i:i + LOSS_CHUNK],
@@ -77,7 +79,6 @@ class Model(torch.nn.Module):
                  for i in range(0, x.shape[0], LOSS_CHUNK)]
         loss, metrics = token_mean(torch.cat([p[0] for p in parts]),
                                    torch.cat([p[1] for p in parts]))
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         metrics["aux_loss"] = aux
         return loss + aux, metrics
 
@@ -88,7 +89,7 @@ class Model(torch.nn.Module):
         if caches is None:
             caches = self.init_cache(*tokens.shape, device=tokens.device)
         x = embed_lookup(params["embed"], tokens)
-        x, caches = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches)
+        x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches)
         return self._logits(params, x[:, -1:, :]), caches
 
     @torch.no_grad()
@@ -96,8 +97,8 @@ class Model(torch.nn.Module):
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, 1) integers; pos: the write slot in the cache."""
         x = embed_lookup(params["embed"], tokens)
-        x, caches = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
-                                     pos=int(pos))
+        x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
+                                        pos=int(pos))
         return self._logits(params, x), caches
 
     def cache_specs(self, batch: int, max_len: int):

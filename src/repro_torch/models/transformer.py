@@ -1,28 +1,29 @@
-"""Layer plans and stacks of the dense LM family (counterpart of
-:mod:`repro.models.transformer`).
+"""Layer plans and stacks of the dense and ``moe`` LM families (counterpart
+of :mod:`repro.models.transformer`).
 
-A stack is described by a :class:`Plan`: a ``period`` of layers repeated
-``repeats`` times.  The parameters keep the JAX package's tree layout —
-``{"prefix": [], "scan": {"0": {...}}}`` with the period's leaves stacked
-along a leading layer axis — so a JAX tree converts by a tree map, and
-each layer of the loop reads its slice of the stack (a view, no copy).
-Caches follow the same layout, and every layer writes its slice of them
-in place.  The JAX package's unrolled ``prefix`` (the first dense layers
-of the MoE archs, or every layer without scan-over-layers) comes with the
-families that need it; the dense family's prefix is empty.
+A stack is described by a :class:`Plan`: an unrolled ``prefix`` (deepseek's
+dense first layer) and a ``period`` of layers repeated ``repeats`` times.
+The parameters keep the JAX package's tree layout — ``{"prefix": [layer,
+...], "scan": {"0": {...}}}`` with the period's leaves stacked along a
+leading layer axis — so a JAX tree converts by a tree map, and each layer
+of the loop reads its slice of the stack (a view, no copy).  Caches follow
+the same layout, and every layer writes its slice of them in place.
 
 Training (no caches) unbinds the stacked leaves once and, with
-``cfg.remat``, runs each period under ``torch.utils.checkpoint`` as the
-JAX package's ``_remat`` wraps its scan body: ``remat_policy="full"``
-keeps only the period's input and recomputes the rest in the backward,
-``"dots"`` also keeps the outputs of the 2-D matmuls (the counterpart of
+``cfg.remat``, runs each prefix layer and each period under
+``torch.utils.checkpoint`` as the JAX package's ``_remat`` wraps its prefix
+layers and its scan body: ``remat_policy="full"`` keeps only the input and
+recomputes the rest in the backward, ``"dots"`` also keeps the outputs of
+the 2-D matmuls (the counterpart of
 ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).  The
 gradients are the same either way: the recompute runs the same
-arithmetic.
+arithmetic.  Every layer returns its MoE aux loss (0 for a dense FFN),
+summed over the prefix and then the periods in the JAX package's order.
 
 Layer kinds are ``(mixer, ffn)`` pairs; the port runs ``("attn", "dense")``
-(the dense family).  MoE, MLA, Mamba, cross-attention and the encoder
-raise ``NotImplementedError`` (ROADMAP A8).
+and ``("attn", "moe")``, the attention MLA when ``cfg.mla`` is set and GQA
+otherwise.  Mamba, cross-attention and the encoder raise
+``NotImplementedError`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     init_embedding,
     init_mlp,
@@ -50,19 +52,34 @@ from repro_torch.models.layers import (
 
 Kind = Tuple[str, str]
 DENSE: Kind = ("attn", "dense")
+MOE: Kind = ("attn", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
+    prefix: Tuple[Kind, ...]
     period: Tuple[Kind, ...]
     repeats: int
 
+    @property
+    def n_layers(self) -> int:
+        return len(self.prefix) + len(self.period) * self.repeats
+
 
 def layer_plan(cfg) -> Plan:
+    if cfg.family == "moe":
+        if cfg.moe.first_dense:
+            return Plan((DENSE,), (MOE,), cfg.n_layers - 1)
+        return Plan((), (MOE,), cfg.n_layers)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8)")
-    return Plan((DENSE,), cfg.n_layers)
+    return Plan((), (DENSE,), cfg.n_layers)
+
+
+def _check_kind(kind: Kind) -> None:
+    if kind not in (DENSE, MOE):
+        raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -88,21 +105,21 @@ def tree_leaves(tree: Any) -> list:
 
 
 def init_layer(gen, cfg, kind: Kind, device: torch.device) -> Dict[str, Any]:
-    if kind != DENSE:
-        raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
+    _check_kind(kind)
     d, dt = cfg.d_model, cfg.torch_dtype
-    return {
-        "ln1": init_rms_norm(d, dt, device),
-        "mixer": attn.init_gqa(gen, cfg, device),
-        "ln2": init_rms_norm(d, dt, device),
-        "ffn": init_mlp(gen, d, cfg.d_ff, dt, device),
-    }
+    mixer = (attn.init_mla(gen, cfg, device) if cfg.mla is not None
+             else attn.init_gqa(gen, cfg, device))
+    ffn = (moe_mod.init_moe(gen, cfg, device) if kind == MOE
+           else init_mlp(gen, d, cfg.d_ff, dt, device))
+    return {"ln1": init_rms_norm(d, dt, device), "mixer": mixer,
+            "ln2": init_rms_norm(d, dt, device), "ffn": ffn}
 
 
 def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
-    """The period's layers drawn one repeat at a time into their slots of
-    the stacked leaves, so that the peak memory is the stack plus one
-    layer."""
+    """The prefix's layers, then the period's drawn one repeat at a time
+    into their slots of the stacked leaves, so that the peak memory is the
+    stack plus one layer."""
+    prefix = [init_layer(gen, cfg, kind, device) for kind in plan.prefix]
     stacked = None
     for r in range(plan.repeats):
         rep = {str(j): init_layer(gen, cfg, kind, device)
@@ -112,7 +129,7 @@ def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
         if device.type != "meta":
             for dst, src in zip(tree_leaves(stacked), tree_leaves(rep)):
                 dst[r].copy_(src)
-    return {"prefix": [], "scan": stacked}
+    return {"prefix": prefix, "scan": stacked}
 
 
 def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
@@ -134,8 +151,30 @@ def param_shapes(cfg) -> Dict[str, Any]:
     return init_model(None, cfg, torch.device("meta"))
 
 
-def count_params(cfg) -> int:
-    return sum(t.numel() for t in tree_leaves(param_shapes(cfg)))
+# The routed experts' leaves of a MoE FFN: a token runs through top_k of
+# n_experts of each (the JAX package counts the leaves with an "experts"
+# axis: these four).
+EXPERT_LEAVES = ("w_router", "w_gate", "w_up", "w_down")
+
+
+def count_params(cfg, active_only: bool = False) -> int:
+    """Parameters of ``cfg``'s tree; ``active_only`` counts each MoE FFN's
+    :data:`EXPERT_LEAVES` at ``top_k / n_experts`` of their size, as the
+    JAX package's ``count_params`` does."""
+    total = 0
+
+    def walk(tree, moe_ffn: bool) -> None:
+        nonlocal total
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                walk(v, isinstance(v, dict) and k == "ffn" and "w_router" in v)
+            elif active_only and moe_ffn and k in EXPERT_LEAVES:
+                total += v.numel() * cfg.moe.top_k // cfg.moe.n_experts
+            else:
+                total += v.numel()
+
+    walk(param_shapes(cfg), False)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -144,16 +183,24 @@ def count_params(cfg) -> int:
 
 
 def block_forward(kind: Kind, p: Dict[str, Any], x: torch.Tensor, cfg, *,
-                  cache: Optional[Dict] = None, pos: Optional[int] = None) -> torch.Tensor:
-    """One layer; its attention writes ``cache`` in place (prefill when
-    ``pos`` is None, else decode at slot ``pos``); without a cache, train
-    mode."""
-    if kind != DENSE:
-        raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
+                  cache: Optional[Dict] = None, pos: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer → (x, aux loss); its attention writes ``cache`` in place
+    (prefill when ``pos`` is None, else decode at slot ``pos``); without a
+    cache, train mode.  The aux loss is the MoE FFN's, or an f32 zero."""
+    _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer_cache = None if cache is None else cache["mixer"]
-    x = x + attn.gqa_forward(p["mixer"], h, cfg, mixer_cache, causal=True, pos=pos)
-    return x + mlp_forward(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    if cfg.mla is not None:
+        x = x + attn.mla_forward(p["mixer"], h, cfg, mixer_cache, pos=pos)
+    else:
+        x = x + attn.gqa_forward(p["mixer"], h, cfg, mixer_cache, causal=True, pos=pos)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if kind == MOE:
+        y, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
+        return x + y, aux
+    return (x + mlp_forward(p["ffn"], h),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # The 2-D matmuls, whose outputs the "dots" policy keeps (what the x @ W
@@ -193,36 +240,48 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan,
                   caches: Optional[Dict[str, Any]] = None, *,
                   pos: Optional[int] = None):
-    """Run a stack over ``caches`` (stacked like the parameters).  Returns
-    (x, caches).
+    """Run a stack over ``caches`` (laid out like the parameters).  Returns
+    (x, caches, aux).
 
-    Modes: train (``caches`` None: no cache, each period under
-    :func:`_remat`; returns (x, None)), prefill (``pos`` None: each layer
-    writes the keys and values of positions ``[0, S)`` into its slice of
-    the caches) and decode (``pos`` the write slot of the one new token).
+    Modes: train (``caches`` None: no cache, each prefix layer and each
+    period under :func:`_remat`; returns (x, None, aux) with the aux loss
+    summed over the prefix, then the periods), prefill (``pos`` None: each
+    layer writes its cache of positions ``[0, S)`` into its slice of the
+    caches) and decode (``pos`` the write slot of the one new token).
     Either way the caches are written in place, and the same caches come
-    back.
+    back; their aux is the prefix's alone, as in the JAX package.
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if caches is None:
         if pos is not None:
             raise ValueError("stack_forward: decode needs the caches")
+        for kind, layer_p in zip(plan.prefix, stack_params["prefix"]):
+            x, a = _remat(functools.partial(block_forward, kind, cfg=cfg), cfg)(layer_p, x)
+            aux = aux + a
 
         def period(x, layer_p):
+            aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
             for j, kind in enumerate(plan.period):
-                x = block_forward(kind, layer_p[str(j)], x, cfg)
-            return x
+                x, a = block_forward(kind, layer_p[str(j)], x, cfg)
+                aux_l = aux_l + a
+            return x, aux_l
 
         body = _remat(period, cfg)
         for layer_p in _unstack(stack_params["scan"], plan.repeats):
-            x = body(x, layer_p)
-        return x, None
+            x, a = body(x, layer_p)
+            aux = aux + a
+        return x, None, aux
+    for i, kind in enumerate(plan.prefix):
+        x, a = block_forward(kind, stack_params["prefix"][i], x, cfg,
+                             cache=caches["prefix"][i], pos=pos)
+        aux = aux + a
     for r in range(plan.repeats):
         layer_p = tree_map(lambda t: t[r], stack_params["scan"])
         layer_c = tree_map(lambda t: t[r], caches["scan"])
         for j, kind in enumerate(plan.period):
-            x = block_forward(kind, layer_p[str(j)], x, cfg,
-                              cache=layer_c[str(j)], pos=pos)
-    return x, caches
+            x, _ = block_forward(kind, layer_p[str(j)], x, cfg,
+                                 cache=layer_c[str(j)], pos=pos)
+    return x, caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -231,12 +290,14 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
 
 
 def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int) -> Dict[str, Any]:
-    """The cache tree of a stack as ``meta`` tensors (shapes and dtypes)."""
+    """The cache tree of a stack as ``meta`` tensors (shapes and dtypes):
+    ``{"prefix": [layer, ...], "scan": stacked}``, a layer's MLA cache when
+    ``cfg.mla`` is set, else its GQA cache."""
     def layer(kind):
-        if kind != DENSE:
-            raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
-        return {"mixer": attn.gqa_cache_spec(cfg, batch, max_len)}
+        _check_kind(kind)
+        spec = attn.mla_cache_spec if cfg.mla is not None else attn.gqa_cache_spec
+        return {"mixer": spec(cfg, batch, max_len)}
 
     per = {str(j): layer(kind) for j, kind in enumerate(plan.period)}
-    return {"prefix": [],
+    return {"prefix": [layer(kind) for kind in plan.prefix],
             "scan": tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), per)}

@@ -1103,3 +1103,186 @@ def test_remat_modes_on_card_give_identical_gradients(cuda_device):
         grads[remat, policy] = tree_leaves(g)
     for key, g in grads.items():
         assert all(torch.equal(a, b) for a, b in zip(grads[False, "full"], g)), key
+
+
+# ---------------------------------------------------------------------------
+# MLA's (q/k, v) = (192, 128) pair and the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+
+def _mla_case(rng, B, Sq, Skv, H, dev, strided, DK=192, DV=128):
+    """q (B, Sq, H, DK), k (B, Skv, H, DK), v (B, Skv, H, DV) in bf16 (MLA has
+    as many KV heads as heads); ``strided`` makes them views of head-major
+    tensors."""
+    def one(S, D):
+        x = rng.normal(size=(B, H, S, D) if strided else (B, S, H, D)) * 0.3
+        x = torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+        return x.transpose(1, 2) if strided else x
+    return one(Sq, DK), one(Skv, DK), one(Skv, DV)
+
+
+# ragged lengths (no multiple of the 64-row forward tiles, the 128-key
+# dK/dV tiles or the 32-query q tiles), a single row, more keys than
+# queries, non-causal, strided views with a non-contiguous dO
+MLA_CASES = [
+    (2, 200, 200, 4, True, False),
+    (1, 330, 330, 3, True, False),
+    (1, 1, 1, 2, True, False),
+    (1, 100, 260, 4, False, True),
+    (2, 517, 517, 2, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,causal,strided", MLA_CASES)
+def test_mla_flash_kernels_match_plain_on_card(B, Sq, Skv, H, causal, strided,
+                                               cuda_device):
+    """The forward (with and without lse) and the backward at (192, 128)
+    against their plain versions: the forward per row within BF16_ROW_TOL,
+    lse within 1e-4, dq and dk 192 wide and dv 128 wide per row within
+    BWD_BF16_ROW_TOL; two launches of each give the same bits."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(Sq * 3 + Skv)
+    q, k, v = _mla_case(rng, B, Sq, Skv, H, cuda_device, strided)
+    do = torch.from_numpy(rng.normal(size=(B, H, Sq, 128)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16).transpose(1, 2)
+    if not strided:
+        do = do.contiguous()
+    ops.reset_launch_counts()
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert o.shape == (B, Sq, H, 128)
+    assert torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
+    want_o, plse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert FA.row_error(o, want_o) <= FA.BF16_ROW_TOL
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    if Sq == Skv:
+        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        assert ops.launches["flash_attention_bwd"] == 2
+        for name, g, a, w in zip("qkv", got, again, want):
+            assert g.shape == w.shape and torch.isfinite(g).all(), name
+            assert torch.equal(g, a), name
+            assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL, name
+        assert got[0].shape[-1] == got[1].shape[-1] == 192 and got[2].shape[-1] == 128
+    assert ops.launches["flash_attention"] == 2
+
+
+@pytest.mark.cuda
+def test_mla_pair_refusals_on_card(cuda_device):
+    """The pair runs in bf16 only: an f32 call at (192, 128) raises naming
+    the pair, as does a pair no kernel is instantiated for; nothing
+    launches and nothing falls back to the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(4)
+    q, k, v = _mla_case(rng, 1, 64, 64, 2, cuda_device, False)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        FA.flash_attention_cuda(q.float(), k.float(), v.float(), causal=True)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        FA.flash_attention_bwd_cuda(q.float(), k.float(), v.float(), o.float(), lse,
+                                    o.float(), causal=True)
+    for dk, dv in ((192, 64), (128, 64), (96, 96)):
+        a, b, c = _mla_case(rng, 1, 64, 64, 2, cuda_device, False, dk, dv)
+        with pytest.raises(ValueError, match=rf"\({dk}, {dv}\)"):
+            FA.flash_attention_cuda(a, b, c, causal=True)
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_mla_kernels_report_registers(cuda_device):
+    """ptxas reports the (192, 128) instantiations of the forward (with and
+    without lse) and of the backward (one head a dQ block)."""
+    from repro_torch.kernels import build
+
+    build.library()
+    report = build.ptxas_report(build.ptxas_log())
+    names = [k for k in report if "ILi192ELi128E" in k]
+    assert any("flash_attention_mma_kernel" in k for k in names), sorted(report)
+    assert any("flash_bwd_kernel" in k for k in names), sorted(report)
+    assert any("flash_bwd_delta_bf16_kernel" in k for k in report), sorted(report)
+
+
+def _mla_reduced(**moe):
+    """The reduced deepseek in bf16 with MLA's widths raised to the card
+    pair's (nope 128, rope 64, v 128), capacity raised until nothing drops
+    (so the kernel and the plain paths route the same tokens alike)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import MLAConfig, get_reduced
+
+    cfg = get_reduced("deepseek-v2-lite-16b")
+    return cfg.replace(dtype="bfloat16", d_head=192,
+                       mla=MLAConfig(kv_lora_rank=32, qk_nope_dim=128, qk_rope_dim=64,
+                                     v_head_dim=128),
+                       moe=dc.replace(cfg.moe, **moe))
+
+
+@pytest.mark.cuda
+def test_moe_forward_repeats_bitwise_on_card(cuda_device):
+    """The combine sums each token's k rows in a fixed order (no atomics):
+    two calls give the same bits, forward and gradients."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+
+    cfg = _mla_reduced()
+    params = build(cfg).init(3, device=cuda_device)
+    from repro_torch.models.transformer import tree_map
+
+    p = tree_map(lambda t: t[0], params["layers"]["scan"]["0"]["ffn"])  # layer 1
+    x = torch.randn((4, 300, cfg.d_model), device=cuda_device).to(torch.bfloat16)
+    outs = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        y, aux = moe.moe_forward(p, xg, cfg)
+        (g,) = torch.autograd.grad((y.float().square().sum() + aux), xg)
+        outs.append((y, aux, g))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reduced_mla_model_on_card_runs_the_kernels(cuda_device, monkeypatch):
+    """A reduced MLA model at the card's pair: its prefill launches the
+    forward kernel once a layer and agrees with a prefill through the plain
+    version under the same routing (within 2^-5 of the largest logit: a
+    few bf16 roundings), and one train step launches the forward twice and
+    the backward once a layer, its gradients within LM_GRAD_TOL of the
+    plain versions' per leaf."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import build
+    from repro_torch.models.moe import pinned_routing
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+
+    cfg = _mla_reduced(capacity_factor=64.0)
+    model = build(cfg)
+    params = model.init(5, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 161)))
+    toks = toks.to(cuda_device)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    # the two runs route alike (pinned_routing): a token whose router
+    # probabilities nearly tie may otherwise pick another expert in one
+    # of them, which moves its output by that expert's share
+    with pinned_routing() as pin:
+        ops.reset_launch_counts()
+        logits, _ = model.prefill(params, batch)
+        assert ops.launches["flash_attention"] == cfg.n_layers
+        ops.reset_launch_counts()
+        kern, _ = grads_of(model, params, batch)
+        assert ops.launches["flash_attention"] == 2 * cfg.n_layers
+        assert ops.launches["flash_attention_bwd"] == cfg.n_layers
+        monkeypatch.setattr(FA, "flash_attention_cuda", FA.flash_attention_plain)
+        monkeypatch.setattr(FA, "flash_attention_bwd_cuda", FA.flash_attention_bwd_plain)
+        pin.replay()
+        plain_logits, _ = model.prefill(params, batch)
+        plain, _ = grads_of(model, params, batch)
+    assert float((logits.float() - plain_logits.float()).abs().max()) <= \
+        2 ** -5 * float(plain_logits.float().abs().max())
+    for a, b in zip(tree_leaves(kern), tree_leaves(plain)):
+        err = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        assert err <= LM_GRAD_TOL, err

@@ -232,14 +232,21 @@ def test_flash_attention_differentiates_only_with_grad():
     assert plan.sq_pad % 128 == 0 and plan.sq_pad >= S
 
 
-@pytest.mark.parametrize("D", FA.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_bwd_plan_fits_a_block(D, dtype):
+@pytest.mark.parametrize("D,DV,dtype", [
+    (d, dv, dt) for d, dv in FA.KERNEL_HEAD_DIMS
+    for dt in ((torch.bfloat16, torch.float32) if d == dv else (torch.bfloat16,))])
+def test_flash_bwd_plan_fits_a_block(D, DV, dtype):
+    """Every pair's blocks fit the 227 KB a block may hold: at (192, 128)
+    with one head a dQ block, the plan's choice there (two heads would
+    need 286,720 bytes)."""
     from repro_torch.kernels.launch import SMEM_PER_BLOCK
 
-    for dq_heads in (1, 2):
-        dkdv, dq = FA.flash_bwd_smem_bytes(D, dtype, dq_heads)
+    for dq_heads in ((1, 2) if D <= 128 else (1,)):
+        dkdv, dq = FA.flash_bwd_smem_bytes(D, dtype, dq_heads, DV)
         assert dkdv <= SMEM_PER_BLOCK and dq <= SMEM_PER_BLOCK
+    if D > 128:
+        assert FA.flash_bwd_smem_bytes(D, dtype, 2, DV)[1] == 286_720 + 1024 + 56
+        assert FA.flash_bwd_plan(1, 256, 256, 16, 8, D, dtype, DV).dq_heads == 1
     if dtype == torch.bfloat16 and D == 128:
         # a bf16 block fills an SM: its 384 threads take the register file
         # (168 registers each) and more than half of the shared memory
