@@ -9,8 +9,10 @@ depth through the flash-attention kernel, trains the dense LM
 (qwen3-1.7b at full width and depth) through the forward and backward
 flash-attention kernels, serves and trains the MoE family (deepseek-v2's
 MLA through both kernels at q/k width 192 and v width 128, phi3.5-moe's
-GQA), kills and resumes a checkpointed learner on the card, and times
-the kernels.
+GQA), serves and trains Mamba2 (mamba2-1.3b at full width and depth; its
+SSD runs no kernel of ours) and serves the Jamba hybrid (one period of
+jamba-v0.1-52b through the forward kernel), kills and resumes a
+checkpointed learner on the card, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -81,7 +83,8 @@ before any profiler session):
   (k) the LM serving path at llama3-8b's full width and depth (32 layers,
       random bf16 weights from a seed): generate() of 32 greedy tokens after
       B=4 prompts of 2048 tokens, launching flash_attention once per layer of
-      the prefill; every logit finite; the teacher-forcing identity (decode
+      the prefill; every logit finite, two prefills bitwise alike (as (t)
+      and (v), through the same code); the teacher-forcing identity (decode
       at position L on the cache of L tokens == the last logits of a prefill
       of L+1) within LM_TF_TOL; prefill logits within LM_PLAIN_TOL of a
       prefill whose attention runs the plain version; prefill and decode
@@ -199,11 +202,39 @@ before any profiler session):
       positive, 6 forward and 3 backward flash launches a step; step
       wall, tokens/s, peak memory, idle share; one step's gradients of a
       2-layer slice through the kernels within LM_GRAD_TOL of the plain
-      versions' under the same routing, with the plain run's own flips.
+      versions' under the same routing, with the plain run's own flips;
+  (v) Mamba2 serving, after (u): mamba2-1.3b at full width and depth (48
+      layers, random bf16 weights from seed 11), generate() of 32 greedy
+      tokens after 4 prompts of 2,048 tokens: no launch of any kernel of
+      ours (the kernels line's launches_by_path "mamba_serve"), two
+      prefills bitwise alike; the teacher-forcing identity within
+      MAMBA_TF_TOL, with layer 24's state zeroed and its conv tails rolled
+      by one position each rejected; layer 0's chunked SSD on its own
+      inputs against the per-step recurrence (f32 and compute_dtype bf16);
+      prefill and decode ms, tokens/s, busy and idle shares, kernels a
+      step, the busiest kernels and aten ops, peak memory;
+  (w) Mamba2 training: mamba2-1.3b at full width and depth, (q)'s settings
+      (bf16, remat="full", B=4 x S=2048 of TokenStream(seed=0), AdamW lr
+      3e-4), 8 steps: losses and grad norms finite, step 0's loss within
+      TRAIN_LOSS0_TOL of ln V + sigma^2 / 2 with sigma within
+      TRAIN_SIGMA_TOL of the 0.02 sqrt(d_model) the tied embedding gives,
+      the last below the first, no kernel launched; step wall, tokens/s,
+      idle share, the busiest kernels and ops, peak memory (backward and
+      update apart); a 2-layer slice's bf16 gradients within
+      MAMBA_GRAD_TOL of f32's per leaf; one backward with dt planted past
+      the f32 exp's range, every gradient finite;
+  (x) Jamba serving: jamba-v0.1-52b at full width cut to one period (8
+      layers: 7 Mamba, 1 attention, 4 MoE FFNs), (t)'s case: 1
+      flash_attention launch a prefill, none in decode; the teacher-forcing
+      and plain-attention identities under the replayed routing, at the
+      logits (JAMBA_TF_TOL, JAMBA_PLAIN_TOL) and at the attention layer's
+      output (JAMBA_MIXER_TOL), a wrong cache slot and the kernel's output
+      x 0.9 each rejected.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -369,6 +400,65 @@ MOE_PHI_STEPS = 8
 # settings otherwise.
 MOE_TRAIN_LAYERS = 3
 MOE_TRAIN_STEPS = 8
+# Mamba2 serving (v): mamba2-1.3b at full width and depth, B prompts of
+# MAMBA_PROMPT tokens, MAMBA_STEPS greedy tokens.  The teacher-forcing
+# identity (decode at L on the prefill state of L == prefill(L+1)'s last
+# logits) differs only in where bf16 roundings land: the one-step
+# recurrence against the chunked SSD, M=B against M=B.L projections,
+# through 48 layers.  Measured 0.0835 on an H100 80GB HBM3 (700 W), 2.7
+# bf16 ulps of the largest logits (in [2, 4), logits std 0.906); the
+# planted faults moved the logits by 0.805 (layer MAMBA_FAULT_LAYER's
+# state zeroed) and 0.355 (its conv tails rolled by one position).
+# MAMBA_TF_TOL is 6 such ulps, 2.2 times the spread and half the smaller
+# fault.  Layer 0's chunked SSD against its per-step recurrence on the
+# layer's own inputs, per max |y| and max |final state|: f32 within
+# MAMBA_SSD_F32_TOL (measured 5.3e-7); with compute_dtype bf16 within
+# MAMBA_SSD_BF16_TOL (measured 0.0302): the within-chunk cumulative decays
+# are cast to bf16, whose ulp is 2^-4 where they reach 8-16 (this run's
+# chunk decay sums reach 12.7), so each exp(cum_i - cum_j) carries up to
+# 2^-5 of its size; the tolerance is one such ulp.
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_BATCH = 4
+MAMBA_PROMPT = 2048
+MAMBA_STEPS = 32
+MAMBA_TF_TOL = 0.1875
+MAMBA_FAULT_LAYER = 24
+MAMBA_SSD_F32_TOL = 1e-4
+MAMBA_SSD_BF16_TOL = 2 ** -4
+# Mamba2 training (w): the (q) settings at mamba2-1.3b's full width and
+# depth, MAMBA_TRAIN_STEPS steps.  The bf16 gradients of TRAIN_GRAD_LAYERS
+# layers against the same weights' f32 gradients per leaf, within
+# MAMBA_GRAD_TOL of the leaf's max |g|: measured 0.0123 (median 0.0053),
+# bf16 roundings of every activation and product; 2^-5 leaves 2.5 times
+# that.  One backward with every dt_bias of that slice at
+# MAMBA_PLANTED_DT_BIAS (dt near 4: a 64-step chunk's decay sum near 256,
+# measured 306.7, past the f32 exp's 88.7) gives finite gradients.
+MAMBA_TRAIN_STEPS = 8
+MAMBA_GRAD_TOL = 2 ** -5
+MAMBA_PLANTED_DT_BIAS = 4.0
+# Jamba serving (x): jamba-v0.1-52b at full width cut to JAMBA_LAYERS
+# layers (one period; 51.5 B parameters do not fit 80 GB), the (t)
+# prompts, JAMBA_STEPS greedy tokens.  Under the replayed routing the
+# logits' identities measured 0.1133 (teacher forcing) and 0.0469 (plain
+# attention) on an H100 80GB HBM3 (700 W): like phi3.5-moe (0.109), its 16
+# experts' w_gate and w_up are drawn at n_experts^-0.5 = 1/4, so the four
+# MoE layers amplify the roundings of the seven Mamba layers.
+# JAMBA_TF_TOL and JAMBA_PLAIN_TOL, 0.25, are 2.2 times the larger.  At
+# the logits the one attention layer of eight is diluted: the kernel's
+# output x 0.9 moved them by 0.0547 and a wrong cache slot by 0.125, inside
+# those tolerances.  So each identity is also held at the attention
+# layer's output (after wo), relative to its max, within JAMBA_MIXER_TOL:
+# measured 0.0079 (teacher forcing: the layers before it differ by
+# roundings) and 0.0014 (plain attention: the same inputs), while the
+# faults moved it by 0.103 (x 0.9) and 0.143 (wrong slot).  2^-5, the
+# flash kernel's own bf16 row tolerance, is 4 times the larger spread and
+# a third of the smaller fault.
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8
+JAMBA_STEPS = 32
+JAMBA_TF_TOL = 0.25
+JAMBA_PLAIN_TOL = 0.25
+JAMBA_MIXER_TOL = 2 ** -5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1181,7 +1271,8 @@ def _logit_diff(a, b) -> float:
 
 def _device_profile(fn):
     """Run ``fn`` under ``torch.profiler`` → (device busy ms, kernels, the
-    busiest kernel names with their ms), or None when the trace holds no
+    busiest kernel names with their ms, the aten ops with the most device
+    time of their own and their ms), or None when the trace holds no
     device time.  Busy time is the sum of the kernels' own durations (one
     stream, so they do not overlap)."""
     from torch.autograd import DeviceType
@@ -1197,7 +1288,10 @@ def _device_profile(fn):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return sum(by_name.values()), len(kernels), top
+    by_op = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.key.startswith("aten::") and e.self_device_time_total > 0}
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
+    return sum(by_name.values()), len(kernels), top, top_ops
 
 
 def phase_lm(dev):
@@ -1206,12 +1300,10 @@ def phase_lm(dev):
     from repro_torch.kernels import ops
     from repro_torch.models import attention
     from repro_torch.models.model import build
-    from repro_torch.train import serve_step
 
     cfg = get_config(LM_ARCH)
     model = build(cfg)
     B, L, steps = LM_BATCH, LM_PROMPT, LM_STEPS
-    cache_len = L + steps + 8
     t0 = time.perf_counter()
     params = model.init(SEED, device=dev)
     torch.cuda.synchronize()
@@ -1224,74 +1316,14 @@ def phase_lm(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
     prompt = {"tokens": tokens[:, :L]}
-    serve_step.generate(model, params, {"tokens": tokens[:1, :64]}, 2, 72)  # warm-up
-
-    # the main path: one generate() call, counted
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = serve_step.generate(model, params, prompt, steps, cache_len)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    gen_peak = torch.cuda.max_memory_allocated()
-    launches = dict(ops.launches)
-    if launches["flash_attention"] != cfg.n_layers:
-        fail(f"generate launched flash_attention {launches['flash_attention']} "
-             f"times, not once per layer of the prefill ({cfg.n_layers})")
-    if out.shape != (B, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        fail(f"generate gave tokens of shape {tuple(out.shape)} outside the vocab")
-    log(f"(k) ok: generate() {B} x {L} prompt tokens + {steps} greedy tokens in "
-        f"{gen_s:.2f} s, peak device memory {gen_peak / 2**30:.2f} GiB; launches "
-        f"{launches}")
-
-    # prefill and decode timed apart; the same tokens as generate()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    if not torch.isfinite(logits).all():
-        fail("prefill logits not finite")
-    decode = serve_step.make_decode_step(model, sample="greedy")
-    nxt = logits[:, -1, :].argmax(dim=-1, keepdim=True)
-    toks = [nxt]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(steps - 1):
-        nxt, caches = decode(params, caches, nxt, L + i)
-        toks.append(nxt)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    if not torch.equal(torch.cat(toks, dim=1), out):
-        fail("prefill + decode_step gave other tokens than generate()")
-    log(f"(k) ok: prefill {B} x {L} tokens in {prefill_s * 1e3:.1f} ms "
-        f"({B * L / prefill_s:.0f} tokens/s); {steps - 1} decode steps of {B} "
-        f"tokens in {decode_s * 1e3:.1f} ms ({B * (steps - 1) / decode_s:.1f} "
-        f"tokens/s, {decode_s / (steps - 1) * 1e3:.2f} ms a step)")
-
-    # where the time goes: device busy time against the wall times above
-    pre = _device_profile(lambda: model.prefill(params, prompt))
-    n_dec = 4
-    dec = _device_profile(lambda: [decode(params, caches, nxt, L + steps - 1 + i)
-                                   for i in range(n_dec)])
-    if pre is None or dec is None:
-        log("(k) torch.profiler saw no device time: busy share not measured")
-    else:
-        step_ms = decode_s / (steps - 1) * 1e3
-        log(f"(k) prefill device busy {pre[0]:.1f} ms of {prefill_s * 1e3:.1f} ms wall "
-            f"({pre[1]} kernels); busiest: "
-            + ", ".join(f"{n[:60]} {ms:.1f} ms" for n, ms in pre[2]))
-        log(f"(k) decode device busy {dec[0] / n_dec:.2f} ms a step of {step_ms:.2f} ms "
-            f"wall (idle share {1 - dec[0] / n_dec / step_ms:.2f}), "
-            f"{dec[1] / n_dec:.0f} kernels a step; busiest: "
-            + ", ".join(f"{n[:60]} {ms / n_dec:.2f} ms" for n, ms in dec[2]))
+    # the main path: one generate() call, counted, then prefill and decode
+    # timed apart and profiled
+    launches, _ = _serve_and_time(dev, model, params, tokens, steps, "k")
 
     # teacher forcing: decode at L on the prefill cache of L tokens (its
     # first L slots are the prefill's own) == the last logits of a prefill
     # of L + 1 (a ragged length for the kernel)
-    del caches
-    _, caches = model.prefill(params, prompt, model.init_cache(B, L + 1, dev))
+    logits, caches = model.prefill(params, prompt, model.init_cache(B, L + 1, dev))
     dec, _ = model.decode_step(params, caches, tokens[:, L:], L)
     full, _ = model.prefill(params, {"tokens": tokens})
     if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
@@ -1927,38 +1959,29 @@ def _no_drop(cfg):
         m, capacity_factor=(m.n_experts + 1) / m.top_k))
 
 
-def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
-    """One MoE arch served on the card: ``generate`` (counted: the prefill
-    launches the forward kernel once a layer, decode none), prefill and
-    decode timed apart with the device's busy share, two prefills bitwise
-    alike, then the teacher-forcing identity and a plain-attention prefill
-    at a capacity where nothing drops, each with the routing flips between
-    its two runs, within ``tf_tol`` and ``plain_tol``, and two planted
-    faults each outside them.  Returns the counted launches and a
-    summary."""
-    from repro_torch.kernels import flash_attention as FA
+def _plan_count(plan, pred) -> int:
+    """Layers of ``plan`` whose kind satisfies ``pred``."""
+    return (sum(pred(k) for k in plan.prefix)
+            + plan.repeats * sum(pred(k) for k in plan.period))
+
+
+def _serve_and_time(dev, model, params, tokens, steps, tag):
+    """``generate()`` of ``steps`` greedy tokens after the prompts
+    ``tokens[:, :-1]``, counted: the prefill launches flash_attention once
+    an attention layer, decode launches no kernel.  Then the prefill and
+    the decode steps timed apart, two prefills bitwise alike (logits and
+    caches), prefill + decode_step giving generate()'s tokens, and the
+    device's busy share and busiest kernels under torch.profiler.  Returns
+    the counted launches and a summary."""
     from repro_torch.kernels import ops
-    from repro_torch.models import attention
-    from repro_torch.models.model import build
-    from repro_torch.models.moe import pinned_routing
     from repro_torch.models.transformer import tree_leaves
     from repro_torch.train import serve_step
 
-    B, L = MOE_BATCH, MOE_PROMPT
-    cache_len = L + steps + 8
-    model = build(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(SEED, device=dev)
-    torch.cuda.synchronize()
-    log(f"({tag}) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}, {'MLA ' + str(cfg.mla) if cfg.mla else 'GQA'}, "
-        f"{cfg.moe}, vocab {cfg.vocab}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random "
-        f"weights ({cfg.active_param_count() / 1e9:.3f} B active) drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    cfg = model.cfg
+    B, L = tokens.shape[0], tokens.shape[1] - 1
     prompt = {"tokens": tokens[:, :L]}
+    cache_len = L + steps + 8
+    n_attn = _plan_count(model.plan, lambda k: k[0] == "attn")
     serve_step.generate(model, params, {"tokens": tokens[:1, :64]}, 2, 72)  # warm-up
 
     ops.reset_launch_counts()
@@ -1970,24 +1993,27 @@ def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
     gen_s = time.perf_counter() - t0
     gen_peak = torch.cuda.max_memory_allocated()
     launches = dict(ops.launches)
-    if launches["flash_attention"] != cfg.n_layers or launches["flash_attention_bwd"]:
-        fail(f"({tag}) generate launched {launches}: the forward kernel not once a layer "
-             f"of the prefill ({cfg.n_layers}), or decode launched a kernel")
+    if launches["flash_attention"] != n_attn or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        fail(f"({tag}) generate launched {launches}: the forward kernel not once an "
+             f"attention layer of the prefill ({n_attn}), or decode launched a kernel")
     if out.shape != (B, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         fail(f"({tag}) generate gave tokens of shape {tuple(out.shape)} outside the vocab")
     log(f"({tag}) ok: generate() {B} x {L} prompt tokens + {steps} greedy tokens in "
         f"{gen_s:.2f} s, peak device memory {gen_peak / 2**30:.2f} GiB; launches "
-        f"{launches} (decode launched none)")
+        f"{launches} ({n_attn} attention layers; decode launched none)")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        fail(f"({tag}) prefill logits not finite")
     again, caches2 = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
     if not (_same_bits(logits, again) and all(
             _same_bits(a, b) for a, b in zip(tree_leaves(caches), tree_leaves(caches2)))):
-        fail(f"({tag}) two prefills (MoE dispatch and combine, the kernels) gave other bits")
+        fail(f"({tag}) two prefills gave other bits (logits or caches)")
     del caches2, again
     decode = serve_step.make_decode_step(model, sample="greedy")
     nxt = logits[:, -1, :].argmax(dim=-1, keepdim=True)
@@ -2018,14 +2044,52 @@ def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
     else:
         summary.update(prefill_idle_share=1 - pre[0] / (prefill_s * 1e3),
                        decode_idle_share=1 - dec[0] / n_dec / step_ms)
+        summary.update(prefill_ops_ms=dict(pre[3]),
+                       decode_ops_ms={k: v / n_dec for k, v in dec[3]})
         log(f"({tag}) prefill device busy {pre[0]:.1f} ms of {prefill_s * 1e3:.1f} ms wall "
             f"(idle share {summary['prefill_idle_share']:.2f}, {pre[1]} kernels); busiest: "
-            + ", ".join(f"{n[:60]} {ms:.1f} ms" for n, ms in pre[2]))
+            + ", ".join(f"{n[:60]} {ms:.1f} ms" for n, ms in pre[2])
+            + "; by op: " + ", ".join(f"{n} {ms:.1f} ms" for n, ms in pre[3]))
         log(f"({tag}) decode device busy {dec[0] / n_dec:.2f} ms a step of {step_ms:.2f} ms "
             f"wall (idle share {summary['decode_idle_share']:.2f}), {dec[1] / n_dec:.0f} "
             f"kernels a step; busiest: "
-            + ", ".join(f"{n[:60]} {ms / n_dec:.2f} ms" for n, ms in dec[2]))
-    del caches
+            + ", ".join(f"{n[:60]} {ms / n_dec:.2f} ms" for n, ms in dec[2])
+            + "; by op: " + ", ".join(f"{n} {ms / n_dec:.2f} ms" for n, ms in dec[3]))
+    return launches, summary
+
+
+def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol, mixer_tol=None):
+    """One MoE arch served on the card: :func:`_serve_and_time`, then the
+    teacher-forcing identity and a plain-attention prefill at a capacity
+    where nothing drops, each with the routing flips between its two runs,
+    within ``tf_tol`` and ``plain_tol``, and two planted faults each
+    outside them.  With ``mixer_tol``, each identity is also held at the
+    outputs of the GQA layers (:func:`_gqa_outputs`), within ``mixer_tol``
+    of their max, and a fault is rejected by either point.  Returns the
+    counted launches and a summary."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models.model import build
+    from repro_torch.models.moe import pinned_routing
+
+    B, L = MOE_BATCH, MOE_PROMPT
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    mixers = (f"MLA {cfg.mla}" if cfg.mla else "GQA") + (f", {cfg.ssm}" if cfg.ssm else "")
+    log(f"({tag}) {cfg.name}: {cfg.n_layers} layers (plan {model.plan}), d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, {mixers}, {cfg.moe}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random weights "
+        f"({cfg.active_param_count() / 1e9:.3f} B active) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :L]}
+    launches, summary = _serve_and_time(dev, model, params, tokens, steps, tag)
+    n_attn = _plan_count(model.plan, lambda k: k[0] == "attn")
 
     # the identities, at a capacity where nothing drops (drops depend on how
     # many tokens a call routes), each run first with its own routing, which
@@ -2036,45 +2100,48 @@ def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
     # logits decorrelate, so a comparison of two routings measures the
     # flips and not the kernels or the cache
     nd = build(_no_drop(cfg))
-    n_moe = sum(kind[1] == "moe" for kind in nd.plan.prefix) + nd.plan.repeats
+    n_moe = _plan_count(nd.plan, lambda k: k[1] == "moe")
     rows = torch.arange(B * (L + 1), device=dev).reshape(B, L + 1)
 
     def decode_on_prompt_cache(pos, replay=None):
-        with pinned_routing() as pin:
+        """Decode at ``pos`` on the prompt's cache → (logits, pin, the
+        decode step's GQA outputs)."""
+        with pinned_routing() as pin, _gqa_outputs() as mix:
             if replay is not None:
                 pin.replay(replay)
             _, c = nd.prefill(params, prompt, nd.init_cache(B, L + 1, dev))
             out, _ = nd.decode_step(params, c, tokens[:, L:], pos)
-        return out, pin
+        return out, pin, mix[len(mix) // 2:]
 
-    with pinned_routing() as full_pin:
+    with pinned_routing() as full_pin, _gqa_outputs() as full_mix:
         full, _ = nd.prefill(params, {"tokens": tokens})
-    own_dec, own_pin = decode_on_prompt_cache(L)
+    own_dec, own_pin, _ = decode_on_prompt_cache(L)
     tf_flips = _flips(_route_sets(full_pin.log, rows[:, L]),
                       _route_sets(own_pin.log[n_moe:]))
     mapped = ([c[rows[:, :L].reshape(-1)] for c in full_pin.log]
               + [c[rows[:, L]] for c in full_pin.log])
-    dlog, tf_pin = decode_on_prompt_cache(L, mapped)
+    dlog, tf_pin, dec_mix = decode_on_prompt_cache(L, mapped)
     if not (torch.isfinite(dlog).all() and torch.isfinite(full).all()):
         fail(f"({tag}) teacher-forcing logits not finite")
     tf_err, tf_own = _logit_diff(dlog[:, 0], full[:, -1]), _logit_diff(own_dec[:, 0],
                                                                        full[:, -1])
+    last_row = [m[:, -1:] for m in full_mix]
     kernel_attention = attention.blocked_attention
     n_before = ops.launches["flash_attention"]
-    with pinned_routing() as k_pin:
+    with pinned_routing() as k_pin, _gqa_outputs() as k_mix:
         k_logits, _ = nd.prefill(params, prompt)
     attention.blocked_attention = (
         lambda q, k, v, *, causal=True: FA.flash_attention_plain(q, k, v, causal=causal))
     try:
         with pinned_routing() as own_p:
             own_plain, _ = nd.prefill(params, prompt)
-        with pinned_routing() as p_pin:
+        with pinned_routing() as p_pin, _gqa_outputs() as p_mix:
             p_pin.replay(k_pin.log)
             p_logits, _ = nd.prefill(params, prompt)
     finally:
         attention.blocked_attention = kernel_attention
     torch.cuda.synchronize()
-    if ops.launches["flash_attention"] != n_before + cfg.n_layers:
+    if ops.launches["flash_attention"] != n_before + n_attn:
         fail(f"({tag}) the plain-attention prefill launched the kernel")
     plain_flips = _flips(_route_sets(k_pin.log), _route_sets(own_p.log))
     plain_err, plain_own = _logit_diff(k_logits, p_logits), _logit_diff(k_logits, own_plain)
@@ -2089,34 +2156,75 @@ def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol):
         f"|Δ logits| {plain_own:.4g}, {plain_flips} of {B * L * n_moe} sets differ; the "
         f"kernel run's routing replayed: {plain_err:.4g} (tol {plain_tol}); logits "
         f"std {float(full.float().std()):.4g}")
-    if tf_err > tf_tol:
-        fail(f"({tag}) teacher-forcing logits differ by {tf_err} (> {tf_tol})")
-    if plain_err > plain_tol:
-        fail(f"({tag}) prefill logits differ from the plain-attention prefill by "
-             f"{plain_err} (> {plain_tol})")
+    gates = {"teacher forcing": (tf_err, tf_tol), "plain-attention prefill":
+             (plain_err, plain_tol)}
+    if mixer_tol is not None:
+        tf_mix, plain_mix = _mix_err(dec_mix, last_row), _mix_err(k_mix, p_mix)
+        summary.update(tf_mixer_err=tf_mix, plain_mixer_err=plain_mix)
+        log(f"({tag}) at the {len(k_mix)} GQA layers' outputs, max |Δ| / max |out|: "
+            f"teacher forcing {tf_mix:.4g}, plain-attention prefill {plain_mix:.4g} (tol "
+            f"{mixer_tol})")
+        gates.update({"teacher forcing at the GQA outputs": (tf_mix, mixer_tol),
+                      "plain-attention prefill at the GQA outputs": (plain_mix, mixer_tol)})
+    for g, (e, tol) in gates.items():
+        if e > tol:
+            fail(f"({tag}) {g} differs by {e} (> {tol})")
     # planted faults the two gates must reject, under the same replayed
     # routing: a wrong cache slot (decode at slot L - 1, over the prompt's
     # last entry) and the kernel's output x 0.9 in every layer
-    wrong_slot, _ = decode_on_prompt_cache(L - 1, mapped)
+    wrong_slot, _, slot_mix = decode_on_prompt_cache(L - 1, mapped)
     attention.blocked_attention = (
         lambda q, k, v, *, causal=True: kernel_attention(q, k, v, causal=causal) * 0.9)
     try:
-        with pinned_routing() as f_pin:
+        with pinned_routing() as f_pin, _gqa_outputs() as scaled_mix:
             f_pin.replay(k_pin.log)
             scaled, _ = nd.prefill(params, prompt)
     finally:
         attention.blocked_attention = kernel_attention
-    faults = {"wrong cache slot": (_logit_diff(wrong_slot[:, 0], full[:, -1]), tf_tol),
-              "kernel output x 0.9": (_logit_diff(scaled, k_logits), plain_tol)}
-    for f, (e, tol) in faults.items():
-        if not e > tol:
-            fail(f"({tag}) the gate accepts a planted fault ({f}: {e} <= {tol})")
-    log(f"({tag}) ok: planted faults rejected: "
-        + ", ".join(f"{f} {e:.4g} (tol {tol})" for f, (e, tol) in faults.items())
+    faults = {"wrong cache slot": [(_logit_diff(wrong_slot[:, 0], full[:, -1]), tf_tol)],
+              "kernel output x 0.9": [(_logit_diff(scaled, k_logits), plain_tol)]}
+    if mixer_tol is not None:
+        faults["wrong cache slot"].append((_mix_err(slot_mix, last_row), mixer_tol))
+        faults["kernel output x 0.9"].append((_mix_err(scaled_mix, k_mix), mixer_tol))
+    for f, pts in faults.items():
+        if not any(e > tol for e, tol in pts):
+            fail(f"({tag}) the gates accept a planted fault ({f}: {pts}, each (moved, tol))")
+    summary["faults"] = {f: [e for e, _ in pts] for f, pts in faults.items()}
+    log(f"({tag}) ok: planted faults rejected, (logits"
+        + (", GQA outputs" if mixer_tol is not None else "") + "): "
+        + ", ".join(f"{f} " + " / ".join(f"{e:.4g} (tol {tol})" for e, tol in pts)
+                    for f, pts in faults.items())
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params, nd, model
     torch.cuda.empty_cache()
     return launches, summary
+
+
+@contextlib.contextmanager
+def _gqa_outputs():
+    """Record the output of every GQA layer (``attention.gqa_forward``, the
+    mixer's output after ``wo``) run inside the context, in order."""
+    from repro_torch.models import attention
+
+    real, seen = attention.gqa_forward, []
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    attention.gqa_forward = record
+    try:
+        yield seen
+    finally:
+        attention.gqa_forward = real
+
+
+def _mix_err(got, want) -> float:
+    """The largest over layers of max |got - want| / max |want|."""
+    if len(got) != len(want) or not want:
+        fail(f"GQA outputs of {len(got)} and {len(want)} layers to compare")
+    return max(_err(a, b) / float(b.float().abs().max()) for a, b in zip(got, want))
 
 
 def phase_moe_serve(dev):
@@ -2257,6 +2365,300 @@ def phase_moe_train(dev):
     del model, p2, kern, plain, batch
     torch.cuda.empty_cache()
     return launches, summary
+
+
+def _naive_ssd(xh, dt, a, B_, C_):
+    """The SSD as its token-by-token recurrence in f32
+    (``tests/test_mamba.py:naive_ssd``'s arithmetic) → (y, final state)."""
+    B, S, H, P = xh.shape
+    G, N = B_.shape[2], B_.shape[3]
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dt[:, t] * a)
+        b_h = B_[:, t].repeat_interleave(H // G, dim=1).float()
+        c_h = C_[:, t].repeat_interleave(H // G, dim=1).float()
+        inc = torch.einsum("bhp,bhn->bhpn", dt[:, t][:, :, None] * xh[:, t].float(), b_h)
+        state = state * da[:, :, None, None] + inc
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, c_h))
+    return torch.stack(ys, dim=1), state
+
+
+def _first_ssd_call(fn):
+    """Run ``fn`` and return the arguments of the first ``_ssd_chunked``
+    call it makes (layer 0's SSD inputs)."""
+    from repro_torch.models import mamba as mb
+
+    seen = []
+    real = mb._ssd_chunked
+
+    def grab(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return real(*args, **kw)
+
+    mb._ssd_chunked = grab
+    try:
+        fn()
+    finally:
+        mb._ssd_chunked = real
+    return seen[0]
+
+
+def _chunk_decay_sums(dt, a, chunk):
+    """Each chunk's decay sum ``Σ dt·|a|`` over its steps, per head."""
+    B, S, H = dt.shape
+    S_pad = -(-S // chunk) * chunk
+    d = torch.nn.functional.pad(dt.float() * a.abs(), (0, 0, 0, S_pad - S))
+    return d.reshape(B, S_pad // chunk, chunk, H).sum(dim=2)
+
+
+def phase_mamba_serve(dev):
+    """(v): mamba2-1.3b at full width and depth served (no kernel of ours on
+    this path); the teacher-forcing identity and two planted cache faults;
+    layer 0's chunked SSD against its per-step recurrence."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import mamba as mb
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_map
+
+    cfg = get_config(MAMBA_ARCH)
+    model = build(cfg)
+    B, L, steps = MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"(v) {cfg.name}: {cfg.n_layers} layers (plan {model.plan}), d_model "
+        f"{cfg.d_model}, {cfg.ssm}, vocab {cfg.vocab}, tied embeddings "
+        f"{cfg.tie_embeddings}, {cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random weights "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s; nothing cut")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    prompt = {"tokens": tokens[:, :L]}
+    launches, summary = _serve_and_time(dev, model, params, tokens, steps, "v")
+    if any(launches.values()):
+        fail(f"(v) the Mamba path launched {launches}: it has no kernel of ours")
+
+    # teacher forcing: decode at L on the prefill state of L tokens == the
+    # last logits of a prefill of L + 1; then the same decode from a cache
+    # with one layer's state zeroed, and with its conv tails rolled by one
+    # position, each of which the tolerance must reject
+    _, caches = model.prefill(params, prompt, model.init_cache(B, L + 1, dev))
+    full, _ = model.prefill(params, {"tokens": tokens})
+
+    def decode_err(c):
+        out, _ = model.decode_step(params, c, tokens[:, L:], L)
+        if not torch.isfinite(out).all():
+            fail("(v) decode logits not finite")
+        return _logit_diff(out[:, 0], full[:, -1]), out
+
+    tf_err, dec = decode_err(tree_map(torch.clone, caches))
+    j = MAMBA_FAULT_LAYER
+    zeroed = tree_map(torch.clone, caches)
+    zeroed["scan"]["0"]["mixer"]["state"][j].zero_()
+    rolled = tree_map(torch.clone, caches)
+    for k in ("conv_x", "conv_bc"):
+        t = rolled["scan"]["0"]["mixer"][k][j]
+        t.copy_(t.roll(1, dims=1))
+    faults = {f"layer {j}'s state zeroed": decode_err(zeroed)[0],
+              f"layer {j}'s conv tails rolled by one": decode_err(rolled)[0]}
+    del zeroed, rolled, caches
+    agree = float((dec[:, 0].argmax(-1) == full[:, -1].argmax(-1)).float().mean())
+    log(f"(v) teacher forcing: max |decode(L) - prefill(L+1)[-1]| {tf_err:.4g} "
+        f"(tol {MAMBA_TF_TOL}), logits std {float(full.float().std()):.4g}, top-1 agreement "
+        f"{agree:.2f}; planted faults: "
+        + ", ".join(f"{f} {e:.4g}" for f, e in faults.items()))
+    if tf_err > MAMBA_TF_TOL:
+        fail(f"(v) teacher-forcing logits differ by {tf_err} (> {MAMBA_TF_TOL})")
+    for f, e in faults.items():
+        if not e > MAMBA_TF_TOL:
+            fail(f"(v) the gate accepts a planted fault ({f}: {e} <= "
+                 f"{MAMBA_TF_TOL})")
+
+    # layer 0's own SSD inputs at full width (B=4, S=2,048, 64 heads of
+    # 64, d_state 128): the chunked SSD in f32 and with compute_dtype bf16
+    # against the per-step recurrence
+    args, _ = _first_ssd_call(lambda: model.prefill(params, prompt))
+    xh, dt, a, B_, C_, chunk = args
+    ref_y, ref_s = _naive_ssd(xh, dt, a, B_, C_)
+    scale, s_scale = float(ref_y.abs().max()), float(ref_s.abs().max())
+    errs = {}
+    for cdt, tol in (("float32", MAMBA_SSD_F32_TOL), ("bfloat16", MAMBA_SSD_BF16_TOL)):
+        y, s = mb._ssd_chunked(xh, dt, a, B_, C_, chunk, compute_dtype=cdt)
+        errs[cdt] = (_err(y, ref_y) / scale, _err(s, ref_s) / s_scale, tol)
+    decay = _chunk_decay_sums(dt, a, chunk)
+    log(f"(v) layer 0's SSD at {tuple(xh.shape)} (chunk {chunk}, chunk decay sums "
+        f"{float(decay.min()):.3g}-{float(decay.max()):.3g}), chunked vs per-step "
+        f"recurrence, max |Δ| / max|y| and of the final state: "
+        + ", ".join(f"{c} {ey:.3g}, {es:.3g} (tol {tol})" for c, (ey, es, tol) in errs.items()))
+    for cdt, (ey, es, tol) in errs.items():
+        if not max(ey, es) <= tol:
+            fail(f"(v) the chunked SSD ({cdt}) differs from the recurrence by "
+                 f"{max(ey, es)} (> {tol})")
+    summary.update(tf_err=tf_err, faults=faults,
+                   ssd_err={c: e[:2] for c, e in errs.items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"(v) ok: peak device memory over generate() and the checks "
+        f"{summary['peak_gib']:.2f} GiB (the weights "
+        f"{cfg.param_count() * cfg.torch_dtype.itemsize / 2**30:.2f} GiB)")
+    del params, model, args, xh, dt, B_, C_, ref_y, ref_s
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_mamba_train(dev):
+    """(w): mamba2-1.3b at full width and depth trained MAMBA_TRAIN_STEPS
+    steps; a 2-layer slice's bf16 gradients against f32; one backward with
+    dt planted past the f32 exp's range."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_config(MAMBA_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, MAMBA_TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    params, state = run.init_state()
+    with torch.no_grad():   # the initial weights' logits of the first batch's rows
+        first_logits, _ = run.model.prefill(
+            params, {"tokens": next(TokenStream(run.stream.cfg, device=dev))["tokens"]})
+    torch.cuda.synchronize()
+    log(f"(w) {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, remat={cfg.remat} "
+        f"({cfg.remat_policy}): {cfg.param_count() / 1e9:.3f} B random weights and AdamW "
+        f"state on the card; nothing cut")
+    losses, gnorms, walls = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for _ in range(n):
+        batch = next(run.stream)
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"(w) losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}, step walls (s) {[round(w, 3) for w in walls]}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"(w) a loss or grad norm is not finite")
+    if any(launches.values()):
+        fail(f"(w) the Mamba training path launched {launches}: it has no kernel of ours")
+    # the tied embedding is drawn at 0.02 and ln_f's output has unit rms, so
+    # the initial logits' std is 0.02 sqrt(d_model), and step 0's loss sits
+    # near ln V + sigma^2 / 2 (log-sum-exp of V Gaussian logits)
+    ln_v, want_sigma = math.log(cfg.vocab), 0.02 * math.sqrt(cfg.d_model)
+    sigma = float(first_logits.float().std())
+    want0 = ln_v + sigma ** 2 / 2
+    if not (cfg.tie_embeddings and abs(sigma - want_sigma) <= TRAIN_SIGMA_TOL):
+        fail(f"(w) the initial logits' std {sigma} is not within {TRAIN_SIGMA_TOL} of "
+             f"the {want_sigma:.4f} that the tied embedding gives (tied: "
+             f"{cfg.tie_embeddings})")
+    if not abs(losses[0] - want0) <= TRAIN_LOSS0_TOL:
+        fail(f"(w) step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of "
+             f"ln({cfg.vocab}) + sigma^2 / 2 = {want0:.4f} (sigma {sigma:.4f})")
+    if not losses[-1] < losses[0]:
+        fail(f"(w) the loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_s = float(np.median(walls[1:]))
+    summary = dict(step_s=step_s, tokens_per_s=B * S / step_s, peak_gib=peak / 2**30,
+                   losses=losses)
+    log(f"(w) ok: {n} steps of B={B} x S={S} tokens, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V + sigma^2 / 2 = {want0:.4f}, sigma {sigma:.4f}, 0.02 "
+        f"sqrt(d_model) = {want_sigma:.4f}); step wall {step_s:.3f} s (median of steps "
+        f"1-{n - 1}; step 0 {walls[0]:.3f} s), {B * S / step_s:.0f} tokens/s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    batch = next(run.stream)
+    prof = _device_profile(lambda: run.step_fn(params, state, batch))
+    if prof is None:
+        log(f"(w) torch.profiler saw no device time: busy share not measured")
+    else:
+        summary.update(idle_share=1 - prof[0] / (step_s * 1e3), ops_ms=dict(prof[3]))
+        log(f"(w) one step: device busy {prof[0]:.1f} ms of {step_s * 1e3:.1f} ms wall "
+            f"(idle share {summary['idle_share']:.2f}), {prof[1]} kernels; busiest: "
+            + ", ".join(f"{nm[:60]} {ms:.1f} ms" for nm, ms in prof[2])
+            + "; by op: " + ", ".join(f"{nm} {ms:.1f} ms" for nm, ms in prof[3]))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads, _ = grads_of(run.model, params, batch)
+    torch.cuda.synchronize()
+    peak_bwd = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run.opt.update(params, grads, state)
+    torch.cuda.synchronize()
+    peak_upd = torch.cuda.max_memory_allocated()
+    summary.update(peak_bwd_gib=peak_bwd / 2**30, peak_update_gib=peak_upd / 2**30)
+    log(f"(w) device memory: {resident / 2**30:.2f} GiB held between steps (weights, "
+        f"AdamW moments), peak {peak_bwd / 2**30:.2f} GiB in the backward, "
+        f"{peak_upd / 2**30:.2f} GiB in AdamW.update")
+    del run, params, state, metrics, batch, grads
+    torch.cuda.empty_cache()
+
+    # a 2-layer slice at full width: bf16 gradients against the same
+    # weights' f32 gradients (the f32 model holds the bf16 values exactly,
+    # its f32 leaves are shared), one batch
+    small = cfg.replace(n_layers=TRAIN_GRAD_LAYERS)
+    m16, m32 = build(small), build(small.replace(dtype="float32"))
+    p16 = m16.init(SEED, device=dev)
+    p32 = tree_map(lambda t: t.float(), p16)
+    batch = next(TokenStream(TokenStreamConfig(vocab=cfg.vocab, batch=B, seq_len=S,
+                                               seed=SEED), device=dev))
+    g16, _ = grads_of(m16, p16, batch)
+    g32, _ = grads_of(m32, p32, batch)
+    errs = [_err(a.float(), b) / float(b.abs().max())
+            for a, b in zip(tree_leaves(g16), tree_leaves(g32))]
+    summary["grad_err"] = max(errs)
+    log(f"(w) one step at {cfg.name}'s widths, {TRAIN_GRAD_LAYERS} layers, B={B}, "
+        f"S={S}: bf16 gradients vs f32 per leaf max |Δg| / max|g| worst {max(errs):.4g} "
+        f"(tol {MAMBA_GRAD_TOL}), median {float(np.median(errs)):.4g}")
+    if not max(errs) <= MAMBA_GRAD_TOL:
+        fail(f"(w) bf16 gradients differ from f32 by {max(errs)} of a leaf's max |g| "
+             f"(> {MAMBA_GRAD_TOL})")
+    del m32, p32, g16, g32
+
+    # the hazard: dt_bias planted so that a chunk's decay sum passes the
+    # f32 exp's 88.7 (the reference's within-chunk exp would overflow)
+    planted = tree_map(lambda t: t, p16)
+    mixer = planted["layers"]["scan"]["0"]["mixer"]
+    mixer["dt_bias"] = torch.full_like(mixer["dt_bias"], MAMBA_PLANTED_DT_BIAS)
+    args, _ = _first_ssd_call(lambda: m16.prefill(planted, {"tokens": batch["tokens"]}))
+    decay = float(_chunk_decay_sums(args[1], args[2], args[5]).max())
+    g, metrics = grads_of(m16, planted, batch)
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(g))
+    log(f"(w) dt_bias planted at {MAMBA_PLANTED_DT_BIAS}: largest chunk decay sum "
+        f"{decay:.1f} (the f32 exp overflows past 88.7), loss "
+        f"{float(metrics['loss']):.4f}, every gradient finite: {finite}")
+    if not decay > 88.7:
+        fail(f"(w) the planted dt did not pass the exp's range ({decay})")
+    if not (finite and math.isfinite(float(metrics["loss"]))):
+        fail(f"(w) a large dt gave a non-finite loss or gradient")
+    summary["planted_decay_sum"] = decay
+    del m16, p16, planted, g, batch, args
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_jamba_serve(dev):
+    """(x): jamba-v0.1-52b at full width cut to JAMBA_LAYERS layers (one
+    period), served as (t) serves the MoE archs."""
+    from repro_torch.configs.base import get_config
+
+    full = get_config(JAMBA_ARCH)
+    cfg = full.replace(n_layers=JAMBA_LAYERS)
+    log(f"(x) {full.name} cut from {full.n_layers} to {cfg.n_layers} layers (one period: 7 "
+        f"Mamba, 1 attention, 4 MoE FFNs) at full width: {full.param_count() / 1e9:.2f} B "
+        f"parameters ({full.param_count() * 2 / 1e9:.0f} GB in bf16) do not fit 80 GB")
+    return _moe_serve_case(dev, cfg, JAMBA_STEPS, "x", JAMBA_TF_TOL, JAMBA_PLAIN_TOL,
+                           mixer_tol=JAMBA_MIXER_TOL)
 
 
 def _kernel_label(name: str) -> str:
@@ -3261,6 +3663,14 @@ def main() -> None:
     moe_train_launches, _ = phase_moe_train(dev)     # resets them too
     for k in ("flash_attention", "flash_attention_bwd"):
         by_path[k]["moe_train"] = moe_train_launches[k]
+    torch.cuda.empty_cache()
+    for path, phase in (("mamba_serve", phase_mamba_serve),
+                        ("mamba_train", phase_mamba_train),
+                        ("jamba_serve", phase_jamba_serve)):
+        path_launches, _ = phase(dev)          # each resets and reads the counts
+        for k in ops.KERNELS:
+            by_path[k][path] = path_launches[k]
+        torch.cuda.empty_cache()
     rows["flash_attention"]["mla"], rows["flash_attention_bwd"]["mla"] = (
         phase_mla_flash_timing(dev))
 

@@ -4,9 +4,10 @@
 ``get_config(arch_id)`` loads ``repro_torch.configs.<arch_id>`` (dashes and
 dots → underscores) and returns its ``CONFIG``; each arch module also
 provides ``reduced()``, a small same-family config for CPU tests.  The
-dense and the ``moe`` families are ported (MLA comes with deepseek's
-``moe`` config); the other archs of :data:`ARCH_IDS` raise
-``NotImplementedError`` (ROADMAP A8).
+dense, ``moe`` (MLA comes with deepseek's config), ``ssm`` (mamba2-1.3b)
+and ``hybrid`` (jamba-v0.1-52b: Mamba, attention and MoE layers) families
+are ported; the ``vlm`` and ``audio`` archs of :data:`ARCH_IDS` raise
+``NotImplementedError`` (ROADMAP A8 item 4).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.mamba import SSMConfig
 from repro_torch.models.moe import MoEConfig
 
 
@@ -34,14 +36,14 @@ class MLAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of :class:`repro.configs.base.ModelConfig` that the dense
-    and ``moe`` families read, with the same names and defaults, and the
-    training's rematerialisation knobs (``remat``; ``remat_policy`` "full"
-    or "dots").  The other families' fields (state space, hybrid schedule,
-    cross-attention, encoder) and the JAX package's other execution knobs
-    (attention tile sizes, scan-over-layers, unrolling: the card's kernels
-    size their own tiles and the port runs a loop) come with the families
-    that use them."""
+    """The fields of :class:`repro.configs.base.ModelConfig` that the dense,
+    ``moe``, ``ssm`` and ``hybrid`` families read, with the same names and
+    defaults, and the training's rematerialisation knobs (``remat``;
+    ``remat_policy`` "full" or "dots").  The vlm and audio fields
+    (cross-attention, encoder) come with their families; the JAX package's
+    other execution knobs (attention tile sizes, scan-over-layers,
+    unrolling: the card's kernels size their own tiles and the port runs a
+    loop) have no counterpart."""
     name: str
     family: str                     # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
@@ -59,9 +61,14 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid schedule: attention layer once per `attn_every` layers
+    attn_every: int = 1
+    attn_offset: int = 3            # position of the attn layer in the period
     dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "full"      # "full" | "dots" (save the 2-D matmuls)
+    sub_quadratic: bool = False     # arch supports long_500k decode
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -96,9 +103,10 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-# Archs whose family the port runs (dense and moe).
+# Archs whose family the port runs (dense, moe, ssm and hybrid).
 PORTED_ARCHS = ("qwen1.5-32b", "llama3-8b", "yi-34b", "qwen3-1.7b",
-                "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b")
+                "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+                "mamba2-1.3b", "jamba-v0.1-52b")
 
 
 def _module(arch: str):
@@ -106,7 +114,7 @@ def _module(arch: str):
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"{arch}: its family is not ported yet (ROADMAP A8); the port "
+            f"{arch}: its family is not ported yet (ROADMAP A8 item 4); the port "
             f"runs {list(PORTED_ARCHS)}"
         )
     return importlib.import_module(

@@ -16,8 +16,9 @@ run of either package can start from the other's state.
 LM (:func:`lm_params_from_jax`): the port keeps the JAX parameter tree's
 layout (nested dicts, the prefix list, the stacked layer axis), so the
 conversion is a tree map that checks every key, shape and dtype against
-the config's tree, each leaf against its own dtype there (a MoE router is
-f32 in every model dtype, as the JAX package draws it).  A
+the config's tree, each leaf against its own dtype there (a MoE router,
+and a Mamba mixer's ``dt_bias``, ``a_log`` and ``d_skip``, are f32 in
+every model dtype, as the JAX package draws them).  A
 bf16 JAX array arrives as an ``ml_dtypes.bfloat16`` NumPy array, which
 ``torch.from_numpy`` refuses; it goes through float32 and back, which is
 exact.  The LM's AdamW state (:func:`adamw_state_from_jax`) maps leaf for

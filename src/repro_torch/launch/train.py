@@ -4,8 +4,12 @@ Zipf token stream through the fault-tolerant ``Trainer`` (atomic async
 checkpoints, non-finite step rejection, straggler watchdog, SIGTERM-safe
 shutdown, ``--resume``).
 
-On the card (the default), a full config fits one H100 up to qwen3-1.7b:
+On the card (the default), a full config fits one H100 up to qwen3-1.7b
+and mamba2-1.3b (jamba-v0.1-52b trains at ``--reduced`` only: about 12
+bytes a parameter of state):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --steps 8 --batch 4 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --steps 8 --batch 4 --seq 2048
 On a CPU, a reduced config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\

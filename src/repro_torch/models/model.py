@@ -1,6 +1,6 @@
-"""Model facade of the dense and ``moe`` LM families (counterpart of
-:mod:`repro.models.model`): ``build(config)`` → ``init`` / ``train_loss`` /
-``prefill`` / ``decode_step`` / ``init_cache``.
+"""Model facade of the ported LM families — dense, ``moe``, ``ssm`` and
+``hybrid`` (counterpart of :mod:`repro.models.model`): ``build(config)`` →
+``init`` / ``train_loss`` / ``prefill`` / ``decode_step`` / ``init_cache``.
 
 As in the JAX package the model holds no weights: ``init`` returns the
 parameter tree, and the serving methods take it.  So a JAX tree converted
@@ -9,9 +9,10 @@ by :func:`repro_torch.convert.lm_params_from_jax` runs as it is.
 Training: ``train_loss(params, batch)`` → (loss + aux, metrics with
 ``aux_loss``), ``batch`` holding ``tokens`` and ``targets`` (B, S).  The
 stack runs in train mode (no caches, ``cfg.remat``); on the card every
-layer's attention goes through the forward and backward flash kernels.
+attention layer goes through the forward and backward flash kernels
+(a Mamba layer's SSD is ``torch`` products: no kernel of the port's).
 The aux loss is the MoE layers' load-balance and z-losses summed over the
-stack (0 in the dense family).  The logits and their per-token f32
+stack (0 without MoE layers).  The logits and their per-token f32
 loss are taken :data:`LOSS_CHUNK` tokens at a time under
 ``torch.utils.checkpoint``, and recomputed so in the backward: at
 qwen3-1.7b's vocabulary (151,936 words) and 8,192 tokens one f32 copy of
@@ -23,12 +24,14 @@ Serving:
 
 * ``prefill(params, batch[, caches])`` → (last-token logits ``(B, 1, V)``,
   caches); on the card every attention layer launches the flash kernel
-  once.  The caches (keys and values, or MLA's ``c_kv`` and ``k_pe``) of
-  the L prompt positions go to slots ``[0, L)`` of ``caches`` (from
-  ``init_cache``, of any length >= L), in place; without ``caches`` it
-  makes a cache of exactly L slots;
+  once.  The attention caches (keys and values, or MLA's ``c_kv`` and
+  ``k_pe``) of the L prompt positions go to slots ``[0, L)`` of
+  ``caches`` (from ``init_cache``, of any length >= L), and each Mamba
+  layer's conv tails and f32 state (no length axis) to its cache, in
+  place; without ``caches`` it makes a cache of exactly L slots;
 * ``decode_step(params, caches, tokens, pos)`` → (logits, caches) — one
-  new token against the KV cache, written into ``caches`` in place.
+  new token against the caches (attention at slot ``pos``; a Mamba layer
+  steps its recurrence and ignores ``pos``), written in place.
 
 ``init`` and ``init_cache`` run on ``device="cuda"`` unless the caller
 passes ``"cpu"``, and raise without a card.
@@ -106,7 +109,8 @@ class Model(torch.nn.Module):
         return tf.stack_cache_specs(self.cfg, self.plan, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None):
-        """A zero cache of ``max_len`` slots on ``device``."""
+        """A zero cache on ``device``: ``max_len`` slots in each attention
+        layer's, and each Mamba layer's tails and state."""
         dev = resolve_device(device)
         return tf.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
                            self.cache_specs(batch, max_len))

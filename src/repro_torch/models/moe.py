@@ -50,7 +50,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     aux_coef: float = 0.01       # load-balance loss coefficient
     z_coef: float = 1e-3         # router z-loss
-    moe_every: int = 1           # FFN is MoE on layers where idx % moe_every == 0
+    moe_every: int = 1           # hybrid plan: MoE FFN where idx % moe_every == moe_every - 1
     first_dense: bool = False    # layer 0 uses a dense FFN (DeepSeek-V2)
     use_shard_map: bool = False  # expert parallelism over 'model' (not ported)
     dispatch_groups: int = 0     # >0 = dp-grouped dispatch (not ported)

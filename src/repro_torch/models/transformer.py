@@ -1,13 +1,17 @@
-"""Layer plans and stacks of the dense and ``moe`` LM families (counterpart
-of :mod:`repro.models.transformer`).
+"""Layer plans and stacks of the ported LM families: dense, ``moe``,
+``ssm`` and ``hybrid`` (counterpart of :mod:`repro.models.transformer`).
 
 A stack is described by a :class:`Plan`: an unrolled ``prefix`` (deepseek's
-dense first layer) and a ``period`` of layers repeated ``repeats`` times.
+dense first layer) and a ``period`` of layers repeated ``repeats`` times
+(jamba's period is 8 layers: attention at ``attn_offset``, Mamba
+elsewhere, the MoE FFN where ``i % moe_every == moe_every - 1``).
 The parameters keep the JAX package's tree layout — ``{"prefix": [layer,
-...], "scan": {"0": {...}}}`` with the period's leaves stacked along a
+...], "scan": {"0": {...}, ...}}`` with the period's leaves stacked along a
 leading layer axis — so a JAX tree converts by a tree map, and each layer
 of the loop reads its slice of the stack (a view, no copy).  Caches follow
-the same layout, and every layer writes its slice of them in place.
+the same layout, one tree per layer kind (an attention layer's keys and
+values, a Mamba layer's conv tails and state), and every layer writes its
+slice of them in place.
 
 Training (no caches) unbinds the stacked leaves once and, with
 ``cfg.remat``, runs each prefix layer and each period under
@@ -15,15 +19,18 @@ Training (no caches) unbinds the stacked leaves once and, with
 layers and its scan body: ``remat_policy="full"`` keeps only the input and
 recomputes the rest in the backward, ``"dots"`` also keeps the outputs of
 the 2-D matmuls (the counterpart of
-``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).  The
-gradients are the same either way: the recompute runs the same
-arithmetic.  Every layer returns its MoE aux loss (0 for a dense FFN),
-summed over the prefix and then the periods in the JAX package's order.
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+projections are kept, attention's and the SSD's batched einsums are
+recomputed).  The gradients are the same either way: the recompute runs
+the same arithmetic.  Every layer returns its MoE aux loss (0 for a dense
+FFN or none), summed over the prefix and then the periods in the JAX
+package's order.
 
-Layer kinds are ``(mixer, ffn)`` pairs; the port runs ``("attn", "dense")``
-and ``("attn", "moe")``, the attention MLA when ``cfg.mla`` is set and GQA
-otherwise.  Mamba, cross-attention and the encoder raise
-``NotImplementedError`` (ROADMAP A8).
+Layer kinds are ``(mixer, ffn)`` pairs: mixer ``"attn"`` (MLA when
+``cfg.mla`` is set, else GQA) or ``"mamba"``, ffn ``"dense"``, ``"moe"`` or
+``"none"`` (no ``ln2`` and no ``ffn`` leaves).  Cross-attention and the
+encoder (``"xattn"``, ``"attn_xattn"``, ``"attn_enc"``; the vlm and audio
+families) raise ``NotImplementedError`` (ROADMAP A8 item 4).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     init_embedding,
@@ -53,6 +61,8 @@ from repro_torch.models.layers import (
 Kind = Tuple[str, str]
 DENSE: Kind = ("attn", "dense")
 MOE: Kind = ("attn", "moe")
+MAMBA: Kind = ("mamba", "none")
+KINDS = frozenset({DENSE, MOE, MAMBA, ("mamba", "dense"), ("mamba", "moe")})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,19 +77,34 @@ class Plan:
 
 
 def layer_plan(cfg) -> Plan:
+    if cfg.family == "ssm":
+        return Plan((), (MAMBA,), cfg.n_layers)
+    if cfg.family == "hybrid":
+        per = cfg.attn_every
+        if cfg.n_layers % per != 0:
+            raise ValueError(f"n_layers={cfg.n_layers} must divide into attn_every={per}")
+        period = []
+        for i in range(per):
+            mixer = "attn" if i == cfg.attn_offset else "mamba"
+            ffn = "dense"
+            if cfg.moe is not None and i % cfg.moe.moe_every == cfg.moe.moe_every - 1:
+                ffn = "moe"
+            period.append((mixer, ffn))
+        return Plan((), tuple(period), cfg.n_layers // per)
     if cfg.family == "moe":
         if cfg.moe.first_dense:
             return Plan((DENSE,), (MOE,), cfg.n_layers - 1)
         return Plan((), (MOE,), cfg.n_layers)
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8 item 4)")
     return Plan((), (DENSE,), cfg.n_layers)
 
 
 def _check_kind(kind: Kind) -> None:
-    if kind not in (DENSE, MOE):
-        raise NotImplementedError(f"layer kind {kind} is not ported yet (ROADMAP A8)")
+    if kind not in KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind} is not ported yet (ROADMAP A8 item 4)")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -105,25 +130,36 @@ def tree_leaves(tree: Any) -> list:
 
 
 def init_layer(gen, cfg, kind: Kind, device: torch.device) -> Dict[str, Any]:
+    """One layer's parameters: ``ln1`` and the mixer, then ``ln2`` and the
+    FFN unless the kind's FFN is ``"none"``."""
     _check_kind(kind)
+    mixer, ffn = kind
     d, dt = cfg.d_model, cfg.torch_dtype
-    mixer = (attn.init_mla(gen, cfg, device) if cfg.mla is not None
-             else attn.init_gqa(gen, cfg, device))
-    ffn = (moe_mod.init_moe(gen, cfg, device) if kind == MOE
-           else init_mlp(gen, d, cfg.d_ff, dt, device))
-    return {"ln1": init_rms_norm(d, dt, device), "mixer": mixer,
-            "ln2": init_rms_norm(d, dt, device), "ffn": ffn}
+    if mixer == "mamba":
+        p_mixer = mb.init_mamba(gen, cfg, device)
+    else:
+        p_mixer = (attn.init_mla(gen, cfg, device) if cfg.mla is not None
+                   else attn.init_gqa(gen, cfg, device))
+    p = {"ln1": init_rms_norm(d, dt, device), "mixer": p_mixer}
+    if ffn != "none":
+        p["ln2"] = init_rms_norm(d, dt, device)
+        p["ffn"] = (moe_mod.init_moe(gen, cfg, device) if ffn == "moe"
+                    else init_mlp(gen, d, cfg.d_ff, dt, device))
+    return p
 
 
 def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
     """The prefix's layers, then the period's drawn one repeat at a time
     into their slots of the stacked leaves, so that the peak memory is the
-    stack plus one layer."""
+    stack plus one repeat; a single repeat is its own stack (a view with
+    a leading axis of 1, no copy)."""
     prefix = [init_layer(gen, cfg, kind, device) for kind in plan.prefix]
     stacked = None
     for r in range(plan.repeats):
         rep = {str(j): init_layer(gen, cfg, kind, device)
                for j, kind in enumerate(plan.period)}
+        if plan.repeats == 1:
+            return {"prefix": prefix, "scan": tree_map(lambda t: t[None], rep)}
         if stacked is None:
             stacked = tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), rep)
         if device.type != "meta":
@@ -185,22 +221,27 @@ def count_params(cfg, active_only: bool = False) -> int:
 def block_forward(kind: Kind, p: Dict[str, Any], x: torch.Tensor, cfg, *,
                   cache: Optional[Dict] = None, pos: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer → (x, aux loss); its attention writes ``cache`` in place
+    """One layer → (x, aux loss); its mixer writes ``cache`` in place
     (prefill when ``pos`` is None, else decode at slot ``pos``); without a
     cache, train mode.  The aux loss is the MoE FFN's, or an f32 zero."""
     _check_kind(kind)
+    mixer, ffn = kind
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer_cache = None if cache is None else cache["mixer"]
-    if cfg.mla is not None:
+    if mixer == "mamba":
+        x = x + mb.mamba_forward(p["mixer"], h, cfg, mixer_cache, pos=pos)
+    elif cfg.mla is not None:
         x = x + attn.mla_forward(p["mixer"], h, cfg, mixer_cache, pos=pos)
     else:
         x = x + attn.gqa_forward(p["mixer"], h, cfg, mixer_cache, causal=True, pos=pos)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "none":
+        return x, zero
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if kind == MOE:
+    if ffn == "moe":
         y, aux = moe_mod.moe_forward(p["ffn"], h, cfg)
         return x + y, aux
-    return (x + mlp_forward(p["ffn"], h),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return x + mlp_forward(p["ffn"], h), zero
 
 
 # The 2-D matmuls, whose outputs the "dots" policy keeps (what the x @ W
@@ -291,10 +332,14 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
 
 def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int) -> Dict[str, Any]:
     """The cache tree of a stack as ``meta`` tensors (shapes and dtypes):
-    ``{"prefix": [layer, ...], "scan": stacked}``, a layer's MLA cache when
-    ``cfg.mla`` is set, else its GQA cache."""
+    ``{"prefix": [layer, ...], "scan": stacked}``, each layer's by its kind:
+    a Mamba layer's conv tails and state (no length axis: ``max_len``
+    sizes only the attention caches), else its MLA cache when ``cfg.mla``
+    is set, else its GQA cache."""
     def layer(kind):
         _check_kind(kind)
+        if kind[0] == "mamba":
+            return {"mixer": mb.mamba_cache_spec(cfg, batch)}
         spec = attn.mla_cache_spec if cfg.mla is not None else attn.gqa_cache_spec
         return {"mixer": spec(cfg, batch, max_len)}
 

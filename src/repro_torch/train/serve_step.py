@@ -4,7 +4,8 @@ PyTorch runs eagerly, so the JAX package's ``jax.jit`` wrappers and its
 ``make_prefill`` (a wrapper to jit) have no counterpart here: call
 ``model.prefill``.  The prefill writes its keys and values straight into
 the generation's cache of ``cache_len`` slots, so nothing is padded or
-copied afterwards."""
+copied afterwards; ``cache_len`` sizes only the attention caches (a Mamba
+layer's state and conv tails have no length axis)."""
 
 from __future__ import annotations
 
