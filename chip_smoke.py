@@ -10,9 +10,12 @@ depth through the flash-attention kernel, trains the dense LM
 flash-attention kernels, serves and trains the MoE family (deepseek-v2's
 MLA through both kernels at q/k width 192 and v width 128, phi3.5-moe's
 GQA), serves and trains Mamba2 (mamba2-1.3b at full width and depth; its
-SSD runs no kernel of ours) and serves the Jamba hybrid (one period of
-jamba-v0.1-52b through the forward kernel), kills and resumes a
-checkpointed learner on the card, and times the kernels.
+SSD runs no kernel of ours), serves the Jamba hybrid (one period of
+jamba-v0.1-52b through the forward kernel), serves cross-attention
+(llama-3.2-vision-90b at 2 periods over media embeddings) and the
+encoder-decoder (seamless-m4t-large-v2 at full size, which it also
+trains), kills and resumes a checkpointed learner on the card, and times
+the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -230,6 +233,33 @@ before any profiler session):
       logits (JAMBA_TF_TOL, JAMBA_PLAIN_TOL) and at the attention layer's
       output (JAMBA_MIXER_TOL), a wrong cache slot and the kernel's output
       x 0.9 each rejected.
+  (y) cross-attention serving, after (x): llama-3.2-vision-90b at full
+      width cut to VLM_PERIODS periods (10 layers: 2 cross-attention, 8
+      self-attention; random bf16 weights from seed 11), generate() of 32
+      greedy tokens after 4 prompts of 2,048 tokens over (4, 1,600, 8,192)
+      bf16 media: 72 flash_attention launches (10 in the prefill, 2 a
+      decode step: one query row over the cached media), two prefills
+      bitwise alike; the teacher-forcing and plain-attention identities at
+      the logits (LM_TF_TOL, LM_PLAIN_TOL) and at the cross-attention
+      layers' outputs (XATTN_MIXER_TOL), the cached media rolled by one row
+      across the batch and the kernel's output x 0.9 in the cross-attention
+      layers each rejected; prefill and decode ms, tokens/s, idle shares,
+      busiest kernels, peak memory;
+  (z) the encoder-decoder: seamless-m4t-large-v2 at full width and depth
+      (24 encoder and 24 decoder layers) served as (y) over 4 sources of
+      4,096 frames with a 1-token prompt: 816 launches (24 encoder, 48
+      decoder in the prefill, 24 a decode step), the kernel's output x 0.9
+      in the encoder the second fault, a 2,000-frame source refused by a
+      4,096-slot cache; then trained at (q)'s settings for
+      AUDIO_TRAIN_STEPS steps: losses and grad norms finite, step 0 near
+      ln V + sigma^2 / 2, falling, 144 forward and 72 backward launches a
+      step; step wall, tokens/s, idle share, peak memory (backward and
+      update apart); a slice of 2 encoder and 2 decoder layers' bf16
+      gradients through the kernels and through their plain versions
+      against f32's (XATTN_GRAD_RATIO), the backward kernel's dk x 0.9
+      rejected; at the end of the run, the forward timed at the vlm's
+      cross-attention shape, seamless's encoder shape and both decode
+      rows beside SDPA and the bound.
 """
 
 from __future__ import annotations
@@ -459,6 +489,57 @@ JAMBA_STEPS = 32
 JAMBA_TF_TOL = 0.25
 JAMBA_PLAIN_TOL = 0.25
 JAMBA_MIXER_TOL = 2 ** -5
+# Cross-attention serving, (y) and (z): llama-3.2-vision-90b at full width
+# cut to VLM_PERIODS periods (10 layers: 2 cross-attention, 8
+# self-attention; 87.7 B parameters, 175 GB in bf16, do not fit 80 GB,
+# and one period would not stack the cross caches across repeats), B
+# prompts of VLM_PROMPT tokens over n_media_tokens (1,600) media
+# embeddings, VLM_STEPS greedy tokens; seamless-m4t-large-v2 at full width
+# and depth (24 encoder and 24 decoder layers), B sources of enc_seq
+# (4,096) frames and a prompt of AUDIO_PROMPT token (the JAX package's
+# prefill shape for the encoder-decoder), AUDIO_STEPS greedy tokens.  The
+# media and the frames are bf16, STUB_SCALE * N(0, 1), from a seeded
+# generator.  Both hold the dense family's identities at the logits
+# (LM_TF_TOL, LM_PLAIN_TOL: their logits' scale is llama3-8b's, an untied
+# fan-in scaled lm_head after a unit-rms ln_f) and, as (x) does for its
+# one attention layer, at the cross-attention layers' outputs (after wo)
+# relative to their max within XATTN_MIXER_TOL, the flash kernel's own
+# bf16 row tolerance: 2 of the vlm's 10 layers are cross-attention, so
+# the logits dilute what they do.  A planted fault must move one of the
+# two points past its tolerance.  AUDIO_SHORT_SOURCE frames into a cache
+# of enc_seq slots must be refused.
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_PERIODS = 2
+VLM_BATCH = 4
+VLM_PROMPT = 2048
+VLM_STEPS = 32
+STUB_SCALE = 0.02
+XATTN_MIXER_TOL = 2 ** -5
+AUDIO_ARCH = "seamless-m4t-large-v2"
+AUDIO_BATCH = 4
+AUDIO_PROMPT = 1
+AUDIO_STEPS = 32
+AUDIO_SHORT_SOURCE = 2000
+# Encoder-decoder training (z): seamless-m4t-large-v2 at full width and
+# depth, (q)'s settings (bf16, remat="full", B=4 x S=2,048 tokens and as
+# many source frames from TokenStream(seed=0, family="audio"), AdamW lr
+# 3e-4), AUDIO_TRAIN_STEPS steps.  Then one step's gradients of a slice
+# of TRAIN_GRAD_LAYERS encoder and as many decoder layers, in bf16
+# through the kernels and through their plain versions, held per leaf to
+# each other within LM_GRAD_TOL, as (q) and (u) hold theirs, and each
+# against the same weights' f32 gradients through the plain versions
+# (full f32 matmuls): the kernels' distance from f32 within the larger of
+# LM_GRAD_TOL and XATTN_GRAD_RATIO times the plain versions' own.  The
+# second gate sees what the first cannot, a fault both share: with the
+# backward's δ taken from the bf16-rounded output, the cross-attention's
+# wq, wk and ln_x gradients (which cancel over keys that share a large
+# part) lay 0.49-0.67 of their max from f32, kernels and plain versions
+# alike, 0.20 apart (an H100 80GB HBM3 at 700 W); JAX's bf16 gradient lies
+# 0.02-0.03 from f32 there (a CPU at 2 + 2 layers, S=512).  With δ from
+# the forward's f32 output they measured 0.011-0.014 from f32 and 0.010
+# apart.
+AUDIO_TRAIN_STEPS = 8
+XATTN_GRAD_RATIO = 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1074,6 +1155,19 @@ def _device_ms_by_kernel(fn, iters=20):
             for name, us in by_name.items()}
 
 
+def _median_reading(fn, n=3, iters=10):
+    """The median of ``n`` readings of :func:`_device_ms_by_kernel`'s total →
+    (ms, that reading's ms by kernel label), or (None, None) when a trace
+    holds no device time.  A reading whose trace lost or cut records reads
+    low (one of two read 0.25 ms for a 0.52 ms kernel), so the minimum of
+    two is no estimate and the median of three is."""
+    readings = [_device_ms_by_kernel(fn, iters) for _ in range(n)]
+    if not all(readings):
+        return None, None
+    mid = sorted(readings, key=lambda r: sum(r.values()))[n // 2]
+    return sum(mid.values()), {_kernel_label(k)[:60]: round(v, 4) for k, v in mid.items()}
+
+
 def _device_ms(fn, iters=20):
     """The card's time for one call of ``fn`` (the sum over its kernels of
     :func:`_device_ms_by_kernel`); None when the trace holds no device
@@ -1445,15 +1539,16 @@ def phase_flash_bwd_vs_plain(dev):
         do = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype).transpose(1, 2)
         if not strided:
             do = do.contiguous()
-        o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         same_o = torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
-        _, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
-        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-        again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        _, plain_lse, _ = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        got = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+        again = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=causal)
         torch.cuda.synchronize()
-        if not same_o:
-            fail(f"flash_attention {name}: the forward with lse gave other bits")
+        if not (same_o and torch.equal(o32.to(dtype), o)):
+            fail(f"flash_attention {name}: the forward with lse gave other bits, or its f32 "
+                 f"output does not round to its output")
         lse_err = _err(lse, plain_lse)
         if not lse_err <= BWD_LSE_TOL:
             fail(f"flash_attention {name}: lse off by {lse_err} (> {BWD_LSE_TOL})")
@@ -1468,7 +1563,8 @@ def phase_flash_bwd_vs_plain(dev):
         # (rows 64-127) dropped from dk and dv
         cut = do.clone()
         cut[:, 64:128] = 0
-        _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut, causal=causal)
+        _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, cut,
+                                                        causal=causal)
         faults = {"dk x 0.9": _bwd_gate((got[0], (got[1].float() * 0.9).to(dtype), got[2]),
                                         want)[0],
                   "q tile 1 dropped from dk, dv": _bwd_gate((got[0], dk_cut, dv_cut),
@@ -1692,13 +1788,13 @@ def phase_flash_bwd_timing(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 9)
         q, k, v = _flash_inputs(gen, B, S, S, H, Hkv, D, torch.bfloat16, dev)
         do = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
-        o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
 
         def kern():
-            return FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+            return FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=True)
 
         def plain():
-            return FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+            return FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=True)
 
         qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, enable_gqa=True)
@@ -1714,9 +1810,7 @@ def phase_flash_bwd_timing(dev):
         t_plain_a = _time(plain, iters=2)
         t_kern_a = _time(kern)
         t_lib_a = _time(library)
-        k_a, k_b = _device_ms_by_kernel(kern, iters=10), _device_ms_by_kernel(kern, iters=10)
-        d_a = sum(k_a.values()) if k_a else None
-        d_b = sum(k_b.values()) if k_b else None
+        d_ms, d_split = _median_reading(kern)
         t_lib_b = _time(library)
         t_kern_b = _time(kern)
         t_plain_b = _time(plain, iters=2)
@@ -1724,15 +1818,14 @@ def phase_flash_bwd_timing(dev):
         nbytes = traffic.flash_attention_bwd_bytes(B, S, S, H, Hkv, D, 2)
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
         t_f = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
-        if d_a is None or d_b is None:
+        if d_ms is None:
             ms, dev_ms, split = min(t_kern_a, t_kern_b), "not measured", {}
         else:
-            ms, dev_ms = min(d_a, d_b), f"{d_a:.4f} / {d_b:.4f}"
-            split = {_kernel_label(n): round(min(k_a[n], k_b.get(n, k_a[n])), 4)
-                     for n in k_a}
+            ms, dev_ms, split = d_ms, f"{d_ms:.4f}", d_split
         shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 causal"
         log(f"(r) flash_attention_bwd at {name}'s {shape}: kernel {dev_ms} ms on the card "
-            f"(profiler; the delta pre-pass, then dK/dV and dQ: {split}), {t_kern_a:.4f} / "
+            f"(profiler, the median of three readings; the delta pre-pass, then dK/dV and "
+            f"dQ: {split}), {t_kern_a:.4f} / "
             f"{t_kern_b:.4f} ms a call (CUDA events), {flops / ms / 1e9:.1f} TFLOP/s; "
             f"plain {t_plain_a:.3f} / {t_plain_b:.3f} ms; SDPA backward {t_lib_a:.4f} / "
             f"{t_lib_b:.4f} ms (worst row error to the kernel {lib_err:.4g}); bound "
@@ -1749,7 +1842,7 @@ def phase_flash_bwd_timing(dev):
             c, d = _time(with_lse), _time(without)
             fwd_lse = dict(shape=shape, ms_with_lse=min(b, c), ms_without=min(a, d))
             log(f"(r) flash_attention at {shape}: {a:.4f} / {d:.4f} ms without lse, "
-                f"{b:.4f} / {c:.4f} ms with lse (CUDA events)")
+                f"{b:.4f} / {c:.4f} ms with lse and the f32 output (CUDA events)")
         del qh, kh, vh, oh
     row = rows[0]
     row["other_shapes"] = rows[1:]
@@ -1790,14 +1883,16 @@ def phase_mla_flash_vs_plain(dev):
             torch.bfloat16).transpose(1, 2)
         if not strided:
             do = do.contiguous()
-        o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         same_o = torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
-        want_o, plain_lse = FA.flash_attention_plain(q, k, v, causal=causal,
-                                                     return_lse=True)
+        want_o, plain_lse, _ = FA.flash_attention_plain(q, k, v, causal=causal,
+                                                        return_lse=True)
         torch.cuda.synchronize()
-        if o.shape != (B, Sq, H, MLA_DV) or not same_o:
+        if o.shape != (B, Sq, H, MLA_DV) or not same_o or not torch.equal(
+                o32.to(torch.bfloat16), o):
             fail(f"(s) flash_attention {name}: shape {tuple(o.shape)}, or the forward "
-                 f"with lse gave other bits than without")
+                 f"with lse gave other bits than without, or its f32 output does not "
+                 f"round to its output")
         fe = FA.row_error(o, want_o)
         lse_err = _err(lse, plain_lse)
         if not (fe <= FA.BF16_ROW_TOL and lse_err <= BWD_LSE_TOL):
@@ -1817,9 +1912,9 @@ def phase_mla_flash_vs_plain(dev):
                f"{fe:.4g} (tol {FA.BF16_ROW_TOL:.4g}), lse max |Δ| {lse_err:.3g}; with lse "
                f"bitwise without")
         if Sq == Skv:
-            got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-            again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+            got = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+            again = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+            want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=causal)
             torch.cuda.synchronize()
             if any(g.shape != w.shape for g, w in zip(got, want)):
                 fail(f"(s) flash_attention_bwd {name}: shapes "
@@ -1831,7 +1926,7 @@ def phase_mla_flash_vs_plain(dev):
                 fail(f"(s) flash_attention_bwd {name}: two launches gave different bits")
             cut = do.clone()
             cut[:, 64:128] = 0
-            _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut,
+            _, dk_cut, dv_cut = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, cut,
                                                             causal=causal)
             f_faults["dk x 0.9"] = _bwd_gate(
                 (got[0], (got[1].float() * 0.9).to(torch.bfloat16), got[2]), want)[0]
@@ -1875,7 +1970,7 @@ def phase_mla_flash_timing(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     q, k, v = _mla_inputs(gen, B, S, H, dev)
     do = torch.randn((B, S, H, MLA_DV), generator=gen, device=dev).to(torch.bfloat16)
-    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     doh = do.transpose(1, 2).contiguous()
@@ -1883,25 +1978,21 @@ def phase_mla_flash_timing(dev):
         "forward": lambda: FA.flash_attention_cuda(q, k, v, causal=True),
         "forward with lse": lambda: FA.flash_attention_cuda(q, k, v, causal=True,
                                                             return_lse=True),
-        "backward": lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True),
+        "backward": lambda: FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=True),
         "SDPA forward": lambda: F.scaled_dot_product_attention(
             qh.detach(), kh.detach(), vh.detach(), is_causal=True),
         "SDPA backward": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
                                                      retain_graph=True),
         "plain forward": lambda: FA.flash_attention_plain(q, k, v, causal=True),
-        "plain backward": lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+        "plain backward": lambda: FA.flash_attention_bwd_plain(q, k, v, o32, lse, do,
                                                                causal=True),
     }
     lib_err = FA.row_error(calls["SDPA forward"]().transpose(1, 2), o)
     ms, split = {}, {}
     for label in ("forward", "forward with lse", "backward", "SDPA forward",
                   "SDPA backward"):
-        a, b = _device_ms_by_kernel(calls[label], 10), _device_ms_by_kernel(calls[label], 10)
-        if a and b:
-            ms[label] = min(sum(a.values()), sum(b.values()))
-            split[label] = {_kernel_label(n)[:60]: round(min(a[n], b.get(n, a[n])), 4)
-                            for n in a}
-        else:
+        ms[label], split[label] = _median_reading(calls[label])
+        if ms[label] is None:
             ms[label] = _time(calls[label])
             split[label] = "not measured (profiler saw no device time; CUDA events)"
     for label in ("plain forward", "plain backward"):
@@ -1965,24 +2056,33 @@ def _plan_count(plan, pred) -> int:
             + plan.repeats * sum(pred(k) for k in plan.period))
 
 
-def _serve_and_time(dev, model, params, tokens, steps, tag):
+def _serve_and_time(dev, model, params, tokens, steps, tag, memory=None):
     """``generate()`` of ``steps`` greedy tokens after the prompts
-    ``tokens[:, :-1]``, counted: the prefill launches flash_attention once
-    an attention layer, decode launches no kernel.  Then the prefill and
-    the decode steps timed apart, two prefills bitwise alike (logits and
-    caches), prefill + decode_step giving generate()'s tokens, and the
-    device's busy share and busiest kernels under torch.profiler.  Returns
-    the counted launches and a summary."""
+    ``tokens[:, :-1]`` (with ``memory``, the batch's ``media`` or
+    ``src_embeds``, when given), counted: the prefill launches
+    flash_attention once an attention (the encoder's, a self-attention's
+    and a cross-attention's), and each decode step once a cross-attention
+    (one query row over the cached memory); nothing else.  Then the
+    prefill and the decode steps timed apart, two prefills bitwise alike
+    (logits and caches), prefill + decode_step giving generate()'s tokens,
+    and the device's busy share and busiest kernels under torch.profiler.
+    Returns the counted launches and a summary."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import tree_leaves
     from repro_torch.train import serve_step
 
     cfg = model.cfg
+    memory = memory or {}
     B, L = tokens.shape[0], tokens.shape[1] - 1
-    prompt = {"tokens": tokens[:, :L]}
+    prompt = dict(memory, tokens=tokens[:, :L])
+    mem_len = model.memory_len(prompt)
     cache_len = L + steps + 8
-    n_attn = _plan_count(model.plan, lambda k: k[0] == "attn")
-    serve_step.generate(model, params, {"tokens": tokens[:1, :64]}, 2, 72)  # warm-up
+    n_cross = _plan_count(model.plan, lambda k: k[0] in ("xattn", "attn_xattn"))
+    n_prefill = (_plan_count(model.plan, lambda k: k[0] in ("attn", "attn_xattn")) + n_cross
+                 + (0 if model.enc_plan is None else model.enc_plan.n_layers))
+    want = n_prefill + (steps - 1) * n_cross
+    serve_step.generate(model, params, dict({k: m[:1] for k, m in memory.items()},
+                                            tokens=tokens[:1, :64]), 2, 72)  # warm-up
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1993,24 +2093,29 @@ def _serve_and_time(dev, model, params, tokens, steps, tag):
     gen_s = time.perf_counter() - t0
     gen_peak = torch.cuda.max_memory_allocated()
     launches = dict(ops.launches)
-    if launches["flash_attention"] != n_attn or any(
+    if launches["flash_attention"] != want or any(
             n for k, n in launches.items() if k != "flash_attention"):
-        fail(f"({tag}) generate launched {launches}: the forward kernel not once an "
-             f"attention layer of the prefill ({n_attn}), or decode launched a kernel")
+        fail(f"({tag}) generate launched {launches}: the forward kernel not {want} times "
+             f"(once an attention of the prefill, {n_prefill}, and once a cross-attention "
+             f"of each of {steps - 1} decode steps, {n_cross}), or another kernel")
     if out.shape != (B, steps) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         fail(f"({tag}) generate gave tokens of shape {tuple(out.shape)} outside the vocab")
-    log(f"({tag}) ok: generate() {B} x {L} prompt tokens + {steps} greedy tokens in "
-        f"{gen_s:.2f} s, peak device memory {gen_peak / 2**30:.2f} GiB; launches "
-        f"{launches} ({n_attn} attention layers; decode launched none)")
+    log(f"({tag}) ok: generate() {B} x {L} prompt tokens"
+        + (f" over {mem_len} memory positions" if mem_len else "")
+        + f" + {steps} greedy tokens in {gen_s:.2f} s, peak device memory "
+        f"{gen_peak / 2**30:.2f} GiB; launches {launches} ({n_prefill} attentions in the "
+        f"prefill, {n_cross} a decode step)")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
+    logits, caches = model.prefill(params, prompt, model.init_cache(B, cache_len, dev,
+                                                                    mem_len=mem_len))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     if not torch.isfinite(logits).all():
         fail(f"({tag}) prefill logits not finite")
-    again, caches2 = model.prefill(params, prompt, model.init_cache(B, cache_len, dev))
+    again, caches2 = model.prefill(params, prompt, model.init_cache(B, cache_len, dev,
+                                                                    mem_len=mem_len))
     if not (_same_bits(logits, again) and all(
             _same_bits(a, b) for a, b in zip(tree_leaves(caches), tree_leaves(caches2)))):
         fail(f"({tag}) two prefills gave other bits (logits or caches)")
@@ -2031,8 +2136,13 @@ def _serve_and_time(dev, model, params, tokens, steps, tag):
     summary = dict(prefill_tokens_per_s=B * L / prefill_s, prefill_ms=prefill_s * 1e3,
                    decode_tokens_per_s=B * (steps - 1) / decode_s, decode_step_ms=step_ms,
                    peak_gib=gen_peak / 2**30)
+    if mem_len:
+        summary["prefill_memory_positions_per_s"] = B * mem_len / prefill_s
     log(f"({tag}) ok: prefill {B} x {L} tokens in {prefill_s * 1e3:.1f} ms "
-        f"({B * L / prefill_s:.0f} tokens/s), two prefills bitwise alike; {steps - 1} decode "
+        f"({B * L / prefill_s:.0f} tokens/s"
+        + (f"; {B} x {mem_len} memory positions, {B * mem_len / prefill_s:.0f} a second"
+           if mem_len else "")
+        + f"), two prefills bitwise alike; {steps - 1} decode "
         f"steps of {B} tokens in {decode_s * 1e3:.1f} ms ({B * (steps - 1) / decode_s:.1f} "
         f"tokens/s, {step_ms:.2f} ms a step)")
     pre = _device_profile(lambda: model.prefill(params, prompt))
@@ -2201,29 +2311,32 @@ def _moe_serve_case(dev, cfg, steps, tag, tf_tol, plain_tol, mixer_tol=None):
 
 
 @contextlib.contextmanager
-def _gqa_outputs():
+def _gqa_outputs(name="gqa_forward"):
     """Record the output of every GQA layer (``attention.gqa_forward``, the
-    mixer's output after ``wo``) run inside the context, in order."""
+    mixer's output after ``wo``), or of every call of the attention
+    module's function ``name`` (``"cross_attn_forward"``: every
+    cross-attention's output after ``wo``), run inside the context, in
+    order."""
     from repro_torch.models import attention
 
-    real, seen = attention.gqa_forward, []
+    real, seen = getattr(attention, name), []
 
     def record(*args, **kw):
         out = real(*args, **kw)
         seen.append(out)
         return out
 
-    attention.gqa_forward = record
+    setattr(attention, name, record)
     try:
         yield seen
     finally:
-        attention.gqa_forward = real
+        setattr(attention, name, real)
 
 
 def _mix_err(got, want) -> float:
     """The largest over layers of max |got - want| / max |want|."""
     if len(got) != len(want) or not want:
-        fail(f"GQA outputs of {len(got)} and {len(want)} layers to compare")
+        fail(f"layer outputs of {len(got)} and {len(want)} layers to compare")
     return max(_err(a, b) / float(b.float().abs().max()) for a, b in zip(got, want))
 
 
@@ -2659,6 +2772,451 @@ def phase_jamba_serve(dev):
         f"parameters ({full.param_count() * 2 / 1e9:.0f} GB in bf16) do not fit 80 GB")
     return _moe_serve_case(dev, cfg, JAMBA_STEPS, "x", JAMBA_TF_TOL, JAMBA_PLAIN_TOL,
                            mixer_tol=JAMBA_MIXER_TOL)
+
+
+@contextlib.contextmanager
+def _scaled_kernel(name, when=lambda kw: True):
+    """The planted fault "the kernel's output x 0.9", in the calls of the
+    attention module's function ``name`` whose keyword arguments satisfy
+    ``when`` only: ``blocked_attention`` is scaled while such a call
+    runs."""
+    from repro_torch.models import attention
+
+    real_fn, real_attention = getattr(attention, name), attention.blocked_attention
+    scaled = lambda q, k, v, *, causal=True: real_attention(q, k, v, causal=causal) * 0.9
+
+    def call(*args, **kw):
+        if not when(kw):
+            return real_fn(*args, **kw)
+        attention.blocked_attention = scaled
+        try:
+            return real_fn(*args, **kw)
+        finally:
+            attention.blocked_attention = real_attention
+
+    setattr(attention, name, call)
+    try:
+        yield
+    finally:
+        setattr(attention, name, real_fn)
+
+
+def _cross_cache_leaves(tree):
+    """The cross-attention caches' ``mk`` and ``mv`` leaves of a cache tree."""
+    if isinstance(tree, list):
+        return [t for v in tree for t in _cross_cache_leaves(v)]
+    if not isinstance(tree, dict):
+        return []
+    return [t for k, v in tree.items()
+            for t in ([v] if k in ("mk", "mv") else _cross_cache_leaves(v))]
+
+
+def _xattn_serve_case(dev, model, params, tokens, memory, steps, tag, fault, fault_ctx):
+    """A model with cross-attention served on the card:
+    :func:`_serve_and_time` over ``memory`` (the batch's ``media`` or
+    ``src_embeds``), then the teacher-forcing identity and a
+    plain-attention prefill, each at the logits (LM_TF_TOL, LM_PLAIN_TOL)
+    and at the cross-attention layers' outputs (XATTN_MIXER_TOL of their
+    max), and two planted faults each of which one of the two points must
+    reject: the cached memory keys and values rolled by one row across the
+    batch before the decode (each row attends another row's memory), and
+    ``fault`` (the context ``fault_ctx()``) in the kernel prefill.
+    Returns the counted launches and a summary."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+
+    B, L = tokens.shape[0], tokens.shape[1] - 1
+    prompt = dict(memory, tokens=tokens[:, :L])
+    launches, summary = _serve_and_time(dev, model, params, tokens, steps, tag, memory)
+    n_cross = _plan_count(model.plan, lambda k: k[0] in ("xattn", "attn_xattn"))
+
+    def decode_on_prompt_cache(roll=False):
+        """Decode at L on the prompt's cache → (logits, the decode step's
+        cross-attention outputs); ``roll`` rolls the cached memory by one
+        row across the batch first (the stacked caches' axis 1)."""
+        with _gqa_outputs("cross_attn_forward") as mix:
+            _, c = model.prefill(params, prompt, model.init_cache(B, L + 1, dev))
+            if roll:
+                for t in _cross_cache_leaves(c):
+                    t.copy_(t.roll(1, dims=1))
+            out, _ = model.decode_step(params, c, tokens[:, L:], L)
+        if len(mix) != 2 * n_cross:
+            fail(f"({tag}) {len(mix)} cross-attention calls in a prefill and a decode step, "
+                 f"expected {2 * n_cross}")
+        return out, mix[n_cross:]
+
+    with _gqa_outputs("cross_attn_forward") as full_mix:
+        full, _ = model.prefill(params, dict(memory, tokens=tokens))
+    last_row = [m[:, -1:] for m in full_mix]
+    dec, dec_mix = decode_on_prompt_cache()
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        fail(f"({tag}) teacher-forcing logits not finite")
+    tf_err, tf_mix = _logit_diff(dec[:, 0], full[:, -1]), _mix_err(dec_mix, last_row)
+
+    kernel_attention = attention.blocked_attention
+    with _gqa_outputs("cross_attn_forward") as k_mix:
+        k_logits, _ = model.prefill(params, prompt)
+    n_before = ops.launches["flash_attention"]
+    attention.blocked_attention = (
+        lambda q, k, v, *, causal=True: FA.flash_attention_plain(q, k, v, causal=causal))
+    try:
+        with _gqa_outputs("cross_attn_forward") as p_mix:
+            p_logits, _ = model.prefill(params, prompt)
+    finally:
+        attention.blocked_attention = kernel_attention
+    torch.cuda.synchronize()
+    if ops.launches["flash_attention"] != n_before:
+        fail(f"({tag}) the plain-attention prefill launched the kernel")
+    plain_err, plain_mix = _logit_diff(k_logits, p_logits), _mix_err(k_mix, p_mix)
+    agree = float((dec[:, 0].argmax(-1) == full[:, -1].argmax(-1)).float().mean())
+    summary.update(tf_err=tf_err, tf_mixer_err=tf_mix, plain_err=plain_err,
+                   plain_mixer_err=plain_mix)
+    log(f"({tag}) teacher forcing: max |decode(L) - prefill(L+1)[-1]| {tf_err:.4g} (tol "
+        f"{LM_TF_TOL}), at the {n_cross} cross-attention outputs max |Δ| / max |out| "
+        f"{tf_mix:.4g} (tol {XATTN_MIXER_TOL}), top-1 agreement {agree:.2f}; kernel "
+        f"prefill vs plain-attention prefill: max |Δ logits| {plain_err:.4g} (tol "
+        f"{LM_PLAIN_TOL}), at the cross-attention outputs {plain_mix:.4g}; logits std "
+        f"{float(full.float().std()):.4g}")
+    gates = {"teacher forcing": (tf_err, LM_TF_TOL),
+             "teacher forcing at the cross-attention outputs": (tf_mix, XATTN_MIXER_TOL),
+             "plain-attention prefill": (plain_err, LM_PLAIN_TOL),
+             "plain-attention prefill at the cross-attention outputs":
+                 (plain_mix, XATTN_MIXER_TOL)}
+    for g, (e, tol) in gates.items():
+        if not e <= tol:
+            fail(f"({tag}) {g} differs by {e} (> {tol})")
+
+    rolled, rolled_mix = decode_on_prompt_cache(roll=True)
+    with fault_ctx(), _gqa_outputs("cross_attn_forward") as f_mix:
+        scaled, _ = model.prefill(params, prompt)
+    faults = {"memory rolled by one row in the cross caches": [
+                  (_logit_diff(rolled[:, 0], full[:, -1]), LM_TF_TOL),
+                  (_mix_err(rolled_mix, last_row), XATTN_MIXER_TOL)],
+              fault: [(_logit_diff(scaled, p_logits), LM_PLAIN_TOL),
+                      (_mix_err(f_mix, p_mix), XATTN_MIXER_TOL)]}
+    for f, pts in faults.items():
+        if not any(e > tol for e, tol in pts):
+            fail(f"({tag}) the gates accept a planted fault ({f}: {pts}, each (moved, tol))")
+    summary["faults"] = {f: [e for e, _ in pts] for f, pts in faults.items()}
+    log(f"({tag}) ok: planted faults rejected, (logits, cross-attention outputs): "
+        + ", ".join(f"{f} " + " / ".join(f"{e:.4g} (tol {tol})" for e, tol in pts)
+                    for f, pts in faults.items())
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, summary
+
+
+def phase_vlm_serve(dev):
+    """(y): llama-3.2-vision-90b at full width cut to VLM_PERIODS periods,
+    served over media embeddings: 10 forward launches a prefill (2
+    cross-attention, 8 self-attention layers) and 2 a decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build
+
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(n_layers=VLM_PERIODS * full.cross_attn_every)
+    B, L = VLM_BATCH, VLM_PROMPT
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"(y) {full.name} cut from {full.n_layers} to {cfg.n_layers} layers ({VLM_PERIODS} "
+        f"periods of plan {model.plan.period}) at full width: {full.param_count() / 1e9:.2f} "
+        f"B parameters ({full.param_count() * 2 / 1e9:.0f} GB in bf16) do not fit 80 GB; "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_media_tokens} media tokens, "
+        f"{cfg.dtype}: {cfg.param_count() / 1e9:.3f} B random weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    media = (torch.randn((B, cfg.n_media_tokens, cfg.d_model), generator=gen, device=dev)
+             * STUB_SCALE).to(cfg.torch_dtype)
+    out = _xattn_serve_case(dev, model, params, tokens, {"media": media}, VLM_STEPS, "y",
+                            "kernel output x 0.9 in the cross-attention layers",
+                            lambda: _scaled_kernel("cross_attn_forward"))
+    del params, model, media
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_audio_serve(dev):
+    """(z) serving: seamless-m4t-large-v2 at full width and depth over
+    sources of enc_seq frames: 24 encoder and 48 decoder forward launches a
+    prefill, 24 a decode step; a shorter source refused by a cache of
+    enc_seq slots."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build
+
+    cfg = get_config(AUDIO_ARCH)
+    B, L = AUDIO_BATCH, AUDIO_PROMPT
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"(z) {cfg.name}: {cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, sources of {cfg.enc_seq} frames, {cfg.dtype}: "
+        f"{cfg.param_count() / 1e9:.3f} B random weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; nothing cut")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    tokens = torch.randint(0, cfg.vocab, (B, L + 1), generator=gen, device=dev)
+    src = (torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+           * STUB_SCALE).to(cfg.torch_dtype)
+    launches, summary = _xattn_serve_case(
+        dev, model, params, tokens, {"src_embeds": src}, AUDIO_STEPS, "z",
+        "kernel output x 0.9 in the encoder",
+        lambda: _scaled_kernel("gqa_forward", lambda kw: kw.get("causal") is False))
+    short = {"tokens": tokens[:, :L], "src_embeds": src[:, :AUDIO_SHORT_SOURCE]}
+    try:
+        model.prefill(params, short, model.init_cache(B, L + 1, dev))
+    except ValueError as e:
+        log(f"(z) ok: a {AUDIO_SHORT_SOURCE}-frame source into a {cfg.enc_seq}-slot cache "
+            f"refused: {e}")
+    else:
+        fail(f"(z) a {AUDIO_SHORT_SOURCE}-frame source went into a {cfg.enc_seq}-slot "
+             f"cross cache")
+    del params, model, src
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_audio_train(dev):
+    """(z) training: seamless-m4t-large-v2 at full width and depth trained
+    AUDIO_TRAIN_STEPS steps; then one step's bf16 gradients of a slice of
+    TRAIN_GRAD_LAYERS encoder and decoder layers, through the kernels and
+    through their plain versions, each against f32's."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_config(AUDIO_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, AUDIO_TRAIN_STEPS
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    params, state = run.init_state()
+    first = next(TokenStream(run.stream.cfg, device=dev))
+    with torch.no_grad():   # the initial weights' logits of the first batch's rows
+        first_logits, _ = run.model.prefill(params, first)
+    torch.cuda.synchronize()
+    log(f"(z) training {cfg.name}, {cfg.dtype}, remat={cfg.remat} ({cfg.remat_policy}): "
+        f"{cfg.param_count() / 1e9:.3f} B random weights and AdamW state on the card; "
+        f"B={B} x S={S} tokens and {S} source frames a step; nothing cut")
+    losses, gnorms, walls, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for _ in range(n):
+        batch = next(run.stream)
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: ops.launches[k] - before[k]
+                         for k in ("flash_attention", "flash_attention_bwd")})
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"(z) losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}, step walls (s) {[round(w, 3) for w in walls]}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("(z) a loss or grad norm is not finite")
+    # an untied, fan-in scaled lm_head after a unit-rms ln_f: the initial
+    # logits' std is 1, and step 0's loss sits near ln V + sigma^2 / 2
+    ln_v = math.log(cfg.vocab)
+    sigma = float(first_logits.float().std())
+    want0 = ln_v + sigma ** 2 / 2
+    if cfg.tie_embeddings or not abs(sigma - 1.0) <= TRAIN_SIGMA_TOL:
+        fail(f"(z) the initial logits' std {sigma} is not within {TRAIN_SIGMA_TOL} of the "
+             f"1 that an untied, fan-in scaled lm_head gives (tied: {cfg.tie_embeddings})")
+    if not abs(losses[0] - want0) <= TRAIN_LOSS0_TOL:
+        fail(f"(z) step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of "
+             f"ln({cfg.vocab}) + sigma^2 / 2 = {want0:.4f} (sigma {sigma:.4f})")
+    if not losses[-1] < losses[0]:
+        fail(f"(z) the loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    if any(s != want for s in per_step):
+        fail(f"(z) launches a step {per_step}, expected {want} ({cfg.n_enc_layers} encoder, "
+             f"{cfg.n_layers} self- and {cfg.n_layers} cross-attentions, forward twice "
+             f"under remat)")
+    step_s = float(np.median(walls[1:]))
+    summary = dict(step_s=step_s, tokens_per_s=B * S / step_s, peak_gib=peak / 2**30,
+                   losses=losses)
+    log(f"(z) ok: {n} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} (ln V + sigma^2 / 2 "
+        f"= {want0:.4f}, sigma {sigma:.4f}); step wall {step_s:.3f} s (median of steps "
+        f"1-{n - 1}; step 0 {walls[0]:.3f} s), {B * S / step_s:.0f} tokens/s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}, {per_step[0]} a step")
+    batch = next(run.stream)
+    prof = _device_profile(lambda: run.step_fn(params, state, batch))
+    if prof is None:
+        log("(z) torch.profiler saw no device time: busy share not measured")
+    else:
+        summary.update(idle_share=1 - prof[0] / (step_s * 1e3), ops_ms=dict(prof[3]))
+        log(f"(z) one step: device busy {prof[0]:.1f} ms of {step_s * 1e3:.1f} ms wall "
+            f"(idle share {summary['idle_share']:.2f}), {prof[1]} kernels; busiest: "
+            + ", ".join(f"{nm[:60]} {ms:.1f} ms" for nm, ms in prof[2])
+            + "; by op: " + ", ".join(f"{nm} {ms:.1f} ms" for nm, ms in prof[3]))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads, _ = grads_of(run.model, params, batch)
+    torch.cuda.synchronize()
+    peak_bwd = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run.opt.update(params, grads, state)
+    torch.cuda.synchronize()
+    peak_upd = torch.cuda.max_memory_allocated()
+    summary.update(peak_bwd_gib=peak_bwd / 2**30, peak_update_gib=peak_upd / 2**30)
+    log(f"(z) device memory: {resident / 2**30:.2f} GiB held between steps (weights, "
+        f"AdamW moments), peak {peak_bwd / 2**30:.2f} GiB in the backward, "
+        f"{peak_upd / 2**30:.2f} GiB in AdamW.update")
+    del run, params, state, metrics, batch, grads
+    torch.cuda.empty_cache()
+
+    small = cfg.replace(n_layers=TRAIN_GRAD_LAYERS, n_enc_layers=TRAIN_GRAD_LAYERS)
+    model, m32 = build(small), build(small.replace(dtype="float32"))
+    p2 = model.init(SEED, device=dev)
+    p32 = tree_map(lambda t: t.float(), p2)
+    batch = next(TokenStream(TokenStreamConfig(vocab=cfg.vocab, batch=B, seq_len=S,
+                                               seed=SEED, d_model=cfg.d_model,
+                                               family=cfg.family), device=dev))
+    ops.reset_launch_counts()
+    kern, _ = grads_of(model, p2, batch)
+    n_kern = dict(ops.launches)
+    real = FA.flash_attention_cuda, FA.flash_attention_bwd_cuda
+    FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = (
+        FA.flash_attention_plain, FA.flash_attention_bwd_plain)
+    try:
+        plain, _ = grads_of(model, p2, batch)
+        g32, _ = grads_of(m32, p32, batch)
+    finally:
+        FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = real
+    torch.cuda.synchronize()
+    if ops.launches != n_kern or n_kern["flash_attention_bwd"] != 3 * TRAIN_GRAD_LAYERS:
+        fail(f"(z) the kernel step launched {n_kern}, the plain steps {dict(ops.launches)}")
+    rel = lambda a, b: _err(a.float(), b.float()) / float(b.float().abs().max())
+    errs = {k: (rel(a, w), rel(b, w), rel(a, b))   # kernels, plain from f32; apart
+            for (k, a), b, w in zip(_named_leaves(kern), tree_leaves(plain),
+                                    tree_leaves(g32))}
+    bound = {k: max(LM_GRAD_TOL, XATTN_GRAD_RATIO * e[1]) for k, e in errs.items()}
+    worst = max(errs, key=lambda k: errs[k][0] / bound[k])
+    apart_worst = max(errs, key=lambda k: errs[k][2])
+    apart = sorted(errs, key=lambda k: -errs[k][2])[:4]
+    summary["grad_err"] = {k: errs[k] for k in apart}
+    log(f"(z) one step at {cfg.name}'s widths, {TRAIN_GRAD_LAYERS} encoder and "
+        f"{TRAIN_GRAD_LAYERS} decoder layers, B={B}, S={S}, per leaf max |Δg| / max|g| "
+        f"(kernels from f32, plain from f32, kernels from plain): the leaves farthest "
+        f"apart " + ", ".join(f"{k} {errs[k][0]:.4g} / {errs[k][1]:.4g} / {errs[k][2]:.4g}"
+                              for k in apart)
+        + f"; median kernels from plain {float(np.median([e[2] for e in errs.values()])):.4g}"
+        f"; closest to its bound {worst} {errs[worst][0]:.4g} (bound {bound[worst]:.4g}: "
+        f"the larger of {LM_GRAD_TOL} and {XATTN_GRAD_RATIO} x the plain versions' own)")
+    if not errs[worst][0] <= bound[worst]:
+        fail(f"(z) {worst}'s gradient through the kernels is {errs[worst][0]} of its max "
+             f"|g| from f32's (> {bound[worst]}; the plain versions' {errs[worst][1]})")
+    if not errs[apart_worst][2] <= LM_GRAD_TOL:
+        fail(f"(z) {apart_worst}'s gradients through the kernels and through the plain "
+             f"versions are {errs[apart_worst][2]} of its max |g| apart (> {LM_GRAD_TOL})")
+    # the planted fault the gate must reject: the backward kernel's dk x 0.9
+    def scaled_dk(*args, **kw):
+        dq, dk, dv = real[1](*args, **kw)
+        return dq, (dk.float() * 0.9).to(dk.dtype), dv
+
+    FA.flash_attention_bwd_cuda = scaled_dk
+    try:
+        faulty, _ = grads_of(model, p2, batch)
+    finally:
+        FA.flash_attention_bwd_cuda = real[1]
+    moved = {k: rel(a, w) / bound[k]
+             for (k, a), w in zip(_named_leaves(faulty), tree_leaves(g32))}
+    far = max(moved, key=moved.get)
+    summary["fault_dk_scaled"] = (far, moved[far])
+    log(f"(z) the backward kernel's dk x 0.9 moves {far} to {moved[far]:.3g} times its "
+        f"bound")
+    if not moved[far] > 1:
+        fail("(z) the gradient gate accepts the backward kernel's dk x 0.9")
+    del faulty
+    del model, m32, p2, p32, kern, plain, g32, batch
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def _named_leaves(tree, path=""):
+    """``(path, leaf)`` of every leaf of a tree of dicts and lists, in
+    ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def phase_xattn_flash_timing(dev):
+    """(y)/(z) timing: the forward kernel at llama-3.2-vision's
+    cross-attention shape (B=4, Sq=2,048 over 1,600 media keys, H=64,
+    Hkv=8, D=128) and at seamless's encoder shape (B=4, S=4,096, H=Hkv=16,
+    D=64), non-causal, per kernel from torch.profiler beside the plain
+    version, SDPA and the bound; and its decode rows (one query row over
+    the 1,600 media keys, and over the 4,096 encoded frames), whose 64-row
+    tiles hold one live row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import traffic
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    rows = {}
+    for label, (B, Sq, Skv, H, Hkv, D) in (
+            ("vlm cross-attention", (VLM_BATCH, VLM_PROMPT, 1600, 64, 8, 128)),
+            ("seamless encoder", (AUDIO_BATCH, 4096, 4096, 16, 16, 64)),
+            ("vlm decode row", (VLM_BATCH, 1, 1600, 64, 8, 128)),
+            ("seamless decode row", (AUDIO_BATCH, 1, 4096, 16, 16, 64))):
+        q, k, v = _flash_inputs(gen, B, Sq, Skv, H, Hkv, D, torch.bfloat16, dev)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        calls = {
+            "kernel": lambda: FA.flash_attention_cuda(q, k, v, causal=False),
+            "SDPA": lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=False,
+                                                           enable_gqa=Hkv != H),
+        }
+        o = calls["kernel"]()
+        err = FA.row_error(o, FA.flash_attention_plain(q, k, v, causal=False))
+        lib_err = FA.row_error(calls["SDPA"]().transpose(1, 2), o)
+        if not max(err, lib_err) <= FA.BF16_ROW_TOL:
+            fail(f"(y/z) at the {label} shape the kernel is {err} from its plain version "
+                 f"and SDPA {lib_err} from the kernel (> {FA.BF16_ROW_TOL})")
+        ms, split = {}, {}
+        for name, fn in calls.items():
+            ms[name], split[name] = _median_reading(fn)
+            if ms[name] is None:
+                ms[name] = _time(fn)
+                split[name] = "not measured (profiler saw no device time; CUDA events)"
+        ms["plain"] = _time(lambda: FA.flash_attention_plain(q, k, v, causal=False), iters=2)
+        flops = traffic.flash_attention_flops(B, Sq, H, D, Skv, False)
+        nbytes = traffic.flash_attention_bytes(B, Sq, Skv, H, Hkv, D, 2)
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+        shape = f"B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} bf16 non-causal"
+        rows[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["SDPA"],
+                           bound_ms=max(t_b, t_f),
+                           bound_by="bytes" if t_b >= t_f else "operations", shape=shape,
+                           max_row_err=err, library_kernels=split["SDPA"])
+        log(f"(y/z) flash_attention at the {label} shape {shape}: kernel {ms['kernel']:.4f} "
+            f"ms ({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), SDPA {ms['SDPA']:.4f} ms "
+            f"(kernels {split['SDPA']}; worst row error to ours {lib_err:.4g}), plain "
+            f"{ms['plain']:.3f} ms, bound {max(t_b, t_f):.4f} ms (bytes {nbytes}, flops "
+            f"{flops}); worst row error to the plain version {err:.4g}")
+        del q, k, v, qh, kh, vh, o
+    return rows
 
 
 def _kernel_label(name: str) -> str:
@@ -3422,11 +3980,11 @@ def phase_data_parallel(dev):
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
-    (f) and (i) time them, its flash_attention forward at (l)'s shape and
-    its flash_attention_bwd at (r)'s two shapes (null for a tree without
-    that wrapper), through wrappers that every slice of the port has, so
+    (f) and (i) time them, its flash_attention forward at (l)'s shape
+    (without and with lse) and its flash_attention_bwd at (r)'s two shapes
+    (null for a tree without that wrapper), through wrappers that every slice of the port has, so
     that two trees compare on one card in one call.  Each time is the
-    lower of two ``torch.profiler`` readings (:func:`_device_ms`).  Beside
+    median of three ``torch.profiler`` readings (:func:`_median_reading`).  Beside
     the times, a digest of each kernel's SASS (:func:`_sass_digests`), so
     that two trees' kernels compare function by function.  Prints one JSON
     line."""
@@ -3443,13 +4001,14 @@ def tree_times(root: Path, dev) -> None:
     ms = {}
 
     def best(name, fn):
-        d = [_device_ms(fn), _device_ms(fn)]
-        ms[name] = None if None in d else min(d)
+        ms[name] = _median_reading(fn, iters=20)[0]
 
     fgen = torch.Generator(device=dev).manual_seed(SEED + 7)
     q, k, v = _flash_inputs(fgen, LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 128,
                             torch.bfloat16, dev)
     best("flash_attention llama3-8b", lambda: FA.flash_attention_cuda(q, k, v, causal=True))
+    best("flash_attention with lse llama3-8b",
+         lambda: FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True))
     del q, k, v
     for name, (B, S, H, Hkv, D) in (("qwen3-1.7b", (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)),
                                     ("llama3-8b", (LM_BATCH, LM_PROMPT, 32, 8, 128))):
@@ -3458,10 +4017,13 @@ def tree_times(root: Path, dev) -> None:
             continue
         q, k, v = _flash_inputs(fgen, B, S, S, H, Hkv, D, torch.bfloat16, dev)
         do = torch.randn((B, S, H, D), generator=fgen, device=dev).to(torch.bfloat16)
-        o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        # (o, lse), or (o, lse, the f32 output) from a tree whose backward
+        # takes δ from that
+        out = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        o, lse = out[2] if len(out) == 3 else out[0], out[1]
         best(f"flash_attention_bwd {name}",
              lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))
-        del q, k, v, do, o, lse
+        del q, k, v, do, o, lse, out
 
     for T in (128, 256):
         cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
@@ -3666,13 +4228,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     for path, phase in (("mamba_serve", phase_mamba_serve),
                         ("mamba_train", phase_mamba_train),
-                        ("jamba_serve", phase_jamba_serve)):
+                        ("jamba_serve", phase_jamba_serve),
+                        ("vlm_serve", phase_vlm_serve),
+                        ("audio_serve", phase_audio_serve),
+                        ("audio_train", phase_audio_train)):
         path_launches, _ = phase(dev)          # each resets and reads the counts
         for k in ops.KERNELS:
             by_path[k][path] = path_launches[k]
         torch.cuda.empty_cache()
     rows["flash_attention"]["mla"], rows["flash_attention_bwd"]["mla"] = (
         phase_mla_flash_timing(dev))
+    rows["flash_attention"]["xattn"] = phase_xattn_flash_timing(dev)
 
     card = card_line()
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
@@ -3707,6 +4273,7 @@ def main() -> None:
                                             rows["rsnn_forward B=2048"]]
         if name == "flash_attention":
             kernels[-1]["with_lse"] = r["with_lse"]
+            kernels[-1]["xattn"] = r["xattn"]
         if name == "flash_attention_bwd":
             kernels[-1]["other_shapes"] = r["other_shapes"]
         if name in ("flash_attention", "flash_attention_bwd"):

@@ -3,11 +3,15 @@
 
 ``get_config(arch_id)`` loads ``repro_torch.configs.<arch_id>`` (dashes and
 dots → underscores) and returns its ``CONFIG``; each arch module also
-provides ``reduced()``, a small same-family config for CPU tests.  The
-dense, ``moe`` (MLA comes with deepseek's config), ``ssm`` (mamba2-1.3b)
-and ``hybrid`` (jamba-v0.1-52b: Mamba, attention and MoE layers) families
-are ported; the ``vlm`` and ``audio`` archs of :data:`ARCH_IDS` raise
-``NotImplementedError`` (ROADMAP A8 item 4).
+provides ``reduced()``, a small same-family config for CPU tests.  Every
+family of :data:`ARCH_IDS` is ported: dense, ``moe`` (MLA comes with
+deepseek's config), ``ssm`` (mamba2-1.3b), ``hybrid`` (jamba-v0.1-52b:
+Mamba, attention and MoE layers), ``vlm`` (llama-3.2-vision-90b: a
+cross-attention layer every ``cross_attn_every`` layers over
+``n_media_tokens`` precomputed patch embeddings) and ``audio``
+(seamless-m4t-large-v2: an encoder of ``n_enc_layers`` bidirectional
+layers over precomputed frame embeddings, and a decoder whose every layer
+cross-attends the encoded memory).
 """
 
 from __future__ import annotations
@@ -36,12 +40,10 @@ class MLAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The fields of :class:`repro.configs.base.ModelConfig` that the dense,
-    ``moe``, ``ssm`` and ``hybrid`` families read, with the same names and
-    defaults, and the training's rematerialisation knobs (``remat``;
-    ``remat_policy`` "full" or "dots").  The vlm and audio fields
-    (cross-attention, encoder) come with their families; the JAX package's
-    other execution knobs (attention tile sizes, scan-over-layers,
+    """The fields of :class:`repro.configs.base.ModelConfig` that the six
+    families read, with the same names and defaults, and the training's
+    rematerialisation knobs (``remat``; ``remat_policy`` "full" or
+    "dots").  The JAX package's other execution knobs (attention tile sizes, scan-over-layers,
     unrolling: the card's kernels size their own tiles and the port runs a
     loop) have no counterpart."""
     name: str
@@ -65,6 +67,13 @@ class ModelConfig:
     # hybrid schedule: attention layer once per `attn_every` layers
     attn_every: int = 1
     attn_offset: int = 3            # position of the attn layer in the period
+    # vlm: one cross-attn layer per `cross_attn_every` layers
+    cross_attn_every: int = 0
+    n_media_tokens: int = 0
+    # enc-dec (audio): n_layers is the decoder depth
+    encdec: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 4096             # the memory length a cache holds by default
     dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "full"      # "full" | "dots" (save the 2-D matmuls)
@@ -103,20 +112,16 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-# Archs whose family the port runs (dense, moe, ssm and hybrid).
+# Archs whose family the port runs: all of them.
 PORTED_ARCHS = ("qwen1.5-32b", "llama3-8b", "yi-34b", "qwen3-1.7b",
                 "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
-                "mamba2-1.3b", "jamba-v0.1-52b")
+                "mamba2-1.3b", "jamba-v0.1-52b", "llama-3.2-vision-90b",
+                "seamless-m4t-large-v2")
 
 
 def _module(arch: str):
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: its family is not ported yet (ROADMAP A8 item 4); the port "
-            f"runs {list(PORTED_ARCHS)}"
-        )
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -10,8 +10,12 @@ trainer stores ``data_step``).
 
 Batches are ``{"tokens", "targets"}`` of int64 ``(batch, seq_len)`` on the
 stream's device (the card unless the caller passes ``"cpu"``).  The
-``vlm`` media and ``audio`` source stubs come with their families
-(ROADMAP A8).
+``vlm`` family's batches also hold ``media`` ``(batch, n_media_tokens,
+d_model)`` and the ``audio`` family's ``src_embeds`` ``(batch, seq_len,
+d_model)``: stand-ins for a frontend's embeddings, ``0.02 ·
+standard_normal`` drawn after the tokens from the same generator and kept
+in f32, bit for bit the JAX stream's (the model casts them to its
+dtype).
 """
 
 from __future__ import annotations
@@ -40,9 +44,6 @@ class TokenStreamConfig:
 class TokenStream:
     def __init__(self, cfg: TokenStreamConfig, position: int = 0,
                  device: DeviceLike = None):
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"the {cfg.family} stream's stubs come with its family (ROADMAP A8)")
         self.cfg = cfg
         self.position = position
         self.device = resolve_device(device)
@@ -59,4 +60,11 @@ class TokenStream:
         self.position += 1
         toks = rng.choice(cfg.vocab, size=(cfg.batch, cfg.seq_len + 1), p=self._p)
         toks = torch.from_numpy(toks.astype(np.int64)).to(self.device)
-        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        stub = {"vlm": ("media", cfg.n_media_tokens),
+                "audio": ("src_embeds", cfg.seq_len)}.get(cfg.family)
+        if stub is not None:
+            key, n = stub
+            x = rng.standard_normal((cfg.batch, n, cfg.d_model)) * 0.02
+            batch[key] = torch.from_numpy(x.astype(np.float32)).to(self.device)
+        return batch

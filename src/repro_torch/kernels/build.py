@@ -137,12 +137,12 @@ def _load(path: Path) -> ctypes.CDLL:
         + [f32, f32, f32, i32, f32, i32, ptr])
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
-    # flash_attention: q, k, v, o, lse (null: none written); bf16, B, Sq,
-    # Skv, H, Hkv, the q/k width D and the v width DV; the batch, sequence
-    # and head strides of q, k and v; kv_len, causal, scale; the plan's q
-    # tiles and shared-memory bytes; stream
+    # flash_attention: q, k, v, o, lse and the f32 output (null: neither
+    # written); bf16, B, Sq, Skv, H, Hkv, the q/k width D and the v width
+    # DV; the batch, sequence and head strides of q, k and v; kv_len,
+    # causal, scale; the plan's q tiles and shared-memory bytes; stream
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 5 + [i32] * 8 + [ctypes.c_longlong] * 9
+        [ptr] * 6 + [i32] * 8 + [ctypes.c_longlong] * 9
         + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
     # flash_attention_bwd: q, k, v, o, dO, lse, lse2, delta, dq, dk, dv;
     # bf16, B, Sq, Skv, H, Hkv, D, DV; the strides of q, k and v; causal,

@@ -2,7 +2,10 @@
 // k (B, Skv, Hkv, DK) and v (B, Skv, Hkv, DV), behind the prefill of every
 // attention layer of the LMs (models/attention.py:blocked_attention; DK = DV
 // in GQA, DK = 192 and DV = 128 in deepseek-v2's MLA) and, in its variant
-// that also writes each row's log-sum-exp, behind the forward of training;
+// that also writes each row's log-sum-exp and, in bf16, the output before
+// its rounding (the backward's rowsum(dO * o) takes it: a rounded o there
+// can lead a gradient that cancels, such as cross-attention's dQ over a
+// memory whose keys share a large part), behind the forward of training;
 // flash_attention_bwd.cu holds the training's backward.  Replaces
 // src/repro/kernels/flash_attention.py:_kernel (wrapper flash_attention);
 // it builds into one library with the RSNN kernels.
@@ -74,6 +77,8 @@ struct FlashArgs {
   int B, Sq, Skv, H, Hkv, kv_len, causal;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float scale;
+  float* o32;  // (B, Sq, H, DV) f32: the bf16 LSE variant's output before its
+               // rounding (the backward's delta takes it)
 };
 
 // Keys a q tile starting at q0 with nq rows reads, in whole tiles.
@@ -342,6 +347,15 @@ __global__ void __launch_bounds__(FA_THREADS)
       // lse = ln(sum exp(s * scale)) = ln2 * (m + log2 l), m in log2 units
       if (LSE && t4 == 0)
         a.lse[((long long)b * a.H + h) * a.Sq + q] = (m_r[r] + log2f(l)) * FA_LN2;
+      // the same row before its rounding: the bf16 output is this rounded
+      if constexpr (LSE) {
+        float* frow = a.o32 + ((long long)(b * a.Sq + q) * a.H + h) * DV;
+#pragma unroll
+        for (int j = 0; j < DN; ++j) {
+          *reinterpret_cast<float2*>(frow + j * 8 + t4 * 2) =
+              make_float2(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
+        }
+      }
     }
   }
 }
@@ -547,14 +561,15 @@ int launch_d(const FlashArgs& a, int bf16, size_t smem, int grid_x,
 }  // namespace
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, float* lse, int bf16,
+    const void* q, const void* k, const void* v, void* o, float* lse, float* o32, int bf16,
     int B, int Sq, int Skv, int H, int Hkv, int D, int DV, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int kv_len,
     int causal, float scale, int grid_x, long long smem, void* stream) {
   FlashArgs a{q,    k,    v,    o,    lse,  B,    Sq,   Skv,  H,    Hkv,
               kv_len, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-              v_sh, scale};
+              v_sh, scale, o32};
+  if (bf16 && lse != nullptr && o32 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t sm = (size_t)smem;
   // the (q/k, v) width pairs of kernels/flash_attention.py:KERNEL_HEAD_DIMS

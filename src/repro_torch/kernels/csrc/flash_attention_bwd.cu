@@ -8,7 +8,10 @@
 // no backward.  It builds into one library with the forward and the RSNN
 // kernels.
 //
-// Function.  delta = rowsum(dO * o) (f32, a pre-pass); P = exp(S - lse)
+// Function.  delta = rowsum(dO * o) (f32, a pre-pass), o the forward's f32
+// output before its rounding: dQ = scale * sum_j P (dP - delta) k_j
+// cancels when the keys share a large part (a cross-attention's memory
+// does), and a bf16 o's rounding in delta would lead it; P = exp(S - lse)
 // with S = q.k * scale, masked as the forward masks (keys after the
 // query's position when causal); dV = P^T dO, dP = dO V^T, dS = P * (dP -
 // delta), dQ = scale * dS K, dK = scale * dS^T Q; dK and dV summed over
@@ -83,7 +86,8 @@ struct FlashBwdArgs {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;     // (B, Sq, H, D), contiguous
+  const float* o;    // (B, Sq, H, D) f32, contiguous: the forward's output
+                     // before its rounding to q's dtype
   const void* dout;  // (B, Sq, H, D), contiguous
   const float* lse;  // (B, H, Sq)
   float* lse2;       // (B, H, sq_pad): lse * log2(e), +inf past Sq (pre-pass)
@@ -122,7 +126,7 @@ __global__ void __launch_bounds__(FA_THREADS)
   if (h >= a.H) return;
   const int lane = threadIdx.x & 31;
   const long long row = ((long long)blockIdx.x * a.H + h) * D;
-  const float* o = static_cast<const float*>(a.o) + row;
+  const float* o = a.o + row;
   const float* d = static_cast<const float*>(a.dout) + row;
   float s = 0.f;
   for (int c = lane; c < D; c += 32) s = fmaf(o[c], d[c], s);
@@ -131,7 +135,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   if (lane == 0) delta_store(a, b, pos, h, s);
 }
 
-// bf16: D / 8 threads a head, 16 bytes of o and of dO each.
+// bf16: D / 8 threads a head, 8 elements of o (32 bytes, f32) and of dO
+// (16 bytes) each.
 template <int D>
 __host__ __device__ constexpr int delta_bf16_rows() {
   return FA_THREADS / (D / 8);
@@ -148,16 +153,17 @@ __global__ void __launch_bounds__(FA_THREADS)
   float s = 0.f;
   if (live) {
     const long long at = ((long long)blockIdx.x * a.H + h) * D + c * 8;
-    const uint4 ov = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.o) + at);
+    const float4 o0 = *reinterpret_cast<const float4*>(a.o + at);
+    const float4 o1 = *reinterpret_cast<const float4*>(a.o + at + 4);
     const uint4 dv =
         *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) + at);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
     const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+    const float of[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
-      s = fmaf(of.x, df.x, s);
-      s = fmaf(of.y, df.y, s);
+      const float2 df = __bfloat1622float2(d2[i]);
+      s = fmaf(of[2 * i], df.x, s);
+      s = fmaf(of[2 * i + 1], df.y, s);
     }
   }
 #pragma unroll
@@ -1187,7 +1193,7 @@ int launch_bwd_d(const FlashBwdArgs& a, int bf16, const BwdPlan& p,
 }  // namespace
 
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o,
+    const void* q, const void* k, const void* v, const float* o,
     const void* dout, const float* lse, float* lse2, float* delta, void* dq,
     void* dk, void* dv, int bf16, int B, int Sq, int Skv, int H, int Hkv, int D, int DV,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,

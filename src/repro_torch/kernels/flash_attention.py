@@ -21,8 +21,10 @@ The q/k width and the v width differ in MLA (deepseek-v2: 192 = 128 +
 Whole key tiles above the diagonal or past ``kv_len`` are skipped (their
 terms are exact zeros once a row has seen key 0, which every row has).
 Ragged lengths need no padding: the kernel masks its own edges.  On
-request both forwards also return each row's log-sum-exp ``lse = m +
-log(l)`` in f32, ``(B, H, Sq)``, the statistic the backward needs.
+request both forwards also return what the backward takes: each row's
+log-sum-exp ``lse = m + log(l)`` in f32, ``(B, H, Sq)``, and the output
+before its rounding to q's dtype (f32, ``(B, Sq, H, DV)``; in f32 the
+output itself), from which the backward takes ``δ``.
 
 The backward (``FlashAttentionFn``, the gradient JAX takes of
 ``repro.models.attention.blocked_attention`` with ``jax.grad``; the Pallas
@@ -31,7 +33,11 @@ kernel has none) recomputes the probabilities tile by tile from the saved
 (dP - δ)`` with ``δ = rowsum(dO ∘ O)``, ``dQ = scale·dS·K``, ``dK =
 scale·dSᵀ·Q``; dK and dV summed over the G query heads of each KV head.
 Like the forward it rounds ``P`` (and ``dS``) to the input dtype before
-their products.
+their products.  ``O`` in ``δ`` is the forward's f32 output before its
+rounding: ``dQ_i = scale·Σ_j P_ij (dP_ij - δ_i) k_j`` cancels when the keys
+share a large part (a cross-attention's memory does), and the bf16
+output's rounding in ``δ`` then led it (0.85 of max|dq| from f32 where JAX's
+bf16 gradient is 0.034, ``tests/test_torch_xattn.py``).
 
 * :func:`flash_attention_cuda` launches the kernel of
   ``csrc/flash_attention.cu`` on the tensors' card: in bf16 (every model
@@ -111,9 +117,10 @@ ROW_FLOOR = 2 ** -16
 # are rounded to bf16 as product operands (2^-9 each, summed over many
 # keys or queries).  A row whose gradient cancels (a query that sees a
 # few keys, a key seen by a few queries) keeps absolute errors of the
-# typical row's size: dS = P (dP - delta) takes delta = rowsum(dO o O)
-# from the bf16 output O, an error of 2^-9 of |dO||O| whatever the size
-# of dS.  So a row is measured against the larger of its own largest
+# typical row's size: dS = P (dP - delta) takes delta = rowsum(dO o O),
+# from a bf16 output O an error of 2^-9 of |dO||O| whatever the size of
+# dS (the training path gives the f32 O instead; these gates take the
+# rounded one, the larger error).  So a row is measured against the larger of its own largest
 # element and the median over rows of that, and the limit is 2^-5 as in
 # the forward: room above those roundings (the plain version against
 # JAX's jax.vjp of blocked_attention in bf16: worst row 0.0176 at S <=
@@ -193,8 +200,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, kv_len: Optional[int] = None,
                           return_lse: bool = False):
     """The kernel's function in eager PyTorch → ``(B, Sq, H, DV)`` in q's
-    dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``);
-    ``kv_len`` defaults to ``Skv``."""
+    dtype, and with ``return_lse`` ``(o, lse, o32)``: also ``lse`` (f32,
+    ``(B, H, Sq)``) and the output before its rounding (f32, the output
+    itself in f32); ``kv_len`` defaults to ``Skv``."""
     kv_len = _check_shapes(q, k, v, kv_len)
     B, Sq, H, D = q.shape
     Hkv, DV = k.shape[2], v.shape[3]
@@ -202,6 +210,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = D ** -0.5
     k, v = k[:, :kv_len], v[:, :kv_len]          # keys past kv_len never count
     out = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=q.device)
+    out32 = (torch.empty((B, Sq, H, DV), dtype=torch.float32, device=q.device)
+             if return_lse and q.dtype != torch.float32 else None)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     bq = bk = PLAIN_BLOCK
     for q0 in range(0, Sq, bq):
@@ -231,9 +241,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n] = o.reshape(B, n, H, DV).to(q.dtype)
+        if out32 is not None:
+            out32[:, q0:q0 + n] = o.reshape(B, n, H, DV)
         lse[:, q0:q0 + n] = (m + torch.log(l)).reshape(B, n, H)
     if return_lse:
-        return out, lse.permute(0, 2, 1).contiguous()
+        return out, lse.permute(0, 2, 1).contiguous(), out if out32 is None else out32
     return out
 
 
@@ -286,10 +298,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          return_lse: bool = False):
     """Launch the bf16 tensor-core kernel or the f32 kernel on the current
     stream of the tensors' card → a contiguous ``(B, Sq, H, DV)`` tensor in
-    q's dtype, and with ``return_lse`` also ``lse`` (f32, ``(B, H, Sq)``,
-    written by the same launch; without it the kernel writes none and its
-    output has the same bits).  Checks device, dtype, shape, strides and
-    (bf16) alignment; raises on a refused launch."""
+    q's dtype, and with ``return_lse`` ``(o, lse, o32)``: also ``lse``
+    (f32, ``(B, H, Sq)``) and the output before its rounding (f32; the
+    output itself in f32), written by the same launch; without it the
+    kernel writes neither, and its output has the same bits.  Checks
+    device, dtype, shape, strides and (bf16) alignment; raises on a refused
+    launch."""
     from repro_torch.kernels import build
 
     kv_len = _check_shapes(q, k, v, kv_len)
@@ -301,20 +315,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
+    o32 = (torch.empty((B, Sq, H, DV), dtype=torch.float32, device=dev)
+           if return_lse and q.dtype == torch.bfloat16 else None)
+    done = (o, lse, o if o32 is None else o32) if return_lse else o
     if B == 0 or Sq == 0:
-        return (o, lse) if return_lse else o
+        return done
     lib = build.library()
     strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None,
+            None if o32 is None else o32.data_ptr(),
             int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, DV, *strides,
             kv_len, int(causal), ctypes.c_float(D ** -0.5), plan.grid[0],
             ctypes.c_longlong(plan.smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention")
     launches["flash_attention"] += 1
-    return (o, lse) if return_lse else o
+    return done
 
 
 # ---------------------------------------------------------------------------
@@ -503,12 +521,16 @@ def _check_bwd_shapes(q, k, v, o, lse, do):
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be f32 {(B, H, Sq)}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
+    if o.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: o must be the forward's f32 output before "
+                         f"its rounding (return_lse's third), got {o.dtype}")
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
     """The backward in eager PyTorch, tile by tile as the kernel recomputes
     it → ``(dq, dk, dv)`` in q's dtype and the shapes of q, k and v (dq
-    and dk at the q/k width, dv at the v width).  ``P``
+    and dk at the q/k width, dv at the v width).  ``o`` is the forward's
+    f32 output before its rounding (``return_lse``'s third); ``P``
     and ``dS`` are rounded to the input dtype before their products (as the
     bf16 kernel's tensor-core operands are); sums in f32."""
     _check_bwd_shapes(q, k, v, o, lse, do)
@@ -555,9 +577,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True):
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
     """Launch the backward on the current stream of the tensors' card →
     contiguous ``(dq, dk, dv)`` in q's dtype: the ``δ`` pre-pass, then the
-    dK/dV and the dQ walks (one launch in bf16).  ``o`` and ``lse`` are the forward's
-    (contiguous); a ``dO`` that is not contiguous or not 16-byte aligned is
-    copied first.  In bf16, q, k and v are read through their strides by
+    dK/dV and the dQ walks (one launch in bf16).  ``o`` and ``lse`` are the
+    forward's (contiguous; ``o`` its f32 output before its rounding,
+    ``return_lse``'s third); a ``dO`` that is not contiguous or not 16-byte
+    aligned is copied first.  In bf16, q, k and v are read through their strides by
     TMA, which raises (:func:`tma_strides`) unless they are 16-byte
     multiples.  Raises on a refused launch."""
     from repro_torch.kernels import build
@@ -572,8 +595,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
     for name, t in (("o", o), ("dO", do), ("lse", lse)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} must be contiguous on {dev}")
-        if name != "lse" and t.dtype != q.dtype:
-            raise ValueError(f"flash_attention_bwd: {name} must be {q.dtype}, got {t.dtype}")
+        if name == "dO" and t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: dO must be {q.dtype}, got {t.dtype}")
     if q.dtype == torch.bfloat16:
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                    for s in tma_strides(name, t)]
@@ -611,19 +634,19 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable causal GQA attention over q ``(B, Sq, H, DK)``, k
     ``(B, Skv, Hkv, DK)`` and v ``(B, Skv, Hkv, DV)`` (dq and dk come back
-    DK wide, dv DV wide): on the card the forward kernel (with ``lse``) and
-    the backward kernel, on the CPU their plain versions
-    (:func:`repro_torch.kernels.ops.flash_attention` has checked the
-    device).  It saves q, k,
-    v, the output and ``lse``; under ``torch.utils.checkpoint`` the forward
-    runs again before the backward, and only that run's tensors are
-    kept."""
+    DK wide, dv DV wide): on the card the forward kernel (with ``lse`` and
+    the unrounded output) and the backward kernel, on the CPU their plain
+    versions (:func:`repro_torch.kernels.ops.flash_attention` has checked
+    the device).  It saves q, k, v, the output before its rounding (f32:
+    the backward's ``δ`` takes it) and ``lse``; under
+    ``torch.utils.checkpoint`` the forward runs again before the backward,
+    and only that run's tensors are kept."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
         fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        o, lse = fwd(q, k, v, causal=causal, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o32 = fwd(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
         ctx.causal = causal
         return o
 

@@ -4,13 +4,16 @@ Zipf token stream through the fault-tolerant ``Trainer`` (atomic async
 checkpoints, non-finite step rejection, straggler watchdog, SIGTERM-safe
 shutdown, ``--resume``).
 
-On the card (the default), a full config fits one H100 up to qwen3-1.7b
-and mamba2-1.3b (jamba-v0.1-52b trains at ``--reduced`` only: about 12
-bytes a parameter of state):
+On the card (the default), a full config fits one H100 up to qwen3-1.7b,
+mamba2-1.3b and seamless-m4t-large-v2 (jamba-v0.1-52b and
+llama-3.2-vision-90b train at ``--reduced`` only: about 12 bytes a
+parameter of state):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --steps 8 --batch 4 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --steps 8 --batch 4 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-large-v2 --steps 8 --batch 4 --seq 2048
 On a CPU, a reduced config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --reduced --device cpu --steps 6
@@ -74,7 +77,7 @@ def build_run(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     opt = AdamW(AdamWConfig(lr=lr, warmup_steps=10, decay_steps=steps))
     stream = TokenStream(TokenStreamConfig(
         vocab=cfg.vocab, batch=batch, seq_len=seq, d_model=cfg.d_model,
-        family=cfg.family), device=dev)
+        family=cfg.family, n_media_tokens=cfg.n_media_tokens), device=dev)
     return TrainRun(model, opt, make_train_step(model, opt, n_micro=n_micro), stream, dev)
 
 

@@ -1,5 +1,5 @@
-"""GQA and MLA self-attention of the dense and ``moe`` LM families
-(counterpart of the GQA and MLA parts of :mod:`repro.models.attention`).
+"""GQA and MLA self-attention, and cross-attention (counterpart of
+:mod:`repro.models.attention`).
 
 Three execution modes per layer:
 
@@ -24,8 +24,20 @@ the flash kernels' (192, 128) pair on the card); its decode attends in the
 ``kv_lora_rank`` latent space with plain einsums (the absorbed form), as
 the JAX package does outside any Pallas kernel.
 
+Cross-attention (the ``vlm`` family's media layers, the ``audio``
+decoder's attention over the encoded memory) takes its queries from x and
+its keys and values from a memory, with GQA's projection geometry and no
+rope; it always runs through :func:`blocked_attention`, non-causal, with
+Sq ≠ Skv: in train and prefill over the projected memory, and in decode
+one query row over the keys and values the prefill cached (on the card
+the flash kernel in every mode, as the JAX package calls
+``blocked_attention`` in every mode).  Its cache holds exactly the
+memory's length: the prefill refuses a memory of another length than the
+cache's slots, where the JAX package pads the cache with zero keys that
+then take a share of every decode's softmax.
+
 The JAX package's ``shard(...)`` annotations are dropped: outside a device
-mesh they are no-ops.  Cross-attention comes with its family.
+mesh they are no-ops.
 """
 
 from __future__ import annotations
@@ -167,6 +179,64 @@ def gqa_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
     shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
             for k in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vlm media layers; the enc-dec decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
+    """GQA's projection geometry; the memory supplies the keys and values."""
+    return init_gqa(gen, cfg, device)
+
+
+def cross_attn_forward(p: Dict, x: torch.Tensor, memory: Optional[torch.Tensor], cfg,
+                       cache: Optional[Dict[str, torch.Tensor]] = None, *,
+                       pos: Optional[int] = None) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, D), keys and values from
+    ``memory`` (B, M, D), non-causal and without rope, writing the
+    projected memory into ``cache`` (``{"mk", "mv"}`` of (B, M, Hkv, Dh))
+    in place.
+
+    Train (``cache`` None) and prefill (``pos`` None): k and v projected
+    from ``memory`` (with ``k_norm`` under ``qk_norm``), and the prefill
+    writes them to the cache, whose slots must number M exactly: a cache
+    of another length raises ``ValueError`` (nothing is padded or cut).
+    Decode (``pos`` given, ``memory`` None): the cached k and v, already
+    normed.  Either way :func:`blocked_attention` with ``causal=False``.
+    """
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, S, _ = x.shape
+    if pos is None:
+        k = _proj_heads(memory, p["wk"], p.get("bk"), hkv, dh)
+        v = _proj_heads(memory, p["wv"], p.get("bv"), hkv, dh)
+        if "k_norm" in p:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cache is not None:
+            if cache["mk"].shape[1] != memory.shape[1]:
+                raise ValueError(
+                    f"cross-attention: a memory of {memory.shape[1]} positions for a "
+                    f"cache of {cache['mk'].shape[1]} slots; the cache must hold the "
+                    f"memory's length exactly")
+            cache["mk"].copy_(k)
+            cache["mv"].copy_(v)
+    else:
+        k, v = cache["mk"], cache["mv"]
+    q = _proj_heads(x, p["wq"], p.get("bq"), h, dh)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    out = blocked_attention(q, k, v, causal=False)
+    wo = p["wo"]
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def cross_cache_spec(cfg, batch: int, mem_len: int) -> Dict[str, torch.Tensor]:
+    """Shape-and-dtype stand-ins (``meta`` tensors) of one cross-attention
+    layer's cache: the memory's keys and values, ``mem_len`` slots."""
+    shp = (batch, mem_len, cfg.n_kv_heads, cfg.d_head)
+    return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
+            for k in ("mk", "mv")}
 
 
 # ---------------------------------------------------------------------------

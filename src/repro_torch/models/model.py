@@ -1,13 +1,24 @@
-"""Model facade of the ported LM families — dense, ``moe``, ``ssm`` and
-``hybrid`` (counterpart of :mod:`repro.models.model`): ``build(config)`` →
-``init`` / ``train_loss`` / ``prefill`` / ``decode_step`` / ``init_cache``.
+"""Model facade of the LM families — dense, ``moe``, ``ssm``, ``hybrid``,
+``vlm`` and ``audio`` (counterpart of :mod:`repro.models.model`):
+``build(config)`` → ``init`` / ``train_loss`` / ``prefill`` /
+``decode_step`` / ``init_cache``.
 
 As in the JAX package the model holds no weights: ``init`` returns the
 parameter tree, and the serving methods take it.  So a JAX tree converted
 by :func:`repro_torch.convert.lm_params_from_jax` runs as it is.
 
+Batch contents by family: ``tokens`` (and, to train, ``targets``) (B, S)
+integers; the ``vlm`` family also ``media`` (B, M, d_model), precomputed
+patch embeddings (the vision frontend is a stub), and the ``audio`` family
+``src_embeds`` (B, S_src, d_model), precomputed frame embeddings (the
+speech frontend is a stub) that the encoder runs over.  Either is cast to
+the model's dtype first (the flash kernels take one dtype for q, k and v;
+the JAX package declares them in the model's dtype too, in
+``Model.input_specs``): that is the memory of the cross-attention layers,
+the encoder's output after ``enc_ln_f`` for ``audio``.
+
 Training: ``train_loss(params, batch)`` → (loss + aux, metrics with
-``aux_loss``), ``batch`` holding ``tokens`` and ``targets`` (B, S).  The
+``aux_loss``).  The
 stack runs in train mode (no caches, ``cfg.remat``); on the card every
 attention layer goes through the forward and backward flash kernels
 (a Mamba layer's SSD is ``torch`` products: no kernel of the port's).
@@ -23,15 +34,20 @@ token means are then taken over all tokens at once, as in
 Serving:
 
 * ``prefill(params, batch[, caches])`` → (last-token logits ``(B, 1, V)``,
-  caches); on the card every attention layer launches the flash kernel
-  once.  The attention caches (keys and values, or MLA's ``c_kv`` and
-  ``k_pe``) of the L prompt positions go to slots ``[0, L)`` of
-  ``caches`` (from ``init_cache``, of any length >= L), and each Mamba
-  layer's conv tails and f32 state (no length axis) to its cache, in
-  place; without ``caches`` it makes a cache of exactly L slots;
+  caches); on the card every attention layer (the encoder's, the
+  self-attention and the cross-attention layers) launches the flash
+  kernel once.  The attention caches (keys and values, or MLA's ``c_kv``
+  and ``k_pe``) of the L prompt positions go to slots ``[0, L)`` of
+  ``caches`` (from ``init_cache``, of any length >= L), each Mamba
+  layer's conv tails and f32 state (no length axis) to its cache, and
+  each cross-attention layer's memory keys and values to its cache,
+  whose slots must number the memory's positions exactly (else
+  ``ValueError``), in place; without ``caches`` it makes a cache of
+  exactly L slots and the memory's length;
 * ``decode_step(params, caches, tokens, pos)`` → (logits, caches) — one
   new token against the caches (attention at slot ``pos``; a Mamba layer
-  steps its recurrence and ignores ``pos``), written in place.
+  steps its recurrence and ignores ``pos``; a cross-attention attends its
+  cached memory, through the flash kernel on the card), written in place.
 
 ``init`` and ``init_cache`` run on ``device="cuda"`` unless the caller
 passes ``"cpu"``, and raise without a card.
@@ -58,6 +74,7 @@ class Model(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         self.plan = tf.layer_plan(cfg)
+        self.enc_plan = tf.encoder_plan(cfg)
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
         """Random weights drawn on ``device`` from a generator seeded with
@@ -65,6 +82,25 @@ class Model(torch.nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return tf.init_model(gen, self.cfg, dev)
+
+    def memory_len(self, batch) -> int:
+        """The memory's positions in ``batch``: its ``media`` (vlm) or
+        ``src_embeds`` (audio) length; 0 for the other families."""
+        key = {"vlm": "media", "audio": "src_embeds"}.get(self.cfg.family)
+        return 0 if key is None else batch[key].shape[1]
+
+    def _memory(self, params, batch) -> Optional[torch.Tensor]:
+        """The cross-attention memory in the model's dtype: the vlm's
+        ``media`` as it is, the audio's ``src_embeds`` through the encoder
+        (no caches) and ``enc_ln_f``; None for the other families."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return batch["media"].to(cfg.torch_dtype)
+        if cfg.family == "audio":
+            m = batch["src_embeds"].to(cfg.torch_dtype)
+            m, _, _ = tf.stack_forward(params["encoder"], m, cfg, self.enc_plan)
+            return rms_norm(m, params["enc_ln_f"], cfg.norm_eps)
+        return None
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
@@ -74,7 +110,8 @@ class Model(torch.nn.Module):
 
     def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x = embed_lookup(params["embed"], batch["tokens"])
-        x, _, aux = tf.stack_forward(params["layers"], x, self.cfg, self.plan)
+        x, _, aux = tf.stack_forward(params["layers"], x, self.cfg, self.plan,
+                                     memory=self._memory(params, batch))
         x, targets = x.reshape(-1, x.shape[-1]), batch["targets"].reshape(-1)
         chunk = lambda xc, tc: token_nll(self._logits(params, xc), tc)
         parts = [checkpoint(chunk, x[i:i + LOSS_CHUNK], targets[i:i + LOSS_CHUNK],
@@ -90,9 +127,12 @@ class Model(torch.nn.Module):
                 ) -> Tuple[torch.Tensor, Dict]:
         tokens = batch["tokens"]
         if caches is None:
-            caches = self.init_cache(*tokens.shape, device=tokens.device)
+            caches = self.init_cache(*tokens.shape, device=tokens.device,
+                                     mem_len=self.memory_len(batch))
+        memory = self._memory(params, batch)
         x = embed_lookup(params["embed"], tokens)
-        x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches)
+        x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
+                                        memory=memory)
         return self._logits(params, x[:, -1:, :]), caches
 
     @torch.no_grad()
@@ -104,16 +144,24 @@ class Model(torch.nn.Module):
                                         pos=int(pos))
         return self._logits(params, x), caches
 
-    def cache_specs(self, batch: int, max_len: int):
-        """The cache tree as ``meta`` tensors (shapes and dtypes)."""
-        return tf.stack_cache_specs(self.cfg, self.plan, batch, max_len)
+    def cache_specs(self, batch: int, max_len: int, mem_len: Optional[int] = None):
+        """The cache tree as ``meta`` tensors (shapes and dtypes); the
+        cross-attention caches hold ``mem_len`` memory positions, by
+        default the config's (``n_media_tokens`` for vlm, ``enc_seq`` for
+        audio)."""
+        cfg = self.cfg
+        if mem_len is None:
+            mem_len = {"vlm": cfg.n_media_tokens, "audio": cfg.enc_seq}.get(cfg.family, 0)
+        return tf.stack_cache_specs(cfg, self.plan, batch, max_len, mem_len)
 
-    def init_cache(self, batch: int, max_len: int, device: DeviceLike = None):
-        """A zero cache on ``device``: ``max_len`` slots in each attention
-        layer's, and each Mamba layer's tails and state."""
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike = None,
+                   mem_len: Optional[int] = None):
+        """A zero cache on ``device``: ``max_len`` slots in each
+        self-attention layer's, ``mem_len`` (default the config's) in each
+        cross-attention layer's, and each Mamba layer's tails and state."""
         dev = resolve_device(device)
         return tf.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
-                           self.cache_specs(batch, max_len))
+                           self.cache_specs(batch, max_len, mem_len))
 
 
 def build(cfg) -> Model:

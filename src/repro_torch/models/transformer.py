@@ -1,36 +1,45 @@
-"""Layer plans and stacks of the ported LM families: dense, ``moe``,
-``ssm`` and ``hybrid`` (counterpart of :mod:`repro.models.transformer`).
+"""Layer plans and stacks of the LM families (counterpart of
+:mod:`repro.models.transformer`).
 
 A stack is described by a :class:`Plan`: an unrolled ``prefix`` (deepseek's
 dense first layer) and a ``period`` of layers repeated ``repeats`` times
 (jamba's period is 8 layers: attention at ``attn_offset``, Mamba
-elsewhere, the MoE FFN where ``i % moe_every == moe_every - 1``).
+elsewhere, the MoE FFN where ``i % moe_every == moe_every - 1``; the vlm's
+is a cross-attention layer, then ``cross_attn_every - 1`` self-attention
+layers).  The ``audio`` family has a second stack, the encoder
+(:func:`encoder_plan`: ``n_enc_layers`` bidirectional layers), whose
+output, after ``enc_ln_f``, is the memory every decoder layer
+cross-attends.
 The parameters keep the JAX package's tree layout — ``{"prefix": [layer,
 ...], "scan": {"0": {...}, ...}}`` with the period's leaves stacked along a
 leading layer axis — so a JAX tree converts by a tree map, and each layer
 of the loop reads its slice of the stack (a view, no copy).  Caches follow
 the same layout, one tree per layer kind (an attention layer's keys and
-values, a Mamba layer's conv tails and state), and every layer writes its
-slice of them in place.
+values, a Mamba layer's conv tails and state, a cross-attention layer's
+memory keys and values), and every layer writes its slice of them in
+place.
 
 Training (no caches) unbinds the stacked leaves once and, with
 ``cfg.remat``, runs each prefix layer and each period under
 ``torch.utils.checkpoint`` as the JAX package's ``_remat`` wraps its prefix
-layers and its scan body: ``remat_policy="full"`` keeps only the input and
+layers and its scan body: ``remat_policy="full"`` keeps only the inputs and
 recomputes the rest in the backward, ``"dots"`` also keeps the outputs of
 the 2-D matmuls (the counterpart of
 ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
 projections are kept, attention's and the SSD's batched einsums are
-recomputed).  The gradients are the same either way: the recompute runs
-the same arithmetic.  Every layer returns its MoE aux loss (0 for a dense
-FFN or none), summed over the prefix and then the periods in the JAX
-package's order.
+recomputed).  The cross-attention memory is an input of each checkpointed
+function, so the encoder gets its gradient through every decoder layer.
+The gradients are the same either way: the recompute runs the same
+arithmetic.  Every layer returns its MoE aux loss (0 for a dense FFN or
+none), summed over the prefix and then the periods in the JAX package's
+order.
 
 Layer kinds are ``(mixer, ffn)`` pairs: mixer ``"attn"`` (MLA when
-``cfg.mla`` is set, else GQA) or ``"mamba"``, ffn ``"dense"``, ``"moe"`` or
-``"none"`` (no ``ln2`` and no ``ffn`` leaves).  Cross-attention and the
-encoder (``"xattn"``, ``"attn_xattn"``, ``"attn_enc"``; the vlm and audio
-families) raise ``NotImplementedError`` (ROADMAP A8 item 4).
+``cfg.mla`` is set, else GQA), ``"mamba"``, ``"xattn"`` (cross-attention
+alone), ``"attn_xattn"`` (causal self-attention, then ``ln_x`` and
+cross-attention: the audio decoder) or ``"attn_enc"`` (bidirectional
+self-attention, no cache: the audio encoder); ffn ``"dense"``, ``"moe"``
+or ``"none"`` (no ``ln2`` and no ``ffn`` leaves).
 """
 
 from __future__ import annotations
@@ -62,7 +71,11 @@ Kind = Tuple[str, str]
 DENSE: Kind = ("attn", "dense")
 MOE: Kind = ("attn", "moe")
 MAMBA: Kind = ("mamba", "none")
-KINDS = frozenset({DENSE, MOE, MAMBA, ("mamba", "dense"), ("mamba", "moe")})
+XATTN: Kind = ("xattn", "dense")
+ATTN_XATTN: Kind = ("attn_xattn", "dense")
+ENC: Kind = ("attn_enc", "dense")
+KINDS = frozenset({DENSE, MOE, MAMBA, ("mamba", "dense"), ("mamba", "moe"), XATTN,
+                   ATTN_XATTN, ENC})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,20 +104,33 @@ def layer_plan(cfg) -> Plan:
                 ffn = "moe"
             period.append((mixer, ffn))
         return Plan((), tuple(period), cfg.n_layers // per)
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        if cfg.n_layers % per != 0:
+            raise ValueError(
+                f"n_layers={cfg.n_layers} must divide into cross_attn_every={per}")
+        return Plan((), (XATTN,) + (DENSE,) * (per - 1), cfg.n_layers // per)
     if cfg.family == "moe":
         if cfg.moe.first_dense:
             return Plan((DENSE,), (MOE,), cfg.n_layers - 1)
         return Plan((), (MOE,), cfg.n_layers)
+    if cfg.family == "audio":
+        return Plan((), (ATTN_XATTN,), cfg.n_layers)
     if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP A8 item 4)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return Plan((), (DENSE,), cfg.n_layers)
+
+
+def encoder_plan(cfg) -> Optional[Plan]:
+    """The encoder's plan (``cfg.encdec``), else None."""
+    if not cfg.encdec:
+        return None
+    return Plan((), (ENC,), cfg.n_enc_layers)
 
 
 def _check_kind(kind: Kind) -> None:
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind} is not ported yet (ROADMAP A8 item 4)")
+        raise ValueError(f"unknown layer kind {kind}; known: {sorted(KINDS)}")
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -130,17 +156,24 @@ def tree_leaves(tree: Any) -> list:
 
 
 def init_layer(gen, cfg, kind: Kind, device: torch.device) -> Dict[str, Any]:
-    """One layer's parameters: ``ln1`` and the mixer, then ``ln2`` and the
-    FFN unless the kind's FFN is ``"none"``."""
+    """One layer's parameters: ``ln1`` and the mixer, then (``attn_xattn``)
+    ``ln_x`` and the cross-attention ``xattn``, then ``ln2`` and the FFN
+    unless the kind's FFN is ``"none"``."""
     _check_kind(kind)
     mixer, ffn = kind
     d, dt = cfg.d_model, cfg.torch_dtype
     if mixer == "mamba":
         p_mixer = mb.init_mamba(gen, cfg, device)
+    elif mixer == "xattn":
+        p_mixer = attn.init_cross_attn(gen, cfg, device)
+    elif cfg.mla is not None and mixer != "attn_enc":
+        p_mixer = attn.init_mla(gen, cfg, device)
     else:
-        p_mixer = (attn.init_mla(gen, cfg, device) if cfg.mla is not None
-                   else attn.init_gqa(gen, cfg, device))
+        p_mixer = attn.init_gqa(gen, cfg, device)
     p = {"ln1": init_rms_norm(d, dt, device), "mixer": p_mixer}
+    if mixer == "attn_xattn":
+        p["ln_x"] = init_rms_norm(d, dt, device)
+        p["xattn"] = attn.init_cross_attn(gen, cfg, device)
     if ffn != "none":
         p["ln2"] = init_rms_norm(d, dt, device)
         p["ffn"] = (moe_mod.init_moe(gen, cfg, device) if ffn == "moe"
@@ -169,8 +202,9 @@ def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
 
 
 def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
-    """The full parameter tree: ``embed``, ``ln_f``, ``layers`` and, unless
-    the embeddings are tied, ``lm_head``."""
+    """The full parameter tree: ``embed``, ``ln_f``, ``layers``, unless the
+    embeddings are tied ``lm_head``, and with an encoder (``cfg.encdec``)
+    its stack ``encoder`` and its final norm ``enc_ln_f``."""
     dt = cfg.torch_dtype
     tree: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dt, device),
@@ -179,6 +213,10 @@ def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = make_param(gen, (cfg.d_model, cfg.vocab), dt, device)
+    eplan = encoder_plan(cfg)
+    if eplan is not None:
+        tree["encoder"] = init_stack(gen, cfg, eplan, device)
+        tree["enc_ln_f"] = init_rms_norm(cfg.d_model, dt, device)
     return tree
 
 
@@ -219,21 +257,31 @@ def count_params(cfg, active_only: bool = False) -> int:
 
 
 def block_forward(kind: Kind, p: Dict[str, Any], x: torch.Tensor, cfg, *,
-                  cache: Optional[Dict] = None, pos: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer → (x, aux loss); its mixer writes ``cache`` in place
+                  memory: Optional[torch.Tensor] = None, cache: Optional[Dict] = None,
+                  pos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer → (x, aux loss); its mixers write ``cache`` in place
     (prefill when ``pos`` is None, else decode at slot ``pos``); without a
-    cache, train mode.  The aux loss is the MoE FFN's, or an f32 zero."""
+    cache, train mode.  A cross-attention reads ``memory`` in train and
+    prefill, its cache in decode; ``attn_enc`` takes no cache.  The aux
+    loss is the MoE FFN's, or an f32 zero."""
     _check_kind(kind)
     mixer, ffn = kind
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer_cache = None if cache is None else cache["mixer"]
     if mixer == "mamba":
         x = x + mb.mamba_forward(p["mixer"], h, cfg, mixer_cache, pos=pos)
+    elif mixer == "xattn":
+        x = x + attn.cross_attn_forward(p["mixer"], h, memory, cfg, mixer_cache, pos=pos)
+    elif mixer == "attn_enc":
+        x = x + attn.gqa_forward(p["mixer"], h, cfg, None, causal=False)
     elif cfg.mla is not None:
         x = x + attn.mla_forward(p["mixer"], h, cfg, mixer_cache, pos=pos)
     else:
         x = x + attn.gqa_forward(p["mixer"], h, cfg, mixer_cache, causal=True, pos=pos)
+    if mixer == "attn_xattn":
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.cross_attn_forward(p["xattn"], h, memory, cfg,
+                                        None if cache is None else cache["xattn"], pos=pos)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none":
         return x, zero
@@ -280,47 +328,51 @@ def _unstack(tree: Any, n: int) -> List[Any]:
 
 def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan,
                   caches: Optional[Dict[str, Any]] = None, *,
-                  pos: Optional[int] = None):
-    """Run a stack over ``caches`` (laid out like the parameters).  Returns
-    (x, caches, aux).
+                  memory: Optional[torch.Tensor] = None, pos: Optional[int] = None):
+    """Run a stack over ``caches`` (laid out like the parameters), its
+    cross-attention layers over ``memory``.  Returns (x, caches, aux).
 
     Modes: train (``caches`` None: no cache, each prefix layer and each
-    period under :func:`_remat`; returns (x, None, aux) with the aux loss
-    summed over the prefix, then the periods), prefill (``pos`` None: each
-    layer writes its cache of positions ``[0, S)`` into its slice of the
-    caches) and decode (``pos`` the write slot of the one new token).
-    Either way the caches are written in place, and the same caches come
-    back; their aux is the prefix's alone, as in the JAX package.
+    period under :func:`_remat`, ``memory`` an input of each; returns (x,
+    None, aux) with the aux loss summed over the prefix, then the
+    periods), prefill (``pos`` None: each layer writes its cache of
+    positions ``[0, S)``, and each cross-attention the memory's keys and
+    values, into its slice of the caches) and decode (``pos`` the write
+    slot of the one new token; no ``memory``: its keys and values are in
+    the caches).  Either way the caches are written in place, and the same
+    caches come back; their aux is the prefix's alone, as in the JAX
+    package.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if caches is None:
         if pos is not None:
             raise ValueError("stack_forward: decode needs the caches")
         for kind, layer_p in zip(plan.prefix, stack_params["prefix"]):
-            x, a = _remat(functools.partial(block_forward, kind, cfg=cfg), cfg)(layer_p, x)
+            one = lambda p, xx, mem, kind=kind: block_forward(kind, p, xx, cfg, memory=mem)
+            x, a = _remat(one, cfg)(layer_p, x, memory)
             aux = aux + a
 
-        def period(x, layer_p):
+        def period(x, layer_p, memory):
             aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
             for j, kind in enumerate(plan.period):
-                x, a = block_forward(kind, layer_p[str(j)], x, cfg)
+                x, a = block_forward(kind, layer_p[str(j)], x, cfg, memory=memory)
                 aux_l = aux_l + a
             return x, aux_l
 
         body = _remat(period, cfg)
         for layer_p in _unstack(stack_params["scan"], plan.repeats):
-            x, a = body(x, layer_p)
+            x, a = body(x, layer_p, memory)
             aux = aux + a
         return x, None, aux
     for i, kind in enumerate(plan.prefix):
-        x, a = block_forward(kind, stack_params["prefix"][i], x, cfg,
+        x, a = block_forward(kind, stack_params["prefix"][i], x, cfg, memory=memory,
                              cache=caches["prefix"][i], pos=pos)
         aux = aux + a
     for r in range(plan.repeats):
         layer_p = tree_map(lambda t: t[r], stack_params["scan"])
         layer_c = tree_map(lambda t: t[r], caches["scan"])
         for j, kind in enumerate(plan.period):
-            x, _ = block_forward(kind, layer_p[str(j)], x, cfg,
+            x, _ = block_forward(kind, layer_p[str(j)], x, cfg, memory=memory,
                                  cache=layer_c[str(j)], pos=pos)
     return x, caches, aux
 
@@ -330,18 +382,27 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
 # ---------------------------------------------------------------------------
 
 
-def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int) -> Dict[str, Any]:
+def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int,
+                      mem_len: int = 0) -> Dict[str, Any]:
     """The cache tree of a stack as ``meta`` tensors (shapes and dtypes):
     ``{"prefix": [layer, ...], "scan": stacked}``, each layer's by its kind:
     a Mamba layer's conv tails and state (no length axis: ``max_len``
-    sizes only the attention caches), else its MLA cache when ``cfg.mla``
-    is set, else its GQA cache."""
+    sizes only the self-attention caches), a cross-attention's memory keys
+    and values of ``mem_len`` slots (``"mixer"`` for ``xattn``, ``"xattn"``
+    beside the self-attention's for ``attn_xattn``), else its MLA cache
+    when ``cfg.mla`` is set, else its GQA cache."""
     def layer(kind):
         _check_kind(kind)
-        if kind[0] == "mamba":
+        mixer = kind[0]
+        if mixer == "mamba":
             return {"mixer": mb.mamba_cache_spec(cfg, batch)}
+        if mixer == "xattn":
+            return {"mixer": attn.cross_cache_spec(cfg, batch, mem_len)}
         spec = attn.mla_cache_spec if cfg.mla is not None else attn.gqa_cache_spec
-        return {"mixer": spec(cfg, batch, max_len)}
+        out = {"mixer": spec(cfg, batch, max_len)}
+        if mixer == "attn_xattn":
+            out["xattn"] = attn.cross_cache_spec(cfg, batch, mem_len)
+        return out
 
     per = {str(j): layer(kind) for j, kind in enumerate(plan.period)}
     return {"prefix": [layer(kind) for kind in plan.prefix],

@@ -4,8 +4,12 @@ PyTorch runs eagerly, so the JAX package's ``jax.jit`` wrappers and its
 ``make_prefill`` (a wrapper to jit) have no counterpart here: call
 ``model.prefill``.  The prefill writes its keys and values straight into
 the generation's cache of ``cache_len`` slots, so nothing is padded or
-copied afterwards; ``cache_len`` sizes only the attention caches (a Mamba
-layer's state and conv tails have no length axis)."""
+copied afterwards; ``cache_len`` sizes only the self-attention caches (a
+Mamba layer's state and conv tails have no length axis), and each
+cross-attention cache holds the prompt batch's memory (``media`` or
+``src_embeds``) at its own length, where the JAX package pads it to the
+config's length with zero keys that dilute every decode step's
+attention."""
 
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ def generate(model, params, prompt_batch, steps: int, cache_len: int) -> torch.T
     """Greedy generation (host-side loop) → ``(B, steps)`` token ids."""
     decode = make_decode_step(model, sample="greedy")
     B, prompt_len = prompt_batch["tokens"].shape
-    caches = model.init_cache(B, cache_len, device=prompt_batch["tokens"].device)
+    caches = model.init_cache(B, cache_len, device=prompt_batch["tokens"].device,
+                              mem_len=model.memory_len(prompt_batch))
     logits, caches = model.prefill(params, prompt_batch, caches)
     tokens = logits[:, -1, :].argmax(dim=-1, keepdim=True)
     out = [tokens]

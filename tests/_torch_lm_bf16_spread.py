@@ -46,8 +46,8 @@ def row_gate():
         want = vjp(jnp.asarray(do))
         t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
         tq, tk, tv, tdo = (t(a) for a in (q, k, v, do))
-        o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
-        got = FA.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=causal)
+        _, lse, o32 = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+        got = FA.flash_attention_bwd_plain(tq, tk, tv, o32, lse, tdo, causal=causal)
         out[f"S={S} causal={causal}"] = {
             name: FA.grad_row_error(g, t(w)) for name, g, w in zip("qkv", got, want)}
     worst = max(e for errs in out.values() for e in errs.values())

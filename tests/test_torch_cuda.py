@@ -983,13 +983,13 @@ def test_flash_bwd_kernel_matches_plain_on_card(dtype, B, Sq, Skv, H, Hkv, D, ca
     if not strided:
         do = do.contiguous()
     ops.reset_launch_counts()
-    o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
     assert torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
-    _, plse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    _, plse, _ = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
-    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=causal)
     assert ops.launches["flash_attention_bwd"] == 2
     scale = max(float(w.float().abs().max()) for w in want)
     for name, g, a, w in zip("qkv", got, again, want):
@@ -1029,16 +1029,16 @@ def test_flash_bwd_gate_rejects_planted_faults(cuda_device):
     q, k, v = _flash_case(rng, 2, 512, 512, 8, 2, 128, torch.bfloat16, cuda_device,
                           False)
     do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
-    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
-    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
-    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    _, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=True)
+    want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=True)
     gate = lambda gs: max(FA.grad_row_error(g, w) for g, w in zip(gs, want))
     assert gate(got) <= FA.BWD_BF16_ROW_TOL
     assert gate((got[0], (got[1].float() * 0.9).to(torch.bfloat16), got[2])) > \
         FA.BWD_BF16_ROW_TOL
     cut = do.clone()
     cut[:, 64:128] = 0
-    _, dk, dv = FA.flash_attention_bwd_cuda(q, k, v, o, lse, cut, causal=True)
+    _, dk, dv = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, cut, causal=True)
     assert gate((got[0], dk, dv)) > FA.BWD_BF16_ROW_TOL
 
 
@@ -1150,16 +1150,16 @@ def test_mla_flash_kernels_match_plain_on_card(B, Sq, Skv, H, causal, strided,
     if not strided:
         do = do.contiguous()
     ops.reset_launch_counts()
-    o, lse = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
     assert o.shape == (B, Sq, H, 128)
     assert torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
-    want_o, plse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    want_o, plse, _ = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
     assert FA.row_error(o, want_o) <= FA.BF16_ROW_TOL
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
     if Sq == Skv:
-        got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-        again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
-        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        got = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+        again = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=causal)
+        want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=causal)
         assert ops.launches["flash_attention_bwd"] == 2
         for name, g, a, w in zip("qkv", got, again, want):
             assert g.shape == w.shape and torch.isfinite(g).all(), name
@@ -1181,7 +1181,7 @@ def test_mla_pair_refusals_on_card(cuda_device):
     ops.reset_launch_counts()
     with pytest.raises(ValueError, match=r"\(192, 128\)"):
         FA.flash_attention_cuda(q.float(), k.float(), v.float(), causal=True)
-    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    o, lse, _ = FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
     with pytest.raises(ValueError, match=r"\(192, 128\)"):
         FA.flash_attention_bwd_cuda(q.float(), k.float(), v.float(), o.float(), lse,
                                     o.float(), causal=True)
@@ -1391,3 +1391,209 @@ def test_planted_large_dt_gives_finite_gradients_on_card(cuda_device):
     grads, m = grads_of(model, params, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
     assert np.isfinite(float(m["loss"]))
     assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+
+
+# ---------------------------------------------------------------------------
+# cross-attention and the encoder (the vlm and audio families) on the card
+# ---------------------------------------------------------------------------
+
+
+# Non-causal, Sq != Skv: llama-3.2-vision's cross-attention (G=8 over a
+# ragged 1,600-key memory: 25 whole 64-key tiles, and 12 whole 128-key
+# dK/dV tiles and a ragged 13th) and seamless's decoder over an
+# encoder memory (D=64, MHA, ragged both ways); then decode's one query
+# row against the 1,600 media keys at G=8 (one live row of a 64-row tile)
+CROSS_CASES = [
+    (2, 300, 1600, 16, 2, 128),
+    (2, 257, 1000, 4, 4, 64),
+    (1, 1, 1600, 64, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D", CROSS_CASES)
+def test_flash_kernels_at_cross_attention_shapes(dtype, B, Sq, Skv, H, Hkv, D,
+                                                 cuda_device):
+    """The forward (``ops.flash_attention``, as the model calls it) and the
+    backward at cross-attention's shapes against their plain versions, at
+    the tolerances of the tests above; the backward of the decode row is
+    not on any path and is not run."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(Sq * 3 + Skv)
+    q, k, v = _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, cuda_device, False)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    assert ops.launches["flash_attention"] == 1 and got.shape == (B, Sq, H, D)
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) / float(want.abs().max()) <= FLASH_F32_TOL
+    else:
+        assert FA.row_error(got, want) <= FA.BF16_ROW_TOL
+    if Sq == 1:
+        return
+    do = torch.from_numpy(rng.normal(size=(B, Sq, H, D)).astype(np.float32)).to(
+        cuda_device, dtype)
+    _, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    grads = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=False)
+    want = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=False)
+    assert ops.launches["flash_attention_bwd"] == 1
+    for name, g, w in zip("qkv", grads, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        if dtype == torch.float32:
+            err = float((g - w).abs().max()) / float(w.abs().max())
+            assert err <= FLASH_F32_TOL, (name, err)
+        else:
+            assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_reduced_xattn_train_step_on_card_runs_the_kernels(arch, cuda_device,
+                                                           monkeypatch):
+    """One bf16 train step of the reduced vlm (one cross-attention layer,
+    four self-attention layers) or encoder-decoder (two encoder layers,
+    two decoder layers of self- and cross-attention): under remat="full"
+    the forward kernel runs twice an attention and the backward once; the
+    gradients, the encoder's included, agree with the same step through
+    the plain versions within LM_GRAD_TOL of each leaf's max |g|."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import build_run
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_reduced(arch).replace(dtype="bfloat16")
+    n_attn = cfg.n_layers + (cfg.n_layers + cfg.n_enc_layers if cfg.encdec else 0)
+    run = build_run(cfg, steps=2, batch=4, seq=200, device=cuda_device)
+    batch = next(run.stream)
+    ops.reset_launch_counts()
+    params, state = run.init_state()
+    params, state, metrics = run.step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 2 * n_attn
+    assert ops.launches["flash_attention_bwd"] == n_attn
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    start, _ = run.init_state()
+    kern, _ = grads_of(run.model, start, batch)
+    monkeypatch.setattr(FA, "flash_attention_cuda", FA.flash_attention_plain)
+    monkeypatch.setattr(FA, "flash_attention_bwd_cuda", FA.flash_attention_bwd_plain)
+    ops.reset_launch_counts()
+    plain, _ = grads_of(run.model, start, batch)
+    assert ops.launches["flash_attention"] == ops.launches["flash_attention_bwd"] == 0
+    for a, b in zip(tree_leaves(kern), tree_leaves(plain)):
+        err = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        assert err <= LM_GRAD_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_reduced_xattn_models_on_card_match_the_cpu(arch, cuda_device):
+    """The reduced arch in f32 (TF32 off): prefill logits and every cache
+    leaf, one decode step (its cross-attention one query row through the
+    forward kernel) and ``train_loss`` with its gradients on the card
+    within 1e-4 of each tensor's max of the same on the CPU."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_reduced(arch)
+    model = build(cfg)
+    cpu = model.init(2, device="cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    rng = np.random.default_rng(4)
+    B, L = 2, 40
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, L + 1)))
+    key, n = (("media", cfg.n_media_tokens) if cfg.family == "vlm"
+              else ("src_embeds", cfg.enc_seq))
+    mem = torch.from_numpy((rng.standard_normal((B, n, cfg.d_model)) * 0.02)
+                           .astype(np.float32))
+    out = {}
+    for dev, params in (("cpu", cpu), (cuda_device, card)):
+        t, m = toks.to(dev), mem.to(dev)
+        ops.reset_launch_counts()
+        logits, caches = model.prefill(params, {"tokens": t[:, :L], key: m},
+                                       model.init_cache(B, L + 4, device=dev))
+        dec, _ = model.decode_step(params, caches, t[:, L:], L)
+        if dev != "cpu":   # the prefill's attentions, then decode's cross rows
+            torch.cuda.synchronize()
+            kinds = model.plan.period * model.plan.repeats
+            n_self = sum(k[0] in ("attn", "attn_xattn") for k in kinds)
+            n_cross = sum(k[0] in ("xattn", "attn_xattn") for k in kinds)
+            assert ops.launches["flash_attention"] == (cfg.n_enc_layers + n_self
+                                                       + 2 * n_cross)
+        grads, met = grads_of(model, params, {"tokens": t[:, :L], "targets": t[:, 1:],
+                                              key: m})
+        out[str(dev)] = (logits, tree_leaves(caches), dec, met["loss"], tree_leaves(grads))
+    (l0, c0, d0, loss0, g0), (l1, c1, d1, loss1, g1) = out["cpu"], out[str(cuda_device)]
+    assert _rel_err(l1, l0) <= 1e-4 and _rel_err(d1, d0) <= 1e-4
+    assert abs(float(loss1) - float(loss0)) <= 1e-4 * abs(float(loss0))
+    for a, b in zip(c1, c0):
+        assert a.dtype == b.dtype and _rel_err(a, b) <= 1e-4
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D", [(2, 300, 1600, 16, 2, 128),
+                                              (2, 257, 1000, 4, 4, 64),
+                                              (2, 200, 200, 4, 4, 192)])
+def test_flash_forward_unrounded_output_on_card(B, Sq, Skv, H, Hkv, D, cuda_device):
+    """The bf16 forward with lse also writes its output before the rounding
+    (the training path's; the backward takes δ from it): the output is it
+    rounded, bit for bit, and is the launch without lse's, and it lies
+    within BF16_ROW_TOL of the plain version's per row; (192, 128) at MLA's
+    widths."""
+    from repro_torch.kernels import flash_attention as FA
+
+    DV = 128 if D == 192 else D
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, _ = _flash_case(rng, B, Sq, Skv, H, Hkv, D, torch.bfloat16, cuda_device, False)
+    v = torch.from_numpy((rng.normal(size=(B, Skv, Hkv, DV)) * 0.3).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    causal = D == 192
+    o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    _, _, want = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert o32.dtype == torch.float32 and o32.shape == (B, Sq, H, DV)
+    assert torch.equal(o, o32.to(torch.bfloat16))
+    assert torch.equal(o, FA.flash_attention_cuda(q, k, v, causal=causal))
+    assert FA.row_error(o32, want) <= FA.BF16_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_flash_bwd_delta_from_unrounded_output_on_card(cuda_device):
+    """Keys and values that share a large part (a cross-attention's memory
+    does): dq cancels, and δ from the rounded output leads it.  Given the
+    forward's f32 output, the backward kernel's dq lies within twice the
+    plain version's distance from the f32 gradient (its operands rounded as
+    the kernel's are), and given the rounded output (as f32) more than 5
+    times its own distance away (tests/test_torch_xattn.py measures 12-14
+    times on a CPU); dk and dv agree with the plain version's per row
+    within BWD_BF16_ROW_TOL."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(0)
+    B, Sq, Skv, H, Hkv, D = 2, 256, 1600, 16, 2, 128
+    shared_k, shared_v = rng.normal(size=(2, 1, 1, Hkv, D))
+    make = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device, torch.bfloat16)
+    q = make(rng.normal(size=(B, Sq, H, D)))
+    k = make(shared_k + 0.3 * rng.normal(size=(B, Skv, Hkv, D)))
+    v = make(shared_v + 0.3 * rng.normal(size=(B, Skv, Hkv, D)))
+    do = make(rng.normal(size=(B, Sq, H, D)))
+    o, lse, o32 = FA.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    ops.reset_launch_counts()
+    kern = FA.flash_attention_bwd_cuda(q, k, v, o32, lse, do, causal=False)
+    rounded = FA.flash_attention_bwd_cuda(q, k, v, o.float(), lse, do, causal=False)
+    assert ops.launches["flash_attention_bwd"] == 2
+    plain = FA.flash_attention_bwd_plain(q, k, v, o32, lse, do, causal=False)
+    f32 = [t.float() for t in (q, k, v, do)]
+    _, lse_f, o_f = FA.flash_attention_plain(*f32[:3], causal=False, return_lse=True)
+    want = FA.flash_attention_bwd_plain(*f32[:3], o_f, lse_f, f32[3], causal=False)[0]
+    err = lambda g: float((g.float() - want).abs().max()) / float(want.abs().max())
+    assert err(kern[0]) <= 2 * err(plain[0])
+    assert err(rounded[0]) > 5 * err(kern[0])
+    for g, w in zip(kern[1:], plain[1:]):
+        assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL

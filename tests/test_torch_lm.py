@@ -464,12 +464,15 @@ def test_configs_and_param_counts_match_jax(arch):
 
 
 def test_unported_families_raise():
-    """The vlm and audio archs are not ported yet."""
-    unported = [arch for arch in ARCH_IDS if arch not in PORTED_ARCHS]
-    assert unported == ["llama-3.2-vision-90b", "seamless-m4t-large-v2"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 item 4"):
-            get_config(arch)
+    """Every arch of ARCH_IDS is ported, the vlm and audio ones too: each
+    config and reduced config loads with the JAX arch's family.  Only an
+    arch outside ARCH_IDS raises."""
+    assert sorted(PORTED_ARCHS) == sorted(ARCH_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch).family == jbase.get_config(arch).family
+        assert get_reduced(arch).family == get_config(arch).family
+    assert {get_config(a).family for a in ("llama-3.2-vision-90b",
+                                           "seamless-m4t-large-v2")} == {"vlm", "audio"}
     with pytest.raises(ValueError):
         get_config("gpt-2")
 

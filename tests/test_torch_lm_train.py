@@ -183,8 +183,8 @@ def test_flash_fn_bf16_within_the_row_gate_and_gate_rejects_faults(S, causal):
         FA.BWD_BF16_ROW_TOL
     if S > 2 * FA.BLOCK_Q:
         tq, tk, tv, tdo = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
-        o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
-        assert gate(_drop_q_tile(tq, tk, tv, o, lse, tdo, causal, got)) > \
+        _, lse, o32 = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+        assert gate(_drop_q_tile(tq, tk, tv, o32, lse, tdo, causal, got)) > \
             FA.BWD_BF16_ROW_TOL
 
 
@@ -192,8 +192,9 @@ def test_flash_fn_bf16_within_the_row_gate_and_gate_rejects_faults(S, causal):
 def test_plain_lse_is_logsumexp_of_masked_scores(causal, kv_len):
     q, k, v, _ = _attn_inputs(130)
     tq, tk, tv = (_t(a) for a in (q, k, v))
-    o, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, kv_len=kv_len,
-                                      return_lse=True)
+    o, lse, o32 = FA.flash_attention_plain(tq, tk, tv, causal=causal, kv_len=kv_len,
+                                           return_lse=True)
+    assert o32 is o     # in f32 the output is its own unrounded output
     assert torch.equal(o, FA.flash_attention_plain(tq, tk, tv, causal=causal,
                                                    kv_len=kv_len))
     B, S, H, D = tq.shape
@@ -413,10 +414,17 @@ def grads_pair(request):
     cfg = get_reduced(arch)
     toks, tgts = _batch(cfg, 2, 24, 4)
     jb = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)}
+    batch = {"tokens": _t(toks).long(), "targets": _t(tgts).long()}
+    # the vlm's media and the audio's source frames (24 of them), the same
+    # f32 arrays for both
+    stub = {"vlm": ("media", cfg.n_media_tokens), "audio": ("src_embeds", 24)}
+    if cfg.family in stub:
+        key, n = stub[cfg.family]
+        mem = np.random.default_rng(5).standard_normal((2, n, cfg.d_model)) * 0.02
+        jb[key], batch[key] = jnp.asarray(mem, jnp.float32), _t(mem)
     (jloss, jm), jg = jax.jit(jax.value_and_grad(jmodel.train_loss, has_aux=True))(
         jparams, jb)
     params = lm_params_from_jax(_np_tree(jparams), cfg, device="cpu")
-    batch = {"tokens": _t(toks).long(), "targets": _t(tgts).long()}
     return cfg, build(cfg), params, batch, float(jloss), _np_tree(jm), _np_tree(jg)
 
 
@@ -607,9 +615,12 @@ def test_token_stream_is_the_jax_stream_bitwise():
     resumed = TokenStream(TokenStreamConfig(**scfg), position=5, device="cpu")
     assert torch.equal(next(resumed)["tokens"], b[5]["tokens"])
     assert resumed.position == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TokenStream(TokenStreamConfig(vocab=10, batch=1, seq_len=4, family="vlm"),
-                    device="cpu")
+    # the vlm family's stream: the same tokens, then the media stub
+    vcfg = dict(scfg, family="vlm", d_model=8, n_media_tokens=3)
+    jv, v = next(JTokenStream(JTokenStreamConfig(**vcfg))), next(
+        TokenStream(TokenStreamConfig(**vcfg), device="cpu"))
+    assert torch.equal(v["tokens"], b[0]["tokens"]) and v["media"].shape == (2, 3, 8)
+    np.testing.assert_array_equal(v["media"].numpy(), np.asarray(jv["media"]))
 
 
 def test_training_entry_points_need_the_card_unless_cpu_asked(monkeypatch):

@@ -288,9 +288,16 @@ def test_hybrid_plan_needs_whole_periods_and_puts_moe_on_odd_layers():
         tf.layer_plan(cfg.replace(n_layers=12))
     with pytest.raises(ValueError, match="attn_every"):
         jtf.layer_plan(jbase.get_config("jamba-v0.1-52b").replace(n_layers=12))
-    for kind in (("xattn", "dense"), ("attn_xattn", "dense"), ("attn_enc", "dense")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 item 4"):
-            tf.init_layer(None, cfg, kind, torch.device("meta"))
+    # the cross-attention and encoder kinds are ported: their leaves, and
+    # a kind outside the plans' raises
+    leaves = {("xattn", "dense"): {"ln1", "mixer", "ln2", "ffn"},
+              ("attn_xattn", "dense"): {"ln1", "mixer", "ln_x", "xattn", "ln2", "ffn"},
+              ("attn_enc", "dense"): {"ln1", "mixer", "ln2", "ffn"}}
+    for kind, keys in leaves.items():
+        layer = tf.init_layer(None, cfg, kind, torch.device("meta"))
+        assert set(layer) == keys and "wq" in layer["mixer"]
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        tf.init_layer(None, cfg, ("xattn", "moe"), torch.device("meta"))
 
 
 @pytest.mark.parametrize("arch,total,active", [

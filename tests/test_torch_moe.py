@@ -290,7 +290,7 @@ def test_flash_shapes_and_card_checks_at_unequal_widths():
     assert FA.flash_attention_plain(q, k, v).shape == (1, 8, 2, 128)
     with pytest.raises(ValueError, match="expected q"):
         FA.flash_attention_plain(q, k, torch.zeros(1, 9, 2, 128))
-    o, lse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    o, lse, _ = FA.flash_attention_plain(q, k, v, return_lse=True)
     with pytest.raises(ValueError, match="must be"):
         FA.flash_attention_bwd_plain(q, k, v, q, lse, q)
     assert (192, 128) in FA.KERNEL_HEAD_DIMS and (192, 192) not in FA.KERNEL_HEAD_DIMS
