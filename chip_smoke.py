@@ -14,8 +14,10 @@ SSD runs no kernel of ours), serves the Jamba hybrid (one period of
 jamba-v0.1-52b through the forward kernel), serves cross-attention
 (llama-3.2-vision-90b at 2 periods over media embeddings) and the
 encoder-decoder (seamless-m4t-large-v2 at full size, which it also
-trains), kills and resumes a checkpointed learner on the card, and times
-the kernels.
+trains), trains qwen3-1.7b with int8 error-feedback gradient compression
+over a pod axis, runs GPipe over its layers and deepseek-v2-lite-16b's
+grouped MoE dispatch on a one-rank NCCL world, kills and resumes a
+checkpointed learner on the card, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -259,7 +261,40 @@ before any profiler session):
       against f32's (XATTN_GRAD_RATIO), the backward kernel's dk x 0.9
       rejected; at the end of the run, the forward timed at the vlm's
       cross-attention shape, seamless's encoder shape and both decode
-      rows beside SDPA and the bound.
+      rows beside SDPA and the bound;
+  (aa) the compressed step, after (z), on a one-rank NCCL world: its
+      (pod, data, model) = (1, 1, 1) mesh, qwen3-1.7b at (q)'s settings:
+      make_train_step_parts' gradients bitwise make_train_step's backward
+      (n_micro 1 at full size, 2 at TRAIN_GRAD_LAYERS layers); every
+      leaf's compressed mean of step 0's gradients bitwise
+      deq(quant(g + r)) in the gradient's dtype and its residual g + r -
+      deq, |r| <= scale / 2 (+ RESIDUAL_SLACK), each leaf's share of zero
+      codes printed (under its scale, under one scale a layer) beside its
+      share of zero gradients; COMPRESSED_STEPS steps of
+      make_train_step_compressed (the kernels line's launches_by_path
+      "lm_train_compressed"): step 0's residual the one just checked,
+      (q)'s loss gates and launches (56 + 28 a step); step wall, tokens/s,
+      idle share, peak memory, compressed_psum_mean's device ms; one
+      step's torch.profiler trace read by launch/trace_analysis.py: an
+      all-gather payload of the parameters' count plus 4 bytes a leaf, 0
+      wire bytes at one rank; then the same steps uncompressed and the
+      loss gaps; EF_STEPS compressed means of a fixed (151,936, 2,048) f32
+      gradient average within scale / EF_STEPS + 1e-4 of it, and a mean
+      that drops the residual is rejected by that bound;
+  (ab) GPipe at one stage of qwen3-1.7b's 28 layers over GPIPE_MICRO
+      microbatches of (1, 2,048, 2,048) bf16 hidden states: bitwise
+      reference_pipeline and the stack forward, 112 flash launches
+      ("gpipe");
+  (ac) deepseek-v2-lite-16b's prefill at full width and depth with
+      dispatch_groups = MOE_GROUPS against the global dispatch at a
+      capacity where nothing drops, under the global run's routing
+      replayed group by group: logits within MOE_TOL, the MoE layers'
+      outputs end to end within MOE_E2E_TOL of their max, each MoE layer
+      alone on the global run's input within MOE_GROUPED_TOL, 27 flash
+      launches ("moe_grouped"); dispatch_groups=3 refused; the drift's
+      witnesses printed: the global dispatch at MOE_WIDE times the slots,
+      the global run with its first MoE layer grouped, and each layer's
+      router logits over a group's rows against the whole call's.
 """
 
 from __future__ import annotations
@@ -540,6 +575,29 @@ AUDIO_SHORT_SOURCE = 2000
 # apart.
 AUDIO_TRAIN_STEPS = 8
 XATTN_GRAD_RATIO = 2
+# (aa)-(ac): the compressed step at (q)'s settings, the error-feedback
+# drill's steps (the bound of tests/test_runtime.py's convergence test),
+# GPipe's microbatches and deepseek's dispatch groups; each MoE layer
+# alone, grouped, on the global run's input to it and under the same
+# routing, is held to the global dispatch's output within (q)'s gradient
+# tolerance, MOE_GROUPED_TOL (measured at most 0.0056 of its max, a bf16
+# ulp: the f32 router logits over a group's 2,048 rows differ from the
+# whole call's by ~7e-7 of their max, while the global dispatch at
+# MOE_WIDE times the slots is bitwise).  End to end the MoE outputs drift
+# further as that rounding compounds through 26 MoE layers: 0.058 of
+# their max, and 0.052 for the global run with only its first MoE layer
+# grouped (NVIDIA H100 80GB HBM3, 700.00 W), so no bound near 2^-5 holds.
+# MOE_E2E_TOL is 2^-3, 2.2 times the grouped reading.
+COMPRESSED_STEPS = 8
+EF_STEPS = 50
+# |g32 - deq| <= scale / 2 in exact arithmetic; the f32 difference may
+# round past it by an ulp of the largest |g32| (127 scales)
+RESIDUAL_SLACK = 127 * 2 ** -23
+GPIPE_MICRO = 4
+MOE_GROUPS = 4
+MOE_GROUPED_TOL = 2 ** -5
+MOE_E2E_TOL = 2 ** -3
+MOE_WIDE = 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -3152,6 +3210,451 @@ def phase_audio_train(dev):
     return launches, summary
 
 
+def _world_on_card(dev):
+    """Join a one-rank world on ``dev`` (NCCL on the card; a ``file://``
+    rendezvous under ``build/``); returns the rendezvous directory to
+    remove after ``leave_world``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+
+    rdv = Path(tempfile.mkdtemp(prefix="world-", dir=Path(__file__).resolve().parent / "build"))
+    meshlib.join_world(0, 1, f"file://{rdv / 'rendezvous'}", device=dev.type)
+    if dev.type == "cuda" and dist.get_backend() != "nccl":
+        fail(f"the one-rank world runs {dist.get_backend()}, not nccl")
+    return rdv
+
+
+def _leave_world(rdv):
+    from repro_torch.launch import mesh as meshlib
+
+    meshlib.leave_world()
+    shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _ef_average(g, steps, group, feedback=True):
+    """The average of ``steps`` compressed means of the fixed gradient
+    ``g`` over ``group``, with error feedback (or, the planted fault,
+    without: the residual dropped every step) → (average, last scale)."""
+    from repro_torch.optim.compression import compressed_psum_mean, quantize_int8
+
+    r = torch.zeros_like(g)
+    acc = torch.zeros_like(g)
+    for _ in range(steps):
+        mean, new_r = compressed_psum_mean({"g": g}, {"g": r}, group)
+        acc += mean["g"]
+        scale = quantize_int8(g + r)[1]
+        r = new_r["g"] if feedback else torch.zeros_like(g)
+    return acc / steps, float(scale)
+
+
+def phase_compressed_train(dev):
+    """(aa): qwen3-1.7b at (q)'s settings trained COMPRESSED_STEPS steps
+    with make_train_step_compressed over a (pod, data, model) = (1, 1, 1)
+    mesh of a one-rank NCCL world, then the same steps uncompressed."""
+    import math
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.trace_analysis import collective_bytes, load_trace, op_histogram
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import compression as C
+    from repro_torch.train.train_step import (
+        grads_of,
+        make_train_step_compressed,
+        make_train_step_parts,
+    )
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, COMPRESSED_STEPS
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1, n_pod=1)
+    group = mesh.get_group("pod")
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    batches = [next(run.stream) for _ in range(n + 1)]    # the last one is profiled
+    params, state = run.init_state()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_leaves = len(tree_leaves(params))
+
+    # make_train_step_parts: its gradients are make_train_step's backward's,
+    # bitwise, at full size (n_micro 1) and at 2 layers (n_micro 2 against
+    # the f32 mean of the two halves' backward)
+    parts, _ = make_train_step_parts(run.model, 1)(params, batches[0])
+    plain, _ = grads_of(run.model, params, batches[0])
+    _tree_bitwise("(aa) make_train_step_parts' gradients (n_micro 1)", parts, plain)
+    del plain
+    small = build(cfg.replace(n_layers=TRAIN_GRAD_LAYERS))
+    p2 = small.init(SEED, device=dev)
+    g2, _ = make_train_step_parts(small, 2)(p2, batches[0])
+    halves = [grads_of(small, p2, {k: v.reshape(2, B // 2, *v.shape[1:])[i]
+                                   for k, v in batches[0].items()})[0] for i in (0, 1)]
+    want2 = tree_map(lambda a, b: (torch.zeros(a.shape, dtype=torch.float32, device=dev)
+                                   .add_(a.float()).add_(b.float())) / 2, *halves)
+    _tree_bitwise("(aa) make_train_step_parts' gradients (n_micro 2, 2 layers)", g2, want2)
+    del small, p2, g2, halves, want2
+
+    # every leaf's compressed mean is deq(quant(g32 + r)) in the gradient's
+    # dtype, every residual g32 - deq, |r| <= scale / 2 (step 0's gradients)
+    zeros = C.init_residual(parts)
+    mean, res = C.compressed_psum_mean(parts, zeros, group)
+    worst, zero_codes = 0.0, {}
+    names = [path for path, _ in _named_leaves(parts)]
+    for name, g, r0, m, r in zip(names, *(tree_leaves(t) for t in (parts, zeros, mean, res))):
+        g32 = g.float() + r0
+        q, s = C.quantize_int8(g32)
+        deq = C.dequantize_int8(q, s)
+        # the share of zero codes: under the leaf's one scale, and under
+        # one scale a layer where the leaf stacks the layers; beside it
+        # the share of gradients that are exactly 0
+        per_layer = None
+        if name.startswith("/layers/"):
+            amax = g32.abs().amax(dim=tuple(range(1, g32.dim())), keepdim=True)
+            s_l = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+            per_layer = round(float((torch.round(g32 / s_l) == 0).float().mean()), 4)
+        zero_codes[name] = (round(float((q == 0).float().mean()), 4), per_layer,
+                            round(float((g32 == 0).float().mean()), 4))
+        if not (_same_bits(m, deq.to(g.dtype)) and _same_bits(r, g32 - deq)):
+            fail(f"(aa) a leaf {tuple(g.shape)}: the compressed mean or residual is not "
+                 f"deq(quant(g + r)) / g + r - deq bitwise")
+        ratio = float(r.abs().max()) / float(s)
+        if ratio > 0.5 + RESIDUAL_SLACK:
+            fail(f"(aa) a residual of {tuple(g.shape)} reaches {ratio} of its scale "
+                 f"(> 1/2 + {RESIDUAL_SLACK:.3g})")
+        worst = max(worst, ratio)
+    step0_res = [t.cpu() for t in tree_leaves(res)]
+    del parts, zeros, mean, res
+    log(f"(aa) ok: make_train_step_parts bitwise make_train_step's backward (n_micro 1 at "
+        f"{cfg.n_layers} layers, n_micro 2 at {TRAIN_GRAD_LAYERS}); all {n_leaves} leaves' "
+        f"compressed means bitwise deq(quant(g + r)) and residuals g + r - deq, max |r| / "
+        f"scale {worst:.4f}")
+    n_zero = sum(zero_codes[k][0] * t.numel() for k, t in zip(names, tree_leaves(params)))
+    log(f"(aa) step 0's share of zero int8 codes a leaf (under the leaf's scale, under one "
+        f"scale a layer; the share of exactly zero gradients): {zero_codes}; zero codes "
+        f"{n_zero / n_params:.4f} of all elements")
+
+    # the main path: n steps compressed, counted
+    step = make_train_step_compressed(run.model, run.opt, mesh)
+    residual = C.init_residual(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls, per_step = [], [], [], []
+    ops.reset_launch_counts()
+    for i in range(n):
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        params, state, residual, metrics = step(params, state, residual, batches[i])
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: ops.launches[k] - before[k]
+                         for k in ("flash_attention", "flash_attention_bwd")})
+        if i == 0 and not all(_same_bits(a, b.to(dev))
+                              for a, b in zip(tree_leaves(residual), step0_res)):
+            fail("(aa) step 0's residual is not the one compressed_psum_mean gave its "
+                 "gradients")
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del step0_res
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    if any(s != want for s in per_step):
+        fail(f"(aa) launches a step {per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"(aa) a loss or grad norm is not finite: {losses}, {gnorms}")
+    ln_v = math.log(cfg.vocab)
+    if not abs(losses[0] - ln_v) <= TRAIN_LOSS0_TOL:
+        fail(f"(aa) step 0's loss {losses[0]} is not within {TRAIN_LOSS0_TOL} of ln V")
+    if not losses[-1] < losses[0]:
+        fail(f"(aa) the loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_s = float(np.median(walls[1:]))
+
+    # one more step under the profiler: busy share, the compression's
+    # device time, and the collectives read from the trace
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        params, state, residual, _ = step(params, state, residual, batches[n])
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    trace = load_trace(prof)
+    stats = collective_bytes(trace, dist.get_world_size())
+    top = op_histogram(trace, top=3)
+    payload = stats.payload_by_op.get("all_gather", 0)
+    if payload != n_params + 4 * n_leaves or stats.total_wire_bytes != 0:
+        fail(f"(aa) the step's trace reads an all-gather payload of {payload} bytes and "
+             f"{stats.total_wire_bytes} wire bytes; expected {n_params + 4 * n_leaves} "
+             f"(int8 parameters and an f32 scale a leaf) and 0 at one rank: {stats.count_by_op}")
+    comp_ms = _device_ms(lambda: C.compressed_psum_mean(params, residual, group), iters=3)
+    comp_txt = "not measured" if comp_ms is None else f"{comp_ms:.2f} ms"
+    log(f"(aa) ok: {n} compressed steps of B={B} x S={S}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V = {ln_v:.4f}), grad norms {[round(x, 4) for x in gnorms]}; "
+        f"step wall {step_s:.3f} s (median of steps 1-{n - 1}; step 0 {walls[0]:.3f} s), "
+        f"{B * S / step_s:.0f} tokens/s; one step's device busy {busy:.1f} ms (idle share "
+        f"{1 - busy / (step_s * 1e3):.2f}); compressed_psum_mean {comp_txt} of device "
+        f"time over the {n_leaves} leaves ({n_params / 1e9:.3f} B elements); peak device "
+        f"memory {peak / 2**30:.2f} GiB (f32 residual {4 * n_params / 2**30:.2f} GiB); "
+        f"launches {launches}")
+    log(f"(aa) the trace's collectives: {stats.count_by_op}, payload {stats.payload_by_op} "
+        f"bytes, wire {stats.bytes_by_op} at one rank; at pod = 2 the same tree would move "
+        f"{C.wire_bytes_int8_allgather(n_params, 2)} bytes (int8 all-gather) against "
+        f"{C.wire_bytes_f32_allreduce(n_params, 2)} (f32 ring all-reduce) a device; most "
+        f"frequent kernels {top}")
+    del params, state, residual, metrics, step, prof, trace
+    torch.cuda.empty_cache()
+
+    # the same steps uncompressed, from the same init and batches
+    params, state = run.init_state()
+    plain_losses, plain_walls = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batches[i])
+        plain_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+    plain_s = float(np.median(plain_walls[1:]))
+    gaps = [a - b for a, b in zip(losses, plain_losses)]
+    log(f"(aa) uncompressed: loss {plain_losses[0]:.4f} -> {plain_losses[-1]:.4f}, step wall "
+        f"{plain_s:.3f} s; compressed - uncompressed loss a step "
+        f"{[round(x, 5) for x in gaps]}; the compressed step {step_s / plain_s:.3f}x the "
+        f"uncompressed wall")
+    del params, state, metrics, run
+    torch.cuda.empty_cache()
+
+    # error feedback at full width: a fixed gradient of the embedding's
+    # shape, 50 compressed means averaged, within scale / 50 + 1e-4 of it
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    g = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev)
+    avg, scale = _ef_average(g, EF_STEPS, group)
+    err = float((avg - g).abs().max())
+    bound = scale / EF_STEPS + 1e-4
+    if not err <= bound:
+        fail(f"(aa) error feedback: the average of {EF_STEPS} compressed means lies "
+             f"{err} from the gradient (> scale / {EF_STEPS} + 1e-4 = {bound})")
+    avg, _ = _ef_average(g, EF_STEPS, group, feedback=False)
+    dropped = float((avg - g).abs().max())
+    if dropped <= bound:
+        fail(f"(aa) the bound accepts a mean that drops the residual ({dropped} <= {bound})")
+    log(f"(aa) ok: error feedback at {tuple(g.shape)}: {EF_STEPS} compressed means average "
+        f"{err:.3g} from the gradient (bound {bound:.3g}); without the residual {dropped:.3g}, "
+        f"rejected")
+    del g, avg
+    _leave_world(rdv)
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(
+        step_s=step_s, plain_step_s=plain_s, peak_gib=peak / 2**30, losses=losses,
+        loss_gaps=gaps, compress_ms=comp_ms, payload=payload)
+
+
+def phase_gpipe(dev):
+    """(ab): GPipe at one stage over qwen3-1.7b's 28 layers (the stage's
+    leaves with a leading stage axis of 1) on GPIPE_MICRO microbatches of
+    (1, TRAIN_SEQ, d_model) bf16 hidden states, in a one-rank NCCL world."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.pipeline import gpipe, reference_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.models.model import build
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg)
+    params = model.init(SEED, device=dev)
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1, n_pod=1)
+    stage_params = tf.tree_map(lambda t: t[None], params["layers"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    tokens = torch.randint(0, cfg.vocab, (GPIPE_MICRO, 1, TRAIN_SEQ), generator=gen, device=dev)
+    x = embed_lookup(params["embed"], tokens)
+
+    def stage_fn(p, xb):
+        return tf.stack_forward(p, xb, cfg, model.plan)[0]
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = gpipe(stage_fn, stage_params, x, mesh=mesh, axis="pod")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        ref = reference_pipeline(stage_fn, stage_params, x)
+        direct = torch.stack([stage_fn(params["layers"], x[m]) for m in range(GPIPE_MICRO)])
+    _leave_world(rdv)
+    if not (torch.isfinite(out).all() and out.shape == x.shape):
+        fail(f"(ab) gpipe's output {tuple(out.shape)} is not finite of the input's shape")
+    if not (_same_bits(out, ref) and _same_bits(out, direct)):
+        fail("(ab) gpipe's output is not bitwise reference_pipeline's and the stack's")
+    want = GPIPE_MICRO * cfg.n_layers
+    if launches["flash_attention"] != want:
+        fail(f"(ab) gpipe launched flash_attention {launches['flash_attention']} times, "
+             f"expected {want}")
+    log(f"(ab) ok: gpipe at one stage of {cfg.n_layers} layers, {GPIPE_MICRO} microbatches "
+        f"of (1, {TRAIN_SEQ}, {cfg.d_model}) {cfg.dtype}: bitwise reference_pipeline and the "
+        f"stack forward, {launches['flash_attention']} flash launches, {wall * 1e3:.1f} ms")
+    del params, stage_params, x, out, ref, direct
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(wall_ms=wall * 1e3)
+
+
+@contextlib.contextmanager
+def _moe_calls(cfg_of=None):
+    """Record every MoE layer run inside: its params, its input and its
+    routed output (``moe_forward``'s ``y``), in order; the i-th layer runs
+    with ``cfg_of(i, cfg)`` where that is given."""
+    from repro_torch.models import moe
+
+    real, seen = moe.moe_forward, []
+
+    def record(p, x, cfg):
+        y, aux = real(p, x, cfg if cfg_of is None else cfg_of(len(seen), cfg))
+        seen.append((p, x, y))
+        return y, aux
+
+    moe.moe_forward = record
+    try:
+        yield seen
+    finally:
+        moe.moe_forward = real
+
+
+def _moe_drift(calls, ref_calls):
+    """Each MoE layer's output of one run against another's, as a share of
+    the reference output's max, in layer order."""
+    return [_err(y, y0) / float(y0.float().abs().max())
+            for (_, _, y), (_, _, y0) in zip(calls, ref_calls)]
+
+
+def phase_moe_grouped(dev):
+    """(ac): deepseek-v2-lite-16b at full width and depth, prefill of
+    MOE_BATCH x MOE_PROMPT tokens with dispatch_groups = MOE_GROUPS against
+    the global dispatch, at a capacity where nothing drops and under the
+    global run's routing replayed group by group: the logits, the MoE
+    layers' outputs end to end, and each MoE layer's output on the global
+    run's input to that layer.  Two witnesses of where the end-to-end
+    drift comes from, held to the global run the same ways: the global
+    dispatch at MOE_WIDE times the slots (only the expert products' row
+    count changes), and the global run with its first MoE layer alone
+    grouped (that layer's rounding carried through the global path); and
+    each layer's router logits over a group's rows against the whole
+    call's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+    from repro_torch.models.moe import pinned_routing
+
+    cfg = _no_drop(get_config(MOE_ARCH))
+    grouped_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_groups=MOE_GROUPS))
+    wide_cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_WIDE * cfg.moe.capacity_factor))
+    model, grouped, wide = build(cfg), build(grouped_cfg), build(wide_cfg)
+    params = model.init(SEED, device=dev)
+    B, L = MOE_BATCH, MOE_PROMPT
+    slots = [moe.capacity_of(B * L // g, c.moe)
+             for g, c in ((1, cfg), (MOE_GROUPS, cfg), (1, wide_cfg))]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev)}
+    with pinned_routing() as pin, _moe_calls() as calls:
+        logits0, _ = model.prefill(params, prompt)
+    if not torch.isfinite(logits0).all():
+        fail("(ac) the global prefill's logits are not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, prompt)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    chunks = [list(call.chunk(MOE_GROUPS)) for call in pin.log]
+
+    def against_global(run, routing, cfg_of=None):
+        """Prefill ``run`` under ``routing`` replayed: its logits' and MoE
+        layers' distance from the global run's, and the run's pin."""
+        with pinned_routing() as rpin, _moe_calls(cfg_of) as rcalls:
+            rpin.replay(routing)
+            logits, _ = run.prefill(params, prompt)
+        if not torch.isfinite(logits).all():
+            fail("(ac) prefill logits not finite")
+        return _logit_diff(logits, logits0), _moe_drift(rcalls, calls), rpin
+
+    err_w, e2e_w, _ = against_global(wide, pin.log)
+    err_s, e2e_s, _ = against_global(model, chunks[0] + pin.log[1:],
+                                     lambda i, c: grouped_cfg if i == 0 else c)
+    grouped_routing = [c for cs in chunks for c in cs]
+    ops.reset_launch_counts()
+    err, e2e_g, gpin = against_global(grouped, grouped_routing)
+    launches = dict(ops.launches)
+    with pinned_routing() as tpin:
+        tpin.replay(grouped_routing)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grouped.prefill(params, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # each MoE layer alone, on the global run's input to it and under its
+    # routing: only the expert products' shapes differ; and its router
+    # logits (f32) over each group's rows against the whole call's
+    alone_g, alone_w, router = [], [], []
+    with torch.no_grad():
+        for (p, x, y), experts in zip(calls, pin.log):
+            for run_cfg, routing, out in ((grouped_cfg, experts.chunk(MOE_GROUPS), alone_g),
+                                          (wide_cfg, [experts], alone_w)):
+                with pinned_routing() as lpin:
+                    lpin.replay(list(routing))
+                    yr, _ = moe.moe_forward(p, x, run_cfg)
+                out.append(_err(yr, y) / float(y.float().abs().max()))
+            xf = x.reshape(-1, x.shape[-1]).float()
+            whole = xf @ p["w_router"]
+            router.append(_err(torch.cat([xg @ p["w_router"] for xg in
+                                          xf.chunk(MOE_GROUPS)]), whole)
+                          / float(whole.abs().max()))
+    fmt = lambda xs: [round(v, 5) for v in xs]
+    log(f"(ac) {len(calls)} MoE layers' outputs against the global dispatch ({slots[0]} slots "
+        f"an expert), as a share of their max, layer by layer: end to end grouped "
+        f"({MOE_GROUPS} x {slots[1]} slots) {fmt(e2e_g)}; the first layer alone grouped "
+        f"{fmt(e2e_s)}; wide ({slots[2]} slots) {fmt(e2e_w)}; alone on the global run's "
+        f"inputs grouped {fmt(alone_g)}, wide {fmt(alone_w)}; router logits over "
+        f"{B * L // MOE_GROUPS} rows against {B * L}, a share of their max, "
+        f"{[float(f'{v:.3g}') for v in router]}; logits grouped {err:.4g}, first layer "
+        f"grouped {err_s:.4g}, wide {err_w:.4g}")
+    if err > MOE_TOL or max(e2e_g) > MOE_E2E_TOL or max(alone_g) > MOE_GROUPED_TOL:
+        fail(f"(ac) grouped dispatch against global: logits {err} (tol {MOE_TOL}), MoE "
+             f"outputs end to end {max(e2e_g)} (tol {MOE_E2E_TOL}), each layer alone "
+             f"{max(alone_g)} (tol {MOE_GROUPED_TOL}) of their max")
+    n_attn = _plan_count(model.plan, lambda k: k[0] == "attn")
+    if launches["flash_attention"] != n_attn:
+        fail(f"(ac) the grouped prefill launched {launches}, expected {n_attn} flash")
+    bad = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_groups=3))
+    try:
+        build(bad).prefill(params, prompt)
+        fail("(ac) dispatch_groups=3 over 8,192 tokens did not raise")
+    except ValueError as e:
+        refused = str(e)
+    log(f"(ac) ok: {cfg.name} prefill ({B} x {L}) with dispatch_groups={MOE_GROUPS} "
+        f"(capacity factor {cfg.moe.capacity_factor:.4g}: nothing drops) against the global "
+        f"dispatch under its replayed routing ({gpin.flips} of {B * L * len(calls)} (token, "
+        f"layer) sets of the grouped run's own differ): logits {err:.4g} (tol {MOE_TOL}); "
+        f"MoE outputs end to end {max(e2e_g):.4g} of their max (tol {MOE_E2E_TOL}; the "
+        f"first layer alone grouped {max(e2e_s):.4g}, the {MOE_WIDE}x-slot witness "
+        f"{max(e2e_w):.4g}); each alone on the global run's input {max(alone_g):.4g} (tol "
+        f"{MOE_GROUPED_TOL}); {launches['flash_attention']} flash launches; prefill "
+        f"{wall * 1e3:.1f} ms grouped, {wall0 * 1e3:.1f} ms global (both at the no-drop "
+        f"capacity); refused: {refused!r}")
+    del params, logits0, calls
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(
+        logit_err=err, e2e_err=max(e2e_g), mixer_err=max(alone_g), wall_ms=wall * 1e3,
+        global_wall_ms=wall0 * 1e3)
+
+
 def _named_leaves(tree, path=""):
     """``(path, leaf)`` of every leaf of a tree of dicts and lists, in
     ``tree_leaves``' order."""
@@ -4231,7 +4734,10 @@ def main() -> None:
                         ("jamba_serve", phase_jamba_serve),
                         ("vlm_serve", phase_vlm_serve),
                         ("audio_serve", phase_audio_serve),
-                        ("audio_train", phase_audio_train)):
+                        ("audio_train", phase_audio_train),
+                        ("lm_train_compressed", phase_compressed_train),
+                        ("gpipe", phase_gpipe),
+                        ("moe_grouped", phase_moe_grouped)):
         path_launches, _ = phase(dev)          # each resets and reads the counts
         for k in ops.KERNELS:
             by_path[k][path] = path_launches[k]

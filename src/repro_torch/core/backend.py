@@ -171,8 +171,8 @@ class ExecutionBackend:
         if tuple(mesh.mesh_dim_names or ()) != (DATA_AXIS,):
             raise ValueError(
                 f"the RSNN backend shards over a one-axis ({DATA_AXIS!r},) mesh, got "
-                f"axes {mesh.mesh_dim_names}: the LM's (data, model) meshes wait for "
-                "its sharding (ROADMAP A8)")
+                f"axes {mesh.mesh_dim_names} (the LM's (data, model) meshes are for its "
+                "train steps, launch/mesh.py:make_debug_mesh)")
         if mesh.device_type != self.device.type:
             raise ValueError(
                 f"a {mesh.device_type} mesh cannot carry a backend on {self.device}: "

@@ -1,5 +1,5 @@
-"""Elastic scaling of the data-parallel RSNN path (counterpart of
-:mod:`repro.distributed.elastic`, its data-mesh part).
+"""Elastic scaling: reload a run onto fewer ranks (counterpart of
+:mod:`repro.distributed.elastic`).
 
 The RSNN stack is data-parallel over one ``("data",)`` mesh axis: the
 weights are replicated on every rank, the sample axis is sharded, END_B's
@@ -23,18 +23,28 @@ recovering from a rank that *died* is a restart onto a smaller world from
 the newest checkpoint, which is what ``python -m repro_torch.train.chaos
 --mesh-devices N`` drills (8 ranks killed, 4 resumed, bitwise).
 
-``reshard`` is not needed (the weights are replicated), and the (data,
-model) forms ``best_mesh_from`` / ``survive_failure`` wait for the LM's
-tensor parallelism (ROADMAP A8).
+The general (data, model) form serves layouts that do split a model
+axis (the LM's; none of the RSNNs': their weights are a few hundred KB
+and always replicated).  :func:`reshard` places a host tree with the
+sharding rules' placements (:func:`repro_torch.distributed.sharding.
+param_shardings`) as DTensors; :func:`best_mesh_from` builds the largest
+(data, model) mesh that the survivors hold; :func:`survive_failure`
+drops ranks, rebuilds the mesh and reshards, over ranks that are all
+still alive, for the reason above.  The sharded step that would train on
+such a mesh waits for ROADMAP A8 item 5's second half.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import mesh_over
+from repro_torch.distributed.sharding import ShardingRules, param_shardings
+from repro_torch.launch.mesh import mesh_over, world_device_type
+from repro_torch.models.transformer import tree_map
 
 
 def best_data_mesh_from(ranks: Sequence[int], device_type: str = "cuda"):
@@ -71,3 +81,56 @@ def survive_data_failure(backend, failed_ranks: Sequence[int]) -> Tuple[Optional
     if me in failed:
         return None, mesh
     return backend.resize(mesh), mesh
+
+
+def reshard(host_tree: Any, specs: Any, mesh, rules: ShardingRules) -> Any:
+    """Place a host tree (numpy arrays or tensors) onto ``mesh`` with its
+    logical-axes ``specs``: each leaf becomes a DTensor
+    (``distribute_tensor``) whose placements the rules give, on the
+    mesh's device (the rank's card for ``"cuda"``).  Every rank of the
+    mesh calls it with the same tree; each keeps its own shards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+
+    def place(x, pl):
+        t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
+        return distribute_tensor(t.to(dev), mesh, pl)
+
+    return tree_map(place, host_tree, param_shardings(specs, mesh, rules))
+
+
+def best_mesh_from(ranks: Sequence[int], model_parallel: int,
+                   device_type: Optional[str] = None):
+    """The largest ``(data, model)`` mesh the surviving ``ranks`` hold,
+    with the model axis kept at ``model_parallel`` (the tensor-parallel
+    degree the program was built for); survivors beyond the largest
+    multiple stay idle.  Every rank of the world calls it (it forms
+    process groups).  ``device_type`` defaults to the world's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = sorted(int(r) for r in ranks)
+    data = len(ranks) // model_parallel
+    if data < 1:
+        raise ValueError(
+            f"{len(ranks)} surviving ranks cannot host model_parallel={model_parallel}")
+    grid = torch.tensor(ranks[:data * model_parallel]).reshape(data, model_parallel)
+    return DeviceMesh(device_type or world_device_type(), grid,
+                      mesh_dim_names=("data", "model"))
+
+
+def survive_failure(host_state: Any, specs: Any, failed_ranks: Sequence[int],
+                    rules: ShardingRules, model_parallel: int = 1) -> Tuple[Any, Any]:
+    """Drop ``failed_ranks`` from the world, build the survivors'
+    :func:`best_mesh_from` mesh and :func:`reshard` the host state onto
+    it.  Every rank of the world calls it (the ranks taken out of service
+    too: they are alive, see the module's note); a rank outside the new
+    mesh, failed or idle, gets ``None`` for the state.  Returns
+    ``(state, mesh)``."""
+    failed = {int(r) for r in failed_ranks}
+    survivors = [r for r in range(dist.get_world_size()) if r not in failed]
+    mesh = best_mesh_from(survivors, model_parallel)
+    if mesh.get_coordinate() is None:      # not a rank of the new mesh
+        return None, mesh
+    return reshard(host_state, specs, mesh, rules), mesh

@@ -11,14 +11,26 @@ with the same global inputs (the SPMD contract of
 
 Every group gets an explicit ``timeout``: a rank that dies mid-collective
 leaves the others blocked there, and gloo's default would hold them for 30
-minutes.  The (data, model) meshes of the LM (``make_production_mesh``,
-``make_debug_mesh``) wait for the LM's sharding (ROADMAP A8).
+minutes.
+
+The LM's meshes (``make_debug_mesh``, ``make_production_mesh``) carry the
+JAX package's axis names in its order, ``("data", "model")`` or, across
+pods, ``("pod", "data", "model")``, over every rank of the world.  The
+compressed train step reduces over ``pod``
+(:func:`repro_torch.train.train_step.make_train_step_compressed`), GPipe
+hands activations along it (:mod:`repro_torch.distributed.pipeline`), and
+``reshard`` places a tree with the sharding rules' placements on it; the
+sharded (FSDP × TP) step over ``data`` and ``model`` waits for ROADMAP A8
+item 5's second half.  The reference's TPU constants (peak rates, link
+bandwidths) are not ported: the card's figures live in
+:mod:`repro_torch.kernels.traffic`.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Sequence
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -84,6 +96,50 @@ def make_data_mesh(device: str = "cuda"):
     dist_backend(dev_type)
     return init_device_mesh(dev_type, (dist.get_world_size(),),
                             mesh_dim_names=(DATA_AXIS,))
+
+
+def world_device_type() -> str:
+    """The device type the current world's backend runs on."""
+    if not dist.is_initialized():
+        raise RuntimeError("join a world first (join_world)")
+    backend = dist.get_backend()
+    if backend == "nccl":
+        return "cuda"
+    if backend == "gloo":
+        return "cpu"
+    raise ValueError(f"no device type for backend {backend!r}")
+
+
+def _world_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device: Optional[str]):
+    """A mesh of ``shape`` over every rank of the world, in rank order."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev_type = torch.device(device).type if device else world_device_type()
+    dist_backend(dev_type)
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {dict(zip(names, shape))} mesh needs {math.prod(shape)} ranks, "
+                         f"this world has {world}")
+    return init_device_mesh(dev_type, shape, mesh_dim_names=names)
+
+
+def make_debug_mesh(n_data: int = 1, n_model: int = 1, n_pod: int = 0, *,
+                    device: Optional[str] = None):
+    """A small ``(data, model)`` mesh, or ``(pod, data, model)`` with
+    ``n_pod``, over the whole world (its size must be the product).
+    ``device`` defaults to the world backend's device type."""
+    if n_pod:
+        return _world_mesh((n_pod, n_data, n_model), ("pod", "data", "model"), device)
+    return _world_mesh((n_data, n_model), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: Optional[str] = None):
+    """The production layout: 16 × 16 ``(data, model)`` ranks a pod, two
+    pods across ``pod``.  It needs a world of 256 (or 512) ranks and
+    raises in any other; it never shrinks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _world_mesh(shape, names, device)
 
 
 def mesh_over(ranks: Sequence[int], device_type: str):

@@ -21,7 +21,11 @@ On a CPU, a reduced config:
 :func:`build_run` makes what ``main`` trains (the model,
 ``AdamW(lr, warmup_steps=10, decay_steps=steps)``, ``make_train_step``,
 the ``TokenStream``, and on request ``Model.init`` weights from seed 0
-with their AdamW state), so other drivers step the same thing.  ``--mesh`` (the LM's sharding) raises: ROADMAP A8 item 5.
+with their AdamW state), so other callers step the same thing.
+``--mesh`` (the LM's FSDP × TP sharding) raises: the sharded step waits
+for ROADMAP A8 item 5's second half.  The pod-compressed step
+(``train/train_step.py:make_train_step_compressed``) and GPipe
+(``distributed/pipeline.py``) are library functions, not options here.
 Checkpoints go to ``build/lm_ckpt`` in the checkout unless ``--ckpt-dir``
 says otherwise.
 """
@@ -100,7 +104,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--mesh", default="", help="the LM's sharding: not ported yet")
+    ap.add_argument("--mesh", default="",
+                    help="the LM's sharded step: not ported yet (raises)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -111,7 +116,8 @@ def run(argv=None) -> RunResult:
     opts = parse_args(argv)
     if opts.mesh:
         raise NotImplementedError(
-            f"--mesh {opts.mesh}: the LM's sharding is not ported yet (ROADMAP A8 item 5)")
+            f"--mesh {opts.mesh}: the LM's sharded (FSDP x TP) step is not ported yet "
+            f"(ROADMAP A8 item 5, second half)")
     cfg = get_reduced(opts.arch) if opts.reduced else get_config(opts.arch)
     r = build_run(cfg, steps=opts.steps, batch=opts.batch, seq=opts.seq, lr=opts.lr,
                   n_micro=opts.n_micro, device=resolve_device(opts.device))

@@ -89,29 +89,33 @@ def init_gqa(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
     dt = cfg.torch_dtype
     if cfg.flat_attn_proj:
         p = {
-            "wq": make_param(gen, (d, h * dh), dt, device),
-            "wk": make_param(gen, (d, hkv * dh), dt, device),
-            "wv": make_param(gen, (d, hkv * dh), dt, device),
-            "wo": make_param(gen, (h * dh, d), dt, device),
+            "wq": make_param(gen, (d, h * dh), dt, device, axes=("embed", "attn_flat")),
+            "wk": make_param(gen, (d, hkv * dh), dt, device, axes=("embed", "attn_flat")),
+            "wv": make_param(gen, (d, hkv * dh), dt, device, axes=("embed", "attn_flat")),
+            "wo": make_param(gen, (h * dh, d), dt, device, axes=("attn_flat", "embed")),
         }
         if cfg.attn_bias:
-            p["bq"] = const_param((h * dh,), dt, device, 0.0)
-            p["bk"] = const_param((hkv * dh,), dt, device, 0.0)
-            p["bv"] = const_param((hkv * dh,), dt, device, 0.0)
+            p["bq"] = const_param((h * dh,), dt, device, 0.0, axes=("attn_flat",))
+            p["bk"] = const_param((hkv * dh,), dt, device, 0.0, axes=("attn_flat",))
+            p["bv"] = const_param((hkv * dh,), dt, device, 0.0, axes=("attn_flat",))
     else:
         p = {
-            "wq": make_param(gen, (d, h, dh), dt, device),
-            "wk": make_param(gen, (d, hkv, dh), dt, device),
-            "wv": make_param(gen, (d, hkv, dh), dt, device),
-            "wo": make_param(gen, (h, dh, d), dt, device),
+            "wq": make_param(gen, (d, h, dh), dt, device,
+                             axes=("embed", "heads", "head_dim")),
+            "wk": make_param(gen, (d, hkv, dh), dt, device,
+                             axes=("embed", "kv_heads", "head_dim")),
+            "wv": make_param(gen, (d, hkv, dh), dt, device,
+                             axes=("embed", "kv_heads", "head_dim")),
+            "wo": make_param(gen, (h, dh, d), dt, device,
+                             axes=("heads", "head_dim", "embed")),
         }
         if cfg.attn_bias:
-            p["bq"] = const_param((h, dh), dt, device, 0.0)
-            p["bk"] = const_param((hkv, dh), dt, device, 0.0)
-            p["bv"] = const_param((hkv, dh), dt, device, 0.0)
+            p["bq"] = const_param((h, dh), dt, device, 0.0, axes=("heads", "head_dim"))
+            p["bk"] = const_param((hkv, dh), dt, device, 0.0, axes=("kv_heads", "head_dim"))
+            p["bv"] = const_param((hkv, dh), dt, device, 0.0, axes=("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p["q_norm"] = const_param((dh,), dt, device, 1.0)
-        p["k_norm"] = const_param((dh,), dt, device, 1.0)
+        p["q_norm"] = const_param((dh,), dt, device, 1.0, axes=("norm",))
+        p["k_norm"] = const_param((dh,), dt, device, 1.0, axes=("norm",))
     return p
 
 
@@ -249,12 +253,16 @@ def init_mla(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
     d, h, dt = cfg.d_model, cfg.n_heads, cfg.torch_dtype
     qd = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "wq": make_param(gen, (d, h, qd), dt, device),
-        "w_dkv": make_param(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dt, device),
-        "kv_norm": const_param((m.kv_lora_rank,), dt, device, 1.0),
-        "w_uk": make_param(gen, (m.kv_lora_rank, h, m.qk_nope_dim), dt, device),
-        "w_uv": make_param(gen, (m.kv_lora_rank, h, m.v_head_dim), dt, device),
-        "wo": make_param(gen, (h, m.v_head_dim, d), dt, device),
+        "wq": make_param(gen, (d, h, qd), dt, device, axes=("embed", "heads", "head_dim")),
+        "w_dkv": make_param(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dt, device,
+                            axes=("embed", "kv_lora")),
+        "kv_norm": const_param((m.kv_lora_rank,), dt, device, 1.0, axes=("norm",)),
+        "w_uk": make_param(gen, (m.kv_lora_rank, h, m.qk_nope_dim), dt, device,
+                           axes=("kv_lora", "heads", "head_dim")),
+        "w_uv": make_param(gen, (m.kv_lora_rank, h, m.v_head_dim), dt, device,
+                           axes=("kv_lora", "heads", "head_dim")),
+        "wo": make_param(gen, (h, m.v_head_dim, d), dt, device,
+                         axes=("heads", "head_dim", "embed")),
     }
 
 

@@ -8,7 +8,8 @@ the tensors' device with the JAX package's scales (fan-in ``shape[0]**-0.5``
 by default, 0.02 for the embedding); the two frameworks give different
 numbers from one seed, so parity tests pass weights across instead.  On the
 ``meta`` device the helpers return shape-and-dtype stand-ins without
-drawing (the port's counterpart of the JAX package's abstract init).
+drawing (the port's counterpart of the JAX package's abstract init),
+each carrying its logical axes (:func:`with_axes`).
 
 Numerics follow the JAX package's cast order exactly, since bf16 parity
 depends on it: parameters and activations in ``cfg.dtype``; the norm's
@@ -23,24 +24,42 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+# A parameter's logical axes: a name (or None) for each dimension.
+Axes = Tuple[Optional[str], ...]
+
+
+def with_axes(t: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """``t`` with its logical axes (one name, or ``None``, a dimension; the
+    sharding rules of :mod:`repro_torch.distributed.sharding` map them to
+    mesh axes).  A rank that disagrees with the shape raises, as in JAX;
+    on the ``meta`` device the axes are kept as ``t.logical_axes``, which
+    :func:`repro_torch.models.transformer.abstract_model` reads."""
+    if len(axes) != t.dim():
+        raise ValueError(f"shape {tuple(t.shape)} and sharding axes {axes} disagree on rank")
+    if t.device.type == "meta":
+        t.logical_axes = tuple(axes)
+    return t
+
 
 def make_param(gen: Optional[torch.Generator], shape: Tuple[int, ...], dtype,
-               device: torch.device, scale: Optional[float] = None) -> torch.Tensor:
+               device: torch.device, scale: Optional[float] = None, *,
+               axes: Axes) -> torch.Tensor:
     """``N(0, 1) · scale`` drawn in f32 and cast to ``dtype``; fan-in
-    scaling on the first dimension unless ``scale`` is given."""
+    scaling on the first dimension unless ``scale`` is given.  ``axes``:
+    :func:`with_axes`."""
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+        return with_axes(torch.empty(shape, dtype=dtype, device=device), axes)
     if scale is None:
         scale = shape[0] ** -0.5
-    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-            * scale).to(dtype)
+    return with_axes((torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+                      * scale).to(dtype), axes)
 
 
 def const_param(shape: Tuple[int, ...], dtype, device: torch.device,
-                fill: float = 1.0) -> torch.Tensor:
+                fill: float = 1.0, *, axes: Axes) -> torch.Tensor:
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    return torch.full(shape, fill, dtype=dtype, device=device)
+        return with_axes(torch.empty(shape, dtype=dtype, device=device), axes)
+    return with_axes(torch.full(shape, fill, dtype=dtype, device=device), axes)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -51,7 +70,7 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 
 def init_rms_norm(dim: int, dtype, device: torch.device) -> torch.Tensor:
-    return const_param((dim,), dtype, device, 1.0)
+    return const_param((dim,), dtype, device, 1.0, axes=("norm",))
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -76,9 +95,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> Dict[str, torch.Tensor]:
     return {
-        "w_gate": make_param(gen, (d_model, d_ff), dtype, device),
-        "w_up": make_param(gen, (d_model, d_ff), dtype, device),
-        "w_down": make_param(gen, (d_ff, d_model), dtype, device),
+        "w_gate": make_param(gen, (d_model, d_ff), dtype, device, axes=("embed", "mlp")),
+        "w_up": make_param(gen, (d_model, d_ff), dtype, device, axes=("embed", "mlp")),
+        "w_down": make_param(gen, (d_ff, d_model), dtype, device, axes=("mlp", "embed")),
     }
 
 
@@ -89,7 +108,8 @@ def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor:
-    return make_param(gen, (vocab, d_model), dtype, device, scale=0.02)
+    return make_param(gen, (vocab, d_model), dtype, device, scale=0.02,
+                      axes=("vocab", "embed"))
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

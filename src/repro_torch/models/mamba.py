@@ -50,7 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import const_param, make_param, rms_norm
+from repro_torch.models.layers import const_param, make_param, rms_norm, with_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,17 +87,19 @@ def init_mamba(gen, cfg, device: torch.device) -> Dict[str, Any]:
         dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
         dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
     return {
-        "w_x": make_param(gen, (d, di), dt, device),
-        "w_z": make_param(gen, (d, di), dt, device),
-        "w_bc": make_param(gen, (d, gn), dt, device),
-        "w_dt": make_param(gen, (d, h), dt, device),
-        "dt_bias": dt_bias,
-        "a_log": const_param((h,), f32, device, 0.0),
-        "d_skip": const_param((h,), f32, device, 1.0),
-        "conv_x": make_param(gen, (s.d_conv, di), dt, device, scale=s.d_conv ** -0.5),
-        "conv_bc": make_param(gen, (s.d_conv, gn), dt, device, scale=s.d_conv ** -0.5),
-        "norm": const_param((di,), dt, device, 1.0),
-        "w_out": make_param(gen, (di, d), dt, device),
+        "w_x": make_param(gen, (d, di), dt, device, axes=("embed", "ssm_inner")),
+        "w_z": make_param(gen, (d, di), dt, device, axes=("embed", "ssm_inner")),
+        "w_bc": make_param(gen, (d, gn), dt, device, axes=("embed", None)),
+        "w_dt": make_param(gen, (d, h), dt, device, axes=("embed", "ssm_heads")),
+        "dt_bias": with_axes(dt_bias, ("ssm_heads",)),
+        "a_log": const_param((h,), f32, device, 0.0, axes=("ssm_heads",)),
+        "d_skip": const_param((h,), f32, device, 1.0, axes=("ssm_heads",)),
+        "conv_x": make_param(gen, (s.d_conv, di), dt, device, scale=s.d_conv ** -0.5,
+                             axes=(None, "ssm_inner")),
+        "conv_bc": make_param(gen, (s.d_conv, gn), dt, device, scale=s.d_conv ** -0.5,
+                              axes=(None, None)),
+        "norm": const_param((di,), dt, device, 1.0, axes=("norm",)),
+        "w_out": make_param(gen, (di, d), dt, device, axes=("ssm_inner", "embed")),
     }
 
 

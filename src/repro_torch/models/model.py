@@ -83,6 +83,17 @@ class Model(torch.nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return tf.init_model(gen, self.cfg, dev)
 
+    def abstract(self):
+        """(the parameter tree as ``meta`` tensors, its logical-axes specs):
+        :func:`repro_torch.models.transformer.abstract_model`."""
+        return tf.abstract_model(self.cfg)
+
+    def param_specs(self):
+        """The logical axes of every parameter, a tree shaped like
+        ``init``'s; :func:`repro_torch.distributed.sharding.param_shardings`
+        maps it onto a mesh."""
+        return self.abstract()[1]
+
     def memory_len(self, batch) -> int:
         """The memory's positions in ``batch``: its ``media`` (vlm) or
         ``src_embeds`` (audio) length; 0 for the other families."""

@@ -12,9 +12,13 @@ Routing is top-k over a learned router; dispatch is the sort-based
 
 The JAX package has no Pallas kernel here: its expert products are plain
 einsums outside any kernel, so the port's are ``torch.bmm`` (large
-matrix products).  Expert parallelism (``use_shard_map``) and the
-dp-grouped dispatch (``dispatch_groups``) raise ``NotImplementedError``
-(ROADMAP A8 item 5).
+matrix products).  With ``dispatch_groups = G`` the tokens split into G
+groups of ``B·S / G``, each routed, sized (its capacity from its own
+tokens), dispatched and combined on its own, and the aux loss is the
+mean over the groups (the reference's dp-grouped dispatch, whose groups
+GSPMD places on the data axes; here they run one after another).
+Expert parallelism over ``model`` (``use_shard_map``) raises
+``NotImplementedError``: it waits for ROADMAP A8 item 5's second half.
 
 Two places keep the card's results repeatable and the JAX package's:
 
@@ -53,7 +57,7 @@ class MoEConfig:
     moe_every: int = 1           # hybrid plan: MoE FFN where idx % moe_every == moe_every - 1
     first_dense: bool = False    # layer 0 uses a dense FFN (DeepSeek-V2)
     use_shard_map: bool = False  # expert parallelism over 'model' (not ported)
-    dispatch_groups: int = 0     # >0 = dp-grouped dispatch (not ported)
+    dispatch_groups: int = 0     # >0 = dp-grouped dispatch
 
 
 def init_moe(gen, cfg, device: torch.device) -> Dict[str, Any]:
@@ -64,17 +68,20 @@ def init_moe(gen, cfg, device: torch.device) -> Dict[str, Any]:
     d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
     dt = cfg.torch_dtype
     p = {
-        "w_router": make_param(gen, (d, e), torch.float32, device),
-        "w_gate": make_param(gen, (e, d, f), dt, device),
-        "w_up": make_param(gen, (e, d, f), dt, device),
-        "w_down": make_param(gen, (e, f, d), dt, device, scale=f ** -0.5),
+        "w_router": make_param(gen, (d, e), torch.float32, device, axes=("embed", "experts")),
+        "w_gate": make_param(gen, (e, d, f), dt, device,
+                             axes=("experts", "embed", "expert_mlp")),
+        "w_up": make_param(gen, (e, d, f), dt, device, axes=("experts", "embed", "expert_mlp")),
+        "w_down": make_param(gen, (e, f, d), dt, device, scale=f ** -0.5,
+                             axes=("experts", "expert_mlp", "embed")),
     }
     if m.n_shared:
         fs = m.n_shared * f
         p["shared"] = {
-            "w_gate": make_param(gen, (d, fs), dt, device),
-            "w_up": make_param(gen, (d, fs), dt, device),
-            "w_down": make_param(gen, (fs, d), dt, device, scale=fs ** -0.5),
+            "w_gate": make_param(gen, (d, fs), dt, device, axes=("embed", "mlp")),
+            "w_up": make_param(gen, (d, fs), dt, device, axes=("embed", "mlp")),
+            "w_down": make_param(gen, (fs, d), dt, device, scale=fs ** -0.5,
+                                 axes=("mlp", "embed")),
         }
     return p
 
@@ -185,20 +192,34 @@ def capacity_of(n_tokens: int, m: MoEConfig) -> int:
     return max(8, int(n_tokens * m.top_k * m.capacity_factor / m.n_experts))
 
 
-def moe_forward(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) → (y, aux_loss), the JAX package's single-device path."""
-    m: MoEConfig = cfg.moe
-    if m.dispatch_groups or m.use_shard_map:
-        raise NotImplementedError(
-            "MoE dispatch_groups and use_shard_map (expert parallelism) are not "
-            "ported yet (ROADMAP A8 item 5)")
-    B, S, D = x.shape
-    xf = x.reshape(-1, D)
+def _routed(p: Dict, xf: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One routing call over the tokens ``xf`` (N, D): the dispatched
+    experts' output (N, D), capacity from N, and the load-balance plus
+    scaled z-loss."""
     gates, experts, aux, z = _route(xf.float(), p["w_router"], m.top_k)
     y = _dispatch_ffn(xf, gates, experts, p["w_gate"], p["w_up"], p["w_down"], 0,
                       capacity_of(xf.shape[0], m))
-    y = y.reshape(B, S, D)
-    aux = aux + m.z_coef / max(m.aux_coef, 1e-9) * z
+    return y, aux + m.z_coef / max(m.aux_coef, 1e-9) * z
+
+
+def moe_forward(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) → (y, aux_loss): one routing call over every token, or
+    with ``dispatch_groups`` one a group."""
+    m: MoEConfig = cfg.moe
+    if m.use_shard_map:
+        raise NotImplementedError(
+            "MoE expert parallelism over 'model' (use_shard_map) is not ported yet "
+            "(ROADMAP A8 item 5, second half)")
+    B, S, D = x.shape
+    if m.dispatch_groups:
+        G, n = m.dispatch_groups, B * S
+        if n % G != 0:
+            raise ValueError(f"{n} tokens do not split into dispatch_groups={G}")
+        ys, auxs = zip(*(_routed(p, xg, m) for xg in x.reshape(G, n // G, D)))
+        y, aux = torch.cat(ys).reshape(B, S, D), torch.stack(auxs).mean()
+    else:
+        y, aux = _routed(p, x.reshape(-1, D), m)
+        y = y.reshape(B, S, D)
     if "shared" in p:
         y = y + mlp_forward(p["shared"], x)
     return y, m.aux_coef * aux

@@ -65,6 +65,7 @@ from repro_torch.models.layers import (
     make_param,
     mlp_forward,
     rms_norm,
+    with_axes,
 )
 
 Kind = Tuple[str, str]
@@ -181,6 +182,14 @@ def init_layer(gen, cfg, kind: Kind, device: torch.device) -> Dict[str, Any]:
     return p
 
 
+def _stacked(leaf: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+    """``stack`` (``leaf`` with a leading layer axis) and, on the ``meta``
+    device, ``leaf``'s logical axes behind ``"layers"``."""
+    if leaf.device.type != "meta":
+        return stack
+    return with_axes(stack, ("layers", *leaf.logical_axes))
+
+
 def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
     """The prefix's layers, then the period's drawn one repeat at a time
     into their slots of the stacked leaves, so that the peak memory is the
@@ -192,9 +201,10 @@ def init_stack(gen, cfg, plan: Plan, device: torch.device) -> Dict[str, Any]:
         rep = {str(j): init_layer(gen, cfg, kind, device)
                for j, kind in enumerate(plan.period)}
         if plan.repeats == 1:
-            return {"prefix": prefix, "scan": tree_map(lambda t: t[None], rep)}
+            return {"prefix": prefix, "scan": tree_map(lambda t: _stacked(t, t[None]), rep)}
         if stacked is None:
-            stacked = tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), rep)
+            stacked = tree_map(
+                lambda t: _stacked(t, t.new_empty((plan.repeats, *t.shape))), rep)
         if device.type != "meta":
             for dst, src in zip(tree_leaves(stacked), tree_leaves(rep)):
                 dst[r].copy_(src)
@@ -212,7 +222,8 @@ def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
         "layers": init_stack(gen, cfg, layer_plan(cfg), device),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = make_param(gen, (cfg.d_model, cfg.vocab), dt, device)
+        tree["lm_head"] = make_param(gen, (cfg.d_model, cfg.vocab), dt, device,
+                                     axes=("embed", "vocab"))
     eplan = encoder_plan(cfg)
     if eplan is not None:
         tree["encoder"] = init_stack(gen, cfg, eplan, device)
@@ -223,6 +234,15 @@ def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
 def param_shapes(cfg) -> Dict[str, Any]:
     """The parameter tree as ``meta`` tensors: shapes and dtypes, no memory."""
     return init_model(None, cfg, torch.device("meta"))
+
+
+def abstract_model(cfg) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(param_shapes(cfg), specs)``: ``specs`` mirrors the parameter tree
+    with each leaf's logical axes, a tuple of one name (or ``None``) a
+    dimension, stacked leaves led by ``"layers"`` (the JAX package's
+    ``abstract_model``).  No memory is allocated."""
+    shapes = param_shapes(cfg)
+    return shapes, tree_map(lambda t: t.logical_axes, shapes)
 
 
 # The routed experts' leaves of a MoE FFN: a token runs through top_k of

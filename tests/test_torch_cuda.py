@@ -1597,3 +1597,57 @@ def test_flash_bwd_delta_from_unrounded_output_on_card(cuda_device):
     assert err(rounded[0]) > 5 * err(kern[0])
     for g, w in zip(kern[1:], plain[1:]):
         assert FA.grad_row_error(g, w) <= FA.BWD_BF16_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_compressed_mean_on_a_one_rank_nccl_world(cuda_device, tmp_path):
+    """int8 error feedback over a one-rank NCCL pod axis: each leaf's mean
+    is deq(quant(g + r)) in the gradient's dtype and its residual g + r -
+    deq, bitwise, as the same arithmetic on the CPU gives it; a bf16
+    leaf's mean stays bf16."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.optim import compression as C
+
+    rng = np.random.default_rng(25)
+    g = {"w": torch.from_numpy(rng.normal(size=(257, 33)).astype(np.float32)),
+         "b": torch.from_numpy(rng.normal(size=(1000,)).astype(np.float32)).to(torch.bfloat16),
+         "z": torch.zeros(16)}
+    r = {k: torch.from_numpy((rng.normal(size=v.shape) * 0.01).astype(np.float32))
+         for k, v in g.items()}
+    meshlib.join_world(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        group = meshlib.make_debug_mesh(1, 1, n_pod=1).get_group("pod")
+        mean, res = C.compressed_psum_mean({k: v.to(cuda_device) for k, v in g.items()},
+                                           {k: v.to(cuda_device) for k, v in r.items()}, group)
+        torch.cuda.synchronize()
+    finally:
+        meshlib.leave_world()
+    for k in g:
+        g32 = g[k].float() + r[k]
+        q, s = C.quantize_int8(g32)
+        deq = C.dequantize_int8(q, s)
+        assert mean[k].dtype == g[k].dtype and mean[k].is_cuda
+        assert torch.equal(mean[k].cpu(), deq.to(g[k].dtype)), k
+        assert torch.equal(res[k].cpu(), g32 - deq), k
+
+
+@pytest.mark.cuda
+def test_gpipe_on_a_one_rank_nccl_world(cuda_device, tmp_path):
+    """GPipe at one stage on the card: bitwise ``reference_pipeline``."""
+    from repro_torch.distributed.pipeline import gpipe, reference_pipeline
+    from repro_torch.launch import mesh as meshlib
+
+    rng = np.random.default_rng(26)
+    params = {"w": torch.from_numpy((rng.normal(size=(1, 64, 64)) * 0.2).astype(
+        np.float32)).to(cuda_device)}
+    x = torch.from_numpy(rng.normal(size=(5, 3, 64)).astype(np.float32)).to(cuda_device)
+    fn = lambda p, xb: torch.tanh(xb @ p["w"])
+    meshlib.join_world(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    try:
+        out = gpipe(fn, params, x, mesh=meshlib.make_debug_mesh(1, 1, n_pod=1), axis="pod")
+    finally:
+        meshlib.leave_world()
+    assert out.is_cuda and torch.equal(out, reference_pipeline(fn, params, x))

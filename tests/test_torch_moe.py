@@ -114,13 +114,69 @@ def test_layer_plan_matches_jax(arch):
 
 
 def test_moe_shard_options_raise():
+    """Expert parallelism (``use_shard_map``) waits for the second half of
+    ROADMAP A8 item 5; dispatch groups that do not divide the tokens are
+    refused with the reference's message."""
     cfg = get_reduced("phi3.5-moe-42b-a6.6b")
     p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
     x = torch.zeros((1, 4, cfg.d_model))
-    for kw in ({"dispatch_groups": 2}, {"use_shard_map": True}):
-        bad = cfg.replace(moe=dataclasses.replace(cfg.moe, **kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8 item 5"):
-            moe.moe_forward(p, x, bad)
+    bad = cfg.replace(moe=dataclasses.replace(cfg.moe, use_shard_map=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8 item 5, second half"):
+        moe.moe_forward(p, x, bad)
+    bad = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_groups=3))
+    with pytest.raises(ValueError, match="4 tokens do not split into dispatch_groups=3"):
+        moe.moe_forward(p, x, bad)
+
+
+def _grouped_setup(n_experts=8, top_k=2, d=16, f=32, B=2, S=24, cf=8.0):
+    """``tests/test_moe.py:_setup`` (key 7), and the same params and input
+    as tensors."""
+    from types import SimpleNamespace
+
+    from repro.models.layers import split_tree
+
+    jcfg = SimpleNamespace(d_model=d, np_dtype=jnp.float32, moe=jmoe.MoEConfig(
+        n_experts=n_experts, top_k=top_k, d_ff_expert=f, capacity_factor=cf))
+    key = jax.random.key(7)
+    jp, _ = split_tree(jmoe.init_moe(key, jcfg))
+    x = jax.random.normal(jax.random.fold_in(key, 1), (B, S, d)) * 0.5
+    cfg = SimpleNamespace(moe=moe.MoEConfig(n_experts=n_experts, top_k=top_k,
+                                            d_ff_expert=f, capacity_factor=cf))
+    return jcfg, jp, x, cfg, jax.tree.map(lambda a: _t(np.asarray(a)), jp), _t(np.asarray(x))
+
+
+def _groups(cfg, g):
+    """``cfg`` (a namespace) with ``dispatch_groups=g``."""
+    return type(cfg)(**{**vars(cfg), "moe": dataclasses.replace(cfg.moe, dispatch_groups=g)})
+
+
+@pytest.mark.parametrize("groups", [8, 4, 48])
+def test_grouped_dispatch_matches_global(groups):
+    """``tests/test_moe.py::test_grouped_dispatch_matches_global`` mirrored
+    (and at 4 and 48 groups): the grouped dispatch within ``2e-4`` of JAX's
+    grouped and global outputs and of the port's global dispatch; its aux
+    loss the mean of the groups', as JAX's."""
+    jcfg, jp, jx, cfg, p, x = _grouped_setup()
+    jy0, _ = jmoe.moe_forward(jp, jx, jcfg)
+    jyg, jaux = jmoe.moe_forward(jp, jx, _groups(jcfg, groups))
+    y0, _ = moe.moe_forward(p, x, cfg)
+    yg, aux = moe.moe_forward(p, x, _groups(cfg, groups))
+    for want in (np.asarray(jyg), np.asarray(jy0), y0.numpy()):
+        np.testing.assert_allclose(yg.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+def test_grouped_dispatch_routes_each_group_on_its_own():
+    """One routing call a group (``pinned_routing`` logs G calls of n/G
+    tokens), and at a capacity where tokens drop the groups' own
+    capacities decide which: the result is JAX's grouped one."""
+    jcfg, jp, jx, cfg, p, x = _grouped_setup(cf=0.5)
+    jyg, _ = jmoe.moe_forward(jp, jx, _groups(jcfg, 4))
+    with moe.pinned_routing() as pin:
+        yg, _ = moe.moe_forward(p, x, _groups(cfg, 4))
+    assert [tuple(c.shape) for c in pin.log] == [(12, 2)] * 4
+    _close(yg, jyg, 1e-5)
+    assert float((yg - moe.moe_forward(p, x, cfg)[0]).abs().max()) > 1e-3
 
 
 # ---------------------------------------------------------------------------
