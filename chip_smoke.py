@@ -294,7 +294,31 @@ before any profiler session):
       launches ("moe_grouped"); dispatch_groups=3 refused; the drift's
       witnesses printed: the global dispatch at MOE_WIDE times the slots,
       the global run with its first MoE layer grouped, and each layer's
-      router logits over a group's rows against the whole call's.
+      router logits over a group's rows against the whole call's;
+  (ad) after (ac), on a one-rank NCCL world: qwen3-1.7b at (q)'s settings,
+      SHARDED_STEPS steps of the sharded (FSDP x TP) step over a (data,
+      model) = 1 x 1 mesh under use_mesh (DTensor state, the flash
+      kernels on the local shards; "lm_train_sharded", 56 + 28 launches
+      a step) against the same steps unsharded from the same parameters
+      and batches: losses and parameters bitwise (where they are not, the
+      largest difference printed and held at LM_GRAD_TOL and
+      SHARDED_LOSS_TOL); the step wall beside the unsharded one and
+      (q)'s; launch/train.py --reduced --mesh 1x1 bitwise the unsharded
+      CLI, and stopped by SIGTERM after 4 steps and resumed to 6 bitwise;
+  (ae) (aa)'s steps again through the sharded inner step over (pod, data,
+      model) = 1 x 1 x 1 ("lm_train_compressed_sharded"): losses and
+      parameters bitwise (aa)'s;
+  (af) deepseek-v2-lite-16b's prefill at full width and depth with
+      use_shard_map over a (data, model) = 1 x 1 mesh (expert parallelism
+      in every MoE layer, "moe_expert_parallel"), at the no-drop
+      capacity: the logits and every MoE layer's output bitwise the plain
+      path's, 27 flash launches;
+  (ag) qwen3-1.7b at full width, one training step with
+      scan_layers=False from the scanned parameters unstacked
+      ("lm_train_unscanned"): the loss and every gradient bitwise the
+      scanned step's, the parameters after AdamW within a bf16 ulp of the
+      larger of their old and new values (the clip norm sums the leaves
+      in another grouping).
 """
 
 from __future__ import annotations
@@ -598,6 +622,10 @@ MOE_GROUPS = 4
 MOE_GROUPED_TOL = 2 ** -5
 MOE_E2E_TOL = 2 ** -3
 MOE_WIDE = 2
+# (ad)-(ag): the sharded step's steps; where one rank's DTensor dispatch is
+# not bitwise, its losses are held within this of the unsharded run's.
+SHARDED_STEPS = 3
+SHARDED_LOSS_TOL = 2 ** -5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, non-tensor f32 and
 # dense bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -3363,6 +3391,7 @@ def phase_compressed_train(dev):
                  "gradients")
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
+    final = _host_leaves(params)         # (ae) holds its sharded run to these
     del step0_res
     want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
     if any(s != want for s in per_step):
@@ -3452,7 +3481,7 @@ def phase_compressed_train(dev):
     torch.cuda.empty_cache()
     return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(
         step_s=step_s, plain_step_s=plain_s, peak_gib=peak / 2**30, losses=losses,
-        loss_gaps=gaps, compress_ms=comp_ms, payload=payload)
+        loss_gaps=gaps, compress_ms=comp_ms, payload=payload, params=final)
 
 
 def phase_gpipe(dev):
@@ -3663,6 +3692,364 @@ def _named_leaves(tree, path=""):
     if isinstance(tree, list):
         return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{path}/{i}")]
     return [(path, tree)]
+
+
+def _host_leaves(tree):
+    """Every leaf of a tree (DTensors whole) copied to the host, in
+    ``tree_leaves``' order."""
+    from repro_torch.models.transformer import tree_leaves
+
+    return [(t.full_tensor() if hasattr(t, "full_tensor") else t).detach().cpu()
+            for t in tree_leaves(tree)]
+
+
+def _host_compare(got, want):
+    """Two lists of host leaves: (all bitwise, the largest difference as a
+    share of its leaf's max)."""
+    same = len(got) == len(want) and all(_same_bits(a, b) for a, b in zip(got, want))
+    worst = max(_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(got, want))
+    return same, worst
+
+
+def phase_sharded_train(dev, q_step_s):
+    """(ad): qwen3-1.7b at (q)'s settings, SHARDED_STEPS steps of the
+    sharded (FSDP x TP) step over a (data, model) = 1 x 1 mesh of a
+    one-rank NCCL world under use_mesh (parameters and AdamW moments
+    DTensors, the flash kernels on the local shards), against the same
+    steps unsharded from the same parameters and batches; then
+    launch/train.py --mesh 1x1 --reduced stopped and resumed."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_STEPS
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1)
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    srun = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev,
+                                  mesh=mesh)
+    batches = [next(run.stream) for _ in range(n)]
+
+    params, state = run.init_state()
+    plain_losses, plain_walls = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        params, state, metrics = run.step_fn(params, state, batches[i])
+        plain_losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+    want = _host_leaves(params)
+    del params, state, metrics
+    torch.cuda.empty_cache()
+
+    params, state = srun.init_state()
+    placed = all(type(t).__name__ == "DTensor" for t in tree_leaves(params))
+    losses, gnorms, walls, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(n):
+        before = dict(ops.launches)
+        t0 = time.perf_counter()
+        params, state, metrics = srun.step_fn(params, state, batches[i])
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: ops.launches[k] - before[k]
+                         for k in ("flash_attention", "flash_attention_bwd")})
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not placed or not all(type(t).__name__ == "DTensor" for t in tree_leaves(params)):
+        fail("(ad) the sharded step's state is not DTensors")
+    want_l = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    if any(s != want_l for s in per_step):
+        fail(f"(ad) launches a step {per_step}, expected {want_l}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"(ad) a loss or grad norm is not finite: {losses}, {gnorms}")
+    same, worst = _host_compare(_host_leaves(params), want)
+    loss_gap = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    if not same or losses != plain_losses:
+        log(f"(ad) the sharded run is not bitwise the unsharded one: losses {losses} against "
+            f"{plain_losses}, parameters up to {worst:.4g} of a leaf's max")
+        if worst > LM_GRAD_TOL or loss_gap > SHARDED_LOSS_TOL:
+            fail(f"(ad) sharded against unsharded: parameters {worst} of a leaf's max (tol "
+                 f"{LM_GRAD_TOL}), losses {loss_gap} apart (tol {SHARDED_LOSS_TOL})")
+    step_s, plain_s = float(np.median(walls[1:])), float(np.median(plain_walls[1:]))
+    log(f"(ad) ok: {n} sharded steps of {cfg.name} (B={B} x S={S}, bf16) over (data, model) "
+        f"= 1 x 1 under use_mesh, {'bitwise' if same and losses == plain_losses else 'within tolerance of'} "
+        f"the unsharded steps: losses {[round(x, 4) for x in losses]}, parameters after "
+        f"{n} steps (worst {worst:.3g} of a leaf's max); step wall {step_s:.3f} s sharded "
+        f"(median of steps 1-{n - 1}; step 0 {walls[0]:.3f} s), {plain_s:.3f} s unsharded "
+        f"here, (q) {q_step_s:.3f} s: {step_s / plain_s:.3f}x the unsharded; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    del params, state, metrics, want, run, srun
+    torch.cuda.empty_cache()
+
+    # launch/train.py --mesh 1x1 on the card: 6 steps against the unsharded
+    # CLI, and a run stopped by SIGTERM after 4 and resumed to 6, bitwise
+    root = Path(__file__).resolve().parent / "build" / "chip_mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "6", "--device", dev.type,
+            "--ckpt-every", "2"]
+    plain = launch_train.run(argv + ["--ckpt-dir", str(root / "plain")])
+    argv += ["--mesh", "1x1"]
+    whole = launch_train.run(argv + ["--ckpt-dir", str(root / "whole")])
+    fetch = TokenStream.__next__
+
+    def sigterm_at_batch_3(stream):   # a preemption: step 4 ends, then a save
+        if stream.position == 3:
+            signal.raise_signal(signal.SIGTERM)
+        return fetch(stream)
+
+    TokenStream.__next__ = sigterm_at_batch_3
+    try:
+        cut = launch_train.run(argv + ["--ckpt-dir", str(root / "cut")])
+    finally:
+        TokenStream.__next__ = fetch
+    resumed = launch_train.run(argv + ["--ckpt-dir", str(root / "cut"), "--resume"])
+    if (cut.summary["step"], resumed.summary["step"], whole.summary["step"]) != (4, 6, 6):
+        fail(f"(ad) CLI runs ended at {cut.summary}, {resumed.summary}, {whole.summary}")
+    if whole.losses != plain.losses or cut.losses + resumed.losses != whole.losses:
+        fail(f"(ad) --mesh 1x1 losses {whole.losses}, unsharded {plain.losses}, resumed "
+             f"{cut.losses + resumed.losses}")
+    for what, a, b in (("params", resumed.trainer.params, whole.trainer.params),
+                       ("AdamW state", resumed.trainer.opt_state, whole.trainer.opt_state),
+                       ("params against the unsharded CLI's", whole.trainer.params,
+                        plain.trainer.params)):
+        if not _host_compare(_host_leaves(a), _host_leaves(b))[0]:
+            fail(f"(ad) the --mesh 1x1 CLI's {what}: not bitwise equal")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"(ad) ok: launch/train.py --reduced --mesh 1x1 on the card: 6 steps bitwise the "
+        f"unsharded CLI's (loss {whole.losses[0]:.4f} -> {whole.losses[-1]:.4f}); stopped by "
+        f"SIGTERM at 4 and resumed to 6 from its checkpoint, params and AdamW state bitwise "
+        f"the uninterrupted run's")
+    _leave_world(rdv)
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(
+        step_s=step_s, plain_step_s=plain_s, peak_gib=peak / 2**30, bitwise=same,
+        worst=worst)
+
+
+def phase_compressed_sharded(dev, aa):
+    """(ae): (aa)'s COMPRESSED_STEPS compressed steps again, each pod's
+    gradients through the sharded step on the pod's (data, model) = 1 x 1
+    mesh of a (pod, data, model) = 1 x 1 x 1 mesh (the state placed there
+    first, so the step takes its sharded inner step; state and residual
+    DTensors), from the same parameters and batches: losses and the
+    parameters after the steps bitwise (aa)'s."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.distributed.sharding import BASE_RULES, ShardingRules
+    from repro_torch.optim import compression as C
+    from repro_torch.train.train_step import make_sharded_parts, make_train_step_compressed
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, COMPRESSED_STEPS
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1, n_pod=1)
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    batches = [next(run.stream) for _ in range(n)]
+    params, state = run.init_state()
+    residual = C.init_residual(params)
+    # placed on the pod's mesh, the state takes the sharded inner step
+    place = make_sharded_parts(run.model, run.opt, mesh["data", "model"],
+                               ShardingRules(BASE_RULES).strip("pod"))[0]
+    params, state = place(params, state)
+    step = make_train_step_compressed(run.model, run.opt, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    ops.reset_launch_counts()
+    for i in range(n):
+        t0 = time.perf_counter()
+        params, state, residual, metrics = step(params, state, residual, batches[i])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want_l = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n}
+    if {k: launches[k] for k in want_l} != want_l:
+        fail(f"(ae) launches {launches}, expected {want_l}")
+    if not all(type(t).__name__ == "DTensor" for t in tree_leaves(residual)):
+        fail("(ae) the sharded compressed step's residual is not DTensors")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"(ae) a loss is not finite: {losses}")
+    same, worst = _host_compare(_host_leaves(params), aa["params"])
+    if losses != aa["losses"] or not same:
+        fail(f"(ae) the sharded compressed run is not bitwise (aa)'s: losses {losses} against "
+             f"{aa['losses']}, parameters up to {worst:.4g} of a leaf's max")
+    step_s = float(np.median(walls[1:]))
+    log(f"(ae) ok: {n} compressed steps through the sharded inner step over (pod, data, "
+        f"model) = 1 x 1 x 1, bitwise (aa) (losses {[round(x, 4) for x in losses]}, "
+        f"parameters after {n} steps); step wall {step_s:.3f} s (median of steps 1-{n - 1}; "
+        f"(aa) {aa['step_s']:.3f} s), peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    del params, state, residual, metrics, step, run
+    _leave_world(rdv)
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(step_s=step_s,
+                                                              peak_gib=peak / 2**30)
+
+
+def phase_moe_expert_parallel(dev):
+    """(af): deepseek-v2-lite-16b at full width and depth, prefill of
+    MOE_BATCH x MOE_PROMPT tokens at the no-drop capacity with
+    use_shard_map over a (data, model) = 1 x 1 mesh of a one-rank NCCL
+    world (expert parallelism: the rank's experts, the parts summed over
+    model in f32), against the plain path: the logits and every MoE
+    layer's output bitwise."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+
+    cfg = _no_drop(get_config(MOE_ARCH))
+    ep_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, use_shard_map=True))
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1)
+    model, ep = build(cfg), build(ep_cfg)
+    params = model.init(SEED, device=dev)
+    B, L = MOE_BATCH, MOE_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev)}
+    with _moe_calls() as calls:
+        logits0, _ = model.prefill(params, prompt)
+    taken = []
+    real = moe._moe_expert_parallel
+
+    def spy(*a):
+        taken.append(1)
+        return real(*a)
+
+    moe._moe_expert_parallel = spy
+    try:
+        ops.reset_launch_counts()
+        with use_mesh(mesh), _moe_calls() as ep_calls:
+            logits, _ = ep.prefill(params, prompt)
+        launches = dict(ops.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            ep.prefill(params, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        moe._moe_expert_parallel = real
+    n_moe = _plan_count(model.plan, lambda k: k[1] == "moe")
+    if len(taken) != 2 * n_moe:
+        fail(f"(af) expert parallelism ran {len(taken)} times over two prefills, expected "
+             f"{2 * n_moe}")
+    if not torch.isfinite(logits).all() or not _same_bits(logits, logits0):
+        fail(f"(af) the expert-parallel prefill's logits are not bitwise the plain path's "
+             f"({_logit_diff(logits, logits0):.4g} apart)")
+    bad = [i for i, ((_, _, y), (_, _, y0)) in enumerate(zip(ep_calls, calls))
+           if not _same_bits(y, y0)]
+    if len(ep_calls) != n_moe or bad:
+        fail(f"(af) MoE layers not bitwise the plain path's: {bad} of {len(ep_calls)}")
+    n_attn = _plan_count(model.plan, lambda k: k[0] == "attn")
+    if launches["flash_attention"] != n_attn:
+        fail(f"(af) the expert-parallel prefill launched {launches}, expected {n_attn} flash")
+    log(f"(af) ok: {cfg.name} prefill ({B} x {L}) with use_shard_map over (data, model) = "
+        f"1 x 1: the logits and all {n_moe} MoE layers' outputs bitwise the plain path's; "
+        f"{launches['flash_attention']} flash launches; prefill {wall * 1e3:.1f} ms")
+    del params, logits0, logits, calls, ep_calls
+    _leave_world(rdv)
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(wall_ms=wall * 1e3)
+
+
+def phase_unscanned_train(dev):
+    """(ag): qwen3-1.7b at full width, one training step with
+    scan_layers=False from the scanned parameters unstacked (views of the
+    stacked leaves), against the scanned step: the loss and every
+    gradient bitwise; the parameters after AdamW within one bf16 ulp
+    of the larger of the old and the new value (its clip norm sums the
+    leaves in another grouping: bitwise where the norms' bits agree)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim.adamw import AdamW, AdamWConfig
+    from repro_torch.train.train_step import grads_of
+
+    cfg = get_config(TRAIN_ARCH)
+    ucfg = cfg.replace(scan_layers=False)
+    model, umodel = build(cfg), build(ucfg)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    params = model.init(SEED, device=dev)
+    uparams = tf.unscan_params(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    opt = AdamW(AdamWConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=2))
+    old_p = _host_leaves(uparams)
+    grads, metrics = grads_of(model, params, batch)
+    new, _, om = opt.update(params, grads, opt.init(params))
+    want_g = _host_leaves(tf.unscan_params(grads, cfg))
+    want_p = _host_leaves(tf.unscan_params(new, cfg))
+    del grads, new
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ugrads, umetrics = grads_of(umodel, uparams, batch)
+    unew, _, uom = opt.update(uparams, ugrads, opt.init(uparams))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if umodel.plan.repeats or len(uparams["layers"]["prefix"]) != cfg.n_layers:
+        fail(f"(ag) the unscanned plan {umodel.plan}")
+    if float(umetrics["loss"]) != float(metrics["loss"]):
+        fail(f"(ag) the unscanned loss {float(umetrics['loss'])} is not the scanned "
+             f"{float(metrics['loss'])}")
+    if not _host_compare(_host_leaves(ugrads), want_g)[0]:
+        fail("(ag) the unscanned gradients are not bitwise the scanned ones")
+    # one bf16 ulp of the larger of the old and the new value: where an
+    # update cancels a parameter, the f32 difference of the two runs'
+    # updates survives the rounding to bf16 at the old value's scale
+    got_p = _host_leaves(unew)
+    ulp = max(float(((a.float() - b.float()).abs() / torch.maximum(
+        torch.maximum(a.float().abs(), b.float().abs()), o.float().abs()).clamp_min(
+        2 ** -126)).max()) for a, b, o in zip(got_p, want_p, old_p))
+    differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                 for a, b in zip(got_p, want_p))
+    norms = (float(uom["grad_norm"]), float(om["grad_norm"]))
+    if ulp > 2 ** -7 or (norms[0] == norms[1] and differ):
+        fail(f"(ag) parameters after AdamW: {differ} elements differ, up to {ulp:.3g} of "
+             f"their size; grad norms {norms}")
+    want_l = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    if {k: launches[k] for k in want_l} != want_l:
+        fail(f"(ag) launches {launches}, expected {want_l}")
+    n_params = sum(t.numel() for t in got_p)
+    log(f"(ag) ok: {cfg.name} with scan_layers=False ({cfg.n_layers} prefix layers, the "
+        f"scanned parameters unstacked), one step of B={B} x S={S}: loss "
+        f"{float(umetrics['loss']):.4f} and every gradient bitwise the scanned step's; "
+        f"grad norms {norms[0]!r} / {norms[1]!r}; parameters after AdamW: {differ} of "
+        f"{n_params} elements differ (at most {ulp:.3g} of the larger of their old and new "
+        f"values, tol 2^-7); step {wall:.3f} s, peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    del params, uparams, ugrads, unew, want_g, want_p, got_p, old_p
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) for k in ops.KERNELS}, dict(step_s=wall,
+                                                              peak_gib=peak / 2**30)
 
 
 def phase_xattn_flash_timing(dev):
@@ -4710,7 +5097,7 @@ def main() -> None:
 
     errs["flash_attention_bwd"] = phase_flash_bwd_vs_plain(dev)
     torch.cuda.empty_cache()
-    train_launches, _ = phase_lm_train(dev)     # resets and reads the counts itself
+    train_launches, q_summary = phase_lm_train(dev)     # resets and reads the counts
     for k in ("flash_attention", "flash_attention_bwd"):
         by_path[k]["lm_train"] = train_launches[k]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
@@ -4729,6 +5116,7 @@ def main() -> None:
     for k in ("flash_attention", "flash_attention_bwd"):
         by_path[k]["moe_train"] = moe_train_launches[k]
     torch.cuda.empty_cache()
+    summaries = {}
     for path, phase in (("mamba_serve", phase_mamba_serve),
                         ("mamba_train", phase_mamba_train),
                         ("jamba_serve", phase_jamba_serve),
@@ -4738,10 +5126,21 @@ def main() -> None:
                         ("lm_train_compressed", phase_compressed_train),
                         ("gpipe", phase_gpipe),
                         ("moe_grouped", phase_moe_grouped)):
-        path_launches, _ = phase(dev)          # each resets and reads the counts
+        path_launches, summaries[path] = phase(dev)    # each resets and reads the counts
         for k in ops.KERNELS:
             by_path[k][path] = path_launches[k]
         torch.cuda.empty_cache()
+    aa = summaries.pop("lm_train_compressed")
+    for path, phase in (("lm_train_sharded", lambda d: phase_sharded_train(
+                            d, q_summary["step_s"])),
+                        ("lm_train_compressed_sharded", lambda d: phase_compressed_sharded(d, aa)),
+                        ("moe_expert_parallel", phase_moe_expert_parallel),
+                        ("lm_train_unscanned", phase_unscanned_train)):
+        path_launches, summaries[path] = phase(dev)
+        for k in ops.KERNELS:
+            by_path[k][path] = path_launches[k]
+        torch.cuda.empty_cache()
+    del aa
     rows["flash_attention"]["mla"], rows["flash_attention_bwd"]["mla"] = (
         phase_mla_flash_timing(dev))
     rows["flash_attention"]["xattn"] = phase_xattn_flash_timing(dev)

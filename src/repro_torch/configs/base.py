@@ -41,11 +41,13 @@ class MLAConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of :class:`repro.configs.base.ModelConfig` that the six
-    families read, with the same names and defaults, and the training's
+    families read, with the same names and defaults, the training's
     rematerialisation knobs (``remat``; ``remat_policy`` "full" or
-    "dots").  The JAX package's other execution knobs (attention tile sizes, scan-over-layers,
-    unrolling: the card's kernels size their own tiles and the port runs a
-    loop) have no counterpart."""
+    "dots") and ``scan_layers`` (on: a stack's repeated period stored
+    stacked along a leading layer axis; off: every layer its own subtree
+    under ``"prefix"``).  The JAX package's other execution knobs
+    (attention tile sizes, unrolling: the card's kernels size their own
+    tiles) have no counterpart."""
     name: str
     family: str                     # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
@@ -77,6 +79,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "full"      # "full" | "dots" (save the 2-D matmuls)
+    scan_layers: bool = True
     sub_quadratic: bool = False     # arch supports long_500k decode
 
     @property
@@ -98,6 +101,23 @@ class ModelConfig:
 
         return count_params(self, active_only=True)
 
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    """A workload shape: ``global_batch`` sequences of ``seq_len`` tokens,
+    to train, prefill or decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524_288, 1, "decode"),
+}
 
 ARCH_IDS = [
     "jamba-v0.1-52b",

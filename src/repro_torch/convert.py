@@ -80,6 +80,10 @@ def _lm_tree_from_jax(tree: Any, cfg, dev: torch.device, dtype: Optional[str],
     from repro_torch.models.transformer import param_shapes
 
     def conv(src, want, path):
+        if want is None:     # an unscanned stack's "scan": JAX keeps an empty dict
+            if src not in (None, {}):
+                raise ValueError(f"{path}: expected an empty subtree")
+            return None
         if isinstance(want, dict):
             if not isinstance(src, dict):
                 raise ValueError(f"{path}: expected a dict")

@@ -38,6 +38,13 @@ NumPy has no bfloat16: a bf16 leaf is stored as the raw 2-byte ``|V2``
 records the JAX manager writes for an ``ml_dtypes.bfloat16`` array (its
 bits viewed through int16), and a ``|V2`` entry restores into a bf16
 template leaf by the same view back.
+
+Sharded state: a DTensor leaf is saved whole (``full_tensor()``, a
+collective every rank of its mesh joins), and restores into a DTensor
+template leaf placed as the template is.  A tree that holds DTensors is
+written by rank 0 of the world alone: every rank calls ``save`` (the
+gathers need them all), and the others drop each gathered leaf without a
+host copy.
 ``restore`` checks every leaf's shape *and* dtype against the caller's
 template and fails with a per-leaf diff.
 """
@@ -56,6 +63,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import from_global
 
 
 @dataclasses.dataclass
@@ -132,7 +143,10 @@ BF16_RECORD = np.dtype("V2")
 
 def _to_host(leaf: Any) -> np.ndarray:
     """A leaf as a NumPy array that shares no memory with it (a bf16
-    tensor as its bits in ``|V2`` records)."""
+    tensor as its bits in ``|V2`` records; a DTensor whole, gathered from
+    its shards: every rank of its mesh takes part)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             bits = leaf.detach().cpu().view(torch.int16).numpy().copy()
@@ -148,19 +162,37 @@ def host_tree(tree: Any) -> Any:
     return _map(tree, lambda _, leaf: _to_host(leaf))
 
 
+def _host_if_writer(tree: Any) -> Optional[Any]:
+    """:func:`host_tree` of ``tree`` on the process that writes it, else
+    ``None``: a tree of DTensors is written by rank 0 of the world, and
+    every other rank joins each leaf's gather in the same order and keeps
+    nothing of it."""
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in _walk(tree))
+    if not sharded or dist.get_rank() == 0:
+        return host_tree(tree)
+    _map(tree, lambda _, leaf: leaf.full_tensor() if isinstance(leaf, DTensor) else None)
+    return None
+
+
 def place_like(template: Any, host: Any) -> Any:
     """``host`` (a NumPy tree shaped like ``template``) back where the
     template's leaves live: a tensor leaf becomes a tensor on the
-    template's device, any other leaf stays a NumPy array."""
+    template's device, a DTensor leaf a DTensor placed as the template's
+    (each rank keeps its shards of the whole array), any other leaf stays
+    a NumPy array."""
     arrays = dict(_walk(host))
 
     def place(key, leaf):
         if isinstance(leaf, torch.Tensor):
             arr = arrays[key]
             if leaf.dtype == torch.bfloat16 and arr.dtype == BF16_RECORD:
-                return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
-                    leaf.device)
-            return torch.from_numpy(arr).to(leaf.device)
+                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(arr)
+            if isinstance(leaf, DTensor):
+                return from_global(t, leaf.device_mesh, leaf.placements,
+                                   leaf.to_local().device)
+            return t.to(leaf.device)
         return arrays[key]
 
     return _map(template, place)
@@ -237,14 +269,19 @@ class CheckpointManager:
         LATEST pointer) and raises their error if one failed."""
         self._raise_pending()
         self.wait()
-        return self._write(step, host_tree(tree), extra or {})
+        host = _host_if_writer(tree)
+        if host is None:
+            return self.dir / f"step_{step:09d}"
+        return self._write(step, host, extra or {})
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         """The device-to-host copy runs now, the disk IO on the writer
         thread.  Blocks only when :attr:`MAX_PENDING` saves are queued; an
         earlier async save's error is raised here."""
         self._raise_pending()
-        host = host_tree(tree)
+        host = _host_if_writer(tree)
+        if host is None:
+            return
         if self._queue is None:
             self._queue = queue.Queue(maxsize=self.MAX_PENDING)
             self._writer = threading.Thread(target=self._drain, daemon=True)

@@ -30,8 +30,9 @@ sharding rules' placements (:func:`repro_torch.distributed.sharding.
 param_shardings`) as DTensors; :func:`best_mesh_from` builds the largest
 (data, model) mesh that the survivors hold; :func:`survive_failure`
 drops ranks, rebuilds the mesh and reshards, over ranks that are all
-still alive, for the reason above.  The sharded step that would train on
-such a mesh waits for ROADMAP A8 item 5's second half.
+still alive, for the reason above.  The sharded step
+(:func:`repro_torch.train.train_step.make_train_step_sharded`) trains on
+such a mesh from the resharded state.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import ShardingRules, param_shardings
+from repro_torch.distributed.sharding import ShardingRules, param_shardings, place_state
 from repro_torch.launch.mesh import mesh_over, world_device_type
 from repro_torch.models.transformer import tree_map
 
@@ -85,20 +86,16 @@ def survive_data_failure(backend, failed_ranks: Sequence[int]) -> Tuple[Optional
 
 def reshard(host_tree: Any, specs: Any, mesh, rules: ShardingRules) -> Any:
     """Place a host tree (numpy arrays or tensors) onto ``mesh`` with its
-    logical-axes ``specs``: each leaf becomes a DTensor
-    (``distribute_tensor``) whose placements the rules give, on the
-    mesh's device (the rank's card for ``"cuda"``).  Every rank of the
-    mesh calls it with the same tree; each keeps its own shards."""
-    from torch.distributed.tensor import distribute_tensor
-
+    logical-axes ``specs``: each leaf becomes a DTensor whose placements
+    the rules give (:func:`~repro_torch.distributed.sharding.place_state`),
+    its shard alone copied to the mesh's device (the rank's card for
+    ``"cuda"``).  Every rank of the mesh calls it with the same tree; each
+    keeps its own shards."""
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device(mesh.device_type))
-
-    def place(x, pl):
-        t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
-        return distribute_tensor(t.to(dev), mesh, pl)
-
-    return tree_map(place, host_tree, param_shardings(specs, mesh, rules))
+    tensors = tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x))
+                       if isinstance(x, np.ndarray) else x, host_tree)
+    return place_state(tensors, param_shardings(specs, mesh, rules), mesh, dev)
 
 
 def best_mesh_from(ranks: Sequence[int], model_parallel: int,

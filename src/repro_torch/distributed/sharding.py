@@ -19,19 +19,28 @@ dimension, as ``PartitionSpec``'s entries are: a mesh axis name, a tuple
 of names (the dimension split over their product), or ``None``.
 :func:`param_shardings` turns those into DTensor placements (``Shard(dim)``
 on each named mesh dimension, ``Replicate()`` on the others), which
-:func:`repro_torch.distributed.elastic.reshard` places a tree with.
+:func:`place_state` places a tree with (the sharded step's state, and
+:func:`repro_torch.distributed.elastic.reshard`'s host trees).
 
-``use_mesh`` (the active mesh and rules), ``shard()`` on activations
-inside model code, ``logical_sharding`` and the sharded (FSDP × TP)
-train step wait for ROADMAP A8 item 5's second half.
+:func:`use_mesh` activates a mesh and its rules for the calling thread.
+Inside it, :func:`shard` redistributes an activation (a DTensor) to the
+placements of its logical axes, as the JAX package's ``shard()`` puts a
+sharding constraint on it; outside it ``shard()`` is the identity, so the
+model runs single-device unchanged.  :func:`logical_sharding` gives the
+mesh and the placements of a tuple of logical axes.
+:func:`repro_torch.train.train_step.make_train_step_sharded` is the
+sharded (FSDP × TP) step that runs the model on DTensors under it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-from repro_torch.models.transformer import tree_map
+import torch
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -151,8 +160,212 @@ def placements(spec: Sequence[Axes], mesh) -> Tuple[Any, ...]:
 
 def param_shardings(specs: Any, mesh, rules: Optional[ShardingRules] = None) -> Any:
     """A tree of logical-axes tuples → a tree of DTensor placements."""
+    from repro_torch.models.transformer import tree_map   # the models import shard()
+
     rules = rules or ShardingRules(BASE_RULES)
     return tree_map(lambda ax: placements(logical_spec(ax, mesh, rules), mesh), specs)
+
+
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[ShardingRules] = None):
+    """Activate ``mesh`` and ``rules`` (default :data:`BASE_RULES`) for
+    :func:`shard` and :func:`logical_sharding` on this thread; ``mesh``
+    ``None`` suspends an active one (a region that works on local
+    shards)."""
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = None if mesh is None else (mesh, rules or ShardingRules(BASE_RULES))
+    try:
+        yield
+    finally:
+        _CTX.state = prev
+
+
+def _current() -> Optional[Tuple[Any, ShardingRules]]:
+    return getattr(_CTX, "state", None)
+
+
+def current_mesh():
+    state = _current()
+    return state[0] if state else None
+
+
+def current_rules() -> ShardingRules:
+    state = _current()
+    return state[1] if state else ShardingRules(BASE_RULES)
+
+
+def recompute_in_mesh(context_fn=None):
+    """A ``torch.utils.checkpoint`` ``context_fn`` whose recompute runs
+    under the mesh and rules active now (the backward of tensors on the
+    card runs on autograd's own thread, which does not see this thread's
+    :func:`use_mesh`), around ``context_fn``'s own pair if given; with no
+    mesh active, ``context_fn`` as it is."""
+    state = _current()
+    if state is None:
+        return context_fn
+
+    @contextlib.contextmanager
+    def both(inner):
+        with use_mesh(*state), inner:
+            yield
+
+    def fn():
+        fwd, rec = context_fn() if context_fn else (contextlib.nullcontext(),
+                                                    contextlib.nullcontext())
+        return fwd, both(rec)
+
+    return fn
+
+
+def logical_sharding(axes: Sequence[Optional[str]], mesh=None,
+                     rules: Optional[ShardingRules] = None) -> Tuple[Any, Tuple[Any, ...]]:
+    """``(mesh, placements)`` of a tensor whose dimensions carry the
+    logical ``axes``: the given mesh and rules, else the active ones
+    (:func:`use_mesh`; none active raises)."""
+    if mesh is None:
+        state = _current()
+        if state is None:
+            raise RuntimeError("logical_sharding: no mesh given and none active (use_mesh)")
+        mesh, rules = state
+    rules = rules or ShardingRules(BASE_RULES)
+    return mesh, placements(logical_spec(axes, mesh, rules), mesh)
+
+
+def shard(x, *axes: Optional[str]):
+    """Redistribute the activation ``x`` (a DTensor) to the placements of
+    its logical ``axes`` on the active mesh; the identity outside
+    :func:`use_mesh`, and for a plain tensor (code that runs on each
+    rank's own values, as expert parallelism's rank body does)."""
+    from torch.distributed.tensor import DTensor
+
+    state = _current()
+    if state is None or not isinstance(x, DTensor):
+        return x
+    mesh, pl = logical_sharding(axes, *state)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(mesh, pl)
+
+
+def from_global(t: "torch.Tensor", mesh, pl: Sequence[Any], device=None):
+    """``t``, the global value every rank holds, as a DTensor with
+    placements ``pl``: each rank keeps its shard, a view of ``t`` where
+    that is contiguous (no copy, no communication; ``distribute_tensor``
+    copies every shard), or with ``device`` its shard alone copied there
+    (a host array placed on the card)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, off = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    local = t[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+    if device is not None:
+        local = local.to(device)
+    return DTensor.from_local(local.contiguous(), mesh, pl, shape=t.shape,
+                              stride=contiguous_stride(t.shape))
+
+
+def place_state(tree: Any, placements: Any, mesh, device=None) -> Any:
+    """Each leaf of ``tree`` as a DTensor on ``mesh`` with the placements
+    at its place in ``placements`` (a tree as :func:`param_shardings`
+    gives): a plain tensor is the global value every rank holds (each
+    keeps its shard, :func:`from_global`, on ``device`` when one is
+    given), a DTensor is redistributed when it lies otherwise.  The one
+    way a tree goes onto a mesh: the sharded step places its state with
+    it, :func:`repro_torch.distributed.elastic.reshard` a host tree."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.transformer import tree_map   # the models import shard()
+
+    def place(t, pl):
+        if isinstance(t, DTensor):
+            return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+        return from_global(t, mesh, pl, device)
+
+    return tree_map(place, tree, placements)
+
+
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    strides, given to ``from_local`` beside an uneven shard's shape)."""
+    return torch.empty(shape, device="meta").stride()
+
+
+def rows_local(fn, *xs):
+    """``fn`` of DTensors that share their first dimension, row by row on
+    each rank's local rows: every mesh dimension keeps a split of the
+    first dimension and gathers any other (``fn`` sees whole rows), and
+    each output comes back split as the first input's rows (a plain
+    input is the global value, split alike).  For ops whose
+    rows are independent and which DTensor cannot propagate (the
+    per-token loss over a vocabulary-split logit row)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = xs[0].device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in xs[0].placements)
+    local = [(x.redistribute(mesh, rows) if isinstance(x, DTensor)
+              else from_global(x, mesh, rows)).to_local() for x in xs]
+    with use_mesh(None):
+        outs = fn(*local)
+    n = xs[0].shape[0]
+
+    def wrap(t):
+        shape = torch.Size((n, *t.shape[1:]))
+        return DTensor.from_local(t, mesh, rows, shape=shape, stride=contiguous_stride(shape))
+
+    return tuple(wrap(t) for t in outs) if isinstance(outs, tuple) else wrap(outs)
+
+
+def row_chunks(size: int, *xs) -> List[Tuple[Any, ...]]:
+    """``xs`` (sharing their first dimension) cut into chunks of ``size``
+    rows, one tuple a chunk.  Plain tensors are cut in order.  DTensors
+    whose rows split evenly over the mesh (every input placed as the
+    first) are cut on each rank's own rows: chunk ``k`` holds local rows
+    ``[k·size, (k+1)·size)`` of every rank, still split as the input, so
+    no rank gathers another's rows (slicing a split dimension of a
+    DTensor would gather it on every rank).  The chunks hold the same
+    rows as the inputs in another order: for work whose rows are
+    independent (the per-token loss).  Rows that split unevenly are cut
+    in order, gathered."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    n = xs[0].shape[0]
+    if isinstance(xs[0], DTensor):
+        mesh, pl = xs[0].device_mesh, tuple(xs[0].placements)
+        split = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(0))
+        if split > 1 and n % split == 0 and all(
+                isinstance(x, DTensor) and tuple(x.placements) == pl for x in xs):
+            local = [x.to_local() for x in xs]
+
+            def wrap(x, t):
+                shape = torch.Size((t.shape[0] * split, *x.shape[1:]))
+                return DTensor.from_local(t, mesh, pl, shape=shape,
+                                          stride=contiguous_stride(shape))
+
+            return [tuple(wrap(x, t[i:i + size]) for x, t in zip(xs, local))
+                    for i in range(0, n // split, size)]
+    return [tuple(x[i:i + size] for x in xs) for i in range(0, n, size)]
+
+
+def replicated_local(fn, *xs):
+    """``fn`` of DTensors run whole on every rank: each input gathered to
+    its full value, ``fn`` called on plain tensors (no mesh active
+    inside), each output a replicated DTensor.  Every rank computes the
+    same values, so every gradient comes back whole on every rank.  For
+    the model code whose ops DTensor cannot propagate (the MoE's sorted
+    dispatch); it trades the split work for the reference's semantics."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = next(x.device_mesh for x in xs if isinstance(x, DTensor))
+    whole = [Replicate()] * mesh.ndim
+    local = [x.redistribute(mesh, whole).to_local() if isinstance(x, DTensor) else x
+             for x in xs]
+    with use_mesh(None):
+        outs = fn(*local)
+    wrap = lambda t: DTensor.from_local(t, mesh, whole)
+    return tuple(wrap(t) for t in outs) if isinstance(outs, tuple) else wrap(outs)
 
 
 def axis_size(mesh, axes: Axes) -> int:

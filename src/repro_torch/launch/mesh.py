@@ -18,10 +18,11 @@ JAX package's axis names in its order, ``("data", "model")`` or, across
 pods, ``("pod", "data", "model")``, over every rank of the world.  The
 compressed train step reduces over ``pod``
 (:func:`repro_torch.train.train_step.make_train_step_compressed`), GPipe
-hands activations along it (:mod:`repro_torch.distributed.pipeline`), and
-``reshard`` places a tree with the sharding rules' placements on it; the
-sharded (FSDP × TP) step over ``data`` and ``model`` waits for ROADMAP A8
-item 5's second half.  The reference's TPU constants (peak rates, link
+hands activations along it (:mod:`repro_torch.distributed.pipeline`),
+``reshard`` places a tree with the sharding rules' placements on it, and
+the sharded (FSDP × TP) step runs over ``data`` and ``model``
+(:func:`repro_torch.train.train_step.make_train_step_sharded`).  The
+reference's TPU constants (peak rates, link
 bandwidths) are not ported: the card's figures live in
 :mod:`repro_torch.kernels.traffic`.
 """
@@ -53,23 +54,26 @@ def dist_backend(device_type: str) -> str:
 
 
 def join_world(rank: int, world_size: int, init_method: str, *,
-               device: str = "cuda", timeout_s: float = DEFAULT_TIMEOUT_S
-               ) -> torch.device:
+               device: str = "cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
+               local_rank: Optional[int] = None) -> torch.device:
     """Join a world of ``world_size`` processes as ``rank``.
 
     ``init_method`` is a ``file://`` path or ``env://``.  On ``"cuda"``
-    rank ``r`` takes card ``r`` (NCCL refuses two ranks on one card, so a
-    world larger than the cards raises); on ``"cpu"`` every rank runs on
-    the CPU.  Returns the rank's device."""
+    the rank takes card ``local_rank`` of its machine (default ``rank``:
+    a world on one machine; ``torchrun`` sets ``LOCAL_RANK`` for worlds
+    over several), and a card index past this machine's cards raises
+    (NCCL runs one rank a card); on ``"cpu"`` every rank runs on the CPU.
+    Returns the rank's device."""
     dev = resolve_device(device)
     kw = {}
     if dev.type == "cuda":
+        card = rank if local_rank is None else local_rank
         cards = torch.cuda.device_count()
-        if world_size > cards:
+        if card >= cards:
             raise ValueError(
-                f"a world of {world_size} ranks on cuda needs {world_size} cards, "
-                f"this machine has {cards}: NCCL runs one rank a card")
-        dev = torch.device("cuda", rank)
+                f"rank {rank} on cuda needs card {card}, this machine has {cards}: "
+                f"NCCL runs one rank a card")
+        dev = torch.device("cuda", card)
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
     dist.init_process_group(

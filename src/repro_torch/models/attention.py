@@ -36,8 +36,10 @@ memory's length: the prefill refuses a memory of another length than the
 cache's slots, where the JAX package pads the cache with zero keys that
 then take a share of every decode's softmax.
 
-The JAX package's ``shard(...)`` annotations are dropped: outside a device
-mesh they are no-ops.
+The JAX package's ``shard(...)`` annotations stand at its call sites
+(:func:`repro_torch.distributed.sharding.shard`): the identity outside
+``use_mesh``, a DTensor redistribution inside it.  Under a mesh the flash
+kernels run on each rank's local shards (:func:`_local_attention`).
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import contiguous_stride, shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, const_param, make_param, rms_norm
 
@@ -59,8 +63,64 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lengths need no padding, and key tiles above the diagonal are always
     skipped (the JAX ``prune_causal`` walk; it changes no value).  With
     grad on it is differentiable, its backward a kernel on the card.
+    DTensor inputs (under ``use_mesh``) run on each rank's local shards
+    (:func:`_local_attention`).
     """
+    if isinstance(q, DTensor):
+        return _local_attention(q, k, v, causal)
     return ops.flash_attention(q, k, v, causal=causal)
+
+
+def _local_attention(q, k, v, causal: bool):
+    """:func:`blocked_attention` of DTensors, the kernel (or on the CPU its
+    plain version) called on each rank's local shards.
+
+    Each mesh dimension either splits the batch of all three (the
+    ``batch`` rule), or the query heads (``heads``), or nothing; anything
+    else (a sequence or head-width split, a partial sum) is redistributed
+    first.  Keys and values split over a head dimension only when each
+    query head meets its own (MLA, ``Hkv == H``); GQA's are replicated
+    there.  The local query heads ``[h0, h0 + m)`` then take the key
+    heads the *global* GQA map ``h // (H / Hkv)`` gives them: whole
+    groups, or part of one group (more ranks than kv heads), are a
+    narrowed view on which the kernel's own map holds; heads that
+    straddle groups unevenly get their key and value heads gathered one
+    a query head.  A key and value head used on several ranks gets a
+    partial gradient from each (``Partial`` over that mesh dimension)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    qp, kp, gp = [], [], []
+    for pl in q.placements:
+        if pl == Shard(0):
+            qp.append(pl), kp.append(pl), gp.append(pl)
+        elif pl == Shard(2):
+            qp.append(pl)
+            mha = Hkv == H and k.placements == q.placements and v.placements == q.placements
+            kp.append(Shard(2) if mha else Replicate())
+            gp.append(Shard(2) if mha else Partial())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), gp.append(Replicate())
+    q, k, v = (t if tuple(t.placements) == tuple(want) else t.redistribute(mesh, want)
+               for t, want in ((q, qp), (k, kp), (v, kp)))
+    _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, q.placements)
+    _, k_off = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    ql = q.to_local()
+    kl, vl = k.to_local(grad_placements=gp), v.to_local(grad_placements=gp)
+    m, G = ql.shape[2], H // Hkv
+    idx = [(q_off[2] + i) // G - k_off[2] for i in range(m)]
+    first, n_kv = idx[0], idx[-1] - idx[0] + 1
+    if m % n_kv == 0 and idx == [first + i // (m // n_kv) for i in range(m)]:
+        kl, vl = kl.narrow(2, first, n_kv), vl.narrow(2, first, n_kv)
+    else:
+        sel = torch.tensor(idx, device=kl.device)
+        kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
+    out = ops.flash_attention(ql, kl, vl, causal=causal).contiguous()
+    shape = (*q.shape[:3], v.shape[3])
+    return DTensor.from_local(out, mesh, q.placements, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -127,11 +187,31 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if w.dim() == 2:   # flat projection: bias added before the head split
         if b is not None:
             y = y + b
+        if isinstance(y, DTensor):
+            y = _whole_heads(y, d_head)
         return y.reshape(*x.shape[:-1], n_heads, d_head)
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if b is not None:
         y = y + b
     return y
+
+
+def _whole_heads(y, d_head: int):
+    """A flat (…, H·Dh) DTensor whose split over ``attn_flat`` would cut a
+    head (H·Dh over the ranks not a multiple of Dh: the reference shards
+    mid-head there) gathered whole along that dimension, so the reshape to
+    heads is exact; a split at head boundaries stays."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = Shard(y.dim() - 1)
+    n = 1
+    for i, pl in enumerate(y.placements):
+        if pl == last:
+            n *= y.device_mesh.size(i)
+    if y.shape[-1] % (n * d_head) == 0:
+        return y
+    return y.redistribute(y.device_mesh,
+                          [Replicate() if pl == last else pl for pl in y.placements])
 
 
 def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -144,6 +224,10 @@ def _qkv(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor):
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.flat_attn_proj:
+        q = shard(q, "batch", "act_seq", "act_heads", None)
+        k = shard(k, "batch", "act_seq", "act_kv_heads", None)
+        v = shard(v, "batch", "act_seq", "act_kv_heads", None)
     return q, k, v
 
 
@@ -173,9 +257,19 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg,
         q, k, v = _qkv(p, x, cfg, positions)
         cache["k"][:, pos] = k[:, 0]
         cache["v"][:, pos] = v[:, 0]
-        out = decode_attention(q, cache["k"], cache["v"], pos + 1)
-    wo = p["wo"]
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+        k_cache = shard(cache["k"], "batch", "kv_cache_seq", "act_kv_heads", None)
+        v_cache = shard(cache["v"], "batch", "kv_cache_seq", "act_kv_heads", None)
+        out = decode_attention(q, k_cache, v_cache, pos + 1)
+    return _out_proj(out, p["wo"], B, S)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, B: int, S: int) -> torch.Tensor:
+    """(B, S, H, Dv) attention output through a flat (H·Dv, d) or a
+    per-head (H, Dv, d) ``wo`` → (B, S, d)."""
+    if wo.dim() == 3:
+        out = shard(out, "batch", "act_seq", "act_heads", None)
+    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return shard(y, "batch", "act_seq", "act_embed")
 
 
 def gqa_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -230,9 +324,11 @@ def cross_attn_forward(p: Dict, x: torch.Tensor, memory: Optional[torch.Tensor],
     q = _proj_heads(x, p["wq"], p.get("bq"), h, dh)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if not cfg.flat_attn_proj:
+        q = shard(q, "batch", "act_seq", "act_heads", None)
     out = blocked_attention(q, k, v, causal=False)
-    wo = p["wo"]
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    return shard(y, "batch", "act_seq", "act_embed")
 
 
 def cross_cache_spec(cfg, batch: int, mem_len: int) -> Dict[str, torch.Tensor]:
@@ -314,6 +410,8 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg,
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_dim)],
                       dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
+        q = shard(q, "batch", "act_seq", "act_heads", None)
+        k = shard(k, "batch", "act_seq", "act_heads", None)
         out = blocked_attention(q, k, v, causal=True)
         if cache is not None:
             cache["c_kv"][:, :S] = c_kv
@@ -332,8 +430,8 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg,
         pattn = torch.softmax(s, dim=-1)
         o_c = torch.einsum("bshk,bkr->bshr", pattn.to(c_kv.dtype), c_kv)
         out = torch.einsum("bshr,rhk->bshk", o_c, p["w_uv"])         # absorb W_uv
-    wo = p["wo"]
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    return shard(y, "batch", "act_seq", "act_embed")
 
 
 def mla_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:

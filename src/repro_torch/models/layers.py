@@ -23,6 +23,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.distributed.sharding import rows_local, shard
 
 # A parameter's logical axes: a name (or None) for each dimension.
 Axes = Tuple[Optional[str], ...]
@@ -104,6 +107,7 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> Dict[str, torch.Ten
 def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     # SiLU in f32, cast back before the up product, as in JAX
     h = F.silu((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
+    h = shard(h, "batch", "act_seq", "act_mlp")
     return h @ p["w_down"]
 
 
@@ -115,7 +119,12 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``, through ``F.embedding``: its backward sums each
     row's gradients in a fixed order (the CPU's and the card's), where
-    indexing's ``index_put_`` accumulates across threads in any order."""
+    indexing's ``index_put_`` accumulates across threads in any order.
+    A DTensor table (under a mesh) is gathered whole first: DTensor's
+    vocabulary-parallel lookup fails to reduce over batch-split tokens."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
     return F.embedding(tokens, table)
 
 
@@ -124,6 +133,8 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor
     """Per-token negative log-likelihood in f32 (``logsumexp`` of the f32
     logits less the target's logit) and whether the argmax hit the
     target."""
+    if isinstance(logits, DTensor):     # whole vocabulary rows on each rank
+        return rows_local(token_nll, logits, targets)
     logits32 = logits.float()
     gold = logits32.gather(-1, targets[..., None].long())[..., 0]
     return torch.logsumexp(logits32, dim=-1) - gold, logits32.argmax(dim=-1) == targets

@@ -37,8 +37,9 @@ The caches are written in place, as the port's attention writes its own
 and the f32 state into the layer's cache; a decode step reads the old
 state and tails into new tensors before it overwrites them.
 
-Sharding annotations of the JAX package (``shard``) are dropped: outside a
-device mesh they are no-ops.
+The JAX package's ``shard(...)`` annotations stand at its call sites
+(:func:`repro_torch.distributed.sharding.shard`): the identity outside
+``use_mesh``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import const_param, make_param, rms_norm, with_axes
 
 
@@ -227,6 +229,8 @@ def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     bc_raw = x @ p["w_bc"]
     dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])          # (B,S,H) f32
     a = -torch.exp(p["a_log"])                                        # (H,) negative
+    xz = shard(xz, "batch", "act_seq", "act_ssm_inner")
+    z = shard(z, "batch", "act_seq", "act_ssm_inner")
 
     decode = cache is not None and pos is not None
     xc, tail_x = _causal_conv(xz, p["conv_x"], cache["conv_x"] if decode else None)
@@ -235,6 +239,7 @@ def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     C_ = bc[..., G * N:].reshape(B, S, G, N)
     xh = xc.reshape(B, S, H, Pd)
     if not decode:
+        xh = shard(xh, "batch", "act_seq", "act_ssm_heads", None)
         y, state = _ssd_chunked(xh, dt, a, B_, C_, s.chunk, compute_dtype=s.compute_dtype)
         y = y + p["d_skip"][None, None, :, None] * xh.float()
     else:
@@ -255,7 +260,8 @@ def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
 
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"]
+    y = shard(y, "batch", "act_seq", "act_ssm_inner")
+    return shard(y @ p["w_out"], "batch", "act_seq", "act_embed")
 
 
 def mamba_cache_spec(cfg, batch: int) -> Dict[str, torch.Tensor]:

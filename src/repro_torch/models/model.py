@@ -27,7 +27,10 @@ stack (0 without MoE layers).  The logits and their per-token f32
 loss are taken :data:`LOSS_CHUNK` tokens at a time under
 ``torch.utils.checkpoint``, and recomputed so in the backward: at
 qwen3-1.7b's vocabulary (151,936 words) and 8,192 tokens one f32 copy of
-all the logits is 5 GB, and the loss's backward would hold several.  The
+all the logits is 5 GB, and the loss's backward would hold several.
+Under a mesh each chunk holds rows of every data rank's own
+(:func:`repro_torch.distributed.sharding.row_chunks`), so no rank
+computes another's tokens.  The
 token means are then taken over all tokens at once, as in
 :func:`repro_torch.models.layers.cross_entropy`.
 
@@ -61,6 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import recompute_in_mesh, row_chunks, shard
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_lookup, rms_norm, token_mean, token_nll
 
@@ -106,9 +110,9 @@ class Model(torch.nn.Module):
         (no caches) and ``enc_ln_f``; None for the other families."""
         cfg = self.cfg
         if cfg.family == "vlm":
-            return batch["media"].to(cfg.torch_dtype)
+            return shard(batch["media"].to(cfg.torch_dtype), "batch", None, "act_embed")
         if cfg.family == "audio":
-            m = batch["src_embeds"].to(cfg.torch_dtype)
+            m = shard(batch["src_embeds"].to(cfg.torch_dtype), "batch", "act_seq", "act_embed")
             m, _, _ = tf.stack_forward(params["encoder"], m, cfg, self.enc_plan)
             return rms_norm(m, params["enc_ln_f"], cfg.norm_eps)
         return None
@@ -116,18 +120,25 @@ class Model(torch.nn.Module):
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].t()
-        return x @ params["lm_head"]
+            logits = x @ params["embed"].t()
+        else:
+            logits = x @ params["lm_head"]
+        return shard(logits, "batch", *("act_seq",) * (logits.dim() - 2), "act_vocab")
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return shard(embed_lookup(params["embed"], tokens), "batch", "act_seq", "act_embed")
 
     def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        x = embed_lookup(params["embed"], batch["tokens"])
+        x = self._embed(params, batch["tokens"])
         x, _, aux = tf.stack_forward(params["layers"], x, self.cfg, self.plan,
                                      memory=self._memory(params, batch))
         x, targets = x.reshape(-1, x.shape[-1]), batch["targets"].reshape(-1)
         chunk = lambda xc, tc: token_nll(self._logits(params, xc), tc)
-        parts = [checkpoint(chunk, x[i:i + LOSS_CHUNK], targets[i:i + LOSS_CHUNK],
-                            use_reentrant=False, preserve_rng_state=False)
-                 for i in range(0, x.shape[0], LOSS_CHUNK)]
+        in_mesh = recompute_in_mesh()
+        kw = {} if in_mesh is None else {"context_fn": in_mesh}
+        parts = [checkpoint(chunk, xc, tc, use_reentrant=False, preserve_rng_state=False,
+                            **kw)
+                 for xc, tc in row_chunks(LOSS_CHUNK, x, targets)]
         loss, metrics = token_mean(torch.cat([p[0] for p in parts]),
                                    torch.cat([p[1] for p in parts]))
         metrics["aux_loss"] = aux
@@ -141,7 +152,7 @@ class Model(torch.nn.Module):
             caches = self.init_cache(*tokens.shape, device=tokens.device,
                                      mem_len=self.memory_len(batch))
         memory = self._memory(params, batch)
-        x = embed_lookup(params["embed"], tokens)
+        x = self._embed(params, tokens)
         x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
                                         memory=memory)
         return self._logits(params, x[:, -1:, :]), caches
@@ -150,10 +161,39 @@ class Model(torch.nn.Module):
     def decode_step(self, params, caches, tokens: torch.Tensor, pos: int
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, 1) integers; pos: the write slot in the cache."""
-        x = embed_lookup(params["embed"], tokens)
+        x = self._embed(params, tokens)
         x, caches, _ = tf.stack_forward(params["layers"], x, self.cfg, self.plan, caches,
                                         pos=int(pos))
         return self._logits(params, x), caches
+
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """Shape-and-dtype stand-ins (``meta`` tensors) of every model input
+        of a :class:`~repro_torch.configs.base.Shape`, the JAX package's
+        shapes and dtypes (int32 tokens; the stubs' embeddings in the
+        model's dtype).  ``train``: ``tokens`` and ``targets`` (B, S), the
+        vlm's ``media`` (B, n_media_tokens, d), the audio's
+        ``src_embeds`` (B, S, d); ``prefill``: ``tokens`` (B, S) and the
+        vlm's ``media``, or for audio a one-token ``tokens`` (B, 1) and an
+        S-frame ``src_embeds``; ``decode``: ``tokens`` (B, 1) and ``pos``
+        ()."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        spec = lambda *shp, dtype=torch.int32: torch.empty(shp, dtype=dtype, device="meta")
+        emb = lambda n: spec(B, n, cfg.d_model, dtype=cfg.torch_dtype)
+        if shape.kind == "decode":
+            return {"tokens": spec(B, 1), "pos": spec()}
+        if shape.kind not in ("train", "prefill"):
+            raise ValueError(shape.kind)
+        if shape.kind == "prefill" and cfg.family == "audio":
+            return {"tokens": spec(B, 1), "src_embeds": emb(S)}
+        specs = {"tokens": spec(B, S)}
+        if shape.kind == "train":
+            specs["targets"] = spec(B, S)
+        if cfg.family == "vlm":
+            specs["media"] = emb(cfg.n_media_tokens)
+        if cfg.family == "audio":
+            specs["src_embeds"] = emb(S)
+        return specs
 
     def cache_specs(self, batch: int, max_len: int, mem_len: Optional[int] = None):
         """The cache tree as ``meta`` tensors (shapes and dtypes); the

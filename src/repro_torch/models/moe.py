@@ -16,9 +16,14 @@ matrix products).  With ``dispatch_groups = G`` the tokens split into G
 groups of ``B·S / G``, each routed, sized (its capacity from its own
 tokens), dispatched and combined on its own, and the aux loss is the
 mean over the groups (the reference's dp-grouped dispatch, whose groups
-GSPMD places on the data axes; here they run one after another).
-Expert parallelism over ``model`` (``use_shard_map``) raises
-``NotImplementedError``: it waits for ROADMAP A8 item 5's second half.
+GSPMD places on the data axes; here they run one after another).  With
+``use_shard_map`` under a mesh that has a ``model`` axis, each ``model``
+rank runs its ``E/n`` experts over every token and the parts are summed
+over the axis (:func:`_moe_expert_parallel`, the reference's
+``shard_map`` body).  The other paths under a mesh gather their inputs
+whole and run on every rank alike
+(:func:`repro_torch.distributed.sharding.replicated_local`): DTensor has
+no rules for the sorted dispatch.
 
 Two places keep the card's results repeatable and the JAX package's:
 
@@ -40,8 +45,17 @@ import dataclasses
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import (
+    axis_names,
+    current_mesh,
+    replicated_local,
+    shard,
+    use_mesh,
+)
 from repro_torch.models.layers import make_param, mlp_forward
 
 
@@ -56,7 +70,7 @@ class MoEConfig:
     z_coef: float = 1e-3         # router z-loss
     moe_every: int = 1           # hybrid plan: MoE FFN where idx % moe_every == moe_every - 1
     first_dense: bool = False    # layer 0 uses a dense FFN (DeepSeek-V2)
-    use_shard_map: bool = False  # expert parallelism over 'model' (not ported)
+    use_shard_map: bool = False  # expert parallelism over 'model' under a mesh
     dispatch_groups: int = 0     # >0 = dp-grouped dispatch
 
 
@@ -165,9 +179,10 @@ def _dispatch_ffn(x: torch.Tensor, gates: torch.Tensor, experts: torch.Tensor,
     # row E*C is the sentinel that the dropped hits write, then thrown away
     buf = x.new_zeros((e_local * capacity + 1, x.shape[-1]))
     buf[dest] = x[flat_src[order]]
-    buf = buf[:-1].reshape(e_local, capacity, -1)         # (E_local, C, D)
+    buf = shard(buf[:-1].reshape(e_local, capacity, -1), "act_expert", None, None)
 
     h = F.silu(bmm_f32(buf, w_gate)).to(x.dtype) * torch.bmm(buf, w_up)
+    h = shard(h, "act_expert", None, None)
     out = torch.bmm(h, w_down)                            # (E_local, C, D)
 
     out_rows = out.reshape(e_local * capacity, -1)
@@ -202,27 +217,130 @@ def _routed(p: Dict, xf: torch.Tensor, m: MoEConfig) -> Tuple[torch.Tensor, torc
     return y, aux + m.z_coef / max(m.aux_coef, 1e-9) * z
 
 
-def moe_forward(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) → (y, aux_loss): one routing call over every token, or
-    with ``dispatch_groups`` one a group."""
-    m: MoEConfig = cfg.moe
-    if m.use_shard_map:
-        raise NotImplementedError(
-            "MoE expert parallelism over 'model' (use_shard_map) is not ported yet "
-            "(ROADMAP A8 item 5, second half)")
+def _moe_plain(p: Dict, x: torch.Tensor, m: MoEConfig, groups: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts over every token of x (B, S, D): one routing
+    call, or ``groups`` calls of ``B·S / groups`` tokens each (the aux the
+    groups' mean)."""
     B, S, D = x.shape
-    if m.dispatch_groups:
-        G, n = m.dispatch_groups, B * S
+    if groups:
+        G, n = groups, B * S
         if n % G != 0:
             raise ValueError(f"{n} tokens do not split into dispatch_groups={G}")
-        ys, auxs = zip(*(_routed(p, xg, m) for xg in x.reshape(G, n // G, D)))
-        y, aux = torch.cat(ys).reshape(B, S, D), torch.stack(auxs).mean()
+        xg = shard(x.reshape(G, n // G, D), "batch", None, None)
+        ys, auxs = zip(*(_routed(p, g, m) for g in xg))
+        y = shard(torch.stack(ys)[:, None], "batch", None, None, None)
+        return y.reshape(B, S, D), torch.stack(auxs).mean()
+    y, aux = _routed(p, x.reshape(-1, D), m)
+    return y.reshape(B, S, D), aux
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's "copy to the model-parallel region": the identity
+    forward, the gradient summed over the ``model`` group backward (each
+    rank's gradient of a replicated input covers its experts' share)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's "reduce from the model-parallel region": the parts summed
+    over the ``model`` group forward, the gradient passed on unchanged
+    backward (every rank's part enters the sum once)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _expert_parallel(x: torch.Tensor, w_router: torch.Tensor, experts: Tuple[torch.Tensor, ...],
+                     e_offset: int, group, m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``model`` rank's part of the routed experts, summed over the
+    group: every token of x (B, S, D) routed with the replicated f32
+    router, dispatched to this rank's experts ``e_offset + [0, E/n)`` with
+    the whole call's capacity, the parts summed in f32 and cast back; the
+    aux the mean over the group (every rank's is the same)."""
+    B, S, D = x.shape
+    n = dist.get_world_size(group)
+    x = _CopyToModel.apply(x, group)
+    w_router = _CopyToModel.apply(w_router, group)
+    xf = x.reshape(-1, D)
+    gates, hits, aux, z = _route(xf.float(), w_router, m.top_k)
+    y = _dispatch_ffn(xf, gates, hits, *experts, e_offset, capacity_of(xf.shape[0], m))
+    y = _ReduceFromModel.apply(y.float(), group).to(x.dtype)
+    aux = _ReduceFromModel.apply(aux + m.z_coef / max(m.aux_coef, 1e-9) * z, group) / n
+    return y.reshape(B, S, D), aux
+
+
+def moe_forward(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) → (y, aux_loss).  The reference's order of paths: grouped
+    dispatch when ``dispatch_groups`` is set and no mesh is active or
+    ``use_shard_map`` is off; expert parallelism over ``model`` when an
+    active mesh has that axis and ``use_shard_map`` is on; else one
+    routing call over every token."""
+    m: MoEConfig = cfg.moe
+    mesh = current_mesh()
+    grouped = bool(m.dispatch_groups) and (mesh is None or not m.use_shard_map)
+    groups = m.dispatch_groups if grouped else 0
+    if not grouped and m.use_shard_map and mesh is not None and "model" in axis_names(mesh):
+        y, aux = _moe_expert_parallel(p, x, m, mesh)
+    elif isinstance(x, DTensor):
+        keys = ("w_router", "w_gate", "w_up", "w_down")
+        y, aux = replicated_local(
+            lambda xx, *w: _moe_plain(dict(zip(keys, w)), xx, m, groups),
+            x, *(p[k] for k in keys))
     else:
-        y, aux = _routed(p, x.reshape(-1, D), m)
-        y = y.reshape(B, S, D)
+        y, aux = _moe_plain(p, x, m, groups)
     if "shared" in p:
         y = y + mlp_forward(p["shared"], x)
-    return y, m.aux_coef * aux
+    return shard(y, "batch", "act_seq", "act_embed"), m.aux_coef * aux
+
+
+def _moe_expert_parallel(p: Dict, x: torch.Tensor, m: MoEConfig, mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over the mesh's ``model`` axis (the reference's
+    ``shard_map`` body): each rank holds ``E/n`` experts.  A DTensor x is
+    gathered whole (the whole call's tokens and capacity, as the
+    reference's ``local`` sees them) and the rank's experts taken from
+    their shards; plain tensors are the global values every rank holds,
+    and each rank takes its experts' slice (their gradients summed over
+    the group, so each rank's is whole).  ``n_experts % n`` ≠ 0 raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    md = axis_names(mesh).index("model")
+    n = mesh.size(md)
+    if m.n_experts % n != 0:
+        raise ValueError(f"{m.n_experts} experts do not shard over model axis of {n}")
+    e_local = m.n_experts // n
+    e0 = mesh.get_local_rank("model") * e_local
+    group = mesh.get_group("model")
+    keys = ("w_gate", "w_up", "w_down")
+    with use_mesh(None):
+        if not isinstance(x, DTensor):
+            ws = tuple(_CopyToModel.apply(p[k], group)[e0:e0 + e_local] for k in keys)
+            return _expert_parallel(x, p["w_router"], ws, e0, group, m)
+        whole = [Replicate()] * mesh.ndim
+        ours = [Shard(0) if i == md else Replicate() for i in range(mesh.ndim)]
+        xl = x.redistribute(mesh, whole).to_local()
+        rl = p["w_router"].redistribute(mesh, whole).to_local()
+        ws = tuple(p[k].redistribute(mesh, ours).to_local() for k in keys)
+        y, aux = _expert_parallel(xl, rl, ws, e0, group, m)
+    return DTensor.from_local(y, mesh, whole), DTensor.from_local(aux, mesh, whole)
 
 
 class RoutingPin:

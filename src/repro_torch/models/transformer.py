@@ -55,6 +55,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.sharding import recompute_in_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -91,6 +92,15 @@ class Plan:
 
 
 def layer_plan(cfg) -> Plan:
+    """The decoder's plan; with ``cfg.scan_layers`` off, every layer in the
+    prefix (no stacked period: ``{"prefix": [L layers], "scan": None}``)."""
+    plan = _layer_plan(cfg)
+    if not cfg.scan_layers:
+        return Plan(plan.prefix + plan.period * plan.repeats, (), 0)
+    return plan
+
+
+def _layer_plan(cfg) -> Plan:
     if cfg.family == "ssm":
         return Plan((), (MAMBA,), cfg.n_layers)
     if cfg.family == "hybrid":
@@ -123,9 +133,12 @@ def layer_plan(cfg) -> Plan:
 
 
 def encoder_plan(cfg) -> Optional[Plan]:
-    """The encoder's plan (``cfg.encdec``), else None."""
+    """The encoder's plan (``cfg.encdec``), else None; all prefix with
+    ``cfg.scan_layers`` off."""
     if not cfg.encdec:
         return None
+    if not cfg.scan_layers:
+        return Plan((ENC,) * cfg.n_enc_layers, (), 0)
     return Plan((), (ENC,), cfg.n_enc_layers)
 
 
@@ -136,7 +149,10 @@ def _check_kind(kind: Kind) -> None:
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` on every tensor leaf of a tree of dicts and lists, with the
-    leaves at the same place in the ``rest`` trees as further arguments."""
+    leaves at the same place in the ``rest`` trees as further arguments;
+    ``None`` (an unscanned stack's ``"scan"``) stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -231,6 +247,29 @@ def init_model(gen, cfg, device: torch.device) -> Dict[str, Any]:
     return tree
 
 
+def unscan(stack: Dict[str, Any], plan: Plan) -> Dict[str, Any]:
+    """A scanned stack (parameters, gradients or caches laid out by
+    ``plan``) as ``scan_layers=False`` lays it out: the prefix's layers,
+    then each repeat's period layers in order, all under ``"prefix"``
+    (views of the stacked leaves), ``"scan"`` None."""
+    layers = list(stack["prefix"])
+    for r in range(plan.repeats):
+        rep = tree_map(lambda t: t[r], stack["scan"])
+        layers += [rep[str(j)] for j in range(len(plan.period))]
+    return {"prefix": layers, "scan": None}
+
+
+def unscan_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A scanned model's parameter tree as the same model with
+    ``scan_layers=False`` takes it (the decoder's stack and, with an
+    encoder, its stack unscanned; the other leaves as they are)."""
+    out = dict(params)
+    out["layers"] = unscan(params["layers"], layer_plan(cfg.replace(scan_layers=True)))
+    if "encoder" in params:
+        out["encoder"] = unscan(params["encoder"], encoder_plan(cfg.replace(scan_layers=True)))
+    return out
+
+
 def param_shapes(cfg) -> Dict[str, Any]:
     """The parameter tree as ``meta`` tensors: shapes and dtypes, no memory."""
     return init_model(None, cfg, torch.device("meta"))
@@ -260,6 +299,8 @@ def count_params(cfg, active_only: bool = False) -> int:
     def walk(tree, moe_ffn: bool) -> None:
         nonlocal total
         for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            if v is None:
+                continue
             if isinstance(v, (dict, list)):
                 walk(v, isinstance(v, dict) and k == "ffn" and "w_router" in v)
             elif active_only and moe_ffn and k in EXPERT_LEAVES:
@@ -332,9 +373,12 @@ def _remat(fn: Callable, cfg) -> Callable:
     if not cfg.remat:
         return fn
     kw = dict(use_reentrant=False, preserve_rng_state=False)
+    context_fn = None
     if cfg.remat_policy == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                             _dots_policy)
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    context_fn = recompute_in_mesh(context_fn)
+    if context_fn is not None:
+        kw["context_fn"] = context_fn
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
@@ -425,5 +469,6 @@ def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int,
         return out
 
     per = {str(j): layer(kind) for j, kind in enumerate(plan.period)}
-    return {"prefix": [layer(kind) for kind in plan.prefix],
-            "scan": tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), per)}
+    scan = (tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), per)
+            if plan.repeats else None)
+    return {"prefix": [layer(kind) for kind in plan.prefix], "scan": scan}

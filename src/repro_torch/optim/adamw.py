@@ -60,7 +60,8 @@ class AdamW:
         self.cfg = cfg
 
     def init(self, params: Any) -> Dict[str, Any]:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                           memory_format=torch.contiguous_format)
         device = tree_leaves(params)[0].device
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}

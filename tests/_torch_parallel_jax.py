@@ -1,12 +1,12 @@
-"""The JAX package's multi-device references for ``tests/test_torch_compression.py``
-and ``tests/test_torch_parallel.py``, in a process of their own: JAX sees
+"""The JAX package's multi-device references for ``tests/test_torch_compression.py``,
+``tests/test_torch_parallel.py`` and ``tests/test_torch_sharded.py``, in a process of their own: JAX sees
 4 host devices only when ``XLA_FLAGS`` is set before it starts.  Jitted,
 XLA fuses the residual ``g32 − q·scale`` into one rounding, where the
 reference's arithmetic op by op (eager JAX, and the port's elementwise
 ops) rounds the product first.  So the bitwise references of the
 compressed mean run eagerly; the train step's, held to tolerances, jitted.
 
-    python tests/_torch_parallel_jax.py IN.npz OUT.npz compression|parallel
+    python tests/_torch_parallel_jax.py IN.npz OUT.npz compression|parallel|sharded
 
 Reads the inputs the test drew with numpy, runs the reference functions
 under ``repro.compat.shard_map`` over meshes of the first 1, 2 or 4
@@ -149,9 +149,66 @@ def parallel(inp, out):
         out[f"gpipe{n}.ref"] = np.asarray(reference_pipeline(fn, params, x))
 
 
+def sharded(inp, out):
+    """Every reduced arch's parameter shard shapes (``NamedSharding(mesh,
+    logical_spec(...)).shard_shape``) on (data, model) = (2, 2), (1, 4)
+    and (4, 1); the logical specs of a few activation axes on (2, 2); and
+    expert parallelism's rank body composed eagerly (every token routed,
+    each rank's experts dispatched with ``e_offset = rank·E/n`` and the
+    whole call's capacity, the parts summed in f32) at n = 2 and 4."""
+    import json
+
+    from jax.sharding import NamedSharding
+
+    from repro.configs.base import ARCH_IDS, get_reduced
+    from repro.distributed.sharding import BASE_RULES, ShardingRules, logical_spec
+    from repro.models import moe as jmoe
+    from repro.models.transformer import abstract_model
+
+    rules = ShardingRules(BASE_RULES)
+    is_axes = lambda x: isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+    for d, m in ((2, 2), (1, 4), (4, 1)):
+        mesh = Mesh(np.array(jax.devices()[:4]).reshape(d, m), ("data", "model"))
+        for arch in ARCH_IDS:
+            shapes, specs = abstract_model(get_reduced(arch))
+            axes = {}
+            leaves, _ = jax.tree_util.tree_flatten_with_path(specs, is_leaf=is_axes)
+            for path, ax in leaves:
+                axes[jax.tree_util.keystr(path)] = ax
+            for path, sds in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+                ax = axes[jax.tree_util.keystr(path)]
+                key = "".join(f"/{getattr(e, 'key', getattr(e, 'idx', None))}" for e in path)
+                out[f"shape.{arch}.{d}x{m}{key}"] = np.array(NamedSharding(
+                    mesh, logical_spec(ax, mesh, rules)).shard_shape(sds.shape))
+        if (d, m) == (2, 2):
+            specs = {json.dumps(list(ax)): [list(e) if isinstance(e, tuple) else e
+                                            for e in logical_spec(tuple(ax), mesh, rules)]
+                     for ax in json.loads(str(inp["shard_axes"]))}
+            out["shard.specs"] = np.array(json.dumps(specs))
+
+    for arch in json.loads(str(inp["ep_archs"])):
+        mcfg = get_reduced(arch).moe
+        p = {k: jnp.asarray(inp[f"ep.{arch}.p.{k}"]) for k in
+             ("w_router", "w_gate", "w_up", "w_down")}
+        x = jnp.asarray(inp[f"ep.{arch}.x"])
+        xf = x.reshape(-1, x.shape[-1])
+        cap = max(8, int(xf.shape[0] * mcfg.top_k * mcfg.capacity_factor / mcfg.n_experts))
+        gates, experts, aux, z = jmoe._route(xf.astype(jnp.float32), p["w_router"], mcfg.top_k)
+        for n in (2, 4):
+            el = mcfg.n_experts // n
+            parts = [jmoe._dispatch_ffn(xf, gates, experts, *(p[k][r * el:(r + 1) * el] for k in
+                                                             ("w_gate", "w_up", "w_down")),
+                                        jnp.int32(r * el), cap).astype(jnp.float32)
+                     for r in range(n)]
+            y = sum(parts[1:], parts[0]).astype(x.dtype).reshape(x.shape)
+            out[f"ep.{arch}.n{n}.y"] = np.asarray(y)
+            out[f"ep.{arch}.n{n}.aux"] = np.asarray(
+                mcfg.aux_coef * (aux + mcfg.z_coef / max(mcfg.aux_coef, 1e-9) * z))
+
+
 if __name__ == "__main__":
     inp = dict(np.load(sys.argv[1]))
     out = {}
-    {"compression": compression, "parallel": parallel}[sys.argv[3]](inp, out)
+    {"compression": compression, "parallel": parallel, "sharded": sharded}[sys.argv[3]](inp, out)
     np.savez(sys.argv[2], **out)
     print("JAX_REFERENCE_OK")

@@ -15,7 +15,8 @@ Tolerances, stated once:
 * the means: bitwise at 1 and 2 ranks (one product, or two summed in the
   one order either side takes), within ``1e-6 · max|mean|`` at 4, where
   the sum's order may differ;
-* ``make_train_step_parts`` and the compressed step (2 pods, 3 steps of
+* ``make_train_step_parts`` and the compressed step (2 pods of 1 rank,
+  and of 2 ranks sharded over ``data`` or ``model``, 3 steps of
   qwen3-1.7b ``reduced()``, held to the composition of JAX's working
   parts: ``make_train_step_parts`` on each pod's slice, the compressed
   mean under ``shard_map``, ``AdamW.update``; JAX's own
@@ -268,9 +269,10 @@ def test_train_step_parts_match_the_reference(n_micro):
 
 
 def test_compressed_step_matches_the_reference_parts(case):
-    """Two pods, 3 steps: rank 0 against JAX's pod 0 (metrics are a pod's
-    own, as under the reference's replicated out spec), both ranks'
-    params and moments alike, each rank's residual against its pod's.
+    """Two pods of one rank, 3 steps: rank 0 against JAX's pod 0 (metrics
+    are a pod's own, as under the reference's replicated out spec), both
+    ranks' params and moments alike, each rank's residual against its
+    pod's.
 
     Quantization is discontinuous: an element whose code value lay within
     ``NEAR`` of a rounding boundary at some step, on either pod, may take
@@ -279,7 +281,14 @@ def test_compressed_step_matches_the_reference_parts(case):
     fraction of about ``2 * NEAR``) are left out of the leaf comparisons;
     every other element is held at the train step's tolerances."""
     _, ref, out = case
-    o0, o1 = out[2]
+    _check_compressed(ref, *out[2])
+
+
+def _check_compressed(ref, o0, o1, prefix=""):
+    """``o0`` a rank of pod 0, ``o1`` one of pod 1 (their keys under
+    ``prefix``) against the reference parts."""
+    o0 = {k[len(prefix):]: v for k, v in o0.items() if k.startswith(prefix)}
+    o1 = {k[len(prefix):]: v for k, v in o1.items() if k.startswith(prefix)}
     assert int(o0["step.count"]) == STEPS
     exempt = {}
     for i in range(STEPS):
@@ -316,6 +325,38 @@ def test_compressed_step_matches_the_reference_parts(case):
 
 
 def test_compressed_step_refuses_a_pod_of_several_ranks(case):
+    """Which inner step the compressed step takes.  A pod of several ranks
+    always runs its gradients sharded (the state comes back placed, on
+    every rank; each layout below holds it to the reference).  Pods of one
+    rank take the plain step for plain params and the sharded one for
+    params already placed on the pod's (data, model) mesh; from the same
+    weights and batch the two agree bitwise (a mesh of one rank runs the
+    same ops)."""
     _, _, out = case
-    assert bool(out[2][0]["step.refuses_sharded_pod"])
+    for d, m in ((2, 1), (1, 2)):
+        assert all(bool(o[f"pdm2{d}{m}.placed"]) for o in out[4])
+    for o in out[2]:
+        assert not o["choice.plain.dtensor"].any() and o["choice.placed.dtensor"].all()
+        for k, v in o.items():
+            if k.startswith("choice.plain.params"):
+                np.testing.assert_array_equal(
+                    o[k.replace("choice.plain.", "choice.placed.")], v, err_msg=k)
+
+
+@pytest.mark.parametrize("layout", [(2, 1), (1, 2)], ids=["data2", "model2"])
+def test_compressed_step_over_a_sharded_pod_matches_the_reference_parts(case, layout):
+    """Two pods of two ranks, (pod, data, model) = (2, 2, 1) and (2, 1, 2):
+    each pod's gradients from the sharded step on its (data, model) mesh,
+    each leaf quantized with one scale over all its shards (the amax
+    gathered over the pod's ranks), the codes crossing ``pod`` alone.
+    Rank 0 (pod 0) and rank 2 (pod 1) against JAX's parts as above; every
+    rank of a pod holds the same whole state."""
+    _, ref, out = case
+    d, m = layout
+    prefix = f"pdm2{d}{m}."
+    _check_compressed(ref, out[4][0], out[4][2], prefix)
+    for o in out[4][1:]:
+        for k, v in out[4][0].items():
+            if k.startswith(prefix) and ".params/" in k:
+                np.testing.assert_array_equal(o[k], v)
 

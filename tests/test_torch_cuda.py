@@ -1651,3 +1651,74 @@ def test_gpipe_on_a_one_rank_nccl_world(cuda_device, tmp_path):
     finally:
         meshlib.leave_world()
     assert out.is_cuda and torch.equal(out, reference_pipeline(fn, params, x))
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_a_one_rank_nccl_world_is_the_unsharded_step(cuda_device, tmp_path):
+    """qwen3-1.7b at a reduced width in bf16: two sharded (FSDP x TP) steps
+    over a (data, model) = 1 x 1 mesh under ``use_mesh`` (DTensor state,
+    the flash kernels on the local shards, launched as often as the
+    unsharded step launches them) give the unsharded steps' losses and
+    parameters bitwise."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.train import build_run
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = get_reduced("qwen3-1.7b").replace(dtype="bfloat16", d_model=256, d_head=64,
+                                            d_ff=512, vocab=1024)
+    meshlib.join_world(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    try:
+        mesh = meshlib.make_debug_mesh(1, 1)
+        runs = [build_run(cfg, steps=2, batch=2, seq=256, device=cuda_device, mesh=m)
+                for m in (None, mesh)]
+        batches = [next(runs[0].stream) for _ in range(2)]
+        out = []
+        for run in runs:
+            params, state = run.init_state()
+            ops.reset_launch_counts()
+            losses = []
+            for b in batches:
+                params, state, metrics = run.step_fn(params, state, b)
+                losses.append(float(metrics["loss"]))
+            out.append((losses, [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                                 for t in tree_leaves(params)], dict(ops.launches)))
+    finally:
+        meshlib.leave_world()
+    (l0, p0, n0), (l1, p1, n1) = out
+    assert n1["flash_attention"] == n0["flash_attention"] > 0
+    assert n1["flash_attention_bwd"] == n0["flash_attention_bwd"] > 0
+    assert l1 == l0
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(p1, p0))
+
+
+@pytest.mark.cuda
+def test_expert_parallel_prefill_on_a_one_rank_nccl_world_is_the_plain_path(
+        cuda_device, tmp_path):
+    """phi3.5-moe reduced in bf16: a prefill with ``use_shard_map`` over a
+    ``model`` = 1 mesh runs expert parallelism in every layer (the parts
+    summed over ``model`` in f32) and gives the plain path's logits
+    bitwise."""
+    from repro_torch.configs.base import get_reduced
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+    from repro_torch.models.model import build
+
+    cfg = get_reduced("phi3.5-moe-42b-a6.6b").replace(dtype="bfloat16")
+    ep_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, use_shard_map=True))
+    params = build(cfg).init(3, device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(4))
+    taken, real = [], moe._moe_expert_parallel
+    moe._moe_expert_parallel = lambda *a: taken.append(1) or real(*a)
+    meshlib.join_world(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    try:
+        plain, _ = build(cfg).prefill(params, {"tokens": tokens})
+        with use_mesh(meshlib.make_debug_mesh(1, 1)):
+            ep, _ = build(ep_cfg).prefill(params, {"tokens": tokens})
+    finally:
+        meshlib.leave_world()
+        moe._moe_expert_parallel = real
+    assert len(taken) == cfg.n_layers
+    assert torch.equal(ep.view(torch.int16), plain.view(torch.int16))

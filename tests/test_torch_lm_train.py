@@ -741,7 +741,57 @@ def test_cli_trains_and_a_resumed_run_ends_bitwise(tmp_path, monkeypatch):
     assert launch_train.main(_cli(tmp_path / "again", "--steps", "1")) == 0
 
 
-def test_cli_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 item 5"):
+def test_cli_mesh_rank_takes_the_card_of_its_local_rank(monkeypatch):
+    """Under ``torchrun`` over several machines, ``--mesh`` joins the world
+    as ``RANK`` of ``WORLD_SIZE`` and takes card ``LOCAL_RANK`` of its own
+    machine (rank 9 of 16 on a machine of 8 cards is card 1); a card
+    index past the machine's cards still raises."""
+    import torch.distributed as dist
+
+    joined, cards = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: joined.append((backend, kw)))
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setenv("RANK", "9")
+    monkeypatch.setenv("WORLD_SIZE", "16")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with launch_train._world("cuda") as dev:
+        assert dev == torch.device("cuda", 1)
+    assert cards == [torch.device("cuda", 1)]
+    (backend, kw), = joined
+    assert (backend, kw["rank"], kw["world_size"], kw["init_method"]) == (
+        "nccl", 9, 16, "env://")
+    monkeypatch.setenv("LOCAL_RANK", "8")
+    with pytest.raises(ValueError, match="one rank a card"):
+        with launch_train._world("cuda"):
+            pass
+
+
+def test_cli_mesh_raises(tmp_path):
+    """``--mesh`` reads as the reference's does (``16x16``/``2x16x16`` the
+    production meshes, ``DxM`` and ``N`` debug ones); another three-part
+    mesh raises ``ValueError``, where the reference drops its ``pod``; and
+    ``--mesh 1x1`` (a world of one) trains bitwise the unsharded CLI."""
+    assert launch_train.parse_mesh("16x16") == ("production", (16, 16))
+    assert launch_train.parse_mesh("2x16x16") == ("production", (2, 16, 16))
+    assert launch_train.parse_mesh("2x2") == ("debug", (2, 2))
+    assert launch_train.parse_mesh("4") == ("debug", (4, 1))
+    with pytest.raises(ValueError, match="drops its pod"):
         launch_train.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
-                           "--mesh", "2x2"])
+                           "--mesh", "2x2x2"])
+    args = ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu", "--steps", "3",
+            "--batch", "2", "--seq", "16", "--ckpt-every", "2"]
+    plain = launch_train.run(args + ["--ckpt-dir", str(tmp_path / "plain")])
+    meshed = launch_train.run(args + ["--ckpt-dir", str(tmp_path / "mesh"), "--mesh", "1x1"])
+    assert meshed.losses == plain.losses
+    for name in ("plain", "mesh"):
+        assert (tmp_path / name / "step_000000003").is_dir()
+    with np.load(tmp_path / "plain" / "step_000000003" / "arrays.npz") as a, \
+            np.load(tmp_path / "mesh" / "step_000000003" / "arrays.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k

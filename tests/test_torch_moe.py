@@ -114,15 +114,18 @@ def test_layer_plan_matches_jax(arch):
 
 
 def test_moe_shard_options_raise():
-    """Expert parallelism (``use_shard_map``) waits for the second half of
-    ROADMAP A8 item 5; dispatch groups that do not divide the tokens are
-    refused with the reference's message."""
+    """``use_shard_map`` with no mesh active takes the plain path, as the
+    reference's does (bitwise the plain call; expert parallelism needs a
+    mesh with ``model``: ``tests/test_torch_sharded.py``); dispatch groups
+    that do not divide the tokens are refused with the reference's
+    message."""
     cfg = get_reduced("phi3.5-moe-42b-a6.6b")
     p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
+    x = torch.randn((2, 4, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    shard_map = cfg.replace(moe=dataclasses.replace(cfg.moe, use_shard_map=True))
+    for got, want in zip(moe.moe_forward(p, x, shard_map), moe.moe_forward(p, x, cfg)):
+        assert torch.equal(got, want)
     x = torch.zeros((1, 4, cfg.d_model))
-    bad = cfg.replace(moe=dataclasses.replace(cfg.moe, use_shard_map=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 item 5, second half"):
-        moe.moe_forward(p, x, bad)
     bad = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_groups=3))
     with pytest.raises(ValueError, match="4 tokens do not split into dispatch_groups=3"):
         moe.moe_forward(p, x, bad)
