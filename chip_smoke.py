@@ -319,6 +319,23 @@ before any profiler session):
       scanned step's, the parameters after AdamW within a bf16 ulp of the
       larger of their old and new values (the clip norm sums the leaves
       in another grouping).
+  (ah) after (o), on a one-rank NCCL world: the hardened engine over
+      make_data_mesh(device="cuda") (its lane's backend has the mesh's
+      gloo control group, so every decision and launch outcome goes
+      through an exchange) against the engine without a mesh on the card,
+      on CONFIG_QUANT and the AEU test requests: a clean serve() and
+      sessions fed in halves; an injected tile and stream launch fault
+      (_flaky_hook) each recovered through one lane restart; (m)'s
+      scripted overload and deadlines; session deadlines and an
+      idle_timeout sweep with readmission on scripted clocks.  Every
+      answer, status and counter bitwise the engine without a mesh; the
+      rsnn_infer and rsnn_step_sessions launches of the engines over the
+      mesh are the kernels line's launches_by_path "engine_over_mesh";
+      the exchanges a launch makes and one exchange's host time printed;
+  (ai) after (ah): each example counterpart (examples/*_torch.py) in a
+      subprocess on the card at small flags (EXAMPLE_RUNS), all started
+      together, each under EXAMPLE_TIMEOUT_S; the run fails on a nonzero
+      exit or a story that does not reach its last line.
 """
 
 from __future__ import annotations
@@ -652,6 +669,25 @@ FT_MID_SAVE_STEP = 3
 FT_SIGTERM_AT = 4
 FT_TRAINER_STOP = 5
 FT_SPAWN_TIMEOUT_S = 300.0
+# (ai): each example counterpart's flags after --device cuda (or a call of
+# its run function) and the line its story ends on
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_RUNS = {
+    "quickstart_torch": ("run('cuda', n_train=10, n_val=10, epochs=1)", "epoch    0"),
+    "braille_online_learning_torch": (["--epochs", "1", "--commit", "batch"],
+                                      "AEU test accuracy"),
+    "streaming_sessions_torch": (["--epochs", "0", "--users", "8", "--bursts", "2"],
+                                 "8 sessions closed"),
+    "multi_model_serving_torch": (["--braille-epochs", "0", "--cue-epochs", "1",
+                                   "--batch", "8"], "one engine, two SRAM programs"),
+    "lm_serve_torch": (["--steps", "4", "--batch", "2", "--prompt-len", "16"],
+                       "generated (2, 4) tokens"),
+    "fault_tolerant_train_torch": (
+        "run('cuda', ckpt_dir={ckpt!r}, steps=(4, 6), ckpt_every=2, batch=2, seq=32)",
+        "fault-tolerance drill complete"),
+    "serve_braille_torch": (["--epochs", "1", "--batch", "8"],
+                            "interleaved train+serve epoch"),
+}
 
 
 def log(msg: str) -> None:
@@ -4312,7 +4348,31 @@ def phase_learn_while_serve(dev):
     image = _host_image(reg.get("live").weights)
     reqs = [r for r in EventStream(data, "test")]
     phase_faults(dev, image, reqs)
-    return launches, wall - plain_s[0]
+    return launches, wall - plain_s[0], image
+
+
+def _scripted_overload(image, where, reqs, **kw):
+    """(m)'s overload and deadlines on a scripted clock: a bounded queue
+    under admission="shed", every third request on a 5 s default deadline,
+    the clock 4 s on every 10 requests, full tiles through run_tile every
+    30, then serve() with a 1 s deadline."""
+    now = [0.0]
+    e = _hardened_engine(image, where, max_batch=16, max_pending=24,
+                         admission="shed", default_deadline_s=5.0,
+                         clock=lambda: now[0], **kw)
+    out = []
+    for i, ev in enumerate(reqs):
+        e.submit(ev, deadline_s=None if i % 3 == 0 else 50.0)
+        if i % 10 == 9:
+            now[0] += 4.0
+        if i % 30 == 29:
+            for tile in e.scheduler.ready_tiles():
+                out.extend(e.run_tile(tile))
+    out.extend(e.take_dead_results())
+    for tile in e.scheduler.drain():
+        out.extend(e.run_tile(tile))
+    res, stats = e.serve(iter(reqs[:20]), deadline_s=1.0)
+    return sorted(out, key=lambda r: r.rid) + res, stats
 
 
 def phase_faults(dev, image, reqs):
@@ -4376,29 +4436,8 @@ def phase_faults(dev, image, reqs):
         f"alone; its {len(got) - 1} tile-mates bitwise unchanged")
 
     # overload and deadlines on a scripted clock, card against the CPU
-    def scripted(where):
-        now = [0.0]
-        e = _hardened_engine(image, where, max_batch=16, max_pending=24,
-                             admission="shed", default_deadline_s=5.0,
-                             clock=lambda: now[0])
-        out = []
-        for i, ev in enumerate(reqs):
-            # every third request on the default 5 s deadline, the clock 4 s
-            # on every 10 requests, full tiles launched every 30
-            e.submit(ev, deadline_s=None if i % 3 == 0 else 50.0)
-            if i % 10 == 9:
-                now[0] += 4.0
-            if i % 30 == 29:
-                for tile in e.scheduler.ready_tiles():
-                    out.extend(e.run_tile(tile))
-        out.extend(e.take_dead_results())
-        for tile in e.scheduler.drain():
-            out.extend(e.run_tile(tile))
-        res, stats = e.serve(iter(reqs[:20]), deadline_s=1.0)
-        return sorted(out, key=lambda r: r.rid) + res, stats
-
-    got, gstats = scripted(dev)
-    want, _ = scripted(torch.device("cpu"))
+    got, gstats = _scripted_overload(image, dev, reqs)
+    want, _ = _scripted_overload(image, torch.device("cpu"), reqs)
     _same_answers("(m) scripted overload and deadlines", got, want)
     by = {s: sum(1 for r in got if r.status is s) for s in ServeStatus}
     if not (by[ServeStatus.REJECTED] and by[ServeStatus.EXPIRED] and by[ServeStatus.OK]):
@@ -4867,6 +4906,189 @@ def phase_data_parallel(dev):
     return dp_launches, grid_row
 
 
+# ---------------------------------------------------------------------------
+# (ah) the engine over a data mesh, (ai) the example counterparts
+# ---------------------------------------------------------------------------
+
+MESH_STREAM_KEYS = ("tiles", "events", "ticks", "evictions", "readmissions", "expired",
+                    "quarantined", "lane_restarts", "rejected", "shed")
+
+
+def _stream_counters(eng):
+    st = eng.stream_stats(1.0)
+    return {k: getattr(st, k) for k in MESH_STREAM_KEYS}
+
+
+def _mesh_runs(image, dev, reqs, **kw):
+    """(ah)'s runs of one engine setting (``kw`` carries the mesh's runtime,
+    or nothing): {run: (answers, counters)}."""
+    from repro_torch.serve import ServeStatus
+
+    out = {}
+    res, stats = _hardened_engine(image, dev, **kw).serve(iter(reqs))
+    out["serve"] = (res, {"batches": stats.batches, "lane_restarts": stats.lane_restarts})
+    eng = _hardened_engine(image, dev, tick_tile=32, **kw)
+    out["sessions"] = (_sessions(eng, reqs), _stream_counters(eng))
+    for kind, fail_on in (("tile", {1}), ("stream", {2})):
+        seen = []
+        eng = _hardened_engine(image, dev, tick_tile=32,
+                               fault_hook=_flaky_hook(fail_on, kind, seen), **kw)
+        got = eng.serve(iter(reqs))[0] if kind == "tile" else _sessions(eng, reqs)
+        out[f"{kind} fault"] = (got, {**_stream_counters(eng), "faults": len(seen)})
+    res, _ = _scripted_overload(image, dev, reqs, **kw)
+    out["overload and deadlines"] = (res, {s.value: sum(r.status is s for r in res)
+                                           for s in ServeStatus})
+    # session deadlines: every third session on a 5 s deadline, the clock
+    # at 10 s before the second halves are fed
+    now = [0.0]
+    eng = _hardened_engine(image, dev, tick_tile=32, clock=lambda: now[0], **kw)
+    hs = [eng.open_session(deadline_s=5.0 if i % 3 == 0 else None) for i in range(len(reqs))]
+    for h, ev in zip(hs, reqs):
+        h.feed(_halves(ev)[0])
+    eng.pump()
+    now[0] = 10.0
+    for h, ev in zip(hs, reqs):
+        if h.status is ServeStatus.OK:
+            h.feed(_halves(ev)[1])
+    eng.pump(drain=True)
+    out["session deadlines"] = ([h.result() for h in hs], _stream_counters(eng))
+    # the idle sweep: every session runs its first half at t=0, the even
+    # ones their second at t=5; at t=10 the odd ones (idle 10 s > 8 s) are
+    # offloaded, then fed and readmitted
+    now = [0.0]
+    eng = _hardened_engine(image, dev, tick_tile=32, clock=lambda: now[0],
+                           idle_timeout=8.0, **kw)
+    hs = [eng.open_session() for _ in reqs]
+    for h, ev in zip(hs, reqs):
+        h.feed(_halves(ev)[0])
+    eng.pump()
+    now[0] = 5.0
+    for h, ev in zip(hs[::2], reqs[::2]):
+        h.feed(_halves(ev)[1])
+    eng.pump()
+    now[0] = 10.0
+    eng.pump()
+    for h, ev in zip(hs[1::2], reqs[1::2]):
+        h.feed(_halves(ev)[1])
+    eng.pump(drain=True)
+    out["idle sweep"] = ([h.result() for h in hs], _stream_counters(eng))
+    return out
+
+
+def phase_engine_over_mesh(dev, image):
+    """(ah) the hardened engine over a one-rank data mesh (its decisions and
+    launch outcomes through the mesh's control group) against the engine
+    without a mesh on the same device: every answer and counter bitwise.
+    Returns the mesh engines' serving launches and the exchange's numbers
+    for the kernels line."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.backend import ExecutionBackend, RuntimeConfig
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import EventStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+
+    t_start = time.perf_counter()
+    reqs = list(EventStream(make_braille_dataset("AEU"), "test"))
+    want = _mesh_runs(image, dev, reqs)
+    rdv = _world_on_card(dev)
+    try:
+        rt = RuntimeConfig(mesh=meshlib.make_data_mesh(device=dev.type))
+        ctl = ExecutionBackend(CONFIG_QUANT, device=dev, runtime=rt).control
+        if ctl is None or ctl.ranks != [0]:
+            fail(f"(ah): a one-rank mesh's backend has control group {ctl}")
+        ops.reset_launch_counts()
+        got = _mesh_runs(image, dev, reqs, runtime=rt)
+        _sync(dev)
+        launches = {k: ops.launches[k] for k in ("rsnn_infer", "rsnn_step_sessions")}
+        exchanges = ctl.exchanges
+        # one exchange's host time: the launch outcome (codes only), and a
+        # decision of 16 ids (all_reduce, then a broadcast)
+        times = {}
+        for tag, fn in (("settle", ctl.settle), ("decide 16 ids",
+                                                  lambda: ctl.decide(range(16), range(16)))):
+            for _ in range(50):
+                fn()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            times[tag] = (time.perf_counter() - t0) / 2000 * 1e6
+    finally:
+        _leave_world(rdv)
+    for name, (w_ans, w_cnt) in want.items():
+        g_ans, g_cnt = got[name]
+        _same_answers(f"(ah) {name} over the mesh vs without", g_ans, w_ans)
+        if g_cnt != w_cnt:
+            fail(f"(ah) {name}: counters over the mesh {g_cnt} != without {w_cnt}")
+    odd = len(reqs[1::2])
+    checks = {"tile fault restarts": got["tile fault"][1]["lane_restarts"] == 1,
+              "stream fault restarts": got["stream fault"][1]["lane_restarts"] == 1,
+              "session deadlines": got["session deadlines"][1]["expired"]
+              == len(reqs[::3]),
+              "idle evictions": got["idle sweep"][1]["evictions"] == odd,
+              "idle readmissions": got["idle sweep"][1]["readmissions"] == odd,
+              "overload drops": all(got["overload and deadlines"][1][k] > 0
+                                    for k in ("ok", "expired", "rejected"))}
+    if not all(checks.values()):
+        fail(f"(ah): {checks}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"(ah): the engines over the mesh launched {launches}")
+    n_launch = sum(launches.values())
+    log(f"(ah) ok: the hardened engine over a one-rank {dev.type} data mesh bitwise the "
+        f"engine without a mesh on {dev} ({len(reqs)} AEU test requests): "
+        f"{', '.join(want)}; {checks}; launches {launches}; {exchanges} control "
+        f"exchanges ({exchanges / max(n_launch, 1):.2f} a launch); one exchange "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in times.items())
+        + f" (host clock, a one-rank gloo group); (ah) took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return launches, {"exchanges": exchanges, "exchange_us": times}
+
+
+def phase_examples():
+    """(ai) each example counterpart in a subprocess on the card at small
+    flags, all started together; fails on a nonzero exit or a story that
+    does not reach its last line."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    src, examples = str(root / "src"), str(root / "examples")
+    ckpt = tempfile.mkdtemp(prefix="ft-ckpt-", dir=root / "build")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (how, _) in EXAMPLE_RUNS.items():
+        if isinstance(how, list):
+            cmd = [sys.executable, str(root / "examples" / f"{name}.py"), "--device", "cuda",
+                   *how]
+        else:
+            cmd = [sys.executable, "-c", f"import sys; sys.path[:0] = [{src!r}, {examples!r}]; "
+                   f"import {name}; {name}.{how.format(ckpt=ckpt)}"]
+        procs[name] = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    bad, walls = [], {}
+    for name, p in procs.items():
+        try:
+            text, _ = p.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        last = EXAMPLE_RUNS[name][1]
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        if p.returncode != 0 or last not in text:
+            bad.append(name)
+            log(f"(ai) {name} exited {p.returncode}:\n" + "\n".join(lines[-25:]))
+        else:
+            log(f"(ai) {name}: " + next(ln for ln in lines if last in ln))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if bad:
+        fail(f"(ai): examples {bad} failed on the card")
+    log(f"(ai) ok: {len(procs)} example counterparts ran on the card, all started "
+        f"together; done after {walls} s")
+
+
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
@@ -5073,7 +5295,7 @@ def main() -> None:
     launches.update({k: learn_launches[k] for k in learning if k not in serving})
     by_path = {k: {"serve": launches.get(k, 0) if k in serving else 0,
                    "learning": learn_launches[k]} for k in ops.KERNELS}
-    lws_launches, _ = phase_learn_while_serve(dev)   # resets the counts itself
+    lws_launches, _, lws_image = phase_learn_while_serve(dev)   # resets the counts itself
     for k in lws_launches:
         by_path[k]["learn_while_serve"] = launches[k] = lws_launches[k]
     ft_launches, ft_worker_launches = phase_fault_tolerance(dev)   # resets them too
@@ -5082,6 +5304,10 @@ def main() -> None:
     dp_launches, grid_row = phase_data_parallel(dev)     # resets them too
     for k, n in dp_launches.items():
         by_path[k]["data_parallel"] = n
+    mesh_launches, mesh_row = phase_engine_over_mesh(dev, lws_image)   # resets them too
+    for k, n in mesh_launches.items():
+        by_path[k]["engine_over_mesh"] = n
+    phase_examples()
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
@@ -5170,6 +5396,8 @@ def main() -> None:
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             "launches_by_path": by_path[name],
         })
+        if name == "rsnn_step_sessions":
+            kernels[-1]["engine_over_mesh"] = mesh_row
         if name == "rsnn_train":
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]
             kernels[-1]["commit_grid"] = grid_row

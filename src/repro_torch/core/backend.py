@@ -44,6 +44,18 @@ run unchanged on every rank.  A one-rank mesh runs unsharded, as in the
 reference.  A rank's collectives run on its device: NCCL on the card,
 gloo on the CPU; a mesh of another device type than the backend's raises.
 
+**The control group.**  A backend over a mesh also holds the mesh's
+:class:`ControlGroup`: a gloo group of the same ranks, on the host even
+when the data group is NCCL, formed once per mesh when the first backend
+over it is built (a lane restart's fresh backend reuses it).  It carries
+the serving engine's decisions (:mod:`repro_torch.serve.engine`: rank 0's
+deadlines and idle offload, every rank's fault hook) and each serving
+launch's outcome: :meth:`inference` and :meth:`step_sessions` exchange
+whether each rank's kernel launched before their ``all_gather``, so a
+rank whose launch failed never leaves the others waiting in a collective
+(:class:`RankFaultError` on the others; a one-rank mesh exchanges with
+itself).
+
 **The integer commit grid** (``RuntimeConfig(commit_grid=DW_COMMIT_SPEC)``):
 ``train_tile`` sums each sample's ``dw`` as int32 codes on the grid
 (``rsnn_train(..., commit_grid=)``: ``rsnn_dw_codes_reduce_kernel`` on the
@@ -55,7 +67,9 @@ elastic 8 -> 4 restart relies on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import datetime
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -65,9 +79,9 @@ from repro_torch.core.quant import QuantizedMode, QuantSpec
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.launch import cdiv
+from repro_torch.kernels.launch import KernelLaunchError, cdiv
 from repro_torch.kernels.rsnn_step import forward_plan, max_batch_for_dims, serve_plan
-from repro_torch.launch.mesh import DATA_AXIS
+from repro_torch.launch.mesh import DATA_AXIS, world_timeout_s
 
 STATE_KEYS = ("v", "z", "y", "acc_y", "n_spk")
 MAX_TICKS = 4096   # the AER bus's 12-bit tick counter
@@ -108,6 +122,112 @@ def _same_mesh(a, b) -> bool:
     return a is b or (a is not None and b is not None and a == b)
 
 
+# A rank's outcome in a control exchange, ordered by severity: nothing to
+# report, a fault a lane restart contains (the fault hook's, a launcher
+# error that leaves the CUDA context usable), and any other error.
+LAUNCHED, RESTART, RAISE = 0, 1, 2
+
+
+class RankFaultError(RuntimeError):
+    """Another rank of the data mesh faulted at this launch.  Every rank
+    but the faulted one raises this; the faulted one raises its own error.
+    ``rank`` is the faulted rank (its world rank); ``sticky`` is true when
+    no lane restart can contain its fault, so every rank raises to the
+    caller."""
+
+    def __init__(self, rank: int, sticky: bool):
+        what = "a fault no lane restart contains" if sticky else "a recoverable launch fault"
+        super().__init__(f"rank {rank} of the data mesh had {what}")
+        self.rank = int(rank)
+        self.sticky = bool(sticky)
+
+
+class ControlGroup:
+    """The host-side group that carries a data mesh's decisions: a gloo
+    group over the mesh's ranks, usable when a rank's CUDA context is not.
+
+    One :meth:`exchange` carries every rank's outcome code and rank 0's
+    ids (an ``all_reduce`` of the codes and the id count, then a
+    ``broadcast`` of the ids when there are any).  Every rank must make
+    the same exchanges in the same order: each sits on a path all ranks
+    take.  ``exchanges`` counts them."""
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks: List[int] = [int(r) for r in ranks]
+        self.group = dist.new_group(
+            ranks=self.ranks, backend="gloo",
+            timeout=datetime.timedelta(seconds=world_timeout_s()))
+        self.rank = dist.get_rank(self.group)
+        self.exchanges = 0
+
+    def exchange(self, code: int = LAUNCHED, ids: Sequence[int] = ()
+                 ) -> Tuple[List[int], List[int]]:
+        """Every rank's ``code`` (in group rank order) and group rank 0's
+        ``ids`` (the other ranks' ``ids`` are not read)."""
+        n = len(self.ranks)
+        head = torch.zeros(n + 1, dtype=torch.int64)
+        head[self.rank] = int(code)
+        if self.rank == 0:
+            head[n] = len(ids)
+        dist.all_reduce(head, group=self.group)
+        count = int(head[n])
+        out = [int(i) for i in ids] if self.rank == 0 else []
+        if count:
+            buf = (torch.tensor(out, dtype=torch.int64) if self.rank == 0
+                   else torch.empty(count, dtype=torch.int64))
+            dist.broadcast(buf, src=self.ranks[0], group=self.group)
+            out = buf.tolist()
+        self.exchanges += 1
+        return head[:n].tolist(), out
+
+    def decide(self, ids: Sequence[int], among: Sequence[int]) -> List[int]:
+        """Rank 0's decision: its ``ids``, which every rank must hold
+        among its own candidates ``among`` (else the ranks' states have
+        parted and no decision can apply)."""
+        _, out = self.exchange(LAUNCHED, ids)
+        missing = set(out) - set(among)
+        if missing:
+            raise RuntimeError(
+                f"rank {self.ranks[self.rank]} holds no {sorted(missing)} that rank "
+                f"{self.ranks[0]} decided on: the ranks' serving states have parted")
+        return out
+
+    def settle(self, exc: Optional[BaseException] = None,
+               recoverable: bool = False) -> None:
+        """The launch-outcome exchange: report this rank's outcome (``exc``,
+        or none) and raise the agreed one.  A rank raises its own error
+        when it is the worst fault of the launch, else :class:`RankFaultError`
+        naming the first rank with the worst; nothing when no rank faulted.
+        ``recoverable`` marks ``exc`` as one a lane restart contains (the
+        fault hook's); a :class:`~repro_torch.kernels.launch.
+        KernelLaunchError` is recoverable when its code is not sticky."""
+        if exc is None:
+            code = LAUNCHED
+        elif recoverable or (isinstance(exc, KernelLaunchError) and not exc.sticky):
+            code = RESTART
+        else:
+            code = RAISE
+        codes, _ = self.exchange(code)
+        worst = max(codes)
+        if worst == LAUNCHED:
+            return
+        if exc is not None and code == worst:
+            raise exc
+        raise RankFaultError(self.ranks[codes.index(worst)], sticky=worst == RAISE) from exc
+
+
+# one control group per data group (so per mesh), formed by the first
+# backend over the mesh; the data group lives as long as its world
+_CONTROL: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _control_group(mesh, group) -> ControlGroup:
+    ctl = _CONTROL.get(group)
+    if ctl is None:
+        ctl = _CONTROL[group] = ControlGroup(mesh.mesh.flatten().tolist())
+    return ctl
+
+
 class ExecutionBackend:
     """The ops for one :class:`RSNNConfig` on one device, or on one rank of
     a data mesh.
@@ -146,6 +266,9 @@ class ExecutionBackend:
         # the data axis's process group (also on a one-rank mesh, which the
         # public ops run unsharded)
         self._group = self._data_group() if self.mesh is not None else None
+        # the mesh's decisions and launch outcomes (module docstring)
+        self.control: Optional[ControlGroup] = (
+            _control_group(self.mesh, self._group) if self.mesh is not None else None)
         # ranks the sample axis is sharded over; a learner records it in
         # its checkpoint manifests
         self.num_devices = self.mesh.size() if self.mesh is not None else 1
@@ -324,13 +447,28 @@ class ExecutionBackend:
         spikes, n_valid = self._all_reduce([n_spk.sum(), valid.sum()])
         return spikes / (torch.clamp(n_valid, min=1.0) * self.cfg.n_hid)
 
+    def _launched(self, launch):
+        """``launch()``, then, over a mesh, the launch-outcome exchange
+        (:meth:`ControlGroup.settle`): before any collective of the op, so a
+        rank whose launch raised tells the others instead of leaving them
+        in the ``all_gather``."""
+        if self.control is None:
+            return launch()
+        try:
+            out = launch()
+        except Exception as exc:
+            self.control.settle(exc)
+            raise
+        self.control.settle()
+        return out
+
     def _inference(self, weights, raster, valid, sharded: bool):
         """:meth:`inference`'s launch; ``sharded``: each rank classifies its
         slice of the sample axis and ``acc_y`` is gathered."""
         if sharded:
             (raster, valid), B = self._pad_to_shards((raster, valid), (1, 1))
-        acc_y, n_spk = ops.rsnn_infer(raster, valid, *self.datapath_weights(weights),
-                                      **self._kw())
+        acc_y, n_spk = self._launched(lambda: ops.rsnn_infer(
+            raster, valid, *self.datapath_weights(weights), **self._kw()))
         if not sharded:
             return self._metrics(acc_y, eprop._spike_rate(n_spk, valid, self.cfg.n_hid))
         return self._metrics(self._all_gather_rows(acc_y, B),
@@ -370,8 +508,8 @@ class ExecutionBackend:
         if sharded:
             (raster, live, valid, *carries), B = self._pad_to_shards(
                 (raster, live, valid, *carries), (1, 1, 1) + (0,) * len(STATE_KEYS))
-        out = ops.rsnn_step_sessions(raster, live, valid, *carries,
-                                     *self.datapath_weights(weights), **self._kw())
+        out = self._launched(lambda: ops.rsnn_step_sessions(
+            raster, live, valid, *carries, *self.datapath_weights(weights), **self._kw()))
         if not sharded:
             return dict(zip(STATE_KEYS, out))
         widths = [x.shape[1] for x in out]

@@ -40,6 +40,9 @@ from repro_torch.device import resolve_device
 
 DEFAULT_TIMEOUT_S = 60.0
 DATA_AXIS = "data"
+# the timeout the current world joined with (join_world), which the groups
+# formed later in it take too
+_world_timeout_s = DEFAULT_TIMEOUT_S
 
 
 def dist_backend(device_type: str) -> str:
@@ -64,6 +67,7 @@ def join_world(rank: int, world_size: int, init_method: str, *,
     over several), and a card index past this machine's cards raises
     (NCCL runs one rank a card); on ``"cpu"`` every rank runs on the CPU.
     Returns the rank's device."""
+    global _world_timeout_s
     dev = resolve_device(device)
     kw = {}
     if dev.type == "cuda":
@@ -79,7 +83,14 @@ def join_world(rank: int, world_size: int, init_method: str, *,
     dist.init_process_group(
         dist_backend(dev.type), init_method=init_method, rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    _world_timeout_s = float(timeout_s)
     return dev
+
+
+def world_timeout_s() -> float:
+    """The group timeout of the current world (:func:`join_world`'s
+    ``timeout_s``; :data:`DEFAULT_TIMEOUT_S` for a world joined otherwise)."""
+    return _world_timeout_s
 
 
 def leave_world() -> None:

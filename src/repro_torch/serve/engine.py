@@ -37,6 +37,20 @@ that leaves the CUDA context usable
 (:class:`~repro_torch.kernels.launch.KernelLaunchError` with ``sticky``
 false).  Anything else, a sticky CUDA error above all, reaches the caller:
 no in-process restart can recover a poisoned context.
+
+Over a data mesh every rank runs the same engine on the same calls, and
+the ranks must pack the same tiles: each decision that reads a clock or a
+fault is taken once and applied on every rank, through the backend's
+host-side :class:`~repro_torch.core.backend.ControlGroup`.  Rank 0 decides
+request expiry, session deadlines and the idle offload by its own clock
+and stamps, and broadcasts the ids; every rank runs its own fault hook and
+a launch faults on all ranks when it faulted on any; the ranks exchange
+each launch's outcome before its ``all_gather``, and restart the lane all
+together or raise all together (a fault no restart contains raises its own
+error on its rank and :class:`~repro_torch.core.backend.RankFaultError`,
+naming it, on the others).  So an engine over N ranks gives on every rank
+what one engine without a mesh gives with rank 0's clock and the union of
+the ranks' hook faults.
 """
 
 from __future__ import annotations
@@ -48,7 +62,12 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.backend import BackendLike, ExecutionBackend, RuntimeConfig
+from repro_torch.core.backend import (
+    BackendLike,
+    ExecutionBackend,
+    RankFaultError,
+    RuntimeConfig,
+)
 from repro_torch.core.rsnn import RSNNConfig
 from repro_torch.kernels import traffic
 from repro_torch.kernels.launch import KernelLaunchError
@@ -75,13 +94,6 @@ from repro_torch.serve.session import (
     _Session,
     host_copy,
 )
-
-# Engine options whose decisions each rank would take alone: deadlines and
-# idle offload read the rank's own clock, the fault hook its own faults.
-# A lane over a data mesh refuses them (BatchedEngine).
-PER_RANK_OPTIONS = ("default_deadline_s", "session_deadline_s", "idle_timeout",
-                    "fault_hook")
-
 
 @dataclasses.dataclass
 class ServeResult:
@@ -141,10 +153,14 @@ class ServeStats:
         )
 
 
-def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
-    """A CUDA event behind the launches enqueued so far (None on the CPU,
-    where a launch has finished when it returns)."""
-    if device.type != "cuda":
+def _record_done(backend: ExecutionBackend) -> Optional[torch.cuda.Event]:
+    """A CUDA event behind the launches enqueued so far.  None on the CPU,
+    where a launch has finished when it returns, and over a mesh of several
+    ranks, where an event's reading is one rank's: there a harvest waits
+    for the tile, so every rank harvests the same tiles at the same
+    points."""
+    device = backend.device
+    if device.type != "cuda" or backend.num_devices > 1:
         return None
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
@@ -217,8 +233,6 @@ class _ModelLane:
     def __init__(self, engine: "BatchedEngine", spec: ModelSpec):
         self.spec = spec
         cfg = spec.cfg
-        if spec.backend.num_devices > 1:
-            engine._refuse_per_rank_options(spec.model_id)
         self.max_batch = engine._max_batch or batching.max_batch_for(
             cfg, num_devices=spec.backend.num_devices)
         self.scheduler = BucketingScheduler(
@@ -352,12 +366,11 @@ class BatchedEngine:
     ``registry``).  ``device`` (default ``"cuda"``) or an existing
     :class:`~repro_torch.core.backend.ExecutionBackend` as ``backend``
     decides where tiles run; ``runtime=RuntimeConfig(mesh=...)`` serves
-    over a data mesh (every rank runs the same engine on the same requests
-    in the same order, and each tile's rows are split over the ranks, so
-    every rank must pack the same tiles: a lane over a mesh refuses the
-    options whose decisions read one rank's clock or faults —
-    :data:`PER_RANK_OPTIONS` and a per-call ``deadline_s`` — and raises
-    every launch fault instead of restarting on one rank).  ``max_batch``
+    over a data mesh (every rank runs the same engine on the same calls in
+    the same order and each tile's rows are split over the ranks; rank 0's
+    clock decides deadlines and idle offload, a fault hook's fault on any
+    rank faults the launch on all, and the lane restarts on every rank or
+    on none: the module docstring).  ``max_batch``
     is the admission size per tile (default
     :func:`repro_torch.serve.batching.max_batch_for`, times the ranks);
     ``max_sessions`` the resident-session capacity per model;
@@ -537,12 +550,14 @@ class BatchedEngine:
             events, cfg.n_in, tile.num_ticks, cfg.label_delay)
         b_pad = batching.padded_batch_size(len(events), lane.max_batch)
         raster, valid = batching.pad_batch(raster, valid, b_pad)
+        out = lane.backend.inference(lane.weights, *lane.to_device(raster, valid))
+        # counted once the launch stands: over a mesh a launch another
+        # rank's fault undid must leave every rank's counters alike
         lane.account_tile_bytes(tile.num_ticks, b_pad,
                                 traffic.infer_fused_tiled_bytes)
-        out = lane.backend.inference(lane.weights, *lane.to_device(raster, valid))
         return _PendingTile(acc_y=out["acc_y"], labels=labels, tile=tile,
                             b_live=len(events), lane=lane,
-                            done=_record_done(lane.backend.device))
+                            done=_record_done(lane.backend))
 
     def _launch_session_tile(self, lane: _ModelLane, tile: BatchTile) -> _PendingTile:
         """One whole-sample tile through ``step_sessions`` as a single
@@ -567,7 +582,7 @@ class BatchedEngine:
         lane.ticks += T * len(bufs)
         return _PendingTile(acc_y=out["acc_y"], labels=labels, tile=tile,
                             b_live=len(bufs), lane=lane,
-                            done=_record_done(lane.backend.device))
+                            done=_record_done(lane.backend))
 
     def _finalize(self, pending: _PendingTile) -> List[ServeResult]:
         """Materialise one launched tile's results (synchronises on it).
@@ -617,32 +632,17 @@ class BatchedEngine:
         lane = self._lane(model_id)
         events = self._validate_for(lane, events)
         rid = lane.scheduler.submit(
-            events, meta, deadline=self._deadline(lane, deadline_s, self._default_deadline_s))
+            events, meta, deadline=self._deadline(deadline_s, self._default_deadline_s))
         self._collect_dropped(lane)
         return rid
 
     # ------------------------------------------------------- error model
 
-    def _refuse_per_rank_options(self, model_id: str) -> None:
-        """Over a data mesh every rank must launch the same tiles with the
-        same rows (the backend's SPMD contract): refuse the options whose
-        decisions each rank would take alone, on its own clock (deadlines,
-        idle offload) or its own faults (the fault hook)."""
-        set_ = [name for name in PER_RANK_OPTIONS
-                if getattr(self, f"_{name}") is not None]
-        if set_:
-            raise ValueError(
-                f"model {model_id!r} runs on a data mesh: {', '.join(set_)} would let "
-                "each rank pack different tiles and split the ranks' collectives")
-
-    def _deadline(self, lane: _ModelLane, deadline_s: Optional[float],
+    def _deadline(self, deadline_s: Optional[float],
                   default_s: Optional[float]) -> Optional[float]:
         """The absolute deadline of a call's relative ``deadline_s`` (else
-        ``default_s``); refused on a data mesh, where it would read each
-        rank's own clock."""
-        if deadline_s is not None and lane.backend.num_devices > 1:
-            raise ValueError(f"model {lane.model_id!r} runs on a data mesh: a deadline "
-                             "reads each rank's own clock")
+        ``default_s``), stamped on this rank's clock (over a mesh only rank
+        0's stamps decide)."""
         rel = deadline_s if deadline_s is not None else default_s
         return None if rel is None else self._clock() + rel
 
@@ -658,13 +658,15 @@ class BatchedEngine:
 
     def _collect_dropped(self, lane: _ModelLane) -> None:
         """Turn the lane's shed and deadline-expired requests into dead
-        results (REJECTED / EXPIRED), before tiles are packed."""
+        results (REJECTED / EXPIRED), before tiles are packed.  Over a mesh
+        rank 0's clock decides which requests expired."""
         for req in lane.scheduler.shed:
             lane.shed += 1
             lane.rejected += 1
             lane.dead.append(self._dead_result(lane, req, ServeStatus.REJECTED))
         lane.scheduler.shed.clear()
-        for req in lane.scheduler.take_expired():
+        ctl = lane.backend.control
+        for req in lane.scheduler.take_expired(agree=ctl and ctl.decide):
             lane.expired += 1
             lane.dead.append(self._dead_result(lane, req, ServeStatus.EXPIRED))
 
@@ -684,23 +686,33 @@ class BatchedEngine:
 
     # -------------------------------------------------- lane supervision
 
-    def _inject_fault(self, lane: _ModelLane, kind: str) -> None:
-        if self._fault_hook is not None:
-            try:
+    def _inject_fault(self, lane: _ModelLane, kind: str, settle: bool = False) -> None:
+        """Run ``fault_hook`` at the top of a launch.  Over a mesh every
+        rank runs its own, and a fault on any rank faults the launch on
+        all: a rank whose hook raised reports it in an outcome exchange at
+        once and raises.  With ``settle`` every rank makes that exchange
+        here (the streaming launch, whose next steps change the pool);
+        without, the other ranks meet it in the launch's own outcome
+        exchange (a whole-sample tile changes nothing before its kernel,
+        so the two exchanges fold into one)."""
+        ctl = lane.backend.control
+        try:
+            if self._fault_hook is not None:
                 self._fault_hook(lane.model_id, kind)
-            except Exception as exc:
-                self._hook_fault = exc
-                raise
+        except Exception as exc:
+            self._hook_fault = exc
+            if ctl is not None:
+                ctl.settle(exc, recoverable=True)
+            raise
+        if ctl is not None and settle:
+            ctl.settle()
 
-    def _recoverable(self, lane: _ModelLane, exc: BaseException) -> bool:
+    def _recoverable(self, exc: BaseException) -> bool:
         """A launch fault a lane restart can contain: one the fault hook
-        raised, or a launcher error that leaves the CUDA context usable.
-        Never on a data mesh: the fault is one rank's, and a restart there
-        alone would split the ranks' collectives."""
+        raised, a launcher error that leaves the CUDA context usable, or,
+        over a mesh, another rank's such fault (every rank then restarts)."""
         hook_fault, self._hook_fault = self._hook_fault, None
-        if lane.backend.num_devices > 1:
-            return False
-        if isinstance(exc, KernelLaunchError):
+        if isinstance(exc, (KernelLaunchError, RankFaultError)):
             return not exc.sticky
         return exc is hook_fault
 
@@ -787,7 +799,7 @@ class BatchedEngine:
                 try:
                     pending.append(self._launch_session_tile(lane, tile))
                 except Exception as exc:
-                    if not self._recoverable(lane, exc):
+                    if not self._recoverable(exc):
                         raise
                     self._restart_lane(lane)
                     continue
@@ -812,7 +824,7 @@ class BatchedEngine:
             touched[lane.model_id] = lane
             try:
                 lane.scheduler.submit(self._validate_for(lane, events), deadline=self._deadline(
-                    lane, deadline_s, self._default_deadline_s))
+                    deadline_s, self._default_deadline_s))
             except (GuardError, OverloadError):
                 lane.rejected += 1
                 results.append(self._dead_result(lane, ServeRequest(
@@ -875,7 +887,7 @@ class BatchedEngine:
         sess = _Session(self._next_sid, self._clock(), meta,
                         model_id=lane.model_id)
         sess.gate_label = lane.cfg.eprop.infer_window == "valid"
-        sess.deadline = self._deadline(lane, deadline_s, self._session_deadline_s)
+        sess.deadline = self._deadline(deadline_s, self._session_deadline_s)
         self._next_sid += 1
         self._sessions[sess.sid] = sess
         return SessionHandle(self, sess)
@@ -914,7 +926,7 @@ class BatchedEngine:
     def _launch_chunks(self, lane: _ModelLane, sessions, chunks, num_ticks):
         """Seat sessions in the pool, decode their chunks into one tick-tile,
         gather carries → ``step_sessions`` → scatter carries."""
-        self._inject_fault(lane, "stream")
+        self._inject_fault(lane, "stream", settle=True)
         cfg = lane.cfg
         b_pad = batching.padded_batch_size(len(sessions), lane.max_batch)
         raster, live, valid = batching.decode_session_chunks(
@@ -937,16 +949,21 @@ class BatchedEngine:
     def _pump_lane_once(self, lane: _ModelLane) -> bool:
         """Pack and launch one tick-tile from one lane; False when none of
         its sessions has processable ticks.  Sessions past their deadline
-        are dropped here, before the launch; a recoverable launch fault
-        rewinds the chunks and restarts the lane."""
+        (over a mesh, by rank 0's clock) are dropped here, before the
+        launch; a recoverable launch fault rewinds the chunks and restarts
+        the lane."""
         nxt = lane.packer.next_tile()
         if nxt is None:
             return False
         sessions, num_ticks = nxt
         now = self._clock()
+        expired = [s.sid for s in sessions if s.deadline is not None and now > s.deadline]
+        ctl = lane.backend.control
+        if ctl is not None and any(s.deadline is not None for s in sessions):
+            expired = ctl.decide(expired, [s.sid for s in sessions])
         live = []
         for s in sessions:
-            if s.deadline is not None and now > s.deadline:
+            if s.sid in expired:
                 self._expire_session(lane, s)
             else:
                 live.append(s)
@@ -957,7 +974,7 @@ class BatchedEngine:
         try:
             out = self._launch_chunks(lane, sessions, chunks, num_ticks)
         except Exception as exc:
-            if not self._recoverable(lane, exc):
+            if not self._recoverable(exc):
                 raise
             self._on_stream_launch_fault(lane, sessions, chunks)
             return True
@@ -965,7 +982,7 @@ class BatchedEngine:
             acc_y=out["acc_y"],
             lanes=[(s, s.cursor, s.n_events) for s in sessions],
             t_launch=self._clock(), num_ticks=num_ticks, lane=lane,
-            done=_record_done(lane.backend.device),
+            done=_record_done(lane.backend),
         ))
         for s in sessions:
             if s.processable() > 0:

@@ -146,18 +146,27 @@ class BucketingScheduler:
             del self._buckets[key]
         return victim
 
-    def take_expired(self, now: Optional[float] = None) -> List[ServeRequest]:
+    def take_expired(self, now: Optional[float] = None,
+                     agree: Optional[Callable[[List[int], List[int]], List[int]]] = None
+                     ) -> List[ServeRequest]:
         """Remove and return every queued request whose deadline has
         passed (a scan of the queue, skipped while no request has ever
-        carried a deadline)."""
+        carried a deadline).  ``agree(rids, queued_rids)`` replaces this
+        scheduler's expired rids with the ones that decide (over a data
+        mesh, rank 0's: :meth:`repro_torch.core.backend.ControlGroup.
+        decide`)."""
         if not self._any_deadline:
             return []
         now = self._clock() if now is None else now
+        queued = [req for ticks in self._buckets for req in self._buckets[ticks]]
+        drop = {req.rid for req in queued if req.deadline is not None and now > req.deadline}
+        if agree is not None:
+            drop = set(agree(sorted(drop), [req.rid for req in queued]))
         expired: List[ServeRequest] = []
         for ticks in list(self._buckets):
             keep = []
             for req in self._buckets[ticks]:
-                if req.deadline is not None and now > req.deadline:
+                if req.rid in drop:
                     expired.append(req)
                 else:
                     keep.append(req)

@@ -269,14 +269,19 @@ class SessionPool:
         sess.offloaded = None
 
     def sweep(self, now: Optional[float] = None) -> int:
-        """Evict residents idle longer than ``idle_timeout``."""
+        """Evict residents idle longer than ``idle_timeout``.  Over a data
+        mesh (the backend's control group) rank 0's clock and stamps decide
+        which, and every rank evicts those."""
         if self.idle_timeout is None:
             return 0
         now = self._clock() if now is None else now
-        stale = [s for s in self._resident.values()
+        stale = [s.sid for s in self._resident.values()
                  if now - s.t_last > self.idle_timeout]
-        for s in stale:
-            self.evict(s)
+        ctl = self.backend.control
+        if ctl is not None:
+            stale = ctl.decide(stale, list(self._resident))
+        for sid in stale:
+            self.evict(self._resident[sid])
         return len(stale)
 
     def padded_slots(self, slots: np.ndarray, b_pad: int) -> torch.Tensor:

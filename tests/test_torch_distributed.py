@@ -29,6 +29,18 @@ the grid commit is within the float commit's ``dw`` tolerance plus
 samples' codes may round the other way).  Sessions: sharded equal
 unsharded bitwise when quantized, to ``FLOAT_TOL`` in float mode (the
 reference's float chunk claims are the known failures of ROADMAP C).
+
+The engine's per-rank decisions (``ranks.AGREE_SCENARIOS``): request and
+session deadlines and an idle sweep on clocks skewed by ``ranks.SKEW_S``
+seconds a rank, whole-sample and streaming launch faults (recovered, and
+the budget exhausted) from a fault hook armed on the last rank alone or on
+every rank.  Every rank's observations equal rank 0's bitwise, and rank
+0's equal the same scenario on the JAX engine on one device with rank 0's
+clock and the union of the hooks' faults: statuses, ids, preds and
+counters equal, logits bitwise when quantized and to ``FLOAT_TOL``
+otherwise.  A sticky launcher error on the last rank makes every rank
+raise (the last its own error, the others ``RankFaultError`` naming it)
+well inside ``GROUP_TIMEOUT_S``.
 """
 
 import numpy as np
@@ -38,6 +50,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.core import aer as jaer
 from repro.core.backend import ExecutionBackend as JaxBackend
 from repro.core.backend import RuntimeConfig as JaxRuntime
 from repro.core.controller import make_batch_commit_train_fn as jax_commit_fn
@@ -53,6 +66,7 @@ from repro.data.pipeline import EventStream
 from repro.optim.eprop_opt import EpropSGD as JaxEpropSGD
 from repro.optim.eprop_opt import EpropSGDConfig as JaxEpropSGDConfig
 from repro.serve import BatchedEngine as JaxEngine
+from repro.serve import ServeStatus as JaxServeStatus
 
 import _torch_dist_ranks as ranks
 from repro_torch.core.backend import ExecutionBackend, RuntimeConfig
@@ -60,7 +74,6 @@ from repro_torch.core.quant import DW_COMMIT_SPEC
 from repro_torch.distributed.elastic import best_data_mesh_from, survive_data_failure
 from repro_torch.launch import mesh as meshlib
 from repro_torch.serve.batching import max_batch_for
-from repro_torch.serve.engine import PER_RANK_OPTIONS
 
 WORLDS = (1, 4, 8)
 GROUP_TIMEOUT_S = 60.0
@@ -93,6 +106,52 @@ def _np_tree(tree):
 
 def _j(x):
     return jnp.asarray(x)
+
+
+class _JaxSide:
+    """The JAX engine on one device, with the face of ``ranks.PortSide``."""
+
+    def __init__(self, cfg, params, reqs):
+        self.cfg, self.params, self.reqs = cfg, params, reqs
+
+    def engine(self, **kw):
+        return JaxEngine(self.cfg, self.params, backend="scan", **kw)
+
+    def status(self, name):
+        return getattr(JaxServeStatus, name)
+
+
+def _agreement_inputs(inp):
+    """The per-rank-decision scenarios' weights and requests (into ``inp``)
+    and their run on the JAX engine with rank 0's clock and the armed hook
+    (the union of the ranks' hook faults in every case)."""
+    rng = np.random.default_rng(SEED + 1)
+    reqs = {}
+    for T in sorted({shape[0] for shape in ranks.AGREE_SHAPES}):
+        reqs[T] = []
+        for i in range(ranks.AGREE_REQUESTS):
+            ticks = int(rng.integers(12, T + 1))
+            raster = (rng.random((ticks, 12)) < 0.25).astype(np.float32)
+            ev = np.asarray(jaer.encode_sample(raster, i % 3, label_tick=ticks // 4,
+                                               end_tick=ticks - 1), np.uint32)
+            reqs[T].append(ev[np.argsort(ev & jaer.MAX_TICK, kind="stable")])
+            inp[f"agree.req.T{T}.{i}"] = reqs[T][-1]
+    sides = {}
+    for n, shape in enumerate(ranks.AGREE_SHAPES):
+        cfg = JaxPresets.braille(n_classes=3, num_ticks=shape[0], quantized=shape[1])
+        params = jax_init(jax.random.key(40 + n), cfg)
+        inp.update({f"agree.w.{ranks.shape_tag(shape)}.{k}": np.asarray(v)
+                    for k, v in params.items()})
+        sides[shape] = _JaxSide(cfg, params, reqs[shape[0]])
+    ref = {}
+    for name, fn, shape, arms in ranks.AGREE_SCENARIOS:
+        # one run serves every arming: the union of the faults is the
+        # armed hook's in each
+        obs = fn(sides[shape], ranks.Clock(0),
+                 lambda fail_on, kinds=("tile", "stream"): ranks.flaky_hook(fail_on, kinds))
+        for arm in arms:
+            ref[name, arm] = ranks.flat(obs, f"agree.{name}.{arm}")
+    return ref
 
 
 @pytest.fixture(scope="module")
@@ -166,6 +225,8 @@ def case(tmp_path_factory):
                        max_batch=8, tick_granularity=32).serve(iter(reqs))
     ref["engine"] = res
 
+    ref["agree"] = _agreement_inputs(inp)
+
     in_path = root / "inputs.npz"
     np.savez(in_path, **inp)
     out = {}
@@ -186,7 +247,7 @@ def test_every_rank_holds_the_same_outputs(case, world):
     assert int(outs[0]["num_devices"]) == world
     for r, o in enumerate(outs[1:], start=1):
         for k in outs[0]:
-            if not k.startswith(("survive.", "share.")):
+            if not k.startswith(("survive.", "share.", "sticky.")):
                 np.testing.assert_array_equal(o[k], outs[0][k], err_msg=f"rank {r}: {k}")
 
 
@@ -388,20 +449,54 @@ def test_sharded_sessions_equal_unsharded(case, world, mode):
     assert np.abs(o[f"sess.{mode}.single.acc_y"]).max() > 0
 
 
-@pytest.mark.parametrize("world", [4, 8])
-def test_engine_over_a_mesh_refuses_per_rank_decisions(case, world):
-    """Over a mesh every rank must pack the same tiles: the engine refuses
-    each option that a rank would act on by its own clock or its own
-    faults, a per-call deadline, and a lane restart after one rank's launch
-    fault; a one-rank mesh takes them all (it runs unsharded)."""
-    names = PER_RANK_OPTIONS + ("submit.deadline_s", "open_session.deadline_s",
-                                "launch_fault")
-    for r, o in enumerate(case["out"][world]):
-        for name in names:
-            assert bool(o[f"refuse.{name}"]), (r, name)
-    o = _rank0(case, 1)
-    for name in names:
-        assert not bool(o[f"refuse.{name}"]), name
+AGREE_CASES = [(name, arm, shape[1]) for name, _, shape, arms in ranks.AGREE_SCENARIOS
+               for arm in arms]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name,arm,quantized", AGREE_CASES,
+                         ids=[f"{n}-{a}" for n, a, _ in AGREE_CASES])
+def test_rank_decisions_match_one_device(case, world, name, arm, quantized):
+    """Over a mesh, rank 0's clock decides expiry, session deadlines and the
+    idle offload, and a hook fault on any rank (the last alone, or every
+    one) faults the launch on all ranks, which restart together: every
+    rank's observations equal rank 0's bitwise, and rank 0's equal the JAX
+    engine's on one device with rank 0's clock and the union of the hooks'
+    faults (logits bitwise when quantized, else to FLOAT_TOL)."""
+    want = case["ref"]["agree"][name, arm]
+    outs = case["out"][world]
+    prefix = f"agree.{name}.{arm}."
+    got = {k: v for k, v in outs[0].items() if k.startswith(prefix)}
+    assert set(got) == set(want) and want
+    for k, w in want.items():
+        if k.endswith(".logits") and not quantized:
+            np.testing.assert_allclose(got[k], w, err_msg=k, **FLOAT_TOL)
+        elif w.dtype.kind == "f":
+            np.testing.assert_array_equal(got[k], w.astype(got[k].dtype), err_msg=k)
+        else:
+            assert got[k].tolist() == w.tolist(), k
+    for r, o in enumerate(outs[1:], start=1):
+        for k in got:
+            np.testing.assert_array_equal(o[k], got[k], err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("kind", ["tile", "stream"])
+def test_sticky_fault_on_one_rank_raises_on_every_rank(case, world, kind):
+    """A sticky launcher error on the last rank: that rank raises its own
+    error and every other rank a RankFaultError naming it, each well
+    inside the group timeout (no rank waits for the all_gather the faulted
+    rank never joins); every rank made the same control exchanges."""
+    outs = case["out"][world]
+    for r, o in enumerate(outs):
+        if r == world - 1:
+            assert str(o[f"sticky.{kind}.raised"]) == "KernelLaunchError", r
+        else:
+            assert str(o[f"sticky.{kind}.raised"]) == "RankFaultError", r
+            assert int(o[f"sticky.{kind}.rank"]) == world - 1, r
+        assert bool(o[f"sticky.{kind}.sticky"]), r
+        assert float(o[f"sticky.{kind}.seconds"]) < GROUP_TIMEOUT_S / 4, r
+        assert int(o["control.exchanges"]) == int(outs[0]["control.exchanges"]) > 0, r
 
 
 def test_worlds_pick_their_backend_and_refuse_what_they_cannot_form():
