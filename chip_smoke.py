@@ -336,6 +336,21 @@ before any profiler session):
       subprocess on the card at small flags (EXAMPLE_RUNS), all started
       together, each under EXAMPLE_TIMEOUT_S; the run fails on a nonzero
       exit or a story that does not reach its last line.
+  (aj) after (ai): the production-mesh dry run (repro_torch.launch.dryrun).
+      Its cells run in subprocesses started at the beginning of the run
+      (CPU work beside the card's phases, each a fake world whose cuda
+      ranks hold fake tensors): (q)'s qwen3-1.7b step at B=4 x S=2,048 on
+      one fake rank (a (data, model) = 1 x 1 mesh), and llama3-8b's
+      train_4k and decode_32k cells on the 16 x 16 production mesh (256
+      fake ranks), each cell's record and wall seconds logged.  Then the
+      same qwen3 step for real on the card (the dry run's cell_step on a
+      one-rank NCCL world, random weights): FlopCounterMode's count of the
+      real step must equal the fake run's per-rank flops exactly, and the
+      fake run's predicted peak (argument_bytes + temp_bytes) must lie
+      within DRYRUN_PEAK_TOL of the bytes the step adds to
+      torch.cuda.max_memory_allocated over what it started with.  The
+      real step's launches are the kernels line's launches_by_path
+      "dryrun_real_step".
 """
 
 from __future__ import annotations
@@ -688,6 +703,17 @@ EXAMPLE_RUNS = {
     "serve_braille_torch": (["--epochs", "1", "--batch", "8"],
                             "interleaved train+serve epoch"),
 }
+
+
+# (aj): the dry run's cells, where their records go, and how far the fake
+# run's predicted peak may lie from the real step's measured one.
+DRYRUN_DIR = "build/dryrun_aj"
+DRYRUN_ONE_RANK = ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "1x1",
+                   "--batch", "4", "--seq", "2048", "--no-calibrate", "--tag", "aj"]
+DRYRUN_PRODUCTION = ["--arch", "llama3-8b", "--shape", "train_4k,decode_32k",
+                     "--jobs", "2", "--tag", "aj"]
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_PEAK_TOL = 0.10
 
 
 def log(msg: str) -> None:
@@ -5089,6 +5115,135 @@ def phase_examples():
         f"together; done after {walls} s")
 
 
+def start_dryruns(root: Path):
+    """(aj)'s dry-run processes, started at once (they use the CPU, and the
+    card only for the device queries of its fake tensors): the one-rank
+    qwen3 cell, then the two llama3-8b production cells, one process a
+    cell.  Returns ``[(name, Popen, log path)]``."""
+    out = root / DRYRUN_DIR
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for name, args in (("one_rank", DRYRUN_ONE_RANK), ("production", DRYRUN_PRODUCTION)):
+        path = out / f"{name}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out-dir", str(out)]
+        procs.append((name, subprocess.Popen(cmd, cwd=str(root), env=env,
+                                             stdout=open(path, "w"),
+                                             stderr=subprocess.STDOUT), path))
+    return procs
+
+
+def _dryrun_record(root: Path, name: str) -> dict:
+    path = root / DRYRUN_DIR / f"{name}.json"
+    if not path.exists():
+        fail(f"(aj) no dry-run record {path.name}")
+    rec = json.loads(path.read_text())
+    if "error" in rec:
+        fail(f"(aj) dry-run cell {name} failed: {rec['error']}\n{rec.get('traceback', '')[-3000:]}")
+    return rec
+
+
+def phase_dryrun(dev, root: Path, procs):
+    """(aj): wait for the dry-run processes, then run the one-rank cell's
+    step for real on the card and hold it to the fake run's counts."""
+    import math
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.model import build
+
+    t0 = time.perf_counter()
+    for name, proc, path in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"(aj) the dry-run process {name} did not end in {DRYRUN_TIMEOUT_S} s")
+        if rc != 0:
+            fail(f"(aj) the dry-run process {name} exited {rc}:\n"
+                 + path.read_text()[-4000:])
+    fake = _dryrun_record(root, "qwen3-1.7b__train_4k__1x1__aj")
+    prod = {sh: _dryrun_record(root, f"llama3-8b__{sh}__16x16__aj")
+            for sh in ("train_4k", "decode_32k")}
+    for sh, rec in prod.items():
+        m, c = rec["memory"], rec["collectives"]
+        log(f"(aj) dry run llama3-8b {sh} on the 16x16 mesh (256 fake cuda ranks; counts on "
+            f"one rank, not measurements): {rec['wall_s']} s wall, argument "
+            f"{m['argument_bytes'] / 2**30:.2f} GiB + temp {m['temp_bytes'] / 2**30:.2f} GiB "
+            f"a rank, {rec['cost']['flops']:.4g} flops a rank, wire bytes by op "
+            f"{ {k: round(v) for k, v in c['bytes_by_op'].items()} }, counts "
+            f"{c['count_by_op']}")
+
+    # the same step for real on the card, over a one-rank NCCL world
+    opts = dryrun.parser().parse_args(DRYRUN_ONE_RANK)
+    shape = dryrun.cell_shape("train_4k", opts)
+    cfg = dryrun.tune_cfg(get_config("qwen3-1.7b"), shape, opts)
+    rdv = _world_on_card(dev)
+    try:
+        mesh = meshlib.make_debug_mesh(1, 1)
+        rules = dryrun.make_rules(shape, mesh, opts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+        toks = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        inputs = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+        del toks
+        step, args, _ = dryrun.cell_step(cfg, shape, mesh, rules, opts, device=dev,
+                                         params=build(cfg).init(SEED + 29, device=dev),
+                                         inputs=inputs)
+        del inputs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(ops.launches)
+        measured = torch.cuda.max_memory_allocated() - base
+        real_flops = int(fc.get_total_flops())
+        loss = float(out[2]["loss"])
+        del out, args, step
+    finally:
+        _leave_world(rdv)
+    torch.cuda.empty_cache()
+    fm = fake["memory"]
+    predicted = fm["argument_bytes"] + fm["temp_bytes"]
+    fake_flops = int(fake["cost"]["flops"])
+    card = card_line()
+    log(f"(aj) qwen3-1.7b train step B={shape.global_batch} x S={shape.seq_len} on one rank "
+        f"[{card}]: flops fake {fake_flops} vs real {real_flops} (FlopCounterMode); peak "
+        f"predicted {predicted / 2**30:.3f} GiB (argument {fm['argument_bytes'] / 2**30:.3f} "
+        f"+ temp {fm['temp_bytes'] / 2**30:.3f}) vs measured {measured / 2**30:.3f} GiB "
+        f"(arguments resident {resident / 2**30:.3f}), {(predicted - measured) / measured:+.4f}"
+        f"; real step {wall:.2f} s, loss {loss:.4f}, launches {launches}; the dry run's "
+        f"wall {fake['wall_s']} s")
+    if not math.isfinite(loss):
+        fail(f"(aj) the real step's loss is {loss}")
+    if fake_flops != real_flops:
+        fail(f"(aj) the fake run's flops {fake_flops} != the real step's {real_flops}")
+    if abs(predicted - measured) > DRYRUN_PEAK_TOL * measured:
+        fail(f"(aj) predicted peak {predicted} B is not within {DRYRUN_PEAK_TOL} of the "
+             f"measured {measured} B")
+    if launches["flash_attention"] <= 0 or launches["flash_attention_bwd"] <= 0:
+        fail(f"(aj) the real step launched {launches}")
+    log(f"(aj) ok in {time.perf_counter() - t0:.1f} s after (ai)")
+    return launches, {"flops": fake_flops, "predicted_peak_bytes": predicted,
+                      "measured_peak_bytes": measured, "card": card,
+                      "production_wall_s": {sh: r["wall_s"] for sh, r in prod.items()}}
+
+
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
@@ -5254,7 +5409,9 @@ def main() -> None:
     if len(sys.argv) != 1:
         fail("usage: python3 chip_smoke.py [--time-tree CHECKOUT | "
              "--learn-walls CHECKOUT]")
-    setup(Path(__file__).resolve().parent)
+    root = Path(__file__).resolve().parent
+    setup(root)
+    dryruns = start_dryruns(root)     # (aj)'s fake worlds, on the CPU meanwhile
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.rsnn import init_params
     from repro_torch.kernels import ops
@@ -5308,6 +5465,9 @@ def main() -> None:
     for k, n in mesh_launches.items():
         by_path[k]["engine_over_mesh"] = n
     phase_examples()
+    dry_launches, dry_row = phase_dryrun(dev, root, dryruns)
+    for k, n in dry_launches.items():
+        by_path[k]["dryrun_real_step"] = n
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
@@ -5411,6 +5571,7 @@ def main() -> None:
             kernels[-1]["other_shapes"] = r["other_shapes"]
         if name in ("flash_attention", "flash_attention_bwd"):
             kernels[-1]["mla"] = r["mla"]
+            kernels[-1]["dryrun"] = dry_row
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -158,6 +158,25 @@ def placements(spec: Sequence[Axes], mesh) -> Tuple[Any, ...]:
     return tuple(out)
 
 
+# Logical axes of the model's inputs (the reference dry run's BATCH_AXES):
+# the batch split over ("pod", "data"), the stubs' embeddings' widths
+# whole, the decode position a replicated scalar.
+BATCH_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "tokens": ("batch", "act_seq"),
+    "targets": ("batch", "act_seq"),
+    "media": ("batch", None, "act_embed"),
+    "src_embeds": ("batch", "act_seq", "act_embed"),
+    "pos": (),
+}
+
+
+def batch_shardings(specs: Dict[str, Any], mesh, rules: ShardingRules) -> Dict[str, Any]:
+    """The placements of each model input named in ``specs`` (a dict keyed
+    as :meth:`repro_torch.models.model.Model.input_specs` gives it), by
+    :data:`BATCH_AXES` and ``rules``."""
+    return {k: placements(logical_spec(BATCH_AXES[k], mesh, rules), mesh) for k in specs}
+
+
 def param_shardings(specs: Any, mesh, rules: Optional[ShardingRules] = None) -> Any:
     """A tree of logical-axes tuples → a tree of DTensor placements."""
     from repro_torch.models.transformer import tree_map   # the models import shard()
@@ -195,6 +214,18 @@ def current_mesh():
 def current_rules() -> ShardingRules:
     state = _current()
     return state[1] if state else ShardingRules(BASE_RULES)
+
+
+@contextlib.contextmanager
+def on_mesh(mesh, rules: Optional[ShardingRules] = None):
+    """:func:`use_mesh` with DTensor's implicit replication: a plain
+    tensor met beside DTensors (a constant, the rope positions) counts as
+    replicated on the mesh.  What the sharded steps and the serving
+    methods on a mesh run under."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with use_mesh(mesh, rules), implicit_replication():
+        yield
 
 
 def recompute_in_mesh(context_fn=None):
@@ -257,14 +288,125 @@ def from_global(t: "torch.Tensor", mesh, pl: Sequence[Any], device=None):
     copies every shard), or with ``device`` its shard alone copied there
     (a host array placed on the card)."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    shape, off = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    shape, off = local_shape_and_offset(t.shape, mesh, pl)
     local = t[tuple(slice(o, o + n) for o, n in zip(off, shape))]
     if device is not None:
         local = local.to(device)
     return DTensor.from_local(local.contiguous(), mesh, pl, shape=t.shape,
                               stride=contiguous_stride(t.shape))
+
+
+def local_shape_and_offset(shape: Sequence[int], mesh, pl: Sequence[Any]):
+    """This rank's shard of a tensor of global ``shape`` with placements
+    ``pl``: its shape and its offset in the global tensor (the rank's
+    mesh coordinates are read outside any ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(torch.Size(shape), mesh, pl)
+
+
+def placed_empty(shape: Sequence[int], dtype, mesh, pl: Sequence[Any], device,
+                 fill: Optional[float] = None):
+    """A DTensor of global ``shape`` with placements ``pl`` whose local
+    shard is made on each rank alone (``torch.empty``, or ``torch.full``
+    of ``fill``): no rank holds the global value, nothing is
+    communicated."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    local, _ = local_shape_and_offset(shape, mesh, pl)
+    t = (torch.empty(local, dtype=dtype, device=device) if fill is None
+         else torch.full(local, fill, dtype=dtype, device=device))
+    return DTensor.from_local(t, mesh, pl, shape=shape, stride=contiguous_stride(shape))
+
+
+def write_slots(dst: "torch.Tensor", start: int, src: "torch.Tensor") -> None:
+    """``dst[:, start:start + n] = src`` in place (``n = src.shape[1]``):
+    a cache's slots written.  A DTensor ``dst`` whose slot dimension is
+    split (``kv_cache_seq`` over a mesh axis) is written by each rank into
+    the slots it holds, from ``src`` made whole along that dimension (no
+    rank gathers the cache); a split along another dimension keeps
+    ``src``'s rows as ``dst``'s.  DTensor's own slicing of a split
+    dimension would write into a gathered copy."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    n = src.shape[1]
+    if not isinstance(dst, DTensor):
+        dst[:, start:start + n] = src
+        return
+    mesh, pl = dst.device_mesh, tuple(dst.placements)
+    want = tuple(Replicate() if p == Shard(1) else p for p in pl)
+    src = (src.redistribute(mesh, want) if isinstance(src, DTensor)
+           else from_global(src, mesh, want))
+    shape, off = local_shape_and_offset(dst.shape, mesh, pl)
+    lo, hi = max(start, off[1]), min(start + n, off[1] + shape[1])
+    if lo < hi:
+        dst.to_local()[:, lo - off[1]:hi - off[1]] = src.to_local()[:, lo - start:hi - start]
+
+
+def gather_fsdp(tree: Any) -> Any:
+    """A layer's parameters (a tree of dicts and lists) with every DTensor
+    leaf gathered over the mesh axes of the active rules' ``embed`` split
+    (FSDP: ``embed → data``), its other splits (tensor parallelism over
+    ``model``) kept: the reference's just-in-time weight gather.  Left to
+    itself, DTensor's matmul may meet a weight split over ``data`` along
+    the contracted dimension by moving the batch-split activation onto
+    that split instead, which holds every rank's rows at once.  The
+    identity outside :func:`use_mesh` and for plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    state = _current()
+    if state is None:
+        return tree
+    mesh, rules = state
+    axes = rules.resolve("embed", mesh)
+    if not axes:
+        return tree
+    names = axis_names(mesh)
+    dims = {names.index(a) for a in ((axes,) if isinstance(axes, str) else axes)
+            if mesh.size(names.index(a)) > 1}
+    if not dims:
+        return tree
+
+    def gather(t):
+        if isinstance(t, dict):
+            return {k: gather(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [gather(v) for v in t]
+        if not isinstance(t, DTensor):
+            return t
+        pl = tuple(Replicate() if i in dims and isinstance(p, Shard) else p
+                   for i, p in enumerate(t.placements))
+        return t if pl == tuple(t.placements) else t.redistribute(t.device_mesh, pl)
+
+    return gather(tree)
+
+
+def layer_at(t: "torch.Tensor", r: int) -> "torch.Tensor":
+    """``t[r]``, the slice of a stacked leaf (a scanned stack's parameters
+    or caches) at layer ``r``: for a DTensor whose first dimension is
+    whole, a DTensor over each rank's own slice, a view (a write into it
+    reaches ``t``; DTensor's own indexing would make a gathered copy)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor) or any(p == Shard(0) for p in t.placements):
+        return t[r]
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in t.placements)
+    shape = t.shape[1:]
+    return DTensor.from_local(t.to_local()[r], t.device_mesh, pl, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def copy_into(dst: "torch.Tensor", src: "torch.Tensor") -> None:
+    """``dst.copy_(src)``, a DTensor ``src`` first placed as ``dst`` is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) and src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 def place_state(tree: Any, placements: Any, mesh, device=None) -> Any:

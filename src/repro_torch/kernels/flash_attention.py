@@ -269,12 +269,17 @@ def grad_row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((d / m.clamp_min(max(float(m.median()), ROW_FLOOR))).max())
 
 
-def _check_card_inputs(op: str, q, k, v):
+def _check_card_inputs(op: str, q, k, v, *, data: bool = True):
+    """What a launch refuses: tensors off ``q``'s card, dtypes, a head
+    dimension that is not contiguous, head widths without an instance, a
+    grid too tall, and (bf16, ``data`` on) addresses and strides the
+    16-byte copies cannot take.  ``data`` off (a fake or ``meta`` tensor:
+    no memory) checks everything but the card and the addresses."""
     B, Sq, H, D = q.shape
     pair = (D, v.shape[3])
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != dev:
+        if (data and not t.is_cuda) or t.device != dev:
             raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
         if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise ValueError(f"{name}: expected one dtype of {DTYPES} for q, k and v, "
@@ -288,7 +293,7 @@ def _check_card_inputs(op: str, q, k, v):
                          f"(q/k, v) widths {pair} run in bf16 only")
     if B * H > MAX_GRID_Y:
         raise ValueError(f"{op}: B·H = {B * H} > {MAX_GRID_Y}")
-    if q.dtype == torch.bfloat16:
+    if data and q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_copy_alignment(name, t)
 
@@ -644,8 +649,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        o, lse, o32 = fwd(q, k, v, causal=causal, return_lse=True)
+        if q.is_cuda:
+            o, lse, o32 = flash_attention_lse(q, k, v, causal=causal)
+        else:
+            o, lse, o32 = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
         ctx.save_for_backward(q, k, v, o32, lse)
         ctx.causal = causal
         return o
@@ -653,6 +660,111 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        if q.is_cuda:
+            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                   ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=ctx.causal)
         return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
+# the launches as operators of the dispatcher
+# ---------------------------------------------------------------------------
+#
+# The three launches the model paths make are registered as custom
+# operators: the forward (ops.flash_attention's, with ``kv_len``), the
+# forward with ``lse`` and the f32 output (FlashAttentionFn's), and the
+# backward.  On a real CUDA tensor each calls its launcher above, looked up
+# when called (so a test that swaps the launcher for the plain version
+# still reaches the swap), which counts its launch; there is no CPU
+# implementation (the CPU path calls the plain versions itself) and no
+# fallback.  On a fake or ``meta`` tensor (``FakeTensorMode``, the dry run
+# of :mod:`repro_torch.launch.dryrun`) each gives the launch's outputs'
+# shapes and dtypes after the launch's own shape checks, runs nothing and
+# counts nothing.  ``torch.utils.flop_counter`` counts each by the
+# kernel's operations, the valid keys alone (:mod:`repro_torch.kernels.
+# traffic`), where it would not see a launch through ``ctypes`` at all.
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       kv_len: Optional[int]) -> torch.Tensor:
+    return flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, kv_len):
+    _check_shapes(q, k, v, kv_len)
+    _check_card_inputs("flash_attention", q, k, v, data=False)
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(o, lse, o32)``; an operator's outputs may not alias each other,
+    so in f32 (where ``o32`` is ``o``) ``o32`` comes back empty and
+    :func:`flash_attention_lse` gives ``o`` in its place."""
+    o, lse, o32 = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    return o, lse, o32.new_empty((0,)) if o32 is o else o32
+
+
+@flash_attention_lse_op.register_fake
+def _flash_attention_lse_fake(q, k, v, causal):
+    _check_shapes(q, k, v, None)
+    _check_card_inputs("flash_attention", q, k, v, data=False)
+    B, Sq, H, _ = q.shape
+    o = q.new_empty((B, Sq, H, v.shape[3]))
+    o32 = (q.new_empty((B, Sq, H, v.shape[3]), dtype=torch.float32)
+           if q.dtype == torch.bfloat16 else q.new_empty((0,)))
+    return o, q.new_empty((B, H, Sq), dtype=torch.float32), o32
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True):
+    """The forward with ``lse`` and the f32 output on the tensors' card
+    (the launch through its operator) → ``(o, lse, o32)`` as
+    :func:`flash_attention_cuda` returns them."""
+    o, lse, o32 = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+    return o, lse, o if q.dtype == torch.float32 else o32
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                           causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(q, k, v, o, lse, do, causal):
+    _check_bwd_shapes(q, k, v, o, lse, do)
+    _check_card_inputs("flash_attention_bwd", q, k, v, data=False)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    from repro_torch.kernels.traffic import flash_attention_bwd_flops, flash_attention_flops
+
+    def fwd(q, k, v, causal, kv_len=None, *args, out_shape=None, **kw):
+        B, Sq, H, D = q
+        return flash_attention_flops(B, Sq, H, D, k[1] if kv_len is None else kv_len,
+                                     causal, v[3])
+
+    def fwd_lse(q, k, v, causal, *args, out_shape=None, **kw):
+        return fwd(q, k, v, causal)
+
+    def bwd(q, k, v, o, lse, do, causal, *args, out_shape=None, **kw):
+        B, Sq, H, D = q
+        return flash_attention_bwd_flops(B, Sq, H, D, k[1], causal, v[3])
+
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(fwd)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_lse)(fwd_lse)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)(bwd)
+
+
+_register_flop_formulas()

@@ -116,7 +116,10 @@ def flash_attention(q, k, v, *, causal: bool, kv_len: Optional[int] = None):
     ``>= kv_len`` (default ``Skv``) are masked.  With grad on and an input
     that requires it, the call goes through
     :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (its
-    backward a kernel too; no ``kv_len`` there)."""
+    backward a kernel too; no ``kv_len`` there).  On the card each launch
+    goes through its operator (``torch.ops.repro_torch.*``,
+    :mod:`repro_torch.kernels.flash_attention`), which a fake tensor
+    reaches without a launch."""
     on_card = _on_card(q, "flash_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if kv_len is not None and kv_len != k.shape[1]:
@@ -124,4 +127,4 @@ def flash_attention(q, k, v, *, causal: bool, kv_len: Optional[int] = None):
         return _flash.FlashAttentionFn.apply(q, k, v, causal)
     if not on_card:
         return _flash.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
-    return _flash.flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, kv_len)

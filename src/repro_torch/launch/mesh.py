@@ -21,7 +21,15 @@ compressed train step reduces over ``pod``
 hands activations along it (:mod:`repro_torch.distributed.pipeline`),
 ``reshard`` places a tree with the sharding rules' placements on it, and
 the sharded (FSDP × TP) step runs over ``data`` and ``model``
-(:func:`repro_torch.train.train_step.make_train_step_sharded`).  The
+(:func:`repro_torch.train.train_step.make_train_step_sharded`).
+
+:func:`join_fake_world` is the counterpart of the reference dry run's
+``--xla_force_host_platform_device_count=512``: one process joins a world
+of any size as one of its ranks over PyTorch's fake process group, whose
+collectives move nothing, and the meshes above then build unchanged (the
+production mesh on 256 or 512 ranks); with ``FakeTensorMode`` the ranks'
+tensors hold no memory (:mod:`repro_torch.launch.dryrun`).  A fake world
+never shares a process with a real one.  The
 reference's TPU constants (peak rates, link
 bandwidths) are not ported: the card's figures live in
 :mod:`repro_torch.kernels.traffic`.
@@ -87,6 +95,28 @@ def join_world(rank: int, world_size: int, init_method: str, *,
     return dev
 
 
+# the device type a fake world's ranks simulate (join_fake_world)
+_fake_device_type: Optional[str] = None
+
+
+def join_fake_world(world_size: int, rank: int = 0, *, device: str = "cuda") -> None:
+    """Join a fake world of ``world_size`` ranks as ``rank``, simulating
+    ``device`` ranks (``"cuda"`` by default; no card is needed): the
+    backend is PyTorch's ``"fake"`` process group, every collective
+    returns at once with its output's shape, and the meshes of this module
+    build over it as over a real world.  Raises in a process that has
+    joined a world already."""
+    global _fake_device_type
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dev_type = torch.device(device).type
+    dist_backend(dev_type)
+    if dist.is_initialized():
+        raise RuntimeError("join_fake_world: this process has joined a world already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    _fake_device_type = dev_type
+
+
 def world_timeout_s() -> float:
     """The group timeout of the current world (:func:`join_world`'s
     ``timeout_s``; :data:`DEFAULT_TIMEOUT_S` for a world joined otherwise)."""
@@ -94,8 +124,10 @@ def world_timeout_s() -> float:
 
 
 def leave_world() -> None:
+    global _fake_device_type
     if dist.is_initialized():
         dist.destroy_process_group()
+    _fake_device_type = None
 
 
 def make_data_mesh(device: str = "cuda"):
@@ -122,6 +154,8 @@ def world_device_type() -> str:
         return "cuda"
     if backend == "gloo":
         return "cpu"
+    if backend == "fake" and _fake_device_type is not None:
+        return _fake_device_type
     raise ValueError(f"no device type for backend {backend!r}")
 
 

@@ -49,9 +49,15 @@ from typing import Dict, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import contiguous_stride, shard
+from repro_torch.distributed.sharding import (
+    contiguous_stride,
+    copy_into,
+    local_shape_and_offset,
+    shard,
+    write_slots,
+)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, const_param, make_param, rms_norm
+from repro_torch.models.layers import apply_rope, const_param, make_param, rms_norm, with_axes
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,13 +73,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (:func:`_local_attention`).
     """
     if isinstance(q, DTensor):
-        return _local_attention(q, k, v, causal)
+        return _local_attention(q, k, v, lambda a, b, c: ops.flash_attention(a, b, c,
+                                                                             causal=causal))
     return ops.flash_attention(q, k, v, causal=causal)
 
 
-def _local_attention(q, k, v, causal: bool):
-    """:func:`blocked_attention` of DTensors, the kernel (or on the CPU its
-    plain version) called on each rank's local shards.
+def _local_attention(q, k, v, fn):
+    """Attention of DTensors, ``fn(q, k, v)`` (:func:`blocked_attention`'s
+    kernel, or on the CPU its plain version; :func:`decode_attention`'s
+    products) called on each rank's local shards.
 
     Each mesh dimension either splits the batch of all three (the
     ``batch`` rule), or the query heads (``heads``), or nothing; anything
@@ -88,7 +96,6 @@ def _local_attention(q, k, v, causal: bool):
     a query head.  A key and value head used on several ranks gets a
     partial gradient from each (``Partial`` over that mesh dimension)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh = q.device_mesh
     H, Hkv = q.shape[2], k.shape[2]
@@ -105,8 +112,8 @@ def _local_attention(q, k, v, causal: bool):
             qp.append(Replicate()), kp.append(Replicate()), gp.append(Replicate())
     q, k, v = (t if tuple(t.placements) == tuple(want) else t.redistribute(mesh, want)
                for t, want in ((q, qp), (k, kp), (v, kp)))
-    _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, q.placements)
-    _, k_off = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    _, q_off = local_shape_and_offset(q.shape, mesh, q.placements)
+    _, k_off = local_shape_and_offset(k.shape, mesh, k.placements)
     ql = q.to_local()
     kl, vl = k.to_local(grad_placements=gp), v.to_local(grad_placements=gp)
     m, G = ql.shape[2], H // Hkv
@@ -117,7 +124,7 @@ def _local_attention(q, k, v, causal: bool):
     else:
         sel = torch.tensor(idx, device=kl.device)
         kl, vl = kl.index_select(2, sel), vl.index_select(2, sel)
-    out = ops.flash_attention(ql, kl, vl, causal=causal).contiguous()
+    out = fn(ql, kl, vl).contiguous()
     shape = (*q.shape[:3], v.shape[3])
     return DTensor.from_local(out, mesh, q.placements, shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
@@ -130,8 +137,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     q: (B,1,H,D); caches: (B,Smax,Hkv,D); length: number of valid slots.
     Slots past ``length`` are left out rather than masked: a masked score's
     term is an exact zero, so the result is the same, and garbage in the
-    unfilled tail cannot leak.
+    unfilled tail cannot leak.  DTensors (under a mesh) attend on each
+    rank's local shards (:func:`_local_attention`): each rank's query
+    heads over the whole cache, a cache whose slots are split gathered
+    first.
     """
+    if isinstance(q, DTensor):
+        return _local_attention(q, k_cache, v_cache,
+                                lambda a, b, c: decode_attention(a, b, c, length))
     B, _, H, D = q.shape
     Hkv, Dv = v_cache.shape[2], v_cache.shape[3]
     G = H // Hkv
@@ -190,6 +203,8 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         if isinstance(y, DTensor):
             y = _whole_heads(y, d_head)
         return y.reshape(*x.shape[:-1], n_heads, d_head)
+    if isinstance(y, DTensor):
+        y = _whole_heads(y, d_head)
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if b is not None:
         y = y + b
@@ -197,10 +212,12 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
 
 
 def _whole_heads(y, d_head: int):
-    """A flat (…, H·Dh) DTensor whose split over ``attn_flat`` would cut a
-    head (H·Dh over the ranks not a multiple of Dh: the reference shards
-    mid-head there) gathered whole along that dimension, so the reshape to
-    heads is exact; a split at head boundaries stays."""
+    """A flat (…, H·Dh) DTensor whose split of its last dimension would
+    cut a head or leave the ranks uneven shares of heads (H·Dh over the
+    ranks not a multiple of Dh, as ``attn_flat``'s split of 40 or 56 heads
+    over 16; or fewer heads than ranks, as 8 GQA kv heads over 16, which
+    DTensor's matmul may split so) gathered whole along that dimension, so
+    the reshape to heads is exact; a split at head boundaries stays."""
     from torch.distributed.tensor import Replicate, Shard
 
     last = Shard(y.dim() - 1)
@@ -250,17 +267,37 @@ def gqa_forward(p: Dict, x: torch.Tensor, cfg,
         q, k, v = _qkv(p, x, cfg, positions)
         out = blocked_attention(q, k, v, causal=causal)
         if cache is not None:
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            write_slots(cache["k"], 0, k)
+            write_slots(cache["v"], 0, v)
     else:
         positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
         q, k, v = _qkv(p, x, cfg, positions)
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        write_slots(cache["k"], pos, k)
+        write_slots(cache["v"], pos, v)
         k_cache = shard(cache["k"], "batch", "kv_cache_seq", "act_kv_heads", None)
         v_cache = shard(cache["v"], "batch", "kv_cache_seq", "act_kv_heads", None)
         out = decode_attention(q, k_cache, v_cache, pos + 1)
     return _out_proj(out, p["wo"], B, S)
+
+
+def _whole_head_rows(w, d_head: int):
+    """A flat (H·Dh, d) DTensor weight whose split of its first dimension
+    would cut a head (40 or 56 heads' rows over 16 ranks) gathered whole
+    along it.  The product's gradient with respect to the attention
+    output comes back split as that dimension is, and the backward's
+    reshape of it to heads is refused where the split cuts a head."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not isinstance(w, DTensor):
+        return w
+    n = 1
+    for i, pl in enumerate(w.placements):
+        if pl == Shard(0):
+            n *= w.device_mesh.size(i)
+    if w.shape[0] % (n * d_head) == 0:
+        return w
+    return w.redistribute(w.device_mesh,
+                          [Replicate() if pl == Shard(0) else pl for pl in w.placements])
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor, B: int, S: int) -> torch.Tensor:
@@ -268,15 +305,39 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, B: int, S: int) -> torch.Tens
     per-head (H, Dv, d) ``wo`` → (B, S, d)."""
     if wo.dim() == 3:
         out = shard(out, "batch", "act_seq", "act_heads", None)
+    else:
+        wo = _whole_head_rows(wo, out.shape[-1])
     y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return shard(y, "batch", "act_seq", "act_embed")
 
 
+# The caches' logical axes (the reference's): the slots split over
+# ``kv_cache_seq`` (``"model"`` under the dry run's ``kv_shard="seq"``),
+# the kv heads over ``act_kv_heads``; a cross-attention cache's slots (the
+# memory's positions) are never split.
+GQA_CACHE_AXES = {
+    "k": ("batch", "kv_cache_seq", "act_kv_heads", None),
+    "v": ("batch", "kv_cache_seq", "act_kv_heads", None),
+}
+CROSS_CACHE_AXES = {
+    "mk": ("batch", None, "act_kv_heads", None),
+    "mv": ("batch", None, "act_kv_heads", None),
+}
+MLA_CACHE_AXES = {
+    "c_kv": ("batch", "kv_cache_seq", None),
+    "k_pe": ("batch", "kv_cache_seq", None),
+}
+
+
+def _spec(shape, dtype, axes) -> torch.Tensor:
+    return with_axes(torch.empty(shape, dtype=dtype, device="meta"), axes)
+
+
 def gqa_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
-    """Shape-and-dtype stand-ins (``meta`` tensors) of one layer's cache."""
+    """Shape-and-dtype stand-ins (``meta`` tensors) of one layer's cache,
+    each with its logical axes (:data:`GQA_CACHE_AXES`)."""
     shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
-            for k in ("k", "v")}
+    return {k: _spec(shp, cfg.torch_dtype, ax) for k, ax in GQA_CACHE_AXES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +378,8 @@ def cross_attn_forward(p: Dict, x: torch.Tensor, memory: Optional[torch.Tensor],
                     f"cross-attention: a memory of {memory.shape[1]} positions for a "
                     f"cache of {cache['mk'].shape[1]} slots; the cache must hold the "
                     f"memory's length exactly")
-            cache["mk"].copy_(k)
-            cache["mv"].copy_(v)
+            copy_into(cache["mk"], k)
+            copy_into(cache["mv"], v)
     else:
         k, v = cache["mk"], cache["mv"]
     q = _proj_heads(x, p["wq"], p.get("bq"), h, dh)
@@ -327,16 +388,17 @@ def cross_attn_forward(p: Dict, x: torch.Tensor, memory: Optional[torch.Tensor],
     if not cfg.flat_attn_proj:
         q = shard(q, "batch", "act_seq", "act_heads", None)
     out = blocked_attention(q, k, v, causal=False)
-    y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    wo = p["wo"] if p["wo"].dim() == 3 else _whole_head_rows(p["wo"], dh)
+    y = out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return shard(y, "batch", "act_seq", "act_embed")
 
 
 def cross_cache_spec(cfg, batch: int, mem_len: int) -> Dict[str, torch.Tensor]:
     """Shape-and-dtype stand-ins (``meta`` tensors) of one cross-attention
-    layer's cache: the memory's keys and values, ``mem_len`` slots."""
+    layer's cache: the memory's keys and values, ``mem_len`` slots
+    (:data:`CROSS_CACHE_AXES`)."""
     shp = (batch, mem_len, cfg.n_kv_heads, cfg.d_head)
-    return {k: torch.empty(shp, dtype=cfg.torch_dtype, device="meta")
-            for k in ("mk", "mv")}
+    return {k: _spec(shp, cfg.torch_dtype, ax) for k, ax in CROSS_CACHE_AXES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -414,14 +476,14 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg,
         k = shard(k, "batch", "act_seq", "act_heads", None)
         out = blocked_attention(q, k, v, causal=True)
         if cache is not None:
-            cache["c_kv"][:, :S] = c_kv
-            cache["k_pe"][:, :S] = k_pe
+            write_slots(cache["c_kv"], 0, c_kv)
+            write_slots(cache["k_pe"], 0, k_pe)
     else:
         positions = torch.full((1, 1), pos, dtype=torch.long, device=x.device)
         q_nope, q_pe = _mla_q(p, x, cfg, positions)
         c_kv_new, k_pe_new = _mla_compress(p, x, cfg, positions)
-        cache["c_kv"][:, pos] = c_kv_new[:, 0]
-        cache["k_pe"][:, pos] = k_pe_new[:, 0]
+        write_slots(cache["c_kv"], pos, c_kv_new)
+        write_slots(cache["k_pe"], pos, k_pe_new)
         c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
         scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
         q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])      # absorb W_uk
@@ -436,11 +498,9 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg,
 
 def mla_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
     """Shape-and-dtype stand-ins (``meta`` tensors) of one MLA layer's
-    cache: the compressed ``c_kv`` and the rope key ``k_pe``."""
+    cache: the compressed ``c_kv`` and the rope key ``k_pe``
+    (:data:`MLA_CACHE_AXES`)."""
     m = cfg.mla
-    return {
-        "c_kv": torch.empty((batch, max_len, m.kv_lora_rank), dtype=cfg.torch_dtype,
-                            device="meta"),
-        "k_pe": torch.empty((batch, max_len, m.qk_rope_dim), dtype=cfg.torch_dtype,
-                            device="meta"),
-    }
+    width = {"c_kv": m.kv_lora_rank, "k_pe": m.qk_rope_dim}
+    return {k: _spec((batch, max_len, width[k]), cfg.torch_dtype, ax)
+            for k, ax in MLA_CACHE_AXES.items()}

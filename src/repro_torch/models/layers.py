@@ -108,7 +108,11 @@ def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     # SiLU in f32, cast back before the up product, as in JAX
     h = F.silu((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     h = shard(h, "batch", "act_seq", "act_mlp")
-    return h @ p["w_down"]
+    # reduced over the split ``mlp`` here (a no-op off a mesh), as the
+    # attention's output projection is: DTensor left alone keeps the sum
+    # partial and runs the next layer's products on every rank's partial
+    # copy of the whole width
+    return shard(h @ p["w_down"], "batch", "act_seq", "act_embed")
 
 
 def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor:

@@ -50,8 +50,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import copy_into, rows_local, shard
 from repro_torch.models.layers import const_param, make_param, rms_norm, with_axes
 
 
@@ -207,6 +208,64 @@ def _ssd_chunked(
     return y, final
 
 
+def _ssd_on_shards(xh, dt, a, B_, C_, chunk: int, compute_dtype: str = "float32"):
+    """:func:`_ssd_chunked` of DTensors (under a mesh) on each rank's
+    shards: its batch rows and, where the heads split over a mesh
+    dimension and the B/C groups are one, its heads (``a`` split alike, B
+    and C whole); anything else is gathered first.  A gradient that each
+    rank takes from its own share (``a`` over the batch split, B and C
+    over the head split) comes back as a partial sum.  DTensor cannot
+    place the chunked products' reshapes of a split dimension itself."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import contiguous_stride, from_global
+
+    mesh = xh.device_mesh
+    groups = B_.shape[2]
+    want = {k: [] for k in ("x", "a", "bc", "st")}
+    grad = {k: [] for k in ("a", "bc")}
+    for pl in xh.placements:
+        if pl == Shard(0):
+            rows = (Shard(0), Replicate(), Shard(0), Shard(0))
+            grads = (Partial(), Shard(0))
+        elif pl == Shard(2) and groups == 1:
+            rows = (Shard(2), Shard(0), Replicate(), Shard(1))
+            grads = (Shard(0), Partial())
+        else:
+            rows = (Replicate(),) * 4
+            grads = (Replicate(), Replicate())
+        for k, r in zip(("x", "a", "bc", "st"), rows):
+            want[k].append(r)
+        grad["a"].append(grads[0])
+        grad["bc"].append(grads[1])
+
+    def local(t, pl, gp=None):
+        t = t.redistribute(mesh, pl) if isinstance(t, DTensor) else from_global(t, mesh, pl)
+        return t.to_local(grad_placements=gp)
+
+    y, final = _ssd_chunked(local(xh, want["x"]), local(dt, want["x"]),
+                            local(a, want["a"], grad["a"]),
+                            local(B_, want["bc"], grad["bc"]), local(C_, want["bc"], grad["bc"]),
+                            chunk, compute_dtype=compute_dtype)
+    B, S, H, P = xh.shape
+    wrap = lambda t, pl, shape: DTensor.from_local(t, mesh, pl, shape=torch.Size(shape),
+                                                   stride=contiguous_stride(shape))
+    return (wrap(y, want["x"], (B, S, H, P)),
+            wrap(final, want["st"], (B, H, P, B_.shape[3])))
+
+
+def _ssd_step(state, dt0, xh0, b0, c0, a, d_skip, hg: int):
+    """One decode step of the recurrence → (y (B,H,P) f32, state (B,H,P,N)
+    f32): ``state ← exp(dt·A)·state + dt·B·x``, ``y = C·state + D·x``."""
+    da = torch.exp(dt0 * a)                                          # (B,H)
+    b_h = b0.repeat_interleave(hg, dim=1)                            # (B,H,N)
+    c_h = c0.repeat_interleave(hg, dim=1)
+    inc = torch.einsum("bhp,bhn->bhpn", dt0[:, :, None] * xh0.float(), b_h.float())
+    state = state * da[:, :, None, None] + inc
+    y = torch.einsum("bhpn,bhn->bhp", state, c_h.float())
+    return y + d_skip[None, :, None] * xh0.float(), state
+
+
 def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
                   cache: Optional[Dict[str, torch.Tensor]] = None, *,
                   pos: Optional[int] = None) -> torch.Tensor:
@@ -240,23 +299,26 @@ def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     xh = xc.reshape(B, S, H, Pd)
     if not decode:
         xh = shard(xh, "batch", "act_seq", "act_ssm_heads", None)
-        y, state = _ssd_chunked(xh, dt, a, B_, C_, s.chunk, compute_dtype=s.compute_dtype)
+        ssd = _ssd_on_shards if isinstance(xh, DTensor) else _ssd_chunked
+        y, state = ssd(xh, dt, a, B_, C_, s.chunk, compute_dtype=s.compute_dtype)
         y = y + p["d_skip"][None, None, :, None] * xh.float()
     else:
         if S != 1:
             raise ValueError(f"mamba_forward: decode takes one token, got {S}")
-        da = torch.exp(dt[:, 0] * a)                                  # (B,H)
-        b_h = B_[:, 0].repeat_interleave(H // G, dim=1)               # (B,H,N)
-        c_h = C_[:, 0].repeat_interleave(H // G, dim=1)
-        inc = torch.einsum("bhp,bhn->bhpn", dt[:, 0, :, None] * xh[:, 0].float(),
-                           b_h.float())
-        state = cache["state"] * da[:, :, None, None] + inc
-        y = torch.einsum("bhpn,bhn->bhp", state, c_h.float())
-        y = (y + p["d_skip"][None, :, None] * xh[:, 0].float())[:, None]
+        args = (cache["state"], dt[:, 0], xh[:, 0], B_[:, 0], C_[:, 0])
+        if isinstance(xh, DTensor):
+            # each rank steps its own rows, every head (DTensor cannot
+            # place the head split through the group broadcast)
+            a_w, d_w = (t.full_tensor() if isinstance(t, DTensor) else t
+                        for t in (a, p["d_skip"]))
+            y, state = rows_local(lambda *t: _ssd_step(*t, a_w, d_w, H // G), *args)
+        else:
+            y, state = _ssd_step(*args, a, p["d_skip"], H // G)
+        y = y[:, None]
     if cache is not None:
-        cache["conv_x"].copy_(tail_x)
-        cache["conv_bc"].copy_(tail_bc)
-        cache["state"].copy_(state)
+        copy_into(cache["conv_x"], tail_x)
+        copy_into(cache["conv_bc"], tail_bc)
+        copy_into(cache["state"], state)
 
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
@@ -264,17 +326,26 @@ def mamba_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     return shard(y @ p["w_out"], "batch", "act_seq", "act_embed")
 
 
+# The cache's logical axes (the reference's): no slot axis, so
+# ``kv_cache_seq`` splits nothing here.
+MAMBA_CACHE_AXES = {
+    "conv_x": ("batch", None, "act_ssm_inner"),
+    "conv_bc": ("batch", None, None),
+    "state": ("batch", "act_ssm_heads", None, None),
+}
+
+
 def mamba_cache_spec(cfg, batch: int) -> Dict[str, torch.Tensor]:
     """Shape-and-dtype stand-ins (``meta`` tensors) of one Mamba layer's
-    cache: the conv tails in the model dtype and the f32 state.  No length
-    axis: a decode cache's size does not grow with the sequence."""
+    cache, each with its logical axes (:data:`MAMBA_CACHE_AXES`): the conv
+    tails in the model dtype and the f32 state.  No length axis: a decode
+    cache's size does not grow with the sequence."""
     s: SSMConfig = cfg.ssm
     di, H = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
     gn = 2 * s.n_groups * s.d_state
     dt = cfg.torch_dtype
-    return {
-        "conv_x": torch.empty((batch, s.d_conv - 1, di), dtype=dt, device="meta"),
-        "conv_bc": torch.empty((batch, s.d_conv - 1, gn), dtype=dt, device="meta"),
-        "state": torch.empty((batch, H, s.head_dim, s.d_state), dtype=torch.float32,
-                             device="meta"),
-    }
+    shapes = {"conv_x": ((batch, s.d_conv - 1, di), dt),
+              "conv_bc": ((batch, s.d_conv - 1, gn), dt),
+              "state": ((batch, H, s.head_dim, s.d_state), torch.float32)}
+    return {k: with_axes(torch.empty(shp, dtype=d, device="meta"), MAMBA_CACHE_AXES[k])
+            for k, (shp, d) in shapes.items()}

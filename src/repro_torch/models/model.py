@@ -54,6 +54,17 @@ Serving:
 
 ``init`` and ``init_cache`` run on ``device="cuda"`` unless the caller
 passes ``"cpu"``, and raise without a card.
+
+On a mesh (:func:`repro_torch.distributed.sharding.on_mesh`, parameters
+placed by ``param_shardings``, inputs by ``batch_shardings``) both serving
+methods run on DTensors, as the reference dry run's prefill and decode
+branches jit them: ``init_cache`` under a mesh places each cache leaf by
+its logical axes (:meth:`cache_axes`; the slots split over
+``kv_cache_seq``, the kv heads over ``act_kv_heads``), every layer writes
+its cache's local slots (:func:`repro_torch.distributed.sharding.
+write_slots`), and a decode whose cache slots are split reads the layer's
+cache gathered on every rank before its attention (the reference computes
+on the split keys; the port's attention takes whole rows).
 """
 
 from __future__ import annotations
@@ -64,7 +75,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import recompute_in_mesh, row_chunks, shard
+from repro_torch.distributed.sharding import (
+    current_mesh,
+    current_rules,
+    gather_fsdp,
+    logical_sharding,
+    placed_empty,
+    recompute_in_mesh,
+    row_chunks,
+    shard,
+)
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_lookup, rms_norm, token_mean, token_nll
 
@@ -120,9 +140,9 @@ class Model(torch.nn.Module):
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            logits = x @ params["embed"].t()
+            logits = x @ gather_fsdp(params["embed"]).t()
         else:
-            logits = x @ params["lm_head"]
+            logits = x @ gather_fsdp(params["lm_head"])
         return shard(logits, "batch", *("act_seq",) * (logits.dim() - 2), "act_vocab")
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -205,14 +225,30 @@ class Model(torch.nn.Module):
             mem_len = {"vlm": cfg.n_media_tokens, "audio": cfg.enc_seq}.get(cfg.family, 0)
         return tf.stack_cache_specs(cfg, self.plan, batch, max_len, mem_len)
 
+    def cache_axes(self, batch: int, max_len: int, mem_len: Optional[int] = None):
+        """The logical axes of every cache leaf, a tree of tuples shaped
+        like :meth:`cache_specs` (the reference's ``cache_specs`` second
+        half); ``param_shardings`` maps it onto a mesh."""
+        return tf.stack_cache_axes(self.cache_specs(batch, max_len, mem_len))
+
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None,
                    mem_len: Optional[int] = None):
         """A zero cache on ``device``: ``max_len`` slots in each
         self-attention layer's, ``mem_len`` (default the config's) in each
-        cross-attention layer's, and each Mamba layer's tails and state."""
+        cross-attention layer's, and each Mamba layer's tails and state.
+        Under a mesh (``use_mesh``) each leaf is a DTensor placed by its
+        logical axes and the active rules, each rank making its own
+        shard."""
         dev = resolve_device(device)
-        return tf.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev),
-                           self.cache_specs(batch, max_len, mem_len))
+        specs = self.cache_specs(batch, max_len, mem_len)
+        mesh = current_mesh()
+        if mesh is None:
+            return tf.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev), specs)
+        rules = current_rules()
+        return tf.tree_map(
+            lambda t: placed_empty(t.shape, t.dtype, mesh,
+                                   logical_sharding(t.logical_axes, mesh, rules)[1], dev,
+                                   fill=0.0), specs)
 
 
 def build(cfg) -> Model:

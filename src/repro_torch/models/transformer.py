@@ -55,7 +55,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.distributed.sharding import recompute_in_mesh
+from repro_torch.distributed.sharding import gather_fsdp, layer_at, recompute_in_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -412,11 +412,13 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
         if pos is not None:
             raise ValueError("stack_forward: decode needs the caches")
         for kind, layer_p in zip(plan.prefix, stack_params["prefix"]):
-            one = lambda p, xx, mem, kind=kind: block_forward(kind, p, xx, cfg, memory=mem)
+            one = lambda p, xx, mem, kind=kind: block_forward(kind, gather_fsdp(p), xx, cfg,
+                                                              memory=mem)
             x, a = _remat(one, cfg)(layer_p, x, memory)
             aux = aux + a
 
         def period(x, layer_p, memory):
+            layer_p = gather_fsdp(layer_p)
             aux_l = torch.zeros((), dtype=torch.float32, device=x.device)
             for j, kind in enumerate(plan.period):
                 x, a = block_forward(kind, layer_p[str(j)], x, cfg, memory=memory)
@@ -429,14 +431,14 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
             aux = aux + a
         return x, None, aux
     for i, kind in enumerate(plan.prefix):
-        x, a = block_forward(kind, stack_params["prefix"][i], x, cfg, memory=memory,
-                             cache=caches["prefix"][i], pos=pos)
+        x, a = block_forward(kind, gather_fsdp(stack_params["prefix"][i]), x, cfg,
+                             memory=memory, cache=caches["prefix"][i], pos=pos)
         aux = aux + a
     for r in range(plan.repeats):
-        layer_p = tree_map(lambda t: t[r], stack_params["scan"])
-        layer_c = tree_map(lambda t: t[r], caches["scan"])
+        layer_p = tree_map(lambda t: layer_at(t, r), stack_params["scan"])
+        layer_c = tree_map(lambda t: layer_at(t, r), caches["scan"])
         for j, kind in enumerate(plan.period):
-            x, _ = block_forward(kind, layer_p[str(j)], x, cfg, memory=memory,
+            x, _ = block_forward(kind, gather_fsdp(layer_p[str(j)]), x, cfg, memory=memory,
                                  cache=layer_c[str(j)], pos=pos)
     return x, caches, aux
 
@@ -444,6 +446,12 @@ def stack_forward(stack_params: Dict[str, Any], x: torch.Tensor, cfg, plan: Plan
 # ---------------------------------------------------------------------------
 # cache specs
 # ---------------------------------------------------------------------------
+
+
+def stack_cache_axes(specs: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical axes of every leaf of a cache tree of
+    :func:`stack_cache_specs`, a tree of tuples shaped like it."""
+    return tree_map(lambda t: t.logical_axes, specs)
 
 
 def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int,
@@ -454,7 +462,10 @@ def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int,
     sizes only the self-attention caches), a cross-attention's memory keys
     and values of ``mem_len`` slots (``"mixer"`` for ``xattn``, ``"xattn"``
     beside the self-attention's for ``attn_xattn``), else its MLA cache
-    when ``cfg.mla`` is set, else its GQA cache."""
+    when ``cfg.mla`` is set, else its GQA cache.  Each leaf carries its
+    logical axes (``logical_axes``; a stacked leaf's led by
+    ``"layers"``), which place a cache on a mesh
+    (:func:`stack_cache_axes`)."""
     def layer(kind):
         _check_kind(kind)
         mixer = kind[0]
@@ -469,6 +480,6 @@ def stack_cache_specs(cfg, plan: Plan, batch: int, max_len: int,
         return out
 
     per = {str(j): layer(kind) for j, kind in enumerate(plan.period)}
-    scan = (tree_map(lambda t: t.new_empty((plan.repeats, *t.shape)), per)
+    scan = (tree_map(lambda t: _stacked(t, t.new_empty((plan.repeats, *t.shape))), per)
             if plan.repeats else None)
     return {"prefix": [layer(kind) for kind in plan.prefix], "scan": scan}

@@ -53,7 +53,6 @@ metrics as plain tensors, alike on every rank.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -64,10 +63,10 @@ from repro_torch.distributed.sharding import (
     ShardingRules,
     from_global,
     logical_sharding,
+    on_mesh,
     param_shardings,
     place_state,
     shard,
-    use_mesh,
 )
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamW
@@ -169,14 +168,6 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-@contextlib.contextmanager
-def _on_mesh(mesh, rules):
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    with use_mesh(mesh, rules), implicit_replication():
-        yield
-
-
 def make_sharded_parts(model, opt: AdamW, mesh, rules: Optional[ShardingRules] = None, *,
                        n_micro: int = 1) -> Tuple[Callable, Callable, Callable]:
     """``(place, grads_only, update)``, the pieces of the sharded step on
@@ -200,12 +191,12 @@ def make_sharded_parts(model, opt: AdamW, mesh, rules: Optional[ShardingRules] =
         return params, {**opt_state, **moments}
 
     def grads_only(params, batch):
-        with _on_mesh(mesh, rules):
+        with on_mesh(mesh, rules):
             batch = {k: _place_batch(v, mesh, rules) for k, v in batch.items()}
             return parts(params, batch)
 
     def update(params, grads, opt_state):
-        with _on_mesh(mesh, rules):
+        with on_mesh(mesh, rules):
             return opt.update(params, grads, opt_state)
 
     return place, grads_only, update

@@ -1722,3 +1722,80 @@ def test_expert_parallel_prefill_on_a_one_rank_nccl_world_is_the_plain_path(
         moe._moe_expert_parallel = real
     assert len(taken) == cfg.n_layers
     assert torch.equal(ep.view(torch.int16), plain.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# the flash launches as operators (the dry run's fake implementations)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,DV", [
+    (2, 200, 200, 8, 2, 64, 64), (1, 1, 96, 4, 4, 128, 128), (2, 130, 130, 4, 4, 192, 128)])
+def test_flash_operators_fake_shapes_are_the_launches(dtype, B, Sq, Skv, H, Hkv, D, DV,
+                                                      cuda_device):
+    """Each operator's fake outputs (FakeTensorMode, the dry run) have the
+    real launch's shapes and dtypes; one real call adds exactly one to its
+    kernel's launch counter, a fake call none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as FA
+
+    if dtype == torch.float32 and D != DV:
+        pytest.skip("(192, 128) runs in bf16 only")
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(dtype)
+    q, k, v = mk(B, Sq, H, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, DV)
+    causal = Sq == Skv
+    sig = lambda ts: [(tuple(t.shape), t.dtype, t.device.type) for t in ts]
+
+    def calls(q, k, v):
+        o = torch.ops.repro_torch.flash_attention(q, k, v, causal, None)
+        o_l, lse, o32 = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal)
+        do = o_l.clone()
+        grads = (torch.ops.repro_torch.flash_attention_bwd(q, k, v, o_l if o32.numel() == 0
+                                                           else o32, lse, do, causal)
+                 if causal else ())
+        return [o], [o_l, lse, o32], list(grads)
+
+    ops.reset_launch_counts()
+    real = calls(q, k, v)
+    torch.cuda.synchronize()
+    n_bwd = 1 if causal else 0
+    assert ops.launches["flash_attention"] == 2
+    assert ops.launches["flash_attention_bwd"] == n_bwd
+    with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fake = calls(fq, fk, fv)
+    assert ops.launches["flash_attention"] == 2 and ops.launches["flash_attention_bwd"] == n_bwd
+    for r, f in zip(real, fake):
+        assert sig(r) == sig(f)
+
+
+@pytest.mark.cuda
+def test_flash_operator_on_a_real_tensor_launches_never_the_fake(cuda_device, monkeypatch):
+    """A real CUDA tensor goes to the launcher, never to the fake
+    implementation (whose checks run with ``data`` off), and a refused
+    launch raises; a CPU tensor has no implementation of the operator."""
+    from repro_torch.kernels import flash_attention as FA
+
+    checks = []
+    real_check = FA._check_card_inputs
+
+    def spy(op, q, k, v, *, data=True):
+        checks.append(data)
+        return real_check(op, q, k, v, data=data)
+
+    monkeypatch.setattr(FA, "_check_card_inputs", spy)
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, q, q, causal=True)
+    torch.ops.repro_torch.flash_attention_lse(q, q, q, True)
+    torch.cuda.synchronize()
+    assert checks == [True, True] and ops.launches["flash_attention"] == 2
+    with pytest.raises(ValueError, match="head widths"):
+        torch.ops.repro_torch.flash_attention(q[..., :8], q[..., :8], q[..., :8], True, None)
+    assert checks[-1] is True and ops.launches["flash_attention"] == 2
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.flash_attention(q.cpu(), q.cpu(), q.cpu(), True, None)
