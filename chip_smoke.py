@@ -351,6 +351,21 @@ before any profiler session):
       torch.cuda.max_memory_allocated over what it started with.  The
       real step's launches are the kernels line's launches_by_path
       "dryrun_real_step".
+  (ak) after (aj), on a one-rank NCCL world: deepseek-v2-lite-16b at
+      (u)'s 3 layers with dispatch_groups = MESH_LOCAL_GROUPS, its MoE
+      layers on the mesh's own-rows path (each rank its own groups and
+      experts, models/moe.py:_moe_on_mesh): MESH_LOCAL_STEPS sharded
+      steps over (data, model) = 1 x 1 against the same steps unsharded
+      (losses and parameters bitwise, else held as (ad)'s), and a prefill
+      under use_mesh bitwise the unsharded prefill (logits and caches);
+      llama3-8b at MESH_LOCAL_DECODE_LAYERS layers prefilled and decoded
+      over a cache whose slots split over model (kv_shard="seq": each
+      rank attends to its own slots, the partials merged by their
+      log-sum-exp), every logit bitwise the unsharded run's; then the dry
+      run of deepseek's train_4k on the 16 x 16 mesh with 16 dispatch
+      groups (started with (aj)'s cells), its per-rank peak printed.  The
+      flash launches of its train steps, prefills and the decode run's
+      prefill are the kernels line's launches_by_path "mesh_local".
 """
 
 from __future__ import annotations
@@ -714,6 +729,21 @@ DRYRUN_PRODUCTION = ["--arch", "llama3-8b", "--shape", "train_4k,decode_32k",
                      "--jobs", "2", "--tag", "aj"]
 DRYRUN_TIMEOUT_S = 900
 DRYRUN_PEAK_TOL = 0.10
+# (ak): deepseek at (u)'s depth with its dispatch in MESH_LOCAL_GROUPS
+# groups, trained MESH_LOCAL_STEPS steps and prefilled over a one-rank
+# (data, model) mesh; llama3-8b at MESH_LOCAL_DECODE_LAYERS layers
+# prefilled with MESH_LOCAL_PROMPT tokens and decoded MESH_LOCAL_DECODE_STEPS
+# steps over a cache whose slots split over model; the dry run of
+# deepseek's train_4k on the 16 x 16 mesh with 16 dispatch groups (one a
+# data rank), started with (aj)'s.
+MESH_LOCAL_GROUPS = 2
+MESH_LOCAL_STEPS = 2
+MESH_LOCAL_DECODE_ARCH = "llama3-8b"
+MESH_LOCAL_DECODE_LAYERS = 4
+MESH_LOCAL_PROMPT = 512
+MESH_LOCAL_DECODE_STEPS = 4
+DRYRUN_GROUPED = ["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k", "--moe-groups",
+                  "16", "--no-calibrate", "--tag", "ak"]
 
 
 def log(msg: str) -> None:
@@ -5116,16 +5146,18 @@ def phase_examples():
 
 
 def start_dryruns(root: Path):
-    """(aj)'s dry-run processes, started at once (they use the CPU, and the
-    card only for the device queries of its fake tensors): the one-rank
-    qwen3 cell, then the two llama3-8b production cells, one process a
-    cell.  Returns ``[(name, Popen, log path)]``."""
+    """(aj)'s and (ak)'s dry-run processes, started at once (they use the
+    CPU, and the card only for the device queries of its fake tensors):
+    the one-rank qwen3 cell, the two llama3-8b production cells, one
+    process a cell, and deepseek's grouped train cell.  Returns ``[(name,
+    Popen, log path)]``."""
     out = root / DRYRUN_DIR
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     procs = []
-    for name, args in (("one_rank", DRYRUN_ONE_RANK), ("production", DRYRUN_PRODUCTION)):
+    for name, args in (("one_rank", DRYRUN_ONE_RANK), ("production", DRYRUN_PRODUCTION),
+                       ("grouped", DRYRUN_GROUPED)):
         path = out / f"{name}.log"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out-dir", str(out)]
         procs.append((name, subprocess.Popen(cmd, cwd=str(root), env=env,
@@ -5144,6 +5176,22 @@ def _dryrun_record(root: Path, name: str) -> dict:
     return rec
 
 
+def _wait_dryruns(procs, phase: str) -> None:
+    """Wait for dry-run processes (each within DRYRUN_TIMEOUT_S of the
+    call); any that fails or outlasts it fails ``phase``."""
+    t0 = time.perf_counter()
+    for name, proc, path in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"{phase} the dry-run process {name} did not end in {DRYRUN_TIMEOUT_S} s")
+        if rc != 0:
+            fail(f"{phase} the dry-run process {name} exited {rc}:\n"
+                 + path.read_text()[-4000:])
+
+
 def phase_dryrun(dev, root: Path, procs):
     """(aj): wait for the dry-run processes, then run the one-rank cell's
     step for real on the card and hold it to the fake run's counts."""
@@ -5158,16 +5206,7 @@ def phase_dryrun(dev, root: Path, procs):
     from repro_torch.models.model import build
 
     t0 = time.perf_counter()
-    for name, proc, path in procs:
-        try:
-            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            fail(f"(aj) the dry-run process {name} did not end in {DRYRUN_TIMEOUT_S} s")
-        if rc != 0:
-            fail(f"(aj) the dry-run process {name} exited {rc}:\n"
-                 + path.read_text()[-4000:])
+    _wait_dryruns([p for p in procs if p[0] != "grouped"], "(aj)")
     fake = _dryrun_record(root, "qwen3-1.7b__train_4k__1x1__aj")
     prod = {sh: _dryrun_record(root, f"llama3-8b__{sh}__16x16__aj")
             for sh in ("train_4k", "decode_32k")}
@@ -5242,6 +5281,210 @@ def phase_dryrun(dev, root: Path, procs):
     return launches, {"flops": fake_flops, "predicted_peak_bytes": predicted,
                       "measured_peak_bytes": measured, "card": card,
                       "production_wall_s": {sh: r["wall_s"] for sh, r in prod.items()}}
+
+
+@contextlib.contextmanager
+def _counting(module, name: str):
+    """Count the calls of ``module.name`` inside (a list, one entry a call)."""
+    real, calls = getattr(module, name), []
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def phase_mesh_local(dev, root: Path, procs):
+    """(ak): on a one-rank NCCL world, deepseek-v2-lite-16b at (u)'s depth
+    with its dispatch in MESH_LOCAL_GROUPS groups: MESH_LOCAL_STEPS steps of
+    the sharded step over a (data, model) = 1 x 1 mesh against the same
+    steps unsharded, and a prefill under use_mesh against the unsharded
+    prefill; llama3-8b at MESH_LOCAL_DECODE_LAYERS layers decoded over a
+    cache whose slots split over model (kv_shard="seq": each rank attends
+    to its own slots and the partials merge by their log-sum-exp) against
+    the unsharded decode; then the dry run of deepseek's train_4k on the
+    16 x 16 mesh with 16 dispatch groups."""
+    import math
+
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import train as launch_train
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models import attention, moe
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch_groups=MESH_LOCAL_GROUPS))
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, MESH_LOCAL_STEPS
+    n_moe = _plan_count(build(cfg).plan, lambda k: k[1] == "moe")
+    n_attn = _plan_count(build(cfg).plan, lambda k: k[0] == "attn")
+    rdv = _world_on_card(dev)
+    mesh = meshlib.make_debug_mesh(1, 1)
+
+    # the train step, unsharded and over the mesh, from the same weights and batches
+    run = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev)
+    srun = launch_train.build_run(cfg, steps=n, batch=B, seq=S, lr=TRAIN_LR, device=dev,
+                                  mesh=mesh)
+    batches = [next(run.stream) for _ in range(n)]
+    params, state = run.init_state()
+    plain_losses = []
+    for b in batches:
+        params, state, metrics = run.step_fn(params, state, b)
+        plain_losses.append(float(metrics["loss"]))
+    want = _host_leaves(params)
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    params, state = srun.init_state()
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting(moe, "_moe_on_mesh") as on_mesh_calls:
+        ops.reset_launch_counts()
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, metrics = srun.step_fn(params, state, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        train_launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    same, worst = _host_compare(_host_leaves(params), want)
+    del params, state, metrics, want, run, srun
+    torch.cuda.empty_cache()
+    if len(on_mesh_calls) < n * n_moe:
+        fail(f"(ak) the mesh's MoE path ran {len(on_mesh_calls)} times in {n} steps of "
+             f"{n_moe} MoE layers")
+    want_l = {"flash_attention": 2 * n * cfg.n_layers, "flash_attention_bwd": n * cfg.n_layers}
+    if {k: train_launches[k] for k in want_l} != want_l:
+        fail(f"(ak) the sharded steps launched {train_launches}, expected {want_l}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"(ak) a loss is not finite: {losses}")
+    loss_gap = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    if not same or losses != plain_losses:
+        log(f"(ak) the grouped sharded steps are not bitwise the unsharded ones: losses "
+            f"{losses} against {plain_losses}, parameters up to {worst:.4g} of a leaf's max")
+        if worst > LM_GRAD_TOL or loss_gap > SHARDED_LOSS_TOL:
+            fail(f"(ak) sharded against unsharded: parameters {worst} of a leaf's max (tol "
+                 f"{LM_GRAD_TOL}), losses {loss_gap} apart (tol {SHARDED_LOSS_TOL})")
+    log(f"(ak) ok: {n} sharded steps of {cfg.name} at {cfg.n_layers} layers (B={B} x S={S}, "
+        f"bf16) with dispatch_groups={MESH_LOCAL_GROUPS} over (data, model) = 1 x 1, "
+        f"{'bitwise' if same and losses == plain_losses else 'within tolerance of'} the "
+        f"unsharded steps: losses {[round(x, 4) for x in losses]}, the MoE layers on the "
+        f"mesh's own-rows path {len(on_mesh_calls)} times; step walls "
+        f"{[round(w, 3) for w in walls]} s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {train_launches}")
+
+    # the prefill, unsharded and over the mesh
+    model = build(cfg)
+    params = model.init(SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    logits0, caches0 = model.prefill(params, {"tokens": tokens})
+    rules = sharding.ShardingRules(sharding.BASE_RULES)
+    _, specs = model.abstract()
+    with sharding.on_mesh(mesh, rules), _counting(moe, "_moe_on_mesh") as on_mesh_calls:
+        p = sharding.place_state(params, sharding.param_shardings(specs, mesh, rules), mesh)
+        pl = sharding.batch_shardings({"tokens": None}, mesh, rules)["tokens"]
+        ops.reset_launch_counts()
+        logits, caches = model.prefill(p, {"tokens": sharding.from_global(tokens, mesh, pl)})
+        prefill_launches = dict(ops.launches)
+    logits = logits.full_tensor()
+    if len(on_mesh_calls) != n_moe or prefill_launches["flash_attention"] != n_attn:
+        fail(f"(ak) the mesh prefill ran the mesh's MoE path {len(on_mesh_calls)} times "
+             f"(expected {n_moe}) and launched {prefill_launches} (expected {n_attn} flash)")
+    if not torch.isfinite(logits).all() or not _same_bits(logits, logits0):
+        fail(f"(ak) the grouped mesh prefill's logits are not bitwise the unsharded "
+             f"prefill's ({_logit_diff(logits, logits0):.4g} apart)")
+    cache_same, _ = _host_compare(_host_leaves(caches), _host_leaves(caches0))
+    if not cache_same:
+        fail("(ak) the grouped mesh prefill's caches are not bitwise the unsharded prefill's")
+    log(f"(ak) ok: {cfg.name} prefill ({B} x {S}) with dispatch_groups={MESH_LOCAL_GROUPS} "
+        f"under use_mesh over 1 x 1: logits and caches bitwise the unsharded prefill's; "
+        f"{prefill_launches['flash_attention']} flash launches")
+    del model, params, p, logits0, caches0, logits, caches
+    torch.cuda.empty_cache()
+
+    # a decode over a cache whose slots split over model
+    dcfg = get_config(MESH_LOCAL_DECODE_ARCH).replace(n_layers=MESH_LOCAL_DECODE_LAYERS)
+    model = build(dcfg)
+    params = model.init(SEED, device=dev)
+    L, steps = MESH_LOCAL_PROMPT, MESH_LOCAL_DECODE_STEPS
+    toks = torch.randint(0, dcfg.vocab, (B, L + steps), generator=gen, device=dev)
+    caches = model.init_cache(B, L + steps, device=dev)
+    want, caches = model.prefill(params, {"tokens": toks[:, :L]}, caches)
+    want = [want]
+    for i in range(steps):
+        want.append(model.decode_step(params, caches, toks[:, L + i:L + i + 1], L + i)[0])
+    del caches
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=B, seq_len=L + steps)
+    rules = dryrun.make_rules(shape, mesh, dryrun.parser().parse_args(["--kv-shard", "seq"]))
+    _, specs = model.abstract()
+    got = []
+    with sharding.on_mesh(mesh, rules), _counting(attention, "_split_slot_decode") as split:
+        p = sharding.place_state(params, sharding.param_shardings(specs, mesh, rules), mesh)
+        pl = sharding.batch_shardings({"tokens": None}, mesh, rules)["tokens"]
+        caches = model.init_cache(B, L + steps, device=dev)
+        placed = all(Shard(1) in t.placements for t in tree_leaves(caches))
+        ops.reset_launch_counts()
+        lp, caches = model.prefill(p, {"tokens": sharding.from_global(toks[:, :L], mesh, pl)},
+                                   caches)
+        decode_launches = dict(ops.launches)
+        got.append(lp.full_tensor())
+        t0 = time.perf_counter()
+        for i in range(steps):
+            t = sharding.from_global(toks[:, L + i:L + i + 1], mesh, pl)
+            got.append(model.decode_step(p, caches, t, L + i)[0].full_tensor())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not _same_bits(a, b)]
+    if not placed or len(split) != steps * dcfg.n_layers:
+        fail(f"(ak) the seq-split decode: caches split over their slots {placed}, the split "
+             f"decode ran {len(split)} times (expected {steps * dcfg.n_layers})")
+    if bad or not all(torch.isfinite(g).all() for g in got):
+        fail(f"(ak) the seq-split decode's logits are not bitwise the unsharded decode's at "
+             f"{bad} (0 the prefill): {[_logit_diff(got[i], want[i]) for i in bad]}")
+    if decode_launches["flash_attention"] != dcfg.n_layers:
+        fail(f"(ak) the seq-split run's prefill launched {decode_launches}")
+    log(f"(ak) ok: {dcfg.name} at {dcfg.n_layers} layers, prefill {B} x {L} then {steps} "
+        f"decode steps over a cache whose slots split over model (kv_shard=seq, 1 x 1): every "
+        f"logit bitwise the unsharded run's; the split decode {len(split)} times, "
+        f"{decode_ms:.2f} ms a step")
+    del model, params, p, caches, got, want
+    _leave_world(rdv)
+    torch.cuda.empty_cache()
+
+    # the grouped dry run of deepseek's train_4k on the 16 x 16 mesh
+    _wait_dryruns(procs, "(ak)")
+    flag = lambda f, default: (DRYRUN_GROUPED[DRYRUN_GROUPED.index(f) + 1]
+                               if f in DRYRUN_GROUPED else default)
+    rec = _dryrun_record(root, f"deepseek-v2-lite-16b__train_4k__{flag('--mesh', '16x16')}__ak")
+    m = rec["memory"]
+    peak_rank = m["argument_bytes"] + m["temp_bytes"]
+    log(f"(ak) dry run deepseek-v2-lite-16b train_4k on the {rec['mesh']} mesh with "
+        f"--moe-groups {rec['opts']['moe_groups']} ({rec['n_devices']} fake {rec['device']} "
+        f"ranks; counts on one rank, not measurements): peak {peak_rank / 1e9:.2f} GB a rank (argument "
+        f"{m['argument_bytes'] / 1e9:.2f} + temp {m['temp_bytes'] / 1e9:.2f}), "
+        f"{rec['cost']['flops']:.4g} flops a rank, wire bytes by op "
+        f"{ {k: round(v) for k, v in rec['collectives']['bytes_by_op'].items()} }, "
+        f"{rec['wall_s']} s wall")
+    if rec["opts"]["moe_groups"] != int(flag("--moe-groups", 0)) or not rec["cost"]["flops"] > 0:
+        fail(f"(ak) the grouped dry run's record: {rec['opts']}, {rec['cost']}")
+    log(f"(ak) ok in {time.perf_counter() - t_phase:.1f} s after (aj)")
+    launches = {k: train_launches.get(k, 0) + prefill_launches.get(k, 0)
+                + decode_launches.get(k, 0) for k in ops.KERNELS}
+    return launches, dict(train_bitwise=same and losses == plain_losses, worst=worst,
+                          dryrun_peak_bytes=peak_rank, decode_ms=decode_ms)
 
 
 def tree_times(root: Path, dev) -> None:
@@ -5468,6 +5711,9 @@ def main() -> None:
     dry_launches, dry_row = phase_dryrun(dev, root, dryruns)
     for k, n in dry_launches.items():
         by_path[k]["dryrun_real_step"] = n
+    local_launches, _ = phase_mesh_local(dev, root, [p for p in dryruns if p[0] == "grouped"])
+    for k, n in local_launches.items():
+        by_path[k]["mesh_local"] = n
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))

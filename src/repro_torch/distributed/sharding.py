@@ -41,6 +41,7 @@ import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -491,23 +492,116 @@ def row_chunks(size: int, *xs) -> List[Tuple[Any, ...]]:
     return [tuple(x[i:i + size] for x in xs) for i in range(0, n, size)]
 
 
-def replicated_local(fn, *xs):
-    """``fn`` of DTensors run whole on every rank: each input gathered to
-    its full value, ``fn`` called on plain tensors (no mesh active
-    inside), each output a replicated DTensor.  Every rank computes the
-    same values, so every gradient comes back whole on every rank.  For
-    the model code whose ops DTensor cannot propagate (the MoE's sorted
-    dispatch); it trades the split work for the reference's semantics."""
-    from torch.distributed.tensor import DTensor, Replicate
+@dataclasses.dataclass(frozen=True)
+class BatchRows:
+    """Where a rank's own rows of a DTensor lie (:func:`batch_rows`):
+    ``placements`` split the first dimension over the mesh dimensions
+    ``dims`` (those of the active rules' ``batch`` axes) and replicate it
+    over the others; this rank's rows begin at row ``offset`` of ``n``,
+    one of ``ranks`` equal or near-equal shares."""
 
-    mesh = next(x.device_mesh for x in xs if isinstance(x, DTensor))
-    whole = [Replicate()] * mesh.ndim
-    local = [x.redistribute(mesh, whole).to_local() if isinstance(x, DTensor) else x
-             for x in xs]
-    with use_mesh(None):
-        outs = fn(*local)
-    wrap = lambda t: DTensor.from_local(t, mesh, whole)
-    return tuple(wrap(t) for t in outs) if isinstance(outs, tuple) else wrap(outs)
+    mesh: Any
+    placements: Tuple[Any, ...]
+    dims: Tuple[int, ...]
+    n: int
+    offset: int
+    ranks: int
+
+    def wrap(self, t: "torch.Tensor", n: Optional[int] = None) -> "torch.Tensor":
+        """``t``, this rank's rows of a tensor of ``n`` rows (default the
+        rows'), as a DTensor split as the rows are."""
+        from torch.distributed.tensor import DTensor
+
+        shape = torch.Size((self.n if n is None else n, *t.shape[1:]))
+        return DTensor.from_local(t, self.mesh, self.placements, shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    def gather(self, t: "torch.Tensor", n: Optional[int] = None) -> "torch.Tensor":
+        """Every rank's rows of ``t`` (this rank's rows of a tensor of ``n``
+        rows, default the rows', split as they are), in order: an
+        all-gather over ``dims``.  Its backward
+        keeps this rank's rows of the gradient and sends nothing, so the
+        gradient of every row must be whole on the rank that owns it (work
+        that depends on all rows, as the router's load-balance loss, is
+        computed alike on every rank and each keeps its own rows' share)."""
+        from torch.distributed.tensor import Replicate
+
+        if self.ranks == 1:
+            return t
+        whole = tuple(Replicate() for _ in self.placements)
+        return self.wrap(t, n).redistribute(self.mesh, whole).to_local()
+
+
+def batch_rows(x: "torch.Tensor") -> Tuple["torch.Tensor", BatchRows]:
+    """``x`` (a DTensor) as each rank's own rows over the batch axes
+    (the active rules' ``batch``, ``("pod", "data")`` by default),
+    replicated over every other mesh dimension: the local rows and where
+    they lie.  A split of another dimension is gathered, a split of the
+    rows over a non-batch axis too.  For model code that works on plain
+    tensors of its own tokens (the MoE dispatch): its outputs go back
+    through :meth:`BatchRows.wrap`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    axes = current_rules().resolve("batch", mesh)
+    names = axis_names(mesh)
+    dims = tuple(sorted(names.index(a) for a in ((axes,) if isinstance(axes, str)
+                                                  else axes or ())))
+    pl = tuple(Shard(0) if i in dims else Replicate() for i in range(mesh.ndim))
+    if tuple(x.placements) != pl:
+        x = x.redistribute(mesh, pl)
+    _, off = local_shape_and_offset(x.shape, mesh, pl)
+    ranks = math.prod(mesh.size(i) for i in dims)
+    return x.to_local(), BatchRows(mesh, pl, dims, x.shape[0], off[0], ranks)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's "copy to the model-parallel region": the identity
+    forward, the gradient summed over ``group`` backward (each rank's
+    gradient of a replicated input covers its own share of the work)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Megatron's "reduce from the model-parallel region": the parts summed
+    over ``group`` forward, the gradient passed on unchanged backward
+    (every rank's part enters the sum once)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(t: "torch.Tensor", group) -> "torch.Tensor":
+    """``t`` unchanged; its gradient summed over ``group``.  Where each
+    element's gradient is non-zero on one rank at most (a dispatch hit
+    that one expert's rank serves), that sum is exact."""
+    return _CopyToGroup.apply(t, group)
+
+
+def sum_over_group(t: "torch.Tensor", group) -> "torch.Tensor":
+    """``t`` summed over ``group`` (an all-reduce in ``t``'s dtype); the
+    gradient passes unchanged.  Where every element is filled by one rank
+    and is zero on the others (the weighted hit rows of the experts a rank
+    holds), the sum is that rank's value bit for bit: a value plus zeros
+    is exact."""
+    return _SumOverGroup.apply(t, group)
 
 
 def axis_size(mesh, axes: Axes) -> int:

@@ -52,16 +52,22 @@ A record has the reference's keys (file names ``<arch>__<shape>__<mesh>__
   reference's formulas.
 
 ``lower_s`` is the time to place the arguments, ``compile_s`` the traced
-run's.  ``--prune-causal`` and ``--attn-block`` have no counterpart (the
+run's.  ``--peak-top N`` adds ``memory.peak_top``: the N largest
+storages live at the peak, each with the op that made it and the port's
+code that called it.  ``--prune-causal`` and ``--attn-block`` have no counterpart (the
 card's kernels always skip the masked tiles and size their own) and
 raise ``ValueError``.
 
 The decode step writes slot ``seq_len - 1`` of a full cache (the
 reference attends over every slot under its mask, so that is the same
 work).  Under ``kv_shard="seq"`` (the decode cells' ``"auto"``) each
-rank holds its slots of every layer's cache, and the port's decode
-attention gathers a layer's cache whole on every rank before it attends
-(``models/model.py``): the transient is in ``temp_bytes``.
+rank holds its slots of every layer's cache and attends to them alone,
+the ranks' partial outputs merged by their log-sum-exp
+(``models/attention.py``).  ``--moe-groups G`` sets the MoE layers'
+``dispatch_groups`` (a multiple of the batch ranks: 16 on 16 × 16, 32 on
+2 × 16 × 16); each rank then dispatches its own groups, and without it
+its own rows' hits of a global routing (``models/moe.py``); a record's
+``opts`` and ``--summary`` show it.
 
 Every entry point simulates ``cuda`` ranks unless the caller passes
 ``--device cpu``, where the kernels' plain versions run (as the tests
@@ -260,25 +266,30 @@ def cell_step(cfg, shape, mesh, rules, opts, *, device,
 
 
 def account(step: Callable, args: Tuple[Any, ...], donated: Tuple[int, ...],
-            device_type: str) -> Dict[str, Any]:
+            device_type: str, top: int = 0) -> Dict[str, Any]:
     """Run ``step(*args)`` under a :class:`StepTally` and return the
-    record's ``memory``, ``cost`` and ``collectives``, and the step's
-    outputs under ``"outputs"`` (for a caller that checks them)."""
-    tally = StepTally(device_type)
+    record's ``memory`` (with ``top`` > 0 its ``peak_top``: the ``top``
+    largest storages live at the peak), ``cost`` and ``collectives``, and
+    the step's outputs under ``"outputs"`` (for a caller that checks
+    them)."""
+    tally = StepTally(device_type, top=top)
     arg_bytes = tally.hold(args)
     t0 = time.time()
     with tally:
         outputs = step(*args)
     run_s = time.time() - t0
     stats = tally.collective_stats()
+    memory = {
+        "argument_bytes": int(arg_bytes),
+        "output_bytes": int(tally.tensor_bytes(outputs)),
+        "temp_bytes": int(tally.peak_bytes),
+        "alias_bytes": int(tally.tensor_bytes([args[i] for i in donated])),
+    }
+    if top:
+        memory["peak_top"] = tally.peak_top
     return {
         "compile_s": round(run_s, 2),
-        "memory": {
-            "argument_bytes": int(arg_bytes),
-            "output_bytes": int(tally.tensor_bytes(outputs)),
-            "temp_bytes": int(tally.peak_bytes),
-            "alias_bytes": int(tally.tensor_bytes([args[i] for i in donated])),
-        },
+        "memory": memory,
         "cost": {"flops": float(tally.flops), "bytes_accessed": float(tally.bytes_accessed),
                  "transcendentals": -1.0},
         "collectives": {"total_wire_bytes": stats.total_wire_bytes,
@@ -302,7 +313,7 @@ def compile_cell(cfg, shape, mesh, rules, opts) -> dict:
     with FakeTensorMode(allow_non_fake_inputs=False):
         step, args, donated = cell_step(cfg, shape, mesh, rules, opts, device=device)
         lower_s = time.time() - t0
-        out = account(step, args, donated, device.type)
+        out = account(step, args, donated, device.type, top=getattr(opts, "peak_top", 0))
     out.pop("outputs")
     return {"lower_s": round(lower_s, 2), **out}
 
@@ -396,6 +407,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opts) -> dict:
             "no_remat": opts.no_remat,
             "attn_block": opts.attn_block,
             "rules_override": opts.rules_override,
+            "moe_groups": opts.moe_groups,
         },
     }
     if opts.batch or opts.seq or opts.reduced:
@@ -479,6 +491,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=0, help="the shape's global batch")
     ap.add_argument("--seq", type=int, default=0, help="the shape's sequence length")
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced config")
+    ap.add_argument("--peak-top", type=int, default=0,
+                    help="record the N largest storages live at the peak (a diagnostic: "
+                         "it walks the stack at every op)")
     ap.add_argument("--summary", action="store_true",
                     help="print the records of --out-dir with --tag as a table and exit")
     return ap
@@ -489,14 +504,15 @@ H100_BYTES = 80e9
 
 
 def summary(out_dir: Path, tag: str = "baseline") -> str:
-    """The records of ``out_dir`` with ``tag`` as a markdown table, a row
-    an (arch, shape) in :func:`cell_list`'s order with the 16 × 16 and
-    2 × 16 × 16 cells side by side: each cell's peak a rank
-    (``argument_bytes + temp_bytes``, GB) and whether it fits an H100's
-    80 GB, its traced flops a rank and its collectives' wire GB a rank
-    (all-gather / all-reduce / reduce-scatter); then the skipped cells,
-    and any cell with an error or no record."""
-    def cell(arch, shape, mesh):
+    """The records of ``out_dir`` with ``tag`` (several comma-separated:
+    a row each) as a markdown table, a row an (arch, shape) in
+    :func:`cell_list`'s order with the 16 × 16 and 2 × 16 × 16 cells side
+    by side: each cell's peak a rank (``argument_bytes + temp_bytes``, GB)
+    and whether it fits an H100's 80 GB, with ``G=<n>`` where the cell ran
+    with ``--moe-groups``, its traced flops a rank and its collectives'
+    wire GB a rank (all-gather / all-reduce / reduce-scatter); then the
+    skipped cells, and any cell with an error or no record."""
+    def cell(arch, shape, mesh, tag):
         path = Path(out_dir) / f"{arch}__{shape}__{mesh}__{tag}.json"
         if not path.exists():
             return "missing"
@@ -509,8 +525,10 @@ def summary(out_dir: Path, tag: str = "baseline") -> str:
         peak = m["argument_bytes"] + m["temp_bytes"]
         wire = "/".join(f"{b.get(op, 0) / 1e9:.3g}"
                         for op in ("all_gather", "all_reduce", "reduce_scatter"))
+        groups = r.get("opts", {}).get("moe_groups", 0)
         return (f"{peak / 1e9:.2f} ({m['argument_bytes'] / 1e9:.2f} + "
-                f"{m['temp_bytes'] / 1e9:.2f}) {'yes' if peak <= H100_BYTES else '**no**'} | "
+                f"{m['temp_bytes'] / 1e9:.2f}) {'yes' if peak <= H100_BYTES else '**no**'}"
+                f"{f', G={groups}' if groups else ''} | "
                 f"{r['cost']['flops']:.4g} | {wire}")
 
     rows = ["| arch | shape | 16x16: peak GB a rank (arg + temp), fits 80 GB | flops a rank "
@@ -519,14 +537,18 @@ def summary(out_dir: Path, tag: str = "baseline") -> str:
     skipped, bad = [], []
     for arch, shape, _ in cell_list(argparse.Namespace(arch=None, shape=None,
                                                        multi_pod=False, both_meshes=False)):
-        one, two = cell(arch, shape, "16x16"), cell(arch, shape, "2x16x16")
-        if one == two == "skip":
-            skipped.append(f"{arch} {shape}")
-        elif "|" not in one or "|" not in two:
-            bad.append(f"{arch} {shape}: {one}; {two}")
-        else:
-            rows.append(f"| {arch} | {shape} | {one} | {two} |")
-    rows.append(f"\nSkipped on both meshes (the reference's skip_reason): {', '.join(skipped)}.")
+        for t in tag.split(","):
+            one, two = cell(arch, shape, "16x16", t), cell(arch, shape, "2x16x16", t)
+            if one == two == "missing" and "," in tag:
+                continue
+            if one == two == "skip":
+                skipped.append(f"{arch} {shape}")
+            elif "|" not in one or "|" not in two:
+                bad.append(f"{arch} {shape}: {one}; {two}")
+            else:
+                rows.append(f"| {arch} | {shape} | {one} | {two} |")
+    rows.append(f"\nSkipped on both meshes (the reference's skip_reason): "
+                f"{', '.join(dict.fromkeys(skipped))}.")
     if bad:
         rows.append("Not ok: " + "; ".join(bad))
     return "\n".join(rows)
@@ -544,7 +566,7 @@ def _child_cmd(arch, shape, mp, opts, out_dir) -> list:
     for flag in ("prune_causal", "no_remat", "compress_pods", "no_calibrate", "reduced"):
         if getattr(opts, flag):
             cmd.append("--" + flag.replace("_", "-"))
-    for flag in ("attn_block", "batch", "seq"):
+    for flag in ("attn_block", "batch", "seq", "moe_groups", "peak_top"):
         if getattr(opts, flag):
             cmd += ["--" + flag.replace("_", "-"), str(getattr(opts, flag))]
     if opts.mesh:

@@ -301,13 +301,21 @@ class StepTally(TorchDispatchMode):
     * ``peak_bytes``: the largest sum of the live storages the run made
       (each counted once, from the op that made it to the moment it is
       freed; storages :meth:`hold` was given are not the run's), in
-      :data:`CUDA_BLOCK_BYTES` blocks on ``"cuda"``.
+      :data:`CUDA_BLOCK_BYTES` blocks on ``"cuda"``;
+    * ``peak_top`` (with ``top`` > 0): the ``top`` largest storages live at
+      that peak, each ``{"bytes", "op", "at"}``: the op that made it and
+      the innermost frame of the port's code that called it (a
+      diagnostic: it walks the stack at every op).
     """
 
-    def __init__(self, device_type: str = "cuda"):
+    def __init__(self, device_type: str = "cuda", top: int = 0):
         super().__init__()
         from torch.utils.weak import WeakIdKeyDictionary
 
+        self.top = top
+        self.peak_top: List[Dict[str, Any]] = []
+        self._live: Dict[int, Dict[str, Any]] = {}
+        self._op = ""
         self.block = CUDA_BLOCK_BYTES if device_type == "cuda" else 1
         self.flops = 0
         self.bytes_accessed = 0
@@ -347,11 +355,17 @@ class StepTally(TorchDispatchMode):
             n = self.storage_bytes(st)
             self._known[st] = n
             self.live_bytes += n
+            key = id(st)
+            if self.top:
+                self._live[key] = {"bytes": n, "op": self._op, "at": _port_frame()}
+            if self.live_bytes > self.peak_bytes and self.top:
+                self.peak_top = sorted(self._live.values(), key=lambda r: -r["bytes"])[:self.top]
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-            weakref.finalize(st, self._free, n)
+            weakref.finalize(st, self._free, n, key)
 
-    def _free(self, n: int) -> None:
+    def _free(self, n: int, key: int) -> None:
         self.live_bytes -= n
+        self._live.pop(key, None)
 
     def __enter__(self):
         from torch._guards import active_fake_mode
@@ -405,6 +419,7 @@ class StepTally(TorchDispatchMode):
             # a real wait returns its input; the fake one a new tensor
             return args[0] if self._entry is not None else func(*args, **kwargs)
         out = func(*args, **kwargs)
+        self._op = str(packet)
         if coll is not None:
             self.collectives.append(coll)
         else:
@@ -425,6 +440,18 @@ class StepTally(TorchDispatchMode):
             payload_by_op[o.op] += o.payload_bytes
         return CollectiveStats(dict(bytes_by_op), dict(count_by_op), dict(payload_by_op),
                                float(sum(bytes_by_op.values())), list(self.collectives))
+
+
+def _port_frame() -> str:
+    """``file:line function`` of the innermost frame of the port's model,
+    distributed or kernel code on the stack (the launch and training
+    harness left out)."""
+    import traceback
+
+    for f in reversed(traceback.extract_stack()):
+        if "repro_torch" in f.filename and "/launch/" not in f.filename:
+            return f"{f.filename.split('repro_torch/')[-1]}:{f.lineno} {f.name}"
+    return "?"
 
 
 def _plain(tree):

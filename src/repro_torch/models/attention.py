@@ -44,7 +44,7 @@ kernels run on each rank's local shards (:func:`_local_attention`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -138,23 +138,113 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     Slots past ``length`` are left out rather than masked: a masked score's
     term is an exact zero, so the result is the same, and garbage in the
     unfilled tail cannot leak.  DTensors (under a mesh) attend on each
-    rank's local shards (:func:`_local_attention`): each rank's query
-    heads over the whole cache, a cache whose slots are split gathered
-    first.
+    rank's local shards: a cache whose slots are split (``kv_cache_seq``)
+    through :func:`_split_slot_decode`, each rank over its own slots; any
+    other through :func:`_local_attention`, each rank's query heads over
+    the whole cache.
     """
     if isinstance(q, DTensor):
+        split = _slot_split(k_cache)
+        if split:
+            return _split_slot_decode(q, k_cache, v_cache, length, split)
         return _local_attention(q, k_cache, v_cache,
                                 lambda a, b, c: decode_attention(a, b, c, length))
+    o, _ = _decode_scores(q, k_cache[:, :length], v_cache[:, :length])
+    return o.to(q.dtype)
+
+
+def _decode_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """One query row over the slots of k, v (B, L, Hkv, ·): the f32 output
+    (B, 1, H, Dv) and the f32 scores (B, Hkv, G, L), G = H / Hkv."""
     B, _, H, D = q.shape
-    Hkv, Dv = v_cache.shape[2], v_cache.shape[3]
+    Hkv, Dv = v.shape[2], v.shape[3]
     G = H // Hkv
-    scale = k_cache.shape[-1] ** -0.5
+    scale = k.shape[-1] ** -0.5
     q_r = q.reshape(B, Hkv, G, D).float()
-    s = torch.einsum("bhgd,bkhd->bhgk", q_r, k_cache[:, :length].float()) * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", q_r, k.float()) * scale
     p = torch.softmax(s, dim=-1)
-    v = v_cache[:, :length]
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    return out.reshape(B, 1, H, Dv), s
+
+
+def _slot_split(cache: torch.Tensor) -> Tuple[int, ...]:
+    """The mesh dimensions that split a DTensor cache's slot dimension
+    (its dimension 1); none for a plain tensor."""
+    from torch.distributed.tensor import Shard
+
+    if not isinstance(cache, DTensor):
+        return ()
+    return tuple(i for i, pl in enumerate(cache.placements) if pl == Shard(1))
+
+
+def _split_slot_layout(q, caches, split):
+    """Placements for a decode over caches whose slots ``split`` splits:
+    the query replicated over those mesh dimensions (its heads gathered:
+    one row), the caches' slots kept split; a batch split that query and
+    caches share kept; any other split gathered.  Returns the query's
+    local tensor and placements, the caches' local tensors and the first
+    slot this rank holds."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = caches[0].device_mesh
+    qp, cp = [], []
+    for i, (a, c) in enumerate(zip(q.placements, caches[0].placements)):
+        if i in split:
+            qp.append(Replicate()), cp.append(c)
+        elif a == Shard(0) and c == Shard(0):
+            qp.append(a), cp.append(c)
+        else:
+            qp.append(Replicate()), cp.append(Replicate())
+    place = lambda t, pl: t if tuple(t.placements) == tuple(pl) else t.redistribute(mesh, pl)
+    q = place(q, qp)
+    locs = [place(c, cp).to_local() for c in caches]
+    _, off = local_shape_and_offset(caches[0].shape, mesh, cp)
+    return q.to_local(), tuple(qp), locs, off[1]
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, mesh, dims: Sequence[int]
+                   ) -> torch.Tensor:
+    """Partial attention outputs over disjoint key sets, one a rank, merged
+    over the mesh dimensions ``dims``: ``o`` (B, 1, H, W) f32, each
+    normalised over its own keys, and ``lse`` (B, 1, H) their scores'
+    log-sum-exp (−inf where a rank holds no key).  Per dimension the
+    partials are all-gathered and ``o = Σ_r e^{lse_r − M} o_r /
+    Σ_r e^{lse_r − M}``; with one partial that is ``o`` bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = [Replicate()] * mesh.ndim
+    for d in dims:
+        if mesh.size(d) == 1:
+            os_, ls = o[None], lse[None]
+        else:   # an all-gather over dimension d alone
+            pl = [Shard(0) if i == d else Replicate() for i in range(mesh.ndim)]
+            os_, ls = (DTensor.from_local(t[None].contiguous(), mesh, pl)
+                       .redistribute(mesh, whole).to_local() for t in (o, lse))
+        m = ls.amax(0)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        w = torch.exp(ls - m)
+        den = w.sum(0)
+        o = (w[..., None] * os_).sum(0) / torch.clamp(den, min=1e-30)[..., None]
+        lse = m + torch.log(den)
+    return o
+
+
+def _split_slot_decode(q, k_cache, v_cache, length: int, split: Tuple[int, ...]):
+    """:func:`decode_attention` of DTensors whose cache slots ``split``
+    splits: each rank attends its query heads (gathered over ``split``)
+    to its own slots ``[s0, s0 + L) ∩ [0, length)``, keeping its f32
+    output and log-sum-exp (a rank with no valid slot a zero output and
+    −inf), and the partials are merged over ``split``
+    (:func:`merge_partials`).  No rank gathers the cache."""
+    mesh = k_cache.device_mesh
+    ql, qp, (kl, vl), s0 = _split_slot_layout(q, (k_cache, v_cache), split)
+    n = max(0, min(length - s0, kl.shape[1]))
+    o, s = _decode_scores(ql, kl[:, :n], vl[:, :n])
+    lse = torch.logsumexp(s, dim=-1).reshape(o.shape[:3])
+    o = merge_partials(o, lse, mesh, split).to(q.dtype)
+    shape = (*q.shape[:3], v_cache.shape[3])
+    return DTensor.from_local(o, mesh, qp, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
 
 
 def init_gqa(gen, cfg, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -484,16 +574,44 @@ def mla_forward(p: Dict, x: torch.Tensor, cfg,
         c_kv_new, k_pe_new = _mla_compress(p, x, cfg, positions)
         write_slots(cache["c_kv"], pos, c_kv_new)
         write_slots(cache["k_pe"], pos, k_pe_new)
-        c_kv, k_pe = cache["c_kv"][:, :pos + 1], cache["k_pe"][:, :pos + 1]
         scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
         q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])      # absorb W_uk
-        s = (torch.einsum("bshr,bkr->bshk", q_c.float(), c_kv.float())
-             + torch.einsum("bshk,bmk->bshm", q_pe.float(), k_pe.float())) * scale
-        pattn = torch.softmax(s, dim=-1)
-        o_c = torch.einsum("bshk,bkr->bshr", pattn.to(c_kv.dtype), c_kv)
+        split = _slot_split(cache["c_kv"])
+        if split:
+            o_c = _mla_split_decode(q_c, q_pe, cache["c_kv"], cache["k_pe"], pos + 1, scale,
+                                    split)
+        else:
+            o_c, _ = _mla_scores(q_c, q_pe, cache["c_kv"][:, :pos + 1],
+                                 cache["k_pe"][:, :pos + 1], scale)
         out = torch.einsum("bshr,rhk->bshk", o_c, p["w_uv"])         # absorb W_uv
     y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, p["wo"].shape[-1])
     return shard(y, "batch", "act_seq", "act_embed")
+
+
+def _mla_scores(q_c, q_pe, c_kv, k_pe, scale: float):
+    """The absorbed decode over the slots of ``c_kv`` (B, L, r) and
+    ``k_pe`` (B, L, rope): the latent output (B, 1, H, r) in ``c_kv``'s
+    dtype and the f32 scores (B, 1, H, L)."""
+    s = (torch.einsum("bshr,bkr->bshk", q_c.float(), c_kv.float())
+         + torch.einsum("bshk,bmk->bshm", q_pe.float(), k_pe.float())) * scale
+    pattn = torch.softmax(s, dim=-1)
+    return torch.einsum("bshk,bkr->bshr", pattn.to(c_kv.dtype), c_kv), s
+
+
+def _mla_split_decode(q_c, q_pe, c_kv, k_pe, length: int, scale: float,
+                      split: Tuple[int, ...]):
+    """The absorbed decode of DTensors whose ``c_kv`` and ``k_pe`` slots
+    ``split`` splits: each rank over its own slots, the latent partials
+    merged over ``split`` before ``w_uv`` (:func:`merge_partials`), as
+    :func:`_split_slot_decode` does for GQA."""
+    mesh = c_kv.device_mesh
+    ql, qp, (cl, kl), s0 = _split_slot_layout(q_c, (c_kv, k_pe), split)
+    if tuple(q_pe.placements) != qp:
+        q_pe = q_pe.redistribute(mesh, qp)
+    n = max(0, min(length - s0, cl.shape[1]))
+    o, s = _mla_scores(ql, q_pe.to_local(), cl[:, :n], kl[:, :n], scale)
+    o = merge_partials(o.float(), torch.logsumexp(s, dim=-1), mesh, split).to(c_kv.dtype)
+    return DTensor.from_local(o, mesh, qp, shape=q_c.shape, stride=contiguous_stride(q_c.shape))
 
 
 def mla_cache_spec(cfg, batch: int, max_len: int) -> Dict[str, torch.Tensor]:

@@ -25,7 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.distributed.sharding import rows_local, shard
+from repro_torch.distributed.sharding import (
+    batch_rows,
+    from_global,
+    local_shape_and_offset,
+    rows_local,
+    shard,
+    sum_over_group,
+)
 
 # A parameter's logical axes: a name (or None) for each dimension.
 Axes = Tuple[Optional[str], ...]
@@ -124,12 +131,46 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``, through ``F.embedding``: its backward sums each
     row's gradients in a fixed order (the CPU's and the card's), where
     indexing's ``index_put_`` accumulates across threads in any order.
-    A DTensor table (under a mesh) is gathered whole first: DTensor's
-    vocabulary-parallel lookup fails to reduce over batch-split tokens."""
+    A DTensor table (under a mesh) is looked up by
+    :func:`_vocab_parallel_lookup`, no rank gathering the table: DTensor's
+    own vocabulary-parallel lookup fails to reduce over batch-split
+    tokens."""
     if isinstance(table, DTensor):
-        table = table.redistribute(table.device_mesh,
-                                   [Replicate()] * table.device_mesh.ndim)
+        return _vocab_parallel_lookup(table, tokens)
     return F.embedding(tokens, table)
+
+
+def _vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Megatron's vocabulary-parallel embedding on a DTensor table: each
+    rank looks its own rows of ``tokens`` (split over the batch axes,
+    :func:`repro_torch.distributed.sharding.batch_rows`) up in its own
+    shard of the vocabulary (the table's other splits, FSDP's ``embed →
+    data``, gathered), a token outside the shard giving a zero row, and
+    the rows are summed over the mesh dimensions that split the
+    vocabulary: exact, one rank fills each row.  The table's gradient
+    comes back partial over the batch axes (each rank's tokens' share)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):     # the global value every rank holds
+        tokens = from_global(tokens, mesh, [Replicate()] * mesh.ndim)
+    ids, rows = batch_rows(tokens)
+    split = tuple(i for i, p in enumerate(table.placements)
+                  if p == Shard(0) and i not in rows.dims and mesh.size(i) > 1)
+    pl = tuple(Shard(0) if i in split else Replicate() for i in range(mesh.ndim))
+    if tuple(table.placements) != pl:
+        table = table.redistribute(mesh, pl)
+    shape, off = local_shape_and_offset(table.shape, mesh, pl)
+    local = table.to_local(grad_placements=tuple(
+        Partial() if i in rows.dims else p for i, p in enumerate(pl)))
+    if not split:
+        return rows.wrap(F.embedding(ids, local))
+    ids = ids - off[0]
+    keep = (ids >= 0) & (ids < shape[0])
+    out = torch.where(keep[..., None], F.embedding(ids.clamp(0, shape[0] - 1), local), 0)
+    for d in split:
+        out = sum_over_group(out, mesh.get_group(d))
+    return rows.wrap(out)
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor

@@ -62,9 +62,12 @@ branches jit them: ``init_cache`` under a mesh places each cache leaf by
 its logical axes (:meth:`cache_axes`; the slots split over
 ``kv_cache_seq``, the kv heads over ``act_kv_heads``), every layer writes
 its cache's local slots (:func:`repro_torch.distributed.sharding.
-write_slots`), and a decode whose cache slots are split reads the layer's
-cache gathered on every rank before its attention (the reference computes
-on the split keys; the port's attention takes whole rows).
+write_slots`), and a decode whose cache slots are split attends on each
+rank to its own slots and merges the ranks' partial outputs by their
+log-sum-exp (:func:`repro_torch.models.attention.merge_partials`; MLA in
+its latent space): no rank gathers a layer's cache, as the reference
+computes on the split keys.  The MoE layers run on each rank's own rows
+and experts (:func:`repro_torch.models.moe._moe_on_mesh`).
 """
 
 from __future__ import annotations

@@ -55,11 +55,12 @@ SERVE_KV = ("seq", "heads")
 B, S = 4, 16
 SEED = 5
 # (d): the steps whose fake and real accounting must agree: each serving
-# arch's prefill and decode, the two kv_shard settings alternating, and a
-# train step
+# arch's prefill and decode, the two kv_shard settings alternating, a
+# train step, and a MoE train step with its dispatch in 4 groups
+# (``--moe-groups 4``, kind ``train-g4``: two groups on each data rank)
 CASES = tuple((arch, kind, SERVE_KV[(i + j) % 2]) for i, arch in enumerate(SERVE_ARCHS)
               for j, kind in enumerate(("prefill", "decode"))) + (
-    ("qwen3-1.7b", "train", "auto"),)
+    ("qwen3-1.7b", "train", "auto"), ("deepseek-v2-lite-16b", "train-g4", "auto"))
 CALIB_ARCH = "llama3-8b"
 PERIOD_ARCH = "llama-3.2-vision-90b"
 SHAPE_OF = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
@@ -80,8 +81,15 @@ def reduced_cfg(arch):
     return get_reduced(arch).replace(dtype="float32")
 
 
+def split_kind(kind):
+    """``"train-g4"`` → ``("train", 4)``; a kind without ``-g`` has no
+    groups."""
+    base, _, g = kind.partition("-g")
+    return base, int(g or 0)
+
+
 def small_shape(kind):
-    return dryrun.cell_shape(SHAPE_OF[kind], opts_for(batch=B, seq=S))
+    return dryrun.cell_shape(SHAPE_OF[split_kind(kind)[0]], opts_for(batch=B, seq=S))
 
 
 def _local_shapes(metas, pls, mesh):
@@ -167,7 +175,7 @@ def fake4_report(out_path):
     out = {}
     for arch, kind, kv in CASES:
         shape = small_shape(kind)
-        opts = opts_for(kv)
+        opts = opts_for(kv, moe_groups=split_kind(kind)[1])
         cfg = dryrun.tune_cfg(reduced_cfg(arch), shape, opts)
         rec = dryrun.compile_cell(cfg, shape, mesh, dryrun.make_rules(shape, mesh, opts), opts)
         out[f"{arch}|{kind}|{kv}"] = _accounting(rec)
@@ -227,7 +235,7 @@ def run_world(rank, world, out_dir):
     out = {}
     for arch, kind, kv in CASES:
         shape = small_shape(kind)
-        opts = opts_for(kv)
+        opts = opts_for(kv, moe_groups=split_kind(kind)[1])
         cfg = dryrun.tune_cfg(reduced_cfg(arch), shape, opts)
         rules = dryrun.make_rules(shape, mesh, opts)
         params = build(cfg).init(SEED, device="cpu")

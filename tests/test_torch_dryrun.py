@@ -323,3 +323,27 @@ def test_calibration_of_a_multi_layer_period_differs_by_the_recompute_early_stop
 def test_knobs_without_a_counterpart_raise(knob):
     with pytest.raises(ValueError, match="no counterpart"):
         dryrun.tune_cfg(get_config("llama3-8b"), SHAPES["train_4k"], _ns(**knob))
+
+
+def test_peak_top_lists_the_largest_storages_live_at_the_peak():
+    """``StepTally(top=2)`` on real CPU tensors: the two largest storages
+    live when the run peaked, with the ops that made them, and nothing
+    freed before the peak among them."""
+    import torch
+
+    from repro_torch.launch.trace_analysis import StepTally
+
+    def step():
+        a = torch.ones(1000)              # 4,000 B, freed before the peak
+        b = torch.full((3000,), 2.0)      # 12,000 B
+        del a
+        c = torch.empty(2000)             # 8,000 B
+        d = torch.ones(500)               # 2,000 B: the peak, b + c + d
+        return b, c, d
+
+    tally = StepTally("cpu", top=2)
+    with tally:
+        out = step()
+    assert [r["bytes"] for r in tally.peak_top] == [12000, 8000]
+    assert [r["op"] for r in tally.peak_top] == ["aten.full", "aten.empty"]
+    assert tally.peak_bytes == 12000 + 8000 + 2000 and len(out) == 3
