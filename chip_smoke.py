@@ -17,7 +17,8 @@ encoder-decoder (seamless-m4t-large-v2 at full size, which it also
 trains), trains qwen3-1.7b with int8 error-feedback gradient compression
 over a pod axis, runs GPipe over its layers and deepseek-v2-lite-16b's
 grouped MoE dispatch on a one-rank NCCL world, kills and resumes a
-checkpointed learner on the card, and times the kernels.
+checkpointed learner on the card, learns Braille in exact-mode e-prop
+(per-synapse traces) through its own kernel, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -366,6 +367,23 @@ before any profiler session):
       groups (started with (aj)'s cells), its per-rank peak printed.  The
       flash launches of its train steps, prefills and the decode run's
       prefill are the kernels line's launches_by_path "mesh_local".
+  (al) after (ak): exact-mode e-prop (EpropConfig(mode="exact")).
+      rsnn_train_exact against its plain version at Braille T=256 B=1
+      (quantized and float), the END_B tile (T=128, B=70), the cue net
+      (40/100/2, T=150: the device-scratch route), the 256/256/16 net
+      (T=128) and a per-neuron alpha (T=256, B=8, float and quantized):
+      dw within TRAIN_DW_TOL of max|dw|, acc_y and n_spk bitwise when
+      quantized, two launches bitwise; on the commit grid at the END_B
+      tile the codes bitwise the plain reduce of the launch's partials and
+      within TRAIN_DW_TOL of max|dw| plus B lsb of the plain B=1 loop, the
+      count that differ printed.  Then one epoch of quantized END_S
+      learning on Braille AEU (seed 1) in exact mode (420 rsnn_train_exact
+      launches, none of rsnn_train) and in factored mode, in turns (exact,
+      factored, factored, exact), test accuracy and walls printed; the
+      exact-trained weights served by BatchedEngine.from_learner bitwise
+      the backend's inference (launches_by_path "exact_learning"); at the
+      end of the run rsnn_train_exact timed at T=256 B=1 (the kernels
+      line) and at the END_B tile, with rsnn_train beside.
 """
 
 from __future__ import annotations
@@ -5487,12 +5505,233 @@ def phase_mesh_local(dev, root: Path, procs):
                           dryrun_peak_bytes=peak_rank, decode_ms=decode_ms)
 
 
+# ---------------------------------------------------------------------------
+# (al) exact-mode e-prop: rsnn_train_exact against its plain version, an
+# exact END_S epoch through the learner, served through rsnn_infer
+# ---------------------------------------------------------------------------
+
+
+def _exact_configs():
+    """(al)'s cases: name, config, T, B, and the decays (the backend's, or
+    one a neuron drawn in [0.85, 1))."""
+    from repro_torch.configs.reckon_braille import CONFIG, CONFIG_QUANT
+    from repro_torch.core.rsnn import Presets
+
+    chip_max = Presets.braille(n_in=256, n_hid=256, n_out=16, quantized=True)
+    return [
+        ("Braille T=256 B=1 quantized", CONFIG_QUANT, 256, 1, "backend"),
+        ("Braille T=256 B=1 float", CONFIG, 256, 1, "backend"),
+        ("END_B T=128 B=70 quantized", CONFIG_QUANT, 128, 70, "backend"),
+        ("cue 40/100/2 T=150 B=8 quantized", Presets.cue_accumulation(quantized=True),
+         150, 8, "backend"),
+        ("256/256/16 T=128 B=4 quantized", chip_max, 128, 4, "backend"),
+        ("Braille T=256 B=8 float, alpha (H,)", CONFIG, 256, 8, "per_neuron"),
+        ("Braille T=256 B=8 quantized, alpha (H,)", CONFIG_QUANT, 256, 8, "per_neuron"),
+    ]
+
+
+def _exact_case(gen, cfg, T, B, dev, alpha, density=0.12):
+    """An exact-mode tile of ``cfg`` at (T, B): weights from ``init_params``
+    snapped onto the SRAM grid, the ``rsnn_train_exact`` arguments and
+    keywords as the backend passes them."""
+    from repro_torch.core.backend import ExecutionBackend
+    from repro_torch.core.rsnn import init_params
+
+    cfg = dataclasses.replace(cfg, num_ticks=T,
+                              eprop=dataclasses.replace(cfg.eprop, mode="exact"))
+    be = ExecutionBackend(cfg, device=dev)
+    params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16) if k != "alpha" else v
+              for k, v in init_params(gen, cfg, device=dev).items()}
+    a = (be.alpha if alpha == "backend"
+         else (0.85 + 0.15 * torch.rand(cfg.n_hid, generator=gen)).to(dev))
+    ins = _train_inputs(gen, T, B, cfg, density, dev)
+    args = (*ins, *be.datapath_weights(params), be._feedback(params))
+    kw = dict(alpha=a, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    return cfg, args, kw
+
+
+def phase_exact_vs_plain(dev):
+    """(al), first half: ``rsnn_train_exact`` against its plain version at
+    every case of :func:`_exact_configs` (dw within TRAIN_DW_TOL of max|dw|,
+    acc_y and n_spk bitwise when quantized, else within FLOAT_TOL; two
+    launches bitwise), and on the commit grid at the END_B tile (the codes
+    equal their plain reduce over the launch's own partials bitwise, and the
+    plain B=1 loop's codes within TRAIN_DW_TOL of max|dw| plus B lsb, the
+    count of codes that differ printed).  Returns the largest dw error."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    worst, errs = 0.0, []
+    for name, cfg, T, B, alpha in _exact_configs():
+        cfg, args, kw = _exact_case(gen, cfg, T, B, dev, alpha)
+        quantized = cfg.neuron.quant is not None
+        t0 = time.perf_counter()
+        got = E.rsnn_train_exact_cuda(*args, **kw)
+        again = E.rsnn_train_exact_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = E.rsnn_train_exact_plain(*args, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        e = _dw_err(f"(al) {name}", got[:3], want[:3])
+        worst = max(worst, e)
+        _compare(f"(al) {name}", got[3:], want[3:], quantized, errs)
+        _check_equal(f"(al) {name}: two launches", got, again)
+        plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out)
+        log(f"(al) ok: {name}: dw within {TRAIN_DW_TOL} of max|dw| (max |Δdw| "
+            f"{e:.3g}), acc_y and n_spk "
+            f"{'bitwise' if quantized else f'within {FLOAT_TOL}'}, two launches bitwise; "
+            f"trace set in {'shared' if plan.traces_smem else 'device'} memory; "
+            f"two launches {t1 - t0:.3f} s, plain {t2 - t1:.3f} s")
+        if name.startswith("END_B"):
+            codes = E.rsnn_train_exact_cuda(*args, **kw, commit_grid=G, return_partials=True)
+            flat = torch.cat([c.reshape(-1) for c in codes[:3]])
+            if not torch.equal(flat, E.dw_codes_reduce_plain(codes[5], G)):
+                fail("(al) commit grid: codes differ from the plain reduce of the partials")
+            plain = E.rsnn_train_exact_plain(*args, **kw, commit_grid=G)
+            n_diff = sum(int((c != p).sum()) for c, p in zip(codes[:3], plain[:3]))
+            top = max(int((c - p).abs().max()) for c, p in zip(codes[:3], plain[:3]))
+            for c, p, f in zip(codes[:3], plain[:3], got[:3]):
+                lim = TRAIN_DW_TOL * float(f.abs().max()) + B * G.lsb
+                if float((c - p).abs().max()) * G.lsb > lim:
+                    fail(f"(al) commit grid: codes off the plain B=1 loop by more than {lim}")
+            n_codes = sum(c.numel() for c in codes[:3])
+            log(f"(al) ok: commit grid at {name}: codes bitwise the plain reduce of the "
+                f"launch's partials; against the plain B=1 loop {n_diff} of {n_codes} "
+                f"codes differ, by at most {top} (limit: {TRAIN_DW_TOL} of max|dw| plus "
+                f"{B} lsb; expf against torch.softmax moves values across a half step)")
+    return worst
+
+
+def phase_exact_learning(dev):
+    """(al), second half: one epoch of END_S learning on Braille AEU
+    (quantized, the dataset's T=128, (h)'s optimizer, seed LEARN_SEEDS[0])
+    in exact mode, every commit one rsnn_train_exact launch and none of
+    rsnn_train; its test accuracy and wall beside the factored run's in
+    this call; then BatchedEngine.from_learner serves the exact-trained
+    weights (rsnn_infer) on the test split, bitwise the backend's
+    inference.  Returns the exact path's launches and a summary."""
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.core.rsnn import Presets
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchedEngine
+    from repro_torch.serve.batching import decode_events_host, trim_padding
+
+    data = make_braille_dataset("AEU")
+    T = data["train"]["num_ticks"]
+    n_train = data["train"]["events"].shape[0]
+    base = Presets.braille(n_classes=3, num_ticks=T, quantized=True)
+    opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * n_train)
+    pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
+    out, launches = {}, None
+    # in turns, so that neither mode's wall carries the first run's warm-up
+    for mode in ("exact", "factored", "factored", "exact"):
+        cfg = dataclasses.replace(base, eprop=dataclasses.replace(base.eprop, mode=mode))
+        learner = OnlineLearner(cfg, ControllerConfig(num_epochs=1, eval_every=1,
+                                                      commit="sample"),
+                                opt, LEARN_SEEDS[0], device=dev)
+        start = {k: v.clone() for k, v in learner.weights.items()}
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log_ = learner.fit(pipe)
+        test = learner.eval_epoch(pipe, 0, "test")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = dict(ops.launches)
+        ran, other = (("rsnn_train_exact", "rsnn_train") if mode == "exact"
+                      else ("rsnn_train", "rsnn_train_exact"))
+        if seen[ran] != n_train or seen[other] != 0:
+            fail(f"(al) {mode} END_S epoch: {seen[ran]} {ran} launches for {n_train} "
+                 f"samples, {seen[other]} of {other}")
+        if all(torch.equal(learner.weights[k], v) for k, v in start.items()):
+            fail(f"(al) {mode} END_S epoch moved no weight")
+        log(f"(al) {mode} END_S: 1 epoch on Braille AEU (T={T}, seed {LEARN_SEEDS[0]}), "
+            f"{n_train} commits: test {test:.4f}, val {log_.val_acc[-1]:.4f}, train "
+            f"{log_.train_acc[-1]:.4f}, {wall:.3f} s wall; launches {seen}")
+        if mode in out:
+            if out[mode]["test_acc"] != test:
+                fail(f"(al) two {mode} END_S epochs from seed {LEARN_SEEDS[0]} reach "
+                     f"{out[mode]['test_acc']} and {test}")
+            out[mode]["wall_s"].append(wall)
+            continue
+        out[mode] = dict(test_acc=test, val_acc=log_.val_acc[-1], wall_s=[wall])
+        if mode != "exact":
+            continue
+        eng = BatchedEngine.from_learner(learner)
+        reqs = [trim_padding(r) for r in data["test"]["events"]]
+        res, _ = eng.serve(iter(reqs))
+        for r, ev in zip(res, reqs):
+            raster, valid, _ = decode_events_host([ev], cfg.n_in, r.bucket_ticks,
+                                                  cfg.label_delay)
+            got = learner.backend.inference(learner.weights, torch.from_numpy(raster).to(dev),
+                                            torch.from_numpy(valid).to(dev))
+            if r.pred != int(got["pred"][0]) or not np.array_equal(
+                    r.logits, got["acc_y"][0].cpu().numpy()):
+                fail(f"(al) served request {r.rid} differs from the backend's inference")
+        launches = dict(ops.launches)
+        if launches["rsnn_infer"] <= 0 or launches["rsnn_train_exact"] != n_train:
+            fail("(al) the exact-trained weights were not served through rsnn_infer")
+        out["served_acc"] = float(np.mean([r.pred == r.label for r in res]))
+        log(f"(al) ok: the exact-trained weights served {len(res)} test samples bitwise "
+            f"the backend's inference, accuracy {out['served_acc']:.4f}; launches {launches}")
+    walls = {m: " and ".join(f"{w:.3f}" for w in out[m]["wall_s"])
+             for m in ("exact", "factored")}
+    log(f"(al) ok: exact against factored END_S, one epoch, seed {LEARN_SEEDS[0]}: test "
+        f"{out['exact']['test_acc']:.4f} / {out['factored']['test_acc']:.4f}, walls "
+        f"{walls['exact']} s / {walls['factored']} s (run in turns: exact, factored, "
+        f"factored, exact)")
+    return launches, out
+
+
+def phase_exact_timing(dev):
+    """(al)'s kernel timed: rsnn_train_exact at END_S's Braille commit (T=256,
+    B=1, quantized; the kernels line) and at the END_B tile (T=128, B=70),
+    each beside its plain version and its bound from this run's events
+    (traffic.train_exact_event_flops), rsnn_train at the same shapes
+    logged beside it."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.kernels import traffic
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    rows = {}
+    for T, B, key in ((256, 1, "rsnn_train_exact"), (128, 70, "rsnn_train_exact END_B")):
+        cfg, args, kw = _exact_case(gen, CONFIG_QUANT, T, B, dev, "backend")
+        N, H, O = cfg.n_in, cfg.n_hid, cfg.n_out
+        fkw = {k: kw[k] for k in ("kappa", "v_th", "reset", "boxcar_width", "quant")}
+        z = K.rsnn_forward_cuda(args[0], *args[3:6], alpha=kw["alpha"], **fkw)["z"]
+        flops = traffic.train_exact_event_flops(
+            T, B, N, H, O, int(args[0].count_nonzero()), int(z.count_nonzero()),
+            int(z[:-1].count_nonzero()))
+        shape = f"T={T} B={B} {N}/{H}/{O} quantized"
+        rows[key] = _timed_row("(al)", "rsnn_train_exact",
+                               lambda: E.rsnn_train_exact_cuda(*args, **kw),
+                               lambda: E.rsnn_train_exact_plain(*args, **kw),
+                               traffic.train_exact_bytes(T, B, N, H, O), flops, shape)
+        fact = _median_reading(lambda: E.rsnn_train_cuda(*args, **kw))[0]
+        log(f"(al) rsnn_train (factored) at {shape}: {fact} ms on the card (profiler); "
+            f"rsnn_train_exact's plan {K.train_exact_plan(T, N, H, O)}")
+        rows[key]["factored_ms"] = fact
+    return rows
+
+
 def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
-    (f) and (i) time them, its flash_attention forward at (l)'s shape
-    (without and with lse) and its flash_attention_bwd at (r)'s two shapes
-    (null for a tree without that wrapper), through wrappers that every slice of the port has, so
+    (f) and (i) time them and at the 256/256/16 net (the event loop's widest
+    instantiations), its rsnn_train_exact at (i)'s END_B tile, its
+    flash_attention forward at (l)'s shape (without and with lse) and its
+    flash_attention_bwd at (r)'s two shapes (null for a tree without that
+    wrapper), through wrappers that every slice of the port has, so
     that two trees compare on one card in one call.  Each time is the
     median of three ``torch.profiler`` readings (:func:`_median_reading`).  Beside
     the times, a digest of each kernel's SASS (:func:`_sass_digests`), so
@@ -5500,7 +5739,7 @@ def tree_times(root: Path, dev) -> None:
     line."""
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.backend import ExecutionBackend
-    from repro_torch.core.rsnn import init_params
+    from repro_torch.core.rsnn import Presets, init_params
     from repro_torch.kernels import build
     from repro_torch.kernels import eprop_update as E
     from repro_torch.kernels import flash_attention as FA
@@ -5535,6 +5774,23 @@ def tree_times(root: Path, dev) -> None:
              lambda: FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))
         del q, k, v, do, o, lse, out
 
+    # the chip-maximum net (the event loop's widest instantiations) at T=128
+    wide = Presets.braille(n_in=256, n_hid=256, n_out=16, num_ticks=128, quantized=True)
+    be = ExecutionBackend(wide, device=dev)
+    params = init_params(gen, wide, device=dev)
+    params = {k: (torch.round(v * 16) / 16).clamp(-8, 127 / 16)
+              if k != "alpha" else v for k, v in params.items()}
+    w = be.datapath_weights(params)
+    kw = dict(alpha=be.alpha, kappa=wide.neuron.kappa, v_th=wide.neuron.v_th,
+              reset=wide.neuron.reset, quant=be.quant)
+    r, y_star, valid = _train_inputs(gen, 128, 8, wide, 0.05, dev)
+    best("rsnn_forward 256/256/16 B=8", lambda: K.rsnn_forward_cuda(
+        r, *w, **kw, boxcar_width=wide.neuron.boxcar_width))
+    best("rsnn_train 256/256/16 B=8", lambda: E.rsnn_train_cuda(
+        r, y_star, valid, *w, be._feedback(params), **kw,
+        boxcar_width=wide.neuron.boxcar_width, error=wide.eprop.error,
+        infer_window=wide.eprop.infer_window))
+    best("rsnn_infer 256/256/16 B=8", lambda: K.rsnn_infer_cuda(r, valid, *w, **kw))
     for T in (128, 256):
         cfg = dataclasses.replace(CONFIG_QUANT, num_ticks=T)
         be = ExecutionBackend(cfg, device=dev)
@@ -5554,6 +5810,11 @@ def tree_times(root: Path, dev) -> None:
                 if b != 2048:
                     targs = (r, y_star, valid, *w, be._feedback(params))
                     best(f"rsnn_train B={b}", lambda: E.rsnn_train_cuda(*targs, **tkw))
+                if b == 70:
+                    ms["rsnn_train_exact B=70"] = None
+                    if hasattr(E, "rsnn_train_exact_cuda"):
+                        best("rsnn_train_exact B=70",
+                             lambda: E.rsnn_train_exact_cuda(*targs, **tkw))
             continue
         for b in (1, 512, 2048):     # (f): the serving kernels
             r, valid, live = _inputs(gen, T, b, cfg.n_in, 0.12, dev)
@@ -5714,11 +5975,17 @@ def main() -> None:
     local_launches, _ = phase_mesh_local(dev, root, [p for p in dryruns if p[0] == "grouped"])
     for k, n in local_launches.items():
         by_path[k]["mesh_local"] = n
+    errs["rsnn_train_exact"] = phase_exact_vs_plain(dev)
+    exact_launches, exact_summary = phase_exact_learning(dev)   # resets the counts itself
+    for k, n in exact_launches.items():
+        by_path[k]["exact_learning"] = n
+    launches["rsnn_train_exact"] = exact_launches["rsnn_train_exact"]
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
     rows = phase_timing(dev, params, b_tile)
     rows.update(phase_train_timing(dev))
+    rows.update(phase_exact_timing(dev))
 
     errs["flash_attention"] = phase_flash_vs_plain(dev)
     lm_launches = phase_lm(dev)     # resets and reads the counts itself
@@ -5780,13 +6047,16 @@ def main() -> None:
     card = card_line()
     sources = {"rsnn_infer": "rsnn_serve.cu", "rsnn_step_sessions": "rsnn_serve.cu",
                "rsnn_forward": "rsnn_train.cu", "rsnn_train": "rsnn_train.cu",
-               "eprop_update": "rsnn_train.cu", "flash_attention": "flash_attention.cu",
+               "eprop_update": "rsnn_train.cu", "rsnn_train_exact": "rsnn_train.cu",
+               "flash_attention": "flash_attention.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
     replaces = {"rsnn_infer": "src/repro/kernels/rsnn_step.py:703",
                 "rsnn_step_sessions": "src/repro/kernels/rsnn_step.py:963",
                 "rsnn_forward": "src/repro/kernels/rsnn_step.py:399",
                 "rsnn_train": "src/repro/kernels/eprop_update.py:202",
                 "eprop_update": "src/repro/kernels/eprop_update.py:96",
+                "rsnn_train_exact": "src/repro/core/eprop.py:150 (run_sample_exact under "
+                                    "the scan backend; no Pallas kernel)",
                 "flash_attention": "src/repro/kernels/flash_attention.py:30",
                 "flash_attention_bwd":
                     "src/repro/models/attention.py:49 (jax.grad of blocked_attention)"}
@@ -5807,6 +6077,9 @@ def main() -> None:
         if name == "rsnn_train":
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]
             kernels[-1]["commit_grid"] = grid_row
+        if name == "rsnn_train_exact":
+            kernels[-1]["end_b"] = rows["rsnn_train_exact END_B"]
+            kernels[-1]["learning"] = exact_summary
         if name == "rsnn_forward":
             kernels[-1]["other_batches"] = [rows["rsnn_forward B=1"],
                                             rows["rsnn_forward B=2048"]]

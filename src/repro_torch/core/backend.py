@@ -10,7 +10,9 @@ datapath constants and the weights as the kernels consume them.  Its ops:
   (``rsnn_step_sessions``);
 * :meth:`ExecutionBackend.train_tile` — fused forward + e-prop update of
   one training tile, ``dw`` summed over the batch: what an END_S (B=1) or
-  END_B (B=K) commit applies (``rsnn_train``);
+  END_B (B=K) commit applies (``rsnn_train``, or in exact mode,
+  ``cfg.eprop.mode == "exact"``, ``rsnn_train_exact``, which also takes a
+  per-neuron ``weights["alpha"]``);
 * :meth:`ExecutionBackend.forward_traces` / :meth:`~ExecutionBackend.
   eprop_update` — the split pipeline, traces through device memory
   (``rsnn_forward``, ``eprop_update``);
@@ -538,6 +540,23 @@ class ExecutionBackend:
                     reset=ncfg.reset, boxcar_width=ncfg.boxcar_width,
                     quant=self.quant)
 
+    def _train_alpha(self, weights: Dict[str, torch.Tensor]):
+        """The decay e-prop trains with, picked as the reference's
+        ``_merge`` picks it: ``weights["alpha"]`` where the weights carry
+        one, else the backend's.  Exact mode takes a scalar or one decay a
+        neuron ``(H,)``, read on the device; factored mode a scalar only
+        (its traces are per presynaptic line, as the reference's
+        ``forward_traces`` requires)."""
+        a = weights.get("alpha")
+        if a is None:
+            return self.alpha
+        if self.cfg.eprop.mode == "exact":
+            return self._as_input(a)
+        if torch.as_tensor(a).ndim != 0:
+            raise ValueError("factored e-prop requires a scalar alpha; a per-neuron "
+                             "alpha trains with EpropConfig(mode='exact')")
+        return float(a)
+
     def train_tile(self, weights: Dict[str, torch.Tensor], raster, y_star,
                    valid) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """One fused forward + e-prop update over a ``(T, B)`` training
@@ -545,7 +564,9 @@ class ExecutionBackend:
         as ``w -= lr * dw``) summed over the batch (and over the ranks of a
         mesh; on the commit grid when one is set), ``dw["w_rec"]``
         self-recurrence masked; ``metrics`` ``{"acc_y", "pred",
-        "spike_rate"}``."""
+        "spike_rate"}``.  ``cfg.eprop.mode`` picks the rule:
+        ``rsnn_train`` (factored) or ``rsnn_train_exact`` (the per-synapse
+        traces, with a scalar or per-neuron ``weights["alpha"]``)."""
         raster, y_star, valid = (self._as_input(x) for x in (raster, y_star, valid))
         return self._train(weights, raster, y_star, valid, self._sharded)
 
@@ -560,15 +581,20 @@ class ExecutionBackend:
         the codes (int32: order-free, so 1-, 4- and 8-rank layouts sum the
         same codes), which convert to float once.  Padding rows carry zero
         input and zero ``valid``, so they add nothing."""
+        ecfg = self.cfg.eprop
+        if ecfg.mode == "exact" and self._ncfg.surrogate != "boxcar":
+            raise ValueError(f"exact e-prop runs the boxcar pseudo-derivative, the "
+                             f"config asks for {self._ncfg.surrogate!r}")
+        kw = dict(self._trace_kw(), alpha=self._train_alpha(weights))
+        launch = ops.rsnn_train_exact if ecfg.mode == "exact" else ops.rsnn_train
         if sharded:
             (raster, y_star, valid), B = self._pad_to_shards((raster, y_star, valid),
                                                              (1, 0, 1))
-        ecfg = self.cfg.eprop
-        *dw, acc_y, n_spk = ops.rsnn_train(
+        *dw, acc_y, n_spk = launch(
             raster, y_star, valid, *self.datapath_weights(weights),
             self._feedback(weights), error=ecfg.error,
             target_amplitude=ecfg.target_amplitude, infer_window=ecfg.infer_window,
-            commit_grid=self.commit_grid, **self._trace_kw())
+            commit_grid=self.commit_grid, **kw)
         if sharded:
             dw = self._all_reduce(dw)
             metrics = self._metrics(self._all_gather_rows(acc_y, B),

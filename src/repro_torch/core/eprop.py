@@ -193,14 +193,30 @@ def run_sample_exact(
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One tile with the per-synapse filtered eligibility updated every
     tick → ``(dw, metrics)``; ``dw`` are positive-gradient sums over the
-    batch (applied as ``w -= lr * dw``)."""
-    T, B, n_in = raster.shape
+    batch (applied as ``w -= lr * dw``).  ``params["alpha"]`` is a scalar
+    or one decay a neuron ``(H,)``."""
     H = params["w_rec"].shape[0]
-    n_out = params["w_out"].shape[1]
-    dt, dev = raster.dtype, raster.device
-    alpha = torch.as_tensor(params["alpha"], dtype=dt, device=dev).expand(H)
+    alpha = torch.as_tensor(params["alpha"], dtype=raster.dtype,
+                            device=raster.device).expand(H)
     w_in_d, w_rec_d, w_out_d, rec_mask, y_scale = _datapath(params, ncfg, ecfg)
-    b_fb = _feedback(params, ecfg)
+    dw_in, dw_rec, dw_out, acc_y, n_spk = exact_tile(
+        w_in_d, w_rec_d, w_out_d, _feedback(params, ecfg), alpha, raster,
+        y_star, valid, y_scale, ncfg, ecfg)
+    dw = {"w_in": dw_in, "w_rec": dw_rec * rec_mask, "w_out": dw_out}
+    return dw, _metrics(acc_y, n_spk.sum(), valid, H)
+
+
+def exact_tile(w_in_d, w_rec_d, w_out_d, b_fb, alpha, raster, y_star, valid,
+               y_scale: float, ncfg: NeuronConfig, ecfg: EpropConfig):
+    """The exact-mode tick loop on the datapath weights (membrane-grid
+    images in quantized mode, ``w_rec`` self-recurrence masked) → ``(dw_in,
+    dw_rec, dw_out, acc_y (B, O), n_spk (B, 1))``, the ``dw`` summed over
+    the batch, ``dw_rec`` not masked.  ``alpha (H,)`` filters the
+    presynaptic traces, and leaks the membrane in float mode."""
+    T, B, n_in = raster.shape
+    H = w_rec_d.shape[0]
+    n_out = w_out_d.shape[1]
+    dt, dev = raster.dtype, raster.device
     in_cur = _input_projection(raster, w_in_d)
 
     v = torch.zeros((B, H), dtype=dt, device=dev)
@@ -214,7 +230,7 @@ def run_sample_exact(
     dw_rec = torch.zeros((H, H), dtype=dt, device=dev)
     dw_out = torch.zeros((H, n_out), dtype=dt, device=dev)
     acc_y = torch.zeros_like(y)
-    n_spk = torch.zeros((), dtype=dt, device=dev)
+    n_spk = torch.zeros((B, 1), dtype=dt, device=dev)
     for t in range(T):
         v_new, z_new, v_pre = lif_step(v, in_cur[t] + z @ w_rec_d, alpha, ncfg)
         y = li_step(y, z_new @ w_out_d, ncfg.kappa, ncfg)
@@ -231,10 +247,9 @@ def run_sample_exact(
         dw_out = dw_out + torch.einsum("bh,bo->ho", zbar, err)
         w_inf = valid[t][:, None] if ecfg.infer_window == "valid" else 1.0
         acc_y = acc_y + y * w_inf
-        n_spk = n_spk + (z_new * valid[t][:, None]).sum()
+        n_spk = n_spk + (z_new * valid[t][:, None]).sum(dim=1, keepdim=True)
         v, z = v_new, z_new
-    dw = {"w_in": dw_in, "w_rec": dw_rec * rec_mask, "w_out": dw_out}
-    return dw, _metrics(acc_y, n_spk, valid, H)
+    return dw_in, dw_rec, dw_out, acc_y, n_spk
 
 
 def forward_traces(

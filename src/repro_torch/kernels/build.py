@@ -135,6 +135,10 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_train_launch.argtypes = (
         [ptr] * 18 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
         + [f32, f32, f32, i32, f32, i32, ptr])
+    # rsnn_train_exact: rsnn_train's arguments, with alpha (H) after the 7
+    # inputs and the scratch h, l, zbar, err and spike masks in place of the
+    # traces and g
+    lib.rsnn_train_exact_launch.argtypes = lib.rsnn_train_launch.argtypes
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
     # flash_attention: q, k, v, o, lse and the f32 output (null: neither
@@ -153,7 +157,7 @@ def _load(path: Path) -> ctypes.CDLL:
         [ptr] * 11 + [i32] * 8 + [ctypes.c_longlong] * 9
         + [i32, f32] + [i32] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ptr])
     for fn in (lib.rsnn_forward_launch, lib.rsnn_train_launch,
-               lib.eprop_update_launch, lib.flash_attention_launch,
+               lib.rsnn_train_exact_launch, lib.eprop_update_launch, lib.flash_attention_launch,
                lib.flash_attention_bwd_launch):
         fn.restype = i32
     lib.rsnn_error_string.argtypes = [i32]

@@ -14,7 +14,8 @@
 //   cur   = sum_k x[b,k] w_in[k,h]  +  sum_k z[b,k] w_rec[k,h]
 //           (two sequential sums over k = 0..; input current first, then
 //            the recurrent one added to it: the JAX operand order)
-//   v_pre = alpha*v + cur                           (float)
+//   v_pre = alpha*v + cur                           (float; alpha one
+//                                                    decay, or one a neuron)
 //         | sat(floor(v * alpha_reg/256) + cur)     (quantized)
 //   z     = v_pre >= v_th;  v = v_pre - z*v_th | v_pre*(1-z)
 //   y     = kappa*y + sum_h z[b,h] w_out[h,o]       (float)
@@ -59,6 +60,17 @@ __device__ __forceinline__ float rsnn_leak_in(float v, float cur,
     return fminf(fmaxf(floorf(v * p.alpha_c) + cur, p.v_lo), p.v_hi);
   }
   return p.alpha * v + cur;
+}
+
+// rsnn_leak_in at the neuron's own decay alpha (float mode; quantized mode
+// leaks by alpha_reg / 256 whatever alpha is).
+__device__ __forceinline__ float rsnn_leak_in_at(float v, float cur,
+                                                 const TickParams& p,
+                                                 float alpha) {
+  if (p.quant) {
+    return fminf(fmaxf(floorf(v * p.alpha_c) + cur, p.v_lo), p.v_hi);
+  }
+  return alpha * v + cur;
 }
 
 __device__ __forceinline__ float rsnn_leak_out(float y, float cur,
@@ -274,8 +286,9 @@ __device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
 // the pbar, zbar traces (and all three to `copy` when copy.h is not null);
 // ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the post-reset v to
 // `copy` only.  LIVE (rsnn_step_sessions): a tick with live[t] == 0 keeps
-// v and z by select.  W >= ceil(H/32).
-template <int W, int OUT, bool LIVE>
+// v and z by select.  AVEC (rsnn_train_exact): neuron h leaks, and filters
+// pbar, by its own decay alpha_h[h] instead of p.alpha.  W >= ceil(H/32).
+template <int W, int OUT, bool LIVE, bool AVEC = false>
 __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
                                              const RowTraces tr,
                                              const RowTraces copy,
@@ -283,18 +296,27 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
                                              const float* valid,
                                              const float* live,
                                              unsigned* spikes, int T, int H,
-                                             const TickParams p) {
+                                             const TickParams p,
+                                             const float* alpha_h = nullptr) {
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int J = (H + 31) / 32;
   constexpr bool TRACES = OUT != ROW_COUNT;
   const bool cp = OUT == ROW_STREAMS || (TRACES && copy.h != nullptr);
   float pbar[W], zbar[W], cn[W];
+  float al[AVEC ? W : 1];   // AVEC: the lane's neurons' decays
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     const int h = lane + 32 * j;
     pbar[j] = 0.f; zbar[j] = 0.f;
     cn[j] = (j < J && h < H) ? tr.h[h] : 0.f;   // input current, a tick ahead
+  }
+  if (AVEC) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int h = lane + 32 * j;
+      al[AVEC ? j : 0] = (j < J && h < H) ? alpha_h[h] : 0.f;
+    }
   }
   for (int t = 0; t < T; ++t) {
     float in_cur[W], rec[W];
@@ -319,14 +341,16 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
     for (int j = 0; j < W; ++j) {
       if (j < J) {
         const int h = lane + 32 * j;
-        const float v_pre = rsnn_leak_in(c.v[j], in_cur[j] + rec[j], p);
+        const float v_pre =
+            AVEC ? rsnn_leak_in_at(c.v[j], in_cur[j] + rec[j], p, al[AVEC ? j : 0])
+                 : rsnn_leak_in(c.v[j], in_cur[j] + rec[j], p);
         const float zz = v_pre >= p.v_th ? 1.f : 0.f;
         const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
         const unsigned m = __ballot_sync(FULL, h < H && zz > 0.f);
         if (TRACES) {
           const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
           const float z_prev = (c.z[j] >> lane) & 1u ? 1.f : 0.f;
-          pbar[j] = p.alpha * pbar[j] + z_prev;
+          pbar[j] = (AVEC ? al[AVEC ? j : 0] : p.alpha) * pbar[j] + z_prev;
           zbar[j] = p.kappa * zbar[j] + zz;
           if (h < H) {
             if (OUT == ROW_TRACES) {

@@ -1,5 +1,6 @@
-// The three training kernels, built into one library with the serving
-// kernels of rsnn_serve.cu.  rsnn_forward and rsnn_train run the
+// The training kernels, built into one library with the serving kernels of
+// rsnn_serve.cu.  rsnn_forward, rsnn_train and rsnn_train_exact (exact-mode
+// e-prop, below rsnn_train) run the
 // warp-per-row event loop of rsnn_tick.cuh (the serving kernels run the
 // same loop) and share their forward phases (phases 1-3 of rsnn_train
 // below: rsnn_input_currents, rsnn_row_lif, rsnn_xbar_walk,
@@ -376,6 +377,204 @@ __global__ void rsnn_train_kernel(TrainArgs a, TickParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// rsnn_train_exact: exact-mode e-prop (per-synapse traces)
+// ---------------------------------------------------------------------------
+
+// One row's view of what the exact walks read, element (t, i) at
+// base + t * stride + i: the presynaptic inputs x, the spike masks (word w
+// of tick t at spikes + t * sz + w), the boxcar h, the learning signal l,
+// zbar, the readout error err, and the neurons' decays alpha (H).
+struct RowExact {
+  const float* x; size_t sx;
+  const unsigned* spikes; size_t sz;
+  const float* h; const float* l; const float* zbar; size_t sH;
+  const float* err; size_t sO;
+  const float* alpha;
+};
+
+// dw element e of one row in exact mode (e over w_in, then w_rec, then
+// w_out, row-major), its state in registers, the ticks walked forward in
+// the reference's order (repro/core/eprop.py:run_sample_exact):
+//   synapse (i, j), presynaptic line i < N + H, s_i(t) = x(t, i) for an
+//   input, z_k(t - 1) for recurrent neuron k = i - N (0 at t = 0):
+//     eps = alpha_j*eps + s_i(t);  ebar = kappa*ebar + h_j(t)*eps;
+//     dw += ebar*l_j(t)
+//   readout (j, o): dw += zbar_j(t)*err_o(t).
+__device__ float rsnn_exact_dw_elem(const RowExact& r, int e, int N, int H,
+                                    int O, int T, float kappa) {
+  const int e_syn = (N + H) * H;
+  float acc = 0.f;
+  if (e < e_syn) {
+    const int i = e / H, j = e - (e / H) * H;
+    const float a = r.alpha[j];
+    const float* hj = r.h + j;
+    const float* lj = r.l + j;
+    float eps = 0.f, ebar = 0.f;
+    if (i < N) {
+      const float* xi = r.x + i;
+      for (int t = 0; t < T; ++t) {
+        eps = a * eps + xi[(size_t)t * r.sx];
+        ebar = kappa * ebar + hj[(size_t)t * r.sH] * eps;
+        acc += ebar * lj[(size_t)t * r.sH];
+      }
+    } else {
+      const int k = i - N;
+      const unsigned* m = r.spikes + (k >> 5);
+      const int bit = k & 31;
+      for (int t = 0; t < T; ++t) {
+        const float zk = t > 0 && ((m[(size_t)(t - 1) * r.sz] >> bit) & 1u) ? 1.f : 0.f;
+        eps = a * eps + zk;
+        ebar = kappa * ebar + hj[(size_t)t * r.sH] * eps;
+        acc += ebar * lj[(size_t)t * r.sH];
+      }
+    }
+  } else {
+    e -= e_syn;
+    const int j = e / O, o = e - (e / O) * O;
+    for (int t = 0; t < T; ++t) {
+      acc += r.zbar[(size_t)t * r.sH + j] * r.err[(size_t)t * r.sO + o];
+    }
+  }
+  return acc;
+}
+
+// Dynamic shared memory of one rsnn_train_exact block, in 4-byte words:
+// rsnn_train's layout (kernels/rsnn_step.py:train_exact_plan) and the
+// row's decays alpha (H).
+__host__ __device__ inline size_t rsnn_train_exact_smem_floats(int T, int N,
+                                                               int H, int O,
+                                                               int weights_smem,
+                                                               int traces_smem) {
+  return rsnn_train_smem_floats(T, N, H, O, weights_smem, traces_smem) + H;
+}
+
+// rsnn_train_exact_kernel — exact-mode e-prop behind
+// ExecutionBackend.train_tile with EpropConfig(mode="exact"): the
+// counterpart of the reference's scan backend, which compiles
+// src/repro/core/eprop.py:run_sample_exact into one device program a tile
+// (no Pallas kernel).  One block per batch row, in phases separated by
+// block barriers:
+//   1. the input currents of every tick (rsnn_input_currents);
+//   2. one warp runs the LIF recurrence (rsnn_row_lif, each neuron leaking
+//      by its own alpha), writing h, zbar and the spike masks;
+//   3. the readout and its error (rsnn_row_readout), acc_y;
+//   4. the learning signal l(t, j) = sum_o err(t, o) b_fb[j, o] in o order,
+//      over the pbar slots rsnn_row_lif wrote (not read here);
+//   5. (shared-memory path) the block's threads share the dw elements,
+//      each walking its synapse through the ticks (rsnn_exact_dw_elem).
+// Nothing of phases 1-4 depends on eps or ebar, so phase 5 walks each
+// synapse through all ticks after the forward: every value is the one the
+// tick-by-tick update gives, the synapse's state never leaves registers,
+// and no block barrier sits inside a tick loop.  The trace set (the input
+// currents then h, the raster, l, zbar, err) is rsnn_train's size; where it
+// does not fit beside the weights (Braille past T=424, the cue net, the
+// 256/256/16 net) it goes to a device scratch with the spike masks, and
+// rsnn_exact_dw_rows_kernel walks the synapses, one thread per (element,
+// row).  Then rsnn_dw_reduce_kernel, or on the commit grid
+// rsnn_dw_codes_reduce_kernel, sums the rows' partials.
+//
+// Bound on the H100: 7 operations a synapse and tick (eps 2, ebar 3, dw 2)
+// over (N + H) * H synapses, plus 4 * H * O a tick for l and dw_out: at
+// Braille (12/38/3) 13,940 a tick, 3.6 M at T=256 (0.053 us at f32 67
+// TFLOP/s); the bytes (raster, weights in, dw out) are fewer still.  The
+// row's LIF chain (some hundreds of cycles a tick, as in rsnn_train) and one
+// row's walks on one SM set the pace at small B.
+template <int W, bool SMEM_TRACES>
+__global__ void rsnn_train_exact_kernel(TrainArgs a, const float* alpha,
+                                        unsigned* spk_dev, TickParams p) {
+  extern __shared__ float smem[];
+  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  float* s = smem;
+  float* vs = s;  s += T;
+  unsigned* spikes = reinterpret_cast<unsigned*>(s);  s += (size_t)T * J;
+  float* al = s;  s += H;
+  const float* w_in = a.w_in;
+  const float* w_rec = a.w_rec;
+  const float* w_out = a.w_out;
+  if (SMEM_TRACES || a.weights_smem) {
+    float* wi = s;  s += N * H;
+    float* wr = s;  s += H * H;
+    float* wo = s;  s += H * O;
+    for (int i = tid; i < N * H; i += nth) wi[i] = a.w_in[i];
+    for (int i = tid; i < H * H; i += nth) wr[i] = a.w_rec[i];
+    for (int i = tid; i < H * O; i += nth) wo[i] = a.w_out[i];
+    w_in = wi; w_rec = wr; w_out = wo;
+  }
+  for (int t = tid; t < T; t += nth) vs[t] = a.valid[(size_t)t * B + b];
+  for (int h = tid; h < H; h += nth) al[h] = alpha[h];
+  // tr.h: the input currents, then h; tr.xbar: the raster (shared-memory
+  // path); tr.pbar: rsnn_row_lif's pbar, then l
+  RowTraces tr;
+  const float* x;   // x(t, k) at x[t * sx + k]
+  size_t sx;
+  if (SMEM_TRACES) {
+    tr = RowTraces{s, s + 3 * (size_t)T * H, s + (size_t)T * H,
+                   s + 2 * (size_t)T * H, s + (size_t)T * (3 * H + N),
+                   (size_t)H, (size_t)N, (size_t)O};
+    for (int i = tid; i < T * N; i += nth) {
+      tr.xbar[i] = a.raster[((size_t)(i / N) * B + b) * N + i % N];
+    }
+    x = tr.xbar; sx = N;
+  } else {
+    tr = RowTraces{a.tr_h + (size_t)b * H, nullptr, a.tr_pbar + (size_t)b * H,
+                   a.tr_zbar + (size_t)b * H, a.tr_err + (size_t)b * O,
+                   (size_t)B * H, (size_t)B * N, (size_t)B * O};
+    x = a.raster + (size_t)b * N; sx = (size_t)B * N;
+  }
+  __syncthreads();
+  rsnn_input_currents<W>(x, sx, w_in, tr.h, tr.sH, T, N, H);
+  __syncthreads();
+  const RowTraces none{};
+  if (tid < 32) {
+    RowCarry<W> c;
+    rsnn_carry_zero(c);
+    rsnn_row_lif<W, ROW_TRACES, false, true>(c, tr, none, w_rec, vs, nullptr, spikes, T,
+                                             H, p, al);
+    if (tid == 0) a.n_spk[b] = c.nspk;
+  }
+  __syncthreads();
+  rsnn_row_readout(a, p, tr, none, spikes, vs, w_out, b);
+  __syncthreads();
+  for (int i = tid; i < T * H; i += nth) {
+    const int t = i / H, j = i - (i / H) * H;
+    const float* e = tr.err + (size_t)t * tr.sO;
+    const float* bf = a.b_fb + (size_t)j * O;
+    float l = 0.f;
+    for (int o = 0; o < O; ++o) l += e[o] * bf[o];
+    tr.pbar[(size_t)t * tr.sH + j] = l;
+  }
+  if (!SMEM_TRACES) {
+    unsigned* out = spk_dev + (size_t)b * T * J;
+    for (int i = tid; i < T * J; i += nth) out[i] = spikes[i];
+    return;
+  }
+  __syncthreads();
+  const RowExact r{x, sx, spikes, (size_t)J, tr.h, tr.pbar, tr.zbar, tr.sH, tr.err,
+                   tr.sO, al};
+  const int e_all = N * H + H * H + H * O;
+  float* part = a.dw_part + (size_t)b * e_all;
+  for (int e = tid; e < e_all; e += nth) part[e] = rsnn_exact_dw_elem(r, e, N, H, O, T, p.kappa);
+}
+
+// The exact walks over the device scratch: one thread per (dw element,
+// row), row b's partial to dw_part[b].
+__global__ void rsnn_exact_dw_rows_kernel(TrainArgs a, const float* alpha,
+                                          const unsigned* spk_dev, float kappa) {
+  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
+  const int e_all = N * H + H * H + H * O;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (e >= e_all) return;
+  const RowExact r{a.raster + (size_t)b * N, (size_t)B * N, spk_dev + (size_t)b * T * J,
+                   (size_t)J, a.tr_h + (size_t)b * H, a.tr_pbar + (size_t)b * H,
+                   a.tr_zbar + (size_t)b * H, (size_t)B * H, a.tr_err + (size_t)b * O,
+                   (size_t)B * O, alpha};
+  a.dw_part[(size_t)b * e_all + e] = rsnn_exact_dw_elem(r, e, N, H, O, T, kappa);
+}
+
 // F over device traces: one thread per (row, neuron).
 __global__ void rsnn_f_walk_kernel(const float* h, float* g, const float* err,
                                    const float* b_fb, int T, int B, int H,
@@ -743,4 +942,79 @@ extern "C" int eprop_update_launch(
   rc = rsnn_dw_rows(xbar, pbar, zbar, g, err, dw_part, T, B, N, H, O, st);
   if (rc) return rc;
   return rsnn_reduce_dw(dw_part, B, N * H + H * H + H * O, dw, st);
+}
+
+template <int W, bool SMEM_TRACES>
+static int rsnn_train_exact_launch_w(const TrainArgs& a, const float* alpha,
+                                     unsigned* spk, const TickParams& p, int threads,
+                                     size_t smem, cudaStream_t stream) {
+  int rc = rsnn_prepare_launch(rsnn_train_exact_kernel<W, SMEM_TRACES>, smem, &threads);
+  if (rc) return rc;
+  rsnn_train_exact_kernel<W, SMEM_TRACES><<<a.B, threads, smem, stream>>>(a, alpha, spk, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool SMEM_TRACES>
+static int rsnn_train_exact_launch_s(const TrainArgs& a, const float* alpha,
+                                     unsigned* spk, const TickParams& p, int threads,
+                                     size_t smem, cudaStream_t stream) {
+  switch ((max(a.N, a.H) + 31) / 32) {
+    case 1: return rsnn_train_exact_launch_w<1, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 2: return rsnn_train_exact_launch_w<2, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 3: return rsnn_train_exact_launch_w<3, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 4: return rsnn_train_exact_launch_w<4, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 5: return rsnn_train_exact_launch_w<5, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 6: return rsnn_train_exact_launch_w<6, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 7: return rsnn_train_exact_launch_w<7, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    case 8: return rsnn_train_exact_launch_w<8, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As rsnn_train_launch, with alpha (H) the neurons' decays and, for the
+// device-scratch path (traces_smem 0), tr_h, tr_l, tr_zbar (T, B, H), tr_err
+// (T, B, O) and spk (B, T, ceil(H/32)); smem_bytes must be this kernel's
+// layout for the plan's choices (kernels/rsnn_step.py:train_exact_plan).
+extern "C" int rsnn_train_exact_launch(
+    const float* raster, const float* y_star, const float* valid,
+    const float* w_in, const float* w_rec, const float* w_out,
+    const float* b_fb, const float* alpha, float* tr_h, float* tr_l,
+    float* tr_zbar, float* tr_err, unsigned* spk, float* dw_part, float* dw,
+    int* dw_codes, float* acc_y, float* n_spk, int T, int B, int N, int H,
+    int O, int threads, int weights_smem, int traces_smem, int infer_all,
+    long long smem_bytes, float alpha_f, float kappa, float v_th,
+    float alpha_c, float kappa_c, float v_lo, float v_hi, int reset_sub,
+    int quant, float bw_vth, float y_scale, float target_amp, int err_softmax,
+    float commit_lsb, int commit_bits, void* stream) {
+  const bool grid = commit_lsb > 0.f;
+  if (T < 1 || B < 1 || O > RSNN_MAX_OUT || N > 32 * RSNN_MAX_WORDS ||
+      H > 32 * RSNN_MAX_WORDS || !alpha ||
+      (!traces_smem && (!tr_h || !tr_l || !tr_zbar || !tr_err || !spk)) ||
+      (traces_smem && !weights_smem) || threads < 64 ||
+      (size_t)smem_bytes != rsnn_train_exact_smem_floats(T, N, H, O, weights_smem,
+                                                         traces_smem) * sizeof(float) ||
+      (grid ? (!dw_codes || commit_bits < 2 || commit_bits > 24) : !dw)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TickParams p{alpha_f, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
+               quant, bw_vth, y_scale, target_amp, err_softmax};
+  TrainArgs a{raster, y_star, valid, w_in, w_rec, w_out, b_fb, tr_h, nullptr,
+              tr_l, tr_zbar, tr_err, nullptr, dw_part, acc_y, n_spk,
+              T, B, N, H, O, weights_smem, infer_all};
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = traces_smem
+               ? rsnn_train_exact_launch_s<true>(a, alpha, spk, p, threads, smem_bytes, st)
+               : rsnn_train_exact_launch_s<false>(a, alpha, spk, p, threads, smem_bytes, st);
+  if (rc) return rc;
+  const int e_all = N * H + H * H + H * O;
+  if (!traces_smem) {
+    const dim3 grid_rows((e_all + RSNN_FLAT_THREADS - 1) / RSNN_FLAT_THREADS, B);
+    rsnn_exact_dw_rows_kernel<<<grid_rows, RSNN_FLAT_THREADS, 0, st>>>(a, alpha, spk,
+                                                                      kappa);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  return grid ? rsnn_reduce_codes(dw_part, B, e_all, commit_lsb, commit_bits,
+                                  dw_codes, st)
+              : rsnn_reduce_dw(dw_part, B, e_all, dw, st);
 }

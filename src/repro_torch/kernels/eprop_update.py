@@ -17,6 +17,25 @@ e-prop update — with their plain PyTorch versions (counterpart of
   traces in device memory (the ``eprop_update`` op of the split
   pipeline): one thread per (row, neuron) for F, then one per (row, dw
   element).
+* :func:`rsnn_train_exact_cuda` — ``rsnn_train_exact_kernel``: the
+  ``train_tile`` op in exact mode (``EpropConfig.mode="exact"``, the
+  per-synapse filtered eligibility of ReckOn's trace SRAM), with a scalar
+  or per-neuron ``alpha``.  One block per batch row runs ``rsnn_train``'s
+  forward phases (its LIF loop leaking each neuron by its own ``alpha``),
+  then the learning signal ``L = err · B_fbᵀ`` of every tick, then one
+  thread per synapse ``(i, j)`` walks the ticks forward with the
+  synapse's state in registers::
+
+    eps  = alpha_j·eps + s_i[t]          (s: the input, or the spike of
+    ebar = kappa·ebar + h_j[t]·eps        presynaptic neuron i a tick
+    dW_ij += ebar·L_j[t]                  before)
+
+  and ``dW_out[j, o] += zbar_j[t]·err_o[t]``.  Nothing of the forward
+  depends on the traces, so walking a synapse through all its ticks after
+  the forward gives the tick-by-tick values in the reference's order
+  (:func:`rsnn_train_exact_plain`; ``dw`` to a tolerance, as
+  ``rsnn_train``'s: the error goes through ``expf`` and ``L`` sums its
+  products in another order than ``torch.matmul``).
 
 Both reverse passes run the same device functions (``csrc/rsnn_train.cu``):
 over ticks ``T-1..0``::
@@ -58,6 +77,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.eprop import EpropConfig, exact_tile
+from repro_torch.core.neuron import NeuronConfig
 from repro_torch.core.quant import QuantizedMode, QuantSpec
 from repro_torch.kernels.launch import grid_launches, launches, raise_on, stream_arg
 from repro_torch.kernels.rsnn_step import (
@@ -67,6 +88,7 @@ from repro_torch.kernels.rsnn_step import (
     check_arg,
     datapath_scalars,
     tick_transition,
+    train_exact_plan,
     train_plan,
     weight_elems,
 )
@@ -129,19 +151,21 @@ def _check_grid(grid: QuantSpec) -> None:
                          "x / lsb must be exact")
 
 
-def _train_codes_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, grid, kw):
-    """The commit-grid path of :func:`rsnn_train_plain`: one ``B=1`` pass a
-    row (each row's arithmetic is the same whatever batch it came in, as in
-    the reference's ``lax.map``), its ``dw`` snapped to codes, the codes
-    summed in int32."""
+def _train_codes_plain(one, raster, y_star, valid, w_in, w_rec, w_out, b_fb, grid,
+                       kw):
+    """The commit-grid path of :func:`rsnn_train_plain` and
+    :func:`rsnn_train_exact_plain` (``one``): one ``B=1`` pass a row (each
+    row's arithmetic is the same whatever batch it came in, as in the
+    reference's ``lax.map``), its ``dw`` snapped to codes, the codes summed
+    in int32."""
     _check_grid(grid)
     T, B, N = raster.shape
     H, O = w_rec.shape[0], w_out.shape[1]
     codes = [raster.new_zeros(s, dtype=torch.int32) for s in ((N, H), (H, H), (H, O))]
     acc, nspk = raster.new_zeros((B, O)), raster.new_zeros((B, 1))
     for b in range(B):
-        out = rsnn_train_plain(raster[:, b: b + 1], y_star[b: b + 1],
-                               valid[:, b: b + 1], w_in, w_rec, w_out, b_fb, **kw)
+        out = one(raster[:, b: b + 1], y_star[b: b + 1], valid[:, b: b + 1],
+                  w_in, w_rec, w_out, b_fb, **kw)
         codes = [c + dw_codes(d, grid) for c, d in zip(codes, out[:3])]
         acc[b], nspk[b] = out[3][0], out[4][0]
     return (*codes, acc, nspk)
@@ -164,8 +188,8 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
         kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
                   boxcar_width=boxcar_width, quant=quant, error=error,
                   target_amplitude=target_amplitude, infer_window=infer_window)
-        return _train_codes_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb,
-                                  commit_grid, kw)
+        return _train_codes_plain(rsnn_train_plain, raster, y_star, valid, w_in,
+                                  w_rec, w_out, b_fb, commit_grid, kw)
     c = _consts(alpha, kappa, v_th, reset, quant)
     _check_exact_matmul(raster, quant)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
@@ -207,6 +231,33 @@ def _dw_outputs(N: int, H: int, O: int, nb: int, dev, dtype=torch.float32):
     return part, dw, views
 
 
+def _check_train_args(op, raster, y_star, valid, w_in, w_rec, w_out, b_fb, error,
+                      commit_grid):
+    """The train kernels' argument checks (device, dtype, shape,
+    contiguity, the widths the event loop takes, the error mode and the
+    commit grid) → ``(T, B, N, H, O)``."""
+    if error not in ("softmax", "direct"):
+        raise ValueError(f"unknown error mode {error!r}")
+    if commit_grid is not None:
+        _check_grid(commit_grid)
+    T, B, N = raster.shape
+    H, O = w_rec.shape[0], w_out.shape[1]
+    if O > MAX_ERR_OUTPUTS:
+        raise ValueError(f"{op}: {O} outputs > {MAX_ERR_OUTPUTS} "
+                         "(the chip's readout; RSNN_MAX_OUT in csrc)")
+    if max(N, H) > EVENT_LOOP_MAX_WIDTH:
+        raise ValueError(f"{op}: {N} inputs / {H} neurons > {EVENT_LOOP_MAX_WIDTH} "
+                         "(the chip's; RSNN_MAX_WORDS in csrc)")
+    for name, t, shape in (
+        ("raster", raster, (T, B, N)), ("y_star", y_star, (B, O)),
+        ("valid", valid, (T, B)), ("w_in", w_in, (N, H)),
+        ("w_rec", w_rec, (H, H)), ("w_out", w_out, (H, O)),
+        ("b_fb", b_fb, (H, O)),
+    ):
+        check_arg(name, t, shape, raster.device)
+    return T, B, N, H, O
+
+
 def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     alpha: float, kappa: float, v_th: float = 1.0,
                     reset: str = "sub", boxcar_width: float = 0.5,
@@ -223,28 +274,11 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     refused launch."""
     from repro_torch.kernels import build
 
-    if error not in ("softmax", "direct"):
-        raise ValueError(f"unknown error mode {error!r}")
-    if commit_grid is not None:
-        _check_grid(commit_grid)
-        if return_traces:
-            raise ValueError("rsnn_train: the commit-grid path returns no traces")
-    T, B, N = raster.shape
-    H, O = w_rec.shape[0], w_out.shape[1]
-    if O > MAX_ERR_OUTPUTS:
-        raise ValueError(f"rsnn_train: {O} outputs > {MAX_ERR_OUTPUTS} "
-                         "(the chip's readout; RSNN_MAX_OUT in csrc)")
-    if max(N, H) > EVENT_LOOP_MAX_WIDTH:
-        raise ValueError(f"rsnn_train: {N} inputs / {H} neurons > {EVENT_LOOP_MAX_WIDTH} "
-                         "(the chip's; RSNN_MAX_WORDS in csrc)")
+    if commit_grid is not None and return_traces:
+        raise ValueError("rsnn_train: the commit-grid path returns no traces")
+    T, B, N, H, O = _check_train_args("rsnn_train", raster, y_star, valid, w_in, w_rec,
+                                      w_out, b_fb, error, commit_grid)
     dev = raster.device
-    for name, t, shape in (
-        ("raster", raster, (T, B, N)), ("y_star", y_star, (B, O)),
-        ("valid", valid, (T, B)), ("w_in", w_in, (N, H)),
-        ("w_rec", w_rec, (H, H)), ("w_out", w_out, (H, O)),
-        ("b_fb", b_fb, (H, O)),
-    ):
-        check_arg(name, t, shape, dev)
     acc = torch.empty((B, O), dtype=torch.float32, device=dev)
     nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
     width = {"xbar": N, "err": O}
@@ -293,6 +327,119 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     if return_partials:
         out = (*out, part)
     return (*out, tr) if return_traces else out
+
+
+def exact_alpha(alpha, n_hid: int, like: torch.Tensor) -> torch.Tensor:
+    """The decays of exact mode as a contiguous ``(H,)`` float32 tensor on
+    ``like``'s device: a scalar (a float or a 0-d tensor) broadcast, or one
+    decay a neuron.  Any other shape raises."""
+    if not isinstance(alpha, torch.Tensor):
+        # a fill on the device: no host-to-device copy, which would wait for
+        # the stream
+        return torch.full((n_hid,), float(alpha), dtype=torch.float32, device=like.device)
+    a = alpha.to(device=like.device, dtype=torch.float32)
+    if a.ndim > 1 or (a.ndim == 1 and a.shape[0] != n_hid):
+        raise ValueError(f"alpha: a scalar or one decay a neuron ({n_hid},), "
+                         f"got shape {tuple(a.shape)}")
+    return a.expand(n_hid).contiguous()
+
+
+def rsnn_train_exact_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+                           alpha, kappa: float, v_th: float = 1.0,
+                           reset: str = "sub", boxcar_width: float = 0.5,
+                           quant: Optional[QuantizedMode] = None,
+                           error: str = "softmax", target_amplitude: float = 1.0,
+                           infer_window: str = "valid",
+                           commit_grid: Optional[QuantSpec] = None):
+    """Plain version of :func:`rsnn_train_exact_cuda` → ``(dw_in, dw_rec,
+    dw_out, acc_y (B, O), n_spk (B, 1))``: the port's exact-mode oracle
+    (:func:`repro_torch.core.eprop.exact_tile`) on the datapath weights,
+    with the boxcar surrogate, ``dw`` summed over the batch and ``dw_rec``
+    not masked.  ``alpha`` is a scalar or ``(H,)``: it filters the
+    presynaptic traces, and leaks the membrane in float mode (quantized
+    mode leaks by ``alpha_reg``).  With ``commit_grid`` the three ``dw``
+    are the rows' summed int32 codes."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
+              boxcar_width=boxcar_width, quant=quant, error=error,
+              target_amplitude=target_amplitude, infer_window=infer_window)
+    if commit_grid is not None:
+        return _train_codes_plain(rsnn_train_exact_plain, raster, y_star, valid, w_in,
+                                  w_rec, w_out, b_fb, commit_grid, kw)
+    c = _consts(0.0, kappa, v_th, reset, quant)
+    _check_exact_matmul(raster, quant)
+    ncfg = NeuronConfig(kappa=c["kappa"], v_th=c["v_th"], reset=reset,
+                        surrogate="boxcar", boxcar_width=boxcar_width, quant=quant)
+    ecfg = EpropConfig(mode="exact", error=error, target_amplitude=target_amplitude,
+                       infer_window=infer_window)
+    y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
+    return exact_tile(w_in, w_rec, w_out, b_fb, exact_alpha(alpha, w_rec.shape[0], raster),
+                      raster, y_star, valid, y_scale, ncfg, ecfg)
+
+
+def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+                          alpha, kappa: float, v_th: float = 1.0,
+                          reset: str = "sub", boxcar_width: float = 0.5,
+                          quant: Optional[QuantizedMode] = None,
+                          error: str = "softmax", target_amplitude: float = 1.0,
+                          infer_window: str = "valid",
+                          commit_grid: Optional[QuantSpec] = None,
+                          return_partials: bool = False):
+    """Launch ``rsnn_train_exact_kernel`` (then, where the row's trace set
+    is in the device scratch, ``rsnn_exact_dw_rows_kernel``; then the
+    row-order ``dw`` reduction, or with ``commit_grid``
+    ``rsnn_dw_codes_reduce_kernel``) on the current stream of the tensors'
+    device → the outputs of :func:`rsnn_train_exact_plain`;
+    ``return_partials`` appends the ``(B, E)`` per-row ``dw`` buffer the
+    reduction read.  Checks as :func:`rsnn_train_cuda`; raises on a refused
+    launch."""
+    from repro_torch.kernels import build
+
+    T, B, N, H, O = _check_train_args("rsnn_train_exact", raster, y_star, valid, w_in,
+                                      w_rec, w_out, b_fb, error, commit_grid)
+    dev = raster.device
+    a = exact_alpha(alpha, H, raster)
+    acc = torch.empty((B, O), dtype=torch.float32, device=dev)
+    nspk = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    out_dtype = torch.float32 if commit_grid is None else torch.int32
+    if B == 0 or T == 0:
+        zeros = tuple(torch.zeros(s, dtype=out_dtype, device=dev)
+                      for s in ((N, H), (H, H), (H, O)))
+        out = (*zeros, acc.zero_(), nspk.zero_())
+        return (*out, torch.zeros((B, weight_elems(N, H, O)), device=dev)) \
+            if return_partials else out
+    lib = build.library()
+    # the kernel leaks and filters by the alpha vector; TickParams.alpha
+    # is not read
+    c = _consts(0.0, kappa, v_th, reset, quant)
+    plan = train_exact_plan(T, N, H, O)
+    scratch = []
+    if not plan.traces_smem:
+        # h, L, zbar (T, B, H), err (T, B, O), the spike masks (B, T, words)
+        scratch = [torch.empty((T, B, w), dtype=torch.float32, device=dev)
+                   for w in (H, H, H, O)]
+        scratch.append(torch.empty((B, T, -(-H // 32)), dtype=torch.int32, device=dev))
+    part, dw, views = _dw_outputs(N, H, O, B, dev, out_dtype)
+    y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
+    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out, b_fb, a)]
+    ptrs += [t.data_ptr() for t in scratch] if scratch else [None] * 5
+    ptrs += [part.data_ptr()]
+    ptrs += [dw.data_ptr(), None] if commit_grid is None else [None, dw.data_ptr()]
+    ptrs += [acc.data_ptr(), nspk.data_ptr()]
+    lsb, bits = (0.0, 0) if commit_grid is None else (commit_grid.lsb, commit_grid.bits)
+    with torch.cuda.device(dev):
+        rc = lib.rsnn_train_exact_launch(
+            *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
+            int(plan.traces_smem), int(infer_window == "all"),
+            ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
+            ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
+            ctypes.c_float(target_amplitude), int(error == "softmax"),
+            ctypes.c_float(lsb), int(bits), stream_arg(dev))
+    raise_on(lib, rc, "rsnn_train_exact")
+    launches["rsnn_train_exact"] += 1
+    if commit_grid is not None:
+        grid_launches["rsnn_train_exact"] += 1
+    out = (*views, acc, nspk)
+    return (*out, part) if return_partials else out
 
 
 def eprop_update_cuda(h, xbar, pbar, zbar, err, b_fb, *, kappa: float

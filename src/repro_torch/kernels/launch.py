@@ -25,21 +25,23 @@ THREADS_PER_BLOCK = 1024
 THREADS_PER_SM = 2048
 H100_SMS = 132
 
-# Every kernel of the port: the five RSNN kernels and the LM's attention
-# kernel, forward and backward.
+# Every kernel of the port: the five RSNN kernels, the exact-mode e-prop
+# kernel and the LM's attention kernel, forward and backward.
 KERNELS = ("rsnn_infer", "rsnn_step_sessions", "rsnn_forward", "rsnn_train",
-           "eprop_update", "flash_attention", "flash_attention_bwd")
+           "eprop_update", "rsnn_train_exact", "flash_attention",
+           "flash_attention_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
-# rsnn_train's launches that reduced onto the integer commit grid
+# The train kernels' launches that reduced onto the integer commit grid
 # (rsnn_dw_codes_reduce_kernel, in the same launch): a share of
-# launches["rsnn_train"], counted beside it.
-grid_launches: Dict[str, int] = {"rsnn_train": 0}
+# launches[k], counted beside it.
+grid_launches: Dict[str, int] = {"rsnn_train": 0, "rsnn_train_exact": 0}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
-    grid_launches["rsnn_train"] = 0
+    for k in grid_launches:
+        grid_launches[k] = 0
 
 
 def cdiv(a: int, b: int) -> int:

@@ -9,12 +9,13 @@ failed build or launch propagates.
 wrappers in :mod:`repro_torch.kernels.rsnn_step`,
 :mod:`repro_torch.kernels.eprop_update` and
 :mod:`repro_torch.kernels.flash_attention` count each launch) holds plain
-integers for all seven kernels (the six of the JAX package's Pallas
-kernels, and the attention backward, counted once a backward call): a
-run sets them to 0, drives the main path, and reads them back to show the
-path went through the kernels.
-``grid_launches["rsnn_train"]`` counts the share of ``rsnn_train``'s
-launches that reduced onto the integer commit grid.
+integers for all eight kernels (the six of the JAX package's Pallas
+kernels, the attention backward, counted once a backward call, and
+``rsnn_train_exact``, the exact-mode e-prop the JAX package runs as a
+compiled scan): a run sets them to 0, drives the main path, and reads
+them back to show the path went through the kernels.
+``grid_launches[k]`` counts the share of train kernel ``k``'s launches
+that reduced onto the integer commit grid.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from repro_torch.kernels.launch import KERNELS, grid_launches, launches, reset_l
 
 __all__ = ["KERNELS", "eprop_update", "flash_attention", "grid_launches", "launches",
            "reset_launch_counts", "rsnn_forward", "rsnn_infer",
-           "rsnn_step_sessions", "rsnn_train"]
+           "rsnn_step_sessions", "rsnn_train", "rsnn_train_exact"]
 
 
 def _on_card(t: torch.Tensor, op: str) -> bool:
@@ -99,6 +100,25 @@ def rsnn_train(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     if not _on_card(raster, "rsnn_train"):
         return _train.rsnn_train_plain(*args, **kw)
     return _train.rsnn_train_cuda(*args, **kw)
+
+
+def rsnn_train_exact(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
+                     alpha, kappa: float, v_th: float = 1.0, reset: str = "sub",
+                     boxcar_width: float = 0.5, quant: Optional[QuantizedMode] = None,
+                     error: str = "softmax", target_amplitude: float = 1.0,
+                     infer_window: str = "valid",
+                     commit_grid: Optional[QuantSpec] = None):
+    """Forward + exact-mode e-prop (per-synapse traces) over one ``(T, B)``
+    tile → the outputs of :func:`rsnn_train`; ``alpha`` a scalar or one
+    decay a neuron ``(H,)``."""
+    kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
+              boxcar_width=boxcar_width, quant=quant, error=error,
+              target_amplitude=target_amplitude, infer_window=infer_window,
+              commit_grid=commit_grid)
+    args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
+    if not _on_card(raster, "rsnn_train_exact"):
+        return _train.rsnn_train_exact_plain(*args, **kw)
+    return _train.rsnn_train_exact_cuda(*args, **kw)
 
 
 def eprop_update(h, xbar, pbar, zbar, err, b_fb, *, kappa: float):

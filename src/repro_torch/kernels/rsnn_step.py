@@ -35,7 +35,8 @@ threads and the 227 KB of shared memory a block may use on an H100:
   memory beside the chunk;
 * :func:`train_plan` — ``rsnn_train``, one row a block: the row's whole
   trace set stays in shared memory where it fits, and goes to a device
-  scratch where it does not;
+  scratch where it does not (:func:`train_exact_plan`, the same for
+  ``rsnn_train_exact``);
 * :func:`forward_plan` — ``rsnn_forward``: rows a block (a loop warp
   each), the readout's chunks, and what of the weights and the rows'
   raster and input currents fits in shared memory;
@@ -121,23 +122,43 @@ def spike_mask_bytes(T: int, n_hid: int) -> int:
     return F32_BYTES * T * cdiv(n_hid, 32)
 
 
-def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
-    """Every block keeps the row's valid mask (T floats) and its spike
-    masks (one word per 32 neurons a tick) in shared memory.  The row's
-    trace set goes there too, with the weights, when both fit; otherwise
-    it goes to a device scratch, and the weights stay in shared memory if
-    they fit beside the rest."""
-    base = F32_BYTES * T + spike_mask_bytes(T, n_hid)
+def _row_plan(op: str, base: int, T: int, n_in: int, n_hid: int, n_out: int,
+              threads: int) -> TrainPlan:
+    """A one-row-a-block plan whose block keeps ``base`` bytes (the row's
+    masks) in shared memory: the row's trace set goes there too, with the
+    weights, when both fit; otherwise it goes to a device scratch, and the
+    weights stay in shared memory if they fit beside the rest."""
     weights = weights_bytes(n_in, n_hid, n_out)
     traces = train_trace_bytes(T, n_in, n_hid, n_out)
     if base > SMEM_PER_BLOCK:
-        raise ValueError(f"rsnn_train: T={T} ticks of masks exceed a block's "
+        raise ValueError(f"{op}: T={T} ticks of masks exceed a block's "
                          f"{SMEM_PER_BLOCK} bytes of shared memory")
     traces_smem = base + weights + traces <= SMEM_PER_BLOCK
     weights_smem = base + weights <= SMEM_PER_BLOCK
     used = base + (weights if weights_smem else 0) + (traces if traces_smem else 0)
-    return TrainPlan(threads=REVERSE_MIN_THREADS, traces_smem=traces_smem,
+    return TrainPlan(threads=threads, traces_smem=traces_smem,
                      weights_smem=weights_smem, smem_bytes=used)
+
+
+def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
+    """Every block keeps the row's valid mask (T floats) and its spike
+    masks (one word per 32 neurons a tick) in shared memory, and the trace
+    set and the weights where they fit (:func:`_row_plan`)."""
+    return _row_plan("rsnn_train", F32_BYTES * T + spike_mask_bytes(T, n_hid),
+                     T, n_in, n_hid, n_out, REVERSE_MIN_THREADS)
+
+
+def train_exact_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
+    """``rsnn_train_exact``, one block a row, as :func:`train_plan` lays out
+    ``rsnn_train`` with the row's decays ``alpha (H)`` beside its masks;
+    the trace set (the input current and then ``h``, the raster, the
+    learning signal ``L``, ``zbar`` and ``err``) has ``rsnn_train``'s
+    size.  The block's threads share the per-synapse walks, so it asks for
+    a full block (the launcher lowers it to what the kernel's registers
+    allow)."""
+    return _row_plan("rsnn_train_exact",
+                     F32_BYTES * (T + n_hid) + spike_mask_bytes(T, n_hid),
+                     T, n_in, n_hid, n_out, THREADS_PER_BLOCK)
 
 
 @dataclasses.dataclass(frozen=True)

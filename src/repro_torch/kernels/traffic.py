@@ -8,7 +8,8 @@ from L2 after the first), carries once in and once out.  The serving
 kernels write no per-tick tensor; ``rsnn_forward`` streams its seven;
 ``rsnn_train`` keeps its trace set in shared memory where it fits (its
 device scratch otherwise is not counted: it is the kernel's own round
-trip, not the function's input or output).  ``BatchedEngine`` sums
+trip, not the function's input or output; nor is ``rsnn_train_exact``'s).
+``BatchedEngine`` sums
 the serving formulas into ``hbm_bytes_streamed``; ``chip_smoke.py``
 derives each kernel's bound from these.  The attention kernel's bytes and its exact-causal operation count
 close the module.
@@ -90,6 +91,26 @@ def train_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
     reverse = 2 * T * B * (weight_elems(n_in, n_hid, n_out) + n_hid * n_out)
     return forward_event_flops(T, B, n_in, n_hid, n_out, input_events, spikes,
                                fed_back) + reverse
+
+
+def train_exact_bytes(T: int, B: int, n_in: int, n_hid: int, n_out: int) -> int:
+    """``rsnn_train_exact``: :func:`train_fused_tiled_bytes` and the
+    neurons' decays ``alpha (H)`` in."""
+    return train_fused_tiled_bytes(T, B, n_in, n_hid, n_out) + F32_BYTES * n_hid
+
+
+def train_exact_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,
+                            input_events: int, spikes: int, fed_back: int) -> int:
+    """Operations exact-mode e-prop needs on given data: the event-driven
+    sums of :func:`forward_event_flops`, every row and tick the membrane
+    leak and the ``zbar`` filter (a multiply and an add per neuron) and the
+    readout leak (per output) — no ``xbar`` or ``pbar`` filter — then per
+    row and tick 7 per synapse, ``(N + H)·H`` of them (``eps`` 2, ``ebar``
+    3, ``dw`` 2), and the learning signal and ``dw_out`` (``2·H·O`` each)."""
+    events = 2 * n_hid * (input_events + fed_back) + 2 * n_out * spikes
+    per_tick = (2 * (2 * n_hid + n_out) + 7 * (n_in + n_hid) * n_hid
+                + 4 * n_hid * n_out)
+    return events + T * B * per_tick
 
 
 def serve_event_flops(T: int, B: int, n_in: int, n_hid: int, n_out: int,

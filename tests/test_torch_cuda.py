@@ -104,7 +104,8 @@ def test_kernels_match_plain_on_card(quantized, cuda_device):
         carries = list(want)
     assert ops.launches == {"rsnn_infer": 1, "rsnn_step_sessions": 2,
                             "rsnn_forward": 0, "rsnn_train": 0, "eprop_update": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "rsnn_train_exact": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -325,7 +326,97 @@ def test_train_kernels_match_plain_on_card(quantized, feedback, cuda_device):
     _check_dw(got, want)
     assert ops.launches == {"rsnn_infer": 0, "rsnn_step_sessions": 0,
                             "rsnn_forward": 2, "rsnn_train": 1, "eprop_update": 1,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "rsnn_train_exact": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
+
+
+def _exact_case(rng, quantized, dims, T, B, dev, alpha):
+    """An exact-mode tile: the reduced Braille case of ``_train_case`` and
+    the ``rsnn_train_exact`` keywords, with ``alpha`` the backend's
+    (``"scalar"``) or one decay a neuron in [0.85, 1)."""
+    cfg, be, params, raster, valid, y_star = _train_case(
+        rng, quantized, "random", T, B, dev, dims=dims)
+    a = (torch.tensor(be.alpha) if alpha == "scalar" else torch.from_numpy(
+        rng.uniform(0.85, 1.0, size=cfg.n_hid).astype(np.float32))).to(dev)
+    args = (raster, y_star, valid, *be.datapath_weights(params), be._feedback(params))
+    kw = dict(alpha=a, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
+              reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              quant=be.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("alpha", ["scalar", "per_neuron"])
+@pytest.mark.parametrize("dims,T,B", [((12, 16, 3), 32, 1), ((12, 16, 3), 32, 9),
+                                      ((12, 38, 3), 512, 3), ((256, 256, 16), 32, 2)])
+def test_train_exact_kernel_matches_plain_on_card(dims, T, B, alpha, quantized,
+                                                  cuda_device):
+    """``rsnn_train_exact`` against its plain version at the reduced Braille
+    config (the row's trace set in shared memory), at Braille T=512 and at
+    256/256/16 (the device scratch and ``rsnn_exact_dw_rows_kernel``):
+    ``dw`` within ``DW_TOL`` of its max, ``acc_y`` and ``n_spk`` bitwise when
+    quantized; two launches give the same bits; one counted launch each."""
+    args, kw = _exact_case(np.random.default_rng(40), quantized, dims, T, B,
+                           cuda_device, alpha)
+    plan = rsnn_step.train_exact_plan(T, *dims)
+    assert plan.traces_smem == (dims[1] == 16)
+    ops.reset_launch_counts()
+    got = eprop_update.rsnn_train_exact_cuda(*args, **kw)
+    again = eprop_update.rsnn_train_exact_cuda(*args, **kw)
+    assert ops.launches["rsnn_train_exact"] == 2 and ops.launches["rsnn_train"] == 0
+    want = eprop_update.rsnn_train_exact_plain(*args, **kw)
+    _check_dw(got[:3], want[:3])
+    for a, b in zip(got[3:], want[3:]):
+        _check(a, b, quantized)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_exact_commit_grid_on_card(cuda_device):
+    """On the commit grid: the codes equal their plain reduce over the
+    launch's own partials bitwise, and the plain B=1 loop within the dw
+    tolerance plus B lsb; the partials equal the float launch's."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+
+    args, kw = _exact_case(np.random.default_rng(41), True, (12, 38, 3), 64, 11,
+                           cuda_device, "per_neuron")
+    got = eprop_update.rsnn_train_exact_cuda(*args, **kw, commit_grid=G,
+                                             return_partials=True)
+    flt = eprop_update.rsnn_train_exact_cuda(*args, **kw, return_partials=True)
+    assert got[0].dtype == torch.int32 and torch.equal(got[5], flt[5])
+    codes = torch.cat([c.reshape(-1) for c in got[:3]])
+    assert torch.equal(codes, eprop_update.dw_codes_reduce_plain(got[5], G))
+    want = eprop_update.rsnn_train_exact_plain(*args, **kw, commit_grid=G)
+    for g, p, f in zip(got[:3], want[:3], flt[:3]):
+        err = float((g - p).abs().max()) * G.lsb
+        assert err <= DW_TOL * float(f.abs().max()) + 11 * G.lsb
+
+
+@pytest.mark.cuda
+def test_backend_trains_exact_mode_through_the_kernel(cuda_device):
+    """``train_tile`` in exact mode with a per-neuron ``alpha`` in the
+    weights launches ``rsnn_train_exact`` (not ``rsnn_train``) and gives the
+    CPU backend's ``dw`` within ``DW_TOL``; a per-neuron alpha in factored
+    mode raises."""
+    rng = np.random.default_rng(42)
+    cfg, be, params, raster, valid, y_star = _train_case(rng, True, "random", 64, 5,
+                                                         cuda_device)
+    cfg = dataclasses.replace(cfg, eprop=dataclasses.replace(cfg.eprop, mode="exact"))
+    params["alpha"] = torch.from_numpy(rng.uniform(0.85, 1.0, size=cfg.n_hid)
+                                       .astype(np.float32)).to(cuda_device)
+    ops.reset_launch_counts()
+    got, gm = ExecutionBackend(cfg, device=cuda_device).train_tile(params, raster, y_star,
+                                                                  valid)
+    assert ops.launches["rsnn_train_exact"] == 1 and ops.launches["rsnn_train"] == 0
+    cpu = {k: v.cpu() for k, v in params.items()}
+    want, wm = ExecutionBackend(cfg, device="cpu").train_tile(
+        cpu, raster.cpu(), y_star.cpu(), valid.cpu())
+    _check_dw([got[k].cpu() for k in want], list(want.values()))
+    assert torch.equal(gm["acc_y"].cpu(), wm["acc_y"])
+    with pytest.raises(ValueError, match="scalar alpha"):
+        be.train_tile(params, raster, y_star, valid)
 
 
 @pytest.mark.cuda
