@@ -18,7 +18,8 @@ trains), trains qwen3-1.7b with int8 error-feedback gradient compression
 over a pod axis, runs GPipe over its layers and deepseek-v2-lite-16b's
 grouped MoE dispatch on a one-rank NCCL world, kills and resumes a
 checkpointed learner on the card, learns Braille in exact-mode e-prop
-(per-synapse traces) through its own kernel, and times the kernels.
+(per-synapse traces) through its own kernel and under the triangular
+surrogate, and times the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree CHECKOUT   # time another tree's kernels
@@ -384,6 +385,21 @@ before any profiler session):
       the backend's inference (launches_by_path "exact_learning"); at the
       end of the run rsnn_train_exact timed at T=256 B=1 (the kernels
       line) and at the END_B tile, with rsnn_train beside.
+  (am) after (al): the surrogate (cfg.neuron.surrogate).  rsnn_forward,
+      rsnn_train and rsnn_train_exact under the triangular
+      pseudo-derivative (gamma 0.3) and a boxcar of half-width 0.25,
+      against their plain versions at Braille T=256 B=1 and the END_B
+      tile (T=128, B=70), quantized and float, and the cue net (40/100/2,
+      T=150, quantized): dw within TRAIN_DW_TOL of max|dw|, acc_y, n_spk,
+      rsnn_forward's streams (h among them) and rsnn_train's traces
+      bitwise when quantized, each kernel's h another than the default
+      boxcar's.  Then one epoch of factored END_S learning on Braille AEU
+      (seed 1, quantized) under the triangular surrogate, 420 rsnn_train
+      launches (launches_by_path "surrogate"), its test accuracy beside
+      (al)'s boxcar epoch, gated on finite weights that moved; the phase's
+      own seconds printed.  At the end of the run the three kernels timed
+      under the triangular surrogate beside the boxcar at T=256 B=1 and
+      the END_B tile (the kernels line's "triangular").
 """
 
 from __future__ import annotations
@@ -5548,6 +5564,7 @@ def _exact_case(gen, cfg, T, B, dev, alpha, density=0.12):
     args = (*ins, *be.datapath_weights(params), be._feedback(params))
     kw = dict(alpha=a, kappa=cfg.neuron.kappa, v_th=cfg.neuron.v_th,
               reset=cfg.neuron.reset, boxcar_width=cfg.neuron.boxcar_width,
+              surrogate=cfg.neuron.surrogate, gamma=cfg.neuron.gamma,
               quant=be.quant, error=cfg.eprop.error, infer_window=cfg.eprop.infer_window)
     return cfg, args, kw
 
@@ -5721,6 +5738,175 @@ def phase_exact_timing(dev):
         log(f"(al) rsnn_train (factored) at {shape}: {fact} ms on the card (profiler); "
             f"rsnn_train_exact's plan {K.train_exact_plan(T, N, H, O)}")
         rows[key]["factored_ms"] = fact
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# (am) the surrogate: rsnn_forward, rsnn_train and rsnn_train_exact under the
+# triangular pseudo-derivative and a boxcar of another width, against their
+# plain versions; one triangular END_S epoch
+# ---------------------------------------------------------------------------
+
+# (am)'s surrogates: a name and the NeuronConfig fields that set it
+SURROGATE_CASES = (("triangular", dict(surrogate="triangular", gamma=0.3)),
+                   ("boxcar 0.25", dict(surrogate="boxcar", boxcar_width=0.25)))
+FORWARD_KW = ("alpha", "kappa", "v_th", "reset", "boxcar_width", "surrogate", "gamma",
+              "quant")
+
+
+def _surrogate_shapes():
+    """(am)'s shapes: name, config, T, B (the cue net: rsnn_train_exact's
+    device-scratch route)."""
+    from repro_torch.configs.reckon_braille import CONFIG, CONFIG_QUANT
+    from repro_torch.core.rsnn import Presets
+
+    return [("Braille T=256 B=1 quantized", CONFIG_QUANT, 256, 1),
+            ("Braille T=256 B=1 float", CONFIG, 256, 1),
+            ("END_B T=128 B=70 quantized", CONFIG_QUANT, 128, 70),
+            ("END_B T=128 B=70 float", CONFIG, 128, 70),
+            ("cue 40/100/2 T=150 B=8 quantized", Presets.cue_accumulation(quantized=True),
+             150, 8)]
+
+
+def _with_surrogate(cfg, fields):
+    return dataclasses.replace(cfg, neuron=dataclasses.replace(cfg.neuron, **fields))
+
+
+def phase_surrogate_vs_plain(dev):
+    """(am), first half: at each of :func:`_surrogate_shapes` under each of
+    SURROGATE_CASES, ``rsnn_forward``, ``rsnn_train`` and
+    ``rsnn_train_exact`` against their plain versions (the gates of (g) and
+    (al): dw within TRAIN_DW_TOL of max|dw|; acc_y, n_spk, rsnn_forward's
+    streams and rsnn_train's traces bitwise when quantized, else within
+    FLOAT_TOL); each kernel's ``h`` another than the default boxcar's.
+    Returns the largest error of each kernel."""
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    gen = torch.Generator().manual_seed(SEED + 32)
+    errs = {k: [0.0] for k in ("rsnn_forward", "rsnn_train", "rsnn_train_exact")}
+    for name, base, T, B in _surrogate_shapes():
+        quantized = base.neuron.quant is not None
+        for sname, fields in SURROGATE_CASES:
+            tag = f"(am) {name}, {sname}"
+            cfg, args, kw = _exact_case(gen, _with_surrogate(base, fields), T, B, dev,
+                                        "backend")
+            raster, w = args[0], args[3:6]
+            fkw = {k: kw[k] for k in FORWARD_KW}
+            got = K.rsnn_forward_cuda(raster, *w, **fkw)
+            boxcar = K.rsnn_forward_cuda(raster, *w, **dict(
+                fkw, surrogate="boxcar", boxcar_width=base.neuron.boxcar_width))["h"]
+            want = K.rsnn_forward_plain(raster, *w, **fkw)
+            torch.cuda.synchronize()
+            _compare(f"{tag} rsnn_forward", [got[k] for k in K.FORWARD_KEYS],
+                     [want[k] for k in K.FORWARD_KEYS], quantized, errs["rsnn_forward"])
+            if torch.equal(got["h"], boxcar):
+                fail(f"{tag}: rsnn_forward's h is the default boxcar's")
+            inner = int(((got["h"] > 0) & (got["h"] < 1)).sum())
+            got = E.rsnn_train_cuda(*args, **kw, return_traces=True)
+            want = E.rsnn_train_plain(*args, **kw, return_traces=True)
+            torch.cuda.synchronize()
+            errs["rsnn_train"].append(_dw_err(f"{tag} rsnn_train", got[:3], want[:3]))
+            _compare(f"{tag} rsnn_train acc_y/n_spk", got[3:5], want[3:5], quantized,
+                     errs["rsnn_train"])
+            keys = ("h", "xbar", "pbar", "zbar")
+            _compare(f"{tag} rsnn_train traces", [got[5][k] for k in keys],
+                     [want[5][k] for k in keys], quantized, errs["rsnn_train"])
+            ex = E.rsnn_train_exact_cuda(*args, **kw)
+            want_x = E.rsnn_train_exact_plain(*args, **kw)
+            torch.cuda.synchronize()
+            errs["rsnn_train_exact"].append(_dw_err(f"{tag} rsnn_train_exact", ex[:3],
+                                                    want_x[:3]))
+            _compare(f"{tag} rsnn_train_exact acc_y/n_spk", ex[3:], want_x[3:], quantized,
+                     errs["rsnn_train_exact"])
+            plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out)
+            log(f"{tag}: the three kernels hold their plain versions (dw within "
+                f"{TRAIN_DW_TOL} of max|dw|, the rest "
+                f"{'bitwise' if quantized else f'within {FLOAT_TOL}'}); h strictly "
+                f"between 0 and 1 at {inner} of {got[5]['h'].numel()} (t, b, neuron), "
+                f"another h than the default boxcar's; rsnn_train_exact's trace set in "
+                f"{'shared' if plan.traces_smem else 'device'} memory")
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_surrogate_learning(dev, boxcar_test_acc):
+    """(am), second half: one epoch of factored END_S learning on Braille
+    AEU (quantized, seed LEARN_SEEDS[0], (al)'s optimizer) under the
+    triangular surrogate, every commit one rsnn_train launch; its test
+    accuracy beside (al)'s boxcar epoch (no gate on it: the surrogate is
+    another rule), gated on finite weights that moved.  Returns the
+    launches and a summary."""
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.core.rsnn import Presets
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+
+    data = make_braille_dataset("AEU")
+    T = data["train"]["num_ticks"]
+    n_train = data["train"]["events"].shape[0]
+    cfg = _with_surrogate(Presets.braille(n_classes=3, num_ticks=T, quantized=True),
+                          SURROGATE_CASES[0][1])
+    opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * n_train)
+    pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
+    learner = OnlineLearner(cfg, ControllerConfig(num_epochs=1, eval_every=1,
+                                                  commit="sample"),
+                            opt, LEARN_SEEDS[0], device=dev)
+    start = {k: v.clone() for k, v in learner.weights.items()}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log_ = learner.fit(pipe)
+    test = learner.eval_epoch(pipe, 0, "test")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    if launches["rsnn_train"] != n_train or launches["rsnn_train_exact"] != 0:
+        fail(f"(am) triangular END_S epoch: {launches['rsnn_train']} rsnn_train launches "
+             f"for {n_train} samples, {launches['rsnn_train_exact']} of rsnn_train_exact")
+    if not all(torch.isfinite(v).all() for v in learner.weights.values()):
+        fail("(am) triangular END_S epoch: non-finite weights")
+    if all(torch.equal(learner.weights[k], v) for k, v in start.items()):
+        fail("(am) triangular END_S epoch moved no weight")
+    log(f"(am) ok: triangular END_S: 1 epoch on Braille AEU (T={T}, seed {LEARN_SEEDS[0]}), "
+        f"{n_train} commits: test {test:.4f} (the boxcar's in (al): {boxcar_test_acc:.4f}), "
+        f"val {log_.val_acc[-1]:.4f}, train {log_.train_acc[-1]:.4f}, {wall:.3f} s wall; "
+        f"launches {launches}")
+    return launches, dict(test_acc=test, boxcar_test_acc=boxcar_test_acc,
+                          val_acc=log_.val_acc[-1], wall_s=wall)
+
+
+def phase_surrogate_timing(dev):
+    """(am)'s kernels timed under the triangular surrogate beside the
+    default boxcar on the same inputs, at END_S's Braille commit (T=256,
+    B=1) and the END_B tile (T=128, B=70), quantized: the median of three
+    profiler readings each, the two surrogates in turns.  Returns
+    ``{kernel: [row a shape]}``."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    gen = torch.Generator().manual_seed(SEED + 33)
+    rows = {k: [] for k in ("rsnn_forward", "rsnn_train", "rsnn_train_exact")}
+    for T, B in ((256, 1), (128, 70)):
+        cfg, args, kw = _exact_case(gen, CONFIG_QUANT, T, B, dev, "backend")
+        tri = dict(kw, **SURROGATE_CASES[0][1])
+        calls = {"rsnn_forward": lambda k: K.rsnn_forward_cuda(
+                     args[0], *args[3:6], **{n: k[n] for n in FORWARD_KW}),
+                 "rsnn_train": lambda k: E.rsnn_train_cuda(*args, **k),
+                 "rsnn_train_exact": lambda k: E.rsnn_train_exact_cuda(*args, **k)}
+        shape = f"T={T} B={B} {cfg.n_in}/{cfg.n_hid}/{cfg.n_out} quantized"
+        for name, call in calls.items():
+            ms = {}
+            for which, k in (("boxcar", kw), ("triangular", tri), ("triangular", tri),
+                             ("boxcar", kw)):
+                ms.setdefault(which, []).append(_median_reading(lambda: call(k))[0])
+            row = dict(shape=shape, ms=ms["triangular"], boxcar_ms=ms["boxcar"])
+            rows[name].append(row)
+            log(f"(am) {name} at {shape}: triangular {ms['triangular']} ms, boxcar "
+                f"{ms['boxcar']} ms on the card (profiler, in turns: boxcar, triangular, "
+                f"triangular, boxcar)")
     return rows
 
 
@@ -5980,12 +6166,21 @@ def main() -> None:
     for k, n in exact_launches.items():
         by_path[k]["exact_learning"] = n
     launches["rsnn_train_exact"] = exact_launches["rsnn_train_exact"]
+    t_am = time.perf_counter()
+    for k, e in phase_surrogate_vs_plain(dev).items():
+        errs[k] = max(errs[k], e)
+    sur_launches, sur_summary = phase_surrogate_learning(     # resets the counts itself
+        dev, exact_summary["factored"]["test_acc"])
+    for k, n in sur_launches.items():
+        by_path[k]["surrogate"] = n
+    log(f"(am) ok in {time.perf_counter() - t_am:.1f} s")
     # the timing phases use torch.profiler: they run after the learning
     # run, so that its wall is taken before any profiler session
     b_tile = batching.padded_batch_size(len(reqs), batching.max_batch_for(CONFIG_QUANT))
     rows = phase_timing(dev, params, b_tile)
     rows.update(phase_train_timing(dev))
     rows.update(phase_exact_timing(dev))
+    sur_rows = phase_surrogate_timing(dev)
 
     errs["flash_attention"] = phase_flash_vs_plain(dev)
     lm_launches = phase_lm(dev)     # resets and reads the counts itself
@@ -6083,6 +6278,12 @@ def main() -> None:
         if name == "rsnn_forward":
             kernels[-1]["other_batches"] = [rows["rsnn_forward B=1"],
                                             rows["rsnn_forward B=2048"]]
+        if name in sur_rows:
+            kernels[-1]["triangular"] = {
+                "source": "src/repro_torch/kernels/csrc/rsnn_train_tri.cu",
+                "timing": sur_rows[name]}
+            if name == "rsnn_train":
+                kernels[-1]["triangular"]["learning"] = sur_summary
         if name == "flash_attention":
             kernels[-1]["with_lse"] = r["with_lse"]
             kernels[-1]["xattn"] = r["xattn"]

@@ -538,7 +538,7 @@ class ExecutionBackend:
         ncfg = self._ncfg
         return dict(alpha=self.alpha, kappa=ncfg.kappa, v_th=ncfg.v_th,
                     reset=ncfg.reset, boxcar_width=ncfg.boxcar_width,
-                    quant=self.quant)
+                    surrogate=ncfg.surrogate, gamma=ncfg.gamma, quant=self.quant)
 
     def _train_alpha(self, weights: Dict[str, torch.Tensor]):
         """The decay e-prop trains with, picked as the reference's
@@ -566,7 +566,9 @@ class ExecutionBackend:
         self-recurrence masked; ``metrics`` ``{"acc_y", "pred",
         "spike_rate"}``.  ``cfg.eprop.mode`` picks the rule:
         ``rsnn_train`` (factored) or ``rsnn_train_exact`` (the per-synapse
-        traces, with a scalar or per-neuron ``weights["alpha"]``)."""
+        traces, with a scalar or per-neuron ``weights["alpha"]``); both
+        take the pseudo-derivative ``cfg.neuron.surrogate`` names, as the
+        reference's scan backend does."""
         raster, y_star, valid = (self._as_input(x) for x in (raster, y_star, valid))
         return self._train(weights, raster, y_star, valid, self._sharded)
 
@@ -582,9 +584,6 @@ class ExecutionBackend:
         same codes), which convert to float once.  Padding rows carry zero
         input and zero ``valid``, so they add nothing."""
         ecfg = self.cfg.eprop
-        if ecfg.mode == "exact" and self._ncfg.surrogate != "boxcar":
-            raise ValueError(f"exact e-prop runs the boxcar pseudo-derivative, the "
-                             f"config asks for {self._ncfg.surrogate!r}")
         kw = dict(self._trace_kw(), alpha=self._train_alpha(weights))
         launch = ops.rsnn_train_exact if ecfg.mode == "exact" else ops.rsnn_train
         if sharded:

@@ -16,8 +16,10 @@ readout with decay ``kappa``::
   ``sum_t L ebar = sum_s eps[s] h[s] F[s]`` with the reverse filter
   ``F[s] = L[s] + kappa F[s+1]``, so only O(T·H) traces are kept.
 
-Both follow ``cfg.surrogate`` through :func:`pseudo_derivative` (the
-kernels always use the boxcar).  The inference loops
+Both follow ``cfg.surrogate`` through :func:`pseudo_derivative`, as the
+kernels do (``kernels/rsnn_step.py:pseudo_h``, whose triangular form
+multiplies by the threshold's reciprocal where this one divides: an ulp
+of ``h`` apart at some quantized membranes).  The inference loops
 (:func:`run_sample_inference`, :func:`run_stream_inference`) and
 :func:`forward_dynamics` (the bit-true probe) share the datapath
 resolution: weights snapped onto the membrane grid in quantized mode,

@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source (the serving kernels of ``rsnn_serve.cu``, the
-training kernels of ``rsnn_train.cu``, both on the tick datapath of
-``rsnn_tick.cuh``, the attention forward of ``flash_attention.cu`` and its
-backward of ``flash_attention_bwd.cu``, both on ``flash_common.cuh``)
+training kernels of ``rsnn_train.cu`` and their triangular-surrogate
+instantiations of ``rsnn_train_tri.cu``, both on ``rsnn_train.cuh``, all
+three on the tick datapath of ``rsnn_tick.cuh``, the attention forward of
+``flash_attention.cu`` and its backward of ``flash_attention_bwd.cu``, both
+on ``flash_common.cuh``)
 compiles with ``nvcc`` for Hopper (``sm_90a``; the RSNN sources with
 ``-fmad=false``), one ``nvcc`` per source, all started together, and links
 into one shared library with a plain C interface, loaded with ``ctypes`` —
@@ -42,7 +44,7 @@ NVCC_FLAGS = (
 # added (see the note in csrc/rsnn_tick.cuh), bit for bit with the plain
 # version in quantized mode.  The attention source is not on that path and
 # builds with contraction on.
-EXACT_SOURCES = ("rsnn_serve.cu", "rsnn_train.cu")
+EXACT_SOURCES = ("rsnn_serve.cu", "rsnn_train.cu", "rsnn_train_tri.cu")
 
 
 def _flags(src: Path):
@@ -124,17 +126,19 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_step_sessions_launch.restype = i32
     # rsnn_forward: 4 inputs, 7 outputs; T, B, N, H, O, rows, threads, Tl,
     # weights_smem, rows_smem; the plan's shared-memory bytes; 7 datapath
-    # floats, reset_sub, quant, bw_vth, stream
+    # floats, reset_sub, quant; the surrogate's bw_vth, tri, gamma,
+    # inv_vth; stream
+    surrogate = [f32, i32, f32, f32]
     lib.rsnn_forward_launch.argtypes = (
         [ptr] * 11 + [i32] * 10 + [ctypes.c_longlong] + [f32] * 7
-        + [i32, i32, f32, ptr])
+        + [i32, i32] + surrogate + [ptr])
     # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, dw_codes, acc_y,
     # n_spk; T, B, N, H, O, threads, weights_smem, traces_smem, infer_all;
-    # smem bytes; datapath scalars, then bw_vth, y_scale, target_amp,
-    # err_softmax, the commit grid's lsb and bits, stream
+    # smem bytes; datapath scalars, then the surrogate's four, y_scale,
+    # target_amp, err_softmax, the commit grid's lsb and bits, stream
     lib.rsnn_train_launch.argtypes = (
         [ptr] * 18 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
-        + [f32, f32, f32, i32, f32, i32, ptr])
+        + surrogate + [f32, f32, i32, f32, i32, ptr])
     # rsnn_train_exact: rsnn_train's arguments, with alpha (H) after the 7
     # inputs and the scratch h, l, zbar, err and spike masks in place of the
     # traces and g

@@ -22,6 +22,9 @@
 //         | sat(floor(y * kappa_reg/256) + ...)     (quantized)
 // and, in the two trace modes, the e-prop quantities of the same tick:
 //   h     = |v_pre - v_th| < boxcar_width*v_th      (boxcar surrogate)
+//         | gamma * max(0, fma(-|v_pre - v_th|, r, 1))  (triangular; r =
+//           f32(1/v_th), 1 - d*r rounded once as the reference's compiled
+//           scan rounds it: an explicit fmaf, which -fmad=false keeps)
 //   xbar  = alpha*xbar + x;  pbar = alpha*pbar + z_prev;  zbar = kappa*zbar + z
 //   err   = softmax(y*s) - y* | y*s - amp*y*, times valid   (rsnn_train
 //           only; s = 1/threshold in quantized mode)
@@ -31,9 +34,11 @@
 //
 // The library is compiled with -fmad=false: every product is rounded
 // before it is added, as the plain PyTorch version's separate multiply and
-// add are.  In quantized mode every datapath operand is an integer below
-// 2^24 carried in f32, so v, z, y, acc_y and n_spk are exact, and h and
-// the traces follow from them by the plain version's float operations.
+// add are (the triangular h's fmaf is the one fused operation, and the
+// plain version rounds that expression once too).  In quantized mode every
+// datapath operand is an integer below 2^24 carried in f32, so v, z, y,
+// acc_y and n_spk are exact, and h and the traces follow from them by the
+// plain version's float operations.
 // No tensor core and no TF32 path is used.
 #pragma once
 #include <cuda_runtime.h>
@@ -49,6 +54,8 @@ struct TickParams {
   float y_scale;                 // readout scale the error sees
   float target_amp;              // error == "direct": target amplitude
   int err_softmax;               // 1: softmax error, 0: direct
+  float gamma;                   // triangular surrogate: its scale
+  float inv_vth;                 //   and f32(1 / v_th)
 };
 
 // The readout error of one row handles at most the chip's 16 outputs.
@@ -81,6 +88,14 @@ __device__ __forceinline__ float rsnn_leak_out(float y, float cur,
   return p.kappa * y + cur;
 }
 
+// Bellec's triangular pseudo-derivative gamma * max(0, 1 - |v_pre - v_th| /
+// v_th), in the reference's compiled form: the division a product with
+// r = f32(1/v_th) and 1 - d*r one fused operation.
+__device__ __forceinline__ float rsnn_triangular(float v_pre,
+                                                 const TickParams& p) {
+  return p.gamma * fmaxf(0.f, fmaf(-fabsf(v_pre - p.v_th), p.inv_vth, 1.f));
+}
+
 // ---------------------------------------------------------------------------
 // The warp-per-row event loop (rsnn_forward, rsnn_train, rsnn_infer,
 // rsnn_step_sessions).
@@ -105,7 +120,7 @@ __device__ __forceinline__ float rsnn_leak_out(float y, float cur,
 // One row's per-tick trace set, element (t, i) at base + t * stride + i;
 // a null h means "no such set".
 struct RowTraces {
-  float* h;              // (T, H) input current, then boxcar h, then G = h*F
+  float* h;              // (T, H) input current, then h, then G = h*F
   float* xbar;           // (T, N)
   float* pbar;           // (T, H)
   float* zbar;           // (T, H)
@@ -282,13 +297,15 @@ __device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
 // each tick's input current from tr.h (stride tr.sH); writes each tick's
 // spike masks (T, J) to `spikes` (the spikes before the live select).
 // OUT (a RowOut): ROW_COUNT and ROW_TRACES add popc(spikes) * valid[t] to
-// c.nspk; ROW_TRACES (rsnn_train) also writes the boxcar h over tr.h and
-// the pbar, zbar traces (and all three to `copy` when copy.h is not null);
-// ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the post-reset v to
-// `copy` only.  LIVE (rsnn_step_sessions): a tick with live[t] == 0 keeps
-// v and z by select.  AVEC (rsnn_train_exact): neuron h leaks, and filters
-// pbar, by its own decay alpha_h[h] instead of p.alpha.  W >= ceil(H/32).
-template <int W, int OUT, bool LIVE, bool AVEC = false>
+// c.nspk; ROW_TRACES (rsnn_train) also writes the pseudo-derivative h over
+// tr.h and the pbar, zbar traces (and all three to `copy` when copy.h is
+// not null); ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the
+// post-reset v to `copy` only.  LIVE (rsnn_step_sessions): a tick with
+// live[t] == 0 keeps v and z by select.  AVEC (rsnn_train_exact): neuron h
+// leaks, and filters pbar, by its own decay alpha_h[h] instead of p.alpha.
+// TRI: h is the triangular surrogate (rsnn_triangular), else the boxcar.
+// W >= ceil(H/32).
+template <int W, int OUT, bool LIVE, bool AVEC = false, bool TRI = false>
 __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
                                              const RowTraces tr,
                                              const RowTraces copy,
@@ -348,7 +365,8 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
         const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
         const unsigned m = __ballot_sync(FULL, h < H && zz > 0.f);
         if (TRACES) {
-          const float hb = fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f;
+          const float hb = TRI ? rsnn_triangular(v_pre, p)
+                               : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
           const float z_prev = (c.z[j] >> lane) & 1u ? 1.f : 0.f;
           pbar[j] = (AVEC ? al[AVEC ? j : 0] : p.alpha) * pbar[j] + z_prev;
           zbar[j] = p.kappa * zbar[j] + zz;

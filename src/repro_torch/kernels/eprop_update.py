@@ -86,7 +86,9 @@ from repro_torch.kernels.rsnn_step import (
     _check_exact_matmul,
     _consts,
     check_arg,
+    check_surrogate,
     datapath_scalars,
+    surrogate_scalars,
     tick_transition,
     train_exact_plan,
     train_plan,
@@ -174,20 +176,24 @@ def _train_codes_plain(one, raster, y_star, valid, w_in, w_rec, w_out, b_fb, gri
 def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                      alpha: float, kappa: float, v_th: float = 1.0,
                      reset: str = "sub", boxcar_width: float = 0.5,
+                     surrogate: str = "boxcar", gamma: float = 0.3,
                      quant: Optional[QuantizedMode] = None,
                      error: str = "softmax", target_amplitude: float = 1.0,
                      infer_window: str = "valid", return_traces: bool = False,
                      commit_grid: Optional[QuantSpec] = None):
     """Plain version of :func:`rsnn_train_cuda` → ``(dw_in, dw_rec, dw_out,
     acc_y (B, O), n_spk (B, 1))``, and with ``return_traces`` the trace set
-    ``{"h", "xbar", "pbar", "zbar", "err"}``, each ``(T, B, ·)``.  With
-    ``commit_grid`` the three ``dw`` are the rows' summed int32 codes."""
+    ``{"h", "xbar", "pbar", "zbar", "err"}``, each ``(T, B, ·)``, ``h``
+    the ``surrogate``'s pseudo-derivative.  With ``commit_grid`` the three
+    ``dw`` are the rows' summed int32 codes."""
+    check_surrogate(surrogate)
     if commit_grid is not None:
         if return_traces:
             raise ValueError("rsnn_train: the commit-grid path returns no traces")
         kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
-                  boxcar_width=boxcar_width, quant=quant, error=error,
-                  target_amplitude=target_amplitude, infer_window=infer_window)
+                  boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma,
+                  quant=quant, error=error, target_amplitude=target_amplitude,
+                  infer_window=infer_window)
         return _train_codes_plain(rsnn_train_plain, raster, y_star, valid, w_in,
                                   w_rec, w_out, b_fb, commit_grid, kw)
     c = _consts(alpha, kappa, v_th, reset, quant)
@@ -202,7 +208,8 @@ def rsnn_train_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     tr = {k: [] for k in TRACE_KEYS}
     for t in range(T):
         v, z_new, y, h = tick_transition(raster[t], v, z, y, w_in, w_rec, w_out,
-                                         boxcar_width=boxcar_width, **c)
+                                         boxcar_width=boxcar_width, surrogate=surrogate,
+                                         gamma=gamma, **c)
         xbar = c["alpha"] * xbar + raster[t]
         pbar = c["alpha"] * pbar + z          # presyn trace: z BEFORE this tick
         zbar = c["kappa"] * zbar + z_new
@@ -261,19 +268,22 @@ def _check_train_args(op, raster, y_star, valid, w_in, w_rec, w_out, b_fb, error
 def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     alpha: float, kappa: float, v_th: float = 1.0,
                     reset: str = "sub", boxcar_width: float = 0.5,
+                    surrogate: str = "boxcar", gamma: float = 0.3,
                     quant: Optional[QuantizedMode] = None,
                     error: str = "softmax", target_amplitude: float = 1.0,
                     infer_window: str = "valid", return_traces: bool = False,
                     commit_grid: Optional[QuantSpec] = None,
                     return_partials: bool = False):
-    """Launch ``rsnn_train_kernel`` (and the row-order ``dw`` reduction, or
-    with ``commit_grid`` ``rsnn_dw_codes_reduce_kernel``) on the current
-    stream of the tensors' device → the outputs of :func:`rsnn_train_plain`;
+    """Launch ``rsnn_train_kernel`` (``rsnn_train_tri_kernel`` under the
+    triangular surrogate; then the row-order ``dw`` reduction, or with
+    ``commit_grid`` ``rsnn_dw_codes_reduce_kernel``) on the current stream
+    of the tensors' device → the outputs of :func:`rsnn_train_plain`;
     ``return_partials`` appends the ``(B, E)`` per-row ``dw`` buffer the
-    reduction read.  Checks device, dtype, shape and contiguity; raises on a
-    refused launch."""
+    reduction read.  Checks device, dtype, shape, contiguity and the
+    surrogate; raises on a refused launch."""
     from repro_torch.kernels import build
 
+    check_surrogate(surrogate)
     if commit_grid is not None and return_traces:
         raise ValueError("rsnn_train: the commit-grid path returns no traces")
     T, B, N, H, O = _check_train_args("rsnn_train", raster, y_star, valid, w_in, w_rec,
@@ -316,9 +326,9 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
             *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
             int(plan.traces_smem), int(infer_window == "all"),
             ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
-            ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
-            ctypes.c_float(target_amplitude), int(error == "softmax"),
-            ctypes.c_float(lsb), int(bits), stream_arg(dev))
+            *surrogate_scalars(surrogate, boxcar_width, gamma, c["v_th"]),
+            ctypes.c_float(y_scale), ctypes.c_float(target_amplitude),
+            int(error == "softmax"), ctypes.c_float(lsb), int(bits), stream_arg(dev))
     raise_on(lib, rc, "rsnn_train")
     launches["rsnn_train"] += 1
     if commit_grid is not None:
@@ -347,6 +357,7 @@ def exact_alpha(alpha, n_hid: int, like: torch.Tensor) -> torch.Tensor:
 def rsnn_train_exact_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                            alpha, kappa: float, v_th: float = 1.0,
                            reset: str = "sub", boxcar_width: float = 0.5,
+                           surrogate: str = "boxcar", gamma: float = 0.3,
                            quant: Optional[QuantizedMode] = None,
                            error: str = "softmax", target_amplitude: float = 1.0,
                            infer_window: str = "valid",
@@ -354,21 +365,25 @@ def rsnn_train_exact_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     """Plain version of :func:`rsnn_train_exact_cuda` → ``(dw_in, dw_rec,
     dw_out, acc_y (B, O), n_spk (B, 1))``: the port's exact-mode oracle
     (:func:`repro_torch.core.eprop.exact_tile`) on the datapath weights,
-    with the boxcar surrogate, ``dw`` summed over the batch and ``dw_rec``
-    not masked.  ``alpha`` is a scalar or ``(H,)``: it filters the
+    under ``surrogate`` (its ``pseudo_derivative``: the triangular form
+    divides, where the kernel multiplies by the reciprocal, an ulp of ``h``
+    apart at some quantized membranes), ``dw`` summed over the batch and
+    ``dw_rec`` not masked.  ``alpha`` is a scalar or ``(H,)``: it filters the
     presynaptic traces, and leaks the membrane in float mode (quantized
     mode leaks by ``alpha_reg``).  With ``commit_grid`` the three ``dw``
     are the rows' summed int32 codes."""
+    check_surrogate(surrogate)
     kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
-              boxcar_width=boxcar_width, quant=quant, error=error,
-              target_amplitude=target_amplitude, infer_window=infer_window)
+              boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma, quant=quant,
+              error=error, target_amplitude=target_amplitude, infer_window=infer_window)
     if commit_grid is not None:
         return _train_codes_plain(rsnn_train_exact_plain, raster, y_star, valid, w_in,
                                   w_rec, w_out, b_fb, commit_grid, kw)
     c = _consts(0.0, kappa, v_th, reset, quant)
     _check_exact_matmul(raster, quant)
     ncfg = NeuronConfig(kappa=c["kappa"], v_th=c["v_th"], reset=reset,
-                        surrogate="boxcar", boxcar_width=boxcar_width, quant=quant)
+                        surrogate=surrogate, boxcar_width=boxcar_width, gamma=gamma,
+                        quant=quant)
     ecfg = EpropConfig(mode="exact", error=error, target_amplitude=target_amplitude,
                        infer_window=infer_window)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
@@ -379,13 +394,15 @@ def rsnn_train_exact_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
 def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                           alpha, kappa: float, v_th: float = 1.0,
                           reset: str = "sub", boxcar_width: float = 0.5,
+                          surrogate: str = "boxcar", gamma: float = 0.3,
                           quant: Optional[QuantizedMode] = None,
                           error: str = "softmax", target_amplitude: float = 1.0,
                           infer_window: str = "valid",
                           commit_grid: Optional[QuantSpec] = None,
                           return_partials: bool = False):
-    """Launch ``rsnn_train_exact_kernel`` (then, where the row's trace set
-    is in the device scratch, ``rsnn_exact_dw_rows_kernel``; then the
+    """Launch ``rsnn_train_exact_kernel`` (``rsnn_train_exact_tri_kernel``
+    under the triangular surrogate; then, where the row's trace set is in
+    the device scratch, ``rsnn_exact_dw_rows_kernel``; then the
     row-order ``dw`` reduction, or with ``commit_grid``
     ``rsnn_dw_codes_reduce_kernel``) on the current stream of the tensors'
     device → the outputs of :func:`rsnn_train_exact_plain`;
@@ -394,6 +411,7 @@ def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     launch."""
     from repro_torch.kernels import build
 
+    check_surrogate(surrogate)
     T, B, N, H, O = _check_train_args("rsnn_train_exact", raster, y_star, valid, w_in,
                                       w_rec, w_out, b_fb, error, commit_grid)
     dev = raster.device
@@ -431,9 +449,9 @@ def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
             *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
             int(plan.traces_smem), int(infer_window == "all"),
             ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
-            ctypes.c_float(boxcar_width * c["v_th"]), ctypes.c_float(y_scale),
-            ctypes.c_float(target_amplitude), int(error == "softmax"),
-            ctypes.c_float(lsb), int(bits), stream_arg(dev))
+            *surrogate_scalars(surrogate, boxcar_width, gamma, c["v_th"]),
+            ctypes.c_float(y_scale), ctypes.c_float(target_amplitude),
+            int(error == "softmax"), ctypes.c_float(lsb), int(bits), stream_arg(dev))
     raise_on(lib, rc, "rsnn_train_exact")
     launches["rsnn_train_exact"] += 1
     if commit_grid is not None:

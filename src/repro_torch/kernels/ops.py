@@ -71,11 +71,14 @@ def rsnn_step_sessions(raster, live, valid, v0, z0, y0, acc0, nspk0, w_in,
 
 def rsnn_forward(raster, w_in, w_rec, w_out, *, alpha: float, kappa: float,
                  v_th: float = 1.0, reset: str = "sub", boxcar_width: float = 0.5,
+                 surrogate: str = "boxcar", gamma: float = 0.3,
                  quant: Optional[QuantizedMode] = None):
     """Trace-streaming forward over one ``(T, B)`` tile → ``{"z", "h",
-    "xbar", "pbar", "zbar", "y", "v"}``, each ``(T, B, ·)``."""
+    "xbar", "pbar", "zbar", "y", "v"}``, each ``(T, B, ·)``, ``h`` the
+    ``surrogate``'s pseudo-derivative (``"boxcar"`` of half-width
+    ``boxcar_width``, or ``"triangular"`` scaled by ``gamma``)."""
     kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
-              boxcar_width=boxcar_width, quant=quant)
+              boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma, quant=quant)
     if not _on_card(raster, "rsnn_forward"):
         return _rsnn.rsnn_forward_plain(raster, w_in, w_rec, w_out, **kw)
     return _rsnn.rsnn_forward_cuda(raster, w_in, w_rec, w_out, **kw)
@@ -84,16 +87,20 @@ def rsnn_forward(raster, w_in, w_rec, w_out, *, alpha: float, kappa: float,
 def rsnn_train(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                alpha: float, kappa: float, v_th: float = 1.0,
                reset: str = "sub", boxcar_width: float = 0.5,
+               surrogate: str = "boxcar", gamma: float = 0.3,
                quant: Optional[QuantizedMode] = None, error: str = "softmax",
                target_amplitude: float = 1.0, infer_window: str = "valid",
                commit_grid: Optional[QuantSpec] = None):
     """Fused forward + e-prop update over one ``(T, B)`` tile →
     ``(dw_in, dw_rec, dw_out, acc_y (B, O), n_spk (B, 1))``, ``dw`` summed
-    over the batch, ``dw_rec`` not yet masked.  With ``commit_grid`` the
-    three ``dw`` are the rows' int32 codes on that grid, summed (the
-    deterministic END_B path: equal for any split of the rows)."""
+    over the batch, ``dw_rec`` not yet masked; the eligibility follows
+    ``surrogate`` as :func:`rsnn_forward`'s ``h`` does.  With
+    ``commit_grid`` the three ``dw`` are the rows' int32 codes on that
+    grid, summed (the deterministic END_B path: equal for any split of the
+    rows)."""
     kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
-              boxcar_width=boxcar_width, quant=quant, error=error,
+              boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma,
+              quant=quant, error=error,
               target_amplitude=target_amplitude, infer_window=infer_window,
               commit_grid=commit_grid)
     args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
@@ -104,7 +111,8 @@ def rsnn_train(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
 
 def rsnn_train_exact(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                      alpha, kappa: float, v_th: float = 1.0, reset: str = "sub",
-                     boxcar_width: float = 0.5, quant: Optional[QuantizedMode] = None,
+                     boxcar_width: float = 0.5, surrogate: str = "boxcar",
+                     gamma: float = 0.3, quant: Optional[QuantizedMode] = None,
                      error: str = "softmax", target_amplitude: float = 1.0,
                      infer_window: str = "valid",
                      commit_grid: Optional[QuantSpec] = None):
@@ -112,9 +120,9 @@ def rsnn_train_exact(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     tile → the outputs of :func:`rsnn_train`; ``alpha`` a scalar or one
     decay a neuron ``(H,)``."""
     kw = dict(alpha=alpha, kappa=kappa, v_th=v_th, reset=reset,
-              boxcar_width=boxcar_width, quant=quant, error=error,
-              target_amplitude=target_amplitude, infer_window=infer_window,
-              commit_grid=commit_grid)
+              boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma,
+              quant=quant, error=error, target_amplitude=target_amplitude,
+              infer_window=infer_window, commit_grid=commit_grid)
     args = (raster, y_star, valid, w_in, w_rec, w_out, b_fb)
     if not _on_card(raster, "rsnn_train_exact"):
         return _train.rsnn_train_exact_plain(*args, **kw)

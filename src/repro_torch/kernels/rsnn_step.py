@@ -50,6 +50,7 @@ import ctypes
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import QuantizedMode
@@ -303,22 +304,74 @@ def session_state_bytes(n_hid: int, n_out: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+SURROGATES = ("boxcar", "triangular")
+
+
+def check_surrogate(surrogate: str) -> None:
+    """Raises on a pseudo-derivative the kernels do not compute, as the
+    reference's ``pseudo_derivative`` does."""
+    if surrogate not in SURROGATES:
+        raise ValueError(f"unknown surrogate {surrogate!r}")
+
+
+def inv_threshold(v_th: float) -> float:
+    """``f32(1 / v_th)``, rounded once: the factor the triangular
+    pseudo-derivative multiplies by, as the reference's compiled scan does
+    (XLA turns its division by the constant threshold into this
+    product)."""
+    return float(np.float32(1.0) / np.float32(v_th))
+
+
+def pseudo_h(v_pre, v_th: float, *, surrogate: str = "boxcar",
+             boxcar_width: float = 0.5, gamma: float = 0.3):
+    """The pseudo-derivative at the pre-reset membrane as the kernels and
+    the reference's compiled scan compute it: the boxcar ``|v_pre - v_th| <
+    boxcar_width * v_th``, or Bellec's triangular ``gamma * max(0, 1 - d *
+    r)``, ``d = |v_pre - v_th|``, ``r`` = :func:`inv_threshold`, with
+    ``1 - d * r`` rounded once (XLA contracts it into a fused multiply-add,
+    the kernels take an ``fmaf``).  Here it runs in f64 and rounds to f32:
+    ``d * r`` is exact there, and the difference rounds to the fused
+    result in quantized mode (``d`` an integer, ``r`` a multiple of 2^-33:
+    exact in f64) and at ``v_th = 1`` (``d * r = d``).
+    :func:`repro_torch.core.neuron.pseudo_derivative` divides instead (the
+    reference's eager form); in quantized mode the two differ by an ulp at
+    some membranes."""
+    check_surrogate(surrogate)
+    d = torch.abs(v_pre - v_th)
+    if surrogate == "boxcar":
+        return (d < boxcar_width * v_th).to(v_pre.dtype)
+    u = (1.0 - d.double() * inv_threshold(v_th)).to(v_pre.dtype)
+    return gamma * torch.clamp(u, min=0.0)
+
+
+def surrogate_scalars(surrogate: str, boxcar_width: float, gamma: float,
+                      v_th: float) -> list:
+    """The C launchers' pseudo-derivative arguments (:func:`pseudo_h`):
+    the boxcar half-width times ``v_th``, 1 for the triangular surrogate,
+    ``gamma`` and :func:`inv_threshold`.  Raises on an unknown surrogate."""
+    check_surrogate(surrogate)
+    return [ctypes.c_float(boxcar_width * v_th), int(surrogate == "triangular"),
+            ctypes.c_float(gamma), ctypes.c_float(inv_threshold(v_th))]
+
+
 def tick_transition(x_t, v, z, y, w_in, w_rec, w_out, *, alpha: float,
                     kappa: float, v_th: float, reset_sub: bool,
-                    boxcar_width: float = 0.5,
+                    boxcar_width: float = 0.5, surrogate: str = "boxcar",
+                    gamma: float = 0.3,
                     quant: Optional[QuantizedMode] = None):
-    """One LIF + LI tick → ``(v_new, z_new, y_new, h)``, ``h`` the boxcar
-    pseudo-derivative at the pre-reset membrane."""
+    """One LIF + LI tick → ``(v_new, z_new, y_new, h)``, ``h`` the
+    pseudo-derivative at the pre-reset membrane (:func:`pseudo_h`)."""
     return tick_from_input_current(
         x_t @ w_in, v, z, y, w_rec, w_out, alpha=alpha, kappa=kappa,
         v_th=v_th, reset_sub=reset_sub, boxcar_width=boxcar_width,
-        quant=quant,
+        surrogate=surrogate, gamma=gamma, quant=quant,
     )
 
 
 def tick_from_input_current(in_cur, v, z, y, w_rec, w_out, *, alpha: float,
                             kappa: float, v_th: float, reset_sub: bool,
-                            boxcar_width: float = 0.5,
+                            boxcar_width: float = 0.5, surrogate: str = "boxcar",
+                            gamma: float = 0.3,
                             quant: Optional[QuantizedMode] = None):
     """:func:`tick_transition` with ``x_t @ w_in`` given; keeps the JAX
     operand order ``in_cur + z @ w_rec``."""
@@ -332,7 +385,8 @@ def tick_from_input_current(in_cur, v, z, y, w_rec, w_out, *, alpha: float,
         v_new = v_pre - z_new * v_th
     else:
         v_new = v_pre * (1.0 - z_new)
-    h = (torch.abs(v_pre - v_th) < boxcar_width * v_th).to(v_pre.dtype)
+    h = pseudo_h(v_pre, v_th, surrogate=surrogate, boxcar_width=boxcar_width,
+                 gamma=gamma)
     y_lin = z_new @ w_out
     if quant is None:
         y_new = kappa * y + y_lin
@@ -548,12 +602,14 @@ FORWARD_KEYS = ("z", "h", "xbar", "pbar", "zbar", "y", "v")
 
 def rsnn_forward_plain(raster, w_in, w_rec, w_out, *, alpha: float,
                        kappa: float, v_th: float = 1.0, reset: str = "sub",
-                       boxcar_width: float = 0.5,
+                       boxcar_width: float = 0.5, surrogate: str = "boxcar",
+                       gamma: float = 0.3,
                        quant: Optional[QuantizedMode] = None,
                        ) -> Dict[str, torch.Tensor]:
     """Plain version of :func:`rsnn_forward_cuda` → ``{"z", "h", "xbar",
     "pbar", "zbar", "y", "v"}``, each ``(T, B, ·)``; ``v`` is the
-    post-reset membrane."""
+    post-reset membrane, ``h`` the ``surrogate``'s pseudo-derivative."""
+    check_surrogate(surrogate)
     c = _consts(alpha, kappa, v_th, reset, quant)
     _check_exact_matmul(raster, quant)
     T, B, N = raster.shape
@@ -565,7 +621,7 @@ def rsnn_forward_plain(raster, w_in, w_rec, w_out, *, alpha: float,
     for t in range(T):
         v_new, z_new, y, h = tick_transition(
             raster[t], v, z, y, w_in, w_rec, w_out,
-            boxcar_width=boxcar_width, **c)
+            boxcar_width=boxcar_width, surrogate=surrogate, gamma=gamma, **c)
         xbar = c["alpha"] * xbar + raster[t]
         pbar = c["alpha"] * pbar + z          # presyn trace: z BEFORE this tick
         zbar = c["kappa"] * zbar + z_new
@@ -577,15 +633,18 @@ def rsnn_forward_plain(raster, w_in, w_rec, w_out, *, alpha: float,
 
 def rsnn_forward_cuda(raster, w_in, w_rec, w_out, *, alpha: float,
                       kappa: float, v_th: float = 1.0, reset: str = "sub",
-                      boxcar_width: float = 0.5,
+                      boxcar_width: float = 0.5, surrogate: str = "boxcar",
+                      gamma: float = 0.3,
                       quant: Optional[QuantizedMode] = None,
                       ) -> Dict[str, torch.Tensor]:
-    """Launch ``rsnn_forward_kernel`` on the current stream of the tensors'
+    """Launch ``rsnn_forward_kernel`` (``rsnn_forward_tri_kernel`` under
+    the triangular surrogate) on the current stream of the tensors'
     device → the seven ``(T, B, ·)`` tensors of
-    :func:`rsnn_forward_plain`.  Checks device, dtype, shape and
-    contiguity; raises on a refused launch."""
+    :func:`rsnn_forward_plain`.  Checks device, dtype, shape, contiguity
+    and the surrogate; raises on a refused launch."""
     from repro_torch.kernels import build
 
+    check_surrogate(surrogate)
     T, B, N = raster.shape
     H, O = w_rec.shape[0], w_out.shape[1]
     dev = raster.device
@@ -609,7 +668,8 @@ def rsnn_forward_cuda(raster, w_in, w_rec, w_out, *, alpha: float,
             *ptrs, T, B, N, H, O, plan.rows, plan.threads, plan.Tl,
             int(plan.weights_smem), int(plan.rows_smem),
             ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
-            ctypes.c_float(boxcar_width * c["v_th"]), stream_arg(dev))
+            *surrogate_scalars(surrogate, boxcar_width, gamma, c["v_th"]),
+            stream_arg(dev))
     raise_on(lib, rc, "rsnn_forward")
     launches["rsnn_forward"] += 1
     return outs

@@ -574,6 +574,69 @@ def _check_train_kernel(args, kw, quantized):
         assert torch.equal(a, b)
 
 
+# The surrogates the trace kernels take besides the default boxcar: the
+# triangular, and a boxcar of another width.
+SURROGATE_KW = {"triangular": dict(surrogate="triangular", gamma=0.3),
+                "boxcar_w025": dict(surrogate="boxcar", boxcar_width=0.25)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surrogate", list(SURROGATE_KW))
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dims,density,T,B", [((12, 38, 3), 0.3, 128, 1),
+                                              ((12, 38, 3), 0.3, 128, 70),
+                                              ((12, 38, 3), 0.3, 512, 3),
+                                              ((256, 256, 16), 0.05, 128, 8)])
+def test_trace_kernels_follow_the_surrogate_on_card(dims, density, T, B, quantized,
+                                                    surrogate, cuda_device):
+    """``rsnn_forward``, ``rsnn_train`` and ``rsnn_train_exact`` under the
+    triangular surrogate and a boxcar of half-width 0.25, against their
+    plain versions (the tolerances of their default-boxcar tests; each
+    trace set in shared memory and on the device scratch), and each
+    kernel's ``h`` or ``dw`` another than the default boxcar's."""
+    cfg, args, kw = _train_full(dims, density, T, B, quantized, cuda_device, seed=B + T + 1)
+    base = dict(kw)
+    kw.update(SURROGATE_KW[surrogate])
+    fkw = {k: v for k, v in kw.items() if k not in ("error", "infer_window")}
+    ops.reset_launch_counts()
+    got = rsnn_step.rsnn_forward_cuda(args[0], *args[3:6], **fkw)
+    want = rsnn_step.rsnn_forward_plain(args[0], *args[3:6], **fkw)
+    for k in rsnn_step.FORWARD_KEYS:
+        _check(got[k], want[k], quantized)
+    boxcar = rsnn_step.rsnn_forward_cuda(
+        args[0], *args[3:6], **{k: v for k, v in base.items() if k in fkw})
+    assert not torch.equal(got["h"], boxcar["h"])
+    if surrogate == "triangular":
+        assert bool(((got["h"] > 0) & (got["h"] < 0.3)).any())
+    _check_train_kernel(args, kw, quantized)
+    ops.reset_launch_counts()
+    exact = eprop_update.rsnn_train_exact_cuda(*args, **kw)
+    want = eprop_update.rsnn_train_exact_plain(*args, **kw)
+    _check_dw(exact[:3], want[:3])
+    for a, b in zip(exact[3:], want[3:]):
+        _check(a, b, quantized)
+    other = eprop_update.rsnn_train_exact_cuda(*args, **base)
+    assert any(float((a - b).abs().max()) > 100 * DW_TOL * float(b.abs().max())
+               for a, b in zip(exact[:3], other[:3]))
+    assert ops.launches["rsnn_train_exact"] == 2
+
+
+@pytest.mark.cuda
+def test_unknown_surrogate_is_refused_before_a_launch(cuda_device):
+    """An unknown surrogate raises ``ValueError`` from each trace kernel's
+    wrapper on the card, and nothing is launched."""
+    cfg, args, kw = _train_full((12, 38, 3), 0.3, 32, 2, True, cuda_device, seed=5)
+    kw["surrogate"] = "sigmoid"
+    fkw = {k: v for k, v in kw.items() if k not in ("error", "infer_window")}
+    ops.reset_launch_counts()
+    for call in (lambda: rsnn_step.rsnn_forward_cuda(args[0], *args[3:6], **fkw),
+                 lambda: eprop_update.rsnn_train_cuda(*args, **kw),
+                 lambda: eprop_update.rsnn_train_exact_cuda(*args, **kw)):
+        with pytest.raises(ValueError, match="surrogate"):
+            call()
+    assert all(n == 0 for n in ops.launches.values())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [True, False])
 @pytest.mark.parametrize("B", [1, 70, 512])

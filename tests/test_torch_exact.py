@@ -169,15 +169,6 @@ def test_per_neuron_alpha_is_refused_in_factored_mode():
     _hold(_jax_train(jcfg, w, tile), _port_train(tcfg, w, tile), False)
 
 
-def test_exact_mode_refuses_a_surrogate_it_does_not_run():
-    _, tcfg = _cfgs(False)
-    tcfg = dataclasses.replace(tcfg, neuron=dataclasses.replace(tcfg.neuron,
-                                                                surrogate="triangular"))
-    rng = np.random.default_rng(33)
-    with pytest.raises(ValueError, match="boxcar"):
-        _port_train(tcfg, _weights(rng, tcfg, False), _tile(rng, tcfg, 1))
-
-
 def test_exact_train_tile_goes_through_rsnn_train_exact(monkeypatch):
     """Exact mode dispatches to ``ops.rsnn_train_exact`` and factored mode
     to ``ops.rsnn_train``; neither reaches the other."""
