@@ -371,8 +371,9 @@ before any profiler session):
   (al) after (ak): exact-mode e-prop (EpropConfig(mode="exact")).
       rsnn_train_exact against its plain version at Braille T=256 B=1
       (quantized and float), the END_B tile (T=128, B=70), the cue net
-      (40/100/2, T=150: the device-scratch route), the 256/256/16 net
-      (T=128) and a per-neuron alpha (T=256, B=8, float and quantized):
+      (40/100/2, T=150), the 256/256/16 net (T=128, B=4: a row on three
+      clusters of eight blocks) and a per-neuron alpha (T=256, B=8, float
+      and quantized):
       dw within TRAIN_DW_TOL of max|dw|, acc_y and n_spk bitwise when
       quantized, two launches bitwise; on the commit grid at the END_B
       tile the codes bitwise the plain reduce of the launch's partials and
@@ -384,7 +385,8 @@ before any profiler session):
       exact-trained weights served by BatchedEngine.from_learner bitwise
       the backend's inference (launches_by_path "exact_learning"); at the
       end of the run rsnn_train_exact timed at T=256 B=1 (the kernels
-      line) and at the END_B tile, with rsnn_train beside.
+      line), at the learning run's T=128 B=1 and at the END_B tile, with
+      rsnn_train beside.
   (am) after (al): the surrogate (cfg.neuron.surrogate).  rsnn_forward,
       rsnn_train and rsnn_train_exact under the triangular
       pseudo-derivative (gamma 0.3) and a boxcar of half-width 0.25,
@@ -5546,6 +5548,12 @@ def _exact_configs():
     ]
 
 
+def _span(plan) -> str:
+    """What of rsnn_train_exact's plan a log line shows."""
+    return (f"a row on {plan.groups} cluster(s) of {plan.cluster} block(s), "
+            f"{plan.slots} ring slots, {plan.lines} line(s) a walker")
+
+
 def _exact_case(gen, cfg, T, B, dev, alpha, density=0.12):
     """An exact-mode tile of ``cfg`` at (T, B): weights from ``init_params``
     snapped onto the SRAM grid, the ``rsnn_train_exact`` arguments and
@@ -5598,12 +5606,11 @@ def phase_exact_vs_plain(dev):
         worst = max(worst, e)
         _compare(f"(al) {name}", got[3:], want[3:], quantized, errs)
         _check_equal(f"(al) {name}: two launches", got, again)
-        plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out)
+        plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out, B)
         log(f"(al) ok: {name}: dw within {TRAIN_DW_TOL} of max|dw| (max |Δdw| "
             f"{e:.3g}), acc_y and n_spk "
             f"{'bitwise' if quantized else f'within {FLOAT_TOL}'}, two launches bitwise; "
-            f"trace set in {'shared' if plan.traces_smem else 'device'} memory; "
-            f"two launches {t1 - t0:.3f} s, plain {t2 - t1:.3f} s")
+            f"{_span(plan)}; two launches {t1 - t0:.3f} s, plain {t2 - t1:.3f} s")
         if name.startswith("END_B"):
             codes = E.rsnn_train_exact_cuda(*args, **kw, commit_grid=G, return_partials=True)
             flat = torch.cat([c.reshape(-1) for c in codes[:3]])
@@ -5709,9 +5716,10 @@ def phase_exact_learning(dev):
 
 
 def phase_exact_timing(dev):
-    """(al)'s kernel timed: rsnn_train_exact at END_S's Braille commit (T=256,
-    B=1, quantized; the kernels line) and at the END_B tile (T=128, B=70),
-    each beside its plain version and its bound from this run's events
+    """(al)'s kernel timed: rsnn_train_exact at Braille T=256, B=1
+    (quantized; the kernels line), at the learning run's END_S commit
+    (T=128, B=1) and at the END_B tile (T=128, B=70), each beside its plain
+    version and its bound from this run's events
     (traffic.train_exact_event_flops), rsnn_train at the same shapes
     logged beside it."""
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
@@ -5721,7 +5729,8 @@ def phase_exact_timing(dev):
 
     gen = torch.Generator().manual_seed(SEED + 31)
     rows = {}
-    for T, B, key in ((256, 1, "rsnn_train_exact"), (128, 70, "rsnn_train_exact END_B")):
+    for T, B, key in ((256, 1, "rsnn_train_exact"), (128, 1, "rsnn_train_exact END_S"),
+                      (128, 70, "rsnn_train_exact END_B")):
         cfg, args, kw = _exact_case(gen, CONFIG_QUANT, T, B, dev, "backend")
         N, H, O = cfg.n_in, cfg.n_hid, cfg.n_out
         fkw = {k: kw[k] for k in ("kappa", "v_th", "reset", "boxcar_width", "quant")}
@@ -5736,7 +5745,7 @@ def phase_exact_timing(dev):
                                traffic.train_exact_bytes(T, B, N, H, O), flops, shape)
         fact = _median_reading(lambda: E.rsnn_train_cuda(*args, **kw))[0]
         log(f"(al) rsnn_train (factored) at {shape}: {fact} ms on the card (profiler); "
-            f"rsnn_train_exact's plan {K.train_exact_plan(T, N, H, O)}")
+            f"rsnn_train_exact's plan {K.train_exact_plan(T, N, H, O, B)}")
         rows[key]["factored_ms"] = fact
     return rows
 
@@ -5755,8 +5764,7 @@ FORWARD_KW = ("alpha", "kappa", "v_th", "reset", "boxcar_width", "surrogate", "g
 
 
 def _surrogate_shapes():
-    """(am)'s shapes: name, config, T, B (the cue net: rsnn_train_exact's
-    device-scratch route)."""
+    """(am)'s shapes: name, config, T, B."""
     from repro_torch.configs.reckon_braille import CONFIG, CONFIG_QUANT
     from repro_torch.core.rsnn import Presets
 
@@ -5819,13 +5827,12 @@ def phase_surrogate_vs_plain(dev):
                                                     want_x[:3]))
             _compare(f"{tag} rsnn_train_exact acc_y/n_spk", ex[3:], want_x[3:], quantized,
                      errs["rsnn_train_exact"])
-            plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out)
+            plan = K.train_exact_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out, B)
             log(f"{tag}: the three kernels hold their plain versions (dw within "
                 f"{TRAIN_DW_TOL} of max|dw|, the rest "
                 f"{'bitwise' if quantized else f'within {FLOAT_TOL}'}); h strictly "
                 f"between 0 and 1 at {inner} of {got[5]['h'].numel()} (t, b, neuron), "
-                f"another h than the default boxcar's; rsnn_train_exact's trace set in "
-                f"{'shared' if plan.traces_smem else 'device'} memory")
+                f"another h than the default boxcar's; rsnn_train_exact {_span(plan)}")
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -5914,8 +5921,9 @@ def tree_times(root: Path, dev) -> None:
     """``--time-tree ROOT``: the RSNN kernels of the checkout at ``ROOT``
     (its ``src/repro_torch``, built from its own sources) at the shapes
     (f) and (i) time them and at the 256/256/16 net (the event loop's widest
-    instantiations), its rsnn_train_exact at (i)'s END_B tile, its
-    flash_attention forward at (l)'s shape (without and with lse) and its
+    instantiations), its rsnn_train_exact at five shapes under both
+    surrogates with a digest of each launch's outputs (:func:`_tree_exact`),
+    its flash_attention forward at (l)'s shape (without and with lse) and its
     flash_attention_bwd at (r)'s two shapes (null for a tree without that
     wrapper), through wrappers that every slice of the port has, so
     that two trees compare on one card in one call.  Each time is the
@@ -5996,11 +6004,6 @@ def tree_times(root: Path, dev) -> None:
                 if b != 2048:
                     targs = (r, y_star, valid, *w, be._feedback(params))
                     best(f"rsnn_train B={b}", lambda: E.rsnn_train_cuda(*targs, **tkw))
-                if b == 70:
-                    ms["rsnn_train_exact B=70"] = None
-                    if hasattr(E, "rsnn_train_exact_cuda"):
-                        best("rsnn_train_exact B=70",
-                             lambda: E.rsnn_train_exact_cuda(*targs, **tkw))
             continue
         for b in (1, 512, 2048):     # (f): the serving kernels
             r, valid, live = _inputs(gen, T, b, cfg.n_in, 0.12, dev)
@@ -6009,9 +6012,139 @@ def tree_times(root: Path, dev) -> None:
             best(f"rsnn_infer B={b}", lambda: K.rsnn_infer_cuda(r, valid, *w, **kw))
             best(f"rsnn_step_sessions B={b}", lambda: K.rsnn_step_sessions_cuda(
                 r, live, valid, *c, *w, **kw))
+    exact = {}
+    if hasattr(E, "rsnn_train_exact_cuda"):
+        exact = _tree_exact(dev)
+        exact["END_S epoch"] = _tree_exact_epoch(dev)
     digests, ops = _sass_digests(build)
-    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms, "sass": digests,
-                      "sass_ops": ops}), flush=True)
+    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms, "exact": exact,
+                      "sass": digests, "sass_ops": ops}), flush=True)
+
+
+def _exact_tree_shapes():
+    """The shapes ``--time-tree`` times rsnn_train_exact at: name, config,
+    T, B (quantized; the learning run's END_S commit, (al)'s Braille
+    commit, the END_B tile, the cue net, the chip-maximum net)."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.rsnn import Presets
+
+    chip_max = Presets.braille(n_in=256, n_hid=256, n_out=16, quantized=True)
+    return [("T=128 B=1", CONFIG_QUANT, 128, 1), ("T=256 B=1", CONFIG_QUANT, 256, 1),
+            ("END_B T=128 B=70", CONFIG_QUANT, 128, 70),
+            ("cue 40/100/2 T=150 B=8", Presets.cue_accumulation(quantized=True), 150, 8),
+            ("256/256/16 T=128 B=4", chip_max, 128, 4)]
+
+
+def _digest(tensors) -> str:
+    """sha1 of the tensors' bytes, in order: two trees' outputs compare bit
+    for bit by this string."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _tree_exact(dev):
+    """``--time-tree``'s rsnn_train_exact rows: at each of
+    :func:`_exact_tree_shapes`, under the boxcar and the triangular
+    surrogate, on inputs made from a seed (the same on every tree), the
+    median of three profiler readings with its time by kernel, rsnn_forward
+    at the same shape and surrogate (the LIF chain's yardstick: the same
+    input sums, chain and readout, no walks), and the digest of the
+    launch's dw, acc_y and n_spk (at the END_B tile also of its codes on
+    the commit grid), so that two trees' kernels compare bit for bit."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.kernels import traffic
+
+    out = {}
+    for i, (name, base, T, B) in enumerate(_exact_tree_shapes()):
+        gen = torch.Generator().manual_seed(SEED + 40 + i)
+        cfg, args, kw = _exact_case(gen, base, T, B, dev, "backend")
+        N, H, O = cfg.n_in, cfg.n_hid, cfg.n_out
+        for sname, fields in (("boxcar", {}), SURROGATE_CASES[0]):
+            k = dict(kw, **fields)
+            got = E.rsnn_train_exact_cuda(*args, **k)
+            z = K.rsnn_forward_cuda(args[0], *args[3:6], **{n: k[n] for n in FORWARD_KW})["z"]
+            flops = traffic.train_exact_event_flops(
+                T, B, N, H, O, int(args[0].count_nonzero()), int(z.count_nonzero()),
+                int(z[:-1].count_nonzero()))
+            nbytes = traffic.train_exact_bytes(T, B, N, H, O)
+            row = {"digest": _digest(got),
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3}
+            if name.startswith("END_B"):
+                row["codes_digest"] = _digest(E.rsnn_train_exact_cuda(*args, **k,
+                                                                      commit_grid=G)[:3])
+            row["ms"], row["by_kernel"] = _median_reading(
+                lambda: E.rsnn_train_exact_cuda(*args, **k), iters=20)
+            row["forward_ms"] = _median_reading(lambda: K.rsnn_forward_cuda(
+                args[0], *args[3:6], **{n: k[n] for n in FORWARD_KW}), iters=20)[0]
+            if hasattr(E, "exact_clock_shape"):
+                row["roles"] = _exact_roles(E, K, args, k)
+            out[f"{name} {sname}"] = row
+    return out
+
+
+def _tree_exact_epoch(dev):
+    """``--time-tree``'s exact END_S epoch: (al)'s one epoch of quantized
+    END_S learning on Braille AEU (seed LEARN_SEEDS[0]) in exact mode →
+    the digest of the learned weights, the test accuracy and the
+    rsnn_train_exact launches, so that two trees' learning compares bit for
+    bit."""
+    from repro_torch.configs.reckon_braille import QUANT_OPT
+    from repro_torch.core.controller import ControllerConfig, OnlineLearner
+    from repro_torch.core.rsnn import Presets
+    from repro_torch.data.braille import make_braille_dataset
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import ops
+
+    data = make_braille_dataset("AEU")
+    T = data["train"]["num_ticks"]
+    base = Presets.braille(n_classes=3, num_ticks=T, quantized=True)
+    cfg = dataclasses.replace(base, eprop=dataclasses.replace(base.eprop, mode="exact"))
+    opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * data["train"]["events"].shape[0])
+    pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
+    learner = OnlineLearner(cfg, ControllerConfig(num_epochs=1, eval_every=1, commit="sample"),
+                            opt, LEARN_SEEDS[0], device=dev)
+    ops.reset_launch_counts()
+    learner.fit(pipe)
+    test = learner.eval_epoch(pipe, 0, "test")
+    return {"weights_digest": _digest([learner.weights[k] for k in sorted(learner.weights)]),
+            "test_acc": test, "launches": ops.launches["rsnn_train_exact"]}
+
+
+def _exact_roles(E, K, args, kw):
+    """How one rsnn_train_exact launch's time splits by role (the first
+    cluster's chain, input warp, readout warp, leader walker warp and block
+    1's warp, from the kernel's clock64() readings): per role the mean
+    cycles of work a tick block and the mean cycles it waited between two
+    blocks, and the chain's cycles from its first block's start to its last
+    block's end; the SM clock in MHz beside them."""
+    T, B, N = args[0].shape
+    H, O = args[4].shape[0], args[5].shape[1]
+    plan = K.train_exact_plan(T, N, H, O, B)
+    clocks = torch.zeros(E.exact_clock_shape(T, plan), dtype=torch.int64,
+                         device=args[0].device)
+    E.rsnn_train_exact_cuda(*args, **kw)
+    E.rsnn_train_exact_cuda(*args, **kw, clocks=clocks)
+    torch.cuda.synchronize()
+    c = clocks.cpu().double()
+    out = {}
+    for r, role in enumerate(E.EXACT_CLOCK_ROLES):
+        start, end = c[r, :, 0], c[r, :, 1]
+        if not bool((end > 0).all()):
+            continue     # block 1 only where a row spans a cluster
+        out[role] = {"work_cycles": float((end - start).mean()),
+                     "wait_cycles": float((start[1:] - end[:-1]).mean()) if T > plan.ticks
+                     else 0.0}
+    out["chain_cycles"] = float(c[0, -1, 1] - c[0, 0, 0])
+    sm = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                        capture_output=True, text=True, timeout=60).stdout.strip()
+    out["sm_clock"] = sm
+    return out
 
 
 # Tensor-core and copy instructions whose counts --time-tree reports per
@@ -6273,6 +6406,7 @@ def main() -> None:
             kernels[-1]["end_s"] = rows["rsnn_train END_S"]
             kernels[-1]["commit_grid"] = grid_row
         if name == "rsnn_train_exact":
+            kernels[-1]["end_s"] = rows["rsnn_train_exact END_S"]
             kernels[-1]["end_b"] = rows["rsnn_train_exact END_B"]
             kernels[-1]["learning"] = exact_summary
         if name == "rsnn_forward":

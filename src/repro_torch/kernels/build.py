@@ -139,10 +139,13 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.rsnn_train_launch.argtypes = (
         [ptr] * 18 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
         + surrogate + [f32, f32, i32, f32, i32, ptr])
-    # rsnn_train_exact: rsnn_train's arguments, with alpha (H) after the 7
-    # inputs and the scratch h, l, zbar, err and spike masks in place of the
-    # traces and g
-    lib.rsnn_train_exact_launch.argtypes = lib.rsnn_train_launch.argtypes
+    # rsnn_train_exact: 7 inputs, alpha, dw_part, dw, dw_codes, acc_y,
+    # n_spk; T, B, N, H, O, threads, cluster, groups, slots, ticks, inputs,
+    # g_in, g_rec, g_out, lines, weights_smem, infer_all; smem bytes; then
+    # as rsnn_train, with the roles' clock buffer before the stream
+    lib.rsnn_train_exact_launch.argtypes = (
+        [ptr] * 13 + [i32] * 17 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
+        + surrogate + [f32, f32, i32, f32, i32, ptr, ptr])
     # eprop_update: 6 inputs, g, dw_part, dw; T, B, N, H, O; kappa, stream
     lib.eprop_update_launch.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
     # flash_attention: q, k, v, o, lse and the f32 output (null: neither

@@ -137,6 +137,9 @@ enum RowOut {
                      // when copy.h is not null (rsnn_train)
   ROW_STREAMS = 2,   // h, pbar, zbar and v to copy only; no count, no
                      // valid read; tr.h holds the input currents (rsnn_forward)
+  ROW_EXACT = 3,     // h over tr.h only, every lane's (rows padded to 32*J
+                     // words), and the count; no pbar or zbar filter
+                     // (rsnn_train_exact)
 };
 
 // What the event loop carries from one tick to the next for one row, in
@@ -300,7 +303,10 @@ __device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
 // c.nspk; ROW_TRACES (rsnn_train) also writes the pseudo-derivative h over
 // tr.h and the pbar, zbar traces (and all three to `copy` when copy.h is
 // not null); ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the
-// post-reset v to `copy` only.  LIVE (rsnn_step_sessions): a tick with
+// post-reset v to `copy` only; ROW_EXACT (rsnn_train_exact) counts as
+// ROW_TRACES and writes h over tr.h alone, unguarded: the caller pads each
+// tick's row to 32*J words, so that no lane branches around its store.
+// LIVE (rsnn_step_sessions): a tick with
 // live[t] == 0 keeps v and z by select.  AVEC (rsnn_train_exact): neuron h
 // leaks, and filters pbar, by its own decay alpha_h[h] instead of p.alpha.
 // TRI: h is the triangular surrogate (rsnn_triangular), else the boxcar.
@@ -364,7 +370,12 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
         const float zz = v_pre >= p.v_th ? 1.f : 0.f;
         const float v_new = p.reset_sub ? v_pre - zz * p.v_th : v_pre * (1.f - zz);
         const unsigned m = __ballot_sync(FULL, h < H && zz > 0.f);
-        if (TRACES) {
+        if (OUT == ROW_EXACT) {
+          const float hb = TRI ? rsnn_triangular(v_pre, p)
+                               : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
+          rsnn_put(tr.h, tr.sH, t, h, hb);
+        }
+        if (TRACES && OUT != ROW_EXACT) {
           const float hb = TRI ? rsnn_triangular(v_pre, p)
                                : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
           const float z_prev = (c.z[j] >> lane) & 1u ? 1.f : 0.f;

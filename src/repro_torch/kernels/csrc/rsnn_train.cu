@@ -1,11 +1,11 @@
 // The training kernels, built into one library with the serving kernels of
 // rsnn_serve.cu.  rsnn_forward, rsnn_train and rsnn_train_exact (exact-mode
-// e-prop, below rsnn_train) run the
+// e-prop, its design in rsnn_train.cuh) run the
 // warp-per-row event loop of rsnn_tick.cuh (the serving kernels run the
-// same loop) and share their forward phases (phases 1-3 of rsnn_train
-// below: rsnn_input_currents, rsnn_row_lif, rsnn_xbar_walk,
-// rsnn_readout_currents, rsnn_leak_out); rsnn_train and eprop_update share
-// the reverse device functions (rsnn_f_walk, rsnn_dw_elem).
+// same loop) and share their forward pieces (rsnn_input_current_items,
+// rsnn_row_lif, rsnn_readout_sum, rsnn_leak_out, rsnn_tick_error);
+// rsnn_train and eprop_update share the reverse device functions
+// (rsnn_f_walk, rsnn_dw_elem).
 //
 // rsnn_forward_kernel — the trace-streaming forward behind the backend's
 // forward_traces and dynamics ops.  Replaces src/repro/kernels/rsnn_step.py:
@@ -108,10 +108,10 @@ __global__ void rsnn_train_kernel(TrainArgs a, TickParams p) {
   rsnn_train_row<W, SMEM_TRACES, false>(a, p);
 }
 
-template <int W, bool SMEM_TRACES>
-__global__ void rsnn_train_exact_kernel(TrainArgs a, const float* alpha,
-                                        unsigned* spk_dev, TickParams p) {
-  rsnn_train_exact_row<W, SMEM_TRACES, false>(a, alpha, spk_dev, p);
+template <int W>
+__global__ void __launch_bounds__(RSNN_EXACT_THREADS, 1)
+    rsnn_train_exact_kernel(ExactArgs a, TickParams p) {
+  rsnn_train_exact_row<W, false>(a, p);
 }
 
 template <int W>
@@ -123,8 +123,8 @@ template <>
 struct RsnnTraceKernels<false> {
   template <int W, bool SMEM_TRACES>
   static auto train() { return rsnn_train_kernel<W, SMEM_TRACES>; }
-  template <int W, bool SMEM_TRACES>
-  static auto exact() { return rsnn_train_exact_kernel<W, SMEM_TRACES>; }
+  template <int W>
+  static auto exact() { return rsnn_train_exact_kernel<W>; }
   template <int W>
   static auto forward() { return rsnn_forward_kernel<W>; }
 };
@@ -134,25 +134,8 @@ extern template int rsnn_forward_dispatch<true>(const ForwardArgs&, const TickPa
                                                 size_t, cudaStream_t);
 extern template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int, int,
                                               size_t, cudaStream_t);
-extern template int rsnn_train_exact_dispatch<true>(const TrainArgs&, const float*,
-                                                    unsigned*, const TickParams&, int, int,
+extern template int rsnn_train_exact_dispatch<true>(const ExactArgs&, const TickParams&,
                                                     size_t, cudaStream_t);
-
-// The exact walks over the device scratch: one thread per (dw element,
-// row), row b's partial to dw_part[b].
-__global__ void rsnn_exact_dw_rows_kernel(TrainArgs a, const float* alpha,
-                                          const unsigned* spk_dev, float kappa) {
-  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
-  const int e_all = N * H + H * H + H * O;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (e >= e_all) return;
-  const RowExact r{a.raster + (size_t)b * N, (size_t)B * N, spk_dev + (size_t)b * T * J,
-                   (size_t)J, a.tr_h + (size_t)b * H, a.tr_pbar + (size_t)b * H,
-                   a.tr_zbar + (size_t)b * H, (size_t)B * H, a.tr_err + (size_t)b * O,
-                   (size_t)B * O, alpha};
-  a.dw_part[(size_t)b * e_all + e] = rsnn_exact_dw_elem(r, e, N, H, O, T, kappa);
-}
 
 // F over device traces: one thread per (row, neuron).
 __global__ void rsnn_f_walk_kernel(const float* h, float* g, const float* err,
@@ -341,50 +324,59 @@ extern "C" int eprop_update_launch(
   return rsnn_reduce_dw(dw_part, B, N * H + H * H + H * O, dw, st);
 }
 
-// As rsnn_train_launch, with alpha (H) the neurons' decays and, for the
-// device-scratch path (traces_smem 0), tr_h, tr_l, tr_zbar (T, B, H), tr_err
-// (T, B, O) and spk (B, T, ceil(H/32)); smem_bytes must be this kernel's
-// layout for the plan's choices (kernels/rsnn_step.py:train_exact_plan).
+// As rsnn_train_launch, with alpha (H) the neurons' decays and, in place
+// of the trace buffers, the plan's layout (kernels/rsnn_step.py:
+// train_exact_plan): `cluster` blocks a cluster and `groups` clusters a row,
+// `slots` ring slots of `ticks` ticks, `inputs` input warps in the leader
+// block, g_in, g_rec, g_out walker threads a neuron for the
+// input, recurrent and readout lines and k lines a thread; the launch is
+// refused unless the layout covers every synapse within k lines a thread
+// (a power of two up to RSNN_EXACT_KMAX) and smem_bytes is this kernel's for it.  clocks: null, or
+// where the kernel records its roles' clocks (ExactArgs::clocks).
 extern "C" int rsnn_train_exact_launch(
     const float* raster, const float* y_star, const float* valid,
     const float* w_in, const float* w_rec, const float* w_out,
-    const float* b_fb, const float* alpha, float* tr_h, float* tr_l,
-    float* tr_zbar, float* tr_err, unsigned* spk, float* dw_part, float* dw,
+    const float* b_fb, const float* alpha, float* dw_part, float* dw,
     int* dw_codes, float* acc_y, float* n_spk, int T, int B, int N, int H,
-    int O, int threads, int weights_smem, int traces_smem, int infer_all,
+    int O, int threads, int cluster, int groups, int slots, int ticks, int inputs,
+    int g_in, int g_rec, int g_out, int k, int weights_smem, int infer_all,
     long long smem_bytes, float alpha_f, float kappa, float v_th,
     float alpha_c, float kappa_c, float v_lo, float v_hi, int reset_sub,
     int quant, float bw_vth, int tri, float gamma, float inv_vth, float y_scale,
     float target_amp, int err_softmax, float commit_lsb, int commit_bits,
-    void* stream) {
+    long long* clocks, void* stream) {
   const bool grid = commit_lsb > 0.f;
-  if (T < 1 || B < 1 || O > RSNN_MAX_OUT || N > 32 * RSNN_MAX_WORDS ||
-      H > 32 * RSNN_MAX_WORDS || !alpha ||
-      (!traces_smem && (!tr_h || !tr_l || !tr_zbar || !tr_err || !spk)) ||
-      (traces_smem && !weights_smem) || threads < 64 ||
-      (size_t)smem_bytes != rsnn_train_exact_smem_floats(T, N, H, O, weights_smem,
-                                                         traces_smem) * sizeof(float) ||
+  const int nwarps = RSNN_EXACT_THREADS / 32;
+  const long long walkers =
+      32LL * groups * ((cluster - 1) * nwarps +
+                       rsnn_exact_leader_walkers(nwarps, rsnn_exact_role_warps(inputs)));
+  if (T < 1 || B < 1 || O < 1 || O > RSNN_MAX_OUT || N < 1 || H < 1 ||
+      N > 32 * RSNN_MAX_WORDS || H > 32 * RSNN_MAX_WORDS || !alpha ||
+      threads != RSNN_EXACT_THREADS || (cluster != 1 && cluster != 2 && cluster != 4 &&
+                                        cluster != 8) ||
+      groups < 1 || slots < 1 || slots > RSNN_EXACT_MAX_SLOTS || ticks < 1 ||
+      ticks > RSNN_EXACT_MAX_TICKS || inputs < 1 ||
+      32 * rsnn_exact_role_warps(inputs) >= RSNN_EXACT_THREADS || k < 1 ||
+      k > RSNN_EXACT_KMAX || (k & (k - 1)) || g_in < 1 || g_rec < 1 || g_out < 1 ||
+      (long long)g_in * k < N || (long long)g_rec * k < H || (long long)g_out * k < O ||
+      (long long)H * (g_in + g_rec + g_out) > walkers ||
+      (long long)B * groups * cluster > 0x7fffffffLL ||
+      (size_t)smem_bytes != rsnn_exact_smem_words(N, H, O, slots, ticks, weights_smem) *
+                                sizeof(float) ||
       (grid ? (!dw_codes || commit_bits < 2 || commit_bits > 24) : !dw)) {
     return (int)cudaErrorInvalidValue;
   }
   TickParams p{alpha_f, kappa, v_th, alpha_c, kappa_c, v_lo, v_hi, reset_sub,
                quant, bw_vth, y_scale, target_amp, err_softmax, gamma, inv_vth};
-  TrainArgs a{raster, y_star, valid, w_in, w_rec, w_out, b_fb, tr_h, nullptr,
-              tr_l, tr_zbar, tr_err, nullptr, dw_part, acc_y, n_spk,
-              T, B, N, H, O, weights_smem, infer_all};
+  const ExactArgs a{raster, y_star, valid, w_in, w_rec, w_out, b_fb, alpha, dw_part,
+                    acc_y, n_spk, T, B, N, H, O, cluster, groups, slots, ticks, inputs,
+                    g_in, g_rec, g_out, k, weights_smem, infer_all, clocks};
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = tri ? rsnn_train_exact_dispatch<true>(a, alpha, spk, p, traces_smem, threads,
-                                                 smem_bytes, st)
-               : rsnn_train_exact_dispatch<false>(a, alpha, spk, p, traces_smem, threads,
-                                                  smem_bytes, st);  if (rc) return rc;
+  const size_t smem = (size_t)smem_bytes;
+  int rc = tri ? rsnn_train_exact_dispatch<true>(a, p, smem, st)
+               : rsnn_train_exact_dispatch<false>(a, p, smem, st);
+  if (rc) return rc;
   const int e_all = N * H + H * H + H * O;
-  if (!traces_smem) {
-    const dim3 grid_rows((e_all + RSNN_FLAT_THREADS - 1) / RSNN_FLAT_THREADS, B);
-    rsnn_exact_dw_rows_kernel<<<grid_rows, RSNN_FLAT_THREADS, 0, st>>>(a, alpha, spk,
-                                                                      kappa);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
   return grid ? rsnn_reduce_codes(dw_part, B, e_all, commit_lsb, commit_bits,
                                   dw_codes, st)
               : rsnn_reduce_dw(dw_part, B, e_all, dw, st);

@@ -7,6 +7,8 @@
 // compile in a translation unit of their own.  The design notes are in
 // rsnn_train.cu.
 #pragma once
+#include <cooperative_groups.h>
+
 #include "rsnn_tick.cuh"
 
 // Functions that are not templates or inline are static here: each
@@ -306,182 +308,615 @@ __device__ __forceinline__ void rsnn_train_row(const TrainArgs& a, const TickPar
 // rsnn_train_exact: exact-mode e-prop (per-synapse traces)
 // ---------------------------------------------------------------------------
 
-// One row's view of what the exact walks read, element (t, i) at
-// base + t * stride + i: the presynaptic inputs x, the spike masks (word w
-// of tick t at spikes + t * sz + w), the pseudo-derivative h, the learning signal l,
-// zbar, the readout error err, and the neurons' decays alpha (H).
-struct RowExact {
-  const float* x; size_t sx;
-  const unsigned* spikes; size_t sz;
-  const float* h; const float* l; const float* zbar; size_t sH;
-  const float* err; size_t sO;
-  const float* alpha;
+// Presynaptic lines a walker thread carries, the block's threads, the
+// ring's most slots and ticks a slot, the leader block's chain and readout
+// warps (kernels/rsnn_step.py:train_exact_plan names the same numbers).
+#define RSNN_EXACT_KMAX 16
+#define RSNN_EXACT_THREADS 512
+#define RSNN_EXACT_MAX_SLOTS 4
+#define RSNN_EXACT_MAX_TICKS 32
+#define RSNN_EXACT_READOUT_WARPS 2
+
+struct ExactArgs {
+  const float* raster;   // (T, B, N)
+  const float* y_star;   // (B, O)
+  const float* valid;    // (T, B)
+  const float* w_in;
+  const float* w_rec;
+  const float* w_out;
+  const float* b_fb;     // (H, O)
+  const float* alpha;    // (H) the neurons' decays
+  float* dw_part;        // (B, E)
+  float* acc_y;          // (B, O)
+  float* n_spk;          // (B, 1)
+  int T, B, N, H, O;
+  int cluster;           // blocks a cluster
+  int groups;            // clusters a row, each walking its share of the lines
+  int slots, ticks;      // ring slots, ticks a slot
+  int inputs;            // the leader's input warps
+  int g_in, g_rec, g_out;  // walker threads a neuron j per line kind
+  int k;                 // lines a walker thread: 1, 2, 4, 8 or RSNN_EXACT_KMAX
+  int weights_smem, infer_all;
+  // null, or (RSNN_EXACT_CLOCK_ROLES, tick blocks, 2) clock64() readings of
+  // the first cluster's roles: when each began and ended its work on each
+  // tick block (the time split by role; nothing else reads them)
+  long long* clocks;
 };
 
-// dw element e of one row in exact mode (e over w_in, then w_rec, then
-// w_out, row-major), its state in registers, the ticks walked forward in
-// the reference's order (repro/core/eprop.py:run_sample_exact):
-//   synapse (i, j), presynaptic line i < N + H, s_i(t) = x(t, i) for an
-//   input, z_k(t - 1) for recurrent neuron k = i - N (0 at t = 0):
-//     eps = alpha_j*eps + s_i(t);  ebar = kappa*ebar + h_j(t)*eps;
-//     dw += ebar*l_j(t)
-//   readout (j, o): dw += zbar_j(t)*err_o(t).
-static __device__ float rsnn_exact_dw_elem(const RowExact& r, int e, int N, int H,
-                                    int O, int T, float kappa) {
-  const int e_syn = (N + H) * H;
-  float acc = 0.f;
-  if (e < e_syn) {
-    const int i = e / H, j = e - (e / H) * H;
-    const float a = r.alpha[j];
-    const float* hj = r.h + j;
-    const float* lj = r.l + j;
-    float eps = 0.f, ebar = 0.f;
-    if (i < N) {
-      const float* xi = r.x + i;
-      for (int t = 0; t < T; ++t) {
-        eps = a * eps + xi[(size_t)t * r.sx];
-        ebar = kappa * ebar + hj[(size_t)t * r.sH] * eps;
-        acc += ebar * lj[(size_t)t * r.sH];
-      }
-    } else {
-      const int k = i - N;
-      const unsigned* m = r.spikes + (k >> 5);
-      const int bit = k & 31;
-      for (int t = 0; t < T; ++t) {
-        const float zk = t > 0 && ((m[(size_t)(t - 1) * r.sz] >> bit) & 1u) ? 1.f : 0.f;
-        eps = a * eps + zk;
-        ebar = kappa * ebar + hj[(size_t)t * r.sH] * eps;
-        acc += ebar * lj[(size_t)t * r.sH];
-      }
-    }
-  } else {
-    e -= e_syn;
-    const int j = e / O, o = e - (e / O) * O;
-    for (int t = 0; t < T; ++t) {
-      acc += r.zbar[(size_t)t * r.sH + j] * r.err[(size_t)t * r.sO + o];
-    }
-  }
-  return acc;
+// The roles whose clocks ExactArgs::clocks records: the chain, the first
+// input warp, the first readout warp, the leader's first walker warp and
+// block 1's first warp (a walker block's copy and walk).
+#define RSNN_EXACT_CLOCK_ROLES 5
+
+// The leader block's warps before its walkers: the chain, the readout and
+// the input warps.
+__host__ __device__ inline int rsnn_exact_role_warps(int inputs) {
+  return 1 + RSNN_EXACT_READOUT_WARPS + inputs;
 }
 
-// Dynamic shared memory of one rsnn_train_exact block, in 4-byte words:
-// rsnn_train's layout (kernels/rsnn_step.py:train_exact_plan) and the
-// row's decays alpha (H).
-__host__ __device__ inline size_t rsnn_train_exact_smem_floats(int T, int N,
-                                                               int H, int O,
-                                                               int weights_smem,
-                                                               int traces_smem) {
-  return rsnn_train_smem_floats(T, N, H, O, weights_smem, traces_smem) + H;
+// Leader warp w's index among the leader's walker warps, or -1: the warps
+// after the roles, but for those that share the chain's scheduler (w % 4
+// == 0, as warp 0), which stay idle so that no walker takes the chain's
+// issue slots.  rsnn_exact_leader_walker(nwarps, roles) counts them.
+__host__ __device__ inline int rsnn_exact_leader_walker(int w, int roles) {
+  if (w < roles || (w & 3) == 0) return -1;
+  int n = 0;
+  for (int i = roles; i < w; ++i) n += (i & 3) != 0;
+  return n;
+}
+
+__host__ __device__ inline int rsnn_exact_leader_walkers(int nwarps, int roles) {
+  int n = 0;
+  for (int i = roles; i < nwarps; ++i) n += (i & 3) != 0;
+  return n;
+}
+
+// One ring slot of `tb` ticks from tick t0, element (t, i) at base + t *
+// width + i: the input currents and then h (rows of 32*J words,
+// ROW_EXACT's padding), the learning signal l (H), the inputs x (N), the
+// readout y and then its error (O), the spike masks (J words; row 0 the
+// tick before t0, row t + 1 tick t0 + t), the valid mask.  The words are
+// rounded up to a multiple of 4 so that every slot starts 16-byte aligned.
+struct ExactSlot {
+  float* h;
+  float* l;
+  float* x;
+  float* err;
+  unsigned* spk;
+  float* vs;
+};
+
+__host__ __device__ inline size_t rsnn_exact_slot_words(int N, int H, int O, int tb) {
+  const size_t J = (H + 31) / 32;
+  const size_t w = (size_t)tb * (32 * J + H + N + O + 1) + (tb + 1) * J;
+  return (w + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ ExactSlot rsnn_exact_slot(float* base, int N, int H, int O,
+                                                     int tb) {
+  const int J = (H + 31) / 32;
+  ExactSlot q;
+  q.h = base;
+  q.l = q.h + tb * 32 * J;
+  q.x = q.l + tb * H;
+  q.err = q.x + tb * N;
+  q.spk = reinterpret_cast<unsigned*>(q.err + tb * O);
+  q.vs = reinterpret_cast<float*>(q.spk + (tb + 1) * J);
+  return q;
+}
+
+// Dynamic shared memory of one rsnn_train_exact block, in 4-byte words
+// (kernels/rsnn_step.py:train_exact_plan): four mbarriers a slot, the
+// decays alpha (H), the readout's w_out and b_fb (H*O each), w_in and w_rec when staged,
+// then the ring from a 16-byte boundary.  Nothing grows with T.
+__host__ __device__ inline size_t rsnn_exact_ring_offset(int N, int H, int O,
+                                                         int slots, int weights_smem) {
+  const size_t w = weights_smem ? (size_t)N * H + (size_t)H * H : 0;
+  return (8 * (size_t)slots + H + 2 * (size_t)H * O + w + 3) / 4 * 4;
+}
+
+__host__ __device__ inline size_t rsnn_exact_smem_words(int N, int H, int O, int slots,
+                                                        int tb, int weights_smem) {
+  return rsnn_exact_ring_offset(N, H, O, slots, weights_smem) +
+         (size_t)slots * rsnn_exact_slot_words(N, H, O, tb);
+}
+
+// mbarrier operations (PTX): init; an arrive (release) on this block's
+// barrier or, through its cluster address, on the barrier at the same
+// offset in block `rank` of the cluster; a wait for a phase's parity, the
+// thread suspended until it completes, with acquire at block scope (every
+// arrival from this block) or cluster scope (arrivals from other blocks of
+// the cluster: what they wrote before they arrived is visible after it).
+__device__ __forceinline__ unsigned rsnn_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void rsnn_mbar_init(unsigned long long* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(rsnn_smem_addr(b)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void rsnn_mbar_arrive(unsigned long long* b) {
+  asm volatile("mbarrier.arrive.release.cta.shared::cta.b64 _, [%0];" ::"r"(
+                   rsnn_smem_addr(b)) : "memory");
+}
+
+__device__ __forceinline__ void rsnn_mbar_arrive_at(unsigned long long* b, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote)
+               : "r"(rsnn_smem_addr(b)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
+               : "memory");
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ void rsnn_mbar_wait(unsigned long long* b, unsigned parity) {
+  const unsigned addr = rsnn_smem_addr(b);
+  unsigned done = 0;
+  while (!done) {
+    if (CLUSTER) {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2, %3;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done) : "r"(addr), "r"(parity), "r"(10000000) : "memory");
+    } else {
+      asm volatile(
+          "{\n"
+          ".reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cta.shared::cta.b64 p, [%1], %2, %3;\n"
+          "selp.u32 %0, 1, 0, p;\n"
+          "}\n"
+          : "=r"(done) : "r"(addr), "r"(parity), "r"(10000000) : "memory");
+    }
+  }
+}
+
+// The readout error of one tick over its O <= NO outputs, in place at
+// e[o], from the tick's valid mask vd and the one-hot target ys, with
+// rsnn_row_readout's operations in its order: softmax(y*s) - y* or y*s -
+// amp*y*, times vd.  NO bounds the unrolled loops (4, 8 or RSNN_MAX_OUT).
+template <int NO>
+__device__ __forceinline__ void rsnn_tick_error(float* e, float vd,
+                                                const float (&ys)[RSNN_MAX_OUT],
+                                                const TickParams& p, int O) {
+  float u[NO];
+#pragma unroll
+  for (int o = 0; o < NO; ++o) u[o] = o < O ? e[o] * p.y_scale : 0.f;
+  float m = u[0];
+#pragma unroll
+  for (int o = 1; o < NO; ++o) {
+    if (o < O) m = fmaxf(m, u[o]);
+  }
+  if (p.err_softmax) {
+    float sum = 0.f;
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      if (o < O) {
+        u[o] = expf(u[o] - m);
+        sum += u[o];
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      if (o < O) u[o] = (u[o] / sum - ys[o]) * vd;
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      if (o < O) u[o] = (u[o] - p.target_amp * ys[o]) * vd;
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+    if (o < O) e[o] = u[o];
+  }
+}
+
+// One 4-byte copy from global to shared memory, asynchronous (cp.async):
+// complete after this thread's next cp.async.wait_all.
+__device__ __forceinline__ void rsnn_copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(rsnn_smem_addr(dst)),
+               "l"(__cvta_generic_to_global(src)) : "memory");
+}
+
+// Lines of kind-count L a walker thread at offset gi of G carries: gi,
+// gi + G, ... below L.
+__device__ __forceinline__ int rsnn_exact_lines(int L, int gi, int G) {
+  return gi < L ? (L - 1 - gi) / G + 1 : 0;
+}
+
+// The learning signal of one tick block, l(t, j) = sum_o err(t, o) b_fb[j,
+// o] in o order, for neurons j = j0, j0 + stride, ... over n ticks; each
+// neuron's row of b_fb in registers, O <= NO (4, 8 or RSNN_MAX_OUT).
+template <int NO>
+__device__ __forceinline__ void rsnn_exact_signal(const ExactSlot& q, int n, int H, int O,
+                                                  const float* bf, int j0, int stride) {
+  for (int j = j0; j < H; j += stride) {
+    float f[NO];
+#pragma unroll
+    for (int o = 0; o < NO; ++o) f[o] = o < O ? bf[j * O + o] : 0.f;
+    for (int t = 0; t < n; ++t) {
+      const float* e = q.err + t * O;
+      float l = 0.f;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        if (o < O) l += e[o] * f[o];
+      }
+      q.l[t * H + j] = l;
+    }
+  }
+}
+
+// The per-synapse walks of one tick block over the slot q (this block's
+// or a mirror of the leader's), n ticks, for a walker thread of neuron j
+// carrying K lines gi, gi + G, ... of one kind (L lines of that kind; a
+// line past them walks line L - 1 again and is never stored), its
+// synapses' state in registers from block to block, the ticks in the
+// reference's order (repro/core/eprop.py:run_sample_exact):
+//   input line i (synapse (i, j)):      eps = a_j*eps + x_i(t);
+//   recurrent line k:                   eps = a_j*eps + z_k(t - 1);
+//     ebar = kappa*ebar + h_j(t)*eps;  dw += ebar*l_j(t)
+//   readout line o (synapse (j, o)):    zbar = kappa*zbar + z_j(t);
+//                                       dw += zbar*err_o(t)
+// (zbar in eps's registers).  K is a template argument, so that no lane
+// steps through lines it does not carry.
+template <int KIND, int K>
+__device__ __forceinline__ void rsnn_exact_walk(const ExactSlot& q, int n, int N, int H,
+                                                int O, int j, int gi, int G, int L,
+                                                float aj, float kappa,
+                                                float (&eps)[RSNN_EXACT_KMAX],
+                                                float (&ebar)[RSNN_EXACT_KMAX],
+                                                float (&acc)[RSNN_EXACT_KMAX]) {
+  const int J = (H + 31) / 32, HP = 32 * J;
+  for (int t = 0; t < n; ++t) {
+    if (KIND == 2) {
+      const float zj = (q.spk[(t + 1) * J + (j >> 5)] >> (j & 31)) & 1u ? 1.f : 0.f;
+      const float* e = q.err + t * O;
+#pragma unroll
+      for (int g = 0; g < K; ++g) {
+        eps[g] = kappa * eps[g] + zj;
+        acc[g] += eps[g] * e[min(gi + g * G, L - 1)];
+      }
+      continue;
+    }
+    const float hj = q.h[t * HP + j], lj = q.l[t * H + j];
+    const float* xt = q.x + t * N;
+    const unsigned* zt = q.spk + t * J;
+#pragma unroll
+    for (int g = 0; g < K; ++g) {
+      const int k = min(gi + g * G, L - 1);
+      const float s = KIND == 0 ? xt[k] : ((zt[k >> 5] >> (k & 31)) & 1u ? 1.f : 0.f);
+      eps[g] = aj * eps[g] + s;
+      ebar[g] = kappa * ebar[g] + hj * eps[g];
+      acc[g] += ebar[g] * lj;
+    }
+  }
+}
+
+// rsnn_exact_walk at the launch's lines a thread (1, 2, 4, 8 or 16).
+template <int KIND>
+__device__ __forceinline__ void rsnn_exact_walk_k(int k, const ExactSlot& q, int n, int N,
+                                                  int H, int O, int j, int gi, int G, int L,
+                                                  float aj, float kappa,
+                                                  float (&eps)[RSNN_EXACT_KMAX],
+                                                  float (&ebar)[RSNN_EXACT_KMAX],
+                                                  float (&acc)[RSNN_EXACT_KMAX]) {
+#define RSNN_EXACT_WALK(K) \
+  rsnn_exact_walk<KIND, K>(q, n, N, H, O, j, gi, G, L, aj, kappa, eps, ebar, acc)
+  switch (k) {
+    case 1: RSNN_EXACT_WALK(1); break;
+    case 2: RSNN_EXACT_WALK(2); break;
+    case 4: RSNN_EXACT_WALK(4); break;
+    case 8: RSNN_EXACT_WALK(8); break;
+    default: RSNN_EXACT_WALK(RSNN_EXACT_KMAX);
+  }
+#undef RSNN_EXACT_WALK
 }
 
 // rsnn_train_exact_kernel — exact-mode e-prop behind
 // ExecutionBackend.train_tile with EpropConfig(mode="exact"): the
 // counterpart of the reference's scan backend, which compiles
 // src/repro/core/eprop.py:run_sample_exact into one device program a tile
-// (no Pallas kernel).  One block per batch row, in phases separated by
-// block barriers:
-//   1. the input currents of every tick (rsnn_input_currents);
-//   2. one warp runs the LIF recurrence (rsnn_row_lif, each neuron leaking
-//      by its own alpha), writing h, zbar and the spike masks;
-//   3. the readout and its error (rsnn_row_readout), acc_y;
-//   4. the learning signal l(t, j) = sum_o err(t, o) b_fb[j, o] in o order,
-//      over the pbar slots rsnn_row_lif wrote (not read here);
-//   5. (shared-memory path) the block's threads share the dw elements,
-//      each walking its synapse through the ticks (rsnn_exact_dw_elem).
-// Nothing of phases 1-4 depends on eps or ebar, so phase 5 walks each
-// synapse through all ticks after the forward: every value is the one the
-// tick-by-tick update gives, the synapse's state never leaves registers,
-// and no block barrier sits inside a tick loop.  The trace set (the input
-// currents then h, the raster, l, zbar, err) is rsnn_train's size; where it
-// does not fit beside the weights (Braille past T=424, the cue net, the
-// 256/256/16 net) it goes to a device scratch with the spike masks, and
-// rsnn_exact_dw_rows_kernel walks the synapses, one thread per (element,
-// row).  Then rsnn_dw_reduce_kernel, or on the commit grid
-// rsnn_dw_codes_reduce_kernel, sums the rows' partials.
+// (no Pallas kernel).
+//
+// Nothing of the forward reads a synapse's eps or ebar, so the walks of one
+// tick block can run beside the forward of the next.  A row runs on
+// `groups` thread-block clusters of `cluster` blocks (one group and one
+// block at the END_B tile; the plan spreads a row over up to eight blocks
+// at small B, and over several groups where the synapses' registers need
+// them).  Block 0 of a cluster, the leader, keeps a ring of `slots` tick
+// blocks of `ticks` ticks in shared memory (ExactSlot) beside w_out and
+// b_fb, and runs the forward in roles, each handing a slot on through
+// mbarriers (no block barrier inside a tick loop):
+//   the input warps (`inputs` of them, U ticks at a time in turn): once
+//     the walkers have freed the slot, copy their ticks' raster rows and
+//     valid mask in and sum their input currents
+//     (rsnn_input_current_items) — ahead of the chain;
+//   warp 0, the LIF chain: writes the carried spike masks as the slot's
+//     row 0, then runs rsnn_row_lif<ROW_EXACT> (each neuron leaking by its
+//     own alpha) through the block from the carries in its registers,
+//     writing h and the spike masks — no pbar or zbar on the chain;
+//   warps 1-2, the readout: the readout currents, the LI leak (y and acc_y
+//     carried in registers from block to block), the readout error
+//     (rsnn_tick_error) and the learning signal (rsnn_exact_signal), then
+//     an arrive on every block's "ready" barrier;
+//   the other warps (walkers) walk the block's synapses (rsnn_exact_walk)
+//     and free the slot; those that share the chain's scheduler (warp % 4
+//     == 0) stay idle.
+// The other blocks of the cluster are all walkers: each copies the leader's
+// slot once into a mirror of its own (distributed shared memory, the
+// cluster address from cg::cluster_group::map_shared_rank), frees the
+// leader's slot and walks the mirror.  A walker thread owns a neuron j and
+// up to RSNN_EXACT_KMAX lines of one kind (g_in, g_rec, g_out threads a
+// neuron), whose (eps, ebar, dw) stay in registers through all T ticks;
+// the walker warps take turns over the blocks of the cluster.  Every value
+// is the one a walk after the whole forward would give, the same
+// operations on the same operands in the same order, so dw, acc_y and
+// n_spk do not depend on the layout (cluster, groups, slots, ticks).  Then
+// rsnn_dw_reduce_kernel, or on the commit grid rsnn_dw_codes_reduce_kernel,
+// sums the rows' partials.
 //
 // Bound on the H100: 7 operations a synapse and tick (eps 2, ebar 3, dw 2)
-// over (N + H) * H synapses, plus 4 * H * O a tick for l and dw_out: at
-// Braille (12/38/3) 13,940 a tick, 3.6 M at T=256 (0.053 us at f32 67
-// TFLOP/s); the bytes (raster, weights in, dw out) are fewer still.  The
-// row's LIF chain (some hundreds of cycles a tick, as in rsnn_train) and one
-// row's walks on one SM set the pace at small B.
-template <int W, bool SMEM_TRACES, bool TRI>
-__device__ __forceinline__ void rsnn_train_exact_row(const TrainArgs& a, const float* alpha,
-                                                     unsigned* spk_dev, const TickParams& p) {
+// over (N + H) * H synapses, plus 4 * H * O a tick for l and dw_out
+// (kernels/traffic.py:train_exact_event_flops); the bytes (raster, weights
+// in, dw out) are fewer.  The row's LIF chain (some hundreds of cycles a
+// tick) sets the pace when every other role takes less time a tick block
+// than the chain: the roles' clocks (ExactArgs::clocks) show which does
+// not.  Issue slots decide it: a walker that steps through lines it does
+// not carry, or a readout loop unrolled to RSNN_MAX_OUT with guards, took
+// as long a block as the chain on the card.
+template <int W, bool TRI>
+__device__ __forceinline__ void rsnn_train_exact_row(const ExactArgs& a, const TickParams& p) {
+  namespace cg = cooperative_groups;
   extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  float* s = smem;
-  float* vs = s;  s += T;
-  unsigned* spikes = reinterpret_cast<unsigned*>(s);  s += (size_t)T * J;
-  float* al = s;  s += H;
+  const int C = a.cluster, S = a.slots, tb = a.ticks, NI = a.inputs;
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C;   // the cluster: row cid / groups, group cid % groups
+  const int b = cid / a.groups, grp = cid - b * a.groups;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int roles = rsnn_exact_role_warps(NI);
+  const int nwarps = blockDim.x >> 5, lwarps = rsnn_exact_leader_walkers(nwarps, roles);
+  const int nblk = (T + tb - 1) / tb;
+  const int M = S < 2 ? S : 2;   // a walker block's mirrors
+  // the leader's filled, chained, ready, empty; a walker block's copied,
+  // freed (in filled's and chained's places) and ready
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* filled = bar;
+  unsigned long long* chained = bar + S;
+  unsigned long long* ready = bar + 2 * S;
+  unsigned long long* empty = bar + 3 * S;
+  float* al = smem + 8 * S;
+  float* wo = al + H;
+  float* bf = wo + H * O;
   const float* w_in = a.w_in;
   const float* w_rec = a.w_rec;
-  const float* w_out = a.w_out;
-  if (SMEM_TRACES || a.weights_smem) {
-    float* wi = s;  s += N * H;
-    float* wr = s;  s += H * H;
-    float* wo = s;  s += H * O;
-    for (int i = tid; i < N * H; i += nth) wi[i] = a.w_in[i];
-    for (int i = tid; i < H * H; i += nth) wr[i] = a.w_rec[i];
-    for (int i = tid; i < H * O; i += nth) wo[i] = a.w_out[i];
-    w_in = wi; w_rec = wr; w_out = wo;
-  }
-  for (int t = tid; t < T; t += nth) vs[t] = a.valid[(size_t)t * B + b];
-  for (int h = tid; h < H; h += nth) al[h] = alpha[h];
-  // tr.h: the input currents, then h; tr.xbar: the raster (shared-memory
-  // path); tr.pbar: rsnn_row_lif's pbar, then l
-  RowTraces tr;
-  const float* x;   // x(t, k) at x[t * sx + k]
-  size_t sx;
-  if (SMEM_TRACES) {
-    tr = RowTraces{s, s + 3 * (size_t)T * H, s + (size_t)T * H,
-                   s + 2 * (size_t)T * H, s + (size_t)T * (3 * H + N),
-                   (size_t)H, (size_t)N, (size_t)O};
-    for (int i = tid; i < T * N; i += nth) {
-      tr.xbar[i] = a.raster[((size_t)(i / N) * B + b) * N + i % N];
+  if (rank == 0) {
+    for (int h = tid; h < H; h += blockDim.x) al[h] = a.alpha[h];
+    for (int i = tid; i < H * O; i += blockDim.x) {
+      wo[i] = a.w_out[i];
+      bf[i] = a.b_fb[i];
     }
-    x = tr.xbar; sx = N;
-  } else {
-    tr = RowTraces{a.tr_h + (size_t)b * H, nullptr, a.tr_pbar + (size_t)b * H,
-                   a.tr_zbar + (size_t)b * H, a.tr_err + (size_t)b * O,
-                   (size_t)B * H, (size_t)B * N, (size_t)B * O};
-    x = a.raster + (size_t)b * N; sx = (size_t)B * N;
+    if (a.weights_smem) {
+      float* wi = bf + H * O;
+      float* wr = wi + N * H;
+      for (int i = tid; i < N * H; i += blockDim.x) wi[i] = a.w_in[i];
+      for (int i = tid; i < H * H; i += blockDim.x) wr[i] = a.w_rec[i];
+      w_in = wi; w_rec = wr;
+    }
   }
-  __syncthreads();
-  rsnn_input_currents<W>(x, sx, w_in, tr.h, tr.sH, T, N, H);
-  __syncthreads();
-  const RowTraces none{};
-  if (tid < 32) {
+  float* ring = smem + rsnn_exact_ring_offset(N, H, O, S, a.weights_smem);
+  const size_t sw = rsnn_exact_slot_words(N, H, O, tb);
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      rsnn_mbar_init(&filled[i], rank == 0 ? NI : nwarps);
+      rsnn_mbar_init(&chained[i], rank == 0 ? 1 : nwarps);
+      rsnn_mbar_init(&ready[i], RSNN_EXACT_READOUT_WARPS);
+      rsnn_mbar_init(&empty[i], lwarps + (C - 1) * nwarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();
+  // role r's clock at the start (end 0) or end (end 1) of tick block k
+  long long* clocks = a.clocks && (int)blockIdx.x < C && lane == 0 ? a.clocks : nullptr;
+  auto mark = [&](int r, int k, int end) {
+    if (clocks) clocks[(r * nblk + k) * 2 + end] = clock64();
+  };
+
+  if (rank == 0 && warp == 0) {
+    // the LIF chain
     RowCarry<W> c;
     rsnn_carry_zero(c);
-    rsnn_row_lif<W, ROW_TRACES, false, true, TRI>(c, tr, none, w_rec, vs, nullptr, spikes,
-                                                  T, H, p, al);
-    if (tid == 0) a.n_spk[b] = c.nspk;
+    for (int k = 0; k < nblk; ++k) {
+      const int sl = k % S;
+      const ExactSlot q = rsnn_exact_slot(ring + sl * sw, N, H, O, tb);
+      rsnn_mbar_wait<false>(&filled[sl], (k / S) & 1);
+      mark(0, k, 0);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        if (j < J && lane == 0) q.spk[j] = c.z[j];
+      }
+      const RowTraces tr{q.h, nullptr, nullptr, nullptr, nullptr, (size_t)(32 * J), 0, 0};
+      rsnn_row_lif<W, ROW_EXACT, false, true, TRI>(c, tr, RowTraces{}, w_rec, q.vs, nullptr,
+                                                   q.spk + J, min(tb, T - k * tb), H, p, al);
+      __syncwarp();
+      if (lane == 0) rsnn_mbar_arrive(&chained[sl]);
+      mark(0, k, 1);
+    }
+    if (lane == 0 && grp == 0) a.n_spk[b] = c.nspk;
+  } else if (rank == 0 && warp <= RSNN_EXACT_READOUT_WARPS) {
+    // the readout: y, acc_y, the error, l
+    const int rt = tid - 32, nrt = 32 * RSNN_EXACT_READOUT_WARPS;
+    float ys[RSNN_MAX_OUT];
+#pragma unroll
+    for (int o = 0; o < RSNN_MAX_OUT; ++o) ys[o] = o < O ? a.y_star[(size_t)b * O + o] : 0.f;
+    float y = 0.f, acc = 0.f;
+    for (int k = 0; k < nblk; ++k) {
+      const int sl = k % S, n = min(tb, T - k * tb);
+      const ExactSlot q = rsnn_exact_slot(ring + sl * sw, N, H, O, tb);
+      rsnn_mbar_wait<false>(&chained[sl], (k / S) & 1);
+      if (warp == 1) mark(2, k, 0);
+      for (int i = rt; i < n * O; i += nrt) {
+        const int t = i / O;
+        q.err[i] = rsnn_readout_sum(q.spk + (t + 1) * J, J, wo, O, i - t * O);
+      }
+      asm volatile("bar.sync 1, %0;" ::"r"(nrt) : "memory");
+      if (rt < O) {
+#pragma unroll 4
+        for (int t = 0; t < n; ++t) {
+          float* e = q.err + t * O + rt;
+          y = rsnn_leak_out(y, *e, p);
+          acc += y * (a.infer_all ? 1.f : q.vs[t]);
+          *e = y;
+        }
+      }
+      asm volatile("bar.sync 1, %0;" ::"r"(nrt) : "memory");
+      for (int t = rt; t < n; t += nrt) {
+        if (O <= 4) {
+          rsnn_tick_error<4>(q.err + t * O, q.vs[t], ys, p, O);
+        } else if (O <= 8) {
+          rsnn_tick_error<8>(q.err + t * O, q.vs[t], ys, p, O);
+        } else {
+          rsnn_tick_error<RSNN_MAX_OUT>(q.err + t * O, q.vs[t], ys, p, O);
+        }
+      }
+      asm volatile("bar.sync 1, %0;" ::"r"(nrt) : "memory");
+      if (O <= 4) {
+        rsnn_exact_signal<4>(q, n, H, O, bf, rt, nrt);
+      } else if (O <= 8) {
+        rsnn_exact_signal<8>(q, n, H, O, bf, rt, nrt);
+      } else {
+        rsnn_exact_signal<RSNN_MAX_OUT>(q, n, H, O, bf, rt, nrt);
+      }
+      __syncwarp();
+      if (lane < C) rsnn_mbar_arrive_at(&ready[sl], lane);
+      if (warp == 1) mark(2, k, 1);
+    }
+    if (rt < O && grp == 0) a.acc_y[(size_t)b * O + rt] = acc;
+  } else if (rank == 0 && warp < roles) {
+    // an input warp: raster rows, valid mask and input currents of the
+    // block's U-tick chunks c with c % NI == its index
+    constexpr int U = RsnnItems<W>::U;
+    const int iw = warp - 1 - RSNN_EXACT_READOUT_WARPS;
+    for (int k = 0; k < nblk; ++k) {
+      const int sl = k % S, t0 = k * tb, n = min(tb, T - t0);
+      const ExactSlot q = rsnn_exact_slot(ring + sl * sw, N, H, O, tb);
+      if (k >= S) {
+        if (C > 1) {
+          rsnn_mbar_wait<true>(&empty[sl], (k / S - 1) & 1);
+        } else {
+          rsnn_mbar_wait<false>(&empty[sl], (k / S - 1) & 1);
+        }
+      }
+      if (iw == 0) mark(1, k, 0);
+      // the raster rows and valid masks of this warp's chunks, copied
+      // asynchronously, all in flight together
+      for (int t = iw * U; t < n; t += NI * U) {
+        const int m = min(U, n - t);
+        for (int i = lane; i < m * N; i += 32) {
+          const int tt = i / N;
+          rsnn_copy_async(q.x + t * N + i,
+                          a.raster + ((size_t)(t0 + t + tt) * B + b) * N + (i - tt * N));
+        }
+        if (lane < m) rsnn_copy_async(q.vs + t + lane, a.valid + (size_t)(t0 + t + lane) * B + b);
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      __syncwarp();
+      for (int t = iw * U; t < n; t += NI * U) {
+        const int m = min(U, n - t);
+        const float* xr[U];
+        float* cr[U];
+        bool on[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int tt = t + min(u, m - 1);
+          on[u] = u < m;
+          xr[u] = q.x + tt * N;
+          cr[u] = q.h + tt * 32 * J;
+        }
+        rsnn_input_current_items<W, U>(xr, on, w_in, cr, N, H);
+      }
+      __syncwarp();
+      if (lane == 0) rsnn_mbar_arrive(&filled[sl]);
+      if (iw == 0) mark(1, k, 1);
+    }
+  } else if (rank != 0 || (warp & 3) != 0) {
+    // a walker: neuron j, lines gi, gi + G, ... of one kind
+    const int lw = rank == 0 ? rsnn_exact_leader_walker(warp, roles) : warp;
+    const int ww = lw < lwarps ? lw * C + rank : lwarps * C + (lw - lwarps) * (C - 1) + rank - 1;
+    const int v = grp * (lwarps + (C - 1) * nwarps) * 32 + ww * 32 + lane;
+    int kind = 3, j = 0, gi = 0, G = 1, L = 1;
+    if (v < H * (a.g_in + a.g_rec + a.g_out)) {
+      j = v % H;
+      gi = v / H;
+      if (gi < a.g_in) {
+        kind = 0; G = a.g_in; L = N;
+      } else if ((gi -= a.g_in) < a.g_rec) {
+        kind = 1; G = a.g_rec; L = H;
+      } else {
+        gi -= a.g_rec;
+        kind = 2; G = a.g_out; L = O;
+      }
+    }
+    const int nl = kind == 3 ? 0 : rsnn_exact_lines(L, gi, G);
+    const float aj = a.alpha[j], kappa = p.kappa;
+    float eps[RSNN_EXACT_KMAX], ebar[RSNN_EXACT_KMAX], acc[RSNN_EXACT_KMAX];
+#pragma unroll
+    for (int g = 0; g < RSNN_EXACT_KMAX; ++g) { eps[g] = 0.f; ebar[g] = 0.f; acc[g] = 0.f; }
+    const float4* lead = reinterpret_cast<const float4*>(cluster.map_shared_rank(ring, 0));
+    for (int k = 0; k < nblk; ++k) {
+      const int sl = k % S, n = min(tb, T - k * tb);
+      float* base = ring + sl * sw;
+      if (rank != 0) {
+        // copy the leader's slot into mirror m, free the leader's slot
+        const int m = k % M;
+        base = ring + m * sw;
+        if (k >= M) rsnn_mbar_wait<false>(&chained[m], (k / M - 1) & 1);
+        rsnn_mbar_wait<true>(&ready[sl], (k / S) & 1);
+        if (rank == 1 && warp == 0) mark(4, k, 0);
+        const float4* src = lead + sl * sw / 4;
+        float4* dst = reinterpret_cast<float4*>(base);
+        for (int i = tid; i < (int)(sw / 4); i += blockDim.x) dst[i] = src[i];
+        __syncwarp();
+        if (lane == 0) {
+          rsnn_mbar_arrive_at(&empty[sl], 0);
+          rsnn_mbar_arrive(&filled[m]);
+        }
+        rsnn_mbar_wait<false>(&filled[m], (k / M) & 1);
+      } else {
+        rsnn_mbar_wait<false>(&ready[sl], (k / S) & 1);
+        if (lw == 0) mark(3, k, 0);
+      }
+      const ExactSlot q = rsnn_exact_slot(base, N, H, O, tb);
+      if (kind == 0) {
+        rsnn_exact_walk_k<0>(a.k, q, n, N, H, O, j, gi, G, L, aj, kappa, eps, ebar, acc);
+      } else if (kind == 1) {
+        rsnn_exact_walk_k<1>(a.k, q, n, N, H, O, j, gi, G, L, aj, kappa, eps, ebar, acc);
+      } else if (kind == 2) {
+        rsnn_exact_walk_k<2>(a.k, q, n, N, H, O, j, gi, G, L, aj, kappa, eps, ebar, acc);
+      }
+      __syncwarp();
+      if (lane == 0) rsnn_mbar_arrive(rank == 0 ? &empty[sl] : &chained[k % M]);
+      if (rank == 0 ? lw == 0 : rank == 1 && warp == 0) mark(rank == 0 ? 3 : 4, k, 1);
+    }
+    float* part = a.dw_part + (size_t)b * ((size_t)(N + H) * H + (size_t)H * O);
+#pragma unroll
+    for (int g = 0; g < RSNN_EXACT_KMAX; ++g) {
+      if (g < nl) {
+        const int line = gi + g * G;
+        const size_t e = kind == 0   ? (size_t)line * H + j
+                         : kind == 1 ? (size_t)(N + line) * H + j
+                                     : (size_t)(N + H) * H + (size_t)j * O + line;
+        part[e] = acc[g];
+      }
+    }
   }
-  __syncthreads();
-  rsnn_row_readout(a, p, tr, none, spikes, vs, w_out, b);
-  __syncthreads();
-  for (int i = tid; i < T * H; i += nth) {
-    const int t = i / H, j = i - (i / H) * H;
-    const float* e = tr.err + (size_t)t * tr.sO;
-    const float* bf = a.b_fb + (size_t)j * O;
-    float l = 0.f;
-    for (int o = 0; o < O; ++o) l += e[o] * bf[o];
-    tr.pbar[(size_t)t * tr.sH + j] = l;
-  }
-  if (!SMEM_TRACES) {
-    unsigned* out = spk_dev + (size_t)b * T * J;
-    for (int i = tid; i < T * J; i += nth) out[i] = spikes[i];
-    return;
-  }
-  __syncthreads();
-  const RowExact r{x, sx, spikes, (size_t)J, tr.h, tr.pbar, tr.zbar, tr.sH, tr.err,
-                   tr.sO, al};
-  const int e_all = N * H + H * H + H * O;
-  float* part = a.dw_part + (size_t)b * e_all;
-  for (int e = tid; e < e_all; e += nth) part[e] = rsnn_exact_dw_elem(r, e, N, H, O, T, p.kappa);
+  // no block leaves while another may still reach its shared memory
+  cluster.sync();
 }
 
 struct ForwardArgs {
@@ -693,39 +1128,42 @@ int rsnn_train_dispatch(const TrainArgs& a, const TickParams& p, int traces_smem
                      : rsnn_train_launch_s<TRI, false>(a, p, threads, smem, st);
 }
 
-template <bool TRI, int W, bool SMEM_TRACES>
-static int rsnn_train_exact_launch_w(const TrainArgs& a, const float* alpha,
-                                     unsigned* spk, const TickParams& p, int threads,
-                                     size_t smem, cudaStream_t stream) {
-  const auto kernel = RsnnTraceKernels<TRI>::template exact<W, SMEM_TRACES>();
+template <bool TRI, int W>
+static int rsnn_train_exact_launch_w(const ExactArgs& a, const TickParams& p, size_t smem,
+                                     cudaStream_t stream) {
+  const auto kernel = RsnnTraceKernels<TRI>::template exact<W>();
+  int threads = RSNN_EXACT_THREADS;
   int rc = rsnn_prepare_launch(kernel, smem, &threads);
   if (rc) return rc;
-  kernel<<<a.B, threads, smem, stream>>>(a, alpha, spk, p);
-  return (int)cudaGetLastError();
-}
-
-template <bool TRI, bool SMEM_TRACES>
-static int rsnn_train_exact_launch_s(const TrainArgs& a, const float* alpha,
-                                     unsigned* spk, const TickParams& p, int threads,
-                                     size_t smem, cudaStream_t stream) {
-  switch ((max(a.N, a.H) + 31) / 32) {
-    case 1: return rsnn_train_exact_launch_w<TRI, 1, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 2: return rsnn_train_exact_launch_w<TRI, 2, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 3: return rsnn_train_exact_launch_w<TRI, 3, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 4: return rsnn_train_exact_launch_w<TRI, 4, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 5: return rsnn_train_exact_launch_w<TRI, 5, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 6: return rsnn_train_exact_launch_w<TRI, 6, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 7: return rsnn_train_exact_launch_w<TRI, 7, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    case 8: return rsnn_train_exact_launch_w<TRI, 8, SMEM_TRACES>(a, alpha, spk, p, threads, smem, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (threads != RSNN_EXACT_THREADS) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.B * a.groups * a.cluster));
+  cfg.blockDim = dim3(RSNN_EXACT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, p);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 template <bool TRI>
-int rsnn_train_exact_dispatch(const TrainArgs& a, const float* alpha, unsigned* spk,
-                              const TickParams& p, int traces_smem, int threads,
-                              size_t smem, cudaStream_t st) {
-  return traces_smem
-             ? rsnn_train_exact_launch_s<TRI, true>(a, alpha, spk, p, threads, smem, st)
-             : rsnn_train_exact_launch_s<TRI, false>(a, alpha, spk, p, threads, smem, st);
+int rsnn_train_exact_dispatch(const ExactArgs& a, const TickParams& p, size_t smem,
+                              cudaStream_t st) {
+  switch ((max(a.N, a.H) + 31) / 32) {
+    case 1: return rsnn_train_exact_launch_w<TRI, 1>(a, p, smem, st);
+    case 2: return rsnn_train_exact_launch_w<TRI, 2>(a, p, smem, st);
+    case 3: return rsnn_train_exact_launch_w<TRI, 3>(a, p, smem, st);
+    case 4: return rsnn_train_exact_launch_w<TRI, 4>(a, p, smem, st);
+    case 5: return rsnn_train_exact_launch_w<TRI, 5>(a, p, smem, st);
+    case 6: return rsnn_train_exact_launch_w<TRI, 6>(a, p, smem, st);
+    case 7: return rsnn_train_exact_launch_w<TRI, 7>(a, p, smem, st);
+    case 8: return rsnn_train_exact_launch_w<TRI, 8>(a, p, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

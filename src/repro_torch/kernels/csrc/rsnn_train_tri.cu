@@ -14,10 +14,10 @@ __global__ void rsnn_train_tri_kernel(TrainArgs a, TickParams p) {
 }
 
 // rsnn_train_exact_kernel under the triangular surrogate.
-template <int W, bool SMEM_TRACES>
-__global__ void rsnn_train_exact_tri_kernel(TrainArgs a, const float* alpha,
-                                            unsigned* spk_dev, TickParams p) {
-  rsnn_train_exact_row<W, SMEM_TRACES, true>(a, alpha, spk_dev, p);
+template <int W>
+__global__ void __launch_bounds__(RSNN_EXACT_THREADS, 1)
+    rsnn_train_exact_tri_kernel(ExactArgs a, TickParams p) {
+  rsnn_train_exact_row<W, true>(a, p);
 }
 
 // rsnn_forward_kernel under the triangular surrogate.
@@ -30,8 +30,8 @@ template <>
 struct RsnnTraceKernels<true> {
   template <int W, bool SMEM_TRACES>
   static auto train() { return rsnn_train_tri_kernel<W, SMEM_TRACES>; }
-  template <int W, bool SMEM_TRACES>
-  static auto exact() { return rsnn_train_exact_tri_kernel<W, SMEM_TRACES>; }
+  template <int W>
+  static auto exact() { return rsnn_train_exact_tri_kernel<W>; }
   template <int W>
   static auto forward() { return rsnn_forward_tri_kernel<W>; }
 };
@@ -40,6 +40,5 @@ template int rsnn_forward_dispatch<true>(const ForwardArgs&, const TickParams&, 
                                          cudaStream_t);
 template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int, int, size_t,
                                        cudaStream_t);
-template int rsnn_train_exact_dispatch<true>(const TrainArgs&, const float*, unsigned*,
-                                             const TickParams&, int, int, size_t,
+template int rsnn_train_exact_dispatch<true>(const ExactArgs&, const TickParams&, size_t,
                                              cudaStream_t);

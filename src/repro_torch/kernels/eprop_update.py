@@ -20,19 +20,22 @@ e-prop update — with their plain PyTorch versions (counterpart of
 * :func:`rsnn_train_exact_cuda` — ``rsnn_train_exact_kernel``: the
   ``train_tile`` op in exact mode (``EpropConfig.mode="exact"``, the
   per-synapse filtered eligibility of ReckOn's trace SRAM), with a scalar
-  or per-neuron ``alpha``.  One block per batch row runs ``rsnn_train``'s
-  forward phases (its LIF loop leaking each neuron by its own ``alpha``),
-  then the learning signal ``L = err · B_fbᵀ`` of every tick, then one
-  thread per synapse ``(i, j)`` walks the ticks forward with the
-  synapse's state in registers::
+  or per-neuron ``alpha``.  Each batch row runs on a thread-block
+  cluster (:func:`~repro_torch.kernels.rsnn_step.train_exact_plan`): its
+  leader block runs the forward a tick block at a time through a ring in
+  shared memory (the input currents ahead of the LIF chain, which leaks
+  each neuron by its own ``alpha``; then the readout, its error and the
+  learning signal ``L = err · B_fbᵀ``), while walker threads walk the
+  synapses ``(i, j)`` of the blocks the forward has finished, each
+  synapse's state in registers through all ticks::
 
     eps  = alpha_j·eps + s_i[t]          (s: the input, or the spike of
     ebar = kappa·ebar + h_j[t]·eps        presynaptic neuron i a tick
     dW_ij += ebar·L_j[t]                  before)
 
   and ``dW_out[j, o] += zbar_j[t]·err_o[t]``.  Nothing of the forward
-  depends on the traces, so walking a synapse through all its ticks after
-  the forward gives the tick-by-tick values in the reference's order
+  depends on the traces, so the walks may trail the forward and still give
+  the tick-by-tick values in the reference's order
   (:func:`rsnn_train_exact_plain`; ``dw`` to a tolerance, as
   ``rsnn_train``'s: the error goes through ``expf`` and ``L`` sums its
   products in another order than ``torch.matmul``).
@@ -391,6 +394,17 @@ def rsnn_train_exact_plain(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                       raster, y_star, valid, y_scale, ncfg, ecfg)
 
 
+# The roles ``rsnn_train_exact_cuda(clocks=...)`` records, in the kernel's
+# order (RSNN_EXACT_CLOCK_ROLES in csrc/rsnn_train.cuh).
+EXACT_CLOCK_ROLES = ("chain", "inputs", "readout", "leader walker", "block 1")
+
+
+def exact_clock_shape(T: int, plan) -> Tuple[int, int, int]:
+    """``(roles, tick blocks, 2)``: the clock buffer of a launch at ``T``
+    under ``plan``."""
+    return (len(EXACT_CLOCK_ROLES), -(-T // plan.ticks), 2)
+
+
 def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                           alpha, kappa: float, v_th: float = 1.0,
                           reset: str = "sub", boxcar_width: float = 0.5,
@@ -399,16 +413,20 @@ def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                           error: str = "softmax", target_amplitude: float = 1.0,
                           infer_window: str = "valid",
                           commit_grid: Optional[QuantSpec] = None,
-                          return_partials: bool = False):
+                          return_partials: bool = False,
+                          clocks: Optional[torch.Tensor] = None):
     """Launch ``rsnn_train_exact_kernel`` (``rsnn_train_exact_tri_kernel``
-    under the triangular surrogate; then, where the row's trace set is in
-    the device scratch, ``rsnn_exact_dw_rows_kernel``; then the
+    under the triangular surrogate) on the clusters of
+    :func:`~repro_torch.kernels.rsnn_step.train_exact_plan`, then the
     row-order ``dw`` reduction, or with ``commit_grid``
-    ``rsnn_dw_codes_reduce_kernel``) on the current stream of the tensors'
+    ``rsnn_dw_codes_reduce_kernel``, on the current stream of the tensors'
     device → the outputs of :func:`rsnn_train_exact_plain`;
     ``return_partials`` appends the ``(B, E)`` per-row ``dw`` buffer the
-    reduction read.  Checks as :func:`rsnn_train_cuda`; raises on a refused
-    launch."""
+    reduction read.  ``clocks``, a contiguous int64 tensor of
+    :func:`exact_clock_shape` on the card, receives the ``clock64()``
+    readings of the first cluster's roles as each begins and ends its work
+    on each tick block (how the time splits by role).  Checks as
+    :func:`rsnn_train_cuda`; raises on a refused launch."""
     from repro_torch.kernels import build
 
     check_surrogate(surrogate)
@@ -429,29 +447,26 @@ def rsnn_train_exact_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     # the kernel leaks and filters by the alpha vector; TickParams.alpha
     # is not read
     c = _consts(0.0, kappa, v_th, reset, quant)
-    plan = train_exact_plan(T, N, H, O)
-    scratch = []
-    if not plan.traces_smem:
-        # h, L, zbar (T, B, H), err (T, B, O), the spike masks (B, T, words)
-        scratch = [torch.empty((T, B, w), dtype=torch.float32, device=dev)
-                   for w in (H, H, H, O)]
-        scratch.append(torch.empty((B, T, -(-H // 32)), dtype=torch.int32, device=dev))
+    plan = train_exact_plan(T, N, H, O, B)
+    if clocks is not None:
+        check_arg("clocks", clocks, exact_clock_shape(T, plan), dev, torch.int64)
     part, dw, views = _dw_outputs(N, H, O, B, dev, out_dtype)
     y_scale = 1.0 if quant is None else 1.0 / float(quant.threshold)
-    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out, b_fb, a)]
-    ptrs += [t.data_ptr() for t in scratch] if scratch else [None] * 5
-    ptrs += [part.data_ptr()]
+    ptrs = [t.data_ptr() for t in (raster, y_star, valid, w_in, w_rec, w_out, b_fb, a, part)]
     ptrs += [dw.data_ptr(), None] if commit_grid is None else [None, dw.data_ptr()]
     ptrs += [acc.data_ptr(), nspk.data_ptr()]
     lsb, bits = (0.0, 0) if commit_grid is None else (commit_grid.lsb, commit_grid.bits)
     with torch.cuda.device(dev):
         rc = lib.rsnn_train_exact_launch(
-            *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
-            int(plan.traces_smem), int(infer_window == "all"),
-            ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
+            *ptrs, T, B, N, H, O, plan.threads, plan.cluster, plan.groups, plan.slots,
+            plan.ticks, plan.inputs, plan.g_in, plan.g_rec, plan.g_out, plan.lines,
+            int(plan.weights_smem),
+            int(infer_window == "all"), ctypes.c_longlong(plan.smem_bytes),
+            *datapath_scalars(c),
             *surrogate_scalars(surrogate, boxcar_width, gamma, c["v_th"]),
             ctypes.c_float(y_scale), ctypes.c_float(target_amplitude),
-            int(error == "softmax"), ctypes.c_float(lsb), int(bits), stream_arg(dev))
+            int(error == "softmax"), ctypes.c_float(lsb), int(bits),
+            clocks.data_ptr() if clocks is not None else None, stream_arg(dev))
     raise_on(lib, rc, "rsnn_train_exact")
     launches["rsnn_train_exact"] += 1
     if commit_grid is not None:

@@ -35,8 +35,10 @@ threads and the 227 KB of shared memory a block may use on an H100:
   memory beside the chunk;
 * :func:`train_plan` — ``rsnn_train``, one row a block: the row's whole
   trace set stays in shared memory where it fits, and goes to a device
-  scratch where it does not (:func:`train_exact_plan`, the same for
-  ``rsnn_train_exact``);
+  scratch where it does not;
+* :func:`train_exact_plan` — ``rsnn_train_exact``: the blocks a row (a
+  thread-block cluster, and groups of clusters at the widest nets), the
+  ring of tick blocks in shared memory, the walker threads' lines;
 * :func:`forward_plan` — ``rsnn_forward``: rows a block (a loop warp
   each), the readout's chunks, and what of the weights and the rows'
   raster and input currents fits in shared memory;
@@ -123,43 +125,157 @@ def spike_mask_bytes(T: int, n_hid: int) -> int:
     return F32_BYTES * T * cdiv(n_hid, 32)
 
 
-def _row_plan(op: str, base: int, T: int, n_in: int, n_hid: int, n_out: int,
-              threads: int) -> TrainPlan:
-    """A one-row-a-block plan whose block keeps ``base`` bytes (the row's
-    masks) in shared memory: the row's trace set goes there too, with the
-    weights, when both fit; otherwise it goes to a device scratch, and the
-    weights stay in shared memory if they fit beside the rest."""
+def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
+    """Every block keeps the row's valid mask (T floats) and its spike
+    masks (one word per 32 neurons a tick) in shared memory; the row's
+    trace set goes there too, with the weights, when both fit; otherwise it
+    goes to a device scratch, and the weights stay in shared memory if they
+    fit beside the masks."""
+    base = F32_BYTES * T + spike_mask_bytes(T, n_hid)
     weights = weights_bytes(n_in, n_hid, n_out)
     traces = train_trace_bytes(T, n_in, n_hid, n_out)
     if base > SMEM_PER_BLOCK:
-        raise ValueError(f"{op}: T={T} ticks of masks exceed a block's "
+        raise ValueError(f"rsnn_train: T={T} ticks of masks exceed a block's "
                          f"{SMEM_PER_BLOCK} bytes of shared memory")
     traces_smem = base + weights + traces <= SMEM_PER_BLOCK
     weights_smem = base + weights <= SMEM_PER_BLOCK
     used = base + (weights if weights_smem else 0) + (traces if traces_smem else 0)
-    return TrainPlan(threads=threads, traces_smem=traces_smem,
+    return TrainPlan(threads=REVERSE_MIN_THREADS, traces_smem=traces_smem,
                      weights_smem=weights_smem, smem_bytes=used)
 
 
-def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
-    """Every block keeps the row's valid mask (T floats) and its spike
-    masks (one word per 32 neurons a tick) in shared memory, and the trace
-    set and the weights where they fit (:func:`_row_plan`)."""
-    return _row_plan("rsnn_train", F32_BYTES * T + spike_mask_bytes(T, n_hid),
-                     T, n_in, n_hid, n_out, REVERSE_MIN_THREADS)
+# rsnn_train_exact's layout (RSNN_EXACT_* in csrc/rsnn_train.cuh): lines a
+# walker thread carries in registers, the threads of a block (512, so that
+# the chain and the walkers may hold 128 registers a thread), the leader
+# block's chain and readout warps, the ring's most slots and ticks a slot
+# (16 where the weights stage in shared memory; 8, in 3 slots, where they do
+# not, so that L1 keeps room for the chain's w_rec), the input warps (4 where
+# w_in is read from L2, else 2), and the largest cluster (the portable size).
+EXACT_MAX_LINES = 16
+EXACT_THREADS = THREADS_PER_BLOCK // 2
+EXACT_FIXED_WARPS = 3
+EXACT_MAX_SLOTS = 4
+EXACT_TICKS = 16
+EXACT_L2_TICKS = 8
+EXACT_L2_SLOTS = 3
+EXACT_INPUTS = 2
+EXACT_L2_INPUTS = 4
+EXACT_MAX_CLUSTER = 8
 
 
-def train_exact_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
-    """``rsnn_train_exact``, one block a row, as :func:`train_plan` lays out
-    ``rsnn_train`` with the row's decays ``alpha (H)`` beside its masks;
-    the trace set (the input current and then ``h``, the raster, the
-    learning signal ``L``, ``zbar`` and ``err``) has ``rsnn_train``'s
-    size.  The block's threads share the per-synapse walks, so it asks for
-    a full block (the launcher lowers it to what the kernel's registers
-    allow)."""
-    return _row_plan("rsnn_train_exact",
-                     F32_BYTES * (T + n_hid) + spike_mask_bytes(T, n_hid),
-                     T, n_in, n_hid, n_out, THREADS_PER_BLOCK)
+@dataclasses.dataclass(frozen=True)
+class ExactPlan:
+    """One ``rsnn_train_exact`` launch: each batch row on ``groups``
+    thread-block clusters of ``cluster`` blocks of ``threads``; the leader
+    block of each cluster keeps a ring of ``slots`` tick blocks of
+    ``ticks`` ticks (and w_in, w_rec when ``weights_smem``) and runs
+    ``inputs`` input warps; ``g_in``, ``g_rec`` and ``g_out`` walker threads
+    a neuron take the input, recurrent and readout lines, ``lines`` each at
+    most; ``smem_bytes`` of dynamic shared memory a block (the kernel
+    refuses a launch whose plan disagrees with its own layout)."""
+
+    threads: int
+    cluster: int
+    groups: int
+    slots: int
+    ticks: int
+    inputs: int
+    g_in: int
+    g_rec: int
+    g_out: int
+    lines: int
+    weights_smem: bool
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a batch row."""
+        return self.cluster * self.groups
+
+
+def exact_slot_words(n_in: int, n_hid: int, n_out: int, ticks: int) -> int:
+    """Words of one ring slot: ``ticks`` ticks of the input currents and
+    then ``h`` (rows padded to 32 words a mask word), the learning signal,
+    the inputs, the readout and its error, the valid mask, and one more
+    tick of spike masks (the tick before the slot); rounded up to a
+    multiple of 4 (16-byte aligned slots)."""
+    words = cdiv(n_hid, 32)
+    w = ticks * (32 * words + n_hid + n_in + n_out + 1) + (ticks + 1) * words
+    return cdiv(w, 4) * 4
+
+
+def exact_smem_bytes(n_in: int, n_hid: int, n_out: int, slots: int, ticks: int,
+                     weights_smem: bool) -> int:
+    """A block's shared memory: four mbarriers a slot, the decays (H), the
+    readout's w_out and b_fb, w_in and w_rec when staged, then the ring
+    from a 16-byte boundary."""
+    w = n_in * n_hid + n_hid * n_hid if weights_smem else 0
+    ring_at = cdiv(8 * slots + n_hid + 2 * n_hid * n_out + w, 4) * 4
+    return F32_BYTES * (ring_at + slots * exact_slot_words(n_in, n_hid, n_out, ticks))
+
+
+def exact_walkers(n_in: int, n_hid: int, n_out: int, walkers: int):
+    """Walker threads a neuron for the input, recurrent and readout lines,
+    and lines a thread, over ``walkers`` threads: the fewest lines a
+    thread (a power of two up to :data:`EXACT_MAX_LINES`: the kernel walks
+    that many at every thread, unrolled) whose threads fit → ``(g_in,
+    g_rec, g_out, lines)``, or None."""
+    per_neuron = walkers // n_hid
+    for k in (1, 2, 4, 8, EXACT_MAX_LINES):
+        g = (cdiv(n_in, k), cdiv(n_hid, k), cdiv(n_out, k))
+        if sum(g) <= per_neuron:
+            return (*g, k)
+    return None
+
+
+def cluster_walkers(cluster: int, inputs: int) -> int:
+    """Walker threads of one cluster: every thread of the other blocks,
+    and the leader's warps after its chain, readout and input warps but
+    for those on the chain's scheduler (warp % 4 == 0), which stay idle."""
+    warps = EXACT_THREADS // 32
+    leader = sum(1 for w in range(EXACT_FIXED_WARPS + inputs, warps) if w % 4)
+    return 32 * ((cluster - 1) * warps + leader)
+
+
+def train_exact_plan(T: int, n_in: int, n_hid: int, n_out: int, B: int = 1) -> ExactPlan:
+    """``rsnn_train_exact`` at ``(T, B)``: one route at every net size and
+    tick count, since nothing in shared memory grows with T.  The span of a
+    row is the fewest blocks whose walker threads carry every synapse in at
+    most :data:`EXACT_MAX_LINES` lines a thread (one cluster of 1, 2, 4 or
+    8 blocks, then groups of 8); while ``B`` rows of a wider cluster still
+    fit the card's SMs at once, the cluster doubles, up to 8 (the walks of
+    a row spread over more SMs).  The ring holds no more slots than the
+    row has tick blocks; w_in and w_rec stage in shared memory where they
+    fit beside it."""
+    if T < 1 or B < 1:
+        raise ValueError(f"rsnn_train_exact: T={T}, B={B}")
+    full = dict(ticks=EXACT_TICKS, inputs=EXACT_INPUTS, weights_smem=True,
+                slots=min(EXACT_MAX_SLOTS, cdiv(T, EXACT_TICKS)))
+    l2 = dict(ticks=EXACT_L2_TICKS, inputs=EXACT_L2_INPUTS, weights_smem=False,
+              slots=min(EXACT_L2_SLOTS, cdiv(T, EXACT_L2_TICKS)))
+    ring = full if exact_smem_bytes(n_in, n_hid, n_out, full["slots"], full["ticks"],
+                                    True) <= SMEM_PER_BLOCK else l2
+    smem = exact_smem_bytes(n_in, n_hid, n_out, ring["slots"], ring["ticks"],
+                            ring["weights_smem"])
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"rsnn_train_exact: the ring of {n_in}/{n_hid}/{n_out} exceeds "
+                         f"a block's {SMEM_PER_BLOCK} bytes of shared memory")
+    cluster, groups = 1, 1
+
+    def split():
+        return exact_walkers(n_in, n_hid, n_out,
+                             groups * cluster_walkers(cluster, ring["inputs"]))
+
+    while split() is None:
+        if cluster < EXACT_MAX_CLUSTER:
+            cluster *= 2
+        else:
+            groups += 1
+    while cluster < EXACT_MAX_CLUSTER and B * groups * 2 * cluster <= H100_SMS:
+        cluster *= 2
+    g_in, g_rec, g_out, k = split()
+    return ExactPlan(threads=EXACT_THREADS, cluster=cluster, groups=groups, g_in=g_in,
+                     g_rec=g_rec, g_out=g_out, lines=k, smem_bytes=smem, **ring)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -471,11 +587,11 @@ def rsnn_step_sessions_plain(raster, live, valid, v0, z0, y0, acc0, nspk0,
 # ---------------------------------------------------------------------------
 
 
-def check_arg(name: str, t: torch.Tensor, shape, device) -> None:
+def check_arg(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

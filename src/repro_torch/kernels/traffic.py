@@ -8,7 +8,8 @@ from L2 after the first), carries once in and once out.  The serving
 kernels write no per-tick tensor; ``rsnn_forward`` streams its seven;
 ``rsnn_train`` keeps its trace set in shared memory where it fits (its
 device scratch otherwise is not counted: it is the kernel's own round
-trip, not the function's input or output; nor is ``rsnn_train_exact``'s).
+trip, not the function's input or output); ``rsnn_train_exact`` keeps a
+ring of tick blocks in shared memory at every size.
 ``BatchedEngine`` sums
 the serving formulas into ``hbm_bytes_streamed``; ``chip_smoke.py``
 derives each kernel's bound from these.  The attention kernel's bytes and its exact-causal operation count

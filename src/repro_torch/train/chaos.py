@@ -9,8 +9,12 @@ Two halves:
   :class:`~repro_torch.core.controller.OnlineLearner` with
   :func:`build_learner`'s defaults (quantized, stochastic commits, an
   asynchronous checkpoint at every commit) on ``--device`` (the card unless
-  ``--device cpu``), restores the newest checkpoint and runs ``fit``.  Faults ride on the learner's
-  ``on_commit`` hook:
+  ``--device cpu``), restores the newest checkpoint and runs ``fit``.
+  ``--float`` trains float weights, ``--seed`` seeds the learner and the
+  batch order, ``--every N`` checkpoints every N commits and ``--sync``
+  saves blocking, as the reference's worker takes them (its ``--backend``
+  has no counterpart: the port dispatches by ``--device``).  Faults ride
+  on the learner's ``on_commit`` hook:
 
   - ``--kill-at-commit K``: ``SIGKILL`` itself at commit ``K``, once at
     least one complete checkpoint is on disk (it waits up to
@@ -101,6 +105,8 @@ def build_learner(
     samples_per_class: int = 12,
     num_ticks: int = 48,
     seed: int = 3,
+    checkpoint_every: int = 1,
+    keep: int = 0,
     async_save: bool = True,
     registry=None,
     mesh_devices: int = 0,
@@ -109,10 +115,11 @@ def build_learner(
     """A Braille END_B learner and its pipeline, built alike for golden,
     interrupted and resumed runs (one construction point, so the bitwise
     comparison cannot be defeated by a config that drifts).  Quantized
-    learners commit stochastically; a checkpoint is cut at every commit and
-    every one is kept.  ``mesh_devices > 1`` puts the learner on a data
-    mesh over the world of that many ranks the caller has joined;
-    ``deterministic`` arms the integer commit grid."""
+    learners commit stochastically; a checkpoint is cut every
+    ``checkpoint_every`` commits and the newest ``keep`` are kept (0: every
+    one).  ``mesh_devices > 1`` puts the learner on a data mesh over the
+    world of that many ranks the caller has joined; ``deterministic`` arms
+    the integer commit grid."""
     from repro_torch.core.backend import RuntimeConfig
     from repro_torch.core.controller import ControllerConfig, OnlineLearner
     from repro_torch.core.quant import DW_COMMIT_SPEC, WEIGHT_SPEC
@@ -130,7 +137,8 @@ def build_learner(
     ctrl = ControllerConfig(num_epochs=epochs, commit="batch", eval_every=10_000)
     opt = (EpropSGDConfig(lr=0.01, clip=10.0, quant=WEIGHT_SPEC, stochastic_round=True)
            if quantized else EpropSGDConfig(lr=0.01, clip=10.0))
-    policy = (CheckpointPolicy(directory=ckpt_dir, every=1, keep=0, async_save=async_save)
+    policy = (CheckpointPolicy(directory=ckpt_dir, every=checkpoint_every, keep=keep,
+                               async_save=async_save)
               if ckpt_dir is not None else None)
     mesh = make_data_mesh(device=resolve_device(device).type) if mesh_devices > 1 else None
     rt = RuntimeConfig(mesh=mesh, commit_grid=DW_COMMIT_SPEC if deterministic else None)
@@ -199,8 +207,9 @@ def run_worker(args: argparse.Namespace) -> int:
 
     t0 = time.time()
     learner, pipeline = build_learner(
-        args.ckpt_dir, device=args.device, epochs=args.epochs, spb=args.spb,
-        samples_per_class=args.samples_per_class, num_ticks=args.ticks,
+        args.ckpt_dir, device=args.device, quantized=not args.float, epochs=args.epochs,
+        spb=args.spb, samples_per_class=args.samples_per_class, num_ticks=args.ticks,
+        seed=args.seed, checkpoint_every=args.every, async_save=not args.sync,
         mesh_devices=args.mesh_devices, deterministic=args.deterministic)
     rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
                    else (0, 1))
@@ -404,16 +413,21 @@ def parse_args(argv) -> argparse.Namespace:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--float", action="store_true",
+                    help="float weights (default: quantized chip mode)")
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--spb", type=int, default=16)
     ap.add_argument("--samples-per-class", type=int, default=12)
     ap.add_argument("--ticks", type=int, default=48)
+    ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--deterministic", action="store_true",
                     help="END_B on the integer commit grid (the same bits on any "
                          "rank count)")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="N > 1: launch an N-rank data-parallel world (one card a "
                          "rank on cuda, gloo ranks on cpu)")
+    ap.add_argument("--every", type=int, default=1, help="checkpoint every N commits")
+    ap.add_argument("--sync", action="store_true", help="blocking saves (default: async)")
     ap.add_argument("--kill-at-commit", type=int, default=None)
     ap.add_argument("--kill-mid-save-step", type=int, default=None)
     ap.add_argument("--sigterm-at-commit", type=int, default=None)
@@ -423,6 +437,8 @@ def parse_args(argv) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.mesh_devices < 0:
         ap.error("--mesh-devices must be >= 0")
+    if args.every < 1:
+        ap.error("--every must be >= 1")
     if args.rank is not None and (args.rendezvous is None
                                   or not 0 <= args.rank < args.mesh_devices):
         ap.error("--rank needs --rendezvous and 0 <= rank < --mesh-devices")

@@ -286,7 +286,7 @@ def _train_case(rng, quantized, feedback, T, B, dev, label_delay=3,
     raster = torch.from_numpy((rng.random((T, B, cfg.n_in)) < density)
                               .astype(np.float32)).to(dev)
     t = np.arange(T)[:, None]
-    start = rng.integers(0, T // 2, size=B) + label_delay
+    start = rng.integers(0, max(T // 2, 1), size=B) + label_delay
     valid = torch.from_numpy((t >= start).astype(np.float32)).to(dev)
     y_star = torch.eye(cfg.n_out, device=dev)[torch.from_numpy(
         rng.integers(0, cfg.n_out, size=B)).to(dev)]
@@ -348,19 +348,25 @@ def _exact_case(rng, quantized, dims, T, B, dev, alpha):
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [True, False])
 @pytest.mark.parametrize("alpha", ["scalar", "per_neuron"])
-@pytest.mark.parametrize("dims,T,B", [((12, 16, 3), 32, 1), ((12, 16, 3), 32, 9),
-                                      ((12, 38, 3), 512, 3), ((256, 256, 16), 32, 2)])
-def test_train_exact_kernel_matches_plain_on_card(dims, T, B, alpha, quantized,
-                                                  cuda_device):
-    """``rsnn_train_exact`` against its plain version at the reduced Braille
-    config (the row's trace set in shared memory), at Braille T=512 and at
-    256/256/16 (the device scratch and ``rsnn_exact_dw_rows_kernel``):
-    ``dw`` within ``DW_TOL`` of its max, ``acc_y`` and ``n_spk`` bitwise when
-    quantized; two launches give the same bits; one counted launch each."""
+@pytest.mark.parametrize("surrogate", ["boxcar", "triangular"])
+@pytest.mark.parametrize("dims,T,B,span", [
+    ((12, 16, 3), 1, 1, (8, 1)), ((12, 16, 3), 15, 9, (8, 1)),
+    ((12, 16, 3), 16, 20, (4, 1)), ((12, 38, 3), 17, 40, (2, 1)),
+    ((12, 38, 3), 33, 70, (1, 1)), ((12, 38, 3), 512, 3, (8, 1)),
+    ((256, 256, 16), 32, 2, (8, 3)), ((256, 256, 16), 4096, 1, (8, 3))])
+def test_train_exact_kernel_matches_plain_on_card(dims, T, B, span, surrogate, alpha,
+                                                  quantized, cuda_device):
+    """``rsnn_train_exact`` against its plain version at tick counts around
+    the ring's tick block (1, 15, 16, 17, 33, 512; 4,096 at 256/256/16),
+    over every cluster width the plan takes (``span``: blocks a cluster and
+    clusters a row) and under both surrogates: ``dw`` within ``DW_TOL`` of
+    its max, ``acc_y`` and ``n_spk`` bitwise when quantized; two launches
+    give the same bits; one counted launch each."""
     args, kw = _exact_case(np.random.default_rng(40), quantized, dims, T, B,
                            cuda_device, alpha)
-    plan = rsnn_step.train_exact_plan(T, *dims)
-    assert plan.traces_smem == (dims[1] == 16)
+    kw.update(surrogate=surrogate, gamma=0.3)
+    plan = rsnn_step.train_exact_plan(T, *dims, B)
+    assert (plan.cluster, plan.groups) == span
     ops.reset_launch_counts()
     got = eprop_update.rsnn_train_exact_cuda(*args, **kw)
     again = eprop_update.rsnn_train_exact_cuda(*args, **kw)
@@ -371,6 +377,34 @@ def test_train_exact_kernel_matches_plain_on_card(dims, T, B, alpha, quantized,
         _check(a, b, quantized)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_exact_clocks_and_refused_plans_on_card(cuda_device, monkeypatch):
+    """``clocks=`` records every role's start and end of every tick block
+    of the first cluster and leaves the outputs' bits alone; a launch whose
+    plan the kernel does not lay out (lines a walker not a power of two,
+    too few walker threads) raises, with no fallback."""
+    from repro_torch.kernels.launch import KernelLaunchError
+
+    args, kw = _exact_case(np.random.default_rng(43), True, (12, 38, 3), 40, 1,
+                           cuda_device, "scalar")
+    plan = rsnn_step.train_exact_plan(40, 12, 38, 3, 1)
+    clocks = torch.zeros(eprop_update.exact_clock_shape(40, plan), dtype=torch.int64,
+                         device=cuda_device)
+    got = eprop_update.rsnn_train_exact_cuda(*args, **kw, clocks=clocks)
+    want = eprop_update.rsnn_train_exact_cuda(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    c = clocks.cpu()
+    assert plan.cluster > 1 and bool((c > 0).all()) and bool((c[..., 1] > c[..., 0]).all())
+    with pytest.raises(ValueError, match="clocks"):
+        eprop_update.rsnn_train_exact_cuda(*args, **kw, clocks=clocks[:, :1])
+    for bad in (dataclasses.replace(plan, lines=3),
+                dataclasses.replace(plan, cluster=1, g_in=12, g_rec=38, g_out=3, lines=1)):
+        monkeypatch.setattr(eprop_update, "train_exact_plan", lambda *a, p=bad: p)
+        with pytest.raises(KernelLaunchError):
+            eprop_update.rsnn_train_exact_cuda(*args, **kw)
 
 
 @pytest.mark.cuda

@@ -400,3 +400,38 @@ def test_params_from_jax_carries_a_per_neuron_alpha():
     assert got["alpha"].shape == (N_HID,) and got["alpha"].dtype == torch.float32
     np.testing.assert_array_equal(got["alpha"].numpy(), h)
     assert params_from_jax({"alpha": np.float32(0.9)}, device="cpu")["alpha"].ndim == 0
+
+
+# (al)'s and (am)'s shapes (N, H, O, T, B), and the chip-maximum net at every
+# tick count the chip allows a sample (T up to 4,096, core/rsnn.py)
+EXACT_PLAN_SHAPES = [
+    (12, 38, 3, 256, 1), (12, 38, 3, 128, 1), (12, 38, 3, 128, 70),
+    (40, 100, 2, 150, 8), (256, 256, 16, 128, 4), (12, 38, 3, 256, 8),
+    *((256, 256, 16, t, 1) for t in (1, 15, 16, 17, 1000, 4096)),
+]
+
+
+@pytest.mark.parametrize("N,H,O,T,B", EXACT_PLAN_SHAPES)
+def test_train_exact_plan_fits_every_shape(N, H, O, T, B):
+    """``rsnn_train_exact``'s plan fits a block's shared memory with one
+    route at every shape: the ring of tick blocks does not grow with T, the
+    walker threads carry every synapse in at most ``EXACT_MAX_LINES`` lines
+    each, the row's clusters of 1 to 8 blocks (a cluster at B=1) fit the
+    card's SMs at once, and the bytes are the kernel's layout."""
+    from repro_torch.kernels import rsnn_step as K
+    from repro_torch.kernels.launch import H100_SMS, SMEM_PER_BLOCK
+
+    plan = K.train_exact_plan(T, N, H, O, B)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.smem_bytes == K.exact_smem_bytes(N, H, O, plan.slots, plan.ticks,
+                                                 plan.weights_smem)
+    assert 1 <= plan.slots <= min(K.EXACT_MAX_SLOTS, -(-T // plan.ticks))
+    assert plan.cluster in (1, 2, 4, 8) and B * plan.blocks <= H100_SMS
+    assert B > 1 or plan.cluster > 1
+    k = plan.lines
+    assert k in (1, 2, 4, 8, K.EXACT_MAX_LINES)
+    assert plan.g_in * k >= N and plan.g_rec * k >= H and plan.g_out * k >= O
+    assert H * (plan.g_in + plan.g_rec + plan.g_out) <= (
+        plan.groups * K.cluster_walkers(plan.cluster, plan.inputs))
+    if T >= K.EXACT_MAX_SLOTS * plan.ticks:
+        assert plan == K.train_exact_plan(4096, N, H, O, B)

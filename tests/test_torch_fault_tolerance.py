@@ -681,8 +681,8 @@ WARGS = ["--epochs", "2", "--samples-per-class", "8", "--ticks", "32", "--spb", 
 GOLD_KW = dict(epochs=2, samples_per_class=8, num_ticks=32, spb=12, device="cpu")
 
 
-def _assert_bitwise(gold, out, res):
-    start, _ = chaos.build_learner(None, **GOLD_KW)     # never fit
+def _assert_bitwise(gold, out, res, **kw):
+    start, _ = chaos.build_learner(None, **GOLD_KW, **kw)     # never fit
     for k, w in start.weights.items():      # golden moved every leaf
         assert not np.array_equal(gold[k], w.numpy()), k
     got = chaos.load_result_weights(out)
@@ -726,6 +726,50 @@ def test_chaos_sigterm_graceful_drill(tmp_path):
     assert res["spawns"][0]["rc"] == chaos.STOPPED_RC
     assert res["resumed_from"] == 2
     _assert_bitwise(gold, out, res)
+
+
+def test_chaos_float_sparse_sync_drill_resumes_bitwise(tmp_path):
+    """The drill under the reference worker's other flags: float weights,
+    seed 5, a blocking checkpoint every second commit.  SIGKILL at commit
+    3 finds step 2 on disk; the restart resumes from it, cuts only even
+    steps and ends bitwise on the golden run of the same learner."""
+    kw = dict(quantized=False, seed=5)
+    gold = chaos.golden_run(**GOLD_KW, **kw)
+    out = str(tmp_path / "result")
+    res = chaos.run_chaos(str(tmp_path / "ck"), out, ["--kill-at-commit", 3],
+                          WARGS + ["--float", "--every", "2", "--sync", "--seed", "5"])
+    assert res["spawns"][0]["rc"] == -signal.SIGKILL
+    assert res["resumed_from"] == 2
+    steps = [int(p.name.split("_")[1]) for p in (tmp_path / "ck").glob("step_*")]
+    assert steps and all(s % 2 == 0 for s in steps)
+    _assert_bitwise(gold, out, res, **kw)
+
+
+def test_worker_takes_every_reference_flag_but_backend(tmp_path, monkeypatch):
+    """Every flag of the reference worker (``python -m repro.train.chaos``)
+    but ``--backend`` (the port dispatches by ``--device``) parses in the
+    port's worker to the value the reference's parser gives the same
+    command line."""
+    from repro.train import chaos as jchaos
+
+    seen = {}
+    monkeypatch.setattr(jchaos, "run_worker", lambda a: seen.setdefault("args", a) and 0)
+    argv = ["--ckpt-dir", str(tmp_path), "--out", str(tmp_path / "o"), "--float",
+            "--epochs", "2", "--spb", "12", "--samples-per-class", "8", "--ticks", "32",
+            "--seed", "5", "--mesh-devices", "2", "--deterministic", "--every", "3",
+            "--sync", "--kill-at-commit", "4", "--kill-mid-save-step", "2",
+            "--sigterm-at-commit", "6"]
+    jchaos.main(argv)
+    ref = vars(seen["args"])
+    assert set(ref) - {"backend"} == {a.lstrip("-").replace("-", "_")
+                                      for a in argv if a.startswith("--")}
+    port = vars(chaos.parse_args(argv))
+    for k, v in ref.items():
+        if k != "backend":
+            assert port[k] == v, k
+    defaults = chaos.parse_args(["--ckpt-dir", str(tmp_path)])
+    assert (defaults.float, defaults.seed, defaults.every, defaults.sync) == (
+        False, 3, 1, False)
 
 
 def test_kill_waits_for_a_checkpoint_and_fails_loudly(tmp_path):
