@@ -199,7 +199,8 @@ before any profiler session):
       two planted faults (a wrong cache slot, the kernel's output x 0.9 in
       every layer) rejected; then phi3.5-moe at full width and 4 layers
       (GQA at D=128), 8 greedy tokens, the same gates at the dense
-      family's LM_TF_TOL and LM_PLAIN_TOL;
+      family's LM_TF_TOL and LM_PLAIN_TOL, and at the GQA layers' outputs
+      within MOE_PHI_MIXER_TOL, a fault rejected at either point;
   (u) MoE and MLA training: deepseek-v2-lite-16b at full width with 3
       layers (the dense prefix and two MoE layers), bf16, remat="full",
       B=4 x S=2048 tokens of TokenStream(seed=0), AdamW lr 3e-4, 8 steps:
@@ -567,6 +568,18 @@ MOE_STEPS = 32
 MOE_PHI_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_PHI_LAYERS = 4
 MOE_PHI_STEPS = 8
+# phi3.5-moe's identities are also held at its four GQA layers' outputs
+# (after wo), relative to their max, within MOE_PHI_MIXER_TOL, as (x)
+# holds jamba's: at the last position's logits, under the kernel run's
+# routing, the kernel's output x 0.9 moved them by 0.1418 with an earlier
+# mma.sync forward and 0.1094 with the Hopper forward (its logits 0.0625
+# from the plain version's: roundings reach half the fault there),
+# against LM_PLAIN_TOL 0.125, so the logits alone cannot tell that fault
+# from roundings.  At the GQA outputs the identities measured 0.0062
+# (teacher forcing) and 0.0066 (plain attention) and the faults 0.1071
+# (x 0.9) and 0.2344 (wrong slot); 2^-5 is the flash kernel's own bf16
+# row tolerance.
+MOE_PHI_MIXER_TOL = 2 ** -5
 # MoE and MLA training (u): deepseek-v2-lite-16b at full width with the
 # dense prefix layer and two MoE layers (1.67 B parameters), the (q)
 # settings otherwise.
@@ -1496,14 +1509,15 @@ def phase_train_timing(dev):
 # ---------------------------------------------------------------------------
 
 
-def _flash_inputs(gen, B, Sq, Skv, H, Hkv, D, dtype, dev, strided=False):
-    """q (B, Sq, H, D), k, v (B, Skv, Hkv, D) from N(0, 0.3²); ``strided``
-    makes them (B, S, H, D) views of (B, H, S, D) tensors."""
-    def one(S, heads):
-        shape = (B, heads, S, D) if strided else (B, S, heads, D)
+def _flash_inputs(gen, B, Sq, Skv, H, Hkv, D, dtype, dev, strided=False, DV=None):
+    """q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, DV) (DV default
+    D) from N(0, 0.3²); ``strided`` makes them (B, S, H, D) views of (B, H,
+    S, D) tensors."""
+    def one(S, heads, width):
+        shape = (B, heads, S, width) if strided else (B, S, heads, width)
         x = (torch.randn(shape, generator=gen, device=dev) * 0.3).to(dtype)
         return x.transpose(1, 2) if strided else x
-    return one(Sq, H), one(Skv, Hkv), one(Skv, Hkv)
+    return one(Sq, H, D), one(Skv, Hkv, D), one(Skv, Hkv, D if DV is None else DV)
 
 
 def _flash_gate(got, want):
@@ -2562,7 +2576,8 @@ def phase_moe_serve(dev):
     ds_launches, ds = _moe_serve_case(dev, get_config(MOE_ARCH), MOE_STEPS, "t",
                                       MOE_TOL, MOE_TOL)
     phi_cfg = get_config(MOE_PHI_ARCH).replace(n_layers=MOE_PHI_LAYERS)
-    _, phi = _moe_serve_case(dev, phi_cfg, MOE_PHI_STEPS, "t phi", LM_TF_TOL, LM_PLAIN_TOL)
+    _, phi = _moe_serve_case(dev, phi_cfg, MOE_PHI_STEPS, "t phi", LM_TF_TOL, LM_PLAIN_TOL,
+                             mixer_tol=MOE_PHI_MIXER_TOL)
     return ds_launches, dict(deepseek=ds, phi=phi)
 
 
@@ -4186,8 +4201,10 @@ def phase_xattn_flash_timing(dev):
     Hkv=8, D=128) and at seamless's encoder shape (B=4, S=4,096, H=Hkv=16,
     D=64), non-causal, per kernel from torch.profiler beside the plain
     version, SDPA and the bound; and its decode rows (one query row over
-    the 1,600 media keys, and over the 4,096 encoded frames), whose 64-row
-    tiles hold one live row."""
+    the 1,600 media keys, and over the 4,096 encoded frames), whose
+    128-query tiles hold one live row (one consumer warpgroup runs), with
+    the host µs a call (the wrapper's checks, the launcher's three tensor
+    maps and the launch: 744 such calls a seamless ``generate()``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -4220,6 +4237,7 @@ def phase_xattn_flash_timing(dev):
                 ms[name] = _time(fn)
                 split[name] = "not measured (profiler saw no device time; CUDA events)"
         ms["plain"] = _time(lambda: FA.flash_attention_plain(q, k, v, causal=False), iters=2)
+        host = _host_us(calls["kernel"]) if Sq == 1 else None
         flops = traffic.flash_attention_flops(B, Sq, H, D, Skv, False)
         nbytes = traffic.flash_attention_bytes(B, Sq, Skv, H, Hkv, D, 2)
         t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS_PER_S * 1e3
@@ -4227,12 +4245,14 @@ def phase_xattn_flash_timing(dev):
         rows[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["SDPA"],
                            bound_ms=max(t_b, t_f),
                            bound_by="bytes" if t_b >= t_f else "operations", shape=shape,
-                           max_row_err=err, library_kernels=split["SDPA"])
+                           max_row_err=err, library_kernels=split["SDPA"],
+                           kernel_split=split["kernel"], host_us_a_call=host)
         log(f"(y/z) flash_attention at the {label} shape {shape}: kernel {ms['kernel']:.4f} "
-            f"ms ({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), SDPA {ms['SDPA']:.4f} ms "
-            f"(kernels {split['SDPA']}; worst row error to ours {lib_err:.4g}), plain "
-            f"{ms['plain']:.3f} ms, bound {max(t_b, t_f):.4f} ms (bytes {nbytes}, flops "
-            f"{flops}); worst row error to the plain version {err:.4g}")
+            f"ms ({split['kernel']}; {flops / ms['kernel'] / 1e9:.1f} TFLOP/s), SDPA "
+            f"{ms['SDPA']:.4f} ms (kernels {split['SDPA']}; worst row error to ours "
+            f"{lib_err:.4g}), plain {ms['plain']:.3f} ms, bound {max(t_b, t_f):.4f} ms (bytes "
+            f"{nbytes}, flops {flops}); worst row error to the plain version {err:.4g}"
+            + ("" if host is None else f"; {host:.1f} µs of host time a call"))
         del q, k, v, qh, kh, vh, o
     return rows
 
@@ -5923,14 +5943,22 @@ def tree_times(root: Path, dev) -> None:
     (f) and (i) time them and at the 256/256/16 net (the event loop's widest
     instantiations), its rsnn_train_exact at five shapes under both
     surrogates with a digest of each launch's outputs (:func:`_tree_exact`),
-    its flash_attention forward at (l)'s shape (without and with lse) and its
+    its flash_attention forward at (l)'s shape (without and with lse) and at
+    :data:`FWD_TREE_SHAPES` (qwen3-1.7b's with lse, (192, 128), cross, enc
+    and the two decode rows), each beside ``scaled_dot_product_attention``
+    at the same shape, with the host µs a call of the decode rows (the
+    wrapper's checks and the launcher's tensor maps), and its
     flash_attention_bwd at (r)'s two shapes (null for a tree without that
-    wrapper), through wrappers that every slice of the port has, so
-    that two trees compare on one card in one call.  Each time is the
-    median of three ``torch.profiler`` readings (:func:`_median_reading`).  Beside
-    the times, a digest of each kernel's SASS (:func:`_sass_digests`), so
-    that two trees' kernels compare function by function.  Prints one JSON
-    line."""
+    wrapper), through wrappers that every slice of the port has, so that
+    two trees compare on one card in one call.  Each time is the median of
+    three ``torch.profiler`` readings (:func:`_median_reading`); where the
+    profiler saw no device time the row is null and a CUDA-event reading
+    stands beside it under its name with `` [events]``.  Beside the times,
+    a digest of each kernel's SASS and its counts of :data:`SASS_OPS`
+    (:func:`_sass_digests`), so that two trees' kernels compare function by
+    function.  Prints one JSON line."""
+    import torch.nn.functional as F
+
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
     from repro_torch.core.backend import ExecutionBackend
     from repro_torch.core.rsnn import Presets, init_params
@@ -5945,6 +5973,8 @@ def tree_times(root: Path, dev) -> None:
 
     def best(name, fn):
         ms[name] = _median_reading(fn, iters=20)[0]
+        if ms[name] is None:
+            ms[f"{name} [events]"] = _time(fn)
 
     fgen = torch.Generator(device=dev).manual_seed(SEED + 7)
     q, k, v = _flash_inputs(fgen, LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 128,
@@ -5952,7 +5982,21 @@ def tree_times(root: Path, dev) -> None:
     best("flash_attention llama3-8b", lambda: FA.flash_attention_cuda(q, k, v, causal=True))
     best("flash_attention with lse llama3-8b",
          lambda: FA.flash_attention_cuda(q, k, v, causal=True, return_lse=True))
-    del q, k, v
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    best("SDPA llama3-8b", lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    del q, k, v, qh, kh, vh
+    host_us = {}
+    for label, (B, Sq, Skv, H, Hkv, D, DV, causal, lse) in FWD_TREE_SHAPES:
+        q, k, v = _flash_inputs(fgen, B, Sq, Skv, H, Hkv, D, torch.bfloat16, dev, DV=DV)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kern = lambda: FA.flash_attention_cuda(q, k, v, causal=causal, return_lse=lse)
+        best(f"flash_attention {label}", kern)
+        best(f"SDPA {label}", lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=H != Hkv))
+        if Sq == 1:
+            host_us[label] = _host_us(kern)
+        del q, k, v, qh, kh, vh
     for name, (B, S, H, Hkv, D) in (("qwen3-1.7b", (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)),
                                     ("llama3-8b", (LM_BATCH, LM_PROMPT, 32, 8, 128))):
         if not hasattr(FA, "flash_attention_bwd_cuda"):
@@ -6017,8 +6061,41 @@ def tree_times(root: Path, dev) -> None:
         exact = _tree_exact(dev)
         exact["END_S epoch"] = _tree_exact_epoch(dev)
     digests, ops = _sass_digests(build)
-    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms, "exact": exact,
-                      "sass": digests, "sass_ops": ops}), flush=True)
+    log("flash forward SASS (" + ", ".join(SASS_OPS) + "): " + "; ".join(
+        f"{_kernel_label(n).split('flash_')[-1][:60]} {list(c.values())}"
+        for n, c in ops.items() if "flash_fwd_kernel" in n or "flash_attention_mma" in n))
+    print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms,
+                      "host_us_a_call": host_us, "exact": exact, "sass": digests,
+                      "sass_ops": ops}), flush=True)
+
+
+# The forward's shapes beside (l)'s in --time-tree: label, (B, Sq, Skv, H,
+# Hkv, DK, DV, causal, lse) — (q)'s qwen3-1.7b training forward, (s)'s MLA
+# pair, (y)'s cross-attention and (z)'s encoder, and one decode row over
+# each memory.
+FWD_TREE_SHAPES = (
+    ("qwen3-1.7b with lse", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128, 128, True, True)),
+    ("(192, 128)", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, MLA_HEADS, MLA_HEADS, MLA_DK, MLA_DV,
+                    True, False)),
+    ("cross", (VLM_BATCH, VLM_PROMPT, 1600, 64, 8, 128, 128, False, False)),
+    ("enc", (AUDIO_BATCH, 4096, 4096, 16, 16, 64, 64, False, False)),
+    ("vlm decode row", (VLM_BATCH, 1, 1600, 64, 8, 128, 128, False, False)),
+    ("seamless decode row", (AUDIO_BATCH, 1, 4096, 16, 16, 64, 64, False, False)),
+)
+
+
+def _host_us(fn, n=200) -> float:
+    """The host's µs a call of ``fn`` over ``n`` calls back to back, the
+    card idle at the start (the enqueue: checks, plan, tensor maps,
+    launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def _exact_tree_shapes():

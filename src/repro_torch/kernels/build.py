@@ -10,8 +10,8 @@ compiles with ``nvcc`` for Hopper (``sm_90a``; the RSNN sources with
 ``-fmad=false``), one ``nvcc`` per source, all started together, and links
 into one shared library with a plain C interface, loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds, and no ``-lcuda``: the
-backward reaches the driver's ``cuTensorMapEncodeTiled`` through the
-runtime's ``cudaGetDriverEntryPoint``.  It builds on first use into
+bf16 attention kernels reach libcuda's ``cuTensorMapEncodeTiled``
+through the runtime's ``cudaGetDriverEntryPoint``.  It builds on first use into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``);
 a library whose sources and flags are unchanged (the digest covers every
 source and header) is reused.
@@ -151,10 +151,11 @@ def _load(path: Path) -> ctypes.CDLL:
     # flash_attention: q, k, v, o, lse and the f32 output (null: neither
     # written); bf16, B, Sq, Skv, H, Hkv, the q/k width D and the v width
     # DV; the batch, sequence and head strides of q, k and v; kv_len,
-    # causal, scale; the plan's q tiles and shared-memory bytes; stream
+    # causal, scale; the plan's grid, threads and shared-memory bytes;
+    # stream
     lib.flash_attention_launch.argtypes = (
         [ptr] * 6 + [i32] * 8 + [ctypes.c_longlong] * 9
-        + [i32, i32, f32, i32, ctypes.c_longlong, ptr])
+        + [i32, i32, f32, i32, i32, i32, ctypes.c_longlong, ptr])
     # flash_attention_bwd: q, k, v, o, dO, lse, lse2, delta, dq, dk, dv;
     # bf16, B, Sq, Skv, H, Hkv, D, DV; the strides of q, k and v; causal,
     # scale; the plan's padded rows, delta blocks, KV tiles, q blocks,

@@ -1,52 +1,82 @@
 // flash_attention — causal GQA online-softmax attention over q (B, Sq, H, DK),
 // k (B, Skv, Hkv, DK) and v (B, Skv, Hkv, DV), behind the prefill of every
 // attention layer of the LMs (models/attention.py:blocked_attention; DK = DV
-// in GQA, DK = 192 and DV = 128 in deepseek-v2's MLA) and, in its variant
-// that also writes each row's log-sum-exp and, in bf16, the output before
-// its rounding (the backward's rowsum(dO * o) takes it: a rounded o there
-// can lead a gradient that cancels, such as cross-attention's dQ over a
-// memory whose keys share a large part), behind the forward of training;
-// flash_attention_bwd.cu holds the training's backward.  Replaces
-// src/repro/kernels/flash_attention.py:_kernel (wrapper flash_attention);
-// it builds into one library with the RSNN kernels.
+// in GQA, DK = 192 and DV = 128 in deepseek-v2's MLA), cross-attention's
+// decode rows and, in its variant that also writes each row's log-sum-exp
+// and, in bf16, the output before its rounding (the backward's rowsum(dO *
+// o) takes it: a rounded o there can lead a gradient that cancels, such as
+// cross-attention's dQ over a memory whose keys share a large part), behind
+// the forward of training; flash_attention_bwd.cu holds the training's
+// backward.  Replaces src/repro/kernels/flash_attention.py:_kernel (wrapper
+// flash_attention); it builds into one library with the RSNN kernels.
 //
 // Function: the Pallas kernel's, with blocked_attention's padding rule.
 // Scores q.k * scale with the products summed in f32; keys at positions
 // >= kv_len, and keys after the query's position when causal, masked at
-// -1e30; running max m, running sum l and the output accumulator in f32;
-// p rounded to the value dtype before the p.V product; output in q's
-// dtype, divided by max(l, 1e-30).  Key tiles wholly above the diagonal or
-// past kv_len are skipped (the Pallas kernel's pl.when skip): their terms
-// are exact zeros, since every row has seen key 0 in the first tile.
-// Masked keys and values load as zeros, so NaN in an unfilled cache tail
-// cannot reach the sums.
+// -1e30 (their p is an exact zero); running max m, running sum l and the
+// output accumulator in f32; p rounded to the value dtype before the p.V
+// product; output in q's dtype, divided by max(l, 1e-30).  Key tiles wholly
+// above the diagonal or past kv_len are skipped (the Pallas kernel's
+// pl.when skip): their terms are exact zeros, since every row has seen key
+// 0 in the first tile.  Masked keys and values load as zeros, so NaN in an
+// unfilled cache tail cannot reach the sums.
 //
 // Bound on the H100: 2*B*H*(DK + DV)*sum_q(valid keys) operations on bf16
 // tensor cores (989 TFLOP/s) against q, k, v read once and o written once
-// (3.35 TB/s) — set by operations at prefill lengths.
+// (3.35 TB/s) — set by operations at prefill lengths, by bytes for a
+// decode row (one query against the whole memory).
 //
-// bf16 (every model path): flash_attention_mma_kernel runs both products
-// on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32 accumulators):
-//   * one block of 4 warps per (q tile of 64 rows, batch*head); each warp
-//     owns 16 query rows; tiles with the most keys run first;
-//   * the q tile is copied once to shared memory and, up to DK = 128, held
-//     in registers as A fragments (ldmatrix); a wider q (MLA's 192, whose
-//     48 fragment registers would spill beside the 64 of a 128-wide
-//     accumulator) is read from shared memory again at each k step of
-//     every key tile, shared-memory traffic only; each 64-key tile of k and v arrives with
-//     cp.async into a ring of FA_STAGES shared-memory stages, so tile t+1
-//     is in flight while tile t's products run;
-//   * S = Q K^T over DK with K as the B operand (ldmatrix of K's rows); the online
-//     softmax runs on S's accumulator fragments in registers (a row lives
-//     in one quad of lanes: two shuffles per reduction), with exp2f and
-//     scale*log2(e) folded in; p is rounded to bf16 while its accumulator
-//     fragment becomes the A fragment of O += P V (DV wide), with V the B
-//     operand through ldmatrix.trans;
-//   * staged rows are padded by 16 bytes, so every ldmatrix phase touches
-//     eight distinct 16-byte bank groups.
-// q, k and v are read through their batch / sequence / head strides (the
-// head dimension is contiguous); cp.async moves 16-byte pieces, so the
-// wrapper raises unless every pointer and stride is 16-byte aligned.
+// bf16 (every model path), for Hopper: flash_fwd_kernel, built from the
+// pieces the backward uses (flash_common.cuh).  What bounds it is the
+// tensor cores at prefill and the exp2 of the softmax at D = 64 (a tile's
+// exponentials take as long as its products there); its design keeps the
+// tensor cores fed:
+//   * Persistent warp-specialised blocks, one an SM, of three warpgroups: a
+//     producer and two consumers.  A tile is 128 queries of one (batch,
+//     head); tile i is q tile n_qt - 1 - i / (B * H) of batch * head i % (B
+//     * H), so every head's last q tile (under the causal mask the one
+//     with the most keys) comes before any head's second to last, and the
+//     heads of a KV head run side by side (their k and v tiles meet in
+//     L2).  Block x takes one tile a round, the rounds running over the
+//     blocks forwards and backwards in turn, so that the blocks' sums of
+//     key tiles come out even.
+//   * The producer gives up its registers (setmaxnreg) and one of its
+//     threads issues the TMA loads (cp.async.bulk.tensor): a tile's q once
+//     (a full and an empty mbarrier), then its k and v tiles of 128 keys
+//     into a ring of FWD_STAGES shared-memory stages, k and v each with a
+//     full and an empty mbarrier.  The ring's stages and phases run on
+//     from one tile to the next, so the next tile's q and first k / v
+//     tiles load while the consumers finish this one and write its output.
+//   * Each consumer owns 64 of the tile's queries and keeps their output
+//     (64 x DV f32), running max and sum in registers.  S = Q K^T is a
+//     wgmma.mma_async with both operands in shared memory (q read there
+//     at every key tile, never staged through registers); the online
+//     softmax runs on S's accumulator registers (a row in one quad of
+//     lanes: two shuffles a reduction) with exp2 and scale * log2(e) folded
+//     into one FMA; p, rounded to bf16, is the register A operand of O +=
+//     P V, whose B operand, v's D-contiguous rows, is read MN-major
+//     through the descriptor's transpose bit.  Key tile t's P V runs on
+//     the tensor cores while the softmax of tile t + 1 runs: S of t + 1 is
+//     issued before P V of t and waited for alone, and the output takes
+//     t's rescale between the two issues (skipped when no row of the warp
+//     found a larger max: every factor is exactly 1).  A k tile is
+//     released once its S is in, a v tile once its P V is, q once the
+//     tile's last S is.  The two consumers take turns to issue their
+//     products (named barriers), so that one's softmax runs while the
+//     other's products do.  At Sq <= 64 (a decode row) consumer 1 would
+//     hold no query and exits at once; the barriers count one consumer.
+//   * Shared-memory tiles are in the layout the TMA writes and the wgmma
+//     descriptors read: rows of min(D, 64) elements in the 128-, 64- or
+//     32-byte swizzle (a 128- or 192-wide row loads as 64-wide column
+//     blocks).
+//   * q, k and v are read through 4-d tensor maps (D, heads, S, B) with
+//     their real strides, encoded on the host for each launch: a box never
+//     crosses into the next batch's rows; q's map ends at Sq and k's and
+//     v's at kv_len, so rows past either load as zeros (NaN past kv_len is
+//     never read) and keys past kv_len are masked in S.  The maps need
+//     16-byte strides and addresses; the wrapper checks them.
+// A block holds 384 threads (the consumers at 240 registers, the producer
+// at 24) and 21-214 KB of shared memory (DK = 16 to 192).
 //
 // f32 (no model path; DK = DV only): tensor-core f32 would be TF32, which
 // cannot meet the f32 limit of 1e-5 * max|o|, so flash_attention_f32_kernel keeps the
@@ -58,15 +88,15 @@
 // is not on the RSNN bit-true path): the f32 kernel asks for its products
 // with fmaf, and contraction elsewhere only moves roundings inside the
 // stated tolerances.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
 
 namespace {
-
-constexpr int FA_STAGES = 2;     // k/v tiles in flight (bf16 kernel)
 
 struct FlashArgs {
   const void* q;
@@ -81,279 +111,340 @@ struct FlashArgs {
                // rounding (the backward's delta takes it)
 };
 
-// Keys a q tile starting at q0 with nq rows reads, in whole tiles.
-__device__ __forceinline__ int fa_key_tiles(const FlashArgs& a, int q0, int nq) {
-  int n_kv = (a.kv_len + FA_BK - 1) / FA_BK;
-  if (a.causal) n_kv = min(n_kv, (q0 + nq - 1) / FA_BK + 1);
+// Keys a q tile starting at q0 with nq rows reads, in whole tiles of bk.
+__device__ __forceinline__ int fa_key_tiles(const FlashArgs& a, int q0, int nq,
+                                            int bk = FA_BK) {
+  int n_kv = (a.kv_len + bk - 1) / bk;
+  if (a.causal) n_kv = min(n_kv, (q0 + nq - 1) / bk + 1);
   return n_kv;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: Hopper (TMA, mbarrier ring, wgmma)
 // ---------------------------------------------------------------------------
 
-// Row pitch of a staged bf16 tile, in elements: D plus 16 bytes.
-template <int D>
-__host__ __device__ constexpr int mma_pitch() {
-  return D + 8;
-}
+constexpr int FWD_WG = 128;        // threads a warpgroup
+constexpr int FWD_CONSUMERS = 2;   // consumer warpgroups a block
+constexpr int FWD_THREADS = FWD_WG * (1 + FWD_CONSUMERS);
+constexpr int FWD_ROWS = 64;       // a consumer's queries
+constexpr int FWD_BLOCK = FWD_ROWS * FWD_CONSUMERS;  // queries a block
+constexpr int FWD_KT = 128;        // keys a k / v tile
+constexpr int FWD_STAGES = 2;      // k / v tiles in flight
+constexpr int FWD_BOX = 64;        // rows of a TMA box
+constexpr int FWD_PRODUCER_REGS = 24;
+constexpr int FWD_CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
 
-// the q tile and FA_STAGES k tiles at DK's pitch, FA_STAGES v tiles at DV's
+// Shared memory of a block, byte offsets from a 1024-byte aligned base
+// (the 128-byte swizzle's period): the q tile, the ring's k and v tiles,
+// then the barriers (q full, q empty; each stage's k full, v full, k
+// empty, v empty).
 template <int DK, int DV>
-constexpr size_t mma_smem_bytes() {
-  return ((size_t)(FA_BQ + FA_STAGES * FA_BK) * mma_pitch<DK>() +
-          (size_t)FA_STAGES * FA_BK * mma_pitch<DV>()) * 2;
+struct FwdSmem {
+  static constexpr uint32_t QT = FWD_BLOCK * DK * 2;
+  static constexpr uint32_t KT = FWD_KT * DK * 2, VT = FWD_KT * DV * 2;
+  static constexpr uint32_t Q = 0, K = QT, V = K + FWD_STAGES * KT;
+  static constexpr uint32_t BAR = V + FWD_STAGES * VT;
+  static constexpr uint32_t BYTES = 1024 + BAR + 8 * (2 + 4 * FWD_STAGES);
+};
+
+// A tile of the schedule: 128 queries of one (batch, head).  Tile i of
+// B * H * n_qt takes q tile n_qt - 1 - i / (B * H) of batch * head i % (B
+// * H): every head's last q tile (under the causal mask the one with the
+// most keys) comes before any head's second to last.  Block x of G takes
+// tile fwd_tile_index(r, x, G) in its round r: the rounds run over the
+// blocks forwards and backwards in turn, so that the blocks' sums of key
+// tiles come out even (the heaviest of round 0 takes the lightest of
+// round 1).
+__device__ __forceinline__ int fwd_tile_index(int r, int x, int G) {
+  return r * G + ((r & 1) ? G - 1 - x : x);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = full ? 16 : 0;  // 0: write 16 zero bytes, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// c += a b for one m16n8k16 tile: a the 4 A registers, b0 b1 the B pair.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + 64) of a (·, D) bf16 matrix at g (row stride ld) into a
-// staged tile; rows at or past `limit` are zero-filled and never read.
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* g,
-                                                long long ld, int r0,
-                                                int limit, int tid) {
-  constexpr int CHUNKS = D / 8;  // 16-byte pieces a row
-#pragma unroll
-  for (int i = 0; i < FA_BQ * CHUNKS / FA_THREADS; ++i) {
-    const int idx = tid + i * FA_THREADS;
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    const bool in = r0 + r < limit;
-    const __nv_bfloat16* src = in ? g + (long long)(r0 + r) * ld + c * 8 : g;
-    cp_async16(dst + r * mma_pitch<D>() + c * 8, src, in);
+struct FwdTile {
+  int b, h, hk, q0, nq, n_kv;
+  __device__ __forceinline__ FwdTile(const FlashArgs& a, int i, int n_qt) {
+    const int bh = i % (a.B * a.H);
+    b = bh / a.H;
+    h = bh % a.H;
+    hk = h / (a.H / a.Hkv);
+    q0 = (n_qt - 1 - i / (a.B * a.H)) * FWD_BLOCK;
+    nq = min(FWD_BLOCK, a.Sq - q0);
+    n_kv = fa_key_tiles(a, q0, nq, FWD_KT);
   }
+};
+
+// S = Q K^T of the consumer's 64 queries against a k tile, unscaled:
+// issued and committed as one wgmma group.
+template <int DK>
+__device__ __forceinline__ void fwd_issue_s(float (&sc)[FWD_KT / 2], uint32_t qs, uint32_t ks,
+                                            int cw) {
+  using TK = SwTile<DK>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk)
+    wgmma_ss(sc, TK::kmajor(qs, FWD_BLOCK, cw * FWD_ROWS, kk), TK::kmajor(ks, FWD_KT, 0, kk),
+             kk);
+  wgmma_commit();
 }
 
-// S += Q K^T for k step kk: the warp's 16 rows (A fragment qa) against
-// the 64 keys of a staged k tile of pitch LD, 8 n-tiles of 8 keys.
-template <int LD>
-__device__ __forceinline__ void qk_step(float (&s)[8][4], const uint32_t (&qa)[4],
-                                        const __nv_bfloat16* kt, int kk, int lane) {
+// O += P V over a v tile (k over its keys), P the bf16 A fragments:
+// issued and committed as one wgmma group.
+template <int DV>
+__device__ __forceinline__ void fwd_issue_pv(float (&o)[DV / 2],
+                                             const uint32_t (&pf)[FWD_KT / 16][4], uint32_t vs) {
+  using TV = SwTile<DV>;
+  wgmma_fence();
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    uint32_t bk[4];
-    ldsm_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                    ((lane >> 3) & 1) * 8);
-    mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-    mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-  }
+  for (int kk = 0; kk < FWD_KT / 16; ++kk)
+    wgmma_rs(o, pf[kk], TV::mnmajor(vs, FWD_KT, kk), 1);
+  wgmma_commit();
 }
 
-template <int DK, int DV, bool LSE>
-__global__ void __launch_bounds__(FA_THREADS)
-    flash_attention_mma_kernel(FlashArgs a) {
-  constexpr int LD = mma_pitch<DK>();   // q and k tiles
-  constexpr int LDV = mma_pitch<DV>();  // v tiles
-  constexpr int KS = DK / 16;  // k-steps of S = Q K^T
-  constexpr int DN = DV / 8;   // n-tiles of the output
-  constexpr bool Q_REGS = DK <= 128;  // q's A fragments held in registers
-  extern __shared__ __align__(16) unsigned char fa_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
-  __nv_bfloat16* ks = qs + FA_BQ * LD;              // FA_STAGES tiles
-  __nv_bfloat16* vs = ks + FA_STAGES * FA_BK * LD;  // FA_STAGES tiles
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_BQ;
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y % a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const int nq = min(FA_BQ, a.Sq - q0);
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  const int n_kv = fa_key_tiles(a, q0, nq);
-
-  load_tile_async<DK>(qs, qg, a.q_ss, q0, a.Sq, tid);
-  load_tile_async<DK>(ks, kg, a.k_ss, 0, a.kv_len, tid);
-  load_tile_async<DV>(vs, vg, a.v_ss, 0, a.kv_len, tid);
-  cp_async_commit();
-
-  // This lane's rows of the C fragments: g and g + 8 of the warp's 16.
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // query position of fragment row 0
-  const float sl2 = a.scale * FA_LOG2E;
-  uint32_t qf[Q_REGS ? KS : 1][4];
-  float acc[DN][4];
+// The online softmax of one tile's scores (keys k0 ..), on the lane's
+// accumulator rows g (i = 0, 1) and g + 8 (i = 2, 3), in place: keys past
+// kv_len, and after the row's query when causal, get p = 0; the running
+// max m (log2 units) and this lane's part of the sum l move on; sc becomes
+// p = exp2(s * scale * log2(e) - m); corr is each row's factor for the
+// older terms of l (applied here) and of the output (applied by the
+// caller).
+__device__ __forceinline__ void fwd_softmax(float (&sc)[FWD_KT / 2], const FlashArgs& a, int k0,
+                                            int q_lo, int row0, int t4, float sl2,
+                                            float (&m_r)[2], float (&l_r)[2],
+                                            float (&corr)[2]) {
+  if (k0 + FWD_KT > a.kv_len || (a.causal && k0 + FWD_KT - 1 > q_lo)) {
 #pragma unroll
-  for (int j = 0; j < DN; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  float m_r[2] = {FA_NEG_INF, FA_NEG_INF};  // running max, log2 units
-  float l_r[2] = {0.f, 0.f};                // this lane's part of the sum
-
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * FA_BK;
-    if (t + 1 < n_kv) {
-      const int st = (t + 1) % FA_STAGES;
-      load_tile_async<DK>(ks + st * FA_BK * LD, kg, a.k_ss, k0 + FA_BK,
-                          a.kv_len, tid);
-      load_tile_async<DV>(vs + st * FA_BK * LDV, vg, a.v_ss, k0 + FA_BK,
-                          a.kv_len, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: tile t has landed
-    __syncthreads();
-    if constexpr (Q_REGS) {
-      if (t == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                              kk * 16 + (lane >> 4) * 8);
-      }
-    }
-    const __nv_bfloat16* kt = ks + (t % FA_STAGES) * FA_BK * LD;
-    const __nv_bfloat16* vt = vs + (t % FA_STAGES) * FA_BK * LDV;
-
-    // S = Q K^T: 8 n-tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if constexpr (Q_REGS) {
-        qk_step<LD>(s, qf[kk], kt, kk, lane);
-      } else {
-        uint32_t qa[4];
-        ldsm_x4(qa, qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
-                        (lane >> 4) * 8);
-        qk_step<LD>(s, qa, kt, kk, lane);
-      }
-    }
-
-    // scale to log2 units and mask
-    const bool edge = k0 + FA_BK > a.kv_len || (a.causal && k0 + FA_BK - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < FWD_KT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + j * 8 + t4 * 2 + (i & 1);
-        const int qpos = row0 + (i >> 1) * 8;
-        const bool valid =
-            !edge || (kpos < a.kv_len && (!a.causal || kpos <= qpos));
-        s[j][i] = valid ? s[j][i] * sl2 : FA_NEG_INF;
+        const int key = k0 + j * 8 + t4 * 2 + (i & 1);
+        if (key >= a.kv_len || (a.causal && key > row0 + (i >> 1) * 8))
+          sc[4 * j + i] = -INFINITY;
       }
-
-    // online softmax on the fragments: lane rows g (i = 0, 1), g + 8 (2, 3)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = FA_NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float corr = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * r] = exp2f(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l_r[r] = l_r[r] * corr + sum;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        acc[j][2 * r] *= corr;
-        acc[j][2 * r + 1] *= corr;
-      }
-    }
-
-    // O += P V: p rounded to bf16 as the A fragment, V through ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < FA_BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DN / 2; ++dp) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
-                              dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // stage t % FA_STAGES is free for tile t + FA_STAGES
   }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    const int q = row0 + r * 8;
-    if (q < a.Sq) {
-      __nv_bfloat16* orow = og + ((long long)(b * a.Sq + q) * a.H + h) * DV;
+    float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + t4 * 2) =
-            __floats2bfloat162_rn(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
+    for (int j = 0; j < FWD_KT / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[r], mx * sl2);
+    corr[r] = fast_exp2(m_r[r] - m_new);
+    m_r[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < FWD_KT / 8; ++j) {
+      sc[4 * j + 2 * r] = fast_exp2(fmaf(sc[4 * j + 2 * r], sl2, -m_new));
+      sc[4 * j + 2 * r + 1] = fast_exp2(fmaf(sc[4 * j + 2 * r + 1], sl2, -m_new));
+      sum += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
+    }
+    l_r[r] = l_r[r] * corr[r] + sum;
+  }
+}
+
+// The output's older terms times each row's corr; nothing to do when no
+// row of the warp found a larger max (every corr exactly 1).
+template <int R>
+__device__ __forceinline__ void fwd_rescale(float (&o)[R], const float (&corr)[2]) {
+  if (!__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+}
+
+// P, rounded to bf16, as P V's A fragments.
+__device__ __forceinline__ void fwd_pack(uint32_t (&pf)[FWD_KT / 16][4],
+                                         const float (&sc)[FWD_KT / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < FWD_KT / 16; ++kk) a_frag(pf[kk], sc, kk);
+}
+
+// The consumers' turns to issue products: consumer cw waits on named
+// barrier 1 + cw until the other has passed it on (256 threads: both
+// consumers), and passes the turn on through barrier 2 - cw.
+__device__ __forceinline__ void fwd_turn(int cw) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+}
+
+__device__ __forceinline__ void fwd_pass(int cw) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+}
+
+// A persistent block: its tiles of the schedule (FwdTile), one after
+// another, the ring's stages and phases running on across them, so that
+// the producer loads the next tile's q and first k/v tiles while the
+// consumers finish this one's and write its output.
+template <int DK, int DV, bool LSE>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, FlashArgs a) {
+  using L = FwdSmem<DK, DV>;
+  constexpr int ST = FWD_STAGES;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  const uint32_t raw = smem_addr(fwd_smem);
+  const uint32_t sb = (raw + 1023) & ~1023u;
+  const uint32_t q_full = sb + L::BAR, q_empty = q_full + 8;
+  const uint32_t k_full0 = q_empty + 8, v_full0 = k_full0 + 8 * ST;
+  const uint32_t k_empty0 = v_full0 + 8 * ST, v_empty0 = k_empty0 + 8 * ST;
+  const int n_qt = (a.Sq + FWD_BLOCK - 1) / FWD_BLOCK;
+  const int n_tiles = a.B * a.H * n_qt;
+  // Consumers that run: at Sq <= 64 (a decode row's launch) consumer 1
+  // would hold no query in any tile, and exits at once.
+  const int consumers = a.Sq > FWD_ROWS ? FWD_CONSUMERS : 1;
+  const int wg = threadIdx.x / FWD_WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * consumers);  // a warp of each running consumer
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full0 + 8 * s, 1);
+      mbar_init(v_full0 + 8 * s, 1);
+      mbar_init(k_empty0 + 8 * s, 4 * consumers);
+      mbar_init(v_empty0 + 8 * s, 4 * consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FWD_PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int c = 0;  // k / v tiles loaded so far
+      for (int r = 0;; ++r) {  // round r: this block's tile r
+        const int i = fwd_tile_index(r, blockIdx.x, gridDim.x);
+        if (i >= n_tiles) break;
+        const FwdTile w(a, i, n_qt);
+        mbar_wait(q_empty, (r & 1) ^ 1);  // the last tile's S products are in
+        mbar_expect_tx(q_full, L::QT);
+        tma_tile<DK, FWD_BOX>(sb + L::Q, &tm_q, q_full, FWD_BLOCK, w.h, w.q0, w.b);
+        for (int t = 0; t < w.n_kv; ++t, ++c) {
+          const int s = c % ST;
+          const uint32_t phase = ((c / ST) & 1) ^ 1;  // tile c - ST released
+          mbar_wait(k_empty0 + 8 * s, phase);
+          mbar_expect_tx(k_full0 + 8 * s, L::KT);
+          tma_tile<DK, FWD_BOX>(sb + L::K + s * L::KT, &tm_k, k_full0 + 8 * s, FWD_KT, w.hk,
+                                t * FWD_KT, w.b);
+          mbar_wait(v_empty0 + 8 * s, phase);
+          mbar_expect_tx(v_full0 + 8 * s, L::VT);
+          tma_tile<DV, FWD_BOX>(sb + L::V + s * L::VT, &tm_v, v_full0 + 8 * s, FWD_KT, w.hk,
+                                t * FWD_KT, w.b);
+        }
       }
-      // lse = ln(sum exp(s * scale)) = ln2 * (m + log2 l), m in log2 units
-      if (LSE && t4 == 0)
-        a.lse[((long long)b * a.H + h) * a.Sq + q] = (m_r[r] + log2f(l)) * FA_LN2;
-      // the same row before its rounding: the bf16 output is this rounded
-      if constexpr (LSE) {
-        float* frow = a.o32 + ((long long)(b * a.Sq + q) * a.H + h) * DV;
+    }
+    return;
+  }
+  if (wg > consumers) return;
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FWD_CONSUMER_REGS));
+  const int cw = wg - 1;
+  const int t = threadIdx.x % FWD_WG;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, t4 = lane % 4;
+  const float sl2 = a.scale * FA_LOG2E;
+  float o[DV / 2];
+  float m_r[2], l_r[2], corr[2];
+  float sc[FWD_KT / 2];         // S of one k tile: 64 queries x 128 keys
+  uint32_t pf[FWD_KT / 16][4];  // its P, bf16, as P V's A operand
+  // Tile it's P V runs on the tensor cores while the softmax of tile it + 1
+  // runs on S's accumulators: S of tile it + 1 is issued before P V of
+  // tile it, and waited for alone; the output takes tile it's rescale
+  // between the two issues.  A stage's k tile is released as soon as its S
+  // is in, its v tile once its P V is, the q tile once the last S is.  The
+  // two consumers take turns to issue their products (named barriers 1
+  // and 2), so that one's softmax runs while the other's products do;
+  // consumer 0 goes first.
+  const bool pp = consumers == 2;
+  if (pp && cw == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  int c = 0;  // k / v tiles consumed so far
+  for (int r = 0;; ++r) {  // round r: this block's tile r
+    const int i = fwd_tile_index(r, blockIdx.x, gridDim.x);
+    if (i >= n_tiles) break;
+    const FwdTile w(a, i, n_qt);
+    const bool last = fwd_tile_index(r + 1, blockIdx.x, gridDim.x) >= n_tiles;
+    const int q_lo = w.q0 + cw * FWD_ROWS;
+    const int row0 = q_lo + warp * 16 + g;  // query of fragment rows i < 2 (+8: i >= 2)
 #pragma unroll
-        for (int j = 0; j < DN; ++j) {
-          *reinterpret_cast<float2*>(frow + j * 8 + t4 * 2) =
-              make_float2(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+    m_r[0] = m_r[1] = FA_NEG_INF;  // running max, log2 units
+    l_r[0] = l_r[1] = 0.f;         // this lane's part of the sum
+
+    mbar_wait(q_full, r & 1);
+    mbar_wait(k_full0 + 8 * (c % ST), (c / ST) & 1);
+    if (pp) fwd_turn(cw);
+    fwd_issue_s<DK>(sc, sb + L::Q, sb + L::K + (c % ST) * L::KT, cw);
+    if (pp) fwd_pass(cw);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty0 + 8 * (c % ST));
+    fwd_softmax(sc, a, 0, q_lo, row0, t4, sl2, m_r, l_r, corr);
+    fwd_pack(pf, sc);
+    for (int it = 0; it + 1 < w.n_kv; ++it) {
+      const int s = (c + it) % ST, s1 = (c + it + 1) % ST;
+      mbar_wait(k_full0 + 8 * s1, ((c + it + 1) / ST) & 1);
+      mbar_wait(v_full0 + 8 * s, ((c + it) / ST) & 1);
+      if (pp) fwd_turn(cw);
+      fwd_issue_s<DK>(sc, sb + L::Q, sb + L::K + s1 * L::KT, cw);
+      fwd_rescale(o, corr);
+      fwd_issue_pv<DV>(o, pf, sb + L::V + s * L::VT);
+      if (pp) fwd_pass(cw);
+      wgmma_wait<1>();  // S of tile it + 1 is in; P V of tile it may still run
+      reg_fence(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty0 + 8 * s1);
+      fwd_softmax(sc, a, (it + 1) * FWD_KT, q_lo, row0, t4, sl2, m_r, l_r, corr);
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence(pf);  // P V read pf until here
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty0 + 8 * s);
+      fwd_pack(pf, sc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);  // every S of this tile is in
+    {
+      const int s = (c + w.n_kv - 1) % ST;
+      mbar_wait(v_full0 + 8 * s, ((c + w.n_kv - 1) / ST) & 1);
+      if (pp) fwd_turn(cw);
+      fwd_rescale(o, corr);
+      fwd_issue_pv<DV>(o, pf, sb + L::V + s * L::VT);
+      if (pp && !(last && cw == 1)) fwd_pass(cw);  // no turn follows the block's last
+      wgmma_wait<0>();
+      reg_fence(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty0 + 8 * s);
+    }
+    c += w.n_kv;
+
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv_l = 1.f / fmaxf(l, 1e-30f);
+      const int q = row0 + r * 8;
+      if (q < a.Sq) {
+        const long long row = (long long)(w.b * a.Sq + q) * a.H + w.h;
+        __nv_bfloat16* orow = og + row * DV;
+#pragma unroll
+        for (int e = 0; e < DV / 8; ++e)
+          *reinterpret_cast<__nv_bfloat162*>(orow + e * 8 + t4 * 2) =
+              __floats2bfloat162_rn(o[4 * e + 2 * r] * inv_l, o[4 * e + 2 * r + 1] * inv_l);
+        // lse = ln(sum exp(s * scale)) = ln2 * (m + log2 l), m in log2 units
+        if (LSE && t4 == 0)
+          a.lse[((long long)w.b * a.H + w.h) * a.Sq + q] = (m_r[r] + log2f(l)) * FA_LN2;
+        // the same row before its rounding: the bf16 output is this rounded
+        if constexpr (LSE) {
+          float* frow = a.o32 + row * DV;
+#pragma unroll
+          for (int e = 0; e < DV / 8; ++e)
+            *reinterpret_cast<float2*>(frow + e * 8 + t4 * 2) =
+                make_float2(o[4 * e + 2 * r] * inv_l, o[4 * e + 2 * r + 1] * inv_l);
         }
       }
     }
@@ -519,43 +610,70 @@ __global__ void __launch_bounds__(FA_THREADS)
     a.lse[((long long)b * a.H + h) * a.Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-// grid_x and smem come from the wrapper's plan
-// (kernels/flash_attention.py:flash_plan); the launch is refused unless
-// they are this kernel's q tiling and shared-memory layout.
-template <typename Kernel>
-int launch_kernel(Kernel kernel, size_t need, size_t smem, int grid_x,
-                  const FlashArgs& a, cudaStream_t stream) {
-  if (smem != need || grid_x != (a.Sq + FA_BQ - 1) / FA_BQ) {
-    return (int)cudaErrorInvalidValue;
-  }
+// The plan (kernels/flash_attention.py:flash_plan) gives the grid, threads
+// and shared memory; a launch whose plan is not this kernel's layout is
+// refused.
+struct FwdPlan {
+  int grid_x, grid_y, threads;
+  size_t smem;
+};
+
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kernel, const FwdPlan& p, cudaStream_t stream, const Args&... args) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(grid_x, a.B * a.H), FA_THREADS, smem, stream>>>(a);
+  kernel<<<dim3(p.grid_x, p.grid_y), p.threads, p.smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// The f32 kernel takes one width for q, k and v: a pair of two widths
-// launches only in bf16.
+// The SMs of the current card, read once.
+int card_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// bf16: one persistent block an SM (or a tile, if fewer), the tensor maps
+// encoded here.
 template <int DK, int DV, bool LSE>
-int launch_dl(const FlashArgs& a, int bf16, size_t smem, int grid_x,
-              cudaStream_t stream) {
-  if (bf16)
-    return launch_kernel(flash_attention_mma_kernel<DK, DV, LSE>, mma_smem_bytes<DK, DV>(),
-                         smem, grid_x, a, stream);
-  if constexpr (DK == DV)
-    return launch_kernel(flash_attention_f32_kernel<DK, LSE>, f32_smem_bytes<DK>(), smem,
-                         grid_x, a, stream);
-  return (int)cudaErrorInvalidValue;
+int launch_bf16(const FlashArgs& a, const FwdPlan& p, cudaStream_t stream) {
+  const long long tiles = (long long)a.B * a.H * ((a.Sq + FWD_BLOCK - 1) / FWD_BLOCK);
+  if (p.grid_x != (tiles < card_sms() ? tiles : card_sms()) || p.grid_y != 1 ||
+      p.threads != FWD_THREADS || p.smem != FwdSmem<DK, DV>::BYTES)
+    return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tq, tk, tv;
+  int rc = tensor_map<DK, FWD_BOX>(&tq, a.q, a.Sq, a.H, a.B, a.q_ss, a.q_sh, a.q_sb);
+  if (!rc) rc = tensor_map<DK, FWD_BOX>(&tk, a.k, a.kv_len, a.Hkv, a.B, a.k_ss, a.k_sh, a.k_sb);
+  if (!rc) rc = tensor_map<DV, FWD_BOX>(&tv, a.v, a.kv_len, a.Hkv, a.B, a.v_ss, a.v_sh, a.v_sb);
+  if (rc) return rc;
+  return launch_kernel(flash_fwd_kernel<DK, DV, LSE>, p, stream, tq, tk, tv, a);
+}
+
+// f32 (one width for q, k and v): grid (q tiles of 64, B * H).
+template <int D, bool LSE>
+int launch_f32(const FlashArgs& a, const FwdPlan& p, cudaStream_t stream) {
+  if (p.grid_x != (a.Sq + FA_BQ - 1) / FA_BQ || p.grid_y != a.B * a.H ||
+      p.threads != FA_THREADS || p.smem != f32_smem_bytes<D>())
+    return (int)cudaErrorInvalidValue;
+  return launch_kernel(flash_attention_f32_kernel<D, LSE>, p, stream, a);
 }
 
 // The lse output is a compile-time variant: without it the kernels are the
 // serving prefill's, instruction for instruction.
 template <int DK, int DV>
-int launch_d(const FlashArgs& a, int bf16, size_t smem, int grid_x,
-             cudaStream_t stream) {
-  return a.lse != nullptr ? launch_dl<DK, DV, true>(a, bf16, smem, grid_x, stream)
-                          : launch_dl<DK, DV, false>(a, bf16, smem, grid_x, stream);
+int launch_d(const FlashArgs& a, int bf16, const FwdPlan& p, cudaStream_t stream) {
+  const bool lse = a.lse != nullptr;
+  if (bf16)
+    return lse ? launch_bf16<DK, DV, true>(a, p, stream) : launch_bf16<DK, DV, false>(a, p, stream);
+  if constexpr (DK == DV)
+    return lse ? launch_f32<DK, true>(a, p, stream) : launch_f32<DK, false>(a, p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -565,21 +683,22 @@ extern "C" int flash_attention_launch(
     int B, int Sq, int Skv, int H, int Hkv, int D, int DV, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int kv_len,
-    int causal, float scale, int grid_x, long long smem, void* stream) {
+    int causal, float scale, int grid_x, int grid_y, int threads, long long smem,
+    void* stream) {
   FlashArgs a{q,    k,    v,    o,    lse,  B,    Sq,   Skv,  H,    Hkv,
               kv_len, causal, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
               v_sh, scale, o32};
   if (bf16 && lse != nullptr && o32 == nullptr) return (int)cudaErrorInvalidValue;
+  const FwdPlan p{grid_x, grid_y, threads, (size_t)smem};
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t sm = (size_t)smem;
   // the (q/k, v) width pairs of kernels/flash_attention.py:KERNEL_HEAD_DIMS
-  if (D == 192 && DV == 128) return launch_d<192, 128>(a, bf16, sm, grid_x, st);
+  if (D == 192 && DV == 128) return launch_d<192, 128>(a, bf16, p, st);
   if (D != DV) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_d<16, 16>(a, bf16, sm, grid_x, st);
-    case 32: return launch_d<32, 32>(a, bf16, sm, grid_x, st);
-    case 64: return launch_d<64, 64>(a, bf16, sm, grid_x, st);
-    case 128: return launch_d<128, 128>(a, bf16, sm, grid_x, st);
+    case 16: return launch_d<16, 16>(a, bf16, p, st);
+    case 32: return launch_d<32, 32>(a, bf16, p, st);
+    case 64: return launch_d<64, 64>(a, bf16, p, st);
+    case 128: return launch_d<128, 128>(a, bf16, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

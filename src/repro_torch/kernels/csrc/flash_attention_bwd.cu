@@ -187,52 +187,6 @@ constexpr int BWD_DQ_STAGES = 3;    // k / v tiles in flight
 constexpr int BWD_PRODUCER_REGS = 24;
 constexpr int BWD_CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// arrive once, and expect `bytes` more of TMA traffic in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-d tensor map into shared memory, counted on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
 // `bytes` contiguous bytes (16-byte aligned) into shared memory, counted on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
@@ -241,215 +195,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "%2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulators across
-// the wgmma issue and wait around them.
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle mode (1: 128-byte, 2:
-// 64-byte, 3: 32-byte).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)mode << 62);
-}
-
-// The swizzled layout of a tile of rows D wide: column blocks of E
-// elements (ROW bytes, the swizzle's span), each block's rows at a ROW
-// pitch.
-template <int D>
-struct SwTile {
-  static constexpr int E = D < 64 ? D : 64;
-  static constexpr int ROW = E * 2;
-  static constexpr int CB = D / E;
-  static constexpr int KSTEP = E / 16;  // k16 steps within a row
-  static constexpr uint32_t MODE = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
-  // K-major operand: rows [r0, r0 + 64 or N) of a tile of `rows` rows,
-  // k step kk (D columns 16 kk .. 16 kk + 15)
-  __device__ static __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
-    return gmma_desc(tile + (kk / KSTEP) * rows * ROW + r0 * ROW + (kk % KSTEP) * 32,
-                     16, 8 * ROW, MODE);
-  }
-  // MN-major B operand (D along N): k step kk is rows 16 kk .. 16 kk + 15;
-  // N crosses the column blocks, `rows` * ROW bytes apart
-  __device__ static __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
-    return gmma_desc(tile + kk * 16 * ROW, rows * ROW, 8 * ROW, MODE);
-  }
-};
-
-// d (m64 x n64, f32) = (acc ? d : 0) + A B, A and B from shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (m64 x n32, f32) = (acc ? d : 0) + A B, A and B from shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (m64 x n16, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
-// shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(acc));
-}
-
-// d (m64 x n32, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
-// shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(acc));
-}
-
-// d (m64 x n64, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
-// shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(acc));
-}
-
-// d (m64 x n128, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
-// shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(acc));
-}
-
-// d (m64 x n192, f32) = (acc ? d : 0) + A B, A (bf16) from registers, B from
-// shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(acc));
-}
-
-
-// 2^x on the special-function unit (ftz; 2^-inf = 0): a few ulp, far
-// inside the bf16 rounding of P that follows.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A fragments of k step kk of a score accumulator (rows x 16 kk .. 16 kk +
-// 15), rounded to bf16: wgmma's A register layout is its accumulator's.
-template <int R>
-__device__ __forceinline__ void a_frag(uint32_t (&af)[4], const float (&s)[R], int kk) {
-  af[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-  af[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-  af[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-  af[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
 // The bf16 kernels take the q / k head width DK and the v head width DV
@@ -497,19 +242,6 @@ struct DqSmem {
   static constexpr uint32_t BAR = V + BWD_DQ_STAGES * VT;
   static constexpr uint32_t BYTES = 1024 + BAR + 8 * (1 + 2 * BWD_DQ_STAGES);
 };
-
-// `rows` rows from r0 of a (D, heads, S, B) tensor map, as column blocks
-// of E elements and boxes of BOX rows, into a tile of `rows` rows.
-template <int D, int BOX>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int rows, int head, int r0,
-                                         int b) {
-  using T = SwTile<D>;
-#pragma unroll
-  for (int cb = 0; cb < T::CB; ++cb)
-    for (int r = 0; r < rows; r += BOX)
-      tma_load(dst + (cb * rows + r) * T::ROW, map, bar, cb * T::E, head, r0 + r, b);
-}
 
 // dK and dV of keys [128 y, 128 y + 128) of KV head x % Hkv of batch
 // x / Hkv.
@@ -1057,57 +789,6 @@ __global__ void __launch_bounds__(FA_THREADS)
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver, reached through the runtime so
-// that the library links without -lcuda; null when the driver lacks it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, S, heads, D) bf16 tensor (element strides ss, sh, sb) as a map of
-// dims (D, heads, S, B): boxes of BOX rows of one head, min(D, 64)
-// elements wide, in SwTile<D>'s swizzle; rows past S read as zeros.
-template <int D, int BOX>
-int tensor_map(CUtensorMap* m, const void* base, int S, int heads, int B,
-               long long ss, long long sh, long long sb) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  using T = SwTile<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::E, 1, (cuuint32_t)BOX, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = T::ROW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : T::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r =
-      fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <typename Kernel, typename... Args>
 int launch_bwd_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,

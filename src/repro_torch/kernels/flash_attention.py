@@ -41,13 +41,14 @@ bf16 gradient is 0.034, ``tests/test_torch_xattn.py``).
 
 * :func:`flash_attention_cuda` launches the kernel of
   ``csrc/flash_attention.cu`` on the tensors' card: in bf16 (every model
-  path) ``flash_attention_mma_kernel``, whose products run on the tensor
-  cores with k/v tiles copied asynchronously; in f32 the CUDA-core
-  ``flash_attention_f32_kernel``.  It reads q, k and v through their
-  strides (only the last dimension must be contiguous), so the model's
-  ``(B, S, H, D)`` projections go in without a transpose copy; the bf16
-  kernel copies 16-byte pieces, so there every address and stride must be
-  a multiple of 16 bytes, or the wrapper raises.
+  path) ``flash_fwd_kernel``, a producer warpgroup that keeps TMA loads of
+  k and v tiles in flight through an ``mbarrier`` ring and two consumer
+  warpgroups of 64 queries each that run both products on ``wgmma``; in
+  f32 the CUDA-core ``flash_attention_f32_kernel``.  It reads q, k and v
+  through their strides (only the last dimension must be contiguous), so
+  the model's ``(B, S, H, D)`` projections go in without a transpose copy;
+  in bf16 through tensor maps, which take only addresses and strides that
+  are multiples of 16 bytes (:func:`tma_strides` raises on others).
 * :func:`flash_attention_plain` is the same tiled loop in eager PyTorch;
   the CPU path runs it, and ``chip_smoke.py`` holds the kernel against it.
   It needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32``
@@ -60,8 +61,9 @@ bf16 gradient is 0.034, ``tests/test_torch_xattn.py``).
   the same bits), :func:`flash_attention_bwd_plain` is its eager
   version.
 * :func:`flash_plan` and :func:`flash_bwd_plan` are the launches'
-  geometry (grid, the order in which blocks take their q tiles, shared
-  memory), pure Python so that the CPU tests reach them.
+  geometry (grid, the order in which blocks take their q tiles, threads,
+  shared memory), pure Python so that the CPU tests reach them; the C
+  launchers refuse a plan that is not their kernel's layout.
 
 :mod:`repro_torch.kernels.ops` picks one or the other by tensor device.
 """
@@ -70,11 +72,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.launch import cdiv, launches, raise_on, stream_arg
+from repro_torch.kernels.launch import H100_SMS, cdiv, launches, raise_on, stream_arg
 
 NEG_INF = -1e30
 # Key and query rows per tile of the plain version; the tile sizes change
@@ -85,16 +88,35 @@ PLAIN_BLOCK = 128
 # models' equal widths and MLA's (192, 128), the latter in bf16 only.
 KERNEL_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 DTYPES = (torch.float32, torch.bfloat16)
-# The kernel's grid puts batch·heads on its second axis.
+# A grid's second axis (the f32 forward's batch·heads, the backward's
+# tiles).
 MAX_GRID_Y = 65535
-# The kernel's tiles (FA_BQ, FA_BK, FA_STAGES in csrc/flash_attention.cu):
-# 64 query rows a block (4 warps of 16 rows), 64 keys a tile, and in bf16
-# a ring of 2 k/v stages so that the next tile's copy overlaps this one's
-# products.  Staged bf16 rows are padded by 16 bytes, f32 rows by 4.
+# The f32 kernels' tiles (FA_BQ, FA_BK in csrc/flash_common.cuh): 64 query
+# rows a block of 128 threads, 64 keys a tile, staged rows padded by 4
+# bytes.
 BLOCK_Q = 64
 BLOCK_K = 64
-STAGES = 2
-# The bf16 kernel's cp.async copies move 16 bytes.
+# The bf16 forward's geometry (FWD_* in csrc/flash_attention.cu): one
+# persistent block an SM, a producer warpgroup and two consumer warpgroups
+# of 64 queries each, so tiles of 128 queries, each walking k/v tiles of
+# 128 keys through a TMA ring of 2 stages (a stage's k and v tiles, each
+# with a full and an empty barrier: a k tile is released once its S is in,
+# a v tile once its P·V is, and the next tiles' loads overlap this one's
+# products, across the block's q tiles too).
+FWD_THREADS = 384
+FWD_BLOCK = 128
+FWD_KT = 128
+FWD_STAGES = 2
+# Barriers of a forward block: q full and q empty, and each stage's k
+# full, v full, k empty and v empty, 8 bytes each.
+FWD_BARRIERS = 2 + 4 * FWD_STAGES
+# The bf16 kernels align their shared memory to the 128-byte swizzle's
+# 1,024-byte period themselves, and ask for that much more.
+SWIZZLE_PERIOD = 1024
+# TMA reads 16-byte aligned rows through strides in multiples of 16 bytes,
+# each below 2^40 bytes; the backward's loads of o and dO move 16 bytes.
+TMA_ALIGN = 16
+TMA_MAX_STRIDE = 2 ** 40
 COPY_BYTES = 16
 # How far two bf16 attention results may lie apart, per query row (the D
 # outputs of one batch, position and head): ``row_error <= BF16_ROW_TOL``.
@@ -132,43 +154,102 @@ BWD_BF16_ROW_TOL = 8 * 2 ** -8
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """One launch's geometry, as the launcher takes it: ``grid = (q tiles,
-    B·H)``; block ``x`` of a row takes q tile ``grid[0] - 1 - x``, so the
-    tiles with the most keys (the last, under the causal mask) start
-    first; ``smem_bytes`` of dynamic shared memory a block."""
+    """One launch's geometry, as the launcher takes it: ``grid``,
+    ``threads`` and ``smem_bytes`` of dynamic shared memory a block; tiles
+    of ``q_block`` queries of one of the ``heads`` = B·H (batch, head)
+    pairs, ``q_tiles`` of them a head, each walking key tiles of
+    ``key_tile`` keys (in bf16 through a ring of ``stages`` k/v stages).
+
+    * bf16 (``persistent``): ``grid = (min(tiles, SMs), 1)``, one block an
+      SM that takes a tile of the schedule (:meth:`tiles`) a round, where
+      tile ``i`` is q tile ``q_tiles - 1 - i // heads`` of batch·head ``i %
+      heads``: every head's last q tile (under the causal mask the one
+      with the most keys) comes before any head's second to last.  The
+      rounds run over the blocks forwards and backwards in turn
+      (:meth:`block_tiles`), so that the blocks' sums of key tiles come out
+      even;
+    * f32: ``grid = (q tiles, B·H)``, block ``x`` of a row taking q tile
+      ``grid[0] - 1 - x``: each batch·head's last tile first."""
 
     grid: Tuple[int, int]
+    threads: int
     smem_bytes: int
+    q_block: int
+    key_tile: int
+    stages: int
+    q_tiles: int
+    heads: int
+    persistent: bool
 
     def tiles(self) -> List[Tuple[int, int]]:
-        """``(q tile, batch·head)`` of every block, in launch order."""
+        """``(q tile, batch·head)`` of every tile: in bf16 in the
+        schedule's order, in f32 in launch order (x fastest)."""
+        if self.persistent:
+            return [(self.q_tiles - 1 - i // self.heads, i % self.heads)
+                    for i in range(self.q_tiles * self.heads)]
         nx, ny = self.grid
         return [(nx - 1 - x, y) for y in range(ny) for x in range(nx)]
+
+    def block_tiles(self, x: int) -> List[Tuple[int, int]]:
+        """bf16: the tiles persistent block ``x`` takes, in order: in round
+        ``r`` tile ``r·G + x``, or ``r·G + G - 1 - x`` when ``r`` is odd
+        (``G = grid[0]``; ``fwd_tile_index`` in the kernel)."""
+        tiles, G = self.tiles(), self.grid[0]
+        out = []
+        for r in range(cdiv(len(tiles), G)):
+            i = r * G + (G - 1 - x if r % 2 else x)
+            if i >= len(tiles):
+                break
+            out.append(tiles[i])
+        return out
+
+    def key_walk(self, y: int, Sq: int, kv_len: int, causal: bool) -> List[Tuple[int, int]]:
+        """``(first key, rows read)`` of every key tile that q tile ``y``
+        visits, in order: up to the tile holding ``kv_len - 1`` and, when
+        causal, the q tile's last query.  Rows past ``kv_len`` are not
+        read: in bf16 the k and v tensor maps end at ``kv_len`` and the TMA
+        writes zeros there, in f32 the loads are guarded."""
+        q0 = y * self.q_block
+        n = cdiv(kv_len, self.key_tile)
+        if causal:
+            n = min(n, (min(q0 + self.q_block, Sq) - 1) // self.key_tile + 1)
+        return [(k0, min(self.key_tile, kv_len - k0))
+                for k0 in range(0, n * self.key_tile, self.key_tile)]
 
 
 def flash_smem_bytes(D: int, dtype: torch.dtype, DV: Optional[int] = None) -> int:
     """Dynamic shared memory of one block at q/k width ``D`` and v width
-    ``DV`` (default ``D``): bf16 the q tile and the ``STAGES`` k tiles,
-    rows of ``D + 8`` elements, and the ``STAGES`` v tiles, rows of ``DV +
-    8``; f32 (``DV == D`` only) the q, k and v tiles (rows of ``D + 1``),
-    the 64 x 65 score tile and three row vectors."""
+    ``DV`` (default ``D``): bf16 (``FwdSmem``) the q tile of ``FWD_BLOCK``
+    rows, ``FWD_STAGES`` k and v tiles of ``FWD_KT`` rows and the
+    ``FWD_BARRIERS`` barriers, with the swizzle's period more; f32 (``DV ==
+    D`` only) the q, k and v tiles (rows of ``D + 1``), the 64 x 65 score
+    tile and three row vectors."""
     DV = D if DV is None else DV
     if dtype == torch.bfloat16:
-        return ((BLOCK_Q + STAGES * BLOCK_K) * (D + 8) + STAGES * BLOCK_K * (DV + 8)) * 2
+        return (SWIZZLE_PERIOD + (FWD_BLOCK * D + FWD_STAGES * FWD_KT * (D + DV)) * 2
+                + 8 * FWD_BARRIERS)
     return ((BLOCK_Q + 2 * BLOCK_K) * (D + 1) + BLOCK_Q * (BLOCK_K + 1)
             + 3 * BLOCK_Q) * 4
 
 
 def flash_plan(B: int, Sq: int, H: int, D: int, dtype: torch.dtype,
-               DV: Optional[int] = None) -> FlashPlan:
-    return FlashPlan(grid=(cdiv(Sq, BLOCK_Q), B * H),
-                     smem_bytes=flash_smem_bytes(D, dtype, DV))
+               DV: Optional[int] = None, sm_count: int = H100_SMS) -> FlashPlan:
+    """The launch at these shapes on a card of ``sm_count`` SMs."""
+    smem = flash_smem_bytes(D, dtype, DV)
+    if dtype == torch.bfloat16:
+        nq = cdiv(Sq, FWD_BLOCK)
+        return FlashPlan(grid=(min(B * H * nq, sm_count), 1), threads=FWD_THREADS,
+                         smem_bytes=smem, q_block=FWD_BLOCK, key_tile=FWD_KT,
+                         stages=FWD_STAGES, q_tiles=nq, heads=B * H, persistent=True)
+    nq = cdiv(Sq, BLOCK_Q)
+    return FlashPlan(grid=(nq, B * H), threads=128, smem_bytes=smem, q_block=BLOCK_Q,
+                     key_tile=BLOCK_K, stages=0, q_tiles=nq, heads=B * H, persistent=False)
 
 
 def _check_copy_alignment(name: str, t: torch.Tensor) -> None:
-    """The bf16 kernel copies 16-byte pieces: its address, and each stride
-    that moves it (of a dimension longer than 1), must be multiples of 16
-    bytes."""
+    """The bf16 kernels read 16-byte pieces (TMA boxes, the backward's
+    vector loads of o and dO): an address, and each stride that moves it
+    (of a dimension longer than 1), must be multiples of 16 bytes."""
     step = COPY_BYTES // t.element_size()
     moving = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
     if t.data_ptr() % COPY_BYTES or any(s % step for s in moving):
@@ -269,14 +350,21 @@ def grad_row_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((d / m.clamp_min(max(float(m.median()), ROW_FLOOR))).max())
 
 
-def _check_card_inputs(op: str, q, k, v, *, data: bool = True):
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    """The SMs of the card ``dev``: the bf16 forward's persistent blocks."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_card_inputs(op: str, q, k, v, *, data: bool = True) -> List[int]:
     """What a launch refuses: tensors off ``q``'s card, dtypes, a head
-    dimension that is not contiguous, head widths without an instance, a
-    grid too tall, and (bf16, ``data`` on) addresses and strides the
-    16-byte copies cannot take.  ``data`` off (a fake or ``meta`` tensor:
-    no memory) checks everything but the card and the addresses."""
-    B, Sq, H, D = q.shape
-    pair = (D, v.shape[3])
+    dimension that is not contiguous, head widths without an instance, and
+    (bf16, ``data`` on) addresses and strides the tensor maps cannot take
+    (:func:`tma_strides`).  ``data`` off (a fake or ``meta`` tensor: no
+    memory) checks everything but the card and the addresses.  Returns the
+    batch, sequence and head strides of q, k and v to launch with: in bf16
+    the tensor maps' (``data`` on), else the tensors' own."""
+    pair = (q.shape[3], v.shape[3])
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (data and not t.is_cuda) or t.device != dev:
@@ -291,32 +379,36 @@ def _check_card_inputs(op: str, q, k, v, *, data: bool = True):
     if q.dtype == torch.float32 and pair[0] != pair[1]:
         raise ValueError(f"{op}: the f32 kernels take one head width for q, k and v; "
                          f"(q/k, v) widths {pair} run in bf16 only")
-    if B * H > MAX_GRID_Y:
-        raise ValueError(f"{op}: B·H = {B * H} > {MAX_GRID_Y}")
     if data and q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_copy_alignment(name, t)
+        return [s for name, t in (("q", q), ("k", k), ("v", v))
+                for s in tma_strides(name, t)]
+    return [s for t in (q, k, v) for s in t.stride()[:3]]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, kv_len: Optional[int] = None,
                          return_lse: bool = False):
-    """Launch the bf16 tensor-core kernel or the f32 kernel on the current
+    """Launch the bf16 Hopper kernel or the f32 kernel on the current
     stream of the tensors' card → a contiguous ``(B, Sq, H, DV)`` tensor in
     q's dtype, and with ``return_lse`` ``(o, lse, o32)``: also ``lse``
     (f32, ``(B, H, Sq)``) and the output before its rounding (f32; the
     output itself in f32), written by the same launch; without it the
     kernel writes neither, and its output has the same bits.  Checks
-    device, dtype, shape, strides and (bf16) alignment; raises on a refused
-    launch."""
+    device, dtype, shape, strides and (bf16: :func:`tma_strides`)
+    alignment; raises on a refused launch.  In bf16 the launcher encodes
+    q's, k's and v's tensor maps on the host (k's and v's end at
+    ``kv_len``)."""
     from repro_torch.kernels import build
 
     kv_len = _check_shapes(q, k, v, kv_len)
     B, Sq, H, D = q.shape
     Skv, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
-    _check_card_inputs("flash_attention", q, k, v)
-    plan = flash_plan(B, Sq, H, D, q.dtype, DV)
+    strides = _check_card_inputs("flash_attention", q, k, v)
+    plan = flash_plan(B, Sq, H, D, q.dtype, DV, _sm_count(dev))
+    if plan.grid[1] > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: grid {plan.grid} has more than {MAX_GRID_Y} "
+                         f"blocks on its second axis")
     o = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -326,14 +418,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B == 0 or Sq == 0:
         return done
     lib = build.library()
-    strides = [ctypes.c_longlong(s) for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None,
             None if o32 is None else o32.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, DV, *strides,
-            kv_len, int(causal), ctypes.c_float(D ** -0.5), plan.grid[0],
+            int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, D, DV,
+            *[ctypes.c_longlong(s) for s in strides], kv_len, int(causal),
+            ctypes.c_float(D ** -0.5), *plan.grid, plan.threads,
             ctypes.c_longlong(plan.smem_bytes), stream_arg(dev))
     raise_on(lib, rc, "flash_attention")
     launches["flash_attention"] += 1
@@ -368,13 +460,6 @@ BWD_QT_WIDE = 32
 # Heads of the δ pre-pass a 128-thread block: in f32 a warp each, in bf16
 # D / 8 threads each (16 bytes of o and of dO a thread).
 BWD_DELTA_ROWS = 4
-# The bf16 kernels align their shared memory to the 128-byte swizzle's
-# 1,024-byte period themselves, and ask for that much more.
-SWIZZLE_PERIOD = 1024
-# TMA reads 16-byte aligned rows through strides in multiples of 16 bytes,
-# each below 2^40 bytes.
-TMA_ALIGN = 16
-TMA_MAX_STRIDE = 2 ** 40
 
 
 @dataclasses.dataclass(frozen=True)
@@ -491,25 +576,19 @@ def flash_bwd_plan(B: int, Sq: int, Skv: int, H: int, Hkv: int, D: int,
 
 def tma_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     """The batch, sequence and head strides (elements) through which the
-    bf16 backward's tensor maps read a ``(B, S, heads, D)`` tensor; a
+    bf16 kernels' tensor maps read a ``(B, S, heads, D)`` tensor; a
     dimension of length 1 is never stepped, and gets its contiguous
     stride.  Raises unless the address and every stride that moves are
     multiples of 16 bytes and below 2^40 bytes."""
     es = t.element_size()
-    out = []
-    for i in range(3):
-        if t.shape[i] > 1:
-            out.append(t.stride(i))
-        else:
-            n = 1
-            for size in t.shape[i + 1:]:
-                n *= size
-            out.append(n)
-    bad = [s for s, n in zip(out, t.shape[:3])
+    shape, stride = t.shape, t.stride()
+    out = [stride[i] if shape[i] > 1 else shape[i + 1] * shape[i + 2:].numel()
+           for i in range(3)]
+    bad = [s for s, n in zip(out, shape[:3])
            if n > 1 and (s * es % TMA_ALIGN or s * es >= TMA_MAX_STRIDE or s <= 0)]
     if t.data_ptr() % TMA_ALIGN or bad:
         raise ValueError(
-            f"{name}: the bf16 backward's tensor maps need a {TMA_ALIGN}-byte-aligned "
+            f"{name}: the bf16 kernels' tensor maps need a {TMA_ALIGN}-byte-aligned "
             f"address and batch, sequence and head strides in multiples of "
             f"{TMA_ALIGN} bytes below 2^40, got strides {tuple(t.stride())} of "
             f"{es}-byte elements at address {t.data_ptr():#x}")
@@ -594,7 +673,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
     B, Sq, H, D = q.shape
     Skv, Hkv, DV = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
-    _check_card_inputs("flash_attention_bwd", q, k, v)
+    strides = _check_card_inputs("flash_attention_bwd", q, k, v)
     if not do.is_contiguous() or do.data_ptr() % COPY_BYTES:
         do = do.clone(memory_format=torch.contiguous_format)
     for name, t in (("o", o), ("dO", do), ("lse", lse)):
@@ -603,12 +682,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
         if name == "dO" and t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: dO must be {q.dtype}, got {t.dtype}")
     if q.dtype == torch.bfloat16:
-        strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-                   for s in tma_strides(name, t)]
         for name, t in (("o", o), ("dO", do)):
             _check_copy_alignment(name, t)
-    else:
-        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     plan = flash_bwd_plan(B, Sq, Skv, H, Hkv, D, q.dtype, DV)
     if max(plan.dkdv_grid[1], plan.dq_grid[1], plan.delta_grid[1]) > MAX_GRID_Y:
         raise ValueError(f"flash_attention_bwd: {max(Sq, Skv)} positions or {H} heads "

@@ -165,7 +165,8 @@ def tune_cfg(cfg, shape, opts):
                          "always skip the key tiles above the diagonal")
     if opts.attn_block:
         raise ValueError("--attn-block has no counterpart: the card's flash kernels size "
-                         "their own tiles (kernels/flash_attention.py BLOCK_Q, BLOCK_K)")
+                         "their own tiles (kernels/flash_attention.py FWD_BLOCK, FWD_KT, BLOCK_Q, "
+                         "BLOCK_K)")
     if opts.no_remat:
         cfg = cfg.replace(remat=False)
     if shape.kind != "train":

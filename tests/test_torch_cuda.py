@@ -692,16 +692,18 @@ def test_eprop_update_matches_plain_at_chip_shapes(dims, density, B, quantized,
         assert torch.equal(a, b)
 
 
-def _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, dev, strided):
-    def one(S, heads):
-        x = rng.normal(size=(B, heads, S, D) if strided else (B, S, heads, D)) * 0.3
+def _flash_case(rng, B, Sq, Skv, H, Hkv, D, dtype, dev, strided, DV=None):
+    """q, k at width D and v at width DV (default D); ``strided`` makes them
+    views of head-major tensors."""
+    def one(S, heads, width):
+        x = rng.normal(size=(B, heads, S, width) if strided else (B, S, heads, width)) * 0.3
         x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
         return x.transpose(1, 2) if strided else x
-    return one(Sq, H), one(Skv, Hkv), one(Skv, Hkv)
+    return one(Sq, H, D), one(Skv, Hkv, D), one(Skv, Hkv, D if DV is None else DV)
 
 
 # the tensor-core kernel's cases at the model widths D = 64 and 128:
-# Sq not a multiple of the 64-row tile, GQA 4:1 and 1:1, non-causal with
+# Sq not a multiple of the 128-query tile, GQA 4:1 and 1:1, non-causal with
 # NaN past kv_len, strided views
 TENSOR_CORE_CASES = [
     case for D in (64, 128) for case in (
@@ -1298,6 +1300,124 @@ def test_remat_modes_on_card_give_identical_gradients(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+def _hopper_forward_checks(q, k, v, causal, kv_len, lse):
+    """The bf16 forward (``flash_fwd_kernel``) against its plain version:
+    each row within BF16_ROW_TOL, finite, two launches bitwise alike; with
+    ``lse`` also lse within 1e-4, the f32 output per row within
+    BF16_ROW_TOL and rounding to the bf16 output bit for bit, and the
+    output bitwise the launch without lse."""
+    from repro_torch.kernels import flash_attention as FA
+
+    kw = dict(causal=causal, kv_len=kv_len)
+    want, plse, p32 = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = FA.flash_attention_cuda(q, k, v, return_lse=lse, **kw)
+    again = FA.flash_attention_cuda(q, k, v, return_lse=lse, **kw)
+    o = got[0] if lse else got
+    assert o.shape == want.shape and torch.isfinite(o).all()
+    assert FA.row_error(o, want) <= FA.BF16_ROW_TOL
+    for a, b in zip(got if lse else (got,), again if lse else (again,)):
+        assert torch.equal(a, b)
+    if lse:
+        _, lse_t, o32 = got
+        torch.testing.assert_close(lse_t, plse, rtol=0, atol=1e-4)
+        assert FA.row_error(o32, p32) <= FA.BF16_ROW_TOL
+        assert torch.equal(o, o32.to(torch.bfloat16))
+        assert torch.equal(o, FA.flash_attention_cuda(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("DK,DV", [(16, 16), (32, 32), (64, 64), (128, 128), (192, 128)])
+def test_flash_hopper_forward_every_width(DK, DV, causal, lse, cuda_device):
+    """Every (q/k, v) width pair of KERNEL_HEAD_DIMS through the Hopper
+    forward, causal and not, with and without lse: 200 queries (a ragged
+    second 128-query tile) over 330 keys of which kv_len = 301 are filled
+    (NaN in the tail, which the tensor maps end before), GQA 4:2, on
+    head-major strided views."""
+    rng = np.random.default_rng(DK * 7 + DV + causal)
+    q, k, v = _flash_case(rng, 2, 200, 330, 4, 2, DK, torch.bfloat16, cuda_device, True, DV)
+    k[:, 301:] = float("nan")
+    v[:, 301:] = float("nan")
+    ops.reset_launch_counts()
+    _hopper_forward_checks(q, k, v, causal, 301, lse)
+    assert ops.launches["flash_attention"] == 2 + lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 64, 65, 127])
+@pytest.mark.parametrize("DK,DV", [(64, 64), (128, 128)])
+def test_flash_hopper_forward_short_query_blocks(Sq, DK, DV, cuda_device):
+    """Query counts that leave rows of a 128-query tile empty: one (a
+    decode row; up to 64 queries the second consumer warpgroup exits at
+    once) and 64, 65, 127 (not a multiple of 128), over a ragged 1,000-key
+    memory with NaN past kv_len = 937, non-causal (cross-attention) and with
+    lse."""
+    rng = np.random.default_rng(Sq + DK)
+    q, k, v = _flash_case(rng, 3, Sq, 1000, 8, 2, DK, torch.bfloat16, cuda_device, False, DV)
+    k[:, 937:] = float("nan")
+    v[:, 937:] = float("nan")
+    _hopper_forward_checks(q, k, v, False, 937, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("DK,DV", [(128, 128), (192, 128)])
+def test_flash_hopper_forward_persistent_blocks_take_many_tiles(DK, DV, causal,
+                                                                cuda_device):
+    """More tiles than SMs (2 x 16 heads x 12 q tiles of 128 = 384): each
+    persistent block walks several q tiles with its k/v ring running on
+    across them, heaviest first; every row within BF16_ROW_TOL, lse and
+    the f32 output against the plain version, two launches bitwise."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(DK + causal)
+    q, k, v = _flash_case(rng, 2, 1500, 1500, 16, 4, DK, torch.bfloat16, cuda_device, False,
+                          DV)
+    plan = FA.flash_plan(2, 1500, 16, DK, torch.bfloat16, DV,
+                         torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert len(plan.tiles()) > plan.grid[0]
+    _hopper_forward_checks(q, k, v, causal, None, True)
+
+
+@pytest.mark.cuda
+def test_flash_launch_refuses_a_plan_it_does_not_lay_out(cuda_device, monkeypatch):
+    """The launcher checks the wrapper's plan against its own layout: a
+    grid, a thread count or shared-memory bytes that are not the kernel's
+    are refused before anything runs."""
+    import dataclasses as dc
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.launch import KernelLaunchError
+
+    q, k, v = _flash_case(np.random.default_rng(8), 1, 300, 300, 4, 2, 128, torch.bfloat16,
+                          cuda_device, False)
+    real = FA.flash_plan
+    for bad in (lambda p: dc.replace(p, grid=(p.grid[0] + 1, 1)),
+                lambda p: dc.replace(p, threads=256),
+                lambda p: dc.replace(p, smem_bytes=p.smem_bytes + 16)):
+        monkeypatch.setattr(FA, "flash_plan", lambda *a, bad=bad: bad(real(*a)))
+        ops.reset_launch_counts()
+        with pytest.raises(KernelLaunchError):
+            FA.flash_attention_cuda(q, k, v, causal=True)
+        assert ops.launches["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernels_do_not_spill(cuda_device):
+    """ptxas spills nothing in the bf16 forward's wgmma kernel at any width
+    pair, with and without lse: the output and score accumulators live in
+    registers."""
+    from repro_torch.kernels import build
+
+    build.library()
+    report = build.ptxas_report(build.ptxas_log())
+    kernels = {k: v for k, v in report.items() if "flash_fwd_kernel" in k}
+    assert len(kernels) == 10, sorted(report)
+    for name, r in kernels.items():
+        assert r["spill_stores"] == r["spill_loads"] == 0, (name, r)
+
+
 def _mla_case(rng, B, Sq, Skv, H, dev, strided, DK=192, DV=128):
     """q (B, Sq, H, DK), k (B, Skv, H, DK), v (B, Skv, H, DV) in bf16 (MLA has
     as many KV heads as heads); ``strided`` makes them views of head-major
@@ -1309,7 +1429,7 @@ def _mla_case(rng, B, Sq, Skv, H, dev, strided, DK=192, DV=128):
     return one(Sq, DK), one(Skv, DK), one(Skv, DV)
 
 
-# ragged lengths (no multiple of the 64-row forward tiles, the 128-key
+# ragged lengths (no multiple of the 128-query forward tiles, the 128-key
 # dK/dV tiles or the 32-query q tiles), a single row, more keys than
 # queries, non-causal, strided views with a non-contiguous dO
 MLA_CASES = [
@@ -1390,7 +1510,7 @@ def test_mla_kernels_report_registers(cuda_device):
     build.library()
     report = build.ptxas_report(build.ptxas_log())
     names = [k for k in report if "ILi192ELi128E" in k]
-    assert any("flash_attention_mma_kernel" in k for k in names), sorted(report)
+    assert sum("flash_fwd_kernel" in k for k in names) == 2, sorted(report)
     assert any("flash_bwd_kernel" in k for k in names), sorted(report)
     assert any("flash_bwd_delta_bf16_kernel" in k for k in report), sorted(report)
 
@@ -1587,10 +1707,11 @@ def test_planted_large_dt_gives_finite_gradients_on_card(cuda_device):
 
 
 # Non-causal, Sq != Skv: llama-3.2-vision's cross-attention (G=8 over a
-# ragged 1,600-key memory: 25 whole 64-key tiles, and 12 whole 128-key
-# dK/dV tiles and a ragged 13th) and seamless's decoder over an
+# ragged 1,600-key memory: 12 whole 128-key tiles of the forward and of
+# the dK/dV blocks, and a ragged 13th) and seamless's decoder over an
 # encoder memory (D=64, MHA, ragged both ways); then decode's one query
-# row against the 1,600 media keys at G=8 (one live row of a 64-row tile)
+# row against the 1,600 media keys at G=8 (one live row of a 128-query
+# tile)
 CROSS_CASES = [
     (2, 300, 1600, 16, 2, 128),
     (2, 257, 1000, 4, 4, 64),

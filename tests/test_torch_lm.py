@@ -43,7 +43,7 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.launch import SMEM_PER_BLOCK
+from repro_torch.kernels.launch import H100_SMS, SMEM_PER_BLOCK
 from repro_torch.kernels.traffic import attention_valid_keys, flash_attention_flops
 from repro_torch.models import attention, layers
 from repro_torch.models.model import build
@@ -207,31 +207,84 @@ def test_flash_traffic_counts():
     for dt in ((torch.bfloat16, torch.float32) if d == dv else (torch.bfloat16,))])
 def test_flash_plan_fits_a_block(D, DV, dtype):
     """Every (q/k, v) width pair's tiles fit the 227 KB a block may hold
-    (the pair of two widths runs in bf16 only); in bf16 that is the q tile
-    and a ring of at least two k/v stages, and at the models' (128, 128)
-    and (192, 128) two blocks still share an SM's 228 KB."""
+    (the pair of two widths runs in bf16 only).  In bf16 that is the
+    block's q tile of 128 queries and a ring of at least two stages of k
+    and v tiles of 128 keys, swizzle-aligned, with two barriers for q and
+    four a stage; the producer and two consumer warpgroups (24 and 240
+    registers a thread) fill the SM's 65,536 registers, so one persistent
+    block an SM."""
     smem = FA.flash_smem_bytes(D, dtype, DV)
     assert smem <= SMEM_PER_BLOCK
+    plan = FA.flash_plan(4, 2048, 32, D, dtype, DV)
+    assert plan.smem_bytes == smem
     if dtype == torch.bfloat16:
-        assert FA.STAGES >= 2
-        stage = FA.BLOCK_K * (D + 8 + DV + 8) * 2      # a k and a v tile
-        assert smem >= FA.STAGES * stage + FA.BLOCK_Q * D * 2
-        if D >= 128:
-            assert 2 * smem <= 228 * 1024
+        assert plan.stages == FA.FWD_STAGES >= 2
+        assert plan.threads == FA.FWD_THREADS == 3 * 128
+        assert 128 * 24 + 2 * 128 * 240 <= 65536
+        assert plan.q_block == FA.FWD_BLOCK == 2 * 64 and plan.key_tile == FA.FWD_KT
+        stage = FA.FWD_KT * (D + DV) * 2                # a k and a v tile
+        assert smem == (FA.SWIZZLE_PERIOD + FA.FWD_BLOCK * D * 2 + plan.stages * stage
+                        + 8 * (2 + 4 * plan.stages))
+        # every tile starts on the 128-byte swizzle's 1,024-byte period
+        assert (FA.FWD_BLOCK * D * 2) % 1024 == 0 and (FA.FWD_KT * DV * 2) % 1024 == 0
+    else:
+        assert plan.stages == 0 and plan.threads == 128
 
 
 @pytest.mark.parametrize("B,Sq,H", [(1, 1, 1), (2, 130, 4), (4, 2048, 32)])
 def test_flash_tile_order_covers_each_tile_once(B, Sq, H):
-    """The grid gives every (q tile, batch·head) one block, and each
-    batch·head's first block takes its last q tile, the one with the most
-    keys under the causal mask."""
+    """The schedule holds every (q tile, batch·head) once.  In bf16 one
+    persistent block an SM (or a tile, if fewer) takes every grid[0]-th
+    tile; the tiles run heaviest first across heads: the first B·H take
+    every head's last q tile (the one with the most keys under the causal
+    mask) and no tile is a later one than the one before it.  In f32 each
+    batch·head's first block takes its last tile."""
     plan = FA.flash_plan(B, Sq, H, 128, torch.bfloat16)
-    nq = -(-Sq // FA.BLOCK_Q)
-    assert plan.grid == (nq, B * H)
+    nq = -(-Sq // FA.FWD_BLOCK)
+    assert plan.grid == (min(nq * B * H, H100_SMS), 1) and plan.persistent
     tiles = plan.tiles()
     assert len(tiles) == len(set(tiles)) == nq * B * H
     assert set(tiles) == {(q, bh) for q in range(nq) for bh in range(B * H)}
+    assert tiles[:B * H] == [(nq - 1, bh) for bh in range(B * H)]
+    assert all(a[0] >= b[0] for a, b in zip(tiles, tiles[1:]))
+    blocks = [plan.block_tiles(x) for x in range(plan.grid[0])]
+    assert sorted(x for b in blocks for x in b) == sorted(tiles)
+    assert max(map(len, blocks)) - min(map(len, blocks)) <= 1
+    # under the causal mask q tile y reads y + 1 key tiles: the blocks'
+    # sums stay within 1/32 of their mean
+    loads = [sum(y + 1 for y, _ in b) for b in blocks]
+    assert max(loads) <= 1.032 * sum(loads) / len(loads) or len(tiles) <= H100_SMS
+    assert FA.flash_plan(B, Sq, H, 128, torch.bfloat16, sm_count=7).grid == \
+        (min(nq * B * H, 7), 1)
+    plan = FA.flash_plan(B, Sq, H, 128, torch.float32)
+    nq = -(-Sq // FA.BLOCK_Q)
+    assert plan.grid == (nq, B * H) and not plan.persistent
+    tiles = plan.tiles()
+    assert set(tiles) == {(q, bh) for q in range(nq) for bh in range(B * H)}
     assert all(tiles[bh * nq] == (nq - 1, bh) for bh in range(B * H))
+
+
+@pytest.mark.parametrize("Sq,Skv,kv_len,causal,walk", [
+    # llama3-8b's prefill, the last q tile: 16 whole tiles of 128 keys
+    (2048, 2048, 2048, True, [(k, 128) for k in range(0, 2048, 128)]),
+    # an unfilled cache tail: the maps end at kv_len = 237, so the second
+    # tile reads 109 rows and TMA writes zeros for the other 19
+    (150, 300, 237, False, [(0, 128), (128, 109)]),
+    # one decode row over the vlm's 1,600 media keys: 13 tiles, the last
+    # 64 rows read
+    (1, 1600, 1600, False, [(k, min(128, 1600 - k)) for k in range(0, 1600, 128)]),
+    # more queries than keys, causal: the keys end the walk first
+    (130, 90, 90, True, [(0, 90)]),
+])
+def test_flash_key_walk(Sq, Skv, kv_len, causal, walk):
+    """The bf16 forward's last q tile visits these key tiles, reading these
+    rows of each (the rest of a tile past kv_len are zeros); under the
+    causal mask the first q tile reads only its own key tile."""
+    plan = FA.flash_plan(1, Sq, 4, 128, torch.bfloat16)
+    assert plan.key_walk(plan.q_tiles - 1, Sq, kv_len, causal) == walk
+    assert all(0 < n <= plan.key_tile and k0 + n <= kv_len for k0, n in walk)
+    if causal:
+        assert [k0 for k0, _ in plan.key_walk(0, Sq, kv_len, causal)] == [0]
 
 
 @pytest.mark.parametrize("case,ok", [

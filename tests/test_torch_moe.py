@@ -356,11 +356,11 @@ def test_flash_shapes_and_card_checks_at_unequal_widths():
 
 
 def test_unequal_width_plans_fit_a_block():
-    """(192, 128): the forward's tiles (111,616 bytes: two blocks an SM),
+    """(192, 128): the forward's tiles (214,096 bytes: one block an SM),
     the backward's dK/dV block with q tiles of 32 queries and its dQ block
     of one head, each within the 227 KB a block may hold."""
     bf16 = torch.bfloat16
-    assert FA.flash_smem_bytes(192, bf16, 128) == 111_616
+    assert FA.flash_smem_bytes(192, bf16, 128) == 214_096
     plan = FA.flash_bwd_plan(4, 2048, 2048, 16, 16, 192, bf16, 128)
     assert plan.q_tile == FA.BWD_QT_WIDE == 32 and plan.dq_heads == 1
     assert plan.dkdv_smem_bytes == 145_208 and plan.dq_smem_bytes == 205_880
