@@ -1252,10 +1252,11 @@ def phase_train_kernels_vs_plain(dev):
         # the split pipeline gives the fused train_tile's dw
         _dw_err(f"{name} forward_traces + eprop_update vs train_tile", got_u, got[:3])
         spikes = float(want[4].sum())
-        on_chip = K.train_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out).traces_smem
+        tplan = K.train_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out, B)
         fplan = K.forward_plan(T, B, cfg.n_in, cfg.n_hid, cfg.n_out)
         log(f"(g) ok: {name} (T={T}, B={B}, {cfg.n_in}/{cfg.n_hid}/{cfg.n_out}, "
-            f"rsnn_train traces in {'shared' if on_chip else 'device'} memory, "
+            f"rsnn_train traces in {'shared' if tplan.traces_smem else 'device'} "
+            f"memory on {tplan.cluster} block(s) a row, "
             f"rsnn_forward plan {fplan}, "
             f"spikes in window={spikes:.0f}, max|dw|="
             f"{max(float(w.abs().max()) for w in want[:3]):.4g}, readout error "
@@ -1497,10 +1498,12 @@ def phase_train_timing(dev):
         "(i)", "eprop_update", lambda: E.eprop_update_cuda(*trs, b_fb, kappa=cfg.neuron.kappa),
         lambda: E.eprop_update_plain(*trs, b_fb, kappa=cfg.neuron.kappa),
         traffic.eprop_update_bytes(T, B, N, H, O), rev_flops, shape)
-    plan = K.train_plan(T, N, H, O)
-    log(f"(i) rsnn_train's plan at T={T}: {plan.threads} threads a row, trace set "
-        f"in {'shared' if plan.traces_smem else 'device'} memory, "
-        f"{plan.smem_bytes} bytes of shared memory a block")
+    for b in (B, 1):
+        plan = K.train_plan(T, N, H, O, b)
+        log(f"(i) rsnn_train's plan at T={T} B={b}: {plan.cluster} block(s) of "
+            f"{plan.threads} threads a row, trace set in "
+            f"{'shared' if plan.traces_smem else 'device'} memory, "
+            f"{plan.smem_bytes} bytes of shared memory a block")
     return rows
 
 
@@ -5956,7 +5959,9 @@ def tree_times(root: Path, dev) -> None:
     stands beside it under its name with `` [events]``.  Beside the times,
     a digest of each kernel's SASS and its counts of :data:`SASS_OPS`
     (:func:`_sass_digests`), so that two trees' kernels compare function by
-    function.  Prints one JSON line."""
+    function; and its rsnn_train at :func:`_train_tree_shapes` under both
+    surrogates, each with a digest of its outputs and its roles' clocks
+    (:func:`_tree_train`).  Prints one JSON line."""
     import torch.nn.functional as F
 
     from repro_torch.configs.reckon_braille import CONFIG_QUANT
@@ -6056,6 +6061,7 @@ def tree_times(root: Path, dev) -> None:
             best(f"rsnn_infer B={b}", lambda: K.rsnn_infer_cuda(r, valid, *w, **kw))
             best(f"rsnn_step_sessions B={b}", lambda: K.rsnn_step_sessions_cuda(
                 r, live, valid, *c, *w, **kw))
+    train = _tree_train(dev)
     exact = {}
     if hasattr(E, "rsnn_train_exact_cuda"):
         exact = _tree_exact(dev)
@@ -6065,7 +6071,8 @@ def tree_times(root: Path, dev) -> None:
         f"{_kernel_label(n).split('flash_')[-1][:60]} {list(c.values())}"
         for n, c in ops.items() if "flash_fwd_kernel" in n or "flash_attention_mma" in n))
     print(json.dumps({"tree": str(root), "card": card_line(), "ms": ms,
-                      "host_us_a_call": host_us, "exact": exact, "sass": digests,
+                      "host_us_a_call": host_us, "train": train, "exact": exact,
+                      "sass": digests,
                       "sass_ops": ops}), flush=True)
 
 
@@ -6162,6 +6169,91 @@ def _tree_exact(dev):
             if hasattr(E, "exact_clock_shape"):
                 row["roles"] = _exact_roles(E, K, args, k)
             out[f"{name} {sname}"] = row
+    return out
+
+
+def _train_tree_shapes():
+    """The shapes ``--time-tree`` times rsnn_train at: name, config, T, B
+    (quantized; END_S's commit at T=128 and (am)'s at T=256, the END_B
+    tile, the chip-maximum net and a Braille row past T=424, both on the
+    device-scratch route)."""
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.core.rsnn import Presets
+
+    chip_max = Presets.braille(n_in=256, n_hid=256, n_out=16, quantized=True)
+    return [("T=128 B=1", CONFIG_QUANT, 128, 1), ("T=256 B=1", CONFIG_QUANT, 256, 1),
+            ("END_B T=128 B=70", CONFIG_QUANT, 128, 70),
+            ("256/256/16 T=128 B=8", chip_max, 128, 8),
+            ("T=512 B=1", CONFIG_QUANT, 512, 1)]
+
+
+def _tree_train(dev):
+    """``--time-tree``'s rsnn_train rows: at each of
+    :func:`_train_tree_shapes`, under the boxcar and the triangular
+    surrogate, on inputs made from a seed (the same on every tree), the
+    median of three profiler readings with its time by kernel, the digest
+    of the launch's dw, acc_y and n_spk (at the END_B tile also of its
+    codes on the commit grid), so that two trees' kernels compare bit for
+    bit, and the role split of :func:`_train_roles` (null for a tree whose
+    wrapper takes no ``clocks=``)."""
+    import inspect
+
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+    from repro_torch.kernels import eprop_update as E
+    from repro_torch.kernels import rsnn_step as K
+
+    clocked = "clocks" in inspect.signature(E.rsnn_train_cuda).parameters
+    out = {}
+    for i, (name, base, T, B) in enumerate(_train_tree_shapes()):
+        gen = torch.Generator().manual_seed(SEED + 60 + i)
+        cfg, args, kw = _exact_case(gen, base, T, B, dev, "backend")
+        for sname, fields in (("boxcar", {}), SURROGATE_CASES[0]):
+            k = dict(kw, **fields)
+            row = {"digest": _digest(E.rsnn_train_cuda(*args, **k))}
+            if name.startswith("END_B"):
+                row["codes_digest"] = _digest(E.rsnn_train_cuda(*args, **k, commit_grid=G)[:3])
+            row["ms"], row["by_kernel"] = _median_reading(
+                lambda: E.rsnn_train_cuda(*args, **k), iters=20)
+            row["plan"] = str(K.train_plan(T, cfg.n_in, cfg.n_hid, cfg.n_out,
+                                           **({"B": B} if "B" in inspect.signature(
+                                               K.train_plan).parameters else {})))
+            row["roles"] = _train_roles(E, args, k) if clocked else None
+            out[f"{name} {sname}"] = row
+            log(f"--time-tree rsnn_train {name} {sname}: {row['ms']} ms, roles "
+                f"{row['roles']}")
+    return out
+
+
+def _train_roles(E, args, kw):
+    """How one rsnn_train launch's time splits by role, from the kernel's
+    clock64() readings for row 0: the leader block's setup (staging, the
+    barriers and the input currents), chain, xbar filter, pbar/zbar filters and readout, each with its cycles and its
+    start after the setup's start; the F walk and the dw sums of the first
+    block that runs them (the leader where a row is one block, else block
+    1, whose starts count from its mirror's start on its own SM's clock);
+    block 1's mirror; the span from the setup's start to the last end on
+    the leader's clock; the SM clock in MHz beside them."""
+    clocks = torch.zeros((len(E.TRAIN_CLOCK_ROLES), 2), dtype=torch.int64,
+                         device=args[0].device)
+    E.rsnn_train_cuda(*args, **kw)
+    E.rsnn_train_cuda(*args, **kw, clocks=clocks)
+    torch.cuda.synchronize()
+    c = clocks.cpu().double()
+    on_leader = not bool(c[7].gt(0).all())     # no block 1: one block a row
+    t0 = {True: float(c[0, 0]), False: float(c[7, 0])}
+    out, last = {}, float(c[0, 0])
+    for r, role in enumerate(E.TRAIN_CLOCK_ROLES):
+        start, end = float(c[r, 0]), float(c[r, 1])
+        if start <= 0 or end <= 0:
+            continue     # a role this launch does not run
+        leader = r < 5 or (r < 7 and on_leader)
+        out[role] = {"cycles": end - start, "start": start - t0[leader]}
+        if leader:
+            last = max(last, end)
+    out["span_cycles"] = last - float(c[0, 0])
+    sm = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                        capture_output=True, text=True, timeout=60).stdout.strip()
+    out["sm_clock"] = sm
     return out
 
 
@@ -6267,11 +6359,16 @@ def _sass_digests(build):
 
 
 def learn_walls(root: Path, dev) -> None:
-    """``--learn-walls ROOT``: the walls of (h)'s first seed, one 12-epoch
-    END_S run and one END_B run, through the learner of the checkout at
-    ``ROOT``, in a process that runs nothing else, so that two trees'
-    learning loops compare on one card in one call.  Prints one JSON
-    line."""
+    """``--learn-walls ROOT``: (h)'s learning runs through the learner of
+    the checkout at ``ROOT``, in a process that runs nothing else: every
+    seed of :data:`LEARN_SEEDS`, a 12-epoch END_B run and an END_S run in
+    (h)'s order, each with its wall, its test accuracy and the digest of
+    its learned weights, so that two trees' learning compares on one card
+    in one call, bit for bit; and the host's µs a call of the tree's
+    rsnn_train at END_S's commit and the END_B tile (:func:`_host_us`: the
+    wrapper, the plan and the launch, the card idle at the start).  Prints
+    one JSON line: the first seed's walls (``wall_s``), the median walls
+    and accuracies, every run and the host µs."""
     from repro_torch.configs.reckon_braille import QUANT_OPT
     from repro_torch.core.controller import ControllerConfig, OnlineLearner
     from repro_torch.core.rsnn import Presets
@@ -6285,18 +6382,38 @@ def learn_walls(root: Path, dev) -> None:
     cfg = Presets.braille(n_classes=3, num_ticks=T, quantized=True)
     opt = dataclasses.replace(QUANT_OPT, decay_tau=25.0 * data["train"]["events"].shape[0])
     pipe = make_pipeline("arm", data, samples_per_batch=70, device=dev)
-    walls = {}
-    for mode, commit in (("END_S", "sample"), ("END_B", "batch")):
-        learner = OnlineLearner(cfg, ControllerConfig(
-            num_epochs=LEARN_EPOCHS, eval_every=LEARN_EPOCHS, commit=commit),
-            opt, LEARN_SEEDS[0], device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        learner.fit(pipe)
-        torch.cuda.synchronize()
-        walls[mode] = time.perf_counter() - t0
-    print(json.dumps({"tree": str(root), "card": card_line(), "wall_s": walls}),
-          flush=True)
+    runs = {}
+    for seed in LEARN_SEEDS:
+        for mode, commit in (("END_B", "batch"), ("END_S", "sample")):
+            learner = OnlineLearner(cfg, ControllerConfig(
+                num_epochs=LEARN_EPOCHS, eval_every=LEARN_EPOCHS, commit=commit),
+                opt, seed, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learner.fit(pipe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[f"{seed} {mode}"] = {
+                "wall_s": wall, "test_acc": learner.eval_epoch(pipe, 0, "test"),
+                "weights_digest": _digest([learner.weights[k]
+                                           for k in sorted(learner.weights)])}
+    from repro_torch.configs.reckon_braille import CONFIG_QUANT
+    from repro_torch.kernels import eprop_update as E
+
+    host_us = {}
+    for B in (1, 70):
+        _, args, kw = _exact_case(torch.Generator().manual_seed(SEED + 60), CONFIG_QUANT, 128,
+                                  B, dev, "backend")
+        host_us[f"rsnn_train B={B}"] = _host_us(lambda: E.rsnn_train_cuda(*args, **kw))
+    modes = ("END_S", "END_B")
+    print(json.dumps({
+        "tree": str(root), "card": card_line(), "host_us_a_call": host_us,
+        "wall_s": {m: runs[f"{LEARN_SEEDS[0]} {m}"]["wall_s"] for m in modes},
+        "median_wall_s": {m: float(np.median([runs[f"{s} {m}"]["wall_s"]
+                                               for s in LEARN_SEEDS])) for m in modes},
+        "median_test_acc": {m: float(np.median([runs[f"{s} {m}"]["test_acc"]
+                                                 for s in LEARN_SEEDS])) for m in modes},
+        "runs": runs}), flush=True)
 
 
 def main() -> None:

@@ -133,12 +133,13 @@ def _load(path: Path) -> ctypes.CDLL:
         [ptr] * 11 + [i32] * 10 + [ctypes.c_longlong] + [f32] * 7
         + [i32, i32] + surrogate + [ptr])
     # rsnn_train: 7 inputs, 5 traces, g, dw_part, dw, dw_codes, acc_y,
-    # n_spk; T, B, N, H, O, threads, weights_smem, traces_smem, infer_all;
-    # smem bytes; datapath scalars, then the surrogate's four, y_scale,
-    # target_amp, err_softmax, the commit grid's lsb and bits, stream
+    # n_spk; T, B, N, H, O, threads, cluster, ticks, weights_smem,
+    # traces_smem, infer_all; smem bytes; datapath scalars, then the
+    # surrogate's four, y_scale, target_amp, err_softmax, the commit grid's
+    # lsb and bits, the roles' clock buffer, stream
     lib.rsnn_train_launch.argtypes = (
-        [ptr] * 18 + [i32] * 9 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
-        + surrogate + [f32, f32, i32, f32, i32, ptr])
+        [ptr] * 18 + [i32] * 11 + [ctypes.c_longlong] + [f32] * 7 + [i32, i32]
+        + surrogate + [f32, f32, i32, f32, i32, ptr, ptr])
     # rsnn_train_exact: 7 inputs, alpha, dw_part, dw, dw_codes, acc_y,
     # n_spk; T, B, N, H, O, threads, cluster, groups, slots, ticks, inputs,
     # g_in, g_rec, g_out, lines, weights_smem, infer_all; smem bytes; then

@@ -133,8 +133,9 @@ struct RowTraces {
 // argument, so that each kernel compiles only its own stores.
 enum RowOut {
   ROW_COUNT = 0,     // the valid-masked spike count (the serving kernels)
-  ROW_TRACES = 1,    // and the traces h, pbar, zbar over tr, and to copy
-                     // when copy.h is not null (rsnn_train)
+  ROW_TRACES = 1,    // and h over tr.h alone, guarded by h < H (rsnn_train,
+                     // whose helper warps filter pbar and zbar from the
+                     // spike masks off the chain)
   ROW_STREAMS = 2,   // h, pbar, zbar and v to copy only; no count, no
                      // valid read; tr.h holds the input currents (rsnn_forward)
   ROW_EXACT = 3,     // h over tr.h only, every lane's (rows padded to 32*J
@@ -301,11 +302,10 @@ __device__ __forceinline__ float rsnn_readout_sum(const unsigned* m, int J,
 // spike masks (T, J) to `spikes` (the spikes before the live select).
 // OUT (a RowOut): ROW_COUNT and ROW_TRACES add popc(spikes) * valid[t] to
 // c.nspk; ROW_TRACES (rsnn_train) also writes the pseudo-derivative h over
-// tr.h and the pbar, zbar traces (and all three to `copy` when copy.h is
-// not null); ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the
-// post-reset v to `copy` only; ROW_EXACT (rsnn_train_exact) counts as
-// ROW_TRACES and writes h over tr.h alone, unguarded: the caller pads each
-// tick's row to 32*J words, so that no lane branches around its store.
+// tr.h; ROW_STREAMS (rsnn_forward) writes h, pbar, zbar and the post-reset
+// v to `copy` only; ROW_EXACT (rsnn_train_exact) counts as ROW_TRACES and
+// writes h over tr.h unguarded: the caller pads each tick's row to 32*J
+// words, so that no lane branches around its store.
 // LIVE (rsnn_step_sessions): a tick with
 // live[t] == 0 keeps v and z by select.  AVEC (rsnn_train_exact): neuron h
 // leaks, and filters pbar, by its own decay alpha_h[h] instead of p.alpha.
@@ -324,8 +324,6 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int J = (H + 31) / 32;
-  constexpr bool TRACES = OUT != ROW_COUNT;
-  const bool cp = OUT == ROW_STREAMS || (TRACES && copy.h != nullptr);
   float pbar[W], zbar[W], cn[W];
   float al[AVEC ? W : 1];   // AVEC: the lane's neurons' decays
 #pragma unroll
@@ -375,24 +373,22 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
                                : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
           rsnn_put(tr.h, tr.sH, t, h, hb);
         }
-        if (TRACES && OUT != ROW_EXACT) {
+        if (OUT == ROW_TRACES) {
+          const float hb = TRI ? rsnn_triangular(v_pre, p)
+                               : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
+          if (h < H) rsnn_put(tr.h, tr.sH, t, h, hb);
+        }
+        if (OUT == ROW_STREAMS) {
           const float hb = TRI ? rsnn_triangular(v_pre, p)
                                : (fabsf(v_pre - p.v_th) < p.bw_vth ? 1.f : 0.f);
           const float z_prev = (c.z[j] >> lane) & 1u ? 1.f : 0.f;
           pbar[j] = (AVEC ? al[AVEC ? j : 0] : p.alpha) * pbar[j] + z_prev;
           zbar[j] = p.kappa * zbar[j] + zz;
           if (h < H) {
-            if (OUT == ROW_TRACES) {
-              rsnn_put(tr.h, tr.sH, t, h, hb);
-              rsnn_put(tr.pbar, tr.sH, t, h, pbar[j]);
-              rsnn_put(tr.zbar, tr.sH, t, h, zbar[j]);
-            }
-            if (cp) {
-              rsnn_put(copy.h, copy.sH, t, h, hb);
-              rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
-              rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
-            }
-            if (OUT == ROW_STREAMS) rsnn_put(copy.v, copy.sH, t, h, v_new);
+            rsnn_put(copy.h, copy.sH, t, h, hb);
+            rsnn_put(copy.pbar, copy.sH, t, h, pbar[j]);
+            rsnn_put(copy.zbar, copy.sH, t, h, zbar[j]);
+            rsnn_put(copy.v, copy.sH, t, h, v_new);
           }
         }
         if (keep) { c.v[j] = v_new; c.z[j] = m; }
@@ -406,12 +402,11 @@ __device__ __forceinline__ void rsnn_row_lif(RowCarry<W>& c,
 
 // Launch helper shared by every entry point: raises the dynamic
 // shared-memory limit when the block needs more than the 48 KB default,
-// and lowers *threads to what the kernel's registers allow a block
-// (rsnn_train's block strides over any count of at least two warps; the
-// serving and forward launchers refuse a lowered count, since their plan
-// names the threads).  Only the serving kernels carry launch bounds
-// (RsnnServeThreads), for their 1,024-thread blocks: a bound of 1,024 cut
-// rsnn_forward's registers and slowed its chain.
+// and lowers *threads to what the kernel's registers allow a block (every
+// launcher refuses a lowered count, since its plan names the threads).
+// The serving kernels carry launch bounds for their 1,024-thread blocks
+// (RsnnServeThreads), rsnn_train and rsnn_train_exact for their 512; a
+// bound of 1,024 cut rsnn_forward's registers and slowed its chain.
 template <typename Kernel>
 inline int rsnn_prepare_launch(Kernel kernel, size_t smem_bytes,
                                int* threads) {

@@ -3,15 +3,16 @@
 // e-prop, its design in rsnn_train.cuh) run the
 // warp-per-row event loop of rsnn_tick.cuh (the serving kernels run the
 // same loop) and share their forward pieces (rsnn_input_current_items,
-// rsnn_row_lif, rsnn_readout_sum, rsnn_leak_out, rsnn_tick_error);
-// rsnn_train and eprop_update share the reverse device functions
-// (rsnn_f_walk, rsnn_dw_elem).
+// rsnn_row_lif, rsnn_readout_sum, rsnn_leak_out, rsnn_tick_error, and
+// rsnn_train and rsnn_train_exact the mbarrier and cluster pieces);
+// eprop_update and rsnn_train's device-scratch route share the dw rows
+// kernel (rsnn_dw_elem).
 //
 // rsnn_forward_kernel — the trace-streaming forward behind the backend's
 // forward_traces and dynamics ops.  Replaces src/repro/kernels/rsnn_step.py:
 // _kernel and :_forward_dma_kernel (wrapper rsnn_forward).  Writes seven
 // (T, B, .) tensors: z, h, xbar, pbar, zbar, y and the post-reset v.  It is
-// rsnn_train's phases 1-3 without the readout error, for up to 16 rows a
+// rsnn_train's forward without the readout error, for up to 16 rows a
 // block (kernels/rsnn_step.py:forward_plan: one row a block until a batch
 // outgrows the 1,056 one-row blocks the SMs hold at once, then packed as
 // the serving kernels pack theirs): the input currents of every row; then one
@@ -26,25 +27,44 @@
 //
 // rsnn_train_kernel — the fused train op behind ExecutionBackend.train_tile,
 // every END_S and END_B commit.  Replaces src/repro/kernels/eprop_update.py:
-// _train_kernel and :_train_dma_kernel (wrapper rsnn_train).  One block per
-// batch row, in phases separated by block barriers (none inside a tick
-// loop):
-//   1. the warps share the ticks and sum each tick's input current over
-//      its input events (rsnn_input_currents);
-//   2. one warp runs the LIF recurrence through the T ticks on the
-//      warp-per-row event loop of rsnn_tick.cuh (rsnn_row_lif), writing the
-//      h, pbar, zbar traces and the spike masks, while the other warps run
-//      the xbar filter, one thread per input;
-//   3. the readout over all ticks at once (rsnn_row_readout): y_lin per
-//      (tick, output), the LI leak one thread per output (acc_y), the
-//      readout error per tick;
-//   4. the reverse pass: one thread per neuron walks the ticks backwards
-//      through F = err.B_fb^T + kappa*F and stores G = h*F over h; then the
-//      block's threads share the dw elements, each summing its products
-//      over t = T-1..0.
-// Also writes acc_y (B, O) and the valid-masked n_spk (B, 1).  Every sum
-// runs in the order of the contract in rsnn_tick.cuh: in quantized mode
-// acc_y, n_spk and the traces equal the plain version's bit for bit.
+// _train_kernel and :_train_dma_kernel (wrapper rsnn_train).  A batch row
+// runs on a thread-block cluster of 1, 2, 4 or 8 blocks of 512 threads
+// (kernels/rsnn_step.py:train_plan: one block a row at the END_B tile,
+// eight at END_S's one row).  Block 0 of a cluster, the leader, stages
+// the weights, the valid mask and the row's raster, and its warps sum
+// every tick's input current over its input events (rsnn_input_currents;
+// summed beside the chain instead, a tick block ahead of it, they slowed
+// the chain by more than they took before it); then its warps take roles
+// that hand each tick block of `ticks` ticks on through mbarriers (no
+// block barrier inside a tick loop):
+//   warp 0, the LIF chain: rsnn_row_lif<ROW_TRACES> a tick block at a time
+//     from the carries in its registers, writing h and the spike masks
+//     alone, then an arrive on the block's "chained" barrier;
+//   warps 1-2, the readout behind the chain: the block's readout currents,
+//     the LI leak (y and acc_y carried in registers), the readout error
+//     (rsnn_tick_error);
+//   warp 3, the xbar filter, a lane per input, ahead of the chain (in
+//     place over the raster);
+//   warps 5-7, 9-11, 13-15, the pbar and zbar filters behind the chain, a
+//     thread per neuron, from the spike masks; warps 4, 8 and 12 (the
+//     chain's scheduler) stay idle.
+// The other blocks of the cluster mirror the leader's h, pbar, xbar and
+// err a tick block at a time (distributed shared memory, the cluster
+// address from cg::cluster_group::map_shared_rank), once the readout,
+// xbar and filter warps have arrived on their "ready" barrier for it, and
+// sum each block's learning signal l = err.B_fb^T beside the chain.  Then
+// the reverse pass: one thread per neuron walks the ticks backwards
+// through F = l + kappa*F and stores G = h*F over h (rsnn_train_f_walk_l;
+// a one-block row sums l as it walks, rsnn_train_f_walk), and the dw
+// sums (rsnn_train_dw: an element a thread where a block's share fits
+// its threads, else 2 x 2 tiles), each element over t = T-1..0 by one
+// thread: in a cluster the leader sums dw_out (zbar and err, no G)
+// and the other blocks share dw_in and dw_rec.  Every value is the one the
+// contract's order gives, the same operations on the same operands in the
+// same order, so the outputs do not depend on the layout (cluster,
+// ticks).  Also writes acc_y (B, O) and the valid-masked n_spk (B, 1): in
+// quantized mode acc_y, n_spk and the traces equal the plain version's
+// bit for bit.
 //
 // eprop_update — the split reverse pass behind the backend's eprop_update
 // op, over (T, B, .) traces in device memory.  Replaces
@@ -59,33 +79,39 @@
 // snapped to an int32 code and the codes are summed.  Replaces the
 // lax.map of B=1 tiles and the int32 code sum of
 // src/repro/core/backend.py:_train_det_codes / :_train_det_impl.  Each row's
-// partial is that sample's B=1 dw (one block a row; train_plan does not
-// depend on B), and integer addition is associative, so the codes of any
-// split of the rows sum to the codes of the whole batch: a commit does not
-// depend on how many ranks share its batch.
+// partial is that sample's B=1 dw (whatever cluster train_plan gives a row
+// at this B, each element is summed by one thread in the same order), and
+// integer addition is associative, so the codes of any split of the rows
+// sum to the codes of the whole batch: a commit does not depend on how
+// many ranks share its batch.
 //
 // Design.  On the TPU the trace set of a batch tile stays in VMEM.  One
 // row's set takes T*(3H+N+O)*4 bytes: 66 KB at Braille T=128, so it fits
-// the 227 KB a block may hold beside the weights, the valid mask and the
-// spike masks, and every phase works in shared memory (the row's raster is
-// copied in first; the xbar filter turns it into xbar in place, and the
-// input currents are parked in the h slots that the LIF loop overwrites).
-// Where the set does not fit (the 256/256/16 chip-maximum net at T=128
-// takes 532 KB, Braille past T=424), the same phases run on a (T, B, .)
-// scratch in device memory, and the dw sums run as a second kernel over
-// one thread per (dw element, row).  Each row writes its partial dw to its
-// own slice of a (B, E) buffer, and rsnn_dw_reduce_kernel adds the slices
-// in row order: no atomics, two launches give identical bits.
+// the 227 KB a block may hold beside the weights, the barriers, the valid
+// mask and the spike masks, and every role works in shared memory (the
+// row's raster is copied in first; the xbar filter turns it into xbar in
+// place, and the input currents are parked in the h slots that the chain
+// overwrites).  Where the set does not fit (the 256/256/16 chip-maximum
+// net at T=128 takes 532 KB, Braille past T=424), the same roles run on a
+// (T, B, .) scratch in device memory, one block a row, and the dw sums run
+// as a second kernel over one thread per (dw element, row).  Each row
+// writes its partial dw to its own slice of a (B, E) buffer, and
+// rsnn_dw_reduce_kernel adds the slices in row order: no atomics, two
+// launches give identical bits.
 //
 // Bound on the H100: the LIF loop is a serial chain, some hundreds of
 // cycles a tick; its event-driven sums do 2*H multiply-adds per input
 // event and per spike of the last tick, and the readout 2*O per spike
 // (kernels/traffic.py:forward_event_flops); the reverse pass does
 // 2*T*B*(E + H*O) multiply-adds (E = N*H + H*H + H*O) out of shared memory.
-// rsnn_forward's seven streams make it bytes-bound on paper
-// (traffic.forward_traces_bytes), but the chain sets its pace too.  The
-// feedback b_fb is in normalised weight units (the raw w_out or the random
-// B), and the error is taken on y * y_scale (1/threshold in quantized mode).
+// The chain sets the pace when the roles beside it take less time a tick
+// block than it does, and what follows it is short: the F walk (T steps of
+// F's two-operation chain a neuron) and a share of the dw sums.  The
+// roles' clocks (TrainArgs::clocks) show it.  rsnn_forward's seven streams make it
+// bytes-bound on paper (traffic.forward_traces_bytes), but the chain sets
+// its pace too.  The feedback b_fb is in normalised weight units (the raw
+// w_out or the random B), and the error is taken on y * y_scale
+// (1/threshold in quantized mode).
 //
 // Surrogate.  h is the config's pseudo-derivative: the boxcar, or Bellec's
 // triangular (rsnn_tick.cuh:rsnn_triangular), as the reference's scan
@@ -104,7 +130,8 @@
 // The three trace kernels under the boxcar surrogate (the triangular's are
 // in rsnn_train_tri.cu).
 template <int W, bool SMEM_TRACES>
-__global__ void rsnn_train_kernel(TrainArgs a, TickParams p) {
+__global__ void __launch_bounds__(RSNN_TRAIN_THREADS, 1)
+    rsnn_train_kernel(TrainArgs a, TickParams p) {
   rsnn_train_row<W, SMEM_TRACES, false>(a, p);
 }
 
@@ -132,7 +159,7 @@ struct RsnnTraceKernels<false> {
 // The triangular surrogate's dispatch, instantiated in rsnn_train_tri.cu.
 extern template int rsnn_forward_dispatch<true>(const ForwardArgs&, const TickParams&, int,
                                                 size_t, cudaStream_t);
-extern template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int, int,
+extern template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int,
                                               size_t, cudaStream_t);
 extern template int rsnn_train_exact_dispatch<true>(const ExactArgs&, const TickParams&,
                                                     size_t, cudaStream_t);
@@ -262,27 +289,37 @@ extern "C" int rsnn_forward_launch(
              : rsnn_forward_dispatch<false>(a, p, threads, smem, st);
 }
 
-// smem_bytes: the dynamic shared memory of the wrapper's plan
-// (kernels/rsnn_step.py:train_plan); the launch is refused unless it is
-// this kernel's layout for the same choices.  commit_lsb 0 sums the rows'
-// dw in float into dw; commit_lsb > 0 sums their codes on the grid of
-// commit_bits bits and step commit_lsb into dw_codes instead.
+// The plan (threads, cluster, ticks, weights_smem, traces_smem,
+// smem_bytes) is the wrapper's (kernels/rsnn_step.py:train_plan); the
+// launch is refused unless it is a layout of this kernel: its threads, a
+// cluster of 1, 2, 4 or 8 blocks a row (more than one only with the trace
+// set in shared memory, which the other blocks mirror), tick blocks of at
+// least one tick, the shared-memory bytes of those choices.  commit_lsb 0
+// sums the rows' dw in float into dw; commit_lsb > 0 sums their codes on
+// the grid of commit_bits bits and step commit_lsb into dw_codes instead.
+// clocks: null, or where the kernel records its roles' clocks
+// (TrainArgs::clocks).
 extern "C" int rsnn_train_launch(
     const float* raster, const float* y_star, const float* valid,
     const float* w_in, const float* w_rec, const float* w_out,
     const float* b_fb, float* tr_h, float* tr_xbar, float* tr_pbar,
     float* tr_zbar, float* tr_err, float* g, float* dw_part, float* dw,
     int* dw_codes, float* acc_y, float* n_spk, int T, int B, int N, int H,
-    int O, int threads, int weights_smem, int traces_smem, int infer_all,
-    long long smem_bytes, float alpha, float kappa, float v_th,
+    int O, int threads, int cluster, int ticks, int weights_smem, int traces_smem,
+    int infer_all, long long smem_bytes, float alpha, float kappa, float v_th,
     float alpha_c, float kappa_c, float v_lo, float v_hi, int reset_sub,
     int quant, float bw_vth, int tri, float gamma, float inv_vth, float y_scale,
     float target_amp, int err_softmax, float commit_lsb, int commit_bits,
-    void* stream) {
+    long long* clocks, void* stream) {
   const bool grid = commit_lsb > 0.f;
-  if (O > RSNN_MAX_OUT || N > 32 * RSNN_MAX_WORDS || H > 32 * RSNN_MAX_WORDS ||
-      (!traces_smem && !tr_h) || (traces_smem && !weights_smem) || threads < 64 ||
-      (size_t)smem_bytes != rsnn_train_smem_floats(T, N, H, O, weights_smem,
+  if (T < 1 || B < 1 || O < 1 || O > RSNN_MAX_OUT || N < 1 || H < 1 ||
+      N > 32 * RSNN_MAX_WORDS || H > 32 * RSNN_MAX_WORDS ||
+      (!traces_smem && !tr_h) || (traces_smem && !weights_smem) ||
+      threads != RSNN_TRAIN_THREADS ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      (cluster > 1 && !traces_smem) || ticks < 1 ||
+      (long long)B * cluster > 0x7fffffffLL ||
+      (size_t)smem_bytes != rsnn_train_smem_floats(T, N, H, O, ticks, weights_smem,
                                                    traces_smem) * sizeof(float) ||
       (grid ? (!dw_codes || commit_bits < 2 || commit_bits > 24) : !dw)) {
     return (int)cudaErrorInvalidValue;
@@ -291,10 +328,11 @@ extern "C" int rsnn_train_launch(
                quant, bw_vth, y_scale, target_amp, err_softmax, gamma, inv_vth};
   TrainArgs a{raster, y_star, valid, w_in, w_rec, w_out, b_fb, tr_h, tr_xbar,
               tr_pbar, tr_zbar, tr_err, g, dw_part, acc_y, n_spk,
-              T, B, N, H, O, weights_smem, infer_all};
+              T, B, N, H, O, cluster, ticks, weights_smem, infer_all, clocks};
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = tri ? rsnn_train_dispatch<true>(a, p, traces_smem, threads, smem_bytes, st)
-               : rsnn_train_dispatch<false>(a, p, traces_smem, threads, smem_bytes, st);
+  const size_t smem = (size_t)smem_bytes;
+  int rc = tri ? rsnn_train_dispatch<true>(a, p, traces_smem, smem, st)
+               : rsnn_train_dispatch<false>(a, p, traces_smem, smem, st);
   if (rc) return rc;
   if (!traces_smem) {
     rc = rsnn_dw_rows(tr_xbar, tr_pbar, tr_zbar, g, tr_err, dw_part, T, B, N, H,

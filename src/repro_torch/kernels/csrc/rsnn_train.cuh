@@ -1,7 +1,6 @@
-// The device side of the training kernels (rsnn_train.cu): the forward
-// phases rsnn_forward, rsnn_train and rsnn_train_exact share, each kernel's
-// body as a template over the surrogate (TRI), the reverse device functions,
-// and the launch dispatch over W.  Included by rsnn_train.cu (the boxcar
+// The device side of the training kernels (rsnn_train.cu): rsnn_forward's
+// forward phases, each kernel's body as a template over the surrogate
+// (TRI), the reverse device functions, and the launch dispatch over W.  Included by rsnn_train.cu (the boxcar
 // kernels, the reverse kernels and the launchers) and rsnn_train_tri.cu
 // (the triangular surrogate's kernels): the kernels of each surrogate
 // compile in a translation unit of their own.  The design notes are in
@@ -14,9 +13,9 @@
 // Functions that are not templates or inline are static here: each
 // translation unit that includes this header keeps its own copy.
 
-// F over the ticks for neuron h of one row: l = sum_o err(t, o) b_fb[h, o]
-// in o order, F = l + kappa*F, G(t) = h(t) * F, walking t = T-1..0.  In
-// rsnn_train's shared-memory path g aliases h.
+// F over the ticks for neuron h of one row (eprop_update): l = sum_o
+// err(t, o) b_fb[h, o] in o order, F = l + kappa*F, G(t) = h(t) * F,
+// walking t = T-1..0.
 static __device__ void rsnn_f_walk(const float* h, size_t sh, float* g, size_t sg,
                             const float* err, size_t se, const float* b_fb_h,
                             int O, int T, float kappa) {
@@ -102,26 +101,40 @@ struct TrainArgs {
   float* acc_y;          // (B, O)
   float* n_spk;          // (B, 1)
   int T, B, N, H, O;
+  int cluster;           // blocks a row (a thread-block cluster)
+  int ticks;             // ticks a block of the chain
   int weights_smem, infer_all;
+  // null, or (RSNN_TRAIN_CLOCK_ROLES, 2) clock64() readings of row 0's
+  // roles: when each began and ended its work (the time split by role;
+  // nothing else reads them)
+  long long* clocks;
 };
 
-// Dynamic shared memory of one rsnn_train block, in 4-byte words: the
-// row's valid mask (T) and spike masks (T * ceil(H/32)),
-// the weights when they fit, the row's trace set when it fits beside them
-// (kernels/rsnn_step.py:train_plan makes the same choice; the trace set
-// stays on chip only with the weights).
+// The roles whose clocks TrainArgs::clocks records: the leader's setup
+// (staging, the barriers and the input currents), chain, xbar filter,
+// first filter warp and first readout warp; the F walk and the dw sums of the first block
+// that runs them (the leader of a one-block row, else block 1); block 1's
+// mirror of the leader's trace set.
+#define RSNN_TRAIN_CLOCK_ROLES 8
+
+// Dynamic shared memory of one rsnn_train block, in 4-byte words: two
+// mbarriers a tick block of `ticks` ticks, the row's valid mask (T) and
+// spike masks (T * ceil(H/32)), the weights when they fit, the row's
+// trace set when it fits beside them (kernels/rsnn_step.py:train_plan
+// makes the same choice; the trace set stays on chip only with the
+// weights).  Every block of a cluster has the leader's layout.
 __host__ __device__ inline size_t rsnn_train_smem_floats(int T, int N, int H,
-                                                         int O,
+                                                         int O, int ticks,
                                                          int weights_smem,
                                                          int traces_smem) {
   size_t w = weights_smem ? (size_t)N * H + (size_t)H * H + (size_t)H * O : 0;
   size_t tr = traces_smem ? (size_t)T * (3 * (size_t)H + N + O) : 0;
-  return (size_t)T * (1 + (H + 31) / 32) + w + tr;
+  return 4 * (size_t)((T + ticks - 1) / ticks) + (size_t)T * (1 + (H + 31) / 32) + w + tr;
 }
 
-// The forward phases that rsnn_forward and rsnn_train share, besides
-// rsnn_tick.cuh's input sums (rsnn_input_currents), LIF loop (rsnn_row_lif)
-// and leaks (rsnn_leak_out).
+// rsnn_forward's phases besides rsnn_tick.cuh's input sums
+// (rsnn_input_currents), LIF loop (rsnn_row_lif) and leaks
+// (rsnn_leak_out).
 
 // The xbar filter of input k of one row, xbar = alpha*xbar + x over the
 // ticks: x(t, k) at x[t * sx + k], xbar(t, k) to out[t * so + k] (out may
@@ -149,158 +162,6 @@ __device__ __forceinline__ void rsnn_readout_currents(const unsigned* spikes,
   for (int i = threadIdx.x; i < T * O; i += blockDim.x) {
     const int t = i / O, o = i - (i / O) * O;
     rsnn_put(y, sy, t, o, rsnn_readout_sum(spikes + t * J, J, w_out, O, o));
-  }
-}
-
-// rsnn_train's readout of one row over all its ticks, after the LIF loop:
-// the readout currents of every (tick, output) into the err slots
-// (rsnn_readout_currents), one thread per output runs the LI leak through the
-// ticks and adds acc_y, then every tick turns its y into the readout
-// error in place — the contract's operations in its order, the ticks side
-// by side wherever they do not depend on each other.
-static __device__ void rsnn_row_readout(const TrainArgs& a, const TickParams& p,
-                                 const RowTraces& tr, const RowTraces& copy,
-                                 const unsigned* spikes, const float* vs,
-                                 const float* w_out, int b) {
-  const int T = a.T, O = a.O, J = (a.H + 31) / 32;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  rsnn_readout_currents(spikes, J, w_out, T, O, tr.err, tr.sO);
-  __syncthreads();
-  if (tid < O) {
-    float y = 0.f, acc = 0.f;
-    for (int t = 0; t < T; ++t) {
-      float* e = tr.err + (size_t)t * tr.sO + tid;
-      y = rsnn_leak_out(y, *e, p);
-      acc += y * (a.infer_all ? 1.f : vs[t]);
-      *e = y;
-    }
-    a.acc_y[(size_t)b * O + tid] = acc;
-  }
-  __syncthreads();
-  float ys[RSNN_MAX_OUT];
-#pragma unroll
-  for (int o = 0; o < RSNN_MAX_OUT; ++o) {
-    ys[o] = o < O ? a.y_star[(size_t)b * O + o] : 0.f;
-  }
-  for (int t = tid; t < T; t += nth) {
-    float* e = tr.err + (size_t)t * tr.sO;
-    const float vd = vs[t];
-    float u[RSNN_MAX_OUT];
-#pragma unroll
-    for (int o = 0; o < RSNN_MAX_OUT; ++o) u[o] = o < O ? e[o] * p.y_scale : 0.f;
-    float m = u[0];
-#pragma unroll
-    for (int o = 1; o < RSNN_MAX_OUT; ++o) {
-      if (o < O) m = fmaxf(m, u[o]);
-    }
-    if (p.err_softmax) {
-      float sum = 0.f;
-#pragma unroll
-      for (int o = 0; o < RSNN_MAX_OUT; ++o) {
-        if (o < O) {
-          u[o] = expf(u[o] - m);
-          sum += u[o];
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < RSNN_MAX_OUT; ++o) {
-        if (o < O) u[o] = (u[o] / sum - ys[o]) * vd;
-      }
-    } else {
-#pragma unroll
-      for (int o = 0; o < RSNN_MAX_OUT; ++o) {
-        if (o < O) u[o] = (u[o] - p.target_amp * ys[o]) * vd;
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < RSNN_MAX_OUT; ++o) {
-      if (o < O) {
-        e[o] = u[o];
-        if (copy.h) rsnn_put(copy.err, copy.sO, t, o, u[o]);
-      }
-    }
-  }
-}
-
-// One rsnn_train block's work (row blockIdx.x), TRI the surrogate.
-template <int W, bool SMEM_TRACES, bool TRI>
-__device__ __forceinline__ void rsnn_train_row(const TrainArgs& a, const TickParams& p) {
-  extern __shared__ float smem[];
-  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  float* s = smem;
-  float* vs = s;  s += T;
-  unsigned* spikes = reinterpret_cast<unsigned*>(s);  s += (size_t)T * ((H + 31) / 32);
-  const float* w_in = a.w_in;
-  const float* w_rec = a.w_rec;
-  const float* w_out = a.w_out;
-  if (SMEM_TRACES || a.weights_smem) {
-    float* wi = s;  s += N * H;
-    float* wr = s;  s += H * H;
-    float* wo = s;  s += H * O;
-    for (int i = tid; i < N * H; i += nth) wi[i] = a.w_in[i];
-    for (int i = tid; i < H * H; i += nth) wr[i] = a.w_rec[i];
-    for (int i = tid; i < H * O; i += nth) wo[i] = a.w_out[i];
-    w_in = wi; w_rec = wr; w_out = wo;
-  }
-  for (int t = tid; t < T; t += nth) vs[t] = a.valid[(size_t)t * B + b];
-  RowTraces dev{};   // row b of the device traces, where there are any
-  if (a.tr_h) {
-    dev = RowTraces{a.tr_h + (size_t)b * H, a.tr_xbar + (size_t)b * N,
-                    a.tr_pbar + (size_t)b * H, a.tr_zbar + (size_t)b * H,
-                    a.tr_err + (size_t)b * O, (size_t)B * H, (size_t)B * N,
-                    (size_t)B * O};
-  }
-  RowTraces tr, copy{};
-  const float* x;   // x(t, k) at x[t * sx + k]
-  size_t sx;
-  if (SMEM_TRACES) {
-    tr = RowTraces{s, s + 3 * (size_t)T * H, s + (size_t)T * H,
-                   s + 2 * (size_t)T * H, s + (size_t)T * (3 * H + N),
-                   (size_t)H, (size_t)N, (size_t)O};
-    // the row's raster, which the xbar walk below turns into xbar in place
-    for (int i = tid; i < T * N; i += nth) {
-      tr.xbar[i] = a.raster[((size_t)(i / N) * B + b) * N + i % N];
-    }
-    copy = dev;
-    x = tr.xbar; sx = N;
-  } else {
-    tr = dev;
-    x = a.raster + (size_t)b * N; sx = (size_t)B * N;
-  }
-  __syncthreads();
-  rsnn_input_currents<W>(x, sx, w_in, tr.h, tr.sH, T, N, H);
-  __syncthreads();
-  if (tid < 32) {
-    RowCarry<W> c;
-    rsnn_carry_zero(c);
-    rsnn_row_lif<W, ROW_TRACES, false, false, TRI>(c, tr, copy, w_rec, vs, nullptr, spikes,
-                                                   T, H, p);
-    if (tid == 0) a.n_spk[b] = c.nspk;
-  } else {
-    // xbar = alpha * xbar + x over the ticks, one thread per input
-    for (int k = tid - 32; k < N; k += nth - 32) {
-      rsnn_xbar_walk(x, sx, tr.xbar, tr.sN, copy.xbar, copy.sN, copy.h != nullptr,
-                     k, T, p.alpha);
-    }
-  }
-  __syncthreads();
-  rsnn_row_readout(a, p, tr, copy, spikes, vs, w_out, b);
-  __syncthreads();
-
-  float* g = SMEM_TRACES ? tr.h : a.g + (size_t)b * H;
-  const size_t sg = SMEM_TRACES ? (size_t)H : (size_t)B * H;
-  for (int h = tid; h < H; h += nth) {
-    rsnn_f_walk(tr.h + h, tr.sH, g + h, sg, tr.err, tr.sO, a.b_fb + (size_t)h * O,
-                O, T, p.kappa);
-  }
-  if (SMEM_TRACES) {
-    __syncthreads();
-    const RowGrad r{tr.xbar, tr.sN, tr.pbar, tr.zbar, tr.sH, g, sg, tr.err, tr.sO};
-    const int e_all = N * H + H * H + H * O;
-    float* part = a.dw_part + (size_t)b * e_all;
-    for (int e = tid; e < e_all; e += nth) part[e] = rsnn_dw_elem(r, e, N, H, O, T);
   }
 }
 
@@ -475,9 +336,9 @@ __device__ __forceinline__ void rsnn_mbar_wait(unsigned long long* b, unsigned p
 }
 
 // The readout error of one tick over its O <= NO outputs, in place at
-// e[o], from the tick's valid mask vd and the one-hot target ys, with
-// rsnn_row_readout's operations in its order: softmax(y*s) - y* or y*s -
-// amp*y*, times vd.  NO bounds the unrolled loops (4, 8 or RSNN_MAX_OUT).
+// e[o], from the tick's valid mask vd and the one-hot target ys, in the
+// contract's order (rsnn_tick.cuh): softmax(y*s) - y* or y*s - amp*y*,
+// times vd.  NO bounds the unrolled loops (4, 8 or RSNN_MAX_OUT).
 template <int NO>
 __device__ __forceinline__ void rsnn_tick_error(float* e, float vd,
                                                 const float (&ys)[RSNN_MAX_OUT],
@@ -919,6 +780,552 @@ __device__ __forceinline__ void rsnn_train_exact_row(const ExactArgs& a, const T
   cluster.sync();
 }
 
+// ---------------------------------------------------------------------------
+// rsnn_train: factored e-prop (the design notes are in rsnn_train.cu)
+// ---------------------------------------------------------------------------
+
+// The block's threads, its readout warps and the warp of the xbar filter
+// (kernels/rsnn_step.py:train_plan names the same numbers).  The warps
+// after the xbar warp filter pbar and zbar, one thread a neuron (288
+// threads: every neuron of the chip's 256), but for those that share the
+// chain's scheduler (warp % 4 == 0, as warp 0), which stay idle while the
+// chain runs.
+#define RSNN_TRAIN_THREADS 512
+#define RSNN_TRAIN_READOUT_WARPS 2
+#define RSNN_TRAIN_XBAR_WARP (RSNN_TRAIN_READOUT_WARPS + 1)
+
+// Warp w's index among the filter warps, or -1.
+__host__ __device__ inline int rsnn_train_filter_warp(int w) {
+  if (w <= RSNN_TRAIN_XBAR_WARP || (w & 3) == 0) return -1;
+  int n = 0;
+  for (int i = RSNN_TRAIN_XBAR_WARP + 1; i < w; ++i) n += (i & 3) != 0;
+  return n;
+}
+
+// The leader's warps that hand a tick block on to the other blocks of the
+// cluster: the readout, the xbar and the filter warps.
+__host__ __device__ inline int rsnn_train_arrivals(int nwarps) {
+  int n = RSNN_TRAIN_READOUT_WARPS + 1;
+  for (int w = RSNN_TRAIN_XBAR_WARP + 1; w < nwarps; ++w) n += (w & 3) != 0;
+  return n;
+}
+
+// F over the ticks for neuron h of one row, rsnn_f_walk's operations in
+// its order (l = sum_o err(t, o) b_fb[h, o] in o order, F = l + kappa*F,
+// G(t) = h(t) * F, t = T-1..0), with the feedback row in registers for
+// O <= NO (4, 8 or RSNN_MAX_OUT), RSNN_TRAIN_WALK_TICKS ticks at a time:
+// their loads and their sums of l before F's chain through them (G may
+// overwrite h, so a load after a store would wait for it).
+#define RSNN_TRAIN_WALK_TICKS 8
+template <int NO>
+__device__ __forceinline__ void rsnn_train_f_walk(const float* h, size_t sh, float* g,
+                                                  size_t sg, const float* err, size_t se,
+                                                  const float* b_fb_h, int O, int T,
+                                                  float kappa) {
+  constexpr int U = RSNN_TRAIN_WALK_TICKS;
+  float bf[NO];
+#pragma unroll
+  for (int o = 0; o < NO; ++o) bf[o] = o < O ? b_fb_h[o] : 0.f;
+  float f = 0.f;
+  for (int t1 = T - 1; t1 >= 0; t1 -= U) {
+    float l[U], hv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = max(t1 - u, 0);
+      const float* e = err + (size_t)t * se;
+      float s = 0.f;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        if (o < O) s += e[o] * bf[o];
+      }
+      l[u] = s;
+      hv[u] = h[(size_t)t * sh];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t1 - u >= 0) {
+        f = l[u] + kappa * f;
+        g[(size_t)(t1 - u) * sg] = hv[u] * f;
+      }
+    }
+  }
+}
+
+// The tiles of one row's dw sums: RT x CT elements each, rows r, r + RN,
+// ... and columns c, c + CN, ... (RN, CN the rows and columns over RT and
+// CT, rounded up), first of dw_in/dw_rec (rows the N inputs, then the H
+// presynaptic neurons; columns the H neurons: xbar or pbar against G),
+// then of dw_out (rows the H neurons, columns the O outputs: zbar against
+// err).  rsnn_train_dw_tiles<RT, CT>(N, H, O, false) counts the first
+// kind, (..., true) both.
+template <int RT, int CT>
+__host__ __device__ inline int rsnn_train_dw_tiles(int N, int H, int O, bool out) {
+  const int m1 = (N + H + RT - 1) / RT * ((H + CT - 1) / CT);
+  return out ? m1 + (H + RT - 1) / RT * ((O + CT - 1) / CT) : m1;
+}
+
+// The dw sums of tiles lo..hi-1 of one row over its trace set in shared
+// memory, the block's threads sharing them.  Each element is
+// rsnn_dw_elem's sum, its products added over t = T-1..0 by one thread; a
+// tile's sums share their loads.
+template <int RT, int CT>
+__device__ __forceinline__ void rsnn_train_dw(const RowGrad& r, float* part, int N, int H,
+                                              int O, int T, int lo, int hi) {
+  const int m1 = rsnn_train_dw_tiles<RT, CT>(N, H, O, false);
+  for (int it = lo + (int)threadIdx.x; it < hi; it += blockDim.x) {
+    const bool in = it < m1;
+    const int rows = in ? N + H : H, cols = in ? H : O;
+    const int RN = (rows + RT - 1) / RT, CN = (cols + CT - 1) / CT;
+    const int i = in ? it : it - m1, ri = i / CN, ci = i - ri * CN;
+    const size_t base = in ? 0 : (size_t)(N + H) * H;
+    const float* a[RT];
+    const float* bb[CT];
+    size_t sa[RT];
+    const size_t sb = in ? r.sG : r.sO;
+#pragma unroll
+    for (int p = 0; p < RT; ++p) {
+      const int row = min(ri + p * RN, rows - 1);
+      a[p] = !in ? r.zbar + row : row < N ? r.xbar + row : r.pbar + (row - N);
+      sa[p] = in && row < N ? r.sN : r.sH;
+    }
+#pragma unroll
+    for (int q = 0; q < CT; ++q) bb[q] = (in ? r.g : r.err) + min(ci + q * CN, cols - 1);
+    float acc[RT][CT];
+#pragma unroll
+    for (int p = 0; p < RT; ++p) {
+#pragma unroll
+      for (int q = 0; q < CT; ++q) acc[p][q] = 0.f;
+    }
+#pragma unroll 4
+    for (int t = T - 1; t >= 0; --t) {
+      float xv[RT], yv[CT];
+#pragma unroll
+      for (int p = 0; p < RT; ++p) xv[p] = a[p][(size_t)t * sa[p]];
+#pragma unroll
+      for (int q = 0; q < CT; ++q) yv[q] = bb[q][(size_t)t * sb];
+#pragma unroll
+      for (int p = 0; p < RT; ++p) {
+#pragma unroll
+        for (int q = 0; q < CT; ++q) acc[p][q] += xv[p] * yv[q];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < RT; ++p) {
+#pragma unroll
+      for (int q = 0; q < CT; ++q) {
+        const int row = ri + p * RN, col = ci + q * CN;
+        if (row < rows && col < cols) part[base + (size_t)row * cols + col] = acc[p][q];
+      }
+    }
+  }
+}
+
+// rsnn_train_dw over this block's share w of nw of the tiles of the first
+// kind (dw_in/dw_rec), of both (all), or of the second (dw_out): one
+// element a tile where the share has no more elements than the block has
+// threads, else 2 x 2.
+__device__ __forceinline__ void rsnn_train_dw_share(const RowGrad& r, float* part, int N,
+                                                    int H, int O, int T, bool first,
+                                                    bool second, int w, int nw) {
+  const int e1 = (N + H) * H, e2 = H * O;
+  const int elems = ((first ? e1 : 0) + (second ? e2 : 0)) / nw;
+  if (elems <= (int)blockDim.x) {
+    const int m1 = rsnn_train_dw_tiles<1, 1>(N, H, O, false);
+    const int lo = first ? 0 : m1, hi = second ? rsnn_train_dw_tiles<1, 1>(N, H, O, true) : m1;
+    rsnn_train_dw<1, 1>(r, part, N, H, O, T, lo + (int)((long long)(hi - lo) * w / nw),
+                        lo + (int)((long long)(hi - lo) * (w + 1) / nw));
+  } else {
+    const int m1 = rsnn_train_dw_tiles<2, 2>(N, H, O, false);
+    const int lo = first ? 0 : m1, hi = second ? rsnn_train_dw_tiles<2, 2>(N, H, O, true) : m1;
+    rsnn_train_dw<2, 2>(r, part, N, H, O, T, lo + (int)((long long)(hi - lo) * w / nw),
+                        lo + (int)((long long)(hi - lo) * (w + 1) / nw));
+  }
+}
+
+// rsnn_train_f_walk at the launch's outputs (O <= 4, 8 or RSNN_MAX_OUT).
+__device__ __forceinline__ void rsnn_train_f_walk_o(const float* h, size_t sh, float* g,
+                                                    size_t sg, const float* err, size_t se,
+                                                    const float* b_fb_h, int O, int T,
+                                                    float kappa) {
+  if (O <= 4) {
+    rsnn_train_f_walk<4>(h, sh, g, sg, err, se, b_fb_h, O, T, kappa);
+  } else if (O <= 8) {
+    rsnn_train_f_walk<8>(h, sh, g, sg, err, se, b_fb_h, O, T, kappa);
+  } else {
+    rsnn_train_f_walk<RSNN_MAX_OUT>(h, sh, g, sg, err, se, b_fb_h, O, T, kappa);
+  }
+}
+
+// The learning signal of one tick for a neuron, l = sum_o err(o) b_fb[o]
+// in o order (rsnn_f_walk's sum), O <= NO (4, 8 or RSNN_MAX_OUT).
+template <int NO>
+__device__ __forceinline__ float rsnn_train_signal(const float* e, const float* bf, int O) {
+  float s = 0.f;
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+    if (o < O) s += e[o] * bf[o];
+  }
+  return s;
+}
+
+// rsnn_train_f_walk over a learning signal already summed: l(t) at
+// l[t * H], h(t) at h[t * H], G(t) to g[t * H] (g may be h), t = T-1..0,
+// RSNN_TRAIN_WALK_TICKS ticks' loads before F's chain through them.
+__device__ __forceinline__ void rsnn_train_f_walk_l(const float* h, const float* l, float* g,
+                                                    int H, int T, float kappa) {
+  constexpr int U = RSNN_TRAIN_WALK_TICKS;
+  float f = 0.f;
+  int t1 = T - 1;
+  for (; t1 >= U - 1; t1 -= U) {
+    float lv[U], hv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      lv[u] = l[(t1 - u) * H];
+      hv[u] = h[(t1 - u) * H];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      f = lv[u] + kappa * f;
+      g[(t1 - u) * H] = hv[u] * f;
+    }
+  }
+  for (; t1 >= 0; --t1) {
+    f = l[t1 * H] + kappa * f;
+    g[t1 * H] = h[t1 * H] * f;
+  }
+}
+
+// One rsnn_train block's work: block `rank` of row blockIdx.x / cluster,
+// TRI the surrogate.  Block 0 of the cluster, the leader, runs the
+// forward; the others mirror its trace set a tick block at a time; then
+// the reverse pass (rsnn_train.cu has the design).
+template <int W, bool SMEM_TRACES, bool TRI>
+__device__ __forceinline__ void rsnn_train_row(const TrainArgs& a, const TickParams& p) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int T = a.T, B = a.B, N = a.N, H = a.H, O = a.O, J = (H + 31) / 32;
+  const int C = a.cluster, tb = a.ticks, nblk = (T + tb - 1) / tb;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x, nth = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int nwarps = nth >> 5;
+  // block k of the chain done (the leader's); block k's traces complete in
+  // the leader's shared memory (the other blocks')
+  unsigned long long* chained = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* ready = chained + nblk;
+  float* s = smem + 4 * (size_t)nblk;
+  float* vs = s;  s += T;
+  unsigned* spikes = reinterpret_cast<unsigned*>(s);  s += (size_t)T * J;
+  const bool staged = SMEM_TRACES || a.weights_smem;
+  const int nw = staged ? N * H + H * H + H * O : 0;
+  float* wi = s;   // w_in, w_rec, w_out when staged; b_fb in the other blocks
+  s += nw;
+  const float* w_in = staged ? wi : a.w_in;
+  const float* w_rec = staged ? wi + (size_t)N * H : a.w_rec;
+  const float* w_out = staged ? wi + (size_t)N * H + (size_t)H * H : a.w_out;
+  RowTraces dev{};   // row b of the device traces, where there are any
+  if (a.tr_h) {
+    dev = RowTraces{a.tr_h + (size_t)b * H, a.tr_xbar + (size_t)b * N,
+                    a.tr_pbar + (size_t)b * H, a.tr_zbar + (size_t)b * H,
+                    a.tr_err + (size_t)b * O, (size_t)B * H, (size_t)B * N,
+                    (size_t)B * O};
+  }
+  RowTraces tr, copy{};
+  const float* x;   // x(t, k) at x[t * sx + k]
+  size_t sx;
+  if (SMEM_TRACES) {
+    tr = RowTraces{s, s + 3 * (size_t)T * H, s + (size_t)T * H,
+                   s + 2 * (size_t)T * H, s + (size_t)T * (3 * H + N),
+                   (size_t)H, (size_t)N, (size_t)O};
+    copy = dev;
+    x = tr.xbar; sx = N;
+  } else {
+    tr = dev;
+    x = a.raster + (size_t)b * N; sx = (size_t)B * N;
+  }
+  // role r's clock at its start (end 0) or end (end 1), row 0 only; the
+  // tail's readings: the mirror's start and end, the F walk's start and
+  // end, the dw sums' end
+  long long* clocks = a.clocks && b == 0 ? a.clocks : nullptr;
+  long long tail[5] = {0, 0, 0, 0, 0};
+  auto mark = [&](int r, int end) {
+    if (clocks) clocks[r * 2 + end] = clock64();
+  };
+  if (rank == 0) {
+    if (tid == 0) mark(0, 0);
+    // the weights, the valid mask and (on chip) the raster, whose xbar
+    // filter turns it into xbar in place: eight loads of a thread in
+    // flight before its stores
+    const int total = nw + T + (SMEM_TRACES ? T * N : 0);
+    for (int i0 = tid; i0 < total; i0 += 8 * nth) {
+      float v[8];
+      float* at[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = min(i0 + u * nth, total - 1);
+        const float* src;
+        if (i < nw) {
+          src = i < N * H ? a.w_in + i
+                : i < N * H + H * H ? a.w_rec + (i - N * H) : a.w_out + (i - N * H - H * H);
+          at[u] = wi + i;
+        } else if (i < nw + T) {
+          src = a.valid + (size_t)(i - nw) * B + b;
+          at[u] = vs + (i - nw);
+        } else {
+          const int j = i - nw - T, t = j / N;
+          src = a.raster + ((size_t)t * B + b) * N + (j - t * N);
+          at[u] = tr.xbar + j;
+        }
+        v[u] = *src;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) *at[u] = v[u];
+    }
+  } else {
+    // b_fb for the learning signal the other blocks sum
+    for (int i = tid; i < H * O; i += nth) wi[i] = a.b_fb[i];
+  }
+  for (int k = tid; k < nblk; k += nth) {
+    rsnn_mbar_init(&chained[k], 1);
+    rsnn_mbar_init(&ready[k], rsnn_train_arrivals(nwarps));
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+  // every block's barriers initialized before the first remote arrive (the
+  // waits below, before the first remote operation of each thread).  The
+  // cluster barrier counts threads: each arrives and waits twice, at
+  // points where its warp has reconverged.
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+
+  if (rank == 0) {
+    // the input currents of every tick, parked in the h slots, by all warps
+    // before the chain starts (summed beside the chain they slowed it)
+    rsnn_input_currents<W>(x, sx, w_in, tr.h, tr.sH, T, N, H);
+    __syncthreads();
+    const int fw = rsnn_train_filter_warp(warp);
+    if (warp != 0) asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+    if (warp == 0) {
+      // the LIF chain, a tick block at a time: h and the spike masks
+      if (lane == 0) {
+        mark(0, 1);
+        mark(1, 0);
+      }
+      RowCarry<W> c;
+      rsnn_carry_zero(c);
+      for (int k = 0; k < nblk; ++k) {
+        const int t0 = k * tb;
+        const RowTraces tk{tr.h + (size_t)t0 * tr.sH, nullptr, nullptr, nullptr, nullptr,
+                           tr.sH, 0, 0};
+        rsnn_row_lif<W, ROW_TRACES, false, false, TRI>(c, tk, RowTraces{}, w_rec, vs + t0,
+                                                       nullptr, spikes + (size_t)t0 * J,
+                                                       min(tb, T - t0), H, p);
+        __syncwarp();
+        if (lane == 0) rsnn_mbar_arrive(&chained[k]);
+      }
+      if (lane == 0) {
+        a.n_spk[b] = c.nspk;
+        mark(1, 1);
+      }
+      __syncwarp();
+      asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+    } else if (warp <= RSNN_TRAIN_READOUT_WARPS) {
+      // the readout behind the chain: the readout currents of the block's
+      // (tick, output) items, the LI leak (y and acc_y carried in
+      // registers), the readout error
+      const int rt = tid - 32, nrt = 32 * RSNN_TRAIN_READOUT_WARPS;
+      float ys[RSNN_MAX_OUT];
+#pragma unroll
+      for (int o = 0; o < RSNN_MAX_OUT; ++o) ys[o] = o < O ? a.y_star[(size_t)b * O + o] : 0.f;
+      float y = 0.f, acc = 0.f;
+      for (int k = 0; k < nblk; ++k) {
+        const int t0 = k * tb, n = min(tb, T - t0);
+        float* eb = tr.err + (size_t)t0 * tr.sO;
+        rsnn_mbar_wait<false>(&chained[k], 0);
+        if (k == 0 && rt == 0) mark(4, 0);
+        for (int i = rt; i < n * O; i += nrt) {
+          const int t = i / O, o = i - t * O;
+          eb[(size_t)t * tr.sO + o] = rsnn_readout_sum(spikes + (size_t)(t0 + t) * J, J, w_out,
+                                                       O, o);
+        }
+        asm volatile("bar.sync 1, %0;" ::"r"(nrt) : "memory");
+        if (rt < O) {
+          for (int t = 0; t < n; ++t) {
+            float* e = eb + (size_t)t * tr.sO + rt;
+            y = rsnn_leak_out(y, *e, p);
+            acc += y * (a.infer_all ? 1.f : vs[t0 + t]);
+            *e = y;
+          }
+        }
+        asm volatile("bar.sync 1, %0;" ::"r"(nrt) : "memory");
+        for (int t = rt; t < n; t += nrt) {
+          float* e = eb + (size_t)t * tr.sO;
+          if (O <= 4) {
+            rsnn_tick_error<4>(e, vs[t0 + t], ys, p, O);
+          } else if (O <= 8) {
+            rsnn_tick_error<8>(e, vs[t0 + t], ys, p, O);
+          } else {
+            rsnn_tick_error<RSNN_MAX_OUT>(e, vs[t0 + t], ys, p, O);
+          }
+          if (copy.h) {
+            for (int o = 0; o < O; ++o) rsnn_put(copy.err, copy.sO, t0 + t, o, e[o]);
+          }
+        }
+        __syncwarp();
+        if (lane > 0 && lane < C) rsnn_mbar_arrive_at(&ready[k], lane);
+      }
+      if (rt < O) a.acc_y[(size_t)b * O + rt] = acc;
+      if (rt == 0) mark(4, 1);
+    } else if (warp == RSNN_TRAIN_XBAR_WARP) {
+      // xbar = alpha * xbar + x, a lane per input (in place in the shared
+      // trace set), ahead of the chain
+      if (lane == 0) mark(2, 0);
+      float xb[W];
+#pragma unroll
+      for (int q = 0; q < W; ++q) xb[q] = 0.f;
+      for (int k = 0; k < nblk; ++k) {
+        const int t0 = k * tb, n = min(tb, T - t0);
+#pragma unroll
+        for (int q = 0; q < W; ++q) {
+          const int i = lane + 32 * q;
+          if (i < N) {
+            for (int t = t0; t < t0 + n; ++t) {
+              xb[q] = p.alpha * xb[q] + x[(size_t)t * sx + i];
+              rsnn_put(tr.xbar, tr.sN, t, i, xb[q]);
+              if (copy.h) rsnn_put(copy.xbar, copy.sN, t, i, xb[q]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane > 0 && lane < C) rsnn_mbar_arrive_at(&ready[k], lane);
+      }
+      if (lane == 0) mark(2, 1);
+    } else if (fw >= 0) {
+      // pbar = alpha*pbar + z(t - 1), zbar = kappa*zbar + z(t) behind the
+      // chain, a thread per neuron, from the spike masks
+      const int h = 32 * fw + lane;
+      float pb = 0.f, zb = 0.f, zp = 0.f;
+      for (int k = 0; k < nblk; ++k) {
+        const int t0 = k * tb, n = min(tb, T - t0);
+        rsnn_mbar_wait<false>(&chained[k], 0);
+        if (k == 0 && fw == 0 && lane == 0) mark(3, 0);
+        if (h < H) {
+          for (int t = t0; t < t0 + n; ++t) {
+            const float z = (spikes[(size_t)t * J + (h >> 5)] >> (h & 31)) & 1u ? 1.f : 0.f;
+            pb = p.alpha * pb + zp;
+            zb = p.kappa * zb + z;
+            zp = z;
+            rsnn_put(tr.pbar, tr.sH, t, h, pb);
+            rsnn_put(tr.zbar, tr.sH, t, h, zb);
+            if (copy.h) {
+              rsnn_put(copy.h, copy.sH, t, h, tr.h[(size_t)t * tr.sH + h]);
+              rsnn_put(copy.pbar, copy.sH, t, h, pb);
+              rsnn_put(copy.zbar, copy.sH, t, h, zb);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane > 0 && lane < C) rsnn_mbar_arrive_at(&ready[k], lane);
+      }
+      if (fw == 0 && lane == 0) mark(3, 1);
+    }
+    __syncthreads();
+  } else if (SMEM_TRACES) {
+    // mirror the leader's trace set, a tick block at a time as its roles
+    // finish it: the block's rows of h, pbar, xbar and err (not zbar: the
+    // leader sums dw_out), four loads of a thread in flight before its
+    // stores; then the block's learning signal l into the zbar slots
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+    const float* lead = cluster.map_shared_rank(tr.h, 0);
+    const int TH = T * H;
+    for (int k = 0; k < nblk; ++k) {
+      const int t0 = k * tb, n = min(tb, T - t0), nH = n * H;
+      const int total = 2 * nH + n * N + n * O;
+      rsnn_mbar_wait<true>(&ready[k], 0);
+      if (k == 0) tail[0] = clock64();
+      for (int i0 = tid; i0 < total; i0 += 4 * nth) {
+        int at[4];
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = min(i0 + u * nth, total - 1);
+          at[u] = i < nH         ? t0 * H + i
+                  : i < 2 * nH   ? TH + t0 * H + (i - nH)
+                  : i < 2 * nH + n * N ? 3 * TH + t0 * N + (i - 2 * nH)
+                                 : 3 * TH + T * N + t0 * O + (i - 2 * nH - n * N);
+          v[u] = lead[at[u]];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) tr.h[at[u]] = v[u];
+      }
+      __syncthreads();
+      for (int i = tid; i < nH; i += nth) {
+        const int t = t0 + i / H, j = i % H;
+        const float* e = tr.err + t * O;
+        const float* bf = wi + j * O;
+        tr.zbar[t * H + j] = O <= 4   ? rsnn_train_signal<4>(e, bf, O)
+                             : O <= 8 ? rsnn_train_signal<8>(e, bf, O)
+                                      : rsnn_train_signal<RSNN_MAX_OUT>(e, bf, O);
+      }
+    }
+    __syncthreads();
+    tail[1] = clock64();
+  }
+
+  // the reverse pass.  One block a row runs all of it: the F walk, then the
+  // dw sums.  In a cluster the leader sums dw_out (no G) while the other
+  // blocks walk F over their copies and share dw_in and dw_rec.
+  float* part = a.dw_part + (size_t)b * ((size_t)(N + H) * H + (size_t)H * O);
+  if (C == 1 || rank > 0) {
+    tail[2] = clock64();
+    float* g = SMEM_TRACES ? tr.h : a.g + (size_t)b * H;
+    const size_t sg = SMEM_TRACES ? (size_t)H : (size_t)B * H;
+    for (int h = tid; h < H; h += nth) {
+      if (C > 1) {
+        rsnn_train_f_walk_l(tr.h + h, tr.zbar + h, g + h, H, T, p.kappa);
+      } else {
+        rsnn_train_f_walk_o(tr.h + h, tr.sH, g + h, sg, tr.err, tr.sO, a.b_fb + (size_t)h * O,
+                            O, T, p.kappa);
+      }
+    }
+    if (SMEM_TRACES) {
+      __syncthreads();
+      tail[3] = clock64();
+      const RowGrad r{tr.xbar, tr.sN, tr.pbar, tr.zbar, tr.sH, g, sg, tr.err, tr.sO};
+      rsnn_train_dw_share(r, part, N, H, O, T, true, C == 1, C == 1 ? 0 : rank - 1,
+                          C == 1 ? 1 : C - 1);
+    } else {
+      tail[3] = clock64();
+    }
+  } else {
+    const RowGrad r{tr.xbar, tr.sN, tr.pbar, tr.zbar, tr.sH, nullptr, 0, tr.err, tr.sO};
+    rsnn_train_dw_share(r, part, N, H, O, T, false, true, 0, 1);
+  }
+  // no block leaves while another may still read its shared memory
+  if (C > 1 || clocks) __syncthreads();
+  tail[4] = clock64();
+  if (C > 1) {
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  }
+  // the tail's clocks, written once the block's work is done (stores to
+  // the clock buffer between a worker's phases changed its results): the
+  // first block that walks F records the F walk and the dw sums, block 1
+  // its mirror
+  if (clocks && tid == 0 && (C == 1 || rank == 1)) {
+    clocks[5 * 2] = tail[2];
+    clocks[5 * 2 + 1] = tail[3];
+    if (SMEM_TRACES) {
+      clocks[6 * 2] = tail[3];
+      clocks[6 * 2 + 1] = tail[4];
+    }
+    if (rank == 1) {
+      clocks[7 * 2] = tail[0];
+      clocks[7 * 2 + 1] = tail[1];
+    }
+  }
+}
+
 struct ForwardArgs {
   const float* raster;   // (T, B, N)
   const float* w_in;     // (N, H)
@@ -1096,36 +1503,50 @@ int rsnn_forward_dispatch(const ForwardArgs& a, const TickParams& p, int threads
 }
 
 template <bool TRI, int W, bool SMEM_TRACES>
-static int rsnn_train_launch_w(const TrainArgs& a, const TickParams& p, int threads,
-                               size_t smem, cudaStream_t stream) {
+static int rsnn_train_launch_w(const TrainArgs& a, const TickParams& p, size_t smem,
+                               cudaStream_t stream) {
   const auto kernel = RsnnTraceKernels<TRI>::template train<W, SMEM_TRACES>();
+  int threads = RSNN_TRAIN_THREADS;
   int rc = rsnn_prepare_launch(kernel, smem, &threads);
   if (rc) return rc;
-  kernel<<<a.B, threads, smem, stream>>>(a, p);
-  return (int)cudaGetLastError();
+  if (threads != RSNN_TRAIN_THREADS) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.B * a.cluster));
+  cfg.blockDim = dim3(RSNN_TRAIN_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, a, p);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 template <bool TRI, bool SMEM_TRACES>
-static int rsnn_train_launch_s(const TrainArgs& a, const TickParams& p, int threads,
-                               size_t smem, cudaStream_t stream) {
+static int rsnn_train_launch_s(const TrainArgs& a, const TickParams& p, size_t smem,
+                               cudaStream_t stream) {
   switch ((max(a.N, a.H) + 31) / 32) {
-    case 1: return rsnn_train_launch_w<TRI, 1, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 2: return rsnn_train_launch_w<TRI, 2, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 3: return rsnn_train_launch_w<TRI, 3, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 4: return rsnn_train_launch_w<TRI, 4, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 5: return rsnn_train_launch_w<TRI, 5, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 6: return rsnn_train_launch_w<TRI, 6, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 7: return rsnn_train_launch_w<TRI, 7, SMEM_TRACES>(a, p, threads, smem, stream);
-    case 8: return rsnn_train_launch_w<TRI, 8, SMEM_TRACES>(a, p, threads, smem, stream);
+    case 1: return rsnn_train_launch_w<TRI, 1, SMEM_TRACES>(a, p, smem, stream);
+    case 2: return rsnn_train_launch_w<TRI, 2, SMEM_TRACES>(a, p, smem, stream);
+    case 3: return rsnn_train_launch_w<TRI, 3, SMEM_TRACES>(a, p, smem, stream);
+    case 4: return rsnn_train_launch_w<TRI, 4, SMEM_TRACES>(a, p, smem, stream);
+    case 5: return rsnn_train_launch_w<TRI, 5, SMEM_TRACES>(a, p, smem, stream);
+    case 6: return rsnn_train_launch_w<TRI, 6, SMEM_TRACES>(a, p, smem, stream);
+    case 7: return rsnn_train_launch_w<TRI, 7, SMEM_TRACES>(a, p, smem, stream);
+    case 8: return rsnn_train_launch_w<TRI, 8, SMEM_TRACES>(a, p, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <bool TRI>
 int rsnn_train_dispatch(const TrainArgs& a, const TickParams& p, int traces_smem,
-                        int threads, size_t smem, cudaStream_t st) {
-  return traces_smem ? rsnn_train_launch_s<TRI, true>(a, p, threads, smem, st)
-                     : rsnn_train_launch_s<TRI, false>(a, p, threads, smem, st);
+                        size_t smem, cudaStream_t st) {
+  return traces_smem ? rsnn_train_launch_s<TRI, true>(a, p, smem, st)
+                     : rsnn_train_launch_s<TRI, false>(a, p, smem, st);
 }
 
 template <bool TRI, int W>

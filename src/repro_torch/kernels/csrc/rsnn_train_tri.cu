@@ -9,7 +9,8 @@
 
 // rsnn_train_kernel under the triangular surrogate.
 template <int W, bool SMEM_TRACES>
-__global__ void rsnn_train_tri_kernel(TrainArgs a, TickParams p) {
+__global__ void __launch_bounds__(RSNN_TRAIN_THREADS, 1)
+    rsnn_train_tri_kernel(TrainArgs a, TickParams p) {
   rsnn_train_row<W, SMEM_TRACES, true>(a, p);
 }
 
@@ -38,7 +39,7 @@ struct RsnnTraceKernels<true> {
 
 template int rsnn_forward_dispatch<true>(const ForwardArgs&, const TickParams&, int, size_t,
                                          cudaStream_t);
-template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int, int, size_t,
+template int rsnn_train_dispatch<true>(const TrainArgs&, const TickParams&, int, size_t,
                                        cudaStream_t);
 template int rsnn_train_exact_dispatch<true>(const ExactArgs&, const TickParams&, size_t,
                                              cudaStream_t);

@@ -3,16 +3,21 @@ e-prop update — with their plain PyTorch versions (counterpart of
 :mod:`repro.kernels.eprop_update`).
 
 * :func:`rsnn_train_cuda` — ``rsnn_train_kernel``: the ``train_tile`` op.
-  One block per batch row: one warp runs the row's LIF recurrence on the
-  event-driven warp-per-row loop while the other warps run what does not
-  feed back into it (each tick's input current, the ``xbar`` filter, then
-  the readout over all ticks with the error evaluated in-kernel —
-  ``softmax(y·s) − y*`` or ``y·s − amp·y*``, masked by ``valid``,
-  ``s = 1/threshold`` in quantized mode); the row's trace set stays in
-  shared memory where it fits (:func:`~repro_torch.kernels.rsnn_step.
-  train_plan`), else in a device scratch; then the block runs the row's
-  reverse pass.  Returns ``(dw_in, dw_rec, dw_out, acc_y (B, O),
-  n_spk (B, 1))``, and the trace set when asked.
+  Each batch row runs on a thread-block cluster
+  (:func:`~repro_torch.kernels.rsnn_step.train_plan`: eight blocks at
+  END_S's one row, one at the END_B tile).  Its leader block sums every
+  tick's input current, then one warp runs the row's LIF recurrence on the
+  event-driven warp-per-row loop, writing ``h`` and the spike masks a tick
+  block at a time, while other warps follow it through ``mbarrier`` barriers:
+  the readout with the error evaluated in-kernel (``softmax(y·s) − y*``
+  or ``y·s − amp·y*``, masked by ``valid``, ``s = 1/threshold`` in
+  quantized mode), the ``pbar`` and ``zbar`` filters from the spike masks,
+  and the ``xbar`` filter.  The row's trace set stays in shared memory
+  where it fits, and the cluster's other blocks mirror it tick block by
+  tick block; else it goes to a device scratch, one block a row.  Then
+  every block runs the F walk and its share of the ``dw`` sums.  Returns
+  ``(dw_in, dw_rec, dw_out, acc_y (B, O), n_spk (B, 1))``, and the trace
+  set when asked.
 * :func:`eprop_update_cuda` — the reverse pass alone over ``(T, B, ·)``
   traces in device memory (the ``eprop_update`` op of the split
   pipeline): one thread per (row, neuron) for F, then one per (row, dw
@@ -40,8 +45,8 @@ e-prop update — with their plain PyTorch versions (counterpart of
   ``rsnn_train``'s: the error goes through ``expf`` and ``L`` sums its
   products in another order than ``torch.matmul``).
 
-Both reverse passes run the same device functions (``csrc/rsnn_train.cu``):
-over ticks ``T-1..0``::
+Both reverse passes compute, over ticks ``T-1..0``, each ``dw`` element
+summed by one thread in that order (``csrc/rsnn_train.cu``)::
 
   F[t]   = err[t] @ B_fbᵀ + κ·F[t+1]
   dW_in  = Σ_t xbar[t]ᵀ (h[t]∘F[t])
@@ -58,8 +63,9 @@ deterministic END_B path: :data:`~repro_torch.core.quant.DW_COMMIT_SPEC`)
 ``rsnn_train`` ends in ``rsnn_dw_codes_reduce_kernel`` instead: each row's
 partial is snapped to ``clamp(round(x / lsb), -2^(bits-1), 2^(bits-1)-1)``
 and the int32 codes are summed (:func:`dw_codes`).  A row's partial is
-that sample's ``B=1`` ``dw`` (one block a row, a plan that does not
-depend on ``B``), and integer sums do not depend on their order, so the
+that sample's ``B=1`` ``dw`` (whatever cluster the plan gives a row at
+this ``B``: each element is summed by one thread in the same order), and
+integer sums do not depend on their order, so the
 codes of a batch equal the summed codes of any split of it: a commit is
 bitwise the same on 1, 4 or 8 ranks.  The sums wrap at ``2^31`` as the
 reference's int32 sums do: at 24 bits, 256 rows of full-scale codes (the
@@ -268,6 +274,15 @@ def _check_train_args(op, raster, y_star, valid, w_in, w_rec, w_out, b_fb, error
     return T, B, N, H, O
 
 
+# The roles ``rsnn_train_cuda(clocks=...)`` records, in the kernel's order
+# (RSNN_TRAIN_CLOCK_ROLES in csrc/rsnn_train.cuh): each role's first start
+# and last end for row 0 (the leader's setup (staging, the barriers and
+# the input currents), chain, xbar filter, first filter warp and first readout warp; the F walk and dw sums of the first
+# block that runs them, the leader or block 1; block 1's mirror).
+TRAIN_CLOCK_ROLES = ("setup", "chain", "xbar", "filters", "readout", "F walk", "dw sums",
+                     "mirror")
+
+
 def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     alpha: float, kappa: float, v_th: float = 1.0,
                     reset: str = "sub", boxcar_width: float = 0.5,
@@ -276,13 +291,19 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
                     error: str = "softmax", target_amplitude: float = 1.0,
                     infer_window: str = "valid", return_traces: bool = False,
                     commit_grid: Optional[QuantSpec] = None,
-                    return_partials: bool = False):
+                    return_partials: bool = False,
+                    clocks: Optional[torch.Tensor] = None):
     """Launch ``rsnn_train_kernel`` (``rsnn_train_tri_kernel`` under the
     triangular surrogate; then the row-order ``dw`` reduction, or with
     ``commit_grid`` ``rsnn_dw_codes_reduce_kernel``) on the current stream
     of the tensors' device → the outputs of :func:`rsnn_train_plain`;
     ``return_partials`` appends the ``(B, E)`` per-row ``dw`` buffer the
-    reduction read.  Checks device, dtype, shape, contiguity and the
+    reduction read.  The layout is :func:`~repro_torch.kernels.rsnn_step.
+    train_plan`'s at ``(T, B)``; no output depends on it.  ``clocks``, a
+    contiguous int64 tensor of shape ``(len(TRAIN_CLOCK_ROLES), 2)`` on
+    the card, receives the ``clock64()`` readings of row 0's roles as each
+    begins and ends its work (how the time splits by role; block 1's on
+    its own SM's clock).  Checks device, dtype, shape, contiguity and the
     surrogate; raises on a refused launch."""
     from repro_torch.kernels import build
 
@@ -310,7 +331,9 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
         return (*out, traces()) if return_traces else out
     lib = build.library()
     c = _consts(alpha, kappa, v_th, reset, quant)
-    plan = train_plan(T, N, H, O)
+    plan = train_plan(T, N, H, O, B)
+    if clocks is not None:
+        check_arg("clocks", clocks, (len(TRAIN_CLOCK_ROLES), 2), dev, torch.int64)
     # the device path's scratch: the traces and G; on chip, only a copy of
     # the traces when the caller asks for them
     tr = traces() if return_traces or not plan.traces_smem else None
@@ -326,12 +349,13 @@ def rsnn_train_cuda(raster, y_star, valid, w_in, w_rec, w_out, b_fb, *,
     lsb, bits = (0.0, 0) if commit_grid is None else (commit_grid.lsb, commit_grid.bits)
     with torch.cuda.device(dev):
         rc = lib.rsnn_train_launch(
-            *ptrs, T, B, N, H, O, plan.threads, int(plan.weights_smem),
-            int(plan.traces_smem), int(infer_window == "all"),
+            *ptrs, T, B, N, H, O, plan.threads, plan.cluster, plan.ticks,
+            int(plan.weights_smem), int(plan.traces_smem), int(infer_window == "all"),
             ctypes.c_longlong(plan.smem_bytes), *datapath_scalars(c),
             *surrogate_scalars(surrogate, boxcar_width, gamma, c["v_th"]),
             ctypes.c_float(y_scale), ctypes.c_float(target_amplitude),
-            int(error == "softmax"), ctypes.c_float(lsb), int(bits), stream_arg(dev))
+            int(error == "softmax"), ctypes.c_float(lsb), int(bits),
+            clocks.data_ptr() if clocks is not None else None, stream_arg(dev))
     raise_on(lib, rc, "rsnn_train")
     launches["rsnn_train"] += 1
     if commit_grid is not None:

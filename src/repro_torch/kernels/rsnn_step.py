@@ -33,9 +33,10 @@ threads and the 227 KB of shared memory a block may use on an H100:
 * :func:`serve_plan` — the serving kernels: rows a block (a warp each),
   threads, ticks a chunk, and whether the f32 weights stage in shared
   memory beside the chunk;
-* :func:`train_plan` — ``rsnn_train``, one row a block: the row's whole
-  trace set stays in shared memory where it fits, and goes to a device
-  scratch where it does not;
+* :func:`train_plan` — ``rsnn_train``: the row's whole trace set stays in
+  shared memory where it fits, and the row spans a thread-block cluster
+  at small B; it goes to a device scratch, one block a row, where it does
+  not fit;
 * :func:`train_exact_plan` — ``rsnn_train_exact``: the blocks a row (a
   thread-block cluster, and groups of clusters at the widest nets), the
   ring of tick blocks in shared memory, the walker threads' lines;
@@ -69,10 +70,15 @@ from repro_torch.kernels.launch import (
 
 F32_BYTES = 4
 
-# Threads of an rsnn_train block: the block of its one row runs the
-# forward phases and then spreads the reverse pass's dw elements (2,014 at
-# Braille width) over its threads.
-REVERSE_MIN_THREADS = THREADS_PER_BLOCK // 4
+# rsnn_train's layout (RSNN_TRAIN_* in csrc/rsnn_train.cuh): the threads
+# of a block (512: the chain, two readout warps, the xbar warp and nine
+# filter warps, a thread for each of the chip's 256 neurons; and the dw
+# sums over all of them, at most 128 registers a thread), the ticks of a
+# block of the chain, and the largest cluster of blocks a row (the
+# portable size).
+TRAIN_THREADS = THREADS_PER_BLOCK // 2
+TRAIN_TICKS = 16
+TRAIN_MAX_CLUSTER = 8
 # Warps of an rsnn_forward block besides its loop warps (one a row): they
 # run the xbar filters beside the loops, and share the input sums, the
 # readout and the spike streams with them (a one-row block has 256 threads).
@@ -102,13 +108,18 @@ def weights_bytes(n_in: int, n_hid: int, n_out: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TrainPlan:
-    """One ``rsnn_train`` launch: one block of ``threads`` per batch row;
-    the row's trace set in shared memory (``traces_smem``) or in a device
-    scratch, the f32 weights in shared memory where they fit;
-    ``smem_bytes`` of dynamic shared memory (the kernel refuses a launch
-    whose plan disagrees with its own layout)."""
+    """One ``rsnn_train`` launch: each batch row on a thread-block cluster
+    of ``cluster`` blocks of ``threads``; the chain in blocks of ``ticks``
+    ticks (two mbarriers each); the row's trace set in shared memory
+    (``traces_smem``), where the other blocks of the cluster mirror it, or
+    in a device scratch (then one block a row); the f32 weights in shared
+    memory where they fit; ``smem_bytes`` of dynamic shared memory a block
+    (the kernel refuses a launch whose plan disagrees with its own
+    layout)."""
 
     threads: int
+    cluster: int
+    ticks: int
     traces_smem: bool
     weights_smem: bool
     smem_bytes: int
@@ -125,13 +136,25 @@ def spike_mask_bytes(T: int, n_hid: int) -> int:
     return F32_BYTES * T * cdiv(n_hid, 32)
 
 
-def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
-    """Every block keeps the row's valid mask (T floats) and its spike
-    masks (one word per 32 neurons a tick) in shared memory; the row's
-    trace set goes there too, with the weights, when both fit; otherwise it
-    goes to a device scratch, and the weights stay in shared memory if they
-    fit beside the masks."""
-    base = F32_BYTES * T + spike_mask_bytes(T, n_hid)
+def train_barrier_bytes(T: int, ticks: int) -> int:
+    """A block's mbarriers: two a block of ``ticks`` ticks, 8 bytes each."""
+    return 16 * cdiv(T, ticks)
+
+
+def train_plan(T: int, n_in: int, n_hid: int, n_out: int, B: int = 1) -> TrainPlan:
+    """``rsnn_train`` at ``(T, B)``.  Every block keeps its mbarriers, the
+    row's valid mask (T floats) and its spike masks (one word per 32
+    neurons a tick) in shared memory; the row's trace set goes there too,
+    with the weights, when both fit; otherwise it goes to a device
+    scratch, and the weights stay in shared memory if they fit beside the
+    masks.  With the trace set on chip a row spans a cluster: while ``B``
+    rows of a wider cluster still fit the card's SMs at once, the cluster
+    doubles, up to :data:`TRAIN_MAX_CLUSTER` (the dw sums of a row spread
+    over more SMs); one block a row on the device scratch.  The plan
+    depends on (T, N, H, O, B) alone, and no result depends on it: every
+    dw element is summed by one thread in the same order."""
+    base = (train_barrier_bytes(T, TRAIN_TICKS) + F32_BYTES * T
+            + spike_mask_bytes(T, n_hid))
     weights = weights_bytes(n_in, n_hid, n_out)
     traces = train_trace_bytes(T, n_in, n_hid, n_out)
     if base > SMEM_PER_BLOCK:
@@ -140,8 +163,11 @@ def train_plan(T: int, n_in: int, n_hid: int, n_out: int) -> TrainPlan:
     traces_smem = base + weights + traces <= SMEM_PER_BLOCK
     weights_smem = base + weights <= SMEM_PER_BLOCK
     used = base + (weights if weights_smem else 0) + (traces if traces_smem else 0)
-    return TrainPlan(threads=REVERSE_MIN_THREADS, traces_smem=traces_smem,
-                     weights_smem=weights_smem, smem_bytes=used)
+    cluster = 1
+    while traces_smem and cluster < TRAIN_MAX_CLUSTER and B * 2 * cluster <= H100_SMS:
+        cluster *= 2
+    return TrainPlan(threads=TRAIN_THREADS, cluster=cluster, ticks=TRAIN_TICKS,
+                     traces_smem=traces_smem, weights_smem=weights_smem, smem_bytes=used)
 
 
 # rsnn_train_exact's layout (RSNN_EXACT_* in csrc/rsnn_train.cuh): lines a

@@ -523,6 +523,105 @@ def test_train_kernel_device_trace_path_at_long_T(B, quantized, cuda_device):
     _check_train_kernel(args, kw, quantized)
 
 
+def _train_layout(monkeypatch, plan, T, cluster, ticks):
+    """Make ``rsnn_train_cuda`` launch ``plan`` (at T ticks) with another
+    cluster and tick block, its shared-memory bytes those of the new tick
+    block."""
+    smem = (plan.smem_bytes - rsnn_step.train_barrier_bytes(T, plan.ticks)
+            + rsnn_step.train_barrier_bytes(T, ticks))
+    forced = dataclasses.replace(plan, cluster=cluster, ticks=ticks, smem_bytes=smem)
+    monkeypatch.setattr(eprop_update, "train_plan", lambda *a, **k: forced)
+
+
+def _train_outputs(args, kw):
+    """One layout's outputs: ``dw``, ``acc_y``, ``n_spk``, the per-row
+    partials and the traces, then the codes on the commit grid."""
+    from repro_torch.core.quant import DW_COMMIT_SPEC as G
+
+    out = eprop_update.rsnn_train_cuda(*args, **kw, return_partials=True,
+                                       return_traces=True)
+    codes = eprop_update.rsnn_train_cuda(*args, **kw, commit_grid=G, return_partials=True)
+    return [*out[:6], *(out[6][k] for k in eprop_update.TRACE_KEYS), *codes[:3], codes[5]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surrogate", ["boxcar", "triangular"])
+@pytest.mark.parametrize("B", [1, 2, 70])
+@pytest.mark.parametrize("T", [1, 31, 128, 256, 425])
+def test_train_kernel_layouts_give_the_same_bits_on_card(T, B, surrogate, cuda_device,
+                                                         monkeypatch):
+    """Quantized ``rsnn_train`` at every layout its launcher takes: a row
+    on 1, 2, 4 or 8 blocks of a cluster (with the trace set in shared
+    memory; one block on the device scratch at T=425) and tick blocks of
+    1, 16 and 32 ticks give the bits of the one-block layout: ``dw``, each
+    row's partial, ``acc_y``, ``n_spk``, the traces, and the codes on the
+    commit grid with their partials; and the plain version's (``acc_y``,
+    ``n_spk``, ``h, xbar, pbar, zbar`` bitwise, ``dw`` within ``DW_TOL``,
+    ``err`` within ``ERR_TOL``)."""
+    cfg, args, kw = _train_full((12, 38, 3), 0.3, T, B, True, cuda_device, seed=T + B)
+    if surrogate == "triangular":
+        kw.update(surrogate="triangular", gamma=0.3)
+    plan = rsnn_step.train_plan(T, 12, 38, 3, B)
+    assert plan.traces_smem == (T <= 424)
+    assert plan.cluster == (1 if B == 70 or not plan.traces_smem else 8)
+    _train_layout(monkeypatch, plan, T, 1, plan.ticks)
+    ref = _train_outputs(args, kw)
+    layouts = [(c, plan.ticks) for c in (2, 4, 8)] + [(8, 1), (2, 32), (1, 32)]
+    for cluster, ticks in layouts if plan.traces_smem else [(1, 1), (1, 32)]:
+        _train_layout(monkeypatch, plan, T, cluster, ticks)
+        got = _train_outputs(args, kw)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert torch.equal(a, b), (cluster, ticks, i)
+    monkeypatch.undo()
+    ops.reset_launch_counts()
+    assert all(torch.equal(a, b) for a, b in zip(_train_outputs(args, kw), ref))
+    assert ops.launches["rsnn_train"] == 2
+    want = eprop_update.rsnn_train_plain(*args, **kw, return_traces=True)
+    _check_dw(ref[:3], want[:3])
+    for a, b in zip(ref[3:5], want[3:5]):
+        _check(a, b, True)
+    for i, k in enumerate(eprop_update.TRACE_KEYS):
+        if k == "err":
+            np.testing.assert_allclose(ref[6 + i].cpu().numpy(), want[5][k].cpu().numpy(),
+                                       **ERR_TOL)
+        else:
+            _check(ref[6 + i], want[5][k], True)
+
+
+@pytest.mark.cuda
+def test_train_clocks_and_refused_plans_on_card(cuda_device, monkeypatch):
+    """``clocks=`` records every role of row 0 (block 1 too, at END_S's
+    eight blocks a row) and leaves the outputs' bits alone; a launch whose
+    plan the kernel does not lay out (a cluster of 3 or 16, a cluster on
+    the device scratch, no ticks a block, other threads or bytes) raises,
+    with no fallback, and counts nothing."""
+    cfg, args, kw = _train_full((12, 38, 3), 0.3, 128, 1, True, cuda_device, seed=5)
+    clocks = torch.zeros((len(eprop_update.TRAIN_CLOCK_ROLES), 2), dtype=torch.int64,
+                         device=cuda_device)
+    got = eprop_update.rsnn_train_cuda(*args, **kw, clocks=clocks)
+    want = eprop_update.rsnn_train_cuda(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    c = clocks.cpu()
+    assert bool((c > 0).all()) and bool((c[:, 1] > c[:, 0]).all())
+    with pytest.raises(ValueError, match="clocks"):
+        eprop_update.rsnn_train_cuda(*args, **kw, clocks=clocks[:1])
+    plan = rsnn_step.train_plan(128, 12, 38, 3, 1)
+    long_args = _train_full((12, 38, 3), 0.3, 512, 1, True, cuda_device, seed=6)[1]
+    long_plan = rsnn_step.train_plan(512, 12, 38, 3, 1)
+    for bad, a in ((dataclasses.replace(plan, cluster=3), args),
+                   (dataclasses.replace(plan, cluster=16), args),
+                   (dataclasses.replace(long_plan, cluster=2), long_args),
+                   (dataclasses.replace(plan, ticks=0), args),
+                   (dataclasses.replace(plan, threads=256), args),
+                   (dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 4), args)):
+        monkeypatch.setattr(eprop_update, "train_plan", lambda *x, p=bad, **k: p)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="rsnn_train launch failed"):
+            eprop_update.rsnn_train_cuda(*a, **kw)
+        assert ops.launches["rsnn_train"] == 0
+
+
 # rsnn_forward's shapes: END_S's one row, a ragged END_B-sized batch, 2,048
 # rows (two a block; a ragged last block at 2,001), T=512 (row buffers
 # still in shared memory), T=4,096 (row buffers in the device streams;

@@ -411,12 +411,63 @@ def test_train_plan_places_the_trace_set(dims, T, on_chip):
     assert plan.traces_smem == on_chip
     assert plan.weights_smem == (dims != (256, 256, 16))
     assert plan.smem_bytes <= rsnn_step.SMEM_PER_BLOCK
-    words = (T * (1 + -(-h // 32))
+    words = (4 * -(-T // plan.ticks) + T * (1 + -(-h // 32))
              + plan.weights_smem * rsnn_step.weight_elems(n, h, o)
              + plan.traces_smem * T * (3 * h + n + o))
     assert plan.smem_bytes == 4 * words
     assert rsnn_step.train_trace_bytes(T, n, h, o) == 4 * T * (3 * h + n + o)
     assert plan.threads >= 64 and plan.threads % 32 == 0   # a loop warp + the rest
+
+
+# The shared-memory layout of csrc/rsnn_train.cuh:rsnn_train_smem_floats,
+# in 4-byte words: two mbarriers a tick block, the valid and spike masks,
+# the weights when staged, the trace set when on chip.
+def _train_smem_words(T, n, h, o, ticks, weights_smem, traces_smem):
+    w = n * h + h * h + h * o if weights_smem else 0
+    tr = T * (3 * h + n + o) if traces_smem else 0
+    return 4 * -(-T // ticks) + T * (1 + -(-h // 32)) + w + tr
+
+
+@pytest.mark.parametrize("dims", [(12, 38, 3), (40, 100, 2), (256, 256, 16), (7, 9, 1)])
+@pytest.mark.parametrize("T", [1, 31, 128, 256, 424, 425, 512])
+@pytest.mark.parametrize("B", [1, 2, 16, 17, 70, 512])
+def test_train_plan_clusters_small_batches(dims, T, B):
+    """``train_plan`` at (T, B): the blocks fit shared memory on either
+    route; a row spans a cluster of 1, 2, 4 or 8 blocks, more than one only
+    with the trace set on chip, the widest whose ``B`` rows still fit the
+    card's SMs twice over (eight at END_S's one row, one at the END_B
+    tile); the bytes are the layout the kernel checks; the plan is a
+    function of (T, N, H, O, B) alone, and B moves nothing but the
+    cluster."""
+    n, h, o = dims
+    plan = rsnn_step.train_plan(T, n, h, o, B)
+    assert plan.smem_bytes <= rsnn_step.SMEM_PER_BLOCK
+    assert plan.smem_bytes == 4 * _train_smem_words(T, n, h, o, plan.ticks,
+                                                    plan.weights_smem, plan.traces_smem)
+    assert plan.threads == rsnn_step.TRAIN_THREADS and plan.ticks >= 1
+    assert plan.cluster in (1, 2, 4, 8)
+    if not plan.traces_smem:
+        assert plan.cluster == 1
+    else:
+        assert plan.cluster == 1 or B * plan.cluster <= rsnn_step.H100_SMS
+        assert plan.cluster == 8 or B * 2 * plan.cluster > rsnn_step.H100_SMS
+    if B == 1 and plan.traces_smem:
+        assert plan.cluster == 8
+    if B == 70:
+        assert plan.cluster == 1
+    assert rsnn_step.train_plan(T, n, h, o, B) == plan
+    assert dataclasses.replace(rsnn_step.train_plan(T, n, h, o, 1), cluster=plan.cluster) \
+        == plan
+
+
+def test_train_plan_keeps_braille_on_chip_to_t424():
+    """The mbarriers leave Braille's trace set in shared memory up to
+    T=424, as before them (88 bytes to spare), and on the device scratch
+    from T=425."""
+    assert rsnn_step.train_plan(424, 12, 38, 3).traces_smem
+    assert rsnn_step.SMEM_PER_BLOCK - rsnn_step.train_plan(424, 12, 38, 3).smem_bytes == 88
+    assert not rsnn_step.train_plan(425, 12, 38, 3).traces_smem
+    assert rsnn_step.train_barrier_bytes(424, rsnn_step.TRAIN_TICKS) == 16 * 27
 
 
 def test_train_event_flops_count_events_and_the_dense_reverse():
